@@ -18,16 +18,22 @@ toolkit (``nvcc``) and Triton, and exits non-zero on any failure.  Phases:
      in fp32).  Every bf16 output is also held element by element (see
      BF16_ELEMENT_TOL).  One line per kernel and shape: error, the kernel's median time, the
      plain version's time, one library call's time where one exists, and the
-     launches made.
+     launches made.  flash_attention and moe_gmm each have two kernels, picked
+     by rule (``route``): every bf16 call here must be counted on the
+     tensor-core route (``wgmma``) and every fp32 call on the CUDA-core route
+     (``simt``), save the one bf16 GEMM whose strides TMA cannot describe.
   3. broker: ``Hydra(device="cuda")`` with a cloud (CaaS) and an HPC (pilot)
      provider on the card runs a backlog of noop tasks, kernel tasks at the
      registry's full shapes and one 2-rep task per model width, with the
      event and ledger cross-checks on.  Every task must end DONE, the
      ``kernel.exec`` events must reconcile with the broker's counters, and
-     each kernel's launch counter must rise by exactly the reps dispatched.
+     each kernel's launch counter must rise by exactly the reps dispatched,
+     the bf16 model-width reps on the ``wgmma`` route and the fp32 ones on
+     ``simt``.
   4. report: the card line, one JSON line of the kernels (route, source, the
-     TPU kernel each replaces, launches in phase 3, model-width error and
-     times beside the roofline bound), and the device line last.
+     TPU kernel each replaces, launches in phase 3 in total and by kernel
+     route, model-width error and times beside the roofline bound), and the
+     device line last.
 """
 import json
 import os
@@ -84,7 +90,23 @@ ATTN_VARIANTS = [
     ({"B": 1, "H": 2, "KV": 2, "L": 192, "hd": 128, "causal": False, "window": None}, "non_causal_hd128"),
     ({"B": 1, "H": 4, "KV": 1, "L": 256, "hd": 256, "causal": True, "window": 64}, "mqa_windowed_hd256"),
     ({"B": 1, "H": 2, "KV": 2, "L": 192, "hd": 256, "causal": False, "window": None}, "non_causal_hd256"),
+    # a length that is not a multiple of the 128-row q tile, windowed: TMA
+    # clips the last K/V tiles at the edge of each head
+    ({"B": 1, "H": 4, "KV": 2, "L": 320, "hd": 128, "causal": True, "window": 100}, "ragged_windowed_hd128"),
+    ({"B": 1, "H": 4, "KV": 1, "L": 320, "hd": 256, "causal": True, "window": 100}, "ragged_windowed_hd256"),
 ]
+
+# bf16 GEMMs off the tile grid: C, D and F ragged (TMA clips per expert; w
+# read through the transpose bit), and F = 100, whose 200-byte row stride TMA
+# cannot describe, so the rule sends it to the simt kernel
+GMM_CASES = [
+    ({"E": 4, "C": 64, "D": 128, "F": 256}, "sweep"),
+    ({"E": 3, "C": 80, "D": 96, "F": 200}, "ragged"),
+    ({"E": 3, "C": 80, "D": 96, "F": 100}, "ragged_f100"),
+]
+
+# the kernels with a tensor-core and a CUDA-core route
+ROUTED = ("flash_attention", "moe_gmm")
 
 
 def card_line() -> str:
@@ -148,14 +170,31 @@ def library_call(torch, name: str, shape: dict, args: tuple):
     return None
 
 
+def expected_route(name: str, shape: dict, dtype: str):
+    """The route a call must take: bf16 on the tensor cores where TMA can
+    describe the strides (all but the F = 100 GEMM), fp32 on the CUDA cores."""
+    if name not in ROUTED:
+        return None
+    if dtype == "bfloat16" and not (name == "moe_gmm" and shape["F"] * 2 % 16):
+        return "wgmma"
+    return "simt"
+
+
 def check_kernel(torch, kreg, ops, name, shape, dtype, seed, tol, relative, label, dev, timed=True, config=None):
-    """Kernel vs plain version on the card; raises past ``tol``."""
+    """Kernel vs plain version on the card; raises past ``tol`` or if the
+    call took another route than ``expected_route``."""
     kdef = kreg.get_kernel(name)
     config = config or kdef.defaults(shape)
     args = kdef.make_args(shape, dtype, seed, dev)
     before = ops.launch_counts()[name]
+    routes_before = ops.route_launch_counts().get(name)
     got = as_tuple(kdef.call(shape, args, config))
     torch.cuda.synchronize()
+    route = expected_route(name, shape, dtype)
+    if route is not None:
+        took = {r: n - routes_before[r] for r, n in ops.route_launch_counts()[name].items()}
+        if took != {r: int(r == route) for r in took}:
+            raise AssertionError(f"{name} {label}: launches by route {took}, want one on {route}")
     want = as_tuple(kdef.ref(shape, args))
     for g, w in zip(got, want):
         if g.shape != w.shape or g.dtype != w.dtype or g.device != w.device:
@@ -173,7 +212,7 @@ def check_kernel(torch, kreg, ops, name, shape, dtype, seed, tol, relative, labe
     scale = max(float(w.float().abs().max()) for w in want) if relative else 1.0
     if not err / scale <= tol:
         raise AssertionError(f"{name} {label}: error {err / scale:.3e} over tolerance {tol:g}")
-    row = {"kernel": name, "case": label, "dtype": dtype, "max_abs_err": err, "rel_err": err / scale if relative else None}
+    row = {"kernel": name, "case": label, "dtype": dtype, "route": route, "max_abs_err": err, "rel_err": err / scale if relative else None}
     if timed:
         row["ms"] = median_ms(torch, lambda: kdef.call(shape, args, config))
         row["plain_ms"] = median_ms(torch, lambda: kdef.ref(shape, args), max_reps=5)
@@ -235,9 +274,12 @@ def run_broker(torch, kreg, ops, Hydra, ProviderSpec, Task, TaskState):
     tasks = noops + [t for t, *_ in kernel_tasks]
     want_reps = {n: 0 for n in names}
     want_execs = {n: 0 for n in names}
-    for t, n, _, _ in kernel_tasks:
+    want_routes = {n: {"simt": 0, "wgmma": 0} for n in ROUTED}
+    for t, n, shape, dtype in kernel_tasks:
         want_reps[n] += t.payload["reps"]
         want_execs[n] += 1
+        if n in ROUTED:
+            want_routes[n][expected_route(n, shape, dtype)] += t.payload["reps"]
 
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -245,6 +287,7 @@ def run_broker(torch, kreg, ops, Hydra, ProviderSpec, Task, TaskState):
     done, pending = cf.wait(tasks, timeout=900)
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
+    routes = ops.route_launch_counts()
     if pending:
         raise AssertionError(f"broker: {len(pending)} tasks unfinished after 900 s")
     states = {}
@@ -268,14 +311,16 @@ def run_broker(torch, kreg, ops, Hydra, ProviderSpec, Task, TaskState):
         raise AssertionError(f"broker: kernel.exec events {events} do not reconcile with {want_execs}")
     if launches != want_reps:
         raise AssertionError(f"broker: launch counts {launches}, want the reps dispatched {want_reps}")
+    if routes != want_routes:
+        raise AssertionError(f"broker: launches by route {routes}, want {want_routes}")
     kernel_s = h.kernel_seconds
     h.shutdown(wait=True)  # strict: re-runs the event and ledger cross-checks
     print(
         f"broker tasks={len(tasks)} states={json.dumps(states)} wall_s={wall} tasks_per_s={len(tasks) / wall} "
-        f"kernel_s={kernel_s} launches={json.dumps(launches)}",
+        f"kernel_s={kernel_s} launches={json.dumps(launches)} routes={json.dumps(routes)}",
         flush=True,
     )
-    return launches
+    return launches, routes
 
 
 def main() -> int:
@@ -315,8 +360,9 @@ def main() -> int:
                 torch, kreg, ops, "flash_attention", shape, dtype, 1, tol, False, f"{label}_{dtype}", dev,
                 timed=False, config={"block_q": 64, "block_k": 64},
             )
-    for dtype, tol in (("float32", TIER_TOL), ("bfloat16", 2e-2)):
-        check_kernel(torch, kreg, ops, "moe_gmm", {"E": 4, "C": 64, "D": 128, "F": 256}, dtype, 1, tol, False, f"sweep_{dtype}", dev, timed=False)
+    for shape, label in GMM_CASES:
+        for dtype, tol in (("float32", TIER_TOL), ("bfloat16", 2e-2)):
+            check_kernel(torch, kreg, ops, "moe_gmm", shape, dtype, 1, tol, False, f"{label}_{dtype}", dev, timed=False)
     check_chunk_chaining(torch, ops, dev)
     widths = {}
     for name, model, shape, dtype in MODEL_WIDTHS:
@@ -328,7 +374,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # -- 3. broker ---------------------------------------------------------------
-    launches = run_broker(torch, kreg, ops, Hydra, ProviderSpec, Task, TaskState)
+    launches, routes = run_broker(torch, kreg, ops, Hydra, ProviderSpec, Task, TaskState)
 
     # -- 4. report ---------------------------------------------------------------
     report = []
@@ -337,7 +383,8 @@ def main() -> int:
         row = widths[name]
         report.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": row["max_abs_err"],
+            "launches": launches[name], "route_launches": routes.get(name), "width_route": row["route"],
+            "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "model": row["case"], "dtype": row["dtype"],

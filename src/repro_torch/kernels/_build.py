@@ -6,8 +6,8 @@ return ``cudaGetLastError()`` after the launch.  This module compiles a
 source with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/repro_torch/`` at the repository root, loads it with ``ctypes``, and
 declares the argument types of its functions.  A library is named by a hash
-of its source and flags, so an edited source is rebuilt and an unchanged one
-is loaded as it is.  The build runs at first use, once per process, under a
+of its source, every header in ``csrc/`` and the flags, so an edited source
+or header is rebuilt and an unchanged one is loaded as it is.  The build runs at first use, once per process, under a
 lock: several broker manager threads may reach a kernel at the same moment.
 
 Nothing here runs at import time: the CPU tests import every kernel module,
@@ -75,9 +75,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where the library of ``csrc/<name>.cu`` lives: named by a hash of the
+    source, of every header a source may include (``csrc/*.cuh``) and of the
+    flags, include paths among them."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def load(*names: str) -> list[ctypes.CDLL]:

@@ -12,16 +12,41 @@
 //
 // What bounds it on this card: at the model widths the port runs (hd 128 and
 // 256, L 4096) attention does ~1e11 multiply-adds on ~1e8 bytes, so it is
-// bound by operations, and the bound is the tensor cores' bf16 rate.  This
-// first kernel does its products on the CUDA cores in fp32 (exact against the
-// plain version at the fp32 tolerance); moving them to wgmma is later work.
+// bound by operations, and the bound is the tensor cores' bf16 rate.
 //
-// What the design does about it:
-//  * one block per (b*h, q tile); blocks run in any order, and the loop over
-//    k tiles inside the block takes the place of the TPU's sequential grid
-//    dimension.  The loop is bounded by the causal and window limits, so
-//    fully masked k tiles are never visited (the TPU kernel skipped their math
-//    but still copied them).
+// Two kernels, chosen by a rule in kernels/flash_attention.py (`route`):
+//
+// `wgmma` (bf16 operands): the products run on the tensor cores.
+//  * one block per (b*h, 128-row q tile), longest causal tiles first; two
+//    consumer warpgroups own 64 q rows each; one thread of a third
+//    (producer) warpgroup streams the K and V tiles with TMA (3-D tensor maps
+//    over (b*heads, L, hd), so a tile past L is clipped and zero-filled at
+//    the edge of its own head) into a ring of 2 stages in 128-byte-swizzled
+//    shared memory (64-byte at hd 32); the Q tile is loaded once.
+//    `setmaxnreg` moves registers from the producer to the consumers.
+//  * S = Q.K^T is a wgmma with both operands in shared memory.  The k-tile
+//    loop keeps the causal and window bounds, so fully masked tiles are never
+//    loaded; a warpgroup skips the math of a tile that is fully masked for
+//    its 64 rows, and masks element by element only on diagonal, window-edge
+//    and ragged tiles.
+//  * the online softmax runs in fp32 registers on the S accumulator.
+//  * O += P.V is a wgmma with P from registers (the S accumulator fragment
+//    converted in place to an A fragment) and V in shared memory, read
+//    MN-major through the transpose bit.  P is split into two bf16 parts,
+//    P_hi = bf16(P) and P_lo = bf16(P - P_hi), multiplied against the same V
+//    tile: rounding P once to bf16 puts a few early-row outputs (where a few
+//    keys cancel and the output is small) outside one bf16 step of the fp32
+//    result, and the split keeps P to ~16 bits for one extra product.
+//  * k tiles of 128 rows up to hd 128; at hd 256 the O accumulator takes 128
+//    registers a thread, so the k tile shrinks to 32 rows (the q tile
+//    stays): ptxas holds the consumers near 170 registers, and a 64-row tile
+//    spills more of the accumulator around each product and runs slower.
+//
+// `simt` (fp32 operands, whose checks ask for fp32 products: TF32 wgmma
+// keeps ~3 decimal digits): the products run on the CUDA cores.
+//  * one block per (b*h, q tile); the loop over k tiles inside the block
+//    takes the place of the TPU's sequential grid dimension, bounded by the
+//    causal and window limits.
 //  * the q, k and v tiles sit in shared memory as fp32, rows padded by one
 //    float so that the 4 threads sharing a q row and the 8 rows of a warp
 //    read different banks.  At hd 256 the tiles need ~100 KB, past the 48 KB
@@ -34,6 +59,8 @@
 #include <stdint.h>
 
 #include <cmath>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -189,18 +216,290 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B, int
   }
 }
 
+// ---------------------------------------------------------------------------
+// the wgmma route (bf16)
+// ---------------------------------------------------------------------------
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Built with -DFLASH_P_SPLIT=0 only to measure what the split of P costs
+// (kernels/p_split_cost.py); that build fails the bf16 element check.
+#ifndef FLASH_P_SPLIT
+#define FLASH_P_SPLIT 1
+#endif
+
+template <int HD>
+struct TcConfig {
+  static constexpr int BQ = 128;                   // q rows per block: two warpgroups x 64
+  static constexpr int BK = HD == 256 ? 32 : 128;  // k rows per tile
+  static constexpr int SW = HD >= 64 ? 128 : 64;   // swizzle: bytes per tile row
+  static constexpr int CH = SW / 2;                // columns per chunk of SW bytes
+  static constexpr int NCH = HD / CH;              // chunks across the head
+  static constexpr int KPC = SW / 32;              // k16 steps per chunk
+  static constexpr int STAGES = 2;
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int KV_BYTES = BK * HD * 2;     // one K or one V tile
+  static constexpr int THREADS = 384;              // 2 consumer warpgroups + the producer's
+  // tiles first (each a multiple of 1024 bytes), then the barriers; 1024 for alignment
+  static constexpr size_t SMEM = 1024 + Q_BYTES + 2 * STAGES * size_t(KV_BYTES) + 64;
+};
+
+// Scale, mask and exponentiate one S tile in place (S becomes P), update the
+// row max m, the partial row sums l, and rescale the O accumulator.
+template <int HD, bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&s)[TcConfig<HD>::BK / 2], float (&o)[HD / 2],
+                                             float (&m)[2], float (&l)[2], int t, int qw0, int kt,
+                                             int Lk, float scale, int causal, int has_window,
+                                             int window) {
+  constexpr int NS = TcConfig<HD>::BK / 2;
+  float mx[2] = {kNeg, kNeg};
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    float v = s[i] * scale;
+    if (MASK) {
+      const int qpos = qw0 + hopper::acc_row(t, i), kpos = kt + hopper::acc_col(t, i);
+      bool live = kpos < Lk;
+      if (causal) live = live && qpos >= kpos;
+      if (has_window) live = live && (qpos - kpos) < window;
+      v = live ? v : kNeg;
+    }
+    s[i] = v;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], v);
+  }
+  float corr[2], mk[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    corr[r] = exp2f((m[r] - m_new) * kLog2e);
+    m[r] = m_new;
+    mk[r] = m_new * kLog2e;
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int r = (i >> 1) & 1;
+    // a masked score is -1e30 exactly; exp(s - m) <= 1, so selecting on the
+    // mask and multiplying by it agree
+    float p = exp2f(fmaf(s[i], kLog2e, -mk[r]));
+    if (MASK) p = s[i] == kNeg ? 0.f : p;
+    s[i] = p;
+    l[r] += p;
+  }
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+}
+
+template <int HD>
+__global__ void __launch_bounds__(TcConfig<HD>::THREADS, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, int H,
+                int KV, int Lq, int Lk, float scale, int causal, int has_window, int window) {
+  using Cfg = TcConfig<HD>;
+  constexpr int BQ = Cfg::BQ, BK = Cfg::BK, SW = Cfg::SW, CH = Cfg::CH;
+  constexpr int NCH = Cfg::NCH, KPC = Cfg::KPC, STAGES = Cfg::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* Qs = smem;
+  uint8_t* Ks = Qs + Cfg::Q_BYTES;                   // STAGES tiles
+  uint8_t* Vs = Ks + STAGES * Cfg::KV_BYTES;         // STAGES tiles
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + STAGES * Cfg::KV_BYTES);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 1 + STAGES;
+  uint64_t* empty = bars + 1 + 2 * STAGES;
+
+  const int bh = blockIdx.y;  // b * H + h
+  const int b = bh / H, h = bh % H;
+  const int kvh = h * KV / H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // the longest causal rows first
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+
+  // keys that can be live for some row of this q tile: [k_lo, k_hi)
+  int k_lo = 0, k_hi = Lk;
+  if (causal) k_hi = min(Lk, q0 + BQ);
+  if (has_window) k_lo = max(0, q0 - window + 1);
+  const int kt0 = (k_lo / BK) * BK;
+  const int n_tiles = (k_hi - kt0 + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&empty[s], 2 * 128);  // every consumer thread releases
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: one thread streams Q once, then K and V tile by tile
+    hopper::regs_release<24>();
+    if (t == 0) {
+      hopper::prefetch_map(&qmap);
+      hopper::prefetch_map(&kmap);
+      hopper::prefetch_map(&vmap);
+      hopper::mbar_arrive_expect_tx(q_full, Cfg::Q_BYTES);
+      for (int c = 0; c < NCH; ++c) hopper::tma_load_3d(Qs + c * BQ * SW, &qmap, q_full, c * CH, q0, bh);
+      const int kvb = b * KV + kvh;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        if (j >= STAGES) hopper::mbar_wait(&empty[s], ((j / STAGES) - 1) & 1);
+        const int kt = kt0 + j * BK;
+        uint8_t* kd = Ks + s * Cfg::KV_BYTES;
+        uint8_t* vd = Vs + s * Cfg::KV_BYTES;
+        hopper::mbar_arrive_expect_tx(&k_full[s], Cfg::KV_BYTES);
+        for (int c = 0; c < NCH; ++c) hopper::tma_load_3d(kd + c * BK * SW, &kmap, &k_full[s], c * CH, kt, kvb);
+        hopper::mbar_arrive_expect_tx(&v_full[s], Cfg::KV_BYTES);
+        for (int c = 0; c < NCH; ++c) hopper::tma_load_3d(vd + c * BK * SW, &vmap, &v_full[s], c * CH, kt, kvb);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns q rows [qw0, qw0 + 64)
+    hopper::regs_claim<240>();
+    const int qw0 = q0 + 64 * wg;
+    float oacc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
+    float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+    const uint32_t q_addr = hopper::smem_u32(Qs) + wg * 64 * SW;
+    hopper::mbar_wait(q_full, 0);
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % STAGES;
+      const uint32_t ph = (j / STAGES) & 1;
+      const int kt = kt0 + j * BK;
+      // a tile fully masked for these 64 rows: every key after the last row
+      // (causal), or every key too old for the first row (window), or no row
+      // inside the sequence
+      const bool dead = (causal && kt > qw0 + 63) ||
+                        (has_window && qw0 - (kt + BK - 1) >= window) || qw0 >= Lq;
+      hopper::mbar_wait(&k_full[s], ph);
+      if (!dead) {
+        float sacc[BK / 2];
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) sacc[i] = 0.f;
+        const uint32_t k_addr = hopper::smem_u32(Ks + s * Cfg::KV_BYTES);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const int c = kk / KPC, off = (kk % KPC) * 32;
+          const uint64_t da = hopper::make_desc<SW>(q_addr + c * BQ * SW + off, 16, 8 * SW);
+          const uint64_t db = hopper::make_desc<SW>(k_addr + c * BK * SW + off, 16, 8 * SW);
+          hopper::WgmmaSS<BK, 0>::run(sacc, da, db, 1);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(sacc);
+
+        const bool need_mask = kt + BK > Lk || (causal && kt + BK - 1 > qw0) ||
+                               (has_window && (qw0 + 63) - kt >= window);
+        if (need_mask)
+          softmax_tile<HD, true>(sacc, oacc, m, l, t, qw0, kt, Lk, scale, causal, has_window, window);
+        else
+          softmax_tile<HD, false>(sacc, oacc, m, l, t, qw0, kt, Lk, scale, causal, has_window, window);
+
+        // P as A fragments of k16 steps: a[j] = (s[8kk + 2j], s[8kk + 2j + 1])
+        uint32_t p_hi[BK / 16][4], p_lo[BK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float p0 = sacc[8 * kk + 2 * r], p1 = sacc[8 * kk + 2 * r + 1];
+            const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+            p_hi[kk][r] = *reinterpret_cast<const uint32_t*>(&hi);
+            p_lo[kk][r] = hopper::pack_bf16(p0 - __low2float(hi), p1 - __high2float(hi));
+          }
+        }
+        hopper::mbar_wait(&v_full[s], ph);
+        const uint32_t v_addr = hopper::smem_u32(Vs + s * Cfg::KV_BYTES);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          const uint64_t db = hopper::make_desc<SW>(v_addr + kk * 16 * SW, BK * SW, 8 * SW);
+          hopper::WgmmaRS<HD, 1>::run(oacc, p_hi[kk], db, 1);
+          if (FLASH_P_SPLIT) hopper::WgmmaRS<HD, 1>::run(oacc, p_lo[kk], db, 1);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(oacc);
+      } else {
+        hopper::mbar_wait(&v_full[s], ph);  // the stage is released only once V has landed
+      }
+      hopper::mbar_arrive(&empty[s]);
+    }
+
+    float den[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      den[r] = fmaxf(l[r], 1e-37f);
+    }
+    __nv_bfloat16* ob = o + int64_t(bh) * Lq * HD;
+#pragma unroll
+    for (int i = 0; i < HD / 2; i += 2) {
+      const int qpos = qw0 + hopper::acc_row(t, i);
+      if (qpos < Lq) {
+        // __fdividef is inline (den is in [1e-37, Lk], inside its range); the
+        // IEEE division calls a slow-path routine, around which the live
+        // accumulator spills to the stack
+        const float d = den[(i >> 1) & 1];
+        *reinterpret_cast<__nv_bfloat162*>(ob + int64_t(qpos) * HD + hopper::acc_col(t, i)) =
+            __floats2bfloat162_rn(__fdividef(oacc[i], d), __fdividef(oacc[i + 1], d));
+      }
+    }
+  }
+}
+
+template <int HD>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int H, int KV, int Lq,
+                 int Lk, int causal, int has_window, int window, cudaStream_t stream) {
+  using Cfg = TcConfig<HD>;
+  CUtensorMap qmap, kmap, vmap;
+  int err = hopper::make_map_3d(&qmap, q, uint64_t(B) * H, Lq, HD, Cfg::BQ, Cfg::CH, Cfg::SW);
+  if (!err) err = hopper::make_map_3d(&kmap, k, uint64_t(B) * KV, Lk, HD, Cfg::BK, Cfg::CH, Cfg::SW);
+  if (!err) err = hopper::make_map_3d(&vmap, v, uint64_t(B) * KV, Lk, HD, Cfg::BK, Cfg::CH, Cfg::SW);
+  if (err) return err;
+  auto kernel = flash_fwd_wgmma<HD>;
+  cudaError_t cerr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(Cfg::SMEM));
+  if (cerr != cudaSuccess) return int(cerr);
+  const dim3 grid((Lq + Cfg::BQ - 1) / Cfg::BQ, B * H);
+  const float scale = float(1.0 / std::sqrt(double(HD)));  // as the reference rounds it
+  kernel<<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o),
+                                                     H, KV, Lq, Lk, scale, causal, has_window, window);
+  return int(cudaGetLastError());
+}
+
+int dispatch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int H, int KV, int Lq,
+                   int Lk, int hd, int causal, int has_window, int window, cudaStream_t stream) {
+  switch (hd) {
+    case 32: return launch_wgmma<32>(q, k, v, o, B, H, KV, Lq, Lk, causal, has_window, window, stream);
+    case 64: return launch_wgmma<64>(q, k, v, o, B, H, KV, Lq, Lk, causal, has_window, window, stream);
+    case 128: return launch_wgmma<128>(q, k, v, o, B, H, KV, Lq, Lk, causal, has_window, window, stream);
+    case 256: return launch_wgmma<256>(q, k, v, o, B, H, KV, Lq, Lk, causal, has_window, window, stream);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  has_window = 0 means no window mask.
+// dtype: 0 = float32, 1 = bfloat16.  route: 0 = simt (either dtype),
+// 1 = wgmma (bfloat16 only).  has_window = 0 means no window mask.
 // Returns cudaGetLastError() after the launch (0 on success).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
                         int Lq, int Lk, int hd, int causal, int has_window, int window, int dtype,
-                        int device, void* stream) {
+                        int route, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1 && dtype == 1) return dispatch_wgmma(q, k, v, o, B, H, KV, Lq, Lk, hd, causal, has_window, window, s);
+  if (route != 0) return int(cudaErrorInvalidValue);
   if (dtype == 0) return dispatch_hd<float>(q, k, v, o, B, H, KV, Lq, Lk, hd, causal, has_window, window, s);
   if (dtype == 1) return dispatch_hd<__nv_bfloat16>(q, k, v, o, B, H, KV, Lq, Lk, hd, causal, has_window, window, s);
   return int(cudaErrorInvalidValue);

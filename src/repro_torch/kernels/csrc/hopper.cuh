@@ -1,0 +1,272 @@
+// Hopper (sm_90a) building blocks shared by the tensor-core kernels:
+// TMA tensor maps built on the host, mbarrier waits, TMA tile loads, and
+// bf16 wgmma with fp32 accumulators.  Everything is PTX written by hand;
+// nothing here calls a library kernel.
+//
+// Shared-memory tiles use the swizzled layouts that TMA writes and wgmma
+// reads.  A tile of R rows whose rows are SW bytes long (SW = 64 or 128) is
+// stored as R rows of SW bytes, the 16-byte units of each row permuted by
+// the row's index mod 8 (CU_TENSOR_MAP_SWIZZLE_64B / _128B).  A matrix wider
+// than SW bytes is kept as several such column chunks, one after another.
+// Every tile starts on a 1024-byte boundary, the period of the 128-byte
+// swizzle, so a descriptor may step inside a row by adding bytes to its
+// start address.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+// ---------------------------------------------------------------------------
+// host: TMA tensor maps
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API function: reach it through the
+// runtime's entry-point query, so the library links against cudart alone.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A 3-D map over a contiguous bf16 array (outer, rows, cols), cols
+// innermost, read in boxes of (1, box_rows, box_cols) into shared memory
+// swizzled by `swizzle_bytes` (64 or 128, the bytes of one box row).  The
+// outer axis is the batch-like one (expert, or batch x head), so a box that
+// runs past `rows` is clipped at the edge of its own expert or head and
+// zero-filled there, instead of reading the next one's rows.  Returns 0 or
+// a CUDA error.
+inline int make_map_3d(CUtensorMap* map, const void* base, uint64_t outer, uint64_t rows,
+                       uint64_t cols, uint32_t box_rows, uint32_t box_cols, int swizzle_bytes) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return int(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[3] = {cols, rows, outer};
+  const cuuint64_t strides[2] = {cols * 2, rows * cols * 2};  // bytes, dims 1 and 2
+  const cuuint32_t box[3] = {box_cols, box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUtensorMapSwizzle sw =
+      swizzle_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
+// device: shared memory, mbarriers, TMA
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// make the initialised barriers visible to the async proxy (TMA) and to
+// the other threads; call from the initialising thread, then __syncthreads
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// arrive once and add `bytes` to the transactions the current phase waits for
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase with parity `parity` has completed.  A wait that
+// never ends (a barrier that is never completed) traps after ~2^30 polls,
+// seconds at the least, so a fault ends the launch with an error instead of
+// hanging the device.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0, polls = 0;
+  do {
+    if (++polls == (1u << 30)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 3-D map into shared memory; completion is counted on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                            int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// device: warpgroup register budget
+// ---------------------------------------------------------------------------
+
+template <int N>
+__device__ __forceinline__ void regs_release() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void regs_claim() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// device: wgmma
+// ---------------------------------------------------------------------------
+
+// Shared-memory matrix descriptor of a swizzled tile (SW = 64 or 128 bytes).
+//  K-major operand (K contiguous, rows of SW bytes): lbo unused, sbo = the
+//    stride between groups of 8 rows (8 * SW).
+//  MN-major operand (MN contiguous, used with the transpose bit): lbo = the
+//    stride between column chunks of SW bytes along MN, sbo = the stride
+//    between groups of 8 rows along K (8 * SW).
+template <int SW>
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  static_assert(SW == 64 || SW == 128, "swizzle of 64 or 128 bytes");
+  constexpr uint64_t layout = SW == 128 ? 1 : 2;
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
+         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of accumulator registers
+// across an asynchronous wgmma: call after wgmma_wait and before issuing.
+template <int M>
+__device__ __forceinline__ void fence_regs(float (&d)[M]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Accumulator layout of m64nNk16 with fp32 sums (d has N/2 registers):
+// thread t of the warpgroup holds d[i] at
+//   row = 16 * (t / 32) + (t % 32) / 4 + 8 * ((i / 2) % 2)
+//   col = 8 * (i / 4) + 2 * (t % 4) + i % 2
+__device__ __forceinline__ int acc_row(int t, int i) { return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * ((i >> 1) & 1); }
+__device__ __forceinline__ int acc_col(int t, int i) { return 8 * (i >> 2) + 2 * (t & 3) + (i & 1); }
+
+#define HOPPER_D8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
+                     "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define HOPPER_D16 HOPPER_D8(0), HOPPER_D8(8)
+#define HOPPER_D32 HOPPER_D16, HOPPER_D8(16), HOPPER_D8(24)
+#define HOPPER_D64 HOPPER_D32, HOPPER_D8(32), HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56)
+#define HOPPER_D128 HOPPER_D64, HOPPER_D8(64), HOPPER_D8(72), HOPPER_D8(80), HOPPER_D8(88), \
+                    HOPPER_D8(96), HOPPER_D8(104), HOPPER_D8(112), HOPPER_D8(120)
+
+#define HOPPER_R16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define HOPPER_R32 HOPPER_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define HOPPER_R64                                                                                 \
+  HOPPER_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+             "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define HOPPER_R128                                                                                \
+  HOPPER_R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+             "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "   \
+             "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "    \
+             "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "     \
+             "%123, %124, %125, %126, %127"
+
+// d (m64 x N, fp32) (+)= A (m64 x k16, bf16, shared, K-major) * B (k16 x N,
+// bf16, shared; K-major when TB = 0, MN-major when TB = 1).  scale_d = 0
+// overwrites d, 1 adds to it.
+template <int N, int TB>
+struct WgmmaSS;
+// d (+)= A (m64 x k16 bf16 in registers: the fragment a[4]) * B (shared).
+template <int N, int TB>
+struct WgmmaRS;
+
+#define HOPPER_SS(N, REGS, DLIST, IA, IB, IS, IT)                                                      \
+  template <int TB>                                                                                    \
+  struct WgmmaSS<N, TB> {                                                                              \
+    __device__ __forceinline__ static void run(float (&d)[N / 2], uint64_t da, uint64_t db,            \
+                                               int scale_d) {                                          \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IS ", 0;\n"                                    \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" REGS "}, %" IA ", %" IB \
+                   ", p, 1, 1, 0, %" IT ";\n}\n"                                                       \
+                   : DLIST                                                                             \
+                   : "l"(da), "l"(db), "r"(scale_d), "n"(TB));                                         \
+    }                                                                                                  \
+  };
+HOPPER_SS(32, HOPPER_R16, HOPPER_D16, "16", "17", "18", "19")
+HOPPER_SS(128, HOPPER_R64, HOPPER_D64, "64", "65", "66", "67")
+HOPPER_SS(256, HOPPER_R128, HOPPER_D128, "128", "129", "130", "131")
+#undef HOPPER_SS
+
+#define HOPPER_RS(N, REGS, DLIST, A0, A1, A2, A3, IB, IS, IT)                                     \
+  template <int TB>                                                                               \
+  struct WgmmaRS<N, TB> {                                                                         \
+    __device__ __forceinline__ static void run(float (&d)[N / 2], const uint32_t (&a)[4],         \
+                                               uint64_t db, int scale_d) {                        \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IS ", 0;\n"                               \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" REGS "}, {%" A0   \
+                   ", %" A1 ", %" A2 ", %" A3 "}, %" IB ", p, 1, 1, %" IT ";\n}\n"                \
+                   : DLIST                                                                        \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB)); \
+    }                                                                                             \
+  };
+HOPPER_RS(32, HOPPER_R16, HOPPER_D16, "16", "17", "18", "19", "20", "21", "22")
+HOPPER_RS(64, HOPPER_R32, HOPPER_D32, "32", "33", "34", "35", "36", "37", "38")
+HOPPER_RS(128, HOPPER_R64, HOPPER_D64, "64", "65", "66", "67", "68", "69", "70")
+HOPPER_RS(256, HOPPER_R128, HOPPER_D128, "128", "129", "130", "131", "132", "133", "134")
+#undef HOPPER_RS
+
+#undef HOPPER_D8
+#undef HOPPER_D16
+#undef HOPPER_D32
+#undef HOPPER_D64
+#undef HOPPER_D128
+#undef HOPPER_R16
+#undef HOPPER_R32
+#undef HOPPER_R64
+#undef HOPPER_R128
+
+// two fp32 values as one register of two bf16, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+}  // namespace hopper

@@ -1,9 +1,11 @@
 """Flash attention (forward) on Hopper: the launcher of ``csrc/flash_attention.cu``.
 
-Counterpart of ``repro/kernels/flash_attention.py``.  The kernel, its design
-and what bounds it are described at the top of the CUDA source.  This module
-launches it on CUDA tensors and counts the launches; ``kernels/ops.py``
-checks the operands and sends CPU tensors to the plain version instead.
+Counterpart of ``repro/kernels/flash_attention.py``.  The kernels, their
+design and what bounds them are described at the top of the CUDA source.
+This module picks one of its two kernels by :func:`route`, launches it on
+CUDA tensors and counts the launches, in total and by route;
+``kernels/ops.py`` checks the operands and sends CPU tensors to the plain
+version instead.
 
 The block sizes keep their TPU meaning in one respect only: the same
 divisibility rule holds (``min(block, L)`` must divide ``L``), so a shape the
@@ -22,10 +24,26 @@ DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
 HEAD_DIMS = (32, 64, 128, 256)  # the head widths the kernel is instantiated for
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {"simt": 0, "wgmma": 1}
 
 LAUNCHES = _build.LaunchCounter()
+ROUTE_LAUNCHES = {r: _build.LaunchCounter() for r in ROUTES}
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+
+
+def route(dtype: torch.dtype, shape: dict) -> str:
+    """Which kernel a launch takes, by rule and before it: ``"wgmma"`` (the
+    tensor cores, fed by TMA) for bf16 operands whose every global stride is
+    a multiple of 16 bytes, as a TMA tensor map requires; ``"simt"`` (fp32
+    products on the CUDA cores) for everything else, which keeps fp32 exact.
+    ``shape`` is a payload dict with the head width ``hd``.  A head width
+    the kernels are not built for raises."""
+    hd = shape["hd"]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel: head width {hd} not in {HEAD_DIMS}")
+    # the strides are hd and L*hd elements: hd*2 bytes a multiple of 16 covers both
+    return "wgmma" if dtype == torch.bfloat16 and (hd * 2) % 16 == 0 else "simt"
 
 
 def check_blocks(lq: int, lk: int, block_q: int, block_k: int) -> None:
@@ -48,15 +66,17 @@ def flash_attention(
     n_kv, lk = k.shape[1], k.shape[2]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention kernel: operands must be on a CUDA device, not {q.device}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel: head width {hd} not in {HEAD_DIMS}")
+    path = route(q.dtype, {"hd": hd})
+    if path == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention kernel: TMA needs operands on 16-byte boundaries")
     out = torch.empty_like(q)
     fn = _build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     code = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, h, n_kv, lq, lk, hd, int(causal), int(window is not None), int(window or 0),
-        DTYPES[q.dtype], q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+        DTYPES[q.dtype], ROUTES[path], q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check("flash_attention", code)
     LAUNCHES.bump()
+    ROUTE_LAUNCHES[path].bump()
     return out

@@ -1,12 +1,13 @@
 """Grouped (per-expert) matrix product on Hopper: the launcher of ``csrc/moe_gmm.cu``.
 
-Counterpart of ``repro/kernels/moe_gmm.py``.  The kernel, its design and what
-bounds it are described at the top of the CUDA source.  This module launches
-it on CUDA tensors and counts the launches; ``kernels/ops.py`` checks the
-operands and sends CPU tensors to the plain version instead.
+Counterpart of ``repro/kernels/moe_gmm.py``.  The kernels, their design and
+what bounds them are described at the top of the CUDA source.  This module
+picks one of its two kernels by :func:`route`, launches it on CUDA tensors
+and counts the launches, in total and by route; ``kernels/ops.py`` checks
+the operands and sends CPU tensors to the plain version instead.
 
-The block sizes keep only the reference's divisibility rule; the CUDA kernel
-picks its own tiles and masks ragged edges.
+The block sizes keep only the reference's divisibility rule; the CUDA
+kernels pick their own tiles and handle ragged edges.
 """
 from __future__ import annotations
 
@@ -20,10 +21,23 @@ DEFAULT_BLOCK_C = 128
 DEFAULT_BLOCK_F = 256
 DEFAULT_BLOCK_D = 512
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {"simt": 0, "wgmma": 1}
 
 LAUNCHES = _build.LaunchCounter()
+ROUTE_LAUNCHES = {r: _build.LaunchCounter() for r in ROUTES}
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def route(dtype: torch.dtype, shape: dict) -> str:
+    """Which kernel a launch takes, by rule and before it: ``"wgmma"`` (the
+    tensor cores, fed by TMA) for bf16 operands whose every global stride is
+    a multiple of 16 bytes, as a TMA tensor map requires; ``"simt"`` (fp32
+    products on the CUDA cores) for everything else, which keeps fp32 exact.
+    ``shape`` is a payload dict with ``D`` and ``F``."""
+    # strides in bytes: x rows 2D and experts 2CD, w rows 2F and experts 2DF
+    strided = (shape["D"] * 2) % 16 == 0 and (shape["F"] * 2) % 16 == 0
+    return "wgmma" if dtype == torch.bfloat16 and strided else "simt"
 
 
 def check_blocks(C: int, D: int, F: int, block_c: int, block_d: int, block_f: int) -> None:
@@ -39,12 +53,16 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     F = w.shape[-1]
     if x.device.type != "cuda":
         raise ValueError(f"moe_gmm kernel: operands must be on a CUDA device, not {x.device}")
+    path = route(x.dtype, {"D": D, "F": F})
+    if path == "wgmma" and (x.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError("moe_gmm kernel: TMA needs operands on 16-byte boundaries")
     y = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     fn = _build.function("moe_gmm", "moe_gmm_fwd", _ARGTYPES)
     code = fn(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), E, C, D, F,
-        DTYPES[x.dtype], x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+        DTYPES[x.dtype], ROUTES[path], x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check("moe_gmm", code)
     LAUNCHES.bump()
+    ROUTE_LAUNCHES[path].bump()
     return y

@@ -14,6 +14,9 @@ signature and
      or raises.  Nothing falls back from the card to the plain version.
 
 Every kernel module counts its own launches; ``launch_counts`` reads them.
+The two kernels with two routes (``flash_attention`` and ``moe_gmm``: a
+tensor-core kernel for bf16, a CUDA-core one for fp32) also count by route;
+``route_launch_counts`` reads those.
 """
 from __future__ import annotations
 
@@ -43,9 +46,23 @@ def launch_counts() -> dict[str, int]:
     return {name: c.value for name, c in LAUNCHES.items()}
 
 
+ROUTE_LAUNCHES = {
+    "flash_attention": _fa.ROUTE_LAUNCHES,
+    "moe_gmm": _gmm.ROUTE_LAUNCHES,
+}
+
+
+def route_launch_counts() -> dict[str, dict[str, int]]:
+    """Launches so far by kernel and route (``wgmma`` / ``simt``)."""
+    return {name: {r: c.value for r, c in by.items()} for name, by in ROUTE_LAUNCHES.items()}
+
+
 def reset_launch_counts() -> None:
     for c in LAUNCHES.values():
         c.reset()
+    for by in ROUTE_LAUNCHES.values():
+        for c in by.values():
+            c.reset()
 
 
 def _on_card(kernel: str, operands: dict, dtypes: dict, shapes: dict) -> bool:

@@ -8,7 +8,10 @@ test worker collects the same tests).  On a GPU machine:
 
 Tolerance: max-abs 2e-5 in fp32, the reference's parity tolerance
 (tests/test_kernels_parity.py:23); rtol = atol = 2e-2 in bf16
-(tests/test_kernels.py:13).
+(tests/test_kernels.py:13), and one bf16 rounding step element by element
+where a case says so.  flash_attention and moe_gmm each have two kernels:
+bf16 calls must be counted on the tensor-core route (``wgmma``), fp32 calls
+on the CUDA-core route (``simt``).
 """
 from __future__ import annotations
 
@@ -19,6 +22,12 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import registry as kreg
 
 pytestmark = pytest.mark.cuda
+
+_ROUTED = ("flash_attention", "moe_gmm")
+
+
+def _route_delta(name, before):
+    return {r: n - before[r] for r, n in ops.route_launch_counts()[name].items()}
 
 
 @pytest.fixture
@@ -37,9 +46,12 @@ def test_kernel_matches_plain_version_on_the_card(card, name, tier):
     shape = dict(getattr(kdef, f"{tier}_shape"))
     args = kdef.make_args(shape, "float32", 0, card)
     before = ops.launch_counts()[name]
+    routes = ops.route_launch_counts().get(name)
     got = kdef.call(shape, args, kdef.defaults(shape))
     torch.cuda.synchronize()
     assert ops.launch_counts()[name] == before + 1
+    if name in _ROUTED:
+        assert _route_delta(name, routes) == {"simt": 1, "wgmma": 0}
     assert kreg.max_abs_err(got, kdef.ref(shape, args)) <= 2e-5
 
 
@@ -48,8 +60,10 @@ def test_bf16_kernel_matches_plain_version_on_the_card(card, name):
     kdef = kreg.get_kernel(name)
     shape = dict(kdef.smoke_shape)
     args = kdef.make_args(shape, "bfloat16", 1, card)
+    routes = ops.route_launch_counts()[name]
     got = kdef.call(shape, args, kdef.defaults(shape))
     want = kdef.ref(shape, args)
+    assert _route_delta(name, routes) == {"simt": 0, "wgmma": 1}
     assert got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
 
@@ -61,6 +75,9 @@ _WIDE_HEADS = [
     {"B": 1, "H": 2, "KV": 2, "L": 192, "hd": 128, "causal": False, "window": None},
     {"B": 1, "H": 4, "KV": 1, "L": 256, "hd": 256, "causal": True, "window": 64},
     {"B": 1, "H": 2, "KV": 2, "L": 192, "hd": 256, "causal": False, "window": None},
+    # L not a multiple of the 128-row q tile, windowed
+    {"B": 1, "H": 4, "KV": 2, "L": 320, "hd": 128, "causal": True, "window": 100},
+    {"B": 1, "H": 4, "KV": 1, "L": 320, "hd": 256, "causal": True, "window": 100},
 ]
 
 
@@ -73,5 +90,24 @@ def test_attention_wide_heads_match_plain_version_on_the_card(card, shape):
     # bf16: kernel and plain version round the same fp32 value once, so
     # they stay within one bf16 step of each other element by element
     args = kdef.make_args(shape, "bfloat16", 2, card)
+    routes = ops.route_launch_counts()["flash_attention"]
     got, want = kdef.call(shape, args, config).float(), kdef.ref(shape, args).float()
+    assert _route_delta("flash_attention", routes) == {"simt": 0, "wgmma": 1}
+    assert bool(((got - want).abs() <= 1e-2 * want.abs() + 1e-3).all())
+
+
+# bf16 GEMMs off the tile grid: C, D and F ragged (TMA clips at the edge of
+# each expert; w is read through the transpose bit), and F = 100, whose
+# 200-byte row stride TMA cannot describe, so the rule takes the simt kernel
+@pytest.mark.parametrize(
+    "shape,route",
+    [({"E": 3, "C": 80, "D": 96, "F": 200}, "wgmma"), ({"E": 3, "C": 80, "D": 96, "F": 100}, "simt")],
+    ids=["ragged", "ragged_f100"],
+)
+def test_bf16_gemm_off_the_tile_grid_on_the_card(card, shape, route):
+    kdef = kreg.get_kernel("moe_gmm")
+    args = kdef.make_args(shape, "bfloat16", 3, card)
+    routes = ops.route_launch_counts()["moe_gmm"]
+    got, want = kdef.call(shape, args, kdef.defaults(shape)).float(), kdef.ref(shape, args).float()
+    assert _route_delta("moe_gmm", routes) == {r: int(r == route) for r in ("simt", "wgmma")}
     assert bool(((got - want).abs() <= 1e-2 * want.abs() + 1e-3).all())

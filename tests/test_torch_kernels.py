@@ -335,3 +335,61 @@ def test_build_names_libraries_by_source_and_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc()
+
+
+def test_build_rehashes_when_a_header_changes(monkeypatch, tmp_path):
+    """An edit to a header that a source includes names a new library, so a
+    stale build is never loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in _build.CSRC.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            (csrc / f.name).write_bytes(f.read_bytes())
+    assert (csrc / "hopper.cuh").exists()
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {name: _build.library_path(name) for name in _build.SOURCES}
+    assert before == {name: _build.library_path(name) for name in _build.SOURCES}
+    with open(csrc / "hopper.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {name: _build.library_path(name) for name in _build.SOURCES}
+    assert all(after[name] != before[name] for name in _build.SOURCES)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", (*_build.NVCC_FLAGS, "-I/nonexistent/include"))
+    assert all(_build.library_path(name) != after[name] for name in _build.SOURCES)
+
+
+# (kernel, payload shape, dtype, route): bf16 at each model width and off the
+# tile grid takes the tensor cores; fp32 at every tier, and a bf16 GEMM whose
+# 200-byte row stride TMA cannot describe, the CUDA cores
+_ROUTES = [
+    ("flash_attention", {"B": 1, "H": 32, "KV": 8, "L": 4096, "hd": 128, "causal": True, "window": None}, "bfloat16", "wgmma"),
+    ("flash_attention", {"B": 1, "H": 10, "KV": 1, "L": 4096, "hd": 256, "causal": True, "window": 2048}, "bfloat16", "wgmma"),
+    ("flash_attention", {"B": 1, "H": 4, "KV": 1, "L": 320, "hd": 256, "causal": True, "window": 100}, "bfloat16", "wgmma"),
+    ("moe_gmm", {"E": 8, "C": 1280, "D": 6144, "F": 32768}, "bfloat16", "wgmma"),
+    ("moe_gmm", {"E": 3, "C": 80, "D": 96, "F": 200}, "bfloat16", "wgmma"),
+    ("moe_gmm", {"E": 3, "C": 80, "D": 96, "F": 100}, "bfloat16", "simt"),
+    *[(name, dict(getattr(treg.get_kernel(name), tier)), "float32", "simt")
+      for name in ("flash_attention", "moe_gmm") for tier in ("tiny_shape", "smoke_shape", "full_shape")],
+    ("flash_attention", {"B": 1, "H": 32, "KV": 8, "L": 4096, "hd": 128, "causal": True, "window": None}, "float32", "simt"),
+]
+
+
+@pytest.mark.parametrize("name,shape,dtype,want", _ROUTES, ids=lambda v: v if isinstance(v, str) else None)
+def test_route_rule(name, shape, dtype, want):
+    module = {"flash_attention": tfa, "moe_gmm": tgmm}[name]
+    assert module.route(getattr(torch, dtype), shape) == want
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_route_refuses_a_head_width_the_kernels_lack(dtype):
+    with pytest.raises(ValueError, match="head width"):
+        tfa.route(getattr(torch, dtype), {"hd": 96})
+
+
+def test_route_counts_read_and_reset():
+    counts = ops.route_launch_counts()
+    assert counts == {name: {"simt": counts[name]["simt"], "wgmma": counts[name]["wgmma"]} for name in ("flash_attention", "moe_gmm")}
+    tfa.ROUTE_LAUNCHES["wgmma"].bump()
+    assert ops.route_launch_counts()["flash_attention"]["wgmma"] == counts["flash_attention"]["wgmma"] + 1
+    ops.reset_launch_counts()
+    assert ops.route_launch_counts() == {name: {"simt": 0, "wgmma": 0} for name in ("flash_attention", "moe_gmm")}
+    assert set(ops.launch_counts().values()) == {0}
