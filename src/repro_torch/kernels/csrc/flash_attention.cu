@@ -66,11 +66,6 @@ namespace {
 
 constexpr float kNeg = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
 template <int HD, int BQ, int BK>
 constexpr size_t smem_bytes() {
   // q tile + k tile (padded rows), v tile, p tile (padded rows)
@@ -78,10 +73,10 @@ constexpr size_t smem_bytes() {
                           size_t(BQ) * (BK + 1));
 }
 
-template <typename T, int HD, int BQ, int BK>
+template <int HD, int BQ, int BK>
 __global__ void __launch_bounds__(BQ * 4)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int H, int KV, int Lq, int Lk, float scale, int causal,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                 float* __restrict__ o, int H, int KV, int Lq, int Lk, float scale, int causal,
                  int has_window, int window) {
   constexpr int NT = BQ * 4;
   constexpr int QS = HD + 1;  // padded row stride of the q and k tiles
@@ -101,13 +96,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int tid = threadIdx.x;
   const int r = tid >> 2, sub = tid & 3;
   const int qpos = q0 + r;
-  const T* qb = q + int64_t(bh) * Lq * HD;
-  const T* kb = k + int64_t(b * KV + kvh) * Lk * HD;
-  const T* vb = v + int64_t(b * KV + kvh) * Lk * HD;
+  const float* qb = q + int64_t(bh) * Lq * HD;
+  const float* kb = k + int64_t(b * KV + kvh) * Lk * HD;
+  const float* vb = v + int64_t(b * KV + kvh) * Lk * HD;
 
   for (int i = tid; i < BQ * HD; i += NT) {
     const int row = i / HD, d = i % HD;
-    Qs[row * QS + d] = (q0 + row < Lq) ? to_f32(qb[int64_t(q0 + row) * HD + d]) : 0.f;
+    Qs[row * QS + d] = (q0 + row < Lq) ? qb[int64_t(q0 + row) * HD + d] : 0.f;
   }
 
   // keys that can be live for some row of this q tile: [k_lo, k_hi)
@@ -125,8 +120,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int i = tid; i < BK * HD; i += NT) {
       const int row = i / HD, d = i % HD;
       const bool in = kt + row < Lk;
-      Ks[row * QS + d] = in ? to_f32(kb[int64_t(kt + row) * HD + d]) : 0.f;
-      Vs[row * HD + d] = in ? to_f32(vb[int64_t(kt + row) * HD + d]) : 0.f;
+      Ks[row * QS + d] = in ? kb[int64_t(kt + row) * HD + d] : 0.f;
+      Vs[row * HD + d] = in ? vb[int64_t(kt + row) * HD + d] : 0.f;
     }
     __syncthreads();
 
@@ -182,36 +177,35 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   if (qpos < Lq) {
     const float den = fmaxf(l, 1e-37f);
-    T* orow = o + (int64_t(bh) * Lq + qpos) * HD + sub;
+    float* orow = o + (int64_t(bh) * Lq + qpos) * HD + sub;
 #pragma unroll
-    for (int i = 0; i < NA; ++i) store_as(orow + 4 * i, acc[i] / den);
+    for (int i = 0; i < NA; ++i) orow[4 * i] = acc[i] / den;
   }
 }
 
-template <typename T, int HD, int BQ, int BK>
+template <int HD, int BQ, int BK>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KV, int Lq,
            int Lk, int causal, int has_window, int window, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD, BQ, BK>();
-  auto kernel = flash_fwd_kernel<T, HD, BQ, BK>;
+  auto kernel = flash_fwd_kernel<HD, BQ, BK>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   const dim3 grid((Lq + BQ - 1) / BQ, B * H);
   const float scale = float(1.0 / std::sqrt(double(HD)));  // as the reference rounds it
-  kernel<<<grid, BQ * 4, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                         static_cast<const T*>(v), static_cast<T*>(o), H, KV, Lq,
-                                         Lk, scale, causal, has_window, window);
+  kernel<<<grid, BQ * 4, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                         static_cast<const float*>(v), static_cast<float*>(o), H, KV,
+                                         Lq, Lk, scale, causal, has_window, window);
   return int(cudaGetLastError());
 }
 
-template <typename T>
 int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B, int H, int KV, int Lq,
                 int Lk, int hd, int causal, int has_window, int window, cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch<T, 32, 64, 32>(q, k, v, o, B, H, KV, Lq, Lk, causal, has_window, window, stream);
-    case 64: return launch<T, 64, 64, 32>(q, k, v, o, B, H, KV, Lq, Lk, causal, has_window, window, stream);
-    case 128: return launch<T, 128, 64, 32>(q, k, v, o, B, H, KV, Lq, Lk, causal, has_window, window, stream);
-    case 256: return launch<T, 256, 32, 32>(q, k, v, o, B, H, KV, Lq, Lk, causal, has_window, window, stream);
+    case 32: return launch<32, 64, 32>(q, k, v, o, B, H, KV, Lq, Lk, causal, has_window, window, stream);
+    case 64: return launch<64, 64, 32>(q, k, v, o, B, H, KV, Lq, Lk, causal, has_window, window, stream);
+    case 128: return launch<128, 64, 32>(q, k, v, o, B, H, KV, Lq, Lk, causal, has_window, window, stream);
+    case 256: return launch<256, 32, 32>(q, k, v, o, B, H, KV, Lq, Lk, causal, has_window, window, stream);
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -221,12 +215,6 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B, int
 // ---------------------------------------------------------------------------
 
 constexpr float kLog2e = 1.4426950408889634f;
-
-// Built with -DFLASH_P_SPLIT=0 only to measure what the split of P costs
-// (kernels/p_split_cost.py); that build fails the bf16 element check.
-#ifndef FLASH_P_SPLIT
-#define FLASH_P_SPLIT 1
-#endif
 
 template <int HD>
 struct TcConfig {
@@ -420,7 +408,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
         for (int kk = 0; kk < BK / 16; ++kk) {
           const uint64_t db = hopper::make_desc<SW>(v_addr + kk * 16 * SW, BK * SW, 8 * SW);
           hopper::WgmmaRS<HD, 1>::run(oacc, p_hi[kk], db, 1);
-          if (FLASH_P_SPLIT) hopper::WgmmaRS<HD, 1>::run(oacc, p_lo[kk], db, 1);
+          hopper::WgmmaRS<HD, 1>::run(oacc, p_lo[kk], db, 1);
         }
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
@@ -489,7 +477,7 @@ int dispatch_wgmma(const void* q, const void* k, const void* v, void* o, int B, 
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  route: 0 = simt (either dtype),
+// dtype: 0 = float32, 1 = bfloat16.  route: 0 = simt (float32 only),
 // 1 = wgmma (bfloat16 only).  has_window = 0 means no window mask.
 // Returns cudaGetLastError() after the launch (0 on success).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
@@ -499,9 +487,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, in
   if (err != cudaSuccess) return int(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 1 && dtype == 1) return dispatch_wgmma(q, k, v, o, B, H, KV, Lq, Lk, hd, causal, has_window, window, s);
-  if (route != 0) return int(cudaErrorInvalidValue);
-  if (dtype == 0) return dispatch_hd<float>(q, k, v, o, B, H, KV, Lq, Lk, hd, causal, has_window, window, s);
-  if (dtype == 1) return dispatch_hd<__nv_bfloat16>(q, k, v, o, B, H, KV, Lq, Lk, hd, causal, has_window, window, s);
+  if (route == 0 && dtype == 0) return dispatch_hd(q, k, v, o, B, H, KV, Lq, Lk, hd, causal, has_window, window, s);
   return int(cudaErrorInvalidValue);
 }
 

@@ -34,16 +34,15 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
 
 def route(dtype: torch.dtype, shape: dict) -> str:
     """Which kernel a launch takes, by rule and before it: ``"wgmma"`` (the
-    tensor cores, fed by TMA) for bf16 operands whose every global stride is
-    a multiple of 16 bytes, as a TMA tensor map requires; ``"simt"`` (fp32
-    products on the CUDA cores) for everything else, which keeps fp32 exact.
-    ``shape`` is a payload dict with the head width ``hd``.  A head width
-    the kernels are not built for raises."""
+    tensor cores, fed by TMA) for bf16 operands, ``"simt"`` (fp32 products
+    on the CUDA cores) for fp32, which keeps fp32 exact.  ``shape`` is a
+    payload dict with the head width ``hd``.  A head width the kernels are
+    not built for raises; every one that is gives strides of hd and L*hd
+    bf16 elements, multiples of the 16 bytes a TMA tensor map requires."""
     hd = shape["hd"]
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel: head width {hd} not in {HEAD_DIMS}")
-    # the strides are hd and L*hd elements: hd*2 bytes a multiple of 16 covers both
-    return "wgmma" if dtype == torch.bfloat16 and (hd * 2) % 16 == 0 else "simt"
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
 def check_blocks(lq: int, lk: int, block_q: int, block_k: int) -> None:
