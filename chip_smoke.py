@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout.  It needs one CUDA device and the CUDA
-toolkit (``nvcc``) and Triton, and exits non-zero on any failure.  Phases:
+toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
 
   1. set-up: the card's name and power limit; the CUDA kernels built from
      ``src/repro_torch/kernels/csrc`` into ``build/repro_torch``; TF32 off for
@@ -13,12 +13,16 @@ toolkit (``nvcc``) and Triton, and exits non-zero on any failure.  Phases:
      card -- the registry's tiny, smoke and full tiers in fp32 (max-abs
      <= 2e-5, the reference's parity tolerance), the attention variants and
      chunk chaining of the reference tests at every head width the kernel is
-     built for, and the full width of a model the repo configures (relative
+     built for, the scans off their kernels' tiles (fp32 at 2e-5, bf16 x at
+     relative 1e-4) and at the full tier from two threads on two streams at
+     once, and the full width of a model the repo configures (relative
      max error <= 1e-4 in fp32, <= 2e-2 in bf16; the attention widths also
      in fp32).  Every bf16 output is also held element by element (see
-     BF16_ELEMENT_TOL).  One line per kernel and shape: error, the kernel's median time, the
-     plain version's time, one library call's time where one exists, and the
-     launches made.  flash_attention and moe_gmm each have two kernels, picked
+     BF16_ELEMENT_TOL).  One line per kernel and shape: error, the kernel's
+     median time (``ms``, back-to-back calls; ``ms_cold``, each call behind a
+     512 MB write, so L2 is cold and the host's launch overhead is hidden),
+     the plain version's time, one library call's time where one exists, and
+     the launches made.  flash_attention and moe_gmm each have two kernels, picked
      by rule (``route``): every bf16 call here must be counted on the
      tensor-core route (``wgmma``) and every fp32 call on the CUDA-core route
      (``simt``), save the one bf16 GEMM whose strides TMA cannot describe.
@@ -32,14 +36,15 @@ toolkit (``nvcc``) and Triton, and exits non-zero on any failure.  Phases:
      ``simt``.
   4. report: the card line, one JSON line of the kernels (route, source, the
      TPU kernel each replaces, launches in phase 3 in total and by kernel
-     route, model-width error and times beside the roofline bound), and the
-     device line last.
+     route, model-width error and times, cold too, beside the roofline
+     bound), and the device line last.
 """
 import json
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -69,8 +74,8 @@ MODEL_WIDTHS = [
 
 KERNEL_INFO = {
     "flash_attention": ("cuda", "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:119"),
-    "selective_scan": ("triton", "src/repro_torch/kernels/selective_scan.py", "src/repro/kernels/selective_scan.py:65"),
-    "rglru_scan": ("triton", "src/repro_torch/kernels/rglru_scan.py", "src/repro/kernels/rglru_scan.py:52"),
+    "selective_scan": ("cuda", "src/repro_torch/kernels/csrc/selective_scan.cu", "src/repro/kernels/selective_scan.py:65"),
+    "rglru_scan": ("cuda", "src/repro_torch/kernels/csrc/rglru_scan.cu", "src/repro/kernels/rglru_scan.py:52"),
     "moe_gmm": ("cuda", "src/repro_torch/kernels/csrc/moe_gmm.cu", "src/repro/kernels/moe_gmm.py:60"),
 }
 
@@ -105,8 +110,24 @@ GMM_CASES = [
     ({"E": 3, "C": 80, "D": 96, "F": 100}, "ragged_f100"),
 ]
 
+# the scans off their kernels' tiles: di 50 (no multiple of 32 channels or
+# of four floats), di 45 in bf16 (rows start on odd 2-byte offsets), chunk
+# 100 and L 300 (no multiple of the 64-step tiles or the 256-step
+# segments), and bf16 x at the falcon-mamba chunk; fp32 at TIER_TOL, bf16 x
+# at relative 1e-4 (outputs are fp32)
+SCAN_CASES = [
+    ("selective_scan", {"B": 2, "chunk": 100, "di": 50, "N": 4}, "float32", "ragged"),
+    ("selective_scan", {"B": 2, "chunk": 100, "di": 50, "N": 4}, "bfloat16", "ragged_bf16x"),
+    ("selective_scan", {"B": 1, "chunk": 40, "di": 45, "N": 8}, "bfloat16", "odd_bf16x"),
+    ("selective_scan", {"B": 1, "chunk": 256, "di": 1536, "N": 16}, "bfloat16", "chunk256_bf16x"),
+    ("rglru_scan", {"B": 2, "L": 300, "dr": 50}, "float32", "ragged"),
+]
+SCAN_BF16X_TOL = 1e-4
+
 # the kernels with a tensor-core and a CUDA-core route
 ROUTED = ("flash_attention", "moe_gmm")
+
+FLUSH_BYTES = 512 << 20  # more than the 50 MB L2, and long enough to hide a launch
 
 
 def card_line() -> str:
@@ -128,6 +149,24 @@ def median_ms(torch, fn, budget_s: float = 0.5, max_reps: int = 20) -> float:
     reps = max(3, min(max_reps, int(budget_s / max(once, 1e-6))))
     times = []
     for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def cold_ms(torch, fn, flush, reps: int = 20) -> float:
+    """Median time of one call behind a write of ``flush`` (past L2) on the
+    same stream: the card is busy with the write while the host enqueues the
+    call, so the events time the kernel from a cold L2 and not the host."""
+    fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -180,7 +219,7 @@ def expected_route(name: str, shape: dict, dtype: str):
     return "simt"
 
 
-def check_kernel(torch, kreg, ops, name, shape, dtype, seed, tol, relative, label, dev, timed=True, config=None):
+def check_kernel(torch, kreg, ops, name, shape, dtype, seed, tol, relative, label, dev, timed=True, config=None, flush=None):
     """Kernel vs plain version on the card; raises past ``tol`` or if the
     call took another route than ``expected_route``."""
     kdef = kreg.get_kernel(name)
@@ -215,6 +254,7 @@ def check_kernel(torch, kreg, ops, name, shape, dtype, seed, tol, relative, labe
     row = {"kernel": name, "case": label, "dtype": dtype, "route": route, "max_abs_err": err, "rel_err": err / scale if relative else None}
     if timed:
         row["ms"] = median_ms(torch, lambda: kdef.call(shape, args, config))
+        row["ms_cold"] = cold_ms(torch, lambda: kdef.call(shape, args, config), flush)
         row["plain_ms"] = median_ms(torch, lambda: kdef.ref(shape, args), max_reps=5)
         lib = library_call(torch, name, shape, args)
         row["library_ms"] = median_ms(torch, lib) if lib is not None else None
@@ -247,6 +287,45 @@ def check_chunk_chaining(torch, ops, dev):
     if not err <= 1e-5:
         raise AssertionError(f"selective_scan chunk chaining: error {err:.3e} over 1e-5")
     print(f"kernel kernel=selective_scan case=chunk_chaining max_abs_err={err}", flush=True)
+
+
+def check_concurrent(torch, kreg, ops, dev, reps: int = 8):
+    """Both scans' full tier from two threads at once, each on its own
+    stream, as the broker's manager threads launch: every call has its own
+    scratch, so each thread gets its own answer."""
+    for name in ("rglru_scan", "selective_scan"):
+        kdef = kreg.get_kernel(name)
+        shape = dict(kdef.full_shape)
+        args = [kdef.make_args(shape, "float32", seed, dev) for seed in (21, 22)]
+        streams = [torch.cuda.Stream(dev) for _ in args]
+        for s in streams:
+            s.wait_stream(torch.cuda.current_stream(dev))
+        outs = [[] for _ in args]
+        start = threading.Barrier(len(args))
+
+        def work(i):
+            with torch.cuda.stream(streams[i]):
+                start.wait()
+                for _ in range(reps):
+                    outs[i].append(kdef.call(shape, args[i], kdef.defaults(shape)))
+            streams[i].synchronize()
+
+        before = ops.launch_counts()[name]
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(len(args))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError(f"{name} two_threads: a thread did not finish in 120 s")
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()[name] - before
+        if launches != len(args) * reps or any(len(o) != reps for o in outs):
+            raise AssertionError(f"{name} two_threads: {launches} launches, want {len(args) * reps}")
+        err = max(kreg.max_abs_err(got, kdef.ref(shape, a)) for a, o in zip(args, outs) for got in o)
+        if not err <= TIER_TOL:
+            raise AssertionError(f"{name} two_threads: error {err:.3e} over tolerance {TIER_TOL:g}")
+        print(f"kernel kernel={name} case=full_two_threads max_abs_err={err} launches={launches}", flush=True)
 
 
 def run_broker(torch, kreg, ops, Hydra, ProviderSpec, Task, TaskState):
@@ -347,13 +426,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
 
     # -- 2. kernels --------------------------------------------------------------
     for name in sorted(kreg.KERNELS):
         kdef = kreg.get_kernel(name)
         for tier in ("tiny", "smoke", "full"):
             shape = dict(getattr(kdef, f"{tier}_shape"))
-            check_kernel(torch, kreg, ops, name, shape, "float32", 0, TIER_TOL, False, tier, dev)
+            check_kernel(torch, kreg, ops, name, shape, "float32", 0, TIER_TOL, False, tier, dev, flush=flush)
     for shape, label in ATTN_VARIANTS:
         for dtype, tol in (("float32", TIER_TOL), ("bfloat16", 2e-2)):
             check_kernel(
@@ -364,9 +444,17 @@ def main() -> int:
         for dtype, tol in (("float32", TIER_TOL), ("bfloat16", 2e-2)):
             check_kernel(torch, kreg, ops, "moe_gmm", shape, dtype, 1, tol, False, f"{label}_{dtype}", dev, timed=False)
     check_chunk_chaining(torch, ops, dev)
+    for name, shape, dtype, label in SCAN_CASES:
+        fp32 = dtype == "float32"
+        block = {"block_d": min(shape.get("di", shape.get("dr")), 512)}
+        check_kernel(
+            torch, kreg, ops, name, shape, dtype, 2, TIER_TOL if fp32 else SCAN_BF16X_TOL, not fp32, label, dev,
+            timed=False, config=block,
+        )
+    check_concurrent(torch, kreg, ops, dev)
     widths = {}
     for name, model, shape, dtype in MODEL_WIDTHS:
-        row = check_kernel(torch, kreg, ops, name, shape, dtype, 0, WIDTH_TOL[dtype], True, model, dev)
+        row = check_kernel(torch, kreg, ops, name, shape, dtype, 0, WIDTH_TOL[dtype], True, model, dev, flush=flush)
         widths.setdefault(name, row)  # the first width of a kernel goes in the report
         if dtype == "bfloat16" and name == "flash_attention":
             # the same width in fp32, where the relative tolerance is tight
@@ -385,7 +473,7 @@ def main() -> int:
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches[name], "route_launches": routes.get(name), "width_route": row["route"],
             "max_abs_err": row["max_abs_err"],
-            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "ms": row["ms"], "ms_cold": row["ms_cold"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "model": row["case"], "dtype": row["dtype"],
         })

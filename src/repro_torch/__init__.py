@@ -1,4 +1,4 @@
-"""The Hydra broker ported to PyTorch, with hand-written CUDA and Triton kernels.
+"""The Hydra broker ported to PyTorch, with hand-written CUDA kernels.
 
 Counterpart of the JAX package ``repro``: each module here mirrors the
 reference module of the same path and is held against it by the

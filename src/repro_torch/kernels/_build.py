@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("flash_attention", "moe_gmm")
+SOURCES = ("flash_attention", "moe_gmm", "rglru_scan", "selective_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -114,19 +114,26 @@ def load(*names: str) -> list[ctypes.CDLL]:
         return [_LIBS[n] for n in names]
 
 
-def function(source: str, symbol: str, argtypes: list):
-    """A C entry point of ``csrc/<source>.cu`` with its argument types
-    declared (``c_void_p`` for every pointer and the stream: left undeclared,
-    ctypes would pass a pointer as a 32-bit int and cut it)."""
+def function(source: str, symbol: str, argtypes: list, restype=ctypes.c_int):
+    """A C entry point of ``csrc/<source>.cu`` with its argument and return
+    types declared (``c_void_p`` for every pointer and the stream: left
+    undeclared, ctypes would pass a pointer as a 32-bit int and cut it)."""
     key = (source, symbol)
     fn = _FUNCS.get(key)
     if fn is None:
         (lib,) = load(source)
         fn = getattr(lib, symbol)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _FUNCS[key] = fn
     return fn
+
+
+def check_aligned(kernel: str, *tensors) -> None:
+    """Raise unless every operand starts on a 16-byte boundary, as TMA and
+    the scans' 16-byte cp.async chunks need."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{kernel} kernel: operands must start on 16-byte boundaries")
 
 
 def check(source: str, code: int) -> None:
@@ -134,6 +141,5 @@ def check(source: str, code: int) -> None:
     threads, too much shared memory) never runs, and no later synchronize
     reports it."""
     if code != 0:
-        describe = function(source, f"{source}_error_string", [ctypes.c_int])
-        describe.restype = ctypes.c_char_p
+        describe = function(source, f"{source}_error_string", [ctypes.c_int], ctypes.c_char_p)
         raise RuntimeError(f"{source} kernel launch failed: CUDA error {code} ({describe(code).decode()})")

@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the tensor-core kernels:
-// TMA tensor maps built on the host, mbarrier waits, TMA tile loads, and
-// bf16 wgmma with fp32 accumulators.  Everything is PTX written by hand;
-// nothing here calls a library kernel.
+// Hopper (sm_90a) building blocks shared by the hand-written kernels: TMA
+// tensor maps built on the host, mbarrier waits, TMA tile loads and bf16
+// wgmma with fp32 accumulators (the tensor-core kernels); cp.async rows of
+// any alignment into shared memory and release/acquire flags between blocks
+// (the scans).  Everything is PTX written by hand; nothing here calls a
+// library kernel.
 //
 // Shared-memory tiles use the swizzled layouts that TMA writes and wgmma
 // reads.  A tile of R rows whose rows are SW bytes long (SW = 64 or 128) is
@@ -133,6 +135,92 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
 
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// device: cp.async rows into shared memory; flags between blocks
+// ---------------------------------------------------------------------------
+
+// one 16-byte cp.async; the bytes of the chunk past `src_bytes` (0 to 16)
+// are zero-filled and not read
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// one 4-byte cp.async, zero-filled where `src_bytes` is 0
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// arrive on `bar` once every cp.async this thread has issued so far has
+// landed; the barrier's expected count includes this arrival
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// The bytes before an element's global address within its 16-byte chunk.
+// Rows of any width and element alignment are copied by whole 16-byte
+// chunks: element i of a row whose first element lies `head` bytes into
+// its chunk lands at head + i * size in the row's shared copy.
+__device__ __forceinline__ int chunk_head(const void* p) {
+  return int(reinterpret_cast<uintptr_t>(p) & 15);
+}
+
+// Copy `rows` rows of `row_bytes` bytes each, `stride` bytes apart in
+// global memory starting at `src`, into shared rows of PITCH bytes (a
+// multiple of 16, at least row_bytes + 16) starting at `dst`, with the NT
+// threads of the block (this one is `tid`).  A chunk may begin up to 15
+// bytes before a row (on the 16-byte boundary below it, inside the same
+// operand when the operand starts on a 16-byte boundary) and never reads
+// past the row's end.
+template <int PITCH, int NT>
+__device__ __forceinline__ void copy_rows_async(char* dst, const char* src, int64_t stride, int rows,
+                                                int row_bytes, int tid) {
+  static_assert(PITCH % 16 == 0, "shared rows on 16-byte boundaries");
+  constexpr int CPR = PITCH / 16;  // chunks a row
+  // chunk i = r * CPR + k of the tile goes to thread i % NT; walk r and k
+  // by NT chunks a turn without dividing
+  int r = tid / CPR, k = tid % CPR;
+  const char* row = src + r * stride;
+  while (r < rows) {
+    const int head = chunk_head(row);
+    const int left = head + row_bytes - 16 * k;  // bytes of the row from this chunk on
+    if (left > 0) cp_async_16(dst + r * PITCH + 16 * k, row - head + 16 * k, left < 16 ? left : 16);
+    k += NT % CPR;
+    int step = NT / CPR;
+    if (k >= CPR) {
+      k -= CPR;
+      ++step;
+    }
+    r += step;
+    row += step * stride;
+  }
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// wait until *flag is non-zero and return it.  Like mbar_wait, a flag that
+// is never set traps (after ~2^24 polls of at least 64 ns: a second or more)
+// instead of hanging the device.
+__device__ __forceinline__ int wait_flag(const int* flag) {
+  int v, polls = 0;
+  while ((v = ld_acquire(flag)) == 0) {
+    if (++polls == (1 << 24)) __trap();
+    __nanosleep(64);
+  }
+  return v;
 }
 
 // ---------------------------------------------------------------------------

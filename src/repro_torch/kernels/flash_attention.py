@@ -66,8 +66,8 @@ def flash_attention(
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention kernel: operands must be on a CUDA device, not {q.device}")
     path = route(q.dtype, {"hd": hd})
-    if path == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention kernel: TMA needs operands on 16-byte boundaries")
+    if path == "wgmma":
+        _build.check_aligned("flash_attention", q, k, v)
     out = torch.empty_like(q)
     fn = _build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     code = fn(

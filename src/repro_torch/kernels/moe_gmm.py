@@ -54,8 +54,8 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"moe_gmm kernel: operands must be on a CUDA device, not {x.device}")
     path = route(x.dtype, {"D": D, "F": F})
-    if path == "wgmma" and (x.data_ptr() % 16 or w.data_ptr() % 16):
-        raise ValueError("moe_gmm kernel: TMA needs operands on 16-byte boundaries")
+    if path == "wgmma":
+        _build.check_aligned("moe_gmm", x, w)
     y = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     fn = _build.function("moe_gmm", "moe_gmm_fwd", _ARGTYPES)
     code = fn(

@@ -1,7 +1,7 @@
 """The port's hand-written kernels against their plain versions, on a GPU.
 
-Marked ``cuda``: they need a CUDA device, nvcc and Triton, and skip where
-there is none (the check runs inside a fixture, never at import, so every
+Marked ``cuda``: they need a CUDA device and nvcc, and skip where there is
+none (the check runs inside a fixture, never at import, so every
 test worker collects the same tests).  On a GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -9,11 +9,14 @@ test worker collects the same tests).  On a GPU machine:
 Tolerance: max-abs 2e-5 in fp32, the reference's parity tolerance
 (tests/test_kernels_parity.py:23); rtol = atol = 2e-2 in bf16
 (tests/test_kernels.py:13), and one bf16 rounding step element by element
-where a case says so.  flash_attention and moe_gmm each have two kernels:
-bf16 calls must be counted on the tensor-core route (``wgmma``), fp32 calls
-on the CUDA-core route (``simt``).
+where a case says so; relative 1e-4 for the scans with bf16 x at width
+(their outputs are fp32).  flash_attention and moe_gmm each have two
+kernels: bf16 calls must be counted on the tensor-core route (``wgmma``),
+fp32 calls on the CUDA-core route (``simt``).
 """
 from __future__ import annotations
+
+import threading
 
 import pytest
 import torch
@@ -33,7 +36,7 @@ def _route_delta(name, before):
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the CUDA and Triton kernels have no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
@@ -111,3 +114,80 @@ def test_bf16_gemm_off_the_tile_grid_on_the_card(card, shape, route):
     got, want = kdef.call(shape, args, kdef.defaults(shape)).float(), kdef.ref(shape, args).float()
     assert _route_delta("moe_gmm", routes) == {r: int(r == route) for r in ("simt", "wgmma")}
     assert bool(((got - want).abs() <= 1e-2 * want.abs() + 1e-3).all())
+
+
+# the scans off their kernels' tiles: di 50 (no multiple of 32 channels or
+# of four floats), di 45 in bf16 (rows start on odd 2-byte offsets), chunk
+# 100 and L 300 (no multiple of the 64-step tiles or the 256-step
+# segments), N 5 (padded to 8) and N 64 (the stated limit), bf16 x at the
+# falcon-mamba chunk
+_SCAN_CASES = [
+    ("selective_scan", {"B": 2, "chunk": 100, "di": 50, "N": 4}, "float32"),
+    ("selective_scan", {"B": 2, "chunk": 100, "di": 50, "N": 4}, "bfloat16"),
+    ("selective_scan", {"B": 1, "chunk": 40, "di": 45, "N": 8}, "bfloat16"),
+    ("selective_scan", {"B": 1, "chunk": 256, "di": 1536, "N": 16}, "bfloat16"),
+    ("selective_scan", {"B": 1, "chunk": 40, "di": 96, "N": 5}, "float32"),
+    ("selective_scan", {"B": 2, "chunk": 48, "di": 64, "N": 64}, "float32"),
+    ("rglru_scan", {"B": 2, "L": 300, "dr": 50}, "float32"),
+]
+
+
+def _scan_args(name, shape, dtype, seed, device):
+    """The registry's operands with a nonzero incoming state."""
+    args = list(kreg.get_kernel(name).make_args(shape, dtype, seed, device))
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    args[-1] = torch.randn(args[-1].shape, generator=g, device=device)
+    return tuple(args)
+
+
+@pytest.mark.parametrize("name,shape,dtype", _SCAN_CASES, ids=lambda v: v if isinstance(v, str) else "_".join(f"{k}{n}" for k, n in v.items()))
+def test_scan_off_the_tiles_matches_plain_version_on_the_card(card, name, shape, dtype):
+    kdef = kreg.get_kernel(name)
+    args = _scan_args(name, shape, dtype, 5, card)
+    before = ops.launch_counts()[name]
+    got = kdef.call(shape, args, {"block_d": min(shape.get("di", shape.get("dr")), 512)})
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[name] == before + 1
+    want = kdef.ref(shape, args)
+    assert all(g.dtype == torch.float32 and g.shape == w.shape for g, w in zip(got, want))
+    err = kreg.max_abs_err(got, want)
+    if dtype == "float32":
+        assert err <= 2e-5
+    else:
+        assert err / max(float(w.abs().max()) for w in want) <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["rglru_scan", "selective_scan"])
+def test_scans_from_two_threads_on_two_streams(card, name):
+    """The broker's manager threads launch concurrently: each call has its
+    own scratch, so two threads on two streams each get their own answer."""
+    kdef = kreg.get_kernel(name)
+    shape = dict(kdef.full_shape)
+    reps = 8
+    args = [_scan_args(name, shape, "float32", seed, card) for seed in (21, 22)]
+    streams = [torch.cuda.Stream(card) for _ in args]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(card))
+    outs = [[] for _ in args]
+    start = threading.Barrier(len(args))
+
+    def work(i):
+        with torch.cuda.stream(streams[i]):
+            start.wait()
+            for _ in range(reps):
+                outs[i].append(kdef.call(shape, args[i], kdef.defaults(shape)))
+        streams[i].synchronize()
+
+    before = ops.launch_counts()[name]
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(len(args))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[name] == before + len(args) * reps
+    for i, a in enumerate(args):
+        want = kdef.ref(shape, a)
+        assert len(outs[i]) == reps
+        assert max(kreg.max_abs_err(got, want) for got in outs[i]) <= 2e-5

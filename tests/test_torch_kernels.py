@@ -6,7 +6,7 @@ The reference runs its Pallas kernels in interpret mode (as its own tests do
 on the CPU) and its jnp oracles; the port's wrappers, given CPU tensors, run
 the plain PyTorch versions.  Tolerances are the reference's own: max-abs
 2e-5 in fp32 (tests/test_kernels_parity.py:23) and rtol = atol = 2e-2 in
-bf16 (tests/test_kernels.py:13).  The CUDA and Triton kernels themselves run
+bf16 (tests/test_kernels.py:13).  The CUDA kernels themselves run
 only on a GPU: ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold them
 against these same plain versions there.
 """
