@@ -34,10 +34,30 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      each kernel's launch counter must rise by exactly the reps dispatched,
      the bf16 model-width reps on the ``wgmma`` route and the fp32 ones on
      ``simt``.
-  4. report: the card line, one JSON line of the kernels (route, source, the
+  4. scenario: the reference's acceptance scenario, ``searise_at_scale``
+     (1024 FACTS members, 6 training jobs, 4 serve waves of 16 tasks, 4
+     providers and an elastic burst pool) with the settings of
+     ``searise_kernels``: the serve lane runs the four kernels, 2 reps a
+     task, pre-tuned by the model-timer autotuner, with task checkpoints
+     every 2 s.  It runs on ``Hydra(device="cuda")`` with chaos and as the
+     no-chaos twin, the event and ledger cross-checks on.  Both must hold
+     every invariant with no task failed or unresolved, tune each kernel
+     once into a pinned ``tune:<kernel>:cuda:`` dataset, and launch each
+     kernel exactly as many times as its ``kernel.exec`` events say reps
+     ran, every launch on the ``simt`` route (fp32 payloads).
+  5. autotune and FACTS: a wall-timed sweep of each kernel at its full tier
+     on the card, whose winner a kernel task must then resolve to under
+     ``HYDRA_AUTOTUNE=1``; 64 FACTS workflows of 150000 samples through
+     ``WorkflowManager`` on ``Hydra(device="cuda")``, every one done with
+     finite, ordered quantiles; and for four instances ``fit`` on the card
+     against the CPU (relative 1e-5) and ``project`` on the card from draws
+     made on the CPU against the CPU (max-abs 1e-3 mm).
+  6. report: the card line, one JSON line of the kernels (route, source, the
      TPU kernel each replaces, launches in phase 3 in total and by kernel
-     route, model-width error and times, cold too, beside the roofline
-     bound), and the device line last.
+     route and in each scenario twin, model-width error and times, cold too,
+     beside the roofline bound), and the device line last.
+
+Each phase prints its wall seconds.
 """
 import json
 import os
@@ -49,10 +69,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-
-# the H100 SXM's published peaks (NVIDIA data sheet; dense, no sparsity)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
 TIER_TOL = 2e-5  # max-abs, the reference's parity tolerance (tests/test_kernels_parity.py:23)
 WIDTH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # relative max error at the model widths
@@ -182,8 +198,12 @@ def as_tuple(out):
 
 
 def bound(kdef, shape: dict, dtype: str) -> tuple:
+    """The least time of one call on the H100, from the data sheet's peaks
+    (the port keeps them with its cost model, kernels/autotune.py)."""
+    from repro_torch.kernels.autotune import HBM_BYTES_PER_S, PEAK_OPS_PER_S
+
     cost = kdef.cost(shape, dtype)
-    t_bytes = cost.hbm_bytes / PEAK_BYTES_PER_S
+    t_bytes = cost.hbm_bytes / HBM_BYTES_PER_S
     t_ops = cost.flops / PEAK_OPS_PER_S[dtype]
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -402,6 +422,171 @@ def run_broker(torch, kreg, ops, Hydra, ProviderSpec, Task, TaskState):
     return launches, routes
 
 
+SERVE_KERNELS = ("flash_attention", "selective_scan", "rglru_scan", "moe_gmm")  # searise_kernels' order
+FACTS_INSTANCES = 64
+FACTS_SAMPLES = 150_000  # benchmarks/exp4_facts.py:21
+
+
+def scenario_spec():
+    """searise_at_scale with the settings searise_kernels applies."""
+    from repro_torch.scenarios import presets
+
+    spec = presets.searise_at_scale(seed=0)
+    spec.traffic.serve_kernels = SERVE_KERNELS
+    spec.traffic.serve_kernel_reps = 2
+    spec.kernel_autotune = True
+    spec.checkpoint_interval_s = 2.0
+    return spec
+
+
+def run_scenarios(ops, device="cuda"):
+    """The scenario path on the card, chaos and no-chaos twin: run_scenario
+    -> build_broker -> Hydra(device="cuda") + checkpoints + autotuner +
+    autoscaler -> ChaosEngine -> WorkflowManager -> StreamingDispatcher ->
+    CaaS / pilot managers -> KernelRuntime -> the kernels."""
+    from repro_torch.core.staging import SHARED_SITE
+    from repro_torch.scenarios import check_invariants, run_scenario, runner
+
+    os.environ["HYDRA_EVENTS_CHECK"] = "1"
+    os.environ["HYDRA_LEDGER_CHECK"] = "1"
+    spec = scenario_spec()
+    brokers = []
+    build = runner.build_broker
+
+    def keep(spec_, device):  # the report drops the broker; keep it to read its log
+        brokers.append(build(spec_, device))
+        return brokers[-1]
+
+    runner.build_broker = keep
+    reports, counts, walls = {}, {}, {}
+    try:
+        for chaos in (True, False):
+            tag = "chaos" if chaos else "baseline"
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            reports[tag] = run_scenario(spec, chaos=chaos, device=device)
+            walls[tag] = time.perf_counter() - t0
+            counts[tag] = (ops.launch_counts(), ops.route_launch_counts())
+    finally:
+        runner.build_broker = build
+    violations = check_invariants(reports["chaos"], reports["baseline"], spec)
+    if violations:
+        raise AssertionError(f"scenario: invariants violated: {violations}")
+    for (tag, rep), h in zip(reports.items(), brokers):
+        launches, routes = counts[tag]
+        if rep.failed_tasks or rep.unresolved_tasks:
+            raise AssertionError(f"scenario {tag}: {rep.failed_tasks} failed, {rep.unresolved_tasks} unresolved tasks")
+        if rep.kernel["tunes"] != len(SERVE_KERNELS):
+            raise AssertionError(f"scenario {tag}: {rep.kernel['tunes']} tunes, want {len(SERVE_KERNELS)}")
+        keys = sorted(h.autotuner.results())
+        for name in SERVE_KERNELS:
+            mine = [k for k in keys if k.startswith(f"tune:{name}:{device}:")]
+            if len(mine) != 1 or not h.staging.registry.get(mine[0]).pinned or SHARED_SITE not in h.staging.registry.locate(mine[0]):
+                raise AssertionError(f"scenario {tag}: {name} winner is not one pinned shared tune:{name}:{device}: dataset ({keys})")
+        executed = {name: 0 for name in SERVE_KERNELS}
+        for e in h.events.events():
+            if e.name == "kernel.exec":
+                executed[e.attrs["kernel"]] += e.attrs["reps"]
+        if launches != executed or min(launches.values()) < 1:
+            raise AssertionError(f"scenario {tag}: launches {launches}, kernel.exec reps {executed}")
+        for name, by in routes.items():
+            if by != {"simt": launches[name], "wgmma": 0}:
+                raise AssertionError(f"scenario {tag}: {name} launches by route {by}, want all {launches[name]} on simt")
+        k = rep.kernel
+        print(
+            f"scenario name={spec.name} twin={tag} tasks={rep.n_tasks} makespan_s={rep.makespan_s} wall_s={walls[tag]} "
+            f"preempted={rep.preempted_tasks} recovered={rep.recovered_tasks} first_fault_s={rep.first_fault_s} "
+            f"recovery_s={rep.recovery_s} kernel_execs={k['execs']} kernel_reps={k['reps']} kernel_s={k['seconds']} "
+            f"tunes={k['tunes']} launches={json.dumps(launches)} scale={json.dumps(rep.scale.get('autoscaler', {}))}",
+            flush=True,
+        )
+    chaos, base = reports["chaos"], reports["baseline"]
+    print(
+        f"scenario name={spec.name} tasks={chaos.n_tasks} makespan_chaos_s={chaos.makespan_s} makespan_base_s={base.makespan_s} "
+        f"inflation={chaos.makespan_s / base.makespan_s} wall_chaos_s={walls['chaos']} wall_base_s={walls['baseline']} "
+        f"preempted={chaos.preempted_tasks} recovered={chaos.recovered_tasks} "
+        f"kernel_execs={chaos.kernel['execs']} kernel_reps={chaos.kernel['reps']} kernel_s={chaos.kernel['seconds']} "
+        f"launches={json.dumps(counts['chaos'][0])} invariants={violations}",
+        flush=True,
+    )
+    return {tag: counts[tag][0] for tag in counts}
+
+
+def run_autotune(torch, kreg, dev):
+    """A wall-timed sweep of each kernel at its full tier on the card; a
+    kernel task under HYDRA_AUTOTUNE=1 must resolve to the winner."""
+    from repro_torch.core.managers.compute import KERNEL_RUNTIME
+    from repro_torch.core.task import Task
+    from repro_torch.kernels.autotune import Autotuner, set_autotuner, unset_autotuner
+
+    tuner = Autotuner(timer="wall", device=dev, reps=5, warmup=2)
+    set_autotuner(tuner)
+    os.environ["HYDRA_AUTOTUNE"] = "1"
+    try:
+        for name in sorted(kreg.KERNELS):
+            shape = dict(kreg.get_kernel(name).full_shape)
+            r = tuner.tune(name, shape, "float32")
+            if not r.key.startswith(f"tune:{name}:{dev.type}:"):
+                raise AssertionError(f"autotune {name}: key {r.key}")
+            got = KERNEL_RUNTIME.run(Task(kind="kernel", payload={"kernel": name, "shape": shape}), dev)["config"]
+            if got != kreg.config_sig(r.config):
+                raise AssertionError(f"autotune {name}: a kernel task resolved {got}, the tuner chose {kreg.config_sig(r.config)}")
+            print(
+                f"autotune kernel={name} config={kreg.config_sig(r.config)} best_ms={r.best_s * 1e3} "
+                f"swept={r.swept} exhaustive={r.exhaustive} timed={len(set(r.timings.values()))}",
+                flush=True,
+            )
+    finally:
+        os.environ.pop("HYDRA_AUTOTUNE", None)
+        unset_autotuner(tuner)
+
+
+def run_facts(torch, Hydra, ProviderSpec, dev):
+    """64 FACTS workflows on the card through the broker, then four
+    instances held against the CPU."""
+    import numpy as np
+
+    from repro_torch.core.managers.workflow import WorkflowManager
+    from repro_torch.facts import model as facts
+    from repro_torch.facts.workflow import make_workflow, result_of
+
+    h = Hydra(device=dev.type, pod_store="memory", policy="load_aware")
+    for name in ("jet2", "aws"):
+        h.register_provider(ProviderSpec(name=name, platform="cloud", connector="caas", concurrency=8))
+    h.register_provider(ProviderSpec(name="bridges2", platform="hpc", connector="pilot", concurrency=8))
+    wfs = [make_workflow(h.data, i, seed=0, n_samples=FACTS_SAMPLES, device=dev) for i in range(FACTS_INSTANCES)]
+    t0 = time.perf_counter()
+    WorkflowManager(h).run(wfs, wait=True, timeout=600)
+    wall = time.perf_counter() - t0
+    bad = [wf.name for wf in wfs if not wf.done or wf.failed]
+    if bad:
+        raise AssertionError(f"facts: {len(bad)} workflows not done: {bad[:4]}")
+    for i in range(FACTS_INSTANCES):
+        q = list(result_of(h.data, i)["quantiles"].values())
+        if not (np.all(np.isfinite(q)) and q == sorted(q)):
+            raise AssertionError(f"facts: instance {i} quantiles {q}")
+    h.shutdown(wait=True)
+    fit_err, proj_err = 0.0, 0.0
+    for site in (0, 7, 31, 63):
+        pre = facts.preprocess(site, 0)
+        on_card, on_cpu = facts.fit(pre, device=dev), facts.fit(pre, device="cpu")
+        for k in ("theta", "cov", "sigma2"):
+            err = float(np.max(np.abs(np.asarray(on_card[k]) - on_cpu[k]) / np.abs(on_cpu[k])))
+            fit_err = max(fit_err, err)
+        z = facts.draws(pre, on_cpu, n_samples=FACTS_SAMPLES, seed=0, device="cpu")
+        want = facts.project_from_draws(pre, on_cpu, *z)
+        got = facts.project_from_draws(pre, on_cpu, *(t.to(dev) for t in z))
+        for k in ("rise_mm", "trajectories"):
+            proj_err = max(proj_err, float(np.abs(got[k] - want[k]).max()))
+    if not (fit_err <= 1e-5 and proj_err <= 1e-3):
+        raise AssertionError(f"facts: card vs CPU fit relative error {fit_err:.3e} (<= 1e-5), project max-abs {proj_err:.3e} mm (<= 1e-3)")
+    print(
+        f"facts instances={FACTS_INSTANCES} n_samples={FACTS_SAMPLES} wall_s={wall} instances_per_s={FACTS_INSTANCES / wall} "
+        f"fit_rel_err={fit_err} project_max_abs_mm={proj_err}",
+        flush=True,
+    )
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository (src/repro_torch is missing)", file=sys.stderr)
@@ -417,6 +602,7 @@ def main() -> int:
     from repro_torch.kernels import registry as kreg
 
     # -- 1. set-up -------------------------------------------------------------
+    phase_t0 = time.perf_counter()
     card = card_line()
     print(f"card {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}", flush=True)
@@ -428,7 +614,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
 
+    print(f"phase name=setup wall_s={time.perf_counter() - phase_t0}", flush=True)
+
     # -- 2. kernels --------------------------------------------------------------
+    phase_t0 = time.perf_counter()
     for name in sorted(kreg.KERNELS):
         kdef = kreg.get_kernel(name)
         for tier in ("tiny", "smoke", "full"):
@@ -461,10 +650,25 @@ def main() -> int:
             check_kernel(torch, kreg, ops, name, shape, "float32", 0, WIDTH_TOL["float32"], True, f"{model}_fp32", dev, timed=False)
         torch.cuda.empty_cache()
 
-    # -- 3. broker ---------------------------------------------------------------
-    launches, routes = run_broker(torch, kreg, ops, Hydra, ProviderSpec, Task, TaskState)
+    print(f"phase name=kernels wall_s={time.perf_counter() - phase_t0}", flush=True)
 
-    # -- 4. report ---------------------------------------------------------------
+    # -- 3. broker ---------------------------------------------------------------
+    phase_t0 = time.perf_counter()
+    launches, routes = run_broker(torch, kreg, ops, Hydra, ProviderSpec, Task, TaskState)
+    print(f"phase name=broker wall_s={time.perf_counter() - phase_t0}", flush=True)
+
+    # -- 4. scenario -------------------------------------------------------------
+    phase_t0 = time.perf_counter()
+    scenario_launches = run_scenarios(ops, device="cuda")
+    print(f"phase name=scenario wall_s={time.perf_counter() - phase_t0}", flush=True)
+
+    # -- 5. autotune and FACTS ---------------------------------------------------
+    phase_t0 = time.perf_counter()
+    run_autotune(torch, kreg, dev)
+    run_facts(torch, Hydra, ProviderSpec, dev)
+    print(f"phase name=autotune_facts wall_s={time.perf_counter() - phase_t0}", flush=True)
+
+    # -- 6. report ---------------------------------------------------------------
     report = []
     for name in sorted(kreg.KERNELS):
         route, source, replaces = KERNEL_INFO[name]
@@ -472,6 +676,7 @@ def main() -> int:
         report.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches[name], "route_launches": routes.get(name), "width_route": row["route"],
+            "scenario_launches": {tag: n[name] for tag, n in scenario_launches.items()},
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "ms_cold": row["ms_cold"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

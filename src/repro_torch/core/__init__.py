@@ -1,13 +1,31 @@
 """Hydra broker core: the paper's contribution as a composable module.
 
-Exports what the PyTorch port carries so far; the autoscaler, market, chaos
-and workflow modules come in later slices (ROADMAP.md)."""
+Counterpart of ``repro/core``, with the same exports.  ``Hydra`` runs on the
+card by default (``device="cuda"``); ``kind="compute"`` tasks, the model
+steps, are the one part of the core not ported yet (ROADMAP.md)."""
 from repro_torch.core.admission import AdmissionController, AdmissionError, TenantSpec
+from repro_torch.core.autoscaler import (
+    Autoscaler,
+    LatencyModel,
+    LaunchSpec,
+    ProviderPool,
+    cloud_startup,
+    hpc_queue_wait,
+)
 from repro_torch.core.broker import Hydra, Submission
+from repro_torch.core.chaos import (
+    ChaosEngine,
+    LinkWindow,
+    PreemptKill,
+    QuarantineStorm,
+    SiteOutage,
+)
 from repro_torch.core.dispatcher import StreamingDispatcher
 from repro_torch.core.fault import BreakerState, CircuitBreaker
 from repro_torch.core.group import GroupExhausted, GroupMember, ProviderGroup
 from repro_torch.core.managers.compute import Preempted, ProviderDown
+from repro_torch.core.market import MarketPlanner, PreemptionHazard
+from repro_torch.core.managers.workflow import Workflow, WorkflowManager
 from repro_torch.core.policy import NoEligibleProvider
 from repro_torch.core.provider import ProviderProxy, ProviderSpec
 from repro_torch.core.resource import ResourceRequest
@@ -24,10 +42,23 @@ __all__ = [
     "AdmissionController",
     "AdmissionError",
     "TenantSpec",
+    "Autoscaler",
     "BreakerState",
+    "ChaosEngine",
     "CircuitBreaker",
+    "LinkWindow",
+    "PreemptKill",
     "Preempted",
     "ProviderDown",
+    "QuarantineStorm",
+    "SiteOutage",
+    "LatencyModel",
+    "LaunchSpec",
+    "MarketPlanner",
+    "PreemptionHazard",
+    "ProviderPool",
+    "cloud_startup",
+    "hpc_queue_wait",
     "GroupExhausted",
     "GroupMember",
     "Hydra",
@@ -35,6 +66,8 @@ __all__ = [
     "ProviderGroup",
     "StreamingDispatcher",
     "Submission",
+    "Workflow",
+    "WorkflowManager",
     "ProviderProxy",
     "ProviderSpec",
     "DatasetRegistry",

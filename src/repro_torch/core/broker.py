@@ -215,8 +215,9 @@ class Hydra:
         # bounds broker memory by LIVE work, this keeps the run totals
         self._retired_phases: dict[str, float] = {}
         self._retired = {"n_submissions": 0, "n_tasks": 0, "ovh_s": 0.0}
-        # stays None until the autoscaler is ported; the dispatcher reads it
-        self.autoscaler = None
+        self.autoscaler = None  # attached via autoscale()
+        self.checkpointer = None  # attached via enable_task_checkpoints()
+        self.autotuner = None  # attached via enable_kernel_autotune()
         # kernel-payload legacy accumulators (HYDRA_EVENTS_CHECK ground
         # truth for kernel.exec): bumped under _kernel_lock adjacent to the
         # emit so the log fold replays float additions in the same order
@@ -269,25 +270,43 @@ class Hydra:
     def enable_task_checkpoints(
         self, interval_s: float = 5.0, size_mb: float = 64.0
     ):
-        """Attach a TaskCheckpointer: preempt-killed tasks resume from their
-        captured ``progress_frac`` instead of restarting from zero.  The
-        checkpointer is not ported yet."""
-        raise NotImplementedError(
-            "task checkpoints need ckpt/checkpoint.py, which the PyTorch port "
-            "does not have yet (ROADMAP.md, 'Modules to port': the checkpointer "
-            "and the autotuner)"
+        """Attach a TaskCheckpointer (ckpt/checkpoint.py): preempt-killed
+        tasks resume from their captured ``progress_frac`` on a surviving
+        provider — through the staging gate, since the checkpoint is a
+        replicated dataset — instead of restarting from zero, and resumes
+        never charge ``max_retries``.  Lazy import: the ckpt module pulls
+        numpy and torch, which the broker core must not pay for
+        unconditionally."""
+        from repro_torch.ckpt.checkpoint import TaskCheckpointer
+
+        if self.checkpointer is not None:
+            raise RuntimeError("a task checkpointer is already attached")
+        self.checkpointer = TaskCheckpointer(
+            self.staging.registry, self.events, interval_s=interval_s, size_mb=size_mb
         )
+        return self.checkpointer
 
     def enable_kernel_autotune(
         self, *, timer: str = "wall", reps: int = 3, seed: int = 0
     ):
-        """Attach a kernel autotuner whose sweeps land in this broker's
-        staging registry.  The autotuner is not ported yet."""
-        raise NotImplementedError(
-            "kernel autotuning needs kernels/autotune.py, which the PyTorch "
-            "port does not have yet (ROADMAP.md, 'Modules to port': the "
-            "checkpointer and the autotuner)"
+        """Attach a kernel Autotuner (kernels/autotune.py) for this broker's
+        device: sweeps land as pinned replicated datasets in this broker's
+        staging registry, keyed ``tune:<kernel>:<device type>:<shape>``, and
+        cache misses emit ``kernel.tune`` on this broker's bus.  The tuner
+        is also installed process-global so kernels/ops.py entry points
+        (and kernel-payload tasks) consult it under ``HYDRA_AUTOTUNE=1``.
+        Lazy import: the kernels package pulls the CUDA launchers, which the
+        broker core must not pay for unconditionally."""
+        from repro_torch.kernels.autotune import Autotuner, set_autotuner
+
+        if self.autotuner is not None:
+            raise RuntimeError("a kernel autotuner is already attached")
+        self.autotuner = Autotuner(
+            registry=self.staging.registry, events=self.events,
+            timer=timer, reps=reps, seed=seed, device=self.proxy.device,
         )
+        set_autotuner(self.autotuner)
+        return self.autotuner
 
     def dispatch(self, tasks: list[Task]) -> None:
         """Feed ready tasks into the streaming dispatcher's queue, through
@@ -457,6 +476,32 @@ class Hydra:
             out["hydra.dispatch.tasks"] = d.tasks_dispatched
             out["hydra.dispatch.retry_backoffs"] = d.retry_backoffs
             out["hydra.dispatch.loop_errors"] = d.loop_errors
+        a = self.autoscaler
+        if a is not None:
+            out["hydra.scale.ticks"] = a.ticks
+            out["hydra.scale.acquisitions"] = a.acquisitions
+            out["hydra.scale.arrivals"] = a.arrivals
+            out["hydra.scale.releases"] = a.releases
+            out["hydra.scale.aborts"] = a.aborts
+            mp = a.planner
+            if mp is not None:
+                out["hydra.market.plans"] = mp.plans
+                out["hydra.market.bids"] = mp.bids
+                for tmpl, n in list(mp.bids_by_template.items()):
+                    out[f"hydra.market.bids:{tmpl}"] = n
+                out["hydra.market.reprices"] = mp.reprices
+                out["hydra.cost_node_seconds"] = mp.cost_node_seconds
+                out["hydra.cost_dollars"] = mp.cost_dollars
+        ck = self.checkpointer
+        if ck is not None:
+            out["hydra.ckpt.saves"] = ck.saves
+            out["hydra.ckpt.resumes"] = ck.resumes
+            out["hydra.ckpt.reexecuted_s"] = ck.reexecuted_s
+            out["hydra.ckpt.preempted_work_s"] = ck.preempted_work_s
+        at = self.autotuner
+        if at is not None:
+            out["hydra.kernel.tunes"] = at.tunes
+            out["hydra.kernel.swept_configs"] = at.swept_configs
         # unconditional: zero-valued keys match an absent view metric, and
         # any broker can receive kernel-payload tasks without opting in
         out["hydra.kernel.execs"] = self.kernel_execs
@@ -536,13 +581,16 @@ class Hydra:
     # Elastic acquisition (core/autoscaler.py drives these)
     # ------------------------------------------------------------------
     def autoscale(self, pool, **kw):
-        """Attach an Autoscaler that acquires and releases providers from
-        ``pool`` under queue pressure.  The autoscaler is not ported yet."""
-        raise NotImplementedError(
-            "elastic scaling needs core/autoscaler.py, which the PyTorch port "
-            "does not have yet (ROADMAP.md, 'Modules to port': scenarios, "
-            "autoscaler, market, chaos and workflow)"
-        )
+        """Attach an Autoscaler watching this broker's queue pressure and
+        elastically acquiring/releasing providers from ``pool`` (a
+        ProviderPool of launchable specs).  Returns the started Autoscaler;
+        shutdown() stops it with the rest of the broker."""
+        from repro_torch.core.autoscaler import Autoscaler
+
+        if self.autoscaler is not None:
+            raise RuntimeError("an autoscaler is already attached")
+        self.autoscaler = Autoscaler(self, pool, **kw).start()
+        return self.autoscaler
 
     def begin_acquisition(self, spec: ProviderSpec, eta_s: float, group: Optional[str] = None):
         """Record a provider as in-flight (requested, not yet up)."""
@@ -629,15 +677,18 @@ class Hydra:
 
     def scale_stats(self) -> dict:
         """One snapshot of the elastic state: live/incoming capacity, queue
-        pressure inputs."""
+        pressure inputs, and the autoscaler's own counters when attached."""
         self.events.maybe_check()
-        return {
+        stats = {
             "n_providers": len(self.providers()),
             "idle_slots": self.idle_slots(),
             "incoming_slots": self.incoming_slots(),
             "pending_acquisitions": self.pending_acquisitions(),
             "queue_depth": self.queue_depth(),
         }
+        if self.autoscaler is not None:
+            stats["autoscaler"] = self.autoscaler.stats()
+        return stats
 
     def _prune_finished_submissions(self) -> None:
         """Drop ANY submission whose tasks have all RESOLVED futures — after
@@ -1151,6 +1202,14 @@ class Hydra:
         with self._fault_lock:
             if task.uid in self._claimed or task.tstate != TaskState.FAILED:
                 return  # already claimed / re-bound / finished elsewhere
+            if self._try_checkpoint_resume(task, exc):
+                # preempt-kill on a checkpointable task: capture progress,
+                # resume from progress_frac WITHOUT charging max_retries —
+                # the re-entry goes through _rebind_and_resubmit, whose
+                # staging gate stages the checkpoint dataset to the chosen
+                # surviving site (checkpoints obey data gravity)
+                self._rebind_and_resubmit([task], exclude=provider)
+                return
             if task.retries < task.max_retries:
                 self._claimed.add(task.uid)
                 task.reset_for_retry()
@@ -1163,6 +1222,23 @@ class Hydra:
                 self._redispatch_in_group(group, [task], exclude=provider)
             else:
                 self._rebind_and_resubmit([task], exclude=provider)
+
+    def _try_checkpoint_resume(self, task: Task, exc) -> bool:
+        """If ``task`` was preempt-killed and a TaskCheckpointer is attached,
+        capture its progress and reset it for resume (no retry charge).
+        Caller holds _fault_lock; the task must be FAILED and unclaimed.
+        Returns True iff the task is now claimed + BOUND for re-entry."""
+        ck = self.checkpointer
+        if ck is None or task.done():
+            return False
+        from repro_torch.core.managers.compute import Preempted
+
+        if not isinstance(exc, Preempted) or not ck.eligible(task):
+            return False
+        self._claimed.add(task.uid)
+        ck.on_preempt(task)
+        task.reset_for_resume()
+        return True
 
     def _on_task_finishing(self, task: Task, provider: str):
         """Stage-out, on the manager thread BEFORE the task's future
@@ -1201,6 +1277,10 @@ class Hydra:
         self.proxy.bump_version()  # health flip: cached bind targets stale
         self.staging.site_down(name)
         self.data.deregister_site(name)
+        if self.autoscaler is not None:
+            # a blacklisted elastic instance must stop occupying pool
+            # headroom, or broken capacity could never be replaced
+            self.autoscaler.note_provider_lost(name)
         # always sweep for orphans: late ProviderDown failures arrive after
         # the initial blacklisting and still need re-binding
         with self._fault_lock:
@@ -1222,12 +1302,26 @@ class Hydra:
             ]
             self._claimed.update(t.uid for t in orphans)
         out = []
+        ck = self.checkpointer
         for t in orphans:
             # force non-final tasks back to a BOUND-able state
             if t.tstate == TaskState.RUNNING:
-                from repro_torch.core.managers.compute import ProviderDown as PD
+                from repro_torch.core.managers.compute import Preempted, ProviderDown as PD
 
-                t.mark_failed(PD(provider))
+                if ck is not None and ck.eligible(t):
+                    # the instance died under a RUNNING checkpointable task:
+                    # that is a preemption, not the task's failure — capture
+                    # progress and resume on a survivor without charging a
+                    # retry (the shared-store checkpoint replica survives
+                    # this site's death)
+                    t.mark_failed(Preempted(provider))
+                    if t.tstate == TaskState.FAILED and not t.done():
+                        ck.on_preempt(t)
+                        t.reset_for_resume()
+                        out.append(t)
+                        continue
+                else:
+                    t.mark_failed(PD(provider))
             if t.tstate == TaskState.FAILED:
                 if t.retries >= t.max_retries:
                     self._release_claim(t)
@@ -1346,6 +1440,8 @@ class Hydra:
     # ------------------------------------------------------------------
     def shutdown(self, wait: bool = True):
         """Graceful teardown of every instantiated resource (paper §3.2)."""
+        if self.autoscaler is not None:
+            self.autoscaler.stop(wait=wait)
         if self._dispatcher is not None:
             self._dispatcher.stop(wait=wait)
         if self.watchdog:
@@ -1357,6 +1453,12 @@ class Hydra:
         self._dispatch.shutdown(wait=wait)
         self.staging.shutdown()
         self.store.cleanup()
+        if self.autotuner is not None:
+            # release the process-global slot iff it is still ours (a later
+            # broker may have installed its own tuner in the meantime)
+            from repro_torch.kernels.autotune import unset_autotuner
+
+            unset_autotuner(self.autotuner)
         log_base = os.environ.get("HYDRA_EVENTS_LOG", "")
         if log_base:
             self.events.dump_jsonl(next_log_path(log_base))

@@ -69,7 +69,9 @@ class KernelRuntime:
 
     The operands are made on the provider's device, so a CUDA provider runs
     the hand-written kernel and a CPU provider its plain version.  Block
-    config: explicit payload config > the kernel's committed defaults.
+    config resolution mirrors kernels/ops.py: explicit payload config >
+    the autotuned cache for the provider's device type (``HYDRA_AUTOTUNE=1``
+    only, kernels/autotune.py) > the kernel's committed defaults.
     Execution is rep-granular and resumable: ``progress_frac`` advances
     after every completed repetition, so a preempt-killed task resumed from
     its checkpoint skips the reps it already finished.
@@ -79,6 +81,7 @@ class KernelRuntime:
         import time as _time
 
         from repro_torch.kernels import registry as kreg
+        from repro_torch.kernels.autotune import tuned_config
 
         spec = dict(task.payload or {})
         kdef = kreg.get_kernel(spec["kernel"])
@@ -86,7 +89,11 @@ class KernelRuntime:
         dtype = spec.get("dtype", "float32")
         reps = max(1, int(spec.get("reps", 1)))
         seed = int(spec.get("seed", 0))
-        config = spec.get("config") or kdef.defaults(shape)
+        config = (
+            spec.get("config")
+            or tuned_config(kdef.name, shape, dtype, device.type)
+            or kdef.defaults(shape)
+        )
         args = kdef.make_args(shape, dtype, seed, device)
         done = min(reps, int(round(task.progress_frac * reps)))
         t0 = _time.perf_counter()

@@ -6,9 +6,12 @@ signature and
   1. checks the operands: all on one device, the dtypes the kernel takes,
      the shapes it expects, contiguous memory, and the reference's block
      divisibility rule;
-  2. resolves the block config: explicit caller argument > the kernel's
-     committed default (the tuned-cache step of the reference arrives with
-     the autotuner, see ROADMAP.md);
+  2. resolves the block config as the reference does: explicit caller
+     argument > the autotuned cache for the operands' device type
+     (``HYDRA_AUTOTUNE=1`` only, kernels/autotune.py) > the kernel's
+     committed default.  The kernels keep only the blocks' divisibility
+     rule and pick their own tiles, so the config decides what is checked
+     and what a kernel task reports, not the launch;
   3. routes by device: a CPU tensor goes to the plain version in
      ``kernels/ref.py``; a CUDA tensor goes to the kernel, which launches
      or raises.  Nothing falls back from the card to the plain version.
@@ -24,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import autotune as _autotune
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import ref
@@ -65,6 +69,15 @@ def reset_launch_counts() -> None:
             c.reset()
 
 
+def _resolve(kernel: str, shape: dict, dtype: torch.dtype, device: torch.device, defaults: dict, explicit: dict) -> dict:
+    """explicit arg > tuned cache (env-gated) > committed default."""
+    if all(v is not None for v in explicit.values()):
+        return explicit
+    dtype_name = str(dtype).removeprefix("torch.")
+    tuned = _autotune.tuned_config(kernel, shape, dtype_name, device.type) or {}
+    return {k: v if v is not None else tuned.get(k, defaults[k]) for k, v in explicit.items()}
+
+
 def _on_card(kernel: str, operands: dict, dtypes: dict, shapes: dict) -> bool:
     """Check every operand; True when they lie on a CUDA device.  ``dtypes``
     maps an operand to the dtypes it may take; ``shapes`` to its expected
@@ -102,11 +115,14 @@ def flash_attention(
     )
     if h % n_kv:
         raise ValueError(f"flash_attention: {h} query heads do not group over {n_kv} KV heads")
-    _fa.check_blocks(
-        lq, lk,
-        _fa.DEFAULT_BLOCK_Q if block_q is None else block_q,
-        _fa.DEFAULT_BLOCK_K if block_k is None else block_k,
+    cfg = _resolve(
+        "flash_attention",
+        {"B": b, "H": h, "KV": n_kv, "L": lq, "hd": hd, "causal": causal, "window": window},
+        q.dtype, q.device,
+        {"block_q": _fa.DEFAULT_BLOCK_Q, "block_k": _fa.DEFAULT_BLOCK_K},
+        {"block_q": block_q, "block_k": block_k},
     )
+    _fa.check_blocks(lq, lk, cfg["block_q"], cfg["block_k"])
     if not on_card:
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     return _fa.flash_attention(q, k, v, causal=causal, window=window)
@@ -124,7 +140,11 @@ def selective_scan_chunk(x, dt, b, c, a, h0, *, block_d: Optional[int] = None):
             "c": (B, chunk, N), "a": (di, N), "h0": (B, di, N),
         },
     )
-    _ss.check_blocks(di, _ss.DEFAULT_BLOCK_D if block_d is None else block_d)
+    cfg = _resolve(
+        "selective_scan", {"B": B, "chunk": chunk, "di": di, "N": N}, x.dtype, x.device,
+        {"block_d": _ss.DEFAULT_BLOCK_D}, {"block_d": block_d},
+    )
+    _ss.check_blocks(di, cfg["block_d"])
     if not on_card:
         return ref.selective_scan_chunk_ref(x, dt, b, c, a, h0)
     return _ss.selective_scan_chunk(x, dt, b, c, a, h0)
@@ -140,7 +160,11 @@ def rglru_scan(log_a, gx, h0=None, *, block_d: Optional[int] = None):
         {"log_a": _F32, "gx": _F32, "h0": _F32},
         {"log_a": (B, L, dr), "gx": (B, L, dr), "h0": (B, dr)},
     )
-    _rg.check_blocks(dr, _rg.DEFAULT_BLOCK_D if block_d is None else block_d)
+    cfg = _resolve(
+        "rglru_scan", {"B": B, "L": L, "dr": dr}, log_a.dtype, log_a.device,
+        {"block_d": _rg.DEFAULT_BLOCK_D}, {"block_d": block_d},
+    )
+    _rg.check_blocks(dr, cfg["block_d"])
     if not on_card:
         return ref.rglru_ref(log_a, gx, h0)
     return _rg.rglru_scan(log_a, gx, h0)
@@ -160,12 +184,12 @@ def moe_gmm(
         "moe_gmm", {"x": x, "w": w}, {"x": _FLOATS, "w": same},
         {"x": (E, C, D), "w": (E, D, F)},
     )
-    _gmm.check_blocks(
-        C, D, F,
-        _gmm.DEFAULT_BLOCK_C if block_c is None else block_c,
-        _gmm.DEFAULT_BLOCK_D if block_d is None else block_d,
-        _gmm.DEFAULT_BLOCK_F if block_f is None else block_f,
+    cfg = _resolve(
+        "moe_gmm", {"E": E, "C": C, "D": D, "F": F}, x.dtype, x.device,
+        {"block_c": _gmm.DEFAULT_BLOCK_C, "block_f": _gmm.DEFAULT_BLOCK_F, "block_d": _gmm.DEFAULT_BLOCK_D},
+        {"block_c": block_c, "block_f": block_f, "block_d": block_d},
     )
+    _gmm.check_blocks(C, D, F, cfg["block_c"], cfg["block_d"], cfg["block_f"])
     if not on_card:
         return ref.moe_gmm_ref(x, w)
     return _gmm.moe_gmm(x, w)

@@ -12,12 +12,23 @@ bundles what the rest of the system needs to treat a kernel as brokered work:
   cost          the least work of one call: the operations its inputs need
                 and the bytes it must move (each input read once, each output
                 written once) -- the two sides of the card's roofline bound
+  space         the reference's exhaustive block sweep space for a shape
+  tile_cost     the tiling arithmetic of one (shape, config) point: the
+                reference's FLOPs, re-fetched tile traffic and grid cells,
+                plus the shared memory one block would stage for its tiles,
+                which the autotuner prices against Hopper's per-block limit
+  launch_key    what a launch actually depends on for a (shape, config,
+                dtype): the wall-timed sweep times one config per key
 
 ``from_jax_args`` carries the reference's operands across, so both packages
 compute on the same numbers in the tests.
 
-The reference's TPU cost terms (VMEM footprint, grid cells, re-fetched tiles)
-and its sweep spaces come back with the autotuner, tuned for Hopper.
+The tile arithmetic mirrors the reference's BlockSpec tiling exactly: traffic
+counts one tile fetch per launched grid cell, FLOPs only the live cells, so
+larger attention blocks trade masked FLOPs for fewer cells and less
+re-fetched K/V -- the three-way frontier kernels/autotune.py prunes on.  The
+hand kernels keep only the blocks' divisibility rule and pick their own
+tiles, so today every config of a kernel shares one launch key: its route.
 """
 from __future__ import annotations
 
@@ -34,6 +45,10 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import selective_scan as _ss
 
+# power-of-two block candidates; a config is admissible only if every block
+# divides its dimension (after the kernels' own min(block, dim) clamp)
+_BLOCK_CANDIDATES = (32, 64, 128, 256, 512, 1024)
+
 
 @dataclass(frozen=True)
 class Cost:
@@ -49,6 +64,20 @@ class Cost:
 
 
 @dataclass(frozen=True)
+class TileCost:
+    """Tiling arithmetic of one (shape, config) point."""
+
+    flops: float  # live cells only
+    hbm_bytes: float  # one tile fetch per launched cell
+    grid_cells: int
+    smem_bytes: float  # one block's tiles, staged whole in shared memory
+
+    @property
+    def intensity(self) -> float:
+        return self.flops / self.hbm_bytes if self.hbm_bytes else 0.0
+
+
+@dataclass(frozen=True)
 class KernelDef:
     name: str
     params: tuple  # config keys, canonical order
@@ -58,6 +87,9 @@ class KernelDef:
     call: Callable[[dict, tuple, dict], Any]
     ref: Callable[[dict, tuple], Any]
     cost: Callable[[dict, str], Cost]
+    space: Callable[[dict], list]
+    tile_cost: Callable[[dict, dict, str], TileCost]
+    launch_key: Callable[[dict, dict, str], tuple]
     tiny_shape: dict  # default payload shape for kind="kernel" tasks
     smoke_shape: dict  # CI bench shape
     full_shape: dict  # nightly sweep shape
@@ -72,6 +104,11 @@ def _dtype(dtype: str) -> torch.dtype:
 
 def _isz(dtype: str) -> int:
     return _dtype(dtype).itemsize
+
+
+def _divisors(dim: int, candidates=_BLOCK_CANDIDATES) -> list:
+    out = [c for c in candidates if c <= dim and dim % c == 0]
+    return out or [dim]
 
 
 def _gen(seed: int, device) -> torch.Generator:
@@ -104,6 +141,21 @@ def _fa_blocks(shape: dict, config: dict) -> tuple:
     bq = min(config["block_q"], lq)
     bk = min(config["block_k"], lq)
     return bq, bk, lq // bq, lq // bk
+
+
+def _fa_live_cells(shape: dict, config: dict) -> int:
+    bq, bk, nq, nk = _fa_blocks(shape, config)
+    window = shape.get("window")
+    live = 0
+    for qi in range(nq):
+        for ki in range(nk):
+            ok = True
+            if shape.get("causal", True):
+                ok = ki * bk <= qi * bq + bq - 1
+            if window is not None:
+                ok = ok and (qi * bq - (ki * bk + bk - 1) < window)
+            live += ok
+    return live
 
 
 def _fa_live_pairs(shape: dict) -> int:
@@ -159,6 +211,30 @@ def _fa_cost(shape: dict, dtype: str) -> Cost:
     return Cost(flops, float(hbm))
 
 
+def _fa_space(shape: dict) -> list:
+    divs = _divisors(shape["L"], candidates=(32, 64, 128, 256, 512))
+    return [{"block_q": bq, "block_k": bk} for bq in divs for bk in divs]
+
+
+def _fa_tile_cost(shape: dict, config: dict, dtype: str) -> TileCost:
+    B, H, hd = shape["B"], shape["H"], shape["hd"]
+    isz = _isz(dtype)
+    bq, bk, nq, nk = _fa_blocks(shape, config)
+    live = _fa_live_cells(shape, config)
+    cells = B * H * nq * nk
+    # two products (q@k^T and p@v) per LIVE cell; masked cells skip math
+    flops = 4.0 * B * H * live * bq * bk * hd
+    # tile traffic per LAUNCHED cell: q, k and v tiles in, the output once
+    hbm = isz * B * H * (nq * nk * (bq + 2 * bk) * hd + shape["L"] * hd)
+    # q/k/v tiles + fp32 running max, sum and accumulator + output tile
+    smem = isz * (bq + 2 * bk) * hd + 4 * bq * (2 + hd) + isz * bq * hd
+    return TileCost(flops, float(hbm), cells, float(smem))
+
+
+def _fa_launch_key(shape: dict, config: dict, dtype: str) -> tuple:
+    return (_fa.route(_dtype(dtype), shape),)
+
+
 # ---------------------------------------------------------------------------
 # selective_scan
 # ---------------------------------------------------------------------------
@@ -200,6 +276,32 @@ def _ss_cost(shape: dict, dtype: str) -> Cost:
     return Cost(flops, float(hbm))
 
 
+def _ss_space(shape: dict) -> list:
+    return [{"block_d": bd} for bd in _divisors(shape["di"])]
+
+
+def _ss_tile_cost(shape: dict, config: dict, dtype: str) -> TileCost:
+    B, ck, di, N = shape["B"], shape["chunk"], shape["di"], shape["N"]
+    isz = _isz(dtype)
+    bd = min(config["block_d"], di)
+    cells = B * (di // bd)
+    flops = 6.0 * B * ck * di * N
+    # per cell: x/dt in, B/C in (re-fetched per d-block: the config lever),
+    # a + h0 in, y + h out
+    per_cell = (
+        isz * ck * bd + 4 * ck * bd  # x (dtype) + dt (f32)
+        + 4 * (2 * ck * N + 2 * bd * N)  # b, c, a, h0
+        + 4 * (ck * bd + bd * N)  # y, h_last
+    )
+    smem = isz * ck * bd + 4 * (2 * ck * bd + 2 * ck * N + 3 * bd * N)
+    return TileCost(flops, float(cells * per_cell), cells, float(smem))
+
+
+def _one_route(shape: dict, config: dict, dtype: str) -> tuple:
+    """The scans have one kernel each, and it picks its own tiles."""
+    return ("cuda",)
+
+
 # ---------------------------------------------------------------------------
 # rglru_scan
 # ---------------------------------------------------------------------------
@@ -232,6 +334,22 @@ def _rg_cost(shape: dict, dtype: str) -> Cost:
     flops = 3.0 * B * L * dr
     hbm = 4.0 * (3 * B * L * dr + 2 * B * dr)
     return Cost(flops, hbm)
+
+
+def _rg_space(shape: dict) -> list:
+    return [{"block_d": bd} for bd in _divisors(shape["dr"])]
+
+
+def _rg_tile_cost(shape: dict, config: dict, dtype: str) -> TileCost:
+    B, L, dr = shape["B"], shape["L"], shape["dr"]
+    bd = min(config["block_d"], dr)
+    cells = B * (dr // bd)
+    # traffic is config-independent (log_a, gx and y each touched once, the
+    # h tiles sum to B*dr), so the frontier collapses to the fewest cells
+    flops = 3.0 * B * L * dr
+    hbm = 4.0 * (3 * B * L * dr + 2 * B * dr)
+    smem = 4.0 * (3 * L * bd + 2 * bd)
+    return TileCost(flops, hbm, cells, smem)
 
 
 # ---------------------------------------------------------------------------
@@ -275,6 +393,33 @@ def _gmm_cost(shape: dict, dtype: str) -> Cost:
     return Cost(flops, float(hbm))
 
 
+def _gmm_space(shape: dict) -> list:
+    return [
+        {"block_c": bc, "block_f": bf, "block_d": bd}
+        for bc in _divisors(shape["C"], candidates=(32, 64, 128, 256))
+        for bf in _divisors(shape["F"], candidates=(64, 128, 256, 512))
+        for bd in _divisors(shape["D"], candidates=(128, 256, 512))
+    ]
+
+
+def _gmm_tile_cost(shape: dict, config: dict, dtype: str) -> TileCost:
+    E, C, D, F = shape["E"], shape["C"], shape["D"], shape["F"]
+    isz = _isz(dtype)
+    bc, bf, bd = min(config["block_c"], C), min(config["block_f"], F), min(config["block_d"], D)
+    nc, nf, nd = C // bc, F // bf, D // bd
+    cells = E * nc * nf * nd
+    flops = 2.0 * E * C * D * F
+    # x tiles re-fetched per f-block, w tiles per c-block, y written per d-block
+    hbm = isz * (nf * E * C * D + nc * E * D * F + nd * E * C * F)
+    # x, w and y tiles + the fp32 accumulator tile
+    smem = isz * (bc * bd + bd * bf + bc * bf) + 4 * bc * bf
+    return TileCost(flops, float(hbm), cells, float(smem))
+
+
+def _gmm_launch_key(shape: dict, config: dict, dtype: str) -> tuple:
+    return (_gmm.route(_dtype(dtype), shape),)
+
+
 # ---------------------------------------------------------------------------
 # the registry
 # ---------------------------------------------------------------------------
@@ -291,6 +436,9 @@ KERNELS: dict = {
             call=_fa_call,
             ref=_fa_ref,
             cost=_fa_cost,
+            space=_fa_space,
+            tile_cost=_fa_tile_cost,
+            launch_key=_fa_launch_key,
             tiny_shape={"B": 1, "H": 2, "KV": 1, "L": 128, "hd": 32, "causal": True, "window": None},
             smoke_shape={"B": 1, "H": 4, "KV": 2, "L": 256, "hd": 64, "causal": True, "window": None},
             full_shape={"B": 1, "H": 8, "KV": 2, "L": 512, "hd": 64, "causal": True, "window": None},
@@ -304,6 +452,9 @@ KERNELS: dict = {
             call=_ss_call,
             ref=_ss_ref,
             cost=_ss_cost,
+            space=_ss_space,
+            tile_cost=_ss_tile_cost,
+            launch_key=_one_route,
             tiny_shape={"B": 1, "chunk": 32, "di": 128, "N": 8},
             smoke_shape={"B": 2, "chunk": 64, "di": 256, "N": 16},
             full_shape={"B": 2, "chunk": 128, "di": 1024, "N": 16},
@@ -317,6 +468,9 @@ KERNELS: dict = {
             call=_rg_call,
             ref=_rg_ref,
             cost=_rg_cost,
+            space=_rg_space,
+            tile_cost=_rg_tile_cost,
+            launch_key=_one_route,
             tiny_shape={"B": 1, "L": 64, "dr": 128},
             smoke_shape={"B": 2, "L": 128, "dr": 512},
             full_shape={"B": 2, "L": 256, "dr": 1024},
@@ -330,6 +484,9 @@ KERNELS: dict = {
             call=_gmm_call,
             ref=_gmm_ref,
             cost=_gmm_cost,
+            space=_gmm_space,
+            tile_cost=_gmm_tile_cost,
+            launch_key=_gmm_launch_key,
             tiny_shape={"E": 2, "C": 64, "D": 128, "F": 128},
             smoke_shape={"E": 4, "C": 128, "D": 256, "F": 512},
             full_shape={"E": 8, "C": 256, "D": 512, "F": 512},
@@ -382,6 +539,7 @@ def max_abs_err(a, b) -> float:
 
 __all__ = [
     "Cost",
+    "TileCost",
     "KernelDef",
     "KERNELS",
     "get_kernel",

@@ -10,7 +10,7 @@ identity is not ground truth on this tree (ROADMAP.md, queue 3).
 
 Also here: the port never loads JAX, imports nothing of the reference
 package, refuses a CUDA broker where no CUDA device exists, and raises a
-typed error for what this slice does not port.
+typed error for what it does not port yet (the model steps).
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ from repro.core import ProviderSpec as JaxProviderSpec
 from repro.core import Task as JaxTask
 from repro.core.provider import ProviderProxy as JaxProviderProxy
 from repro_torch.core import Hydra, ProviderSpec, Task, TaskState
-from repro_torch.core.managers.compute import KERNEL_RUNTIME
+from repro_torch.core.managers.compute import COMPUTE_RUNTIME, KERNEL_RUNTIME
 from repro_torch.core.provider import ProviderProxy
 from repro_torch.kernels import ops
 from repro_torch.kernels import registry as kreg
@@ -95,13 +95,19 @@ def test_port_broker_matches_reference_on_one_workload(tmp_path):
 
 
 def test_importing_the_port_does_not_load_jax():
+    """Every module file of the port, namespace packages included."""
     code = (
-        "import sys, pkgutil, importlib, repro_torch\n"
-        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "import sys, importlib, pathlib, repro_torch\n"
+        "root = pathlib.Path(repro_torch.__file__).parent\n"
+        "for f in sorted(root.rglob('*.py')):\n"
+        "    parts = ('repro_torch',) + f.relative_to(root).with_suffix('').parts\n"
+        "    importlib.import_module('.'.join(p for p in parts if p != '__init__'))\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "assert 'repro_torch.kernels.ops' in sys.modules\n"
+        "for m in ('kernels.ops', 'kernels.autotune', 'ckpt.checkpoint', 'core.autoscaler', 'core.market',\n"
+        "          'core.chaos', 'core.managers.workflow', 'facts.model', 'facts.workflow', 'scenarios.spec',\n"
+        "          'scenarios.traffic', 'scenarios.presets', 'scenarios.runner', 'scenarios'):\n"
+        "    assert 'repro_torch.' + m in sys.modules, m\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""},
@@ -153,10 +159,14 @@ def test_provider_pools_wrap_like_the_reference(spec):
 
 
 def test_unported_subsystems_raise_naming_the_roadmap(tmp_path):
+    """The model steps behind ``kind="compute"`` are what is left unported;
+    the checkpointer, the autotuner and the autoscaler now attach."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        COMPUTE_RUNTIME.run(Task(kind="compute", arch="llama3-8b"), CPU)
     h = Hydra(device="cpu", pod_store="memory", workdir=str(tmp_path))
-    for attach in (h.enable_task_checkpoints, h.enable_kernel_autotune, lambda: h.autoscale(None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            attach()
+    assert h.enable_task_checkpoints() is h.checkpointer
+    assert h.enable_kernel_autotune(timer="model") is h.autotuner
+    assert h.autotuner.device == CPU
     h.shutdown(wait=True)
 
 

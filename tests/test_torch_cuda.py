@@ -191,3 +191,47 @@ def test_scans_from_two_threads_on_two_streams(card, name):
         want = kdef.ref(shape, a)
         assert len(outs[i]) == reps
         assert max(kreg.max_abs_err(got, want) for got in outs[i]) <= 2e-5
+
+
+@pytest.mark.parametrize("name", sorted(kreg.KERNELS))
+def test_wall_timed_tune_on_the_card_resolves_through_ops(card, name, monkeypatch):
+    """A wall-timed sweep times one launch per route with CUDA events, keys
+    its winner by the card's device type, and a kernel call under
+    HYDRA_AUTOTUNE=1 resolves to it."""
+    from repro_torch.core.managers.compute import KERNEL_RUNTIME
+    from repro_torch.core.task import Task
+    from repro_torch.kernels.autotune import Autotuner, set_autotuner, unset_autotuner
+
+    kdef = kreg.get_kernel(name)
+    shape = dict(kdef.full_shape)
+    tuner = Autotuner(timer="wall", device=card, reps=3, warmup=1)
+    before = ops.launch_counts()[name]
+    result = tuner.tune(name, shape, "float32")
+    assert ops.launch_counts()[name] - before == 4  # one launch key: warm-up + 3 reps
+    assert result.key.startswith(f"tune:{name}:cuda:") and result.best_s > 0
+    set_autotuner(tuner)
+    monkeypatch.setenv("HYDRA_AUTOTUNE", "1")
+    try:
+        task = Task(kind="kernel", payload={"kernel": name, "shape": shape})
+        assert KERNEL_RUNTIME.run(task, card)["config"] == kreg.config_sig(result.config)
+    finally:
+        unset_autotuner(tuner)
+
+
+@pytest.mark.parametrize("site", [0, 7, 123, 999])
+def test_facts_on_the_card_matches_the_cpu(card, site):
+    """fit at relative 1e-5; project from draws made on the CPU and moved
+    over, at max-abs 1e-3 mm."""
+    import numpy as np
+
+    from repro_torch.facts import model as facts
+
+    pre = facts.preprocess(site, 1)
+    on_card, on_cpu = facts.fit(pre, device=card), facts.fit(pre, device="cpu")
+    for k in ("theta", "cov", "sigma2"):
+        np.testing.assert_allclose(on_card[k], on_cpu[k], rtol=1e-5)
+    z = facts.draws(pre, on_cpu, n_samples=150_000, seed=1, device="cpu")
+    want = facts.project_from_draws(pre, on_cpu, *z)
+    got = facts.project_from_draws(pre, on_cpu, *(t.to(card) for t in z))
+    assert np.abs(got["rise_mm"] - want["rise_mm"]).max() <= 1e-3
+    assert np.abs(got["trajectories"] - want["trajectories"]).max() <= 1e-3
