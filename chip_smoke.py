@@ -52,13 +52,38 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      finite, ordered quantiles; and for four instances ``fit`` on the card
      against the CPU (relative 1e-5) and ``project`` on the card from draws
      made on the CPU against the CPU (max-abs 1e-3 mm).
-  6. report: the card line, one JSON line of the kernels (route, source, the
+  6. model: the port's serve path (``repro_torch.models``,
+     ``launch/serve.py``) on the card.  Card against CPU at full width in
+     fp32 on the same weights (relative max error <= 1e-4 on the logits and
+     every cache leaf): recurrentgemma-2b cut to one superblock at a prompt
+     of 2176 (past its 2048 window, so the window and the ring buffer
+     bite), falcon-mamba-7b cut to 2 layers at 512 (two chunks carry the
+     state), llama3-8b cut to 2 layers at 1000 (blocks of 125), each prefill
+     launching exactly its kernels.  falcon-mamba-7b and llama3-8b at full
+     width cut to 4 layers in bf16 at a prompt of 4096: finite, 64
+     ``selective_scan`` and 4 ``wgmma`` attention launches, warm prefill
+     time.  Then ``serve("recurrentgemma-2b",
+     reduced=False, batch=4, prompt_len=4096, gen=32)`` in bf16, twice on
+     one set of weights: finite logits, exactly 18 ``rglru_scan`` and 8
+     ``flash_attention`` launches (all ``wgmma``) a prefill and none in
+     decode.  In the first of these prefills, and in the bf16 ones at 4
+     layers, every kernel launch is held against its plain version on the
+     operands the path gave it (``path_kernels_checked``: relative <= 1e-4
+     for fp32 outputs, <= 2e-2 and element by element for bf16).  It prints prefill seconds, decode ms a token, tokens/s, peak
+     memory and the kernels' share of a prefill (from a ``torch.profiler``
+     trace of one more prefill, and from the two kernels timed alone at the
+     serve's shapes).  Last, three ``kind="compute", step_kind="prefill"``
+     tasks, one a family, through ``Hydra(device="cuda")``: all DONE, with
+     the launches of the reduced configs (head width 16 on ``simt``).
+  7. report: the card line, one JSON line of the kernels (route, source, the
      TPU kernel each replaces, launches in phase 3 in total and by kernel
-     route and in each scenario twin, model-width error and times, cold too,
-     beside the roofline bound), and the device line last.
+     route, in each scenario twin and in one full-size serve prefill
+     (``model_launches``), model-width error and times, cold too, beside the
+     roofline bound), and the device line last.
 
 Each phase prints its wall seconds.
 """
+import contextlib
 import json
 import os
 import statistics
@@ -115,6 +140,13 @@ ATTN_VARIANTS = [
     # clips the last K/V tiles at the edge of each head
     ({"B": 1, "H": 4, "KV": 2, "L": 320, "hd": 128, "causal": True, "window": 100}, "ragged_windowed_hd128"),
     ({"B": 1, "H": 4, "KV": 1, "L": 320, "hd": 256, "causal": True, "window": 100}, "ragged_windowed_hd256"),
+]
+
+# head width 16, the reduced model configs' width: fp32 only (the bf16
+# tensor-core kernel starts at 32 and its route refuses 16)
+HD16_CASES = [
+    ({"B": 2, "H": 4, "KV": 2, "L": L, "hd": 16, "causal": True, "window": w}, f"hd16_L{L}_{'window16' if w else 'causal'}")
+    for L in (16, 128) for w in (None, 16)
 ]
 
 # bf16 GEMMs off the tile grid: C, D and F ragged (TMA clips per expert; w
@@ -239,6 +271,16 @@ def expected_route(name: str, shape: dict, dtype: str):
     return "simt"
 
 
+def check_bf16_elements(got, want, label):
+    """Raises where a bf16 output is off its plain version by more than
+    BF16_ELEMENT_TOL, element by element."""
+    rtol, atol = BF16_ELEMENT_TOL
+    gf, wf = got.float(), want.float()
+    n_over = int(((gf - wf).abs() > rtol * wf.abs() + atol).sum())
+    if n_over:
+        raise AssertionError(f"{label}: {n_over} of {got.numel()} elements over rtol {rtol:g} + atol {atol:g}")
+
+
 def check_kernel(torch, kreg, ops, name, shape, dtype, seed, tol, relative, label, dev, timed=True, config=None, flush=None):
     """Kernel vs plain version on the card; raises past ``tol`` or if the
     call took another route than ``expected_route``."""
@@ -261,12 +303,7 @@ def check_kernel(torch, kreg, ops, name, shape, dtype, seed, tol, relative, labe
         if not bool(torch.isfinite(g).all()):
             raise AssertionError(f"{name} {label}: kernel output is not finite")
         if g.dtype == torch.bfloat16:
-            rtol, atol = BF16_ELEMENT_TOL
-            gf, wf = g.float(), w.float()
-            n_over = int(((gf - wf).abs() > rtol * wf.abs() + atol).sum())
-            if n_over:
-                raise AssertionError(f"{name} {label}: {n_over} of {g.numel()} elements over rtol {rtol:g} + atol {atol:g}")
-            del gf, wf
+            check_bf16_elements(g, w, f"{name} {label}")
     err = kreg.max_abs_err(got, want)
     scale = max(float(w.float().abs().max()) for w in want) if relative else 1.0
     if not err / scale <= tol:
@@ -425,6 +462,29 @@ def run_broker(torch, kreg, ops, Hydra, ProviderSpec, Task, TaskState):
 SERVE_KERNELS = ("flash_attention", "selective_scan", "rglru_scan", "moe_gmm")  # searise_kernels' order
 FACTS_INSTANCES = 64
 FACTS_SAMPLES = 150_000  # benchmarks/exp4_facts.py:21
+
+MODEL_TOL = 1e-4  # relative max error, card against CPU in fp32
+# (arch, layers kept, prompt length, the launches its prefill must make)
+MODEL_CHECKS = [
+    ("recurrentgemma-2b", 3, 2176, {"rglru_scan": 2, "flash_attention": 1}),
+    ("falcon-mamba-7b", 2, 512, {"selective_scan": 4}),
+    ("llama3-8b", 2, 1000, {"flash_attention": 2}),
+]
+# the other two families from the model path at full width, depth cut, bf16,
+# batch 1: (arch, layers kept, prompt length, the launches its prefill must
+# make): 16 selective_scan chunks of 256 a layer; one causal attention a layer
+MODEL_WIDTH_RUNS = [
+    ("falcon-mamba-7b", 4, 4096, {"selective_scan": 64}),
+    ("llama3-8b", 4, 4096, {"flash_attention": 4}),
+]
+SERVE = {"arch": "recurrentgemma-2b", "batch": 4, "prompt_len": 4096, "gen": 32}
+SERVE_PREFILL_LAUNCHES = {"flash_attention": 8, "selective_scan": 0, "rglru_scan": 18, "moe_gmm": 0}
+# the reduced configs' prefill launches: 2 dense and 2 hybrid attention
+# layers, 4 recurrent layers, 2 ssm layers x 2 chunks of 8
+COMPUTE_ARCHS = ("llama3-8b", "falcon-mamba-7b", "recurrentgemma-2b")
+COMPUTE_LAUNCHES = {"flash_attention": 4, "selective_scan": 4, "rglru_scan": 4, "moe_gmm": 0}
+# the kernels' symbols in a profiler trace (csrc/*.cu)
+KERNEL_SYMBOLS = {"flash_attention": "flash_fwd", "selective_scan": "scan_kernel", "rglru_scan": "rglru_kernel", "moe_gmm": "gmm_"}
 
 
 def scenario_spec():
@@ -587,6 +647,270 @@ def run_facts(torch, Hydra, ProviderSpec, dev):
     )
 
 
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|, got moved to want's device."""
+    got, want = got.detach().to(want.device).float(), want.detach().float()
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} against {tuple(want.shape)}")
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+# the wrappers of ``kernels/ops.py`` the model path calls, by the kernel
+# each launches on the card
+PATH_WRAPPERS = {"flash_attention": "flash_attention", "selective_scan_chunk": "selective_scan", "rglru_scan": "rglru_scan"}
+
+
+@contextlib.contextmanager
+def path_kernels_checked(torch, ops, label):
+    """Holds every kernel launch the model path makes inside the block
+    against the plain version (``kernels/ref.py``) on the same operands, at
+    the shapes and on the data the path gives it: each output within
+    WIDTH_TOL of its dtype, relative to its largest element, and bf16
+    outputs also element by element (BF16_ELEMENT_TOL).  The wrappers in
+    ``ops`` are swapped for ones that call the original (the path's own
+    launch, counted as ever) and then the plain version, which launches no
+    kernel.  Yields {kernel: {"calls": n, "rel_err": worst}}."""
+    from repro_torch.kernels import ref
+
+    plain = {
+        "flash_attention": lambda q, k, v, causal=True, window=None, **_: ref.attention_ref(q, k, v, causal=causal, window=window),
+        "selective_scan_chunk": lambda x, dt, b, c, a, h0, **_: ref.selective_scan_chunk_ref(x, dt, b, c, a, h0),
+        "rglru_scan": lambda log_a, gx, h0=None, **_: ref.rglru_ref(log_a, gx, h0),
+    }
+    seen = {kernel: {"calls": 0, "rel_err": 0.0} for kernel in PATH_WRAPPERS.values()}
+    originals = {wrapper: getattr(ops, wrapper) for wrapper in PATH_WRAPPERS}
+
+    def checked(wrapper):
+        kernel = PATH_WRAPPERS[wrapper]
+
+        def call(*args, **kw):
+            got = originals[wrapper](*args, **kw)
+            want = plain[wrapper](*args, **kw)
+            where = f"{label}: {kernel} call {seen[kernel]['calls']}"
+            for g, w in zip(as_tuple(got), as_tuple(want)):
+                if not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"{where}: kernel output is not finite")
+                err = rel_err(g, w)
+                if not err <= WIDTH_TOL[str(g.dtype).removeprefix("torch.")]:
+                    raise AssertionError(f"{where}: relative error {err:.3e} against the plain version, shape {tuple(g.shape)} {g.dtype}")
+                if g.dtype == torch.bfloat16:
+                    check_bf16_elements(g, w, where)
+                seen[kernel]["rel_err"] = max(seen[kernel]["rel_err"], err)
+            seen[kernel]["calls"] += 1
+            return got
+
+        return call
+
+    for wrapper in PATH_WRAPPERS:
+        setattr(ops, wrapper, checked(wrapper))
+    try:
+        yield seen
+    finally:
+        for wrapper, fn in originals.items():
+            setattr(ops, wrapper, fn)
+
+
+def check_model_on_card(torch, ops, name, n_layers, prompt, want, dev):
+    """One prefill at full width in fp32 on the card and on the CPU, on the
+    same weights: logits and every cache leaf within MODEL_TOL, and exactly
+    ``want``'s launches on the card (fp32 attention on ``simt``)."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model
+    from repro_torch.models.spec import tree_leaves, tree_map
+
+    cfg = get_arch(name).replace(n_layers=n_layers, param_dtype="float32", compute_dtype="float32")
+    model = Model(cfg)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (1, prompt)), dtype=torch.int32)
+    cache_len = prompt + 8
+    with torch.no_grad():
+        params = model.init(torch.Generator(dev).manual_seed(0), dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": tokens.to(dev)}, cache_len=cache_len)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches, routes = ops.launch_counts(), ops.route_launch_counts()
+        params = tree_map(lambda t: t.cpu(), params)
+        t0 = time.perf_counter()
+        want_logits, want_cache = model.prefill(params, {"tokens": tokens}, cache_len=cache_len)
+        cpu_s = time.perf_counter() - t0
+    full = {k: want.get(k, 0) for k in launches}
+    if launches != full:
+        raise AssertionError(f"model {name}: prefill launches {launches}, want {full}")
+    if routes["flash_attention"] != {"simt": full["flash_attention"], "wgmma": 0}:
+        raise AssertionError(f"model {name}: attention launches by route {routes['flash_attention']}, want all on simt")
+    errs = [rel_err(logits, want_logits)]
+    errs += [rel_err(g, w) for g, w in zip(tree_leaves(cache), tree_leaves(want_cache))]
+    if not bool(torch.isfinite(logits).all()) or not max(errs) <= MODEL_TOL:
+        raise AssertionError(f"model {name}: card against CPU relative errors {errs}, tolerance {MODEL_TOL:g}")
+    print(
+        f"model arch={name} layers={n_layers} prompt={prompt} dtype=float32 logits_rel_err={errs[0]} "
+        f"cache_rel_err={max(errs[1:])} cache_leaves={len(errs) - 1} card_s={card_s} cpu_s={cpu_s} "
+        f"launches={json.dumps(launches)}",
+        flush=True,
+    )
+
+
+def run_full_width(torch, ops, name, n_layers, prompt, want, dev):
+    """One bf16 prefill of the full-width config cut to ``n_layers``: finite
+    logits and cache, exactly ``want``'s launches (attention on ``wgmma``);
+    then the prefill's time, warm."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model
+    from repro_torch.models.spec import tree_leaves
+
+    model = Model(get_arch(name).replace(n_layers=n_layers))
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, model.cfg.vocab_size, (1, prompt)), dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        params = model.init(torch.Generator(dev).manual_seed(0), dev)
+        ops.reset_launch_counts()
+        with path_kernels_checked(torch, ops, f"model {name}") as checked:
+            logits, cache = model.prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+        launches, routes = ops.launch_counts(), ops.route_launch_counts()
+        full = {k: want.get(k, 0) for k in launches}
+        if launches != full or routes["flash_attention"] != {"simt": 0, "wgmma": full["flash_attention"]}:
+            raise AssertionError(f"model {name}: prefill launches {launches} by route {routes}, want {full} (attention on wgmma)")
+        if any(checked[k]["calls"] != n for k, n in full.items() if k in checked):
+            raise AssertionError(f"model {name}: calls held against the plain versions {checked}, want {full}")
+        if not all(bool(torch.isfinite(t).all()) for t in [logits] + tree_leaves(cache)):
+            raise AssertionError(f"model {name}: prefill output is not finite")
+        prefill_ms = median_ms(torch, lambda: model.prefill(params, {"tokens": tokens}), budget_s=1.0, max_reps=5)
+    print(
+        f"model arch={name} layers={n_layers} prompt={prompt} dtype=bfloat16 batch=1 prefill_ms={prefill_ms} "
+        f"launches={json.dumps(launches)} path_checked={json.dumps(checked)}",
+        flush=True,
+    )
+
+
+def device_profile(torch, fn):
+    """``fn()`` once under torch.profiler: its wall (synchronized) and the
+    device time of every kernel the trace holds, by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    device = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            device[e.name] = device.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-6
+    return out, wall_s, device
+
+
+def top_kernels(device: dict, n: int = 5) -> list:
+    return [[name[:80], t] for name, t in sorted(device.items(), key=lambda kv: -kv[1])[:n]]
+
+
+def run_serve(torch, ops, dev):
+    """recurrentgemma-2b at full size, bf16: two serves on one set of
+    weights (the first warms the allocator and cuBLAS and holds each kernel
+    launch of its prefill against the plain version; both are checked, the
+    second is reported), then the kernels' share of one more prefill."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import Model
+
+    model = Model(get_arch(SERVE["arch"]))
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    kw = {k: v for k, v in SERVE.items() if k != "arch"}
+    for run in range(2):
+        ops.reset_launch_counts()
+        # the first serve holds each kernel launch against its plain version
+        with path_kernels_checked(torch, ops, "serve") if run == 0 else contextlib.nullcontext(checked) as checked:
+            out = serve(SERVE["arch"], reduced=False, device="cuda", params=params, **kw)
+        routes = ops.route_launch_counts()
+        if run == 0 and any(checked[k]["calls"] != n for k, n in SERVE_PREFILL_LAUNCHES.items() if k in checked):
+            raise AssertionError(f"serve: calls held against the plain versions {checked}, want {SERVE_PREFILL_LAUNCHES}")
+        if not out["logits_finite"]:
+            raise AssertionError("serve: logits are not finite")
+        if out["prefill_launches"] != SERVE_PREFILL_LAUNCHES or set(out["decode_launches"].values()) != {0}:
+            raise AssertionError(f"serve: prefill launches {out['prefill_launches']} (want {SERVE_PREFILL_LAUNCHES}), decode {out['decode_launches']} (want none)")
+        if routes["flash_attention"] != {"simt": 0, "wgmma": 8} or set(routes["moe_gmm"].values()) != {0}:
+            raise AssertionError(f"serve: launches by route {routes}, want the 8 attention launches on wgmma")
+        if out["tokens"].shape != (SERVE["batch"], SERVE["gen"]):
+            raise AssertionError(f"serve: tokens of shape {out['tokens'].shape}")
+
+    # the kernels' share of a prefill: from a profiler trace, and from the
+    # two kernels timed alone at the serve's shapes times their launches
+    B, L = SERVE["batch"], SERVE["prompt_len"]
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, model.cfg.vocab_size, (B, L)), dtype=torch.int32, device=dev)
+    (_, cache), wall_s, device = device_profile(
+        torch, lambda: model.prefill(params, {"tokens": tokens}, cache_len=L + SERVE["gen"])
+    )
+    busy_s = sum(device.values())
+    pos = torch.full((B,), L, dtype=torch.int32, device=dev)
+    _, step_s, step_device = device_profile(torch, lambda: model.decode_step(params, cache, tokens[:, -1:], pos))
+    kernel_s = {k: sum(t for n, t in device.items() if sym in n) for k, sym in KERNEL_SYMBOLS.items()}
+    cfg = model.cfg
+    g = torch.Generator(dev).manual_seed(1)
+    q = torch.randn(B, cfg.n_heads, L, cfg.hd, generator=g, device=dev).to(torch.bfloat16)
+    kv = torch.randn(B, cfg.n_kv_heads, L, cfg.hd, generator=g, device=dev).to(torch.bfloat16)
+    log_a = -torch.rand(B, L, cfg.rnn_dim, generator=g, device=dev) * 0.1
+    gx = torch.randn(B, L, cfg.rnn_dim, generator=g, device=dev)
+    attn_ms = median_ms(torch, lambda: ops.flash_attention(q, kv, kv, causal=True, window=cfg.local_window, block_q=128, block_k=128))
+    rglru_ms = median_ms(torch, lambda: ops.rglru_scan(log_a, gx))
+    alone_ms = SERVE_PREFILL_LAUNCHES["flash_attention"] * attn_ms + SERVE_PREFILL_LAUNCHES["rglru_scan"] * rglru_ms
+    print(
+        f"serve arch={SERVE['arch']} reduced=False dtype=bfloat16 batch={B} prompt_len={L} gen={SERVE['gen']} "
+        f"prefill_s={out['prefill_s']} decode_ms_per_token={out['decode_s_per_token'] * 1e3} "
+        f"tokens_per_s={out['tokens_per_s']} peak_mem_gb={out['peak_mem_bytes'] / 1e9} "
+        f"prefill_launches={json.dumps(out['prefill_launches'])} routes={json.dumps(routes)} "
+        f"path_checked={json.dumps(checked)}",
+        flush=True,
+    )
+    print(
+        f"serve_profile prefill_wall_s={wall_s} device_busy_s={busy_s} device_idle_share={1 - busy_s / wall_s} "
+        f"kernel_s={json.dumps(kernel_s)} kernel_share={sum(kernel_s.values()) / wall_s} "
+        f"attention_alone_ms={attn_ms} rglru_alone_ms={rglru_ms} kernel_share_alone={alone_ms * 1e-3 / out['prefill_s']} "
+        f"trace_kernels={len(device)} top={json.dumps(top_kernels(device))}",
+        flush=True,
+    )
+    print(
+        f"serve_profile_decode step_wall_s={step_s} device_busy_s={sum(step_device.values())} "
+        f"device_idle_share={1 - sum(step_device.values()) / step_s} trace_kernels={len(step_device)} "
+        f"top={json.dumps(top_kernels(step_device))}",
+        flush=True,
+    )
+    print(f"card {card_line()}", flush=True)
+    return out["prefill_launches"]
+
+
+def run_compute_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState):
+    """kind="compute" prefill tasks, one a family, through the broker on the
+    card: ComputeRuntime -> the reduced model's prefill -> the kernels."""
+    import concurrent.futures as cf
+
+    h = Hydra(device="cuda", streaming=True, pod_store="memory")
+    h.register_provider(ProviderSpec(name="cloud", platform="cloud", connector="caas"))
+    h.register_provider(ProviderSpec(name="hpc", platform="hpc", connector="pilot"))
+    tasks = [Task(kind="compute", arch=a, step_kind="prefill", max_retries=0) for a in COMPUTE_ARCHS]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    h.dispatch(tasks)
+    _, pending = cf.wait(tasks, timeout=300)
+    wall = time.perf_counter() - t0
+    launches, routes = ops.launch_counts(), ops.route_launch_counts()
+    if pending:
+        raise AssertionError(f"compute: {len(pending)} tasks unfinished after 300 s")
+    for t in tasks:
+        if t.tstate != TaskState.DONE or t.result() != {"logits_shape": [2, 1, 256]}:
+            raise AssertionError(f"compute: {t.arch} task ended {t.tstate.value}: {t.exception()!r}")
+    if launches != COMPUTE_LAUNCHES or routes["flash_attention"] != {"simt": 4, "wgmma": 0}:
+        raise AssertionError(f"compute: launches {launches} by route {routes}, want {COMPUTE_LAUNCHES} (attention on simt)")
+    h.shutdown(wait=True)
+    print(f"compute tasks={len(tasks)} archs={list(COMPUTE_ARCHS)} wall_s={wall} launches={json.dumps(launches)}", flush=True)
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository (src/repro_torch is missing)", file=sys.stderr)
@@ -629,6 +953,11 @@ def main() -> int:
                 torch, kreg, ops, "flash_attention", shape, dtype, 1, tol, False, f"{label}_{dtype}", dev,
                 timed=False, config={"block_q": 64, "block_k": 64},
             )
+    for shape, label in HD16_CASES:
+        check_kernel(
+            torch, kreg, ops, "flash_attention", shape, "float32", 1, TIER_TOL, False, label, dev,
+            timed=False, config={"block_q": 64, "block_k": 64},
+        )
     for shape, label in GMM_CASES:
         for dtype, tol in (("float32", TIER_TOL), ("bfloat16", 2e-2)):
             check_kernel(torch, kreg, ops, "moe_gmm", shape, dtype, 1, tol, False, f"{label}_{dtype}", dev, timed=False)
@@ -668,7 +997,22 @@ def main() -> int:
     run_facts(torch, Hydra, ProviderSpec, dev)
     print(f"phase name=autotune_facts wall_s={time.perf_counter() - phase_t0}", flush=True)
 
-    # -- 6. report ---------------------------------------------------------------
+    # -- 6. model ----------------------------------------------------------------
+    phase_t0 = time.perf_counter()
+    del flush
+    torch.cuda.empty_cache()
+    for name, n_layers, prompt, want in MODEL_CHECKS:
+        check_model_on_card(torch, ops, name, n_layers, prompt, want, dev)
+        torch.cuda.empty_cache()
+    for name, n_layers, prompt, want in MODEL_WIDTH_RUNS:
+        run_full_width(torch, ops, name, n_layers, prompt, want, dev)
+        torch.cuda.empty_cache()
+    model_launches = run_serve(torch, ops, dev)
+    torch.cuda.empty_cache()
+    run_compute_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState)
+    print(f"phase name=model wall_s={time.perf_counter() - phase_t0}", flush=True)
+
+    # -- 7. report ---------------------------------------------------------------
     report = []
     for name in sorted(kreg.KERNELS):
         route, source, replaces = KERNEL_INFO[name]
@@ -677,6 +1021,7 @@ def main() -> int:
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches[name], "route_launches": routes.get(name), "width_route": row["route"],
             "scenario_launches": {tag: n[name] for tag, n in scenario_launches.items()},
+            "model_launches": model_launches[name],
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "ms_cold": row["ms_cold"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -5,7 +5,8 @@
 
 The manager traces env setup/teardown per pod (TPT per the paper) and task
 exec windows (TTX), executes noop/sleep/callable tasks directly, and runs
-``kernel`` tasks on the provider's device (``handle.devices[0]``).
+``compute`` (model step) and ``kernel`` tasks on the provider's device
+(``handle.devices[0]``).
 """
 from __future__ import annotations
 
@@ -34,17 +35,74 @@ class Preempted(RuntimeError):
     the broker's retry machinery owns the recovery."""
 
 
+class ArtifactCache:
+    """Cache of built model steps (the reference's ``CompiledArtifactCache``,
+    its "image registry"): eager PyTorch compiles nothing, so an artifact is
+    the model with its initialised parameters on one device."""
+
+    def __init__(self):
+        self._cache: dict[tuple, Any] = {}
+        self._lock = threading.Lock()
+        self.builds = 0
+        self.hits = 0
+
+    def get_or_build(self, key: tuple, build: Callable[[], Any]):
+        with self._lock:
+            if key in self._cache:
+                self.hits += 1
+                return self._cache[key]
+        artifact = build()  # build outside the lock; duplicate builds are benign
+        with self._lock:
+            if key not in self._cache:
+                self._cache[key] = artifact
+                self.builds += 1
+            return self._cache[key]
+
+
+# Shared across managers: artifacts are provider-agnostic, like a registry.
+ARTIFACTS = ArtifactCache()
+
+PREFILL_CACHE_LEN = 32  # the reference's prefill step (compute.py:90)
+
+
 class ComputeRuntime:
-    """Executes ``compute`` tasks: a model step on the provider's device.
-    The model steps are not ported yet, so such a task fails with a typed
-    error the broker reports like any other task failure."""
+    """Executes ``compute`` tasks: a model step of a reduced-config instance
+    on the provider's device, as the reference's does (``compute.py:67-117``).
+
+    ``step_kind="prefill"`` runs the model's prefill (on a CUDA device, its
+    kernels) on the batch ``batch_at(dc, task.retries)`` of a 2 x 16 token
+    data config, with a 32-slot cache.  The model and its parameters, drawn
+    from seed 0, are built once per (arch, step kind, device) and kept in
+    ``ARTIFACTS``.  ``step_kind="train"`` (the default) fails with a typed
+    error until the train slice is ported."""
 
     def run(self, task: Task, device: torch.device) -> Any:
-        raise NotImplementedError(
-            "kind='compute' tasks run the model steps, which the PyTorch port "
-            "does not have yet (ROADMAP.md, 'Modules to port': the model steps "
-            "behind kind='compute')"
+        from repro_torch.configs import get_arch
+        from repro_torch.data.pipeline import DataConfig, batch_at
+        from repro_torch.models.model import TRAIN_SLICE, Model
+
+        step_kind = task.step_kind or "train"
+        if step_kind == "train":
+            raise NotImplementedError(f"kind='compute' step_kind='train': {TRAIN_SLICE}")
+        if step_kind != "prefill":
+            raise ValueError(step_kind)
+        arch = get_arch(task.arch).reduced()
+
+        def build():
+            model = Model(arch)
+            return model, model.init(torch.Generator(device).manual_seed(0), device)
+
+        model, params = ARTIFACTS.get_or_build((task.arch, step_kind, str(device)), build)
+        dc = DataConfig(
+            vocab_size=arch.vocab_size, seq_len=16, global_batch=2,
+            enc_len=arch.enc_len_train, d_model=arch.d_model,
+            n_img_tokens=arch.n_img_tokens, family=arch.family,
         )
+        tokens = torch.from_numpy(batch_at(dc, task.retries)["tokens"]).to(device)
+        with torch.no_grad():
+            logits, _ = model.prefill(params, {"tokens": tokens}, cache_len=PREFILL_CACHE_LEN)
+        _synchronize(device)
+        return {"logits_shape": list(logits.shape)}
 
 
 COMPUTE_RUNTIME = ComputeRuntime()

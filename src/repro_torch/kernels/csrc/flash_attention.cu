@@ -54,6 +54,9 @@
 //    kernel's limit with cudaFuncSetAttribute.
 //  * 4 threads own one q row: each keeps BK/4 scores and hd/4 accumulator
 //    columns in registers; row max and row sum combine with two warp shuffles.
+//  * built for head widths 16 (the reduced model configs), 32, 64, 128 and
+//    256; the `wgmma` route starts at 32 (a 16-wide bf16 row is 32 bytes,
+//    narrower than its smallest swizzle), so bf16 at 16 is refused by `route`.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -202,6 +205,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
 int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B, int H, int KV, int Lq,
                 int Lk, int hd, int causal, int has_window, int window, cudaStream_t stream) {
   switch (hd) {
+    case 16: return launch<16, 64, 32>(q, k, v, o, B, H, KV, Lq, Lk, causal, has_window, window, stream);
     case 32: return launch<32, 64, 32>(q, k, v, o, B, H, KV, Lq, Lk, causal, has_window, window, stream);
     case 64: return launch<64, 64, 32>(q, k, v, o, B, H, KV, Lq, Lk, causal, has_window, window, stream);
     case 128: return launch<128, 64, 32>(q, k, v, o, B, H, KV, Lq, Lk, causal, has_window, window, stream);

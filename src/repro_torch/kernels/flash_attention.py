@@ -22,7 +22,9 @@ from repro_torch.kernels import _build
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
-HEAD_DIMS = (32, 64, 128, 256)  # the head widths the kernel is instantiated for
+# the head widths each kernel is instantiated for (csrc/flash_attention.cu:
+# dispatch_hd, dispatch_wgmma); 16 is the reduced configs' width
+HEAD_DIMS = {"simt": (16, 32, 64, 128, 256), "wgmma": (32, 64, 128, 256)}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {"simt": 0, "wgmma": 1}
 
@@ -36,13 +38,18 @@ def route(dtype: torch.dtype, shape: dict) -> str:
     """Which kernel a launch takes, by rule and before it: ``"wgmma"`` (the
     tensor cores, fed by TMA) for bf16 operands, ``"simt"`` (fp32 products
     on the CUDA cores) for fp32, which keeps fp32 exact.  ``shape`` is a
-    payload dict with the head width ``hd``.  A head width the kernels are
-    not built for raises; every one that is gives strides of hd and L*hd
-    bf16 elements, multiples of the 16 bytes a TMA tensor map requires."""
+    payload dict with the head width ``hd``.  A head width the route's
+    kernel is not built for raises (bf16 at 16 among them: the tensor-core
+    kernel starts at 32); every one it is built for gives strides of hd and
+    L*hd bf16 elements, multiples of the 16 bytes a TMA tensor map requires."""
+    path = "wgmma" if dtype == torch.bfloat16 else "simt"
     hd = shape["hd"]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel: head width {hd} not in {HEAD_DIMS}")
-    return "wgmma" if dtype == torch.bfloat16 else "simt"
+    if hd not in HEAD_DIMS[path]:
+        raise ValueError(
+            f"flash_attention kernel: head width {hd} not in {HEAD_DIMS[path]}, "
+            f"the widths of the {path} route ({dtype})"
+        )
+    return path
 
 
 def check_blocks(lq: int, lk: int, block_q: int, block_k: int) -> None:

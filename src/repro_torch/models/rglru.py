@@ -1,0 +1,322 @@
+"""RecurrentGemma / Griffin hybrid: RG-LRU recurrent blocks + local (sliding
+window) MQA attention in a repeating (rec, rec, attn) pattern.
+
+Counterpart of ``repro/models/rglru.py``.  Over a full sequence the RG-LRU
+recurrence runs on the ``rglru_scan`` kernel (``ops.rglru_scan``) and the
+local attention on the flash kernel, windowed; on CPU tensors both run their
+plain versions.  The decode step (``rglru_step``, one-token attention against
+the ring buffer) is plain PyTorch, as in the reference.  A stack that is not
+a whole number of superblocks ends in recurrent layers (``_layout``:
+recurrentgemma-2b's 26 = 8 x 3 + 2).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import apply_rope, causal_conv1d, conv1d_step, embed_tokens, gelu, geglu, rms_norm
+from repro_torch.models.spec import ParamSpec, dense, layer, stack_layers, stacked, torch_dtype
+from repro_torch.models.transformer import _head, _positions, attn_specs, n_stacked, write_cache
+
+N_GATE_BLOCKS = 16  # block-diagonal gate blocks == model-axis size
+LRU_C = 8.0
+
+
+# ---------------------------------------------------------------------------
+# Specs
+# ---------------------------------------------------------------------------
+
+
+def _gate_blocks(cfg: ArchConfig) -> int:
+    nb = N_GATE_BLOCKS
+    while cfg.rnn_dim % nb:
+        nb //= 2
+    return max(nb, 1)
+
+
+def rec_specs(cfg: ArchConfig, dt: str) -> dict:
+    D, dr, K = cfg.d_model, cfg.rnn_dim, 4
+    nb = _gate_blocks(cfg)
+    bd = dr // nb
+    return {
+        "ln": ParamSpec((D,), ("norm",), dt, "zeros"),
+        "w_x": dense((D, dr), ("embed", "rnn"), dt),
+        "w_gate": dense((D, dr), ("embed", "rnn"), dt),
+        "conv_w": dense((dr, K), ("rnn", "conv"), dt, scale=0.5),
+        "conv_b": ParamSpec((dr,), ("rnn",), dt, "zeros"),
+        "w_rec_gate": dense((nb, bd, bd), ("rnn", None, None), dt),
+        "b_rec_gate": ParamSpec((dr,), ("rnn",), dt, "zeros"),
+        "w_in_gate": dense((nb, bd, bd), ("rnn", None, None), dt),
+        "b_in_gate": ParamSpec((dr,), ("rnn",), dt, "zeros"),
+        "lam": ParamSpec((dr,), ("rnn",), "float32", "rglru_lambda"),
+        "w_out": dense((dr, D), ("rnn", "embed"), dt),
+        "ln_mlp": ParamSpec((D,), ("norm",), dt, "zeros"),
+        "mlp": {
+            "w_gate": dense((D, cfg.d_ff), ("embed", "mlp"), dt),
+            "w_up": dense((D, cfg.d_ff), ("embed", "mlp"), dt),
+            "w_down": dense((cfg.d_ff, D), ("mlp", "embed"), dt),
+        },
+    }
+
+
+def attn_block_specs(cfg: ArchConfig, dt: str) -> dict:
+    return {
+        "ln": ParamSpec((cfg.d_model,), ("norm",), dt, "zeros"),
+        "attn": attn_specs(cfg, dt),
+        "ln_mlp": ParamSpec((cfg.d_model,), ("norm",), dt, "zeros"),
+        "mlp": {
+            "w_gate": dense((cfg.d_model, cfg.d_ff), ("embed", "mlp"), dt),
+            "w_up": dense((cfg.d_model, cfg.d_ff), ("embed", "mlp"), dt),
+            "w_down": dense((cfg.d_ff, cfg.d_model), ("mlp", "embed"), dt),
+        },
+    }
+
+
+def _layout(cfg: ArchConfig) -> tuple[int, int]:
+    """(n_superblocks, n_tail_rec_layers)."""
+    p = len(cfg.block_pattern or ("rec", "rec", "attn"))
+    return cfg.n_layers // p, cfg.n_layers % p
+
+
+def specs(cfg: ArchConfig) -> dict:
+    dt = cfg.param_dtype
+    n_super, n_tail = _layout(cfg)
+    tree: dict[str, Any] = {
+        "embed": dense((cfg.vocab_size, cfg.d_model), ("vocab", "embed_table"), dt, scale=0.02),
+        "superblocks": stacked(
+            n_super,
+            {
+                "rec1": rec_specs(cfg, dt),
+                "rec2": rec_specs(cfg, dt),
+                "attn": attn_block_specs(cfg, dt),
+            },
+        ),
+        "ln_f": ParamSpec((cfg.d_model,), ("norm",), dt, "zeros"),
+        "lm_head": dense((cfg.d_model, cfg.vocab_size), ("embed", "vocab"), dt),
+    }
+    if n_tail:
+        tree["tail"] = stacked(n_tail, rec_specs(cfg, dt))
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU
+# ---------------------------------------------------------------------------
+
+
+def _block_diag(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """u (..., dr) @ block-diagonal w (nb, bd, bd) + b."""
+    nb, bd, _ = w.shape
+    ub = u.reshape(u.shape[:-1] + (nb, bd))
+    out = torch.einsum("...kd,kde->...ke", ub, w)
+    return out.reshape(u.shape) + b
+
+
+def _lru_gates(p: dict, u: torch.Tensor):
+    """Returns (log_a (..., dr) f32, gated_input (..., dr) f32)."""
+    r = torch.sigmoid(_block_diag(u, p["w_rec_gate"], p["b_rec_gate"]).float())
+    i = torch.sigmoid(_block_diag(u, p["w_in_gate"], p["b_in_gate"]).float())
+    log_a = -LRU_C * r * F.softplus(p["lam"].float())
+    beta = torch.sqrt(-torch.expm1(2.0 * log_a))  # sqrt(1 - a^2), stable
+    return log_a, beta * i * u.float()
+
+
+def rglru_seq(p: dict, u: torch.Tensor, h0=None):
+    """RG-LRU over a full sequence on the ``rglru_scan`` kernel.
+    u (B, L, dr) -> (y, h_last (B, dr) f32)."""
+    log_a, gx = _lru_gates(p, u)
+    y, h_last = ops.rglru_scan(log_a.contiguous(), gx.contiguous(), h0)
+    return y.to(u.dtype), h_last
+
+
+def rglru_step(p: dict, u_t: torch.Tensor, h: torch.Tensor):
+    """One decode step.  u_t (B, dr); h (B, dr) f32."""
+    log_a, gx = _lru_gates(p, u_t)
+    h_new = torch.exp(log_a) * h + gx
+    return h_new.to(u_t.dtype), h_new
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+def rec_block(cfg: ArchConfig, x, p, h0=None):
+    """Full-seq recurrent block.  Returns (x, (h_last, conv_tail))."""
+    h_in = rms_norm(x, p["ln"], cfg.norm_eps)
+    u_pre = h_in @ p["w_x"]
+    g = gelu(h_in @ p["w_gate"])
+    u = causal_conv1d(u_pre, p["conv_w"], p["conv_b"])
+    y, h_last = rglru_seq(p, u, h0)
+    x = x + (y * g) @ p["w_out"]
+    h2 = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
+    x = x + geglu(h2, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+    conv_tail = u_pre[:, -3:, :]
+    return x, (h_last, conv_tail)
+
+
+def attn_block(cfg: ArchConfig, x, p, pos):
+    """Local-window MQA block.  Returns (x, (k, v))."""
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q, k, v = attn.qkv_proj(h, p["attn"])
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    a = attn.attention(q, k, v, causal=True, window=cfg.local_window)
+    x = x + attn.out_proj(a, p["attn"]["wo"])
+    h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
+    x = x + geglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+    return x, (k, v)
+
+
+# ---------------------------------------------------------------------------
+# Model passes
+# ---------------------------------------------------------------------------
+
+
+def backbone(cfg: ArchConfig, params, tokens, extras=None):
+    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    pos = _positions(tokens)
+    for i in range(n_stacked(params["superblocks"])):
+        p = layer(params["superblocks"], i)
+        x, _ = rec_block(cfg, x, p["rec1"])
+        x, _ = rec_block(cfg, x, p["rec2"])
+        x, _ = attn_block(cfg, x, p["attn"], pos)
+    if "tail" in params:
+        for i in range(n_stacked(params["tail"])):
+            x, _ = rec_block(cfg, x, layer(params["tail"], i))
+    return x
+
+
+def forward(cfg: ArchConfig, params, tokens, extras=None):
+    return _head(cfg, params, backbone(cfg, params, tokens, extras))
+
+
+def cache_specs(cfg: ArchConfig, batch: int, cache_len: int) -> dict:
+    """LRU states + conv windows + ring-buffer attention caches."""
+    n_super, n_tail = _layout(cfg)
+    W = min(cfg.local_window, cache_len)
+    dr, KV, hd = cfg.rnn_dim, cfg.n_kv_heads, cfg.hd
+    ct = cfg.compute_dtype
+    sb = {
+        "rec1_h": ParamSpec((n_super, batch, dr), ("layers", "cache_batch", "rnn_act"), "float32", "zeros"),
+        "rec1_conv": ParamSpec((n_super, batch, 3, dr), ("layers", "cache_batch", None, "rnn_act"), ct, "zeros"),
+        "rec2_h": ParamSpec((n_super, batch, dr), ("layers", "cache_batch", "rnn_act"), "float32", "zeros"),
+        "rec2_conv": ParamSpec((n_super, batch, 3, dr), ("layers", "cache_batch", None, "rnn_act"), ct, "zeros"),
+        "k": ParamSpec(
+            (n_super, batch, W, KV, hd), ("layers", "cache_batch", "cache_seq", "kv_heads_act", None), ct, "zeros"
+        ),
+        "v": ParamSpec(
+            (n_super, batch, W, KV, hd), ("layers", "cache_batch", "cache_seq", "kv_heads_act", None), ct, "zeros"
+        ),
+    }
+    tree = {"superblocks": sb}
+    if n_tail:
+        tree["tail"] = {
+            "h": ParamSpec((n_tail, batch, dr), ("layers", "cache_batch", "rnn_act"), "float32", "zeros"),
+            "conv": ParamSpec((n_tail, batch, 3, dr), ("layers", "cache_batch", None, "rnn_act"), ct, "zeros"),
+        }
+    return tree
+
+
+def ring_positions(pos: torch.Tensor, window: int) -> torch.Tensor:
+    """Absolute position stored at each ring-buffer slot given current pos (B,).
+
+    Slot j holds the largest p <= pos with p % W == j (negative => empty).
+    """
+    j = torch.arange(window, device=pos.device)[None, :]
+    return pos[:, None] - torch.remainder(pos[:, None] - j, window)
+
+
+def ring_from_seq(k: torch.Tensor, window: int) -> torch.Tensor:
+    """(B, L, KV, hd) -> ring (B, W, KV, hd): token t at slot t % W, the
+    last W tokens kept (``rglru.py:299-307``)."""
+    B, L = k.shape[:2]
+    if L >= window:
+        slots = torch.arange(L - window, L, device=k.device) % window
+        ring = torch.zeros((B, window) + tuple(k.shape[2:]), dtype=k.dtype, device=k.device)
+        ring[:, slots] = k[:, -window:]
+        return ring
+    return F.pad(k, (0, 0, 0, 0, 0, window - L))
+
+
+def _rec_step(cfg, x, p, h, conv_state):
+    """x (B, 1, D) decode step of a recurrent block."""
+    h_in = rms_norm(x[:, 0], p["ln"], cfg.norm_eps)
+    u_pre = h_in @ p["w_x"]
+    g = gelu(h_in @ p["w_gate"])
+    u, conv_state = conv1d_step(u_pre, conv_state, p["conv_w"], p["conv_b"])
+    y, h_new = rglru_step(p, u, h)
+    x = x + ((y * g) @ p["w_out"])[:, None, :]
+    h2 = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
+    x = x + geglu(h2, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+    return x, h_new, conv_state
+
+
+def _attn_step(cfg, x, p, k_cache, v_cache, pos):
+    W = k_cache.shape[1]
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q, k_t, v_t = attn.qkv_proj(h, p["attn"])
+    q = apply_rope(q, pos[:, None], cfg.rope_theta)
+    k_t = apply_rope(k_t, pos[:, None], cfg.rope_theta)
+    ck, cv = write_cache(k_cache, v_cache, k_t, v_t, pos % W)
+    cpos = ring_positions(pos, W)
+    a = attn.decode_attention(q, ck, cv, pos, cache_positions=cpos, window=cfg.local_window)
+    x = x + attn.out_proj(a, p["attn"]["wo"])
+    h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
+    x = x + geglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+    return x, ck, cv
+
+
+def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len=None):
+    B, L = tokens.shape
+    cache_len = cache_len or L
+    W = min(cfg.local_window, cache_len)
+    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    pos = _positions(tokens)
+    sb = []
+    for i in range(n_stacked(params["superblocks"])):
+        p = layer(params["superblocks"], i)
+        x, (h1, cv1) = rec_block(cfg, x, p["rec1"])
+        x, (h2, cv2) = rec_block(cfg, x, p["rec2"])
+        x, (k, v) = attn_block(cfg, x, p["attn"], pos)
+        sb.append({
+            "rec1_h": h1, "rec1_conv": cv1,
+            "rec2_h": h2, "rec2_conv": cv2,
+            "k": ring_from_seq(k, W), "v": ring_from_seq(v, W),
+        })
+    cache = {"superblocks": stack_layers(sb)}
+    if "tail" in params:
+        tail = []
+        for i in range(n_stacked(params["tail"])):
+            x, (h, cv) = rec_block(cfg, x, layer(params["tail"], i))
+            tail.append({"h": h, "conv": cv})
+        cache["tail"] = stack_layers(tail)
+    return _head(cfg, params, x[:, -1:, :]), cache
+
+
+def decode_step(cfg: ArchConfig, params, cache, tokens, pos, extras=None):
+    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    sb = []
+    for i in range(n_stacked(params["superblocks"])):
+        p, lc = layer(params["superblocks"], i), layer(cache["superblocks"], i)
+        x, h1, cv1 = _rec_step(cfg, x, p["rec1"], lc["rec1_h"], lc["rec1_conv"])
+        x, h2, cv2 = _rec_step(cfg, x, p["rec2"], lc["rec2_h"], lc["rec2_conv"])
+        x, ck, cvv = _attn_step(cfg, x, p["attn"], lc["k"], lc["v"], pos)
+        sb.append({
+            "rec1_h": h1, "rec1_conv": cv1,
+            "rec2_h": h2, "rec2_conv": cv2,
+            "k": ck, "v": cvv,
+        })
+    new_cache = {"superblocks": stack_layers(sb)}
+    if "tail" in params:
+        tail = []
+        for i in range(n_stacked(params["tail"])):
+            x, h, cv = _rec_step(cfg, x, layer(params["tail"], i), *(layer(cache["tail"], i)[k] for k in ("h", "conv")))
+            tail.append({"h": h, "conv": cv})
+        new_cache["tail"] = stack_layers(tail)
+    return _head(cfg, params, x), new_cache

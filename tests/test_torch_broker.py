@@ -106,7 +106,10 @@ def test_importing_the_port_does_not_load_jax():
         "assert not bad, bad\n"
         "for m in ('kernels.ops', 'kernels.autotune', 'ckpt.checkpoint', 'core.autoscaler', 'core.market',\n"
         "          'core.chaos', 'core.managers.workflow', 'facts.model', 'facts.workflow', 'scenarios.spec',\n"
-        "          'scenarios.traffic', 'scenarios.presets', 'scenarios.runner', 'scenarios'):\n"
+        "          'scenarios.traffic', 'scenarios.presets', 'scenarios.runner', 'scenarios',\n"
+        "          'configs', 'configs.base', 'configs.registry', 'configs.recurrentgemma_2b', 'models.spec',\n"
+        "          'models.layers', 'models.attention', 'models.transformer', 'models.rglru', 'models.ssm',\n"
+        "          'models.model', 'data.pipeline', 'launch.serve'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
     )
     proc = subprocess.run(
@@ -159,9 +162,10 @@ def test_provider_pools_wrap_like_the_reference(spec):
 
 
 def test_unported_subsystems_raise_naming_the_roadmap(tmp_path):
-    """The model steps behind ``kind="compute"`` are what is left unported;
-    the checkpointer, the autotuner and the autoscaler now attach."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """The train step behind ``kind="compute"`` (its default step kind) is
+    what is left unported; the checkpointer, the autotuner and the
+    autoscaler attach, and prefill steps run (tests/test_torch_serve.py)."""
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*train slice"):
         COMPUTE_RUNTIME.run(Task(kind="compute", arch="llama3-8b"), CPU)
     h = Hydra(device="cpu", pod_store="memory", workdir=str(tmp_path))
     assert h.enable_task_checkpoints() is h.checkpointer
@@ -171,6 +175,8 @@ def test_unported_subsystems_raise_naming_the_roadmap(tmp_path):
 
 
 def test_compute_tasks_fail_with_a_typed_error(tmp_path):
+    """A train-step compute task (the default step kind) fails through the
+    broker with the typed error that names the train slice."""
     h = Hydra(device="cpu", pod_store="memory", streaming=True, workdir=str(tmp_path))
     h.register_provider(ProviderSpec(name="cloud"))
     task = Task(kind="compute", arch="llama3-8b", max_retries=0)
@@ -178,6 +184,7 @@ def test_compute_tasks_fail_with_a_typed_error(tmp_path):
     cf.wait([task], timeout=60)
     assert task.tstate == TaskState.FAILED
     assert isinstance(task.exception(), NotImplementedError)
+    assert "train slice" in str(task.exception())
     h.shutdown(wait=True)
 
 

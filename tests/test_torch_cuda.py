@@ -235,3 +235,44 @@ def test_facts_on_the_card_matches_the_cpu(card, site):
     got = facts.project_from_draws(pre, on_cpu, *(t.to(card) for t in z))
     assert np.abs(got["rise_mm"] - want["rise_mm"]).max() <= 1e-3
     assert np.abs(got["trajectories"] - want["trajectories"]).max() <= 1e-3
+
+
+# head width 16, the reduced model configs' width: fp32 on the simt kernel
+# (the bf16 tensor-core kernel starts at 32, and its route refuses 16)
+@pytest.mark.parametrize("L", [16, 128])
+@pytest.mark.parametrize("window", [None, 16], ids=["causal", "window16"])
+def test_attention_head_width_16_on_the_card(card, L, window):
+    shape = {"B": 2, "H": 4, "KV": 2, "L": L, "hd": 16, "causal": True, "window": window}
+    kdef = kreg.get_kernel("flash_attention")
+    args = kdef.make_args(shape, "float32", 3, card)
+    routes = ops.route_launch_counts()["flash_attention"]
+    got = kdef.call(shape, args, {"block_q": 64, "block_k": 64})
+    assert _route_delta("flash_attention", routes) == {"simt": 1, "wgmma": 0}
+    assert kreg.max_abs_err(got, kdef.ref(shape, args)) <= 2e-5
+
+
+# the reduced models' prefill on the card against the CPU (relative 1e-4 in
+# fp32, as chip_smoke.py holds the full widths), launching exactly their kernels
+@pytest.mark.parametrize(
+    "name,want",
+    [
+        ("llama3-8b", {"flash_attention": 2}),
+        ("falcon-mamba-7b", {"selective_scan": 4}),
+        ("recurrentgemma-2b", {"flash_attention": 2, "rglru_scan": 4}),
+    ],
+)
+def test_reduced_model_prefill_on_the_card_matches_the_cpu(card, name, want):
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model
+    from repro_torch.models.spec import tree_leaves, tree_map
+
+    model = Model(get_arch(name).reduced())
+    params = model.init(torch.Generator(card).manual_seed(0), card)
+    tokens = torch.randint(0, 256, (2, 16), generator=torch.Generator().manual_seed(1), dtype=torch.int32)
+    before = ops.launch_counts()
+    got = model.prefill(params, {"tokens": tokens.to(card)}, cache_len=20)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in ops.launch_counts().items()} == {k: want.get(k, 0) for k in before}
+    ref = model.prefill(tree_map(lambda t: t.cpu(), params), {"tokens": tokens}, cache_len=20)
+    for g, w in zip(tree_leaves({"logits": got[0], "cache": got[1]}), tree_leaves({"logits": ref[0], "cache": ref[1]})):
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max())
