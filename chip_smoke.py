@@ -75,11 +75,34 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      serve's shapes).  Last, three ``kind="compute", step_kind="prefill"``
      tasks, one a family, through ``Hydra(device="cuda")``: all DONE, with
      the launches of the reduced configs (head width 16 on ``simt``).
-  7. report: the card line, one JSON line of the kernels (route, source, the
+  7. train: the port's train path (``launch/train.py`` -> ``train/step.py``
+     -> ``Model.loss`` under remat -> the kernels as autograd Functions ->
+     their backward kernels -> ``optim/adamw.py``) on the card.  First the
+     two backward kernels against their plain versions (fp32 relative
+     <= 1e-4; bf16 element by element, rtol = atol = 2e-2 with atol against
+     the largest element) at llama3-8b's and recurrentgemma-2b's attention
+     widths in bf16, head width 16 in fp32, an Lq != Lk non-causal case, and
+     the RG-LRU backward at B1 L4096 dr2560, each timed (warm and cold)
+     beside its plain version, SDPA's autograd backward (attention; timed
+     only) and its bound.  Then ``train("recurrentgemma-2b",
+     reduced=False, steps=3, seq_len=4096, global_batch=1)`` in bf16: every
+     backward launch of its first step held against its plain version on
+     its own operands, finite losses, per step 16 / 36 forward launches
+     (attention / rglru_scan, twice 8 / 18 under remat="dots") and 8 / 18
+     backward launches, and every parameter leaf's gradient nonzero (the
+     kernels carry gradients back).  llama3-8b at full width cut to 2 layers
+     trains 2 steps at B2 x 2048 the same way; llama3-8b cut to 1 layer
+     (B1 x 256, fp32) gives every gradient leaf on the card within 1e-4 of
+     the CPU's; and ``kind="compute"`` train tasks on ``Hydra(device="cuda")``:
+     3 llama3-8b and 3 recurrentgemma-2b tasks DONE with finite metrics and
+     their backward launches, one falcon-mamba-7b task FAILED with
+     ``ops.BackwardNotPorted`` (the selective_scan backward is not ported).
+  8. report: the card line, one JSON line of the kernels (route, source, the
      TPU kernel each replaces, launches in phase 3 in total and by kernel
      route, in each scenario twin and in one full-size serve prefill
      (``model_launches``), model-width error and times, cold too, beside the
-     roofline bound), and the device line last.
+     roofline bound; the two backward kernels with their launches in the
+     recurrentgemma-2b train run), and the device line last.
 
 Each phase prints its wall seconds.
 """
@@ -787,12 +810,13 @@ def run_full_width(torch, ops, name, n_layers, prompt, want, dev):
     )
 
 
-def device_profile(torch, fn):
-    """``fn()`` once under torch.profiler: its wall (synchronized) and the
-    device time of every kernel the trace holds, by name."""
+def device_profile(torch, fn, grad: bool = False):
+    """``fn()`` once under torch.profiler (with grad mode on only when
+    ``grad``): its wall (synchronized) and the device time of every kernel
+    the trace holds, by name."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch.set_grad_enabled(grad), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
@@ -911,6 +935,431 @@ def run_compute_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState):
     print(f"compute tasks={len(tasks)} archs={list(COMPUTE_ARCHS)} wall_s={wall} launches={json.dumps(launches)}", flush=True)
 
 
+# -- the train path --------------------------------------------------------
+
+# attention backward cases: (label, B, H, KV, Lq, Lk, hd, causal, window, dtype)
+BWD_ATTN_CASES = [
+    ("llama3_8b", 2, 32, 8, 2048, 2048, 128, True, None, "bfloat16"),
+    ("recurrentgemma_2b", 1, 10, 1, 4096, 4096, 256, True, 2048, "bfloat16"),
+    ("hd16_reduced", 2, 4, 2, 128, 128, 16, True, 16, "float32"),
+    ("lq96_lk200_non_causal", 1, 4, 2, 96, 200, 64, False, None, "float32"),
+]
+BWD_RGLRU_CASE = ("recurrentgemma_2b", 1, 4096, 2560)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+TRAIN = {"arch": "recurrentgemma-2b", "steps": 3, "seq_len": 4096, "global_batch": 1}
+# per step of recurrentgemma-2b (8 attention and 18 recurrent layers): the
+# forward runs twice under remat="dots" (once more in the backward's recompute)
+TRAIN_LAUNCHES = {"flash_attention": 16, "selective_scan": 0, "rglru_scan": 36, "moe_gmm": 0}
+TRAIN_BACKWARD_LAUNCHES = {"flash_attention_bwd": 8, "rglru_scan_bwd": 18}
+DENSE_TRAIN = {"arch": "llama3-8b", "layers": 2, "batch": 2, "seq_len": 2048, "steps": 2}
+GRAD_CHECK = {"arch": "llama3-8b", "layers": 1, "batch": 1, "seq_len": 256}
+GRAD_TOL = 1e-4
+TRAIN_TASKS = (("llama3-8b", 3), ("recurrentgemma-2b", 3))
+# a reduced step: llama3-8b 2 attention layers; recurrentgemma-2b 2 attention
+# and 4 recurrent layers (remat="none": one forward)
+TRAIN_TASK_LAUNCHES = {"flash_attention": 12, "selective_scan": 0, "rglru_scan": 12, "moe_gmm": 0}
+TRAIN_TASK_BACKWARD_LAUNCHES = {"flash_attention_bwd": 12, "rglru_scan_bwd": 12}
+# the train step's kernels in a profiler trace: the forward kernels and the
+# backward kernels' symbols (csrc/*_bwd.cu)
+TRAIN_SYMBOLS = {
+    "flash_attention": ("flash_fwd",), "rglru_scan": ("rglru_kernel",),
+    "flash_attention_bwd": ("bwd_pre", "bwd_dkdv", "bwd_dq"), "rglru_scan_bwd": ("seg_summary", "seg_carries", "seg_walk"),
+}
+BACKWARD_INFO = {
+    "flash_attention_bwd": ("cuda", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu", "src/repro/models/attention.py:36"),
+    "rglru_scan_bwd": ("cuda", "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu", "src/repro/models/rglru.py:137"),
+}
+
+
+def check_grads(torch, got, want, dtype: str, label: str) -> float:
+    """Each output against its plain version: fp32 within BWD_TOL of its
+    largest element; bf16 element by element, |got - want| <= 2e-2 |want| +
+    2e-2 max|want| (gradients are small numbers: atol against the largest).
+    Returns the worst max-abs error and the worst of it over the largest
+    element."""
+    worst, worst_abs = 0.0, 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{label}: kernel gave {tuple(g.shape)} {g.dtype} (finite: {bool(torch.isfinite(g).all())}), plain {tuple(w.shape)} {w.dtype}")
+        gf, wf = g.float(), w.float()
+        scale = max(float(wf.abs().max()), 1e-30)
+        err = float((gf - wf).abs().max()) / scale
+        if dtype == "bfloat16":
+            tol = BWD_TOL["bfloat16"]
+            n_over = int(((gf - wf).abs() > tol * wf.abs() + tol * scale).sum())
+            if n_over:
+                raise AssertionError(f"{label}: {n_over} of {g.numel()} elements over rtol = atol = {tol:g}")
+        elif not err <= BWD_TOL["float32"]:
+            raise AssertionError(f"{label}: relative error {err:.3e} over {BWD_TOL['float32']:g}")
+        worst, worst_abs = max(worst, err), max(worst_abs, err * scale)
+    return worst_abs, worst
+
+
+def attention_live_pairs(Lq: int, Lk: int, causal: bool, window) -> int:
+    """The (query, key) pairs the mask keeps: the work this run's shapes need."""
+    import numpy as np
+
+    qp = np.arange(Lq)
+    hi = np.minimum(Lk, qp + 1) if causal else np.full(Lq, Lk)
+    lo = np.maximum(0, qp - window + 1) if window else np.zeros(Lq, dtype=np.int64)
+    return int(np.maximum(0, hi - lo).sum())
+
+
+def attention_bwd_bound(B, H, KV, Lq, Lk, hd, causal, window, dtype: str) -> tuple:
+    """2.5x the forward's multiply-adds over the live pairs (dV, dP, dQ, dK
+    and the S recompute are five products against the forward's two) on the
+    peak of the operands' type, against q, k, v, o, dO read and dq, dk, dv
+    written once, on the H100's data-sheet peaks."""
+    from repro_torch.kernels.autotune import HBM_BYTES_PER_S, PEAK_OPS_PER_S
+
+    flops = 2.5 * 4 * B * H * attention_live_pairs(Lq, Lk, causal, window) * hd
+    item = 2 if dtype == "bfloat16" else 4
+    nbytes = item * (4 * B * H * Lq * hd + 4 * B * KV * Lk * hd)
+    t_ops, t_bytes = flops / PEAK_OPS_PER_S[dtype], nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def rglru_bwd_bound(B, L, dr) -> tuple:
+    """log_a, y, dy read and dlog_a, dgx written (fp32), h0 and dh_last read
+    and dh0 written, over the memory rate; its ~6 fp32 operations an element
+    are far below."""
+    from repro_torch.kernels.autotune import HBM_BYTES_PER_S, PEAK_OPS_PER_S
+
+    t_bytes = 4 * (5 * B * L * dr + 3 * B * dr) / HBM_BYTES_PER_S
+    t_ops = 6 * B * L * dr / PEAK_OPS_PER_S["float32"]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa_backward(torch, q, k, v, do, causal, window):
+    """SDPA's autograd backward on the same operands (a yardstick the port
+    never calls): a function that runs it once, or None where SDPA refuses
+    the shape."""
+    import torch.nn.functional as F
+
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    Lq, Lk = q.shape[2], k.shape[2]
+    mask = None
+    if window is not None or (causal and Lq != Lk):
+        qp = torch.arange(Lq, device=q.device)[:, None]
+        kp = torch.arange(Lk, device=q.device)[None, :]
+        mask = (qp >= kp) if causal else torch.ones(Lq, Lk, dtype=torch.bool, device=q.device)
+        if window is not None:
+            mask = mask & ((qp - kp) < window)
+    try:
+        out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True)
+        torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True)
+    except RuntimeError as e:
+        print(f"train_kernel sdpa_backward refused: {e}", flush=True)
+        return None
+    return lambda: torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True)
+
+
+def check_backward_kernels(torch, ops, dev, flush):
+    """Each backward kernel against its plain version on the card, timed."""
+    from repro_torch.kernels import ref
+
+    rows = {}
+    for label, B, H, KV, Lq, Lk, hd, causal, window, dtype in BWD_ATTN_CASES:
+        dt = getattr(torch, dtype)
+        g = torch.Generator(dev).manual_seed(11)
+        q = torch.randn(B, H, Lq, hd, generator=g, device=dev).to(dt)
+        k, v = (torch.randn(B, KV, Lk, hd, generator=g, device=dev).to(dt) for _ in range(2))
+        o = ref.attention_ref(q, k, v, causal=causal, window=window)
+        do = torch.randn(B, H, Lq, hd, generator=g, device=dev).to(dt)
+        run = lambda: ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+        before = ops.backward_launch_counts()["flash_attention_bwd"]
+        got = run()
+        torch.cuda.synchronize()
+        if ops.backward_launch_counts()["flash_attention_bwd"] != before + 1:
+            raise AssertionError(f"flash_attention_bwd {label}: the wrapper did not launch its kernel")
+        abs_err, err = check_grads(torch, got, ref.attention_bwd_ref(q, k, v, o, do, causal=causal, window=window), dtype, f"flash_attention_bwd {label}")
+        lib = sdpa_backward(torch, q, k, v, do, causal, window)
+        row = {
+            "kernel": "flash_attention_bwd", "case": label, "dtype": dtype, "max_abs_err": abs_err, "rel_err": err,
+            "ms": median_ms(torch, run), "ms_cold": cold_ms(torch, run, flush),
+            "plain_ms": median_ms(torch, lambda: ref.attention_bwd_ref(q, k, v, o, do, causal=causal, window=window), max_reps=3),
+            "library_ms": median_ms(torch, lib, max_reps=10) if lib is not None else None,
+        }
+        row["bound_ms"], row["bound_by"] = attention_bwd_bound(B, H, KV, Lq, Lk, hd, causal, window, dtype)
+        print("train_kernel " + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
+        rows.setdefault("flash_attention_bwd", {})[label] = row
+        del q, k, v, o, do, got, lib
+        torch.cuda.empty_cache()
+    label, B, L, dr = BWD_RGLRU_CASE
+    g = torch.Generator(dev).manual_seed(12)
+    log_a = -torch.rand(B, L, dr, generator=g, device=dev) * 0.1
+    gx, dy = (torch.randn(B, L, dr, generator=g, device=dev) for _ in range(2))
+    h0, dh = (torch.randn(B, dr, generator=g, device=dev) for _ in range(2))
+    y, _ = ops.rglru_scan(log_a, gx, h0)
+    run = lambda: ops.rglru_scan_bwd(log_a, h0, y, dy, dh)
+    got = run()
+    torch.cuda.synchronize()
+    abs_err, err = check_grads(torch, got, ref.rglru_bwd_ref(log_a, h0, y, dy, dh), "float32", f"rglru_scan_bwd {label}")
+    row = {
+        "kernel": "rglru_scan_bwd", "case": label, "dtype": "float32", "max_abs_err": abs_err, "rel_err": err,
+        "ms": median_ms(torch, run), "ms_cold": cold_ms(torch, run, flush),
+        "plain_ms": median_ms(torch, lambda: ref.rglru_bwd_ref(log_a, h0, y, dy, dh), max_reps=3), "library_ms": None,
+    }
+    row["bound_ms"], row["bound_by"] = rglru_bwd_bound(B, L, dr)
+    print("train_kernel " + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
+    rows["rglru_scan_bwd"] = {label: row}
+    return rows
+
+
+# the backward wrappers of ``kernels/ops.py`` the autograd Functions call
+BACKWARD_WRAPPERS = ("flash_attention_bwd", "rglru_scan_bwd")
+
+
+@contextlib.contextmanager
+def backward_kernels_checked(torch, ops, label, first: dict):
+    """Holds the first ``first[kernel]`` backward launches of each kernel
+    (the launches of one train step) against the plain version on the
+    operands the path gave them (fp32 relative 1e-4, bf16 also element by
+    element; ``check_grads``): the ``ops`` wrappers are swapped for ones
+    that call the original (the path's own launch, counted) and then the
+    plain version.  Yields {kernel: {"calls", "rel_err"}}."""
+    from repro_torch.kernels import ref
+
+    plain = {"flash_attention_bwd": ref.attention_bwd_ref, "rglru_scan_bwd": ref.rglru_bwd_ref}
+    seen = {k: {"calls": 0, "rel_err": 0.0} for k in BACKWARD_WRAPPERS}
+    originals = {w: getattr(ops, w) for w in BACKWARD_WRAPPERS}
+
+    def checked(wrapper):
+        def call(*args, **kw):
+            got = originals[wrapper](*args, **kw)
+            if seen[wrapper]["calls"] < first.get(wrapper, 0):
+                with torch.no_grad():
+                    want = plain[wrapper](*args, **kw)
+                dtype = str(args[0].dtype).removeprefix("torch.")
+                _, err = check_grads(torch, got, want, dtype, f"{label}: {wrapper} call {seen[wrapper]['calls']}")
+                seen[wrapper]["rel_err"] = max(seen[wrapper]["rel_err"], err)
+                seen[wrapper]["calls"] += 1
+            return got
+
+        return call
+
+    for w in BACKWARD_WRAPPERS:
+        setattr(ops, w, checked(w))
+    try:
+        yield seen
+    finally:
+        for w, fn in originals.items():
+            setattr(ops, w, fn)
+
+
+@contextlib.contextmanager
+def grad_leaves_counted(torch):
+    """Records, for every AdamW step taken inside, the share of parameter
+    leaves whose gradient has a nonzero element (``adamw.apply_updates`` is
+    wrapped; the step reads it through the module)."""
+    from repro_torch.models.spec import tree_leaves
+    from repro_torch.optim import adamw
+
+    shares = []
+    original = adamw.apply_updates
+
+    def counted(cfg, params, grads, state):
+        leaves = tree_leaves(grads)
+        shares.append(float(torch.stack([g.ne(0).any() for g in leaves]).float().mean()))
+        return original(cfg, params, grads, state)
+
+    adamw.apply_updates = counted
+    try:
+        yield shares
+    finally:
+        adamw.apply_updates = original
+
+
+def run_train_full_size(torch, ops, dev):
+    """recurrentgemma-2b at full size, bf16, through launch/train.py."""
+    from repro_torch.launch.train import train
+
+    with backward_kernels_checked(torch, ops, "train", TRAIN_BACKWARD_LAUNCHES) as checked, grad_leaves_counted(torch) as shares:
+        ops.reset_launch_counts()
+        out = train(TRAIN["arch"], reduced=False, device="cuda", log_every=0,
+                    steps=TRAIN["steps"], seq_len=TRAIN["seq_len"], global_batch=TRAIN["global_batch"])
+        launches, backward = ops.launch_counts(), ops.backward_launch_counts()
+    for k, n in TRAIN_BACKWARD_LAUNCHES.items():
+        if checked[k]["calls"] != n:
+            raise AssertionError(f"train: {checked[k]['calls']} {k} calls held against the plain version in the first step, want {n}")
+    import math
+
+    if out["steps"] != TRAIN["steps"] or not all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]):
+        raise AssertionError(f"train: losses {out['losses']}, grad norms {out['grad_norms']}")
+    for i, (fwd, bwd) in enumerate(zip(out["launches"], out["backward_launches"])):
+        if fwd != TRAIN_LAUNCHES or bwd != TRAIN_BACKWARD_LAUNCHES:
+            raise AssertionError(f"train step {i}: launches {fwd} / backward {bwd}, want {TRAIN_LAUNCHES} / {TRAIN_BACKWARD_LAUNCHES}")
+    if shares != [1.0] * TRAIN["steps"]:
+        raise AssertionError(f"train: share of parameter leaves with a nonzero gradient per step {shares}, want 1.0")
+    if min(launches["flash_attention"], launches["rglru_scan"], *backward.values()) < 1:
+        raise AssertionError(f"train: a kernel of the path was not launched: {launches} {backward}")
+    print(
+        f"train arch={TRAIN['arch']} reduced=False dtype=bfloat16 batch={TRAIN['global_batch']} seq_len={TRAIN['seq_len']} "
+        f"steps={out['steps']} step_s={json.dumps(out['step_s'])} losses={json.dumps(out['losses'])} "
+        f"grad_norms={json.dumps(out['grad_norms'])} peak_mem_gb={out['peak_mem_bytes'] / 1e9} "
+        f"launches_per_step={json.dumps(out['launches'][0])} backward_launches_per_step={json.dumps(out['backward_launches'][0])} "
+        f"nonzero_grad_leaf_share={json.dumps(shares)} path_checked={json.dumps(checked)}",
+        flush=True,
+    )
+    profile_train_step(torch, out["params"], out["opt"], dev)
+    del out
+    return backward
+
+
+def profile_train_step(torch, params, opt, dev):
+    """One more recurrentgemma-2b step, on the trained state, under
+    torch.profiler: the device's busy and idle time, the kernels' share and
+    the largest kernels by device time."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_lib
+
+    cfg = get_arch(TRAIN["arch"])
+    fn = step_lib.make_train_step(Model(cfg), adamw.AdamWConfig())
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq_len"], global_batch=TRAIN["global_batch"])
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_at(dc, TRAIN["steps"]).items()}
+    _, wall_s, device = device_profile(torch, lambda: fn(params, opt, batch), grad=True)
+    busy_s = sum(device.values())
+    kernel_s = {k: sum(t for n, t in device.items() if any(sym in n for sym in syms)) for k, syms in TRAIN_SYMBOLS.items()}
+    parts = {sym: sum(t for n, t in device.items() if sym in n) for sym in TRAIN_SYMBOLS["flash_attention_bwd"] + TRAIN_SYMBOLS["rglru_scan_bwd"]}
+    print(
+        f"train_profile arch={TRAIN['arch']} step_wall_s={wall_s} device_busy_s={busy_s} device_idle_share={1 - busy_s / wall_s} "
+        f"kernel_s={json.dumps(kernel_s)} kernel_share={sum(kernel_s.values()) / wall_s} backward_parts_s={json.dumps(parts)} "
+        f"trace_kernels={len(device)} top={json.dumps(top_kernels(device, 8))}",
+        flush=True,
+    )
+
+
+def run_train_dense_width(torch, ops, dev):
+    """llama3-8b at full width cut to DENSE_TRAIN["layers"] layers, bf16,
+    through make_train_step; the first step's backward launches checked."""
+    import math
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_lib
+
+    cfg = get_arch(DENSE_TRAIN["arch"]).replace(n_layers=DENSE_TRAIN["layers"])
+    model = Model(cfg)
+    params, opt = step_lib.init_train_state(model, torch.Generator(dev).manual_seed(0), dev)
+    fn = step_lib.make_train_step(model, adamw.AdamWConfig())
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=DENSE_TRAIN["seq_len"], global_batch=DENSE_TRAIN["batch"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    n = DENSE_TRAIN["layers"]
+    step_s, losses, norms, per_step = [], [], [], []
+    with backward_kernels_checked(torch, ops, "train_dense", {"flash_attention_bwd": n}) as checked, grad_leaves_counted(torch) as shares:
+        for i in range(DENSE_TRAIN["steps"]):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_at(dc, i).items()}
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, metrics = fn(params, opt, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+            per_step.append((ops.launch_counts(), ops.backward_launch_counts()))
+    for fwd, bwd in per_step:
+        if fwd["flash_attention"] != 2 * n or bwd != {"flash_attention_bwd": n, "rglru_scan_bwd": 0}:
+            raise AssertionError(f"train_dense: launches {fwd} / backward {bwd}, want {2 * n} attention (remat) and {n} backward")
+    if checked["flash_attention_bwd"]["calls"] != n or shares != [1.0] * DENSE_TRAIN["steps"] or not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"train_dense: checked {checked}, nonzero-gradient shares {shares}, losses {losses}")
+    print(
+        f"train arch={DENSE_TRAIN['arch']} layers={n} dtype=bfloat16 batch={DENSE_TRAIN['batch']} seq_len={DENSE_TRAIN['seq_len']} "
+        f"steps={len(losses)} step_s={json.dumps(step_s)} losses={json.dumps(losses)} grad_norms={json.dumps(norms)} "
+        f"peak_mem_gb={torch.cuda.max_memory_allocated(dev) / 1e9} launches_per_step={json.dumps(per_step[0][0])} "
+        f"backward_launches_per_step={json.dumps(per_step[0][1])} nonzero_grad_leaf_share={json.dumps(shares)} "
+        f"path_checked={json.dumps(checked)}",
+        flush=True,
+    )
+
+
+def check_grads_on_card(torch, ops, dev):
+    """One loss and its gradients at full width in fp32, on the card (the
+    kernels and their backwards) and on the CPU (the plain versions), on the
+    same weights and tokens: every leaf within GRAD_TOL of its scale."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models.model import Model
+    from repro_torch.models.spec import tree_leaves, tree_map
+
+    cfg = get_arch(GRAD_CHECK["arch"]).replace(n_layers=GRAD_CHECK["layers"], param_dtype="float32", compute_dtype="float32")
+    model = Model(cfg)
+    batch = batch_at(DataConfig(vocab_size=cfg.vocab_size, seq_len=GRAD_CHECK["seq_len"], global_batch=GRAD_CHECK["batch"]), 0)
+
+    def grads(params, device):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, _ = model.loss(params, {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss_card, on_card = grads(params, dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launched = ops.backward_launch_counts()
+    on_card = [g.cpu() for g in on_card]
+    params = tree_map(lambda t: t.detach().cpu(), params)
+    t0 = time.perf_counter()
+    loss_cpu, on_cpu = grads(params, "cpu")
+    cpu_s = time.perf_counter() - t0
+    errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(on_card, on_cpu)]
+    loss_err = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
+    if launched["flash_attention_bwd"] != GRAD_CHECK["layers"] or max(errs) > GRAD_TOL or loss_err > GRAD_TOL:
+        raise AssertionError(f"train_grads: backward launches {launched}, leaf errors {errs}, loss error {loss_err}")
+    print(
+        f"train_grads arch={GRAD_CHECK['arch']} layers={GRAD_CHECK['layers']} dtype=float32 batch={GRAD_CHECK['batch']} "
+        f"seq_len={GRAD_CHECK['seq_len']} leaves={len(errs)} worst_leaf_rel_err={max(errs)} loss_rel_err={loss_err} "
+        f"card_s={card_s} cpu_s={cpu_s} backward_launches={json.dumps(launched)}",
+        flush=True,
+    )
+
+
+def run_train_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState):
+    """kind="compute" train tasks through the broker on the card; the ssm
+    family's fails with the typed error of its missing backward."""
+    import concurrent.futures as cf
+    import math
+
+    h = Hydra(device="cuda", streaming=True, pod_store="memory")
+    h.register_provider(ProviderSpec(name="cloud", platform="cloud", connector="caas"))
+    tasks = [Task(kind="compute", arch=a, step_kind="train", max_retries=0) for a, n in TRAIN_TASKS for _ in range(n)]
+    ssm_task = Task(kind="compute", arch="falcon-mamba-7b", step_kind="train", max_retries=0)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    h.dispatch(tasks + [ssm_task])
+    _, pending = cf.wait(tasks + [ssm_task], timeout=300)
+    wall = time.perf_counter() - t0
+    launches, backward = ops.launch_counts(), ops.backward_launch_counts()
+    if pending:
+        raise AssertionError(f"train_tasks: {len(pending)} tasks unfinished after 300 s")
+    keys = ["ce", "grad_norm", "loss", "lr", "tokens"]
+    for t in tasks:
+        r = t.result() if t.tstate == TaskState.DONE else None
+        if r is None or sorted(r) != keys or not all(math.isfinite(v) for v in r.values()):
+            raise AssertionError(f"train_tasks: {t.arch} task ended {t.tstate.value} with {r}: {t.exception()!r}")
+    from repro_torch.kernels.ops import BackwardNotPorted
+
+    if ssm_task.tstate != TaskState.FAILED or not isinstance(ssm_task.exception(), BackwardNotPorted):
+        raise AssertionError(f"train_tasks: the falcon-mamba-7b task ended {ssm_task.tstate.value} with {ssm_task.exception()!r}, want BackwardNotPorted")
+    if launches != TRAIN_TASK_LAUNCHES or backward != TRAIN_TASK_BACKWARD_LAUNCHES:
+        raise AssertionError(f"train_tasks: launches {launches} / backward {backward}, want {TRAIN_TASK_LAUNCHES} / {TRAIN_TASK_BACKWARD_LAUNCHES}")
+    h.shutdown(wait=True)
+    print(
+        f"train_tasks tasks={len(tasks)} archs={json.dumps(dict(TRAIN_TASKS))} wall_s={wall} launches={json.dumps(launches)} "
+        f"backward_launches={json.dumps(backward)} last_metrics={json.dumps(tasks[-1].result())} "
+        f"ssm_task={ssm_task.tstate.value} ssm_error={type(ssm_task.exception()).__name__}",
+        flush=True,
+    )
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository (src/repro_torch is missing)", file=sys.stderr)
@@ -1012,7 +1461,23 @@ def main() -> int:
     run_compute_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState)
     print(f"phase name=model wall_s={time.perf_counter() - phase_t0}", flush=True)
 
-    # -- 7. report ---------------------------------------------------------------
+    # -- 7. train ----------------------------------------------------------------
+    phase_t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    bwd_rows = check_backward_kernels(torch, ops, dev, flush)
+    del flush
+    torch.cuda.empty_cache()
+    train_backward = run_train_full_size(torch, ops, dev)
+    torch.cuda.empty_cache()
+    run_train_dense_width(torch, ops, dev)
+    torch.cuda.empty_cache()
+    check_grads_on_card(torch, ops, dev)
+    torch.cuda.empty_cache()
+    run_train_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState)
+    print(f"phase name=train wall_s={time.perf_counter() - phase_t0}", flush=True)
+
+    # -- 8. report ---------------------------------------------------------------
     report = []
     for name in sorted(kreg.KERNELS):
         route, source, replaces = KERNEL_INFO[name]
@@ -1026,6 +1491,15 @@ def main() -> int:
             "ms": row["ms"], "ms_cold": row["ms_cold"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "model": row["case"], "dtype": row["dtype"],
+        })
+    for name, (route, source, replaces) in BACKWARD_INFO.items():
+        row = bwd_rows[name]["recurrentgemma_2b"]
+        report.append({
+            "name": name, "route": route, "source": source, "replaces": replaces,
+            "note": "backward kernel; the reference has no Pallas backward and differentiates this function with XLA",
+            "launches": train_backward[name], "max_abs_err": row["max_abs_err"], "rel_err": row["rel_err"],
+            "ms": row["ms"], "ms_cold": row["ms_cold"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"], "model": row["case"], "dtype": row["dtype"],
         })
     print(f"card {card_line()}", flush=True)
     print(json.dumps({"kernels": report}), flush=True)

@@ -1,8 +1,12 @@
 """Hydra broker core: the paper's contribution as a composable module.
 
 Counterpart of ``repro/core``, with the same exports.  ``Hydra`` runs on the
-card by default (``device="cuda"``); ``kind="compute"`` tasks, the model
-steps, are the one part of the core not ported yet (ROADMAP.md)."""
+card by default (``device="cuda"``).  Every task kind runs: ``kind="compute"``
+tasks run a model's train step (the default ``step_kind``) or prefill
+(``core/managers/compute.py``) for the dense, ssm and hybrid families; on the
+card an ssm train step fails with ``ops.BackwardNotPorted`` until its scan's
+backward kernel is ported, and the moe, audio and vlm families raise
+``NotImplementedError`` naming their ROADMAP.md item."""
 from repro_torch.core.admission import AdmissionController, AdmissionError, TenantSpec
 from repro_torch.core.autoscaler import (
     Autoscaler,

@@ -67,42 +67,69 @@ PREFILL_CACHE_LEN = 32  # the reference's prefill step (compute.py:90)
 
 class ComputeRuntime:
     """Executes ``compute`` tasks: a model step of a reduced-config instance
-    on the provider's device, as the reference's does (``compute.py:67-117``).
+    on the provider's device, as the reference's does (``compute.py:67-117``),
+    on the batch ``batch_at(dc, task.retries)`` of a 2 x 16 token data
+    config.
 
-    ``step_kind="prefill"`` runs the model's prefill (on a CUDA device, its
-    kernels) on the batch ``batch_at(dc, task.retries)`` of a 2 x 16 token
-    data config, with a 32-slot cache.  The model and its parameters, drawn
-    from seed 0, are built once per (arch, step kind, device) and kept in
-    ``ARTIFACTS``.  ``step_kind="train"`` (the default) fails with a typed
-    error until the train slice is ported."""
+    ``step_kind="train"`` (the default) runs one train step (loss, gradients
+    through the kernels' backwards on a CUDA device, AdamW with the default
+    config) and returns the metrics as floats: ``ce``, ``tokens``, ``loss``,
+    ``grad_norm``, ``lr``.  The state ``(params, opt)``, drawn from seed 0,
+    is kept per (arch, step kind, device) across tasks, as the reference
+    keeps it per (arch, step kind); a lock per key runs that key's steps one
+    at a time, because the port updates the state in place where the
+    reference's concurrent steps each start from the state they read.
+    ``step_kind="prefill"`` runs the model's prefill with a 32-slot cache
+    and returns the logits' shape.  The model and step are built once per
+    key and kept in ``ARTIFACTS``."""
+
+    def __init__(self):
+        self._states: dict[tuple, Any] = {}
+        self._locks: dict[tuple, threading.Lock] = {}
+        self._lock = threading.Lock()
 
     def run(self, task: Task, device: torch.device) -> Any:
         from repro_torch.configs import get_arch
         from repro_torch.data.pipeline import DataConfig, batch_at
-        from repro_torch.models.model import TRAIN_SLICE, Model
+        from repro_torch.models.model import Model
+        from repro_torch.optim import adamw
+        from repro_torch.train import step as step_lib
 
         step_kind = task.step_kind or "train"
-        if step_kind == "train":
-            raise NotImplementedError(f"kind='compute' step_kind='train': {TRAIN_SLICE}")
-        if step_kind != "prefill":
+        if step_kind not in ("train", "prefill"):
             raise ValueError(step_kind)
         arch = get_arch(task.arch).reduced()
+        key = (task.arch, step_kind, str(device))
 
         def build():
             model = Model(arch)
-            return model, model.init(torch.Generator(device).manual_seed(0), device)
+            if step_kind == "train":
+                return model, step_lib.make_train_step(model, adamw.AdamWConfig())
+            return model, step_lib.make_prefill_step(model, cache_len=PREFILL_CACHE_LEN)
 
-        model, params = ARTIFACTS.get_or_build((task.arch, step_kind, str(device)), build)
+        model, fn = ARTIFACTS.get_or_build(key, build)
         dc = DataConfig(
             vocab_size=arch.vocab_size, seq_len=16, global_batch=2,
             enc_len=arch.enc_len_train, d_model=arch.d_model,
             n_img_tokens=arch.n_img_tokens, family=arch.family,
         )
-        tokens = torch.from_numpy(batch_at(dc, task.retries)["tokens"]).to(device)
-        with torch.no_grad():
-            logits, _ = model.prefill(params, {"tokens": tokens}, cache_len=PREFILL_CACHE_LEN)
+        batch = {k: torch.from_numpy(v).to(device) for k, v in batch_at(dc, task.retries).items()}
+        with self._lock:
+            lock = self._locks.setdefault(key, threading.Lock())
+        with lock:
+            state = self._states.get(key)
+            if state is None:
+                state = step_lib.init_train_state(model, torch.Generator(device).manual_seed(0), device)
+                self._states[key] = state
+            if step_kind == "train":
+                params, opt, metrics = fn(state[0], state[1], batch)
+                self._states[key] = (params, opt)
+                out = {k: float(v) for k, v in metrics.items()}
+            else:
+                logits, _ = fn(state[0], {k: v for k, v in batch.items() if k != "labels"})
+                out = {"logits_shape": list(logits.shape)}
         _synchronize(device)
-        return {"logits_shape": list(logits.shape)}
+        return out
 
 
 COMPUTE_RUNTIME = ComputeRuntime()

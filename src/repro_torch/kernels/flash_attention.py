@@ -1,11 +1,14 @@
-"""Flash attention (forward) on Hopper: the launcher of ``csrc/flash_attention.cu``.
+"""Flash attention on Hopper: the launchers of ``csrc/flash_attention.cu``
+(forward) and ``csrc/flash_attention_bwd.cu`` (backward).
 
 Counterpart of ``repro/kernels/flash_attention.py``.  The kernels, their
-design and what bounds them are described at the top of the CUDA source.
-This module picks one of its two kernels by :func:`route`, launches it on
-CUDA tensors and counts the launches, in total and by route;
+design and what bounds them are described at the top of the CUDA sources.
+This module picks one of the two forward kernels by :func:`route`, launches
+it on CUDA tensors and counts the launches, in total and by route;
 ``kernels/ops.py`` checks the operands and sends CPU tensors to the plain
-version instead.
+version instead.  The backward (dq, dk, dv; fp32 on the CUDA cores for both
+dtypes) has no Pallas counterpart and counts its launches apart, in
+``BWD_LAUNCHES``: it is not a registry kernel.
 
 The block sizes keep their TPU meaning in one respect only: the same
 divisibility rule holds (``min(block, L)`` must divide ``L``), so a shape the
@@ -31,7 +34,11 @@ ROUTES = {"simt": 0, "wgmma": 1}
 LAUNCHES = _build.LaunchCounter()
 ROUTE_LAUNCHES = {r: _build.LaunchCounter() for r in ROUTES}
 
+BWD_LAUNCHES = _build.LaunchCounter()
+BWD_HEAD_DIMS = (16, 32, 64, 128, 256)  # csrc/flash_attention_bwd.cu: dispatch
+
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 
 
 def route(dtype: torch.dtype, shape: dict) -> str:
@@ -86,3 +93,27 @@ def flash_attention(
     LAUNCHES.bump()
     ROUTE_LAUNCHES[path].bump()
     return out
+
+
+def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window: Optional[int] = None):
+    """Launch the backward kernels on contiguous CUDA tensors of one dtype:
+    q, o, do (B,H,Lq,hd), k, v (B,KV,Lk,hd).  Returns (dq, dk, dv) in that
+    dtype.  The row statistics (LSE in base 2, D) go to a per-call scratch."""
+    b, h, lq, hd = q.shape
+    n_kv, lk = k.shape[1], k.shape[2]
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd kernel: operands must be on a CUDA device, not {q.device}")
+    if hd not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd kernel: head width {hd} not in {BWD_HEAD_DIMS}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty((2, b * h * lq), dtype=torch.float32, device=q.device)
+    fn = _build.function("flash_attention_bwd", "flash_attention_bwd", _BWD_ARGTYPES)
+    code = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+        b, h, n_kv, lq, lk, hd, int(causal), int(window is not None), int(window or 0),
+        DTYPES[q.dtype], q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check("flash_attention_bwd", code)
+    BWD_LAUNCHES.bump()
+    return dq, dk, dv

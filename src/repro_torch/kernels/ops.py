@@ -20,6 +20,18 @@ Every kernel module counts its own launches; ``launch_counts`` reads them.
 The two kernels with two routes (``flash_attention`` and ``moe_gmm``: a
 tensor-core kernel for bf16, a CUDA-core one for fp32) also count by route;
 ``route_launch_counts`` reads those.
+
+Gradients.  On the card ``flash_attention`` and ``rglru_scan`` run through
+``torch.autograd.Function``s whose backward is a hand-written kernel too
+(``flash_attention_bwd``, ``rglru_scan_bwd``: public wrappers that check and
+route like the others, CPU tensors to the plain versions in ``ref``).  The
+backwards have no Pallas counterpart and no registry entry: they count their
+launches apart (``backward_launch_counts``), so the registry kernels' counts
+mean what they meant.  ``selective_scan_chunk`` and ``moe_gmm`` have no
+backward kernel yet: on the card they raise ``BackwardNotPorted`` when grad
+mode is on and an operand requires grad, rather than hand back an output
+with no gradient path.  On CPU tensors every wrapper runs its plain version,
+which autograd differentiates.
 """
 from __future__ import annotations
 
@@ -50,6 +62,18 @@ def launch_counts() -> dict[str, int]:
     return {name: c.value for name, c in LAUNCHES.items()}
 
 
+BACKWARD_LAUNCHES = {
+    "flash_attention_bwd": _fa.BWD_LAUNCHES,
+    "rglru_scan_bwd": _rg.BWD_LAUNCHES,
+}
+
+
+def backward_launch_counts() -> dict[str, int]:
+    """Backward-kernel launches so far (one a wrapper call: the attention
+    backward's call runs its three kernels)."""
+    return {name: c.value for name, c in BACKWARD_LAUNCHES.items()}
+
+
 ROUTE_LAUNCHES = {
     "flash_attention": _fa.ROUTE_LAUNCHES,
     "moe_gmm": _gmm.ROUTE_LAUNCHES,
@@ -62,11 +86,34 @@ def route_launch_counts() -> dict[str, dict[str, int]]:
 
 
 def reset_launch_counts() -> None:
-    for c in LAUNCHES.values():
+    """Zero every count: forward, by route and backward."""
+    for c in (*LAUNCHES.values(), *BACKWARD_LAUNCHES.values()):
         c.reset()
     for by in ROUTE_LAUNCHES.values():
         for c in by.values():
             c.reset()
+
+
+class BackwardNotPorted(NotImplementedError):
+    """A kernel without a backward kernel was asked, on the card, for an
+    output that gradients must flow through."""
+
+
+_NO_BACKWARD = {  # kernel -> the ROADMAP.md item its backward waits for
+    "selective_scan_chunk": "queue 2 ('Kernel work still open on the H100'), item 1.1: the selective_scan backward",
+    "moe_gmm": "'Modules to port', item 4b: the moe family, with the moe_gmm backward (queue 2, item 1.2)",
+}
+
+
+def _refuse_grad(kernel: str, operands: dict) -> None:
+    """Raise ``BackwardNotPorted`` when grad mode is on and an operand
+    requires grad: the kernel's output would carry no gradient back."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands.values()):
+        raise BackwardNotPorted(
+            f"{kernel}: its backward kernel is not ported yet, so on a CUDA device it runs only where no "
+            f"gradient flows through it (ROADMAP.md, {_NO_BACKWARD[kernel]}); on the CPU it trains through "
+            f"its plain version"
+        )
 
 
 def _resolve(kernel: str, shape: dict, dtype: torch.dtype, device: torch.device, defaults: dict, explicit: dict) -> dict:
@@ -125,7 +172,43 @@ def flash_attention(
     _fa.check_blocks(lq, lk, cfg["block_q"], cfg["block_k"])
     if not on_card:
         return ref.attention_ref(q, k, v, causal=causal, window=window)
-    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+    return _FlashAttention.apply(q, k, v, causal, window)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel, with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o = _fa.flash_attention(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(), causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window: Optional[int] = None):
+    """Gradients of ``flash_attention`` from its output ``o`` and the output's
+    gradient ``do`` (B,H,Lq,hd): returns (dq, dk, dv), each in its operand's
+    dtype.  All five operands share one dtype."""
+    b, h, lq, hd = q.shape
+    n_kv, lk = k.shape[1], k.shape[2]
+    dt = (q.dtype,) if q.dtype in _FLOATS else _FLOATS
+    on_card = _on_card(
+        "flash_attention_bwd", {"q": q, "k": k, "v": v, "o": o, "do": do},
+        {"q": _FLOATS, "k": dt, "v": dt, "o": dt, "do": dt},
+        {"q": (b, h, lq, hd), "k": (b, n_kv, lk, hd), "v": (b, n_kv, lk, hd), "o": (b, h, lq, hd), "do": (b, h, lq, hd)},
+    )
+    if h % n_kv:
+        raise ValueError(f"flash_attention_bwd: {h} query heads do not group over {n_kv} KV heads")
+    if not on_card:
+        return ref.attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
+    return _fa.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
 
 
 def selective_scan_chunk(x, dt, b, c, a, h0, *, block_d: Optional[int] = None):
@@ -147,6 +230,7 @@ def selective_scan_chunk(x, dt, b, c, a, h0, *, block_d: Optional[int] = None):
     _ss.check_blocks(di, cfg["block_d"])
     if not on_card:
         return ref.selective_scan_chunk_ref(x, dt, b, c, a, h0)
+    _refuse_grad("selective_scan_chunk", {"x": x, "dt": dt, "b": b, "c": c, "a": a, "h0": h0})
     return _ss.selective_scan_chunk(x, dt, b, c, a, h0)
 
 
@@ -167,7 +251,37 @@ def rglru_scan(log_a, gx, h0=None, *, block_d: Optional[int] = None):
     _rg.check_blocks(dr, cfg["block_d"])
     if not on_card:
         return ref.rglru_ref(log_a, gx, h0)
-    return _rg.rglru_scan(log_a, gx, h0)
+    return _RGLRUScan.apply(log_a, gx, h0)
+
+
+class _RGLRUScan(torch.autograd.Function):
+    """The forward scan, with the reverse-time scan kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, log_a, gx, h0):
+        y, h_last = _rg.rglru_scan(log_a, gx, h0)
+        ctx.save_for_backward(log_a, h0, y)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        log_a, h0, y = ctx.saved_tensors
+        return rglru_scan_bwd(log_a, h0, y, dy.contiguous(), dh_last.contiguous())
+
+
+def rglru_scan_bwd(log_a, h0, y, dy, dh_last):
+    """Gradients of ``rglru_scan`` from its inputs' ``log_a`` and ``h0``, its
+    output ``y`` and the gradients ``dy`` (B,L,dr) and ``dh_last`` (B,dr) of
+    its two outputs: returns (dlog_a, dgx, dh0), all fp32."""
+    B, L, dr = log_a.shape
+    on_card = _on_card(
+        "rglru_scan_bwd", {"log_a": log_a, "h0": h0, "y": y, "dy": dy, "dh_last": dh_last},
+        {"log_a": _F32, "h0": _F32, "y": _F32, "dy": _F32, "dh_last": _F32},
+        {"log_a": (B, L, dr), "h0": (B, dr), "y": (B, L, dr), "dy": (B, L, dr), "dh_last": (B, dr)},
+    )
+    if not on_card:
+        return ref.rglru_bwd_ref(log_a, h0, y, dy, dh_last)
+    return _rg.rglru_scan_bwd(log_a, h0, y, dy, dh_last)
 
 
 def moe_gmm(
@@ -192,4 +306,5 @@ def moe_gmm(
     _gmm.check_blocks(C, D, F, cfg["block_c"], cfg["block_d"], cfg["block_f"])
     if not on_card:
         return ref.moe_gmm_ref(x, w)
+    _refuse_grad("moe_gmm", {"x": x, "w": w})
     return _gmm.moe_gmm(x, w)

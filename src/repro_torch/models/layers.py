@@ -4,15 +4,18 @@ Counterpart of ``repro/models/layers.py``, with the same fp32 upcasts.  The
 reference's ``shard_x`` annotations are dropped (one device; sharding is
 ROADMAP.md, "Modules to port", item 6), and its ``scan_layers`` becomes a
 plain loop over the layer index of the stacked leaves (``models/spec.py``:
-``layer``, ``stack_layers``).  Rematerialisation is a training matter and
-waits for the train slice.
+``layer``, ``stack_layers``), each layer one call of :func:`remat`, which
+rematerialises it by the config's policy, as ``jax.checkpoint`` does in the
+reference's scan body.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -87,3 +90,54 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rematerialisation
+# ---------------------------------------------------------------------------
+
+# The matrix products with no batch dims: what the reference's "dots" policy
+# (``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``) saves.
+# ``x @ w`` with x (B, L, D) and w (D, F) reaches the dispatcher as ``mm``
+# (``addmm`` with a bias); an einsum with batch dims is ``bmm`` and is
+# recomputed, as the reference recomputes its batched dot_generals.
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _SAVED_BY_DOTS:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_policy(name: str) -> Optional[Callable]:
+    """The ``context_fn`` that ``torch.utils.checkpoint`` takes for a policy
+    name, as the reference's ``remat_policy`` (``layers.py:121-137``) maps a
+    name to a ``jax.checkpoint`` policy: ``"none"`` checkpoints nothing
+    (None), ``"full"`` saves nothing but the inputs (the default context),
+    ``"dots"`` saves the outputs of ``mm``/``addmm``.  ``"collectives"``
+    names activations after tensor-parallel collectives, which one device
+    does not have."""
+    if name == "none":
+        return None
+    if name == "full":
+        return _ckpt.noop_context_fn
+    if name == "dots":
+        return functools.partial(_ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    if name == "collectives":
+        raise NotImplementedError(
+            "remat='collectives' saves the activations after tensor-parallel collectives; sharding is not "
+            "ported yet (ROADMAP.md, 'Modules to port', item 6)"
+        )
+    raise ValueError(name)
+
+
+def remat(fn: Callable, *args, policy: str = "dots"):
+    """``fn(*args)`` rematerialised by ``policy``: under ``"none"``, or with
+    grad mode off, a plain call; else one non-reentrant checkpoint, so the
+    backward recomputes what the policy did not save.  The models call it
+    once a layer (a superblock for the hybrid), as ``scan_layers`` does."""
+    context_fn = remat_policy(policy)
+    if context_fn is None or not torch.is_grad_enabled():
+        return fn(*args)
+    return _ckpt.checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)

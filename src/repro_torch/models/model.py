@@ -1,17 +1,21 @@
 """Unified model facade: one API over the ported architecture families.
 
-Counterpart of ``repro/models/model.py``, serving side::
+Counterpart of ``repro/models/model.py``::
 
     model = Model(cfg)
     params = model.init(torch.Generator(device).manual_seed(0), device)
+    loss, metrics = model.loss(params, batch)
     logits = model.logits(params, batch)
     logits, cache = model.prefill(params, batch)
     logits, cache = model.decode_step(params, cache, tokens, pos)
 
-The dense, ssm and hybrid families are ported; their prefill runs on the
-hand-written kernels where the tensors lie on a CUDA device.  The other
-families raise ``NotImplementedError`` naming what is left, and so does
-training (``loss``), which comes with the train slice.
+The dense, ssm and hybrid families are ported, for training and serving;
+their forward and prefill run on the hand-written kernels where the tensors
+lie on a CUDA device, and so does the backward of attention and of the
+RG-LRU (``kernels/ops.py``).  On the card the ssm family trains only once
+the ``selective_scan`` backward is ported: until then its train step raises
+``ops.BackwardNotPorted`` there, and trains on the CPU.  The other families
+raise ``NotImplementedError`` naming what is left.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import rglru, ssm, transformer
+from repro_torch.models.layers import remat
 from repro_torch.models.spec import init_params, tree_size
 
 _FAMILY = {
@@ -34,12 +39,6 @@ _NOT_PORTED = {  # family -> its ROADMAP.md item ("Modules to port")
     "audio": "item 4c: encdec, the audio family",
     "vlm": "item 4d: vision, the vlm family",
 }
-
-TRAIN_SLICE = (
-    "training (optim/adamw, train/step, Model.loss) is not ported yet "
-    "(ROADMAP.md, 'Modules to port', item 4a: the train slice)"
-)
-
 
 def _extras(batch: dict) -> Optional[dict]:
     ex = {k: v for k, v in batch.items() if k in ("enc_frames", "img_embeds")}
@@ -73,7 +72,40 @@ class Model:
         return self.mod.forward(self.cfg, params, batch["tokens"], _extras(batch))
 
     def loss(self, params, batch: dict):
-        raise NotImplementedError(TRAIN_SLICE)
+        """Next-token cross entropy.  Returns (loss, metrics) with the
+        reference's keys: ``ce``, ``tokens``, ``loss`` (fp32 tensors)."""
+        if self.cfg.logit_chunk:
+            return self._loss_chunked_head(params, batch)
+        logits = self.mod.forward(self.cfg, params, batch["tokens"], _extras(batch))
+        ce, metrics = cross_entropy(logits, batch["labels"])
+        metrics["loss"] = ce
+        return ce, metrics
+
+    def _loss_chunked_head(self, params, batch: dict):
+        """The LM head and cross entropy a sequence chunk at a time, each
+        chunk under a checkpoint that recomputes it in the backward, so the
+        (B, L, V) fp32 logits never exist whole (``model.py:84-121``)."""
+        from repro_torch.models.transformer import _head
+
+        cfg = self.cfg
+        hidden = self.mod.backbone(cfg, params, batch["tokens"], _extras(batch))
+        B, L, D = hidden.shape
+        ck = min(cfg.logit_chunk, L)
+        while L % ck:
+            ck -= 1
+        labels = batch["labels"]
+
+        def chunk_nll(h_chunk, l_chunk):
+            ce, _ = cross_entropy(_head(cfg, params, h_chunk), l_chunk)
+            return ce * l_chunk.numel()  # a sum, renormalised below
+
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for i in range(L // ck):
+            sl = slice(i * ck, (i + 1) * ck)
+            total = total + remat(chunk_nll, hidden[:, sl], labels[:, sl], policy="full")
+        loss = total / labels.numel()
+        tokens = torch.tensor(float(labels.numel()), device=hidden.device)
+        return loss, {"ce": loss, "tokens": tokens, "loss": loss}
 
     # -- serving -------------------------------------------------------
     def prefill(self, params, batch: dict, cache_len: Optional[int] = None):
@@ -84,3 +116,15 @@ class Model:
 
     def cache_specs(self, batch: int, cache_len: int):
         return self.mod.cache_specs(self.cfg, batch, cache_len)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
+    """Mean next-token negative log-likelihood in fp32: logsumexp of each
+    row minus the label's logit (the reference picks the label's logit with
+    an iota mask, ``model.py:130-139``; a gather picks the same element).
+    Returns (loss, {"ce": loss, "tokens": the label count})."""
+    logits32 = logits.float()
+    lse = torch.logsumexp(logits32, dim=-1)
+    picked = torch.gather(logits32, -1, labels.long()[..., None])[..., 0]
+    loss = torch.mean(lse - picked)
+    return loss, {"ce": loss, "tokens": torch.tensor(float(labels.numel()), device=logits.device)}

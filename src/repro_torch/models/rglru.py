@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import apply_rope, causal_conv1d, conv1d_step, embed_tokens, gelu, geglu, rms_norm
+from repro_torch.models.layers import apply_rope, causal_conv1d, conv1d_step, embed_tokens, gelu, geglu, remat, rms_norm
 from repro_torch.models.spec import ParamSpec, dense, layer, stack_layers, stacked, torch_dtype
 from repro_torch.models.transformer import _head, _positions, attn_specs, n_stacked, write_cache
 
@@ -117,12 +117,32 @@ def _block_diag(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tens
     return out.reshape(u.shape) + b
 
 
+class _OneMinusExp(torch.autograd.Function):
+    """1 - exp(x) = -expm1(x), with the derivative -exp(x) taken as such.
+    The default expm1 derivative of torch, and of JAX (the reference's),
+    forms exp(x) as expm1(x) + 1, which keeps few digits of exp(x) where it
+    is small against 1 and none below fp32's resolution (x < -17).  The
+    gates' log_a reaches there at init, and the gradient of lam and of the
+    recurrence gate then loses ~1e-4 of its scale (tests/test_torch_train.py
+    measures it against a float64 evaluation)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return -torch.expm1(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        return -grad * torch.exp(x)
+
+
 def _lru_gates(p: dict, u: torch.Tensor):
     """Returns (log_a (..., dr) f32, gated_input (..., dr) f32)."""
     r = torch.sigmoid(_block_diag(u, p["w_rec_gate"], p["b_rec_gate"]).float())
     i = torch.sigmoid(_block_diag(u, p["w_in_gate"], p["b_in_gate"]).float())
     log_a = -LRU_C * r * F.softplus(p["lam"].float())
-    beta = torch.sqrt(-torch.expm1(2.0 * log_a))  # sqrt(1 - a^2), stable
+    beta = torch.sqrt(_OneMinusExp.apply(2.0 * log_a))  # sqrt(1 - a^2), stable
     return log_a, beta * i * u.float()
 
 
@@ -179,16 +199,22 @@ def attn_block(cfg: ArchConfig, x, p, pos):
 
 
 def backbone(cfg: ArchConfig, params, tokens, extras=None):
+    """Hidden states before the LM head; each superblock, and each tail
+    layer, rematerialised by ``cfg.remat`` when gradients are taken (the
+    reference's scan steps)."""
     x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
     pos = _positions(tokens)
-    for i in range(n_stacked(params["superblocks"])):
-        p = layer(params["superblocks"], i)
+
+    def super_body(x, p):
         x, _ = rec_block(cfg, x, p["rec1"])
         x, _ = rec_block(cfg, x, p["rec2"])
-        x, _ = attn_block(cfg, x, p["attn"], pos)
+        return attn_block(cfg, x, p["attn"], pos)[0]
+
+    for i in range(n_stacked(params["superblocks"])):
+        x = remat(super_body, x, layer(params["superblocks"], i), policy=cfg.remat)
     if "tail" in params:
         for i in range(n_stacked(params["tail"])):
-            x, _ = rec_block(cfg, x, layer(params["tail"], i))
+            x = remat(lambda x, p: rec_block(cfg, x, p)[0], x, layer(params["tail"], i), policy=cfg.remat)
     return x
 
 

@@ -119,6 +119,20 @@ def params_from_jax(tree, device) -> dict:
     return tree_map(one, tree)
 
 
+def train_state_from_jax(params, opt_state, device) -> tuple[dict, dict]:
+    """The reference's train state, ``(params, opt_state)`` as numpy trees
+    (``jax.tree.map(np.asarray, ...)`` of ``train/step.init_train_state``'s
+    or a train step's output), as the port's on ``device``: the params as
+    ``params_from_jax`` carries them, the moments ``m`` and ``v`` in fp32
+    and ``step`` an int32 scalar."""
+    m, v = (params_from_jax(opt_state[k], device) for k in ("m", "v"))
+    for leaf in tree_leaves(m) + tree_leaves(v):
+        if leaf.dtype != torch.float32:
+            raise ValueError(f"the reference's AdamW moments are fp32; got {leaf.dtype}")
+    step = torch.tensor(int(np.asarray(opt_state["step"])), dtype=torch.int32, device=device)
+    return params_from_jax(params, device), {"m": m, "v": v, "step": step}
+
+
 # ---------------------------------------------------------------------------
 # Spec construction helpers
 # ---------------------------------------------------------------------------

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import causal_conv1d, conv1d_step, embed_tokens, rms_norm
+from repro_torch.models.layers import causal_conv1d, conv1d_step, embed_tokens, remat, rms_norm
 from repro_torch.models.spec import ParamSpec, dense, layer, stack_layers, stacked, torch_dtype
 from repro_torch.models.transformer import _head, n_stacked
 
@@ -120,9 +120,11 @@ def mamba_block(cfg: ArchConfig, x, p):
 
 
 def backbone(cfg: ArchConfig, params, tokens, extras=None):
+    """Hidden states before the LM head; each layer rematerialised by
+    ``cfg.remat`` when gradients are taken."""
     x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
     for i in range(n_stacked(params["blocks"])):
-        x = mamba_block(cfg, x, layer(params["blocks"], i))
+        x = remat(lambda x, p: mamba_block(cfg, x, p), x, layer(params["blocks"], i), policy=cfg.remat)
     return x
 
 

@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import apply_rope, embed_tokens, lm_logits, rms_norm, swiglu
+from repro_torch.models.layers import apply_rope, embed_tokens, lm_logits, remat, rms_norm, swiglu
 from repro_torch.models.spec import ParamSpec, dense, layer, stack_layers, stacked, torch_dtype
 
 
@@ -128,11 +128,13 @@ def _positions(tokens):
 
 
 def backbone(cfg: ArchConfig, params, tokens, extras=None):
-    """Hidden states before the LM head."""
+    """Hidden states before the LM head; each layer rematerialised by
+    ``cfg.remat`` when gradients are taken."""
     x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
     pos = _positions(tokens)
+    body = lambda x, p: self_attn_block(cfg, x, p, pos)[0]
     for i in range(n_stacked(params["blocks"])):
-        x, _ = self_attn_block(cfg, x, layer(params["blocks"], i), pos)
+        x = remat(body, x, layer(params["blocks"], i), policy=cfg.remat)
     return x
 
 

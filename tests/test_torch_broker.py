@@ -162,11 +162,12 @@ def test_provider_pools_wrap_like_the_reference(spec):
 
 
 def test_unported_subsystems_raise_naming_the_roadmap(tmp_path):
-    """The train step behind ``kind="compute"`` (its default step kind) is
-    what is left unported; the checkpointer, the autotuner and the
-    autoscaler attach, and prefill steps run (tests/test_torch_serve.py)."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*train slice"):
-        COMPUTE_RUNTIME.run(Task(kind="compute", arch="llama3-8b"), CPU)
+    """A compute step of a model family not ported yet raises naming its
+    ROADMAP item; the checkpointer, the autotuner and the autoscaler attach,
+    and train and prefill steps run (tests/test_torch_train.py,
+    tests/test_torch_serve.py)."""
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 4b"):
+        COMPUTE_RUNTIME.run(Task(kind="compute", arch="grok-1-314b"), CPU)
     h = Hydra(device="cpu", pod_store="memory", workdir=str(tmp_path))
     assert h.enable_task_checkpoints() is h.checkpointer
     assert h.enable_kernel_autotune(timer="model") is h.autotuner
@@ -175,16 +176,17 @@ def test_unported_subsystems_raise_naming_the_roadmap(tmp_path):
 
 
 def test_compute_tasks_fail_with_a_typed_error(tmp_path):
-    """A train-step compute task (the default step kind) fails through the
-    broker with the typed error that names the train slice."""
+    """A train-step compute task (the default step kind) of a family not
+    ported yet fails through the broker with the typed error that names its
+    ROADMAP item."""
     h = Hydra(device="cpu", pod_store="memory", streaming=True, workdir=str(tmp_path))
     h.register_provider(ProviderSpec(name="cloud"))
-    task = Task(kind="compute", arch="llama3-8b", max_retries=0)
+    task = Task(kind="compute", arch="grok-1-314b", max_retries=0)
     h.dispatch([task])
     cf.wait([task], timeout=60)
     assert task.tstate == TaskState.FAILED
     assert isinstance(task.exception(), NotImplementedError)
-    assert "train slice" in str(task.exception())
+    assert "item 4b" in str(task.exception())
     h.shutdown(wait=True)
 
 

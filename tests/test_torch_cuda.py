@@ -276,3 +276,142 @@ def test_reduced_model_prefill_on_the_card_matches_the_cpu(card, name, want):
     ref = model.prefill(tree_map(lambda t: t.cpu(), params), {"tokens": tokens}, cache_len=20)
     for g, w in zip(tree_leaves({"logits": got[0], "cache": got[1]}), tree_leaves({"logits": ref[0], "cache": ref[1]})):
         assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels against their plain versions (kernels/ref.py), and the
+# gradients on the card: fp32 relative 1e-4 (against the largest element),
+# bf16 rtol = atol = 2e-2 element by element, atol against the largest
+# element (gradients are small numbers)
+# ---------------------------------------------------------------------------
+
+BWD_ATTN_CASES = [  # (B, H, KV, Lq, Lk, hd, causal, window, dtype)
+    (2, 4, 2, 130, 130, 16, True, None, torch.float32),
+    (1, 4, 1, 200, 200, 16, True, 16, torch.float32),
+    (1, 2, 2, 70, 150, 64, False, None, torch.float32),
+    (1, 2, 1, 96, 200, 128, True, None, torch.float32),
+    (1, 4, 1, 320, 320, 256, True, 100, torch.float32),
+    (1, 4, 2, 200, 200, 32, True, None, torch.bfloat16),
+    (2, 8, 2, 256, 256, 128, True, None, torch.bfloat16),
+    (1, 2, 1, 4096, 4096, 256, True, 2048, torch.bfloat16),  # past the window, as recurrentgemma-2b
+]
+
+
+def _close(got, want, dtype):
+    g, w = got.float(), want.float()
+    scale = float(w.abs().max())
+    if dtype == torch.float32:
+        return float((g - w).abs().max()) <= 1e-4 * scale
+    return bool(((g - w).abs() <= 2e-2 * w.abs() + 2e-2 * scale).all())
+
+
+@pytest.mark.parametrize("case", BWD_ATTN_CASES, ids=lambda c: f"H{c[1]}KV{c[2]}_Lq{c[3]}_Lk{c[4]}_hd{c[5]}_{'causal' if c[6] else 'full'}_w{c[7]}_{str(c[8])[6:]}")
+def test_attention_backward_kernel_matches_plain_version(card, case):
+    from repro_torch.kernels import ref
+
+    B, H, KV, Lq, Lk, hd, causal, window, dtype = case
+    g = torch.Generator(card).manual_seed(0)
+    q = torch.randn(B, H, Lq, hd, generator=g, device=card).to(dtype)
+    k, v = (torch.randn(B, KV, Lk, hd, generator=g, device=card).to(dtype) for _ in range(2))
+    o = ref.attention_ref(q, k, v, causal=causal, window=window)
+    do = torch.randn(B, H, Lq, hd, generator=g, device=card).to(dtype)
+    before = ops.backward_launch_counts()["flash_attention_bwd"]
+    got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.backward_launch_counts()["flash_attention_bwd"] == before + 1
+    for a, b in zip(got, ref.attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)):
+        assert a.dtype == dtype and a.shape == b.shape and _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("B,L,dr", [(2, 300, 50), (1, 4096, 2560), (2, 37, 64)])
+def test_rglru_backward_kernel_matches_plain_version(card, B, L, dr):
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(card).manual_seed(1)
+    log_a = -torch.rand(B, L, dr, generator=g, device=card) * 0.1
+    gx, dy = (torch.randn(B, L, dr, generator=g, device=card) for _ in range(2))
+    h0, dh = (torch.randn(B, dr, generator=g, device=card) for _ in range(2))
+    y, _ = ops.rglru_scan(log_a, gx, h0)
+    got = ops.rglru_scan_bwd(log_a, h0, y, dy, dh)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref.rglru_bwd_ref(log_a, h0, y, dy, dh)):
+        assert _close(a, b, torch.float32)
+
+
+def test_kernel_outputs_carry_gradients_on_the_card(card):
+    """flash_attention and rglru_scan hand back outputs with a grad_fn, and
+    their gradients equal autograd of the plain versions on the card."""
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(card).manual_seed(3)
+    q = torch.randn(1, 4, 64, 16, generator=g, device=card).requires_grad_()
+    k, v = (torch.randn(1, 2, 64, 16, generator=g, device=card).requires_grad_() for _ in range(2))
+    o = ops.flash_attention(q, k, v, causal=True, window=16)
+    assert o.grad_fn is not None
+    do = torch.randn(o.shape, generator=g, device=card)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    want = torch.autograd.grad(ref.attention_ref(q, k, v, causal=True, window=16), (q, k, v), do)
+    assert all(_close(a, b, torch.float32) for a, b in zip(got, want))
+    log_a = (-torch.rand(2, 40, 64, generator=g, device=card)).requires_grad_()
+    gx = torch.randn(2, 40, 64, generator=g, device=card).requires_grad_()
+    y, h_last = ops.rglru_scan(log_a, gx)
+    assert y.grad_fn is not None and h_last.grad_fn is not None
+    dy = torch.randn(y.shape, generator=g, device=card)
+    got = torch.autograd.grad((y * dy).sum() + h_last.sum(), (log_a, gx))
+    y2, h2 = ref.rglru_ref(log_a, gx)
+    want = torch.autograd.grad((y2 * dy).sum() + h2.sum(), (log_a, gx))
+    assert all(_close(a, b, torch.float32) for a, b in zip(got, want))
+
+
+def test_kernels_without_a_backward_raise_under_grad_on_the_card(card):
+    """selective_scan_chunk and moe_gmm refuse operands that require grad
+    under grad mode (no silent loss of gradients) and launch without it."""
+    B, ck, di, N = 2, 8, 32, 4
+    x = torch.randn(B, ck, di, device=card, requires_grad=True)
+    rest = (torch.rand(B, ck, di, device=card), torch.randn(B, ck, N, device=card), torch.randn(B, ck, N, device=card),
+            -torch.rand(di, N, device=card), torch.zeros(B, di, N, device=card))
+    with pytest.raises(ops.BackwardNotPorted, match="selective_scan backward"):
+        ops.selective_scan_chunk(x, *rest)
+    xg = torch.randn(2, 64, 32, device=card)
+    w = torch.randn(2, 32, 64, device=card, requires_grad=True)
+    with pytest.raises(ops.BackwardNotPorted, match="item 4b"):
+        ops.moe_gmm(xg, w)
+    before = ops.launch_counts()
+    with torch.no_grad():
+        ops.selective_scan_chunk(x, *rest)
+        ops.moe_gmm(xg, w)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["selective_scan"] == before["selective_scan"] + 1 and after["moe_gmm"] == before["moe_gmm"] + 1
+
+
+@pytest.mark.parametrize("name", ["llama3-8b", "recurrentgemma-2b"])
+def test_reduced_model_gradients_on_the_card_match_the_cpu(card, name):
+    """One loss and its gradients of the reduced config (fp32) on the card,
+    through the kernels and their backwards, against the CPU's plain path:
+    every leaf within 1e-4 of its scale, and every leaf's gradient nonzero."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models.model import Model
+    from repro_torch.models.spec import tree_leaves, tree_map
+
+    model = Model(get_arch(name).reduced())
+    params = model.init(torch.Generator(card).manual_seed(0), card)
+    batch = batch_at(DataConfig(vocab_size=256, seq_len=24, global_batch=2), 0)
+
+    def grads(params, device):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, _ = model.loss(params, {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+        return torch.autograd.grad(loss, leaves)
+
+    before = ops.backward_launch_counts()
+    on_card = grads(params, card)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in ops.backward_launch_counts().items()}
+    assert launched["flash_attention_bwd"] == 2 and launched["rglru_scan_bwd"] == (4 if name == "recurrentgemma-2b" else 0)
+    on_cpu = grads(tree_map(lambda t: t.detach().cpu(), params), "cpu")
+    for a, b in zip(on_card, on_cpu):
+        assert bool(a.abs().max() > 0)
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max())

@@ -143,7 +143,12 @@ def test_compute_prefill_reuses_its_artifact_on_a_retry():
 
 
 def test_compute_train_step_raises_naming_the_train_slice():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 4a: the train slice"):
-        compute.COMPUTE_RUNTIME.run(Task(kind="compute", arch="llama3-8b", step_kind="train"), torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="train slice"):
-        compute.COMPUTE_RUNTIME.run(Task(kind="compute", arch="llama3-8b"), torch.device("cpu"))
+    """The train slice is ported (tests/test_torch_train.py); a train step of
+    a family that is not raises naming its ROADMAP item, and a step kind the
+    reference lacks is refused."""
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 4b"):
+        compute.COMPUTE_RUNTIME.run(Task(kind="compute", arch="grok-1-314b", step_kind="train"), torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 4c"):
+        compute.COMPUTE_RUNTIME.run(Task(kind="compute", arch="seamless-m4t-medium"), torch.device("cpu"))
+    with pytest.raises(ValueError):
+        compute.COMPUTE_RUNTIME.run(Task(kind="compute", arch="llama3-8b", step_kind="decode"), torch.device("cpu"))
