@@ -84,25 +84,36 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      widths in bf16, head width 16 in fp32, an Lq != Lk non-causal case, and
      the RG-LRU backward at B1 L4096 dr2560, each timed (warm and cold)
      beside its plain version, SDPA's autograd backward (attention; timed
-     only) and its bound.  Then ``train("recurrentgemma-2b",
+     only) and its bound.  The bf16 attention backward takes the ``wgmma``
+     route and is timed as the train step calls it, with the o and LSE of
+     the forward kernel (whose o must equal, bit for bit, its o without LSE,
+     and whose LSE must be within 1e-5 of the plain LSE), and also without
+     LSE; the fp32 one takes ``simt``.  Then ``train("recurrentgemma-2b",
      reduced=False, steps=3, seq_len=4096, global_batch=1)`` in bf16: every
      backward launch of its first step held against its plain version on
-     its own operands, finite losses, per step 16 / 36 forward launches
-     (attention / rglru_scan, twice 8 / 18 under remat="dots") and 8 / 18
-     backward launches, and every parameter leaf's gradient nonzero (the
-     kernels carry gradients back).  llama3-8b at full width cut to 2 layers
-     trains 2 steps at B2 x 2048 the same way; llama3-8b cut to 1 layer
+     its own operands (the plain attention backward computes its own LSE,
+     so the forward's is checked too), finite losses, per step 16 / 36
+     forward launches (attention / rglru_scan, twice 8 / 18 under
+     remat="dots") and 8 / 18 backward launches, every attention backward
+     launch on ``wgmma``, and every parameter leaf's gradient nonzero (the
+     kernels carry gradients back).  One more step under torch.profiler
+     must show device time under every backward kernel's symbols.
+     llama3-8b at full width cut to 2 layers trains 2 steps at B2 x 2048
+     the same way; llama3-8b cut to 1 layer
      (B1 x 256, fp32) gives every gradient leaf on the card within 1e-4 of
      the CPU's; and ``kind="compute"`` train tasks on ``Hydra(device="cuda")``:
      3 llama3-8b and 3 recurrentgemma-2b tasks DONE with finite metrics and
      their backward launches, one falcon-mamba-7b task FAILED with
      ``ops.BackwardNotPorted`` (the selective_scan backward is not ported).
+     The fp32 backward launches (the card-vs-CPU gradients and the tasks)
+     must all take the ``simt`` route.
   8. report: the card line, one JSON line of the kernels (route, source, the
      TPU kernel each replaces, launches in phase 3 in total and by kernel
      route, in each scenario twin and in one full-size serve prefill
      (``model_launches``), model-width error and times, cold too, beside the
      roofline bound; the two backward kernels with their launches in the
-     recurrentgemma-2b train run), and the device line last.
+     recurrentgemma-2b train run, the attention backward's also by route),
+     and the device line last.
 
 Each phase prints its wall seconds.
 """
@@ -946,6 +957,7 @@ BWD_ATTN_CASES = [
 ]
 BWD_RGLRU_CASE = ("recurrentgemma_2b", 1, 4096, 2560)
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+LSE_TOL = 1e-5  # the forward kernel's LSE against the plain one, relative to its largest element
 TRAIN = {"arch": "recurrentgemma-2b", "steps": 3, "seq_len": 4096, "global_batch": 1}
 # per step of recurrentgemma-2b (8 attention and 18 recurrent layers): the
 # forward runs twice under remat="dots" (once more in the backward's recompute)
@@ -961,12 +973,15 @@ TRAIN_TASK_LAUNCHES = {"flash_attention": 12, "selective_scan": 0, "rglru_scan":
 TRAIN_TASK_BACKWARD_LAUNCHES = {"flash_attention_bwd": 12, "rglru_scan_bwd": 12}
 # the train step's kernels in a profiler trace: the forward kernels and the
 # backward kernels' symbols (csrc/*_bwd.cu)
+# (csrc/flash_attention_bwd.cu is the simt route, csrc/flash_attention_bwd_wgmma.cu the wgmma one)
+SIMT_BWD_SYMBOLS = ("bwd_pre", "bwd_dkdv", "bwd_dq")
+WGMMA_BWD_SYMBOLS = ("attn_bwd_rowstats", "attn_bwd_kv_wgmma", "attn_bwd_kv_sum", "attn_bwd_q_wgmma")
 TRAIN_SYMBOLS = {
     "flash_attention": ("flash_fwd",), "rglru_scan": ("rglru_kernel",),
-    "flash_attention_bwd": ("bwd_pre", "bwd_dkdv", "bwd_dq"), "rglru_scan_bwd": ("seg_summary", "seg_carries", "seg_walk"),
+    "flash_attention_bwd": SIMT_BWD_SYMBOLS + WGMMA_BWD_SYMBOLS, "rglru_scan_bwd": ("seg_summary", "seg_carries", "seg_walk"),
 }
 BACKWARD_INFO = {
-    "flash_attention_bwd": ("cuda", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu", "src/repro/models/attention.py:36"),
+    "flash_attention_bwd": ("cuda", "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu", "src/repro/models/attention.py:36"),
     "rglru_scan_bwd": ("cuda", "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu", "src/repro/models/rglru.py:137"),
 }
 
@@ -1009,7 +1024,8 @@ def attention_bwd_bound(B, H, KV, Lq, Lk, hd, causal, window, dtype: str) -> tup
     """2.5x the forward's multiply-adds over the live pairs (dV, dP, dQ, dK
     and the S recompute are five products against the forward's two) on the
     peak of the operands' type, against q, k, v, o, dO read and dq, dk, dv
-    written once, on the H100's data-sheet peaks."""
+    written once, on the H100's data-sheet peaks (the forward's LSE, 4 bytes
+    a row against 4 hd a row of the rest, is left out)."""
     from repro_torch.kernels.autotune import HBM_BYTES_PER_S, PEAK_OPS_PER_S
 
     flops = 2.5 * 4 * B * H * attention_live_pairs(Lq, Lk, causal, window) * hd
@@ -1054,36 +1070,75 @@ def sdpa_backward(torch, q, k, v, do, causal, window):
     return lambda: torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True)
 
 
+def forward_with_lse(torch, q, k, v, causal, window, label):
+    """The forward kernel's o and LSE, as the train step's forward makes them
+    for the wgmma backward.  Raises unless o equals, bit for bit, the
+    forward's o without LSE and LSE is within LSE_TOL (relative to its
+    largest element) of the plain LSE.  Returns (o, lse, LSE's error)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    o = fa.flash_attention(q, k, v, causal=causal, window=window, lse=lse)
+    same = torch.equal(o, fa.flash_attention(q, k, v, causal=causal, window=window))
+    want = ref.attention_lse_ref(q, k, causal=causal, window=window)
+    err = float((lse - want).abs().max()) / float(want.abs().max())
+    if not same or not err <= LSE_TOL:
+        raise AssertionError(f"flash_attention {label}: o with LSE equal to o without: {same}; LSE relative error {err:.3e} (limit {LSE_TOL:g})")
+    return o, lse, err
+
+
 def check_backward_kernels(torch, ops, dev, flush):
-    """Each backward kernel against its plain version on the card, timed."""
+    """Each backward kernel against its plain version on the card, timed.
+    The attention backward's bf16 cases take the wgmma route and are timed
+    as the train step calls them (the forward kernel's o and LSE), and also
+    without LSE (``ms_lse_recomputed``: the simt preprocess computes it)."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
     rows = {}
     for label, B, H, KV, Lq, Lk, hd, causal, window, dtype in BWD_ATTN_CASES:
         dt = getattr(torch, dtype)
+        path = fa.bwd_route(dt, hd)
+        if path != ("wgmma" if dtype == "bfloat16" else "simt"):
+            raise AssertionError(f"flash_attention_bwd {label}: route {path} for {dtype}")
         g = torch.Generator(dev).manual_seed(11)
         q = torch.randn(B, H, Lq, hd, generator=g, device=dev).to(dt)
         k, v = (torch.randn(B, KV, Lk, hd, generator=g, device=dev).to(dt) for _ in range(2))
-        o = ref.attention_ref(q, k, v, causal=causal, window=window)
         do = torch.randn(B, H, Lq, hd, generator=g, device=dev).to(dt)
-        run = lambda: ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+        lse, lse_err = None, None
+        if path == "wgmma":
+            o, lse, lse_err = forward_with_lse(torch, q, k, v, causal, window, label)
+        else:
+            o = ref.attention_ref(q, k, v, causal=causal, window=window)
+        run = lambda: ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window, lse=lse)
+        run_no_lse = lambda: ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+        want = ref.attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
         before = ops.backward_launch_counts()["flash_attention_bwd"]
+        routes = ops.backward_route_launch_counts()["flash_attention_bwd"]
         got = run()
         torch.cuda.synchronize()
-        if ops.backward_launch_counts()["flash_attention_bwd"] != before + 1:
-            raise AssertionError(f"flash_attention_bwd {label}: the wrapper did not launch its kernel")
-        abs_err, err = check_grads(torch, got, ref.attention_bwd_ref(q, k, v, o, do, causal=causal, window=window), dtype, f"flash_attention_bwd {label}")
+        after = ops.backward_route_launch_counts()["flash_attention_bwd"]
+        if ops.backward_launch_counts()["flash_attention_bwd"] != before + 1 or after[path] != routes[path] + 1:
+            raise AssertionError(f"flash_attention_bwd {label}: the wrapper did not launch its {path} kernel")
+        abs_err, err = check_grads(torch, got, want, dtype, f"flash_attention_bwd {label}")
+        row = {"kernel": "flash_attention_bwd", "case": label, "dtype": dtype, "route": path, "max_abs_err": abs_err, "rel_err": err}
+        if lse is not None:
+            _, err_no_lse = check_grads(torch, run_no_lse(), want, dtype, f"flash_attention_bwd {label} without LSE")
+            row.update(lse_rel_err=lse_err, rel_err_lse_recomputed=err_no_lse)
         lib = sdpa_backward(torch, q, k, v, do, causal, window)
-        row = {
-            "kernel": "flash_attention_bwd", "case": label, "dtype": dtype, "max_abs_err": abs_err, "rel_err": err,
+        row.update({
             "ms": median_ms(torch, run), "ms_cold": cold_ms(torch, run, flush),
+            "ms_lse_recomputed": median_ms(torch, run_no_lse) if lse is not None else None,
             "plain_ms": median_ms(torch, lambda: ref.attention_bwd_ref(q, k, v, o, do, causal=causal, window=window), max_reps=3),
             "library_ms": median_ms(torch, lib, max_reps=10) if lib is not None else None,
-        }
+        })
         row["bound_ms"], row["bound_by"] = attention_bwd_bound(B, H, KV, Lq, Lk, hd, causal, window, dtype)
+        if path == "wgmma":
+            row["kv_parts"] = fa.kv_parts(B, KV, H, Lk, torch.cuda.get_device_properties(dev).multi_processor_count)
         print("train_kernel " + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
         rows.setdefault("flash_attention_bwd", {})[label] = row
-        del q, k, v, o, do, got, lib
+        del q, k, v, o, do, got, lib, lse, want
         torch.cuda.empty_cache()
     label, B, L, dr = BWD_RGLRU_CASE
     g = torch.Generator(dev).manual_seed(12)
@@ -1117,7 +1172,9 @@ def backward_kernels_checked(torch, ops, label, first: dict):
     operands the path gave them (fp32 relative 1e-4, bf16 also element by
     element; ``check_grads``): the ``ops`` wrappers are swapped for ones
     that call the original (the path's own launch, counted) and then the
-    plain version.  Yields {kernel: {"calls", "rel_err"}}."""
+    plain version.  The attention backward's plain version is not given the
+    forward's LSE: it computes its own, so that LSE is checked too.  Yields
+    {kernel: {"calls", "rel_err"}}."""
     from repro_torch.kernels import ref
 
     plain = {"flash_attention_bwd": ref.attention_bwd_ref, "rglru_scan_bwd": ref.rglru_bwd_ref}
@@ -1128,8 +1185,8 @@ def backward_kernels_checked(torch, ops, label, first: dict):
         def call(*args, **kw):
             got = originals[wrapper](*args, **kw)
             if seen[wrapper]["calls"] < first.get(wrapper, 0):
-                with torch.no_grad():
-                    want = plain[wrapper](*args, **kw)
+                with torch.no_grad():  # the plain attention backward computes its own LSE
+                    want = plain[wrapper](*args, **{k: v for k, v in kw.items() if k != "lse"})
                 dtype = str(args[0].dtype).removeprefix("torch.")
                 _, err = check_grads(torch, got, want, dtype, f"{label}: {wrapper} call {seen[wrapper]['calls']}")
                 seen[wrapper]["rel_err"] = max(seen[wrapper]["rel_err"], err)
@@ -1179,6 +1236,10 @@ def run_train_full_size(torch, ops, dev):
         out = train(TRAIN["arch"], reduced=False, device="cuda", log_every=0,
                     steps=TRAIN["steps"], seq_len=TRAIN["seq_len"], global_batch=TRAIN["global_batch"])
         launches, backward = ops.launch_counts(), ops.backward_launch_counts()
+        backward_routes = ops.backward_route_launch_counts()["flash_attention_bwd"]
+    want_routes = {"simt": 0, "wgmma": TRAIN_BACKWARD_LAUNCHES["flash_attention_bwd"] * TRAIN["steps"]}
+    if backward_routes != want_routes:
+        raise AssertionError(f"train: attention backward launches by route {backward_routes}, want {want_routes} (bf16 on wgmma)")
     for k, n in TRAIN_BACKWARD_LAUNCHES.items():
         if checked[k]["calls"] != n:
             raise AssertionError(f"train: {checked[k]['calls']} {k} calls held against the plain version in the first step, want {n}")
@@ -1198,12 +1259,13 @@ def run_train_full_size(torch, ops, dev):
         f"steps={out['steps']} step_s={json.dumps(out['step_s'])} losses={json.dumps(out['losses'])} "
         f"grad_norms={json.dumps(out['grad_norms'])} peak_mem_gb={out['peak_mem_bytes'] / 1e9} "
         f"launches_per_step={json.dumps(out['launches'][0])} backward_launches_per_step={json.dumps(out['backward_launches'][0])} "
-        f"nonzero_grad_leaf_share={json.dumps(shares)} path_checked={json.dumps(checked)}",
+        f"nonzero_grad_leaf_share={json.dumps(shares)} path_checked={json.dumps(checked)} "
+        f"backward_routes={json.dumps(backward_routes)}",
         flush=True,
     )
     profile_train_step(torch, out["params"], out["opt"], dev)
     del out
-    return backward
+    return backward, backward_routes
 
 
 def profile_train_step(torch, params, opt, dev):
@@ -1212,6 +1274,7 @@ def profile_train_step(torch, params, opt, dev):
     the largest kernels by device time."""
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.model import Model
     from repro_torch.optim import adamw
     from repro_torch.train import step as step_lib
@@ -1224,6 +1287,15 @@ def profile_train_step(torch, params, opt, dev):
     busy_s = sum(device.values())
     kernel_s = {k: sum(t for n, t in device.items() if any(sym in n for sym in syms)) for k, syms in TRAIN_SYMBOLS.items()}
     parts = {sym: sum(t for n, t in device.items() if sym in n) for sym in TRAIN_SYMBOLS["flash_attention_bwd"] + TRAIN_SYMBOLS["rglru_scan_bwd"]}
+    # every kernel the step launches must show device time under its symbols
+    # (a renamed symbol would read 0): the wgmma backward's four kernels
+    # (the parts' sum runs where kv_parts > 1) and each other kernel's
+    n_parts = fa.kv_parts(TRAIN["global_batch"], cfg.n_kv_heads, cfg.n_heads, TRAIN["seq_len"],
+                          torch.cuda.get_device_properties(dev).multi_processor_count)
+    needed = [s for s in WGMMA_BWD_SYMBOLS if s != "attn_bwd_kv_sum" or n_parts > 1]
+    missing = [k for k, t in kernel_s.items() if not t > 0] + [s for s in needed if not parts[s] > 0]
+    if missing:
+        raise AssertionError(f"train_profile: no device time under {missing} (symbols {TRAIN_SYMBOLS}) in a step that launches them")
     print(
         f"train_profile arch={TRAIN['arch']} step_wall_s={wall_s} device_busy_s={busy_s} device_idle_share={1 - busy_s / wall_s} "
         f"kernel_s={json.dumps(kernel_s)} kernel_share={sum(kernel_s.values()) / wall_s} backward_parts_s={json.dumps(parts)} "
@@ -1262,18 +1334,18 @@ def run_train_dense_width(torch, ops, dev):
             step_s.append(time.perf_counter() - t0)
             losses.append(float(metrics["loss"]))
             norms.append(float(metrics["grad_norm"]))
-            per_step.append((ops.launch_counts(), ops.backward_launch_counts()))
-    for fwd, bwd in per_step:
-        if fwd["flash_attention"] != 2 * n or bwd != {"flash_attention_bwd": n, "rglru_scan_bwd": 0}:
-            raise AssertionError(f"train_dense: launches {fwd} / backward {bwd}, want {2 * n} attention (remat) and {n} backward")
+            per_step.append((ops.launch_counts(), ops.backward_launch_counts(), ops.backward_route_launch_counts()["flash_attention_bwd"]))
+    for fwd, bwd, routes in per_step:
+        if fwd["flash_attention"] != 2 * n or bwd != {"flash_attention_bwd": n, "rglru_scan_bwd": 0} or routes != {"simt": 0, "wgmma": n}:
+            raise AssertionError(f"train_dense: launches {fwd} / backward {bwd} by route {routes}, want {2 * n} attention (remat) and {n} backward on wgmma")
     if checked["flash_attention_bwd"]["calls"] != n or shares != [1.0] * DENSE_TRAIN["steps"] or not all(math.isfinite(x) for x in losses + norms):
         raise AssertionError(f"train_dense: checked {checked}, nonzero-gradient shares {shares}, losses {losses}")
     print(
         f"train arch={DENSE_TRAIN['arch']} layers={n} dtype=bfloat16 batch={DENSE_TRAIN['batch']} seq_len={DENSE_TRAIN['seq_len']} "
         f"steps={len(losses)} step_s={json.dumps(step_s)} losses={json.dumps(losses)} grad_norms={json.dumps(norms)} "
         f"peak_mem_gb={torch.cuda.max_memory_allocated(dev) / 1e9} launches_per_step={json.dumps(per_step[0][0])} "
-        f"backward_launches_per_step={json.dumps(per_step[0][1])} nonzero_grad_leaf_share={json.dumps(shares)} "
-        f"path_checked={json.dumps(checked)}",
+        f"backward_launches_per_step={json.dumps(per_step[0][1])} backward_routes_per_step={json.dumps(per_step[0][2])} "
+        f"nonzero_grad_leaf_share={json.dumps(shares)} path_checked={json.dumps(checked)}",
         flush=True,
     )
 
@@ -1305,6 +1377,9 @@ def check_grads_on_card(torch, ops, dev):
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     launched = ops.backward_launch_counts()
+    routes = ops.backward_route_launch_counts()["flash_attention_bwd"]
+    if routes != {"simt": GRAD_CHECK["layers"], "wgmma": 0}:
+        raise AssertionError(f"train_grads: fp32 attention backward launches by route {routes}, want all on simt")
     on_card = [g.cpu() for g in on_card]
     params = tree_map(lambda t: t.detach().cpu(), params)
     t0 = time.perf_counter()
@@ -1317,7 +1392,7 @@ def check_grads_on_card(torch, ops, dev):
     print(
         f"train_grads arch={GRAD_CHECK['arch']} layers={GRAD_CHECK['layers']} dtype=float32 batch={GRAD_CHECK['batch']} "
         f"seq_len={GRAD_CHECK['seq_len']} leaves={len(errs)} worst_leaf_rel_err={max(errs)} loss_rel_err={loss_err} "
-        f"card_s={card_s} cpu_s={cpu_s} backward_launches={json.dumps(launched)}",
+        f"card_s={card_s} cpu_s={cpu_s} backward_launches={json.dumps(launched)} backward_routes={json.dumps(routes)}",
         flush=True,
     )
 
@@ -1338,8 +1413,11 @@ def run_train_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState):
     _, pending = cf.wait(tasks + [ssm_task], timeout=300)
     wall = time.perf_counter() - t0
     launches, backward = ops.launch_counts(), ops.backward_launch_counts()
+    routes = ops.backward_route_launch_counts()["flash_attention_bwd"]
     if pending:
         raise AssertionError(f"train_tasks: {len(pending)} tasks unfinished after 300 s")
+    if routes != {"simt": TRAIN_TASK_BACKWARD_LAUNCHES["flash_attention_bwd"], "wgmma": 0}:
+        raise AssertionError(f"train_tasks: fp32 attention backward launches by route {routes}, want all on simt")
     keys = ["ce", "grad_norm", "loss", "lr", "tokens"]
     for t in tasks:
         r = t.result() if t.tstate == TaskState.DONE else None
@@ -1354,7 +1432,7 @@ def run_train_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState):
     h.shutdown(wait=True)
     print(
         f"train_tasks tasks={len(tasks)} archs={json.dumps(dict(TRAIN_TASKS))} wall_s={wall} launches={json.dumps(launches)} "
-        f"backward_launches={json.dumps(backward)} last_metrics={json.dumps(tasks[-1].result())} "
+        f"backward_launches={json.dumps(backward)} backward_routes={json.dumps(routes)} last_metrics={json.dumps(tasks[-1].result())} "
         f"ssm_task={ssm_task.tstate.value} ssm_error={type(ssm_task.exception()).__name__}",
         flush=True,
     )
@@ -1382,6 +1460,14 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load(*_build.SOURCES)
     print(f"build sources={list(_build.SOURCES)} dir={_build.BUILD_DIR.relative_to(ROOT)} seconds={time.perf_counter() - t0}", flush=True)
+    # registers and spills of the tensor-core attention kernels (nvcc -Xptxas -v), and the backward's shared memory
+    for source in ("flash_attention", "flash_attention_bwd_wgmma"):
+        for usage in _build.ptxas_usage(_build.BUILD_LOGS.get(source, "")):
+            print(f"ptxas source={source} " + " ".join(f"{k}={v}" for k, v in usage.items()), flush=True)
+    import ctypes
+
+    smem = _build.function("flash_attention_bwd_wgmma", "flash_attention_bwd_wgmma_smem", [ctypes.c_int, ctypes.c_int])
+    print("smem flash_attention_bwd_wgmma " + " ".join(f"hd{hd}_kv={smem(hd, 0)} hd{hd}_q={smem(hd, 1)}" for hd in (32, 64, 128, 256)), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1468,7 +1554,7 @@ def main() -> int:
     bwd_rows = check_backward_kernels(torch, ops, dev, flush)
     del flush
     torch.cuda.empty_cache()
-    train_backward = run_train_full_size(torch, ops, dev)
+    train_backward, train_backward_routes = run_train_full_size(torch, ops, dev)
     torch.cuda.empty_cache()
     run_train_dense_width(torch, ops, dev)
     torch.cuda.empty_cache()
@@ -1494,9 +1580,14 @@ def main() -> int:
         })
     for name, (route, source, replaces) in BACKWARD_INFO.items():
         row = bwd_rows[name]["recurrentgemma_2b"]
+        extra = {}
+        if name == "flash_attention_bwd":  # two routes: bf16 on wgmma (this source), fp32 on simt
+            extra = {"width_route": row["route"], "route_launches": train_backward_routes,
+                     "simt_source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"}
         report.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
             "note": "backward kernel; the reference has no Pallas backward and differentiates this function with XLA",
+            **extra,
             "launches": train_backward[name], "max_abs_err": row["max_abs_err"], "rel_err": row["rel_err"],
             "ms": row["ms"], "ms_cold": row["ms_cold"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "model": row["case"], "dtype": row["dtype"],

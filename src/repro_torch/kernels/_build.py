@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,15 +26,20 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("flash_attention", "moe_gmm", "rglru_scan", "selective_scan", "flash_attention_bwd", "rglru_scan_bwd")
+SOURCES = (
+    "flash_attention", "moe_gmm", "rglru_scan", "selective_scan",
+    "flash_attention_bwd", "flash_attention_bwd_wgmma", "rglru_scan_bwd",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # each kernel's registers, stack and spills, kept in BUILD_LOGS
 )
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FUNCS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+BUILD_LOGS: dict[str, str] = {}  # source -> the compiler's output, for sources built by this process
 
 
 class LaunchCounter:
@@ -106,6 +112,7 @@ def load(*names: str) -> list[ctypes.CDLL]:
             if proc.returncode != 0:
                 errors.append(f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n{log}")
             else:
+                BUILD_LOGS[name] = log
                 os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
         if errors:
             raise RuntimeError("\n".join(errors))
@@ -127,6 +134,39 @@ def function(source: str, symbol: str, argtypes: list, restype=ctypes.c_int):
         fn.restype = restype
         _FUNCS[key] = fn
     return fn
+
+
+def kernel_label(mangled: str) -> str:
+    """``name<args>`` of a kernel in an anonymous namespace from its mangled
+    symbol (``..._cu_<8 hex><len><name>I<Li<n>E...>E...``), else the symbol."""
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+    if not m:
+        return mangled
+    start = m.end()
+    name = mangled[start:start + int(m.group(1))]
+    args = re.match(r"I((?:Li\d+E)+)E", mangled[start + int(m.group(1)):])
+    return f"{name}<{','.join(re.findall(r'Li(\d+)E', args.group(1)))}>" if args else name
+
+
+def ptxas_usage(log: str) -> list[dict]:
+    """Per kernel, from ``-Xptxas -v`` output: its name (``kernel_label``),
+    registers a thread, stack frame and spill bytes."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"kernel": kernel_label(m.group(1))}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return rows
 
 
 def check_aligned(kernel: str, *tensors) -> None:

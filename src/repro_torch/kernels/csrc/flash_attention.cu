@@ -37,6 +37,12 @@
 //    tile: rounding P once to bf16 puts a few early-row outputs (where a few
 //    keys cancel and the output is small) outside one bf16 step of the fp32
 //    result, and the split keeps P to ~16 bits for one extra product.
+//  * on request (a non-null `lse`, B*H*Lq fp32) the epilogue also stores each
+//    row's log-sum-exp in base 2, LSE2 = m log2(e) + log2(l) (-inf for a row
+//    with no live key), which the backward (csrc/flash_attention_bwd_wgmma.cu)
+//    reads instead of re-running Q.K^T.  The store reads m and l after they
+//    are final and touches nothing that forms o, so o is the same with or
+//    without it.
 //  * k tiles of 128 rows up to hd 128; at hd 256 the O accumulator takes 128
 //    registers a thread, so the k tile shrinks to 32 rows (the q tile
 //    stays): ptxas holds the consumers near 170 registers, and a 64-row tile
@@ -286,8 +292,9 @@ __device__ __forceinline__ void softmax_tile(float (&s)[TcConfig<HD>::BK / 2], f
 template <int HD>
 __global__ void __launch_bounds__(TcConfig<HD>::THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-                const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, int H,
-                int KV, int Lq, int Lk, float scale, int causal, int has_window, int window) {
+                const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+                float* __restrict__ lse, int H, int KV, int Lq, int Lk, float scale, int causal,
+                int has_window, int window) {
   using Cfg = TcConfig<HD>;
   constexpr int BQ = Cfg::BQ, BK = Cfg::BK, SW = Cfg::SW, CH = Cfg::CH;
   constexpr int NCH = Cfg::NCH, KPC = Cfg::KPC, STAGES = Cfg::STAGES;
@@ -443,12 +450,20 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
             __floats2bfloat162_rn(__fdividef(oacc[i], d), __fdividef(oacc[i + 1], d));
       }
     }
+    if (lse != nullptr && (t & 3) == 0) {
+      // the 4 threads of a row hold the same m and (reduced above) l
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qpos = qw0 + hopper::acc_row(t, 2 * r);
+        if (qpos < Lq) lse[int64_t(bh) * Lq + qpos] = m[r] * kLog2e + log2f(l[r]);
+      }
+    }
   }
 }
 
 template <int HD>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int H, int KV, int Lq,
-                 int Lk, int causal, int has_window, int window, cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int KV,
+                 int Lq, int Lk, int causal, int has_window, int window, cudaStream_t stream) {
   using Cfg = TcConfig<HD>;
   CUtensorMap qmap, kmap, vmap;
   int err = hopper::make_map_3d(&qmap, q, uint64_t(B) * H, Lq, HD, Cfg::BQ, Cfg::CH, Cfg::SW);
@@ -461,18 +476,18 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   if (cerr != cudaSuccess) return int(cerr);
   const dim3 grid((Lq + Cfg::BQ - 1) / Cfg::BQ, B * H);
   const float scale = float(1.0 / std::sqrt(double(HD)));  // as the reference rounds it
-  kernel<<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o),
+  kernel<<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), lse,
                                                      H, KV, Lq, Lk, scale, causal, has_window, window);
   return int(cudaGetLastError());
 }
 
-int dispatch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int H, int KV, int Lq,
-                   int Lk, int hd, int causal, int has_window, int window, cudaStream_t stream) {
+int dispatch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int KV,
+                   int Lq, int Lk, int hd, int causal, int has_window, int window, cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch_wgmma<32>(q, k, v, o, B, H, KV, Lq, Lk, causal, has_window, window, stream);
-    case 64: return launch_wgmma<64>(q, k, v, o, B, H, KV, Lq, Lk, causal, has_window, window, stream);
-    case 128: return launch_wgmma<128>(q, k, v, o, B, H, KV, Lq, Lk, causal, has_window, window, stream);
-    case 256: return launch_wgmma<256>(q, k, v, o, B, H, KV, Lq, Lk, causal, has_window, window, stream);
+    case 32: return launch_wgmma<32>(q, k, v, o, lse, B, H, KV, Lq, Lk, causal, has_window, window, stream);
+    case 64: return launch_wgmma<64>(q, k, v, o, lse, B, H, KV, Lq, Lk, causal, has_window, window, stream);
+    case 128: return launch_wgmma<128>(q, k, v, o, lse, B, H, KV, Lq, Lk, causal, has_window, window, stream);
+    case 256: return launch_wgmma<256>(q, k, v, o, lse, B, H, KV, Lq, Lk, causal, has_window, window, stream);
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -482,16 +497,20 @@ int dispatch_wgmma(const void* q, const void* k, const void* v, void* o, int B, 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  route: 0 = simt (float32 only),
-// 1 = wgmma (bfloat16 only).  has_window = 0 means no window mask.
+// 1 = wgmma (bfloat16 only).  has_window = 0 means no window mask.  lse:
+// null, or (wgmma only) B*H*Lq fp32 for each row's log-sum-exp in base 2.
 // Returns cudaGetLastError() after the launch (0 on success).
-int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
-                        int Lq, int Lk, int hd, int causal, int has_window, int window, int dtype,
-                        int route, int device, void* stream) {
+int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
+                        int KV, int Lq, int Lk, int hd, int causal, int has_window, int window,
+                        int dtype, int route, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == 1 && dtype == 1) return dispatch_wgmma(q, k, v, o, B, H, KV, Lq, Lk, hd, causal, has_window, window, s);
-  if (route == 0 && dtype == 0) return dispatch_hd(q, k, v, o, B, H, KV, Lq, Lk, hd, causal, has_window, window, s);
+  float* lse2 = static_cast<float*>(lse);
+  if (route == 1 && dtype == 1)
+    return dispatch_wgmma(q, k, v, o, lse2, B, H, KV, Lq, Lk, hd, causal, has_window, window, s);
+  if (route == 0 && dtype == 0 && lse2 == nullptr)
+    return dispatch_hd(q, k, v, o, B, H, KV, Lq, Lk, hd, causal, has_window, window, s);
   return int(cudaErrorInvalidValue);
 }
 

@@ -1,5 +1,10 @@
-// Backward of flash attention for Hopper (sm_90a): dq, dk, dv from q, k, v,
-// the forward's output o and its gradient do, fp32 or bf16 in, same type out.
+// Backward of flash attention for Hopper (sm_90a), the `simt` route: dq, dk,
+// dv from q, k, v, the forward's output o and its gradient do, fp32 (and
+// bf16 at hd 16) in, same type out.  bf16 at hd 32 to 256 takes the `wgmma`
+// route (csrc/flash_attention_bwd_wgmma.cu, chosen by `bwd_route` in
+// kernels/flash_attention.py), which calls the preprocess below
+// (`flash_attention_bwd_lse`) only where the caller has no LSE from the
+// forward.
 //
 // Replaces nothing on the TPU: the reference has no Pallas backward, and
 // trains through XLA's autodiff of its plain attention
@@ -20,8 +25,8 @@
 //
 // Three kernels, launched in order on the caller's stream:
 //  * `bwd_pre`: one block per (b*h, q tile) re-runs the row max and sum of
-//    the forward (which keeps no LSE) and writes LSE and D to a scratch the
-//    wrapper allocates.  LSE is kept in fp32 and in base 2: with
+//    the forward (whose `simt` kernel keeps no LSE) and writes LSE and D to a
+//    scratch the wrapper allocates.  LSE is kept in fp32 and in base 2: with
 //    sl2 = scale * log2(e), LSE2 = max(S sl2) + log2(sum exp2(S sl2 - max)),
 //    and every kernel forms P = exp2(S sl2 - LSE2) from the same fp32 dot
 //    products, summed in the same order, so the three agree on P.
@@ -52,8 +57,9 @@
 // hd + 4 floats, 16-byte aligned and 4 banks apart, and every read along the
 // head is a 16-byte load: a score tile's rows are read 4 steps of d at a
 // time, and dV, dK and dQ read 4 consecutive columns a thread, which cuts
-// the wavefronts per FMA about 2.5x.  The tensor cores (`wgmma`) and a
-// forward that writes LSE are later work (ROADMAP).
+// the wavefronts per FMA about 2.5x.  fp32 keeps these CUDA-core products
+// (TF32 on the tensor cores keeps ~3 decimal digits, and the fp32 checks
+// ask for 1e-4); bf16's tensor-core backward is the `wgmma` route.
 //
 // Head widths 16, 32, 64, 128 and 256 (the forward's `simt` widths); tiles
 // of 64 x 64 rows up to hd 128 and 64 x 32 (q x k) at hd 256, so shared
@@ -425,6 +431,22 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v
   }
 }
 
+// the preprocess alone: LSE2 and D of every query row
+template <typename T, int HD, int BQ, int BK>
+int launch_pre(const void* q, const void* k, const void* o, const void* dout, void* lse2, void* dd, int B, int H,
+               int KV, int Lq, int Lk, int causal, int has_window, int window, cudaStream_t s) {
+  using C = Cfg<HD, BQ, BK>;
+  const float sl2 = float(1.0 / std::sqrt(double(HD))) * kLog2e;  // as the forward rounds the scale
+  auto pre = bwd_pre<T, HD, BQ, BK>;
+  cudaError_t err = cudaFuncSetAttribute(pre, cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::PRE_SMEM));
+  if (err != cudaSuccess) return int(err);
+  const dim3 q_grid((Lq + BQ - 1) / BQ, B * H);
+  pre<<<q_grid, NT, C::PRE_SMEM, s>>>(static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(o),
+                                        static_cast<const T*>(dout), static_cast<float*>(lse2), static_cast<float*>(dd),
+                                        H, KV, Lq, Lk, sl2, causal, has_window, window);
+  return int(cudaGetLastError());
+}
+
 template <typename T, int HD, int BQ, int BK>
 int launch(const void* q, const void* k, const void* v, const void* o, const void* dout, void* dq, void* dk, void* dv,
            void* lse2, void* dd, int B, int H, int KV, int Lq, int Lk, int causal, int has_window, int window,
@@ -432,11 +454,11 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   using C = Cfg<HD, BQ, BK>;
   const float scale = float(1.0 / std::sqrt(double(HD)));  // as the forward rounds it
   const float sl2 = scale * kLog2e;
-  auto pre = bwd_pre<T, HD, BQ, BK>;
   auto dkdv = bwd_dkdv<T, HD, BQ, BK>;
   auto dqk = bwd_dq<T, HD, BQ, BK>;
-  cudaError_t err = cudaFuncSetAttribute(pre, cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::PRE_SMEM));
-  if (err == cudaSuccess) err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::MAIN_SMEM));
+  int code = launch_pre<T, HD, BQ, BK>(q, k, o, dout, lse2, dd, B, H, KV, Lq, Lk, causal, has_window, window, s);
+  if (code) return code;
+  cudaError_t err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::MAIN_SMEM));
   if (err == cudaSuccess) err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::MAIN_SMEM));
   if (err != cudaSuccess) return int(err);
   const T* qt = static_cast<const T*>(q);
@@ -446,10 +468,6 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   float* lse = static_cast<float*>(lse2);
   float* dsum = static_cast<float*>(dd);
   const dim3 q_grid((Lq + BQ - 1) / BQ, B * H);
-  pre<<<q_grid, NT, C::PRE_SMEM, s>>>(qt, kt, static_cast<const T*>(o), dot, lse, dsum, H, KV, Lq, Lk, sl2, causal,
-                                        has_window, window);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
   const dim3 k_grid((Lk + BK - 1) / BK, B * KV);
   dkdv<<<k_grid, NT, C::MAIN_SMEM, s>>>(qt, kt, vt, dot, lse, dsum, static_cast<T*>(dk), static_cast<T*>(dv), H, KV,
                                           Lq, Lk, scale, sl2, causal, has_window, window);
@@ -470,6 +488,20 @@ int dispatch(const void* q, const void* k, const void* v, const void* o, const v
     case 64: return launch<T, 64, 64, 64>(q, k, v, o, dout, dq, dk, dv, lse2, dd, B, H, KV, Lq, Lk, causal, has_window, window, s);
     case 128: return launch<T, 128, 64, 64>(q, k, v, o, dout, dq, dk, dv, lse2, dd, B, H, KV, Lq, Lk, causal, has_window, window, s);
     case 256: return launch<T, 256, 64, 32>(q, k, v, o, dout, dq, dk, dv, lse2, dd, B, H, KV, Lq, Lk, causal, has_window, window, s);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// the tiles `dispatch` gives each width
+template <typename T>
+int dispatch_pre(const void* q, const void* k, const void* o, const void* dout, void* lse2, void* dd, int B, int H,
+                 int KV, int Lq, int Lk, int hd, int causal, int has_window, int window, cudaStream_t s) {
+  switch (hd) {
+    case 16: return launch_pre<T, 16, 64, 64>(q, k, o, dout, lse2, dd, B, H, KV, Lq, Lk, causal, has_window, window, s);
+    case 32: return launch_pre<T, 32, 64, 64>(q, k, o, dout, lse2, dd, B, H, KV, Lq, Lk, causal, has_window, window, s);
+    case 64: return launch_pre<T, 64, 64, 64>(q, k, o, dout, lse2, dd, B, H, KV, Lq, Lk, causal, has_window, window, s);
+    case 128: return launch_pre<T, 128, 64, 64>(q, k, o, dout, lse2, dd, B, H, KV, Lq, Lk, causal, has_window, window, s);
+    case 256: return launch_pre<T, 256, 64, 32>(q, k, o, dout, lse2, dd, B, H, KV, Lq, Lk, causal, has_window, window, s);
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -499,6 +531,22 @@ int flash_attention_bwd(const void* q, const void* k, const void* v, const void*
   }
   if (dtype == 0) return dispatch<float>(q, k, v, o, dout, dq, dk, dv, lse2, dd, B, H, KV, Lq, Lk, hd, causal, has_window, window, s);
   if (dtype == 1) return dispatch<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, lse2, dd, B, H, KV, Lq, Lk, hd, causal, has_window, window, s);
+  return int(cudaErrorInvalidValue);
+}
+
+// The preprocess alone, for a caller without the forward's LSE: lse2 and
+// dd (fp32, B*H*Lq each) get every query row's LSE in base 2 (0 for a row
+// with no live key) and D = rowsum(dO * O).  Operands as above.
+int flash_attention_bwd_lse(const void* q, const void* k, const void* o, const void* dout, void* lse2, void* dd,
+                            int B, int H, int KV, int Lq, int Lk, int hd, int causal, int has_window, int window,
+                            int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B == 0 || H == 0 || Lq == 0 || Lk == 0) return 0;  // nothing to read: every gradient is zero
+  if (KV == 0 || H % KV || B * H > 65535) return int(cudaErrorInvalidValue);
+  if (dtype == 0) return dispatch_pre<float>(q, k, o, dout, lse2, dd, B, H, KV, Lq, Lk, hd, causal, has_window, window, s);
+  if (dtype == 1) return dispatch_pre<__nv_bfloat16>(q, k, o, dout, lse2, dd, B, H, KV, Lq, Lk, hd, causal, has_window, window, s);
   return int(cudaErrorInvalidValue);
 }
 

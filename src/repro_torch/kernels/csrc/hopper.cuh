@@ -133,6 +133,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// `bytes` contiguous bytes (a multiple of 16; both addresses on 16-byte
+// boundaries) into shared memory; completion is counted on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
@@ -223,6 +233,18 @@ __device__ __forceinline__ int wait_flag(const int* flag) {
   return v;
 }
 
+// Named barriers between warpgroups (id 0 is __syncthreads'): `sync` waits
+// until `n` threads have reached the barrier, `arrive` counts this thread
+// and goes on.  Shared-memory writes before an arrive are visible to the
+// threads that return from the matching sync.
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // device: warpgroup register budget
 // ---------------------------------------------------------------------------
@@ -285,7 +307,8 @@ __device__ __forceinline__ int acc_col(int t, int i) { return 8 * (i >> 2) + 2 *
 #define HOPPER_D128 HOPPER_D64, HOPPER_D8(64), HOPPER_D8(72), HOPPER_D8(80), HOPPER_D8(88), \
                     HOPPER_D8(96), HOPPER_D8(104), HOPPER_D8(112), HOPPER_D8(120)
 
-#define HOPPER_R16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define HOPPER_R8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define HOPPER_R16 HOPPER_R8 ", %8, %9, %10, %11, %12, %13, %14, %15"
 #define HOPPER_R32 HOPPER_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
 #define HOPPER_R64                                                                                 \
   HOPPER_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
@@ -318,7 +341,9 @@ struct WgmmaRS;
                    : "l"(da), "l"(db), "r"(scale_d), "n"(TB));                                         \
     }                                                                                                  \
   };
+HOPPER_SS(16, HOPPER_R8, HOPPER_D8(0), "8", "9", "10", "11")
 HOPPER_SS(32, HOPPER_R16, HOPPER_D16, "16", "17", "18", "19")
+HOPPER_SS(64, HOPPER_R32, HOPPER_D32, "32", "33", "34", "35")
 HOPPER_SS(128, HOPPER_R64, HOPPER_D64, "64", "65", "66", "67")
 HOPPER_SS(256, HOPPER_R128, HOPPER_D128, "128", "129", "130", "131")
 #undef HOPPER_SS
@@ -346,6 +371,7 @@ HOPPER_RS(256, HOPPER_R128, HOPPER_D128, "128", "129", "130", "131", "132", "133
 #undef HOPPER_D32
 #undef HOPPER_D64
 #undef HOPPER_D128
+#undef HOPPER_R8
 #undef HOPPER_R16
 #undef HOPPER_R32
 #undef HOPPER_R64

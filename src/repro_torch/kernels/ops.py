@@ -19,7 +19,8 @@ signature and
 Every kernel module counts its own launches; ``launch_counts`` reads them.
 The two kernels with two routes (``flash_attention`` and ``moe_gmm``: a
 tensor-core kernel for bf16, a CUDA-core one for fp32) also count by route;
-``route_launch_counts`` reads those.
+``route_launch_counts`` reads those, and ``backward_route_launch_counts``
+the attention backward's two routes.
 
 Gradients.  On the card ``flash_attention`` and ``rglru_scan`` run through
 ``torch.autograd.Function``s whose backward is a hand-written kernel too
@@ -27,7 +28,9 @@ Gradients.  On the card ``flash_attention`` and ``rglru_scan`` run through
 route like the others, CPU tensors to the plain versions in ``ref``).  The
 backwards have no Pallas counterpart and no registry entry: they count their
 launches apart (``backward_launch_counts``), so the registry kernels' counts
-mean what they meant.  ``selective_scan_chunk`` and ``moe_gmm`` have no
+mean what they meant.  Where the attention backward takes the ``wgmma``
+route (bf16), the forward also writes each row's log-sum-exp when a
+gradient will be taken, and the backward reads it.  ``selective_scan_chunk`` and ``moe_gmm`` have no
 backward kernel yet: on the card they raise ``BackwardNotPorted`` when grad
 mode is on and an operand requires grad, rather than hand back an output
 with no gradient path.  On CPU tensors every wrapper runs its plain version,
@@ -85,11 +88,19 @@ def route_launch_counts() -> dict[str, dict[str, int]]:
     return {name: {r: c.value for r, c in by.items()} for name, by in ROUTE_LAUNCHES.items()}
 
 
+BACKWARD_ROUTE_LAUNCHES = {"flash_attention_bwd": _fa.BWD_ROUTE_LAUNCHES}
+
+
+def backward_route_launch_counts() -> dict[str, dict[str, int]]:
+    """Backward launches so far by kernel and route (``wgmma`` / ``simt``)."""
+    return {name: {r: c.value for r, c in by.items()} for name, by in BACKWARD_ROUTE_LAUNCHES.items()}
+
+
 def reset_launch_counts() -> None:
-    """Zero every count: forward, by route and backward."""
+    """Zero every count: forward, backward, and both by route."""
     for c in (*LAUNCHES.values(), *BACKWARD_LAUNCHES.values()):
         c.reset()
-    for by in ROUTE_LAUNCHES.values():
+    for by in (*ROUTE_LAUNCHES.values(), *BACKWARD_ROUTE_LAUNCHES.values()):
         for c in by.values():
             c.reset()
 
@@ -172,43 +183,56 @@ def flash_attention(
     _fa.check_blocks(lq, lk, cfg["block_q"], cfg["block_k"])
     if not on_card:
         return ref.attention_ref(q, k, v, causal=causal, window=window)
-    return _FlashAttention.apply(q, k, v, causal, window)
+    # the forward keeps each row's LSE where a gradient will be taken and the
+    # backward's route reads it
+    keep_lse = (
+        torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+        and _fa.bwd_route(q.dtype, hd) == "wgmma"
+    )
+    return _FlashAttention.apply(q, k, v, causal, window, keep_lse)
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The forward kernel, with the backward kernel as its gradient."""
+    """The forward kernel, with the backward kernel as its gradient; with
+    ``keep_lse`` the forward also writes the rows' LSE for the backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        o = _fa.flash_attention(q, k, v, causal=causal, window=window)
-        ctx.save_for_backward(q, k, v, o)
+    def forward(ctx, q, k, v, causal, window, keep_lse):
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) if keep_lse else None
+        o = _fa.flash_attention(q, k, v, causal=causal, window=window, lse=lse)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(), causal=ctx.causal, window=ctx.window)
-        return dq, dk, dv, None, None
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(), causal=ctx.causal, window=ctx.window, lse=lse)
+        return dq, dk, dv, None, None, None
 
 
-def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window: Optional[int] = None):
+def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window: Optional[int] = None, lse=None):
     """Gradients of ``flash_attention`` from its output ``o`` and the output's
     gradient ``do`` (B,H,Lq,hd): returns (dq, dk, dv), each in its operand's
-    dtype.  All five operands share one dtype."""
+    dtype.  All five operands share one dtype.  ``lse`` (B,H,Lq) fp32, the
+    forward's log-sum-exp of each row in base 2, is optional: the train
+    step's autograd Function passes the forward's on the ``wgmma`` route;
+    without it that route computes it with the ``simt`` route's preprocess.
+    The ``simt`` route takes none."""
     b, h, lq, hd = q.shape
     n_kv, lk = k.shape[1], k.shape[2]
     dt = (q.dtype,) if q.dtype in _FLOATS else _FLOATS
-    on_card = _on_card(
-        "flash_attention_bwd", {"q": q, "k": k, "v": v, "o": o, "do": do},
-        {"q": _FLOATS, "k": dt, "v": dt, "o": dt, "do": dt},
-        {"q": (b, h, lq, hd), "k": (b, n_kv, lk, hd), "v": (b, n_kv, lk, hd), "o": (b, h, lq, hd), "do": (b, h, lq, hd)},
-    )
+    operands = {"q": q, "k": k, "v": v, "o": o, "do": do}
+    dtypes = {"q": _FLOATS, "k": dt, "v": dt, "o": dt, "do": dt}
+    shapes = {"q": (b, h, lq, hd), "k": (b, n_kv, lk, hd), "v": (b, n_kv, lk, hd), "o": (b, h, lq, hd), "do": (b, h, lq, hd)}
+    if lse is not None:
+        operands["lse"], dtypes["lse"], shapes["lse"] = lse, _F32, (b, h, lq)
+    on_card = _on_card("flash_attention_bwd", operands, dtypes, shapes)
     if h % n_kv:
         raise ValueError(f"flash_attention_bwd: {h} query heads do not group over {n_kv} KV heads")
     if not on_card:
-        return ref.attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
-    return _fa.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+        return ref.attention_bwd_ref(q, k, v, o, do, causal=causal, window=window, lse=lse)
+    return _fa.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window, lse=lse)
 
 
 def selective_scan_chunk(x, dt, b, c, a, h0, *, block_d: Optional[int] = None):

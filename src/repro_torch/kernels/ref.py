@@ -11,9 +11,12 @@ them against autodiff of the forward (``jax.vjp`` and torch's autograd).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+
+LOG2E = 1.0 / math.log(2.0)
 
 
 def attention_ref(
@@ -50,14 +53,34 @@ def attention_mask(lq: int, lk: int, causal: bool, window: Optional[int], device
     return mask
 
 
-def attention_bwd_ref(q, k, v, o, do, *, causal: bool = True, window: Optional[int] = None):
+def _masked_scores(q, kf, causal, window):
+    """(S, mask): S = scale * Q K^T in fp32 (B,H,Lq,Lk), -inf where masked;
+    kf is K already repeated to the query heads, in fp32."""
+    lq, hd, lk = q.shape[2], q.shape[3], kf.shape[2]
+    mask = attention_mask(lq, lk, causal, window, q.device)[None, None]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * (1.0 / (hd**0.5))
+    return torch.where(mask, s, torch.tensor(float("-inf"), device=q.device)), mask
+
+
+def attention_lse_ref(q, k, *, causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+    """(B,H,Lq) fp32: each query row's log-sum-exp of its live scaled scores
+    in base 2, log2(sum_k 2^(S log2 e)) = LSE * log2(e), as the forward
+    kernel writes it for the backward; -inf for a row with no live key."""
+    rep = q.shape[1] // k.shape[1]
+    s, _ = _masked_scores(q, k.float().repeat_interleave(rep, dim=1), causal, window)
+    return torch.logsumexp(s, dim=-1) * LOG2E
+
+
+def attention_bwd_ref(q, k, v, o, do, *, causal: bool = True, window: Optional[int] = None, lse=None):
     """Gradients of ``attention_ref`` from its output ``o`` and the output's
     gradient ``do``, by the FlashAttention-2 formulas, in fp32: with
     S = scale * Q K^T under the mask and P = exp(S - LSE) (0 where masked),
     D = rowsum(dO * O), dV = P^T dO, dP = dO V^T, dS = P * (dP - D),
     dQ = scale * dS K, dK = scale * dS^T Q.  GQA sums dK and dV over the
     query heads that share a KV head.  A query row with no live key gets
-    zero gradients (the kernel's forward writes zeros there).
+    zero gradients (the kernel's forward writes zeros there).  ``lse``
+    (B,H,Lq), in base 2 as ``attention_lse_ref`` gives it, is used where
+    given (P = 2^(S log2 e - lse)); else LSE is computed here.
     Returns (dq, dk, dv) in the operands' dtype."""
     b, h, lq, hd = q.shape
     n_kv, lk = k.shape[1], k.shape[2]
@@ -66,11 +89,12 @@ def attention_bwd_ref(q, k, v, o, do, *, causal: bool = True, window: Optional[i
     kf = k.float().repeat_interleave(rep, dim=1)
     vf = v.float().repeat_interleave(rep, dim=1)
     scale = 1.0 / (hd**0.5)
-    mask = attention_mask(lq, lk, causal, window, q.device)[None, None]
-    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
-    s = torch.where(mask, s, torch.tensor(float("-inf"), device=q.device))
-    lse = torch.logsumexp(s, dim=-1, keepdim=True)
-    p = torch.where(mask, torch.exp(s - lse), torch.zeros((), device=q.device))
+    s, mask = _masked_scores(q, kf, causal, window)
+    if lse is None:
+        p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    else:
+        p = torch.exp2(s * LOG2E - lse.float()[..., None])
+    p = torch.where(mask, p, torch.zeros((), device=q.device))
     d = torch.sum(dof * of, dim=-1, keepdim=True)
     dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)

@@ -294,7 +294,21 @@ BWD_ATTN_CASES = [  # (B, H, KV, Lq, Lk, hd, causal, window, dtype)
     (1, 4, 2, 200, 200, 32, True, None, torch.bfloat16),
     (2, 8, 2, 256, 256, 128, True, None, torch.bfloat16),
     (1, 2, 1, 4096, 4096, 256, True, 2048, torch.bfloat16),  # past the window, as recurrentgemma-2b
+    # bf16 on the wgmma route: the model widths, ragged lengths, GQA and MQA,
+    # Lq != Lk both ways, and rows with no live key (Lq past Lk + window)
+    (2, 4, 2, 130, 130, 16, True, None, torch.bfloat16),  # hd 16 stays on simt
+    (1, 4, 2, 333, 333, 64, True, None, torch.bfloat16),
+    (1, 8, 2, 200, 200, 128, True, 50, torch.bfloat16),
+    (1, 8, 2, 333, 333, 256, True, 100, torch.bfloat16),
+    (1, 10, 1, 4096, 4096, 256, True, 2048, torch.bfloat16),  # recurrentgemma-2b's heads (2 parts)
+    (2, 32, 8, 2048, 2048, 128, True, None, torch.bfloat16),  # llama3-8b's heads
+    (1, 4, 2, 96, 200, 64, False, None, torch.bfloat16),
+    (1, 4, 2, 96, 200, 256, False, None, torch.bfloat16),
+    (1, 4, 1, 200, 96, 128, True, None, torch.bfloat16),
+    (1, 2, 1, 300, 100, 64, True, 50, torch.bfloat16),
 ]
+_BWD_ID = lambda c: f"B{c[0]}H{c[1]}KV{c[2]}_Lq{c[3]}_Lk{c[4]}_hd{c[5]}_{'causal' if c[6] else 'full'}_w{c[7]}_{str(c[8])[6:]}"
+_WGMMA_BWD_CASES = [c for c in BWD_ATTN_CASES if c[8] == torch.bfloat16 and c[5] >= 32]
 
 
 def _close(got, want, dtype):
@@ -305,22 +319,74 @@ def _close(got, want, dtype):
     return bool(((g - w).abs() <= 2e-2 * w.abs() + 2e-2 * scale).all())
 
 
-@pytest.mark.parametrize("case", BWD_ATTN_CASES, ids=lambda c: f"H{c[1]}KV{c[2]}_Lq{c[3]}_Lk{c[4]}_hd{c[5]}_{'causal' if c[6] else 'full'}_w{c[7]}_{str(c[8])[6:]}")
-def test_attention_backward_kernel_matches_plain_version(card, case):
-    from repro_torch.kernels import ref
-
+def _bwd_operands(card, case):
     B, H, KV, Lq, Lk, hd, causal, window, dtype = case
     g = torch.Generator(card).manual_seed(0)
     q = torch.randn(B, H, Lq, hd, generator=g, device=card).to(dtype)
     k, v = (torch.randn(B, KV, Lk, hd, generator=g, device=card).to(dtype) for _ in range(2))
-    o = ref.attention_ref(q, k, v, causal=causal, window=window)
     do = torch.randn(B, H, Lq, hd, generator=g, device=card).to(dtype)
+    return q, k, v, do
+
+
+def _bwd_route_delta(before):
+    return {r: n - before[r] for r, n in ops.backward_route_launch_counts()["flash_attention_bwd"].items()}
+
+
+# every case as a standalone call (no LSE), and the wgmma cases also as the
+# train step calls them (the forward kernel's o and LSE)
+_BWD_RUNS = [(c, False) for c in BWD_ATTN_CASES] + [(c, True) for c in _WGMMA_BWD_CASES]
+
+
+@pytest.mark.parametrize("case,with_lse", _BWD_RUNS, ids=lambda x: _BWD_ID(x) if isinstance(x, tuple) else ("lse_from_forward" if x else "lse_recomputed"))
+def test_attention_backward_kernel_matches_plain_version(card, case, with_lse):
+    """Each route against the plain backward (which computes its own LSE):
+    with the forward kernel's o and LSE, as the train step calls it, or with
+    the plain o and no LSE (the wgmma route then runs the simt preprocess).
+    The simt route takes no LSE."""
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ref
+
+    B, H, KV, Lq, Lk, hd, causal, window, dtype = case
+    path = tfa.bwd_route(dtype, hd)
+    q, k, v, do = _bwd_operands(card, case)
+    lse = None
+    if with_lse:
+        lse = torch.empty(B, H, Lq, dtype=torch.float32, device=card)
+        o = tfa.flash_attention(q, k, v, causal=causal, window=window, lse=lse)
+    else:
+        o = ref.attention_ref(q, k, v, causal=causal, window=window)
     before = ops.backward_launch_counts()["flash_attention_bwd"]
-    got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    routes = ops.backward_route_launch_counts()["flash_attention_bwd"]
+    got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window, lse=lse)
     torch.cuda.synchronize()
     assert ops.backward_launch_counts()["flash_attention_bwd"] == before + 1
+    assert _bwd_route_delta(routes) == {"simt": int(path == "simt"), "wgmma": int(path == "wgmma")}
+    assert path == ("simt" if dtype == torch.float32 or hd == 16 else "wgmma")
     for a, b in zip(got, ref.attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)):
         assert a.dtype == dtype and a.shape == b.shape and _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("case", _WGMMA_BWD_CASES, ids=_BWD_ID)
+def test_forward_writes_lse_without_changing_its_output(card, case):
+    """The wgmma forward with an ``lse`` out argument gives the same o, bit
+    for bit, as without, and LSE within 1e-5 (relative to its largest
+    element) of the plain LSE; a row with no live key gets -inf in both."""
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ref
+
+    B, H, KV, Lq, Lk, hd, causal, window, dtype = case
+    q, k, v, _ = _bwd_operands(card, case)
+    routes = ops.route_launch_counts()["flash_attention"]
+    o = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    lse = torch.full((B, H, Lq), float("nan"), dtype=torch.float32, device=card)
+    o_lse = tfa.flash_attention(q, k, v, causal=causal, window=window, lse=lse)
+    torch.cuda.synchronize()
+    assert _route_delta("flash_attention", routes) == {"simt": 0, "wgmma": 2}
+    assert torch.equal(o, o_lse)
+    want = ref.attention_lse_ref(q, k, causal=causal, window=window)
+    finite = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(lse), finite) and bool((lse[~finite] == float("-inf")).all())
+    assert float((lse - want)[finite].abs().max()) <= 1e-5 * float(want[finite].abs().max())
 
 
 @pytest.mark.parametrize("B,L,dr", [(2, 300, 50), (1, 4096, 2560), (2, 37, 64)])

@@ -296,6 +296,11 @@ def test_wrappers_check_operands():
         ops.flash_attention(q, k, v, block_q=48)
     with pytest.raises(ValueError, match="device"):
         ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    o = ops.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="shape"):
+        ops.flash_attention_bwd(q, k, v, o, o, lse=torch.zeros(q.shape[:2]))
+    with pytest.raises(TypeError, match="dtype"):
+        ops.flash_attention_bwd(q, k, v, o, o, lse=torch.zeros(q.shape[:3], dtype=torch.float64))
     x, w = treg.get_kernel("moe_gmm").make_args(treg.get_kernel("moe_gmm").tiny_shape, "float32", 0, "cpu")
     with pytest.raises(ValueError, match="shape"):
         ops.moe_gmm(x, w[:, :64].contiguous())
@@ -390,6 +395,60 @@ def test_route_counts_read_and_reset():
     assert counts == {name: {"simt": counts[name]["simt"], "wgmma": counts[name]["wgmma"]} for name in ("flash_attention", "moe_gmm")}
     tfa.ROUTE_LAUNCHES["wgmma"].bump()
     assert ops.route_launch_counts()["flash_attention"]["wgmma"] == counts["flash_attention"]["wgmma"] + 1
+    bwd = ops.backward_route_launch_counts()
+    assert bwd == {"flash_attention_bwd": {"simt": bwd["flash_attention_bwd"]["simt"], "wgmma": bwd["flash_attention_bwd"]["wgmma"]}}
+    tfa.BWD_ROUTE_LAUNCHES["wgmma"].bump()
+    tfa.BWD_ROUTE_LAUNCHES["simt"].bump()
+    assert ops.backward_route_launch_counts()["flash_attention_bwd"] == {r: n + 1 for r, n in bwd["flash_attention_bwd"].items()}
     ops.reset_launch_counts()
     assert ops.route_launch_counts() == {name: {"simt": 0, "wgmma": 0} for name in ("flash_attention", "moe_gmm")}
+    assert ops.backward_route_launch_counts() == {"flash_attention_bwd": {"simt": 0, "wgmma": 0}}
     assert set(ops.launch_counts().values()) == {0}
+
+
+# (dtype, head width, backward route): bf16 on the tensor cores from hd 32;
+# fp32 at every width and bf16 at 16 on the CUDA cores
+_BWD_ROUTES = [(dt, hd, "wgmma" if dt == "bfloat16" and hd >= 32 else "simt") for dt in ("bfloat16", "float32") for hd in (16, 32, 64, 128, 256)]
+
+
+@pytest.mark.parametrize("dtype,hd,want", _BWD_ROUTES)
+def test_backward_route_rule(dtype, hd, want):
+    assert tfa.bwd_route(getattr(torch, dtype), hd) == want
+
+
+@pytest.mark.parametrize("dtype,hd", [("bfloat16", 96), ("float32", 96), ("bfloat16", 512), ("float32", 8), ("float16", 64)])
+def test_backward_route_refuses_what_the_kernels_lack(dtype, hd):
+    with pytest.raises(ValueError, match="head width"):
+        tfa.bwd_route(getattr(torch, dtype), hd)
+
+
+# (B, KV, H, Lk, parts on 132 SMs): recurrentgemma-2b's 64 k tiles split in
+# 2; llama3-8b's 512 blocks fill the card alone; a short MQA sequence splits
+# its 10 heads apart
+_KV_PARTS = [(1, 1, 10, 4096, 2), (2, 8, 32, 2048, 1), (1, 8, 32, 4096, 1), (1, 1, 10, 128, 10), (1, 2, 8, 1024, 4), (2, 4, 8, 2048, 1)]
+
+
+@pytest.mark.parametrize("b,n_kv,h,lk,want", _KV_PARTS)
+def test_kv_parts_rule_fills_the_card(b, n_kv, h, lk, want):
+    got = tfa.kv_parts(b, n_kv, h, lk, 132)
+    assert got == want and (h // n_kv) % got == 0
+
+
+def test_wgmma_backward_pads_its_row_statistics():
+    assert [tfa.stats_rows(n) for n in (1, 96, 128, 129, 333, 4096)] == [128, 128, 128, 256, 384, 4096]
+
+
+def test_ptxas_report_is_parsed_per_kernel():
+    log = """ptxas info    : Compiling entry function '_ZN61_GLOBAL__N__08759a66_28_flash_attention_bwd_wgmma_cu_b53c6ca017attn_bwd_kv_wgmmaILi256EEEv14CUtensorMap_st' for 'sm_90a'
+ptxas info    : Function properties for _ZN61_GLOBAL__N__08759a66_28_flash_attention_bwd_wgmma_cu_b53c6ca017attn_bwd_kv_wgmmaILi256EEEv14CUtensorMap_st
+    112 bytes stack frame, 112 bytes spill stores, 172 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 512 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN61_GLOBAL__N__08759a66_28_flash_attention_bwd_wgmma_cu_b53c6ca015attn_bwd_kv_sumEPK6float4' for 'sm_90a'
+ptxas info    : Function properties for _ZN61_GLOBAL__N__08759a66_28_flash_attention_bwd_wgmma_cu_b53c6ca015attn_bwd_kv_sumEPK6float4
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 46 registers, used 0 barriers"""
+    assert _build.ptxas_usage(log) == [
+        {"kernel": "attn_bwd_kv_wgmma<256>", "stack": 112, "spill_stores": 112, "spill_loads": 172, "registers": 168},
+        {"kernel": "attn_bwd_kv_sum", "stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 46},
+    ]
+    assert _build.kernel_label("_Z3fooPf") == "_Z3fooPf"

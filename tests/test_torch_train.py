@@ -145,18 +145,52 @@ def compare_attention_grads(case) -> dict:
     bhld = lambda a: torch.from_numpy(np.ascontiguousarray(np.swapaxes(np.asarray(a), 1, 2)))
     pgrads = ref.attention_bwd_ref(bhld(q), bhld(k), bhld(v), bhld(jo), bhld(do), causal=causal, window=window)
     pgrads = [g.transpose(1, 2) for g in pgrads]
+    # the same with the LSE given, as the wgmma route's forward hands it over
+    lse = ref.attention_lse_ref(bhld(q), bhld(k), causal=causal, window=window)
+    lgrads = ref.attention_bwd_ref(bhld(q), bhld(k), bhld(v), bhld(jo), bhld(do), causal=causal, window=window, lse=lse)
+    lgrads = [g.transpose(1, 2) for g in lgrads]
     errs = {"out": _rel(to, jo)}
-    for name, j, t, p in zip(("dq", "dk", "dv"), jgrads, tgrads, pgrads):
+    for name, j, t, p, pl in zip(("dq", "dk", "dv"), jgrads, tgrads, pgrads, lgrads):
         errs[f"{name}_port"] = _rel(t, j)
         errs[f"{name}_plain_vs_jax"] = _rel(p, j)
         errs[f"{name}_plain_vs_port"] = _rel(p, t)
+        errs[f"{name}_plain_lse_vs_jax"] = _rel(pl, j)
+        errs[f"{name}_plain_lse_vs_plain"] = _rel(pl, p)
     return errs
 
 
-@pytest.mark.parametrize("case", ATTN_CASES, ids=lambda c: f"B{c[0]}_L{c[1]}_H{c[2]}_KV{c[3]}_hd{c[4]}_{'causal' if c[5] else 'full'}_w{c[6]}")
+_ATTN_ID = lambda c: f"B{c[0]}_L{c[1]}_H{c[2]}_KV{c[3]}_hd{c[4]}_{'causal' if c[5] else 'full'}_w{c[6]}"
+
+
+@pytest.mark.parametrize("case", ATTN_CASES, ids=_ATTN_ID)
 def test_attention_gradients_match_jax_vjp(case):
     errs = compare_attention_grads(case)
     assert max(errs.values()) <= GRAD_REL, errs
+
+
+def compare_attention_lse(case) -> float:
+    """``ref.attention_lse_ref`` (base 2, (B,H,Lq)) against JAX's logsumexp
+    of the reference's masked scores (``models/attention.py``: scale, mask,
+    ``_NEG`` where masked), times log2(e)."""
+    b, lq, h, kv, hd, causal, window = case
+    rng = np.random.default_rng(1)
+    q, k = (rng.normal(size=s).astype(np.float32) for s in ((b, lq, h, hd), (b, lq, kv, hd)))
+    s = jnp.einsum("blhd,bchd->blhc", q, np.repeat(k, h // kv, axis=2)) * (1.0 / hd**0.5)
+    q_pos, k_pos = np.arange(lq)[:, None], np.arange(lq)[None, :]
+    mask = np.ones((lq, lq), bool)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window is not None:
+        mask &= q_pos - k_pos < window
+    s = jnp.where(mask[None, :, None, :], s, jattention._NEG)
+    want = np.swapaxes(np.asarray(jax.nn.logsumexp(s, axis=-1)), 1, 2) * np.log2(np.e)
+    bhld = lambda a: torch.from_numpy(np.ascontiguousarray(np.swapaxes(a, 1, 2)))
+    return _rel(ref.attention_lse_ref(bhld(q), bhld(k), causal=causal, window=window), want)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES, ids=_ATTN_ID)
+def test_attention_lse_plain_version_matches_jax_logsumexp(case):
+    assert compare_attention_lse(case) <= GRAD_REL
 
 
 def compare_rglru_grads(with_h0: bool) -> dict:
@@ -186,18 +220,56 @@ def test_attention_function_wires_the_backward_on_cpu_tensors(monkeypatch):
     """``ops``' autograd Function, with its forward launcher replaced by the
     plain version (the CUDA kernel cannot run here): its gradient is the
     backward wrapper's, routed to ``attention_bwd_ref``, and equals autograd
-    of the plain forward; the backward counter does not move on the CPU."""
-    monkeypatch.setattr(tfa, "flash_attention", lambda q, k, v, causal, window: ref.attention_ref(q, k, v, causal=causal, window=window))
+    of the plain forward; the backward counter does not move on the CPU.
+    With ``keep_lse`` the forward's ``lse`` out argument is filled and that
+    very tensor reaches the backward.  ``ops.flash_attention`` (taken here
+    as if on the card) asks for it only on the backward's ``wgmma`` route
+    and only when a gradient will be taken."""
+    seen = {"forward": [], "backward": []}
+
+    def forward(q, k, v, causal, window, lse=None):  # the launcher: fills lse, returns o
+        seen["forward"].append(lse)
+        if lse is not None:
+            lse.copy_(ref.attention_lse_ref(q, k, causal=causal, window=window))
+        return ref.attention_ref(q, k, v, causal=causal, window=window)
+
+    plain_bwd = ref.attention_bwd_ref
+
+    def backward(*args, lse=None, **kw):
+        seen["backward"].append(lse)
+        return plain_bwd(*args, lse=lse, **kw)
+
+    monkeypatch.setattr(tfa, "flash_attention", forward)
+    monkeypatch.setattr(ref, "attention_bwd_ref", backward)
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(s, generator=g).requires_grad_() for s in ((1, 4, 30, 16), (1, 2, 30, 16), (1, 2, 30, 16)))
-    before = ops.backward_launch_counts()
-    o = ops._FlashAttention.apply(q, k, v, True, 8)
-    do = torch.randn(o.shape, generator=g)
-    got = torch.autograd.grad(o, (q, k, v), do)
+    do = torch.randn((1, 4, 30, 16), generator=g)
     want = torch.autograd.grad(ref.attention_ref(q, k, v, causal=True, window=8), (q, k, v), do)
-    assert o.grad_fn is not None
-    assert max(_rel(a, b) for a, b in zip(got, want)) <= GRAD_REL
+    before = ops.backward_launch_counts()
+    for keep_lse in (False, True):
+        o = ops._FlashAttention.apply(q, k, v, True, 8, keep_lse)
+        got = torch.autograd.grad(o, (q, k, v), do)
+        assert o.grad_fn is not None
+        assert max(_rel(a, b) for a, b in zip(got, want)) <= GRAD_REL
+        lse = seen["forward"][-1]
+        assert seen["backward"][-1] is lse
+        if keep_lse:
+            assert lse.shape == (1, 4, 30) and torch.equal(lse, ref.attention_lse_ref(q, k, causal=True, window=8))
+        else:
+            assert lse is None
     assert ops.backward_launch_counts() == before
+
+    monkeypatch.setattr(ops, "_on_card", lambda *args: True)
+    for route, grad, operands, keeps in (
+        ("wgmma", True, (q, k, v), True),
+        ("wgmma", False, (q, k, v), False),
+        ("wgmma", True, (q.detach(), k.detach(), v.detach()), False),
+        ("simt", True, (q, k, v), False),
+    ):
+        monkeypatch.setattr(tfa, "bwd_route", lambda dtype, hd: route)
+        with torch.set_grad_enabled(grad):
+            ops.flash_attention(*operands, causal=True, window=8)
+        assert (seen["forward"][-1] is not None) == keeps, (route, grad)
 
 
 def test_rglru_function_wires_the_backward_on_cpu_tensors(monkeypatch):
@@ -508,7 +580,7 @@ def test_train_driver_refuses_a_strategy_and_the_card_without_one():
 
 if __name__ == "__main__":
     for case in ATTN_CASES:
-        print("attention", case, compare_attention_grads(case))
+        print("attention", case, compare_attention_grads(case), "lse", compare_attention_lse(case))
     for with_h0 in (True, False):
         print("rglru_bwd", "h0" if with_h0 else "no_h0", compare_rglru_grads(with_h0))
     for name in ARCHS:
