@@ -7,8 +7,12 @@ Run from the root of a checkout.  It needs one CUDA device and the CUDA
 toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
 
   1. set-up: the card's name and power limit; the CUDA kernels built from
-     ``src/repro_torch/kernels/csrc`` into ``build/repro_torch``; TF32 off for
-     fp32 matrix products and convolutions, so the plain versions are exact.
+     ``src/repro_torch/kernels/csrc`` into ``build/repro_torch``, with the
+     ``ptxas`` lines (registers, spills) of the tensor-core kernels and the
+     RG-LRU backward; TF32 off for fp32 matrix products and convolutions
+     (``allow_tf32`` False, float32 matmul precision "highest", asserted again
+     before each plain fp32 GEMM and ``torch.bmm``), so the plain versions
+     are exact and no yardstick is itself TF32.
   2. kernels: every kernel held against its plain PyTorch version on the
      card -- the registry's tiny, smoke and full tiers in fp32 (max-abs
      <= 2e-5, the reference's parity tolerance), the attention variants and
@@ -19,21 +23,30 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      max error <= 1e-4 in fp32, <= 2e-2 in bf16; the attention widths also
      in fp32).  Every bf16 output is also held element by element (see
      BF16_ELEMENT_TOL).  One line per kernel and shape: error, the kernel's
-     median time (``ms``, back-to-back calls; ``ms_cold``, each call behind a
-     512 MB write, so L2 is cold and the host's launch overhead is hidden),
-     the plain version's time, one library call's time where one exists, and
-     the launches made.  flash_attention and moe_gmm each have two kernels, picked
-     by rule (``route``): every bf16 call here must be counted on the
-     tensor-core route (``wgmma``) and every fp32 call on the CUDA-core route
-     (``simt``), save the one bf16 GEMM whose strides TMA cannot describe.
+     median device time (``ms``: a spin kernel queued before the start event
+     keeps the card busy while the host runs the wrapper, so the events time
+     device work only; ``ms_cold``: each call behind a 512 MB write, so L2 is
+     cold too), the median time of a call as a caller pays it, host work
+     included (``ms_call``, what ``ms`` meant in earlier records), the plain
+     version's and one library call's device time (as ``ms``), the bound,
+     and the launches made.  flash_attention and moe_gmm each have a
+     tensor-core and a CUDA-core kernel, picked by rule (``route``): every
+     bf16 call here must be counted on the tensor-core route (``wgmma``),
+     fp32 attention on the CUDA-core route (``simt``), and fp32 GEMMs on
+     ``tf32x3`` (the tensor cores, three TF32 products a term, held at the
+     fp32 tolerances), save the GEMMs whose strides TMA cannot describe,
+     on ``simt``.  On ``tf32x3`` rows the bound is the function's products
+     at the TF32 tensor-core peak; ``bound_3x_ms`` gives the same for the
+     design's three products a term and ``simt_bound_ms`` the fp32 CUDA-core
+     bound (``tf32x3_bounds``).
   3. broker: ``Hydra(device="cuda")`` with a cloud (CaaS) and an HPC (pilot)
      provider on the card runs a backlog of noop tasks, kernel tasks at the
      registry's full shapes and one 2-rep task per model width, with the
      event and ledger cross-checks on.  Every task must end DONE, the
      ``kernel.exec`` events must reconcile with the broker's counters, and
      each kernel's launch counter must rise by exactly the reps dispatched,
-     the bf16 model-width reps on the ``wgmma`` route and the fp32 ones on
-     ``simt``.
+     each on the route ``expected_route`` gives (bf16 on ``wgmma``, fp32
+     GEMMs on ``tf32x3``, fp32 attention on ``simt``).
   4. scenario: the reference's acceptance scenario, ``searise_at_scale``
      (1024 FACTS members, 6 training jobs, 4 serve waves of 16 tasks, 4
      providers and an elastic burst pool) with the settings of
@@ -44,7 +57,8 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      every invariant with no task failed or unresolved, tune each kernel
      once into a pinned ``tune:<kernel>:cuda:`` dataset, and launch each
      kernel exactly as many times as its ``kernel.exec`` events say reps
-     ran, every launch on the ``simt`` route (fp32 payloads).
+     ran, every GEMM launch on ``tf32x3`` and every attention launch on
+     ``simt`` (fp32 payloads).
   5. autotune and FACTS: a wall-timed sweep of each kernel at its full tier
      on the card, whose winner a kernel task must then resolve to under
      ``HYDRA_AUTOTUNE=1``; 64 FACTS workflows of 150000 samples through
@@ -82,9 +96,10 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      <= 1e-4; bf16 element by element, rtol = atol = 2e-2 with atol against
      the largest element) at llama3-8b's and recurrentgemma-2b's attention
      widths in bf16, head width 16 in fp32, an Lq != Lk non-causal case, and
-     the RG-LRU backward at B1 L4096 dr2560, each timed (warm and cold)
-     beside its plain version, SDPA's autograd backward (attention; timed
-     only) and its bound.  The bf16 attention backward takes the ``wgmma``
+     the RG-LRU backward at B1 L4096 dr2560 (log_a in [-0.1, 0], so the
+     carries between segments matter; one kernel a call, by the profiler), each timed
+     (warm and cold) beside its plain version, SDPA's autograd backward
+     (attention; timed only) and its bound.  The bf16 attention backward takes the ``wgmma``
      route and is timed as the train step calls it, with the o and LSE of
      the forward kernel (whose o must equal, bit for bit, its o without LSE,
      and whose LSE must be within 1e-5 of the plain LSE), and also without
@@ -92,7 +107,11 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      reduced=False, steps=3, seq_len=4096, global_batch=1)`` in bf16: every
      backward launch of its first step held against its plain version on
      its own operands (the plain attention backward computes its own LSE,
-     so the forward's is checked too), finite losses, per step 16 / 36
+     so the forward's is checked too), and, after the run's launches are
+     read, the first RG-LRU backward call's operands once more with log_a
+     redrawn in [-0.1, 0] (at init log_a is -17 to -36, a_t underflows and
+     the path's own calls carry nothing from step to step, so this is the
+     train path's check of the carries), finite losses, per step 16 / 36
      forward launches (attention / rglru_scan, twice 8 / 18 under
      remat="dots") and 8 / 18 backward launches, every attention backward
      launch on ``wgmma``, and every parameter leaf's gradient nonzero (the
@@ -145,6 +164,8 @@ MODEL_WIDTHS = [
     ("selective_scan", "falcon_mamba_7b", {"B": 1, "chunk": 256, "di": 8192, "N": 16}, "float32"),
     ("rglru_scan", "recurrentgemma_2b", {"B": 2, "L": 4096, "dr": 2560}, "float32"),
     ("moe_gmm", "grok_1_314b", {"E": 8, "C": 1280, "D": 6144, "F": 32768}, "bfloat16"),
+    # the same expert shape in fp32, on the tensor cores' tf32x3 route
+    ("moe_gmm", "grok_1_314b", {"E": 8, "C": 1280, "D": 6144, "F": 32768}, "float32"),
 ]
 
 KERNEL_INFO = {
@@ -183,13 +204,16 @@ HD16_CASES = [
     for L in (16, 128) for w in (None, 16)
 ]
 
-# bf16 GEMMs off the tile grid: C, D and F ragged (TMA clips per expert; w
-# read through the transpose bit), and F = 100, whose 200-byte row stride TMA
-# cannot describe, so the rule sends it to the simt kernel
+# GEMMs off the tile grid, in both dtypes: C, D and F ragged (TMA clips per
+# expert; bf16 w read through the transpose bit, fp32 w transposed into the
+# tf32x3 kernel's register fragments); F = 100, whose 200-byte bf16 row
+# stride TMA cannot describe, so the rule sends bf16 to the simt kernel (its
+# 400-byte fp32 rows take tf32x3); and F = 50, on simt in both dtypes
 GMM_CASES = [
     ({"E": 4, "C": 64, "D": 128, "F": 256}, "sweep"),
     ({"E": 3, "C": 80, "D": 96, "F": 200}, "ragged"),
     ({"E": 3, "C": 80, "D": 96, "F": 100}, "ragged_f100"),
+    ({"E": 3, "C": 80, "D": 96, "F": 50}, "ragged_f50"),
 ]
 
 # the scans off their kernels' tiles: di 50 (no multiple of 32 channels or
@@ -210,6 +234,7 @@ SCAN_BF16X_TOL = 1e-4
 ROUTED = ("flash_attention", "moe_gmm")
 
 FLUSH_BYTES = 512 << 20  # more than the 50 MB L2, and long enough to hide a launch
+TF32_OPS_PER_S = 495e12  # the H100 SXM's dense TF32 tensor-core peak at 700 W (NVIDIA's data sheet)
 
 
 def card_line() -> str:
@@ -220,25 +245,62 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(torch, fn, budget_s: float = 0.5, max_reps: int = 20) -> float:
-    """Median of single-call times with CUDA events, after one warm-up call."""
+_SPIN_CYCLES_PER_S = []  # the card's clock as torch.cuda._sleep counts it, measured once
+
+
+def spin_cycles(torch, seconds: float) -> int:
+    """Cycles of ``torch.cuda._sleep`` that keep the card busy ``seconds``."""
+    if not _SPIN_CYCLES_PER_S:
+        n = 10_000_000
+        torch.cuda._sleep(1000)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(n)
+        end.record()
+        end.synchronize()
+        _SPIN_CYCLES_PER_S.append(n / (start.elapsed_time(end) * 1e-3))
+    return int(seconds * _SPIN_CYCLES_PER_S[0])
+
+
+def _time_reps(torch, fn, budget_s: float, max_reps: int, spin: bool) -> float:
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
+    host_s = time.perf_counter() - t0  # the host's part of a call: checks, lookups, allocation, enqueue
     torch.cuda.synchronize()
     once = time.perf_counter() - t0
     reps = max(3, min(max_reps, int(budget_s / max(once, 1e-6))))
+    cycles = spin_cycles(torch, 2 * host_s + 50e-6) if spin else 0
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(cycles)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def median_ms(torch, fn, budget_s: float = 0.5, max_reps: int = 20) -> float:
+    """Median device time of one call with CUDA events, after one warm-up
+    call: a spin kernel (``torch.cuda._sleep``, twice the call's host time
+    and 50 us more) queued before the start event keeps the card busy while
+    the host runs the call's Python and enqueues its kernels, so the events
+    time the device's work only.  (A call that enqueues more kernels than
+    the launch queue holds, as the plain scans' Python loops do, still
+    waits on the host.)"""
+    return _time_reps(torch, fn, budget_s, max_reps, spin=True)
+
+
+def call_ms(torch, fn, budget_s: float = 0.5, max_reps: int = 20) -> float:
+    """Median time of one call as a caller pays it, with CUDA events and the
+    card idle before it: the host's work before the first launch included."""
+    return _time_reps(torch, fn, budget_s, max_reps, spin=False)
 
 
 def cold_ms(torch, fn, flush, reps: int = 20) -> float:
@@ -274,6 +336,34 @@ def bound(kdef, shape: dict, dtype: str) -> tuple:
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def tf32x3_bounds(kdef, shape: dict) -> dict:
+    """The bounds of an fp32 GEMM on the ``tf32x3`` route.  ``bound_ms``:
+    the function's products at the tensor cores' TF32 peak against the fp32
+    bytes, which no design on the tensor cores can beat.  Two more figures,
+    not this route's bound: ``bound_3x_ms``, the same for the three TF32
+    products a term the design does, and ``simt_bound_ms``, the function's
+    products at the CUDA cores' fp32 peak (the ``simt`` route's bound)."""
+    from repro_torch.kernels.autotune import HBM_BYTES_PER_S
+
+    cost = kdef.cost(shape, "float32")
+    t_bytes = cost.hbm_bytes / HBM_BYTES_PER_S
+    t_ops = cost.flops / TF32_OPS_PER_S
+    return {
+        "bound_ms": 1e3 * max(t_bytes, t_ops), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_3x_ms": 1e3 * max(t_bytes, 3 * t_ops), "simt_bound_ms": bound(kdef, shape, "float32")[0],
+    }
+
+
+def assert_fp32_exact(torch) -> None:
+    """The plain fp32 GEMM and torch.bmm must run in full fp32: with TF32 on
+    the yardstick would itself be a TF32 product."""
+    if torch.backends.cuda.matmul.allow_tf32 is not False or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError(
+            f"TF32 is on for fp32 matrix products (allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
+            f"precision={torch.get_float32_matmul_precision()})"
+        )
+
+
 def library_call(torch, name: str, shape: dict, args: tuple):
     """One PyTorch call computing the same function (a yardstick the port
     never calls), or None where PyTorch has none."""
@@ -296,13 +386,18 @@ def library_call(torch, name: str, shape: dict, args: tuple):
 
 
 def expected_route(name: str, shape: dict, dtype: str):
-    """The route a call must take: bf16 on the tensor cores where TMA can
-    describe the strides (all but the F = 100 GEMM), fp32 on the CUDA cores."""
+    """The route a call must take: attention bf16 on the tensor cores and
+    fp32 on the CUDA cores; GEMMs on the tensor cores where TMA can describe
+    the strides (D and F a multiple of 16 bytes), bf16 on ``wgmma`` and fp32
+    on ``tf32x3``, else on the CUDA cores."""
     if name not in ROUTED:
         return None
-    if dtype == "bfloat16" and not (name == "moe_gmm" and shape["F"] * 2 % 16):
-        return "wgmma"
-    return "simt"
+    if name == "flash_attention":
+        return "wgmma" if dtype == "bfloat16" else "simt"
+    item = 2 if dtype == "bfloat16" else 4
+    if shape["D"] * item % 16 or shape["F"] * item % 16:
+        return "simt"
+    return "wgmma" if dtype == "bfloat16" else "tf32x3"
 
 
 def check_bf16_elements(got, want, label):
@@ -315,7 +410,8 @@ def check_bf16_elements(got, want, label):
         raise AssertionError(f"{label}: {n_over} of {got.numel()} elements over rtol {rtol:g} + atol {atol:g}")
 
 
-def check_kernel(torch, kreg, ops, name, shape, dtype, seed, tol, relative, label, dev, timed=True, config=None, flush=None):
+def check_kernel(torch, kreg, ops, name, shape, dtype, seed, tol, relative, label, dev, timed=True, config=None, flush=None,
+                 cold_reps=20):
     """Kernel vs plain version on the card; raises past ``tol`` or if the
     call took another route than ``expected_route``."""
     kdef = kreg.get_kernel(name)
@@ -330,6 +426,8 @@ def check_kernel(torch, kreg, ops, name, shape, dtype, seed, tol, relative, labe
         took = {r: n - routes_before[r] for r, n in ops.route_launch_counts()[name].items()}
         if took != {r: int(r == route) for r in took}:
             raise AssertionError(f"{name} {label}: launches by route {took}, want one on {route}")
+    if name == "moe_gmm":
+        assert_fp32_exact(torch)
     want = as_tuple(kdef.ref(shape, args))
     for g, w in zip(got, want):
         if g.shape != w.shape or g.dtype != w.dtype or g.device != w.device:
@@ -344,12 +442,19 @@ def check_kernel(torch, kreg, ops, name, shape, dtype, seed, tol, relative, labe
         raise AssertionError(f"{name} {label}: error {err / scale:.3e} over tolerance {tol:g}")
     row = {"kernel": name, "case": label, "dtype": dtype, "route": route, "max_abs_err": err, "rel_err": err / scale if relative else None}
     if timed:
-        row["ms"] = median_ms(torch, lambda: kdef.call(shape, args, config))
-        row["ms_cold"] = cold_ms(torch, lambda: kdef.call(shape, args, config), flush)
+        call = lambda: kdef.call(shape, args, config)
+        row["ms"] = median_ms(torch, call)
+        row["ms_cold"] = cold_ms(torch, call, flush, reps=cold_reps)
+        row["ms_call"] = call_ms(torch, call)
+        if name == "moe_gmm":
+            assert_fp32_exact(torch)
         row["plain_ms"] = median_ms(torch, lambda: kdef.ref(shape, args), max_reps=5)
         lib = library_call(torch, name, shape, args)
         row["library_ms"] = median_ms(torch, lib) if lib is not None else None
-        row["bound_ms"], row["bound_by"] = bound(kdef, shape, dtype)
+        if route == "tf32x3":
+            row.update(tf32x3_bounds(kdef, shape))
+        else:
+            row["bound_ms"], row["bound_by"] = bound(kdef, shape, dtype)
     row["launches"] = ops.launch_counts()[name] - before
     print("kernel " + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
     return row
@@ -444,7 +549,7 @@ def run_broker(torch, kreg, ops, Hydra, ProviderSpec, Task, TaskState):
     tasks = noops + [t for t, *_ in kernel_tasks]
     want_reps = {n: 0 for n in names}
     want_execs = {n: 0 for n in names}
-    want_routes = {n: {"simt": 0, "wgmma": 0} for n in ROUTED}
+    want_routes = {n: {r: 0 for r in ops.route_launch_counts()[n]} for n in ROUTED}
     for t, n, shape, dtype in kernel_tasks:
         want_reps[n] += t.payload["reps"]
         want_execs[n] += 1
@@ -494,6 +599,7 @@ def run_broker(torch, kreg, ops, Hydra, ProviderSpec, Task, TaskState):
 
 
 SERVE_KERNELS = ("flash_attention", "selective_scan", "rglru_scan", "moe_gmm")  # searise_kernels' order
+SCENARIO_ROUTES = {"flash_attention": "simt", "moe_gmm": "tf32x3"}  # the routes of its fp32 payloads
 FACTS_INSTANCES = 64
 FACTS_SAMPLES = 150_000  # benchmarks/exp4_facts.py:21
 
@@ -583,9 +689,10 @@ def run_scenarios(ops, device="cuda"):
                 executed[e.attrs["kernel"]] += e.attrs["reps"]
         if launches != executed or min(launches.values()) < 1:
             raise AssertionError(f"scenario {tag}: launches {launches}, kernel.exec reps {executed}")
-        for name, by in routes.items():
-            if by != {"simt": launches[name], "wgmma": 0}:
-                raise AssertionError(f"scenario {tag}: {name} launches by route {by}, want all {launches[name]} on simt")
+        for name, by in routes.items():  # fp32 payloads: attention on simt, GEMMs on tf32x3
+            want = SCENARIO_ROUTES[name]
+            if by != {r: launches[name] if r == want else 0 for r in by}:
+                raise AssertionError(f"scenario {tag}: {name} launches by route {by}, want all {launches[name]} on {want}")
         k = rep.kernel
         print(
             f"scenario name={spec.name} twin={tag} tasks={rep.n_tasks} makespan_s={rep.makespan_s} wall_s={walls[tag]} "
@@ -813,7 +920,7 @@ def run_full_width(torch, ops, name, n_layers, prompt, want, dev):
             raise AssertionError(f"model {name}: calls held against the plain versions {checked}, want {full}")
         if not all(bool(torch.isfinite(t).all()) for t in [logits] + tree_leaves(cache)):
             raise AssertionError(f"model {name}: prefill output is not finite")
-        prefill_ms = median_ms(torch, lambda: model.prefill(params, {"tokens": tokens}), budget_s=1.0, max_reps=5)
+        prefill_ms = call_ms(torch, lambda: model.prefill(params, {"tokens": tokens}), budget_s=1.0, max_reps=5)
     print(
         f"model arch={name} layers={n_layers} prompt={prompt} dtype=bfloat16 batch=1 prefill_ms={prefill_ms} "
         f"launches={json.dumps(launches)} path_checked={json.dumps(checked)}",
@@ -978,7 +1085,7 @@ SIMT_BWD_SYMBOLS = ("bwd_pre", "bwd_dkdv", "bwd_dq")
 WGMMA_BWD_SYMBOLS = ("attn_bwd_rowstats", "attn_bwd_kv_wgmma", "attn_bwd_kv_sum", "attn_bwd_q_wgmma")
 TRAIN_SYMBOLS = {
     "flash_attention": ("flash_fwd",), "rglru_scan": ("rglru_kernel",),
-    "flash_attention_bwd": SIMT_BWD_SYMBOLS + WGMMA_BWD_SYMBOLS, "rglru_scan_bwd": ("seg_summary", "seg_carries", "seg_walk"),
+    "flash_attention_bwd": SIMT_BWD_SYMBOLS + WGMMA_BWD_SYMBOLS, "rglru_scan_bwd": ("rglru_bwd_kernel",),
 }
 BACKWARD_INFO = {
     "flash_attention_bwd": ("cuda", "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu", "src/repro/models/attention.py:36"),
@@ -1128,7 +1235,7 @@ def check_backward_kernels(torch, ops, dev, flush):
             row.update(lse_rel_err=lse_err, rel_err_lse_recomputed=err_no_lse)
         lib = sdpa_backward(torch, q, k, v, do, causal, window)
         row.update({
-            "ms": median_ms(torch, run), "ms_cold": cold_ms(torch, run, flush),
+            "ms": median_ms(torch, run), "ms_cold": cold_ms(torch, run, flush), "ms_call": call_ms(torch, run),
             "ms_lse_recomputed": median_ms(torch, run_no_lse) if lse is not None else None,
             "plain_ms": median_ms(torch, lambda: ref.attention_bwd_ref(q, k, v, o, do, causal=causal, window=window), max_reps=3),
             "library_ms": median_ms(torch, lib, max_reps=10) if lib is not None else None,
@@ -1147,12 +1254,22 @@ def check_backward_kernels(torch, ops, dev, flush):
     h0, dh = (torch.randn(B, dr, generator=g, device=dev) for _ in range(2))
     y, _ = ops.rglru_scan(log_a, gx, h0)
     run = lambda: ops.rglru_scan_bwd(log_a, h0, y, dy, dh)
+    want = ref.rglru_bwd_ref(log_a, h0, y, dy, dh)
+    before = ops.backward_launch_counts()["rglru_scan_bwd"]
     got = run()
     torch.cuda.synchronize()
-    abs_err, err = check_grads(torch, got, ref.rglru_bwd_ref(log_a, h0, y, dy, dh), "float32", f"rglru_scan_bwd {label}")
+    if ops.backward_launch_counts()["rglru_scan_bwd"] != before + 1:
+        raise AssertionError("rglru_scan_bwd: the wrapper did not count its launch")
+    abs_err, err = check_grads(torch, got, want, "float32", f"rglru_scan_bwd {label}")
+    # one kernel a call, by the trace (the scratch's zeroing is a memset)
+    _, _, device = device_profile(torch, run)
+    kernels = sorted(n for n in device if "rglru" in n)
+    if len(kernels) != 1 or TRAIN_SYMBOLS["rglru_scan_bwd"][0] not in kernels[0]:
+        raise AssertionError(f"rglru_scan_bwd: one call ran the kernels {kernels}, want one {TRAIN_SYMBOLS['rglru_scan_bwd']}")
     row = {
         "kernel": "rglru_scan_bwd", "case": label, "dtype": "float32", "max_abs_err": abs_err, "rel_err": err,
-        "ms": median_ms(torch, run), "ms_cold": cold_ms(torch, run, flush),
+        "kernels_per_call": len(kernels),
+        "ms": median_ms(torch, run), "ms_cold": cold_ms(torch, run, flush), "ms_call": call_ms(torch, run),
         "plain_ms": median_ms(torch, lambda: ref.rglru_bwd_ref(log_a, h0, y, dy, dh), max_reps=3), "library_ms": None,
     }
     row["bound_ms"], row["bound_by"] = rglru_bwd_bound(B, L, dr)
@@ -1166,15 +1283,16 @@ BACKWARD_WRAPPERS = ("flash_attention_bwd", "rglru_scan_bwd")
 
 
 @contextlib.contextmanager
-def backward_kernels_checked(torch, ops, label, first: dict):
+def backward_kernels_checked(torch, ops, label, first: dict, keep: list | None = None):
     """Holds the first ``first[kernel]`` backward launches of each kernel
     (the launches of one train step) against the plain version on the
     operands the path gave them (fp32 relative 1e-4, bf16 also element by
     element; ``check_grads``): the ``ops`` wrappers are swapped for ones
     that call the original (the path's own launch, counted) and then the
     plain version.  The attention backward's plain version is not given the
-    forward's LSE: it computes its own, so that LSE is checked too.  Yields
-    {kernel: {"calls", "rel_err"}}."""
+    forward's LSE: it computes its own, so that LSE is checked too.  Host
+    copies of the first RG-LRU backward call's operands go to ``keep`` where
+    it is given.  Yields {kernel: {"calls", "rel_err"}}."""
     from repro_torch.kernels import ref
 
     plain = {"flash_attention_bwd": ref.attention_bwd_ref, "rglru_scan_bwd": ref.rglru_bwd_ref}
@@ -1191,6 +1309,8 @@ def backward_kernels_checked(torch, ops, label, first: dict):
                 _, err = check_grads(torch, got, want, dtype, f"{label}: {wrapper} call {seen[wrapper]['calls']}")
                 seen[wrapper]["rel_err"] = max(seen[wrapper]["rel_err"], err)
                 seen[wrapper]["calls"] += 1
+            if keep is not None and not keep and wrapper == "rglru_scan_bwd":
+                keep.extend(a.to("cpu", copy=True) for a in args)  # on the host: the step's peak memory stays its own
             return got
 
         return call
@@ -1202,6 +1322,22 @@ def backward_kernels_checked(torch, ops, label, first: dict):
     finally:
         for w, fn in originals.items():
             setattr(ops, w, fn)
+
+
+def check_rglru_carries(torch, ops, operands, dev) -> float:
+    """The kernel against its plain version on a train step's own RG-LRU
+    backward operands (h0, y, dy, dh_last) with log_a redrawn in [-0.1, 0],
+    so that the carries between segments are not vanishingly small: at init
+    the path's own log_a makes a_t underflow.  Returns the relative error."""
+    from repro_torch.kernels import ref
+
+    _, h0, y, dy, dh = (a.to(dev) for a in operands)
+    g = torch.Generator(dev).manual_seed(13)
+    log_a = -torch.rand(y.shape, generator=g, device=dev) * 0.1
+    got = ops.rglru_scan_bwd(log_a, h0, y, dy, dh)
+    want = ref.rglru_bwd_ref(log_a, h0, y, dy, dh)
+    _, err = check_grads(torch, got, want, "float32", "train: rglru_scan_bwd at the path's operands, log_a in [-0.1, 0]")
+    return err
 
 
 @contextlib.contextmanager
@@ -1231,12 +1367,15 @@ def run_train_full_size(torch, ops, dev):
     """recurrentgemma-2b at full size, bf16, through launch/train.py."""
     from repro_torch.launch.train import train
 
-    with backward_kernels_checked(torch, ops, "train", TRAIN_BACKWARD_LAUNCHES) as checked, grad_leaves_counted(torch) as shares:
+    kept = []
+    with backward_kernels_checked(torch, ops, "train", TRAIN_BACKWARD_LAUNCHES, kept) as checked, grad_leaves_counted(torch) as shares:
         ops.reset_launch_counts()
         out = train(TRAIN["arch"], reduced=False, device="cuda", log_every=0,
                     steps=TRAIN["steps"], seq_len=TRAIN["seq_len"], global_batch=TRAIN["global_batch"])
         launches, backward = ops.launch_counts(), ops.backward_launch_counts()
         backward_routes = ops.backward_route_launch_counts()["flash_attention_bwd"]
+    carries_err = check_rglru_carries(torch, ops, kept, dev)
+    del kept
     want_routes = {"simt": 0, "wgmma": TRAIN_BACKWARD_LAUNCHES["flash_attention_bwd"] * TRAIN["steps"]}
     if backward_routes != want_routes:
         raise AssertionError(f"train: attention backward launches by route {backward_routes}, want {want_routes} (bf16 on wgmma)")
@@ -1260,6 +1399,7 @@ def run_train_full_size(torch, ops, dev):
         f"grad_norms={json.dumps(out['grad_norms'])} peak_mem_gb={out['peak_mem_bytes'] / 1e9} "
         f"launches_per_step={json.dumps(out['launches'][0])} backward_launches_per_step={json.dumps(out['backward_launches'][0])} "
         f"nonzero_grad_leaf_share={json.dumps(shares)} path_checked={json.dumps(checked)} "
+        f"rglru_bwd_carries_rel_err={carries_err} "
         f"backward_routes={json.dumps(backward_routes)}",
         flush=True,
     )
@@ -1460,8 +1600,9 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load(*_build.SOURCES)
     print(f"build sources={list(_build.SOURCES)} dir={_build.BUILD_DIR.relative_to(ROOT)} seconds={time.perf_counter() - t0}", flush=True)
-    # registers and spills of the tensor-core attention kernels (nvcc -Xptxas -v), and the backward's shared memory
-    for source in ("flash_attention", "flash_attention_bwd_wgmma"):
+    # registers and spills (nvcc -Xptxas -v) of the tensor-core attention and
+    # GEMM kernels and of the RG-LRU backward, and the attention backward's shared memory
+    for source in ("flash_attention", "flash_attention_bwd_wgmma", "moe_gmm", "rglru_scan_bwd"):
         for usage in _build.ptxas_usage(_build.BUILD_LOGS.get(source, "")):
             print(f"ptxas source={source} " + " ".join(f"{k}={v}" for k, v in usage.items()), flush=True)
     import ctypes
@@ -1470,6 +1611,8 @@ def main() -> int:
     print("smem flash_attention_bwd_wgmma " + " ".join(f"hd{hd}_kv={smem(hd, 0)} hd{hd}_q={smem(hd, 1)}" for hd in (32, 64, 128, 256)), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    assert_fp32_exact(torch)
     dev = torch.device("cuda", 0)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
 
@@ -1505,10 +1648,16 @@ def main() -> int:
             timed=False, config=block,
         )
     check_concurrent(torch, kreg, ops, dev)
-    widths = {}
+    widths, gemm_fp32, seen = {}, None, set()
     for name, model, shape, dtype in MODEL_WIDTHS:
-        row = check_kernel(torch, kreg, ops, name, shape, dtype, 0, WIDTH_TOL[dtype], True, model, dev, flush=flush)
+        label = f"{model}_fp32" if (name, model) in seen else model  # the grok GEMM's second dtype
+        seen.add((name, model))
+        # the fp32 grok-width GEMM takes tens of ms a call: fewer cold reps
+        row = check_kernel(torch, kreg, ops, name, shape, dtype, 0, WIDTH_TOL[dtype], True, label, dev, flush=flush,
+                           cold_reps=5 if (name, dtype) == ("moe_gmm", "float32") else 20)
         widths.setdefault(name, row)  # the first width of a kernel goes in the report
+        if (name, dtype) == ("moe_gmm", "float32"):
+            gemm_fp32 = row
         if dtype == "bfloat16" and name == "flash_attention":
             # the same width in fp32, where the relative tolerance is tight
             check_kernel(torch, kreg, ops, name, shape, "float32", 0, WIDTH_TOL["float32"], True, f"{model}_fp32", dev, timed=False)
@@ -1574,22 +1723,28 @@ def main() -> int:
             "scenario_launches": {tag: n[name] for tag, n in scenario_launches.items()},
             "model_launches": model_launches[name],
             "max_abs_err": row["max_abs_err"],
-            "ms": row["ms"], "ms_cold": row["ms_cold"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "ms": row["ms"], "ms_cold": row["ms_cold"], "ms_call": row["ms_call"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "model": row["case"], "dtype": row["dtype"],
         })
+        if name == "moe_gmm":  # the fp32 width, on tf32x3, beside the bf16 one
+            report[-1]["fp32_width"] = {k: gemm_fp32[k] for k in (
+                "case", "route", "max_abs_err", "rel_err", "ms", "ms_cold", "ms_call", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "bound_3x_ms", "simt_bound_ms")}
     for name, (route, source, replaces) in BACKWARD_INFO.items():
         row = bwd_rows[name]["recurrentgemma_2b"]
         extra = {}
         if name == "flash_attention_bwd":  # two routes: bf16 on wgmma (this source), fp32 on simt
             extra = {"width_route": row["route"], "route_launches": train_backward_routes,
                      "simt_source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"}
+        else:
+            extra = {"kernels_per_call": row["kernels_per_call"]}
         report.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
             "note": "backward kernel; the reference has no Pallas backward and differentiates this function with XLA",
             **extra,
             "launches": train_backward[name], "max_abs_err": row["max_abs_err"], "rel_err": row["rel_err"],
-            "ms": row["ms"], "ms_cold": row["ms_cold"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "ms": row["ms"], "ms_cold": row["ms_cold"], "ms_call": row["ms_call"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "model": row["case"], "dtype": row["dtype"],
         })
     print(f"card {card_line()}", flush=True)

@@ -558,11 +558,12 @@ class AdaptivePolicy(_HeapPolicy):
 class DataGravityPolicy(AdaptivePolicy):
     """Locality-aware binding (beyond-paper; StreamFlow-style): expected
     completion = modeled stage-in time for the task's missing input bytes
-    (core/staging.py: replica reads free, cold reads charged the link model)
-    + the adaptive queue/service-time estimate.  Placement therefore prefers
-    providers already holding — or co-located with — a task's inputs, and
-    only pays a cross-site transfer when the data-local queue is long enough
-    to make shipping bytes cheaper than waiting.
+    (core/staging.py: replica reads free, cold reads charged the link model
+    and the backlog queued on the link) + the adaptive queue/service-time
+    estimate.  Placement therefore prefers providers already holding — or
+    co-located with — a task's inputs, and only pays a cross-site transfer
+    when the data-local queue is long enough to make shipping bytes cheaper
+    than waiting.
 
     Tasks without declared inputs have a zero data term everywhere and ride
     the adaptive heap; tasks with inputs scan the (typically small) eligible

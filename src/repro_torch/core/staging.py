@@ -17,7 +17,13 @@ cloud and HPC tiers.  This module makes those dynamics reproducible:
                     queue FIFO.  In-flight transfers de-duplicate (a second
                     request for the same (dataset, destination) piggybacks),
                     and a source-site death re-routes the transfer to a
-                    surviving replica instead of failing it.
+                    surviving replica instead of failing it.  A cold read is
+                    priced with the backlog queued on its link (``wait_s``),
+                    both when a source is picked and when a policy asks what
+                    a site costs: without it every task reading into a site
+                    whose one cheap link is hundreds of seconds deep is
+                    charged the idle link's time, and placement piles onto
+                    that queue (the reference prices the idle link only).
   StagingService    the broker-facing facade: per-task stage-in barriers
                     (``stage_task``), data-gravity scoring for the binding
                     policies (``transfer_cost_s``), stage-out on completion
@@ -345,6 +351,7 @@ class Transfer:
         self.state = QUEUED
         self.queued_at = get_clock().now()
         self.started_at: Optional[float] = None
+        self.eta: Optional[float] = None  # modeled completion once ACTIVE
         self.done_at: Optional[float] = None
         self.reroutes = 0
         # bumped on every (re)start: a completion timer that fired for an
@@ -385,6 +392,7 @@ class TransferEngine:
         self._lock = threading.RLock()
         self._active: dict[tuple[str, str], list[Transfer]] = {}
         self._queued: dict[tuple[str, str], deque] = {}
+        self._queued_mb: dict[tuple[str, str], float] = {}  # bytes behind each link
         self._inflight: dict[tuple[str, str], Transfer] = {}  # (ds, dst)
         self.log: list[dict] = []  # completed-transfer schedule (determinism tests)
         # stats
@@ -410,25 +418,69 @@ class TransferEngine:
 
     def expected_transfer_s(self, name: str, dst: str) -> float:
         """Cheapest modeled time to materialize ``name`` at ``dst`` (0 if
-        already resident): the cold-read charge gravity-aware policies use."""
+        already resident): the cold-read charge gravity-aware policies use,
+        the link's queued backlog included.  A read that would piggyback on
+        an in-flight transfer costs what that transfer has left."""
         if self.registry.resident(name, dst):
             return 0.0
-        ds = self.registry.get(name)
-        src = self._best_source(name, dst)
-        if src is None:
-            return float("inf")
-        return self.link_model(src, dst).expected_s(ds.size_mb)
+        with self._lock:
+            tr = self._inflight.get((name, dst))
+            if tr is not None:
+                if tr.state == ACTIVE:
+                    return max(0.0, tr.eta - get_clock().now())
+                return self.wait_s(tr.src, dst) + self.link_model(tr.src, dst).expected_s(tr.size_mb)
+            src, cost = self._best_source_cost(name, dst)
+        return float("inf") if src is None else cost
 
-    def _best_source(self, name: str, dst: str) -> Optional[str]:
+    def wait_s(self, src: str, dst: str) -> float:
+        """Modeled seconds a transfer queued now on the ``src -> dst`` link
+        waits for a slot: the work left on the link's active transfers plus
+        the expected time of those queued behind them, shared by its slots."""
+        with self._lock:
+            link = (src, dst)
+            active = self._active.get(link)
+            if not active or len(active) < self.max_per_link:
+                return 0.0
+            now = get_clock().now()
+            model = self.link_model(src, dst)
+            work = sum(max(0.0, tr.eta - now) for tr in active)
+            queue = self._queued.get(link)
+            if queue:
+                work += len(queue) * model.latency_s
+                work += self._queued_mb.get(link, 0.0) / max(model.bandwidth_mbps, 1e-6)
+            return work / self.max_per_link
+
+    def _best_source_cost(self, name: str, dst: str) -> tuple[Optional[str], float]:
+        # callers hold self._lock
         ds = self.registry.get(name)
-        best, best_cost = None, None
+        best, best_cost = None, float("inf")
         for site in self.registry.locate(name):
             if site == dst:
-                return site
-            cost = self.link_model(site, dst).expected_s(ds.size_mb)
-            if best_cost is None or cost < best_cost:
+                return site, 0.0
+            cost = self.wait_s(site, dst) + self.link_model(site, dst).expected_s(ds.size_mb)
+            if best is None or cost < best_cost:
                 best, best_cost = site, cost
-        return best
+        return best, best_cost
+
+    def _best_source(self, name: str, dst: str) -> Optional[str]:
+        # callers hold self._lock
+        return self._best_source_cost(name, dst)[0]
+
+    def _push_queued(self, tr: Transfer) -> None:
+        # callers hold self._lock
+        self._queued.setdefault(tr.link, deque()).append(tr)
+        self._queued_mb[tr.link] = self._queued_mb.get(tr.link, 0.0) + tr.size_mb
+
+    def _pop_queued(self, link: tuple[str, str], tr: Optional[Transfer] = None) -> Transfer:
+        # callers hold self._lock: the head of the link's queue, or ``tr``
+        queue = self._queued[link]
+        if tr is None:
+            tr = queue.popleft()
+        else:
+            queue.remove(tr)
+        left = self._queued_mb[link] - tr.size_mb
+        self._queued_mb[link] = left if queue else 0.0
+        return tr
 
     def note_hit(self, name: str, site: str) -> None:
         """Replica-hit accounting (the counter is shared with fetch()'s
@@ -485,7 +537,7 @@ class TransferEngine:
         if len(active) < self.max_per_link:
             self._start(tr)
         else:
-            self._queued.setdefault(tr.link, deque()).append(tr)
+            self._push_queued(tr)
 
     def _start(self, tr: Transfer) -> None:
         # callers hold self._lock; sampling order == start order (seeded)
@@ -495,6 +547,7 @@ class TransferEngine:
         )
         tr.state = ACTIVE
         tr.started_at = clock.now()
+        tr.eta = tr.started_at + duration
         tr.epoch += 1
         epoch = tr.epoch
         self.queue_wait_s += max(0.0, tr.started_at - tr.queued_at)
@@ -563,7 +616,7 @@ class TransferEngine:
             active.remove(tr)
         queue = self._queued.get(tr.link)
         while queue and len(active) < self.max_per_link:
-            self._start(queue.popleft())
+            self._start(self._pop_queued(tr.link))
 
     # -- fault handling ------------------------------------------------
     def site_down(self, site: str) -> list[str]:
@@ -594,7 +647,7 @@ class TransferEngine:
                     active.remove(tr)
                 queue = self._queued.get(tr.link)
                 if queue and tr in queue:
-                    queue.remove(tr)
+                    self._pop_queued(tr.link, tr)
                 if tr.dst == site or tr.dataset in lost:
                     tr.state = FAILED
                     self.failures += 1
@@ -627,7 +680,7 @@ class TransferEngine:
             for link, active in list(self._active.items()):
                 queue = self._queued.get(link)
                 while queue and len(active) < self.max_per_link:
-                    self._start(queue.popleft())
+                    self._start(self._pop_queued(link))
         for tr in failed:
             waiters, tr.waiters = tr.waiters, []
             for cb in waiters:
@@ -700,6 +753,7 @@ class TransferEngine:
                 waiters.extend(w)
             self._active.clear()
             self._queued.clear()
+            self._queued_mb.clear()
             self._inflight.clear()
         for cb in waiters:
             cb(False)

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels: TMA
-// tensor maps built on the host, mbarrier waits, TMA tile loads and bf16
-// wgmma with fp32 accumulators (the tensor-core kernels); cp.async rows of
+// tensor maps built on the host, mbarrier waits, TMA tile loads, bf16 and
+// TF32 wgmma with fp32 accumulators (the tensor-core kernels); cp.async rows of
 // any alignment into shared memory and release/acquire flags between blocks
 // (the scans).  Everything is PTX written by hand; nothing here calls a
 // library kernel.
@@ -50,24 +50,27 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-D map over a contiguous bf16 array (outer, rows, cols), cols
-// innermost, read in boxes of (1, box_rows, box_cols) into shared memory
-// swizzled by `swizzle_bytes` (64 or 128, the bytes of one box row).  The
-// outer axis is the batch-like one (expert, or batch x head), so a box that
-// runs past `rows` is clipped at the edge of its own expert or head and
-// zero-filled there, instead of reading the next one's rows.  Returns 0 or
-// a CUDA error.
+// A 3-D map over a contiguous bf16 (or, with `fp32`, float32) array
+// (outer, rows, cols), cols innermost, read in boxes of (1, box_rows,
+// box_cols) into shared memory swizzled by `swizzle_bytes` (64 or 128, the
+// bytes of one box row).  The outer axis is the batch-like one (expert, or
+// batch x head), so a box that runs past `rows` is clipped at the edge of
+// its own expert or head and zero-filled there, instead of reading the next
+// one's rows.  Returns 0 or a CUDA error.
 inline int make_map_3d(CUtensorMap* map, const void* base, uint64_t outer, uint64_t rows,
-                       uint64_t cols, uint32_t box_rows, uint32_t box_cols, int swizzle_bytes) {
+                       uint64_t cols, uint32_t box_rows, uint32_t box_cols, int swizzle_bytes,
+                       bool fp32 = false) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return int(cudaErrorSymbolNotFound);
+  const uint64_t item = fp32 ? 4 : 2;
   const cuuint64_t dims[3] = {cols, rows, outer};
-  const cuuint64_t strides[2] = {cols * 2, rows * cols * 2};  // bytes, dims 1 and 2
+  const cuuint64_t strides[2] = {cols * item, rows * cols * item};  // bytes, dims 1 and 2
   const cuuint32_t box[3] = {box_cols, box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUtensorMapSwizzle sw =
       swizzle_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-  CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+  const CUtensorMapDataType type = fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUresult res = encode(map, type, 3, const_cast<void*>(base), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
@@ -284,6 +287,13 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// Order this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma operands written by threads, not by TMA);
+// call after the writes and before the barrier the wgmma's issuers wait on.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Keep the compiler from moving reads or writes of accumulator registers
 // across an asynchronous wgmma: call after wgmma_wait and before issuing.
 template <int M>
@@ -366,6 +376,30 @@ HOPPER_RS(128, HOPPER_R64, HOPPER_D64, "64", "65", "66", "67", "68", "69", "70")
 HOPPER_RS(256, HOPPER_R128, HOPPER_D128, "128", "129", "130", "131", "132", "133", "134")
 #undef HOPPER_RS
 
+// TF32: d (m64 x N, fp32) (+)= A (m64 x k8, tf32 in registers: a[4], one
+// value each, the fragment of mma.sync's m16n8k8 per warp: a[i] holds row
+// 16 (t / 32) + (t % 32) / 4 + 8 (i % 2), depth (t % 4) + 4 (i / 2)) * B
+// (k8 x N, tf32, shared, K-major: TF32 has no transpose bit).  A tf32
+// operand is an fp32 word whose 13 low mantissa bits the tensor cores do
+// not read.  k8 is 32 bytes of depth, as k16 is for bf16.
+template <int N>
+struct WgmmaTF32RS;
+
+#define HOPPER_TF32_RS(N, REGS, DLIST, A0, A1, A2, A3, IB, IS)                                    \
+  template <>                                                                                     \
+  struct WgmmaTF32RS<N> {                                                                         \
+    __device__ __forceinline__ static void run(float (&d)[N / 2], const uint32_t (&a)[4],         \
+                                               uint64_t db, int scale_d) {                        \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IS ", 0;\n"                               \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {" REGS "}, {%" A0    \
+                   ", %" A1 ", %" A2 ", %" A3 "}, %" IB ", p, 1, 1;\n}\n"                          \
+                   : DLIST                                                                        \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));          \
+    }                                                                                             \
+  };
+HOPPER_TF32_RS(64, HOPPER_R32, HOPPER_D32, "32", "33", "34", "35", "36", "37")
+#undef HOPPER_TF32_RS
+
 #undef HOPPER_D8
 #undef HOPPER_D16
 #undef HOPPER_D32
@@ -376,6 +410,23 @@ HOPPER_RS(256, HOPPER_R128, HOPPER_D128, "128", "129", "130", "131", "132", "133
 #undef HOPPER_R32
 #undef HOPPER_R64
 #undef HOPPER_R128
+
+// v rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero, as an fp32 word whose 13 low bits are zero
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// The 3xTF32 split of v: hi = tf32(v), lo = tf32(v - hi).  v - hi is exact
+// in fp32 and at most 2^-11 of v, so hi + lo is v within 2^-22 of it, and
+// hi hi' + hi lo' + lo hi' misses v v' by the dropped lo lo' term and lo's
+// rounding, about 2^-21 of it: fp32 accuracy from TF32 products.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(v);
+  lo = to_tf32(v - __uint_as_float(hi));
+}
 
 // two fp32 values as one register of two bf16, the first in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -2,7 +2,7 @@
 
 Counterpart of ``repro/kernels/moe_gmm.py``.  The kernels, their design and
 what bounds them are described at the top of the CUDA source.  This module
-picks one of its two kernels by :func:`route`, launches it on CUDA tensors
+picks one of its three kernels by :func:`route`, launches it on CUDA tensors
 and counts the launches, in total and by route; ``kernels/ops.py`` checks
 the operands and sends CPU tensors to the plain version instead.
 
@@ -21,7 +21,7 @@ DEFAULT_BLOCK_C = 128
 DEFAULT_BLOCK_F = 256
 DEFAULT_BLOCK_D = 512
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-ROUTES = {"simt": 0, "wgmma": 1}
+ROUTES = {"simt": 0, "wgmma": 1, "tf32x3": 2}
 
 LAUNCHES = _build.LaunchCounter()
 ROUTE_LAUNCHES = {r: _build.LaunchCounter() for r in ROUTES}
@@ -30,14 +30,18 @@ _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def route(dtype: torch.dtype, shape: dict) -> str:
-    """Which kernel a launch takes, by rule and before it: ``"wgmma"`` (the
-    tensor cores, fed by TMA) for bf16 operands whose every global stride is
-    a multiple of 16 bytes, as a TMA tensor map requires; ``"simt"`` (fp32
-    products on the CUDA cores) for everything else, which keeps fp32 exact.
-    ``shape`` is a payload dict with ``D`` and ``F``."""
-    # strides in bytes: x rows 2D and experts 2CD, w rows 2F and experts 2DF
-    strided = (shape["D"] * 2) % 16 == 0 and (shape["F"] * 2) % 16 == 0
-    return "wgmma" if dtype == torch.bfloat16 and strided else "simt"
+    """Which kernel a launch takes, by rule and before it.  Where every
+    global stride is a multiple of 16 bytes, as a TMA tensor map requires,
+    the tensor cores, fed by TMA: ``"wgmma"`` for bf16 operands,
+    ``"tf32x3"`` for fp32 ones (three TF32 products a term, fp32-accurate).
+    ``"simt"`` (fp32 products on the CUDA cores) for the rest.  ``shape`` is
+    a payload dict with ``D`` and ``F``."""
+    # strides in bytes: x rows D * item and experts C * D * item, w rows
+    # F * item and experts D * F * item: D and F decide
+    item = 2 if dtype == torch.bfloat16 else 4
+    if (shape["D"] * item) % 16 or (shape["F"] * item) % 16:
+        return "simt"
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def check_blocks(C: int, D: int, F: int, block_c: int, block_d: int, block_f: int) -> None:
@@ -54,7 +58,7 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"moe_gmm kernel: operands must be on a CUDA device, not {x.device}")
     path = route(x.dtype, {"D": D, "F": F})
-    if path == "wgmma":
+    if path != "simt":
         _build.check_aligned("moe_gmm", x, w)
     y = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     fn = _build.function("moe_gmm", "moe_gmm_fwd", _ARGTYPES)

@@ -17,8 +17,10 @@ signature and
      or raises.  Nothing falls back from the card to the plain version.
 
 Every kernel module counts its own launches; ``launch_counts`` reads them.
-The two kernels with two routes (``flash_attention`` and ``moe_gmm``: a
-tensor-core kernel for bf16, a CUDA-core one for fp32) also count by route;
+The two kernels with several routes also count by route:
+``flash_attention`` (a tensor-core kernel for bf16, a CUDA-core one for
+fp32) and ``moe_gmm`` (tensor-core kernels for bf16 and, as three TF32
+products, for fp32; a CUDA-core one where TMA cannot describe the strides).
 ``route_launch_counts`` reads those, and ``backward_route_launch_counts``
 the attention backward's two routes.
 
@@ -73,7 +75,8 @@ BACKWARD_LAUNCHES = {
 
 def backward_launch_counts() -> dict[str, int]:
     """Backward-kernel launches so far (one a wrapper call: the attention
-    backward's call runs its three kernels)."""
+    backward's call runs its three or four kernels, the RG-LRU backward's
+    one)."""
     return {name: c.value for name, c in BACKWARD_LAUNCHES.items()}
 
 
@@ -84,7 +87,8 @@ ROUTE_LAUNCHES = {
 
 
 def route_launch_counts() -> dict[str, dict[str, int]]:
-    """Launches so far by kernel and route (``wgmma`` / ``simt``)."""
+    """Launches so far by kernel and route (``wgmma`` / ``simt``, and
+    ``tf32x3`` for ``moe_gmm``)."""
     return {name: {r: c.value for r, c in by.items()} for name, by in ROUTE_LAUNCHES.items()}
 
 
@@ -111,8 +115,8 @@ class BackwardNotPorted(NotImplementedError):
 
 
 _NO_BACKWARD = {  # kernel -> the ROADMAP.md item its backward waits for
-    "selective_scan_chunk": "queue 2 ('Kernel work still open on the H100'), item 1.1: the selective_scan backward",
-    "moe_gmm": "'Modules to port', item 4b: the moe family, with the moe_gmm backward (queue 2, item 1.2)",
+    "selective_scan_chunk": "queue 2 ('Kernel work still open on the H100'), item 2: the selective_scan backward",
+    "moe_gmm": "'Modules to port', item 4b: the moe family, with the moe_gmm backward (queue 2, item 3)",
 }
 
 

@@ -9,8 +9,9 @@ that scratch, launches on the current stream and counts the launches;
 ``kernels/ops.py`` checks the operands and sends CPU tensors to the plain
 version instead.  ``block_d`` keeps only the reference's divisibility rule;
 the kernel picks its own tiles and handles ragged edges.  The backward (a
-reverse-time scan) has no Pallas counterpart and counts its launches apart,
-in ``BWD_LAUNCHES``: it is not a registry kernel.
+reverse-time scan, one launch a call, the same design walking time in
+reverse) has no Pallas counterpart and counts its launches apart, in
+``BWD_LAUNCHES``: it is not a registry kernel.
 """
 from __future__ import annotations
 
@@ -60,9 +61,9 @@ def rglru_scan(log_a, gx, h0):
 
 
 def rglru_scan_bwd(log_a, h0, y, dy, dh_last):
-    """Launch the backward kernels on contiguous fp32 CUDA tensors: log_a, y,
+    """Launch the backward kernel on contiguous fp32 CUDA tensors: log_a, y,
     dy (B, L, dr), h0, dh_last (B, dr).  Returns (dlog_a, dgx, dh0), fp32.
-    The segments' summaries and carries go to a per-call scratch."""
+    The segments' flags, summaries and carries go to a per-call scratch."""
     B, L, dr = log_a.shape
     if log_a.device.type != "cuda":
         raise ValueError(f"rglru_scan_bwd kernel: operands must be on a CUDA device, not {log_a.device}")
@@ -70,7 +71,7 @@ def rglru_scan_bwd(log_a, h0, y, dy, dh_last):
     dh0 = torch.empty_like(h0)
     dev = log_a.device
     scratch_bytes = _build.function("rglru_scan_bwd", "rglru_scan_bwd_scratch_bytes", [ctypes.c_int] * 3, ctypes.c_longlong)
-    scratch = torch.empty(scratch_bytes(B, L, dr) // 4, dtype=torch.float32, device=dev)
+    scratch = torch.empty(scratch_bytes(B, L, dr), dtype=torch.uint8, device=dev)
     fn = _build.function("rglru_scan_bwd", "rglru_scan_bwd", _BWD_ARGTYPES)
     code = fn(
         log_a.data_ptr(), h0.data_ptr(), y.data_ptr(), dy.data_ptr(), dh_last.data_ptr(),

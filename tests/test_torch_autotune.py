@@ -341,9 +341,11 @@ def test_launch_keys_are_the_routes():
     for name, kdef in kreg.KERNELS.items():
         shape = dict(kdef.smoke_shape)
         keys = {kdef.launch_key(shape, c, "float32") for c in kdef.space(shape)}
-        want = {("simt",)} if name in ("flash_attention", "moe_gmm") else {("cuda",)}
+        want = {"flash_attention": {("simt",)}, "moe_gmm": {("tf32x3",)}}.get(name, {("cuda",)})
         assert keys == want
-    assert kreg.get_kernel("moe_gmm").launch_key({"E": 1, "C": 64, "D": 128, "F": 128}, {}, "bfloat16") == ("wgmma",)
+    gmm = kreg.get_kernel("moe_gmm")
+    assert gmm.launch_key({"E": 1, "C": 64, "D": 128, "F": 128}, {}, "bfloat16") == ("wgmma",)
+    assert gmm.launch_key({"E": 1, "C": 64, "D": 128, "F": 50}, {}, "float32") == ("simt",)
 
 
 # ---------------------------------------------------------------------------

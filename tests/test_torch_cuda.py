@@ -10,9 +10,12 @@ Tolerance: max-abs 2e-5 in fp32, the reference's parity tolerance
 (tests/test_kernels_parity.py:23); rtol = atol = 2e-2 in bf16
 (tests/test_kernels.py:13), and one bf16 rounding step element by element
 where a case says so; relative 1e-4 for the scans with bf16 x at width
-(their outputs are fp32).  flash_attention and moe_gmm each have two
-kernels: bf16 calls must be counted on the tensor-core route (``wgmma``),
-fp32 calls on the CUDA-core route (``simt``).
+(their outputs are fp32).  flash_attention and moe_gmm each have a
+tensor-core and a CUDA-core kernel: bf16 calls must be counted on the
+tensor-core route (``wgmma``); fp32 attention on the CUDA-core route
+(``simt``); fp32 GEMMs on the tensor cores' ``tf32x3`` route (three TF32
+products a term, held at the fp32 tolerance with TF32 off in the plain
+version), save those whose strides TMA cannot describe, on ``simt``.
 """
 from __future__ import annotations
 
@@ -27,10 +30,16 @@ from repro_torch.kernels import registry as kreg
 pytestmark = pytest.mark.cuda
 
 _ROUTED = ("flash_attention", "moe_gmm")
+_FP32_ROUTE = {"flash_attention": "simt", "moe_gmm": "tf32x3"}  # at the registry's tiers
 
 
 def _route_delta(name, before):
     return {r: n - before[r] for r, n in ops.route_launch_counts()[name].items()}
+
+
+def _one_on(name, route):
+    """One launch on ``route``, none on the kernel's other routes."""
+    return {r: int(r == route) for r in ops.route_launch_counts()[name]}
 
 
 @pytest.fixture
@@ -39,6 +48,7 @@ def card():
         pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")  # the plain GEMM in full fp32, not TF32
     return torch.device("cuda", 0)
 
 
@@ -54,7 +64,7 @@ def test_kernel_matches_plain_version_on_the_card(card, name, tier):
     torch.cuda.synchronize()
     assert ops.launch_counts()[name] == before + 1
     if name in _ROUTED:
-        assert _route_delta(name, routes) == {"simt": 1, "wgmma": 0}
+        assert _route_delta(name, routes) == _one_on(name, _FP32_ROUTE[name])
     assert kreg.max_abs_err(got, kdef.ref(shape, args)) <= 2e-5
 
 
@@ -66,7 +76,7 @@ def test_bf16_kernel_matches_plain_version_on_the_card(card, name):
     routes = ops.route_launch_counts()[name]
     got = kdef.call(shape, args, kdef.defaults(shape))
     want = kdef.ref(shape, args)
-    assert _route_delta(name, routes) == {"simt": 0, "wgmma": 1}
+    assert _route_delta(name, routes) == _one_on(name, "wgmma")
     assert got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
 
@@ -112,8 +122,33 @@ def test_bf16_gemm_off_the_tile_grid_on_the_card(card, shape, route):
     args = kdef.make_args(shape, "bfloat16", 3, card)
     routes = ops.route_launch_counts()["moe_gmm"]
     got, want = kdef.call(shape, args, kdef.defaults(shape)).float(), kdef.ref(shape, args).float()
-    assert _route_delta("moe_gmm", routes) == {r: int(r == route) for r in ("simt", "wgmma")}
+    assert _route_delta("moe_gmm", routes) == _one_on("moe_gmm", route)
     assert bool(((got - want).abs() <= 1e-2 * want.abs() + 1e-3).all())
+
+
+# fp32 GEMMs on the tensor cores (three TF32 products a term): the tiers, C,
+# D and F off the 128 x 64 x 32 tiles (TMA clips at the edge of each
+# expert), and F = 50, whose 200-byte row stride TMA cannot describe, so the
+# rule takes the simt kernel; max-abs 2e-5 against the plain version in
+# full fp32 (TF32 off)
+_FP32_GEMMS = [
+    *[(dict(getattr(kreg.get_kernel("moe_gmm"), f"{tier}_shape")), "tf32x3") for tier in ("tiny", "smoke", "full")],
+    ({"E": 3, "C": 80, "D": 96, "F": 200}, "tf32x3"),
+    ({"E": 3, "C": 80, "D": 96, "F": 50}, "simt"),
+]
+
+
+@pytest.mark.parametrize("shape,route", _FP32_GEMMS, ids=["tiny", "smoke", "full", "ragged", "ragged_f50"])
+def test_fp32_gemm_on_its_route_matches_plain_version_on_the_card(card, shape, route):
+    assert torch.backends.cuda.matmul.allow_tf32 is False and torch.get_float32_matmul_precision() == "highest"
+    kdef = kreg.get_kernel("moe_gmm")
+    args = kdef.make_args(shape, "float32", 4, card)
+    routes = ops.route_launch_counts()["moe_gmm"]
+    got = kdef.call(shape, args, kdef.defaults(shape))
+    torch.cuda.synchronize()
+    assert _route_delta("moe_gmm", routes) == _one_on("moe_gmm", route)
+    assert got.dtype == torch.float32 and got.shape == (shape["E"], shape["C"], shape["F"])
+    assert kreg.max_abs_err(got, kdef.ref(shape, args)) <= 2e-5
 
 
 # the scans off their kernels' tiles: di 50 (no multiple of 32 channels or
@@ -389,19 +424,81 @@ def test_forward_writes_lse_without_changing_its_output(card, case):
     assert float((lse - want)[finite].abs().max()) <= 1e-5 * float(want[finite].abs().max())
 
 
-@pytest.mark.parametrize("B,L,dr", [(2, 300, 50), (1, 4096, 2560), (2, 37, 64)])
-def test_rglru_backward_kernel_matches_plain_version(card, B, L, dr):
-    from repro_torch.kernels import ref
-
-    g = torch.Generator(card).manual_seed(1)
+def _rglru_bwd_operands(card, B, L, dr, seed=1):
+    g = torch.Generator(card).manual_seed(seed)
     log_a = -torch.rand(B, L, dr, generator=g, device=card) * 0.1
     gx, dy = (torch.randn(B, L, dr, generator=g, device=card) for _ in range(2))
     h0, dh = (torch.randn(B, dr, generator=g, device=card) for _ in range(2))
     y, _ = ops.rglru_scan(log_a, gx, h0)
-    got = ops.rglru_scan_bwd(log_a, h0, y, dy, dh)
+    return log_a, h0, y, dy, dh
+
+
+# one step, a ragged L shorter than a segment, dr off the 32-channel blocks
+# and L off the segments, and recurrentgemma-2b's width
+@pytest.mark.parametrize("B,L,dr", [(2, 300, 50), (1, 4096, 2560), (2, 37, 64), (1, 1, 64)])
+def test_rglru_backward_kernel_matches_plain_version(card, B, L, dr):
+    from repro_torch.kernels import ref
+
+    operands = _rglru_bwd_operands(card, B, L, dr)
+    before = ops.backward_launch_counts()["rglru_scan_bwd"]
+    got = ops.rglru_scan_bwd(*operands)
     torch.cuda.synchronize()
-    for a, b in zip(got, ref.rglru_bwd_ref(log_a, h0, y, dy, dh)):
+    assert ops.backward_launch_counts()["rglru_scan_bwd"] == before + 1
+    for a, b in zip(got, ref.rglru_bwd_ref(*operands)):
         assert _close(a, b, torch.float32)
+
+
+@pytest.mark.parametrize("B,L,dr", [(2, 300, 50), (1, 4096, 2560)])
+def test_rglru_backward_is_one_kernel(card, B, L, dr):
+    """A call is one kernel launch (the scratch's zeroing is a memset), and
+    matches the plain version."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as trg
+
+    operands = _rglru_bwd_operands(card, B, L, dr, seed=2)
+    trg.rglru_scan_bwd(*operands)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = trg.rglru_scan_bwd(*operands)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and "rglru" in e.name]
+    assert len(kernels) == 1 and "rglru_bwd_kernel" in kernels[0]
+    for a, b in zip(got, ref.rglru_bwd_ref(*operands)):
+        assert _close(a, b, torch.float32)
+
+
+def test_rglru_backward_from_two_threads_on_two_streams(card):
+    """Two calls at once, each on its own stream: each has its own scratch
+    (flags, summaries, ticket), so each gets its own answer."""
+    from repro_torch.kernels import ref
+
+    args = [_rglru_bwd_operands(card, 1, 4096, 2560, seed) for seed in (21, 22)]
+    streams = [torch.cuda.Stream(card) for _ in args]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(card))
+    outs = [[] for _ in args]
+    start = threading.Barrier(len(args))
+
+    def work(i):
+        with torch.cuda.stream(streams[i]):
+            start.wait()
+            for _ in range(4):
+                outs[i].append(ops.rglru_scan_bwd(*args[i]))
+        streams[i].synchronize()
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(len(args))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    for a, out in zip(args, outs):
+        want = ref.rglru_bwd_ref(*a)
+        assert len(out) == 4
+        assert all(_close(g, w, torch.float32) for got in out for g, w in zip(got, want))
 
 
 def test_kernel_outputs_carry_gradients_on_the_card(card):

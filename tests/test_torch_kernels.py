@@ -363,8 +363,10 @@ def test_build_rehashes_when_a_header_changes(monkeypatch, tmp_path):
 
 
 # (kernel, payload shape, dtype, route): bf16 at each model width and off the
-# tile grid takes the tensor cores; fp32 at every tier, and a bf16 GEMM whose
-# 200-byte row stride TMA cannot describe, the CUDA cores
+# tile grid takes the tensor cores (``wgmma``), and so do fp32 GEMMs whose
+# strides TMA can describe (``tf32x3``: three TF32 products a term); fp32
+# attention at every tier, a bf16 GEMM whose 200-byte row stride TMA cannot
+# describe and an fp32 one whose F = 50 gives the same, the CUDA cores
 _ROUTES = [
     ("flash_attention", {"B": 1, "H": 32, "KV": 8, "L": 4096, "hd": 128, "causal": True, "window": None}, "bfloat16", "wgmma"),
     ("flash_attention", {"B": 1, "H": 10, "KV": 1, "L": 4096, "hd": 256, "causal": True, "window": 2048}, "bfloat16", "wgmma"),
@@ -372,9 +374,13 @@ _ROUTES = [
     ("moe_gmm", {"E": 8, "C": 1280, "D": 6144, "F": 32768}, "bfloat16", "wgmma"),
     ("moe_gmm", {"E": 3, "C": 80, "D": 96, "F": 200}, "bfloat16", "wgmma"),
     ("moe_gmm", {"E": 3, "C": 80, "D": 96, "F": 100}, "bfloat16", "simt"),
-    *[(name, dict(getattr(treg.get_kernel(name), tier)), "float32", "simt")
+    *[(name, dict(getattr(treg.get_kernel(name), tier)), "float32", {"flash_attention": "simt", "moe_gmm": "tf32x3"}[name])
       for name in ("flash_attention", "moe_gmm") for tier in ("tiny_shape", "smoke_shape", "full_shape")],
     ("flash_attention", {"B": 1, "H": 32, "KV": 8, "L": 4096, "hd": 128, "causal": True, "window": None}, "float32", "simt"),
+    ("moe_gmm", {"E": 8, "C": 1280, "D": 6144, "F": 32768}, "float32", "tf32x3"),
+    ("moe_gmm", {"E": 3, "C": 80, "D": 96, "F": 100}, "float32", "tf32x3"),
+    ("moe_gmm", {"E": 3, "C": 80, "D": 96, "F": 50}, "float32", "simt"),
+    ("moe_gmm", {"E": 3, "C": 80, "D": 50, "F": 96}, "float32", "simt"),
 ]
 
 
@@ -392,7 +398,10 @@ def test_route_refuses_a_head_width_the_kernels_lack(dtype):
 
 def test_route_counts_read_and_reset():
     counts = ops.route_launch_counts()
-    assert counts == {name: {"simt": counts[name]["simt"], "wgmma": counts[name]["wgmma"]} for name in ("flash_attention", "moe_gmm")}
+    routes = {"flash_attention": ("simt", "wgmma"), "moe_gmm": ("simt", "wgmma", "tf32x3")}
+    assert counts == {name: {r: counts[name][r] for r in by} for name, by in routes.items()}
+    tgmm.ROUTE_LAUNCHES["tf32x3"].bump()
+    assert ops.route_launch_counts()["moe_gmm"]["tf32x3"] == counts["moe_gmm"]["tf32x3"] + 1
     tfa.ROUTE_LAUNCHES["wgmma"].bump()
     assert ops.route_launch_counts()["flash_attention"]["wgmma"] == counts["flash_attention"]["wgmma"] + 1
     bwd = ops.backward_route_launch_counts()
@@ -401,7 +410,7 @@ def test_route_counts_read_and_reset():
     tfa.BWD_ROUTE_LAUNCHES["simt"].bump()
     assert ops.backward_route_launch_counts()["flash_attention_bwd"] == {r: n + 1 for r, n in bwd["flash_attention_bwd"].items()}
     ops.reset_launch_counts()
-    assert ops.route_launch_counts() == {name: {"simt": 0, "wgmma": 0} for name in ("flash_attention", "moe_gmm")}
+    assert ops.route_launch_counts() == {name: {r: 0 for r in by} for name, by in routes.items()}
     assert ops.backward_route_launch_counts() == {"flash_attention_bwd": {"simt": 0, "wgmma": 0}}
     assert set(ops.launch_counts().values()) == {0}
 
