@@ -29,16 +29,19 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      cold too), the median time of a call as a caller pays it, host work
      included (``ms_call``, what ``ms`` meant in earlier records), the plain
      version's and one library call's device time (as ``ms``), the bound,
-     and the launches made.  flash_attention and moe_gmm each have a
-     tensor-core and a CUDA-core kernel, picked by rule (``route``): every
+     and the launches made.  flash_attention and moe_gmm each have
+     tensor-core and CUDA-core kernels, picked by rule (``route``): every
      bf16 call here must be counted on the tensor-core route (``wgmma``),
-     fp32 attention on the CUDA-core route (``simt``), and fp32 GEMMs on
-     ``tf32x3`` (the tensor cores, three TF32 products a term, held at the
-     fp32 tolerances), save the GEMMs whose strides TMA cannot describe,
-     on ``simt``.  On ``tf32x3`` rows the bound is the function's products
-     at the TF32 tensor-core peak; ``bound_3x_ms`` gives the same for the
+     and every fp32 call on ``tf32x3`` (the tensor cores, three TF32
+     products a term, held at the fp32 tolerances), save fp32 attention at
+     head width 256 and the GEMMs whose strides TMA cannot describe, on
+     ``simt``.  On ``tf32x3`` rows the bound is the function's products at
+     the TF32 tensor-core peak; ``bound_3x_ms`` gives the same for the
      design's three products a term and ``simt_bound_ms`` the fp32 CUDA-core
-     bound (``tf32x3_bounds``).
+     bound (``route_bounds``).  llama3-8b's attention width is timed in
+     fp32 too, beside fp32 SDPA; and two forward cases at Lq != Lk (Lq96
+     Lk200 hd64 non-causal, Lq200 Lk96 hd128 causal) in both dtypes, fp32
+     held at relative 1e-4.
   3. broker: ``Hydra(device="cuda")`` with a cloud (CaaS) and an HPC (pilot)
      provider on the card runs a backlog of noop tasks, kernel tasks at the
      registry's full shapes and one 2-rep task per model width, with the
@@ -46,7 +49,7 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      ``kernel.exec`` events must reconcile with the broker's counters, and
      each kernel's launch counter must rise by exactly the reps dispatched,
      each on the route ``expected_route`` gives (bf16 on ``wgmma``, fp32
-     GEMMs on ``tf32x3``, fp32 attention on ``simt``).
+     on ``tf32x3``, fp32 attention at head width 256 on ``simt``).
   4. scenario: the reference's acceptance scenario, ``searise_at_scale``
      (1024 FACTS members, 6 training jobs, 4 serve waves of 16 tasks, 4
      providers and an elastic burst pool) with the settings of
@@ -57,8 +60,8 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      every invariant with no task failed or unresolved, tune each kernel
      once into a pinned ``tune:<kernel>:cuda:`` dataset, and launch each
      kernel exactly as many times as its ``kernel.exec`` events say reps
-     ran, every GEMM launch on ``tf32x3`` and every attention launch on
-     ``simt`` (fp32 payloads).
+     ran, every GEMM and every attention launch on ``tf32x3`` (fp32
+     payloads).
   5. autotune and FACTS: a wall-timed sweep of each kernel at its full tier
      on the card, whose winner a kernel task must then resolve to under
      ``HYDRA_AUTOTUNE=1``; 64 FACTS workflows of 150000 samples through
@@ -67,13 +70,15 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      against the CPU (relative 1e-5) and ``project`` on the card from draws
      made on the CPU against the CPU (max-abs 1e-3 mm).
   6. model: the port's serve path (``repro_torch.models``,
-     ``launch/serve.py``) on the card.  Card against CPU at full width in
+     ``launch/serve.py``) on the card.  Card against CPU (one CPU thread,
+     ``one_cpu_thread``) at full width in
      fp32 on the same weights (relative max error <= 1e-4 on the logits and
      every cache leaf): recurrentgemma-2b cut to one superblock at a prompt
      of 2176 (past its 2048 window, so the window and the ring buffer
      bite), falcon-mamba-7b cut to 2 layers at 512 (two chunks carry the
      state), llama3-8b cut to 2 layers at 1000 (blocks of 125), each prefill
-     launching exactly its kernels.  falcon-mamba-7b and llama3-8b at full
+     launching exactly its kernels (fp32 attention on ``tf32x3`` at
+     llama3-8b's head width 128, on ``simt`` at recurrentgemma-2b's 256).  falcon-mamba-7b and llama3-8b at full
      width cut to 4 layers in bf16 at a prompt of 4096: finite, 64
      ``selective_scan`` and 4 ``wgmma`` attention launches, warm prefill
      time.  Then ``serve("recurrentgemma-2b",
@@ -88,22 +93,27 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      trace of one more prefill, and from the two kernels timed alone at the
      serve's shapes).  Last, three ``kind="compute", step_kind="prefill"``
      tasks, one a family, through ``Hydra(device="cuda")``: all DONE, with
-     the launches of the reduced configs (head width 16 on ``simt``).
+     the launches of the reduced configs (head width 16 on ``tf32x3``).
   7. train: the port's train path (``launch/train.py`` -> ``train/step.py``
      -> ``Model.loss`` under remat -> the kernels as autograd Functions ->
      their backward kernels -> ``optim/adamw.py``) on the card.  First the
      two backward kernels against their plain versions (fp32 relative
      <= 1e-4; bf16 element by element, rtol = atol = 2e-2 with atol against
      the largest element) at llama3-8b's and recurrentgemma-2b's attention
-     widths in bf16, head width 16 in fp32, an Lq != Lk non-causal case, and
+     widths in bf16, head width 16 in fp32, an Lq != Lk non-causal case in
+     fp32, the ``simt`` kernels at the widths the rule leaves them
+     (recurrentgemma-2b's hd 256 in fp32, hd 16 in bf16), and
      the RG-LRU backward at B1 L4096 dr2560 (log_a in [-0.1, 0], so the
      carries between segments matter; one kernel a call, by the profiler), each timed
      (warm and cold) beside its plain version, SDPA's autograd backward
-     (attention; timed only) and its bound.  The bf16 attention backward takes the ``wgmma``
-     route and is timed as the train step calls it, with the o and LSE of
-     the forward kernel (whose o must equal, bit for bit, its o without LSE,
-     and whose LSE must be within 1e-5 of the plain LSE), and also without
-     LSE; the fp32 one takes ``simt``.  Then ``train("recurrentgemma-2b",
+     (attention; timed only) and its bound.  Each attention case must take
+     the route the rule gives it.  On the tensor cores (bf16 ``wgmma``,
+     fp32 ``tf32x3``) it is timed as the
+     train step calls it, with the o and LSE of the forward kernel (whose o
+     must equal, bit for bit, its o without LSE, and whose LSE must be
+     within 1e-5 of the plain LSE), and also without LSE; each ``tf32x3``
+     and ``simt`` case is profiled once and must run its route's kernels
+     and no other (no ``bwd_pre`` on ``tf32x3``).  Then ``train("recurrentgemma-2b",
      reduced=False, steps=3, seq_len=4096, global_batch=1)`` in bf16: every
      backward launch of its first step held against its plain version on
      its own operands (the plain attention backward computes its own LSE,
@@ -120,12 +130,13 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      llama3-8b at full width cut to 2 layers trains 2 steps at B2 x 2048
      the same way; llama3-8b cut to 1 layer
      (B1 x 256, fp32) gives every gradient leaf on the card within 1e-4 of
-     the CPU's; and ``kind="compute"`` train tasks on ``Hydra(device="cuda")``:
+     the CPU's (one thread), its forward handing its LSE to the backward; and
+     ``kind="compute"`` train tasks on ``Hydra(device="cuda")``:
      3 llama3-8b and 3 recurrentgemma-2b tasks DONE with finite metrics and
      their backward launches, one falcon-mamba-7b task FAILED with
      ``ops.BackwardNotPorted`` (the selective_scan backward is not ported).
      The fp32 backward launches (the card-vs-CPU gradients and the tasks)
-     must all take the ``simt`` route.
+     must all take the ``tf32x3`` route.
   8. report: the card line, one JSON line of the kernels (route, source, the
      TPU kernel each replaces, launches in phase 3 in total and by kernel
      route, in each scenario twin and in one full-size serve prefill
@@ -139,6 +150,7 @@ Each phase prints its wall seconds.
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -325,33 +337,23 @@ def as_tuple(out):
     return out if isinstance(out, tuple) else (out,)
 
 
-def bound(kdef, shape: dict, dtype: str) -> tuple:
-    """The least time of one call on the H100, from the data sheet's peaks
-    (the port keeps them with its cost model, kernels/autotune.py)."""
+def route_bounds(flops: float, nbytes: float, dtype: str, route) -> dict:
+    """The least time of a call of ``flops`` on ``nbytes`` on the H100's
+    data-sheet peaks (the port keeps them with its cost model,
+    kernels/autotune.py): at the operands' type's rate, or, on ``tf32x3``,
+    at the tensor cores' TF32 rate, which no design on the tensor cores can
+    beat.  Two more figures on ``tf32x3``, not its bound: ``bound_3x_ms``,
+    the same for the three TF32 products a product the design does, and
+    ``simt_bound_ms``, the fp32 CUDA cores' rate (the ``simt`` route's)."""
     from repro_torch.kernels.autotune import HBM_BYTES_PER_S, PEAK_OPS_PER_S
 
-    cost = kdef.cost(shape, dtype)
-    t_bytes = cost.hbm_bytes / HBM_BYTES_PER_S
-    t_ops = cost.flops / PEAK_OPS_PER_S[dtype]
-    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def tf32x3_bounds(kdef, shape: dict) -> dict:
-    """The bounds of an fp32 GEMM on the ``tf32x3`` route.  ``bound_ms``:
-    the function's products at the tensor cores' TF32 peak against the fp32
-    bytes, which no design on the tensor cores can beat.  Two more figures,
-    not this route's bound: ``bound_3x_ms``, the same for the three TF32
-    products a term the design does, and ``simt_bound_ms``, the function's
-    products at the CUDA cores' fp32 peak (the ``simt`` route's bound)."""
-    from repro_torch.kernels.autotune import HBM_BYTES_PER_S
-
-    cost = kdef.cost(shape, "float32")
-    t_bytes = cost.hbm_bytes / HBM_BYTES_PER_S
-    t_ops = cost.flops / TF32_OPS_PER_S
-    return {
-        "bound_ms": 1e3 * max(t_bytes, t_ops), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "bound_3x_ms": 1e3 * max(t_bytes, 3 * t_ops), "simt_bound_ms": bound(kdef, shape, "float32")[0],
-    }
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / (TF32_OPS_PER_S if route == "tf32x3" else PEAK_OPS_PER_S[dtype])
+    row = {"bound_ms": 1e3 * max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    if route == "tf32x3":
+        row["bound_3x_ms"] = 1e3 * max(3 * t_ops, t_bytes)
+        row["simt_bound_ms"] = 1e3 * max(flops / PEAK_OPS_PER_S["float32"], t_bytes)
+    return row
 
 
 def assert_fp32_exact(torch) -> None:
@@ -386,14 +388,15 @@ def library_call(torch, name: str, shape: dict, args: tuple):
 
 
 def expected_route(name: str, shape: dict, dtype: str):
-    """The route a call must take: attention bf16 on the tensor cores and
-    fp32 on the CUDA cores; GEMMs on the tensor cores where TMA can describe
-    the strides (D and F a multiple of 16 bytes), bf16 on ``wgmma`` and fp32
-    on ``tf32x3``, else on the CUDA cores."""
+    """The route a call must take: attention bf16 on ``wgmma`` and fp32 on
+    ``tf32x3`` up to head width 128, on the CUDA cores at 256; GEMMs on the
+    tensor cores where TMA can describe the strides (D and F a multiple of
+    16 bytes), bf16 on ``wgmma`` and fp32 on ``tf32x3``, else on the CUDA
+    cores."""
     if name not in ROUTED:
         return None
     if name == "flash_attention":
-        return "wgmma" if dtype == "bfloat16" else "simt"
+        return "wgmma" if dtype == "bfloat16" else ("tf32x3" if shape["hd"] <= 128 else "simt")
     item = 2 if dtype == "bfloat16" else 4
     if shape["D"] * item % 16 or shape["F"] * item % 16:
         return "simt"
@@ -451,10 +454,8 @@ def check_kernel(torch, kreg, ops, name, shape, dtype, seed, tol, relative, labe
         row["plain_ms"] = median_ms(torch, lambda: kdef.ref(shape, args), max_reps=5)
         lib = library_call(torch, name, shape, args)
         row["library_ms"] = median_ms(torch, lib) if lib is not None else None
-        if route == "tf32x3":
-            row.update(tf32x3_bounds(kdef, shape))
-        else:
-            row["bound_ms"], row["bound_by"] = bound(kdef, shape, dtype)
+        cost = kdef.cost(shape, dtype)
+        row.update(route_bounds(cost.flops, cost.hbm_bytes, dtype, route))
     row["launches"] = ops.launch_counts()[name] - before
     print("kernel " + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
     return row
@@ -522,6 +523,63 @@ def check_concurrent(torch, kreg, ops, dev, reps: int = 8):
         if not err <= TIER_TOL:
             raise AssertionError(f"{name} two_threads: error {err:.3e} over tolerance {TIER_TOL:g}")
         print(f"kernel kernel={name} case=full_two_threads max_abs_err={err} launches={launches}", flush=True)
+
+
+# forward cases at Lq != Lk, which the registry (q, k and v of one length)
+# does not make: (label, B, H, KV, Lq, Lk, hd, causal, window)
+LQ_LK_CASES = [
+    ("lq96_lk200_non_causal", 1, 4, 2, 96, 200, 64, False, None),
+    ("lq200_lk96_causal_hd128", 1, 4, 1, 200, 96, 128, True, None),
+]
+
+
+def check_attention_lq_lk(torch, ops, dev, flush) -> dict:
+    """The attention forward at Lq != Lk, in both dtypes, through the ops
+    wrapper (blocks of the whole lengths, which divide them), against its
+    plain version (fp32 relative WIDTH_TOL, bf16 also element by element)
+    and on the route ``expected_route`` gives; timed beside SDPA on an
+    explicit mask (positions from 0 in q and k) and the bound.  Returns
+    {case: row}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+
+    rows = {}
+    for label, B, H, KV, Lq, Lk, hd, causal, window in LQ_LK_CASES:
+        qp = torch.arange(Lq, device=dev)[:, None]
+        kp = torch.arange(Lk, device=dev)[None, :]
+        mask = (qp >= kp) if causal else torch.ones(Lq, Lk, dtype=torch.bool, device=dev)
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            g = torch.Generator(dev).manual_seed(13)
+            q = torch.randn(B, H, Lq, hd, generator=g, device=dev).to(dt)
+            k, v = (torch.randn(B, KV, Lk, hd, generator=g, device=dev).to(dt) for _ in range(2))
+            route = expected_route("flash_attention", {"hd": hd}, dtype)
+            call = lambda: ops.flash_attention(q, k, v, causal=causal, window=window, block_q=Lq, block_k=Lk)
+            before = ops.route_launch_counts()["flash_attention"]
+            got = call()
+            torch.cuda.synchronize()
+            took = {r: n - before[r] for r, n in ops.route_launch_counts()["flash_attention"].items()}
+            if took != {r: int(r == route) for r in took}:
+                raise AssertionError(f"flash_attention {label}_{dtype}: launches by route {took}, want one on {route}")
+            want = ref.attention_ref(q, k, v, causal=causal, window=window)
+            if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"flash_attention {label}_{dtype}: kernel gave {tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}")
+            if dt == torch.bfloat16:
+                check_bf16_elements(got, want, f"flash_attention {label}_{dtype}")
+            err = float((got.float() - want.float()).abs().max())
+            rel = err / float(want.float().abs().max())
+            if not rel <= WIDTH_TOL[dtype]:
+                raise AssertionError(f"flash_attention {label}_{dtype}: relative error {rel:.3e} over {WIDTH_TOL[dtype]:g}")
+            row = {"kernel": "flash_attention", "case": f"{label}_{dtype}", "dtype": dtype, "route": route,
+                   "max_abs_err": err, "rel_err": rel,
+                   "ms": median_ms(torch, call), "ms_cold": cold_ms(torch, call, flush), "ms_call": call_ms(torch, call),
+                   "plain_ms": median_ms(torch, lambda: ref.attention_ref(q, k, v, causal=causal, window=window), max_reps=5),
+                   "library_ms": median_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True))}
+            row.update(attention_fwd_bound(B, H, KV, Lq, Lk, hd, causal, window, dtype, route))
+            print("kernel " + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
+            rows[row["case"]] = row
+    return rows
 
 
 def run_broker(torch, kreg, ops, Hydra, ProviderSpec, Task, TaskState):
@@ -599,16 +657,17 @@ def run_broker(torch, kreg, ops, Hydra, ProviderSpec, Task, TaskState):
 
 
 SERVE_KERNELS = ("flash_attention", "selective_scan", "rglru_scan", "moe_gmm")  # searise_kernels' order
-SCENARIO_ROUTES = {"flash_attention": "simt", "moe_gmm": "tf32x3"}  # the routes of its fp32 payloads
+SCENARIO_ROUTES = {"flash_attention": "tf32x3", "moe_gmm": "tf32x3"}  # the routes of its fp32 payloads
 FACTS_INSTANCES = 64
 FACTS_SAMPLES = 150_000  # benchmarks/exp4_facts.py:21
 
 MODEL_TOL = 1e-4  # relative max error, card against CPU in fp32
-# (arch, layers kept, prompt length, the launches its prefill must make)
+# (arch, layers kept, prompt length, the launches its prefill must make,
+# the route of its fp32 attention: tf32x3 at head width 128, simt at 256)
 MODEL_CHECKS = [
-    ("recurrentgemma-2b", 3, 2176, {"rglru_scan": 2, "flash_attention": 1}),
-    ("falcon-mamba-7b", 2, 512, {"selective_scan": 4}),
-    ("llama3-8b", 2, 1000, {"flash_attention": 2}),
+    ("recurrentgemma-2b", 3, 2176, {"rglru_scan": 2, "flash_attention": 1}, "simt"),
+    ("falcon-mamba-7b", 2, 512, {"selective_scan": 4}, None),
+    ("llama3-8b", 2, 1000, {"flash_attention": 2}, "tf32x3"),
 ]
 # the other two families from the model path at full width, depth cut, bf16,
 # batch 1: (arch, layers kept, prompt length, the launches its prefill must
@@ -689,7 +748,7 @@ def run_scenarios(ops, device="cuda"):
                 executed[e.attrs["kernel"]] += e.attrs["reps"]
         if launches != executed or min(launches.values()) < 1:
             raise AssertionError(f"scenario {tag}: launches {launches}, kernel.exec reps {executed}")
-        for name, by in routes.items():  # fp32 payloads: attention on simt, GEMMs on tf32x3
+        for name, by in routes.items():  # fp32 payloads: attention and GEMMs on tf32x3
             want = SCENARIO_ROUTES[name]
             if by != {r: launches[name] if r == want else 0 for r in by}:
                 raise AssertionError(f"scenario {tag}: {name} launches by route {by}, want all {launches[name]} on {want}")
@@ -851,10 +910,27 @@ def path_kernels_checked(torch, ops, label):
             setattr(ops, wrapper, fn)
 
 
-def check_model_on_card(torch, ops, name, n_layers, prompt, want, dev):
+@contextlib.contextmanager
+def one_cpu_thread(torch):
+    """The CPU side of a card-against-CPU check runs on one thread.  With
+    eight, runs on some hosts found recurrentgemma-2b's k and v caches
+    1.1e-4 to 1.4e-4 off (relative to their largest element), all of it in
+    one band of rows, rows 272 j to 272 (j + 1) of 2176 for one j: the rows
+    one of the eight CPU threads computes.  The other rows agreed within
+    1e-5, and the card gave the same result when run again.  One thread
+    takes the thread split out of the reference."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def check_model_on_card(torch, ops, name, n_layers, prompt, want, attn_route, dev):
     """One prefill at full width in fp32 on the card and on the CPU, on the
     same weights: logits and every cache leaf within MODEL_TOL, and exactly
-    ``want``'s launches on the card (fp32 attention on ``simt``)."""
+    ``want``'s launches on the card (fp32 attention on ``attn_route``)."""
     import numpy as np
 
     from repro_torch.configs import get_arch
@@ -875,13 +951,14 @@ def check_model_on_card(torch, ops, name, n_layers, prompt, want, dev):
         launches, routes = ops.launch_counts(), ops.route_launch_counts()
         params = tree_map(lambda t: t.cpu(), params)
         t0 = time.perf_counter()
-        want_logits, want_cache = model.prefill(params, {"tokens": tokens}, cache_len=cache_len)
+        with one_cpu_thread(torch):
+            want_logits, want_cache = model.prefill(params, {"tokens": tokens}, cache_len=cache_len)
         cpu_s = time.perf_counter() - t0
     full = {k: want.get(k, 0) for k in launches}
     if launches != full:
         raise AssertionError(f"model {name}: prefill launches {launches}, want {full}")
-    if routes["flash_attention"] != {"simt": full["flash_attention"], "wgmma": 0}:
-        raise AssertionError(f"model {name}: attention launches by route {routes['flash_attention']}, want all on simt")
+    if routes["flash_attention"] != {r: full["flash_attention"] if r == attn_route else 0 for r in routes["flash_attention"]}:
+        raise AssertionError(f"model {name}: attention launches by route {routes['flash_attention']}, want all on {attn_route}")
     errs = [rel_err(logits, want_logits)]
     errs += [rel_err(g, w) for g, w in zip(tree_leaves(cache), tree_leaves(want_cache))]
     if not bool(torch.isfinite(logits).all()) or not max(errs) <= MODEL_TOL:
@@ -889,7 +966,7 @@ def check_model_on_card(torch, ops, name, n_layers, prompt, want, dev):
     print(
         f"model arch={name} layers={n_layers} prompt={prompt} dtype=float32 logits_rel_err={errs[0]} "
         f"cache_rel_err={max(errs[1:])} cache_leaves={len(errs) - 1} card_s={card_s} cpu_s={cpu_s} "
-        f"launches={json.dumps(launches)}",
+        f"launches={json.dumps(launches)} attention_routes={json.dumps(routes['flash_attention'])}",
         flush=True,
     )
 
@@ -914,7 +991,7 @@ def run_full_width(torch, ops, name, n_layers, prompt, want, dev):
             torch.cuda.synchronize()
         launches, routes = ops.launch_counts(), ops.route_launch_counts()
         full = {k: want.get(k, 0) for k in launches}
-        if launches != full or routes["flash_attention"] != {"simt": 0, "wgmma": full["flash_attention"]}:
+        if launches != full or routes["flash_attention"] != {r: full["flash_attention"] if r == "wgmma" else 0 for r in routes["flash_attention"]}:
             raise AssertionError(f"model {name}: prefill launches {launches} by route {routes}, want {full} (attention on wgmma)")
         if any(checked[k]["calls"] != n for k, n in full.items() if k in checked):
             raise AssertionError(f"model {name}: calls held against the plain versions {checked}, want {full}")
@@ -935,6 +1012,9 @@ def device_profile(torch, fn, grad: bool = False):
     from torch.profiler import ProfilerActivity, profile
 
     with torch.set_grad_enabled(grad), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        # a trace may miss its first kernel: a spin goes first
+        torch.cuda._sleep(1)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
@@ -977,7 +1057,7 @@ def run_serve(torch, ops, dev):
             raise AssertionError("serve: logits are not finite")
         if out["prefill_launches"] != SERVE_PREFILL_LAUNCHES or set(out["decode_launches"].values()) != {0}:
             raise AssertionError(f"serve: prefill launches {out['prefill_launches']} (want {SERVE_PREFILL_LAUNCHES}), decode {out['decode_launches']} (want none)")
-        if routes["flash_attention"] != {"simt": 0, "wgmma": 8} or set(routes["moe_gmm"].values()) != {0}:
+        if routes["flash_attention"] != {"simt": 0, "wgmma": 8, "tf32x3": 0} or set(routes["moe_gmm"].values()) != {0}:
             raise AssertionError(f"serve: launches by route {routes}, want the 8 attention launches on wgmma")
         if out["tokens"].shape != (SERVE["batch"], SERVE["gen"]):
             raise AssertionError(f"serve: tokens of shape {out['tokens'].shape}")
@@ -1047,20 +1127,24 @@ def run_compute_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState):
     for t in tasks:
         if t.tstate != TaskState.DONE or t.result() != {"logits_shape": [2, 1, 256]}:
             raise AssertionError(f"compute: {t.arch} task ended {t.tstate.value}: {t.exception()!r}")
-    if launches != COMPUTE_LAUNCHES or routes["flash_attention"] != {"simt": 4, "wgmma": 0}:
-        raise AssertionError(f"compute: launches {launches} by route {routes}, want {COMPUTE_LAUNCHES} (attention on simt)")
+    if launches != COMPUTE_LAUNCHES or routes["flash_attention"] != {"simt": 0, "wgmma": 0, "tf32x3": 4}:
+        raise AssertionError(f"compute: launches {launches} by route {routes}, want {COMPUTE_LAUNCHES} (attention on tf32x3)")
     h.shutdown(wait=True)
     print(f"compute tasks={len(tasks)} archs={list(COMPUTE_ARCHS)} wall_s={wall} launches={json.dumps(launches)}", flush=True)
 
 
 # -- the train path --------------------------------------------------------
 
-# attention backward cases: (label, B, H, KV, Lq, Lk, hd, causal, window, dtype)
+# attention backward cases: (label, B, H, KV, Lq, Lk, hd, causal, window,
+# dtype, the route the rule gives): every route's kernels, the simt route at
+# both widths it keeps (fp32 at recurrentgemma-2b's hd 256, bf16 at hd 16)
 BWD_ATTN_CASES = [
-    ("llama3_8b", 2, 32, 8, 2048, 2048, 128, True, None, "bfloat16"),
-    ("recurrentgemma_2b", 1, 10, 1, 4096, 4096, 256, True, 2048, "bfloat16"),
-    ("hd16_reduced", 2, 4, 2, 128, 128, 16, True, 16, "float32"),
-    ("lq96_lk200_non_causal", 1, 4, 2, 96, 200, 64, False, None, "float32"),
+    ("llama3_8b", 2, 32, 8, 2048, 2048, 128, True, None, "bfloat16", "wgmma"),
+    ("recurrentgemma_2b", 1, 10, 1, 4096, 4096, 256, True, 2048, "bfloat16", "wgmma"),
+    ("hd16_reduced", 2, 4, 2, 128, 128, 16, True, 16, "float32", "tf32x3"),
+    ("lq96_lk200_non_causal", 1, 4, 2, 96, 200, 64, False, None, "float32", "tf32x3"),
+    ("recurrentgemma_2b_fp32", 1, 10, 1, 4096, 4096, 256, True, 2048, "float32", "simt"),
+    ("hd16_reduced_bf16", 2, 4, 2, 128, 128, 16, True, 16, "bfloat16", "simt"),
 ]
 BWD_RGLRU_CASE = ("recurrentgemma_2b", 1, 4096, 2560)
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -1080,13 +1164,17 @@ TRAIN_TASK_LAUNCHES = {"flash_attention": 12, "selective_scan": 0, "rglru_scan":
 TRAIN_TASK_BACKWARD_LAUNCHES = {"flash_attention_bwd": 12, "rglru_scan_bwd": 12}
 # the train step's kernels in a profiler trace: the forward kernels and the
 # backward kernels' symbols (csrc/*_bwd.cu)
-# (csrc/flash_attention_bwd.cu is the simt route, csrc/flash_attention_bwd_wgmma.cu the wgmma one)
+# (csrc/flash_attention_bwd.cu is the simt route, csrc/flash_attention_bwd_wgmma.cu the wgmma one,
+# csrc/flash_attention_bwd_tf32x3.cu the tf32x3 one)
+# (the row pass and the parts' sum, csrc/attention_bwd_rows.cuh, are both tensor-core routes')
 SIMT_BWD_SYMBOLS = ("bwd_pre", "bwd_dkdv", "bwd_dq")
 WGMMA_BWD_SYMBOLS = ("attn_bwd_rowstats", "attn_bwd_kv_wgmma", "attn_bwd_kv_sum", "attn_bwd_q_wgmma")
+TF32X3_BWD_SYMBOLS = ("attn_bwd_rowstats", "tf32x3_bwd_dqkv", "attn_bwd_kv_sum")
 TRAIN_SYMBOLS = {
     "flash_attention": ("flash_fwd",), "rglru_scan": ("rglru_kernel",),
-    "flash_attention_bwd": SIMT_BWD_SYMBOLS + WGMMA_BWD_SYMBOLS, "rglru_scan_bwd": ("rglru_bwd_kernel",),
+    "flash_attention_bwd": tuple(dict.fromkeys(SIMT_BWD_SYMBOLS + WGMMA_BWD_SYMBOLS + TF32X3_BWD_SYMBOLS)), "rglru_scan_bwd": ("rglru_bwd_kernel",),
 }
+ROUTE_BWD_SYMBOLS = {"simt": SIMT_BWD_SYMBOLS, "wgmma": WGMMA_BWD_SYMBOLS, "tf32x3": TF32X3_BWD_SYMBOLS}
 BACKWARD_INFO = {
     "flash_attention_bwd": ("cuda", "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu", "src/repro/models/attention.py:36"),
     "rglru_scan_bwd": ("cuda", "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu", "src/repro/models/rglru.py:137"),
@@ -1127,19 +1215,23 @@ def attention_live_pairs(Lq: int, Lk: int, causal: bool, window) -> int:
     return int(np.maximum(0, hi - lo).sum())
 
 
-def attention_bwd_bound(B, H, KV, Lq, Lk, hd, causal, window, dtype: str) -> tuple:
-    """2.5x the forward's multiply-adds over the live pairs (dV, dP, dQ, dK
-    and the S recompute are five products against the forward's two) on the
-    peak of the operands' type, against q, k, v, o, dO read and dq, dk, dv
-    written once, on the H100's data-sheet peaks (the forward's LSE, 4 bytes
-    a row against 4 hd a row of the rest, is left out)."""
-    from repro_torch.kernels.autotune import HBM_BYTES_PER_S, PEAK_OPS_PER_S
+def attention_fwd_bound(B, H, KV, Lq, Lk, hd, causal, window, dtype: str, route) -> dict:
+    """The forward's two products (S and P V) over the live pairs against
+    q, k, v read and o written once (``route_bounds``)."""
+    flops = 4 * B * H * attention_live_pairs(Lq, Lk, causal, window) * hd
+    item = 2 if dtype == "bfloat16" else 4
+    return route_bounds(flops, item * (2 * B * H * Lq * hd + 2 * B * KV * Lk * hd), dtype, route)
 
+
+def attention_bwd_bound(B, H, KV, Lq, Lk, hd, causal, window, dtype: str, route) -> dict:
+    """2.5x the forward's multiply-adds over the live pairs (dV, dP, dQ, dK
+    and the S recompute are five products against the forward's two) against
+    q, k, v, o, dO read and dq, dk, dv written once (``route_bounds``; the
+    forward's LSE, 4 bytes a row against 4 hd a row of the rest, is left
+    out)."""
     flops = 2.5 * 4 * B * H * attention_live_pairs(Lq, Lk, causal, window) * hd
     item = 2 if dtype == "bfloat16" else 4
-    nbytes = item * (4 * B * H * Lq * hd + 4 * B * KV * Lk * hd)
-    t_ops, t_bytes = flops / PEAK_OPS_PER_S[dtype], nbytes / HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return route_bounds(flops, item * (4 * B * H * Lq * hd + 4 * B * KV * Lk * hd), dtype, route)
 
 
 def rglru_bwd_bound(B, L, dr) -> tuple:
@@ -1179,7 +1271,7 @@ def sdpa_backward(torch, q, k, v, do, causal, window):
 
 def forward_with_lse(torch, q, k, v, causal, window, label):
     """The forward kernel's o and LSE, as the train step's forward makes them
-    for the wgmma backward.  Raises unless o equals, bit for bit, the
+    for the tensor-core backwards (wgmma, tf32x3).  Raises unless o equals, bit for bit, the
     forward's o without LSE and LSE is within LSE_TOL (relative to its
     largest element) of the plain LSE.  Returns (o, lse, LSE's error)."""
     from repro_torch.kernels import flash_attention as fa
@@ -1195,26 +1287,38 @@ def forward_with_lse(torch, q, k, v, causal, window, label):
     return o, lse, err
 
 
+def names_kernel(name: str, sym: str) -> bool:
+    """Whether a trace's kernel name is the kernel ``sym`` (a whole word:
+    ``bwd_dq`` is not ``tf32x3_bwd_dqkv``)."""
+    return re.search(rf"\b{sym}\b", name) is not None
+
+
 def check_backward_kernels(torch, ops, dev, flush):
     """Each backward kernel against its plain version on the card, timed.
-    The attention backward's bf16 cases take the wgmma route and are timed
-    as the train step calls them (the forward kernel's o and LSE), and also
-    without LSE (``ms_lse_recomputed``: the simt preprocess computes it)."""
+    The attention backward's cases take each route the rule gives: the
+    tensor cores (bf16 wgmma, fp32 tf32x3), timed as the train step calls
+    them (the forward kernel's o and LSE) and also without LSE
+    (``ms_lse_recomputed``: the simt preprocess computes it), and the simt
+    kernels at the widths they keep (fp32 hd 256, bf16 hd 16).  One call of
+    each tf32x3 and simt case is profiled: it must run its route's kernels
+    and no other (the parts' sum only where there are parts; no simt
+    preprocess, ``bwd_pre``, where the forward's LSE is given); the wgmma
+    kernels are read in ``train_profile``."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
     rows = {}
-    for label, B, H, KV, Lq, Lk, hd, causal, window, dtype in BWD_ATTN_CASES:
+    for label, B, H, KV, Lq, Lk, hd, causal, window, dtype, want_path in BWD_ATTN_CASES:
         dt = getattr(torch, dtype)
         path = fa.bwd_route(dt, hd)
-        if path != ("wgmma" if dtype == "bfloat16" else "simt"):
-            raise AssertionError(f"flash_attention_bwd {label}: route {path} for {dtype}")
+        if path != want_path:
+            raise AssertionError(f"flash_attention_bwd {label}: route {path} for {dtype} at hd {hd}, want {want_path}")
         g = torch.Generator(dev).manual_seed(11)
         q = torch.randn(B, H, Lq, hd, generator=g, device=dev).to(dt)
         k, v = (torch.randn(B, KV, Lk, hd, generator=g, device=dev).to(dt) for _ in range(2))
         do = torch.randn(B, H, Lq, hd, generator=g, device=dev).to(dt)
         lse, lse_err = None, None
-        if path == "wgmma":
+        if path in fa.LSE_ROUTES:
             o, lse, lse_err = forward_with_lse(torch, q, k, v, causal, window, label)
         else:
             o = ref.attention_ref(q, k, v, causal=causal, window=window)
@@ -1240,9 +1344,18 @@ def check_backward_kernels(torch, ops, dev, flush):
             "plain_ms": median_ms(torch, lambda: ref.attention_bwd_ref(q, k, v, o, do, causal=causal, window=window), max_reps=3),
             "library_ms": median_ms(torch, lib, max_reps=10) if lib is not None else None,
         })
-        row["bound_ms"], row["bound_by"] = attention_bwd_bound(B, H, KV, Lq, Lk, hd, causal, window, dtype)
-        if path == "wgmma":
-            row["kv_parts"] = fa.kv_parts(B, KV, H, Lk, torch.cuda.get_device_properties(dev).multi_processor_count)
+        row.update(attention_bwd_bound(B, H, KV, Lq, Lk, hd, causal, window, dtype, path))
+        if path in fa.LSE_ROUTES:
+            row["kv_parts"] = fa.kv_parts(B, KV, H, Lk, torch.cuda.get_device_properties(dev).multi_processor_count,
+                                          fa.KV_ROLES[path])
+        if path != "wgmma":  # the call's kernels, by the trace: its route's and no other
+            _, _, device = device_profile(torch, run)
+            ran = sorted(n for n in device if "bwd" in n)
+            needed = [sym for sym in ROUTE_BWD_SYMBOLS[path] if sym != "attn_bwd_kv_sum" or row["kv_parts"] > 1]
+            if not all(any(names_kernel(n, sym) for n in ran) for sym in needed) or len(ran) != len(needed) or (
+                    lse is not None and any(names_kernel(n, "bwd_pre") for n in ran)):
+                raise AssertionError(f"flash_attention_bwd {label}: one call ran the kernels {ran}, want {needed}")
+            row["kernels_per_call"] = ran
         print("train_kernel " + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
         rows.setdefault("flash_attention_bwd", {})[label] = row
         del q, k, v, o, do, got, lib, lse, want
@@ -1376,7 +1489,7 @@ def run_train_full_size(torch, ops, dev):
         backward_routes = ops.backward_route_launch_counts()["flash_attention_bwd"]
     carries_err = check_rglru_carries(torch, ops, kept, dev)
     del kept
-    want_routes = {"simt": 0, "wgmma": TRAIN_BACKWARD_LAUNCHES["flash_attention_bwd"] * TRAIN["steps"]}
+    want_routes = {"simt": 0, "wgmma": TRAIN_BACKWARD_LAUNCHES["flash_attention_bwd"] * TRAIN["steps"], "tf32x3": 0}
     if backward_routes != want_routes:
         raise AssertionError(f"train: attention backward launches by route {backward_routes}, want {want_routes} (bf16 on wgmma)")
     for k, n in TRAIN_BACKWARD_LAUNCHES.items():
@@ -1476,7 +1589,7 @@ def run_train_dense_width(torch, ops, dev):
             norms.append(float(metrics["grad_norm"]))
             per_step.append((ops.launch_counts(), ops.backward_launch_counts(), ops.backward_route_launch_counts()["flash_attention_bwd"]))
     for fwd, bwd, routes in per_step:
-        if fwd["flash_attention"] != 2 * n or bwd != {"flash_attention_bwd": n, "rglru_scan_bwd": 0} or routes != {"simt": 0, "wgmma": n}:
+        if fwd["flash_attention"] != 2 * n or bwd != {"flash_attention_bwd": n, "rglru_scan_bwd": 0} or routes != {"simt": 0, "wgmma": n, "tf32x3": 0}:
             raise AssertionError(f"train_dense: launches {fwd} / backward {bwd} by route {routes}, want {2 * n} attention (remat) and {n} backward on wgmma")
     if checked["flash_attention_bwd"]["calls"] != n or shares != [1.0] * DENSE_TRAIN["steps"] or not all(math.isfinite(x) for x in losses + norms):
         raise AssertionError(f"train_dense: checked {checked}, nonzero-gradient shares {shares}, losses {losses}")
@@ -1493,7 +1606,8 @@ def run_train_dense_width(torch, ops, dev):
 def check_grads_on_card(torch, ops, dev):
     """One loss and its gradients at full width in fp32, on the card (the
     kernels and their backwards) and on the CPU (the plain versions), on the
-    same weights and tokens: every leaf within GRAD_TOL of its scale."""
+    same weights and tokens: every leaf within GRAD_TOL of its scale, and
+    every attention backward handed its forward's LSE."""
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import DataConfig, batch_at
     from repro_torch.models.model import Model
@@ -1512,18 +1626,31 @@ def check_grads_on_card(torch, ops, dev):
 
     params = model.init(torch.Generator(dev).manual_seed(0), dev)
     ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    loss_card, on_card = grads(params, dev)
-    torch.cuda.synchronize()
-    card_s = time.perf_counter() - t0
+    lse_passed, original = [], ops.flash_attention_bwd
+
+    def recording(*args, **kw):  # what the autograd Function hands the backward wrapper
+        lse_passed.append(kw.get("lse") is not None)
+        return original(*args, **kw)
+
+    ops.flash_attention_bwd = recording
+    try:
+        t0 = time.perf_counter()
+        loss_card, on_card = grads(params, dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+    finally:
+        ops.flash_attention_bwd = original
     launched = ops.backward_launch_counts()
     routes = ops.backward_route_launch_counts()["flash_attention_bwd"]
-    if routes != {"simt": GRAD_CHECK["layers"], "wgmma": 0}:
-        raise AssertionError(f"train_grads: fp32 attention backward launches by route {routes}, want all on simt")
+    if routes != {"simt": 0, "wgmma": 0, "tf32x3": GRAD_CHECK["layers"]}:
+        raise AssertionError(f"train_grads: fp32 attention backward launches by route {routes}, want all on tf32x3")
+    if lse_passed != [True] * GRAD_CHECK["layers"]:
+        raise AssertionError(f"train_grads: the forward's LSE handed to each attention backward: {lse_passed}")
     on_card = [g.cpu() for g in on_card]
     params = tree_map(lambda t: t.detach().cpu(), params)
     t0 = time.perf_counter()
-    loss_cpu, on_cpu = grads(params, "cpu")
+    with one_cpu_thread(torch):
+        loss_cpu, on_cpu = grads(params, "cpu")
     cpu_s = time.perf_counter() - t0
     errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(on_card, on_cpu)]
     loss_err = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
@@ -1532,7 +1659,8 @@ def check_grads_on_card(torch, ops, dev):
     print(
         f"train_grads arch={GRAD_CHECK['arch']} layers={GRAD_CHECK['layers']} dtype=float32 batch={GRAD_CHECK['batch']} "
         f"seq_len={GRAD_CHECK['seq_len']} leaves={len(errs)} worst_leaf_rel_err={max(errs)} loss_rel_err={loss_err} "
-        f"card_s={card_s} cpu_s={cpu_s} backward_launches={json.dumps(launched)} backward_routes={json.dumps(routes)}",
+        f"card_s={card_s} cpu_s={cpu_s} backward_launches={json.dumps(launched)} backward_routes={json.dumps(routes)} "
+        f"lse_from_forward={json.dumps(lse_passed)}",
         flush=True,
     )
 
@@ -1556,8 +1684,8 @@ def run_train_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState):
     routes = ops.backward_route_launch_counts()["flash_attention_bwd"]
     if pending:
         raise AssertionError(f"train_tasks: {len(pending)} tasks unfinished after 300 s")
-    if routes != {"simt": TRAIN_TASK_BACKWARD_LAUNCHES["flash_attention_bwd"], "wgmma": 0}:
-        raise AssertionError(f"train_tasks: fp32 attention backward launches by route {routes}, want all on simt")
+    if routes != {"simt": 0, "wgmma": 0, "tf32x3": TRAIN_TASK_BACKWARD_LAUNCHES["flash_attention_bwd"]}:
+        raise AssertionError(f"train_tasks: fp32 attention backward launches by route {routes}, want all on tf32x3")
     keys = ["ce", "grad_norm", "loss", "lr", "tokens"]
     for t in tasks:
         r = t.result() if t.tstate == TaskState.DONE else None
@@ -1602,7 +1730,7 @@ def main() -> int:
     print(f"build sources={list(_build.SOURCES)} dir={_build.BUILD_DIR.relative_to(ROOT)} seconds={time.perf_counter() - t0}", flush=True)
     # registers and spills (nvcc -Xptxas -v) of the tensor-core attention and
     # GEMM kernels and of the RG-LRU backward, and the attention backward's shared memory
-    for source in ("flash_attention", "flash_attention_bwd_wgmma", "moe_gmm", "rglru_scan_bwd"):
+    for source in ("flash_attention", "flash_attention_bwd_wgmma", "flash_attention_bwd_tf32x3", "moe_gmm", "rglru_scan_bwd"):
         for usage in _build.ptxas_usage(_build.BUILD_LOGS.get(source, "")):
             print(f"ptxas source={source} " + " ".join(f"{k}={v}" for k, v in usage.items()), flush=True)
     import ctypes
@@ -1648,7 +1776,7 @@ def main() -> int:
             timed=False, config=block,
         )
     check_concurrent(torch, kreg, ops, dev)
-    widths, gemm_fp32, seen = {}, None, set()
+    widths, gemm_fp32, attn_fp32, seen = {}, None, None, set()
     for name, model, shape, dtype in MODEL_WIDTHS:
         label = f"{model}_fp32" if (name, model) in seen else model  # the grok GEMM's second dtype
         seen.add((name, model))
@@ -1659,9 +1787,14 @@ def main() -> int:
         if (name, dtype) == ("moe_gmm", "float32"):
             gemm_fp32 = row
         if dtype == "bfloat16" and name == "flash_attention":
-            # the same width in fp32, where the relative tolerance is tight
-            check_kernel(torch, kreg, ops, name, shape, "float32", 0, WIDTH_TOL["float32"], True, f"{model}_fp32", dev, timed=False)
+            # the same width in fp32, where the relative tolerance is tight;
+            # llama3-8b's (tf32x3) timed beside fp32 SDPA, TF32 off
+            timed = model == "llama3_8b"
+            row = check_kernel(torch, kreg, ops, name, shape, "float32", 0, WIDTH_TOL["float32"], True, f"{model}_fp32", dev,
+                               timed=timed, flush=flush)
+            attn_fp32 = row if timed else attn_fp32
         torch.cuda.empty_cache()
+    lq_lk = check_attention_lq_lk(torch, ops, dev, flush)
 
     print(f"phase name=kernels wall_s={time.perf_counter() - phase_t0}", flush=True)
 
@@ -1685,8 +1818,8 @@ def main() -> int:
     phase_t0 = time.perf_counter()
     del flush
     torch.cuda.empty_cache()
-    for name, n_layers, prompt, want in MODEL_CHECKS:
-        check_model_on_card(torch, ops, name, n_layers, prompt, want, dev)
+    for name, n_layers, prompt, want, attn_route in MODEL_CHECKS:
+        check_model_on_card(torch, ops, name, n_layers, prompt, want, attn_route, dev)
         torch.cuda.empty_cache()
     for name, n_layers, prompt, want in MODEL_WIDTH_RUNS:
         run_full_width(torch, ops, name, n_layers, prompt, want, dev)
@@ -1727,16 +1860,24 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "model": row["case"], "dtype": row["dtype"],
         })
+        fp32_keys = ("case", "route", "max_abs_err", "rel_err", "ms", "ms_cold", "ms_call", "plain_ms", "library_ms",
+                     "bound_ms", "bound_by", "bound_3x_ms", "simt_bound_ms")
         if name == "moe_gmm":  # the fp32 width, on tf32x3, beside the bf16 one
-            report[-1]["fp32_width"] = {k: gemm_fp32[k] for k in (
-                "case", "route", "max_abs_err", "rel_err", "ms", "ms_cold", "ms_call", "plain_ms", "library_ms",
-                "bound_ms", "bound_by", "bound_3x_ms", "simt_bound_ms")}
+            report[-1]["fp32_width"] = {k: gemm_fp32[k] for k in fp32_keys}
+        if name == "flash_attention":  # llama3-8b's width in fp32 (tf32x3), and Lq != Lk
+            report[-1]["fp32_width"] = {k: attn_fp32[k] for k in fp32_keys}
+            report[-1]["lq_ne_lk"] = lq_lk
     for name, (route, source, replaces) in BACKWARD_INFO.items():
         row = bwd_rows[name]["recurrentgemma_2b"]
         extra = {}
-        if name == "flash_attention_bwd":  # two routes: bf16 on wgmma (this source), fp32 on simt
+        if name == "flash_attention_bwd":  # bf16 on wgmma (this source), fp32 on tf32x3, what they leave on simt
+            others = {label: {k: r.get(k) for k in ("dtype", "route", "rel_err", "ms", "ms_cold", "ms_call",
+                                                    "ms_lse_recomputed", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                                    "bound_3x_ms", "simt_bound_ms", "kv_parts", "kernels_per_call")}
+                      for label, r in bwd_rows[name].items() if r["route"] != "wgmma"}
             extra = {"width_route": row["route"], "route_launches": train_backward_routes,
-                     "simt_source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"}
+                     "tf32x3_source": "src/repro_torch/kernels/csrc/flash_attention_bwd_tf32x3.cu",
+                     "simt_source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu", "other_cases": others}
         else:
             extra = {"kernels_per_call": row["kernels_per_call"]}
         report.append({

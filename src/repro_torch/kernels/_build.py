@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = (
     "flash_attention", "moe_gmm", "rglru_scan", "selective_scan",
-    "flash_attention_bwd", "flash_attention_bwd_wgmma", "rglru_scan_bwd",
+    "flash_attention_bwd", "flash_attention_bwd_wgmma", "flash_attention_bwd_tf32x3", "rglru_scan_bwd",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -137,14 +137,19 @@ def function(source: str, symbol: str, argtypes: list, restype=ctypes.c_int):
 
 
 def kernel_label(mangled: str) -> str:
-    """``name<args>`` of a kernel in an anonymous namespace from its mangled
-    symbol (``..._cu_<8 hex><len><name>I<Li<n>E...>E...``), else the symbol."""
-    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+    """``name<args>`` of a kernel in an anonymous namespace, or in a namespace
+    nested in one, from its mangled symbol (``..._cu_<8 hex>[<len><ns>...]
+    <len><name>I<Li<n>E...>E...``): the last name, else the symbol."""
+    m = re.search(r"_cu_[0-9a-f]{8}", mangled)
     if not m:
         return mangled
-    start = m.end()
-    name = mangled[start:start + int(m.group(1))]
-    args = re.match(r"I((?:Li\d+E)+)E", mangled[start + int(m.group(1)):])
+    pos, name = m.end(), None
+    while (n := re.match(r"\d+", mangled[pos:])) is not None:
+        start = pos + n.end()
+        name, pos = mangled[start:start + int(n.group())], start + int(n.group())
+    if name is None:
+        return mangled
+    args = re.match(r"I((?:Li\d+E)+)E", mangled[pos:])
     return f"{name}<{','.join(re.findall(r'Li(\d+)E', args.group(1)))}>" if args else name
 
 

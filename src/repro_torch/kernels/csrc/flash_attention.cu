@@ -12,9 +12,12 @@
 //
 // What bounds it on this card: at the model widths the port runs (hd 128 and
 // 256, L 4096) attention does ~1e11 multiply-adds on ~1e8 bytes, so it is
-// bound by operations, and the bound is the tensor cores' bf16 rate.
+// bound by operations, and the bound is the tensor cores' rate for the
+// operands' type.  At the broker's registry tiers (64 rows to 512) it is
+// bound by latency: a few k tiles a block, each a load and a chain of
+// dependent products.
 //
-// Two kernels, chosen by a rule in kernels/flash_attention.py (`route`):
+// Three kernels, chosen by a rule in kernels/flash_attention.py (`route`):
 //
 // `wgmma` (bf16 operands): the products run on the tensor cores.
 //  * one block per (b*h, 128-row q tile), longest causal tiles first; two
@@ -48,27 +51,53 @@
 //    stays): ptxas holds the consumers near 170 registers, and a 64-row tile
 //    spills more of the accumulator around each product and runs slower.
 //
-// `simt` (fp32 operands, whose checks ask for fp32 products: TF32 wgmma
-// keeps ~3 decimal digits): the products run on the CUDA cores.
-//  * one block per (b*h, q tile); the loop over k tiles inside the block
-//    takes the place of the TPU's sequential grid dimension, bounded by the
-//    causal and window limits.
+// `tf32x3` (fp32 operands at head widths 16 to 128): the products run on the
+// tensor cores at fp32 accuracy, as three TF32 products each (the pieces and
+// their reasons are in attention_tf32x3.cuh).  One TF32 product keeps ~3
+// decimal digits and misses the fp32 tolerance (2e-5 max-abs) by ~50x; the
+// split keeps ~21 bits.
+//  * one block of one warpgroup per (b*h, 64-row q tile), longest causal
+//    tiles first: twice the blocks of a 128-row tile, which the registry's
+//    tiers (4 to 64 q tiles of 64 rows) need more than the wider tile's
+//    reuse.  Where the grid would still fill less than half the card, a q
+//    tile's k tiles are split into 2 or 4 runs (`parts`, a rule in
+//    kernels/flash_attention.py: fwd_parts), one block each, and a second
+//    kernel merges the runs' (m, l, O) in a fixed order, flash-decoding's
+//    combine: the full tier runs 128 blocks of at most 8 k tiles instead of
+//    64 of at most 16.
+//  * Q is read once and split into hi/lo tiles that stay resident.  K and V
+//    stream in tiles of 32 rows through a ring of 2 cp.async stages; the
+//    load of tile j + 1 is issued before tile j is split, so it runs under
+//    tile j's split and products.  K is split as is (the B operand of
+//    S = Q K^T), V transposed (the B operand of P V, whose depth is the k
+//    rows: TF32 has no transpose bit).
+//  * S over the head in stages of 32, each a fresh accumulator; the online
+//    softmax in fp32 on it (exp2 with log2(e) folded in, as `wgmma`); P V of
+//    the tile (32 deep: one stage) into a fresh accumulator, and
+//    O = O corr + P V on the CUDA cores.
+//  * LSE2 on request, exactly as `wgmma` writes it; o is the same with or
+//    without it.
+//  * hd 256 stays on `simt`: Q hi/lo alone would take 128 KB at 64 rows, and
+//    the O accumulator and its stage 256 registers a thread.
+//
+// `simt` (fp32 at head width 256): the products run on the CUDA cores.
+//  * one block per (b*h, 32-row q tile); the loop over k tiles inside the
+//    block takes the place of the TPU's sequential grid dimension, bounded
+//    by the causal and window limits.
 //  * the q, k and v tiles sit in shared memory as fp32, rows padded by one
 //    float so that the 4 threads sharing a q row and the 8 rows of a warp
-//    read different banks.  At hd 256 the tiles need ~100 KB, past the 48 KB
-//    static limit, so shared memory is dynamic and the launch raises the
-//    kernel's limit with cudaFuncSetAttribute.
+//    read different banks.  The tiles need ~100 KB, past the 48 KB static
+//    limit, so shared memory is dynamic and the launch raises the kernel's
+//    limit with cudaFuncSetAttribute.
 //  * 4 threads own one q row: each keeps BK/4 scores and hd/4 accumulator
 //    columns in registers; row max and row sum combine with two warp shuffles.
-//  * built for head widths 16 (the reduced model configs), 32, 64, 128 and
-//    256; the `wgmma` route starts at 32 (a 16-wide bf16 row is 32 bytes,
-//    narrower than its smallest swizzle), so bf16 at 16 is refused by `route`.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <cmath>
 
+#include "attention_tf32x3.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -210,14 +239,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
 
 int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B, int H, int KV, int Lq,
                 int Lk, int hd, int causal, int has_window, int window, cudaStream_t stream) {
-  switch (hd) {
-    case 16: return launch<16, 64, 32>(q, k, v, o, B, H, KV, Lq, Lk, causal, has_window, window, stream);
-    case 32: return launch<32, 64, 32>(q, k, v, o, B, H, KV, Lq, Lk, causal, has_window, window, stream);
-    case 64: return launch<64, 64, 32>(q, k, v, o, B, H, KV, Lq, Lk, causal, has_window, window, stream);
-    case 128: return launch<128, 64, 32>(q, k, v, o, B, H, KV, Lq, Lk, causal, has_window, window, stream);
-    case 256: return launch<256, 32, 32>(q, k, v, o, B, H, KV, Lq, Lk, causal, has_window, window, stream);
-    default: return int(cudaErrorInvalidValue);
-  }
+  if (hd == 256) return launch<256, 32, 32>(q, k, v, o, B, H, KV, Lq, Lk, causal, has_window, window, stream);
+  return int(cudaErrorInvalidValue);
 }
 
 // ---------------------------------------------------------------------------
@@ -492,21 +515,275 @@ int dispatch_wgmma(const void* q, const void* k, const void* v, void* o, float* 
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// the tf32x3 route (fp32)
+// ---------------------------------------------------------------------------
+
+namespace tf32x3 {
+
+using namespace attn3;
+
+constexpr int BN = 32;  // k rows a streamed tile
+
+template <int HD>
+struct FwdCfg {
+  static constexpr int Q_T = asis_bytes<kRows, HD>();  // one resident Q tile (hi or lo)
+  static constexpr int K_T = asis_bytes<BN, HD>();
+  static constexpr int V_T = trans_bytes<HD>();
+  static constexpr int RAW = raw_bytes<BN, HD>();      // one raw K or V tile
+  static constexpr size_t SMEM = 1024 + 2 * size_t(Q_T + K_T + V_T) + 2 * 2 * size_t(RAW);
+  static_assert(Q_T % 1024 == 0 && K_T % 1024 == 0 && V_T % 1024 == 0, "tiles on the swizzle's 1024-byte period");
+  static_assert(SMEM <= 232448, "shared memory of one block");
+};
+
+// Scale, mask and exponentiate one S tile in place (S becomes P); update the
+// row max m and the partial row sums l; corr rescales O
+template <bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], float (&m)[2], float (&l)[2], float (&corr)[2], int t,
+                                             int q0, int kt, int Lq, int Lk, float scale, int causal, int has_window,
+                                             int window) {
+  float mx[2] = {kNeg, kNeg};
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    float v = s[i] * scale;
+    if (MASK)
+      v = live_pair(q0 + hopper::acc_row(t, i), kt + hopper::acc_col(t, i), Lq, Lk, causal, has_window, window) ? v : kNeg;
+    s[i] = v;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], v);
+  }
+  float mk[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    corr[r] = exp2f((m[r] - m_new) * kLog2e);
+    m[r] = m_new;
+    mk[r] = m_new * kLog2e;
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    // a masked score is -1e30 exactly; exp(s - m) <= 1, so selecting on the
+    // mask and multiplying by it agree
+    float p = exp2f(fmaf(s[i], kLog2e, -mk[r]));
+    if (MASK) p = s[i] == kNeg ? 0.f : p;
+    s[i] = p;
+    l[r] += p;
+  }
+}
+
+// Block (q tile, b*h, part): with parts = 1 it writes o (and LSE2); with
+// parts > 1, part p takes the p-th of `parts` equal runs of the q tile's k
+// tiles and writes its unnormalized O and its rows' (m, l) to the scratch,
+// which flash_fwd_tf32x3_combine merges.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                 float* __restrict__ o, float* __restrict__ lse, float* __restrict__ o_part,
+                 float2* __restrict__ ml_part, int H, int KV, int Lq, int Lk, float scale, int causal,
+                 int has_window, int window) {
+  using C = FwdCfg<HD>;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  uint8_t* q_hi = aligned_smem(smem_raw);
+  uint8_t* q_lo = q_hi + C::Q_T;
+  uint8_t* k_hi = q_lo + C::Q_T;
+  uint8_t* k_lo = k_hi + C::K_T;
+  uint8_t* vt_hi = k_lo + C::K_T;
+  uint8_t* vt_lo = vt_hi + C::V_T;
+  uint8_t* ring = vt_lo + C::V_T;  // 2 stages of {K, V} raw
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, kvh = h * KV / H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // the longest causal rows first
+  const int t = threadIdx.x;
+  const float* kb = k + int64_t(b * KV + kvh) * Lk * HD;
+  const float* vb = v + int64_t(b * KV + kvh) * Lk * HD;
+
+  // keys that can be live for some row of this q tile: [k_lo, k_hi)
+  const int key_lo = has_window ? max(0, q0 - window + 1) : 0;
+  const int key_hi = causal ? min(Lk, q0 + kRows) : Lk;
+  const int parts = gridDim.z, part = blockIdx.z;
+  const int all = key_hi > (key_lo / BN) * BN ? (key_hi - (key_lo / BN) * BN + BN - 1) / BN : 0;
+  const int run = (all + parts - 1) / parts;  // this part's run of the q tile's k tiles
+  const int kt0 = (key_lo / BN) * BN + min(all, part * run) * BN;
+  const int n_tiles = min(all, (part + 1) * run) - min(all, part * run);
+
+  auto issue = [&](int j) {  // tile j's K and V rows into stage j % 2
+    if (j < n_tiles) {
+      uint8_t* st = ring + (j & 1) * 2 * C::RAW;
+      load_raw<HD, BN>(st, kb, kt0 + j * BN, Lk, t);
+      load_raw<HD, BN>(st + C::RAW, vb, kt0 + j * BN, Lk, t);
+    }
+    hopper::cp_async_commit();
+  };
+  issue(0);
+  load_resident<HD>(q + int64_t(bh) * Lq * HD, q0, Lq, q_hi, q_lo, t);
+
+  float oacc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  const uint32_t aq_hi = hopper::smem_u32(q_hi), aq_lo = hopper::smem_u32(q_lo);
+  const uint32_t ak_hi = hopper::smem_u32(k_hi), ak_lo = hopper::smem_u32(k_lo);
+  const uint32_t av_hi = hopper::smem_u32(vt_hi), av_lo = hopper::smem_u32(vt_lo);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    hopper::cp_async_wait<0>();
+    __syncthreads();  // tile j has landed, and every thread is done with tile j - 1
+    issue(j + 1);     // into the stage tile j - 1 left: it loads under this tile's work
+    const uint8_t* st = ring + (j & 1) * 2 * C::RAW;
+    split_raw<HD, BN, true, false>(st, k_hi, k_lo, nullptr, nullptr, t);
+    split_raw<HD, BN, false, true>(st + C::RAW, nullptr, nullptr, vt_hi, vt_lo, t);
+    hopper::fence_proxy_async();  // the split tiles are read by wgmma
+    __syncthreads();
+
+    const int kt = kt0 + j * BN;
+    float s[BN / 2];
+    product_s<HD, BN>(s, aq_hi, aq_lo, ak_hi, ak_lo);
+    const bool need_mask = kt + BN > Lk || q0 + kRows > Lq || (causal && kt + BN - 1 > q0) ||
+                           (has_window && q0 + kRows - 1 - kt >= window);
+    float corr[2];
+    if (need_mask)
+      softmax_tile<true>(s, m, l, corr, t, q0, kt, Lq, Lk, scale, causal, has_window, window);
+    else
+      softmax_tile<false>(s, m, l, corr, t, q0, kt, Lq, Lk, scale, causal, has_window, window);
+    float part[HD / 2];
+    product_px<HD, BN>(part, s, av_hi, av_lo);
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) oacc[i] = fmaf(oacc[i], corr[(i >> 1) & 1], part[i]);
+  }
+
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    den[r] = fmaxf(l[r], 1e-37f);
+  }
+  if (parts > 1) {  // the part's unnormalized O and (m, l), for the combine
+    const int64_t rows = (int64_t(part) * gridDim.y + bh) * Lq;
+#pragma unroll
+    for (int i = 0; i < HD / 2; i += 2) {
+      const int qpos = q0 + hopper::acc_row(t, i);
+      if (qpos < Lq)
+        *reinterpret_cast<float2*>(o_part + (rows + qpos) * HD + hopper::acc_col(t, i)) = make_float2(oacc[i], oacc[i + 1]);
+    }
+    if ((t & 3) == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qpos = q0 + hopper::acc_row(t, 2 * r);
+        if (qpos < Lq) ml_part[rows + qpos] = make_float2(m[r], l[r]);
+      }
+    }
+    return;
+  }
+  float* ob = o + int64_t(bh) * Lq * HD;
+#pragma unroll
+  for (int i = 0; i < HD / 2; i += 2) {
+    const int qpos = q0 + hopper::acc_row(t, i);
+    if (qpos < Lq) {
+      const float d = den[(i >> 1) & 1];  // in [1e-37, Lk], inside __fdividef's range
+      *reinterpret_cast<float2*>(ob + int64_t(qpos) * HD + hopper::acc_col(t, i)) =
+          make_float2(__fdividef(oacc[i], d), __fdividef(oacc[i + 1], d));
+    }
+  }
+  if (lse != nullptr && (t & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = q0 + hopper::acc_row(t, 2 * r);
+      if (qpos < Lq) lse[int64_t(bh) * Lq + qpos] = m[r] * kLog2e + log2f(l[r]);
+    }
+  }
+}
+
+// o (and LSE2) from the parts' unnormalized O and (m, l), parts in order:
+// m = max_p m_p, w_p = exp2((m_p - m) log2(e)), l = sum w_p l_p,
+// o = sum w_p O_p / max(l, 1e-37).  One thread a row's 4 columns.
+__global__ void __launch_bounds__(256)
+flash_fwd_tf32x3_combine(const float4* __restrict__ o_part, const float2* __restrict__ ml_part, float4* __restrict__ o,
+                         float* __restrict__ lse, int64_t rows, int hd4, int parts) {
+  const int64_t n = rows * hd4;
+  for (int64_t i = int64_t(blockIdx.x) * 256 + threadIdx.x; i < n; i += int64_t(gridDim.x) * 256) {
+    const int64_t row = i / hd4;
+    float mx = kNeg;
+    for (int p = 0; p < parts; ++p) mx = fmaxf(mx, ml_part[p * rows + row].x);
+    float l = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int p = 0; p < parts; ++p) {
+      const float2 ml = ml_part[p * rows + row];
+      const float w = exp2f((ml.x - mx) * kLog2e);
+      const float4 x = o_part[p * n + i];
+      l = fmaf(w, ml.y, l);
+      acc = make_float4(fmaf(w, x.x, acc.x), fmaf(w, x.y, acc.y), fmaf(w, x.z, acc.z), fmaf(w, x.w, acc.w));
+    }
+    const float d = fmaxf(l, 1e-37f);
+    o[i] = make_float4(__fdividef(acc.x, d), __fdividef(acc.y, d), __fdividef(acc.z, d), __fdividef(acc.w, d));
+    if (lse != nullptr && i % hd4 == 0) lse[row] = mx * kLog2e + log2f(l);
+  }
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, float* scratch, int B, int H, int KV,
+           int Lq, int Lk, int causal, int has_window, int window, int parts, cudaStream_t stream) {
+  using C = FwdCfg<HD>;
+  auto kernel = flash_fwd_tf32x3<HD>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::SMEM));
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid((Lq + kRows - 1) / kRows, B * H, parts);
+  const float scale = float(1.0 / std::sqrt(double(HD)));  // as the reference rounds it
+  const int64_t rows = int64_t(B) * H * Lq;
+  float* o_part = parts > 1 ? scratch : nullptr;
+  float2* ml_part = parts > 1 ? reinterpret_cast<float2*>(scratch + parts * rows * HD) : nullptr;
+  kernel<<<grid, kThreads, C::SMEM, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                               static_cast<const float*>(v), static_cast<float*>(o), lse, o_part,
+                                               ml_part, H, KV, Lq, Lk, scale, causal, has_window, window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || parts == 1) return int(err);
+  const int64_t n4 = rows * HD / 4, want = (n4 + 255) / 256;
+  flash_fwd_tf32x3_combine<<<unsigned(want < 132 * 16 ? want : 132 * 16), 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(o_part), ml_part, static_cast<float4*>(o), lse, rows, HD / 4, parts);
+  return int(cudaGetLastError());
+}
+
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, float* scratch, int B, int H, int KV,
+             int Lq, int Lk, int hd, int causal, int has_window, int window, int parts, cudaStream_t stream) {
+  if (parts < 1 || parts > 64 || (parts > 1 && scratch == nullptr) || int64_t(B) * H > 65535)
+    return int(cudaErrorInvalidValue);
+  switch (hd) {
+    case 16: return launch<16>(q, k, v, o, lse, scratch, B, H, KV, Lq, Lk, causal, has_window, window, parts, stream);
+    case 32: return launch<32>(q, k, v, o, lse, scratch, B, H, KV, Lq, Lk, causal, has_window, window, parts, stream);
+    case 64: return launch<64>(q, k, v, o, lse, scratch, B, H, KV, Lq, Lk, causal, has_window, window, parts, stream);
+    case 128: return launch<128>(q, k, v, o, lse, scratch, B, H, KV, Lq, Lk, causal, has_window, window, parts, stream);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace tf32x3
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  route: 0 = simt (float32 only),
-// 1 = wgmma (bfloat16 only).  has_window = 0 means no window mask.  lse:
-// null, or (wgmma only) B*H*Lq fp32 for each row's log-sum-exp in base 2.
-// Returns cudaGetLastError() after the launch (0 on success).
-int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
-                        int KV, int Lq, int Lk, int hd, int causal, int has_window, int window,
+// dtype: 0 = float32, 1 = bfloat16.  route: 0 = simt (float32, hd 256),
+// 1 = wgmma (bfloat16 only), 2 = tf32x3 (float32, hd 16 to 128).
+// has_window = 0 means no window mask.  lse: null, or (wgmma and tf32x3)
+// B*H*Lq fp32 for each row's log-sum-exp in base 2.  parts (tf32x3 only,
+// else 1): blocks a q tile's k tiles are split across; with parts > 1,
+// scratch is fp32 of parts*B*H*Lq*(hd + 2), else unused.  Returns
+// cudaGetLastError() after the launch (0 on success).
+int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse, void* scratch, int B,
+                        int H, int KV, int Lq, int Lk, int hd, int causal, int has_window, int window, int parts,
                         int dtype, int route, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse2 = static_cast<float*>(lse);
+  if (route == 2 && dtype == 0)
+    return tf32x3::dispatch(q, k, v, o, lse2, static_cast<float*>(scratch), B, H, KV, Lq, Lk, hd, causal, has_window,
+                            window, parts, s);
+  if (parts != 1) return int(cudaErrorInvalidValue);
   if (route == 1 && dtype == 1)
     return dispatch_wgmma(q, k, v, o, lse2, B, H, KV, Lq, Lk, hd, causal, has_window, window, s);
   if (route == 0 && dtype == 0 && lse2 == nullptr)

@@ -1,10 +1,13 @@
 // Backward of flash attention for Hopper (sm_90a), the `simt` route: dq, dk,
-// dv from q, k, v, the forward's output o and its gradient do, fp32 (and
-// bf16 at hd 16) in, same type out.  bf16 at hd 32 to 256 takes the `wgmma`
-// route (csrc/flash_attention_bwd_wgmma.cu, chosen by `bwd_route` in
-// kernels/flash_attention.py), which calls the preprocess below
-// (`flash_attention_bwd_lse`) only where the caller has no LSE from the
-// forward.
+// dv from q, k, v, the forward's output o and its gradient do, for the two
+// cases the tensor-core routes leave (chosen by `bwd_route` in
+// kernels/flash_attention.py): fp32 at hd 256 (whose forward is `simt` too)
+// and bf16 at hd 16 (narrower than the bf16 wgmma's smallest swizzle).  bf16
+// at hd 32 to 256 takes the `wgmma` route
+// (csrc/flash_attention_bwd_wgmma.cu), fp32 at hd 16 to 128 the `tf32x3`
+// route (csrc/flash_attention_bwd_tf32x3.cu); both call the preprocess below
+// (`flash_attention_bwd_lse`, every width and both dtypes) only where the
+// caller has no LSE from the forward.
 //
 // Replaces nothing on the TPU: the reference has no Pallas backward, and
 // trains through XLA's autodiff of its plain attention
@@ -57,14 +60,11 @@
 // hd + 4 floats, 16-byte aligned and 4 banks apart, and every read along the
 // head is a 16-byte load: a score tile's rows are read 4 steps of d at a
 // time, and dV, dK and dQ read 4 consecutive columns a thread, which cuts
-// the wavefronts per FMA about 2.5x.  fp32 keeps these CUDA-core products
-// (TF32 on the tensor cores keeps ~3 decimal digits, and the fp32 checks
-// ask for 1e-4); bf16's tensor-core backward is the `wgmma` route.
+// the wavefronts per FMA about 2.5x.
 //
-// Head widths 16, 32, 64, 128 and 256 (the forward's `simt` widths); tiles
-// of 64 x 64 rows up to hd 128 and 64 x 32 (q x k) at hd 256, so shared
-// memory fits (169 KB at hd 128, 217 KB at hd 256; one block an SM).
-// Lq != Lk, ragged lengths and any window are taken.
+// Tiles of 64 x 64 rows at hd 16 and 64 x 32 (q x k) at hd 256, so shared
+// memory fits (217 KB at hd 256; one block an SM).  Lq != Lk, ragged
+// lengths and any window are taken.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -478,21 +478,8 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   return int(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const void* o, const void* dout, void* dq, void* dk,
-             void* dv, void* lse2, void* dd, int B, int H, int KV, int Lq, int Lk, int hd, int causal, int has_window,
-             int window, cudaStream_t s) {
-  switch (hd) {
-    case 16: return launch<T, 16, 64, 64>(q, k, v, o, dout, dq, dk, dv, lse2, dd, B, H, KV, Lq, Lk, causal, has_window, window, s);
-    case 32: return launch<T, 32, 64, 64>(q, k, v, o, dout, dq, dk, dv, lse2, dd, B, H, KV, Lq, Lk, causal, has_window, window, s);
-    case 64: return launch<T, 64, 64, 64>(q, k, v, o, dout, dq, dk, dv, lse2, dd, B, H, KV, Lq, Lk, causal, has_window, window, s);
-    case 128: return launch<T, 128, 64, 64>(q, k, v, o, dout, dq, dk, dv, lse2, dd, B, H, KV, Lq, Lk, causal, has_window, window, s);
-    case 256: return launch<T, 256, 64, 32>(q, k, v, o, dout, dq, dk, dv, lse2, dd, B, H, KV, Lq, Lk, causal, has_window, window, s);
-    default: return int(cudaErrorInvalidValue);
-  }
-}
-
-// the tiles `dispatch` gives each width
+// the tiles the preprocess takes at each width: those of the route's main
+// kernels at 16 and 256, and those its first version ran at 32 to 128
 template <typename T>
 int dispatch_pre(const void* q, const void* k, const void* o, const void* dout, void* lse2, void* dd, int B, int H,
                  int KV, int Lq, int Lk, int hd, int causal, int has_window, int window, cudaStream_t s) {
@@ -511,7 +498,7 @@ int dispatch_pre(const void* q, const void* k, const void* o, const void* dout, 
 extern "C" {
 
 // q, o, do, dq (B,H,Lq,hd); k, v, dk, dv (B,KV,Lk,hd); all contiguous, of one
-// dtype (0 = float32, 1 = bfloat16).  lse2 and dd: fp32 scratch of B*H*Lq
+// dtype (0 = float32 at hd 256, 1 = bfloat16 at hd 16).  lse2 and dd: fp32 scratch of B*H*Lq
 // each.  has_window = 0 means no window mask.  Launches the three kernels on
 // `stream`; returns the first CUDA error (0 on success).
 int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout, void* dq,
@@ -529,8 +516,10 @@ int flash_attention_bwd(const void* q, const void* k, const void* v, const void*
     if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, size_t(B) * KV * Lk * hd * elem, s);
     return int(err);
   }
-  if (dtype == 0) return dispatch<float>(q, k, v, o, dout, dq, dk, dv, lse2, dd, B, H, KV, Lq, Lk, hd, causal, has_window, window, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, lse2, dd, B, H, KV, Lq, Lk, hd, causal, has_window, window, s);
+  if (dtype == 0 && hd == 256)
+    return launch<float, 256, 64, 32>(q, k, v, o, dout, dq, dk, dv, lse2, dd, B, H, KV, Lq, Lk, causal, has_window, window, s);
+  if (dtype == 1 && hd == 16)
+    return launch<__nv_bfloat16, 16, 64, 64>(q, k, v, o, dout, dq, dk, dv, lse2, dd, B, H, KV, Lq, Lk, causal, has_window, window, s);
   return int(cudaErrorInvalidValue);
 }
 

@@ -40,8 +40,8 @@
 //    that a last pass adds and rounds.  Still deterministic, no atomics.
 //
 // Four kernels on the caller's stream:
-//  * `attn_bwd_rowstats`: one 16-byte chunk of O and dO a lane, a row per
-//    hd/8 lanes; writes (LSE2, D) pairs into a scratch of B*H*Lq_pad rows
+//  * `attn_bwd_rowstats` (attention_bwd_rows.cuh, shared with the fp32
+//    `tf32x3` backward): (LSE2, D) pairs into a scratch of B*H*Lq_pad rows
 //    (Lq_pad = Lq rounded up to 128; padded rows get LSE2 = +inf, so their
 //    P is 0), which TMA can copy a tile at a time.
 //  * `attn_bwd_kv_wgmma`: one block per (64-row k tile, b*KV, part).  K and
@@ -58,8 +58,9 @@
 //    Each keeps one hd-wide accumulator (dV or dK: hd/2 registers a thread)
 //    and does two products a tile, so the two are balanced.  The hand-off
 //    is double-buffered behind named barriers.
-//  * `attn_bwd_kv_sum`: with parts > 1, adds the parts' fp32 dK and dV and
-//    rounds to bf16 (parts = 1 writes bf16 directly).
+//  * `attn_bwd_kv_sum` (attention_bwd_rows.cuh): with parts > 1, adds the
+//    parts' fp32 dK and dV and rounds to bf16 (parts = 1 writes bf16
+//    directly).
 //  * `attn_bwd_q_wgmma`: one block per (128-row q tile, b*h), longest causal
 //    tiles first, as the forward; Q and dO resident, K and V streamed
 //    through a 3-stage TMA ring.  Each consumer warpgroup owns 64 q rows:
@@ -90,6 +91,7 @@
 
 #include <cmath>
 
+#include "attention_bwd_rows.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -171,42 +173,6 @@ __device__ __forceinline__ void product_rs(float (&acc)[HD / 2], const uint32_t 
   for (int kk = 0; kk < K / 16; ++kk) {
     const uint64_t db = hopper::make_desc<C::SW>(x_addr + kk * 16 * C::SW, K * C::SW, 8 * C::SW);
     hopper::WgmmaRS<HD, 1>::run(acc, a[kk], db, 1);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// row statistics: (LSE2, D) for every padded query row
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(256)
-attn_bwd_rowstats(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
-                  const float* __restrict__ lse2, float2* __restrict__ stats, int BH, int Lq, int Lq_pad, int hd) {
-  const int G = hd / 8;  // lanes a row, one 16-byte chunk each
-  const int lane = threadIdx.x & 31;
-  const int64_t row = (int64_t(blockIdx.x) * 8 + threadIdx.x / 32) * (32 / G) + lane / G;
-  const bool in = row < int64_t(BH) * Lq_pad;
-  const int bh = in ? int(row / Lq_pad) : 0, qp = in ? int(row % Lq_pad) : 0;
-  const bool live = in && qp < Lq;
-  float acc = 0.f;
-  if (live) {
-    const int64_t off = (int64_t(bh) * Lq + qp) * hd + 8 * (lane % G);
-    const uint4 a = *reinterpret_cast<const uint4*>(o + off);
-    const uint4 b = *reinterpret_cast<const uint4*>(dout + off);
-    const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
-    const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 fa = __bfloat1622float2(pa[e]), fb = __bfloat1622float2(pb[e]);
-      acc = fmaf(fa.x, fb.x, acc);
-      acc = fmaf(fa.y, fb.y, acc);
-    }
-  }
-  for (int s = G / 2; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
-  if (in && lane % G == 0) {
-    // a row with no live key (LSE2 = -inf) and a padded row get +inf: P = 0
-    float l = live ? lse2[int64_t(bh) * Lq + qp] : INFINITY;
-    if (l == -INFINITY) l = INFINITY;
-    stats[row] = make_float2(l, acc);
   }
 }
 
@@ -363,22 +329,6 @@ attn_bwd_kv_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constan
         }
       }
     }
-  }
-}
-
-// the parts' fp32 dK and dV (parts x n elements each, n a multiple of 4) summed into bf16
-__global__ void __launch_bounds__(256)
-attn_bwd_kv_sum(const float4* __restrict__ dk_part, const float4* __restrict__ dv_part, __nv_bfloat16* __restrict__ dk,
-                __nv_bfloat16* __restrict__ dv, int parts, int64_t n4) {
-  for (int64_t i = int64_t(blockIdx.x) * 256 + threadIdx.x; i < n4; i += int64_t(gridDim.x) * 256) {
-    float4 a = dk_part[i], c = dv_part[i];
-    for (int p = 1; p < parts; ++p) {
-      const float4 x = dk_part[p * n4 + i], y = dv_part[p * n4 + i];
-      a.x += x.x, a.y += x.y, a.z += x.z, a.w += x.w;
-      c.x += y.x, c.y += y.y, c.z += y.z, c.w += y.w;
-    }
-    *reinterpret_cast<uint2*>(dk + 4 * i) = make_uint2(hopper::pack_bf16(a.x, a.y), hopper::pack_bf16(a.z, a.w));
-    *reinterpret_cast<uint2*>(dv + 4 * i) = make_uint2(hopper::pack_bf16(c.x, c.y), hopper::pack_bf16(c.z, c.w));
   }
 }
 
@@ -539,9 +489,9 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* 
   const float sl2 = scale * kLog2e;
 
   const int64_t rows = int64_t(B) * H * Lq_pad;
-  const int rows_per_block = 8 * (32 / (HD / 8));
-  attn_bwd_rowstats<<<unsigned((rows + rows_per_block - 1) / rows_per_block), 256, 0, s>>>(o, dout, lse2, stats, B * H,
-                                                                                            Lq, Lq_pad, HD);
+  const int rows_per_block = rowstats_rows_per_block<__nv_bfloat16>(HD);
+  attn_bwd_rowstats<__nv_bfloat16><<<unsigned((rows + rows_per_block - 1) / rows_per_block), 256, 0, s>>>(
+      o, dout, lse2, stats, B * H, Lq, Lq_pad, HD);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
 
@@ -563,7 +513,7 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* 
   if (parts > 1) {
     const int64_t n4 = int64_t(B) * KV * Lk * HD / 4;
     const int64_t want = (n4 + 255) / 256;
-    attn_bwd_kv_sum<<<unsigned(want < 132 * 16 ? want : 132 * 16), 256, 0, s>>>(
+    attn_bwd_kv_sum<__nv_bfloat16><<<unsigned(want < 132 * 16 ? want : 132 * 16), 256, 0, s>>>(
         reinterpret_cast<const float4*>(dk_part), reinterpret_cast<const float4*>(dv_part), dk, dv, parts, n4);
     err = cudaGetLastError();
     if (err != cudaSuccess) return int(err);

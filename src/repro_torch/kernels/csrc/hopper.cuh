@@ -169,6 +169,15 @@ __device__ __forceinline__ void cp_async_4(void* dst, const void* src, uint32_t 
                : "memory");
 }
 
+// close this thread's cp.asyncs issued since the last commit into a group
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// wait until at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // arrive on `bar` once every cp.async this thread has issued so far has
 // landed; the barrier's expected count includes this arrival
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
@@ -397,8 +406,32 @@ struct WgmmaTF32RS;
                    : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));          \
     }                                                                                             \
   };
+HOPPER_TF32_RS(16, HOPPER_R8, HOPPER_D8(0), "8", "9", "10", "11", "12", "13")
+HOPPER_TF32_RS(32, HOPPER_R16, HOPPER_D16, "16", "17", "18", "19", "20", "21")
 HOPPER_TF32_RS(64, HOPPER_R32, HOPPER_D32, "32", "33", "34", "35", "36", "37")
+HOPPER_TF32_RS(128, HOPPER_R64, HOPPER_D64, "64", "65", "66", "67", "68", "69")
 #undef HOPPER_TF32_RS
+
+// TF32 with both operands in shared memory: d (m64 x N) (+)= A (m64 x k8,
+// K-major) * B (k8 x N, K-major)
+template <int N>
+struct WgmmaTF32SS;
+
+#define HOPPER_TF32_SS(N, REGS, DLIST, IA, IB, IS)                                                  \
+  template <>                                                                                     \
+  struct WgmmaTF32SS<N> {                                                                         \
+    __device__ __forceinline__ static void run(float (&d)[N / 2], uint64_t da, uint64_t db,       \
+                                               int scale_d) {                                     \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IS ", 0;\n"                               \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {" REGS "}, %" IA     \
+                   ", %" IB ", p, 1, 1;\n}\n"                                                     \
+                   : DLIST                                                                        \
+                   : "l"(da), "l"(db), "r"(scale_d));                                             \
+    }                                                                                             \
+  };
+HOPPER_TF32_SS(16, HOPPER_R8, HOPPER_D8(0), "8", "9", "10")
+HOPPER_TF32_SS(32, HOPPER_R16, HOPPER_D16, "16", "17", "18")
+#undef HOPPER_TF32_SS
 
 #undef HOPPER_D8
 #undef HOPPER_D16

@@ -1,17 +1,19 @@
 """Flash attention on Hopper: the launchers of ``csrc/flash_attention.cu``
-(forward) and of the backward's two routes, ``csrc/flash_attention_bwd.cu``
-(``simt``) and ``csrc/flash_attention_bwd_wgmma.cu`` (``wgmma``).
+(forward) and of the backward's three routes, ``csrc/flash_attention_bwd.cu``
+(``simt``), ``csrc/flash_attention_bwd_wgmma.cu`` (``wgmma``) and
+``csrc/flash_attention_bwd_tf32x3.cu`` (``tf32x3``).
 
 Counterpart of ``repro/kernels/flash_attention.py``.  The kernels, their
 design and what bounds them are described at the top of the CUDA sources.
-This module picks one of the two forward kernels by :func:`route`, launches
+This module picks one of the three forward kernels by :func:`route`, launches
 it on CUDA tensors and counts the launches, in total and by route;
 ``kernels/ops.py`` checks the operands and sends CPU tensors to the plain
 version instead.  The backward (dq, dk, dv) has no Pallas counterpart and
 counts its launches apart, in ``BWD_LAUNCHES`` and by route in
 ``BWD_ROUTE_LAUNCHES``: it is not a registry kernel.  :func:`bwd_route`
-picks its route: bf16 on the tensor cores, fed by the forward's LSE
-(``flash_attention(..., lse=...)``); fp32 on the CUDA cores.
+picks its route: bf16 and fp32 on the tensor cores (``wgmma``, ``tf32x3``),
+fed by the forward's LSE (``flash_attention(..., lse=...)``), save the two
+widths those kernels do not take, on the CUDA cores.
 
 The block sizes keep their TPU meaning in one respect only: the same
 divisibility rule holds (``min(block, L)`` must divide ``L``), so a shape the
@@ -28,38 +30,61 @@ from repro_torch.kernels import _build
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
-# the head widths each kernel is instantiated for (csrc/flash_attention.cu:
-# dispatch_hd, dispatch_wgmma; the backward's routes the same:
-# csrc/flash_attention_bwd.cu: dispatch, csrc/flash_attention_bwd_wgmma.cu);
+# the head widths each forward kernel is instantiated for
+# (csrc/flash_attention.cu: dispatch_hd, dispatch_wgmma, tf32x3::dispatch);
 # 16 is the reduced configs' width
-HEAD_DIMS = {"simt": (16, 32, 64, 128, 256), "wgmma": (32, 64, 128, 256)}
+HEAD_DIMS = {"simt": (256,), "wgmma": (32, 64, 128, 256), "tf32x3": (16, 32, 64, 128)}
+# the backward's routes by dtype: the tensor-core routes take the forward's
+# widths, the simt backward (csrc/flash_attention_bwd.cu) what they leave
+BWD_HEAD_DIMS = {
+    torch.bfloat16: {"wgmma": (32, 64, 128, 256), "simt": (16,)},
+    torch.float32: {"tf32x3": (16, 32, 64, 128), "simt": (256,)},
+}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-ROUTES = {"simt": 0, "wgmma": 1}
+ROUTES = {"simt": 0, "wgmma": 1, "tf32x3": 2}
+LSE_ROUTES = ("wgmma", "tf32x3")  # the routes whose forward writes LSE and whose backward reads it
 
 LAUNCHES = _build.LaunchCounter()
 ROUTE_LAUNCHES = {r: _build.LaunchCounter() for r in ROUTES}
 
 BWD_LAUNCHES = _build.LaunchCounter()
 BWD_ROUTE_LAUNCHES = {r: _build.LaunchCounter() for r in ROUTES}
-KV_BLOCK_ROWS = 64  # k rows a dK/dV block of the wgmma backward
-STATS_PAD_ROWS = 128  # its row statistics are padded to a multiple of these query rows
+Q_BLOCK_ROWS = 64  # q rows a block of the tf32x3 forward
+K_TILE_ROWS = 32  # k rows a streamed tile of the tf32x3 forward
+# the fewest k tiles a split of the tf32x3 forward must take off its longest
+# q tile: at the registry's tiny tier 2 parts saved 2 and ran 7% slower than
+# none (the merge's launch), at smoke 4 parts saved 6 and ran 1.5x faster
+# (scripts/attention_fp32_timing.py, NVIDIA H100 80GB HBM3, 700 W)
+MIN_TILES_SAVED = 4
+KV_BLOCK_ROWS = 64  # k rows a dK/dV block of the tensor-core backwards
+STATS_PAD_ROWS = 128  # their row statistics are padded to a multiple of these query rows
+# blocks a k tile of 64 rows and a part of its query heads: one dK/dV block
+# (wgmma), or a dK and a dV block (tf32x3)
+KV_ROLES = {"wgmma": 1, "tf32x3": 2}
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 _BWD_LSE_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-_BWD_WGMMA_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+# flash_attention_bwd_wgmma and flash_attention_bwd_tf32x3 take the same arguments
+_BWD_TC_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
 
 
 def route(dtype: torch.dtype, shape: dict) -> str:
     """Which kernel a launch takes, by rule and before it: ``"wgmma"`` (the
-    tensor cores, fed by TMA) for bf16 operands, ``"simt"`` (fp32 products
-    on the CUDA cores) for fp32, which keeps fp32 exact.  ``shape`` is a
-    payload dict with the head width ``hd``.  A head width the route's
-    kernel is not built for raises (bf16 at 16 among them: the tensor-core
-    kernel starts at 32); every one it is built for gives strides of hd and
-    L*hd bf16 elements, multiples of the 16 bytes a TMA tensor map requires."""
-    path = "wgmma" if dtype == torch.bfloat16 else "simt"
+    tensor cores, fed by TMA) for bf16 operands; for fp32, ``"tf32x3"`` (the
+    tensor cores, three TF32 products a product, at fp32 accuracy) at head
+    widths 16 to 128 and ``"simt"`` (fp32 products on the CUDA cores) at
+    256, where the tf32x3 kernel's resident hi/lo tiles and accumulators do
+    not fit.  ``shape`` is a payload dict with the head width ``hd``.  A
+    head width no kernel of the dtype is built for raises (bf16 at 16 among
+    them: the bf16 tensor-core kernel starts at 32); every one a tensor-core
+    kernel is built for gives rows of 16-byte multiples, as its TMA tensor
+    maps and cp.async copies require."""
     hd = shape["hd"]
+    if dtype == torch.bfloat16:
+        path = "wgmma"
+    else:
+        path = "tf32x3" if hd in HEAD_DIMS["tf32x3"] else "simt"
     if hd not in HEAD_DIMS[path]:
         raise ValueError(
             f"flash_attention kernel: head width {hd} not in {HEAD_DIMS[path]}, "
@@ -69,33 +94,35 @@ def route(dtype: torch.dtype, shape: dict) -> str:
 
 
 def bwd_route(dtype: torch.dtype, hd: int) -> str:
-    """Which backward a launch takes, by rule and before it: ``"wgmma"``
-    (every product on the tensor cores, fed by TMA and by the forward's LSE)
-    for bf16 at head widths 32 to 256; ``"simt"`` (fp32 products on the CUDA
-    cores) for fp32, which keeps fp32 exact within 1e-4, and for bf16 at 16,
-    narrower than the tensor-core kernels' smallest swizzle.  Any other width
-    raises."""
-    if dtype == torch.bfloat16 and hd in HEAD_DIMS["wgmma"]:
-        return "wgmma"
-    if dtype in DTYPES and hd in HEAD_DIMS["simt"]:
-        return "simt"
+    """Which backward a launch takes, by rule and before it: the tensor
+    cores, fed by the forward's LSE, at the forward's tensor-core widths --
+    ``"wgmma"`` for bf16 at 32 to 256, ``"tf32x3"`` (three TF32 products a
+    product, fp32-accurate) for fp32 at 16 to 128; ``"simt"`` (fp32 products
+    on the CUDA cores) for what they leave: bf16 at 16, narrower than the
+    bf16 kernels' smallest swizzle, and fp32 at 256, whose forward is
+    ``simt`` too.  Any other width raises."""
+    for path, dims in BWD_HEAD_DIMS.get(dtype, {}).items():
+        if hd in dims:
+            return path
     raise ValueError(
-        f"flash_attention_bwd kernel: head width {hd} ({dtype}) not in {HEAD_DIMS['wgmma']} (bf16, wgmma) "
-        f"or {HEAD_DIMS['simt']} (simt)"
+        f"flash_attention_bwd kernel: head width {hd} ({dtype}) not in any route's widths {BWD_HEAD_DIMS}"
     )
 
 
-def kv_parts(b: int, n_kv: int, h: int, lk: int, n_sm: int) -> int:
-    """How many dK/dV blocks of the ``wgmma`` backward share a KV head's
+def kv_parts(b: int, n_kv: int, h: int, lk: int, n_sm: int, roles: int = 1) -> int:
+    """How many blocks of the tensor-core backwards share a KV head's
     ``h // n_kv`` query heads: the divisor d of that count whose grid,
-    ``ceil(lk / 64) * b * n_kv * d`` blocks of one block an SM each, takes
-    the fewest waves times heads a block (``ceil(blocks / n_sm) * rep / d``),
-    the smallest d on a tie.  With d > 1 each part sums into an fp32 scratch
-    and a last pass adds them.  recurrentgemma-2b (B1, KV1, H10, Lk 4096) on
-    132 SMs: 64 blocks alone, 2 parts give 128; llama3-8b (B2, KV8, H32, Lk
-    2048): 512 blocks already, 1 part."""
+    ``roles * ceil(lk / 64) * b * n_kv * d`` blocks of one block an SM each
+    (``roles``: 1 dK/dV block a k tile on ``wgmma``, a dK and a dV block on
+    ``tf32x3``), takes the fewest waves times heads a block
+    (``ceil(blocks / n_sm) * rep / d``), the smallest d on a tie.  With d > 1
+    each part sums into an fp32 scratch and a last pass adds them.
+    recurrentgemma-2b (B1, KV1, H10, Lk 4096) on 132 SMs, ``wgmma``: 64
+    blocks alone, 2 parts give 128; llama3-8b (B2, KV8, H32, Lk 2048): 512
+    blocks already, 1 part; the fp32 Lq96 Lk200 case (B1, KV2, H4) on
+    ``tf32x3``: 16 blocks alone, 2 parts give 32."""
     rep = h // n_kv
-    blocks = -(-lk // KV_BLOCK_ROWS) * b * n_kv
+    blocks = roles * -(-lk // KV_BLOCK_ROWS) * b * n_kv
 
     def cost(d: int) -> tuple:
         return (-(-blocks * d // n_sm)) * (rep // d), d
@@ -103,9 +130,34 @@ def kv_parts(b: int, n_kv: int, h: int, lk: int, n_sm: int) -> int:
     return min((d for d in range(1, rep + 1) if rep % d == 0), key=cost)
 
 
+def fwd_parts(b: int, h: int, lq: int, lk: int, causal: bool, window: Optional[int], n_sm: int) -> int:
+    """How many blocks of the ``tf32x3`` forward share a q tile's k tiles:
+    1 where ``ceil(lq / 64) * b * h`` blocks fill half the card or more;
+    else the larger of 4 and 2 whose grid still fits the card in one wave
+    and takes at least ``MIN_TILES_SAVED`` k tiles (32 rows each) off the
+    q tile with the most; else 1.  With d > 1 each block writes its part's
+    (m, l, O) and a second kernel merges the parts.  The registry's full
+    tier (B1 H8 L512: 64 blocks, 16 k tiles in the last q tile) takes 2,
+    smoke (16 blocks, 8) 4, tiny (4 blocks, 4) 1, llama3-8b (2048 blocks)
+    1."""
+    blocks = -(-lq // Q_BLOCK_ROWS) * b * h
+    if 2 * blocks > n_sm:
+        return 1
+    longest = 0
+    for q0 in range(0, lq, Q_BLOCK_ROWS):  # the kernel's k range for each q tile
+        lo = max(0, q0 - window + 1) if window is not None else 0
+        hi = min(lk, q0 + Q_BLOCK_ROWS) if causal else lk
+        first = lo // K_TILE_ROWS * K_TILE_ROWS
+        longest = max(longest, -(-(hi - first) // K_TILE_ROWS) if hi > first else 0)
+    for d in (4, 2):
+        if blocks * d <= n_sm and longest - -(-longest // d) >= MIN_TILES_SAVED:
+            return d
+    return 1
+
+
 def stats_rows(lq: int) -> int:
-    """The query rows of the ``wgmma`` backward's row statistics: Lq padded
-    to a multiple of ``STATS_PAD_ROWS``."""
+    """The query rows of the tensor-core backwards' row statistics: Lq
+    padded to a multiple of ``STATS_PAD_ROWS``."""
     return -(-lq // STATS_PAD_ROWS) * STATS_PAD_ROWS
 
 
@@ -126,24 +178,31 @@ def flash_attention(
     lse: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Launch the CUDA kernel on contiguous CUDA tensors of one dtype.  On
-    the ``wgmma`` route an fp32 tensor ``lse`` of (B, H, Lq) also receives
-    each query row's log-sum-exp in base 2, as the backward reads it."""
+    the ``wgmma`` and ``tf32x3`` routes an fp32 tensor ``lse`` of (B, H, Lq)
+    also receives each query row's log-sum-exp in base 2, as the backward
+    reads it."""
     b, h, lq, hd = q.shape
     n_kv, lk = k.shape[1], k.shape[2]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention kernel: operands must be on a CUDA device, not {q.device}")
     path = route(q.dtype, {"hd": hd})
-    if path == "wgmma":
+    if path in LSE_ROUTES:
         _build.check_aligned("flash_attention", q, k, v)
     if lse is not None:
-        if path != "wgmma":
-            raise ValueError("flash_attention kernel: only the wgmma route writes lse")
+        if path not in LSE_ROUTES:
+            raise ValueError(f"flash_attention kernel: only the {' and '.join(LSE_ROUTES)} routes write lse, not {path}")
         _check_lse(lse, q)
     out = torch.empty_like(q)
+    parts, scratch = 1, None
+    if path == "tf32x3":
+        parts = fwd_parts(b, h, lq, lk, causal, window, torch.cuda.get_device_properties(q.device).multi_processor_count)
+        if parts > 1:  # each part's O and (m, l) of every row
+            scratch = torch.empty(parts * b * h * lq * (hd + 2), dtype=torch.float32, device=q.device)
     fn = _build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     code = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr() if lse is not None else None,
-        b, h, n_kv, lq, lk, hd, int(causal), int(window is not None), int(window or 0),
+        scratch.data_ptr() if scratch is not None else None,
+        b, h, n_kv, lq, lk, hd, int(causal), int(window is not None), int(window or 0), parts,
         DTYPES[q.dtype], ROUTES[path], q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check("flash_attention", code)
@@ -167,9 +226,9 @@ def flash_attention_bwd(
     """Launch the backward kernels on contiguous CUDA tensors of one dtype:
     q, o, do (B,H,Lq,hd), k, v (B,KV,Lk,hd).  Returns (dq, dk, dv) in that
     dtype.  ``lse`` (B,H,Lq) fp32 is the forward's log-sum-exp in base 2;
-    the ``wgmma`` route reads it, or runs the ``simt`` route's preprocess
-    for it where it is None.  The ``simt`` route computes its own and takes
-    none."""
+    the ``wgmma`` and ``tf32x3`` routes read it, or run the ``simt`` route's
+    preprocess for it where it is None.  The ``simt`` route computes its own
+    and takes none."""
     b, h, lq, hd = q.shape
     n_kv, lk = k.shape[1], k.shape[2]
     if q.device.type != "cuda":
@@ -202,10 +261,12 @@ def flash_attention_bwd(
             lse = pre[0]
         _check_lse(lse, q)
         lq_pad = stats_rows(lq)
-        parts = kv_parts(b, n_kv, h, lk, torch.cuda.get_device_properties(q.device).multi_processor_count)
+        n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+        parts = kv_parts(b, n_kv, h, lk, n_sm, KV_ROLES[path])
         stats = torch.empty((b * h * lq_pad, 2), dtype=torch.float32, device=q.device)
         scratch = torch.empty((2, parts, b, n_kv, lk, hd), dtype=torch.float32, device=q.device) if parts > 1 else None
-        fn = _build.function("flash_attention_bwd_wgmma", "flash_attention_bwd_wgmma", _BWD_WGMMA_ARGTYPES)
+        source = f"flash_attention_bwd_{path}"
+        fn = _build.function(source, source, _BWD_TC_ARGTYPES)
         code = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
@@ -213,7 +274,7 @@ def flash_attention_bwd(
             scratch[1].data_ptr() if scratch is not None else None,
             b, h, n_kv, lq, lk, hd, lq_pad, parts, *mask, q.device.index, stream,
         )
-        _build.check("flash_attention_bwd_wgmma", code)
+        _build.check(source, code)
     BWD_LAUNCHES.bump()
     BWD_ROUTE_LAUNCHES[path].bump()
     return dq, dk, dv

@@ -18,11 +18,12 @@ signature and
 
 Every kernel module counts its own launches; ``launch_counts`` reads them.
 The two kernels with several routes also count by route:
-``flash_attention`` (a tensor-core kernel for bf16, a CUDA-core one for
-fp32) and ``moe_gmm`` (tensor-core kernels for bf16 and, as three TF32
-products, for fp32; a CUDA-core one where TMA cannot describe the strides).
+``flash_attention`` (tensor-core kernels for bf16 and, as three TF32
+products, for fp32 up to head width 128; a CUDA-core one for fp32 at 256)
+and ``moe_gmm`` (tensor-core kernels for bf16 and, as three TF32 products,
+for fp32; a CUDA-core one where TMA cannot describe the strides).
 ``route_launch_counts`` reads those, and ``backward_route_launch_counts``
-the attention backward's two routes.
+the attention backward's three routes.
 
 Gradients.  On the card ``flash_attention`` and ``rglru_scan`` run through
 ``torch.autograd.Function``s whose backward is a hand-written kernel too
@@ -30,9 +31,10 @@ Gradients.  On the card ``flash_attention`` and ``rglru_scan`` run through
 route like the others, CPU tensors to the plain versions in ``ref``).  The
 backwards have no Pallas counterpart and no registry entry: they count their
 launches apart (``backward_launch_counts``), so the registry kernels' counts
-mean what they meant.  Where the attention backward takes the ``wgmma``
-route (bf16), the forward also writes each row's log-sum-exp when a
-gradient will be taken, and the backward reads it.  ``selective_scan_chunk`` and ``moe_gmm`` have no
+mean what they meant.  Where the attention backward takes a tensor-core
+route (``wgmma`` for bf16, ``tf32x3`` for fp32), the forward also writes
+each row's log-sum-exp when a gradient will be taken, and the backward
+reads it.  ``selective_scan_chunk`` and ``moe_gmm`` have no
 backward kernel yet: on the card they raise ``BackwardNotPorted`` when grad
 mode is on and an operand requires grad, rather than hand back an output
 with no gradient path.  On CPU tensors every wrapper runs its plain version,
@@ -75,8 +77,7 @@ BACKWARD_LAUNCHES = {
 
 def backward_launch_counts() -> dict[str, int]:
     """Backward-kernel launches so far (one a wrapper call: the attention
-    backward's call runs its three or four kernels, the RG-LRU backward's
-    one)."""
+    backward's call runs two to four kernels, the RG-LRU backward's one)."""
     return {name: c.value for name, c in BACKWARD_LAUNCHES.items()}
 
 
@@ -87,8 +88,8 @@ ROUTE_LAUNCHES = {
 
 
 def route_launch_counts() -> dict[str, dict[str, int]]:
-    """Launches so far by kernel and route (``wgmma`` / ``simt``, and
-    ``tf32x3`` for ``moe_gmm``)."""
+    """Launches so far by kernel and route (``wgmma`` / ``tf32x3`` /
+    ``simt``)."""
     return {name: {r: c.value for r, c in by.items()} for name, by in ROUTE_LAUNCHES.items()}
 
 
@@ -96,7 +97,8 @@ BACKWARD_ROUTE_LAUNCHES = {"flash_attention_bwd": _fa.BWD_ROUTE_LAUNCHES}
 
 
 def backward_route_launch_counts() -> dict[str, dict[str, int]]:
-    """Backward launches so far by kernel and route (``wgmma`` / ``simt``)."""
+    """Backward launches so far by kernel and route (``wgmma`` / ``tf32x3``
+    / ``simt``)."""
     return {name: {r: c.value for r, c in by.items()} for name, by in BACKWARD_ROUTE_LAUNCHES.items()}
 
 
@@ -115,8 +117,8 @@ class BackwardNotPorted(NotImplementedError):
 
 
 _NO_BACKWARD = {  # kernel -> the ROADMAP.md item its backward waits for
-    "selective_scan_chunk": "queue 2 ('Kernel work still open on the H100'), item 2: the selective_scan backward",
-    "moe_gmm": "'Modules to port', item 4b: the moe family, with the moe_gmm backward (queue 2, item 3)",
+    "selective_scan_chunk": "queue 2 ('Kernel work still open on the H100'), item 1: the selective_scan backward",
+    "moe_gmm": "'Modules to port', item 4b: the moe family, with the moe_gmm backward (queue 2, item 2)",
 }
 
 
@@ -191,7 +193,7 @@ def flash_attention(
     # backward's route reads it
     keep_lse = (
         torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-        and _fa.bwd_route(q.dtype, hd) == "wgmma"
+        and _fa.bwd_route(q.dtype, hd) in _fa.LSE_ROUTES
     )
     return _FlashAttention.apply(q, k, v, causal, window, keep_lse)
 
@@ -220,9 +222,9 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window: Optional
     gradient ``do`` (B,H,Lq,hd): returns (dq, dk, dv), each in its operand's
     dtype.  All five operands share one dtype.  ``lse`` (B,H,Lq) fp32, the
     forward's log-sum-exp of each row in base 2, is optional: the train
-    step's autograd Function passes the forward's on the ``wgmma`` route;
-    without it that route computes it with the ``simt`` route's preprocess.
-    The ``simt`` route takes none."""
+    step's autograd Function passes the forward's on the ``wgmma`` and
+    ``tf32x3`` routes; without it those compute it with the ``simt``
+    route's preprocess.  The ``simt`` route takes none."""
     b, h, lq, hd = q.shape
     n_kv, lk = k.shape[1], k.shape[2]
     dt = (q.dtype,) if q.dtype in _FLOATS else _FLOATS

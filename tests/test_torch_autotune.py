@@ -341,7 +341,7 @@ def test_launch_keys_are_the_routes():
     for name, kdef in kreg.KERNELS.items():
         shape = dict(kdef.smoke_shape)
         keys = {kdef.launch_key(shape, c, "float32") for c in kdef.space(shape)}
-        want = {"flash_attention": {("simt",)}, "moe_gmm": {("tf32x3",)}}.get(name, {("cuda",)})
+        want = {"flash_attention": {("tf32x3",)}, "moe_gmm": {("tf32x3",)}}.get(name, {("cuda",)})
         assert keys == want
     gmm = kreg.get_kernel("moe_gmm")
     assert gmm.launch_key({"E": 1, "C": 64, "D": 128, "F": 128}, {}, "bfloat16") == ("wgmma",)

@@ -10,12 +10,12 @@ Tolerance: max-abs 2e-5 in fp32, the reference's parity tolerance
 (tests/test_kernels_parity.py:23); rtol = atol = 2e-2 in bf16
 (tests/test_kernels.py:13), and one bf16 rounding step element by element
 where a case says so; relative 1e-4 for the scans with bf16 x at width
-(their outputs are fp32).  flash_attention and moe_gmm each have a
-tensor-core and a CUDA-core kernel: bf16 calls must be counted on the
-tensor-core route (``wgmma``); fp32 attention on the CUDA-core route
-(``simt``); fp32 GEMMs on the tensor cores' ``tf32x3`` route (three TF32
-products a term, held at the fp32 tolerance with TF32 off in the plain
-version), save those whose strides TMA cannot describe, on ``simt``.
+(their outputs are fp32).  flash_attention and moe_gmm each have
+tensor-core and CUDA-core kernels: bf16 calls must be counted on the
+tensor-core route (``wgmma``); fp32 calls on the tensor cores' ``tf32x3``
+route (three TF32 products a term, held at the fp32 tolerance with TF32 off
+in the plain version), save fp32 attention at head width 256 and the GEMMs
+whose strides TMA cannot describe, on the CUDA cores' ``simt``.
 """
 from __future__ import annotations
 
@@ -30,7 +30,15 @@ from repro_torch.kernels import registry as kreg
 pytestmark = pytest.mark.cuda
 
 _ROUTED = ("flash_attention", "moe_gmm")
-_FP32_ROUTE = {"flash_attention": "simt", "moe_gmm": "tf32x3"}  # at the registry's tiers
+_FP32_ROUTE = {"flash_attention": "tf32x3", "moe_gmm": "tf32x3"}  # at the registry's tiers
+
+
+def _tc_route(dtype, hd):
+    """The tensor-core route of an attention call, or None where it runs on
+    the CUDA cores (bf16 at 16, fp32 at 256)."""
+    if dtype == torch.bfloat16:
+        return "wgmma" if hd >= 32 else None
+    return "tf32x3" if hd <= 128 else None
 
 
 def _route_delta(name, before):
@@ -99,13 +107,15 @@ def test_attention_wide_heads_match_plain_version_on_the_card(card, shape):
     kdef = kreg.get_kernel("flash_attention")
     config = {"block_q": 64, "block_k": 64}
     args = kdef.make_args(shape, "float32", 2, card)
+    routes = ops.route_launch_counts()["flash_attention"]
     assert kreg.max_abs_err(kdef.call(shape, args, config), kdef.ref(shape, args)) <= 2e-5
+    assert _route_delta("flash_attention", routes) == _one_on("flash_attention", "tf32x3" if shape["hd"] <= 128 else "simt")
     # bf16: kernel and plain version round the same fp32 value once, so
     # they stay within one bf16 step of each other element by element
     args = kdef.make_args(shape, "bfloat16", 2, card)
     routes = ops.route_launch_counts()["flash_attention"]
     got, want = kdef.call(shape, args, config).float(), kdef.ref(shape, args).float()
-    assert _route_delta("flash_attention", routes) == {"simt": 0, "wgmma": 1}
+    assert _route_delta("flash_attention", routes) == _one_on("flash_attention", "wgmma")
     assert bool(((got - want).abs() <= 1e-2 * want.abs() + 1e-3).all())
 
 
@@ -272,7 +282,7 @@ def test_facts_on_the_card_matches_the_cpu(card, site):
     assert np.abs(got["trajectories"] - want["trajectories"]).max() <= 1e-3
 
 
-# head width 16, the reduced model configs' width: fp32 on the simt kernel
+# head width 16, the reduced model configs' width: fp32 on the tf32x3 kernel
 # (the bf16 tensor-core kernel starts at 32, and its route refuses 16)
 @pytest.mark.parametrize("L", [16, 128])
 @pytest.mark.parametrize("window", [None, 16], ids=["causal", "window16"])
@@ -282,7 +292,7 @@ def test_attention_head_width_16_on_the_card(card, L, window):
     args = kdef.make_args(shape, "float32", 3, card)
     routes = ops.route_launch_counts()["flash_attention"]
     got = kdef.call(shape, args, {"block_q": 64, "block_k": 64})
-    assert _route_delta("flash_attention", routes) == {"simt": 1, "wgmma": 0}
+    assert _route_delta("flash_attention", routes) == _one_on("flash_attention", "tf32x3")
     assert kreg.max_abs_err(got, kdef.ref(shape, args)) <= 2e-5
 
 
@@ -321,6 +331,7 @@ def test_reduced_model_prefill_on_the_card_matches_the_cpu(card, name, want):
 # ---------------------------------------------------------------------------
 
 BWD_ATTN_CASES = [  # (B, H, KV, Lq, Lk, hd, causal, window, dtype)
+    # fp32 on the tf32x3 route at hd 16 to 128, on simt at 256
     (2, 4, 2, 130, 130, 16, True, None, torch.float32),
     (1, 4, 1, 200, 200, 16, True, 16, torch.float32),
     (1, 2, 2, 70, 150, 64, False, None, torch.float32),
@@ -341,9 +352,18 @@ BWD_ATTN_CASES = [  # (B, H, KV, Lq, Lk, hd, causal, window, dtype)
     (1, 4, 2, 96, 200, 256, False, None, torch.bfloat16),
     (1, 4, 1, 200, 96, 128, True, None, torch.bfloat16),
     (1, 2, 1, 300, 100, 64, True, 50, torch.bfloat16),
+    # fp32 on tf32x3 at every width it takes: the broker's Lq != Lk case,
+    # GQA split into parts, ragged, windowed, Lq past Lk + window, and the
+    # llama3-8b card-vs-CPU gradient check's heads
+    (1, 4, 2, 96, 200, 64, False, None, torch.float32),
+    (1, 4, 1, 200, 96, 128, True, None, torch.float32),
+    (1, 8, 2, 333, 333, 32, True, 50, torch.float32),
+    (1, 2, 1, 300, 100, 64, True, 50, torch.float32),
+    (1, 32, 8, 256, 256, 128, True, None, torch.float32),
 ]
 _BWD_ID = lambda c: f"B{c[0]}H{c[1]}KV{c[2]}_Lq{c[3]}_Lk{c[4]}_hd{c[5]}_{'causal' if c[6] else 'full'}_w{c[7]}_{str(c[8])[6:]}"
-_WGMMA_BWD_CASES = [c for c in BWD_ATTN_CASES if c[8] == torch.bfloat16 and c[5] >= 32]
+# the cases whose forward writes LSE and whose backward reads it
+_LSE_CASES = [c for c in BWD_ATTN_CASES if _tc_route(c[8], c[5])]
 
 
 def _close(got, want, dtype):
@@ -367,17 +387,17 @@ def _bwd_route_delta(before):
     return {r: n - before[r] for r, n in ops.backward_route_launch_counts()["flash_attention_bwd"].items()}
 
 
-# every case as a standalone call (no LSE), and the wgmma cases also as the
-# train step calls them (the forward kernel's o and LSE)
-_BWD_RUNS = [(c, False) for c in BWD_ATTN_CASES] + [(c, True) for c in _WGMMA_BWD_CASES]
+# every case as a standalone call (no LSE), and the tensor-core cases also as
+# the train step calls them (the forward kernel's o and LSE)
+_BWD_RUNS = [(c, False) for c in BWD_ATTN_CASES] + [(c, True) for c in _LSE_CASES]
 
 
 @pytest.mark.parametrize("case,with_lse", _BWD_RUNS, ids=lambda x: _BWD_ID(x) if isinstance(x, tuple) else ("lse_from_forward" if x else "lse_recomputed"))
 def test_attention_backward_kernel_matches_plain_version(card, case, with_lse):
     """Each route against the plain backward (which computes its own LSE):
     with the forward kernel's o and LSE, as the train step calls it, or with
-    the plain o and no LSE (the wgmma route then runs the simt preprocess).
-    The simt route takes no LSE."""
+    the plain o and no LSE (the wgmma and tf32x3 routes then run the simt
+    preprocess).  The simt route takes no LSE."""
     from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import ref
 
@@ -395,17 +415,18 @@ def test_attention_backward_kernel_matches_plain_version(card, case, with_lse):
     got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window, lse=lse)
     torch.cuda.synchronize()
     assert ops.backward_launch_counts()["flash_attention_bwd"] == before + 1
-    assert _bwd_route_delta(routes) == {"simt": int(path == "simt"), "wgmma": int(path == "wgmma")}
-    assert path == ("simt" if dtype == torch.float32 or hd == 16 else "wgmma")
+    assert _bwd_route_delta(routes) == {r: int(r == path) for r in routes}
+    assert path == (_tc_route(dtype, hd) or "simt")
     for a, b in zip(got, ref.attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)):
         assert a.dtype == dtype and a.shape == b.shape and _close(a, b, dtype)
 
 
-@pytest.mark.parametrize("case", _WGMMA_BWD_CASES, ids=_BWD_ID)
+@pytest.mark.parametrize("case", _LSE_CASES, ids=_BWD_ID)
 def test_forward_writes_lse_without_changing_its_output(card, case):
-    """The wgmma forward with an ``lse`` out argument gives the same o, bit
-    for bit, as without, and LSE within 1e-5 (relative to its largest
-    element) of the plain LSE; a row with no live key gets -inf in both."""
+    """The tensor-core forwards (wgmma, tf32x3) with an ``lse`` out argument
+    give the same o, bit for bit, as without, and LSE within 1e-5 (relative
+    to its largest element) of the plain LSE; a row with no live key gets
+    -inf in both."""
     from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import ref
 
@@ -416,12 +437,52 @@ def test_forward_writes_lse_without_changing_its_output(card, case):
     lse = torch.full((B, H, Lq), float("nan"), dtype=torch.float32, device=card)
     o_lse = tfa.flash_attention(q, k, v, causal=causal, window=window, lse=lse)
     torch.cuda.synchronize()
-    assert _route_delta("flash_attention", routes) == {"simt": 0, "wgmma": 2}
+    path = _tc_route(dtype, hd)
+    assert _route_delta("flash_attention", routes) == {r: 2 * int(r == path) for r in routes}
     assert torch.equal(o, o_lse)
     want = ref.attention_lse_ref(q, k, causal=causal, window=window)
     finite = torch.isfinite(want)
     assert torch.equal(torch.isfinite(lse), finite) and bool((lse[~finite] == float("-inf")).all())
     assert float((lse - want)[finite].abs().max()) <= 1e-5 * float(want[finite].abs().max())
+
+
+# the fp32 forward on tf32x3 at every width it takes, against the plain
+# version at max-abs 2e-5: causal, windowed, ragged (no multiple of the 64-row
+# q tile or the 32-row k tile), non-causal, GQA and MQA, and Lq != Lk both
+# ways (causal, positions from 0 in q and k)
+_TF32X3_FWD = [  # (B, H, KV, Lq, Lk, hd, causal, window)
+    (2, 4, 2, 130, 130, 16, True, None),
+    (1, 4, 1, 200, 200, 16, True, 16),
+    (1, 4, 4, 128, 128, 32, False, None),
+    (1, 4, 2, 333, 333, 32, True, 50),
+    (2, 8, 2, 256, 256, 64, True, None),
+    (1, 2, 1, 256, 256, 64, True, 32),
+    (1, 2, 2, 192, 192, 64, False, None),
+    (1, 4, 2, 96, 200, 64, False, None),
+    (1, 4, 1, 200, 96, 128, True, None),
+    (1, 4, 2, 320, 320, 128, True, 100),
+    (1, 2, 1, 300, 100, 64, True, 50),
+]
+
+
+@pytest.mark.parametrize("case", _TF32X3_FWD, ids=lambda c: f"B{c[0]}H{c[1]}KV{c[2]}_Lq{c[3]}_Lk{c[4]}_hd{c[5]}_{'causal' if c[6] else 'full'}_w{c[7]}")
+def test_tf32x3_forward_matches_plain_version_on_the_card(card, case):
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ref
+
+    B, H, KV, Lq, Lk, hd, causal, window = case
+    q, k, v, _ = _bwd_operands(card, (B, H, KV, Lq, Lk, hd, causal, window, torch.float32))
+    routes = ops.route_launch_counts()["flash_attention"]
+    got = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert _route_delta("flash_attention", routes) == _one_on("flash_attention", "tf32x3")
+    # a row that sees no key (Lq past Lk + window) gets 0, as the Pallas
+    # kernel's acc / max(l, 1e-37) gives it; the plain version's softmax of
+    # all -1e30 spreads it evenly over the keys instead
+    seen = ref.attention_mask(Lq, Lk, causal, window, card).any(-1)
+    want = ref.attention_ref(q, k, v, causal=causal, window=window)
+    assert float((got - want)[:, :, seen].abs().max()) <= 2e-5
+    assert bool((got[:, :, ~seen] == 0).all())
 
 
 def _rglru_bwd_operands(card, B, L, dr, seed=1):
@@ -570,10 +631,12 @@ def test_reduced_model_gradients_on_the_card_match_the_cpu(card, name):
         return torch.autograd.grad(loss, leaves)
 
     before = ops.backward_launch_counts()
+    routes = ops.backward_route_launch_counts()["flash_attention_bwd"]
     on_card = grads(params, card)
     torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in ops.backward_launch_counts().items()}
     assert launched["flash_attention_bwd"] == 2 and launched["rglru_scan_bwd"] == (4 if name == "recurrentgemma-2b" else 0)
+    assert _bwd_route_delta(routes) == {r: 2 * int(r == "tf32x3") for r in routes}  # fp32 at head width 16
     on_cpu = grads(tree_map(lambda t: t.detach().cpu(), params), "cpu")
     for a, b in zip(on_card, on_cpu):
         assert bool(a.abs().max() > 0)

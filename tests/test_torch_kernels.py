@@ -363,10 +363,11 @@ def test_build_rehashes_when_a_header_changes(monkeypatch, tmp_path):
 
 
 # (kernel, payload shape, dtype, route): bf16 at each model width and off the
-# tile grid takes the tensor cores (``wgmma``), and so do fp32 GEMMs whose
-# strides TMA can describe (``tf32x3``: three TF32 products a term); fp32
-# attention at every tier, a bf16 GEMM whose 200-byte row stride TMA cannot
-# describe and an fp32 one whose F = 50 gives the same, the CUDA cores
+# tile grid takes the tensor cores (``wgmma``), and so do fp32 attention at
+# head widths 16 to 128 and fp32 GEMMs whose strides TMA can describe
+# (``tf32x3``: three TF32 products a term); fp32 attention at 256, a bf16
+# GEMM whose 200-byte row stride TMA cannot describe and an fp32 one whose
+# F = 50 gives the same, the CUDA cores
 _ROUTES = [
     ("flash_attention", {"B": 1, "H": 32, "KV": 8, "L": 4096, "hd": 128, "causal": True, "window": None}, "bfloat16", "wgmma"),
     ("flash_attention", {"B": 1, "H": 10, "KV": 1, "L": 4096, "hd": 256, "causal": True, "window": 2048}, "bfloat16", "wgmma"),
@@ -374,9 +375,11 @@ _ROUTES = [
     ("moe_gmm", {"E": 8, "C": 1280, "D": 6144, "F": 32768}, "bfloat16", "wgmma"),
     ("moe_gmm", {"E": 3, "C": 80, "D": 96, "F": 200}, "bfloat16", "wgmma"),
     ("moe_gmm", {"E": 3, "C": 80, "D": 96, "F": 100}, "bfloat16", "simt"),
-    *[(name, dict(getattr(treg.get_kernel(name), tier)), "float32", {"flash_attention": "simt", "moe_gmm": "tf32x3"}[name])
+    *[(name, dict(getattr(treg.get_kernel(name), tier)), "float32", "tf32x3")
       for name in ("flash_attention", "moe_gmm") for tier in ("tiny_shape", "smoke_shape", "full_shape")],
-    ("flash_attention", {"B": 1, "H": 32, "KV": 8, "L": 4096, "hd": 128, "causal": True, "window": None}, "float32", "simt"),
+    ("flash_attention", {"B": 1, "H": 32, "KV": 8, "L": 4096, "hd": 128, "causal": True, "window": None}, "float32", "tf32x3"),
+    ("flash_attention", {"B": 2, "H": 4, "KV": 2, "L": 128, "hd": 16, "causal": True, "window": 16}, "float32", "tf32x3"),
+    ("flash_attention", {"B": 1, "H": 10, "KV": 1, "L": 4096, "hd": 256, "causal": True, "window": 2048}, "float32", "simt"),
     ("moe_gmm", {"E": 8, "C": 1280, "D": 6144, "F": 32768}, "float32", "tf32x3"),
     ("moe_gmm", {"E": 3, "C": 80, "D": 96, "F": 100}, "float32", "tf32x3"),
     ("moe_gmm", {"E": 3, "C": 80, "D": 96, "F": 50}, "float32", "simt"),
@@ -398,31 +401,42 @@ def test_route_refuses_a_head_width_the_kernels_lack(dtype):
 
 def test_route_counts_read_and_reset():
     counts = ops.route_launch_counts()
-    routes = {"flash_attention": ("simt", "wgmma"), "moe_gmm": ("simt", "wgmma", "tf32x3")}
+    routes = {"flash_attention": ("simt", "wgmma", "tf32x3"), "moe_gmm": ("simt", "wgmma", "tf32x3")}
     assert counts == {name: {r: counts[name][r] for r in by} for name, by in routes.items()}
     tgmm.ROUTE_LAUNCHES["tf32x3"].bump()
     assert ops.route_launch_counts()["moe_gmm"]["tf32x3"] == counts["moe_gmm"]["tf32x3"] + 1
     tfa.ROUTE_LAUNCHES["wgmma"].bump()
     assert ops.route_launch_counts()["flash_attention"]["wgmma"] == counts["flash_attention"]["wgmma"] + 1
+    tfa.ROUTE_LAUNCHES["tf32x3"].bump()
+    assert ops.route_launch_counts()["flash_attention"]["tf32x3"] == counts["flash_attention"]["tf32x3"] + 1
     bwd = ops.backward_route_launch_counts()
-    assert bwd == {"flash_attention_bwd": {"simt": bwd["flash_attention_bwd"]["simt"], "wgmma": bwd["flash_attention_bwd"]["wgmma"]}}
-    tfa.BWD_ROUTE_LAUNCHES["wgmma"].bump()
-    tfa.BWD_ROUTE_LAUNCHES["simt"].bump()
+    assert bwd == {"flash_attention_bwd": {r: bwd["flash_attention_bwd"][r] for r in ("simt", "wgmma", "tf32x3")}}
+    for r in ("wgmma", "simt", "tf32x3"):
+        tfa.BWD_ROUTE_LAUNCHES[r].bump()
     assert ops.backward_route_launch_counts()["flash_attention_bwd"] == {r: n + 1 for r, n in bwd["flash_attention_bwd"].items()}
     ops.reset_launch_counts()
     assert ops.route_launch_counts() == {name: {r: 0 for r in by} for name, by in routes.items()}
-    assert ops.backward_route_launch_counts() == {"flash_attention_bwd": {"simt": 0, "wgmma": 0}}
+    assert ops.backward_route_launch_counts() == {"flash_attention_bwd": {"simt": 0, "wgmma": 0, "tf32x3": 0}}
     assert set(ops.launch_counts().values()) == {0}
 
 
-# (dtype, head width, backward route): bf16 on the tensor cores from hd 32;
-# fp32 at every width and bf16 at 16 on the CUDA cores
-_BWD_ROUTES = [(dt, hd, "wgmma" if dt == "bfloat16" and hd >= 32 else "simt") for dt in ("bfloat16", "float32") for hd in (16, 32, 64, 128, 256)]
+# (dtype, head width, backward route): the tensor cores at the forward's
+# tensor-core widths, bf16 from hd 32 (wgmma), fp32 up to 128 (tf32x3); bf16
+# at 16 and fp32 at 256 on the CUDA cores
+_BWD_ROUTES = [
+    (dt, hd, ("wgmma" if hd >= 32 else "simt") if dt == "bfloat16" else ("tf32x3" if hd <= 128 else "simt"))
+    for dt in ("bfloat16", "float32") for hd in (16, 32, 64, 128, 256)
+]
 
 
 @pytest.mark.parametrize("dtype,hd,want", _BWD_ROUTES)
 def test_backward_route_rule(dtype, hd, want):
     assert tfa.bwd_route(getattr(torch, dtype), hd) == want
+    # the forward keeps LSE exactly where the backward reads it, on the same route
+    reads_lse = want in tfa.LSE_ROUTES
+    assert reads_lse == (want != "simt")
+    if reads_lse:
+        assert tfa.route(getattr(torch, dtype), {"hd": hd}) == want
 
 
 @pytest.mark.parametrize("dtype,hd", [("bfloat16", 96), ("float32", 96), ("bfloat16", 512), ("float32", 8), ("float16", 64)])
@@ -431,16 +445,26 @@ def test_backward_route_refuses_what_the_kernels_lack(dtype, hd):
         tfa.bwd_route(getattr(torch, dtype), hd)
 
 
-# (B, KV, H, Lk, parts on 132 SMs): recurrentgemma-2b's 64 k tiles split in
-# 2; llama3-8b's 512 blocks fill the card alone; a short MQA sequence splits
-# its 10 heads apart
-_KV_PARTS = [(1, 1, 10, 4096, 2), (2, 8, 32, 2048, 1), (1, 8, 32, 4096, 1), (1, 1, 10, 128, 10), (1, 2, 8, 1024, 4), (2, 4, 8, 2048, 1)]
+# (B, KV, H, Lk, blocks a k tile, parts on 132 SMs), wgmma (one dK/dV block
+# a k tile): recurrentgemma-2b's 64 k tiles split in 2; llama3-8b's 512
+# blocks fill the card alone; a short MQA sequence splits its 10 heads
+# apart.  tf32x3 (a dK and a dV block a k tile): the broker's fp32 Lq96 Lk200
+# case and the reduced hd 16 case go from 16 blocks to 32; llama3-8b's
+# card-vs-CPU gradient check (L 256) from 64 to 128; recurrentgemma-2b's
+# 128 blocks fill the card alone
+_KV_PARTS = [
+    (1, 1, 10, 4096, 1, 2), (2, 8, 32, 2048, 1, 1), (1, 8, 32, 4096, 1, 1), (1, 1, 10, 128, 1, 10),
+    (1, 2, 8, 1024, 1, 4), (2, 4, 8, 2048, 1, 1),
+    (1, 2, 4, 200, 2, 2), (2, 2, 4, 128, 2, 2), (1, 8, 32, 256, 2, 2), (1, 1, 10, 4096, 2, 1),
+]
 
 
-@pytest.mark.parametrize("b,n_kv,h,lk,want", _KV_PARTS)
-def test_kv_parts_rule_fills_the_card(b, n_kv, h, lk, want):
-    got = tfa.kv_parts(b, n_kv, h, lk, 132)
+@pytest.mark.parametrize("b,n_kv,h,lk,roles,want", _KV_PARTS)
+def test_kv_parts_rule_fills_the_card(b, n_kv, h, lk, roles, want):
+    got = tfa.kv_parts(b, n_kv, h, lk, 132, roles)
     assert got == want and (h // n_kv) % got == 0
+    blocks = roles * -(-lk // tfa.KV_BLOCK_ROWS) * b * n_kv * got
+    assert blocks > 16 or got == h // n_kv  # no small grid left unsplit while heads remain to split
 
 
 def test_wgmma_backward_pads_its_row_statistics():
@@ -461,3 +485,12 @@ ptxas info    : Used 46 registers, used 0 barriers"""
         {"kernel": "attn_bwd_kv_sum", "stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 46},
     ]
     assert _build.kernel_label("_Z3fooPf") == "_Z3fooPf"
+    # a kernel in a namespace nested in the anonymous one: the last name
+    nested = "_ZN55_GLOBAL__N__7a3cd1f2_18_flash_attention_cu_5e2b8c416tf32x316flash_fwd_tf32x3ILi128EEEvPKfS3_S3_Pf"
+    assert _build.kernel_label(nested) == "flash_fwd_tf32x3<128>"
+    # csrc/moe_gmm.cu's kernels sit in nested namespaces too (tc, tf32x3),
+    # and a kernel templated on a type keeps its bare name
+    gmm = "_ZN49_GLOBAL__N__0a1b2c3d_10_moe_gmm_cu_9f8e7d6c2tc9gmm_wgmmaE14CUtensorMap_stS1_Pf"
+    assert _build.kernel_label(gmm) == "gmm_wgmma"
+    typed = "_ZN55_GLOBAL__N__7a3cd1f2_18_flash_attention_bwd_cu_5e2b8c4117attn_bwd_rowstatsIfEEvPKT_S3_PKfP6float2iiii"
+    assert _build.kernel_label(typed) == "attn_bwd_rowstats"
