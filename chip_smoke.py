@@ -29,19 +29,21 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      cold too), the median time of a call as a caller pays it, host work
      included (``ms_call``, what ``ms`` meant in earlier records), the plain
      version's and one library call's device time (as ``ms``), the bound,
-     and the launches made.  flash_attention and moe_gmm each have
-     tensor-core and CUDA-core kernels, picked by rule (``route``): every
-     bf16 call here must be counted on the tensor-core route (``wgmma``),
-     and every fp32 call on ``tf32x3`` (the tensor cores, three TF32
-     products a term, held at the fp32 tolerances), save fp32 attention at
-     head width 256 and the GEMMs whose strides TMA cannot describe, on
-     ``simt``.  On ``tf32x3`` rows the bound is the function's products at
-     the TF32 tensor-core peak; ``bound_3x_ms`` gives the same for the
-     design's three products a term and ``simt_bound_ms`` the fp32 CUDA-core
-     bound (``route_bounds``).  llama3-8b's attention width is timed in
-     fp32 too, beside fp32 SDPA; and two forward cases at Lq != Lk (Lq96
-     Lk200 hd64 non-causal, Lq200 Lk96 hd128 causal) in both dtypes, fp32
-     held at relative 1e-4.
+     and the launches made.  Each call must be counted on the route its
+     rule (``route``) gives: attention runs on the tensor cores at every
+     width -- bf16 on ``wgmma`` (one TF32 product a product, ``tf32``, at
+     head width 16), fp32 on ``tf32x3`` (three TF32 products a term, held
+     at the fp32 tolerances; on two-block clusters, ``tf32x3_cluster``, at
+     256); GEMMs on ``wgmma`` (bf16) and ``tf32x3`` (fp32), save those whose
+     strides TMA cannot describe, on the CUDA cores' ``simt``.  On
+     ``tf32x3`` rows the bound is the function's products at the TF32
+     tensor-core peak; ``bound_3x_ms`` gives the same for the design's
+     three products a term and ``simt_bound_ms`` the fp32 CUDA-core bound
+     (``route_bounds``).  Both attention model widths are timed in fp32 too
+     (llama3-8b's hd 128, recurrentgemma-2b's hd 256), beside fp32 SDPA; the
+     reduced configs' hd 16 in bf16 (``tf32``) beside bf16 SDPA; and two
+     forward cases at Lq != Lk (Lq96 Lk200 hd64 non-causal, Lq200 Lk96
+     hd128 causal) in both dtypes, fp32 held at relative 1e-4.
   3. broker: ``Hydra(device="cuda")`` with a cloud (CaaS) and an HPC (pilot)
      provider on the card runs a backlog of noop tasks, kernel tasks at the
      registry's full shapes and one 2-rep task per model width, with the
@@ -49,7 +51,7 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      ``kernel.exec`` events must reconcile with the broker's counters, and
      each kernel's launch counter must rise by exactly the reps dispatched,
      each on the route ``expected_route`` gives (bf16 on ``wgmma``, fp32
-     on ``tf32x3``, fp32 attention at head width 256 on ``simt``).
+     on ``tf32x3``).
   4. scenario: the reference's acceptance scenario, ``searise_at_scale``
      (1024 FACTS members, 6 training jobs, 4 serve waves of 16 tasks, 4
      providers and an elastic burst pool) with the settings of
@@ -78,7 +80,8 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      bite), falcon-mamba-7b cut to 2 layers at 512 (two chunks carry the
      state), llama3-8b cut to 2 layers at 1000 (blocks of 125), each prefill
      launching exactly its kernels (fp32 attention on ``tf32x3`` at
-     llama3-8b's head width 128, on ``simt`` at recurrentgemma-2b's 256).  falcon-mamba-7b and llama3-8b at full
+     llama3-8b's head width 128, on ``tf32x3_cluster`` at recurrentgemma-2b's
+     256).  falcon-mamba-7b and llama3-8b at full
      width cut to 4 layers in bf16 at a prompt of 4096: finite, 64
      ``selective_scan`` and 4 ``wgmma`` attention launches, warm prefill
      time.  Then ``serve("recurrentgemma-2b",
@@ -101,19 +104,18 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      <= 1e-4; bf16 element by element, rtol = atol = 2e-2 with atol against
      the largest element) at llama3-8b's and recurrentgemma-2b's attention
      widths in bf16, head width 16 in fp32, an Lq != Lk non-causal case in
-     fp32, the ``simt`` kernels at the widths the rule leaves them
-     (recurrentgemma-2b's hd 256 in fp32, hd 16 in bf16), and
+     fp32, recurrentgemma-2b's hd 256 in fp32 (``tf32x3_cluster``) and hd
+     16 in bf16 (``tf32``), and
      the RG-LRU backward at B1 L4096 dr2560 (log_a in [-0.1, 0], so the
      carries between segments matter; one kernel a call, by the profiler), each timed
      (warm and cold) beside its plain version, SDPA's autograd backward
      (attention; timed only) and its bound.  Each attention case must take
-     the route the rule gives it.  On the tensor cores (bf16 ``wgmma``,
-     fp32 ``tf32x3``) it is timed as the
+     the route the rule gives it.  It is timed as the
      train step calls it, with the o and LSE of the forward kernel (whose o
      must equal, bit for bit, its o without LSE, and whose LSE must be
-     within 1e-5 of the plain LSE), and also without LSE; each ``tf32x3``
-     and ``simt`` case is profiled once and must run its route's kernels
-     and no other (no ``bwd_pre`` on ``tf32x3``).  Then ``train("recurrentgemma-2b",
+     within 1e-5 of the plain LSE), and also without LSE; each case off
+     ``wgmma`` is profiled once and must run its route's kernels and no
+     other (no ``bwd_pre``, the preprocess for a caller without LSE).  Then ``train("recurrentgemma-2b",
      reduced=False, steps=3, seq_len=4096, global_batch=1)`` in bf16: every
      backward launch of its first step held against its plain version on
      its own operands (the plain attention backward computes its own LSE,
@@ -136,7 +138,7 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      their backward launches, one falcon-mamba-7b task FAILED with
      ``ops.BackwardNotPorted`` (the selective_scan backward is not ported).
      The fp32 backward launches (the card-vs-CPU gradients and the tasks)
-     must all take the ``tf32x3`` route.
+     must all take the ``tf32x3`` route (head width 128 and the reduced 16).
   8. report: the card line, one JSON line of the kernels (route, source, the
      TPU kernel each replaces, launches in phase 3 in total and by kernel
      route, in each scenario twin and in one full-size serve prefill
@@ -209,12 +211,15 @@ ATTN_VARIANTS = [
     ({"B": 1, "H": 4, "KV": 1, "L": 320, "hd": 256, "causal": True, "window": 100}, "ragged_windowed_hd256"),
 ]
 
-# head width 16, the reduced model configs' width: fp32 only (the bf16
-# tensor-core kernel starts at 32 and its route refuses 16)
+# head width 16, the reduced model configs' width: fp32 on tf32x3, bf16 on
+# tf32 (one TF32 product a product; the wgmma kernel starts at 32)
 HD16_CASES = [
     ({"B": 2, "H": 4, "KV": 2, "L": L, "hd": 16, "causal": True, "window": w}, f"hd16_L{L}_{'window16' if w else 'causal'}")
     for L in (16, 128) for w in (None, 16)
 ]
+# the bf16 hd 16 forward timed: the reduced configs' attention as the
+# backward's case below (B2 H4 KV2 L128, window 16)
+HD16_BF16_TIMED = ({"B": 2, "H": 4, "KV": 2, "L": 128, "hd": 16, "causal": True, "window": 16}, "hd16_reduced_bf16")
 
 # GEMMs off the tile grid, in both dtypes: C, D and F ragged (TMA clips per
 # expert; bf16 w read through the transpose bit, fp32 w transposed into the
@@ -247,6 +252,7 @@ ROUTED = ("flash_attention", "moe_gmm")
 
 FLUSH_BYTES = 512 << 20  # more than the 50 MB L2, and long enough to hide a launch
 TF32_OPS_PER_S = 495e12  # the H100 SXM's dense TF32 tensor-core peak at 700 W (NVIDIA's data sheet)
+X3_ROUTES = ("tf32x3", "tf32x3_cluster")  # fp32 on three TF32 products a product
 
 
 def card_line() -> str:
@@ -340,17 +346,18 @@ def as_tuple(out):
 def route_bounds(flops: float, nbytes: float, dtype: str, route) -> dict:
     """The least time of a call of ``flops`` on ``nbytes`` on the H100's
     data-sheet peaks (the port keeps them with its cost model,
-    kernels/autotune.py): at the operands' type's rate, or, on ``tf32x3``,
-    at the tensor cores' TF32 rate, which no design on the tensor cores can
-    beat.  Two more figures on ``tf32x3``, not its bound: ``bound_3x_ms``,
-    the same for the three TF32 products a product the design does, and
-    ``simt_bound_ms``, the fp32 CUDA cores' rate (the ``simt`` route's)."""
+    kernels/autotune.py): at the operands' type's rate, or, for fp32 on
+    ``tf32x3`` and ``tf32x3_cluster``, at the tensor cores' TF32 rate, which
+    no design on the tensor cores can beat.  Two more figures there, not
+    the bound: ``bound_3x_ms``, the same for the three TF32 products a
+    product the design does, and ``simt_bound_ms``, the fp32 CUDA cores'
+    rate (a CUDA-core kernel's)."""
     from repro_torch.kernels.autotune import HBM_BYTES_PER_S, PEAK_OPS_PER_S
 
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / (TF32_OPS_PER_S if route == "tf32x3" else PEAK_OPS_PER_S[dtype])
+    t_ops = flops / (TF32_OPS_PER_S if route in X3_ROUTES else PEAK_OPS_PER_S[dtype])
     row = {"bound_ms": 1e3 * max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-    if route == "tf32x3":
+    if route in X3_ROUTES:
         row["bound_3x_ms"] = 1e3 * max(3 * t_ops, t_bytes)
         row["simt_bound_ms"] = 1e3 * max(flops / PEAK_OPS_PER_S["float32"], t_bytes)
     return row
@@ -388,19 +395,28 @@ def library_call(torch, name: str, shape: dict, args: tuple):
 
 
 def expected_route(name: str, shape: dict, dtype: str):
-    """The route a call must take: attention bf16 on ``wgmma`` and fp32 on
-    ``tf32x3`` up to head width 128, on the CUDA cores at 256; GEMMs on the
-    tensor cores where TMA can describe the strides (D and F a multiple of
-    16 bytes), bf16 on ``wgmma`` and fp32 on ``tf32x3``, else on the CUDA
-    cores."""
+    """The route a call must take: attention bf16 on ``wgmma`` from head
+    width 32 and on ``tf32`` at 16, fp32 on ``tf32x3`` up to 128 and on
+    ``tf32x3_cluster`` at 256; GEMMs on the tensor cores where TMA can
+    describe the strides (D and F a multiple of 16 bytes), bf16 on
+    ``wgmma`` and fp32 on ``tf32x3``, else on the CUDA cores."""
     if name not in ROUTED:
         return None
     if name == "flash_attention":
-        return "wgmma" if dtype == "bfloat16" else ("tf32x3" if shape["hd"] <= 128 else "simt")
+        if dtype == "bfloat16":
+            return "wgmma" if shape["hd"] >= 32 else "tf32"
+        return "tf32x3" if shape["hd"] <= 128 else "tf32x3_cluster"
     item = 2 if dtype == "bfloat16" else 4
     if shape["D"] * item % 16 or shape["F"] * item % 16:
         return "simt"
     return "wgmma" if dtype == "bfloat16" else "tf32x3"
+
+
+def all_on(route: str, n: int) -> dict:
+    """The attention's launch counts by route when all ``n`` took ``route``."""
+    from repro_torch.kernels import flash_attention as fa
+
+    return {r: n if r == route else 0 for r in fa.ROUTES}
 
 
 def check_bf16_elements(got, want, label):
@@ -663,9 +679,9 @@ FACTS_SAMPLES = 150_000  # benchmarks/exp4_facts.py:21
 
 MODEL_TOL = 1e-4  # relative max error, card against CPU in fp32
 # (arch, layers kept, prompt length, the launches its prefill must make,
-# the route of its fp32 attention: tf32x3 at head width 128, simt at 256)
+# the route of its fp32 attention: tf32x3 at head width 128, tf32x3_cluster at 256)
 MODEL_CHECKS = [
-    ("recurrentgemma-2b", 3, 2176, {"rglru_scan": 2, "flash_attention": 1}, "simt"),
+    ("recurrentgemma-2b", 3, 2176, {"rglru_scan": 2, "flash_attention": 1}, "tf32x3_cluster"),
     ("falcon-mamba-7b", 2, 512, {"selective_scan": 4}, None),
     ("llama3-8b", 2, 1000, {"flash_attention": 2}, "tf32x3"),
 ]
@@ -1005,26 +1021,32 @@ def run_full_width(torch, ops, name, n_layers, prompt, want, dev):
     )
 
 
-def device_profile(torch, fn, grad: bool = False):
+def device_profile(torch, fn, grad: bool = False, expect: str | None = None):
     """``fn()`` once under torch.profiler (with grad mode on only when
     ``grad``): its wall (synchronized) and the device time of every kernel
-    the trace holds, by name."""
+    the trace holds, by name.  ``expect``: a part of a name the call's
+    trace must hold; a trace without it, lost by the tracer or not, is
+    taken once more (a line says so), and the caller's check reads the
+    second."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.set_grad_enabled(grad), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        # a trace may miss its first kernel: a spin goes first
-        torch.cuda._sleep(1)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    device = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            device[e.name] = device.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-6
-    return out, wall_s, device
+    for attempt in range(2):
+        with torch.set_grad_enabled(grad), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            # a trace may miss its first kernel: a spin goes first
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        device = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                device[e.name] = device.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-6
+        if expect is None or attempt or any(expect in n for n in device):
+            return out, wall_s, device
+        print(f"device_profile: no kernel named *{expect}* in the trace ({sorted(device)}); profiling the call again", flush=True)
 
 
 def top_kernels(device: dict, n: int = 5) -> list:
@@ -1057,7 +1079,7 @@ def run_serve(torch, ops, dev):
             raise AssertionError("serve: logits are not finite")
         if out["prefill_launches"] != SERVE_PREFILL_LAUNCHES or set(out["decode_launches"].values()) != {0}:
             raise AssertionError(f"serve: prefill launches {out['prefill_launches']} (want {SERVE_PREFILL_LAUNCHES}), decode {out['decode_launches']} (want none)")
-        if routes["flash_attention"] != {"simt": 0, "wgmma": 8, "tf32x3": 0} or set(routes["moe_gmm"].values()) != {0}:
+        if routes["flash_attention"] != all_on("wgmma", 8) or set(routes["moe_gmm"].values()) != {0}:
             raise AssertionError(f"serve: launches by route {routes}, want the 8 attention launches on wgmma")
         if out["tokens"].shape != (SERVE["batch"], SERVE["gen"]):
             raise AssertionError(f"serve: tokens of shape {out['tokens'].shape}")
@@ -1127,7 +1149,7 @@ def run_compute_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState):
     for t in tasks:
         if t.tstate != TaskState.DONE or t.result() != {"logits_shape": [2, 1, 256]}:
             raise AssertionError(f"compute: {t.arch} task ended {t.tstate.value}: {t.exception()!r}")
-    if launches != COMPUTE_LAUNCHES or routes["flash_attention"] != {"simt": 0, "wgmma": 0, "tf32x3": 4}:
+    if launches != COMPUTE_LAUNCHES or routes["flash_attention"] != all_on("tf32x3", 4):
         raise AssertionError(f"compute: launches {launches} by route {routes}, want {COMPUTE_LAUNCHES} (attention on tf32x3)")
     h.shutdown(wait=True)
     print(f"compute tasks={len(tasks)} archs={list(COMPUTE_ARCHS)} wall_s={wall} launches={json.dumps(launches)}", flush=True)
@@ -1136,15 +1158,16 @@ def run_compute_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState):
 # -- the train path --------------------------------------------------------
 
 # attention backward cases: (label, B, H, KV, Lq, Lk, hd, causal, window,
-# dtype, the route the rule gives): every route's kernels, the simt route at
-# both widths it keeps (fp32 at recurrentgemma-2b's hd 256, bf16 at hd 16)
+# dtype, the route the rule gives): every route's kernels, the two that took
+# the last CUDA-core widths among them (fp32 at recurrentgemma-2b's hd 256,
+# bf16 at hd 16)
 BWD_ATTN_CASES = [
     ("llama3_8b", 2, 32, 8, 2048, 2048, 128, True, None, "bfloat16", "wgmma"),
     ("recurrentgemma_2b", 1, 10, 1, 4096, 4096, 256, True, 2048, "bfloat16", "wgmma"),
     ("hd16_reduced", 2, 4, 2, 128, 128, 16, True, 16, "float32", "tf32x3"),
     ("lq96_lk200_non_causal", 1, 4, 2, 96, 200, 64, False, None, "float32", "tf32x3"),
-    ("recurrentgemma_2b_fp32", 1, 10, 1, 4096, 4096, 256, True, 2048, "float32", "simt"),
-    ("hd16_reduced_bf16", 2, 4, 2, 128, 128, 16, True, 16, "bfloat16", "simt"),
+    ("recurrentgemma_2b_fp32", 1, 10, 1, 4096, 4096, 256, True, 2048, "float32", "tf32x3_cluster"),
+    ("hd16_reduced_bf16", 2, 4, 2, 128, 128, 16, True, 16, "bfloat16", "tf32"),
 ]
 BWD_RGLRU_CASE = ("recurrentgemma_2b", 1, 4096, 2560)
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -1163,18 +1186,18 @@ TRAIN_TASKS = (("llama3-8b", 3), ("recurrentgemma-2b", 3))
 TRAIN_TASK_LAUNCHES = {"flash_attention": 12, "selective_scan": 0, "rglru_scan": 12, "moe_gmm": 0}
 TRAIN_TASK_BACKWARD_LAUNCHES = {"flash_attention_bwd": 12, "rglru_scan_bwd": 12}
 # the train step's kernels in a profiler trace: the forward kernels and the
-# backward kernels' symbols (csrc/*_bwd.cu)
-# (csrc/flash_attention_bwd.cu is the simt route, csrc/flash_attention_bwd_wgmma.cu the wgmma one,
-# csrc/flash_attention_bwd_tf32x3.cu the tf32x3 one)
-# (the row pass and the parts' sum, csrc/attention_bwd_rows.cuh, are both tensor-core routes')
-SIMT_BWD_SYMBOLS = ("bwd_pre", "bwd_dkdv", "bwd_dq")
+# backward kernels' symbols (csrc/*_bwd*.cu): csrc/flash_attention_bwd_wgmma.cu
+# is the wgmma route, csrc/flash_attention_bwd_tf32x3.cu the three TF32 ones
+# (tf32x3, tf32x3_cluster, tf32: one kernel template); the row pass and the
+# parts' sum (csrc/attention_bwd_rows.cuh) are every route's, and bwd_pre
+# (csrc/flash_attention_bwd.cu) runs only for a caller without the LSE
 WGMMA_BWD_SYMBOLS = ("attn_bwd_rowstats", "attn_bwd_kv_wgmma", "attn_bwd_kv_sum", "attn_bwd_q_wgmma")
-TF32X3_BWD_SYMBOLS = ("attn_bwd_rowstats", "tf32x3_bwd_dqkv", "attn_bwd_kv_sum")
+TF32_BWD_SYMBOLS = ("attn_bwd_rowstats", "tf32_bwd_dqkv", "attn_bwd_kv_sum")
 TRAIN_SYMBOLS = {
     "flash_attention": ("flash_fwd",), "rglru_scan": ("rglru_kernel",),
-    "flash_attention_bwd": tuple(dict.fromkeys(SIMT_BWD_SYMBOLS + WGMMA_BWD_SYMBOLS + TF32X3_BWD_SYMBOLS)), "rglru_scan_bwd": ("rglru_bwd_kernel",),
+    "flash_attention_bwd": tuple(dict.fromkeys(("bwd_pre",) + WGMMA_BWD_SYMBOLS + TF32_BWD_SYMBOLS)), "rglru_scan_bwd": ("rglru_bwd_kernel",),
 }
-ROUTE_BWD_SYMBOLS = {"simt": SIMT_BWD_SYMBOLS, "wgmma": WGMMA_BWD_SYMBOLS, "tf32x3": TF32X3_BWD_SYMBOLS}
+ROUTE_BWD_SYMBOLS = {"wgmma": WGMMA_BWD_SYMBOLS, "tf32x3": TF32_BWD_SYMBOLS, "tf32x3_cluster": TF32_BWD_SYMBOLS, "tf32": TF32_BWD_SYMBOLS}
 BACKWARD_INFO = {
     "flash_attention_bwd": ("cuda", "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu", "src/repro/models/attention.py:36"),
     "rglru_scan_bwd": ("cuda", "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu", "src/repro/models/rglru.py:137"),
@@ -1271,7 +1294,7 @@ def sdpa_backward(torch, q, k, v, do, causal, window):
 
 def forward_with_lse(torch, q, k, v, causal, window, label):
     """The forward kernel's o and LSE, as the train step's forward makes them
-    for the tensor-core backwards (wgmma, tf32x3).  Raises unless o equals, bit for bit, the
+    for the backward.  Raises unless o equals, bit for bit, the
     forward's o without LSE and LSE is within LSE_TOL (relative to its
     largest element) of the plain LSE.  Returns (o, lse, LSE's error)."""
     from repro_torch.kernels import flash_attention as fa
@@ -1295,14 +1318,12 @@ def names_kernel(name: str, sym: str) -> bool:
 
 def check_backward_kernels(torch, ops, dev, flush):
     """Each backward kernel against its plain version on the card, timed.
-    The attention backward's cases take each route the rule gives: the
-    tensor cores (bf16 wgmma, fp32 tf32x3), timed as the train step calls
-    them (the forward kernel's o and LSE) and also without LSE
-    (``ms_lse_recomputed``: the simt preprocess computes it), and the simt
-    kernels at the widths they keep (fp32 hd 256, bf16 hd 16).  One call of
-    each tf32x3 and simt case is profiled: it must run its route's kernels
-    and no other (the parts' sum only where there are parts; no simt
-    preprocess, ``bwd_pre``, where the forward's LSE is given); the wgmma
+    The attention backward's cases take each route the rule gives, timed as
+    the train step calls them (the forward kernel's o and LSE) and also
+    without LSE (``ms_lse_recomputed``: the preprocess ``bwd_pre`` computes
+    it).  One call of each case off wgmma is profiled: it must run its
+    route's kernels and no other (the parts' sum only where there are
+    parts; no ``bwd_pre``, since the forward's LSE is given); the wgmma
     kernels are read in ``train_profile``."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -1317,11 +1338,7 @@ def check_backward_kernels(torch, ops, dev, flush):
         q = torch.randn(B, H, Lq, hd, generator=g, device=dev).to(dt)
         k, v = (torch.randn(B, KV, Lk, hd, generator=g, device=dev).to(dt) for _ in range(2))
         do = torch.randn(B, H, Lq, hd, generator=g, device=dev).to(dt)
-        lse, lse_err = None, None
-        if path in fa.LSE_ROUTES:
-            o, lse, lse_err = forward_with_lse(torch, q, k, v, causal, window, label)
-        else:
-            o = ref.attention_ref(q, k, v, causal=causal, window=window)
+        o, lse, lse_err = forward_with_lse(torch, q, k, v, causal, window, label)
         run = lambda: ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window, lse=lse)
         run_no_lse = lambda: ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
         want = ref.attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
@@ -1334,26 +1351,24 @@ def check_backward_kernels(torch, ops, dev, flush):
             raise AssertionError(f"flash_attention_bwd {label}: the wrapper did not launch its {path} kernel")
         abs_err, err = check_grads(torch, got, want, dtype, f"flash_attention_bwd {label}")
         row = {"kernel": "flash_attention_bwd", "case": label, "dtype": dtype, "route": path, "max_abs_err": abs_err, "rel_err": err}
-        if lse is not None:
-            _, err_no_lse = check_grads(torch, run_no_lse(), want, dtype, f"flash_attention_bwd {label} without LSE")
-            row.update(lse_rel_err=lse_err, rel_err_lse_recomputed=err_no_lse)
+        _, err_no_lse = check_grads(torch, run_no_lse(), want, dtype, f"flash_attention_bwd {label} without LSE")
+        row.update(lse_rel_err=lse_err, rel_err_lse_recomputed=err_no_lse)
         lib = sdpa_backward(torch, q, k, v, do, causal, window)
         row.update({
             "ms": median_ms(torch, run), "ms_cold": cold_ms(torch, run, flush), "ms_call": call_ms(torch, run),
-            "ms_lse_recomputed": median_ms(torch, run_no_lse) if lse is not None else None,
+            "ms_lse_recomputed": median_ms(torch, run_no_lse),
             "plain_ms": median_ms(torch, lambda: ref.attention_bwd_ref(q, k, v, o, do, causal=causal, window=window), max_reps=3),
             "library_ms": median_ms(torch, lib, max_reps=10) if lib is not None else None,
         })
         row.update(attention_bwd_bound(B, H, KV, Lq, Lk, hd, causal, window, dtype, path))
-        if path in fa.LSE_ROUTES:
-            row["kv_parts"] = fa.kv_parts(B, KV, H, Lk, torch.cuda.get_device_properties(dev).multi_processor_count,
-                                          fa.KV_ROLES[path])
+        row["kv_parts"] = fa.kv_parts(B, KV, H, Lk, torch.cuda.get_device_properties(dev).multi_processor_count
+                                      // fa.CLUSTER_BLOCKS.get(path, 1), fa.KV_ROLES[path])
         if path != "wgmma":  # the call's kernels, by the trace: its route's and no other
-            _, _, device = device_profile(torch, run)
+            _, _, device = device_profile(torch, run, expect="bwd")
             ran = sorted(n for n in device if "bwd" in n)
             needed = [sym for sym in ROUTE_BWD_SYMBOLS[path] if sym != "attn_bwd_kv_sum" or row["kv_parts"] > 1]
             if not all(any(names_kernel(n, sym) for n in ran) for sym in needed) or len(ran) != len(needed) or (
-                    lse is not None and any(names_kernel(n, "bwd_pre") for n in ran)):
+                    any(names_kernel(n, "bwd_pre") for n in ran)):
                 raise AssertionError(f"flash_attention_bwd {label}: one call ran the kernels {ran}, want {needed}")
             row["kernels_per_call"] = ran
         print("train_kernel " + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
@@ -1375,7 +1390,7 @@ def check_backward_kernels(torch, ops, dev, flush):
         raise AssertionError("rglru_scan_bwd: the wrapper did not count its launch")
     abs_err, err = check_grads(torch, got, want, "float32", f"rglru_scan_bwd {label}")
     # one kernel a call, by the trace (the scratch's zeroing is a memset)
-    _, _, device = device_profile(torch, run)
+    _, _, device = device_profile(torch, run, expect="rglru")
     kernels = sorted(n for n in device if "rglru" in n)
     if len(kernels) != 1 or TRAIN_SYMBOLS["rglru_scan_bwd"][0] not in kernels[0]:
         raise AssertionError(f"rglru_scan_bwd: one call ran the kernels {kernels}, want one {TRAIN_SYMBOLS['rglru_scan_bwd']}")
@@ -1489,7 +1504,7 @@ def run_train_full_size(torch, ops, dev):
         backward_routes = ops.backward_route_launch_counts()["flash_attention_bwd"]
     carries_err = check_rglru_carries(torch, ops, kept, dev)
     del kept
-    want_routes = {"simt": 0, "wgmma": TRAIN_BACKWARD_LAUNCHES["flash_attention_bwd"] * TRAIN["steps"], "tf32x3": 0}
+    want_routes = all_on("wgmma", TRAIN_BACKWARD_LAUNCHES["flash_attention_bwd"] * TRAIN["steps"])
     if backward_routes != want_routes:
         raise AssertionError(f"train: attention backward launches by route {backward_routes}, want {want_routes} (bf16 on wgmma)")
     for k, n in TRAIN_BACKWARD_LAUNCHES.items():
@@ -1589,7 +1604,7 @@ def run_train_dense_width(torch, ops, dev):
             norms.append(float(metrics["grad_norm"]))
             per_step.append((ops.launch_counts(), ops.backward_launch_counts(), ops.backward_route_launch_counts()["flash_attention_bwd"]))
     for fwd, bwd, routes in per_step:
-        if fwd["flash_attention"] != 2 * n or bwd != {"flash_attention_bwd": n, "rglru_scan_bwd": 0} or routes != {"simt": 0, "wgmma": n, "tf32x3": 0}:
+        if fwd["flash_attention"] != 2 * n or bwd != {"flash_attention_bwd": n, "rglru_scan_bwd": 0} or routes != all_on("wgmma", n):
             raise AssertionError(f"train_dense: launches {fwd} / backward {bwd} by route {routes}, want {2 * n} attention (remat) and {n} backward on wgmma")
     if checked["flash_attention_bwd"]["calls"] != n or shares != [1.0] * DENSE_TRAIN["steps"] or not all(math.isfinite(x) for x in losses + norms):
         raise AssertionError(f"train_dense: checked {checked}, nonzero-gradient shares {shares}, losses {losses}")
@@ -1642,7 +1657,7 @@ def check_grads_on_card(torch, ops, dev):
         ops.flash_attention_bwd = original
     launched = ops.backward_launch_counts()
     routes = ops.backward_route_launch_counts()["flash_attention_bwd"]
-    if routes != {"simt": 0, "wgmma": 0, "tf32x3": GRAD_CHECK["layers"]}:
+    if routes != all_on("tf32x3", GRAD_CHECK["layers"]):
         raise AssertionError(f"train_grads: fp32 attention backward launches by route {routes}, want all on tf32x3")
     if lse_passed != [True] * GRAD_CHECK["layers"]:
         raise AssertionError(f"train_grads: the forward's LSE handed to each attention backward: {lse_passed}")
@@ -1684,7 +1699,7 @@ def run_train_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState):
     routes = ops.backward_route_launch_counts()["flash_attention_bwd"]
     if pending:
         raise AssertionError(f"train_tasks: {len(pending)} tasks unfinished after 300 s")
-    if routes != {"simt": 0, "wgmma": 0, "tf32x3": TRAIN_TASK_BACKWARD_LAUNCHES["flash_attention_bwd"]}:
+    if routes != all_on("tf32x3", TRAIN_TASK_BACKWARD_LAUNCHES["flash_attention_bwd"]):
         raise AssertionError(f"train_tasks: fp32 attention backward launches by route {routes}, want all on tf32x3")
     keys = ["ce", "grad_norm", "loss", "lr", "tokens"]
     for t in tasks:
@@ -1760,10 +1775,14 @@ def main() -> int:
                 timed=False, config={"block_q": 64, "block_k": 64},
             )
     for shape, label in HD16_CASES:
-        check_kernel(
-            torch, kreg, ops, "flash_attention", shape, "float32", 1, TIER_TOL, False, label, dev,
-            timed=False, config={"block_q": 64, "block_k": 64},
-        )
+        for dtype, tol in (("float32", TIER_TOL), ("bfloat16", 2e-2)):
+            check_kernel(
+                torch, kreg, ops, "flash_attention", shape, dtype, 1, tol, False, f"{label}_{dtype}", dev,
+                timed=False, config={"block_q": 64, "block_k": 64},
+            )
+    shape, label = HD16_BF16_TIMED
+    attn_bf16_hd16 = check_kernel(torch, kreg, ops, "flash_attention", shape, "bfloat16", 1, WIDTH_TOL["bfloat16"], True,
+                                  label, dev, config={"block_q": 64, "block_k": 64}, flush=flush)
     for shape, label in GMM_CASES:
         for dtype, tol in (("float32", TIER_TOL), ("bfloat16", 2e-2)):
             check_kernel(torch, kreg, ops, "moe_gmm", shape, dtype, 1, tol, False, f"{label}_{dtype}", dev, timed=False)
@@ -1776,7 +1795,7 @@ def main() -> int:
             timed=False, config=block,
         )
     check_concurrent(torch, kreg, ops, dev)
-    widths, gemm_fp32, attn_fp32, seen = {}, None, None, set()
+    widths, gemm_fp32, attn_fp32, seen = {}, None, {}, set()
     for name, model, shape, dtype in MODEL_WIDTHS:
         label = f"{model}_fp32" if (name, model) in seen else model  # the grok GEMM's second dtype
         seen.add((name, model))
@@ -1787,12 +1806,11 @@ def main() -> int:
         if (name, dtype) == ("moe_gmm", "float32"):
             gemm_fp32 = row
         if dtype == "bfloat16" and name == "flash_attention":
-            # the same width in fp32, where the relative tolerance is tight;
-            # llama3-8b's (tf32x3) timed beside fp32 SDPA, TF32 off
-            timed = model == "llama3_8b"
-            row = check_kernel(torch, kreg, ops, name, shape, "float32", 0, WIDTH_TOL["float32"], True, f"{model}_fp32", dev,
-                               timed=timed, flush=flush)
-            attn_fp32 = row if timed else attn_fp32
+            # the same width in fp32, where the relative tolerance is tight,
+            # timed beside fp32 SDPA, TF32 off: llama3-8b's on tf32x3,
+            # recurrentgemma-2b's on tf32x3_cluster
+            attn_fp32[model] = check_kernel(torch, kreg, ops, name, shape, "float32", 0, WIDTH_TOL["float32"], True,
+                                            f"{model}_fp32", dev, flush=flush)
         torch.cuda.empty_cache()
     lq_lk = check_attention_lq_lk(torch, ops, dev, flush)
 
@@ -1864,20 +1882,21 @@ def main() -> int:
                      "bound_ms", "bound_by", "bound_3x_ms", "simt_bound_ms")
         if name == "moe_gmm":  # the fp32 width, on tf32x3, beside the bf16 one
             report[-1]["fp32_width"] = {k: gemm_fp32[k] for k in fp32_keys}
-        if name == "flash_attention":  # llama3-8b's width in fp32 (tf32x3), and Lq != Lk
-            report[-1]["fp32_width"] = {k: attn_fp32[k] for k in fp32_keys}
+        if name == "flash_attention":  # both widths in fp32, bf16 at hd 16, and Lq != Lk
+            report[-1]["fp32_width"] = {k: attn_fp32["llama3_8b"][k] for k in fp32_keys}
+            report[-1]["fp32_hd256"] = {k: attn_fp32["recurrentgemma_2b"][k] for k in fp32_keys}
+            report[-1]["bf16_hd16"] = {k: attn_bf16_hd16.get(k) for k in fp32_keys}
             report[-1]["lq_ne_lk"] = lq_lk
     for name, (route, source, replaces) in BACKWARD_INFO.items():
         row = bwd_rows[name]["recurrentgemma_2b"]
         extra = {}
-        if name == "flash_attention_bwd":  # bf16 on wgmma (this source), fp32 on tf32x3, what they leave on simt
+        if name == "flash_attention_bwd":  # bf16 on wgmma (this source) and tf32, fp32 on tf32x3 and tf32x3_cluster
             others = {label: {k: r.get(k) for k in ("dtype", "route", "rel_err", "ms", "ms_cold", "ms_call",
                                                     "ms_lse_recomputed", "plain_ms", "library_ms", "bound_ms", "bound_by",
                                                     "bound_3x_ms", "simt_bound_ms", "kv_parts", "kernels_per_call")}
                       for label, r in bwd_rows[name].items() if r["route"] != "wgmma"}
             extra = {"width_route": row["route"], "route_launches": train_backward_routes,
-                     "tf32x3_source": "src/repro_torch/kernels/csrc/flash_attention_bwd_tf32x3.cu",
-                     "simt_source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu", "other_cases": others}
+                     "tf32_source": "src/repro_torch/kernels/csrc/flash_attention_bwd_tf32x3.cu", "other_cases": others}
         else:
             extra = {"kernels_per_call": row["kernels_per_call"]}
         report.append({

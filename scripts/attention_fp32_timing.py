@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Device time of the port's fp32 attention kernels, forward and backward, at
-the cases chip_smoke.py holds them at, on one NVIDIA GPU.
+"""Device time of the port's attention kernels on the TF32 tensor-core routes
+(fp32, and bf16 at head width 16), forward and backward, at the cases
+chip_smoke.py holds them at, on one NVIDIA GPU.
 
     python3 scripts/attention_fp32_timing.py [--src DIR]
 
@@ -8,16 +9,19 @@ the cases chip_smoke.py holds them at, on one NVIDIA GPU.
 this checkout's), so that two commits can be timed on one card in one run:
 unpack the other with ``git archive`` under ``build/`` and give its ``src``.
 The cases are chip_smoke.py's: the registry's three fp32 attention tiers,
-llama3-8b's attention width (``MODEL_WIDTHS``) and the Lq != Lk cases
-(``LQ_LK_CASES``) forward, the fp32 entries of ``BWD_ATTN_CASES`` backward.
-Each case prints one ``timing`` line of JSON: the route the call took (by
-the kernel module's launch counters), the error against the plain version
-(max-abs, and relative to the largest element), the kernel's median device
-time (``ms``, chip_smoke.py's spin-kernel timing) and SDPA's device time on
-the same operands with TF32 off.  The backward is timed as the package's
-train step calls it: with the forward kernel's LSE where the route takes
-one.  Set-up prints the card line and the ``ptxas`` lines (registers,
-spills) of the sources it built.
+both attention model widths in fp32 (``MODEL_WIDTHS``: llama3-8b's hd 128,
+recurrentgemma-2b's hd 256), the Lq != Lk cases (``LQ_LK_CASES``) and the
+reduced configs' hd 16 in bf16 (``HD16_BF16_TIMED``) forward; the fp32 and
+the bf16 hd 16 entries of ``BWD_ATTN_CASES`` backward.  Each case prints one
+``timing`` line of JSON: the route the call took (by the kernel module's
+launch counters; ``refused`` where the tree has no kernel for it), the
+error against the plain version (max-abs, and relative to the largest
+element), the kernel's median device time (``ms``, chip_smoke.py's
+spin-kernel timing) and SDPA's device time on the same operands with TF32
+off.  The backward is timed as the package's train step calls it: with the
+forward kernel's LSE where the tree's forward writes one for the case.
+Set-up prints the card line and the ``ptxas`` lines (registers, spills) of
+the sources it built.
 """
 import argparse
 import json
@@ -28,24 +32,26 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def cases(cs, kreg):
-    """chip_smoke.py's fp32 attention cases: the forward's and the
-    backward's, each (label, B, H, KV, Lq, Lk, hd, causal, window)."""
+    """chip_smoke.py's attention cases on the TF32 routes: the forward's and
+    the backward's, each (label, B, H, KV, Lq, Lk, hd, causal, window,
+    dtype)."""
     kdef = kreg.get_kernel("flash_attention")
-    shapes = [(tier, getattr(kdef, f"{tier}_shape")) for tier in ("tiny", "smoke", "full")]
-    shapes += [(model, shape) for name, model, shape, dtype in cs.MODEL_WIDTHS
-               if name == "flash_attention" and model == "llama3_8b"]
-    fwd = [(label, s["B"], s["H"], s["KV"], s["L"], s["L"], s["hd"], s["causal"], s["window"]) for label, s in shapes]
-    fwd += list(cs.LQ_LK_CASES)
-    bwd = [c[:9] for c in cs.BWD_ATTN_CASES if c[9] == "float32"]
+    shapes = [(tier, getattr(kdef, f"{tier}_shape"), "float32") for tier in ("tiny", "smoke", "full")]
+    shapes += [(model, shape, "float32") for name, model, shape, dtype in cs.MODEL_WIDTHS if name == "flash_attention"]
+    shapes.append((cs.HD16_BF16_TIMED[1], cs.HD16_BF16_TIMED[0], "bfloat16"))
+    fwd = [(label, s["B"], s["H"], s["KV"], s["L"], s["L"], s["hd"], s["causal"], s["window"], dt) for label, s, dt in shapes]
+    fwd += [(*c, "float32") for c in cs.LQ_LK_CASES]
+    bwd = [c[:10] for c in cs.BWD_ATTN_CASES if c[9] == "float32" or c[6] == 16]
     return fwd, bwd
 
 
 def operands(torch, case, dev):
-    _, B, H, KV, Lq, Lk, hd, _, _ = case
+    _, B, H, KV, Lq, Lk, hd, _, _, dtype = case
+    dt = getattr(torch, dtype)
     g = torch.Generator(dev).manual_seed(11)
-    q = torch.randn(B, H, Lq, hd, generator=g, device=dev)
-    k, v = (torch.randn(B, KV, Lk, hd, generator=g, device=dev) for _ in range(2))
-    do = torch.randn(B, H, Lq, hd, generator=g, device=dev)
+    q = torch.randn(B, H, Lq, hd, generator=g, device=dev).to(dt)
+    k, v = (torch.randn(B, KV, Lk, hd, generator=g, device=dev).to(dt) for _ in range(2))
+    do = torch.randn(B, H, Lq, hd, generator=g, device=dev).to(dt)
     return q, k, v, do
 
 
@@ -90,43 +96,45 @@ def main() -> int:
             print(f"ptxas source={source} " + " ".join(f"{k}={v}" for k, v in usage.items()), flush=True)
 
     for case in fwd_cases:
-        label, B, H, KV, Lq, Lk, hd, causal, window = case
+        label, B, H, KV, Lq, Lk, hd, causal, window, dtype = case
         q, k, v, _ = operands(torch, case, dev)
-        before = ops.route_launch_counts()["flash_attention"]
-        got = fa.flash_attention(q, k, v, causal=causal, window=window)
-        torch.cuda.synchronize()
-        route = took(ops, "flash_attention", before, ops.route_launch_counts)
-        want = ref.attention_ref(q, k, v, causal=causal, window=window)
-        err = float((got - want).abs().max())
         mask = sdpa_mask(torch, Lq, Lk, causal, window, dev)
-        row = {
-            "pass": "forward", "case": label, "route": route, "max_abs_err": err, "rel_err": err / float(want.abs().max()),
-            "ms": cs.median_ms(torch, lambda: fa.flash_attention(q, k, v, causal=causal, window=window)),
-            "sdpa_ms": cs.median_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)),
-        }
+        row = {"pass": "forward", "case": label, "dtype": dtype,
+               "sdpa_ms": cs.median_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True))}
+        before = ops.route_launch_counts()["flash_attention"]
+        try:
+            got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        except ValueError as e:  # no kernel of this tree takes the case
+            row.update(route="refused", error=str(e))
+        else:
+            torch.cuda.synchronize()
+            want = ref.attention_ref(q, k, v, causal=causal, window=window)
+            err = float((got.float() - want.float()).abs().max())
+            row.update(route=took(ops, "flash_attention", before, ops.route_launch_counts), max_abs_err=err,
+                       rel_err=err / float(want.float().abs().max()),
+                       ms=cs.median_ms(torch, lambda: fa.flash_attention(q, k, v, causal=causal, window=window)))
         print("timing " + json.dumps(row), flush=True)
-        del q, k, v, got, want, mask
+        del q, k, v, mask
         torch.cuda.empty_cache()
 
     for case in bwd_cases:
-        label, B, H, KV, Lq, Lk, hd, causal, window = case
+        label, B, H, KV, Lq, Lk, hd, causal, window, dtype = case
         q, k, v, do = operands(torch, case, dev)
-        lse = None
-        if fa.bwd_route(q.dtype, hd) != "simt":  # the tensor-core routes read the forward's LSE
-            lse = torch.empty(B, H, Lq, dtype=torch.float32, device=dev)
+        lse = torch.empty(B, H, Lq, dtype=torch.float32, device=dev)
+        try:  # the train step's forward: o and LSE from the forward kernel
             o = fa.flash_attention(q, k, v, causal=causal, window=window, lse=lse)
-        else:
-            o = ref.attention_ref(q, k, v, causal=causal, window=window)
+        except ValueError:  # no forward of this tree writes LSE for the case
+            o, lse = ref.attention_ref(q, k, v, causal=causal, window=window), None
         before = ops.backward_route_launch_counts()["flash_attention_bwd"]
         run = lambda: ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window, lse=lse)
         got = run()
         torch.cuda.synchronize()
         route = took(ops, "flash_attention_bwd", before, ops.backward_route_launch_counts)
         want = ref.attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
-        rel = max(float((g - w).abs().max()) / float(w.abs().max()) for g, w in zip(got, want))
+        rel = max(float((g.float() - w.float()).abs().max()) / float(w.float().abs().max()) for g, w in zip(got, want))
         lib = cs.sdpa_backward(torch, q, k, v, do, causal, window)
         row = {
-            "pass": "backward", "case": label, "route": route, "rel_err": rel, "lse_from_forward": lse is not None,
+            "pass": "backward", "case": label, "dtype": dtype, "route": route, "rel_err": rel, "lse_from_forward": lse is not None,
             "ms": cs.median_ms(torch, run), "sdpa_ms": cs.median_ms(torch, lib, max_reps=10) if lib else None,
         }
         print("timing " + json.dumps(row), flush=True)

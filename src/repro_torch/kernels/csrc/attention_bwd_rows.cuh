@@ -2,7 +2,8 @@
 // (csrc/flash_attention_bwd_wgmma.cu, bf16; csrc/flash_attention_bwd_tf32x3.cu,
 // fp32), templated on the element type T of o, dO, dK and dV:
 //  * `attn_bwd_rowstats`: one 16-byte chunk of O and dO a lane (8 bf16 or 4
-//    fp32 values), a row per 16 hd / sizeof(T) lanes; writes (LSE2, D) pairs,
+//    fp32 values), a row per 16 hd / sizeof(T) lanes (at most 32: fp32 at
+//    hd 256 takes two chunks a lane); writes (LSE2, D) pairs,
 //    D = rowsum(dO o O), into a scratch of B*H*Lq_pad rows (Lq_pad = Lq
 //    rounded up to 128).  A padded row and a row with no live key (the
 //    forward's LSE2 = -inf) get LSE2 = +inf, so their P is 0.
@@ -53,18 +54,25 @@ __device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 v) {
   *reinterpret_cast<uint2*>(dst) = make_uint2(hopper::pack_bf16(v.x, v.y), hopper::pack_bf16(v.z, v.w));
 }
 
+// lanes of attn_bwd_rowstats a row takes at head width hd: one a 16-byte
+// chunk, at most a warp (fp32 at 256: two chunks a lane)
+template <typename T>
+__host__ __device__ constexpr int rowstats_lanes(int hd) {
+  return hd * int(sizeof(T)) / 16 < 32 ? hd * int(sizeof(T)) / 16 : 32;
+}
+
 // rows a 256-thread block of attn_bwd_rowstats covers at head width hd
 template <typename T>
 __host__ __device__ constexpr int rowstats_rows_per_block(int hd) {
-  return 8 * (32 / (hd * int(sizeof(T)) / 16));
+  return 8 * (32 / rowstats_lanes<T>(hd));
 }
 
 template <typename T>
 __global__ void __launch_bounds__(256)
 attn_bwd_rowstats(const T* __restrict__ o, const T* __restrict__ dout, const float* __restrict__ lse2,
                   float2* __restrict__ stats, int BH, int Lq, int Lq_pad, int hd) {
-  constexpr int E = 16 / sizeof(T);  // values a chunk
-  const int G = hd / E;              // lanes a row
+  constexpr int E = 16 / sizeof(T);    // values a chunk
+  const int G = rowstats_lanes<T>(hd);  // lanes a row
   const int lane = threadIdx.x & 31;
   const int64_t row = (int64_t(blockIdx.x) * 8 + threadIdx.x / 32) * (32 / G) + lane / G;
   const bool in = row < int64_t(BH) * Lq_pad;
@@ -73,7 +81,7 @@ attn_bwd_rowstats(const T* __restrict__ o, const T* __restrict__ dout, const flo
   float acc = 0.f;
   if (live) {
     const int64_t off = (int64_t(bh) * Lq + qp) * hd + E * (lane % G);
-    acc = chunk_dot(o + off, dout + off);
+    for (int c = 0; c < hd / (E * G); ++c) acc += chunk_dot(o + off + c * E * G, dout + off + c * E * G);
   }
   for (int s = G / 2; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
   if (in && lane % G == 0) {

@@ -17,9 +17,10 @@
 // bound by latency: a few k tiles a block, each a load and a chain of
 // dependent products.
 //
-// Three kernels, chosen by a rule in kernels/flash_attention.py (`route`):
+// Four routes, chosen by a rule in kernels/flash_attention.py (`route`), all
+// on the tensor cores:
 //
-// `wgmma` (bf16 operands): the products run on the tensor cores.
+// `wgmma` (bf16 operands at head widths 32 to 256).
 //  * one block per (b*h, 128-row q tile), longest causal tiles first; two
 //    consumer warpgroups own 64 q rows each; one thread of a third
 //    (producer) warpgroup streams the K and V tiles with TMA (3-D tensor maps
@@ -77,20 +78,27 @@
 //    O = O corr + P V on the CUDA cores.
 //  * LSE2 on request, exactly as `wgmma` writes it; o is the same with or
 //    without it.
-//  * hd 256 stays on `simt`: Q hi/lo alone would take 128 KB at 64 rows, and
-//    the O accumulator and its stage 256 registers a thread.
 //
-// `simt` (fp32 at head width 256): the products run on the CUDA cores.
-//  * one block per (b*h, 32-row q tile); the loop over k tiles inside the
-//    block takes the place of the TPU's sequential grid dimension, bounded
-//    by the causal and window limits.
-//  * the q, k and v tiles sit in shared memory as fp32, rows padded by one
-//    float so that the 4 threads sharing a q row and the 8 rows of a warp
-//    read different banks.  The tiles need ~100 KB, past the 48 KB static
-//    limit, so shared memory is dynamic and the launch raises the kernel's
-//    limit with cudaFuncSetAttribute.
-//  * 4 threads own one q row: each keeps BK/4 scores and hd/4 accumulator
-//    columns in registers; row max and row sum combine with two warp shuffles.
+// `tf32x3_cluster` (fp32 at head width 256, recurrentgemma-2b's): the same
+// kernel on two-block clusters.  At 256 one block would need 128 KB for Q's
+// hi/lo tiles alone and 256 accumulator registers a thread; so the two
+// blocks of a cluster own the same 64 q rows and 128 head columns each, and
+// each block's tiles, registers and products are the hd 128 kernel's.  Each
+// forms its half of S (over its 128 columns), writes it into the peer's
+// shared memory (distributed shared memory: st.async stores completing on
+// the peer's mbarrier, `PairXch`), and once the peer's half has landed adds
+// it to its own: both hold the same S,
+// run the same softmax, and multiply the same P into their own half of V,
+// so each writes its half of o (the first also LSE2).  About 210 KB of
+// shared memory a block; the k split (`parts`) counts a cluster as a block
+// on half the SMs.
+//
+// `tf32` (bf16 at head width 16, the reduced configs', narrower than the
+// `wgmma` route's smallest swizzle): the `tf32x3` kernel on bf16 rows (32
+// bytes at hd 16, cp.async's 16-byte units), one TF32 product a product: a
+// bf16 value is exact in TF32, so its lo part is 0 and hi hi is the whole
+// product.  P goes in rounded to TF32 (finer than the reference's bf16 P).
+// o is written in bf16; no parts.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -103,145 +111,6 @@
 namespace {
 
 constexpr float kNeg = -1e30f;
-
-template <int HD, int BQ, int BK>
-constexpr size_t smem_bytes() {
-  // q tile + k tile (padded rows), v tile, p tile (padded rows)
-  return sizeof(float) * (size_t(BQ) * (HD + 1) + size_t(BK) * (HD + 1) + size_t(BK) * HD +
-                          size_t(BQ) * (BK + 1));
-}
-
-template <int HD, int BQ, int BK>
-__global__ void __launch_bounds__(BQ * 4)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                 float* __restrict__ o, int H, int KV, int Lq, int Lk, float scale, int causal,
-                 int has_window, int window) {
-  constexpr int NT = BQ * 4;
-  constexpr int QS = HD + 1;  // padded row stride of the q and k tiles
-  constexpr int PS = BK + 1;  // padded row stride of the p tile
-  constexpr int NS = BK / 4;  // scores per thread
-  constexpr int NA = HD / 4;  // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * QS;
-  float* Vs = Ks + BK * QS;
-  float* Ps = Vs + BK * HD;
-
-  const int bh = blockIdx.y;  // b * H + h
-  const int b = bh / H, h = bh % H;
-  const int kvh = h * KV / H;
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x;
-  const int r = tid >> 2, sub = tid & 3;
-  const int qpos = q0 + r;
-  const float* qb = q + int64_t(bh) * Lq * HD;
-  const float* kb = k + int64_t(b * KV + kvh) * Lk * HD;
-  const float* vb = v + int64_t(b * KV + kvh) * Lk * HD;
-
-  for (int i = tid; i < BQ * HD; i += NT) {
-    const int row = i / HD, d = i % HD;
-    Qs[row * QS + d] = (q0 + row < Lq) ? qb[int64_t(q0 + row) * HD + d] : 0.f;
-  }
-
-  // keys that can be live for some row of this q tile: [k_lo, k_hi)
-  int k_lo = 0, k_hi = Lk;
-  if (causal) k_hi = min(Lk, q0 + BQ);
-  if (has_window) k_lo = max(0, q0 - window + 1);
-
-  float m = kNeg, l = 0.f;
-  float acc[NA];
-#pragma unroll
-  for (int i = 0; i < NA; ++i) acc[i] = 0.f;
-
-  for (int kt = (k_lo / BK) * BK; kt < k_hi; kt += BK) {
-    __syncthreads();  // the previous tile is consumed (and the q tile is written)
-    for (int i = tid; i < BK * HD; i += NT) {
-      const int row = i / HD, d = i % HD;
-      const bool in = kt + row < Lk;
-      Ks[row * QS + d] = in ? kb[int64_t(kt + row) * HD + d] : 0.f;
-      Vs[row * HD + d] = in ? vb[int64_t(kt + row) * HD + d] : 0.f;
-    }
-    __syncthreads();
-
-    float s[NS];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) s[j] = 0.f;
-    for (int d = 0; d < HD; ++d) {
-      const float qd = Qs[r * QS + d];
-#pragma unroll
-      for (int j = 0; j < NS; ++j) s[j] += qd * Ks[(sub + 4 * j) * QS + d];
-    }
-
-    float mx = kNeg;
-    bool live[NS];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      const int kpos = kt + sub + 4 * j;
-      bool ok = kpos < Lk;
-      if (causal) ok = ok && qpos >= kpos;
-      if (has_window) ok = ok && (qpos - kpos) < window;
-      live[j] = ok;
-      s[j] = ok ? s[j] * scale : kNeg;
-      mx = fmaxf(mx, s[j]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    const float corr = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      // exp(s - m_new) <= 1 always, so multiplying by the mask and selecting
-      // on it agree exactly
-      const float p = live[j] ? expf(s[j] - m_new) : 0.f;
-      Ps[r * PS + sub + 4 * j] = p;
-      psum += p;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l = l * corr + psum;
-    m = m_new;
-#pragma unroll
-    for (int i = 0; i < NA; ++i) acc[i] *= corr;
-    __syncwarp();  // the 4 threads of row r (one warp) wrote Ps row r
-
-    for (int j = 0; j < BK; ++j) {
-      const float p = Ps[r * PS + j];
-      const float* vrow = Vs + j * HD + sub;
-#pragma unroll
-      for (int i = 0; i < NA; ++i) acc[i] += p * vrow[4 * i];
-    }
-  }
-
-  if (qpos < Lq) {
-    const float den = fmaxf(l, 1e-37f);
-    float* orow = o + (int64_t(bh) * Lq + qpos) * HD + sub;
-#pragma unroll
-    for (int i = 0; i < NA; ++i) orow[4 * i] = acc[i] / den;
-  }
-}
-
-template <int HD, int BQ, int BK>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KV, int Lq,
-           int Lk, int causal, int has_window, int window, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD, BQ, BK>();
-  auto kernel = flash_fwd_kernel<HD, BQ, BK>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid((Lq + BQ - 1) / BQ, B * H);
-  const float scale = float(1.0 / std::sqrt(double(HD)));  // as the reference rounds it
-  kernel<<<grid, BQ * 4, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
-                                         static_cast<const float*>(v), static_cast<float*>(o), H, KV,
-                                         Lq, Lk, scale, causal, has_window, window);
-  return int(cudaGetLastError());
-}
-
-int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B, int H, int KV, int Lq,
-                int Lk, int hd, int causal, int has_window, int window, cudaStream_t stream) {
-  if (hd == 256) return launch<256, 32, 32>(q, k, v, o, B, H, KV, Lq, Lk, causal, has_window, window, stream);
-  return int(cudaErrorInvalidValue);
-}
 
 // ---------------------------------------------------------------------------
 // the wgmma route (bf16)
@@ -526,14 +395,21 @@ using namespace attn3;
 
 constexpr int BN = 32;  // k rows a streamed tile
 
-template <int HD>
+// T the operands' type (fp32: three TF32 products; bf16: one), HD the head
+// width, SPLIT the blocks of a cluster that share a q tile's head columns
+template <typename T, int HD, int SPLIT>
 struct FwdCfg {
-  static constexpr int Q_T = asis_bytes<kRows, HD>();  // one resident Q tile (hi or lo)
-  static constexpr int K_T = asis_bytes<BN, HD>();
-  static constexpr int V_T = trans_bytes<HD>();
-  static constexpr int RAW = raw_bytes<BN, HD>();      // one raw K or V tile
-  static constexpr size_t SMEM = 1024 + 2 * size_t(Q_T + K_T + V_T) + 2 * 2 * size_t(RAW);
+  static constexpr int W = HD / SPLIT;        // the block's head columns
+  static constexpr bool X3 = sizeof(T) == 4;  // three TF32 products a product
+  static constexpr int NT = X3 ? 2 : 1;       // TF32 tiles an operand: hi and lo, or hi
+  static constexpr int Q_T = asis_bytes<kRows, W>();  // one resident Q tile (hi or lo)
+  static constexpr int K_T = asis_bytes<BN, W>();
+  static constexpr int V_T = trans_bytes<W>();
+  static constexpr int RAW = raw_bytes<T, BN, W>();   // one raw K or V tile
+  static constexpr int XCH = kRows * BN * 4;  // the peer's partial S of a tile
+  static constexpr size_t SMEM = 1024 + NT * size_t(Q_T + K_T + V_T) + 2 * 2 * size_t(RAW) + (SPLIT > 1 ? pair_xch_bytes(XCH) : 0);
   static_assert(Q_T % 1024 == 0 && K_T % 1024 == 0 && V_T % 1024 == 0, "tiles on the swizzle's 1024-byte period");
+  static_assert(RAW % 16 == 0, "raw stages on cp.async's 16-byte units");
   static_assert(SMEM <= 232448, "shared memory of one block");
 };
 
@@ -578,28 +454,35 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], float (&m)[2], 
 // Block (q tile, b*h, part): with parts = 1 it writes o (and LSE2); with
 // parts > 1, part p takes the p-th of `parts` equal runs of the q tile's k
 // tiles and writes its unnormalized O and its rows' (m, l) to the scratch,
-// which flash_fwd_tf32x3_combine merges.
-template <int HD>
+// which flash_fwd_tf32x3_combine merges.  With SPLIT = 2 the two blocks of
+// a cluster take the same q tile, each its half of the head's columns, and
+// add their partial S through a PairXch; both then hold the same m and l,
+// and the first writes LSE2 and (m, l).
+template <typename T, int HD, int SPLIT>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                 float* __restrict__ o, float* __restrict__ lse, float* __restrict__ o_part,
-                 float2* __restrict__ ml_part, int H, int KV, int Lq, int Lk, float scale, int causal,
-                 int has_window, int window) {
-  using C = FwdCfg<HD>;
+flash_fwd_tf32x3(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, float* __restrict__ o_part, float2* __restrict__ ml_part, int H, int KV,
+                 int Lq, int Lk, float scale, int causal, int has_window, int window) {
+  using C = FwdCfg<T, HD, SPLIT>;
+  constexpr int W = C::W;
+  constexpr bool X3 = C::X3;
   extern __shared__ __align__(128) uint8_t smem_raw[];
   uint8_t* q_hi = aligned_smem(smem_raw);
-  uint8_t* q_lo = q_hi + C::Q_T;
-  uint8_t* k_hi = q_lo + C::Q_T;
+  uint8_t* q_lo = q_hi + C::Q_T;  // X3 only, as every lo tile
+  uint8_t* k_hi = q_hi + C::NT * C::Q_T;
   uint8_t* k_lo = k_hi + C::K_T;
-  uint8_t* vt_hi = k_lo + C::K_T;
+  uint8_t* vt_hi = k_hi + C::NT * C::K_T;
   uint8_t* vt_lo = vt_hi + C::V_T;
-  uint8_t* ring = vt_lo + C::V_T;  // 2 stages of {K, V} raw
+  uint8_t* ring = vt_hi + C::NT * C::V_T;  // 2 stages of {K, V} raw
+  uint8_t* xch = ring + 2 * 2 * C::RAW;     // SPLIT > 1: the pair's exchange
 
+  const int rank = SPLIT > 1 ? int(hopper::cluster_rank()) : 0;
+  const int c0 = rank * W;  // the block's first head column
   const int bh = blockIdx.y, b = bh / H, h = bh % H, kvh = h * KV / H;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // the longest causal rows first
+  const int q0 = (gridDim.x / SPLIT - 1 - blockIdx.x / SPLIT) * kRows;  // the longest causal rows first
   const int t = threadIdx.x;
-  const float* kb = k + int64_t(b * KV + kvh) * Lk * HD;
-  const float* vb = v + int64_t(b * KV + kvh) * Lk * HD;
+  const T* kb = k + int64_t(b * KV + kvh) * Lk * HD + c0;
+  const T* vb = v + int64_t(b * KV + kvh) * Lk * HD + c0;
 
   // keys that can be live for some row of this q tile: [k_lo, k_hi)
   const int key_lo = has_window ? max(0, q0 - window + 1) : 0;
@@ -613,17 +496,19 @@ flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const
   auto issue = [&](int j) {  // tile j's K and V rows into stage j % 2
     if (j < n_tiles) {
       uint8_t* st = ring + (j & 1) * 2 * C::RAW;
-      load_raw<HD, BN>(st, kb, kt0 + j * BN, Lk, t);
-      load_raw<HD, BN>(st + C::RAW, vb, kt0 + j * BN, Lk, t);
+      load_raw<T, W, BN>(st, kb, kt0 + j * BN, Lk, HD, t);
+      load_raw<T, W, BN>(st + C::RAW, vb, kt0 + j * BN, Lk, HD, t);
     }
     hopper::cp_async_commit();
   };
   issue(0);
-  load_resident<HD>(q + int64_t(bh) * Lq * HD, q0, Lq, q_hi, q_lo, t);
+  load_resident<T, W, X3>(q + int64_t(bh) * Lq * HD + c0, q0, Lq, HD, q_hi, q_lo, t);
+  PairXch pair;
+  if constexpr (SPLIT > 1) pair.init(xch, C::XCH, rank, t);
 
-  float oacc[HD / 2];
+  float oacc[W / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
+  for (int i = 0; i < W / 2; ++i) oacc[i] = 0.f;
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
   const uint32_t aq_hi = hopper::smem_u32(q_hi), aq_lo = hopper::smem_u32(q_lo);
   const uint32_t ak_hi = hopper::smem_u32(k_hi), ak_lo = hopper::smem_u32(k_lo);
@@ -634,14 +519,20 @@ flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const
     __syncthreads();  // tile j has landed, and every thread is done with tile j - 1
     issue(j + 1);     // into the stage tile j - 1 left: it loads under this tile's work
     const uint8_t* st = ring + (j & 1) * 2 * C::RAW;
-    split_raw<HD, BN, true, false>(st, k_hi, k_lo, nullptr, nullptr, t);
-    split_raw<HD, BN, false, true>(st + C::RAW, nullptr, nullptr, vt_hi, vt_lo, t);
+    split_raw<T, W, BN, true, false, X3>(st, k_hi, k_lo, nullptr, nullptr, t);
+    split_raw<T, W, BN, false, true, X3>(st + C::RAW, nullptr, nullptr, vt_hi, vt_lo, t);
     hopper::fence_proxy_async();  // the split tiles are read by wgmma
     __syncthreads();
 
     const int kt = kt0 + j * BN;
     float s[BN / 2];
-    product_s<HD, BN>(s, aq_hi, aq_lo, ak_hi, ak_lo);
+    product_s<W, BN, X3, (SPLIT > 1)>(s, aq_hi, aq_lo, ak_hi, ak_lo);  // the cluster's: two stages in flight
+    if constexpr (SPLIT > 1) {  // the other half of the head's columns
+      pair.expect(j, t);
+      pair.send(s, j, 0, t);
+      pair.wait(j);
+      pair.add(s, j, 0, t);
+    }
     const bool need_mask = kt + BN > Lk || q0 + kRows > Lq || (causal && kt + BN - 1 > q0) ||
                            (has_window && q0 + kRows - 1 - kt >= window);
     float corr[2];
@@ -649,11 +540,12 @@ flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const
       softmax_tile<true>(s, m, l, corr, t, q0, kt, Lq, Lk, scale, causal, has_window, window);
     else
       softmax_tile<false>(s, m, l, corr, t, q0, kt, Lq, Lk, scale, causal, has_window, window);
-    float part[HD / 2];
-    product_px<HD, BN>(part, s, av_hi, av_lo);
+    float part[W / 2];
+    product_px<W, BN, X3>(part, s, av_hi, av_lo);
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) oacc[i] = fmaf(oacc[i], corr[(i >> 1) & 1], part[i]);
+    for (int i = 0; i < W / 2; ++i) oacc[i] = fmaf(oacc[i], corr[(i >> 1) & 1], part[i]);
   }
+  if constexpr (SPLIT > 1) pair.finish();
 
   float den[2];
 #pragma unroll
@@ -662,15 +554,14 @@ flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     den[r] = fmaxf(l[r], 1e-37f);
   }
-  if (parts > 1) {  // the part's unnormalized O and (m, l), for the combine
+  if (parts > 1) {  // the part's unnormalized O and (m, l), for the combine (fp32 only)
     const int64_t rows = (int64_t(part) * gridDim.y + bh) * Lq;
 #pragma unroll
-    for (int i = 0; i < HD / 2; i += 2) {
+    for (int i = 0; i < W / 2; i += 2) {
       const int qpos = q0 + hopper::acc_row(t, i);
-      if (qpos < Lq)
-        *reinterpret_cast<float2*>(o_part + (rows + qpos) * HD + hopper::acc_col(t, i)) = make_float2(oacc[i], oacc[i + 1]);
+      if (qpos < Lq) store2(o_part + (rows + qpos) * HD + c0 + hopper::acc_col(t, i), oacc[i], oacc[i + 1]);
     }
-    if ((t & 3) == 0) {
+    if (rank == 0 && (t & 3) == 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int qpos = q0 + hopper::acc_row(t, 2 * r);
@@ -679,17 +570,16 @@ flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const
     }
     return;
   }
-  float* ob = o + int64_t(bh) * Lq * HD;
+  T* ob = o + int64_t(bh) * Lq * HD + c0;
 #pragma unroll
-  for (int i = 0; i < HD / 2; i += 2) {
+  for (int i = 0; i < W / 2; i += 2) {
     const int qpos = q0 + hopper::acc_row(t, i);
     if (qpos < Lq) {
       const float d = den[(i >> 1) & 1];  // in [1e-37, Lk], inside __fdividef's range
-      *reinterpret_cast<float2*>(ob + int64_t(qpos) * HD + hopper::acc_col(t, i)) =
-          make_float2(__fdividef(oacc[i], d), __fdividef(oacc[i + 1], d));
+      store2(ob + int64_t(qpos) * HD + hopper::acc_col(t, i), __fdividef(oacc[i], d), __fdividef(oacc[i + 1], d));
     }
   }
-  if (lse != nullptr && (t & 3) == 0) {
+  if (lse != nullptr && rank == 0 && (t & 3) == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int qpos = q0 + hopper::acc_row(t, 2 * r);
@@ -724,22 +614,30 @@ flash_fwd_tf32x3_combine(const float4* __restrict__ o_part, const float2* __rest
   }
 }
 
-template <int HD>
+template <typename T, int HD, int SPLIT>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, float* scratch, int B, int H, int KV,
            int Lq, int Lk, int causal, int has_window, int window, int parts, cudaStream_t stream) {
-  using C = FwdCfg<HD>;
-  auto kernel = flash_fwd_tf32x3<HD>;
+  using C = FwdCfg<T, HD, SPLIT>;
+  auto kernel = flash_fwd_tf32x3<T, HD, SPLIT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::SMEM));
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((Lq + kRows - 1) / kRows, B * H, parts);
+  const dim3 grid(SPLIT * ((Lq + kRows - 1) / kRows), B * H, parts);
   const float scale = float(1.0 / std::sqrt(double(HD)));  // as the reference rounds it
   const int64_t rows = int64_t(B) * H * Lq;
   float* o_part = parts > 1 ? scratch : nullptr;
   float2* ml_part = parts > 1 ? reinterpret_cast<float2*>(scratch + parts * rows * HD) : nullptr;
-  kernel<<<grid, kThreads, C::SMEM, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
-                                               static_cast<const float*>(v), static_cast<float*>(o), lse, o_part,
-                                               ml_part, H, KV, Lq, Lk, scale, causal, has_window, window);
-  err = cudaGetLastError();
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  T* ot = static_cast<T*>(o);
+  if constexpr (SPLIT > 1) {
+    err = hopper::launch_clusters(kernel, grid, kThreads, C::SMEM, stream, SPLIT, qt, kt, vt, ot, lse, o_part, ml_part,
+                                  H, KV, Lq, Lk, scale, causal, has_window, window);
+  } else {
+    kernel<<<grid, kThreads, C::SMEM, stream>>>(qt, kt, vt, ot, lse, o_part, ml_part, H, KV, Lq, Lk, scale, causal,
+                                                 has_window, window);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess || parts == 1) return int(err);
   const int64_t n4 = rows * HD / 4, want = (n4 + 255) / 256;
   flash_fwd_tf32x3_combine<<<unsigned(want < 132 * 16 ? want : 132 * 16), 256, 0, stream>>>(
@@ -747,17 +645,26 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, flo
   return int(cudaGetLastError());
 }
 
+// route 2 (`tf32x3`): fp32 at hd 16 to 128; route 4 (`tf32x3_cluster`): fp32
+// at hd 256, two blocks a q tile; route 3 (`tf32`): bf16 at hd 16, one part
 int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, float* scratch, int B, int H, int KV,
-             int Lq, int Lk, int hd, int causal, int has_window, int window, int parts, cudaStream_t stream) {
+             int Lq, int Lk, int hd, int causal, int has_window, int window, int parts, int route, cudaStream_t stream) {
   if (parts < 1 || parts > 64 || (parts > 1 && scratch == nullptr) || int64_t(B) * H > 65535)
     return int(cudaErrorInvalidValue);
-  switch (hd) {
-    case 16: return launch<16>(q, k, v, o, lse, scratch, B, H, KV, Lq, Lk, causal, has_window, window, parts, stream);
-    case 32: return launch<32>(q, k, v, o, lse, scratch, B, H, KV, Lq, Lk, causal, has_window, window, parts, stream);
-    case 64: return launch<64>(q, k, v, o, lse, scratch, B, H, KV, Lq, Lk, causal, has_window, window, parts, stream);
-    case 128: return launch<128>(q, k, v, o, lse, scratch, B, H, KV, Lq, Lk, causal, has_window, window, parts, stream);
-    default: return int(cudaErrorInvalidValue);
+  if (route == 2) {
+    switch (hd) {
+      case 16: return launch<float, 16, 1>(q, k, v, o, lse, scratch, B, H, KV, Lq, Lk, causal, has_window, window, parts, stream);
+      case 32: return launch<float, 32, 1>(q, k, v, o, lse, scratch, B, H, KV, Lq, Lk, causal, has_window, window, parts, stream);
+      case 64: return launch<float, 64, 1>(q, k, v, o, lse, scratch, B, H, KV, Lq, Lk, causal, has_window, window, parts, stream);
+      case 128: return launch<float, 128, 1>(q, k, v, o, lse, scratch, B, H, KV, Lq, Lk, causal, has_window, window, parts, stream);
+      default: return int(cudaErrorInvalidValue);
+    }
   }
+  if (route == 4 && hd == 256)
+    return launch<float, 256, 2>(q, k, v, o, lse, scratch, B, H, KV, Lq, Lk, causal, has_window, window, parts, stream);
+  if (route == 3 && hd == 16 && parts == 1)
+    return launch<__nv_bfloat16, 16, 1>(q, k, v, o, lse, scratch, B, H, KV, Lq, Lk, causal, has_window, window, 1, stream);
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace tf32x3
@@ -766,13 +673,14 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, f
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  route: 0 = simt (float32, hd 256),
-// 1 = wgmma (bfloat16 only), 2 = tf32x3 (float32, hd 16 to 128).
-// has_window = 0 means no window mask.  lse: null, or (wgmma and tf32x3)
-// B*H*Lq fp32 for each row's log-sum-exp in base 2.  parts (tf32x3 only,
-// else 1): blocks a q tile's k tiles are split across; with parts > 1,
-// scratch is fp32 of parts*B*H*Lq*(hd + 2), else unused.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16.  route: 1 = wgmma (bfloat16, hd 32 to
+// 256), 2 = tf32x3 (float32, hd 16 to 128), 3 = tf32 (bfloat16, hd 16),
+// 4 = tf32x3_cluster (float32, hd 256).  has_window = 0 means no window
+// mask.  lse: null, or B*H*Lq fp32 for each row's log-sum-exp in base 2.
+// parts (tf32x3 and tf32x3_cluster only, else 1): blocks a q tile's k tiles
+// are split across; with parts > 1, scratch is fp32 of parts*B*H*Lq*(hd +
+// 2), else unused.  Returns cudaGetLastError() after the launch (0 on
+// success).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse, void* scratch, int B,
                         int H, int KV, int Lq, int Lk, int hd, int causal, int has_window, int window, int parts,
                         int dtype, int route, int device, void* stream) {
@@ -780,14 +688,11 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, vo
   if (err != cudaSuccess) return int(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse2 = static_cast<float*>(lse);
-  if (route == 2 && dtype == 0)
-    return tf32x3::dispatch(q, k, v, o, lse2, static_cast<float*>(scratch), B, H, KV, Lq, Lk, hd, causal, has_window,
-                            window, parts, s);
-  if (parts != 1) return int(cudaErrorInvalidValue);
-  if (route == 1 && dtype == 1)
+  if (route == 1 && dtype == 1 && parts == 1)
     return dispatch_wgmma(q, k, v, o, lse2, B, H, KV, Lq, Lk, hd, causal, has_window, window, s);
-  if (route == 0 && dtype == 0 && lse2 == nullptr)
-    return dispatch_hd(q, k, v, o, B, H, KV, Lq, Lk, hd, causal, has_window, window, s);
+  if (((route == 2 || route == 4) && dtype == 0) || (route == 3 && dtype == 1))
+    return tf32x3::dispatch(q, k, v, o, lse2, static_cast<float*>(scratch), B, H, KV, Lq, Lk, hd, causal, has_window,
+                            window, parts, route, s);
   return int(cudaErrorInvalidValue);
 }
 

@@ -24,8 +24,8 @@
 // ~0.01 ms of bytes.  Without atomics dQ needs S and dP once more, so the
 // kernels below do 3.5x the forward's products.
 //
-// What bounded the `simt` backward (csrc/flash_attention_bwd.cu), and the
-// answer here:
+// What bounded the first port's CUDA-core backward (since retired), and
+// the answer here:
 //  * its five products ran in fp32 on the CUDA cores, where shared memory's
 //    wavefronts held each FMA to ~15 TFLOP/s: here every product is a bf16
 //    wgmma with fp32 sums, its operands brought into 128-byte-swizzled

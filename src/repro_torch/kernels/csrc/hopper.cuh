@@ -2,8 +2,9 @@
 // tensor maps built on the host, mbarrier waits, TMA tile loads, bf16 and
 // TF32 wgmma with fp32 accumulators (the tensor-core kernels); cp.async rows of
 // any alignment into shared memory and release/acquire flags between blocks
-// (the scans).  Everything is PTX written by hand; nothing here calls a
-// library kernel.
+// (the scans); clusters of blocks that add into each other's shared memory
+// (the fp32 attention at head width 256).  Everything is PTX written by
+// hand; nothing here calls a library kernel.
 //
 // Shared-memory tiles use the swizzled layouts that TMA writes and wgmma
 // reads.  A tile of R rows whose rows are SW bytes long (SW = 64 or 128) is
@@ -255,6 +256,81 @@ __device__ __forceinline__ void named_sync(int id, int n) {
 
 __device__ __forceinline__ void named_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// thread block clusters: rank, barrier, async stores into a peer's shared memory
+// ---------------------------------------------------------------------------
+
+// this block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives, then waits for all:
+// shared-memory writes before the arrive (mbarrier initialisations among
+// them) are visible to every thread of the cluster after the wait.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the shared-window address `addr` of this block mapped to the same offset
+// in the shared memory of the cluster's block `rank`
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// 16 bytes into a cluster block's shared memory, asynchronously: the store
+// completes as 16 transaction bytes on that block's mbarrier `remote_bar`
+// (both addresses from map_rank)
+__device__ __forceinline__ void st_async_v4(uint32_t addr, float4 v, uint32_t remote_bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(remote_bar)
+               : "memory");
+}
+
+// mbar_wait at cluster scope: the phase's writes by the cluster's other
+// blocks (st_async_v4) are visible after it
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0, polls = 0;
+  do {
+    if (++polls == (1u << 30)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Launch `kernel` on `grid` in clusters of `n` blocks along x (gridDim.x a
+// multiple of n), with `smem` bytes of dynamic shared memory a block.
+template <typename... Exp, typename... Act>
+inline cudaError_t launch_clusters(void (*kernel)(Exp...), dim3 grid, unsigned threads, size_t smem, cudaStream_t s,
+                                   unsigned n, Act&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Act&&>(args)...);
 }
 
 // ---------------------------------------------------------------------------

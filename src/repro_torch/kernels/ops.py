@@ -18,12 +18,14 @@ signature and
 
 Every kernel module counts its own launches; ``launch_counts`` reads them.
 The two kernels with several routes also count by route:
-``flash_attention`` (tensor-core kernels for bf16 and, as three TF32
-products, for fp32 up to head width 128; a CUDA-core one for fp32 at 256)
-and ``moe_gmm`` (tensor-core kernels for bf16 and, as three TF32 products,
-for fp32; a CUDA-core one where TMA cannot describe the strides).
-``route_launch_counts`` reads those, and ``backward_route_launch_counts``
-the attention backward's three routes.
+``flash_attention`` (all on the tensor cores: bf16 on ``wgmma`` from head
+width 32 and on one TF32 product a product, ``tf32``, at 16; fp32 as three
+TF32 products a product, ``tf32x3``, up to 128 and on two-block clusters,
+``tf32x3_cluster``, at 256) and ``moe_gmm`` (tensor-core kernels for bf16
+and, as three TF32 products, for fp32; a CUDA-core one where TMA cannot
+describe the strides).  ``route_launch_counts`` reads those, and
+``backward_route_launch_counts`` the attention backward's, which takes its
+forward's route.
 
 Gradients.  On the card ``flash_attention`` and ``rglru_scan`` run through
 ``torch.autograd.Function``s whose backward is a hand-written kernel too
@@ -31,10 +33,8 @@ Gradients.  On the card ``flash_attention`` and ``rglru_scan`` run through
 route like the others, CPU tensors to the plain versions in ``ref``).  The
 backwards have no Pallas counterpart and no registry entry: they count their
 launches apart (``backward_launch_counts``), so the registry kernels' counts
-mean what they meant.  Where the attention backward takes a tensor-core
-route (``wgmma`` for bf16, ``tf32x3`` for fp32), the forward also writes
-each row's log-sum-exp when a gradient will be taken, and the backward
-reads it.  ``selective_scan_chunk`` and ``moe_gmm`` have no
+mean what they meant.  The attention forward also writes each row's
+log-sum-exp when a gradient will be taken, and the backward reads it.  ``selective_scan_chunk`` and ``moe_gmm`` have no
 backward kernel yet: on the card they raise ``BackwardNotPorted`` when grad
 mode is on and an operand requires grad, rather than hand back an output
 with no gradient path.  On CPU tensors every wrapper runs its plain version,
@@ -88,8 +88,9 @@ ROUTE_LAUNCHES = {
 
 
 def route_launch_counts() -> dict[str, dict[str, int]]:
-    """Launches so far by kernel and route (``wgmma`` / ``tf32x3`` /
-    ``simt``)."""
+    """Launches so far by kernel and route (attention: ``wgmma`` /
+    ``tf32x3`` / ``tf32`` / ``tf32x3_cluster``; GEMM: ``simt`` / ``wgmma`` /
+    ``tf32x3``)."""
     return {name: {r: c.value for r, c in by.items()} for name, by in ROUTE_LAUNCHES.items()}
 
 
@@ -97,8 +98,8 @@ BACKWARD_ROUTE_LAUNCHES = {"flash_attention_bwd": _fa.BWD_ROUTE_LAUNCHES}
 
 
 def backward_route_launch_counts() -> dict[str, dict[str, int]]:
-    """Backward launches so far by kernel and route (``wgmma`` / ``tf32x3``
-    / ``simt``)."""
+    """Backward launches so far by kernel and route (the forward's
+    routes)."""
     return {name: {r: c.value for r, c in by.items()} for name, by in BACKWARD_ROUTE_LAUNCHES.items()}
 
 
@@ -189,12 +190,9 @@ def flash_attention(
     _fa.check_blocks(lq, lk, cfg["block_q"], cfg["block_k"])
     if not on_card:
         return ref.attention_ref(q, k, v, causal=causal, window=window)
-    # the forward keeps each row's LSE where a gradient will be taken and the
-    # backward's route reads it
-    keep_lse = (
-        torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-        and _fa.bwd_route(q.dtype, hd) in _fa.LSE_ROUTES
-    )
+    # the forward keeps each row's LSE where a gradient will be taken: the
+    # backward reads it
+    keep_lse = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     return _FlashAttention.apply(q, k, v, causal, window, keep_lse)
 
 
@@ -222,9 +220,8 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window: Optional
     gradient ``do`` (B,H,Lq,hd): returns (dq, dk, dv), each in its operand's
     dtype.  All five operands share one dtype.  ``lse`` (B,H,Lq) fp32, the
     forward's log-sum-exp of each row in base 2, is optional: the train
-    step's autograd Function passes the forward's on the ``wgmma`` and
-    ``tf32x3`` routes; without it those compute it with the ``simt``
-    route's preprocess.  The ``simt`` route takes none."""
+    step's autograd Function passes the forward's; without it the kernel
+    computes it first with a preprocess."""
     b, h, lq, hd = q.shape
     n_kv, lk = k.shape[1], k.shape[2]
     dt = (q.dtype,) if q.dtype in _FLOATS else _FLOATS

@@ -10,12 +10,13 @@ Tolerance: max-abs 2e-5 in fp32, the reference's parity tolerance
 (tests/test_kernels_parity.py:23); rtol = atol = 2e-2 in bf16
 (tests/test_kernels.py:13), and one bf16 rounding step element by element
 where a case says so; relative 1e-4 for the scans with bf16 x at width
-(their outputs are fp32).  flash_attention and moe_gmm each have
-tensor-core and CUDA-core kernels: bf16 calls must be counted on the
-tensor-core route (``wgmma``); fp32 calls on the tensor cores' ``tf32x3``
-route (three TF32 products a term, held at the fp32 tolerance with TF32 off
-in the plain version), save fp32 attention at head width 256 and the GEMMs
-whose strides TMA cannot describe, on the CUDA cores' ``simt``.
+(their outputs are fp32).  flash_attention runs on the tensor cores at
+every width: bf16 on ``wgmma`` (one TF32 product a product, ``tf32``, at
+head width 16), fp32 on ``tf32x3`` (three TF32 products a term, held at the
+fp32 tolerance with TF32 off in the plain version; on two-block clusters,
+``tf32x3_cluster``, at 256).  moe_gmm has tensor-core kernels (bf16
+``wgmma``, fp32 ``tf32x3``) and the CUDA cores' ``simt`` for the GEMMs
+whose strides TMA cannot describe.
 """
 from __future__ import annotations
 
@@ -34,11 +35,12 @@ _FP32_ROUTE = {"flash_attention": "tf32x3", "moe_gmm": "tf32x3"}  # at the regis
 
 
 def _tc_route(dtype, hd):
-    """The tensor-core route of an attention call, or None where it runs on
-    the CUDA cores (bf16 at 16, fp32 at 256)."""
+    """The tensor-core route of an attention call: bf16 on wgmma from head
+    width 32, on one TF32 product at 16; fp32 on tf32x3 up to 128, on
+    two-block clusters at 256."""
     if dtype == torch.bfloat16:
-        return "wgmma" if hd >= 32 else None
-    return "tf32x3" if hd <= 128 else None
+        return "wgmma" if hd >= 32 else "tf32"
+    return "tf32x3" if hd <= 128 else "tf32x3_cluster"
 
 
 def _route_delta(name, before):
@@ -109,7 +111,7 @@ def test_attention_wide_heads_match_plain_version_on_the_card(card, shape):
     args = kdef.make_args(shape, "float32", 2, card)
     routes = ops.route_launch_counts()["flash_attention"]
     assert kreg.max_abs_err(kdef.call(shape, args, config), kdef.ref(shape, args)) <= 2e-5
-    assert _route_delta("flash_attention", routes) == _one_on("flash_attention", "tf32x3" if shape["hd"] <= 128 else "simt")
+    assert _route_delta("flash_attention", routes) == _one_on("flash_attention", _tc_route(torch.float32, shape["hd"]))
     # bf16: kernel and plain version round the same fp32 value once, so
     # they stay within one bf16 step of each other element by element
     args = kdef.make_args(shape, "bfloat16", 2, card)
@@ -331,7 +333,7 @@ def test_reduced_model_prefill_on_the_card_matches_the_cpu(card, name, want):
 # ---------------------------------------------------------------------------
 
 BWD_ATTN_CASES = [  # (B, H, KV, Lq, Lk, hd, causal, window, dtype)
-    # fp32 on the tf32x3 route at hd 16 to 128, on simt at 256
+    # fp32 on the tf32x3 route at hd 16 to 128, on tf32x3_cluster at 256
     (2, 4, 2, 130, 130, 16, True, None, torch.float32),
     (1, 4, 1, 200, 200, 16, True, 16, torch.float32),
     (1, 2, 2, 70, 150, 64, False, None, torch.float32),
@@ -342,7 +344,7 @@ BWD_ATTN_CASES = [  # (B, H, KV, Lq, Lk, hd, causal, window, dtype)
     (1, 2, 1, 4096, 4096, 256, True, 2048, torch.bfloat16),  # past the window, as recurrentgemma-2b
     # bf16 on the wgmma route: the model widths, ragged lengths, GQA and MQA,
     # Lq != Lk both ways, and rows with no live key (Lq past Lk + window)
-    (2, 4, 2, 130, 130, 16, True, None, torch.bfloat16),  # hd 16 stays on simt
+    (2, 4, 2, 130, 130, 16, True, None, torch.bfloat16),  # hd 16 on tf32
     (1, 4, 2, 333, 333, 64, True, None, torch.bfloat16),
     (1, 8, 2, 200, 200, 128, True, 50, torch.bfloat16),
     (1, 8, 2, 333, 333, 256, True, 100, torch.bfloat16),
@@ -360,10 +362,22 @@ BWD_ATTN_CASES = [  # (B, H, KV, Lq, Lk, hd, causal, window, dtype)
     (1, 8, 2, 333, 333, 32, True, 50, torch.float32),
     (1, 2, 1, 300, 100, 64, True, 50, torch.float32),
     (1, 32, 8, 256, 256, 128, True, None, torch.float32),
+    # fp32 at hd 256 on tf32x3_cluster: Lq != Lk both ways, GQA split into
+    # parts, ragged and windowed, rows with no live key; bf16 at hd 16 on
+    # tf32: the same kinds
+    (1, 4, 2, 96, 200, 256, False, None, torch.float32),
+    (1, 2, 1, 200, 96, 256, True, None, torch.float32),
+    (1, 8, 2, 333, 333, 256, True, 50, torch.float32),
+    (1, 2, 1, 300, 100, 256, True, 50, torch.float32),
+    (1, 10, 1, 1024, 1024, 256, True, 300, torch.float32),
+    (1, 4, 2, 96, 200, 16, False, None, torch.bfloat16),
+    (1, 4, 1, 200, 96, 16, True, None, torch.bfloat16),
+    (1, 8, 2, 333, 333, 16, True, 50, torch.bfloat16),
+    (1, 2, 1, 300, 100, 16, True, 50, torch.bfloat16),
 ]
 _BWD_ID = lambda c: f"B{c[0]}H{c[1]}KV{c[2]}_Lq{c[3]}_Lk{c[4]}_hd{c[5]}_{'causal' if c[6] else 'full'}_w{c[7]}_{str(c[8])[6:]}"
-# the cases whose forward writes LSE and whose backward reads it
-_LSE_CASES = [c for c in BWD_ATTN_CASES if _tc_route(c[8], c[5])]
+# the cases whose forward writes LSE and whose backward reads it: every route's
+_LSE_CASES = list(BWD_ATTN_CASES)
 
 
 def _close(got, want, dtype):
@@ -387,8 +401,8 @@ def _bwd_route_delta(before):
     return {r: n - before[r] for r, n in ops.backward_route_launch_counts()["flash_attention_bwd"].items()}
 
 
-# every case as a standalone call (no LSE), and the tensor-core cases also as
-# the train step calls them (the forward kernel's o and LSE)
+# every case as a standalone call (no LSE), and also as the train step calls
+# it (the forward kernel's o and LSE)
 _BWD_RUNS = [(c, False) for c in BWD_ATTN_CASES] + [(c, True) for c in _LSE_CASES]
 
 
@@ -396,8 +410,7 @@ _BWD_RUNS = [(c, False) for c in BWD_ATTN_CASES] + [(c, True) for c in _LSE_CASE
 def test_attention_backward_kernel_matches_plain_version(card, case, with_lse):
     """Each route against the plain backward (which computes its own LSE):
     with the forward kernel's o and LSE, as the train step calls it, or with
-    the plain o and no LSE (the wgmma and tf32x3 routes then run the simt
-    preprocess).  The simt route takes no LSE."""
+    the plain o and no LSE (the wrapper then runs the LSE preprocess)."""
     from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import ref
 
@@ -416,14 +429,14 @@ def test_attention_backward_kernel_matches_plain_version(card, case, with_lse):
     torch.cuda.synchronize()
     assert ops.backward_launch_counts()["flash_attention_bwd"] == before + 1
     assert _bwd_route_delta(routes) == {r: int(r == path) for r in routes}
-    assert path == (_tc_route(dtype, hd) or "simt")
+    assert path == _tc_route(dtype, hd)
     for a, b in zip(got, ref.attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)):
         assert a.dtype == dtype and a.shape == b.shape and _close(a, b, dtype)
 
 
 @pytest.mark.parametrize("case", _LSE_CASES, ids=_BWD_ID)
 def test_forward_writes_lse_without_changing_its_output(card, case):
-    """The tensor-core forwards (wgmma, tf32x3) with an ``lse`` out argument
+    """The forward on every route with an ``lse`` out argument
     give the same o, bit for bit, as without, and LSE within 1e-5 (relative
     to its largest element) of the plain LSE; a row with no live key gets
     -inf in both."""
@@ -463,6 +476,47 @@ _TF32X3_FWD = [  # (B, H, KV, Lq, Lk, hd, causal, window)
     (1, 4, 2, 320, 320, 128, True, 100),
     (1, 2, 1, 300, 100, 64, True, 50),
 ]
+
+
+# the forward on the two routes added beside tf32x3: fp32 at hd 256 on
+# two-block clusters (max-abs 2e-5 against the plain version) and bf16 at hd
+# 16 on one TF32 product (rtol = atol = 2e-2, and one bf16 step element by
+# element); causal, windowed, ragged, non-causal, GQA and MQA, Lq != Lk both
+# ways, rows with no live key, recurrentgemma-2b's heads past the window
+_SPLIT_AND_BF16_FWD = [  # (B, H, KV, Lq, Lk, hd, causal, window, dtype)
+    *[(*c, dt) for dt, hd in ((torch.float32, 256), (torch.bfloat16, 16)) for c in (
+        (2, 4, 2, 130, 130, hd, True, None),
+        (1, 4, 1, 200, 200, hd, True, 16),
+        (1, 4, 4, 128, 128, hd, False, None),
+        (1, 4, 2, 96, 200, hd, False, None),
+        (1, 4, 1, 200, 96, hd, True, None),
+        (1, 2, 1, 300, 100, hd, True, 50),
+    )],
+    (1, 10, 1, 4096, 4096, 256, True, 2048, torch.float32),
+    (1, 2, 2, 256, 256, 256, False, None, torch.float32),  # a small grid: its k tiles in 4 parts
+]
+
+
+@pytest.mark.parametrize("case", _SPLIT_AND_BF16_FWD, ids=_BWD_ID)
+def test_cluster_and_bf16_hd16_forward_match_plain_version_on_the_card(card, case):
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ref
+
+    B, H, KV, Lq, Lk, hd, causal, window, dtype = case
+    q, k, v, _ = _bwd_operands(card, case)
+    routes = ops.route_launch_counts()["flash_attention"]
+    got = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert _route_delta("flash_attention", routes) == _one_on("flash_attention", _tc_route(dtype, hd))
+    seen = ref.attention_mask(Lq, Lk, causal, window, card).any(-1)
+    want = ref.attention_ref(q, k, v, causal=causal, window=window)
+    g, w = got[:, :, seen].float(), want[:, :, seen].float()
+    if dtype == torch.float32:
+        assert float((g - w).abs().max()) <= 2e-5
+    else:
+        assert bool(((g - w).abs() <= 1e-2 * w.abs() + 1e-3).all())
+        torch.testing.assert_close(g, w, rtol=2e-2, atol=2e-2)
+    assert got.dtype == dtype and bool((got[:, :, ~seen] == 0).all())
 
 
 @pytest.mark.parametrize("case", _TF32X3_FWD, ids=lambda c: f"B{c[0]}H{c[1]}KV{c[2]}_Lq{c[3]}_Lk{c[4]}_hd{c[5]}_{'causal' if c[6] else 'full'}_w{c[7]}")

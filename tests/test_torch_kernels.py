@@ -379,7 +379,8 @@ _ROUTES = [
       for name in ("flash_attention", "moe_gmm") for tier in ("tiny_shape", "smoke_shape", "full_shape")],
     ("flash_attention", {"B": 1, "H": 32, "KV": 8, "L": 4096, "hd": 128, "causal": True, "window": None}, "float32", "tf32x3"),
     ("flash_attention", {"B": 2, "H": 4, "KV": 2, "L": 128, "hd": 16, "causal": True, "window": 16}, "float32", "tf32x3"),
-    ("flash_attention", {"B": 1, "H": 10, "KV": 1, "L": 4096, "hd": 256, "causal": True, "window": 2048}, "float32", "simt"),
+    ("flash_attention", {"B": 1, "H": 10, "KV": 1, "L": 4096, "hd": 256, "causal": True, "window": 2048}, "float32", "tf32x3_cluster"),
+    ("flash_attention", {"B": 2, "H": 4, "KV": 2, "L": 128, "hd": 16, "causal": True, "window": 16}, "bfloat16", "tf32"),
     ("moe_gmm", {"E": 8, "C": 1280, "D": 6144, "F": 32768}, "float32", "tf32x3"),
     ("moe_gmm", {"E": 3, "C": 80, "D": 96, "F": 100}, "float32", "tf32x3"),
     ("moe_gmm", {"E": 3, "C": 80, "D": 96, "F": 50}, "float32", "simt"),
@@ -401,7 +402,7 @@ def test_route_refuses_a_head_width_the_kernels_lack(dtype):
 
 def test_route_counts_read_and_reset():
     counts = ops.route_launch_counts()
-    routes = {"flash_attention": ("simt", "wgmma", "tf32x3"), "moe_gmm": ("simt", "wgmma", "tf32x3")}
+    routes = {"flash_attention": ("wgmma", "tf32x3", "tf32", "tf32x3_cluster"), "moe_gmm": ("simt", "wgmma", "tf32x3")}
     assert counts == {name: {r: counts[name][r] for r in by} for name, by in routes.items()}
     tgmm.ROUTE_LAUNCHES["tf32x3"].bump()
     assert ops.route_launch_counts()["moe_gmm"]["tf32x3"] == counts["moe_gmm"]["tf32x3"] + 1
@@ -410,21 +411,21 @@ def test_route_counts_read_and_reset():
     tfa.ROUTE_LAUNCHES["tf32x3"].bump()
     assert ops.route_launch_counts()["flash_attention"]["tf32x3"] == counts["flash_attention"]["tf32x3"] + 1
     bwd = ops.backward_route_launch_counts()
-    assert bwd == {"flash_attention_bwd": {r: bwd["flash_attention_bwd"][r] for r in ("simt", "wgmma", "tf32x3")}}
-    for r in ("wgmma", "simt", "tf32x3"):
+    assert bwd == {"flash_attention_bwd": {r: bwd["flash_attention_bwd"][r] for r in routes["flash_attention"]}}
+    for r in routes["flash_attention"]:
         tfa.BWD_ROUTE_LAUNCHES[r].bump()
     assert ops.backward_route_launch_counts()["flash_attention_bwd"] == {r: n + 1 for r, n in bwd["flash_attention_bwd"].items()}
     ops.reset_launch_counts()
     assert ops.route_launch_counts() == {name: {r: 0 for r in by} for name, by in routes.items()}
-    assert ops.backward_route_launch_counts() == {"flash_attention_bwd": {"simt": 0, "wgmma": 0, "tf32x3": 0}}
+    assert ops.backward_route_launch_counts() == {"flash_attention_bwd": {r: 0 for r in routes["flash_attention"]}}
     assert set(ops.launch_counts().values()) == {0}
 
 
-# (dtype, head width, backward route): the tensor cores at the forward's
-# tensor-core widths, bf16 from hd 32 (wgmma), fp32 up to 128 (tf32x3); bf16
-# at 16 and fp32 at 256 on the CUDA cores
+# (dtype, head width, backward route): every width on the tensor cores, on
+# the forward's route: bf16 on wgmma from hd 32 and on one TF32 product at
+# 16 (tf32); fp32 on tf32x3 up to 128 and on two-block clusters at 256
 _BWD_ROUTES = [
-    (dt, hd, ("wgmma" if hd >= 32 else "simt") if dt == "bfloat16" else ("tf32x3" if hd <= 128 else "simt"))
+    (dt, hd, ("wgmma" if hd >= 32 else "tf32") if dt == "bfloat16" else ("tf32x3" if hd <= 128 else "tf32x3_cluster"))
     for dt in ("bfloat16", "float32") for hd in (16, 32, 64, 128, 256)
 ]
 
@@ -432,11 +433,9 @@ _BWD_ROUTES = [
 @pytest.mark.parametrize("dtype,hd,want", _BWD_ROUTES)
 def test_backward_route_rule(dtype, hd, want):
     assert tfa.bwd_route(getattr(torch, dtype), hd) == want
-    # the forward keeps LSE exactly where the backward reads it, on the same route
-    reads_lse = want in tfa.LSE_ROUTES
-    assert reads_lse == (want != "simt")
-    if reads_lse:
-        assert tfa.route(getattr(torch, dtype), {"hd": hd}) == want
+    # the backward reads the LSE its forward writes, on the same route
+    assert tfa.route(getattr(torch, dtype), {"hd": hd}) == want
+    assert want in tfa.BWD_ENTRIES and "simt" not in tfa.ROUTES
 
 
 @pytest.mark.parametrize("dtype,hd", [("bfloat16", 96), ("float32", 96), ("bfloat16", 512), ("float32", 8), ("float16", 64)])

@@ -201,10 +201,13 @@ def test_attention_blocks_divide_any_prompt(length, block):
 
 def test_attention_head_width_16_routes_fp32_to_simt_and_refuses_bf16():
     # the reduced configs' width: fp32 went from the CUDA cores (simt) to the
-    # tensor cores' fp32-accurate tf32x3 route; bf16 has no kernel at 16
+    # tensor cores' fp32-accurate tf32x3 route; bf16, once refused (narrower
+    # than the wgmma kernel's smallest swizzle), takes one TF32 product a
+    # product (tf32), forward and backward
     assert tfa.route(torch.float32, {"hd": 16}) == "tf32x3"
-    with pytest.raises(ValueError, match="head width 16"):
-        tfa.route(torch.bfloat16, {"hd": 16})
+    assert tfa.route(torch.bfloat16, {"hd": 16}) == tfa.bwd_route(torch.bfloat16, 16) == "tf32"
+    with pytest.raises(ValueError, match="head width 8"):
+        tfa.route(torch.bfloat16, {"hd": 8})
 
 
 # ---------------------------------------------------------------------------

@@ -90,6 +90,17 @@ def staged(a: np.ndarray, b: np.ndarray, products: int) -> np.ndarray:
     return out
 
 
+def scores(a: np.ndarray, b: np.ndarray, products: int, halves: int = 1) -> np.ndarray:
+    """a @ b over the head, as the kernels take a score-like product: with
+    ``halves`` = 2 (fp32 at hd 256, two-block clusters) each block's staged
+    product over its half of the head, then the pair's fp32 sum."""
+    w = a.shape[-1] // halves
+    out = staged(a[..., :w], b[..., :w, :], products)
+    for h in range(1, halves):
+        out = out + staged(a[..., h * w:(h + 1) * w], b[..., h * w:(h + 1) * w, :], products)
+    return out
+
+
 def fma(a, b, c):
     """fp32 a * b + c rounded once."""
     return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
@@ -112,15 +123,17 @@ def tile(x: np.ndarray, r0: int, n: int) -> np.ndarray:
     return out
 
 
-def forward_model(q, k, v, causal, window, products=3, bn=32, parts=None):
+def forward_model(q, k, v, causal, window, products=3, bn=32, parts=None, halves=1):
     """What ``flash_fwd_tf32x3`` computes: (o, LSE2).  ``parts`` (by default
-    the kernel's rule, ``fwd_parts`` on 132 SMs) splits each q tile's k
-    tiles into equal runs, each with its own online softmax, merged in order
-    as ``flash_fwd_tf32x3_combine`` merges them."""
+    the kernel's rule, ``fwd_parts`` on 132 SMs, a cluster of ``halves``
+    blocks counting as one on 132 / halves) splits each q tile's k tiles
+    into equal runs, each with its own online softmax, merged in order as
+    ``flash_fwd_tf32x3_combine`` merges them.  ``halves`` = 2: S is the sum
+    of the two head halves' products (``scores``)."""
     B, H, lq, hd = q.shape
     KV, lk = k.shape[1], k.shape[2]
     if parts is None:
-        parts = tfa.fwd_parts(B, H, lq, lk, causal, window, N_SM)
+        parts = tfa.fwd_parts(B, H, lq, lk, causal, window, N_SM // halves)
     kr, vr = (np.repeat(x, H // KV, axis=1) for x in (k, v))
     scale = np.float32(1.0 / np.sqrt(hd))
     o = np.zeros_like(q)
@@ -140,7 +153,7 @@ def forward_model(q, k, v, causal, window, products=3, bn=32, parts=None):
             for kt in tiles[p * run:(p + 1) * run]:
                 kk, vv = tile(kr, kt, bn), tile(vr, kt, bn)
                 mask = live(qpos, np.arange(kt, kt + bn)[None, :], lq, lk, causal, window)
-                s = np.where(mask, staged(qt, kk.swapaxes(-1, -2), products) * scale, NEG)
+                s = np.where(mask, scores(qt, kk.swapaxes(-1, -2), products, halves) * scale, NEG)
                 m_new = np.maximum(m, s.max(-1))
                 corr = np.exp2((m - m_new) * LOG2E)
                 with np.errstate(over="ignore"):  # a masked score's exponent, never selected (as in the kernel)
@@ -166,9 +179,11 @@ def forward_model(q, k, v, causal, window, products=3, bn=32, parts=None):
     return o, lse
 
 
-def backward_model(q, k, v, o, do, lse2, causal, window):
+def backward_model(q, k, v, o, do, lse2, causal, window, products=3, halves=1):
     """What ``flash_attention_bwd_tf32x3`` computes from the forward's o and
-    LSE2: (dq, dk, dv)."""
+    LSE2: (dq, dk, dv).  ``products`` = 1 takes the large TF32 product alone
+    (bf16 operands); ``halves`` = 2 forms S and dP as the sum of the two
+    head halves' products (``scores``), blocks 128 columns wide."""
     B, H, lq, hd = q.shape
     KV, lk = k.shape[1], k.shape[2]
     rep = H // KV
@@ -176,7 +191,7 @@ def backward_model(q, k, v, o, do, lse2, causal, window):
     sl2 = np.float32(scale * LOG2E)
     d_rows = (do * o).sum(-1, dtype=np.float32)
     lse = np.where(lse2 == -np.inf, np.inf, lse2).astype(np.float32)  # no live key: P = 0
-    ds_bn, dv_bn = (16 if hd == 128 else 32), 32
+    ds_bn, dv_bn = (16 if hd // halves == 128 else 32), 32
     T = lambda x: x.swapaxes(-1, -2)
 
     # dQ blocks: 64 q rows, K and V streamed
@@ -195,13 +210,13 @@ def backward_model(q, k, v, o, do, lse2, causal, window):
         for kt in range(lo // ds_bn * ds_bn, hi, ds_bn):
             kk, vv = tile(kr, kt, ds_bn), tile(vr, kt, ds_bn)
             mask = live(rows[:, None], np.arange(kt, kt + ds_bn)[None, :], lq, lk, causal, window)
-            p = np.where(mask, np.exp2(fma(staged(qt, T(kk), 3), sl2, -lr[..., None])), np.float32(0))
-            ds = p * (staged(dot, T(vv), 3) - dr[..., None])
-            acc += stage(ds, kk, 3)
+            p = np.where(mask, np.exp2(fma(scores(qt, T(kk), products, halves), sl2, -lr[..., None])), np.float32(0))
+            ds = p * (scores(dot, T(vv), products, halves) - dr[..., None])
+            acc += stage(ds, kk, products)
         dq[:, :, q0:q0 + n] = (acc * scale)[:, :, :n]
 
     # dK and dV blocks: 64 k rows, the part's query heads streamed head by head
-    parts = tfa.kv_parts(B, KV, H, lk, N_SM, tfa.KV_ROLES["tf32x3"])
+    parts = tfa.kv_parts(B, KV, H, lk, N_SM // halves, tfa.KV_ROLES["tf32x3"])
     per = rep // parts
     dk, dv = np.zeros_like(k), np.zeros_like(v)
     for k0 in range(0, lk, ROWS):
@@ -225,12 +240,13 @@ def backward_model(q, k, v, o, do, lse2, causal, window):
                         n = min(bn, lq - c0)
                         lc[..., :n], dc[..., :n] = lse[:, heads, c0:c0 + n], d_rows[:, heads, c0:c0 + n]
                         mask = live(cols[None, :], krows, lq, lk, causal, window)
-                        p = np.where(mask, np.exp2(fma(staged(kt_, T(qq), 3), sl2, -lc[..., None, :])), np.float32(0))
+                        p = np.where(mask, np.exp2(fma(scores(kt_, T(qq), products, halves), sl2, -lc[..., None, :])),
+                                     np.float32(0))
                         if kind == "dk":
-                            ds = p * (staged(vt_, T(dd), 3) - dc[..., None, :])
-                            acc += stage(ds, qq, 3)
+                            ds = p * (scores(vt_, T(dd), products, halves) - dc[..., None, :])
+                            acc += stage(ds, qq, products)
                         else:
-                            acc += stage(p, dd, 3)
+                            acc += stage(p, dd, products)
                 total = acc if part == 0 else total + acc
             sums[kind] = total * scale if kind == "dk" else total
         n = min(ROWS, lk - k0)
@@ -335,10 +351,12 @@ def test_three_tf32_products_hold_the_reference_gradients(name):
 
 @pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 def test_fp32_attention_takes_the_tensor_cores_up_to_128(hd):
-    want = "tf32x3" if hd <= 128 else "simt"
+    # one block a q tile up to 128; at 256 two-block clusters that split the
+    # head (tests/test_torch_slice10.py models them)
+    want = "tf32x3" if hd <= 128 else "tf32x3_cluster"
     assert tfa.route(torch.float32, {"hd": hd}) == want
     assert tfa.bwd_route(torch.float32, hd) == want
-    assert hd in tfa.HEAD_DIMS[want] and (want in tfa.LSE_ROUTES) == (hd <= 128)
+    assert hd in tfa.ROUTE_DIMS[torch.float32][want] and tfa.CLUSTER_BLOCKS.get(want, 1) == (1 if hd <= 128 else 2)
 
 
 # (B, H, Lq, Lk, causal, window, parts on 132 SMs): the registry's tiers
@@ -373,8 +391,9 @@ def _tf32x3_bwd_blocks(B, H, KV, lq, lk):
 ])
 def test_tf32x3_backward_runs_on_more_blocks_than_the_simt_one(shape, simt_blocks):
     """One launch of dQ, dK and dV blocks side by side, the group's heads
-    split into parts: at least twice the largest of the simt route's three
-    grids (preprocess, dK/dV, dQ), which ran one after another."""
+    split into parts: at least twice the largest of the three grids of the
+    first port's CUDA-core backward (preprocess, dK/dV, dQ), which ran one
+    after another."""
     assert _tf32x3_bwd_blocks(*shape) >= 2 * max(simt_blocks)
 
 

@@ -223,8 +223,8 @@ def test_attention_function_wires_the_backward_on_cpu_tensors(monkeypatch):
     of the plain forward; the backward counter does not move on the CPU.
     With ``keep_lse`` the forward's ``lse`` out argument is filled and that
     very tensor reaches the backward.  ``ops.flash_attention`` (taken here
-    as if on the card) asks for it only on the backward's tensor-core routes
-    (``wgmma``, ``tf32x3``) and only when a gradient will be taken."""
+    as if on the card) asks for it, on every route, only when a gradient
+    will be taken."""
     seen = {"forward": [], "backward": []}
 
     def forward(q, k, v, causal, window, lse=None):  # the launcher: fills lse, returns o
@@ -266,7 +266,8 @@ def test_attention_function_wires_the_backward_on_cpu_tensors(monkeypatch):
         ("wgmma", True, (q.detach(), k.detach(), v.detach()), False),
         ("tf32x3", True, (q, k, v), True),
         ("tf32x3", False, (q, k, v), False),
-        ("simt", True, (q, k, v), False),
+        ("tf32", True, (q, k, v), True),
+        ("tf32x3_cluster", True, (q.detach(), k.detach(), v.detach()), False),
     ):
         monkeypatch.setattr(tfa, "bwd_route", lambda dtype, hd: route)
         with torch.set_grad_enabled(grad):
