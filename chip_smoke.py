@@ -43,7 +43,10 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      (llama3-8b's hd 128, recurrentgemma-2b's hd 256), beside fp32 SDPA; the
      reduced configs' hd 16 in bf16 (``tf32``) beside bf16 SDPA; and two
      forward cases at Lq != Lk (Lq96 Lk200 hd64 non-causal, Lq200 Lk96
-     hd128 causal) in both dtypes, fp32 held at relative 1e-4.
+     hd128 causal) in both dtypes, fp32 held at relative 1e-4.  The GEMM is
+     timed at grok-1's expert shape in both dtypes, at arctic-480b's prefill
+     shape (E128 C80 D7168 F4864) in both, and at grok-1's decode shape (E8
+     C2) in bf16.
   3. broker: ``Hydra(device="cuda")`` with a cloud (CaaS) and an HPC (pilot)
      provider on the card runs a backlog of noop tasks, kernel tasks at the
      registry's full shapes and one 2-rep task per model width, with the
@@ -97,6 +100,17 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      serve's shapes).  Last, three ``kind="compute", step_kind="prefill"``
      tasks, one a family, through ``Hydra(device="cuda")``: all DONE, with
      the launches of the reduced configs (head width 16 on ``tf32x3``).
+     The moe family: grok-1-314b cut to one layer at a prompt of 512
+     in fp32 against the CPU as above (two groups of 256 tokens, so tokens
+     drop at capacity factor 1.25; exactly 1 attention and 3 GEMM launches,
+     all ``tf32x3``); grok-1-314b cut to 2 layers and arctic-480b cut to 1
+     in bf16 at 4096 (6 and 3 GEMMs, 2 and 1 attention, all ``wgmma``, each
+     held against its plain version); ``serve("grok-1-314b", reduced=False,
+     params=<2 layers>, batch=4, prompt_len=4096, gen=32)`` in bf16 twice
+     (prefill 6 GEMM and 2 attention launches, decode 6 GEMMs a step, all
+     ``wgmma``; prefill s, decode ms a token, peak memory, and a profiled
+     prefill and decode step); and prefill tasks of both moe configs among
+     the compute tasks (6 GEMMs each on ``tf32x3``).
   7. train: the port's train path (``launch/train.py`` -> ``train/step.py``
      -> ``Model.loss`` under remat -> the kernels as autograd Functions ->
      their backward kernels -> ``optim/adamw.py``) on the card.  First the
@@ -107,7 +121,10 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      fp32, recurrentgemma-2b's hd 256 in fp32 (``tf32x3_cluster``) and hd
      16 in bf16 (``tf32``), and
      the RG-LRU backward at B1 L4096 dr2560 (log_a in [-0.1, 0], so the
-     carries between segments matter; one kernel a call, by the profiler), each timed
+     carries between segments matter; one kernel a call, by the profiler),
+     and the GEMM backward (dx and dw on the forward's route) at
+     grok-1's and arctic-480b's expert shapes in both dtypes, timed beside
+     ``torch.bmm`` for the same two products, and at GMM_CASES in both, each timed
      (warm and cold) beside its plain version, SDPA's autograd backward
      (attention; timed only) and its bound.  Each attention case must take
      the route the rule gives it.  It is timed as the
@@ -134,18 +151,32 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      (B1 x 256, fp32) gives every gradient leaf on the card within 1e-4 of
      the CPU's (one thread), its forward handing its LSE to the backward; and
      ``kind="compute"`` train tasks on ``Hydra(device="cuda")``:
-     3 llama3-8b and 3 recurrentgemma-2b tasks DONE with finite metrics and
-     their backward launches, one falcon-mamba-7b task FAILED with
-     ``ops.BackwardNotPorted`` (the selective_scan backward is not ported).
-     The fp32 backward launches (the card-vs-CPU gradients and the tasks)
-     must all take the ``tf32x3`` route (head width 128 and the reduced 16).
+     3 llama3-8b, 3 recurrentgemma-2b and 3 grok-1-314b tasks DONE with
+     finite metrics and their backward launches (every moe step's gradient
+     leaves, the router's included, nonzero), one falcon-mamba-7b task
+     FAILED with ``ops.BackwardNotPorted`` (the selective_scan backward is
+     not ported).  The moe family: grok-1-314b cut to one layer in
+     fp32 gives every gradient leaf on the card within 1e-4 of the CPU's
+     (B1 x 256; the host must hold the CPU side, or the line says it could
+     not); and one bf16 loss and its gradients at full width, one layer,
+     B1 x 4096 (no optimizer state: AdamW's would not fit one card), with
+     exactly 6 GEMM and 2 attention launches (remat="dots" runs them again
+     in the backward) and 3 GEMM and 1 attention backward launches, all on
+     ``wgmma``, then the same pass profiled: the GEMMs' share of the busy
+     time and the idle share.  The fp32 backward launches (the
+     card-vs-CPU gradients and the tasks) must all take the ``tf32x3``
+     route (head width 128 and the reduced 16).  ``device_profile`` counts
+     the traces that lacked their expected kernel, and whether the raw
+     Kineto events held it (ROADMAP.md fault 3.8).
   8. report: the card line, one JSON line of the kernels (route, source, the
      TPU kernel each replaces, launches in phase 3 in total and by kernel
      route, in each scenario twin and in one full-size serve prefill
-     (``model_launches``), model-width error and times, cold too, beside the
-     roofline bound; the two backward kernels with their launches in the
-     recurrentgemma-2b train run, the attention backward's also by route),
-     and the device line last.
+     (``model_launches``; the GEMM's in the grok-1 serve prefill,
+     ``moe_serve_launches``), model-width error and times, cold too, beside
+     the roofline bound; the three backward kernels with their launches in
+     the recurrentgemma-2b train run (the GEMM backward's in grok-1's bf16
+     gradient pass), the attention backward's also by route), and the
+     device line last.
 
 Each phase prints its wall seconds.
 """
@@ -180,6 +211,12 @@ MODEL_WIDTHS = [
     ("moe_gmm", "grok_1_314b", {"E": 8, "C": 1280, "D": 6144, "F": 32768}, "bfloat16"),
     # the same expert shape in fp32, on the tensor cores' tf32x3 route
     ("moe_gmm", "grok_1_314b", {"E": 8, "C": 1280, "D": 6144, "F": 32768}, "float32"),
+    # arctic-480b's prefill of 4096 tokens (groups of 256: 16 x 5 rows an
+    # expert, fewer than a 128-row tile), bound by its 9.2 GB of weights
+    ("moe_gmm", "arctic_480b", {"E": 128, "C": 80, "D": 7168, "F": 4864}, "bfloat16"),
+    ("moe_gmm", "arctic_480b", {"E": 128, "C": 80, "D": 7168, "F": 4864}, "float32"),
+    # grok-1-314b's decode step at batch 4: 2 rows an expert, every expert's weights read
+    ("moe_gmm", "grok_1_314b_decode", {"E": 8, "C": 2, "D": 6144, "F": 32768}, "bfloat16"),
 ]
 
 KERNEL_INFO = {
@@ -684,20 +721,32 @@ MODEL_CHECKS = [
     ("recurrentgemma-2b", 3, 2176, {"rglru_scan": 2, "flash_attention": 1}, "tf32x3_cluster"),
     ("falcon-mamba-7b", 2, 512, {"selective_scan": 4}, None),
     ("llama3-8b", 2, 1000, {"flash_attention": 2}, "tf32x3"),
+    # two groups of 256 tokens, 80 slots an expert each at cf 1.25: tokens drop
+    ("grok-1-314b", 1, 512, {"flash_attention": 1, "moe_gmm": 3}, "tf32x3"),
 ]
-# the other two families from the model path at full width, depth cut, bf16,
+# the other families from the model path at full width, depth cut, bf16,
 # batch 1: (arch, layers kept, prompt length, the launches its prefill must
-# make): 16 selective_scan chunks of 256 a layer; one causal attention a layer
+# make): 16 selective_scan chunks of 256 a layer; one causal attention a
+# layer; three expert GEMMs a moe layer
 MODEL_WIDTH_RUNS = [
     ("falcon-mamba-7b", 4, 4096, {"selective_scan": 64}),
     ("llama3-8b", 4, 4096, {"flash_attention": 4}),
+    ("grok-1-314b", 2, 4096, {"flash_attention": 2, "moe_gmm": 6}),
+    ("arctic-480b", 1, 4096, {"flash_attention": 1, "moe_gmm": 3}),
 ]
 SERVE = {"arch": "recurrentgemma-2b", "batch": 4, "prompt_len": 4096, "gen": 32}
 SERVE_PREFILL_LAUNCHES = {"flash_attention": 8, "selective_scan": 0, "rglru_scan": 18, "moe_gmm": 0}
-# the reduced configs' prefill launches: 2 dense and 2 hybrid attention
-# layers, 4 recurrent layers, 2 ssm layers x 2 chunks of 8
-COMPUTE_ARCHS = ("llama3-8b", "falcon-mamba-7b", "recurrentgemma-2b")
-COMPUTE_LAUNCHES = {"flash_attention": 4, "selective_scan": 4, "rglru_scan": 4, "moe_gmm": 0}
+# the moe family's serve: grok-1-314b at full width cut to 2 layers (the
+# weights handed to serve decide the depth), bf16; each decode step runs the
+# 3 expert GEMMs of each layer at 2 rows an expert
+MOE_SERVE = {"arch": "grok-1-314b", "layers": 2, "batch": 4, "prompt_len": 4096, "gen": 32}
+MOE_SERVE_PREFILL_LAUNCHES = {"flash_attention": 2, "selective_scan": 0, "rglru_scan": 0, "moe_gmm": 6}
+MOE_SERVE_DECODE_LAUNCHES = {"flash_attention": 0, "selective_scan": 0, "rglru_scan": 0, "moe_gmm": 6 * (MOE_SERVE["gen"] - 1)}
+# the reduced configs' prefill launches: 2 dense, 2 hybrid and 2 + 2 moe
+# attention layers, 4 recurrent layers, 2 ssm layers x 2 chunks of 8, 2 + 2
+# moe layers x 3 expert GEMMs
+COMPUTE_ARCHS = ("llama3-8b", "falcon-mamba-7b", "recurrentgemma-2b", "grok-1-314b", "arctic-480b")
+COMPUTE_LAUNCHES = {"flash_attention": 8, "selective_scan": 4, "rglru_scan": 4, "moe_gmm": 12}
 # the kernels' symbols in a profiler trace (csrc/*.cu)
 KERNEL_SYMBOLS = {"flash_attention": "flash_fwd", "selective_scan": "scan_kernel", "rglru_scan": "rglru_kernel", "moe_gmm": "gmm_"}
 
@@ -873,7 +922,9 @@ def rel_err(got, want) -> float:
 
 # the wrappers of ``kernels/ops.py`` the model path calls, by the kernel
 # each launches on the card
-PATH_WRAPPERS = {"flash_attention": "flash_attention", "selective_scan_chunk": "selective_scan", "rglru_scan": "rglru_scan"}
+PATH_WRAPPERS = {
+    "flash_attention": "flash_attention", "selective_scan_chunk": "selective_scan", "rglru_scan": "rglru_scan", "moe_gmm": "moe_gmm",
+}
 
 
 @contextlib.contextmanager
@@ -892,6 +943,7 @@ def path_kernels_checked(torch, ops, label):
         "flash_attention": lambda q, k, v, causal=True, window=None, **_: ref.attention_ref(q, k, v, causal=causal, window=window),
         "selective_scan_chunk": lambda x, dt, b, c, a, h0, **_: ref.selective_scan_chunk_ref(x, dt, b, c, a, h0),
         "rglru_scan": lambda log_a, gx, h0=None, **_: ref.rglru_ref(log_a, gx, h0),
+        "moe_gmm": lambda x, w, **_: ref.moe_gmm_ref(x, w),
     }
     seen = {kernel: {"calls": 0, "rel_err": 0.0} for kernel in PATH_WRAPPERS.values()}
     originals = {wrapper: getattr(ops, wrapper) for wrapper in PATH_WRAPPERS}
@@ -975,6 +1027,8 @@ def check_model_on_card(torch, ops, name, n_layers, prompt, want, attn_route, de
         raise AssertionError(f"model {name}: prefill launches {launches}, want {full}")
     if routes["flash_attention"] != {r: full["flash_attention"] if r == attn_route else 0 for r in routes["flash_attention"]}:
         raise AssertionError(f"model {name}: attention launches by route {routes['flash_attention']}, want all on {attn_route}")
+    if routes["moe_gmm"] != {r: full["moe_gmm"] if r == "tf32x3" else 0 for r in routes["moe_gmm"]}:
+        raise AssertionError(f"model {name}: GEMM launches by route {routes['moe_gmm']}, want all on tf32x3")
     errs = [rel_err(logits, want_logits)]
     errs += [rel_err(g, w) for g, w in zip(tree_leaves(cache), tree_leaves(want_cache))]
     if not bool(torch.isfinite(logits).all()) or not max(errs) <= MODEL_TOL:
@@ -982,15 +1036,17 @@ def check_model_on_card(torch, ops, name, n_layers, prompt, want, attn_route, de
     print(
         f"model arch={name} layers={n_layers} prompt={prompt} dtype=float32 logits_rel_err={errs[0]} "
         f"cache_rel_err={max(errs[1:])} cache_leaves={len(errs) - 1} card_s={card_s} cpu_s={cpu_s} "
-        f"launches={json.dumps(launches)} attention_routes={json.dumps(routes['flash_attention'])}",
+        f"launches={json.dumps(launches)} attention_routes={json.dumps(routes['flash_attention'])} "
+        f"gemm_routes={json.dumps(routes['moe_gmm'])}",
         flush=True,
     )
 
 
 def run_full_width(torch, ops, name, n_layers, prompt, want, dev):
     """One bf16 prefill of the full-width config cut to ``n_layers``: finite
-    logits and cache, exactly ``want``'s launches (attention on ``wgmma``);
-    then the prefill's time, warm."""
+    logits and cache, exactly ``want``'s launches (attention and GEMMs on
+    ``wgmma``), each held against its plain version; then the prefill's
+    time, warm."""
     import numpy as np
 
     from repro_torch.configs import get_arch
@@ -1007,8 +1063,8 @@ def run_full_width(torch, ops, name, n_layers, prompt, want, dev):
             torch.cuda.synchronize()
         launches, routes = ops.launch_counts(), ops.route_launch_counts()
         full = {k: want.get(k, 0) for k in launches}
-        if launches != full or routes["flash_attention"] != {r: full["flash_attention"] if r == "wgmma" else 0 for r in routes["flash_attention"]}:
-            raise AssertionError(f"model {name}: prefill launches {launches} by route {routes}, want {full} (attention on wgmma)")
+        if launches != full or any(routes[k] != {r: full[k] if r == "wgmma" else 0 for r in routes[k]} for k in ROUTED):
+            raise AssertionError(f"model {name}: prefill launches {launches} by route {routes}, want {full} (attention and GEMMs on wgmma)")
         if any(checked[k]["calls"] != n for k, n in full.items() if k in checked):
             raise AssertionError(f"model {name}: calls held against the plain versions {checked}, want {full}")
         if not all(bool(torch.isfinite(t).all()) for t in [logits] + tree_leaves(cache)):
@@ -1021,15 +1077,33 @@ def run_full_width(torch, ops, name, n_layers, prompt, want, dev):
     )
 
 
+# how often device_profile's first trace lacked the expected kernel, and
+# whether the profiler's raw Kineto events held it then (ROADMAP.md fault 3.8)
+PROFILE_STATS = {"calls": 0, "retried": 0, "in_kineto_only": 0, "in_neither": 0, "retry_found": 0}
+
+
+def kineto_kernel_names(torch, prof) -> set | None:
+    """The device kernels among the profiler's raw Kineto events, before
+    they are matched to the CPU operations that launched them (None where
+    this torch has no such list)."""
+    try:
+        events = prof.profiler.kineto_results.events()
+    except AttributeError:
+        return None
+    return {e.name() for e in events if e.device_type() == torch.autograd.DeviceType.CUDA}
+
+
 def device_profile(torch, fn, grad: bool = False, expect: str | None = None):
     """``fn()`` once under torch.profiler (with grad mode on only when
     ``grad``): its wall (synchronized) and the device time of every kernel
     the trace holds, by name.  ``expect``: a part of a name the call's
     trace must hold; a trace without it, lost by the tracer or not, is
-    taken once more (a line says so), and the caller's check reads the
-    second."""
+    taken once more (a line says so, with whether the raw Kineto events
+    held the kernel: PROFILE_STATS counts both), and the caller's check
+    reads the second."""
     from torch.profiler import ProfilerActivity, profile
 
+    PROFILE_STATS["calls"] += 1
     for attempt in range(2):
         with torch.set_grad_enabled(grad), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
@@ -1044,9 +1118,17 @@ def device_profile(torch, fn, grad: bool = False, expect: str | None = None):
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 device[e.name] = device.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-6
-        if expect is None or attempt or any(expect in n for n in device):
+        found = expect is None or any(expect in n for n in device)
+        if attempt:
+            PROFILE_STATS["retry_found"] += int(found)
+        if found or attempt:
             return out, wall_s, device
-        print(f"device_profile: no kernel named *{expect}* in the trace ({sorted(device)}); profiling the call again", flush=True)
+        raw = kineto_kernel_names(torch, prof)
+        in_raw = raw is not None and any(expect in n for n in raw)
+        PROFILE_STATS["retried"] += 1
+        PROFILE_STATS["in_kineto_only" if in_raw else "in_neither"] += 1
+        print(f"device_profile: no kernel named *{expect}* in the trace ({sorted(device)}); in the raw Kineto events: {in_raw}; "
+              f"profiling the call again", flush=True)
 
 
 def top_kernels(device: dict, n: int = 5) -> list:
@@ -1129,6 +1211,64 @@ def run_serve(torch, ops, dev):
     return out["prefill_launches"]
 
 
+def run_moe_serve(torch, ops, dev):
+    """grok-1-314b at full width cut to MOE_SERVE["layers"] layers, bf16,
+    through ``launch/serve.py``: the weights, made at that depth, go in as
+    ``serve``'s ``params``, and every model pass walks the layers the weights
+    hold, so the cut needs no argument of its own.  Two serves on one set of
+    weights (the first warms the allocator; both checked, the second
+    reported): finite logits, exactly the launches of MOE_SERVE_PREFILL_LAUNCHES
+    in the prefill and MOE_SERVE_DECODE_LAUNCHES in decode, every GEMM and
+    attention launch on ``wgmma``; then one prefill and one decode step under
+    the profiler: the device's idle share and the GEMM's share."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import Model
+
+    model = Model(get_arch(MOE_SERVE["arch"]).replace(n_layers=MOE_SERVE["layers"]))
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    B, L, gen = MOE_SERVE["batch"], MOE_SERVE["prompt_len"], MOE_SERVE["gen"]
+    for run in range(2):
+        ops.reset_launch_counts()
+        out = serve(MOE_SERVE["arch"], reduced=False, device="cuda", params=params, batch=B, prompt_len=L, gen=gen)
+        routes = ops.route_launch_counts()
+        if not out["logits_finite"] or out["tokens"].shape != (B, gen):
+            raise AssertionError(f"moe serve: logits finite {out['logits_finite']}, tokens of shape {out['tokens'].shape}")
+        if out["prefill_launches"] != MOE_SERVE_PREFILL_LAUNCHES or out["decode_launches"] != MOE_SERVE_DECODE_LAUNCHES:
+            raise AssertionError(f"moe serve: prefill launches {out['prefill_launches']} (want {MOE_SERVE_PREFILL_LAUNCHES}), "
+                                 f"decode {out['decode_launches']} (want {MOE_SERVE_DECODE_LAUNCHES})")
+        total = {k: MOE_SERVE_PREFILL_LAUNCHES[k] + MOE_SERVE_DECODE_LAUNCHES[k] for k in ROUTED}
+        if any(routes[k] != {r: total[k] if r == "wgmma" else 0 for r in routes[k]} for k in ROUTED):
+            raise AssertionError(f"moe serve: launches by route {routes}, want {total} all on wgmma")
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, model.cfg.vocab_size, (B, L)), dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        (_, cache), wall_s, device = device_profile(
+            torch, lambda: model.prefill(params, {"tokens": tokens}, cache_len=L + gen), expect="gmm_")
+        pos = torch.full((B,), L, dtype=torch.int32, device=dev)
+        _, step_s, step_device = device_profile(torch, lambda: model.decode_step(params, cache, tokens[:, -1:], pos), expect="gmm_")
+    busy_s, step_busy_s = sum(device.values()), sum(step_device.values())
+    gemm_s = sum(t for n, t in device.items() if "gmm_" in n)
+    step_gemm_s = sum(t for n, t in step_device.items() if "gmm_" in n)
+    print(
+        f"serve arch={MOE_SERVE['arch']} layers={MOE_SERVE['layers']} reduced=False dtype=bfloat16 batch={B} prompt_len={L} "
+        f"gen={gen} prefill_s={out['prefill_s']} decode_ms_per_token={out['decode_s_per_token'] * 1e3} "
+        f"tokens_per_s={out['tokens_per_s']} peak_mem_gb={out['peak_mem_bytes'] / 1e9} "
+        f"prefill_launches={json.dumps(out['prefill_launches'])} decode_launches={json.dumps(out['decode_launches'])} "
+        f"routes={json.dumps(routes)}",
+        flush=True,
+    )
+    print(
+        f"serve_profile arch={MOE_SERVE['arch']} prefill_wall_s={wall_s} device_busy_s={busy_s} device_idle_share={1 - busy_s / wall_s} "
+        f"gemm_s={gemm_s} gemm_share_of_busy={gemm_s / busy_s} decode_step_wall_s={step_s} decode_device_busy_s={step_busy_s} "
+        f"decode_device_idle_share={1 - step_busy_s / step_s} decode_gemm_share_of_busy={step_gemm_s / step_busy_s} "
+        f"top={json.dumps(top_kernels(device))} decode_top={json.dumps(top_kernels(step_device))}",
+        flush=True,
+    )
+    return out["prefill_launches"]
+
+
 def run_compute_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState):
     """kind="compute" prefill tasks, one a family, through the broker on the
     card: ComputeRuntime -> the reduced model's prefill -> the kernels."""
@@ -1149,8 +1289,8 @@ def run_compute_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState):
     for t in tasks:
         if t.tstate != TaskState.DONE or t.result() != {"logits_shape": [2, 1, 256]}:
             raise AssertionError(f"compute: {t.arch} task ended {t.tstate.value}: {t.exception()!r}")
-    if launches != COMPUTE_LAUNCHES or routes["flash_attention"] != all_on("tf32x3", 4):
-        raise AssertionError(f"compute: launches {launches} by route {routes}, want {COMPUTE_LAUNCHES} (attention on tf32x3)")
+    if launches != COMPUTE_LAUNCHES or any(routes[k] != {r: COMPUTE_LAUNCHES[k] if r == "tf32x3" else 0 for r in routes[k]} for k in ROUTED):
+        raise AssertionError(f"compute: launches {launches} by route {routes}, want {COMPUTE_LAUNCHES} (attention and GEMMs on tf32x3)")
     h.shutdown(wait=True)
     print(f"compute tasks={len(tasks)} archs={list(COMPUTE_ARCHS)} wall_s={wall} launches={json.dumps(launches)}", flush=True)
 
@@ -1170,21 +1310,44 @@ BWD_ATTN_CASES = [
     ("hd16_reduced_bf16", 2, 4, 2, 128, 128, 16, True, 16, "bfloat16", "tf32"),
 ]
 BWD_RGLRU_CASE = ("recurrentgemma_2b", 1, 4096, 2560)
+# the GEMM backward (dx and dw) at the expert shapes of grok-1-314b's and
+# arctic-480b's prefill of 4096 tokens, in both dtypes, timed; then
+# GMM_CASES in both dtypes (ragged edges, and the simt route)
+BWD_GMM_CASES = [
+    ("grok_1_314b", {"E": 8, "C": 1280, "D": 6144, "F": 32768}),
+    ("arctic_480b", {"E": 128, "C": 80, "D": 7168, "F": 4864}),
+]
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LSE_TOL = 1e-5  # the forward kernel's LSE against the plain one, relative to its largest element
 TRAIN = {"arch": "recurrentgemma-2b", "steps": 3, "seq_len": 4096, "global_batch": 1}
 # per step of recurrentgemma-2b (8 attention and 18 recurrent layers): the
 # forward runs twice under remat="dots" (once more in the backward's recompute)
 TRAIN_LAUNCHES = {"flash_attention": 16, "selective_scan": 0, "rglru_scan": 36, "moe_gmm": 0}
-TRAIN_BACKWARD_LAUNCHES = {"flash_attention_bwd": 8, "rglru_scan_bwd": 18}
+TRAIN_BACKWARD_LAUNCHES = {"flash_attention_bwd": 8, "rglru_scan_bwd": 18, "moe_gmm_bwd": 0}
 DENSE_TRAIN = {"arch": "llama3-8b", "layers": 2, "batch": 2, "seq_len": 2048, "steps": 2}
-GRAD_CHECK = {"arch": "llama3-8b", "layers": 1, "batch": 1, "seq_len": 256}
+# card against CPU in fp32, one layer each: (arch, batch, seq_len, the
+# backward launches of the step: one attention, three GEMMs a moe layer)
+GRAD_CHECKS = [
+    ("llama3-8b", 1, 256, {"flash_attention_bwd": 1, "rglru_scan_bwd": 0, "moe_gmm_bwd": 0}),
+    ("grok-1-314b", 1, 256, {"flash_attention_bwd": 1, "rglru_scan_bwd": 0, "moe_gmm_bwd": 3}),
+]
 GRAD_TOL = 1e-4
-TRAIN_TASKS = (("llama3-8b", 3), ("recurrentgemma-2b", 3))
+# the host must hold the weights and the gradients of the CPU side and one
+# leaf more: this many times the weights' bytes
+GRAD_HOST_FACTOR = 2.5
+TRAIN_TASKS = (("llama3-8b", 3), ("recurrentgemma-2b", 3), ("grok-1-314b", 3))
 # a reduced step: llama3-8b 2 attention layers; recurrentgemma-2b 2 attention
-# and 4 recurrent layers (remat="none": one forward)
-TRAIN_TASK_LAUNCHES = {"flash_attention": 12, "selective_scan": 0, "rglru_scan": 12, "moe_gmm": 0}
-TRAIN_TASK_BACKWARD_LAUNCHES = {"flash_attention_bwd": 12, "rglru_scan_bwd": 12}
+# and 4 recurrent layers; grok-1-314b 2 attention and 2 moe layers of 3
+# expert GEMMs (remat="none": one forward)
+TRAIN_TASK_LAUNCHES = {"flash_attention": 18, "selective_scan": 0, "rglru_scan": 12, "moe_gmm": 18}
+TRAIN_TASK_BACKWARD_LAUNCHES = {"flash_attention_bwd": 18, "rglru_scan_bwd": 12, "moe_gmm_bwd": 18}
+# grok-1-314b at full width cut to one layer, bf16: one loss and its
+# gradients on the card (AdamW's state would not fit: ROADMAP.md item 6).
+# Under remat="dots" the forward's attention and GEMMs run again in the
+# backward (the expert products are batched over the experts)
+MOE_GRAD = {"arch": "grok-1-314b", "layers": 1, "batch": 1, "seq_len": 4096}
+MOE_GRAD_LAUNCHES = {"flash_attention": 2, "selective_scan": 0, "rglru_scan": 0, "moe_gmm": 6}
+MOE_GRAD_BACKWARD_LAUNCHES = {"flash_attention_bwd": 1, "rglru_scan_bwd": 0, "moe_gmm_bwd": 3}
 # the train step's kernels in a profiler trace: the forward kernels and the
 # backward kernels' symbols (csrc/*_bwd*.cu): csrc/flash_attention_bwd_wgmma.cu
 # is the wgmma route, csrc/flash_attention_bwd_tf32x3.cu the three TF32 ones
@@ -1201,7 +1364,10 @@ ROUTE_BWD_SYMBOLS = {"wgmma": WGMMA_BWD_SYMBOLS, "tf32x3": TF32_BWD_SYMBOLS, "tf
 BACKWARD_INFO = {
     "flash_attention_bwd": ("cuda", "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu", "src/repro/models/attention.py:36"),
     "rglru_scan_bwd": ("cuda", "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu", "src/repro/models/rglru.py:137"),
+    "moe_gmm_bwd": ("cuda", "src/repro_torch/kernels/csrc/moe_gmm_bwd.cu", "src/repro/models/moe.py:131"),
 }
+# the case each backward kernel's report row is read from
+BACKWARD_WIDTH = {"flash_attention_bwd": "recurrentgemma_2b", "rglru_scan_bwd": "recurrentgemma_2b", "moe_gmm_bwd": "grok_1_314b"}
 
 
 def check_grads(torch, got, want, dtype: str, label: str) -> float:
@@ -1212,14 +1378,18 @@ def check_grads(torch, got, want, dtype: str, label: str) -> float:
     element."""
     worst, worst_abs = 0.0, 0.0
     for g, w in zip(got, want):
-        if g.shape != w.shape or g.dtype != w.dtype or not bool(torch.isfinite(g).all()):
-            raise AssertionError(f"{label}: kernel gave {tuple(g.shape)} {g.dtype} (finite: {bool(torch.isfinite(g).all())}), plain {tuple(w.shape)} {w.dtype}")
-        gf, wf = g.float(), w.float()
-        scale = max(float(wf.abs().max()), 1e-30)
-        err = float((gf - wf).abs().max()) / scale
+        # in slices along the leading axis: a GEMM's fp32 dw at arctic's
+        # width is 17.8 GB, and whole-tensor temporaries would not fit beside it
+        n = max(1, g.shape[0] // 16)
+        gs, ws = g.split(n), w.split(n)
+        finite = all(bool(torch.isfinite(c).all()) for c in gs)
+        if g.shape != w.shape or g.dtype != w.dtype or not finite:
+            raise AssertionError(f"{label}: kernel gave {tuple(g.shape)} {g.dtype} (finite: {finite}), plain {tuple(w.shape)} {w.dtype}")
+        scale = max(max(float(c.abs().max()) for c in ws), 1e-30)
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(gs, ws)) / scale
         if dtype == "bfloat16":
             tol = BWD_TOL["bfloat16"]
-            n_over = int(((gf - wf).abs() > tol * wf.abs() + tol * scale).sum())
+            n_over = sum(int(((a.float() - b.float()).abs() > tol * b.float().abs() + tol * scale).sum()) for a, b in zip(gs, ws))
             if n_over:
                 raise AssertionError(f"{label}: {n_over} of {g.numel()} elements over rtol = atol = {tol:g}")
         elif not err <= BWD_TOL["float32"]:
@@ -1266,6 +1436,64 @@ def rglru_bwd_bound(B, L, dr) -> tuple:
     t_bytes = 4 * (5 * B * L * dr + 3 * B * dr) / HBM_BYTES_PER_S
     t_ops = 6 * B * L * dr / PEAK_OPS_PER_S["float32"]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def gmm_bwd_bound(E, C, D, F, dtype: str, route) -> dict:
+    """dx and dw: twice the forward's products, against x, w, dy read and
+    dx, dw written once (``route_bounds``)."""
+    item = 2 if dtype == "bfloat16" else 4
+    return route_bounds(4 * E * C * D * F, item * (2 * E * C * D + 2 * E * D * F + E * C * F), dtype, route)
+
+
+def check_gmm_backward(torch, ops, dev, flush) -> dict:
+    """The GEMM backward against its plain version (fp32 relative BWD_TOL,
+    bf16 element by element, ``check_grads``) on the route its forward
+    takes: at the model widths in both dtypes, timed beside the plain
+    version and ``torch.bmm`` (TF32 off) for the same two products, then at
+    GMM_CASES."""
+    from repro_torch.kernels import ref
+
+    rows = {}
+    cases = [(label, shape, dtype, True) for label, shape in BWD_GMM_CASES for dtype in ("bfloat16", "float32")]
+    cases += [(label, shape, dtype, False) for shape, label in GMM_CASES for dtype in ("float32", "bfloat16")]
+    for label, shape, dtype, timed in cases:
+        E, C, D, F = shape["E"], shape["C"], shape["D"], shape["F"]
+        dt = getattr(torch, dtype)
+        g = torch.Generator(dev).manual_seed(14)
+        x = torch.randn(E, C, D, generator=g, device=dev).to(dt)
+        w = (torch.randn(E, D, F, generator=g, device=dev) * D ** -0.5).to(dt)
+        dy = torch.randn(E, C, F, generator=g, device=dev).to(dt)
+        path = expected_route("moe_gmm", shape, dtype)
+        before = ops.backward_route_launch_counts()["moe_gmm_bwd"]
+        got = ops.moe_gmm_bwd(x, w, dy)
+        torch.cuda.synchronize()
+        after = ops.backward_route_launch_counts()["moe_gmm_bwd"]
+        if {r: n - before[r] for r, n in after.items()} != {r: int(r == path) for r in after}:
+            raise AssertionError(f"moe_gmm_bwd {label} {dtype}: launches by route {after} from {before}, want one on {path}")
+        assert_fp32_exact(torch)
+        want = ref.moe_gmm_bwd_ref(x, w, dy)
+        case = f"{label}_{dtype}" if not timed else (label if dtype == "bfloat16" else f"{label}_fp32")
+        abs_err, err = check_grads(torch, got, want, dtype, f"moe_gmm_bwd {case}")
+        del want
+        row = {"kernel": "moe_gmm_bwd", "case": case, "dtype": dtype, "route": path, "max_abs_err": abs_err, "rel_err": err}
+        if timed:
+            torch.cuda.empty_cache()
+            run = lambda: ops.moe_gmm_bwd(x, w, dy)
+            fp32 = dtype == "float32"
+            row.update({
+                "ms": median_ms(torch, run), "ms_cold": cold_ms(torch, run, flush, reps=5 if fp32 else 20), "ms_call": call_ms(torch, run),
+                "plain_ms": median_ms(torch, lambda: ref.moe_gmm_bwd_ref(x, w, dy), max_reps=3),
+                # the same two products in one library call each, into the kernel's outputs
+                "library_ms": median_ms(torch, lambda: (torch.bmm(dy, w.transpose(1, 2), out=got[0]),
+                                                        torch.bmm(x.transpose(1, 2), dy, out=got[1]))),
+            })
+            assert_fp32_exact(torch)
+            row.update(gmm_bwd_bound(E, C, D, F, dtype, path))
+        print("train_kernel " + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
+        rows[case] = row
+        del x, w, dy, got
+        torch.cuda.empty_cache()
+    return rows
 
 
 def sdpa_backward(torch, q, k, v, do, causal, window):
@@ -1403,11 +1631,14 @@ def check_backward_kernels(torch, ops, dev, flush):
     row["bound_ms"], row["bound_by"] = rglru_bwd_bound(B, L, dr)
     print("train_kernel " + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
     rows["rglru_scan_bwd"] = {label: row}
+    del log_a, gx, dy, h0, dh, y, got, want
+    torch.cuda.empty_cache()
+    rows["moe_gmm_bwd"] = check_gmm_backward(torch, ops, dev, flush)
     return rows
 
 
 # the backward wrappers of ``kernels/ops.py`` the autograd Functions call
-BACKWARD_WRAPPERS = ("flash_attention_bwd", "rglru_scan_bwd")
+BACKWARD_WRAPPERS = ("flash_attention_bwd", "rglru_scan_bwd", "moe_gmm_bwd")
 
 
 @contextlib.contextmanager
@@ -1418,12 +1649,14 @@ def backward_kernels_checked(torch, ops, label, first: dict, keep: list | None =
     element; ``check_grads``): the ``ops`` wrappers are swapped for ones
     that call the original (the path's own launch, counted) and then the
     plain version.  The attention backward's plain version is not given the
-    forward's LSE: it computes its own, so that LSE is checked too.  Host
+    forward's LSE: it computes its own, so that LSE is checked too.  The
+    GEMM backward's gradients that autograd did not ask for are None on
+    both sides.  Host
     copies of the first RG-LRU backward call's operands go to ``keep`` where
     it is given.  Yields {kernel: {"calls", "rel_err"}}."""
     from repro_torch.kernels import ref
 
-    plain = {"flash_attention_bwd": ref.attention_bwd_ref, "rglru_scan_bwd": ref.rglru_bwd_ref}
+    plain = {"flash_attention_bwd": ref.attention_bwd_ref, "rglru_scan_bwd": ref.rglru_bwd_ref, "moe_gmm_bwd": ref.moe_gmm_bwd_ref}
     seen = {k: {"calls": 0, "rel_err": 0.0} for k in BACKWARD_WRAPPERS}
     originals = {w: getattr(ops, w) for w in BACKWARD_WRAPPERS}
 
@@ -1434,7 +1667,9 @@ def backward_kernels_checked(torch, ops, label, first: dict, keep: list | None =
                 with torch.no_grad():  # the plain attention backward computes its own LSE
                     want = plain[wrapper](*args, **{k: v for k, v in kw.items() if k != "lse"})
                 dtype = str(args[0].dtype).removeprefix("torch.")
-                _, err = check_grads(torch, got, want, dtype, f"{label}: {wrapper} call {seen[wrapper]['calls']}")
+                asked = [(g, w) for g, w in zip(got, want) if g is not None]  # the GEMM's gradients autograd asked for
+                _, err = check_grads(torch, [g for g, _ in asked], [w for _, w in asked], dtype,
+                                     f"{label}: {wrapper} call {seen[wrapper]['calls']}")
                 seen[wrapper]["rel_err"] = max(seen[wrapper]["rel_err"], err)
                 seen[wrapper]["calls"] += 1
             if keep is not None and not keep and wrapper == "rglru_scan_bwd":
@@ -1469,10 +1704,11 @@ def check_rglru_carries(torch, ops, operands, dev) -> float:
 
 
 @contextlib.contextmanager
-def grad_leaves_counted(torch):
+def grad_leaves_counted(torch, moe_shares: list | None = None):
     """Records, for every AdamW step taken inside, the share of parameter
     leaves whose gradient has a nonzero element (``adamw.apply_updates`` is
-    wrapped; the step reads it through the module)."""
+    wrapped; the step reads it through the module); the moe family's steps
+    also in ``moe_shares`` where it is given."""
     from repro_torch.models.spec import tree_leaves
     from repro_torch.optim import adamw
 
@@ -1482,6 +1718,8 @@ def grad_leaves_counted(torch):
     def counted(cfg, params, grads, state):
         leaves = tree_leaves(grads)
         shares.append(float(torch.stack([g.ne(0).any() for g in leaves]).float().mean()))
+        if moe_shares is not None and "moe" in grads.get("blocks", {}):
+            moe_shares.append(shares[-1])
         return original(cfg, params, grads, state)
 
     adamw.apply_updates = counted
@@ -1519,7 +1757,7 @@ def run_train_full_size(torch, ops, dev):
             raise AssertionError(f"train step {i}: launches {fwd} / backward {bwd}, want {TRAIN_LAUNCHES} / {TRAIN_BACKWARD_LAUNCHES}")
     if shares != [1.0] * TRAIN["steps"]:
         raise AssertionError(f"train: share of parameter leaves with a nonzero gradient per step {shares}, want 1.0")
-    if min(launches["flash_attention"], launches["rglru_scan"], *backward.values()) < 1:
+    if min(launches["flash_attention"], launches["rglru_scan"], backward["flash_attention_bwd"], backward["rglru_scan_bwd"]) < 1:
         raise AssertionError(f"train: a kernel of the path was not launched: {launches} {backward}")
     print(
         f"train arch={TRAIN['arch']} reduced=False dtype=bfloat16 batch={TRAIN['global_batch']} seq_len={TRAIN['seq_len']} "
@@ -1604,7 +1842,7 @@ def run_train_dense_width(torch, ops, dev):
             norms.append(float(metrics["grad_norm"]))
             per_step.append((ops.launch_counts(), ops.backward_launch_counts(), ops.backward_route_launch_counts()["flash_attention_bwd"]))
     for fwd, bwd, routes in per_step:
-        if fwd["flash_attention"] != 2 * n or bwd != {"flash_attention_bwd": n, "rglru_scan_bwd": 0} or routes != all_on("wgmma", n):
+        if fwd["flash_attention"] != 2 * n or bwd != {"flash_attention_bwd": n, "rglru_scan_bwd": 0, "moe_gmm_bwd": 0} or routes != all_on("wgmma", n):
             raise AssertionError(f"train_dense: launches {fwd} / backward {bwd} by route {routes}, want {2 * n} attention (remat) and {n} backward on wgmma")
     if checked["flash_attention_bwd"]["calls"] != n or shares != [1.0] * DENSE_TRAIN["steps"] or not all(math.isfinite(x) for x in losses + norms):
         raise AssertionError(f"train_dense: checked {checked}, nonzero-gradient shares {shares}, losses {losses}")
@@ -1618,19 +1856,38 @@ def run_train_dense_width(torch, ops, dev):
     )
 
 
-def check_grads_on_card(torch, ops, dev):
-    """One loss and its gradients at full width in fp32, on the card (the
-    kernels and their backwards) and on the CPU (the plain versions), on the
-    same weights and tokens: every leaf within GRAD_TOL of its scale, and
-    every attention backward handed its forward's LSE."""
+def host_available_bytes() -> int:
+    """The host memory the kernel says a new allocation can take
+    (``MemAvailable``)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def check_grads_on_card(torch, ops, dev, arch, batch_size, seq_len, want_backward):
+    """One loss and its gradients at full width cut to one layer in fp32, on
+    the card (the kernels and their backwards) and on the CPU (the plain
+    versions, one thread), on the same weights and tokens: every leaf within
+    GRAD_TOL of its scale, the backward launches ``want_backward`` all on
+    ``tf32x3``, and every attention backward handed its forward's LSE.  The
+    card's gradients stay on the card and cross one leaf at a time, so the
+    host holds the CPU side's weights and gradients and one leaf more; where
+    it has not that much memory, the check says so and is not made."""
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import DataConfig, batch_at
     from repro_torch.models.model import Model
     from repro_torch.models.spec import tree_leaves, tree_map
 
-    cfg = get_arch(GRAD_CHECK["arch"]).replace(n_layers=GRAD_CHECK["layers"], param_dtype="float32", compute_dtype="float32")
+    cfg = get_arch(arch).replace(n_layers=1, param_dtype="float32", compute_dtype="float32")
     model = Model(cfg)
-    batch = batch_at(DataConfig(vocab_size=cfg.vocab_size, seq_len=GRAD_CHECK["seq_len"], global_batch=GRAD_CHECK["batch"]), 0)
+    batch = batch_at(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len, global_batch=batch_size), 0)
+    need, have = GRAD_HOST_FACTOR * 4 * model.param_count(), host_available_bytes()
+    if have < need:
+        print(f"train_grads arch={arch} layers=1 dtype=float32 skipped=host_memory host_available_gb={have / 1e9} "
+              f"need_gb={need / 1e9}", flush=True)
+        return None
 
     def grads(params, device):
         leaves = tree_leaves(params)
@@ -1656,33 +1913,111 @@ def check_grads_on_card(torch, ops, dev):
     finally:
         ops.flash_attention_bwd = original
     launched = ops.backward_launch_counts()
-    routes = ops.backward_route_launch_counts()["flash_attention_bwd"]
-    if routes != all_on("tf32x3", GRAD_CHECK["layers"]):
-        raise AssertionError(f"train_grads: fp32 attention backward launches by route {routes}, want all on tf32x3")
-    if lse_passed != [True] * GRAD_CHECK["layers"]:
-        raise AssertionError(f"train_grads: the forward's LSE handed to each attention backward: {lse_passed}")
-    on_card = [g.cpu() for g in on_card]
+    routes = ops.backward_route_launch_counts()
+    for k, by in routes.items():
+        if by != {r: want_backward[k] if r == "tf32x3" else 0 for r in by}:
+            raise AssertionError(f"train_grads {arch}: fp32 backward launches by route {routes}, want {want_backward} all on tf32x3")
+    if lse_passed != [True] * want_backward["flash_attention_bwd"]:
+        raise AssertionError(f"train_grads {arch}: the forward's LSE handed to each attention backward: {lse_passed}")
     params = tree_map(lambda t: t.detach().cpu(), params)
     t0 = time.perf_counter()
     with one_cpu_thread(torch):
         loss_cpu, on_cpu = grads(params, "cpu")
     cpu_s = time.perf_counter() - t0
-    errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(on_card, on_cpu)]
+    errs = [float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(on_card, on_cpu)]
     loss_err = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
-    if launched["flash_attention_bwd"] != GRAD_CHECK["layers"] or max(errs) > GRAD_TOL or loss_err > GRAD_TOL:
-        raise AssertionError(f"train_grads: backward launches {launched}, leaf errors {errs}, loss error {loss_err}")
+    if launched != want_backward or max(errs) > GRAD_TOL or loss_err > GRAD_TOL:
+        raise AssertionError(f"train_grads {arch}: backward launches {launched}, leaf errors {errs}, loss error {loss_err}")
     print(
-        f"train_grads arch={GRAD_CHECK['arch']} layers={GRAD_CHECK['layers']} dtype=float32 batch={GRAD_CHECK['batch']} "
-        f"seq_len={GRAD_CHECK['seq_len']} leaves={len(errs)} worst_leaf_rel_err={max(errs)} loss_rel_err={loss_err} "
-        f"card_s={card_s} cpu_s={cpu_s} backward_launches={json.dumps(launched)} backward_routes={json.dumps(routes)} "
+        f"train_grads arch={arch} layers=1 dtype=float32 batch={batch_size} seq_len={seq_len} leaves={len(errs)} "
+        f"worst_leaf_rel_err={max(errs)} loss_rel_err={loss_err} card_s={card_s} cpu_s={cpu_s} "
+        f"host_available_gb={have / 1e9} backward_launches={json.dumps(launched)} backward_routes={json.dumps(routes)} "
         f"lse_from_forward={json.dumps(lse_passed)}",
         flush=True,
     )
+    return max(errs)
+
+
+def run_moe_grad_pass(torch, ops, dev):
+    """grok-1-314b at full width cut to MOE_GRAD["layers"], bf16: one loss
+    and its gradients on the card, no optimizer state.  Finite, every
+    gradient leaf nonzero (the router's too), exactly the launches of
+    MOE_GRAD_LAUNCHES and MOE_GRAD_BACKWARD_LAUNCHES, the backwards on
+    ``wgmma``, each backward launch held against its plain version; then
+    the pass alone (wall, peak memory) and under the profiler: the device's
+    idle share and the GEMMs' share of its busy time, forward and
+    backward."""
+    import math
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models.model import Model
+    from repro_torch.models.spec import tree_leaves
+
+    cfg = get_arch(MOE_GRAD["arch"]).replace(n_layers=MOE_GRAD["layers"])
+    model = Model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=MOE_GRAD["seq_len"], global_batch=MOE_GRAD["batch"])
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_at(dc, 0).items()}
+
+    def step():
+        loss, metrics = model.loss(params, batch)
+        return loss.detach(), metrics, torch.autograd.grad(loss, leaves)
+
+    with backward_kernels_checked(torch, ops, "train_moe", MOE_GRAD_BACKWARD_LAUNCHES) as checked:
+        ops.reset_launch_counts()
+        loss, metrics, grads = step()
+        torch.cuda.synchronize()
+        launches, backward = ops.launch_counts(), ops.backward_launch_counts()
+    routes, backward_routes = ops.route_launch_counts(), ops.backward_route_launch_counts()
+    finite = math.isfinite(float(loss)) and all(bool(torch.isfinite(g).all()) for g in grads)
+    nonzero = float(torch.stack([g.ne(0).any() for g in grads]).float().mean())
+    del grads
+    if any(checked[k]["calls"] != n for k, n in MOE_GRAD_BACKWARD_LAUNCHES.items()):
+        raise AssertionError(f"train_moe: backward calls held against the plain versions {checked}, want {MOE_GRAD_BACKWARD_LAUNCHES}")
+    torch.cuda.reset_peak_memory_stats(dev)  # the pass again, alone: its wall and peak memory
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launches != MOE_GRAD_LAUNCHES or backward != MOE_GRAD_BACKWARD_LAUNCHES:
+        raise AssertionError(f"train_moe: launches {launches} / backward {backward}, want {MOE_GRAD_LAUNCHES} / {MOE_GRAD_BACKWARD_LAUNCHES}")
+    for by, want in ((routes, MOE_GRAD_LAUNCHES), (backward_routes, MOE_GRAD_BACKWARD_LAUNCHES)):
+        for k, counts in by.items():
+            if counts != {r: want[k] if r == "wgmma" else 0 for r in counts}:
+                raise AssertionError(f"train_moe: {k} launches by route {counts}, want {want[k]} on wgmma")
+    if not finite or nonzero != 1.0:
+        raise AssertionError(f"train_moe: loss {float(loss)}, finite {finite}, share of gradient leaves nonzero {nonzero}")
+    _, prof_s, device = device_profile(torch, step, grad=True, expect="gmm_bwd")
+    busy_s = sum(device.values())
+    bwd_s = sum(t for n, t in device.items() if "gmm_bwd" in n)
+    fwd_s = sum(t for n, t in device.items() if "gmm_" in n and "gmm_bwd" not in n)
+    print(
+        f"train_moe arch={MOE_GRAD['arch']} layers={MOE_GRAD['layers']} dtype=bfloat16 batch={MOE_GRAD['batch']} "
+        f"seq_len={MOE_GRAD['seq_len']} loss={float(loss)} aux_loss={float(metrics['aux_loss'].detach())} "
+        f"z_loss={float(metrics['z_loss'].detach())} "
+        f"wall_s={wall_s} peak_mem_gb={peak / 1e9} nonzero_grad_leaf_share={nonzero} launches={json.dumps(launches)} "
+        f"backward_launches={json.dumps(backward)} backward_routes={json.dumps(backward_routes['moe_gmm_bwd'])} "
+        f"path_checked={json.dumps(checked)}",
+        flush=True,
+    )
+    print(
+        f"train_moe_profile wall_s={prof_s} device_busy_s={busy_s} device_idle_share={1 - busy_s / prof_s} "
+        f"moe_gmm_s={fwd_s} moe_gmm_bwd_s={bwd_s} moe_gmm_share_of_busy={fwd_s / busy_s} "
+        f"moe_gmm_bwd_share_of_busy={bwd_s / busy_s} top={json.dumps(top_kernels(device, 8))}",
+        flush=True,
+    )
+    return backward
 
 
 def run_train_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState):
     """kind="compute" train tasks through the broker on the card; the ssm
-    family's fails with the typed error of its missing backward."""
+    family's fails with the typed error of its missing backward.  Each moe
+    step's gradient leaves, the router's included, must all be nonzero."""
     import concurrent.futures as cf
     import math
 
@@ -1690,21 +2025,28 @@ def run_train_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState):
     h.register_provider(ProviderSpec(name="cloud", platform="cloud", connector="caas"))
     tasks = [Task(kind="compute", arch=a, step_kind="train", max_retries=0) for a, n in TRAIN_TASKS for _ in range(n)]
     ssm_task = Task(kind="compute", arch="falcon-mamba-7b", step_kind="train", max_retries=0)
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    h.dispatch(tasks + [ssm_task])
-    _, pending = cf.wait(tasks + [ssm_task], timeout=300)
-    wall = time.perf_counter() - t0
+    moe_shares = []
+    with grad_leaves_counted(torch, moe_shares) as shares:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        h.dispatch(tasks + [ssm_task])
+        _, pending = cf.wait(tasks + [ssm_task], timeout=300)
+        wall = time.perf_counter() - t0
     launches, backward = ops.launch_counts(), ops.backward_launch_counts()
-    routes = ops.backward_route_launch_counts()["flash_attention_bwd"]
+    fwd_routes, routes = ops.route_launch_counts(), ops.backward_route_launch_counts()
     if pending:
         raise AssertionError(f"train_tasks: {len(pending)} tasks unfinished after 300 s")
-    if routes != all_on("tf32x3", TRAIN_TASK_BACKWARD_LAUNCHES["flash_attention_bwd"]):
-        raise AssertionError(f"train_tasks: fp32 attention backward launches by route {routes}, want all on tf32x3")
-    keys = ["ce", "grad_norm", "loss", "lr", "tokens"]
+    for by, want in ((fwd_routes, TRAIN_TASK_LAUNCHES), (routes, TRAIN_TASK_BACKWARD_LAUNCHES)):
+        for k, counts in by.items():
+            if counts != {r: want[k] if r == "tf32x3" else 0 for r in counts}:
+                raise AssertionError(f"train_tasks: fp32 {k} launches by route {counts}, want all {want[k]} on tf32x3")
+    n_moe = sum(n for a, n in TRAIN_TASKS if a == "grok-1-314b")
+    if moe_shares != [1.0] * n_moe:
+        raise AssertionError(f"train_tasks: share of nonzero gradient leaves in each moe step {moe_shares}, want 1.0 in {n_moe}")
     for t in tasks:
         r = t.result() if t.tstate == TaskState.DONE else None
-        if r is None or sorted(r) != keys or not all(math.isfinite(v) for v in r.values()):
+        keys = ["ce", "grad_norm", "loss", "lr", "tokens"] + (["aux_loss", "z_loss"] if t.arch == "grok-1-314b" else [])
+        if r is None or sorted(r) != sorted(keys) or not all(math.isfinite(v) for v in r.values()):
             raise AssertionError(f"train_tasks: {t.arch} task ended {t.tstate.value} with {r}: {t.exception()!r}")
     from repro_torch.kernels.ops import BackwardNotPorted
 
@@ -1716,6 +2058,7 @@ def run_train_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState):
     print(
         f"train_tasks tasks={len(tasks)} archs={json.dumps(dict(TRAIN_TASKS))} wall_s={wall} launches={json.dumps(launches)} "
         f"backward_launches={json.dumps(backward)} backward_routes={json.dumps(routes)} last_metrics={json.dumps(tasks[-1].result())} "
+        f"nonzero_grad_leaf_share={json.dumps(shares)} moe_nonzero_grad_leaf_share={json.dumps(moe_shares)} "
         f"ssm_task={ssm_task.tstate.value} ssm_error={type(ssm_task.exception()).__name__}",
         flush=True,
     )
@@ -1745,7 +2088,7 @@ def main() -> int:
     print(f"build sources={list(_build.SOURCES)} dir={_build.BUILD_DIR.relative_to(ROOT)} seconds={time.perf_counter() - t0}", flush=True)
     # registers and spills (nvcc -Xptxas -v) of the tensor-core attention and
     # GEMM kernels and of the RG-LRU backward, and the attention backward's shared memory
-    for source in ("flash_attention", "flash_attention_bwd_wgmma", "flash_attention_bwd_tf32x3", "moe_gmm", "rglru_scan_bwd"):
+    for source in ("flash_attention", "flash_attention_bwd_wgmma", "flash_attention_bwd_tf32x3", "moe_gmm", "moe_gmm_bwd", "rglru_scan_bwd"):
         for usage in _build.ptxas_usage(_build.BUILD_LOGS.get(source, "")):
             print(f"ptxas source={source} " + " ".join(f"{k}={v}" for k, v in usage.items()), flush=True)
     import ctypes
@@ -1795,16 +2138,16 @@ def main() -> int:
             timed=False, config=block,
         )
     check_concurrent(torch, kreg, ops, dev)
-    widths, gemm_fp32, attn_fp32, seen = {}, None, {}, set()
+    widths, gemm_rows, attn_fp32, seen = {}, {}, {}, set()
     for name, model, shape, dtype in MODEL_WIDTHS:
-        label = f"{model}_fp32" if (name, model) in seen else model  # the grok GEMM's second dtype
+        label = f"{model}_fp32" if (name, model) in seen else model  # a GEMM width's second dtype
         seen.add((name, model))
-        # the fp32 grok-width GEMM takes tens of ms a call: fewer cold reps
+        # the fp32 GEMMs at the model widths take tens of ms a call: fewer cold reps
         row = check_kernel(torch, kreg, ops, name, shape, dtype, 0, WIDTH_TOL[dtype], True, label, dev, flush=flush,
                            cold_reps=5 if (name, dtype) == ("moe_gmm", "float32") else 20)
         widths.setdefault(name, row)  # the first width of a kernel goes in the report
-        if (name, dtype) == ("moe_gmm", "float32"):
-            gemm_fp32 = row
+        if name == "moe_gmm":
+            gemm_rows[label] = row
         if dtype == "bfloat16" and name == "flash_attention":
             # the same width in fp32, where the relative tolerance is tight,
             # timed beside fp32 SDPA, TF32 off: llama3-8b's on tf32x3,
@@ -1844,6 +2187,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     model_launches = run_serve(torch, ops, dev)
     torch.cuda.empty_cache()
+    moe_serve_launches = run_moe_serve(torch, ops, dev)
+    torch.cuda.empty_cache()
     run_compute_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState)
     print(f"phase name=model wall_s={time.perf_counter() - phase_t0}", flush=True)
 
@@ -1858,9 +2203,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_train_dense_width(torch, ops, dev)
     torch.cuda.empty_cache()
-    check_grads_on_card(torch, ops, dev)
+    train_backward["moe_gmm_bwd"] = run_moe_grad_pass(torch, ops, dev)["moe_gmm_bwd"]
     torch.cuda.empty_cache()
+    for arch, batch_size, seq_len, want_backward in GRAD_CHECKS:
+        check_grads_on_card(torch, ops, dev, arch, batch_size, seq_len, want_backward)
+        torch.cuda.empty_cache()
     run_train_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState)
+    print(f"device_profile calls={PROFILE_STATS['calls']} retried={PROFILE_STATS['retried']} "
+          f"missing_from_events_but_in_kineto={PROFILE_STATS['in_kineto_only']} missing_from_both={PROFILE_STATS['in_neither']} "
+          f"retry_found={PROFILE_STATS['retry_found']}", flush=True)
     print(f"phase name=train wall_s={time.perf_counter() - phase_t0}", flush=True)
 
     # -- 8. report ---------------------------------------------------------------
@@ -1880,15 +2231,18 @@ def main() -> int:
         })
         fp32_keys = ("case", "route", "max_abs_err", "rel_err", "ms", "ms_cold", "ms_call", "plain_ms", "library_ms",
                      "bound_ms", "bound_by", "bound_3x_ms", "simt_bound_ms")
-        if name == "moe_gmm":  # the fp32 width, on tf32x3, beside the bf16 one
-            report[-1]["fp32_width"] = {k: gemm_fp32[k] for k in fp32_keys}
+        if name == "moe_gmm":  # the fp32 width, on tf32x3, beside the bf16 one; arctic's widths and grok's decode
+            report[-1]["fp32_width"] = {k: gemm_rows["grok_1_314b_fp32"][k] for k in fp32_keys}
+            report[-1]["other_widths"] = {label: {k: row.get(k) for k in fp32_keys + ("dtype",)}
+                                          for label, row in gemm_rows.items() if label not in ("grok_1_314b", "grok_1_314b_fp32")}
+            report[-1]["moe_serve_launches"] = moe_serve_launches[name]
         if name == "flash_attention":  # both widths in fp32, bf16 at hd 16, and Lq != Lk
             report[-1]["fp32_width"] = {k: attn_fp32["llama3_8b"][k] for k in fp32_keys}
             report[-1]["fp32_hd256"] = {k: attn_fp32["recurrentgemma_2b"][k] for k in fp32_keys}
             report[-1]["bf16_hd16"] = {k: attn_bf16_hd16.get(k) for k in fp32_keys}
             report[-1]["lq_ne_lk"] = lq_lk
     for name, (route, source, replaces) in BACKWARD_INFO.items():
-        row = bwd_rows[name]["recurrentgemma_2b"]
+        row = bwd_rows[name][BACKWARD_WIDTH[name]]
         extra = {}
         if name == "flash_attention_bwd":  # bf16 on wgmma (this source) and tf32, fp32 on tf32x3 and tf32x3_cluster
             others = {label: {k: r.get(k) for k in ("dtype", "route", "rel_err", "ms", "ms_cold", "ms_call",
@@ -1897,6 +2251,11 @@ def main() -> int:
                       for label, r in bwd_rows[name].items() if r["route"] != "wgmma"}
             extra = {"width_route": row["route"], "route_launches": train_backward_routes,
                      "tf32_source": "src/repro_torch/kernels/csrc/flash_attention_bwd_tf32x3.cu", "other_cases": others}
+        elif name == "moe_gmm_bwd":  # launches: grok-1-314b's full-width loss and gradient pass (bf16, wgmma)
+            others = {label: {k: r.get(k) for k in ("dtype", "route", "max_abs_err", "rel_err", "ms", "ms_cold", "ms_call",
+                                                    "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_3x_ms")}
+                      for label, r in bwd_rows[name].items() if label != BACKWARD_WIDTH[name]}
+            extra = {"width_route": row["route"], "other_cases": others}
         else:
             extra = {"kernels_per_call": row["kernels_per_call"]}
         report.append({

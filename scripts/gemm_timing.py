@@ -1,0 +1,88 @@
+#!/usr/bin/env python3
+"""Device time of the port's grouped GEMM (``moe_gmm``) and of its backward
+at the shapes chip_smoke.py holds them at, on one NVIDIA GPU.
+
+    python3 scripts/gemm_timing.py [--src DIR]
+
+``--src`` is the ``src`` directory whose ``repro_torch`` is timed (default:
+this checkout's), so that two commits can be timed on one card in one run:
+unpack the other with ``git archive`` under ``build/`` and give its ``src``.
+The forward's cases are the registry's three fp32 tiers and chip_smoke.py's
+GEMM ``MODEL_WIDTHS`` (grok-1's expert shape in both dtypes, arctic-480b's
+in both, grok-1's decode shape in bf16); the backward's are its
+``BWD_GMM_CASES`` in both dtypes.  Each case prints one ``timing`` line of
+JSON: the route the call took (by the kernel module's launch counters;
+``refused`` where the tree has no such kernel), the error against the plain
+version relative to its largest element, and the kernel's median device
+time (``ms``, chip_smoke.py's spin-kernel timing).  Set-up prints the card
+line.
+"""
+import argparse
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("gemm_timing: no CUDA device is visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, args.src)
+    import chip_smoke as cs
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import registry as kreg
+
+    print(f"card {cs.card_line()} src={args.src}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda", 0)
+    kdef = kreg.get_kernel("moe_gmm")
+    fwd = [(tier, dict(getattr(kdef, f"{tier}_shape")), "float32") for tier in ("tiny", "smoke", "full")]
+    fwd += [(model, shape, dtype) for name, model, shape, dtype in cs.MODEL_WIDTHS if name == "moe_gmm"]
+    for label, shape, dtype in fwd:
+        x, w = kdef.make_args(shape, dtype, 0, dev)
+        before = {r: c.value for r, c in gmm.ROUTE_LAUNCHES.items()}
+        got = ops.moe_gmm(x, w)
+        torch.cuda.synchronize()
+        route = [r for r, c in gmm.ROUTE_LAUNCHES.items() if c.value > before[r]]
+        want = ref.moe_gmm_ref(x, w)
+        err = float((got.float() - want.float()).abs().max()) / float(want.float().abs().max())
+        row = {"kernel": "moe_gmm", "case": label, "dtype": dtype, "route": route, "rel_err": err,
+               "ms": cs.median_ms(torch, lambda: ops.moe_gmm(x, w))}
+        print("timing " + json.dumps(row), flush=True)
+        del x, w, got, want
+        torch.cuda.empty_cache()
+    for label, shape in cs.BWD_GMM_CASES:
+        for dtype in ("bfloat16", "float32"):
+            row = {"kernel": "moe_gmm_bwd", "case": label, "dtype": dtype}
+            if not hasattr(ops, "moe_gmm_bwd"):
+                print("timing " + json.dumps({**row, "route": "refused"}), flush=True)
+                continue
+            E, C, D, F = shape["E"], shape["C"], shape["D"], shape["F"]
+            g = torch.Generator(dev).manual_seed(14)
+            dt = getattr(torch, dtype)
+            x = torch.randn(E, C, D, generator=g, device=dev).to(dt)
+            w = (torch.randn(E, D, F, generator=g, device=dev) * D ** -0.5).to(dt)
+            dy = torch.randn(E, C, F, generator=g, device=dev).to(dt)
+            before = {r: c.value for r, c in gmm.BWD_ROUTE_LAUNCHES.items()}
+            ops.moe_gmm_bwd(x, w, dy)
+            torch.cuda.synchronize()
+            row["route"] = [r for r, c in gmm.BWD_ROUTE_LAUNCHES.items() if c.value > before[r]]
+            row["ms"] = cs.median_ms(torch, lambda: ops.moe_gmm_bwd(x, w, dy))
+            print("timing " + json.dumps(row), flush=True)
+            del x, w, dy
+            torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -415,32 +415,32 @@ __device__ __forceinline__ int acc_col(int t, int i) { return 8 * (i >> 2) + 2 *
              "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "     \
              "%123, %124, %125, %126, %127"
 
-// d (m64 x N, fp32) (+)= A (m64 x k16, bf16, shared, K-major) * B (k16 x N,
-// bf16, shared; K-major when TB = 0, MN-major when TB = 1).  scale_d = 0
-// overwrites d, 1 adds to it.
-template <int N, int TB>
+// d (m64 x N, fp32) (+)= A (m64 x k16, bf16, shared; K-major when TA = 0,
+// MN-major when TA = 1) * B (k16 x N, bf16, shared; K-major when TB = 0,
+// MN-major when TB = 1).  scale_d = 0 overwrites d, 1 adds to it.
+template <int N, int TB, int TA = 0>
 struct WgmmaSS;
 // d (+)= A (m64 x k16 bf16 in registers: the fragment a[4]) * B (shared).
 template <int N, int TB>
 struct WgmmaRS;
 
-#define HOPPER_SS(N, REGS, DLIST, IA, IB, IS, IT)                                                      \
-  template <int TB>                                                                                    \
-  struct WgmmaSS<N, TB> {                                                                              \
+#define HOPPER_SS(N, REGS, DLIST, IA, IB, IS, IT, ITA)                                                 \
+  template <int TB, int TA>                                                                            \
+  struct WgmmaSS<N, TB, TA> {                                                                          \
     __device__ __forceinline__ static void run(float (&d)[N / 2], uint64_t da, uint64_t db,            \
                                                int scale_d) {                                          \
       asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IS ", 0;\n"                                    \
                    "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" REGS "}, %" IA ", %" IB \
-                   ", p, 1, 1, 0, %" IT ";\n}\n"                                                       \
+                   ", p, 1, 1, %" ITA ", %" IT ";\n}\n"                                                \
                    : DLIST                                                                             \
-                   : "l"(da), "l"(db), "r"(scale_d), "n"(TB));                                         \
+                   : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));                                \
     }                                                                                                  \
   };
-HOPPER_SS(16, HOPPER_R8, HOPPER_D8(0), "8", "9", "10", "11")
-HOPPER_SS(32, HOPPER_R16, HOPPER_D16, "16", "17", "18", "19")
-HOPPER_SS(64, HOPPER_R32, HOPPER_D32, "32", "33", "34", "35")
-HOPPER_SS(128, HOPPER_R64, HOPPER_D64, "64", "65", "66", "67")
-HOPPER_SS(256, HOPPER_R128, HOPPER_D128, "128", "129", "130", "131")
+HOPPER_SS(16, HOPPER_R8, HOPPER_D8(0), "8", "9", "10", "11", "12")
+HOPPER_SS(32, HOPPER_R16, HOPPER_D16, "16", "17", "18", "19", "20")
+HOPPER_SS(64, HOPPER_R32, HOPPER_D32, "32", "33", "34", "35", "36")
+HOPPER_SS(128, HOPPER_R64, HOPPER_D64, "64", "65", "66", "67", "68")
+HOPPER_SS(256, HOPPER_R128, HOPPER_D128, "128", "129", "130", "131", "132")
 #undef HOPPER_SS
 
 #define HOPPER_RS(N, REGS, DLIST, A0, A1, A2, A3, IB, IS, IT)                                     \

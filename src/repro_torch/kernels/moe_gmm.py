@@ -1,10 +1,12 @@
-"""Grouped (per-expert) matrix product on Hopper: the launcher of ``csrc/moe_gmm.cu``.
+"""Grouped (per-expert) matrix product on Hopper: the launchers of
+``csrc/moe_gmm.cu`` and of its backward, ``csrc/moe_gmm_bwd.cu``.
 
 Counterpart of ``repro/kernels/moe_gmm.py``.  The kernels, their design and
-what bounds them are described at the top of the CUDA source.  This module
-picks one of its three kernels by :func:`route`, launches it on CUDA tensors
-and counts the launches, in total and by route; ``kernels/ops.py`` checks
-the operands and sends CPU tensors to the plain version instead.
+what bounds them are described in the CUDA sources (``csrc/gmm.cuh`` holds
+the bodies both share).  This module picks one of three kernels by
+:func:`route`, launches it on CUDA tensors and counts the launches, in total
+and by route, the backward's apart; ``kernels/ops.py`` checks the operands
+and sends CPU tensors to the plain versions instead.
 
 The block sizes keep only the reference's divisibility rule; the CUDA
 kernels pick their own tiles and handle ragged edges.
@@ -25,8 +27,11 @@ ROUTES = {"simt": 0, "wgmma": 1, "tf32x3": 2}
 
 LAUNCHES = _build.LaunchCounter()
 ROUTE_LAUNCHES = {r: _build.LaunchCounter() for r in ROUTES}
+BWD_LAUNCHES = _build.LaunchCounter()  # one a backward call, which runs one kernel a gradient asked for
+BWD_ROUTE_LAUNCHES = {r: _build.LaunchCounter() for r in ROUTES}
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def route(dtype: torch.dtype, shape: dict) -> str:
@@ -70,3 +75,31 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     LAUNCHES.bump()
     ROUTE_LAUNCHES[path].bump()
     return y
+
+
+def moe_gmm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, need_dx: bool = True, need_dw: bool = True):
+    """Launch the backward kernels: from x (E,C,D), w (E,D,F) and the
+    output's gradient dy (E,C,F), dx = dy @ w^T (E,C,D) where ``need_dx`` and
+    dw = x^T @ dy (E,D,F) where ``need_dw``, each in its operand's dtype
+    (None where not asked), on the forward's route.  Asked for neither, it
+    launches nothing."""
+    E, C, D = x.shape
+    F = w.shape[-1]
+    if x.device.type != "cuda":
+        raise ValueError(f"moe_gmm_bwd kernel: operands must be on a CUDA device, not {x.device}")
+    if not (need_dx or need_dw):
+        return None, None
+    path = route(x.dtype, {"D": D, "F": F})
+    if path != "simt":
+        _build.check_aligned("moe_gmm_bwd", x, w, dy)
+    dx = torch.empty((E, C, D), dtype=x.dtype, device=x.device) if need_dx else None
+    dw = torch.empty((E, D, F), dtype=w.dtype, device=w.device) if need_dw else None
+    fn = _build.function("moe_gmm_bwd", "moe_gmm_bwd", _BWD_ARGTYPES)
+    code = fn(
+        x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr() if need_dx else None, dw.data_ptr() if need_dw else None,
+        E, C, D, F, DTYPES[x.dtype], ROUTES[path], x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check("moe_gmm_bwd", code)
+    BWD_LAUNCHES.bump()
+    BWD_ROUTE_LAUNCHES[path].bump()
+    return dx, dw

@@ -24,21 +24,22 @@ TF32 products a product, ``tf32x3``, up to 128 and on two-block clusters,
 ``tf32x3_cluster``, at 256) and ``moe_gmm`` (tensor-core kernels for bf16
 and, as three TF32 products, for fp32; a CUDA-core one where TMA cannot
 describe the strides).  ``route_launch_counts`` reads those, and
-``backward_route_launch_counts`` the attention backward's, which takes its
-forward's route.
+``backward_route_launch_counts`` the attention and GEMM backwards', each on
+its forward's route.
 
-Gradients.  On the card ``flash_attention`` and ``rglru_scan`` run through
-``torch.autograd.Function``s whose backward is a hand-written kernel too
-(``flash_attention_bwd``, ``rglru_scan_bwd``: public wrappers that check and
-route like the others, CPU tensors to the plain versions in ``ref``).  The
-backwards have no Pallas counterpart and no registry entry: they count their
-launches apart (``backward_launch_counts``), so the registry kernels' counts
-mean what they meant.  The attention forward also writes each row's
-log-sum-exp when a gradient will be taken, and the backward reads it.  ``selective_scan_chunk`` and ``moe_gmm`` have no
-backward kernel yet: on the card they raise ``BackwardNotPorted`` when grad
-mode is on and an operand requires grad, rather than hand back an output
-with no gradient path.  On CPU tensors every wrapper runs its plain version,
-which autograd differentiates.
+Gradients.  On the card ``flash_attention``, ``rglru_scan`` and ``moe_gmm``
+run through ``torch.autograd.Function``s whose backward is a hand-written
+kernel too (``flash_attention_bwd``, ``rglru_scan_bwd``, ``moe_gmm_bwd``:
+public wrappers that check and route like the others, CPU tensors to the
+plain versions in ``ref``).  The backwards have no Pallas counterpart and no
+registry entry: they count their launches apart (``backward_launch_counts``),
+so the registry kernels' counts mean what they meant.  The attention forward
+also writes each row's log-sum-exp when a gradient will be taken, and the
+backward reads it.  ``selective_scan_chunk`` has no backward kernel yet: on
+the card it raises ``BackwardNotPorted`` when grad mode is on and an operand
+requires grad, rather than hand back an output with no gradient path.  On
+CPU tensors every wrapper runs its plain version, which autograd
+differentiates.
 """
 from __future__ import annotations
 
@@ -72,12 +73,14 @@ def launch_counts() -> dict[str, int]:
 BACKWARD_LAUNCHES = {
     "flash_attention_bwd": _fa.BWD_LAUNCHES,
     "rglru_scan_bwd": _rg.BWD_LAUNCHES,
+    "moe_gmm_bwd": _gmm.BWD_LAUNCHES,
 }
 
 
 def backward_launch_counts() -> dict[str, int]:
     """Backward-kernel launches so far (one a wrapper call: the attention
-    backward's call runs two to four kernels, the RG-LRU backward's one)."""
+    backward's call runs two to four kernels, the RG-LRU backward's one, the
+    GEMM backward's one a gradient asked for)."""
     return {name: c.value for name, c in BACKWARD_LAUNCHES.items()}
 
 
@@ -94,7 +97,7 @@ def route_launch_counts() -> dict[str, dict[str, int]]:
     return {name: {r: c.value for r, c in by.items()} for name, by in ROUTE_LAUNCHES.items()}
 
 
-BACKWARD_ROUTE_LAUNCHES = {"flash_attention_bwd": _fa.BWD_ROUTE_LAUNCHES}
+BACKWARD_ROUTE_LAUNCHES = {"flash_attention_bwd": _fa.BWD_ROUTE_LAUNCHES, "moe_gmm_bwd": _gmm.BWD_ROUTE_LAUNCHES}
 
 
 def backward_route_launch_counts() -> dict[str, dict[str, int]]:
@@ -119,7 +122,6 @@ class BackwardNotPorted(NotImplementedError):
 
 _NO_BACKWARD = {  # kernel -> the ROADMAP.md item its backward waits for
     "selective_scan_chunk": "queue 2 ('Kernel work still open on the H100'), item 1: the selective_scan backward",
-    "moe_gmm": "'Modules to port', item 4b: the moe family, with the moe_gmm backward (queue 2, item 2)",
 }
 
 
@@ -333,5 +335,36 @@ def moe_gmm(
     _gmm.check_blocks(C, D, F, cfg["block_c"], cfg["block_d"], cfg["block_f"])
     if not on_card:
         return ref.moe_gmm_ref(x, w)
-    _refuse_grad("moe_gmm", {"x": x, "w": w})
-    return _gmm.moe_gmm(x, w)
+    return _MoeGmm.apply(x, w)
+
+
+class _MoeGmm(torch.autograd.Function):
+    """The forward kernel, with the backward kernel as its gradient: each
+    of dx and dw only where autograd asks for it."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _gmm.moe_gmm(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        need_dx, need_dw = ctx.needs_input_grad
+        return moe_gmm_bwd(x, w, dy.contiguous(), need_dx=need_dx, need_dw=need_dw)
+
+
+def moe_gmm_bwd(x, w, dy, *, need_dx: bool = True, need_dw: bool = True):
+    """Gradients of ``moe_gmm`` from its operands x (E,C,D) and w (E,D,F) and
+    its output's gradient dy (E,C,F): returns (dx (E,C,D), dw (E,D,F)) in the
+    operands' dtype, each None where not asked for."""
+    E, C, D = x.shape
+    F = w.shape[-1]
+    same = (x.dtype,) if x.dtype in _FLOATS else _FLOATS
+    on_card = _on_card(
+        "moe_gmm_bwd", {"x": x, "w": w, "dy": dy}, {"x": _FLOATS, "w": same, "dy": same},
+        {"x": (E, C, D), "w": (E, D, F), "dy": (E, C, F)},
+    )
+    if not on_card:
+        return ref.moe_gmm_bwd_ref(x, w, dy, need_dx, need_dw)
+    return _gmm.moe_gmm_bwd(x, w, dy, need_dx, need_dw)

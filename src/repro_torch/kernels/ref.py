@@ -4,10 +4,11 @@ They repeat the arithmetic of ``repro/kernels/ref.py`` with a Python loop
 over time for the two scans.  The CPU route of ``kernels/ops.py`` runs them,
 and ``chip_smoke.py`` holds each kernel against them on the card.
 
-The two backward kernels (attention and ``rglru_scan``) have no Pallas
-counterpart; their plain versions below are written from the explicit
-gradient formulas, not by calling autograd, so that the tests can hold
-them against autodiff of the forward (``jax.vjp`` and torch's autograd).
+The three backward kernels (attention, ``rglru_scan`` and ``moe_gmm``)
+have no Pallas counterpart; their plain versions below are written from
+the explicit gradient formulas, not by calling autograd, so that the tests
+can hold them against autodiff of the forward (``jax.vjp`` and torch's
+autograd).
 """
 from __future__ import annotations
 
@@ -155,3 +156,12 @@ def rglru_bwd_ref(log_a, h0, y, dy, dh_last):
 
 def moe_gmm_ref(x, w):
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
+def moe_gmm_bwd_ref(x, w, dy, need_dx=True, need_dw=True):
+    """The gradients of ``moe_gmm_ref`` from the output's gradient dy
+    (E,C,F): (dx = dy @ w^T, dw = x^T @ dy), fp32 sums cast to the operands'
+    dtypes, None where not asked."""
+    dx = torch.einsum("ecf,edf->ecd", dy.float(), w.float()).to(x.dtype) if need_dx else None
+    dw = torch.einsum("ecd,ecf->edf", x.float(), dy.float()).to(w.dtype) if need_dw else None
+    return dx, dw

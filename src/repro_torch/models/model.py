@@ -9,13 +9,14 @@ Counterpart of ``repro/models/model.py``::
     logits, cache = model.prefill(params, batch)
     logits, cache = model.decode_step(params, cache, tokens, pos)
 
-The dense, ssm and hybrid families are ported, for training and serving;
-their forward and prefill run on the hand-written kernels where the tensors
-lie on a CUDA device, and so does the backward of attention and of the
-RG-LRU (``kernels/ops.py``).  On the card the ssm family trains only once
-the ``selective_scan`` backward is ported: until then its train step raises
-``ops.BackwardNotPorted`` there, and trains on the CPU.  The other families
-raise ``NotImplementedError`` naming what is left.
+The dense, moe, ssm and hybrid families are ported, for training and
+serving; their forward and prefill run on the hand-written kernels where the
+tensors lie on a CUDA device, and so does the backward of attention, of the
+RG-LRU and of the expert GEMMs (``kernels/ops.py``).  On the card the ssm
+family trains only once the ``selective_scan`` backward is ported: until
+then its train step raises ``ops.BackwardNotPorted`` there, and trains on
+the CPU.  The other families raise ``NotImplementedError`` naming what is
+left.
 """
 from __future__ import annotations
 
@@ -24,18 +25,21 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import rglru, ssm, transformer
+from repro_torch.models import moe, rglru, ssm, transformer
 from repro_torch.models.layers import remat
 from repro_torch.models.spec import init_params, tree_size
 
 _FAMILY = {
     "dense": transformer,
+    "moe": moe,
     "ssm": ssm,
     "hybrid": rglru,
 }
 
+# the families whose loss may take the chunked head (``model.py:62``): not moe
+_CHUNKED_HEAD = ("dense", "ssm", "hybrid", "vlm", "audio")
+
 _NOT_PORTED = {  # family -> its ROADMAP.md item ("Modules to port")
-    "moe": "item 4b: the moe family, with moe_gmm on its expert matmuls",
     "audio": "item 4c: encdec, the audio family",
     "vlm": "item 4d: vision, the vlm family",
 }
@@ -69,17 +73,26 @@ class Model:
 
     # -- forward -------------------------------------------------------
     def logits(self, params, batch: dict) -> torch.Tensor:
-        return self.mod.forward(self.cfg, params, batch["tokens"], _extras(batch))
+        out = self.mod.forward(self.cfg, params, batch["tokens"], _extras(batch))
+        if isinstance(out, tuple):  # moe returns (logits, aux)
+            return out[0]
+        return out
 
     def loss(self, params, batch: dict):
-        """Next-token cross entropy.  Returns (loss, metrics) with the
-        reference's keys: ``ce``, ``tokens``, ``loss`` (fp32 tensors)."""
-        if self.cfg.logit_chunk:
+        """Next-token cross entropy (+ the MoE aux losses).  Returns (loss,
+        metrics) with the reference's keys: ``ce``, ``tokens``, ``loss``, and
+        for moe ``aux_loss`` and ``z_loss`` (fp32 tensors)."""
+        if self.cfg.logit_chunk and self.cfg.family in _CHUNKED_HEAD:
             return self._loss_chunked_head(params, batch)
-        logits = self.mod.forward(self.cfg, params, batch["tokens"], _extras(batch))
+        out = self.mod.forward(self.cfg, params, batch["tokens"], _extras(batch))
+        logits, moe_metrics = out if isinstance(out, tuple) else (out, None)
         ce, metrics = cross_entropy(logits, batch["labels"])
-        metrics["loss"] = ce
-        return ce, metrics
+        loss = ce
+        if moe_metrics is not None:
+            loss = loss + moe.aux_loss(moe_metrics)
+            metrics.update(moe_metrics)
+        metrics["loss"] = loss
+        return loss, metrics
 
     def _loss_chunked_head(self, params, batch: dict):
         """The LM head and cross entropy a sequence chunk at a time, each

@@ -1,0 +1,252 @@
+"""Mixture-of-Experts FFN with capacity-based grouped dispatch (Switch/MaxText
+style) + optional parallel dense residual (arctic).
+
+Counterpart of ``repro/models/moe.py``.  Tokens are processed in groups of
+``moe_group_size``; each group computes a local top-k dispatch with capacity
+C = ceil(g * k * cf / E).  The routing is fp32 throughout, as in the
+reference.  The dispatch and combine einsums stay plain products; the three
+expert products (``moe.py:131-135``) run on the grouped GEMM kernel
+(``ops.moe_gmm``): the dispatched tokens are laid out (E, G * C, D), each
+expert's rows of every group together, so one launch multiplies every
+expert's rows by its weights.  On the card its gradient is the hand-written
+``moe_gmm`` backward.  The reference's ``shard_x`` annotations are dropped
+(one device).  Layers are a loop over the stacked leaves, each one call of
+``layers.remat``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import apply_rope, embed_tokens, remat, rms_norm, swiglu
+from repro_torch.models.spec import ParamSpec, dense, layer, stack_layers, stacked, torch_dtype
+from repro_torch.models.transformer import _head, _positions, attn_specs, n_stacked, write_cache
+from repro_torch.models.transformer import cache_specs as dense_cache_specs
+
+AUX_LOSS_WEIGHT = 0.01
+Z_LOSS_WEIGHT = 1e-3
+
+
+# ---------------------------------------------------------------------------
+# Specs
+# ---------------------------------------------------------------------------
+
+
+def moe_specs(cfg: ArchConfig, dt: str) -> dict:
+    D, F_, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    tree = {
+        "router": dense((D, E), ("embed", None), dt, scale=0.02),
+        "w_gate": dense((E, D, F_), ("experts", "embed", "mlp"), dt),
+        "w_up": dense((E, D, F_), ("experts", "embed", "mlp"), dt),
+        "w_down": dense((E, F_, D), ("experts", "mlp", "embed"), dt),
+    }
+    if cfg.moe_dense_residual:
+        tree["dense"] = {
+            "w_gate": dense((D, F_), ("embed", "mlp"), dt),
+            "w_up": dense((D, F_), ("embed", "mlp"), dt),
+            "w_down": dense((F_, D), ("mlp", "embed"), dt),
+        }
+    return tree
+
+
+def block_specs(cfg: ArchConfig, dt: str) -> dict:
+    return {
+        "ln_attn": ParamSpec((cfg.d_model,), ("norm",), dt, "zeros"),
+        "attn": attn_specs(cfg, dt),
+        "ln_mlp": ParamSpec((cfg.d_model,), ("norm",), dt, "zeros"),
+        "moe": moe_specs(cfg, dt),
+    }
+
+
+def specs(cfg: ArchConfig) -> dict:
+    dt = cfg.param_dtype
+    return {
+        "embed": dense((cfg.vocab_size, cfg.d_model), ("vocab", "embed_table"), dt, scale=0.02),
+        "blocks": stacked(cfg.n_layers, block_specs(cfg, dt)),
+        "ln_f": ParamSpec((cfg.d_model,), ("norm",), dt, "zeros"),
+        "lm_head": dense((cfg.d_model, cfg.vocab_size), ("embed", "vocab"), dt),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Dispatch
+# ---------------------------------------------------------------------------
+
+
+def capacity(cfg: ArchConfig, group: int) -> int:
+    return max(1, math.ceil(group * cfg.top_k * cfg.capacity_factor / cfg.n_experts))
+
+
+def topk(probs: torch.Tensor, k: int):
+    """The ``k`` largest values along the last axis and their indices, ties
+    broken towards the lower index, as ``jax.lax.top_k`` breaks them (a
+    stable descending sort keeps equal values in index order)."""
+    values, indices = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+def route(cfg: ArchConfig, logits: torch.Tensor):
+    """logits (G, g, E) -> (dispatch (G,g,E,C), combine (G,g,E,C), aux, z),
+    all fp32.  First-choice slots get capacity priority over second choices
+    (Switch).  A request past its expert's capacity (pos >= C) gets no slot:
+    its row of the one-hot is zero, as ``jax.nn.one_hot`` gives it."""
+    G, g, E = logits.shape
+    C = capacity(cfg, g)
+    logits = logits.float()
+    probs = torch.softmax(logits, dim=-1)
+    top_v, top_i = topk(probs, cfg.top_k)  # (G, g, k)
+    top_v = top_v / torch.clamp(torch.sum(top_v, -1, keepdim=True), min=1e-9)
+
+    onehot = F.one_hot(top_i, E).float()  # (G, g, k, E)
+    # priority order: all 1st choices before any 2nd choice within the group
+    oh = onehot.transpose(1, 2).reshape(G, cfg.top_k * g, E)
+    pos = torch.cumsum(oh, dim=1) - oh  # position of each request in its expert queue
+    keep = (pos < C).float() * oh
+    slot = (pos[..., None] == torch.arange(C, dtype=pos.dtype, device=pos.device)).float() * keep[..., None]
+    slot = slot.reshape(G, cfg.top_k, g, E, C).transpose(1, 2)  # (G, g, k, E, C)
+    dispatch = torch.sum(slot, dim=2)  # (G, g, E, C)
+    combine = torch.sum(slot * top_v[..., None, None], dim=2)  # (G, g, E, C)
+
+    # load-balancing aux loss (Switch): E * mean_e(frac_tokens_e * mean_prob_e)
+    frac = torch.mean(onehot[:, :, 0, :], dim=1)  # first-choice fraction (G, E)
+    mean_p = torch.mean(probs, dim=1)  # (G, E)
+    aux = E * torch.mean(torch.sum(frac * mean_p, dim=-1))
+    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    return dispatch, combine, aux, z
+
+
+def _divisor(n: int, cap: int) -> int:
+    """The largest divisor of ``n`` that is at most ``cap``."""
+    b = min(cap, n)
+    while n % b:
+        b -= 1
+    return b
+
+
+def expert_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (E, R, K) @ w (E, K, N) on the grouped GEMM kernel, with blocks that
+    divide the shapes (the kernel keeps the reference's divisibility rule and
+    picks its own tiles: arctic's contraction of 4864 takes no 512 block)."""
+    _, R, K = x.shape
+    return ops.moe_gmm(
+        x, w, block_c=_divisor(R, 128), block_d=_divisor(K, 512), block_f=_divisor(w.shape[-1], 256),
+    )
+
+
+def moe_ffn(cfg: ArchConfig, x: torch.Tensor, p: dict):
+    """x (B, L, D) -> (y (B, L, D), aux_metrics dict)."""
+    B, L, D = x.shape
+    T = B * L
+    g = min(cfg.moe_group_size, T)
+    while T % g:  # fall back to the largest divisor of T (odd test lengths)
+        g -= 1
+    G = T // g
+    xg = x.reshape(G, g, D)
+
+    logits = torch.einsum("Ggd,de->Gge", xg.float(), p["router"].float())
+    dispatch, combine, aux, z = route(cfg, logits)
+    dispatch = dispatch.to(x.dtype)
+    E, C = dispatch.shape[2], dispatch.shape[3]
+
+    # each expert's rows of every group together: (E, G * C, D)
+    xe = torch.einsum("Ggd,Ggec->eGcd", xg, dispatch).contiguous().reshape(E, G * C, D)
+    h = F.silu(expert_matmul(xe, p["w_gate"])) * expert_matmul(xe, p["w_up"])
+    ye = expert_matmul(h, p["w_down"]).reshape(E, G, C, D)
+    y = torch.einsum("eGcd,Ggec->Ggd", ye.float(), combine)
+    y = y.reshape(B, L, D).to(x.dtype)
+    if "dense" in p:  # arctic: parallel dense residual MLP
+        y = y + swiglu(x, p["dense"]["w_gate"], p["dense"]["w_up"], p["dense"]["w_down"])
+    return y, {"aux_loss": aux, "z_loss": z}
+
+
+# ---------------------------------------------------------------------------
+# Blocks / model passes
+# ---------------------------------------------------------------------------
+
+
+def _attn(cfg: ArchConfig, x, p, pos):
+    """The attention half of a block: (x after it, (k, v))."""
+    h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
+    q, k, v = attn.qkv_proj(h, p["attn"])
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    a = attn.attention(q, k, v, causal=True)
+    return x + attn.out_proj(a, p["attn"]["wo"]), (k, v)
+
+
+def moe_block(cfg: ArchConfig, x, p, pos):
+    x, _ = _attn(cfg, x, p, pos)
+    y, aux = moe_ffn(cfg, rms_norm(x, p["ln_mlp"], cfg.norm_eps), p["moe"])
+    return x + y, aux
+
+
+def forward(cfg: ArchConfig, params, tokens, extras=None):
+    """Returns (logits, moe_metrics): the aux and z losses averaged over the
+    layers, each layer rematerialised by ``cfg.remat``."""
+    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    pos = _positions(tokens)
+
+    def body(x, p):
+        x, aux = moe_block(cfg, x, p, pos)
+        return x, aux["aux_loss"], aux["z_loss"]
+
+    n = n_stacked(params["blocks"])
+    aux_sum = z_sum = 0.0
+    for i in range(n):
+        x, aux, z = remat(body, x, layer(params["blocks"], i), policy=cfg.remat)
+        aux_sum, z_sum = aux_sum + aux, z_sum + z
+    return _head(cfg, params, x), {"aux_loss": aux_sum / n, "z_loss": z_sum / n}
+
+
+def aux_loss(metrics: dict) -> torch.Tensor:
+    return AUX_LOSS_WEIGHT * metrics["aux_loss"] + Z_LOSS_WEIGHT * metrics["z_loss"]
+
+
+cache_specs = dense_cache_specs
+
+
+def _decode_block(cfg, x, p, layer_cache, pos):
+    h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
+    q, k_t, v_t = attn.qkv_proj(h, p["attn"])
+    q = apply_rope(q, pos[:, None], cfg.rope_theta)
+    k_t = apply_rope(k_t, pos[:, None], cfg.rope_theta)
+    ck, cv = write_cache(layer_cache["k"], layer_cache["v"], k_t, v_t, pos)
+    a = attn.decode_attention(q, ck, cv, pos)
+    x = x + attn.out_proj(a, p["attn"]["wo"])
+    y, _ = moe_ffn(cfg, rms_norm(x, p["ln_mlp"], cfg.norm_eps), p["moe"])
+    return x + y, {"k": ck, "v": cv}
+
+
+def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len=None):
+    """Full-sequence forward that also returns the KV cache.
+    Returns (last-token logits (B, 1, V), cache)."""
+    B, L = tokens.shape
+    cache_len = cache_len or L
+    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    pos = _positions(tokens)
+    ks, vs = [], []
+    for i in range(n_stacked(params["blocks"])):
+        p = layer(params["blocks"], i)
+        x, (k, v) = _attn(cfg, x, p, pos)
+        y, _ = moe_ffn(cfg, rms_norm(x, p["ln_mlp"], cfg.norm_eps), p["moe"])
+        x = x + y
+        if cache_len > L:
+            k, v = (F.pad(t, (0, 0, 0, 0, 0, cache_len - L)) for t in (k, v))
+        ks.append(k)
+        vs.append(v)
+    return _head(cfg, params, x[:, -1:, :]), {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+
+
+def decode_step(cfg: ArchConfig, params, cache, tokens, pos, extras=None):
+    """One decode step.  tokens (B, 1), pos (B,).  Returns (logits, cache)."""
+    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    new = []
+    for i in range(n_stacked(params["blocks"])):
+        x, lc = _decode_block(cfg, x, layer(params["blocks"], i), layer(cache["layers"], i), pos)
+        new.append(lc)
+    return _head(cfg, params, x), {"layers": stack_layers(new)}

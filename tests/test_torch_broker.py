@@ -166,8 +166,8 @@ def test_unported_subsystems_raise_naming_the_roadmap(tmp_path):
     ROADMAP item; the checkpointer, the autotuner and the autoscaler attach,
     and train and prefill steps run (tests/test_torch_train.py,
     tests/test_torch_serve.py)."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 4b"):
-        COMPUTE_RUNTIME.run(Task(kind="compute", arch="grok-1-314b"), CPU)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 4c"):
+        COMPUTE_RUNTIME.run(Task(kind="compute", arch="seamless-m4t-medium"), CPU)
     h = Hydra(device="cpu", pod_store="memory", workdir=str(tmp_path))
     assert h.enable_task_checkpoints() is h.checkpointer
     assert h.enable_kernel_autotune(timer="model") is h.autotuner
@@ -181,12 +181,12 @@ def test_compute_tasks_fail_with_a_typed_error(tmp_path):
     ROADMAP item."""
     h = Hydra(device="cpu", pod_store="memory", streaming=True, workdir=str(tmp_path))
     h.register_provider(ProviderSpec(name="cloud"))
-    task = Task(kind="compute", arch="grok-1-314b", max_retries=0)
+    task = Task(kind="compute", arch="seamless-m4t-medium", max_retries=0)
     h.dispatch([task])
     cf.wait([task], timeout=60)
     assert task.tstate == TaskState.FAILED
     assert isinstance(task.exception(), NotImplementedError)
-    assert "item 4b" in str(task.exception())
+    assert "item 4c" in str(task.exception())
     h.shutdown(wait=True)
 
 

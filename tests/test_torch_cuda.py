@@ -14,9 +14,9 @@ where a case says so; relative 1e-4 for the scans with bf16 x at width
 every width: bf16 on ``wgmma`` (one TF32 product a product, ``tf32``, at
 head width 16), fp32 on ``tf32x3`` (three TF32 products a term, held at the
 fp32 tolerance with TF32 off in the plain version; on two-block clusters,
-``tf32x3_cluster``, at 256).  moe_gmm has tensor-core kernels (bf16
-``wgmma``, fp32 ``tf32x3``) and the CUDA cores' ``simt`` for the GEMMs
-whose strides TMA cannot describe.
+``tf32x3_cluster``, at 256).  moe_gmm and its backward have tensor-core
+kernels (bf16 ``wgmma``, fp32 ``tf32x3``) and the CUDA cores' ``simt`` for
+the GEMMs whose strides TMA cannot describe.
 """
 from __future__ import annotations
 
@@ -306,6 +306,8 @@ def test_attention_head_width_16_on_the_card(card, L, window):
         ("llama3-8b", {"flash_attention": 2}),
         ("falcon-mamba-7b", {"selective_scan": 4}),
         ("recurrentgemma-2b", {"flash_attention": 2, "rglru_scan": 4}),
+        ("grok-1-314b", {"flash_attention": 2, "moe_gmm": 6}),
+        ("arctic-480b", {"flash_attention": 2, "moe_gmm": 6}),
     ],
 )
 def test_reduced_model_prefill_on_the_card_matches_the_cpu(card, name, want):
@@ -616,6 +618,65 @@ def test_rglru_backward_from_two_threads_on_two_streams(card):
         assert all(_close(g, w, torch.float32) for got in out for g, w in zip(got, want))
 
 
+# the moe_gmm backward at chip_smoke.py's GEMM cases: on the tile grid, C, D
+# and F ragged, and F = 100 (bf16 on simt) and 50 (simt in both dtypes)
+_GMM_BWD_SHAPES = [
+    {"E": 4, "C": 64, "D": 128, "F": 256},
+    {"E": 3, "C": 80, "D": 96, "F": 200},
+    {"E": 3, "C": 80, "D": 96, "F": 100},
+    {"E": 3, "C": 80, "D": 96, "F": 50},
+]
+
+
+def _gmm_bwd_operands(card, shape, dtype, seed=0):
+    g = torch.Generator(card).manual_seed(seed)
+    E, C, D, F = shape["E"], shape["C"], shape["D"], shape["F"]
+    x = torch.randn(E, C, D, generator=g, device=card).to(dtype)
+    w = (torch.randn(E, D, F, generator=g, device=card) / D ** 0.5).to(dtype)
+    dy = torch.randn(E, C, F, generator=g, device=card).to(dtype)
+    return x, w, dy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", _GMM_BWD_SHAPES, ids=lambda s: "E{E}_C{C}_D{D}_F{F}".format(**s))
+def test_moe_gmm_backward_kernel_matches_plain_version(card, shape, dtype):
+    """dx and dw on the forward's route against the plain version (fp32
+    relative 1e-4, bf16 element by element), each alone too."""
+    from repro_torch.kernels import moe_gmm as tgmm
+    from repro_torch.kernels import ref
+
+    x, w, dy = _gmm_bwd_operands(card, shape, dtype)
+    route = tgmm.route(dtype, shape)
+    before = ops.backward_route_launch_counts()["moe_gmm_bwd"]
+    got = ops.moe_gmm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    after = ops.backward_route_launch_counts()["moe_gmm_bwd"]
+    assert {r: n - before[r] for r, n in after.items()} == {r: int(r == route) for r in after}
+    want = ref.moe_gmm_bwd_ref(x, w, dy)
+    assert all(a.dtype == dtype and _close(a, b, dtype) for a, b in zip(got, want))
+    dx, none = ops.moe_gmm_bwd(x, w, dy, need_dw=False)
+    none2, dw = ops.moe_gmm_bwd(x, w, dy, need_dx=False)
+    assert none is None and none2 is None and torch.equal(dx, got[0]) and torch.equal(dw, got[1])
+
+
+def test_moe_gmm_gradient_is_the_backward_kernel_on_the_card(card):
+    """``ops.moe_gmm`` under grad: its output's gradient is the backward
+    kernel's (one backward launch), and matches autograd of the plain
+    version; with only w requiring grad, only dw is computed."""
+    from repro_torch.kernels import ref
+
+    x, w, dy = _gmm_bwd_operands(card, {"E": 4, "C": 96, "D": 64, "F": 128}, torch.float32, seed=3)
+    xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = ops.backward_launch_counts()["moe_gmm_bwd"]
+    got = torch.autograd.grad(ops.moe_gmm(xs, ws), (xs, ws), dy)
+    torch.cuda.synchronize()
+    assert ops.backward_launch_counts()["moe_gmm_bwd"] == before + 1
+    want = torch.autograd.grad(ref.moe_gmm_ref(xs, ws), (xs, ws), dy)
+    assert all(_close(a, b, torch.float32) for a, b in zip(got, want))
+    (dw,) = torch.autograd.grad(ops.moe_gmm(x, ws), (ws,), dy)
+    assert _close(dw, want[1], torch.float32)
+
+
 def test_kernel_outputs_carry_gradients_on_the_card(card):
     """flash_attention and rglru_scan hand back outputs with a grad_fn, and
     their gradients equal autograd of the plain versions on the card."""
@@ -642,28 +703,23 @@ def test_kernel_outputs_carry_gradients_on_the_card(card):
 
 
 def test_kernels_without_a_backward_raise_under_grad_on_the_card(card):
-    """selective_scan_chunk and moe_gmm refuse operands that require grad
-    under grad mode (no silent loss of gradients) and launch without it."""
+    """selective_scan_chunk refuses operands that require grad under grad
+    mode (no silent loss of gradients) and launches without it."""
     B, ck, di, N = 2, 8, 32, 4
     x = torch.randn(B, ck, di, device=card, requires_grad=True)
     rest = (torch.rand(B, ck, di, device=card), torch.randn(B, ck, N, device=card), torch.randn(B, ck, N, device=card),
             -torch.rand(di, N, device=card), torch.zeros(B, di, N, device=card))
     with pytest.raises(ops.BackwardNotPorted, match="selective_scan backward"):
         ops.selective_scan_chunk(x, *rest)
-    xg = torch.randn(2, 64, 32, device=card)
-    w = torch.randn(2, 32, 64, device=card, requires_grad=True)
-    with pytest.raises(ops.BackwardNotPorted, match="item 4b"):
-        ops.moe_gmm(xg, w)
     before = ops.launch_counts()
     with torch.no_grad():
         ops.selective_scan_chunk(x, *rest)
-        ops.moe_gmm(xg, w)
     torch.cuda.synchronize()
     after = ops.launch_counts()
-    assert after["selective_scan"] == before["selective_scan"] + 1 and after["moe_gmm"] == before["moe_gmm"] + 1
+    assert after["selective_scan"] == before["selective_scan"] + 1
 
 
-@pytest.mark.parametrize("name", ["llama3-8b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("name", ["llama3-8b", "recurrentgemma-2b", "grok-1-314b", "arctic-480b"])
 def test_reduced_model_gradients_on_the_card_match_the_cpu(card, name):
     """One loss and its gradients of the reduced config (fp32) on the card,
     through the kernels and their backwards, against the CPU's plain path:
@@ -690,6 +746,8 @@ def test_reduced_model_gradients_on_the_card_match_the_cpu(card, name):
     torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in ops.backward_launch_counts().items()}
     assert launched["flash_attention_bwd"] == 2 and launched["rglru_scan_bwd"] == (4 if name == "recurrentgemma-2b" else 0)
+    # three expert products a moe layer, each with its backward (remat="none" at .reduced())
+    assert launched["moe_gmm_bwd"] == (6 if model.cfg.family == "moe" else 0)
     assert _bwd_route_delta(routes) == {r: 2 * int(r == "tf32x3") for r in routes}  # fp32 at head width 16
     on_cpu = grads(tree_map(lambda t: t.detach().cpu(), params), "cpu")
     for a, b in zip(on_card, on_cpu):

@@ -411,14 +411,18 @@ def test_route_counts_read_and_reset():
     tfa.ROUTE_LAUNCHES["tf32x3"].bump()
     assert ops.route_launch_counts()["flash_attention"]["tf32x3"] == counts["flash_attention"]["tf32x3"] + 1
     bwd = ops.backward_route_launch_counts()
-    assert bwd == {"flash_attention_bwd": {r: bwd["flash_attention_bwd"][r] for r in routes["flash_attention"]}}
+    bwd_routes = {"flash_attention_bwd": routes["flash_attention"], "moe_gmm_bwd": routes["moe_gmm"]}
+    assert bwd == {name: {r: bwd[name][r] for r in by} for name, by in bwd_routes.items()}
     for r in routes["flash_attention"]:
         tfa.BWD_ROUTE_LAUNCHES[r].bump()
+    tgmm.BWD_ROUTE_LAUNCHES["wgmma"].bump()
+    tgmm.BWD_LAUNCHES.bump()
     assert ops.backward_route_launch_counts()["flash_attention_bwd"] == {r: n + 1 for r, n in bwd["flash_attention_bwd"].items()}
+    assert ops.backward_route_launch_counts()["moe_gmm_bwd"]["wgmma"] == bwd["moe_gmm_bwd"]["wgmma"] + 1
     ops.reset_launch_counts()
     assert ops.route_launch_counts() == {name: {r: 0 for r in by} for name, by in routes.items()}
-    assert ops.backward_route_launch_counts() == {"flash_attention_bwd": {r: 0 for r in routes["flash_attention"]}}
-    assert set(ops.launch_counts().values()) == {0}
+    assert ops.backward_route_launch_counts() == {name: {r: 0 for r in by} for name, by in bwd_routes.items()}
+    assert set(ops.launch_counts().values()) == {0} and set(ops.backward_launch_counts().values()) == {0}
 
 
 # (dtype, head width, backward route): every width on the tensor cores, on

@@ -32,7 +32,7 @@ from repro_torch.models.spec import params_from_jax
 
 torch.set_num_threads(1)
 
-SERVE_ARCHS = ["llama3-8b", "falcon-mamba-7b", "recurrentgemma-2b"]
+SERVE_ARCHS = ["llama3-8b", "falcon-mamba-7b", "recurrentgemma-2b", "grok-1-314b", "arctic-480b"]
 
 
 @pytest.mark.parametrize("name", SERVE_ARCHS)
@@ -67,7 +67,7 @@ def test_serve_refuses_cuda_without_a_card(monkeypatch):
 
 
 def test_unported_families_raise_naming_the_roadmap():
-    for name, item in (("grok-1-314b", "4b"), ("seamless-m4t-medium", "4c"), ("llama-3.2-vision-11b", "4d")):
+    for name, item in (("seamless-m4t-medium", "4c"), ("llama-3.2-vision-11b", "4d")):
         with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md.*item {item}"):
             serve(name, device="cpu")
 
@@ -146,9 +146,9 @@ def test_compute_train_step_raises_naming_the_train_slice():
     """The train slice is ported (tests/test_torch_train.py); a train step of
     a family that is not raises naming its ROADMAP item, and a step kind the
     reference lacks is refused."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 4b"):
-        compute.COMPUTE_RUNTIME.run(Task(kind="compute", arch="grok-1-314b", step_kind="train"), torch.device("cpu"))
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 4c"):
-        compute.COMPUTE_RUNTIME.run(Task(kind="compute", arch="seamless-m4t-medium"), torch.device("cpu"))
+        compute.COMPUTE_RUNTIME.run(Task(kind="compute", arch="seamless-m4t-medium", step_kind="train"), torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 4d"):
+        compute.COMPUTE_RUNTIME.run(Task(kind="compute", arch="llama-3.2-vision-11b"), torch.device("cpu"))
     with pytest.raises(ValueError):
         compute.COMPUTE_RUNTIME.run(Task(kind="compute", arch="llama3-8b", step_kind="decode"), torch.device("cpu"))

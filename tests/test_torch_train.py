@@ -57,7 +57,7 @@ from repro_torch.train import step as tstep
 
 torch.set_num_threads(1)
 
-ARCHS = ["llama3-8b", "recurrentgemma-2b", "falcon-mamba-7b"]
+ARCHS = ["llama3-8b", "recurrentgemma-2b", "falcon-mamba-7b", "grok-1-314b", "arctic-480b"]
 GRAD_REL = 1e-5  # attention / RG-LRU gradients and the loss, relative
 LEAF_TOL = 1e-4  # each gradient leaf, x the max-abs of the reference's leaf
 REMAT_TOL = 1e-6
@@ -309,7 +309,7 @@ def test_kernels_without_a_backward_refuse_gradients():
     refused naming the ROADMAP item; without grad, or with no operand that
     requires grad, it passes (on the card the launch follows)."""
     x = torch.zeros(2, requires_grad=True)
-    for kernel, item in (("selective_scan_chunk", "selective_scan backward"), ("moe_gmm", "item 4b")):
+    for kernel, item in (("selective_scan_chunk", "selective_scan backward"),):
         with pytest.raises(ops.BackwardNotPorted, match=f"ROADMAP.md.*{item}"):
             ops._refuse_grad(kernel, {"x": x, "y": torch.zeros(2)})
         with torch.no_grad():
@@ -395,10 +395,18 @@ def compare_train_steps(name: str, n_steps: int = 3) -> dict:
     return errs
 
 
+# the share of parameter elements whose AdamW update may be ill conditioned
+# (see compare_train_steps): an expert sees only the tokens routed to it
+# (about half of the 48 at the reduced top-2 of 4), so more of its gradient
+# elements lie near eps; arctic-480b's reads 2.3e-2, 3.9e-2 in one expert leaf
+ILL_SHARE = {"moe": 5e-2}
+
+
 @pytest.mark.parametrize("name", ARCHS)
 def test_three_train_steps_match_the_reference(name):
     errs = compare_train_steps(name)
-    assert errs["params_over_lr"] <= 1e-2 and errs["ill_conditioned_share"] <= 2e-2, errs
+    share = ILL_SHARE.get(get_arch(name).family, 2e-2)
+    assert errs["params_over_lr"] <= 1e-2 and errs["ill_conditioned_share"] <= share, errs
     assert errs["m"] <= 1e-4 and errs["v"] <= 1e-4 and errs["step"] == 0, errs
     assert max(v for k, v in errs.items() if k.endswith("_metrics")) <= 1e-4, errs
 
@@ -497,8 +505,8 @@ def test_compute_train_tasks_keep_their_state_and_report_the_reference_metrics(t
     """Train tasks through ``Hydra(device="cpu")``: the metrics' keys are the
     reference's (loss, optimizer), the state carries from task to task (the
     optimizer's step counts them), and every ported family trains."""
-    jm, _ = _models("llama3-8b")
-    want_keys = sorted(list(jstep.metrics_struct(jm)) + ["grad_norm", "lr"])
+    want = {a: sorted(list(jstep.metrics_struct(_models(a)[0])) + ["grad_norm", "lr"]) for a in ARCHS}
+    want_keys = want["llama3-8b"]
     rt = compute.ComputeRuntime()
     cpu = torch.device("cpu")
     first = rt.run(Task(kind="compute", arch="llama3-8b", step_kind="train"), cpu)
@@ -517,7 +525,7 @@ def test_compute_train_tasks_keep_their_state_and_report_the_reference_metrics(t
         assert not pending
         for t in tasks:
             assert t.tstate == TaskState.DONE, t.exception()
-            assert sorted(t.result()) == want_keys and all(np.isfinite(v) for v in t.result().values())
+            assert sorted(t.result()) == want[t.arch] and all(np.isfinite(v) for v in t.result().values())
     finally:
         h.shutdown(wait=True)
     for a in ARCHS:
