@@ -1317,6 +1317,19 @@ BWD_GMM_CASES = [
     ("grok_1_314b", {"E": 8, "C": 1280, "D": 6144, "F": 32768}),
     ("arctic_480b", {"E": 128, "C": 80, "D": 7168, "F": 4864}),
 ]
+# the backward's persistent scheduler at its edges (tests/test_torch_cuda.py
+# holds the same): more dw tiles than one wave, ragged, and walks that cross
+# experts; a contraction shorter than one 64-deep slice (C 16); a ragged last
+# slice after several full ones (C 200); an F edge (F 200); dw's short
+# contraction, one slice 96 deep, at its ends (C 65 and 96)
+BWD_GMM_EDGE_CASES = [
+    ({"E": 40, "C": 80, "D": 384, "F": 512}, "waves"),
+    ({"E": 4, "C": 16, "D": 256, "F": 512}, "c16"),
+    ({"E": 3, "C": 200, "D": 256, "F": 256}, "c200"),
+    ({"E": 6, "C": 128, "D": 384, "F": 200}, "f200"),
+    ({"E": 5, "C": 65, "D": 256, "F": 384}, "c65"),
+    ({"E": 5, "C": 96, "D": 256, "F": 384}, "c96"),
+]
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LSE_TOL = 1e-5  # the forward kernel's LSE against the plain one, relative to its largest element
 TRAIN = {"arch": "recurrentgemma-2b", "steps": 3, "seq_len": 4096, "global_batch": 1}
@@ -1438,24 +1451,53 @@ def rglru_bwd_bound(B, L, dr) -> tuple:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def gmm_bwd_bound(E, C, D, F, dtype: str, route) -> dict:
-    """dx and dw: twice the forward's products, against x, w, dy read and
-    dx, dw written once (``route_bounds``)."""
+def gmm_bwd_bound(E, C, D, F, dtype: str, route, need_dx: bool = True, need_dw: bool = True) -> dict:
+    """The gradients asked for, each the forward's products (2 E C D F),
+    against its operands read and its output written once (``route_bounds``):
+    dx reads dy and w and writes dx; dw reads x and dy and writes dw; both
+    together read dy once."""
     item = 2 if dtype == "bfloat16" else 4
-    return route_bounds(4 * E * C * D * F, item * (2 * E * C * D + 2 * E * D * F + E * C * F), dtype, route)
+    x, w, dy = E * C * D, E * D * F, E * C * F
+    elems = dy + need_dx * (w + x) + need_dw * (x + w)
+    return route_bounds(2 * E * C * D * F * (need_dx + need_dw), item * elems, dtype, route)
+
+
+def gmm_bwd_parts(torch, ops, flush, x, w, dy, out) -> dict:
+    """dx alone and dw alone (``need_dw=False``, ``need_dx=False``), each
+    timed as the whole call is (``ms``, ``ms_cold``, ``ms_call``) beside
+    its own bound and its own ``torch.bmm`` (TF32 off) into ``out``'s
+    tensors, as ``dx_*`` and ``dw_*`` keys."""
+    E, C, D = x.shape
+    F = w.shape[-1]
+    dtype = str(x.dtype).removeprefix("torch.")
+    path = expected_route("moe_gmm", {"D": D, "F": F}, dtype)
+    reps = 5 if dtype == "float32" else 20
+    parts = {
+        "dx": (lambda: ops.moe_gmm_bwd(x, w, dy, need_dw=False), lambda: torch.bmm(dy, w.transpose(1, 2), out=out[0])),
+        "dw": (lambda: ops.moe_gmm_bwd(x, w, dy, need_dx=False), lambda: torch.bmm(x.transpose(1, 2), dy, out=out[1])),
+    }
+    row = {}
+    for part, (run, lib) in parts.items():
+        row.update({f"{part}_ms": median_ms(torch, run), f"{part}_ms_cold": cold_ms(torch, run, flush, reps=reps),
+                    f"{part}_ms_call": call_ms(torch, run), f"{part}_library_ms": median_ms(torch, lib)})
+        bound = gmm_bwd_bound(E, C, D, F, dtype, path, need_dx=part == "dx", need_dw=part == "dw")
+        row.update({f"{part}_{k}": v for k, v in bound.items()})
+    assert_fp32_exact(torch)
+    return row
 
 
 def check_gmm_backward(torch, ops, dev, flush) -> dict:
     """The GEMM backward against its plain version (fp32 relative BWD_TOL,
     bf16 element by element, ``check_grads``) on the route its forward
-    takes: at the model widths in both dtypes, timed beside the plain
-    version and ``torch.bmm`` (TF32 off) for the same two products, then at
-    GMM_CASES."""
+    takes: at the model widths in both dtypes, timed whole beside the plain
+    version and ``torch.bmm`` (TF32 off) for the same two products, and dx
+    and dw each alone (``gmm_bwd_parts``); then at GMM_CASES and
+    BWD_GMM_EDGE_CASES, where two calls must give bit-equal dx and dw."""
     from repro_torch.kernels import ref
 
     rows = {}
     cases = [(label, shape, dtype, True) for label, shape in BWD_GMM_CASES for dtype in ("bfloat16", "float32")]
-    cases += [(label, shape, dtype, False) for shape, label in GMM_CASES for dtype in ("float32", "bfloat16")]
+    cases += [(label, shape, dtype, False) for shape, label in GMM_CASES + BWD_GMM_EDGE_CASES for dtype in ("float32", "bfloat16")]
     for label, shape, dtype, timed in cases:
         E, C, D, F = shape["E"], shape["C"], shape["D"], shape["F"]
         dt = getattr(torch, dtype)
@@ -1489,6 +1531,13 @@ def check_gmm_backward(torch, ops, dev, flush) -> dict:
             })
             assert_fp32_exact(torch)
             row.update(gmm_bwd_bound(E, C, D, F, dtype, path))
+            row.update(gmm_bwd_parts(torch, ops, flush, x, w, dy, got))
+        else:  # no atomics and no split of the contraction: every sum is taken in one order
+            again = ops.moe_gmm_bwd(x, w, dy)
+            row["bit_equal_again"] = all(torch.equal(a, b) for a, b in zip(got, again))
+            if not row["bit_equal_again"]:
+                raise AssertionError(f"moe_gmm_bwd {case}: a second call on the same operands gave other dx or dw")
+            del again
         print("train_kernel " + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
         rows[case] = row
         del x, w, dy, got
@@ -2087,7 +2136,9 @@ def main() -> int:
     _build.load(*_build.SOURCES)
     print(f"build sources={list(_build.SOURCES)} dir={_build.BUILD_DIR.relative_to(ROOT)} seconds={time.perf_counter() - t0}", flush=True)
     # registers and spills (nvcc -Xptxas -v) of the tensor-core attention and
-    # GEMM kernels and of the RG-LRU backward, and the attention backward's shared memory
+    # GEMM kernels (the persistent GEMM backward's among them) and of the
+    # RG-LRU backward, and the dynamic shared memory of the attention
+    # backward and of the persistent GEMM backward (ring and staging tile)
     for source in ("flash_attention", "flash_attention_bwd_wgmma", "flash_attention_bwd_tf32x3", "moe_gmm", "moe_gmm_bwd", "rglru_scan_bwd"):
         for usage in _build.ptxas_usage(_build.BUILD_LOGS.get(source, "")):
             print(f"ptxas source={source} " + " ".join(f"{k}={v}" for k, v in usage.items()), flush=True)
@@ -2095,6 +2146,9 @@ def main() -> int:
 
     smem = _build.function("flash_attention_bwd_wgmma", "flash_attention_bwd_wgmma_smem", [ctypes.c_int, ctypes.c_int])
     print("smem flash_attention_bwd_wgmma " + " ".join(f"hd{hd}_kv={smem(hd, 0)} hd{hd}_q={smem(hd, 1)}" for hd in (32, 64, 128, 256)), flush=True)
+    gmm_smem = _build.function("moe_gmm_bwd", "moe_gmm_bwd_wgmma_smem", [ctypes.c_int])
+    print(f"smem moe_gmm_bwd gmm_bwd_dx_wgmma={gmm_smem(0)} gmm_bwd_dw_wgmma={gmm_smem(1)} "
+          f"gmm_bwd_dw_wgmma_short_k={gmm_smem(2)}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -2252,10 +2306,11 @@ def main() -> int:
             extra = {"width_route": row["route"], "route_launches": train_backward_routes,
                      "tf32_source": "src/repro_torch/kernels/csrc/flash_attention_bwd_tf32x3.cu", "other_cases": others}
         elif name == "moe_gmm_bwd":  # launches: grok-1-314b's full-width loss and gradient pass (bf16, wgmma)
+            part_keys = tuple(f"{p}_{k}" for p in ("dx", "dw") for k in ("ms", "ms_cold", "ms_call", "library_ms", "bound_ms", "bound_by"))
             others = {label: {k: r.get(k) for k in ("dtype", "route", "max_abs_err", "rel_err", "ms", "ms_cold", "ms_call",
-                                                    "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_3x_ms")}
+                                                    "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_3x_ms") + part_keys}
                       for label, r in bwd_rows[name].items() if label != BACKWARD_WIDTH[name]}
-            extra = {"width_route": row["route"], "other_cases": others}
+            extra = {"width_route": row["route"], "parts": {k: row[k] for k in part_keys}, "other_cases": others}
         else:
             extra = {"kernels_per_call": row["kernels_per_call"]}
         report.append({

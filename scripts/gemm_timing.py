@@ -10,14 +10,23 @@ unpack the other with ``git archive`` under ``build/`` and give its ``src``.
 The forward's cases are the registry's three fp32 tiers and chip_smoke.py's
 GEMM ``MODEL_WIDTHS`` (grok-1's expert shape in both dtypes, arctic-480b's
 in both, grok-1's decode shape in bf16); the backward's are its
-``BWD_GMM_CASES`` in both dtypes.  Each case prints one ``timing`` line of
-JSON: the route the call took (by the kernel module's launch counters;
-``refused`` where the tree has no such kernel), the error against the plain
-version relative to its largest element, and the kernel's median device
-time (``ms``, chip_smoke.py's spin-kernel timing).  Set-up prints the card
-line.
+``BWD_GMM_CASES`` in both dtypes (``--backward-only``: those alone).  Each
+case prints one ``timing`` line of JSON: the route the call took (by the
+kernel module's launch counters; ``refused`` where the tree has no such
+kernel), the error against the plain version relative to its largest
+element (the backward's on its first expert), and the kernel's median
+device time (``ms``, chip_smoke.py's spin-kernel timing).  A backward case
+is timed whole and, as ``dx_*`` and ``dw_*`` keys, each gradient alone,
+each with its own bound and ``torch.bmm`` (chip_smoke.py's
+``gmm_bwd_parts``).  With ``--digests`` it then prints, for each of
+chip_smoke.py's small backward cases (``GMM_CASES``, ``BWD_GMM_EDGE_CASES``)
+in both dtypes, one ``digest`` line: the route and a SHA-256 prefix of the
+bytes of dx and of dw from operands made from a fixed seed, so that runs of
+two trees show whether they give bit-equal gradients.  Set-up prints the
+card line.
 """
 import argparse
+import hashlib
 import json
 import sys
 from pathlib import Path
@@ -28,6 +37,10 @@ ROOT = Path(__file__).resolve().parents[1]
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--backward-only", action="store_true", help="time the backward's cases only")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), help="time the backward in this dtype only")
+    ap.add_argument("--digests", action="store_true",
+                    help="then print a digest of the backward's dx and dw at the small cases, to hold two trees bit-equal")
     args = ap.parse_args()
     import torch
 
@@ -46,8 +59,11 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda", 0)
     kdef = kreg.get_kernel("moe_gmm")
+    flush = torch.empty(cs.FLUSH_BYTES, dtype=torch.uint8, device=dev)
     fwd = [(tier, dict(getattr(kdef, f"{tier}_shape")), "float32") for tier in ("tiny", "smoke", "full")]
     fwd += [(model, shape, dtype) for name, model, shape, dtype in cs.MODEL_WIDTHS if name == "moe_gmm"]
+    if args.backward_only:
+        fwd = []
     for label, shape, dtype in fwd:
         x, w = kdef.make_args(shape, dtype, 0, dev)
         before = {r: c.value for r, c in gmm.ROUTE_LAUNCHES.items()}
@@ -62,7 +78,7 @@ def main() -> int:
         del x, w, got, want
         torch.cuda.empty_cache()
     for label, shape in cs.BWD_GMM_CASES:
-        for dtype in ("bfloat16", "float32"):
+        for dtype in [args.dtype] if args.dtype else ("bfloat16", "float32"):
             row = {"kernel": "moe_gmm_bwd", "case": label, "dtype": dtype}
             if not hasattr(ops, "moe_gmm_bwd"):
                 print("timing " + json.dumps({**row, "route": "refused"}), flush=True)
@@ -74,13 +90,39 @@ def main() -> int:
             w = (torch.randn(E, D, F, generator=g, device=dev) * D ** -0.5).to(dt)
             dy = torch.randn(E, C, F, generator=g, device=dev).to(dt)
             before = {r: c.value for r, c in gmm.BWD_ROUTE_LAUNCHES.items()}
-            ops.moe_gmm_bwd(x, w, dy)
+            got = ops.moe_gmm_bwd(x, w, dy)
             torch.cuda.synchronize()
             row["route"] = [r for r, c in gmm.BWD_ROUTE_LAUNCHES.items() if c.value > before[r]]
+            # each gradient beside its plain version, relative to its largest element (in
+            # slices along the experts: arctic's fp32 dw is 17.8 GB)
+            want = ref.moe_gmm_bwd_ref(x[:1], w[:1], dy[:1])
+            row["rel_err_expert0"] = [float((a[:1].float() - b.float()).abs().max()) / float(b.float().abs().max())
+                                      for a, b in zip(got, want)]
+            del want
+            path = row["route"][0] if len(row["route"]) == 1 else None
             row["ms"] = cs.median_ms(torch, lambda: ops.moe_gmm_bwd(x, w, dy))
+            row.update(cs.gmm_bwd_bound(E, C, D, F, dtype, path))
+            row.update(cs.gmm_bwd_parts(torch, ops, flush, x, w, dy, got))
             print("timing " + json.dumps(row), flush=True)
-            del x, w, dy
+            del x, w, dy, got
             torch.cuda.empty_cache()
+    if args.digests:
+        for shape, label in cs.GMM_CASES + cs.BWD_GMM_EDGE_CASES:
+            for dtype in ("float32", "bfloat16"):
+                E, C, D, F = shape["E"], shape["C"], shape["D"], shape["F"]
+                g = torch.Generator(dev).manual_seed(14)
+                dt = getattr(torch, dtype)
+                x = torch.randn(E, C, D, generator=g, device=dev).to(dt)
+                w = (torch.randn(E, D, F, generator=g, device=dev) * D ** -0.5).to(dt)
+                dy = torch.randn(E, C, F, generator=g, device=dev).to(dt)
+                before = {r: c.value for r, c in gmm.BWD_ROUTE_LAUNCHES.items()}
+                dx, dw = ops.moe_gmm_bwd(x, w, dy)
+                torch.cuda.synchronize()
+                route = [r for r, c in gmm.BWD_ROUTE_LAUNCHES.items() if c.value > before[r]]
+                digest = {k: hashlib.sha256(v.cpu().contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()[:16]
+                          for k, v in (("dx", dx), ("dw", dw))}
+                print("digest " + json.dumps({"kernel": "moe_gmm_bwd", "case": label, "dtype": dtype, "route": route, **digest}),
+                      flush=True)
     return 0
 
 

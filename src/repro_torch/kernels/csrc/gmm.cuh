@@ -44,6 +44,39 @@
 //  * tile order: M tiles run fastest, so the blocks that share one B panel
 //    (K x 256) run together and B is read from device memory about once.
 //
+// `wgmma`, persistent (gmm_wgmma_persistent, the backward's dx and dw): the
+// same tiles, warpgroups, layouts and maps, for GEMMs whose blocks are
+// short, many or both (arctic-480b's dw: 136,192 tiles of one slice of
+// tokens each; grok-1's: 49,152 of 20).  One block a tile ran a tile's
+// barrier set-up, its first load's latency, its products and its 64 KB
+// store from registers one after another, one block an SM: arctic's dw
+// took 10.35 ms against a 2.74 ms byte bound (NVIDIA H100 80GB HBM3, 700 W;
+// PERF.md).
+//  * as many blocks as the SMs hold (one, by its shared memory) walk the
+//    tiles with a static stride, in the same order: every tile is the same
+//    work.  The producer's slice count, stage and barrier phases run on
+//    across tiles, so the next tile's loads are in flight while this one's
+//    products and epilogue run.  Consumers release a tile's last stage once
+//    its products are done.
+//  * the epilogue converts each warpgroup's 64 x 256 sums to bf16 into a
+//    staging tile beside the ring, laid out as four 128-byte-swizzled
+//    boxes of 64 columns (a warp's 4-byte stores hit 32 banks), fences them
+//    for the async proxy and meets its warpgroup at a named barrier; one
+//    thread then stores the boxes through a 3-D map of out (clipped at M
+//    and N inside the expert) and commits them as one bulk group.  Before
+//    it writes the staging tile again it waits only until that group has
+//    read it, so the store drains to device memory under the next tile's
+//    products.  The stores are marked L2 evict_first and the operand loads
+//    evict_last: the output is written once, the operand panels read by
+//    many tiles.
+//  * shared memory: three 48 KB stages and 64 KB of staging (209 KB).  On
+//    the H100 a fourth stage beside half the staging, the epilogue then in
+//    two passes a tile, was slower at every shape (dw 2.7 to 4.7x); two stages
+//    were 30 to 43% slower on grok-1's long contractions (PERF.md).
+//  * a contraction of 65 to 96 (arctic's 80 tokens an expert) is one slice
+//    96 deep a tile in two stages (an MN-major slice may have any multiple
+//    of 16 rows), so the ring holds the next tile whole.
+//
 // `tf32x3` (gmm_tf32x3, fp32 operands whose strides TMA can describe): fp32
 // products on the tensor cores at fp32 accuracy, by the split CUTLASS calls
 // 3xTF32.  Each value v is split into hi = tf32(v) and lo = tf32(v - hi)
@@ -224,6 +257,72 @@ constexpr int B_BYTES = BN * BK * 2;   // B slice
 constexpr int THREADS = 384;           // 2 consumer warpgroups + the producer's
 constexpr size_t SMEM = 1024 + size_t(STAGES) * (A_BYTES + B_BYTES) + 64;
 
+// The persistent body (gmm_wgmma_persistent<.., STAGES_, STG_COLS, D>): a
+// ring of STAGES_ slices D deep and, beside it, the staging tile its
+// epilogue stores from, a warpgroup's 64 rows x STG_COLS columns in bf16,
+// as boxes of 64 columns (128-byte rows, 128-byte swizzle).  The epilogue
+// writes a tile in BN / STG_COLS passes.
+constexpr int OUT_BOX = 64 * 64 * 2;  // 64 rows x 64 columns of out
+template <int STAGES_, int STG_COLS, int D = BK>
+__host__ __device__ constexpr size_t persistent_smem() {
+  return 1024 + size_t(STAGES_) * (BM + BN) * D * 2 + 2 * size_t(STG_COLS / 64) * OUT_BOX + 64;
+}
+
+// One box of a map into shared memory (tma_load_3d), with the L2 policy
+// `policy` where HINT.
+template <bool HINT>
+__device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
+                                         uint64_t policy) {
+  if constexpr (HINT) {
+    hopper::tma_load_3d_hint(dst, map, bar, c0, c1, c2, policy);
+  } else {
+    hopper::tma_load_3d(dst, map, bar, c0, c1, c2);
+  }
+}
+
+// Slice kb, D deep, of A (rows m0.., MN-major: columns m0..) and B (columns
+// n0..) of expert e into the ring's A and B slots `ad`, `bd`, counted on
+// `bar`; where HINT, under the L2 policy `policy`.  A K-major slice is one
+// 128-byte swizzle row of depths (D = BK); an MN-major one is D rows of
+// each 64-column chunk, so any multiple of 16 up to 256 will do.
+template <bool A_MN, bool B_MN, int D = BK, bool HINT = false>
+__device__ __forceinline__ void load_slice(const CUtensorMap* amap, const CUtensorMap* bmap, uint8_t* ad, uint8_t* bd,
+                                           uint64_t* bar, int kb, int m0, int n0, int e, uint64_t policy = 0) {
+  static_assert(D == BK || (A_MN && B_MN), "a K-major slice is one swizzle row deep");
+  constexpr int CHUNK = D * 64 * 2;
+  hopper::mbar_arrive_expect_tx(bar, (BM + BN) * D * 2);
+  if constexpr (A_MN) {
+    for (int c = 0; c < BM / 64; ++c) load_box<HINT>(ad + c * CHUNK, amap, bar, m0 + 64 * c, kb * D, e, policy);
+  } else {
+    load_box<HINT>(ad, amap, bar, kb * D, m0, e, policy);
+  }
+  if constexpr (B_MN) {
+    for (int c = 0; c < BN / 64; ++c) load_box<HINT>(bd + c * CHUNK, bmap, bar, n0 + 64 * c, kb * D, e, policy);
+  } else {
+    load_box<HINT>(bd, bmap, bar, kb * D, n0, e, policy);
+  }
+}
+
+// acc += this warpgroup's 64 rows of the A slice at `a` (shared-window
+// address) times the B slice at `b`, both D deep: D / 16 k16 wgmmas,
+// issued, not waited for
+template <bool A_MN, bool B_MN, int D = BK>
+__device__ __forceinline__ void mma_slice(float (&acc)[BN / 2], uint32_t a, uint32_t b) {
+  constexpr int CHUNK = D * 64 * 2;
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // K-major: step 32 bytes inside the swizzled row; MN-major: step 16
+    // rows of 128 bytes, chunks of 64 columns a chunk apart
+    const uint64_t da = A_MN ? hopper::make_desc<128>(a + kk * 16 * 128, CHUNK, 1024)
+                             : hopper::make_desc<128>(a + kk * 32, 16, 1024);
+    const uint64_t db = B_MN ? hopper::make_desc<128>(b + kk * 16 * 128, CHUNK, 1024)
+                             : hopper::make_desc<128>(b + kk * 32, 16, 1024);
+    hopper::WgmmaSS<BN, B_MN, A_MN>::run(acc, da, db, 1);
+  }
+  hopper::wgmma_commit();
+}
+
 // out[e] (M x N) = A[e] (M x K) @ B[e] (K x N).  amap: (E, M, K) when A is
 // K-major, (E, K, M) when A_MN; bmap: (E, N, K) when K-major, (E, K, N) when
 // B_MN.  One block a tile, n_m x n_n x E of them, M tiles fastest.
@@ -317,12 +416,142 @@ __device__ __forceinline__ void gmm_wgmma(const CUtensorMap* amap, const CUtenso
   }
 }
 
-// The tensor maps of A and B for gmm_wgmma<A_MN, B_MN>.  Returns 0 or a CUDA error.
-template <bool A_MN, bool B_MN>
+// The persistent form of gmm_wgmma: the same products, tiles and layouts,
+// with `tiles` = n_m x n_n x E tiles walked by gridDim.x blocks (block b
+// takes tiles b, b + gridDim.x, ..., M tiles fastest), and out written by
+// TMA through omap (E, M, N; boxes of 64 x 64).  The producer's stage index
+// and barrier phases run on across tiles (`it` counts slices over the whole
+// walk), so it loads the next tile's slices while the consumers finish this
+// one's products and epilogue; each tile's store drains to device memory
+// under the next tile's products.
+template <bool A_MN, bool B_MN, int STAGES_, int STG_COLS, int D>
+__device__ __forceinline__ void gmm_wgmma_persistent(const CUtensorMap* amap, const CUtensorMap* bmap,
+                                                     const CUtensorMap* omap, int M, int N, int K, int n_m, int n_n,
+                                                     int tiles) {
+  static_assert(persistent_smem<STAGES_, STG_COLS, D>() <= 232448, "ring and staging fit in one block's shared memory");
+  static_assert(BN % STG_COLS == 0 && STG_COLS % 64 == 0, "whole boxes, whole passes");
+  constexpr int STG_WG = (STG_COLS / 64) * OUT_BOX;        // a warpgroup's staging tile
+  constexpr int SA = BM * D * 2, SB = BN * D * 2;          // a slice of A, of B
+  constexpr int WG_A = 64 * D * 2;                        // a warpgroup's 64 rows (or columns) of it
+  // aligned inside the shared window, so the compiler keeps shared-memory
+  // stores (not generic ones, with 64-bit addresses) for the staging tile
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  uint8_t* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  uint8_t* As = smem;                             // STAGES_ A slices
+  uint8_t* Bs = As + STAGES_ * SA;                // STAGES_ B slices
+  uint8_t* stg = Bs + STAGES_ * SB;               // the two warpgroups' staging tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(stg + 2 * STG_WG);
+  uint64_t* empty = full + STAGES_;
+
+  const int n_k = (K + D - 1) / D;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES_; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2 * 128);  // every consumer thread releases
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: one thread keeps the ring full, across tiles
+    hopper::regs_release<40>();
+    if (t == 0) {
+      hopper::prefetch_map(amap);
+      hopper::prefetch_map(bmap);
+      const uint64_t keep = hopper::l2_evict_last();  // each operand slice is read by many tiles
+      int it = 0;  // slices issued over the walk: stage it % STAGES_, its use it / STAGES_
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile % n_m) * BM, n0 = ((tile / n_m) % n_n) * BN, e = tile / (n_m * n_n);
+        for (int kb = 0; kb < n_k; ++kb, ++it) {
+          const int s = it % STAGES_;
+          // the stage's previous use (it - STAGES_) released by both warpgroups
+          if (it >= STAGES_) hopper::mbar_wait(&empty[s], ((it / STAGES_) - 1) & 1);
+          load_slice<A_MN, B_MN, D, true>(amap, bmap, As + s * SA, Bs + s * SB, &full[s], kb, m0, n0, e, keep);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns rows [m0 + 64 wg, m0 + 64 wg + 64) of each tile
+    hopper::regs_claim<232>();
+    if (t == 0) hopper::prefetch_map(omap);
+    const uint32_t a_base = hopper::smem_u32(As) + wg * WG_A;
+    const uint32_t b_base = hopper::smem_u32(Bs);
+    const uint64_t once = hopper::l2_evict_first();  // out is written once: let it leave L2 first
+    // The staging tile's layout, as TMA reads a 128-byte-swizzled box:
+    // column c of box c / 64, row r at r * 128, in 16-byte unit ((c % 64) /
+    // 8) ^ (r % 8).  Accumulator pair i of this thread (hopper::acc_row,
+    // acc_col) is row row0 + 8 ((i / 2) % 2), columns 8 (i / 4) + 2 (t % 4)
+    // and one more: box i / 32, unit (i / 4) % 8, byte 4 (t % 4) of it; the
+    // thread's rows share one residue mod 8, so eight XORs, computed once,
+    // swizzle all its units, and every other term is a constant offset.  A
+    // warp's stores for one i fill 8 rows x 4 pairs: 32 distinct banks.
+    const int row0 = hopper::acc_row(t, 0);
+    uint8_t* my_stg = stg + wg * STG_WG + row0 * 128 + 4 * (t & 3);
+    int unit[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) unit[u] = (u ^ (row0 & 7)) << 4;
+    int it = 0;  // slices consumed over the walk, in the producer's order
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      float acc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int kb = 0; kb < n_k; ++kb, ++it) {
+        const int s = it % STAGES_;
+        hopper::mbar_wait(&full[s], (it / STAGES_) & 1);
+        mma_slice<A_MN, B_MN, D>(acc, a_base + s * SA, b_base + s * SB);
+        hopper::wgmma_wait<1>();  // the group of slice it - 1 has finished
+        if (kb > 0) hopper::mbar_arrive(&empty[(it - 1) % STAGES_]);
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      if (n_k > 0) hopper::mbar_arrive(&empty[(it - 1) % STAGES_]);  // the tile's last slice
+
+      // epilogue, in BN / STG_COLS passes of STG_COLS columns
+#pragma unroll
+      for (int p = 0; p < BN / STG_COLS; ++p) {
+        // the previous store has read the staging tile ...
+        if (t == 0) hopper::bulk_wait_group_read<0>();
+        hopper::named_sync(1 + wg, 128);
+        // ... so write this pass's columns, in bf16
+#pragma unroll
+        for (int i = p * STG_COLS / 2; i < (p + 1) * STG_COLS / 2; i += 2) {
+          const int off = ((i >> 5) - p * STG_COLS / 64) * OUT_BOX + ((i >> 1) & 1) * 8 * 128 + unit[(i >> 2) & 7];
+          *reinterpret_cast<uint32_t*>(my_stg + off) = hopper::pack_bf16(acc[i], acc[i + 1]);
+        }
+        hopper::fence_proxy_async();      // the staging writes, before the TMA store reads them
+        hopper::named_sync(1 + wg, 128);  // every thread of the warpgroup has written its part
+        if (t == 0) {
+          const int m0 = (tile % n_m) * BM, n0 = ((tile / n_m) % n_n) * BN, e = tile / (n_m * n_n);
+          const int row = m0 + 64 * wg, col = n0 + p * STG_COLS;
+          if (row < M) {  // TMA clips the box at M and N, inside expert e
+            for (int c = 0; c < STG_COLS / 64 && col + 64 * c < N; ++c)
+              hopper::tma_store_3d_hint(omap, stg + wg * STG_WG + c * OUT_BOX, col + 64 * c, row, e, once);
+          }
+          hopper::bulk_commit_group();
+        }
+      }
+    }
+    if (t == 0) hopper::bulk_wait_group_read<0>();  // the staging tile outlives its last store's reads
+  }
+}
+
+// The tensor maps of A and B for gmm_wgmma<A_MN, B_MN> (and for the
+// persistent body's slices D deep).  Returns 0 or a CUDA error.
+template <bool A_MN, bool B_MN, int D = BK>
 int make_maps(CUtensorMap* amap, CUtensorMap* bmap, const void* a, const void* b, int E, int M, int N, int K) {
-  int err = A_MN ? hopper::make_map_3d(amap, a, E, K, M, BK, 64, 128) : hopper::make_map_3d(amap, a, E, M, K, BM, BK, 128);
-  if (!err) err = B_MN ? hopper::make_map_3d(bmap, b, E, K, N, BK, 64, 128) : hopper::make_map_3d(bmap, b, E, N, K, BN, BK, 128);
+  int err = A_MN ? hopper::make_map_3d(amap, a, E, K, M, D, 64, 128) : hopper::make_map_3d(amap, a, E, M, K, BM, BK, 128);
+  if (!err) err = B_MN ? hopper::make_map_3d(bmap, b, E, K, N, D, 64, 128) : hopper::make_map_3d(bmap, b, E, N, K, BN, BK, 128);
   return err;
+}
+
+// The map gmm_wgmma_persistent stores out (E, M, N) through: boxes of 64
+// rows x 64 columns, 128-byte swizzle.  Returns 0 or a CUDA error.
+inline int make_out_map(CUtensorMap* omap, void* out, int E, int M, int N) {
+  return hopper::make_map_3d(omap, out, E, M, N, 64, 64, 128);
 }
 
 // Launch `kernel` (a __global__ wrapper of gmm_wgmma) over every tile.
@@ -335,6 +564,28 @@ int launch(Kernel kernel, const CUtensorMap& amap, const CUtensorMap& bmap, void
   const int64_t tiles = int64_t(n_m) * n_n * E;
   if (tiles > 0x7fffffff) return int(cudaErrorInvalidConfiguration);
   kernel<<<unsigned(tiles), THREADS, SMEM, stream>>>(amap, bmap, static_cast<__nv_bfloat16*>(out), M, N, K, n_m, n_n);
+  return int(cudaGetLastError());
+}
+
+// Launch `kernel` (a __global__ wrapper of gmm_wgmma_persistent<.., STAGES_,
+// STG_COLS>) on as many blocks as the device's SMs hold at once, or one a
+// tile where there are fewer.
+template <int STAGES_, int STG_COLS, int D, typename Kernel>
+int launch_persistent(Kernel kernel, const CUtensorMap& amap, const CUtensorMap& bmap, const CUtensorMap& omap, int E,
+                      int M, int N, int K, int device, cudaStream_t stream) {
+  constexpr size_t SMEM_PERSISTENT = persistent_smem<STAGES_, STG_COLS, D>();
+  cudaError_t cerr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_PERSISTENT));
+  if (cerr != cudaSuccess) return int(cerr);
+  int sms = 0, per_sm = 0;
+  cerr = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (cerr == cudaSuccess) cerr = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, SMEM_PERSISTENT);
+  if (cerr != cudaSuccess) return int(cerr);
+  if (per_sm < 1) return int(cudaErrorInvalidConfiguration);
+  const int n_m = (M + BM - 1) / BM, n_n = (N + BN - 1) / BN;
+  const int64_t tiles = int64_t(n_m) * n_n * E, resident = int64_t(sms) * per_sm;
+  const int64_t grid = tiles < resident ? tiles : resident;
+  if (tiles + grid > 0x7fffffff) return int(cudaErrorInvalidConfiguration);  // a block's next tile index stays an int
+  kernel<<<unsigned(grid), THREADS, SMEM_PERSISTENT, stream>>>(amap, bmap, omap, M, N, K, n_m, n_n, int(tiles));
   return int(cudaGetLastError());
 }
 

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels: TMA
-// tensor maps built on the host, mbarrier waits, TMA tile loads, bf16 and
-// TF32 wgmma with fp32 accumulators (the tensor-core kernels); cp.async rows of
+// tensor maps built on the host, mbarrier waits, TMA tile loads and stores
+// (bulk groups, L2 cache policies), bf16 and TF32 wgmma with fp32
+// accumulators (the tensor-core kernels); cp.async rows of
 // any alignment into shared memory and release/acquire flags between blocks
 // (the scans); clusters of blocks that add into each other's shared memory
 // (the fp32 attention at head width 256).  Everything is PTX written by
@@ -145,6 +146,69 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
           smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// One box of shared memory (laid out as tma_load_3d would have written it,
+// swizzle included) into a 3-D map at element (c0, c1, c2), innermost
+// first: the reverse of tma_load_3d.  Elements of the box past the map's
+// edges are not written, so a box that runs past `rows` is clipped at the
+// edge of its own expert.  The store is asynchronous and joins this
+// thread's open bulk group (bulk_commit_group closes it); write the box
+// with generic stores, then fence_proxy_async, then a barrier, before one
+// thread issues the store.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0, int c1, int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
+
+// An L2 cache policy for the accesses it is handed to: evict_first marks
+// lines to leave the cache before others (a stream written once),
+// evict_last to stay (operands read again)
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// tma_store_3d under an L2 cache policy
+__device__ __forceinline__ void tma_store_3d_hint(const CUtensorMap* map, const void* src, int c0, int c1, int c2,
+                                                  uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group.L2::cache_hint [%0, {%2, %3, %4}], [%1], %5;\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "l"(policy)
+      : "memory");
+}
+
+// tma_load_3d under an L2 cache policy
+__device__ __forceinline__ void tma_load_3d_hint(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                                 int c2, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "l"(policy)
+      : "memory");
+}
+
+// Close this thread's bulk stores issued since the last commit into a group.
+__device__ __forceinline__ void bulk_commit_group() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// Wait until at most N of this thread's committed bulk groups are still
+// reading their shared-memory source.  Their writes to device memory may
+// still be in flight: enough to reuse the source, which is all a block
+// needs before it writes the source again or exits (the writes are
+// complete and visible when the kernel is).
+template <int N>
+__device__ __forceinline__ void bulk_wait_group_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {

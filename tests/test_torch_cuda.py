@@ -619,12 +619,25 @@ def test_rglru_backward_from_two_threads_on_two_streams(card):
 
 
 # the moe_gmm backward at chip_smoke.py's GEMM cases: on the tile grid, C, D
-# and F ragged, and F = 100 (bf16 on simt) and 50 (simt in both dtypes)
+# and F ragged, and F = 100 (bf16 on simt) and 50 (simt in both dtypes);
+# then the persistent bf16 kernels' edges (chip_smoke.py's
+# BWD_GMM_EDGE_CASES): 240 dw tiles, more than one wave of 132 blocks, a
+# ragged last wave, and each block's walk crossing experts; a contraction
+# shorter than one 64-deep slice (C 16); a ragged last slice after three
+# full ones (C 200); an F edge (F 200) with three M tiles; dw's short
+# contraction, one slice 96 deep instead of two 64-deep ones, at its ends
+# (C 65 and 96)
 _GMM_BWD_SHAPES = [
     {"E": 4, "C": 64, "D": 128, "F": 256},
     {"E": 3, "C": 80, "D": 96, "F": 200},
     {"E": 3, "C": 80, "D": 96, "F": 100},
     {"E": 3, "C": 80, "D": 96, "F": 50},
+    {"E": 40, "C": 80, "D": 384, "F": 512},
+    {"E": 4, "C": 16, "D": 256, "F": 512},
+    {"E": 3, "C": 200, "D": 256, "F": 256},
+    {"E": 6, "C": 128, "D": 384, "F": 200},
+    {"E": 5, "C": 65, "D": 256, "F": 384},
+    {"E": 5, "C": 96, "D": 256, "F": 384},
 ]
 
 
@@ -657,6 +670,18 @@ def test_moe_gmm_backward_kernel_matches_plain_version(card, shape, dtype):
     dx, none = ops.moe_gmm_bwd(x, w, dy, need_dw=False)
     none2, dw = ops.moe_gmm_bwd(x, w, dy, need_dx=False)
     assert none is None and none2 is None and torch.equal(dx, got[0]) and torch.equal(dw, got[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_moe_gmm_backward_is_deterministic(card, dtype):
+    """Two calls on the same operands give bit-equal dx and dw: no atomics
+    and no split of the contraction, every sum taken in one order (the
+    persistent bf16 kernels' walk over more tiles than one wave)."""
+    x, w, dy = _gmm_bwd_operands(card, {"E": 40, "C": 80, "D": 384, "F": 512}, dtype, seed=5)
+    first = ops.moe_gmm_bwd(x, w, dy)
+    second = ops.moe_gmm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_moe_gmm_gradient_is_the_backward_kernel_on_the_card(card):
