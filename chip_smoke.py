@@ -167,7 +167,18 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      card-vs-CPU gradients and the tasks) must all take the ``tf32x3``
      route (head width 128 and the reduced 16).  ``device_profile`` counts
      the traces that lacked their expected kernel, and whether the raw
-     Kineto events held it (ROADMAP.md fault 3.8).
+     Kineto events held it (ROADMAP.md fault 3.8).  The encoder-decoder
+     and vision families: the attention backward at CROSS_CASES' shapes
+     (bf16 ``wgmma`` at both model shapes, fp32 ``tf32x3`` at Lk 8);
+     seamless-m4t-medium at full size, B1 x 4096 tokens and 4096 frames,
+     2 steps with AdamW (72 attention and 36 backward launches a step on
+     ``wgmma``, the first step's backward launches held against the plain
+     version, every gradient leaf nonzero); llama-3.2-vision-11b at full
+     width cut to one superblock, B1 x 4096, 2 steps (10 and 5); ``train_grads`` of seamless-m4t-medium (one encoder
+     and one decoder layer over 512 frames) and of llama-3.2-vision-11b (one
+     superblock), B1 x 256, card against CPU within GRAD_TOL; and 3 train
+     tasks of each among the compute train tasks, every step of the moe,
+     audio and vlm families with every gradient leaf nonzero.
   8. report: the card line, one JSON line of the kernels (route, source, the
      TPU kernel each replaces, launches in phase 3 in total and by kernel
      route, in each scenario twin and in one full-size serve prefill
@@ -586,29 +597,50 @@ LQ_LK_CASES = [
 ]
 
 
-def check_attention_lq_lk(torch, ops, dev, flush) -> dict:
-    """The attention forward at Lq != Lk, in both dtypes, through the ops
-    wrapper (blocks of the whole lengths, which divide them), against its
-    plain version (fp32 relative WIDTH_TOL, bf16 also element by element)
-    and on the route ``expected_route`` gives; timed beside SDPA on an
-    explicit mask (positions from 0 in q and k) and the bound.  Returns
-    {case: row}."""
+# the cross attentions of the encoder-decoder and vision families, forward,
+# non-causal: (label, B, H, KV, Lq, Lk, hd, causal, window, dtypes).
+# seamless-m4t-medium's encoder self attention and its decoder's cross
+# attention share one shape at the serve's 4096 tokens and 4096 frames;
+# llama-3.2-vision-11b's text (4096 rows) to its 1024 image tokens (Lq > Lk,
+# no causal mask to trim the k range); the reduced vlm config's cross
+# attention, 8 image tokens, shorter than one 32-row k tile of the fp32
+# forward.  Timed beside non-causal SDPA without a mask.
+CROSS_CASES = [
+    ("seamless_m4t_medium", 1, 16, 16, 4096, 4096, 64, False, None, ("bfloat16",)),
+    ("llama_3_2_vision_11b_cross", 1, 32, 8, 4096, 1024, 128, False, None, ("bfloat16",)),
+    ("vlm_reduced_cross", 2, 4, 2, 16, 8, 16, False, None, ("float32",)),
+]
+
+
+def check_attention_lq_lk(torch, ops, dev, flush, cases=None) -> dict:
+    """The attention forward at Lq != Lk (LQ_LK_CASES in both dtypes, or
+    ``cases`` in theirs), through the ops wrapper (blocks as the models
+    pick them, ``block_for``), against its plain version (fp32 relative
+    WIDTH_TOL, bf16 also element by element) and on the route
+    ``expected_route`` gives; timed beside SDPA (on an explicit mask,
+    positions from 0 in q and k, for LQ_LK_CASES; with none, non-causal,
+    for ``cases``) and the bound.  Returns {case: row}."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
+    from repro_torch.models.attention import block_for
 
     rows = {}
-    for label, B, H, KV, Lq, Lk, hd, causal, window in LQ_LK_CASES:
+    explicit_mask = cases is None
+    cases = cases or [c + (("float32", "bfloat16"),) for c in LQ_LK_CASES]
+    for label, B, H, KV, Lq, Lk, hd, causal, window, dtypes in cases:
         qp = torch.arange(Lq, device=dev)[:, None]
         kp = torch.arange(Lk, device=dev)[None, :]
         mask = (qp >= kp) if causal else torch.ones(Lq, Lk, dtype=torch.bool, device=dev)
-        for dtype in ("float32", "bfloat16"):
+        if not explicit_mask:
+            mask = None
+        for dtype in dtypes:
             dt = getattr(torch, dtype)
             g = torch.Generator(dev).manual_seed(13)
             q = torch.randn(B, H, Lq, hd, generator=g, device=dev).to(dt)
             k, v = (torch.randn(B, KV, Lk, hd, generator=g, device=dev).to(dt) for _ in range(2))
             route = expected_route("flash_attention", {"hd": hd}, dtype)
-            call = lambda: ops.flash_attention(q, k, v, causal=causal, window=window, block_q=Lq, block_k=Lk)
+            call = lambda: ops.flash_attention(q, k, v, causal=causal, window=window, block_q=block_for(Lq), block_k=block_for(Lk))
             before = ops.route_launch_counts()["flash_attention"]
             got = call()
             torch.cuda.synchronize()
@@ -628,7 +660,8 @@ def check_attention_lq_lk(torch, ops, dev, flush) -> dict:
                    "max_abs_err": err, "rel_err": rel,
                    "ms": median_ms(torch, call), "ms_cold": cold_ms(torch, call, flush), "ms_call": call_ms(torch, call),
                    "plain_ms": median_ms(torch, lambda: ref.attention_ref(q, k, v, causal=causal, window=window), max_reps=5),
-                   "library_ms": median_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True))}
+                   "library_ms": median_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+                                                                                         enable_gqa=True))}
             row.update(attention_fwd_bound(B, H, KV, Lq, Lk, hd, causal, window, dtype, route))
             print("kernel " + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
             rows[row["case"]] = row
@@ -723,7 +756,17 @@ MODEL_CHECKS = [
     ("llama3-8b", 2, 1000, {"flash_attention": 2}, "tf32x3"),
     # two groups of 256 tokens, 80 slots an expert each at cf 1.25: tokens drop
     ("grok-1-314b", 1, 512, {"flash_attention": 1, "moe_gmm": 3}, "tf32x3"),
+    # 2 encoder and 2 decoder layers over 600 frames: blocks of 125 (prompt)
+    # and 120 (frames), so Lq != Lk in the cross attention and neither is a
+    # multiple of 64; 2 encoder, 2 decoder and 2 cross attentions
+    ("seamless-m4t-medium", {"n_layers": 2, "n_enc_layers": 2, "enc_len_serve": 600}, 1000, {"flash_attention": 6}, "tf32x3"),
+    # one superblock (4 self layers and the gated cross layer, gates opened)
+    # over the config's 1024 image tokens
+    ("llama-3.2-vision-11b", 5, 512, {"flash_attention": 5}, "tf32x3"),
 ]
+# the vlm family's tanh gates start at zero, shutting its image path out of
+# the output and its gradients to zero: every vlm run here opens them
+GATES = {"gate_attn": 0.5, "gate_mlp": -0.3}
 # the other families from the model path at full width, depth cut, bf16,
 # batch 1: (arch, layers kept, prompt length, the launches its prefill must
 # make): 16 selective_scan chunks of 256 a layer; one causal attention a
@@ -742,11 +785,21 @@ SERVE_PREFILL_LAUNCHES = {"flash_attention": 8, "selective_scan": 0, "rglru_scan
 MOE_SERVE = {"arch": "grok-1-314b", "layers": 2, "batch": 4, "prompt_len": 4096, "gen": 32}
 MOE_SERVE_PREFILL_LAUNCHES = {"flash_attention": 2, "selective_scan": 0, "rglru_scan": 0, "moe_gmm": 6}
 MOE_SERVE_DECODE_LAUNCHES = {"flash_attention": 0, "selective_scan": 0, "rglru_scan": 0, "moe_gmm": 6 * (MOE_SERVE["gen"] - 1)}
-# the reduced configs' prefill launches: 2 dense, 2 hybrid and 2 + 2 moe
+# the encoder-decoder and vision families' serve, full size, bf16: every
+# attention of a prefill on wgmma (seamless-m4t-medium 12 encoder, 12
+# decoder and 12 cross attentions; llama-3.2-vision-11b 32 self and 8 cross),
+# none in decode
+FAMILY_SERVES = [
+    {"arch": "seamless-m4t-medium", "batch": 4, "prompt_len": 4096, "gen": 32, "prefill_attention": 36},
+    {"arch": "llama-3.2-vision-11b", "batch": 4, "prompt_len": 4096, "gen": 32, "prefill_attention": 40},
+]
+# the reduced configs' prefill launches: 2 dense, 2 hybrid, 2 + 2 moe, 2 + 2 +
+# 2 encoder-decoder (encoder, decoder, cross) and 2 + 2 vision (self, cross)
 # attention layers, 4 recurrent layers, 2 ssm layers x 2 chunks of 8, 2 + 2
 # moe layers x 3 expert GEMMs
-COMPUTE_ARCHS = ("llama3-8b", "falcon-mamba-7b", "recurrentgemma-2b", "grok-1-314b", "arctic-480b")
-COMPUTE_LAUNCHES = {"flash_attention": 8, "selective_scan": 4, "rglru_scan": 4, "moe_gmm": 12}
+COMPUTE_ARCHS = ("llama3-8b", "falcon-mamba-7b", "recurrentgemma-2b", "grok-1-314b", "arctic-480b", "seamless-m4t-medium",
+                 "llama-3.2-vision-11b")
+COMPUTE_LAUNCHES = {"flash_attention": 18, "selective_scan": 4, "rglru_scan": 4, "moe_gmm": 12}
 # the kernels' symbols in a profiler trace (csrc/*.cu)
 KERNEL_SYMBOLS = {"flash_attention": "flash_fwd", "selective_scan": "scan_kernel", "rglru_scan": "rglru_kernel", "moe_gmm": "gmm_"}
 
@@ -995,32 +1048,68 @@ def one_cpu_thread(torch):
         torch.set_num_threads(n)
 
 
-def check_model_on_card(torch, ops, name, n_layers, prompt, want, attn_route, dev):
+def open_gates(torch, params):
+    """Opens both tanh gates of every cross layer of a vlm tree in place
+    (GATES); any other family's tree is left as it is.  Returns the tree."""
+    xattn = params.get("superblocks", {}).get("xattn")
+    if xattn is not None:
+        with torch.no_grad():
+            for k, g in GATES.items():
+                xattn[k].fill_(g)
+    return params
+
+
+def frontend_extras(torch, cfg, batch: int, dev, seed: int = 1) -> dict:
+    """The frontend stubs of an audio or vlm batch, drawn with numpy in fp32
+    as ``launch/serve.py`` draws them: ``enc_frames`` (B, enc_len_serve, D),
+    ``img_embeds`` (B, n_img_tokens, D); none for the other families."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if cfg.family == "audio":
+        return {"enc_frames": torch.as_tensor(rng.normal(size=(batch, cfg.enc_len_serve, cfg.d_model)), dtype=torch.float32, device=dev)}
+    if cfg.family == "vlm":
+        return {"img_embeds": torch.as_tensor(rng.normal(size=(batch, cfg.n_img_tokens, cfg.d_model)), dtype=torch.float32, device=dev)}
+    return {}
+
+
+def check_model_on_card(torch, ops, name, cut, prompt, want, attn_route, dev):
     """One prefill at full width in fp32 on the card and on the CPU, on the
-    same weights: logits and every cache leaf within MODEL_TOL, and exactly
-    ``want``'s launches on the card (fp32 attention on ``attn_route``)."""
+    same weights (vlm gates opened) and inputs (with the family's frontend
+    stubs): logits and every cache leaf within MODEL_TOL, and exactly
+    ``want``'s launches on the card (fp32 attention on ``attn_route``).
+    ``cut`` is the layers kept, or the config fields that cut it.  The host
+    must hold the weights in fp32 and half as much again, or the line says
+    it could not."""
     import numpy as np
 
     from repro_torch.configs import get_arch
     from repro_torch.models.model import Model
     from repro_torch.models.spec import tree_leaves, tree_map
 
-    cfg = get_arch(name).replace(n_layers=n_layers, param_dtype="float32", compute_dtype="float32")
+    cut = cut if isinstance(cut, dict) else {"n_layers": cut}
+    cfg = get_arch(name).replace(**cut, param_dtype="float32", compute_dtype="float32")
     model = Model(cfg)
+    need, have = 1.5 * 4 * model.param_count(), host_available_bytes()
+    if have < need:
+        print(f"model arch={name} cut={json.dumps(cut)} dtype=float32 skipped=host_memory host_available_gb={have / 1e9} "
+              f"need_gb={need / 1e9}", flush=True)
+        return
     tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (1, prompt)), dtype=torch.int32)
+    extras = frontend_extras(torch, cfg, 1, "cpu")
     cache_len = prompt + 8
     with torch.no_grad():
-        params = model.init(torch.Generator(dev).manual_seed(0), dev)
+        params = open_gates(torch, model.init(torch.Generator(dev).manual_seed(0), dev))
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, {"tokens": tokens.to(dev)}, cache_len=cache_len)
+        logits, cache = model.prefill(params, {"tokens": tokens.to(dev), **{k: v.to(dev) for k, v in extras.items()}}, cache_len=cache_len)
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t0
         launches, routes = ops.launch_counts(), ops.route_launch_counts()
         params = tree_map(lambda t: t.cpu(), params)
         t0 = time.perf_counter()
         with one_cpu_thread(torch):
-            want_logits, want_cache = model.prefill(params, {"tokens": tokens}, cache_len=cache_len)
+            want_logits, want_cache = model.prefill(params, {"tokens": tokens, **extras}, cache_len=cache_len)
         cpu_s = time.perf_counter() - t0
     full = {k: want.get(k, 0) for k in launches}
     if launches != full:
@@ -1034,7 +1123,8 @@ def check_model_on_card(torch, ops, name, n_layers, prompt, want, attn_route, de
     if not bool(torch.isfinite(logits).all()) or not max(errs) <= MODEL_TOL:
         raise AssertionError(f"model {name}: card against CPU relative errors {errs}, tolerance {MODEL_TOL:g}")
     print(
-        f"model arch={name} layers={n_layers} prompt={prompt} dtype=float32 logits_rel_err={errs[0]} "
+        f"model arch={name} layers={cfg.n_layers} cut={json.dumps(cut)} prompt={prompt} extras={json.dumps({k: list(v.shape) for k, v in extras.items()})} "
+        f"dtype=float32 logits_rel_err={errs[0]} "
         f"cache_rel_err={max(errs[1:])} cache_leaves={len(errs) - 1} card_s={card_s} cpu_s={cpu_s} "
         f"launches={json.dumps(launches)} attention_routes={json.dumps(routes['flash_attention'])} "
         f"gemm_routes={json.dumps(routes['moe_gmm'])}",
@@ -1077,6 +1167,10 @@ def run_full_width(torch, ops, name, n_layers, prompt, want, dev):
     )
 
 
+# spin kernels a trace takes before the profiled call, each waited for: a
+# trace loses its first kernel or two, more after heavy use of the card
+# (scripts/profiler_first_kernels.py)
+WARMUP_SPINS = 8
 # how often device_profile's first trace lacked the expected kernel, and
 # whether the profiler's raw Kineto events held it then (ROADMAP.md fault 3.8)
 PROFILE_STATS = {"calls": 0, "retried": 0, "in_kineto_only": 0, "in_neither": 0, "retry_found": 0}
@@ -1093,22 +1187,24 @@ def kineto_kernel_names(torch, prof) -> set | None:
     return {e.name() for e in events if e.device_type() == torch.autograd.DeviceType.CUDA}
 
 
-def device_profile(torch, fn, grad: bool = False, expect: str | None = None):
+def device_profile(torch, fn, grad: bool = False, expect: str | tuple | None = None):
     """``fn()`` once under torch.profiler (with grad mode on only when
     ``grad``): its wall (synchronized) and the device time of every kernel
     the trace holds, by name.  ``expect``: a part of a name the call's
-    trace must hold; a trace without it, lost by the tracer or not, is
-    taken once more (a line says so, with whether the raw Kineto events
-    held the kernel: PROFILE_STATS counts both), and the caller's check
-    reads the second."""
+    trace must hold, or a tuple of parts that each must; a trace that lacks
+    one, lost by the tracer or not, is taken once more (a line says so,
+    with whether the raw Kineto events held every one: PROFILE_STATS counts
+    both), and the caller's check reads the second."""
     from torch.profiler import ProfilerActivity, profile
 
     PROFILE_STATS["calls"] += 1
     for attempt in range(2):
         with torch.set_grad_enabled(grad), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            # a trace may miss its first kernel: a spin goes first
-            torch.cuda._sleep(1)
+            # a trace may miss its first kernels, one or two after the
+            # full-size serves (ROADMAP.md fault 3.8): spins go first
+            for _ in range(WARMUP_SPINS):
+                torch.cuda.synchronize()
+                torch.cuda._sleep(1)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn()
@@ -1118,16 +1214,18 @@ def device_profile(torch, fn, grad: bool = False, expect: str | None = None):
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 device[e.name] = device.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-6
-        found = expect is None or any(expect in n for n in device)
+        wanted = (expect,) if isinstance(expect, str) else expect or ()
+        found = all(any(w in n for n in device) for w in wanted)
         if attempt:
             PROFILE_STATS["retry_found"] += int(found)
         if found or attempt:
             return out, wall_s, device
         raw = kineto_kernel_names(torch, prof)
-        in_raw = raw is not None and any(expect in n for n in raw)
+        in_raw = raw is not None and all(any(w in n for n in raw) for w in wanted)
         PROFILE_STATS["retried"] += 1
         PROFILE_STATS["in_kineto_only" if in_raw else "in_neither"] += 1
-        print(f"device_profile: no kernel named *{expect}* in the trace ({sorted(device)}); in the raw Kineto events: {in_raw}; "
+        print(f"device_profile: no kernel named *{'*, *'.join(w for w in wanted if not any(w in n for n in device))}* in the trace "
+              f"({sorted(device)}); in the raw Kineto events: {in_raw}; "
               f"profiling the call again", flush=True)
 
 
@@ -1269,6 +1367,83 @@ def run_moe_serve(torch, ops, dev):
     return out["prefill_launches"]
 
 
+def run_family_serve(torch, ops, dev, spec):
+    """An encoder-decoder or vision config at full size, bf16, through
+    ``launch/serve.py`` (its frontend stubs drawn there after the prompts):
+    the weights, vlm gates opened, go in as ``serve``'s ``params``.  Two
+    serves on one set of weights (the first warms the allocator and holds
+    each kernel launch of its prefill against its plain version; both
+    checked, the second reported): finite logits, tokens of (B, gen),
+    exactly ``spec["prefill_attention"]`` attention launches a prefill, all
+    on ``wgmma``, and none in decode; then one prefill and one decode step
+    under the profiler: the device's idle share and the attention's share
+    of its busy time."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import Model
+
+    arch, B, L, gen = spec["arch"], spec["batch"], spec["prompt_len"], spec["gen"]
+    model = Model(get_arch(arch))
+    params = open_gates(torch, model.init(torch.Generator(dev).manual_seed(0), dev))
+    want = {k: spec["prefill_attention"] if k == "flash_attention" else 0 for k in ops.launch_counts()}
+    for run in range(2):
+        ops.reset_launch_counts()
+        with path_kernels_checked(torch, ops, f"serve {arch}") if run == 0 else contextlib.nullcontext(checked) as checked:
+            out = serve(arch, reduced=False, device="cuda", params=params, batch=B, prompt_len=L, gen=gen)
+        routes = ops.route_launch_counts()
+        if run == 0 and checked["flash_attention"]["calls"] != want["flash_attention"]:
+            raise AssertionError(f"serve {arch}: calls held against the plain versions {checked}, want {want}")
+        if not out["logits_finite"] or out["tokens"].shape != (B, gen):
+            raise AssertionError(f"serve {arch}: logits finite {out['logits_finite']}, tokens of shape {out['tokens'].shape}")
+        if out["prefill_launches"] != want or set(out["decode_launches"].values()) != {0}:
+            raise AssertionError(f"serve {arch}: prefill launches {out['prefill_launches']} (want {want}), decode {out['decode_launches']} (want none)")
+        if routes["flash_attention"] != all_on("wgmma", want["flash_attention"]):
+            raise AssertionError(f"serve {arch}: attention launches by route {routes['flash_attention']}, want all {want['flash_attention']} on wgmma")
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, model.cfg.vocab_size, (B, L)), dtype=torch.int32, device=dev)
+    batch = {"tokens": tokens, **frontend_extras(torch, model.cfg, B, dev)}
+    with torch.no_grad():
+        (_, cache), wall_s, device = device_profile(
+            torch, lambda: model.prefill(params, batch, cache_len=L + gen), expect=KERNEL_SYMBOLS["flash_attention"])
+        pos = torch.full((B,), L, dtype=torch.int32, device=dev)
+        _, step_s, step_device = device_profile(torch, lambda: model.decode_step(params, cache, tokens[:, -1:], pos))
+    busy_s, step_busy_s = sum(device.values()), sum(step_device.values())
+    attn_s = sum(t for n, t in device.items() if KERNEL_SYMBOLS["flash_attention"] in n)
+    print(
+        f"serve arch={arch} reduced=False dtype=bfloat16 batch={B} prompt_len={L} gen={gen} "
+        f"extras={json.dumps({k: list(v.shape) for k, v in batch.items() if k != 'tokens'})} "
+        f"prefill_s={out['prefill_s']} decode_ms_per_token={out['decode_s_per_token'] * 1e3} "
+        f"tokens_per_s={out['tokens_per_s']} peak_mem_gb={out['peak_mem_bytes'] / 1e9} "
+        f"prefill_launches={json.dumps(out['prefill_launches'])} decode_launches={json.dumps(out['decode_launches'])} "
+        f"routes={json.dumps(routes)} path_checked={json.dumps(checked)}",
+        flush=True,
+    )
+    print(
+        f"serve_profile arch={arch} prefill_wall_s={wall_s} device_busy_s={busy_s} device_idle_share={1 - busy_s / wall_s} "
+        f"attention_s={attn_s} attention_share_of_busy={attn_s / busy_s} decode_step_wall_s={step_s} "
+        f"decode_device_busy_s={step_busy_s} decode_device_idle_share={1 - step_busy_s / step_s} "
+        f"top={json.dumps(top_kernels(device))} decode_top={json.dumps(top_kernels(step_device))}",
+        flush=True,
+    )
+    return out["prefill_launches"]
+
+
+def seed_compute_states(torch, dev, arch, kind):
+    """The broker's compute runtime draws a state per (arch, step kind,
+    device) from seed 0 at its first task; for the vlm family it is drawn
+    here first, the same way, with the gates opened, so its tasks run the
+    image path too."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.managers.compute import COMPUTE_RUNTIME
+    from repro_torch.models.model import Model
+    from repro_torch.train import step as step_lib
+
+    model = Model(get_arch(arch).reduced())
+    params, opt = step_lib.init_train_state(model, torch.Generator(dev).manual_seed(0), dev)
+    COMPUTE_RUNTIME._states[(arch, kind, str(dev))] = (open_gates(torch, params), opt)
+
+
 def run_compute_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState):
     """kind="compute" prefill tasks, one a family, through the broker on the
     card: ComputeRuntime -> the reduced model's prefill -> the kernels."""
@@ -1308,6 +1483,12 @@ BWD_ATTN_CASES = [
     ("lq96_lk200_non_causal", 1, 4, 2, 96, 200, 64, False, None, "float32", "tf32x3"),
     ("recurrentgemma_2b_fp32", 1, 10, 1, 4096, 4096, 256, True, 2048, "float32", "tf32x3_cluster"),
     ("hd16_reduced_bf16", 2, 4, 2, 128, 128, 16, True, 16, "bfloat16", "tf32"),
+    # the cross attentions of CROSS_CASES, non-causal: seamless-m4t-medium's
+    # encoder and cross shape, llama-3.2-vision-11b's text to image tokens,
+    # and the reduced vlm config's 8 image tokens (one partial 64-row kv block)
+    ("seamless_m4t_medium", 1, 16, 16, 4096, 4096, 64, False, None, "bfloat16", "wgmma"),
+    ("llama_3_2_vision_11b_cross", 1, 32, 8, 4096, 1024, 128, False, None, "bfloat16", "wgmma"),
+    ("vlm_reduced_cross", 2, 4, 2, 16, 8, 16, False, None, "float32", "tf32x3"),
 ]
 BWD_RGLRU_CASE = ("recurrentgemma_2b", 1, 4096, 2560)
 # the GEMM backward (dx and dw) at the expert shapes of grok-1-314b's and
@@ -1337,23 +1518,42 @@ TRAIN = {"arch": "recurrentgemma-2b", "steps": 3, "seq_len": 4096, "global_batch
 # forward runs twice under remat="dots" (once more in the backward's recompute)
 TRAIN_LAUNCHES = {"flash_attention": 16, "selective_scan": 0, "rglru_scan": 36, "moe_gmm": 0}
 TRAIN_BACKWARD_LAUNCHES = {"flash_attention_bwd": 8, "rglru_scan_bwd": 18, "moe_gmm_bwd": 0}
-DENSE_TRAIN = {"arch": "llama3-8b", "layers": 2, "batch": 2, "seq_len": 2048, "steps": 2}
-# card against CPU in fp32, one layer each: (arch, batch, seq_len, the
-# backward launches of the step: one attention, three GEMMs a moe layer)
+# full width, depth cut (``cut``), bf16, through make_train_step, the step
+# launch/train.py takes: llama3-8b's 2 layers; llama-3.2-vision-11b's one
+# superblock (4 self layers and the gated
+# cross layer over its 1024 image tokens, gates opened).  ``attention``: the
+# attention layers, each run twice a step under remat="dots" and once in the
+# backward
+DENSE_TRAIN = {"arch": "llama3-8b", "cut": {"n_layers": 2}, "batch": 2, "seq_len": 2048, "steps": 2, "attention": 2}
+VLM_TRAIN = {"arch": "llama-3.2-vision-11b", "cut": {"n_layers": 5}, "batch": 1, "seq_len": 4096, "steps": 2, "attention": 5}
+# seamless-m4t-medium at full size (no cut), 4096 frames: 12 encoder, 12
+# decoder and 12 cross attentions
+ENCDEC_TRAIN = {"arch": "seamless-m4t-medium", "cut": {}, "batch": 1, "seq_len": 4096, "steps": 2, "attention": 36}
+# card against CPU in fp32, depth cut to ``cut``: (arch, batch, seq_len, the
+# backward launches of the step: one an attention, three GEMMs a moe layer,
+# cut); seamless-m4t-medium one encoder and one decoder layer over 512
+# frames, llama-3.2-vision-11b one superblock (gates opened)
+ONE_LAYER = {"n_layers": 1}
 GRAD_CHECKS = [
-    ("llama3-8b", 1, 256, {"flash_attention_bwd": 1, "rglru_scan_bwd": 0, "moe_gmm_bwd": 0}),
-    ("grok-1-314b", 1, 256, {"flash_attention_bwd": 1, "rglru_scan_bwd": 0, "moe_gmm_bwd": 3}),
+    ("llama3-8b", 1, 256, {"flash_attention_bwd": 1, "rglru_scan_bwd": 0, "moe_gmm_bwd": 0}, ONE_LAYER),
+    ("grok-1-314b", 1, 256, {"flash_attention_bwd": 1, "rglru_scan_bwd": 0, "moe_gmm_bwd": 3}, ONE_LAYER),
+    ("seamless-m4t-medium", 1, 256, {"flash_attention_bwd": 3, "rglru_scan_bwd": 0, "moe_gmm_bwd": 0},
+     {"n_layers": 1, "n_enc_layers": 1, "enc_len_train": 512}),
+    ("llama-3.2-vision-11b", 1, 256, {"flash_attention_bwd": 5, "rglru_scan_bwd": 0, "moe_gmm_bwd": 0}, {"n_layers": 5}),
 ]
 GRAD_TOL = 1e-4
 # the host must hold the weights and the gradients of the CPU side and one
 # leaf more: this many times the weights' bytes
 GRAD_HOST_FACTOR = 2.5
-TRAIN_TASKS = (("llama3-8b", 3), ("recurrentgemma-2b", 3), ("grok-1-314b", 3))
+TRAIN_TASKS = (("llama3-8b", 3), ("recurrentgemma-2b", 3), ("grok-1-314b", 3), ("seamless-m4t-medium", 3),
+               ("llama-3.2-vision-11b", 3))
 # a reduced step: llama3-8b 2 attention layers; recurrentgemma-2b 2 attention
 # and 4 recurrent layers; grok-1-314b 2 attention and 2 moe layers of 3
-# expert GEMMs (remat="none": one forward)
-TRAIN_TASK_LAUNCHES = {"flash_attention": 18, "selective_scan": 0, "rglru_scan": 12, "moe_gmm": 18}
-TRAIN_TASK_BACKWARD_LAUNCHES = {"flash_attention_bwd": 18, "rglru_scan_bwd": 12, "moe_gmm_bwd": 18}
+# expert GEMMs; seamless-m4t-medium 2 encoder, 2 decoder and 2 cross
+# attentions; llama-3.2-vision-11b 2 self and 2 cross (remat="none": one
+# forward)
+TRAIN_TASK_LAUNCHES = {"flash_attention": 48, "selective_scan": 0, "rglru_scan": 12, "moe_gmm": 18}
+TRAIN_TASK_BACKWARD_LAUNCHES = {"flash_attention_bwd": 48, "rglru_scan_bwd": 12, "moe_gmm_bwd": 18}
 # grok-1-314b at full width cut to one layer, bf16: one loss and its
 # gradients on the card (AdamW's state would not fit: ROADMAP.md item 6).
 # Under remat="dots" the forward's attention and GEMMs run again in the
@@ -1379,6 +1579,8 @@ BACKWARD_INFO = {
     "rglru_scan_bwd": ("cuda", "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu", "src/repro/models/rglru.py:137"),
     "moe_gmm_bwd": ("cuda", "src/repro_torch/kernels/csrc/moe_gmm_bwd.cu", "src/repro/models/moe.py:131"),
 }
+# the attention backward cases at the encoder-decoder and vision families' shapes
+CROSS_BWD = ("seamless_m4t_medium", "llama_3_2_vision_11b_cross")
 # the case each backward kernel's report row is read from
 BACKWARD_WIDTH = {"flash_attention_bwd": "recurrentgemma_2b", "rglru_scan_bwd": "recurrentgemma_2b", "moe_gmm_bwd": "grok_1_314b"}
 
@@ -1641,9 +1843,9 @@ def check_backward_kernels(torch, ops, dev, flush):
         row["kv_parts"] = fa.kv_parts(B, KV, H, Lk, torch.cuda.get_device_properties(dev).multi_processor_count
                                       // fa.CLUSTER_BLOCKS.get(path, 1), fa.KV_ROLES[path])
         if path != "wgmma":  # the call's kernels, by the trace: its route's and no other
-            _, _, device = device_profile(torch, run, expect="bwd")
-            ran = sorted(n for n in device if "bwd" in n)
             needed = [sym for sym in ROUTE_BWD_SYMBOLS[path] if sym != "attn_bwd_kv_sum" or row["kv_parts"] > 1]
+            _, _, device = device_profile(torch, run, expect=tuple(needed))
+            ran = sorted(n for n in device if "bwd" in n)
             if not all(any(names_kernel(n, sym) for n in ran) for sym in needed) or len(ran) != len(needed) or (
                     any(names_kernel(n, "bwd_pre") for n in ran)):
                 raise AssertionError(f"flash_attention_bwd {label}: one call ran the kernels {ran}, want {needed}")
@@ -1752,12 +1954,24 @@ def check_rglru_carries(torch, ops, operands, dev) -> float:
     return err
 
 
+def grad_family(grads) -> str | None:
+    """The family of a gradient tree among those whose steps are told apart
+    (moe, audio, vlm), by its keys; None for the others."""
+    if "moe" in grads.get("blocks", {}):
+        return "moe"
+    if "enc_blocks" in grads:
+        return "audio"
+    if "xattn" in grads.get("superblocks", {}):
+        return "vlm"
+    return None
+
+
 @contextlib.contextmanager
-def grad_leaves_counted(torch, moe_shares: list | None = None):
+def grad_leaves_counted(torch, by_family: dict | None = None):
     """Records, for every AdamW step taken inside, the share of parameter
     leaves whose gradient has a nonzero element (``adamw.apply_updates`` is
-    wrapped; the step reads it through the module); the moe family's steps
-    also in ``moe_shares`` where it is given."""
+    wrapped; the step reads it through the module); the moe, audio and vlm
+    families' steps also in ``by_family[family]`` where it is given."""
     from repro_torch.models.spec import tree_leaves
     from repro_torch.optim import adamw
 
@@ -1767,8 +1981,9 @@ def grad_leaves_counted(torch, moe_shares: list | None = None):
     def counted(cfg, params, grads, state):
         leaves = tree_leaves(grads)
         shares.append(float(torch.stack([g.ne(0).any() for g in leaves]).float().mean()))
-        if moe_shares is not None and "moe" in grads.get("blocks", {}):
-            moe_shares.append(shares[-1])
+        family = grad_family(grads)
+        if by_family is not None and family is not None:
+            by_family.setdefault(family, []).append(shares[-1])
         return original(cfg, params, grads, state)
 
     adamw.apply_updates = counted
@@ -1838,16 +2053,17 @@ def profile_train_step(torch, params, opt, dev):
     fn = step_lib.make_train_step(Model(cfg), adamw.AdamWConfig())
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq_len"], global_batch=TRAIN["global_batch"])
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_at(dc, TRAIN["steps"]).items()}
-    _, wall_s, device = device_profile(torch, lambda: fn(params, opt, batch), grad=True)
-    busy_s = sum(device.values())
-    kernel_s = {k: sum(t for n, t in device.items() if any(sym in n for sym in syms)) for k, syms in TRAIN_SYMBOLS.items()}
-    parts = {sym: sum(t for n, t in device.items() if sym in n) for sym in TRAIN_SYMBOLS["flash_attention_bwd"] + TRAIN_SYMBOLS["rglru_scan_bwd"]}
     # every kernel the step launches must show device time under its symbols
     # (a renamed symbol would read 0): the wgmma backward's four kernels
     # (the parts' sum runs where kv_parts > 1) and each other kernel's
     n_parts = fa.kv_parts(TRAIN["global_batch"], cfg.n_kv_heads, cfg.n_heads, TRAIN["seq_len"],
                           torch.cuda.get_device_properties(dev).multi_processor_count)
     needed = [s for s in WGMMA_BWD_SYMBOLS if s != "attn_bwd_kv_sum" or n_parts > 1]
+    expect = tuple(syms[0] for k, syms in TRAIN_SYMBOLS.items() if k != "flash_attention_bwd") + tuple(needed)
+    _, wall_s, device = device_profile(torch, lambda: fn(params, opt, batch), grad=True, expect=expect)
+    busy_s = sum(device.values())
+    kernel_s = {k: sum(t for n, t in device.items() if any(sym in n for sym in syms)) for k, syms in TRAIN_SYMBOLS.items()}
+    parts = {sym: sum(t for n, t in device.items() if sym in n) for sym in TRAIN_SYMBOLS["flash_attention_bwd"] + TRAIN_SYMBOLS["rglru_scan_bwd"]}
     missing = [k for k, t in kernel_s.items() if not t > 0] + [s for s in needed if not parts[s] > 0]
     if missing:
         raise AssertionError(f"train_profile: no device time under {missing} (symbols {TRAIN_SYMBOLS}) in a step that launches them")
@@ -1859,9 +2075,13 @@ def profile_train_step(torch, params, opt, dev):
     )
 
 
-def run_train_dense_width(torch, ops, dev):
-    """llama3-8b at full width cut to DENSE_TRAIN["layers"] layers, bf16,
-    through make_train_step; the first step's backward launches checked."""
+def run_train_width(torch, ops, dev, spec):
+    """A config at full width cut to ``spec["cut"]``, bf16, through
+    make_train_step, on the family's batches (frontend stubs included) and
+    with the vlm gates opened; the first step's backward launches checked:
+    per step twice ``spec["attention"]`` attention launches (remat="dots")
+    and as many backward launches as attention layers, all on ``wgmma``,
+    and every gradient leaf nonzero."""
     import math
 
     from repro_torch.configs import get_arch
@@ -1870,16 +2090,19 @@ def run_train_dense_width(torch, ops, dev):
     from repro_torch.optim import adamw
     from repro_torch.train import step as step_lib
 
-    cfg = get_arch(DENSE_TRAIN["arch"]).replace(n_layers=DENSE_TRAIN["layers"])
+    cfg = get_arch(spec["arch"]).replace(**spec["cut"])
     model = Model(cfg)
     params, opt = step_lib.init_train_state(model, torch.Generator(dev).manual_seed(0), dev)
+    open_gates(torch, params)
     fn = step_lib.make_train_step(model, adamw.AdamWConfig())
-    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=DENSE_TRAIN["seq_len"], global_batch=DENSE_TRAIN["batch"])
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=spec["seq_len"], global_batch=spec["batch"], enc_len=cfg.enc_len_train,
+                    d_model=cfg.d_model, n_img_tokens=cfg.n_img_tokens, family=cfg.family)
     torch.cuda.reset_peak_memory_stats(dev)
-    n = DENSE_TRAIN["layers"]
+    n = spec["attention"]
     step_s, losses, norms, per_step = [], [], [], []
-    with backward_kernels_checked(torch, ops, "train_dense", {"flash_attention_bwd": n}) as checked, grad_leaves_counted(torch) as shares:
-        for i in range(DENSE_TRAIN["steps"]):
+    label = f"train {spec['arch']}"
+    with backward_kernels_checked(torch, ops, label, {"flash_attention_bwd": n}) as checked, grad_leaves_counted(torch) as shares:
+        for i in range(spec["steps"]):
             batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_at(dc, i).items()}
             ops.reset_launch_counts()
             torch.cuda.synchronize()
@@ -1892,11 +2115,12 @@ def run_train_dense_width(torch, ops, dev):
             per_step.append((ops.launch_counts(), ops.backward_launch_counts(), ops.backward_route_launch_counts()["flash_attention_bwd"]))
     for fwd, bwd, routes in per_step:
         if fwd["flash_attention"] != 2 * n or bwd != {"flash_attention_bwd": n, "rglru_scan_bwd": 0, "moe_gmm_bwd": 0} or routes != all_on("wgmma", n):
-            raise AssertionError(f"train_dense: launches {fwd} / backward {bwd} by route {routes}, want {2 * n} attention (remat) and {n} backward on wgmma")
-    if checked["flash_attention_bwd"]["calls"] != n or shares != [1.0] * DENSE_TRAIN["steps"] or not all(math.isfinite(x) for x in losses + norms):
-        raise AssertionError(f"train_dense: checked {checked}, nonzero-gradient shares {shares}, losses {losses}")
+            raise AssertionError(f"{label}: launches {fwd} / backward {bwd} by route {routes}, want {2 * n} attention (remat) and {n} backward on wgmma")
+    if checked["flash_attention_bwd"]["calls"] != n or shares != [1.0] * spec["steps"] or not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"{label}: checked {checked}, nonzero-gradient shares {shares}, losses {losses}")
     print(
-        f"train arch={DENSE_TRAIN['arch']} layers={n} dtype=bfloat16 batch={DENSE_TRAIN['batch']} seq_len={DENSE_TRAIN['seq_len']} "
+        f"train arch={spec['arch']} layers={cfg.n_layers} cut={json.dumps(spec['cut'])} dtype=bfloat16 batch={spec['batch']} "
+        f"seq_len={spec['seq_len']} extras={json.dumps({k: list(v.shape) for k, v in batch.items() if k not in ('tokens', 'labels')})} "
         f"steps={len(losses)} step_s={json.dumps(step_s)} losses={json.dumps(losses)} grad_norms={json.dumps(norms)} "
         f"peak_mem_gb={torch.cuda.max_memory_allocated(dev) / 1e9} launches_per_step={json.dumps(per_step[0][0])} "
         f"backward_launches_per_step={json.dumps(per_step[0][1])} backward_routes_per_step={json.dumps(per_step[0][2])} "
@@ -1915,10 +2139,11 @@ def host_available_bytes() -> int:
     raise RuntimeError("no MemAvailable in /proc/meminfo")
 
 
-def check_grads_on_card(torch, ops, dev, arch, batch_size, seq_len, want_backward):
-    """One loss and its gradients at full width cut to one layer in fp32, on
+def check_grads_on_card(torch, ops, dev, arch, batch_size, seq_len, want_backward, cut):
+    """One loss and its gradients at full width cut to ``cut`` in fp32, on
     the card (the kernels and their backwards) and on the CPU (the plain
-    versions, one thread), on the same weights and tokens: every leaf within
+    versions, one thread), on the same weights (vlm gates opened) and
+    batch (frontend stubs included): every leaf within
     GRAD_TOL of its scale, the backward launches ``want_backward`` all on
     ``tf32x3``, and every attention backward handed its forward's LSE.  The
     card's gradients stay on the card and cross one leaf at a time, so the
@@ -1929,12 +2154,14 @@ def check_grads_on_card(torch, ops, dev, arch, batch_size, seq_len, want_backwar
     from repro_torch.models.model import Model
     from repro_torch.models.spec import tree_leaves, tree_map
 
-    cfg = get_arch(arch).replace(n_layers=1, param_dtype="float32", compute_dtype="float32")
+    cfg = get_arch(arch).replace(**cut, param_dtype="float32", compute_dtype="float32")
     model = Model(cfg)
-    batch = batch_at(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len, global_batch=batch_size), 0)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len, global_batch=batch_size, enc_len=cfg.enc_len_train,
+                    d_model=cfg.d_model, n_img_tokens=cfg.n_img_tokens, family=cfg.family)
+    batch = batch_at(dc, 0)
     need, have = GRAD_HOST_FACTOR * 4 * model.param_count(), host_available_bytes()
     if have < need:
-        print(f"train_grads arch={arch} layers=1 dtype=float32 skipped=host_memory host_available_gb={have / 1e9} "
+        print(f"train_grads arch={arch} layers={cfg.n_layers} dtype=float32 skipped=host_memory host_available_gb={have / 1e9} "
               f"need_gb={need / 1e9}", flush=True)
         return None
 
@@ -1945,7 +2172,7 @@ def check_grads_on_card(torch, ops, dev, arch, batch_size, seq_len, want_backwar
         loss, _ = model.loss(params, {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
         return loss.detach(), torch.autograd.grad(loss, leaves)
 
-    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    params = open_gates(torch, model.init(torch.Generator(dev).manual_seed(0), dev))
     ops.reset_launch_counts()
     lse_passed, original = [], ops.flash_attention_bwd
 
@@ -1978,7 +2205,8 @@ def check_grads_on_card(torch, ops, dev, arch, batch_size, seq_len, want_backwar
     if launched != want_backward or max(errs) > GRAD_TOL or loss_err > GRAD_TOL:
         raise AssertionError(f"train_grads {arch}: backward launches {launched}, leaf errors {errs}, loss error {loss_err}")
     print(
-        f"train_grads arch={arch} layers=1 dtype=float32 batch={batch_size} seq_len={seq_len} leaves={len(errs)} "
+        f"train_grads arch={arch} layers={cfg.n_layers} cut={json.dumps(cut)} dtype=float32 batch={batch_size} seq_len={seq_len} "
+        f"extras={json.dumps({k: list(v.shape) for k, v in batch.items() if k not in ('tokens', 'labels')})} leaves={len(errs)} "
         f"worst_leaf_rel_err={max(errs)} loss_rel_err={loss_err} card_s={card_s} cpu_s={cpu_s} "
         f"host_available_gb={have / 1e9} backward_launches={json.dumps(launched)} backward_routes={json.dumps(routes)} "
         f"lse_from_forward={json.dumps(lse_passed)}",
@@ -2074,8 +2302,9 @@ def run_train_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState):
     h.register_provider(ProviderSpec(name="cloud", platform="cloud", connector="caas"))
     tasks = [Task(kind="compute", arch=a, step_kind="train", max_retries=0) for a, n in TRAIN_TASKS for _ in range(n)]
     ssm_task = Task(kind="compute", arch="falcon-mamba-7b", step_kind="train", max_retries=0)
-    moe_shares = []
-    with grad_leaves_counted(torch, moe_shares) as shares:
+    seed_compute_states(torch, torch.device("cuda", 0), "llama-3.2-vision-11b", "train")
+    by_family = {}
+    with grad_leaves_counted(torch, by_family) as shares:
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         h.dispatch(tasks + [ssm_task])
@@ -2089,9 +2318,10 @@ def run_train_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState):
         for k, counts in by.items():
             if counts != {r: want[k] if r == "tf32x3" else 0 for r in counts}:
                 raise AssertionError(f"train_tasks: fp32 {k} launches by route {counts}, want all {want[k]} on tf32x3")
-    n_moe = sum(n for a, n in TRAIN_TASKS if a == "grok-1-314b")
-    if moe_shares != [1.0] * n_moe:
-        raise AssertionError(f"train_tasks: share of nonzero gradient leaves in each moe step {moe_shares}, want 1.0 in {n_moe}")
+    families = {"grok-1-314b": "moe", "seamless-m4t-medium": "audio", "llama-3.2-vision-11b": "vlm"}
+    want_shares = {f: [1.0] * sum(n for a, n in TRAIN_TASKS if families.get(a) == f) for f in families.values()}
+    if by_family != want_shares:
+        raise AssertionError(f"train_tasks: share of nonzero gradient leaves in each step by family {by_family}, want {want_shares}")
     for t in tasks:
         r = t.result() if t.tstate == TaskState.DONE else None
         keys = ["ce", "grad_norm", "loss", "lr", "tokens"] + (["aux_loss", "z_loss"] if t.arch == "grok-1-314b" else [])
@@ -2107,7 +2337,7 @@ def run_train_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState):
     print(
         f"train_tasks tasks={len(tasks)} archs={json.dumps(dict(TRAIN_TASKS))} wall_s={wall} launches={json.dumps(launches)} "
         f"backward_launches={json.dumps(backward)} backward_routes={json.dumps(routes)} last_metrics={json.dumps(tasks[-1].result())} "
-        f"nonzero_grad_leaf_share={json.dumps(shares)} moe_nonzero_grad_leaf_share={json.dumps(moe_shares)} "
+        f"nonzero_grad_leaf_share={json.dumps(shares)} by_family_nonzero_grad_leaf_share={json.dumps(by_family)} "
         f"ssm_task={ssm_task.tstate.value} ssm_error={type(ssm_task.exception()).__name__}",
         flush=True,
     )
@@ -2210,6 +2440,8 @@ def main() -> int:
                                             f"{model}_fp32", dev, flush=flush)
         torch.cuda.empty_cache()
     lq_lk = check_attention_lq_lk(torch, ops, dev, flush)
+    cross = check_attention_lq_lk(torch, ops, dev, flush, CROSS_CASES)
+    torch.cuda.empty_cache()
 
     print(f"phase name=kernels wall_s={time.perf_counter() - phase_t0}", flush=True)
 
@@ -2243,6 +2475,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_serve_launches = run_moe_serve(torch, ops, dev)
     torch.cuda.empty_cache()
+    family_serve_launches = {}
+    for spec in FAMILY_SERVES:
+        family_serve_launches[spec["arch"]] = run_family_serve(torch, ops, dev, spec)["flash_attention"]
+        torch.cuda.empty_cache()
+    seed_compute_states(torch, dev, "llama-3.2-vision-11b", "prefill")
     run_compute_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState)
     print(f"phase name=model wall_s={time.perf_counter() - phase_t0}", flush=True)
 
@@ -2255,12 +2492,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_backward, train_backward_routes = run_train_full_size(torch, ops, dev)
     torch.cuda.empty_cache()
-    run_train_dense_width(torch, ops, dev)
+    run_train_width(torch, ops, dev, DENSE_TRAIN)
+    torch.cuda.empty_cache()
+    run_train_width(torch, ops, dev, ENCDEC_TRAIN)
+    torch.cuda.empty_cache()
+    run_train_width(torch, ops, dev, VLM_TRAIN)
     torch.cuda.empty_cache()
     train_backward["moe_gmm_bwd"] = run_moe_grad_pass(torch, ops, dev)["moe_gmm_bwd"]
     torch.cuda.empty_cache()
-    for arch, batch_size, seq_len, want_backward in GRAD_CHECKS:
-        check_grads_on_card(torch, ops, dev, arch, batch_size, seq_len, want_backward)
+    for arch, batch_size, seq_len, want_backward, cut in GRAD_CHECKS:
+        check_grads_on_card(torch, ops, dev, arch, batch_size, seq_len, want_backward, cut)
         torch.cuda.empty_cache()
     run_train_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState)
     print(f"device_profile calls={PROFILE_STATS['calls']} retried={PROFILE_STATS['retried']} "
@@ -2295,6 +2536,8 @@ def main() -> int:
             report[-1]["fp32_hd256"] = {k: attn_fp32["recurrentgemma_2b"][k] for k in fp32_keys}
             report[-1]["bf16_hd16"] = {k: attn_bf16_hd16.get(k) for k in fp32_keys}
             report[-1]["lq_ne_lk"] = lq_lk
+            report[-1]["cross"] = cross  # the encoder-decoder and vision families' shapes
+            report[-1]["family_serve_launches"] = family_serve_launches
     for name, (route, source, replaces) in BACKWARD_INFO.items():
         row = bwd_rows[name][BACKWARD_WIDTH[name]]
         extra = {}
@@ -2302,7 +2545,7 @@ def main() -> int:
             others = {label: {k: r.get(k) for k in ("dtype", "route", "rel_err", "ms", "ms_cold", "ms_call",
                                                     "ms_lse_recomputed", "plain_ms", "library_ms", "bound_ms", "bound_by",
                                                     "bound_3x_ms", "simt_bound_ms", "kv_parts", "kernels_per_call")}
-                      for label, r in bwd_rows[name].items() if r["route"] != "wgmma"}
+                      for label, r in bwd_rows[name].items() if r["route"] != "wgmma" or label in CROSS_BWD}
             extra = {"width_route": row["route"], "route_launches": train_backward_routes,
                      "tf32_source": "src/repro_torch/kernels/csrc/flash_attention_bwd_tf32x3.cu", "other_cases": others}
         elif name == "moe_gmm_bwd":  # launches: grok-1-314b's full-width loss and gradient pass (bf16, wgmma)

@@ -7,9 +7,9 @@ timestamped events.  Kinds:
 
   noop      - zero-work task (the paper's overhead-isolation instrument)
   callable  - arbitrary python callable (the "executable" task type)
-  compute   - a model step: (arch, shape, step kind) on the provider's
-              device (not ported yet: such a task fails with
-              NotImplementedError, see core/managers/compute.py)
+  compute   - a model step: (arch, step kind) of a reduced config on the
+              provider's device, a train step or a prefill (see
+              core/managers/compute.py)
   sleep     - fixed-duration task (paper Exp 3B heterogeneous workloads)
   kernel    - real kernel work: ``payload`` names a registered kernel plus
               problem shape/dtype/reps, resolved against kernels/registry.py

@@ -7,11 +7,14 @@ caller asks for the CPU::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
         --reduced --batch 4 --prompt-len 32 --gen 16 --device cpu
 
-The prefill runs the model's kernels (flash attention, the two scans) and
-the returned dict counts their launches; the decode steps are plain PyTorch
-and launch none.  Greedy decoding gives the reference's tokens for the same
-weights; with ``temperature > 0`` tokens are drawn from a ``torch.Generator``
-and differ from the reference's ``jax.random`` draws by design.
+The prefill runs the model's kernels (flash attention, the two scans, the
+expert GEMM) and the returned dict counts their launches; the decode steps
+of the attention families are plain PyTorch and launch none.  The audio and
+vlm families' frontend stubs (``enc_frames``, ``img_embeds``) are drawn
+from the prompts' numpy generator after them, as the reference draws them.
+Greedy decoding gives the reference's tokens for the same weights; with
+``temperature > 0`` tokens are drawn from a ``torch.Generator`` and differ
+from the reference's ``jax.random`` draws by design.
 """
 from __future__ import annotations
 
@@ -70,6 +73,14 @@ def serve(
     if params is None:
         params = model.init(torch.Generator(dev).manual_seed(seed), dev)
     prompts = torch.as_tensor(rng.integers(0, arch.vocab_size, (batch, prompt_len)), dtype=torch.int32, device=dev)
+    # the frontend stubs, drawn after the prompts from the same rng, in fp32
+    batch_in = {"tokens": prompts}
+    if arch.family == "audio":
+        frames = rng.normal(size=(batch, arch.enc_len_serve, arch.d_model))
+        batch_in["enc_frames"] = torch.as_tensor(frames, dtype=torch.float32, device=dev)
+    if arch.family == "vlm":
+        img = rng.normal(size=(batch, arch.n_img_tokens, arch.d_model))
+        batch_in["img_embeds"] = torch.as_tensor(img, dtype=torch.float32, device=dev)
     cache_len = prompt_len + gen
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -78,7 +89,7 @@ def serve(
         before = ops.launch_counts()
         _sync(dev)
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, {"tokens": prompts}, cache_len=cache_len)
+        logits, cache = model.prefill(params, batch_in, cache_len=cache_len)
         _sync(dev)
         t_prefill = time.perf_counter() - t0
         prefill_launches = _launched(before)

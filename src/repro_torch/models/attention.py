@@ -102,14 +102,16 @@ def decode_attention(
 # ---------------------------------------------------------------------------
 
 
+def proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B,L,D) @ w (D, n, hd) -> (B, L, n, hd): the reference's
+    ``einsum("bld,dhk->blhk")``, one matrix product with no batch dims."""
+    d, n, hd = w.shape
+    return (x @ w.reshape(d, n * hd)).unflatten(-1, (n, hd))
+
+
 def qkv_proj(x: torch.Tensor, p: dict) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (B,L,D) -> q (B,L,H,hd), k/v (B,L,KV,hd) using 3D weights."""
-
-    def proj(w):
-        d, n, hd = w.shape
-        return (x @ w.reshape(d, n * hd)).unflatten(-1, (n, hd))
-
-    return proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+    return proj(x, p["wq"]), proj(x, p["wk"]), proj(x, p["wv"])
 
 
 def out_proj(attn_out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:

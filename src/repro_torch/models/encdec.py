@@ -1,0 +1,203 @@
+"""Encoder-decoder transformer backbone (seamless-m4t-medium).
+
+Counterpart of ``repro/models/encdec.py``.  The multimodal frontend is a stub,
+as in the reference: the batch carries precomputed frame embeddings
+``enc_frames`` (B, Le, D).  A bidirectional encoder feeds a causal decoder
+whose every layer also attends to the encoder's output.  Every prefill
+attention runs on the flash kernel (``models/attention.py``): the encoder's
+non-causal self attention, the decoder's causal self attention and its
+non-causal cross attention (Lq the prompt, Lk the frames).  The decode step
+is plain PyTorch, as in the reference: self attention against the cache and
+cross attention against the encoder K/V the prefill cached.  Layers are a
+loop over the stacked leaves, each one call of ``remat``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import apply_rope, embed_tokens, remat, rms_norm, swiglu
+from repro_torch.models.spec import ParamSpec, dense, layer, stack_layers, stacked, torch_dtype
+from repro_torch.models.transformer import _head, _positions, attn_specs, mlp_specs, n_stacked, write_cache
+
+
+def enc_block_specs(cfg: ArchConfig, dt: str) -> dict:
+    return {
+        "ln_attn": ParamSpec((cfg.d_model,), ("norm",), dt, "zeros"),
+        "attn": attn_specs(cfg, dt),
+        "ln_mlp": ParamSpec((cfg.d_model,), ("norm",), dt, "zeros"),
+        "mlp": mlp_specs(cfg, dt),
+    }
+
+
+def dec_block_specs(cfg: ArchConfig, dt: str) -> dict:
+    return {
+        "ln_attn": ParamSpec((cfg.d_model,), ("norm",), dt, "zeros"),
+        "attn": attn_specs(cfg, dt),
+        "ln_cross": ParamSpec((cfg.d_model,), ("norm",), dt, "zeros"),
+        "cross": attn_specs(cfg, dt),
+        "ln_mlp": ParamSpec((cfg.d_model,), ("norm",), dt, "zeros"),
+        "mlp": mlp_specs(cfg, dt),
+    }
+
+
+def specs(cfg: ArchConfig) -> dict:
+    dt = cfg.param_dtype
+    return {
+        "embed": dense((cfg.vocab_size, cfg.d_model), ("vocab", "embed_table"), dt, scale=0.02),
+        "enc_blocks": stacked(cfg.n_enc_layers, enc_block_specs(cfg, dt)),
+        "enc_ln_f": ParamSpec((cfg.d_model,), ("norm",), dt, "zeros"),
+        "dec_blocks": stacked(cfg.n_layers, dec_block_specs(cfg, dt)),
+        "ln_f": ParamSpec((cfg.d_model,), ("norm",), dt, "zeros"),
+        "lm_head": dense((cfg.d_model, cfg.vocab_size), ("embed", "vocab"), dt),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Encoder
+# ---------------------------------------------------------------------------
+
+
+def enc_block(cfg: ArchConfig, x, p, pos):
+    h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
+    q, k, v = attn.qkv_proj(h, p["attn"])
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    a = attn.attention(q, k, v, causal=False)
+    x = x + attn.out_proj(a, p["attn"]["wo"])
+    h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
+    return x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+
+
+def encode(cfg: ArchConfig, params, frames: torch.Tensor) -> torch.Tensor:
+    """frames (B, Le, D) stub embeddings -> encoder output (B, Le, D); each
+    layer rematerialised by ``cfg.remat`` when gradients are taken."""
+    x = frames.to(torch_dtype(cfg.compute_dtype))
+    pos = torch.arange(x.shape[1], device=x.device)[None, :]
+    body = lambda x, p: enc_block(cfg, x, p, pos)
+    for i in range(n_stacked(params["enc_blocks"])):
+        x = remat(body, x, layer(params["enc_blocks"], i), policy=cfg.remat)
+    return rms_norm(x, params["enc_ln_f"], cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# Decoder
+# ---------------------------------------------------------------------------
+
+
+def _cross_attn(cfg, x, p, enc_out):
+    h = rms_norm(x, p["ln_cross"], cfg.norm_eps)
+    q = attn.proj(h, p["cross"]["wq"])
+    k = attn.proj(enc_out, p["cross"]["wk"])
+    v = attn.proj(enc_out, p["cross"]["wv"])
+    a = attn.attention(q, k, v, causal=False)
+    return x + attn.out_proj(a, p["cross"]["wo"])
+
+
+def _cross_attn_cached(cfg, x, p, ck, cv):
+    """Decode-time cross attention against the encoder K/V of the prefill."""
+    h = rms_norm(x, p["ln_cross"], cfg.norm_eps)
+    q = attn.proj(h, p["cross"]["wq"])
+    pos_full = torch.full((x.shape[0],), ck.shape[1] - 1, dtype=torch.int32, device=x.device)  # every frame valid
+    a = attn.decode_attention(q, ck, cv, pos_full)
+    return x + attn.out_proj(a, p["cross"]["wo"])
+
+
+def dec_block(cfg: ArchConfig, x, p, pos, enc_out):
+    """Returns (x, (k, v)): the layer's output and its self-attention cache."""
+    h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
+    q, k, v = attn.qkv_proj(h, p["attn"])
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    a = attn.attention(q, k, v, causal=True)
+    x = x + attn.out_proj(a, p["attn"]["wo"])
+    x = _cross_attn(cfg, x, p, enc_out)
+    h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
+    x = x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+    return x, (k, v)
+
+
+def backbone(cfg: ArchConfig, params, tokens, extras=None):
+    """Decoder hidden states; extras["enc_frames"] (B, Le, D) are the stub
+    frame embeddings.  The encoder's output goes into each decoder layer's
+    ``remat`` as an argument, so its gradient flows back to the encoder
+    through the checkpoint's inputs."""
+    enc_out = encode(cfg, params, extras["enc_frames"])
+    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    pos = _positions(tokens)
+    body = lambda x, p, enc_out: dec_block(cfg, x, p, pos, enc_out)[0]
+    for i in range(n_stacked(params["dec_blocks"])):
+        x = remat(body, x, layer(params["dec_blocks"], i), enc_out, policy=cfg.remat)
+    return x
+
+
+def forward(cfg: ArchConfig, params, tokens, extras=None):
+    return _head(cfg, params, backbone(cfg, params, tokens, extras))
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+
+def cache_specs(cfg: ArchConfig, batch: int, cache_len: int) -> dict:
+    KV, hd, L, Le = cfg.n_kv_heads, cfg.hd, cfg.n_layers, cfg.enc_len_serve
+    ct = cfg.compute_dtype
+    ax = ("layers", "cache_batch", "cache_seq", "kv_heads_act", None)
+    return {
+        "layers": {
+            "k": ParamSpec((L, batch, cache_len, KV, hd), ax, ct, "zeros"),
+            "v": ParamSpec((L, batch, cache_len, KV, hd), ax, ct, "zeros"),
+            "cross_k": ParamSpec((L, batch, Le, KV, hd), ax, ct, "zeros"),
+            "cross_v": ParamSpec((L, batch, Le, KV, hd), ax, ct, "zeros"),
+        }
+    }
+
+
+def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len: Optional[int] = None):
+    """Returns (last-token logits (B, 1, V), cache): the self k and v padded
+    to ``cache_len``, the cross k and v over the Le frames."""
+    enc_out = encode(cfg, params, extras["enc_frames"])
+    B, L = tokens.shape
+    cache_len = cache_len or L
+    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    pos = _positions(tokens)
+    layers = []
+    for i in range(n_stacked(params["dec_blocks"])):
+        p = layer(params["dec_blocks"], i)
+        x, (k, v) = dec_block(cfg, x, p, pos, enc_out)
+        if cache_len > L:
+            k, v = (F.pad(t, (0, 0, 0, 0, 0, cache_len - L)) for t in (k, v))
+        xk = attn.proj(enc_out, p["cross"]["wk"])
+        xv = attn.proj(enc_out, p["cross"]["wv"])
+        layers.append({"k": k, "v": v, "cross_k": xk, "cross_v": xv})
+    return _head(cfg, params, x[:, -1:, :]), {"layers": stack_layers(layers)}
+
+
+def decode_step(cfg: ArchConfig, params, cache, tokens, pos, extras=None):
+    """One decode step.  tokens (B, 1), pos (B,).  The self caches are
+    written into copies (``write_cache``); the cross K/V pass through
+    unchanged."""
+    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    lcs = cache["layers"]
+    ks, vs = [], []
+    for i in range(n_stacked(params["dec_blocks"])):
+        p, lc = layer(params["dec_blocks"], i), layer(lcs, i)
+        h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
+        q, k_t, v_t = attn.qkv_proj(h, p["attn"])
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k_t = apply_rope(k_t, pos[:, None], cfg.rope_theta)
+        ck, cv = write_cache(lc["k"], lc["v"], k_t, v_t, pos)
+        a = attn.decode_attention(q, ck, cv, pos)
+        x = x + attn.out_proj(a, p["attn"]["wo"])
+        x = _cross_attn_cached(cfg, x, p, lc["cross_k"], lc["cross_v"])
+        h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
+        x = x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+        ks.append(ck)
+        vs.append(cv)
+    new = {"k": torch.stack(ks), "v": torch.stack(vs), "cross_k": lcs["cross_k"], "cross_v": lcs["cross_v"]}
+    return _head(cfg, params, x), {"layers": new}

@@ -9,14 +9,15 @@ Counterpart of ``repro/models/model.py``::
     logits, cache = model.prefill(params, batch)
     logits, cache = model.decode_step(params, cache, tokens, pos)
 
-The dense, moe, ssm and hybrid families are ported, for training and
-serving; their forward and prefill run on the hand-written kernels where the
-tensors lie on a CUDA device, and so does the backward of attention, of the
+All six families are ported, for training and serving: dense, moe, ssm,
+hybrid, audio (the encoder-decoder, ``models/encdec.py``) and vlm (the
+gated cross-attention decoder, ``models/vision.py``).  Their forward and
+prefill run on the hand-written kernels where the tensors lie on a CUDA
+device, and so does the backward of attention (self and cross), of the
 RG-LRU and of the expert GEMMs (``kernels/ops.py``).  On the card the ssm
-family trains only once the ``selective_scan`` backward is ported: until
-then its train step raises ``ops.BackwardNotPorted`` there, and trains on
-the CPU.  The other families raise ``NotImplementedError`` naming what is
-left.
+family trains only once the ``selective_scan`` backward is ported (ROADMAP.md,
+queue 2 item 1): until then its train step raises ``ops.BackwardNotPorted``
+there, and trains on the CPU.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import moe, rglru, ssm, transformer
+from repro_torch.models import encdec, moe, rglru, ssm, transformer, vision
 from repro_torch.models.layers import remat
 from repro_torch.models.spec import init_params, tree_size
 
@@ -34,15 +35,13 @@ _FAMILY = {
     "moe": moe,
     "ssm": ssm,
     "hybrid": rglru,
+    "audio": encdec,
+    "vlm": vision,
 }
 
 # the families whose loss may take the chunked head (``model.py:62``): not moe
 _CHUNKED_HEAD = ("dense", "ssm", "hybrid", "vlm", "audio")
 
-_NOT_PORTED = {  # family -> its ROADMAP.md item ("Modules to port")
-    "audio": "item 4c: encdec, the audio family",
-    "vlm": "item 4d: vision, the vlm family",
-}
 
 def _extras(batch: dict) -> Optional[dict]:
     ex = {k: v for k, v in batch.items() if k in ("enc_frames", "img_embeds")}
@@ -51,11 +50,6 @@ def _extras(batch: dict) -> Optional[dict]:
 
 class Model:
     def __init__(self, cfg: ArchConfig):
-        if cfg.family in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family is not ported yet "
-                f"(ROADMAP.md, 'Modules to port', {_NOT_PORTED[cfg.family]})"
-            )
         self.cfg = cfg
         self.mod = _FAMILY[cfg.family]
 

@@ -1,0 +1,195 @@
+"""VLM backbone (llama-3.2-vision-11b): a dense GQA decoder with a gated
+cross-attention image layer every ``cross_attn_period`` layers.
+
+Counterpart of ``repro/models/vision.py``.  The vision frontend is a stub, as
+in the reference: the batch carries precomputed patch embeddings
+``img_embeds`` (B, n_img_tokens, D).  Layers come in superblocks of
+``period`` (period - 1 self layers, then one gated cross layer), stacked
+twice: ``superblocks.self`` has a leading (n_super, period - 1) pair of axes.
+Every prefill attention runs on the flash kernel (``models/attention.py``):
+the causal self attention and the non-causal cross attention of the text
+(Lq) to the image tokens (Lk).  The decode step is plain PyTorch, as in the
+reference.  The cross layer's two residuals are gated by tanh of an fp32
+scalar that starts at zero, so a fresh model's image path adds nothing
+until training opens the gates.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import embed_tokens, remat, rms_norm, swiglu
+from repro_torch.models.spec import ParamSpec, dense, layer, stack_layers, stacked, torch_dtype
+from repro_torch.models.transformer import (
+    _head,
+    _positions,
+    attn_specs,
+    block_specs as dense_block_specs,
+    mlp_specs,
+    n_stacked,
+    self_attn_block,
+    self_attn_block_decode,
+)
+
+
+def xattn_block_specs(cfg: ArchConfig, dt: str) -> dict:
+    return {
+        "ln": ParamSpec((cfg.d_model,), ("norm",), dt, "zeros"),
+        "cross": attn_specs(cfg, dt),
+        "gate_attn": ParamSpec((), (), "float32", "zeros"),  # tanh-gated, starts closed
+        "ln_mlp": ParamSpec((cfg.d_model,), ("norm",), dt, "zeros"),
+        "mlp": mlp_specs(cfg, dt),
+        "gate_mlp": ParamSpec((), (), "float32", "zeros"),
+    }
+
+
+def _layout(cfg: ArchConfig) -> tuple[int, int]:
+    period = cfg.cross_attn_period
+    assert period >= 2 and cfg.n_layers % period == 0, (cfg.n_layers, period)
+    return cfg.n_layers // period, period
+
+
+def specs(cfg: ArchConfig) -> dict:
+    dt = cfg.param_dtype
+    n_super, period = _layout(cfg)
+    return {
+        "embed": dense((cfg.vocab_size, cfg.d_model), ("vocab", "embed_table"), dt, scale=0.02),
+        "superblocks": stacked(
+            n_super,
+            {
+                "self": stacked(period - 1, dense_block_specs(cfg, dt)),
+                "xattn": xattn_block_specs(cfg, dt),
+            },
+        ),
+        "ln_f": ParamSpec((cfg.d_model,), ("norm",), dt, "zeros"),
+        "lm_head": dense((cfg.d_model, cfg.vocab_size), ("embed", "vocab"), dt),
+    }
+
+
+def _gated(x, gate, y, dtype):
+    """(x + tanh(gate) * y) in fp32, cast to ``dtype``: the residual of a
+    gated branch in the reference's order (its fp32 gate promotes the sum)."""
+    return (x + torch.tanh(gate) * y.float()).to(dtype)
+
+
+def _xattn_tail(cfg: ArchConfig, x, p, a):
+    """The gated attention residual of ``a`` (B, L, H, hd) and the gated MLP."""
+    dtype = x.dtype
+    x = _gated(x, p["gate_attn"], attn.out_proj(a, p["cross"]["wo"]), dtype)
+    h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
+    m = swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+    return _gated(x, p["gate_mlp"], m, dtype)
+
+
+def xattn_block(cfg: ArchConfig, x, p, img: torch.Tensor):
+    """Gated cross attention to the image embeddings (B, n_img, D)."""
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q = attn.proj(h, p["cross"]["wq"])
+    k = attn.proj(img, p["cross"]["wk"])
+    v = attn.proj(img, p["cross"]["wv"])
+    return _xattn_tail(cfg, x, p, attn.attention(q, k, v, causal=False))
+
+
+def _xattn_block_cached(cfg: ArchConfig, x, p, ck, cv):
+    """Decode-time gated cross attention against the cached image K/V."""
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q = attn.proj(h, p["cross"]["wq"])
+    pos_full = torch.full((x.shape[0],), ck.shape[1] - 1, dtype=torch.int32, device=x.device)  # every image token valid
+    return _xattn_tail(cfg, x, p, attn.decode_attention(q, ck, cv, pos_full))
+
+
+def _images(cfg: ArchConfig, extras) -> torch.Tensor:
+    return extras["img_embeds"].to(torch_dtype(cfg.compute_dtype))
+
+
+def backbone(cfg: ArchConfig, params, tokens, extras=None):
+    """Hidden states before the LM head: each superblock one ``remat`` by
+    ``cfg.remat``, its self layers inside it without one of their own
+    (``vision.py:105,109``).  The image embeddings go into each superblock's
+    ``remat`` as an argument."""
+    img = _images(cfg, extras)
+    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    pos = _positions(tokens)
+
+    def super_body(x, p, img):
+        for j in range(n_stacked(p["self"])):
+            x = self_attn_block(cfg, x, layer(p["self"], j), pos)[0]
+        return xattn_block(cfg, x, p["xattn"], img)
+
+    for i in range(n_stacked(params["superblocks"])):
+        x = remat(super_body, x, layer(params["superblocks"], i), img, policy=cfg.remat)
+    return x
+
+
+def forward(cfg: ArchConfig, params, tokens, extras=None):
+    return _head(cfg, params, backbone(cfg, params, tokens, extras))
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+
+def cache_specs(cfg: ArchConfig, batch: int, cache_len: int) -> dict:
+    n_super, period = _layout(cfg)
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    ct = cfg.compute_dtype
+    ax5 = ("layers", None, "cache_batch", "cache_seq", "kv_heads_act", None)
+    ax4 = ("layers", "cache_batch", "cache_seq", "kv_heads_act", None)
+    return {
+        "superblocks": {
+            "k": ParamSpec((n_super, period - 1, batch, cache_len, KV, hd), ax5, ct, "zeros"),
+            "v": ParamSpec((n_super, period - 1, batch, cache_len, KV, hd), ax5, ct, "zeros"),
+            "img_k": ParamSpec((n_super, batch, cfg.n_img_tokens, KV, hd), ax4, ct, "zeros"),
+            "img_v": ParamSpec((n_super, batch, cfg.n_img_tokens, KV, hd), ax4, ct, "zeros"),
+        }
+    }
+
+
+def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len: Optional[int] = None):
+    """Returns (last-token logits (B, 1, V), cache): the self k and v of
+    (n_super, period - 1, B, cache_len, KV, hd), the image k and v of
+    (n_super, B, n_img, KV, hd)."""
+    img = _images(cfg, extras)
+    B, L = tokens.shape
+    cache_len = cache_len or L
+    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    pos = _positions(tokens)
+    supers = []
+    for i in range(n_stacked(params["superblocks"])):
+        p = layer(params["superblocks"], i)
+        selfs = []
+        for j in range(n_stacked(p["self"])):
+            x, (k, v) = self_attn_block(cfg, x, layer(p["self"], j), pos)
+            if cache_len > L:
+                k, v = (F.pad(t, (0, 0, 0, 0, 0, cache_len - L)) for t in (k, v))
+            selfs.append({"k": k, "v": v})
+        x = xattn_block(cfg, x, p["xattn"], img)
+        sb = stack_layers(selfs)
+        sb["img_k"] = attn.proj(img, p["xattn"]["cross"]["wk"])
+        sb["img_v"] = attn.proj(img, p["xattn"]["cross"]["wv"])
+        supers.append(sb)
+    return _head(cfg, params, x[:, -1:, :]), {"superblocks": stack_layers(supers)}
+
+
+def decode_step(cfg: ArchConfig, params, cache, tokens, pos, extras=None):
+    """One decode step.  tokens (B, 1), pos (B,).  The self caches are
+    written into copies; the image K/V pass through unchanged."""
+    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    sbs = cache["superblocks"]
+    ks, vs = [], []  # every self layer's new cache, stacked once at the end
+    for i in range(n_stacked(params["superblocks"])):
+        p, lc = layer(params["superblocks"], i), layer(sbs, i)
+        for j in range(n_stacked(p["self"])):
+            x, c = self_attn_block_decode(cfg, x, layer(p["self"], j), {"k": lc["k"][j], "v": lc["v"][j]}, pos)
+            ks.append(c["k"])
+            vs.append(c["v"])
+        x = _xattn_block_cached(cfg, x, p["xattn"], lc["img_k"], lc["img_v"])
+    grid = tuple(sbs["k"].shape[:2])  # (n_super, period - 1)
+    out = {"k": torch.stack(ks).unflatten(0, grid), "v": torch.stack(vs).unflatten(0, grid),
+           "img_k": sbs["img_k"], "img_v": sbs["img_v"]}
+    return _head(cfg, params, x), {"superblocks": out}

@@ -298,8 +298,31 @@ def test_attention_head_width_16_on_the_card(card, L, window):
     assert kreg.max_abs_err(got, kdef.ref(shape, args)) <= 2e-5
 
 
+def _open_gates(params):
+    """A vlm tree with both tanh gates of every cross layer opened (0.5 and
+    -0.3): at their init of zero the image path reaches neither the output
+    nor the gradients.  Any other family's tree as it is."""
+    xattn = params.get("superblocks", {}).get("xattn")
+    if xattn is None:
+        return params
+    xattn = {**xattn, "gate_attn": torch.full_like(xattn["gate_attn"], 0.5), "gate_mlp": torch.full_like(xattn["gate_mlp"], -0.3)}
+    return {**params, "superblocks": {**params["superblocks"], "xattn": xattn}}
+
+
+def _extras(cfg, batch: int, device) -> dict:
+    """The frontend stubs of the audio and vlm families' batches."""
+    g = torch.Generator().manual_seed(2)
+    if cfg.family == "audio":
+        return {"enc_frames": torch.randn(batch, cfg.enc_len_train, cfg.d_model, generator=g).to(device)}
+    if cfg.family == "vlm":
+        return {"img_embeds": torch.randn(batch, cfg.n_img_tokens, cfg.d_model, generator=g).to(device)}
+    return {}
+
+
 # the reduced models' prefill on the card against the CPU (relative 1e-4 in
-# fp32, as chip_smoke.py holds the full widths), launching exactly their kernels
+# fp32, as chip_smoke.py holds the full widths), launching exactly their
+# kernels: seamless-m4t-medium 2 encoder, 2 decoder and 2 cross attentions
+# (Lk 16), llama-3.2-vision-11b 2 self and 2 cross attentions (Lk 8)
 @pytest.mark.parametrize(
     "name,want",
     [
@@ -308,6 +331,8 @@ def test_attention_head_width_16_on_the_card(card, L, window):
         ("recurrentgemma-2b", {"flash_attention": 2, "rglru_scan": 4}),
         ("grok-1-314b", {"flash_attention": 2, "moe_gmm": 6}),
         ("arctic-480b", {"flash_attention": 2, "moe_gmm": 6}),
+        ("seamless-m4t-medium", {"flash_attention": 6}),
+        ("llama-3.2-vision-11b", {"flash_attention": 4}),
     ],
 )
 def test_reduced_model_prefill_on_the_card_matches_the_cpu(card, name, want):
@@ -316,13 +341,14 @@ def test_reduced_model_prefill_on_the_card_matches_the_cpu(card, name, want):
     from repro_torch.models.spec import tree_leaves, tree_map
 
     model = Model(get_arch(name).reduced())
-    params = model.init(torch.Generator(card).manual_seed(0), card)
+    params = _open_gates(model.init(torch.Generator(card).manual_seed(0), card))
     tokens = torch.randint(0, 256, (2, 16), generator=torch.Generator().manual_seed(1), dtype=torch.int32)
+    extras = _extras(model.cfg, 2, "cpu")
     before = ops.launch_counts()
-    got = model.prefill(params, {"tokens": tokens.to(card)}, cache_len=20)
+    got = model.prefill(params, {"tokens": tokens.to(card), **{k: v.to(card) for k, v in extras.items()}}, cache_len=20)
     torch.cuda.synchronize()
     assert {k: v - before[k] for k, v in ops.launch_counts().items()} == {k: want.get(k, 0) for k in before}
-    ref = model.prefill(tree_map(lambda t: t.cpu(), params), {"tokens": tokens}, cache_len=20)
+    ref = model.prefill(tree_map(lambda t: t.cpu(), params), {"tokens": tokens, **extras}, cache_len=20)
     for g, w in zip(tree_leaves({"logits": got[0], "cache": got[1]}), tree_leaves({"logits": ref[0], "cache": ref[1]})):
         assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max())
 
@@ -376,6 +402,11 @@ BWD_ATTN_CASES = [  # (B, H, KV, Lq, Lk, hd, causal, window, dtype)
     (1, 4, 1, 200, 96, 16, True, None, torch.bfloat16),
     (1, 8, 2, 333, 333, 16, True, 50, torch.bfloat16),
     (1, 2, 1, 300, 100, 16, True, 50, torch.bfloat16),
+    # the cross attentions of the reduced vlm config (8 image tokens: shorter
+    # than one 32-row k tile of the forward and one 64-row kv block of the
+    # backward) and of llama-3.2-vision-11b's width (hd 128, Lq > Lk)
+    (2, 4, 2, 16, 8, 16, False, None, torch.float32),
+    (1, 8, 2, 256, 64, 128, False, None, torch.bfloat16),
 ]
 _BWD_ID = lambda c: f"B{c[0]}H{c[1]}KV{c[2]}_Lq{c[3]}_Lk{c[4]}_hd{c[5]}_{'causal' if c[6] else 'full'}_w{c[7]}_{str(c[8])[6:]}"
 # the cases whose forward writes LSE and whose backward reads it: every route's
@@ -744,19 +775,28 @@ def test_kernels_without_a_backward_raise_under_grad_on_the_card(card):
     assert after["selective_scan"] == before["selective_scan"] + 1
 
 
-@pytest.mark.parametrize("name", ["llama3-8b", "recurrentgemma-2b", "grok-1-314b", "arctic-480b"])
+# attention backward launches of a reduced loss: one a self layer, and a
+# cross layer's (seamless-m4t-medium 2 + 2 self and 2 cross, vision 2 + 2)
+_REDUCED_ATTN_BWD = {"seamless-m4t-medium": 6, "llama-3.2-vision-11b": 4}
+
+
+@pytest.mark.parametrize("name", ["llama3-8b", "recurrentgemma-2b", "grok-1-314b", "arctic-480b", "seamless-m4t-medium",
+                                  "llama-3.2-vision-11b"])
 def test_reduced_model_gradients_on_the_card_match_the_cpu(card, name):
     """One loss and its gradients of the reduced config (fp32) on the card,
     through the kernels and their backwards, against the CPU's plain path:
-    every leaf within 1e-4 of its scale, and every leaf's gradient nonzero."""
+    every leaf within 1e-4 of its scale, and every leaf's gradient nonzero
+    (the vlm gates opened)."""
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import DataConfig, batch_at
     from repro_torch.models.model import Model
     from repro_torch.models.spec import tree_leaves, tree_map
 
     model = Model(get_arch(name).reduced())
-    params = model.init(torch.Generator(card).manual_seed(0), card)
-    batch = batch_at(DataConfig(vocab_size=256, seq_len=24, global_batch=2), 0)
+    params = _open_gates(model.init(torch.Generator(card).manual_seed(0), card))
+    cfg = model.cfg
+    batch = batch_at(DataConfig(vocab_size=256, seq_len=24, global_batch=2, enc_len=cfg.enc_len_train, d_model=cfg.d_model,
+                                n_img_tokens=cfg.n_img_tokens, family=cfg.family), 0)
 
     def grads(params, device):
         leaves = tree_leaves(params)
@@ -770,10 +810,11 @@ def test_reduced_model_gradients_on_the_card_match_the_cpu(card, name):
     on_card = grads(params, card)
     torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in ops.backward_launch_counts().items()}
-    assert launched["flash_attention_bwd"] == 2 and launched["rglru_scan_bwd"] == (4 if name == "recurrentgemma-2b" else 0)
+    n_attn = _REDUCED_ATTN_BWD.get(name, 2)
+    assert launched["flash_attention_bwd"] == n_attn and launched["rglru_scan_bwd"] == (4 if name == "recurrentgemma-2b" else 0)
     # three expert products a moe layer, each with its backward (remat="none" at .reduced())
     assert launched["moe_gmm_bwd"] == (6 if model.cfg.family == "moe" else 0)
-    assert _bwd_route_delta(routes) == {r: 2 * int(r == "tf32x3") for r in routes}  # fp32 at head width 16
+    assert _bwd_route_delta(routes) == {r: n_attn * int(r == "tf32x3") for r in routes}  # fp32 at head width 16
     on_cpu = grads(tree_map(lambda t: t.detach().cpu(), params), "cpu")
     for a, b in zip(on_card, on_cpu):
         assert bool(a.abs().max() > 0)

@@ -41,15 +41,44 @@ from repro_torch.models.model import Model
 torch.set_num_threads(1)
 
 REL_TOL = 1e-4
+# the families compared here; the audio and vlm families, whose batches carry
+# frontend extras, in tests/test_torch_encdec.py and tests/test_torch_vision.py
 PORTED = [
     "llama3-8b", "internlm2-20b", "granite-3-8b", "llama3-405b", "falcon-mamba-7b", "recurrentgemma-2b",
     "grok-1-314b", "arctic-480b",
 ]
+ALL_ARCHS = PORTED + ["seamless-m4t-medium", "llama-3.2-vision-11b"]
 B, L, N_STEPS = 2, 12, 4  # prompt and decode steps of tests/test_decode_consistency.py
+# the vlm family's tanh gates start at zero, which shuts its cross layers out
+# of the output and their gradients to zero: its parity checks open them
+GATES = {"gate_attn": 0.5, "gate_mlp": -0.3}
 
 
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
+
+
+def open_gates(params):
+    """A vlm parameter tree (the reference's or the port's) with both gates
+    of every cross layer set to GATES; any other family's as it is."""
+    if "xattn" not in params.get("superblocks", {}):
+        return params
+    xattn = dict(params["superblocks"]["xattn"])
+    for k, g in GATES.items():
+        xattn[k] = xattn[k] * 0 + g
+    return {**params, "superblocks": {**params["superblocks"], "xattn": xattn}}
+
+
+def frontend_extras(cfg, batch: int, seed: int = 1) -> dict:
+    """The frontend stubs of a family's batch, drawn with numpy in fp32:
+    ``enc_frames`` (B, enc_len_serve, D) for audio, ``img_embeds`` (B,
+    n_img_tokens, D) for vlm, none for the others."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "audio":
+        return {"enc_frames": rng.normal(size=(batch, cfg.enc_len_serve, cfg.d_model)).astype(np.float32)}
+    if cfg.family == "vlm":
+        return {"img_embeds": rng.normal(size=(batch, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)}
+    return {}
 
 
 def _rel_err(got, want) -> float:
@@ -79,19 +108,26 @@ def _leaves_err(port_tree, ref_tree) -> dict:
 def compare_arch(name: str, L: int = L) -> dict:
     """Forward, prefill of ``L`` tokens (logits and every cache leaf) and 4
     decode steps of the reduced config, port against reference, on the
-    reference's weights.  Returns the relative error of each."""
+    reference's weights (the vlm gates opened, ``open_gates``) and the
+    family's frontend extras (``frontend_extras``).  Returns the relative
+    error of each; the audio and vlm families also that of each decode
+    step against the port's teacher-forced forward (``decode{i}_teacher``)."""
     cfg_j = jget_arch(name).reduced()
     jm, tm = JModel(cfg_j), Model(get_arch(name).reduced())
-    jp = jm.init(jax.random.key(2))
+    jp = open_gates(jm.init(jax.random.key(2)))
     tp = tspec.params_from_jax(_np(jp), "cpu")
     rng = np.random.default_rng(0)
     toks = rng.integers(0, cfg_j.vocab_size, (B, L + N_STEPS)).astype(np.int32)
+    extras = frontend_extras(cfg_j, B)
+    ex_j = {k: jnp.asarray(v) for k, v in extras.items()}
+    ex_t = {k: torch.from_numpy(v) for k, v in extras.items()}
     errs = {}
     with torch.no_grad():
-        full_j = np.asarray(jm.logits(jp, {"tokens": jnp.asarray(toks)}))
-        errs["forward"] = _rel_err(tm.logits(tp, {"tokens": torch.from_numpy(toks)}), full_j)
-        lg_j, cache_j = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :L])}, cache_len=L + N_STEPS)
-        lg_t, cache_t = tm.prefill(tp, {"tokens": torch.from_numpy(toks[:, :L])}, cache_len=L + N_STEPS)
+        full_j = np.asarray(jm.logits(jp, {"tokens": jnp.asarray(toks), **ex_j}))
+        full_t = tm.logits(tp, {"tokens": torch.from_numpy(toks), **ex_t})
+        errs["forward"] = _rel_err(full_t, full_j)
+        lg_j, cache_j = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :L]), **ex_j}, cache_len=L + N_STEPS)
+        lg_t, cache_t = tm.prefill(tp, {"tokens": torch.from_numpy(toks[:, :L]), **ex_t}, cache_len=L + N_STEPS)
         errs["prefill_logits"] = _rel_err(lg_t, lg_j)
         errs.update({f"prefill_cache{k}": v for k, v in _leaves_err(cache_t, _np(cache_j)).items()})
         decode_j = jax.jit(jm.decode_step)
@@ -101,6 +137,8 @@ def compare_arch(name: str, L: int = L) -> dict:
             lg_j, cache_j = decode_j(jp, cache_j, jnp.asarray(step), jnp.asarray(pos))
             lg_t, cache_t = tm.decode_step(tp, cache_t, torch.from_numpy(step), torch.from_numpy(pos))
             errs[f"decode{i}_logits"] = _rel_err(lg_t, lg_j)
+            if extras:
+                errs[f"decode{i}_teacher"] = _rel_err(lg_t[:, 0], full_t[:, L + i].numpy())
             # greedy: the port picks the reference's next token
             assert np.array_equal(torch.argmax(lg_t[:, 0], -1).numpy(), np.argmax(np.asarray(lg_j)[:, 0], -1))
         errs.update({f"decode_cache{k}": v for k, v in _leaves_err(cache_t, _np(cache_j)).items()})
@@ -230,12 +268,9 @@ def test_config_counts_and_cut_match_the_reference(name):
         assert (c_t.hd, c_t.d_inner, c_t.dt_rank, c_t.rnn_dim, c_t.sub_quadratic) == (
             c_j.hd, c_j.d_inner, c_j.dt_rank, c_j.rnn_dim, c_j.sub_quadratic
         )
-    if cj.family in ("dense", "moe", "ssm", "hybrid"):
-        for c_t, c_j in ((ct, cj), (ct.reduced(), cj.reduced())):
-            assert Model(c_t).param_count() == tspec.tree_size(Model(c_t).specs()) == JModel(c_j).param_count()
-    else:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 4[cd]"):
-            Model(ct)
+    # every family is ported: the model's count is the reference's, full and reduced
+    for c_t, c_j in ((ct, cj), (ct.reduced(), cj.reduced())):
+        assert Model(c_t).param_count() == tspec.tree_size(Model(c_t).specs()) == JModel(c_j).param_count()
 
 
 def test_registry_shapes_and_cells_match_the_reference():
@@ -247,7 +282,7 @@ def test_registry_shapes_and_cells_match_the_reference():
         get_arch("gpt-5")
 
 
-@pytest.mark.parametrize("name", PORTED)
+@pytest.mark.parametrize("name", ALL_ARCHS)
 def test_spec_trees_match_the_reference(name):
     """Every leaf: shape, logical axes, dtype, init kind and scale."""
     for cfg_t, cfg_j in ((get_arch(name), jget_arch(name)), (get_arch(name).reduced(), jget_arch(name).reduced())):

@@ -2,8 +2,11 @@
 entry point, the data pipeline and ``kind="compute"`` prefill tasks on the broker.
 
 Weights cross from the reference's ``Model.init`` through numpy
-(``params_from_jax``); prompts are drawn with numpy from the same seed in
-both packages, so greedy decoding must give the reference's tokens exactly.
+(``params_from_jax``), the vlm family's tanh gates opened in both
+(``open_gates``: at their init of zero the images would not reach the
+tokens); prompts, and after them the audio frames and the image
+embeddings, are drawn with numpy from the same seed in both packages, so
+greedy decoding must give the reference's tokens exactly.
 Sampled tokens (``temperature > 0``) come from a ``torch.Generator`` and differ
 from the reference's ``jax.random`` draws by design (ROADMAP.md §3).
 """
@@ -20,6 +23,7 @@ import torch
 from repro.configs import get_arch as jget_arch
 from repro.configs import get_shape as jget_shape
 from repro.data import pipeline as jpipe
+from repro.launch import serve as jserve_module
 from repro.launch.serve import serve as jserve
 from repro.models.model import Model as JModel
 from repro_torch.configs import get_arch, get_shape
@@ -28,18 +32,31 @@ from repro_torch.core.managers import compute
 from repro_torch.data import pipeline as tpipe
 from repro_torch.kernels import ops
 from repro_torch.launch.serve import serve
+from repro_torch.models.model import Model
 from repro_torch.models.spec import params_from_jax
+from test_torch_models import open_gates
 
 torch.set_num_threads(1)
 
-SERVE_ARCHS = ["llama3-8b", "falcon-mamba-7b", "recurrentgemma-2b", "grok-1-314b", "arctic-480b"]
+SERVE_ARCHS = [
+    "llama3-8b", "falcon-mamba-7b", "recurrentgemma-2b", "grok-1-314b", "arctic-480b", "seamless-m4t-medium",
+    "llama-3.2-vision-11b",
+]
+
+
+class _OpenedModel(JModel):
+    """The reference's model with the vlm gates opened at init."""
+
+    def init(self, rng):
+        return open_gates(super().init(rng))
 
 
 @pytest.mark.parametrize("name", SERVE_ARCHS)
-def test_greedy_serve_gives_the_reference_tokens(name):
+def test_greedy_serve_gives_the_reference_tokens(name, monkeypatch):
     kw = dict(batch=2, prompt_len=12, gen=6, seed=3)
+    monkeypatch.setattr(jserve_module, "Model", _OpenedModel)  # the reference's serve draws its weights through it
     ref = jserve(name, **kw)
-    params = params_from_jax(jax.tree.map(np.asarray, JModel(jget_arch(name).reduced()).init(jax.random.key(3))), "cpu")
+    params = params_from_jax(jax.tree.map(np.asarray, _OpenedModel(jget_arch(name).reduced()).init(jax.random.key(3))), "cpu")
     before = ops.launch_counts()
     out = serve(name, device="cpu", params=params, **kw)
     assert ops.launch_counts() == before  # CPU tensors: the plain versions ran
@@ -67,9 +84,18 @@ def test_serve_refuses_cuda_without_a_card(monkeypatch):
 
 
 def test_unported_families_raise_naming_the_roadmap():
-    for name, item in (("seamless-m4t-medium", "4c"), ("llama-3.2-vision-11b", "4d")):
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md.*item {item}"):
-            serve(name, device="cpu")
+    """No family is left unported: ``Model`` takes every config, and the two
+    that raised last, audio and vlm, serve from weights drawn from the seed,
+    their frontend stubs drawn after the prompts (the same seed, the same
+    tokens)."""
+    from repro_torch.configs import ARCHS
+
+    for name in ARCHS:
+        Model(get_arch(name).reduced())
+    for name in ("seamless-m4t-medium", "llama-3.2-vision-11b"):
+        a, b = (serve(name, device="cpu", batch=2, prompt_len=8, gen=4) for _ in range(2))
+        assert a["tokens"].shape == (2, 4) and a["logits_finite"]
+        np.testing.assert_array_equal(a["tokens"], b["tokens"])
 
 
 # ---------------------------------------------------------------------------
@@ -143,12 +169,15 @@ def test_compute_prefill_reuses_its_artifact_on_a_retry():
 
 
 def test_compute_train_step_raises_naming_the_train_slice():
-    """The train slice is ported (tests/test_torch_train.py); a train step of
-    a family that is not raises naming its ROADMAP item, and a step kind the
-    reference lacks is refused."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 4c"):
-        compute.COMPUTE_RUNTIME.run(Task(kind="compute", arch="seamless-m4t-medium", step_kind="train"), torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 4d"):
-        compute.COMPUTE_RUNTIME.run(Task(kind="compute", arch="llama-3.2-vision-11b"), torch.device("cpu"))
+    """The train slice is ported (tests/test_torch_train.py) for every
+    family: a train step of the audio and of the vlm family (the last two
+    to raise here) returns the reference's metrics, the default step kind
+    is train, and only a step kind the reference lacks is refused."""
+    rt = compute.ComputeRuntime()
+    for task in (Task(kind="compute", arch="seamless-m4t-medium", step_kind="train"),
+                 Task(kind="compute", arch="llama-3.2-vision-11b")):
+        out = rt.run(task, torch.device("cpu"))
+        assert sorted(out) == ["ce", "grad_norm", "loss", "lr", "tokens"] and all(np.isfinite(v) for v in out.values())
+        assert int(rt._states[(task.arch, "train", "cpu")][1]["step"]) == 1
     with pytest.raises(ValueError):
         compute.COMPUTE_RUNTIME.run(Task(kind="compute", arch="llama3-8b", step_kind="decode"), torch.device("cpu"))

@@ -54,10 +54,14 @@ from repro_torch.models import spec as tspec
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw
 from repro_torch.train import step as tstep
+from test_torch_models import open_gates
 
 torch.set_num_threads(1)
 
-ARCHS = ["llama3-8b", "recurrentgemma-2b", "falcon-mamba-7b", "grok-1-314b", "arctic-480b"]
+ARCHS = [
+    "llama3-8b", "recurrentgemma-2b", "falcon-mamba-7b", "grok-1-314b", "arctic-480b", "seamless-m4t-medium",
+    "llama-3.2-vision-11b",
+]
 GRAD_REL = 1e-5  # attention / RG-LRU gradients and the loss, relative
 LEAF_TOL = 1e-4  # each gradient leaf, x the max-abs of the reference's leaf
 REMAT_TOL = 1e-6
@@ -87,9 +91,15 @@ def _paths(tree, prefix=""):
     return [prefix]
 
 
+def _data(cfg, **kw) -> DataConfig:
+    """The reduced config's data, its frontend stubs included (``enc_len``
+    frames for audio, ``n_img_tokens`` patches for vlm)."""
+    return DataConfig(vocab_size=cfg.vocab_size, seq_len=L, global_batch=B, enc_len=cfg.enc_len_train,
+                      d_model=cfg.d_model, n_img_tokens=cfg.n_img_tokens, family=cfg.family, **kw)
+
+
 def _batch(cfg, seed=0) -> dict:
-    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=L, global_batch=B, seed=seed, family=cfg.family)
-    return batch_at(dc, 0)
+    return batch_at(_data(cfg, seed=seed), 0)
 
 
 @contextlib.contextmanager
@@ -323,9 +333,12 @@ def test_kernels_without_a_backward_refuse_gradients():
 # ---------------------------------------------------------------------------
 
 
-def compare_loss_and_grads(name: str) -> dict:
-    jm, tm = _models(name)
-    jparams = jm.init(jax.random.key(0))
+def compare_loss_and_grads(name: str, **kw) -> dict:
+    """The loss, its metrics and every gradient leaf (keyed ``grad/<path>``)
+    of the reduced config (``kw`` replaces config fields in both), against
+    ``jax.value_and_grad`` of the reference, the vlm gates opened."""
+    jm, tm = _models(name, **kw)
+    jparams = open_gates(jm.init(jax.random.key(0)))
     batch = _batch(jm.cfg)
     with reference_expm1_exact():
         (jloss, jmetrics), jgrads = jax.value_and_grad(jm.loss, has_aux=True)(jparams, {k: jnp.asarray(v) for k, v in batch.items()})
@@ -358,9 +371,10 @@ def compare_train_steps(name: str, n_steps: int = 3) -> dict:
     mesh = compat_make_mesh((1,), ("data",))
     jfn = jax.jit(jstep.make_train_step(jm, STRATEGIES["tp"], mesh, opt_j))
     jparams, jopt = jstep.init_train_state(jm, jax.random.key(0))
+    jparams = open_gates(jparams)
     params, opt = tspec.train_state_from_jax(_np(jparams), _np(jopt), "cpu")
     tfn = tstep.make_train_step(tm, opt_t)
-    dc = DataConfig(vocab_size=jm.cfg.vocab_size, seq_len=L, global_batch=B, family=jm.cfg.family)
+    dc = _data(jm.cfg)
     # AdamW's first steps move a param by ~ g / (|g| + eps): where sqrt(v-hat)
     # is within 100 eps of 0, fp32 noise in g (1e-7 of the leaf's scale) is
     # amplified by 1/eps, and one element of a llama3-8b leaf with |g| ~ 2e-9
@@ -423,7 +437,7 @@ def compare_variants(name: str) -> dict:
     """The chunked head (logit_chunk=8) and each remat policy against the
     plain path, on one set of weights."""
     base = get_arch(name).reduced()
-    params = Model(base).init(torch.Generator().manual_seed(0), "cpu")
+    params = open_gates(Model(base).init(torch.Generator().manual_seed(0), "cpu"))
     batch = _batch(base)
     loss0, metrics0, grads0 = _loss_grads(Model(base), params, batch)
     errs = {}
@@ -579,6 +593,19 @@ def test_train_restarts_from_its_checkpoint_bit_for_bit(tmp_path, monkeypatch):
         for a, b in zip(tspec.tree_leaves(straight["opt"][k]), tspec.tree_leaves(resumed["opt"][k])):
             assert torch.equal(a, b)
     assert int(resumed["opt"]["step"]) == 4
+
+
+@pytest.mark.parametrize("name", ["seamless-m4t-medium", "llama-3.2-vision-11b"])
+def test_launch_train_takes_the_encdec_and_vlm_configs(name):
+    """``launch/train.py`` trains the reduced audio and vlm configs, their
+    frontend stubs drawn by the data pipeline: four steps of finite losses
+    and gradient norms, and on the CPU no kernel (forward
+    or backward) launched."""
+    out = ttrain.train(name, steps=4, seq_len=16, global_batch=2, log_every=0, device="cpu")
+    assert out["steps"] == 4 and all(np.isfinite(out["losses"] + out["grad_norms"]))
+    assert all(set(d.values()) == {0} for d in out["launches"] + out["backward_launches"])
+    assert ("enc_blocks" in out["params"]) == (name == "seamless-m4t-medium")
+    assert ("xattn" in out["params"].get("superblocks", {})) == (name == "llama-3.2-vision-11b")
 
 
 def test_train_driver_refuses_a_strategy_and_the_card_without_one():
