@@ -9,7 +9,7 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
   1. set-up: the card's name and power limit; the CUDA kernels built from
      ``src/repro_torch/kernels/csrc`` into ``build/repro_torch``, with the
      ``ptxas`` lines (registers, spills) of the tensor-core kernels and the
-     RG-LRU backward; TF32 off for fp32 matrix products and convolutions
+     two scans' backwards; TF32 off for fp32 matrix products and convolutions
      (``allow_tf32`` False, float32 matmul precision "highest", asserted again
      before each plain fp32 GEMM and ``torch.bmm``), so the plain versions
      are exact and no yardstick is itself TF32.
@@ -46,7 +46,14 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      hd128 causal) in both dtypes, fp32 held at relative 1e-4.  The GEMM is
      timed at grok-1's expert shape in both dtypes, at arctic-480b's prefill
      shape (E128 C80 D7168 F4864) in both, and at grok-1's decode shape (E8
-     C2) in bf16.
+     C2) in bf16.  The selective scan's backward (``selective_scan_bwd``,
+     the gradient the ssm family trains through) at falcon-mamba-7b's chunk
+     (B1 chunk 256 di 8192 N16) with fp32 and with bf16 x, each output
+     within 1e-4 of its plain version's largest element (bf16 dx element by
+     element), timed beside the plain version and its bound, one call
+     profiled (its two kernels, the walk and the sums across blocks); at
+     the forward's ragged shapes; every call counted, two calls bit-equal,
+     and two chunks chained equal to one of twice the length.
   3. broker: ``Hydra(device="cuda")`` with a cloud (CaaS) and an HPC (pilot)
      provider on the card runs a backlog of noop tasks, kernel tasks at the
      registry's full shapes and one 2-rep task per model width, with the
@@ -147,15 +154,20 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      kernels carry gradients back).  One more step under torch.profiler
      must show device time under every backward kernel's symbols.
      llama3-8b at full width cut to 2 layers trains 2 steps at B2 x 2048
-     the same way; llama3-8b cut to 1 layer
+     the same way, and falcon-mamba-7b at full width cut to 8 of its 64
+     layers 2 steps at B1 x 4096 with AdamW (per step 256 ``selective_scan``
+     and 128 ``selective_scan_bwd`` launches, the first 16 backward calls held
+     against the plain version, every gradient leaf nonzero; one more step
+     profiled: idle share and busy time by kernel); llama3-8b cut to 1 layer
      (B1 x 256, fp32) gives every gradient leaf on the card within 1e-4 of
      the CPU's (one thread), its forward handing its LSE to the backward; and
      ``kind="compute"`` train tasks on ``Hydra(device="cuda")``:
-     3 llama3-8b, 3 recurrentgemma-2b and 3 grok-1-314b tasks DONE with
-     finite metrics and their backward launches (every moe step's gradient
-     leaves, the router's included, nonzero), one falcon-mamba-7b task
-     FAILED with ``ops.BackwardNotPorted`` (the selective_scan backward is
-     not ported).  The moe family: grok-1-314b cut to one layer in
+     3 llama3-8b, 3 recurrentgemma-2b, 3 falcon-mamba-7b and 3 grok-1-314b
+     tasks DONE with finite metrics and their backward launches (every moe
+     and ssm step's gradient leaves, the router's and the scan's included,
+     nonzero); falcon-mamba-7b cut to one layer (B1 x 512 fp32, two chunks)
+     gives every gradient leaf on the card within 1e-4 of the CPU's.  The
+     moe family: grok-1-314b cut to one layer in
      fp32 gives every gradient leaf on the card within 1e-4 of the CPU's
      (B1 x 256; the host must hold the CPU side, or the line says it could
      not); and one bf16 loss and its gradients at full width, one layer,
@@ -184,10 +196,10 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      route, in each scenario twin and in one full-size serve prefill
      (``model_launches``; the GEMM's in the grok-1 serve prefill,
      ``moe_serve_launches``), model-width error and times, cold too, beside
-     the roofline bound; the three backward kernels with their launches in
+     the roofline bound; the four backward kernels with their launches in
      the recurrentgemma-2b train run (the GEMM backward's in grok-1's bf16
-     gradient pass), the attention backward's also by route), and the
-     device line last.
+     gradient pass, the selective scan's in falcon-mamba-7b's train run),
+     the attention backward's also by route), and the device line last.
 
 Each phase prints its wall seconds.
 """
@@ -587,6 +599,111 @@ def check_concurrent(torch, kreg, ops, dev, reps: int = 8):
         if not err <= TIER_TOL:
             raise AssertionError(f"{name} two_threads: error {err:.3e} over tolerance {TIER_TOL:g}")
         print(f"kernel kernel={name} case=full_two_threads max_abs_err={err} launches={launches}", flush=True)
+
+
+# the selective scan's backward: (label, B, chunk, di, N) at falcon-mamba-7b's
+# chunk, timed with fp32 and with bf16 x; then the forward's ragged cases
+# (SCAN_CASES' shapes, N 5 padded to 8, N 32 and 64 on their shorter
+# segments) and a chunk shorter than one 16-step segment, in both dtypes
+SS_BWD_WIDTH = ("falcon_mamba_7b", 1, 256, 8192, 16)
+SS_BWD_CASES = [(2, 100, 50, 4), (1, 40, 45, 8), (1, 40, 96, 5), (1, 37, 64, 32), (2, 48, 64, 64), (2, 8, 32, 4)]
+SS_BWD_SYMBOLS = ("selective_bwd_kernel", "selective_bwd_sum")  # csrc/selective_scan_bwd.cu: the walk, the sums
+
+
+def selective_bwd_operands(torch, dev, B, ck, di, N, dtype: str, seed: int):
+    """The scan's operands as the model makes them (dt in softplus's range,
+    A as the reference initialises it, -1 to -N), a nonzero h0, and the
+    cotangents dy and dh_last."""
+    g = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn(B, ck, di, generator=g, device=dev).to(getattr(torch, dtype))
+    dt = torch.rand(B, ck, di, generator=g, device=dev) * 0.099 + 0.001
+    b, c = (torch.randn(B, ck, N, generator=g, device=dev) for _ in range(2))
+    a = -(torch.rand(di, N, generator=g, device=dev) * (N - 1) + 1)
+    h0, dh = (torch.randn(B, di, N, generator=g, device=dev) for _ in range(2))
+    dy = torch.randn(B, ck, di, generator=g, device=dev)
+    return x, dt, b, c, a, h0, dy, dh
+
+
+def selective_bwd_bound(B, ck, di, N, x_bytes: int) -> dict:
+    """x, dt and dy read and dx and ddt written, B and C read and dB and dC
+    written, A read and dA written, h0 and dh_last read and dh0 written,
+    over the memory rate, against the function's ~20 fp32 operations a
+    (step, channel, state) (the states again, the reverse step, the sums)
+    at the fp32 CUDA-core rate.  Beside the bound, ``exp_floor_ms``: its
+    2 B ck di N accurate expf (each way of the walk) at one MUFU.EX2 each,
+    16 a clock on each of 132 SMs at 1.98 GHz."""
+    from repro_torch.kernels.autotune import HBM_BYTES_PER_S, PEAK_OPS_PER_S
+
+    elems = B * ck * di
+    nbytes = 2 * x_bytes * elems + 4 * 3 * elems + 4 * 4 * B * ck * N + 4 * 2 * di * N + 4 * 3 * B * di * N
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 20 * elems * N / PEAK_OPS_PER_S["float32"]
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "exp_floor_ms": 1e3 * 2 * elems * N / (132 * 16 * 1.98e9)}
+
+
+def check_grads_by_dtype(torch, got, want, label: str) -> tuple:
+    """``check_grads`` of each output at its own dtype's tolerance (a
+    backward whose gradients differ in dtype: the selective scan's dx in x's,
+    the rest fp32).  Returns the worst max-abs error and relative error."""
+    errs = [check_grads(torch, [g], [w], str(g.dtype).removeprefix("torch."), label) for g, w in zip(got, want)]
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def check_selective_scan_bwd(torch, ops, dev, flush) -> dict:
+    """The selective scan's backward kernel against its plain version
+    (``check_grads_by_dtype``: fp32 within BWD_TOL of the largest element,
+    bf16 dx element by element): at SS_BWD_WIDTH with fp32 and bf16 x, timed
+    (warm, cold, a call with its host work) beside the plain version and the
+    bound, one call profiled (its two kernels and no other); then at
+    SS_BWD_CASES in both dtypes.  Every case: one backward launch a call and
+    two calls bit-equal (no atomics).  Last, two chunks chained through h
+    against one chunk of twice the length."""
+    from repro_torch.kernels import ref
+
+    label, *width = SS_BWD_WIDTH
+    cases = [(label if dtype == "float32" else f"{label}_bf16x", tuple(width), dtype, True) for dtype in ("float32", "bfloat16")]
+    cases += [("B{}_ck{}_di{}_N{}_".format(*shape) + dtype, shape, dtype, False)
+              for shape in SS_BWD_CASES for dtype in ("float32", "bfloat16")]
+    rows = {}
+    for case, shape, dtype, timed in cases:
+        operands = selective_bwd_operands(torch, dev, *shape, dtype, seed=15)
+        run = lambda: ops.selective_scan_chunk_bwd(*operands)
+        before = ops.backward_launch_counts()["selective_scan_bwd"]
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        if ops.backward_launch_counts()["selective_scan_bwd"] != before + 2:
+            raise AssertionError(f"selective_scan_bwd {case}: the wrapper did not count its two calls")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"selective_scan_bwd {case}: a second call on the same operands gave other gradients")
+        abs_err, err = check_grads_by_dtype(torch, got, ref.selective_scan_chunk_bwd_ref(*operands), f"selective_scan_bwd {case}")
+        row = {"kernel": "selective_scan_bwd", "case": case, "dtype": dtype, "max_abs_err": abs_err, "rel_err": err,
+               "bit_equal_again": True}
+        if timed:
+            _, _, device = device_profile(torch, run, expect=SS_BWD_SYMBOLS)
+            ran = sorted(n for n in device if "selective_bwd" in n)
+            if len(ran) != len(SS_BWD_SYMBOLS) or not all(any(names_kernel(n, sym) for n in ran) for sym in SS_BWD_SYMBOLS):
+                raise AssertionError(f"selective_scan_bwd {case}: one call ran the kernels {ran}, want {SS_BWD_SYMBOLS}")
+            row.update({
+                "kernels_per_call": len(ran),
+                "ms": median_ms(torch, run), "ms_cold": cold_ms(torch, run, flush), "ms_call": call_ms(torch, run),
+                "plain_ms": median_ms(torch, lambda: ref.selective_scan_chunk_bwd_ref(*operands), max_reps=3), "library_ms": None,
+            })
+            row.update(selective_bwd_bound(*shape, 2 if dtype == "bfloat16" else 4))
+        print("kernel " + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
+        rows[case] = row
+        del operands, got, again
+    # two chunks chained (the second's dh0 is the first's dh_last) against one
+    x, dt, b, c, a, h0, dy, dh = selective_bwd_operands(torch, dev, 2, 80, 96, 16, "float32", seed=16)
+    whole = ops.selective_scan_chunk_bwd(x, dt, b, c, a, h0, dy, dh)
+    half = lambda t, i: t[:, 40 * i:40 * (i + 1)].contiguous()
+    _, h1 = ops.selective_scan_chunk(half(x, 0), half(dt, 0), half(b, 0), half(c, 0), a, h0)
+    second = ops.selective_scan_chunk_bwd(half(x, 1), half(dt, 1), half(b, 1), half(c, 1), a, h1, half(dy, 1), dh)
+    first = ops.selective_scan_chunk_bwd(half(x, 0), half(dt, 0), half(b, 0), half(c, 0), a, h0, half(dy, 0), second[5])
+    chained = [torch.cat([f, s], dim=1) for f, s in zip(first[:4], second[:4])] + [first[4] + second[4], first[5]]
+    _, err = check_grads(torch, chained, list(whole), "float32", "selective_scan_bwd chunk_chaining")
+    print(f"kernel kernel=selective_scan_bwd case=chunk_chaining rel_err={err}", flush=True)
+    torch.cuda.empty_cache()
+    return rows
 
 
 # forward cases at Lq != Lk, which the registry (q, k and v of one length)
@@ -1167,10 +1284,14 @@ def run_full_width(torch, ops, name, n_layers, prompt, want, dev):
     )
 
 
-# spin kernels a trace takes before the profiled call, each waited for: a
-# trace loses its first kernel or two, more after heavy use of the card
-# (scripts/profiler_first_kernels.py)
-WARMUP_SPINS = 8
+# after heavy use of the card a trace may lose kernels that ran (ROADMAP.md
+# fault 3.8; scripts/profiler_first_kernels.py): each profiled call runs
+# behind WARMUP_SPINS spin kernels of WARMUP_SPIN_S each, each waited for,
+# and is profiled up to PROFILE_ATTEMPTS times while its trace lacks a
+# kernel a check reads
+WARMUP_SPINS = 16
+WARMUP_SPIN_S = 1.25e-3
+PROFILE_ATTEMPTS = 3
 # how often device_profile's first trace lacked the expected kernel, and
 # whether the profiler's raw Kineto events held it then (ROADMAP.md fault 3.8)
 PROFILE_STATS = {"calls": 0, "retried": 0, "in_kineto_only": 0, "in_neither": 0, "retry_found": 0}
@@ -1192,19 +1313,20 @@ def device_profile(torch, fn, grad: bool = False, expect: str | tuple | None = N
     ``grad``): its wall (synchronized) and the device time of every kernel
     the trace holds, by name.  ``expect``: a part of a name the call's
     trace must hold, or a tuple of parts that each must; a trace that lacks
-    one, lost by the tracer or not, is taken once more (a line says so,
-    with whether the raw Kineto events held every one: PROFILE_STATS counts
-    both), and the caller's check reads the second."""
+    one, lost by the tracer or not, is taken again, up to PROFILE_ATTEMPTS
+    traces (a line says so, with whether the raw Kineto events held every
+    one: PROFILE_STATS counts both), and the caller's check reads the
+    last."""
     from torch.profiler import ProfilerActivity, profile
 
     PROFILE_STATS["calls"] += 1
-    for attempt in range(2):
+    cycles = spin_cycles(torch, WARMUP_SPIN_S)
+    for attempt in range(PROFILE_ATTEMPTS):
         with torch.set_grad_enabled(grad), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            # a trace may miss its first kernels, one or two after the
-            # full-size serves (ROADMAP.md fault 3.8): spins go first
+            # spins go first: the trace's first kernels may be lost
             for _ in range(WARMUP_SPINS):
                 torch.cuda.synchronize()
-                torch.cuda._sleep(1)
+                torch.cuda._sleep(cycles)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn()
@@ -1218,7 +1340,7 @@ def device_profile(torch, fn, grad: bool = False, expect: str | tuple | None = N
         found = all(any(w in n for n in device) for w in wanted)
         if attempt:
             PROFILE_STATS["retry_found"] += int(found)
-        if found or attempt:
+        if found or attempt == PROFILE_ATTEMPTS - 1:
             return out, wall_s, device
         raw = kineto_kernel_names(torch, prof)
         in_raw = raw is not None and all(any(w in n for n in raw) for w in wanted)
@@ -1517,50 +1639,69 @@ TRAIN = {"arch": "recurrentgemma-2b", "steps": 3, "seq_len": 4096, "global_batch
 # per step of recurrentgemma-2b (8 attention and 18 recurrent layers): the
 # forward runs twice under remat="dots" (once more in the backward's recompute)
 TRAIN_LAUNCHES = {"flash_attention": 16, "selective_scan": 0, "rglru_scan": 36, "moe_gmm": 0}
-TRAIN_BACKWARD_LAUNCHES = {"flash_attention_bwd": 8, "rglru_scan_bwd": 18, "moe_gmm_bwd": 0}
+TRAIN_BACKWARD_LAUNCHES = {"flash_attention_bwd": 8, "selective_scan_bwd": 0, "rglru_scan_bwd": 18, "moe_gmm_bwd": 0}
 # full width, depth cut (``cut``), bf16, through make_train_step, the step
 # launch/train.py takes: llama3-8b's 2 layers; llama-3.2-vision-11b's one
 # superblock (4 self layers and the gated
-# cross layer over its 1024 image tokens, gates opened).  ``attention``: the
-# attention layers, each run twice a step under remat="dots" and once in the
+# cross layer over its 1024 image tokens, gates opened).  ``launches`` and
+# ``backward``: a step's forward and backward launches (no other kernel's):
+# each attention layer runs twice a step under remat="dots" and once in the
 # backward
-DENSE_TRAIN = {"arch": "llama3-8b", "cut": {"n_layers": 2}, "batch": 2, "seq_len": 2048, "steps": 2, "attention": 2}
-VLM_TRAIN = {"arch": "llama-3.2-vision-11b", "cut": {"n_layers": 5}, "batch": 1, "seq_len": 4096, "steps": 2, "attention": 5}
+DENSE_TRAIN = {"arch": "llama3-8b", "cut": {"n_layers": 2}, "batch": 2, "seq_len": 2048, "steps": 2,
+               "launches": {"flash_attention": 4}, "backward": {"flash_attention_bwd": 2}}
+VLM_TRAIN = {"arch": "llama-3.2-vision-11b", "cut": {"n_layers": 5}, "batch": 1, "seq_len": 4096, "steps": 2,
+             "launches": {"flash_attention": 10}, "backward": {"flash_attention_bwd": 5}}
 # seamless-m4t-medium at full size (no cut), 4096 frames: 12 encoder, 12
 # decoder and 12 cross attentions
-ENCDEC_TRAIN = {"arch": "seamless-m4t-medium", "cut": {}, "batch": 1, "seq_len": 4096, "steps": 2, "attention": 36}
+ENCDEC_TRAIN = {"arch": "seamless-m4t-medium", "cut": {}, "batch": 1, "seq_len": 4096, "steps": 2,
+                "launches": {"flash_attention": 72}, "backward": {"flash_attention_bwd": 36}}
+# falcon-mamba-7b at full width, 8 of its 64 layers (105.3 M parameters a
+# layer and a 266 M embedding at 12 bytes a parameter: 13.3 GB of weights,
+# gradients and AdamW moments; the 64 layers would take ~84 GB, ROADMAP.md
+# item 6): 16 chunks of 256 a layer, each run twice a step under
+# remat="dots" and once in the backward.  ``check``: the first step's first
+# 16 backward calls (the last layer's chunks) held against the plain
+# version; ``profile``: one more step under the profiler
+SSM_TRAIN = {"arch": "falcon-mamba-7b", "cut": {"n_layers": 8}, "batch": 1, "seq_len": 4096, "steps": 2,
+             "launches": {"selective_scan": 2 * 16 * 8}, "backward": {"selective_scan_bwd": 16 * 8},
+             "check": {"selective_scan_bwd": 16}, "profile": True}
 # card against CPU in fp32, depth cut to ``cut``: (arch, batch, seq_len, the
 # backward launches of the step: one an attention, three GEMMs a moe layer,
 # cut); seamless-m4t-medium one encoder and one decoder layer over 512
 # frames, llama-3.2-vision-11b one superblock (gates opened)
 ONE_LAYER = {"n_layers": 1}
 GRAD_CHECKS = [
-    ("llama3-8b", 1, 256, {"flash_attention_bwd": 1, "rglru_scan_bwd": 0, "moe_gmm_bwd": 0}, ONE_LAYER),
-    ("grok-1-314b", 1, 256, {"flash_attention_bwd": 1, "rglru_scan_bwd": 0, "moe_gmm_bwd": 3}, ONE_LAYER),
-    ("seamless-m4t-medium", 1, 256, {"flash_attention_bwd": 3, "rglru_scan_bwd": 0, "moe_gmm_bwd": 0},
+    ("llama3-8b", 1, 256, {"flash_attention_bwd": 1, "selective_scan_bwd": 0, "rglru_scan_bwd": 0, "moe_gmm_bwd": 0}, ONE_LAYER),
+    ("grok-1-314b", 1, 256, {"flash_attention_bwd": 1, "selective_scan_bwd": 0, "rglru_scan_bwd": 0, "moe_gmm_bwd": 3}, ONE_LAYER),
+    ("seamless-m4t-medium", 1, 256, {"flash_attention_bwd": 3, "selective_scan_bwd": 0, "rglru_scan_bwd": 0, "moe_gmm_bwd": 0},
      {"n_layers": 1, "n_enc_layers": 1, "enc_len_train": 512}),
-    ("llama-3.2-vision-11b", 1, 256, {"flash_attention_bwd": 5, "rglru_scan_bwd": 0, "moe_gmm_bwd": 0}, {"n_layers": 5}),
+    ("llama-3.2-vision-11b", 1, 256, {"flash_attention_bwd": 5, "selective_scan_bwd": 0, "rglru_scan_bwd": 0, "moe_gmm_bwd": 0},
+     {"n_layers": 5}),
+    # falcon-mamba-7b over 512 tokens: two chunks of 256, so the gradient of
+    # the state crosses from one chunk's backward into the other's
+    ("falcon-mamba-7b", 1, 512, {"flash_attention_bwd": 0, "selective_scan_bwd": 2, "rglru_scan_bwd": 0, "moe_gmm_bwd": 0},
+     ONE_LAYER),
 ]
 GRAD_TOL = 1e-4
 # the host must hold the weights and the gradients of the CPU side and one
 # leaf more: this many times the weights' bytes
 GRAD_HOST_FACTOR = 2.5
-TRAIN_TASKS = (("llama3-8b", 3), ("recurrentgemma-2b", 3), ("grok-1-314b", 3), ("seamless-m4t-medium", 3),
-               ("llama-3.2-vision-11b", 3))
+TRAIN_TASKS = (("llama3-8b", 3), ("recurrentgemma-2b", 3), ("falcon-mamba-7b", 3), ("grok-1-314b", 3),
+               ("seamless-m4t-medium", 3), ("llama-3.2-vision-11b", 3))
 # a reduced step: llama3-8b 2 attention layers; recurrentgemma-2b 2 attention
-# and 4 recurrent layers; grok-1-314b 2 attention and 2 moe layers of 3
-# expert GEMMs; seamless-m4t-medium 2 encoder, 2 decoder and 2 cross
-# attentions; llama-3.2-vision-11b 2 self and 2 cross (remat="none": one
-# forward)
-TRAIN_TASK_LAUNCHES = {"flash_attention": 48, "selective_scan": 0, "rglru_scan": 12, "moe_gmm": 18}
-TRAIN_TASK_BACKWARD_LAUNCHES = {"flash_attention_bwd": 48, "rglru_scan_bwd": 12, "moe_gmm_bwd": 18}
+# and 4 recurrent layers; falcon-mamba-7b 2 layers of two 8-step chunks over
+# its 16 tokens; grok-1-314b 2 attention and 2 moe layers of 3 expert GEMMs;
+# seamless-m4t-medium 2 encoder, 2 decoder and 2 cross attentions;
+# llama-3.2-vision-11b 2 self and 2 cross (remat="none": one forward)
+TRAIN_TASK_LAUNCHES = {"flash_attention": 48, "selective_scan": 12, "rglru_scan": 12, "moe_gmm": 18}
+TRAIN_TASK_BACKWARD_LAUNCHES = {"flash_attention_bwd": 48, "selective_scan_bwd": 12, "rglru_scan_bwd": 12, "moe_gmm_bwd": 18}
 # grok-1-314b at full width cut to one layer, bf16: one loss and its
 # gradients on the card (AdamW's state would not fit: ROADMAP.md item 6).
 # Under remat="dots" the forward's attention and GEMMs run again in the
 # backward (the expert products are batched over the experts)
 MOE_GRAD = {"arch": "grok-1-314b", "layers": 1, "batch": 1, "seq_len": 4096}
 MOE_GRAD_LAUNCHES = {"flash_attention": 2, "selective_scan": 0, "rglru_scan": 0, "moe_gmm": 6}
-MOE_GRAD_BACKWARD_LAUNCHES = {"flash_attention_bwd": 1, "rglru_scan_bwd": 0, "moe_gmm_bwd": 3}
+MOE_GRAD_BACKWARD_LAUNCHES = {"flash_attention_bwd": 1, "selective_scan_bwd": 0, "rglru_scan_bwd": 0, "moe_gmm_bwd": 3}
 # the train step's kernels in a profiler trace: the forward kernels and the
 # backward kernels' symbols (csrc/*_bwd*.cu): csrc/flash_attention_bwd_wgmma.cu
 # is the wgmma route, csrc/flash_attention_bwd_tf32x3.cu the three TF32 ones
@@ -1570,19 +1711,22 @@ MOE_GRAD_BACKWARD_LAUNCHES = {"flash_attention_bwd": 1, "rglru_scan_bwd": 0, "mo
 WGMMA_BWD_SYMBOLS = ("attn_bwd_rowstats", "attn_bwd_kv_wgmma", "attn_bwd_kv_sum", "attn_bwd_q_wgmma")
 TF32_BWD_SYMBOLS = ("attn_bwd_rowstats", "tf32_bwd_dqkv", "attn_bwd_kv_sum")
 TRAIN_SYMBOLS = {
-    "flash_attention": ("flash_fwd",), "rglru_scan": ("rglru_kernel",),
-    "flash_attention_bwd": tuple(dict.fromkeys(("bwd_pre",) + WGMMA_BWD_SYMBOLS + TF32_BWD_SYMBOLS)), "rglru_scan_bwd": ("rglru_bwd_kernel",),
+    "flash_attention": ("flash_fwd",), "selective_scan": ("scan_kernel",), "rglru_scan": ("rglru_kernel",),
+    "flash_attention_bwd": tuple(dict.fromkeys(("bwd_pre",) + WGMMA_BWD_SYMBOLS + TF32_BWD_SYMBOLS)),
+    "selective_scan_bwd": SS_BWD_SYMBOLS, "rglru_scan_bwd": ("rglru_bwd_kernel",),
 }
 ROUTE_BWD_SYMBOLS = {"wgmma": WGMMA_BWD_SYMBOLS, "tf32x3": TF32_BWD_SYMBOLS, "tf32x3_cluster": TF32_BWD_SYMBOLS, "tf32": TF32_BWD_SYMBOLS}
 BACKWARD_INFO = {
     "flash_attention_bwd": ("cuda", "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu", "src/repro/models/attention.py:36"),
+    "selective_scan_bwd": ("cuda", "src/repro_torch/kernels/csrc/selective_scan_bwd.cu", "src/repro/models/ssm.py:73"),
     "rglru_scan_bwd": ("cuda", "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu", "src/repro/models/rglru.py:137"),
     "moe_gmm_bwd": ("cuda", "src/repro_torch/kernels/csrc/moe_gmm_bwd.cu", "src/repro/models/moe.py:131"),
 }
 # the attention backward cases at the encoder-decoder and vision families' shapes
 CROSS_BWD = ("seamless_m4t_medium", "llama_3_2_vision_11b_cross")
 # the case each backward kernel's report row is read from
-BACKWARD_WIDTH = {"flash_attention_bwd": "recurrentgemma_2b", "rglru_scan_bwd": "recurrentgemma_2b", "moe_gmm_bwd": "grok_1_314b"}
+BACKWARD_WIDTH = {"flash_attention_bwd": "recurrentgemma_2b", "selective_scan_bwd": "falcon_mamba_7b",
+                  "rglru_scan_bwd": "recurrentgemma_2b", "moe_gmm_bwd": "grok_1_314b"}
 
 
 def check_grads(torch, got, want, dtype: str, label: str) -> float:
@@ -1888,8 +2032,10 @@ def check_backward_kernels(torch, ops, dev, flush):
     return rows
 
 
-# the backward wrappers of ``kernels/ops.py`` the autograd Functions call
-BACKWARD_WRAPPERS = ("flash_attention_bwd", "rglru_scan_bwd", "moe_gmm_bwd")
+# the backward wrappers of ``kernels/ops.py`` the autograd Functions call, by
+# the name their launches are counted under
+BACKWARD_WRAPPERS = {"flash_attention_bwd": "flash_attention_bwd", "selective_scan_bwd": "selective_scan_chunk_bwd",
+                     "rglru_scan_bwd": "rglru_scan_bwd", "moe_gmm_bwd": "moe_gmm_bwd"}
 
 
 @contextlib.contextmanager
@@ -1897,7 +2043,7 @@ def backward_kernels_checked(torch, ops, label, first: dict, keep: list | None =
     """Holds the first ``first[kernel]`` backward launches of each kernel
     (the launches of one train step) against the plain version on the
     operands the path gave them (fp32 relative 1e-4, bf16 also element by
-    element; ``check_grads``): the ``ops`` wrappers are swapped for ones
+    element; ``check_grads_by_dtype``): the ``ops`` wrappers are swapped for ones
     that call the original (the path's own launch, counted) and then the
     plain version.  The attention backward's plain version is not given the
     forward's LSE: it computes its own, so that LSE is checked too.  The
@@ -1907,35 +2053,35 @@ def backward_kernels_checked(torch, ops, label, first: dict, keep: list | None =
     it is given.  Yields {kernel: {"calls", "rel_err"}}."""
     from repro_torch.kernels import ref
 
-    plain = {"flash_attention_bwd": ref.attention_bwd_ref, "rglru_scan_bwd": ref.rglru_bwd_ref, "moe_gmm_bwd": ref.moe_gmm_bwd_ref}
+    plain = {"flash_attention_bwd": ref.attention_bwd_ref, "selective_scan_bwd": ref.selective_scan_chunk_bwd_ref,
+             "rglru_scan_bwd": ref.rglru_bwd_ref, "moe_gmm_bwd": ref.moe_gmm_bwd_ref}
     seen = {k: {"calls": 0, "rel_err": 0.0} for k in BACKWARD_WRAPPERS}
-    originals = {w: getattr(ops, w) for w in BACKWARD_WRAPPERS}
+    originals = {k: getattr(ops, w) for k, w in BACKWARD_WRAPPERS.items()}
 
-    def checked(wrapper):
+    def checked(kernel):
         def call(*args, **kw):
-            got = originals[wrapper](*args, **kw)
-            if seen[wrapper]["calls"] < first.get(wrapper, 0):
+            got = originals[kernel](*args, **kw)
+            if seen[kernel]["calls"] < first.get(kernel, 0):
                 with torch.no_grad():  # the plain attention backward computes its own LSE
-                    want = plain[wrapper](*args, **{k: v for k, v in kw.items() if k != "lse"})
-                dtype = str(args[0].dtype).removeprefix("torch.")
+                    want = plain[kernel](*args, **{k: v for k, v in kw.items() if k != "lse"})
                 asked = [(g, w) for g, w in zip(got, want) if g is not None]  # the GEMM's gradients autograd asked for
-                _, err = check_grads(torch, [g for g, _ in asked], [w for _, w in asked], dtype,
-                                     f"{label}: {wrapper} call {seen[wrapper]['calls']}")
-                seen[wrapper]["rel_err"] = max(seen[wrapper]["rel_err"], err)
-                seen[wrapper]["calls"] += 1
-            if keep is not None and not keep and wrapper == "rglru_scan_bwd":
+                _, err = check_grads_by_dtype(torch, [g for g, _ in asked], [w for _, w in asked],
+                                              f"{label}: {kernel} call {seen[kernel]['calls']}")
+                seen[kernel]["rel_err"] = max(seen[kernel]["rel_err"], err)
+                seen[kernel]["calls"] += 1
+            if keep is not None and not keep and kernel == "rglru_scan_bwd":
                 keep.extend(a.to("cpu", copy=True) for a in args)  # on the host: the step's peak memory stays its own
             return got
 
         return call
 
-    for w in BACKWARD_WRAPPERS:
-        setattr(ops, w, checked(w))
+    for k, w in BACKWARD_WRAPPERS.items():
+        setattr(ops, w, checked(k))
     try:
         yield seen
     finally:
-        for w, fn in originals.items():
-            setattr(ops, w, fn)
+        for k, fn in originals.items():
+            setattr(ops, BACKWARD_WRAPPERS[k], fn)
 
 
 def check_rglru_carries(torch, ops, operands, dev) -> float:
@@ -1956,9 +2102,11 @@ def check_rglru_carries(torch, ops, operands, dev) -> float:
 
 def grad_family(grads) -> str | None:
     """The family of a gradient tree among those whose steps are told apart
-    (moe, audio, vlm), by its keys; None for the others."""
+    (moe, ssm, audio, vlm), by its keys; None for the others."""
     if "moe" in grads.get("blocks", {}):
         return "moe"
+    if "a_log" in grads.get("blocks", {}):
+        return "ssm"
     if "enc_blocks" in grads:
         return "audio"
     if "xattn" in grads.get("superblocks", {}):
@@ -2038,6 +2186,12 @@ def run_train_full_size(torch, ops, dev):
     return backward, backward_routes
 
 
+def kernel_seconds(device: dict, kernels) -> dict:
+    """Each kernel's device time in a trace: the time of every trace kernel
+    named by one of its TRAIN_SYMBOLS."""
+    return {k: sum(t for n, t in device.items() if any(sym in n for sym in TRAIN_SYMBOLS[k])) for k in kernels}
+
+
 def profile_train_step(torch, params, opt, dev):
     """One more recurrentgemma-2b step, on the trained state, under
     torch.profiler: the device's busy and idle time, the kernels' share and
@@ -2059,10 +2213,11 @@ def profile_train_step(torch, params, opt, dev):
     n_parts = fa.kv_parts(TRAIN["global_batch"], cfg.n_kv_heads, cfg.n_heads, TRAIN["seq_len"],
                           torch.cuda.get_device_properties(dev).multi_processor_count)
     needed = [s for s in WGMMA_BWD_SYMBOLS if s != "attn_bwd_kv_sum" or n_parts > 1]
-    expect = tuple(syms[0] for k, syms in TRAIN_SYMBOLS.items() if k != "flash_attention_bwd") + tuple(needed)
+    kernels = [k for k, n in {**TRAIN_LAUNCHES, **TRAIN_BACKWARD_LAUNCHES}.items() if n]
+    expect = tuple(TRAIN_SYMBOLS[k][0] for k in kernels if k != "flash_attention_bwd") + tuple(needed)
     _, wall_s, device = device_profile(torch, lambda: fn(params, opt, batch), grad=True, expect=expect)
     busy_s = sum(device.values())
-    kernel_s = {k: sum(t for n, t in device.items() if any(sym in n for sym in syms)) for k, syms in TRAIN_SYMBOLS.items()}
+    kernel_s = kernel_seconds(device, kernels)
     parts = {sym: sum(t for n, t in device.items() if sym in n) for sym in TRAIN_SYMBOLS["flash_attention_bwd"] + TRAIN_SYMBOLS["rglru_scan_bwd"]}
     missing = [k for k, t in kernel_s.items() if not t > 0] + [s for s in needed if not parts[s] > 0]
     if missing:
@@ -2078,10 +2233,14 @@ def profile_train_step(torch, params, opt, dev):
 def run_train_width(torch, ops, dev, spec):
     """A config at full width cut to ``spec["cut"]``, bf16, through
     make_train_step, on the family's batches (frontend stubs included) and
-    with the vlm gates opened; the first step's backward launches checked:
-    per step twice ``spec["attention"]`` attention launches (remat="dots")
-    and as many backward launches as attention layers, all on ``wgmma``,
-    and every gradient leaf nonzero."""
+    with the vlm gates opened: per step exactly ``spec["launches"]`` forward
+    and ``spec["backward"]`` backward launches and none of another kernel,
+    the attention backward's all on ``wgmma``; the first step's first
+    ``spec["check"]`` backward calls of each kernel (all of them where not
+    given) held against the plain version; every gradient leaf nonzero.
+    With ``spec["profile"]``, one more step under the profiler: the
+    device's busy and idle time, and each kernel of the step's time.
+    Returns the run's backward launches."""
     import math
 
     from repro_torch.configs import get_arch
@@ -2097,11 +2256,14 @@ def run_train_width(torch, ops, dev, spec):
     fn = step_lib.make_train_step(model, adamw.AdamWConfig())
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=spec["seq_len"], global_batch=spec["batch"], enc_len=cfg.enc_len_train,
                     d_model=cfg.d_model, n_img_tokens=cfg.n_img_tokens, family=cfg.family)
+    want_fwd = {k: spec["launches"].get(k, 0) for k in ops.LAUNCHES}
+    want_bwd = {k: spec["backward"].get(k, 0) for k in ops.BACKWARD_LAUNCHES}
+    want_routes = all_on("wgmma", want_bwd["flash_attention_bwd"])
+    check = spec.get("check", spec["backward"])
     torch.cuda.reset_peak_memory_stats(dev)
-    n = spec["attention"]
     step_s, losses, norms, per_step = [], [], [], []
     label = f"train {spec['arch']}"
-    with backward_kernels_checked(torch, ops, label, {"flash_attention_bwd": n}) as checked, grad_leaves_counted(torch) as shares:
+    with backward_kernels_checked(torch, ops, label, check) as checked, grad_leaves_counted(torch) as shares:
         for i in range(spec["steps"]):
             batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_at(dc, i).items()}
             ops.reset_launch_counts()
@@ -2114,9 +2276,11 @@ def run_train_width(torch, ops, dev, spec):
             norms.append(float(metrics["grad_norm"]))
             per_step.append((ops.launch_counts(), ops.backward_launch_counts(), ops.backward_route_launch_counts()["flash_attention_bwd"]))
     for fwd, bwd, routes in per_step:
-        if fwd["flash_attention"] != 2 * n or bwd != {"flash_attention_bwd": n, "rglru_scan_bwd": 0, "moe_gmm_bwd": 0} or routes != all_on("wgmma", n):
-            raise AssertionError(f"{label}: launches {fwd} / backward {bwd} by route {routes}, want {2 * n} attention (remat) and {n} backward on wgmma")
-    if checked["flash_attention_bwd"]["calls"] != n or shares != [1.0] * spec["steps"] or not all(math.isfinite(x) for x in losses + norms):
+        if fwd != want_fwd or bwd != want_bwd or routes != want_routes:
+            raise AssertionError(f"{label}: launches {fwd} / backward {bwd} by route {routes}, want {want_fwd} / {want_bwd} "
+                                 f"(remat), the attention's on wgmma")
+    if any(checked[k]["calls"] != n for k, n in check.items()) or shares != [1.0] * spec["steps"] or (
+            not all(math.isfinite(x) for x in losses + norms)):
         raise AssertionError(f"{label}: checked {checked}, nonzero-gradient shares {shares}, losses {losses}")
     print(
         f"train arch={spec['arch']} layers={cfg.n_layers} cut={json.dumps(spec['cut'])} dtype=bfloat16 batch={spec['batch']} "
@@ -2127,6 +2291,24 @@ def run_train_width(torch, ops, dev, spec):
         f"nonzero_grad_leaf_share={json.dumps(shares)} path_checked={json.dumps(checked)}",
         flush=True,
     )
+    if spec.get("profile"):
+        kernels = [k for k, n in {**want_fwd, **want_bwd}.items() if n]
+        expect = tuple(sym for k in kernels for sym in TRAIN_SYMBOLS[k])
+        _, wall_s, device = device_profile(torch, lambda: fn(params, opt, batch), grad=True, expect=expect)
+        busy_s = sum(device.values())
+        kernel_s = kernel_seconds(device, kernels)
+        parts = {sym: sum(t for n, t in device.items() if sym in n) for k in kernels for sym in TRAIN_SYMBOLS[k]}
+        missing = [sym for sym, t in parts.items() if not t > 0]
+        if missing:
+            raise AssertionError(f"train_profile {spec['arch']}: no device time under {missing} in a step that launches them")
+        print(
+            f"train_profile arch={spec['arch']} layers={cfg.n_layers} step_wall_s={wall_s} device_busy_s={busy_s} "
+            f"device_idle_share={1 - busy_s / wall_s} kernel_s={json.dumps(kernel_s)} kernel_share_of_busy="
+            f"{sum(kernel_s.values()) / busy_s} kernel_parts_s={json.dumps(parts)} trace_kernels={len(device)} "
+            f"top={json.dumps(top_kernels(device, 8))}",
+            flush=True,
+        )
+    return {k: sum(bwd[k] for _, bwd, _ in per_step) for k in want_bwd}
 
 
 def host_available_bytes() -> int:
@@ -2292,23 +2474,23 @@ def run_moe_grad_pass(torch, ops, dev):
 
 
 def run_train_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState):
-    """kind="compute" train tasks through the broker on the card; the ssm
-    family's fails with the typed error of its missing backward.  Each moe
-    step's gradient leaves, the router's included, must all be nonzero."""
+    """kind="compute" train tasks through the broker on the card, every
+    family's DONE with finite metrics.  Each moe, ssm, audio and vlm step's
+    gradient leaves (the router's, the scan's A and dt bias included) must
+    all be nonzero."""
     import concurrent.futures as cf
     import math
 
     h = Hydra(device="cuda", streaming=True, pod_store="memory")
     h.register_provider(ProviderSpec(name="cloud", platform="cloud", connector="caas"))
     tasks = [Task(kind="compute", arch=a, step_kind="train", max_retries=0) for a, n in TRAIN_TASKS for _ in range(n)]
-    ssm_task = Task(kind="compute", arch="falcon-mamba-7b", step_kind="train", max_retries=0)
     seed_compute_states(torch, torch.device("cuda", 0), "llama-3.2-vision-11b", "train")
     by_family = {}
     with grad_leaves_counted(torch, by_family) as shares:
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        h.dispatch(tasks + [ssm_task])
-        _, pending = cf.wait(tasks + [ssm_task], timeout=300)
+        h.dispatch(tasks)
+        _, pending = cf.wait(tasks, timeout=300)
         wall = time.perf_counter() - t0
     launches, backward = ops.launch_counts(), ops.backward_launch_counts()
     fwd_routes, routes = ops.route_launch_counts(), ops.backward_route_launch_counts()
@@ -2318,7 +2500,7 @@ def run_train_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState):
         for k, counts in by.items():
             if counts != {r: want[k] if r == "tf32x3" else 0 for r in counts}:
                 raise AssertionError(f"train_tasks: fp32 {k} launches by route {counts}, want all {want[k]} on tf32x3")
-    families = {"grok-1-314b": "moe", "seamless-m4t-medium": "audio", "llama-3.2-vision-11b": "vlm"}
+    families = {"grok-1-314b": "moe", "falcon-mamba-7b": "ssm", "seamless-m4t-medium": "audio", "llama-3.2-vision-11b": "vlm"}
     want_shares = {f: [1.0] * sum(n for a, n in TRAIN_TASKS if families.get(a) == f) for f in families.values()}
     if by_family != want_shares:
         raise AssertionError(f"train_tasks: share of nonzero gradient leaves in each step by family {by_family}, want {want_shares}")
@@ -2327,18 +2509,13 @@ def run_train_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState):
         keys = ["ce", "grad_norm", "loss", "lr", "tokens"] + (["aux_loss", "z_loss"] if t.arch == "grok-1-314b" else [])
         if r is None or sorted(r) != sorted(keys) or not all(math.isfinite(v) for v in r.values()):
             raise AssertionError(f"train_tasks: {t.arch} task ended {t.tstate.value} with {r}: {t.exception()!r}")
-    from repro_torch.kernels.ops import BackwardNotPorted
-
-    if ssm_task.tstate != TaskState.FAILED or not isinstance(ssm_task.exception(), BackwardNotPorted):
-        raise AssertionError(f"train_tasks: the falcon-mamba-7b task ended {ssm_task.tstate.value} with {ssm_task.exception()!r}, want BackwardNotPorted")
     if launches != TRAIN_TASK_LAUNCHES or backward != TRAIN_TASK_BACKWARD_LAUNCHES:
         raise AssertionError(f"train_tasks: launches {launches} / backward {backward}, want {TRAIN_TASK_LAUNCHES} / {TRAIN_TASK_BACKWARD_LAUNCHES}")
     h.shutdown(wait=True)
     print(
         f"train_tasks tasks={len(tasks)} archs={json.dumps(dict(TRAIN_TASKS))} wall_s={wall} launches={json.dumps(launches)} "
         f"backward_launches={json.dumps(backward)} backward_routes={json.dumps(routes)} last_metrics={json.dumps(tasks[-1].result())} "
-        f"nonzero_grad_leaf_share={json.dumps(shares)} by_family_nonzero_grad_leaf_share={json.dumps(by_family)} "
-        f"ssm_task={ssm_task.tstate.value} ssm_error={type(ssm_task.exception()).__name__}",
+        f"nonzero_grad_leaf_share={json.dumps(shares)} by_family_nonzero_grad_leaf_share={json.dumps(by_family)}",
         flush=True,
     )
 
@@ -2367,9 +2544,10 @@ def main() -> int:
     print(f"build sources={list(_build.SOURCES)} dir={_build.BUILD_DIR.relative_to(ROOT)} seconds={time.perf_counter() - t0}", flush=True)
     # registers and spills (nvcc -Xptxas -v) of the tensor-core attention and
     # GEMM kernels (the persistent GEMM backward's among them) and of the
-    # RG-LRU backward, and the dynamic shared memory of the attention
+    # two scans' backwards, and the dynamic shared memory of the attention
     # backward and of the persistent GEMM backward (ring and staging tile)
-    for source in ("flash_attention", "flash_attention_bwd_wgmma", "flash_attention_bwd_tf32x3", "moe_gmm", "moe_gmm_bwd", "rglru_scan_bwd"):
+    for source in ("flash_attention", "flash_attention_bwd_wgmma", "flash_attention_bwd_tf32x3", "moe_gmm", "moe_gmm_bwd", "rglru_scan_bwd",
+                   "selective_scan_bwd"):
         for usage in _build.ptxas_usage(_build.BUILD_LOGS.get(source, "")):
             print(f"ptxas source={source} " + " ".join(f"{k}={v}" for k, v in usage.items()), flush=True)
     import ctypes
@@ -2422,6 +2600,7 @@ def main() -> int:
             timed=False, config=block,
         )
     check_concurrent(torch, kreg, ops, dev)
+    ss_bwd_rows = check_selective_scan_bwd(torch, ops, dev, flush)
     widths, gemm_rows, attn_fp32, seen = {}, {}, {}, set()
     for name, model, shape, dtype in MODEL_WIDTHS:
         label = f"{model}_fp32" if (name, model) in seen else model  # a GEMM width's second dtype
@@ -2488,6 +2667,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     bwd_rows = check_backward_kernels(torch, ops, dev, flush)
+    bwd_rows["selective_scan_bwd"] = ss_bwd_rows
     del flush
     torch.cuda.empty_cache()
     train_backward, train_backward_routes = run_train_full_size(torch, ops, dev)
@@ -2497,6 +2677,8 @@ def main() -> int:
     run_train_width(torch, ops, dev, ENCDEC_TRAIN)
     torch.cuda.empty_cache()
     run_train_width(torch, ops, dev, VLM_TRAIN)
+    torch.cuda.empty_cache()
+    train_backward["selective_scan_bwd"] = run_train_width(torch, ops, dev, SSM_TRAIN)["selective_scan_bwd"]
     torch.cuda.empty_cache()
     train_backward["moe_gmm_bwd"] = run_moe_grad_pass(torch, ops, dev)["moe_gmm_bwd"]
     torch.cuda.empty_cache()
@@ -2554,6 +2736,11 @@ def main() -> int:
                                                     "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_3x_ms") + part_keys}
                       for label, r in bwd_rows[name].items() if label != BACKWARD_WIDTH[name]}
             extra = {"width_route": row["route"], "parts": {k: row[k] for k in part_keys}, "other_cases": others}
+        elif name == "selective_scan_bwd":  # launches: falcon-mamba-7b's train run (SSM_TRAIN); bf16 x beside fp32
+            keys = ("dtype", "max_abs_err", "rel_err", "ms", "ms_cold", "ms_call", "plain_ms", "bound_ms", "bound_by", "exp_floor_ms")
+            extra = {"kernels_per_call": row["kernels_per_call"], "bit_equal_again": row["bit_equal_again"],
+                     "exp_floor_ms": row["exp_floor_ms"], "other_cases": {label: {k: r.get(k) for k in keys}
+                                                                         for label, r in bwd_rows[name].items() if label != BACKWARD_WIDTH[name]}}
         else:
             extra = {"kernels_per_call": row["kernels_per_call"]}
         report.append({

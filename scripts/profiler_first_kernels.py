@@ -10,8 +10,9 @@ full size), then profiles one call of the fp32 attention backward at the
 reduced configs' shape (B2 H4 KV2 L128 hd16, window 16: three kernels,
 ``attn_bwd_rowstats``, ``tf32_bwd_dqkv``, ``attn_bwd_kv_sum``) ``--rounds``
 times behind each warm-up: ``spins=1`` (one ``torch.cuda._sleep`` kernel
-and a synchronize before the call, as ``chip_smoke.py``'s ``device_profile``
-took them before) and ``spins=8`` (eight, each waited for: ``WARMUP_SPINS``).
+of a few cycles and a synchronize before the call), ``spins=8`` (eight such,
+each waited for) and ``spins=16x1.25ms`` (sixteen of 1.25 ms each, each
+waited for: ``chip_smoke.py``'s ``WARMUP_SPINS`` and ``WARMUP_SPIN_S``).
 One ``trial`` line a trace: the call's kernels it holds and the number of
 distinct kernel names (the spin's included); one ``lost`` line a warm-up:
 the traces that lacked a kernel of the call.  ROADMAP.md fault 3.8.
@@ -57,17 +58,20 @@ def main() -> int:
     do = torch.randn(2, 4, 128, 16, generator=g, device=dev)
     o, lse, _ = cs.forward_with_lse(torch, q, k, v, True, 16, "probe")
 
-    def trace(spins: int) -> set:
+    warmups = {"1": (1, 1), "8": (8, 1), "16x1.25ms": (16, cs.spin_cycles(torch, 1.25e-3))}
+
+    def trace(warmup: str) -> set:
+        spins, cycles = warmups[warmup]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(spins):
                 torch.cuda.synchronize()
-                torch.cuda._sleep(1)
+                torch.cuda._sleep(cycles)
             torch.cuda.synchronize()
             ops.flash_attention_bwd(q, k, v, o, do, causal=True, window=16, lse=lse)
             torch.cuda.synchronize()
         return {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
 
-    lost = {1: 0, 8: 0}
+    lost = {w: 0 for w in warmups}
     for r in range(args.rounds):
         for spins in lost:
             names = trace(spins)

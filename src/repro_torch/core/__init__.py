@@ -4,8 +4,7 @@ Counterpart of ``repro/core``, with the same exports.  ``Hydra`` runs on the
 card by default (``device="cuda"``).  Every task kind runs: ``kind="compute"``
 tasks run a model's train step (the default ``step_kind``) or prefill
 (``core/managers/compute.py``) for every family (dense, moe, ssm, hybrid,
-audio and vlm); on the card an ssm train step fails with
-``ops.BackwardNotPorted`` until its scan's backward kernel is ported."""
+audio and vlm), on the card as on the CPU."""
 from repro_torch.core.admission import AdmissionController, AdmissionError, TenantSpec
 from repro_torch.core.autoscaler import (
     Autoscaler,

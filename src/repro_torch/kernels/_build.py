@@ -29,6 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = (
     "flash_attention", "moe_gmm", "rglru_scan", "selective_scan",
     "flash_attention_bwd", "flash_attention_bwd_wgmma", "flash_attention_bwd_tf32x3", "rglru_scan_bwd", "moe_gmm_bwd",
+    "selective_scan_bwd",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

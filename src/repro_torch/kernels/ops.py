@@ -27,19 +27,16 @@ describe the strides).  ``route_launch_counts`` reads those, and
 ``backward_route_launch_counts`` the attention and GEMM backwards', each on
 its forward's route.
 
-Gradients.  On the card ``flash_attention``, ``rglru_scan`` and ``moe_gmm``
-run through ``torch.autograd.Function``s whose backward is a hand-written
-kernel too (``flash_attention_bwd``, ``rglru_scan_bwd``, ``moe_gmm_bwd``:
-public wrappers that check and route like the others, CPU tensors to the
-plain versions in ``ref``).  The backwards have no Pallas counterpart and no
-registry entry: they count their launches apart (``backward_launch_counts``),
-so the registry kernels' counts mean what they meant.  The attention forward
-also writes each row's log-sum-exp when a gradient will be taken, and the
-backward reads it.  ``selective_scan_chunk`` has no backward kernel yet: on
-the card it raises ``BackwardNotPorted`` when grad mode is on and an operand
-requires grad, rather than hand back an output with no gradient path.  On
-CPU tensors every wrapper runs its plain version, which autograd
-differentiates.
+Gradients.  On the card every kernel runs through a
+``torch.autograd.Function`` whose backward is a hand-written kernel too
+(``flash_attention_bwd``, ``selective_scan_chunk_bwd``, ``rglru_scan_bwd``,
+``moe_gmm_bwd``: public wrappers that check and route like the others, CPU
+tensors to the plain versions in ``ref``).  The backwards have no Pallas
+counterpart and no registry entry: they count their launches apart
+(``backward_launch_counts``), so the registry kernels' counts mean what they
+meant.  The attention forward also writes each row's log-sum-exp when a
+gradient will be taken, and the backward reads it.  On CPU tensors every
+wrapper runs its plain version, which autograd differentiates.
 """
 from __future__ import annotations
 
@@ -72,6 +69,7 @@ def launch_counts() -> dict[str, int]:
 
 BACKWARD_LAUNCHES = {
     "flash_attention_bwd": _fa.BWD_LAUNCHES,
+    "selective_scan_bwd": _ss.BWD_LAUNCHES,
     "rglru_scan_bwd": _rg.BWD_LAUNCHES,
     "moe_gmm_bwd": _gmm.BWD_LAUNCHES,
 }
@@ -79,8 +77,9 @@ BACKWARD_LAUNCHES = {
 
 def backward_launch_counts() -> dict[str, int]:
     """Backward-kernel launches so far (one a wrapper call: the attention
-    backward's call runs two to four kernels, the RG-LRU backward's one, the
-    GEMM backward's one a gradient asked for)."""
+    backward's call runs two to four kernels, the selective-scan backward's
+    two, the RG-LRU backward's one, the GEMM backward's one a gradient asked
+    for)."""
     return {name: c.value for name, c in BACKWARD_LAUNCHES.items()}
 
 
@@ -113,27 +112,6 @@ def reset_launch_counts() -> None:
     for by in (*ROUTE_LAUNCHES.values(), *BACKWARD_ROUTE_LAUNCHES.values()):
         for c in by.values():
             c.reset()
-
-
-class BackwardNotPorted(NotImplementedError):
-    """A kernel without a backward kernel was asked, on the card, for an
-    output that gradients must flow through."""
-
-
-_NO_BACKWARD = {  # kernel -> the ROADMAP.md item its backward waits for
-    "selective_scan_chunk": "queue 2 ('Kernel work still open on the H100'), item 1: the selective_scan backward",
-}
-
-
-def _refuse_grad(kernel: str, operands: dict) -> None:
-    """Raise ``BackwardNotPorted`` when grad mode is on and an operand
-    requires grad: the kernel's output would carry no gradient back."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in operands.values()):
-        raise BackwardNotPorted(
-            f"{kernel}: its backward kernel is not ported yet, so on a CUDA device it runs only where no "
-            f"gradient flows through it (ROADMAP.md, {_NO_BACKWARD[kernel]}); on the CPU it trains through "
-            f"its plain version"
-        )
 
 
 def _resolve(kernel: str, shape: dict, dtype: torch.dtype, device: torch.device, defaults: dict, explicit: dict) -> dict:
@@ -259,8 +237,46 @@ def selective_scan_chunk(x, dt, b, c, a, h0, *, block_d: Optional[int] = None):
     _ss.check_blocks(di, cfg["block_d"])
     if not on_card:
         return ref.selective_scan_chunk_ref(x, dt, b, c, a, h0)
-    _refuse_grad("selective_scan_chunk", {"x": x, "dt": dt, "b": b, "c": c, "a": a, "h0": h0})
-    return _ss.selective_scan_chunk(x, dt, b, c, a, h0)
+    return _SelectiveScanChunk.apply(x, dt, b, c, a, h0)
+
+
+class _SelectiveScanChunk(torch.autograd.Function):
+    """The forward chunk kernel, with the backward kernel as its gradient.
+    It keeps its operands, not its states: the backward recomputes them.
+    ``a`` and ``h0`` are kept by reference (``h0`` is the previous chunk's
+    ``h_last``, so the chunks' gradients chain through it).  Where an output
+    is unused (in training the last chunk's ``h_last``) autograd hands its
+    gradient in as zeros."""
+
+    @staticmethod
+    def forward(ctx, x, dt, b, c, a, h0):
+        ctx.save_for_backward(x, dt, b, c, a, h0)
+        return _ss.selective_scan_chunk(x, dt, b, c, a, h0)
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        x, dt, b, c, a, h0 = ctx.saved_tensors
+        return selective_scan_chunk_bwd(x, dt, b, c, a, h0, dy.contiguous(), dh_last.contiguous())
+
+
+def selective_scan_chunk_bwd(x, dt, b, c, a, h0, dy, dh_last):
+    """Gradients of ``selective_scan_chunk`` from its operands and the
+    gradients dy (B,chunk,di) and dh_last (B,di,N) of its two outputs:
+    returns (dx, ddt, db, dc, da, dh0), dx in x's dtype and the rest fp32."""
+    B, chunk, di = x.shape
+    N = b.shape[-1]
+    on_card = _on_card(
+        "selective_scan_chunk_bwd",
+        {"x": x, "dt": dt, "b": b, "c": c, "a": a, "h0": h0, "dy": dy, "dh_last": dh_last},
+        {"x": _FLOATS, "dt": _F32, "b": _F32, "c": _F32, "a": _F32, "h0": _F32, "dy": _F32, "dh_last": _F32},
+        {
+            "x": (B, chunk, di), "dt": (B, chunk, di), "b": (B, chunk, N), "c": (B, chunk, N), "a": (di, N),
+            "h0": (B, di, N), "dy": (B, chunk, di), "dh_last": (B, di, N),
+        },
+    )
+    if not on_card:
+        return ref.selective_scan_chunk_bwd_ref(x, dt, b, c, a, h0, dy, dh_last)
+    return _ss.selective_scan_chunk_bwd(x, dt, b, c, a, h0, dy, dh_last)
 
 
 def rglru_scan(log_a, gx, h0=None, *, block_d: Optional[int] = None):

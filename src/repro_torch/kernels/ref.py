@@ -4,8 +4,8 @@ They repeat the arithmetic of ``repro/kernels/ref.py`` with a Python loop
 over time for the two scans.  The CPU route of ``kernels/ops.py`` runs them,
 and ``chip_smoke.py`` holds each kernel against them on the card.
 
-The three backward kernels (attention, ``rglru_scan`` and ``moe_gmm``)
-have no Pallas counterpart; their plain versions below are written from
+The four backward kernels (attention, both scans and ``moe_gmm``) have no
+Pallas counterpart; their plain versions below are written from
 the explicit gradient formulas, not by calling autograd, so that the tests
 can hold them against autodiff of the forward (``jax.vjp`` and torch's
 autograd).
@@ -122,6 +122,41 @@ def selective_scan_chunk_ref(x, dt, b, c, a, h0):
         h = da * h + (dt_t * x_t)[..., None] * b_t[:, None, :]
         ys.append(torch.sum(h * c_t[:, None, :], dim=-1))  # (B, di)
     return torch.stack(ys, dim=1), h  # (B, chunk, di), (B, di, N)
+
+
+def selective_scan_chunk_bwd_ref(x, dt, b, c, a, h0, dy, dh_last):
+    """Gradients of ``selective_scan_chunk_ref`` by an explicit reverse-time
+    walk.  The forward is h_t = e_t h_{t-1} + (dt_t x_t) b_t with
+    e_t = exp(dt_t a), y_t = sum_n h_t c_t.  From g = dh_last, for t from the
+    chunk's end down to 0: g += dy_t c_t (now the gradient reaching h_t);
+    dx_t = dt_t sum_n g b_t; ddt_t = sum_n g (a e_t h_{t-1} + x_t b_t);
+    db_t = sum_d g dt_t x_t; dc_t = sum_d dy_t h_t; da += g dt_t e_t h_{t-1};
+    then g = e_t g.  After the walk dh0 = g.  The states h_t come from a
+    forward walk from h0.  Returns (dx, ddt, db, dc, da, dh0): dx in x's
+    dtype, the rest fp32."""
+    chunk = x.shape[1]
+    a = a.float()
+    xf, dtf, bf, cf, dyf = x.float(), dt.float(), b.float(), c.float(), dy.float()
+    hs = [h0.float()]  # hs[t + 1] = h_t
+    for t in range(chunk):
+        e = torch.exp(dtf[:, t, :, None] * a[None])
+        hs.append(e * hs[-1] + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :])
+    dx, ddt = torch.empty_like(dtf), torch.empty_like(dtf)
+    db, dc = torch.empty_like(bf), torch.empty_like(cf)
+    da = torch.zeros_like(a)
+    g = dh_last.float()
+    for t in range(chunk - 1, -1, -1):
+        e = torch.exp(dtf[:, t, :, None] * a[None])  # (B, di, N)
+        g = g + dyf[:, t, :, None] * cf[:, t, None, :]
+        s1 = torch.sum(g * bf[:, t, None, :], dim=-1)  # (B, di)
+        p = g * e * hs[t]  # the gradient reaching e_t, times e_t
+        dx[:, t] = dtf[:, t] * s1
+        ddt[:, t] = torch.sum(a[None] * p, dim=-1) + xf[:, t] * s1
+        db[:, t] = torch.sum(g * (dtf[:, t] * xf[:, t])[..., None], dim=1)
+        dc[:, t] = torch.sum(dyf[:, t, :, None] * hs[t + 1], dim=1)
+        da = da + torch.sum(dtf[:, t, :, None] * p, dim=0)
+        g = e * g
+    return dx.to(x.dtype), ddt, db, dc, da, g
 
 
 def rglru_ref(log_a, gx, h0=None):

@@ -13,11 +13,9 @@ All six families are ported, for training and serving: dense, moe, ssm,
 hybrid, audio (the encoder-decoder, ``models/encdec.py``) and vlm (the
 gated cross-attention decoder, ``models/vision.py``).  Their forward and
 prefill run on the hand-written kernels where the tensors lie on a CUDA
-device, and so does the backward of attention (self and cross), of the
-RG-LRU and of the expert GEMMs (``kernels/ops.py``).  On the card the ssm
-family trains only once the ``selective_scan`` backward is ported (ROADMAP.md,
-queue 2 item 1): until then its train step raises ``ops.BackwardNotPorted``
-there, and trains on the CPU.
+device, and so does the backward of attention (self and cross), of both
+scans (the selective scan's and the RG-LRU's) and of the expert GEMMs
+(``kernels/ops.py``): all six families train on the card.
 """
 from __future__ import annotations
 

@@ -3,7 +3,12 @@
 Counterpart of ``repro/models/ssm.py``.  Over a full sequence the scan runs
 chunk by chunk on the ``selective_scan`` kernel (``ops.selective_scan_chunk``),
 carrying the (B, d_inner, N) state from one chunk to the next; on CPU tensors
-each chunk runs the plain version.  The reference's two XLA lowerings of the
+each chunk runs the plain version.  On the card each chunk is an autograd
+Function whose gradient is the ``selective_scan_bwd`` kernel: since the
+chunks chain through ``h``, autograd hands chunk i the gradient of its
+``h_last`` from chunk i + 1 (zeros for the last chunk), and under
+``remat="dots"`` the layer's recompute replays every chunk's forward launch
+before its backward.  The reference's two XLA lowerings of the
 chunk (``ssm_scan="assoc"`` and ``"seq"``) compute the same function, and the
 tests hold the port against both.  Decode is a single-token recurrence with
 O(1) state, plain PyTorch as in the reference.

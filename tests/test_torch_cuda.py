@@ -10,7 +10,8 @@ Tolerance: max-abs 2e-5 in fp32, the reference's parity tolerance
 (tests/test_kernels_parity.py:23); rtol = atol = 2e-2 in bf16
 (tests/test_kernels.py:13), and one bf16 rounding step element by element
 where a case says so; relative 1e-4 for the scans with bf16 x at width
-(their outputs are fp32).  flash_attention runs on the tensor cores at
+(their outputs are fp32), and for the gradients of both scans' backwards
+(the selective scan's dx with bf16 x element by element).  flash_attention runs on the tensor cores at
 every width: bf16 on ``wgmma`` (one TF32 product a product, ``tf32``, at
 head width 16), fp32 on ``tf32x3`` (three TF32 products a term, held at the
 fp32 tolerance with TF32 off in the plain version; on two-block clusters,
@@ -758,30 +759,86 @@ def test_kernel_outputs_carry_gradients_on_the_card(card):
     assert all(_close(a, b, torch.float32) for a, b in zip(got, want))
 
 
-def test_kernels_without_a_backward_raise_under_grad_on_the_card(card):
-    """selective_scan_chunk refuses operands that require grad under grad
-    mode (no silent loss of gradients) and launches without it."""
-    B, ck, di, N = 2, 8, 32, 4
-    x = torch.randn(B, ck, di, device=card, requires_grad=True)
-    rest = (torch.rand(B, ck, di, device=card), torch.randn(B, ck, N, device=card), torch.randn(B, ck, N, device=card),
-            -torch.rand(di, N, device=card), torch.zeros(B, di, N, device=card))
-    with pytest.raises(ops.BackwardNotPorted, match="selective_scan backward"):
-        ops.selective_scan_chunk(x, *rest)
-    before = ops.launch_counts()
-    with torch.no_grad():
-        ops.selective_scan_chunk(x, *rest)
+def _ss_bwd_operands(card, B, ck, di, N, dtype, seed=1):
+    """The selective scan's operands (dt in softplus's range, A as the
+    reference initialises it, a nonzero h0) and the cotangents dy and
+    dh_last."""
+    g = torch.Generator(card).manual_seed(seed)
+    x = torch.randn(B, ck, di, generator=g, device=card).to(dtype)
+    dt = torch.rand(B, ck, di, generator=g, device=card) * 0.099 + 0.001
+    b, c = (torch.randn(B, ck, N, generator=g, device=card) for _ in range(2))
+    a = -(torch.rand(di, N, generator=g, device=card) * (N - 1) + 1)
+    h0, dh = (torch.randn(B, di, N, generator=g, device=card) for _ in range(2))
+    dy = torch.randn(B, ck, di, generator=g, device=card)
+    return x, dt, b, c, a, h0, dy, dh
+
+
+# the forward's ragged cases (_SCAN_CASES) and falcon-mamba-7b's chunk width,
+# each in fp32 and with bf16 x; a chunk shorter than one 16-step segment
+_SS_BWD_SHAPES = [(2, 100, 50, 4), (1, 40, 45, 8), (1, 256, 1536, 16), (1, 40, 96, 5), (2, 48, 64, 64), (2, 8, 32, 4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16x"])
+@pytest.mark.parametrize("B,ck,di,N", _SS_BWD_SHAPES)
+def test_selective_scan_backward_kernel_matches_plain_version(card, B, ck, di, N, dtype):
+    """The six gradients against the plain version (relative 1e-4; dx with
+    bf16 x element by element), one backward launch a call, and two calls
+    bit-equal (no atomics: every sum across blocks in a fixed order)."""
+    from repro_torch.kernels import ref
+
+    operands = _ss_bwd_operands(card, B, ck, di, N, dtype)
+    before = ops.backward_launch_counts()["selective_scan_bwd"]
+    got = ops.selective_scan_chunk_bwd(*operands)
+    again = ops.selective_scan_chunk_bwd(*operands)
     torch.cuda.synchronize()
-    after = ops.launch_counts()
-    assert after["selective_scan"] == before["selective_scan"] + 1
+    assert ops.backward_launch_counts()["selective_scan_bwd"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ref.selective_scan_chunk_bwd_ref(*operands)
+    assert [g.dtype for g in got] == [dtype] + [torch.float32] * 5
+    assert _close(got[0], want[0], dtype) and all(_close(a, b, torch.float32) for a, b in zip(got[1:], want[1:]))
+
+
+def test_selective_scan_backward_of_two_chained_chunks_is_one_chunk_of_twice_the_length(card):
+    """Two chunks chained through h (the second's dh0 handed to the first)
+    give the gradients of one chunk of twice the length, within fp32
+    rounding."""
+    x, dt, b, c, a, h0, dy, dh = _ss_bwd_operands(card, 2, 80, 96, 16, torch.float32, seed=2)
+    whole = ops.selective_scan_chunk_bwd(x, dt, b, c, a, h0, dy, dh)
+    half = lambda t, i: t[:, 40 * i:40 * (i + 1)].contiguous()
+    _, h1 = ops.selective_scan_chunk(half(x, 0), half(dt, 0), half(b, 0), half(c, 0), a, h0)
+    second = ops.selective_scan_chunk_bwd(half(x, 1), half(dt, 1), half(b, 1), half(c, 1), a, h1, half(dy, 1), dh)
+    first = ops.selective_scan_chunk_bwd(half(x, 0), half(dt, 0), half(b, 0), half(c, 0), a, h0, half(dy, 0), second[5])
+    chained = [torch.cat([f, s], dim=1) for f, s in zip(first[:4], second[:4])] + [first[4] + second[4], first[5]]
+    torch.cuda.synchronize()
+    assert all(_close(g, w, torch.float32) for g, w in zip(chained, whole))
+
+
+def test_selective_scan_gradient_is_the_backward_kernel_on_the_card(card):
+    """``ops.selective_scan_chunk`` under grad: its outputs carry the
+    gradient of the backward kernel (one launch), equal to autograd of the
+    plain version, with h_last unused (autograd hands dh_last as zeros)."""
+    from repro_torch.kernels import ref
+
+    x, dt, b, c, a, h0, dy, _ = _ss_bwd_operands(card, 2, 40, 64, 16, torch.float32, seed=3)
+    leaves = [t.clone().requires_grad_() for t in (x, dt, b, c, a, h0)]
+    before = ops.backward_launch_counts()["selective_scan_bwd"]
+    y, h_last = ops.selective_scan_chunk(*leaves)
+    assert y.grad_fn is not None and h_last.grad_fn is not None
+    got = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert ops.backward_launch_counts()["selective_scan_bwd"] == before + 1
+    want = torch.autograd.grad(ref.selective_scan_chunk_ref(*leaves)[0], leaves, dy)
+    assert all(_close(g, w, torch.float32) for g, w in zip(got, want))
 
 
 # attention backward launches of a reduced loss: one a self layer, and a
-# cross layer's (seamless-m4t-medium 2 + 2 self and 2 cross, vision 2 + 2)
-_REDUCED_ATTN_BWD = {"seamless-m4t-medium": 6, "llama-3.2-vision-11b": 4}
+# cross layer's (seamless-m4t-medium 2 + 2 self and 2 cross, vision 2 + 2;
+# falcon-mamba-7b none)
+_REDUCED_ATTN_BWD = {"seamless-m4t-medium": 6, "llama-3.2-vision-11b": 4, "falcon-mamba-7b": 0}
 
 
-@pytest.mark.parametrize("name", ["llama3-8b", "recurrentgemma-2b", "grok-1-314b", "arctic-480b", "seamless-m4t-medium",
-                                  "llama-3.2-vision-11b"])
+@pytest.mark.parametrize("name", ["llama3-8b", "recurrentgemma-2b", "falcon-mamba-7b", "grok-1-314b", "arctic-480b",
+                                  "seamless-m4t-medium", "llama-3.2-vision-11b"])
 def test_reduced_model_gradients_on_the_card_match_the_cpu(card, name):
     """One loss and its gradients of the reduced config (fp32) on the card,
     through the kernels and their backwards, against the CPU's plain path:
@@ -812,6 +869,8 @@ def test_reduced_model_gradients_on_the_card_match_the_cpu(card, name):
     launched = {k: v - before[k] for k, v in ops.backward_launch_counts().items()}
     n_attn = _REDUCED_ATTN_BWD.get(name, 2)
     assert launched["flash_attention_bwd"] == n_attn and launched["rglru_scan_bwd"] == (4 if name == "recurrentgemma-2b" else 0)
+    # two layers of three 8-step chunks over the 24 tokens
+    assert launched["selective_scan_bwd"] == (6 if name == "falcon-mamba-7b" else 0)
     # three expert products a moe layer, each with its backward (remat="none" at .reduced())
     assert launched["moe_gmm_bwd"] == (6 if model.cfg.family == "moe" else 0)
     assert _bwd_route_delta(routes) == {r: n_attn * int(r == "tf32x3") for r in routes}  # fp32 at head width 16

@@ -314,20 +314,6 @@ def test_one_minus_exp_derivative_is_exact_where_expm1_cancels():
     assert rel.max() > 0.5 and rel[x.detach().numpy() > -1].max() < 1e-6  # exact near 0, lost far from it
 
 
-def test_kernels_without_a_backward_refuse_gradients():
-    """The fault guard: under grad mode, an operand that requires grad is
-    refused naming the ROADMAP item; without grad, or with no operand that
-    requires grad, it passes (on the card the launch follows)."""
-    x = torch.zeros(2, requires_grad=True)
-    for kernel, item in (("selective_scan_chunk", "selective_scan backward"),):
-        with pytest.raises(ops.BackwardNotPorted, match=f"ROADMAP.md.*{item}"):
-            ops._refuse_grad(kernel, {"x": x, "y": torch.zeros(2)})
-        with torch.no_grad():
-            ops._refuse_grad(kernel, {"x": x})
-        ops._refuse_grad(kernel, {"x": x.detach()})
-    assert issubclass(ops.BackwardNotPorted, NotImplementedError)
-
-
 # ---------------------------------------------------------------------------
 # Loss and gradients
 # ---------------------------------------------------------------------------
