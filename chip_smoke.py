@@ -52,8 +52,13 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      within 1e-4 of its plain version's largest element (bf16 dx element by
      element), timed beside the plain version and its bound, one call
      profiled (its two kernels, the walk and the sums across blocks); at
-     the forward's ragged shapes; every call counted, two calls bit-equal,
-     and two chunks chained equal to one of twice the length.
+     the forward's ragged shapes and at the edges of the walk's split of a
+     chunk in time over a thread-block cluster; every call counted, two
+     calls bit-equal, the parts its launch took on each line, and two
+     chunks chained equal to one of twice the length.  Set-up prints the
+     walk's ``ptxas`` registers, spills and static shared memory and an
+     ``occupancy`` line at falcon width (parts, blocks, dynamic shared
+     memory, blocks and warps an SM), failing under 16 warps an SM.
   3. broker: ``Hydra(device="cuda")`` with a cloud (CaaS) and an HPC (pilot)
      provider on the card runs a backlog of noop tasks, kernel tasks at the
      registry's full shapes and one 2-rep task per model width, with the
@@ -604,9 +609,15 @@ def check_concurrent(torch, kreg, ops, dev, reps: int = 8):
 # the selective scan's backward: (label, B, chunk, di, N) at falcon-mamba-7b's
 # chunk, timed with fp32 and with bf16 x; then the forward's ragged cases
 # (SCAN_CASES' shapes, N 5 padded to 8, N 32 and 64 on their shorter
-# segments) and a chunk shorter than one 16-step segment, in both dtypes
+# segments), a chunk of one 8-step segment, and the edges of the split in
+# time (csrc/selective_scan_bwd.cu: parts of whole segments, one block of a
+# cluster each): 113 steps, 8 parts of two segments with the last part one
+# step; 45 steps, 6 parts of one segment, the last of 5 steps; 7 steps, one
+# part (P = 1 forced by the chunk); B 2 with di 72, three 32-channel
+# blocks, the last ragged; in both dtypes
 SS_BWD_WIDTH = ("falcon_mamba_7b", 1, 256, 8192, 16)
-SS_BWD_CASES = [(2, 100, 50, 4), (1, 40, 45, 8), (1, 40, 96, 5), (1, 37, 64, 32), (2, 48, 64, 64), (2, 8, 32, 4)]
+SS_BWD_CASES = [(2, 100, 50, 4), (1, 40, 45, 8), (1, 40, 96, 5), (1, 37, 64, 32), (2, 48, 64, 64), (2, 8, 32, 4),
+                (1, 113, 64, 16), (2, 45, 96, 8), (1, 7, 64, 16), (2, 64, 72, 16)]
 SS_BWD_SYMBOLS = ("selective_bwd_kernel", "selective_bwd_sum")  # csrc/selective_scan_bwd.cu: the walk, the sums
 
 
@@ -641,6 +652,26 @@ def selective_bwd_bound(B, ck, di, N, x_bytes: int) -> dict:
             "exp_floor_ms": 1e3 * 2 * elems * N / (132 * 16 * 1.98e9)}
 
 
+SS_BWD_PARENT_WARPS = 8  # the walk before the split in time: two 4-warp blocks an SM at falcon width
+
+
+def print_selective_bwd_occupancy(torch) -> None:
+    """One ``occupancy`` line a dtype of x for the selective scan's backward
+    at SS_BWD_WIDTH: the parts P of the split in time, blocks, threads and
+    dynamic shared memory a block, and the occupancy calculator's blocks and
+    warps an SM and resident clusters.  Fails under 16 warps an SM, twice
+    the parent's SS_BWD_PARENT_WARPS."""
+    from repro_torch.kernels import selective_scan as ss
+
+    _, *width = SS_BWD_WIDTH
+    for dtype in ("float32", "bfloat16"):
+        cfg = ss.bwd_launch_config(*width, getattr(torch, dtype), torch.device("cuda", 0))
+        print(f"occupancy selective_scan_bwd width={SS_BWD_WIDTH[0]} x_dtype={dtype} "
+              + " ".join(f"{k}={v}" for k, v in cfg.items()) + f" parent_warps_per_sm={SS_BWD_PARENT_WARPS}", flush=True)
+        if cfg["warps_per_sm"] < 2 * SS_BWD_PARENT_WARPS:
+            raise AssertionError(f"selective_scan_bwd {dtype}: {cfg['warps_per_sm']} warps an SM, under 16")
+
+
 def check_grads_by_dtype(torch, got, want, label: str) -> tuple:
     """``check_grads`` of each output at its own dtype's tolerance (a
     backward whose gradients differ in dtype: the selective scan's dx in x's,
@@ -656,9 +687,11 @@ def check_selective_scan_bwd(torch, ops, dev, flush) -> dict:
     (warm, cold, a call with its host work) beside the plain version and the
     bound, one call profiled (its two kernels and no other); then at
     SS_BWD_CASES in both dtypes.  Every case: one backward launch a call and
-    two calls bit-equal (no atomics).  Last, two chunks chained through h
-    against one chunk of twice the length."""
+    two calls bit-equal (no atomics), with the parts P its launch took.
+    Last, two chunks chained through h against one chunk of twice the
+    length."""
     from repro_torch.kernels import ref
+    from repro_torch.kernels import selective_scan as ss
 
     label, *width = SS_BWD_WIDTH
     cases = [(label if dtype == "float32" else f"{label}_bf16x", tuple(width), dtype, True) for dtype in ("float32", "bfloat16")]
@@ -677,7 +710,7 @@ def check_selective_scan_bwd(torch, ops, dev, flush) -> dict:
             raise AssertionError(f"selective_scan_bwd {case}: a second call on the same operands gave other gradients")
         abs_err, err = check_grads_by_dtype(torch, got, ref.selective_scan_chunk_bwd_ref(*operands), f"selective_scan_bwd {case}")
         row = {"kernel": "selective_scan_bwd", "case": case, "dtype": dtype, "max_abs_err": abs_err, "rel_err": err,
-               "bit_equal_again": True}
+               "bit_equal_again": True, "parts": ss.bwd_launch_config(*shape, getattr(torch, dtype), dev)["parts"]}
         if timed:
             _, _, device = device_profile(torch, run, expect=SS_BWD_SYMBOLS)
             ran = sorted(n for n in device if "selective_bwd" in n)
@@ -2557,6 +2590,7 @@ def main() -> int:
     gmm_smem = _build.function("moe_gmm_bwd", "moe_gmm_bwd_wgmma_smem", [ctypes.c_int])
     print(f"smem moe_gmm_bwd gmm_bwd_dx_wgmma={gmm_smem(0)} gmm_bwd_dw_wgmma={gmm_smem(1)} "
           f"gmm_bwd_dw_wgmma_short_k={gmm_smem(2)}", flush=True)
+    print_selective_bwd_occupancy(torch)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -2737,8 +2771,9 @@ def main() -> int:
                       for label, r in bwd_rows[name].items() if label != BACKWARD_WIDTH[name]}
             extra = {"width_route": row["route"], "parts": {k: row[k] for k in part_keys}, "other_cases": others}
         elif name == "selective_scan_bwd":  # launches: falcon-mamba-7b's train run (SSM_TRAIN); bf16 x beside fp32
-            keys = ("dtype", "max_abs_err", "rel_err", "ms", "ms_cold", "ms_call", "plain_ms", "bound_ms", "bound_by", "exp_floor_ms")
-            extra = {"kernels_per_call": row["kernels_per_call"], "bit_equal_again": row["bit_equal_again"],
+            keys = ("dtype", "parts", "max_abs_err", "rel_err", "ms", "ms_cold", "ms_call", "plain_ms", "bound_ms", "bound_by",
+                    "exp_floor_ms")
+            extra = {"kernels_per_call": row["kernels_per_call"], "bit_equal_again": row["bit_equal_again"], "parts": row["parts"],
                      "exp_floor_ms": row["exp_floor_ms"], "other_cases": {label: {k: r.get(k) for k in keys}
                                                                          for label, r in bwd_rows[name].items() if label != BACKWARD_WIDTH[name]}}
         else:

@@ -22,8 +22,13 @@ each with its own bound and ``torch.bmm`` (chip_smoke.py's
 chip_smoke.py's small backward cases (``GMM_CASES``, ``BWD_GMM_EDGE_CASES``)
 in both dtypes, one ``digest`` line: the route and a SHA-256 prefix of the
 bytes of dx and of dw from operands made from a fixed seed, so that runs of
-two trees show whether they give bit-equal gradients.  Set-up prints the
-card line.
+two trees show whether they give bit-equal gradients.  With ``--small``
+it times, instead of the model widths, the small shapes in both dtypes:
+the reduced grok-1 step's expert products (``SMALL_CASES``: E4, 32 rows of
+two groups of 16 tokens, D64 F128 up and D128 F64 down) and chip_smoke.py's
+``GMM_CASES`` (F 50 and 100 on the ``simt`` route), forward and backward,
+and ``BWD_GMM_EDGE_CASES``, backward only, each beside its bound and
+``torch.bmm``.  Set-up prints the card line.
 """
 import argparse
 import hashlib
@@ -33,6 +38,64 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
+# the reduced grok-1 config's expert products in a train step of 2 x 16
+# tokens (models/moe.py: groups of 16, capacity 16 an expert a group at
+# top-2 and factor 2): x (E, G*C, D) @ w (E, D, F), up and gate, then down
+SMALL_CASES = [
+    ({"E": 4, "C": 32, "D": 64, "F": 128}, "grok_1_reduced_up"),
+    ({"E": 4, "C": 32, "D": 128, "F": 64}, "grok_1_reduced_down"),
+]
+
+
+def time_forward(torch, cs, gmm, ops, ref, x, w, label, dtype, route, rel) -> None:
+    """One ``timing`` line of the forward on x (E, C, D) and w (E, D, F)."""
+    E, C, D = x.shape
+    F = w.shape[-1]
+    before = {r: c.value for r, c in gmm.ROUTE_LAUNCHES.items()}
+    y = ops.moe_gmm(x, w)
+    torch.cuda.synchronize()
+    took = [r for r, c in gmm.ROUTE_LAUNCHES.items() if c.value > before[r]]
+    item = 2 if dtype == "bfloat16" else 4
+    row = {"kernel": "moe_gmm", "case": label, "dtype": dtype, "route": took, "rel_err": rel(y, ref.moe_gmm_ref(x, w)),
+           "ms": cs.median_ms(torch, lambda: ops.moe_gmm(x, w)),
+           **cs.route_bounds(2 * E * C * D * F, item * (E * C * D + E * D * F + E * C * F), dtype, route),
+           "library_ms": cs.median_ms(torch, lambda: torch.bmm(x, w))}
+    print("timing " + json.dumps(row), flush=True)
+
+
+def time_small(torch, cs, gmm, ops, ref, flush, dev) -> None:
+    """The forward (at SMALL_CASES and GMM_CASES; the forward's blocks
+    must divide the edge cases' shapes, which its callers never make) and
+    the backward (at those and BWD_GMM_EDGE_CASES) in both dtypes: the
+    route, the error relative to the largest element, the device time
+    beside the bound and torch.bmm (TF32 off); for the backward, dx and dw
+    each alone too (``gmm_bwd_parts``)."""
+    forward_too = SMALL_CASES + cs.GMM_CASES
+    for shape, label in forward_too + cs.BWD_GMM_EDGE_CASES:
+        for dtype in ("float32", "bfloat16"):
+            E, C, D, F = shape["E"], shape["C"], shape["D"], shape["F"]
+            g = torch.Generator(dev).manual_seed(14)
+            dt = getattr(torch, dtype)
+            x = torch.randn(E, C, D, generator=g, device=dev).to(dt)
+            w = (torch.randn(E, D, F, generator=g, device=dev) * D ** -0.5).to(dt)
+            dy = torch.randn(E, C, F, generator=g, device=dev).to(dt)
+            route = cs.expected_route("moe_gmm", shape, dtype)
+            rel = lambda got, want: float((got.float() - want.float()).abs().max()) / float(want.float().abs().max())
+            if (shape, label) in forward_too:
+                time_forward(torch, cs, gmm, ops, ref, x, w, label, dtype, route, rel)
+            before = {r: c.value for r, c in gmm.BWD_ROUTE_LAUNCHES.items()}
+            got = ops.moe_gmm_bwd(x, w, dy)
+            torch.cuda.synchronize()
+            took = [r for r, c in gmm.BWD_ROUTE_LAUNCHES.items() if c.value > before[r]]
+            want = ref.moe_gmm_bwd_ref(x, w, dy)
+            row = {"kernel": "moe_gmm_bwd", "case": label, "dtype": dtype, "route": took,
+                   "rel_err": [rel(a, b) for a, b in zip(got, want)],
+                   "ms": cs.median_ms(torch, lambda: ops.moe_gmm_bwd(x, w, dy)),
+                   **cs.gmm_bwd_bound(E, C, D, F, dtype, route)}
+            row.update(cs.gmm_bwd_parts(torch, ops, flush, x, w, dy, got))
+            row["library_ms"] = row["dx_library_ms"] + row["dw_library_ms"]  # the two products, one bmm each
+            print("timing " + json.dumps(row), flush=True)
+
 
 def main() -> int:
     ap = argparse.ArgumentParser()
@@ -41,6 +104,8 @@ def main() -> int:
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), help="time the backward in this dtype only")
     ap.add_argument("--digests", action="store_true",
                     help="then print a digest of the backward's dx and dw at the small cases, to hold two trees bit-equal")
+    ap.add_argument("--small", action="store_true",
+                    help="time the forward and backward at the small shapes (SMALL_CASES, the ragged and simt cases) instead")
     args = ap.parse_args()
     import torch
 
@@ -60,6 +125,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     kdef = kreg.get_kernel("moe_gmm")
     flush = torch.empty(cs.FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    if args.small:
+        time_small(torch, cs, gmm, ops, ref, flush, dev)
+        return 0
     fwd = [(tier, dict(getattr(kdef, f"{tier}_shape")), "float32") for tier in ("tiny", "smoke", "full")]
     fwd += [(model, shape, dtype) for name, model, shape, dtype in cs.MODEL_WIDTHS if name == "moe_gmm"]
     if args.backward_only:

@@ -156,7 +156,8 @@ def kernel_label(mangled: str) -> str:
 
 def ptxas_usage(log: str) -> list[dict]:
     """Per kernel, from ``-Xptxas -v`` output: its name (``kernel_label``),
-    registers a thread, stack frame and spill bytes."""
+    registers a thread, stack frame and spill bytes, and its static shared
+    memory where it has any (dynamic shared memory is the launch's)."""
     rows, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -172,6 +173,9 @@ def ptxas_usage(log: str) -> list[dict]:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            cur["static_smem"] = int(m.group(1))
     return rows
 
 

@@ -4,7 +4,8 @@
 // accumulators (the tensor-core kernels); cp.async rows of
 // any alignment into shared memory and release/acquire flags between blocks
 // (the scans); clusters of blocks that add into each other's shared memory
-// (the fp32 attention at head width 256).  Everything is PTX written by
+// (the fp32 attention at head width 256) or read it (the selective scan's
+// backward).  Everything is PTX written by
 // hand; nothing here calls a library kernel.
 //
 // Shared-memory tiles use the swizzled layouts that TMA writes and wgmma
@@ -323,7 +324,7 @@ __device__ __forceinline__ void named_arrive(int id, int n) {
 }
 
 // ---------------------------------------------------------------------------
-// thread block clusters: rank, barrier, async stores into a peer's shared memory
+// thread block clusters: rank, barrier, loads from and async stores into a peer's shared memory
 // ---------------------------------------------------------------------------
 
 // this block's rank in its cluster
@@ -347,6 +348,17 @@ __device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
   uint32_t r;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
   return r;
+}
+
+// 16 bytes from a cluster block's shared memory (an address from map_rank);
+// written by that block before a cluster_sync that this thread has passed
+__device__ __forceinline__ float4 ld_cluster_v4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // 16 bytes into a cluster block's shared memory, asynchronously: the store

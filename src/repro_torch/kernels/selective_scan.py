@@ -9,11 +9,13 @@ module allocates the outputs, launches on the current stream and counts the
 launches; ``kernels/ops.py`` checks the operands and sends CPU tensors to
 the plain version instead.  ``block_d`` keeps only the reference's
 divisibility rule; the kernel picks its own tiles and handles ragged edges.
-The backward (a forward walk that keeps each segment's start, then the
-segments recomputed and walked in reverse, and a second small launch that
-sums the blocks' partials of dB, dC and dA in a fixed order) has no Pallas
-counterpart and counts its calls apart, in ``BWD_LAUNCHES``: it is not a
-registry kernel.
+The backward (the chunk split in time over a thread-block cluster: each
+part walked forward once, the parts' chains folded through distributed
+shared memory, each part's segments recomputed and walked in reverse; then
+a second small launch that sums the blocks' partials of dB, dC and dA in a
+fixed order) has no Pallas counterpart and counts its calls apart, in
+``BWD_LAUNCHES``: it is not a registry kernel.  ``bwd_launch_config`` says
+how a call is cut and what the occupancy calculator makes of it.
 """
 from __future__ import annotations
 
@@ -73,8 +75,10 @@ def selective_scan_chunk_bwd(x, dt, b, c, a, h0, dy, dh_last):
     """Launch the backward kernel on contiguous CUDA tensors: the forward's
     operands, and the gradients dy (B, chunk, di) and dh_last (B, di, N) of
     its two outputs.  Returns (dx, ddt, db, dc, da, dh0): dx in x's dtype,
-    the rest fp32.  The segment starts and the blocks' partial sums go to a
-    per-call scratch, every byte of it written before it is read."""
+    the rest fp32.  The segment starts, the dt sums and the blocks' partial
+    sums (dA's one a batch row and part) go to a per-call scratch, every
+    byte of it written before it is read.  Raises where the card refuses
+    the cluster launch: nothing falls back."""
     B, chunk, di = x.shape
     N = b.shape[-1]
     _check("selective_scan_bwd", x, N)
@@ -99,3 +103,20 @@ def selective_scan_chunk_bwd(x, dt, b, c, a, h0, dy, dh_last):
     _build.check("selective_scan_bwd", code)
     BWD_LAUNCHES.bump()
     return dx, ddt, db, dc, da, dh0
+
+
+BWD_CONFIG_KEYS = ("parts", "blocks", "threads", "smem_bytes", "blocks_per_sm", "warps_per_sm", "active_clusters",
+                   "segment_steps")
+
+
+def bwd_launch_config(B: int, chunk: int, di: int, N: int, dtype, device) -> dict:
+    """How the backward's walk is launched at (B, chunk, di, N) with x of
+    ``dtype`` on the CUDA ``device``: its parts P (the cluster's blocks),
+    blocks, threads and dynamic shared memory a block, and what the
+    occupancy calculator makes of it (blocks and warps resident an SM,
+    clusters resident at once), with the steps of a segment."""
+    out = (ctypes.c_longlong * len(BWD_CONFIG_KEYS))()
+    fn = _build.function("selective_scan_bwd", "selective_scan_bwd_describe", [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    _build.check("selective_scan_bwd", fn(B, chunk, di, N, X_DTYPES[dtype], torch.device(device).index or 0,
+                                          ctypes.addressof(out)))
+    return dict(zip(BWD_CONFIG_KEYS, (int(v) for v in out)))

@@ -798,6 +798,45 @@ def test_selective_scan_backward_kernel_matches_plain_version(card, B, ck, di, N
     assert _close(got[0], want[0], dtype) and all(_close(a, b, torch.float32) for a, b in zip(got[1:], want[1:]))
 
 
+# the edges of the backward's split of a chunk in time (parts of whole
+# 8-step segments, one block of a cluster each) -> the parts its launch
+# takes: the last part one step (113 steps, 8 parts of two segments); the
+# last part shorter than a segment (45 steps, 6 parts of one); one part,
+# forced by a chunk of one segment; B 2 with di 72 (three channel blocks,
+# the last ragged)
+_SS_BWD_SPLIT_EDGES = {(1, 113, 64, 16): 8, (2, 45, 96, 8): 6, (1, 7, 64, 16): 1, (2, 64, 72, 16): 8}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16x"])
+@pytest.mark.parametrize("B,ck,di,N", sorted(_SS_BWD_SPLIT_EDGES))
+def test_selective_scan_backward_at_the_edges_of_its_parts(card, B, ck, di, N, dtype):
+    """At the parts' edges: the launch takes the parts expected, the six
+    gradients match the plain version (relative 1e-4; dx with bf16 x
+    element by element) and two calls are bit-equal."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import selective_scan as ss
+
+    assert ss.bwd_launch_config(B, ck, di, N, dtype, card)["parts"] == _SS_BWD_SPLIT_EDGES[(B, ck, di, N)]
+    operands = _ss_bwd_operands(card, B, ck, di, N, dtype, seed=4)
+    got = ops.selective_scan_chunk_bwd(*operands)
+    again = ops.selective_scan_chunk_bwd(*operands)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ref.selective_scan_chunk_bwd_ref(*operands)
+    assert _close(got[0], want[0], dtype) and all(_close(a, b, torch.float32) for a, b in zip(got[1:], want[1:]))
+
+
+def test_selective_scan_backward_holds_16_warps_an_sm_at_falcon_width(card):
+    """The split in time keeps at least four 4-warp blocks an SM resident at
+    falcon-mamba-7b's chunk (B 1, 256 steps, di 8192, N 16), twice the 8
+    warps of the walk before it: 2 parts, one wave of 512 blocks."""
+    from repro_torch.kernels import selective_scan as ss
+
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = ss.bwd_launch_config(1, 256, 8192, 16, dtype, card)
+        assert cfg["warps_per_sm"] >= 16 and cfg["parts"] == 2 and cfg["blocks"] == 512, cfg
+
+
 def test_selective_scan_backward_of_two_chained_chunks_is_one_chunk_of_twice_the_length(card):
     """Two chunks chained through h (the second's dh0 handed to the first)
     give the gradients of one chunk of twice the length, within fp32

@@ -482,10 +482,16 @@ ptxas info    : Used 168 registers, used 1 barriers, 512 bytes cmem[0]
 ptxas info    : Compiling entry function '_ZN61_GLOBAL__N__08759a66_28_flash_attention_bwd_wgmma_cu_b53c6ca015attn_bwd_kv_sumEPK6float4' for 'sm_90a'
 ptxas info    : Function properties for _ZN61_GLOBAL__N__08759a66_28_flash_attention_bwd_wgmma_cu_b53c6ca015attn_bwd_kv_sumEPK6float4
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 46 registers, used 0 barriers"""
+ptxas info    : Used 46 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN61_GLOBAL__N__0a1b2c3d_21_selective_scan_bwd_cu_9f8e7d6c17selective_bwd_sumEPKfS1_PfS2_S2_iiiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN61_GLOBAL__N__0a1b2c3d_21_selective_scan_bwd_cu_9f8e7d6c17selective_bwd_sumEPKfS1_PfS2_S2_iiiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 24 registers, used 1 barriers, 1024 bytes smem, 424 bytes cmem[0]"""
     assert _build.ptxas_usage(log) == [
         {"kernel": "attn_bwd_kv_wgmma<256>", "stack": 112, "spill_stores": 112, "spill_loads": 172, "registers": 168},
         {"kernel": "attn_bwd_kv_sum", "stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 46},
+        {"kernel": "selective_bwd_sum", "stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 24,
+         "static_smem": 1024},
     ]
     assert _build.kernel_label("_Z3fooPf") == "_Z3fooPf"
     # a kernel in a namespace nested in the anonymous one: the last name

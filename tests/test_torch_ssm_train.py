@@ -5,7 +5,11 @@ only on a GPU, where ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold
 it against its plain version.  Here:
 
   * the plain version (``ref.selective_scan_chunk_bwd_ref``), chained over
-    chunks, against ``jax.vjp`` of the reference's chunked scan
+    chunks, and a plain mirror of the kernel's split of a chunk in time
+    (``split_in_time_backward``: each part's chains from zero, their fold,
+    then the plain version on each part, a later part's segments from the
+    starts the kernel rebuilds), against ``jax.vjp`` of the
+    reference's chunked scan
     (``repro.models.ssm.selective_scan_chunked``, both XLA lowerings: the
     reference's Pallas kernel has no VJP, and ``tests/test_torch_scans.py``
     holds the forward of both against it), and against torch's autograd of
@@ -73,12 +77,13 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32)).to(torch.bfloat16 if a.dtype == jnp.bfloat16 else torch.float32)
 
 
-def chained_plain_backward(x, dt, b, c, a, h0, dy, dh_last, ck):
-    """The plain backward chained over the chunks of ``ck`` steps, as
-    autograd chains ``ops._SelectiveScanChunk`` in
-    ``models/ssm.selective_scan_chunked``: each chunk's dh0 is the previous
-    chunk's dh_last and dA sums over the chunks.  Returns the six gradients
-    over the whole sequence (dx, ddt, db, dc, da, dh0)."""
+def chained_plain_backward(x, dt, b, c, a, h0, dy, dh_last, ck, backward=ref.selective_scan_chunk_bwd_ref):
+    """The plain backward (or ``backward``, a function of the same
+    operands) chained over the chunks of ``ck`` steps, as autograd chains
+    ``ops._SelectiveScanChunk`` in ``models/ssm.selective_scan_chunked``:
+    each chunk's dh0 is the previous chunk's dh_last and dA sums over the
+    chunks.  Returns the six gradients over the whole sequence (dx, ddt, db,
+    dc, da, dh0)."""
     n = x.shape[1] // ck
     part = lambda t, i: t[:, i * ck:(i + 1) * ck].contiguous()
     starts = [h0]
@@ -86,17 +91,18 @@ def chained_plain_backward(x, dt, b, c, a, h0, dy, dh_last, ck):
         starts.append(ref.selective_scan_chunk_ref(part(x, i), part(dt, i), part(b, i), part(c, i), a, starts[-1])[1])
     grads, g, da = [None] * n, dh_last, torch.zeros_like(a)
     for i in range(n - 1, -1, -1):
-        *grads[i], da_i, g = ref.selective_scan_chunk_bwd_ref(part(x, i), part(dt, i), part(b, i), part(c, i), a, starts[i],
-                                                                part(dy, i), g)
+        *grads[i], da_i, g = backward(part(x, i), part(dt, i), part(b, i), part(c, i), a, starts[i], part(dy, i), g)
         da = da + da_i
     return tuple(torch.cat([grads[i][k] for i in range(n)], dim=1) for k in range(4)) + (da, g)
 
 
-def compare_with_jax_vjp(mode: str, B: int, L: int, ck: int, di: int, N: int) -> dict:
-    """The chained plain backward against ``jax.vjp`` of the reference's
-    ``selective_scan_chunked`` under ``ssm_scan=mode``, with cotangents on
-    y and h_last; the gradient of a_log through a = -exp(a_log)."""
-    o = _operands(B, L, di, N, seed=3)
+def compare_with_jax_vjp(mode: str, B: int, L: int, ck: int, di: int, N: int, x_dtype=np.float32,
+                         backward=ref.selective_scan_chunk_bwd_ref) -> dict:
+    """The chained plain backward (or ``backward``) against ``jax.vjp`` of
+    the reference's ``selective_scan_chunked`` under ``ssm_scan=mode``, with
+    cotangents on y and h_last; the gradient of a_log through a =
+    -exp(a_log)."""
+    o = _operands(B, L, di, N, seed=3, x_dtype=x_dtype)
     cfg = dataclasses.replace(jget_arch(ARCH).reduced(), ssm_chunk=ck, ssm_scan=mode)
 
     def scan(a_log, x, dt, b, c, h0):
@@ -106,7 +112,8 @@ def compare_with_jax_vjp(mode: str, B: int, L: int, ck: int, di: int, N: int) ->
     d_a_log, dx, ddt, db, dc, dh0 = vjp((jnp.asarray(o["dy"]), jnp.asarray(o["dh"])))
     want = {"dx": dx, "ddt": ddt, "db": db, "dc": dc, "d_a_log": d_a_log, "dh0": dh0}
     a = -torch.exp(_t(o["a_log"]))
-    got = chained_plain_backward(*(_t(o[k]) for k in ("x", "dt", "b", "c")), a, _t(o["h0"]), _t(o["dy"]), _t(o["dh"]), ck)
+    got = chained_plain_backward(*(_t(o[k]) for k in ("x", "dt", "b", "c")), a, _t(o["h0"]), _t(o["dy"]), _t(o["dh"]), ck,
+                                 backward)
     got = dict(zip(("dx", "ddt", "db", "dc", "d_a_log", "dh0"), got[:4] + (got[4] * a, got[5])))  # d a / d a_log = a
     return {k: _rel(got[k], want[k]) for k in want}
 
@@ -160,6 +167,114 @@ def test_chained_chunks_backward_equals_one_chunk_of_twice_the_length():
             assert _rel(g2, g1) <= 1e-6
         else:
             assert torch.equal(g1, g2), k
+
+
+SEG = 8  # steps of the kernel's segments at N <= 16 (csrc/selective_scan_bwd.cu: seg_of)
+
+
+def split_plan(chunk: int, parts: int, seg: int = SEG) -> list[tuple[int, int]]:
+    """The steps [lo, hi) of each part, cut as the kernel cuts a chunk
+    (``plan_of``): whole segments of ``seg`` steps, ceil(segments / parts) a
+    part, so the last part may hold fewer and a shorter segment."""
+    nseg = -(-chunk // seg)
+    spp = -(-nseg // min(parts, nseg))
+    return [(lo, min(chunk, lo + spp * seg)) for lo in range(0, chunk, spp * seg)]
+
+
+def split_in_time_backward(x, dt, b, c, a, h0, dy, dh_last, parts: int):
+    """A plain mirror of the kernel's split of one chunk in time.  Pass A:
+    each part p from zero (part 0 from h0) gives F_p, its states at its end,
+    D_p, the running product of its e_t, and L_p, the dy_t C_t weighted by
+    that product (its gradient at its start), and keeps F and the running
+    sum of dt at each of its segments' starts; the fold: H_1 = F_0, H_{p+1}
+    = D_p H_p + F_p, G_{P-1} = dh_last, G_{p-1} = D_p G_p + L_p, in the
+    order of the parts; then pass B: part 0 the plain backward from (H_0,
+    G_0) (its segment starts are the forward's states), every later part
+    the plain backward on each segment from the last, carrying the gradient,
+    from the start the kernel rebuilds: H_p at the part's first segment,
+    else F + exp(A sum dt) H_p.  dA summed over the segments and parts in
+    that order, dh0 part 0's.  Returns the six gradients as the plain
+    backward does."""
+    bounds = split_plan(x.shape[1], parts)
+    a = a.float()
+    xf, dtf, bf, cf, dyf = x.float(), dt.float(), b.float(), c.float(), dy.float()
+    F, L, D, starts = [], [], [], []
+    for p, (lo, hi) in enumerate(bounds):
+        f = h0.float() if p == 0 else torch.zeros_like(h0)
+        l, d, sdt = torch.zeros_like(h0), torch.ones_like(h0), torch.zeros_like(dtf[:, 0])
+        starts.append({})  # a segment's first step -> (F, the dt sum) there
+        for t in range(lo, hi):
+            if (t - lo) % SEG == 0:
+                starts[p][t] = (f, sdt)
+            e = torch.exp(dtf[:, t, :, None] * a[None])
+            f = e * f + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
+            d = d * e
+            l = l + d * (dyf[:, t, :, None] * cf[:, t, None, :])
+            sdt = sdt + dtf[:, t]
+        F.append(f), L.append(l), D.append(d)
+    P = len(bounds)
+    H = [h0.float()] + [F[0]] * (P > 1)
+    for p in range(1, P - 1):
+        H.append(D[p] * H[p] + F[p])
+    G = [dh_last.float()]
+    for p in range(P - 1, 0, -1):
+        G.insert(0, D[p] * G[0] + L[p])
+    part = lambda t, lo, hi: t[:, lo:hi].contiguous()
+    plain = lambda lo, hi, start, g: ref.selective_scan_chunk_bwd_ref(
+        *(part(t, lo, hi) for t in (x, dt, b, c)), a, start, part(dy, lo, hi), g)
+    grads = [plain(*bounds[0], H[0], G[0])]
+    for p, (lo, hi) in list(enumerate(bounds))[1:]:
+        segs, g = [], G[p]
+        for t0 in sorted(starts[p], reverse=True):
+            f, sdt = starts[p][t0]
+            start = H[p] if t0 == lo else f + torch.exp(a[None] * sdt[..., None]) * H[p]
+            segs.insert(0, plain(t0, min(hi, t0 + SEG), start, g))
+            g = segs[0][5]
+        da = segs[-1][4]
+        for sg in reversed(segs[:-1]):
+            da = da + sg[4]
+        grads.append(tuple(torch.cat([sg[k] for sg in segs], dim=1) for k in range(4)) + (da, g))
+    da = grads[0][4]
+    for g in grads[1:]:
+        da = da + g[4]
+    return tuple(torch.cat([g[k] for g in grads], dim=1) for k in range(4)) + (da, grads[0][5])
+
+
+# parts asked for -> a chunk the kernel cuts into that many: 37 steps are 5
+# segments (the last of 5 steps), so parts of 3 + 2, 2 + 2 + 1 and 1 each;
+# 123 steps are 16 segments in 8 parts of 2, the last segment of 3 steps
+_SPLIT_CHUNKS = {1: 37, 2: 37, 3: 37, 5: 37, 8: 123}
+
+
+@pytest.mark.parametrize("x_dtype", [np.float32, jnp.bfloat16], ids=["fp32", "bf16x"])
+@pytest.mark.parametrize("parts", sorted(_SPLIT_CHUNKS))
+def test_split_in_time_backward_matches_the_plain_backward_and_jax_vjp(parts, x_dtype):
+    """The kernel's decomposition of a chunk in time, in plain PyTorch: at
+    one part bit-equal to the plain backward; at 2 to 8 parts (ragged last
+    parts) within 1e-5 of its largest element (dx with bf16 x within one
+    bf16 rounding, BF16_DX_TOL), and within GRAD_REL of ``jax.vjp`` of the
+    reference's scan over the one chunk."""
+    chunk = _SPLIT_CHUNKS[parts]
+    assert len(split_plan(chunk, parts)) == parts
+    o = _operands(2, chunk, 24, 5, seed=8, x_dtype=x_dtype)
+    a = -torch.exp(_t(o["a_log"]))
+    args = [_t(o[k]) for k in ("x", "dt", "b", "c")] + [a, _t(o["h0"]), _t(o["dy"]), _t(o["dh"])]
+    got = split_in_time_backward(*args, parts)
+    want = ref.selective_scan_chunk_bwd_ref(*args)
+    assert [g.dtype for g in got] == [w.dtype for w in want]
+    if parts == 1:
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    tol = {k: GRAD_REL for k in GRADS}
+    if x_dtype == jnp.bfloat16:
+        tol["dx"] = BF16_DX_TOL
+    errs = {k: _rel(g, w) for k, g, w in zip(GRADS, got, want)}
+    assert all(errs[k] <= tol[k] for k in GRADS), errs
+    split = lambda *ops_: split_in_time_backward(*ops_, parts)
+    errs = compare_with_jax_vjp("seq", 2, chunk, chunk, 24, 5, x_dtype, backward=split)
+    tol = {k: GRAD_REL for k in errs}
+    if x_dtype == jnp.bfloat16:
+        tol["dx"] = BF16_DX_TOL
+    assert all(errs[k] <= tol[k] for k in errs), errs
 
 
 @pytest.fixture
@@ -274,3 +389,6 @@ if __name__ == "__main__":
             print("jax.vjp", mode, case, compare_with_jax_vjp(mode, *case))
     for x_dtype in (np.float32, jnp.bfloat16):
         print("torch autograd", np.dtype(x_dtype).name, compare_with_torch_autograd(x_dtype))
+    for parts, chunk in sorted(_SPLIT_CHUNKS.items()):
+        split = lambda *ops_, parts=parts: split_in_time_backward(*ops_, parts)
+        print("split in time, jax.vjp", parts, chunk, compare_with_jax_vjp("seq", 2, chunk, chunk, 24, 5, backward=split))
