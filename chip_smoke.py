@@ -35,7 +35,10 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      head width 16), fp32 on ``tf32x3`` (three TF32 products a term, held
      at the fp32 tolerances; on two-block clusters, ``tf32x3_cluster``, at
      256); GEMMs on ``wgmma`` (bf16) and ``tf32x3`` (fp32), save those whose
-     strides TMA cannot describe, on the CUDA cores' ``simt``.  On
+     strides TMA cannot describe, on warp-level ``mma`` (the GEMM cases
+     include E3 C80 D95 F49, whose strides are not even 4-byte aligned in
+     bf16), each launch of the ``mma`` route on the parts its rule
+     (``csrc/gmm.cuh``, ``split_of``) names.  On
      ``tf32x3`` rows the bound is the function's products at the TF32
      tensor-core peak; ``bound_3x_ms`` gives the same for the design's
      three products a term and ``simt_bound_ms`` the fp32 CUDA-core bound
@@ -58,7 +61,12 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      chunks chained equal to one of twice the length.  Set-up prints the
      walk's ``ptxas`` registers, spills and static shared memory and an
      ``occupancy`` line at falcon width (parts, blocks, dynamic shared
-     memory, blocks and warps an SM), failing under 16 warps an SM.
+     memory, blocks and warps an SM), failing under 16 warps an SM; and
+     one ``occupancy moe_gmm`` line a GEMM product that has a plan (the
+     ``tf32x3`` gradients and the ``mma`` route) at the model widths, the
+     reduced grok-1 step's products and the small cases: the parts of its
+     split contraction, blocks, warps an SM, stages, held to the rule's
+     properties (``gmm_plan``), one part at the model widths.
   3. broker: ``Hydra(device="cuda")`` with a cloud (CaaS) and an HPC (pilot)
      provider on the card runs a backlog of noop tasks, kernel tasks at the
      registry's full shapes and one 2-rep task per model width, with the
@@ -184,7 +192,12 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      card-vs-CPU gradients and the tasks) must all take the ``tf32x3``
      route (head width 128 and the reduced 16).  ``device_profile`` counts
      the traces that lacked their expected kernel, and whether the raw
-     Kineto events held it (ROADMAP.md fault 3.8).  The encoder-decoder
+     Kineto events held it (ROADMAP.md fault 3.8).  The backward kernels'
+     trace checks (the attention backward's routes off ``wgmma`` and the
+     RG-LRU backward, ``backward_traces``) run in a process of their own
+     (``chip_smoke.py --trace-checks``), started before the model phase,
+     and feed the train phase's lines; what ``device_profile`` counted of
+     them is its ``trace_checks`` line.  The encoder-decoder
      and vision families: the attention backward at CROSS_CASES' shapes
      (bf16 ``wgmma`` at both model shapes, fp32 ``tf32x3`` at Lk 8);
      seamless-m4t-medium at full size, B1 x 4096 tokens and 4096 frames,
@@ -289,13 +302,16 @@ HD16_BF16_TIMED = ({"B": 2, "H": 4, "KV": 2, "L": 128, "hd": 16, "causal": True,
 # GEMMs off the tile grid, in both dtypes: C, D and F ragged (TMA clips per
 # expert; bf16 w read through the transpose bit, fp32 w transposed into the
 # tf32x3 kernel's register fragments); F = 100, whose 200-byte bf16 row
-# stride TMA cannot describe, so the rule sends bf16 to the simt kernel (its
-# 400-byte fp32 rows take tf32x3); and F = 50, on simt in both dtypes
+# stride TMA cannot describe, so the rule sends bf16 to the mma kernel (its
+# 400-byte fp32 rows take tf32x3); F = 50, on mma in both dtypes; and D 95
+# F 49, on mma in both, whose bf16 rows are not even 4-byte aligned (the
+# values staged through registers)
 GMM_CASES = [
     ({"E": 4, "C": 64, "D": 128, "F": 256}, "sweep"),
     ({"E": 3, "C": 80, "D": 96, "F": 200}, "ragged"),
     ({"E": 3, "C": 80, "D": 96, "F": 100}, "ragged_f100"),
     ({"E": 3, "C": 80, "D": 96, "F": 50}, "ragged_f50"),
+    ({"E": 3, "C": 80, "D": 95, "F": 49}, "odd_d95_f49"),
 ]
 
 # the scans off their kernels' tiles: di 50 (no multiple of 32 channels or
@@ -464,7 +480,7 @@ def expected_route(name: str, shape: dict, dtype: str):
     width 32 and on ``tf32`` at 16, fp32 on ``tf32x3`` up to 128 and on
     ``tf32x3_cluster`` at 256; GEMMs on the tensor cores where TMA can
     describe the strides (D and F a multiple of 16 bytes), bf16 on
-    ``wgmma`` and fp32 on ``tf32x3``, else on the CUDA cores."""
+    ``wgmma`` and fp32 on ``tf32x3``, else on warp-level ``mma``."""
     if name not in ROUTED:
         return None
     if name == "flash_attention":
@@ -473,8 +489,67 @@ def expected_route(name: str, shape: dict, dtype: str):
         return "tf32x3" if shape["hd"] <= 128 else "tf32x3_cluster"
     item = 2 if dtype == "bfloat16" else 4
     if shape["D"] * item % 16 or shape["F"] * item % 16:
-        return "simt"
+        return "mma"
     return "wgmma" if dtype == "bfloat16" else "tf32x3"
+
+
+def gmm_plan(torch, product: str, shape: dict, dtype: str, dev, x=None, w=None, dy=None) -> dict | None:
+    """The launch of one GEMM product (``"forward"``, ``"dx"``, ``"dw"``)
+    as the card describes it (``moe_gmm.launch_config``, for the operands
+    given, by the rule in ``csrc/gmm.cuh``), held to the rule's properties
+    on the card's own residency table: at most 8 parts, each at least one
+    stage; a split only where all its clusters are resident at once and it
+    takes ``min_saved`` stages or more off a block's walk; and no larger
+    split with a shorter walk that would qualify.  Raises where one fails.
+    None where the route has no plan (``wgmma``, the ``tf32x3`` forward)."""
+    from repro_torch.kernels import moe_gmm as gmm
+
+    E, C, D, F = shape["E"], shape["C"], shape["D"], shape["F"]
+    cfg = gmm.launch_config(product, E, C, D, F, getattr(torch, dtype), dev, x=x, w=w, dy=dy)
+    if cfg is None:
+        return None
+    parts, n_k, spp, res, saved = cfg["parts"], cfg["stages"], cfg["stages_per_part"], cfg["resident"], cfg["min_saved"]
+    tiles = cfg["blocks"] // parts
+    qualifies = lambda p: tiles <= res[p] and n_k - -(-n_k // p) >= saved
+    faults = []
+    if not (1 <= parts <= gmm.MAX_PARTS and (parts - 1) * spp < n_k <= parts * spp):
+        faults.append("parts do not cover the walk")
+    if parts > 1 and not qualifies(parts):
+        faults.append("a split that is not resident or saves too little")
+    if any(qualifies(p) for p in range(parts + 1, min(n_k, gmm.MAX_PARTS) + 1) if -(-n_k // p) < spp):
+        faults.append("a larger split qualifies")
+    if faults:
+        raise AssertionError(f"moe_gmm {product} {shape} {dtype}: the card launches {cfg}: {'; '.join(faults)}")
+    return cfg
+
+
+# the GEMM shapes the occupancy lines plan: the model widths (one part: the
+# tiles fill the card) and the reduced grok-1 step's up and down products
+GMM_PLAN_WIDTHS = [
+    ({"E": 8, "C": 1280, "D": 6144, "F": 32768}, "grok_1_314b"),
+    ({"E": 128, "C": 80, "D": 7168, "F": 4864}, "arctic_480b"),
+    ({"E": 4, "C": 32, "D": 64, "F": 128}, "grok_1_reduced_up"),
+    ({"E": 4, "C": 32, "D": 128, "F": 64}, "grok_1_reduced_down"),
+]
+
+
+def print_gmm_occupancy(torch, dev) -> None:
+    """One ``occupancy`` line a GEMM product with a plan (the ``tf32x3``
+    gradients and the ``mma`` route) at GMM_PLAN_WIDTHS, GMM_CASES and
+    BWD_GMM_EDGE_CASES in both dtypes: its parts, blocks, threads, shared
+    memory, blocks and warps an SM, resident clusters, stages and stages a
+    part, each held to the rule (``gmm_plan``); at the model widths
+    every product takes one part."""
+    for shape, label in GMM_PLAN_WIDTHS + GMM_CASES + BWD_GMM_EDGE_CASES:
+        for dtype in ("float32", "bfloat16"):
+            for product in ("forward", "dx", "dw"):
+                cfg = gmm_plan(torch, product, shape, dtype, dev)
+                if cfg is None:
+                    continue
+                if label in ("grok_1_314b", "arctic_480b") and cfg["parts"] != 1:
+                    raise AssertionError(f"moe_gmm {product} {label} {dtype}: {cfg['parts']} parts at a model width, want 1")
+                print(f"occupancy moe_gmm case={label} dtype={dtype} product={product} "
+                      + " ".join(f"{k}={v}" for k, v in cfg.items()), flush=True)
 
 
 def all_on(route: str, n: int) -> dict:
@@ -510,8 +585,10 @@ def check_kernel(torch, kreg, ops, name, shape, dtype, seed, tol, relative, labe
         took = {r: n - routes_before[r] for r, n in ops.route_launch_counts()[name].items()}
         if took != {r: int(r == route) for r in took}:
             raise AssertionError(f"{name} {label}: launches by route {took}, want one on {route}")
+    plan = None
     if name == "moe_gmm":
         assert_fp32_exact(torch)
+        plan = gmm_plan(torch, "forward", shape, dtype, dev, x=args[0], w=args[1])
     want = as_tuple(kdef.ref(shape, args))
     for g, w in zip(got, want):
         if g.shape != w.shape or g.dtype != w.dtype or g.device != w.device:
@@ -525,6 +602,8 @@ def check_kernel(torch, kreg, ops, name, shape, dtype, seed, tol, relative, labe
     if not err / scale <= tol:
         raise AssertionError(f"{name} {label}: error {err / scale:.3e} over tolerance {tol:g}")
     row = {"kernel": name, "case": label, "dtype": dtype, "route": route, "max_abs_err": err, "rel_err": err / scale if relative else None}
+    if plan is not None:
+        row["parts"] = plan["parts"]
     if timed:
         call = lambda: kdef.call(shape, args, config)
         row["ms"] = median_ms(torch, call)
@@ -1648,7 +1727,7 @@ BWD_ATTN_CASES = [
 BWD_RGLRU_CASE = ("recurrentgemma_2b", 1, 4096, 2560)
 # the GEMM backward (dx and dw) at the expert shapes of grok-1-314b's and
 # arctic-480b's prefill of 4096 tokens, in both dtypes, timed; then
-# GMM_CASES in both dtypes (ragged edges, and the simt route)
+# GMM_CASES in both dtypes (ragged edges, and the mma route)
 BWD_GMM_CASES = [
     ("grok_1_314b", {"E": 8, "C": 1280, "D": 6144, "F": 32768}),
     ("arctic_480b", {"E": 128, "C": 80, "D": 7168, "F": 4864}),
@@ -1871,7 +1950,9 @@ def check_gmm_backward(torch, ops, dev, flush) -> dict:
     takes: at the model widths in both dtypes, timed whole beside the plain
     version and ``torch.bmm`` (TF32 off) for the same two products, and dx
     and dw each alone (``gmm_bwd_parts``); then at GMM_CASES and
-    BWD_GMM_EDGE_CASES, where two calls must give bit-equal dx and dw."""
+    BWD_GMM_EDGE_CASES, where two calls must give bit-equal dx and dw.
+    Each gradient's launch is held to its rule (``gmm_plan``;
+    ``parts_dx``, ``parts_dw`` on the line)."""
     from repro_torch.kernels import ref
 
     rows = {}
@@ -1897,6 +1978,9 @@ def check_gmm_backward(torch, ops, dev, flush) -> dict:
         abs_err, err = check_grads(torch, got, want, dtype, f"moe_gmm_bwd {case}")
         del want
         row = {"kernel": "moe_gmm_bwd", "case": case, "dtype": dtype, "route": path, "max_abs_err": abs_err, "rel_err": err}
+        for grad in ("dx", "dw"):
+            plan = gmm_plan(torch, grad, shape, dtype, dev, x=x, w=w, dy=dy)
+            row[f"parts_{grad}"] = plan["parts"] if plan else None
         if timed:
             torch.cuda.empty_cache()
             run = lambda: ops.moe_gmm_bwd(x, w, dy)
@@ -1911,7 +1995,7 @@ def check_gmm_backward(torch, ops, dev, flush) -> dict:
             assert_fp32_exact(torch)
             row.update(gmm_bwd_bound(E, C, D, F, dtype, path))
             row.update(gmm_bwd_parts(torch, ops, flush, x, w, dy, got))
-        else:  # no atomics and no split of the contraction: every sum is taken in one order
+        else:  # no atomics; a split contraction's parts are added in part order: every sum is taken in one order
             again = ops.moe_gmm_bwd(x, w, dy)
             row["bit_equal_again"] = all(torch.equal(a, b) for a, b in zip(got, again))
             if not row["bit_equal_again"]:
@@ -1972,29 +2056,119 @@ def names_kernel(name: str, sym: str) -> bool:
     return re.search(rf"\b{sym}\b", name) is not None
 
 
-def check_backward_kernels(torch, ops, dev, flush):
+def attention_bwd_operands(torch, dev, B, H, KV, Lq, Lk, hd, causal, window, dtype: str, label: str) -> tuple:
+    """q, k, v, o, do, the forward kernel's LSE and its error for one
+    attention-backward case (BWD_ATTN_CASES), from seed 11."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(dev).manual_seed(11)
+    q = torch.randn(B, H, Lq, hd, generator=g, device=dev).to(dt)
+    k, v = (torch.randn(B, KV, Lk, hd, generator=g, device=dev).to(dt) for _ in range(2))
+    do = torch.randn(B, H, Lq, hd, generator=g, device=dev).to(dt)
+    o, lse, lse_err = forward_with_lse(torch, q, k, v, causal, window, label)
+    return q, k, v, o, do, lse, lse_err
+
+
+def attention_kv_parts(torch, dev, B, H, KV, Lk, path) -> int:
+    from repro_torch.kernels import flash_attention as fa
+
+    return fa.kv_parts(B, KV, H, Lk, torch.cuda.get_device_properties(dev).multi_processor_count
+                       // fa.CLUSTER_BLOCKS.get(path, 1), fa.KV_ROLES[path])
+
+
+def bwd_kernels_traced(torch, run, path, kv_parts, label) -> list:
+    """The kernels one attention-backward call off ``wgmma`` ran, by a
+    profiler trace (``device_profile``): its route's and no other (the
+    parts' sum only where there are parts; no ``bwd_pre``, since the
+    forward's LSE is given).  Raises otherwise."""
+    needed = [sym for sym in ROUTE_BWD_SYMBOLS[path] if sym != "attn_bwd_kv_sum" or kv_parts > 1]
+    _, _, device = device_profile(torch, run, expect=tuple(needed))
+    ran = sorted(n for n in device if "bwd" in n)
+    if not all(any(names_kernel(n, sym) for n in ran) for sym in needed) or len(ran) != len(needed) or (
+            any(names_kernel(n, "bwd_pre") for n in ran)):
+        raise AssertionError(f"flash_attention_bwd {label}: one call ran the kernels {ran}, want {needed}")
+    return ran
+
+
+def rglru_bwd_operands(torch, ops, dev) -> tuple:
+    """log_a (in [-0.1, 0], so the carries between segments matter), h0, y,
+    dy and dh_last of BWD_RGLRU_CASE, from seed 12."""
+    _, B, L, dr = BWD_RGLRU_CASE
+    g = torch.Generator(dev).manual_seed(12)
+    log_a = -torch.rand(B, L, dr, generator=g, device=dev) * 0.1
+    gx, dy = (torch.randn(B, L, dr, generator=g, device=dev) for _ in range(2))
+    h0, dh = (torch.randn(B, dr, generator=g, device=dev) for _ in range(2))
+    y, _ = ops.rglru_scan(log_a, gx, h0)
+    return log_a, h0, y, dy, dh
+
+
+def backward_traces(torch, ops, dev) -> dict:
+    """The backward kernels' trace checks, by one profiled call each: every
+    attention case of BWD_ATTN_CASES off ``wgmma`` runs its route's kernels
+    and no other (``bwd_kernels_traced``), the RG-LRU backward one kernel a
+    call.  The kernels each ran, by case, the RG-LRU's as
+    ``rglru_scan_bwd`` (``check_backward_kernels`` puts
+    them on its lines).  The run takes them in a process of its own
+    (``backward_traces_fresh``): after heavy use of the card CUPTI loses a
+    trace's first kernels (ROADMAP.md fault 3.8)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    traced = {}
+    for label, B, H, KV, Lq, Lk, hd, causal, window, dtype, _ in BWD_ATTN_CASES:
+        path = fa.bwd_route(getattr(torch, dtype), hd)
+        if path == "wgmma":
+            continue
+        q, k, v, o, do, lse, _ = attention_bwd_operands(torch, dev, B, H, KV, Lq, Lk, hd, causal, window, dtype, label)
+        run = lambda: ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window, lse=lse)
+        traced[label] = bwd_kernels_traced(torch, run, path, attention_kv_parts(torch, dev, B, H, KV, Lk, path), label)
+        del q, k, v, o, do, lse
+        torch.cuda.empty_cache()
+    operands = rglru_bwd_operands(torch, ops, dev)
+    # one kernel a call (the scratch's zeroing is a memset)
+    _, _, device = device_profile(torch, lambda: ops.rglru_scan_bwd(*operands), expect="rglru")
+    kernels = sorted(n for n in device if "rglru" in n)
+    if len(kernels) != 1 or TRAIN_SYMBOLS["rglru_scan_bwd"][0] not in kernels[0]:
+        raise AssertionError(f"rglru_scan_bwd: one call ran the kernels {kernels}, want one {TRAIN_SYMBOLS['rglru_scan_bwd']}")
+    traced["rglru_scan_bwd"] = kernels
+    del operands
+    torch.cuda.empty_cache()
+    return traced
+
+
+def backward_traces_fresh() -> dict:
+    """``backward_traces`` in a process of its own (``chip_smoke.py
+    --trace-checks``): after the model phase CUPTI lost the first kernels
+    of every such trace and only ``device_profile``'s retry found them
+    (ROADMAP.md fault 3.8; PERF.md).  The kernels each case ran; what
+    ``device_profile`` counted of them is one ``trace_checks`` line."""
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--trace-checks"], capture_output=True, text=True,
+                         timeout=600, cwd=ROOT)
+    lines = [line for line in out.stdout.splitlines() if line.startswith("trace_checks ")]
+    if out.returncode != 0 or len(lines) != 1:
+        raise RuntimeError(f"chip_smoke.py --trace-checks: exit {out.returncode}\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    got = json.loads(lines[0].removeprefix("trace_checks "))
+    print("trace_checks " + " ".join(f"{key}={n}" for key, n in got["stats"].items()), flush=True)
+    return got["traced"]
+
+
+def check_backward_kernels(torch, ops, dev, flush, traced: dict):
     """Each backward kernel against its plain version on the card, timed.
     The attention backward's cases take each route the rule gives, timed as
     the train step calls them (the forward kernel's o and LSE) and also
     without LSE (``ms_lse_recomputed``: the preprocess ``bwd_pre`` computes
-    it).  One call of each case off wgmma is profiled: it must run its
-    route's kernels and no other (the parts' sum only where there are
-    parts; no ``bwd_pre``, since the forward's LSE is given); the wgmma
-    kernels are read in ``train_profile``."""
+    it).  ``traced``: what ``backward_traces`` found of each case off wgmma
+    (its route's kernels and no other: the parts' sum only where there are
+    parts, no ``bwd_pre``, since the forward's LSE is given) and of the
+    RG-LRU backward (one kernel a call), on the lines as
+    ``kernels_per_call``; the wgmma kernels are read in ``train_profile``."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
     rows = {}
     for label, B, H, KV, Lq, Lk, hd, causal, window, dtype, want_path in BWD_ATTN_CASES:
-        dt = getattr(torch, dtype)
-        path = fa.bwd_route(dt, hd)
+        path = fa.bwd_route(getattr(torch, dtype), hd)
         if path != want_path:
             raise AssertionError(f"flash_attention_bwd {label}: route {path} for {dtype} at hd {hd}, want {want_path}")
-        g = torch.Generator(dev).manual_seed(11)
-        q = torch.randn(B, H, Lq, hd, generator=g, device=dev).to(dt)
-        k, v = (torch.randn(B, KV, Lk, hd, generator=g, device=dev).to(dt) for _ in range(2))
-        do = torch.randn(B, H, Lq, hd, generator=g, device=dev).to(dt)
-        o, lse, lse_err = forward_with_lse(torch, q, k, v, causal, window, label)
+        q, k, v, o, do, lse, lse_err = attention_bwd_operands(torch, dev, B, H, KV, Lq, Lk, hd, causal, window, dtype, label)
         run = lambda: ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window, lse=lse)
         run_no_lse = lambda: ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
         want = ref.attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
@@ -2017,26 +2191,15 @@ def check_backward_kernels(torch, ops, dev, flush):
             "library_ms": median_ms(torch, lib, max_reps=10) if lib is not None else None,
         })
         row.update(attention_bwd_bound(B, H, KV, Lq, Lk, hd, causal, window, dtype, path))
-        row["kv_parts"] = fa.kv_parts(B, KV, H, Lk, torch.cuda.get_device_properties(dev).multi_processor_count
-                                      // fa.CLUSTER_BLOCKS.get(path, 1), fa.KV_ROLES[path])
+        row["kv_parts"] = attention_kv_parts(torch, dev, B, H, KV, Lk, path)
         if path != "wgmma":  # the call's kernels, by the trace: its route's and no other
-            needed = [sym for sym in ROUTE_BWD_SYMBOLS[path] if sym != "attn_bwd_kv_sum" or row["kv_parts"] > 1]
-            _, _, device = device_profile(torch, run, expect=tuple(needed))
-            ran = sorted(n for n in device if "bwd" in n)
-            if not all(any(names_kernel(n, sym) for n in ran) for sym in needed) or len(ran) != len(needed) or (
-                    any(names_kernel(n, "bwd_pre") for n in ran)):
-                raise AssertionError(f"flash_attention_bwd {label}: one call ran the kernels {ran}, want {needed}")
-            row["kernels_per_call"] = ran
+            row["kernels_per_call"] = traced[label]
         print("train_kernel " + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
         rows.setdefault("flash_attention_bwd", {})[label] = row
         del q, k, v, o, do, got, lib, lse, want
         torch.cuda.empty_cache()
     label, B, L, dr = BWD_RGLRU_CASE
-    g = torch.Generator(dev).manual_seed(12)
-    log_a = -torch.rand(B, L, dr, generator=g, device=dev) * 0.1
-    gx, dy = (torch.randn(B, L, dr, generator=g, device=dev) for _ in range(2))
-    h0, dh = (torch.randn(B, dr, generator=g, device=dev) for _ in range(2))
-    y, _ = ops.rglru_scan(log_a, gx, h0)
+    log_a, h0, y, dy, dh = rglru_bwd_operands(torch, ops, dev)
     run = lambda: ops.rglru_scan_bwd(log_a, h0, y, dy, dh)
     want = ref.rglru_bwd_ref(log_a, h0, y, dy, dh)
     before = ops.backward_launch_counts()["rglru_scan_bwd"]
@@ -2045,21 +2208,16 @@ def check_backward_kernels(torch, ops, dev, flush):
     if ops.backward_launch_counts()["rglru_scan_bwd"] != before + 1:
         raise AssertionError("rglru_scan_bwd: the wrapper did not count its launch")
     abs_err, err = check_grads(torch, got, want, "float32", f"rglru_scan_bwd {label}")
-    # one kernel a call, by the trace (the scratch's zeroing is a memset)
-    _, _, device = device_profile(torch, run, expect="rglru")
-    kernels = sorted(n for n in device if "rglru" in n)
-    if len(kernels) != 1 or TRAIN_SYMBOLS["rglru_scan_bwd"][0] not in kernels[0]:
-        raise AssertionError(f"rglru_scan_bwd: one call ran the kernels {kernels}, want one {TRAIN_SYMBOLS['rglru_scan_bwd']}")
     row = {
         "kernel": "rglru_scan_bwd", "case": label, "dtype": "float32", "max_abs_err": abs_err, "rel_err": err,
-        "kernels_per_call": len(kernels),
+        "kernels_per_call": len(traced["rglru_scan_bwd"]),
         "ms": median_ms(torch, run), "ms_cold": cold_ms(torch, run, flush), "ms_call": call_ms(torch, run),
         "plain_ms": median_ms(torch, lambda: ref.rglru_bwd_ref(log_a, h0, y, dy, dh), max_reps=3), "library_ms": None,
     }
     row["bound_ms"], row["bound_by"] = rglru_bwd_bound(B, L, dr)
     print("train_kernel " + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
     rows["rglru_scan_bwd"] = {label: row}
-    del log_a, gx, dy, h0, dh, y, got, want
+    del log_a, dy, h0, dh, y, got, want
     torch.cuda.empty_cache()
     rows["moe_gmm_bwd"] = check_gmm_backward(torch, ops, dev, flush)
     return rows
@@ -2567,6 +2725,14 @@ def main() -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import registry as kreg
 
+    if sys.argv[1:] == ["--trace-checks"]:  # backward_traces in a fresh process (backward_traces_fresh)
+        _build.load(*_build.SOURCES)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        traced = backward_traces(torch, ops, torch.device("cuda", 0))
+        print("trace_checks " + json.dumps({"traced": traced, "stats": PROFILE_STATS}), flush=True)
+        return 0
+
     # -- 1. set-up -------------------------------------------------------------
     phase_t0 = time.perf_counter()
     card = card_line()
@@ -2591,6 +2757,7 @@ def main() -> int:
     print(f"smem moe_gmm_bwd gmm_bwd_dx_wgmma={gmm_smem(0)} gmm_bwd_dw_wgmma={gmm_smem(1)} "
           f"gmm_bwd_dw_wgmma_short_k={gmm_smem(2)}", flush=True)
     print_selective_bwd_occupancy(torch)
+    print_gmm_occupancy(torch, torch.device("cuda", 0))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -2674,6 +2841,10 @@ def main() -> int:
     run_facts(torch, Hydra, ProviderSpec, dev)
     print(f"phase name=autotune_facts wall_s={time.perf_counter() - phase_t0}", flush=True)
 
+    # the backward kernels' trace checks, in a fresh process: after heavy
+    # use of the card CUPTI loses traces' first kernels (ROADMAP.md fault 3.8)
+    traced = backward_traces_fresh()
+
     # -- 6. model ----------------------------------------------------------------
     phase_t0 = time.perf_counter()
     del flush
@@ -2700,7 +2871,7 @@ def main() -> int:
     phase_t0 = time.perf_counter()
     torch.cuda.empty_cache()
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
-    bwd_rows = check_backward_kernels(torch, ops, dev, flush)
+    bwd_rows = check_backward_kernels(torch, ops, dev, flush, traced)
     bwd_rows["selective_scan_bwd"] = ss_bwd_rows
     del flush
     torch.cuda.empty_cache()

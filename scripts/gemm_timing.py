@@ -26,9 +26,11 @@ two trees show whether they give bit-equal gradients.  With ``--small``
 it times, instead of the model widths, the small shapes in both dtypes:
 the reduced grok-1 step's expert products (``SMALL_CASES``: E4, 32 rows of
 two groups of 16 tokens, D64 F128 up and D128 F64 down) and chip_smoke.py's
-``GMM_CASES`` (F 50 and 100 on the ``simt`` route), forward and backward,
-and ``BWD_GMM_EDGE_CASES``, backward only, each beside its bound and
-``torch.bmm``.  Set-up prints the card line.
+``GMM_CASES`` (F 50 and 100, and D95 F49, on the ``mma`` route), forward and
+backward, and ``BWD_GMM_EDGE_CASES``, backward only, each beside its bound
+and ``torch.bmm``, with the parts each product's launch took (``parts``,
+``dx_parts``, ``dw_parts``; where the tree has a plan,
+``moe_gmm.launch_config``).  Set-up prints the card line.
 """
 import argparse
 import hashlib
@@ -47,6 +49,16 @@ SMALL_CASES = [
 ]
 
 
+def parts(gmm, product, x, w, dy=None):
+    """The parts the tree's launch of ``product`` takes on these operands
+    (None where the route has no plan or the tree none at all)."""
+    if not hasattr(gmm, "launch_config"):
+        return None
+    E, C, D = x.shape
+    cfg = gmm.launch_config(product, E, C, D, w.shape[-1], x.dtype, x.device, x=x, w=w, dy=dy)
+    return cfg and cfg["parts"]
+
+
 def time_forward(torch, cs, gmm, ops, ref, x, w, label, dtype, route, rel) -> None:
     """One ``timing`` line of the forward on x (E, C, D) and w (E, D, F)."""
     E, C, D = x.shape
@@ -59,7 +71,7 @@ def time_forward(torch, cs, gmm, ops, ref, x, w, label, dtype, route, rel) -> No
     row = {"kernel": "moe_gmm", "case": label, "dtype": dtype, "route": took, "rel_err": rel(y, ref.moe_gmm_ref(x, w)),
            "ms": cs.median_ms(torch, lambda: ops.moe_gmm(x, w)),
            **cs.route_bounds(2 * E * C * D * F, item * (E * C * D + E * D * F + E * C * F), dtype, route),
-           "library_ms": cs.median_ms(torch, lambda: torch.bmm(x, w))}
+           "library_ms": cs.median_ms(torch, lambda: torch.bmm(x, w)), "parts": parts(gmm, "forward", x, w)}
     print("timing " + json.dumps(row), flush=True)
 
 
@@ -94,6 +106,7 @@ def time_small(torch, cs, gmm, ops, ref, flush, dev) -> None:
                    **cs.gmm_bwd_bound(E, C, D, F, dtype, route)}
             row.update(cs.gmm_bwd_parts(torch, ops, flush, x, w, dy, got))
             row["library_ms"] = row["dx_library_ms"] + row["dw_library_ms"]  # the two products, one bmm each
+            row.update(dx_parts=parts(gmm, "dx", x, w, dy), dw_parts=parts(gmm, "dw", x, w, dy))
             print("timing " + json.dumps(row), flush=True)
 
 
@@ -105,7 +118,7 @@ def main() -> int:
     ap.add_argument("--digests", action="store_true",
                     help="then print a digest of the backward's dx and dw at the small cases, to hold two trees bit-equal")
     ap.add_argument("--small", action="store_true",
-                    help="time the forward and backward at the small shapes (SMALL_CASES, the ragged and simt cases) instead")
+                    help="time the forward and backward at the small shapes (SMALL_CASES, the ragged and mma cases) instead")
     args = ap.parse_args()
     import torch
 
@@ -171,6 +184,7 @@ def main() -> int:
             row["ms"] = cs.median_ms(torch, lambda: ops.moe_gmm_bwd(x, w, dy))
             row.update(cs.gmm_bwd_bound(E, C, D, F, dtype, path))
             row.update(cs.gmm_bwd_parts(torch, ops, flush, x, w, dy, got))
+            row.update(dx_parts=parts(gmm, "dx", x, w, dy), dw_parts=parts(gmm, "dw", x, w, dy))
             print("timing " + json.dumps(row), flush=True)
             del x, w, dy, got
             torch.cuda.empty_cache()

@@ -12,17 +12,30 @@
 // N-major; dx reads both dy and w K-major; dw reads both x and dy with the
 // contracted axis outermost (M- and N-major).
 //
-// `simt` (gmm_simt): the CUDA cores, any strides.  out[e] (M x N) =
-// A[e] (M x K) @ B[e] (K x N) with each operand given by its strides: the
-// three products are three stride sets.  Each block stages a 128x8 A tile
-// (transposed) and an 8x128 B tile in shared memory as fp32, and 256
-// threads each keep an 8x8 block of the 128x128 output in registers: 16
-// shared-memory reads feed 64 multiply-adds.  A thread's rows and columns
-// are strided by 16, so the reads of a warp hit distinct banks and its
-// stores are coalesced.  A tile's loads walk the operand's contiguous axis
-// fastest, so a warp's global reads are coalesced for either layout.
-// Ragged edges are masked in the loads and the stores.  Exact against the
-// plain version at the fp32 tolerance.
+// `mma` (gmm_mma): the tensor cores through warp-level mma.sync, any
+// strides (the route of every GEMM whose rows TMA cannot describe).
+// out[e] (M x N) = A[e] (M x K) @ B[e] (K x N) with each operand given by
+// its strides: the three products are three stride sets.  Its CUDA-core
+// predecessor (`simt`: 128 x 128 tiles, 8-deep steps each a load round trip
+// and two barriers, no prefetch) lost 2 to 3.3x to torch.bmm at E3 C80 D96
+// F50 / F100 (PERF.md).
+//  * one block of four warps per 64 x 64 tile of out (a warp 32 x 32: 2 x 4
+//    m16n8 tiles), so F 50 or 100 no longer takes a 128-wide tile.
+//  * the operands reach registers by each thread's own addressing from
+//    shared memory, so any layout works and no transpose is needed: each
+//    stage's tiles are kept in the operand's own layout (rows along its
+//    contiguous axis, padded so that a warp's fragment reads hit 32 banks).
+//  * bf16: m16n8k16 products summed in fp32.  fp32: three TF32 m16n8k8
+//    products a term (hopper::split_tf32), in tf32x3's order: a stage's
+//    small products first into a fresh sum, then its large ones, the
+//    stage's sum then added on the CUDA cores, rounding to nearest.
+//  * a ring of three 32-deep stages, issued two ahead: by 4-byte cp.asyncs
+//    (fp32; bf16 pairs where every stride is even), else by guarded 2-byte
+//    loads into registers a stage ahead, stored a stage later.  A 96-deep
+//    contraction (E3 C80 D96 F50) has every stage in flight at once.
+//  * where the tiles are few, the walk is split over a thread-block cluster
+//    (split_of, sum_parts), as tf32x3's gradients are.  Ragged edges are
+//    zero-filled in the loads and guarded in the stores.
 //
 // `wgmma` (gmm_wgmma, bf16 operands whose strides TMA can describe):
 // out[e] (M x N) = A[e] (M x K) @ B[e] (K x N) on the tensor cores.
@@ -133,9 +146,18 @@
 //    small ones first and the four large ones last, so that only those
 //    round at the stage's magnitude, and the CUDA cores add the stage's sum
 //    to the running one with an fp32 add that rounds to nearest.
-//  * no split of K across blocks: every sum is taken in one order, the same
-//    on every run.  Ragged edges are clipped by TMA at the edge of each
-//    expert (zero-filled), and the stores are guarded.
+//  * the forward splits no walk: every sum is taken in one order, the same
+//    on every run.  The gradients (moe_gmm_bwd.cu), where their tiles are
+//    few, split the walk over a cluster of P blocks a tile (split_of: the
+//    largest P <= 8 whose clusters are all resident at once and which
+//    takes MIN_SAVED stages or more off a walk): each block walks a run of
+//    the stages in the order above, from a zero sum, and the parts' sums
+//    meet through distributed shared memory in the ring, which the walk
+//    has freed: each element's parts are added in part order by one block
+//    (sum_parts), fp32 adds that round to nearest, no atomics, so two calls
+//    give the same bits.  P = 1 is the one-block kernel.  Ragged edges are
+//    clipped by TMA at the edge of each expert (zero-filled), and the
+//    stores are guarded.
 //  * tile order: N tiles fastest: the blocks of one A panel run together.
 //  * the epilogue stores out^T's fragments to out (E, N, M): a warp's store
 //    is 4 runs of 8 consecutive floats, whole 32-byte sectors.
@@ -145,100 +167,561 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 #include "hopper.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// the simt route (fp32 or bf16, any strides)
+// a walk split over a thread-block cluster (the tf32x3 gradients, mma)
 // ---------------------------------------------------------------------------
 
-namespace simt {
+constexpr int MAX_PARTS = 8;  // a cluster's blocks, at most: the portable cluster size
 
-constexpr int BM = 128;  // rows of out (M) per block
-constexpr int BN = 128;  // columns of out (N) per block
-constexpr int BK = 8;    // depth (K) per shared-memory stage
-constexpr int TM = 8;    // rows per thread
-constexpr int TN = 8;    // columns per thread
-constexpr int NT = 256;  // threads per block: (BM/TM) x (BN/TN)
+// What the device holds of a kernel at once: its SMs; the occupancy
+// calculator's blocks an SM at its own shared memory (per_sm); the shared
+// memory a split launch asks for, half an SM's and more, so that each block
+// of a cluster has an SM of its own (split_smem: two blocks of a cluster
+// on one SM share its tensor cores: PERF.md), and its blocks an SM
+// (split_per_sm, 1); clusters[p], the clusters of p blocks of a split
+// launch resident at once (clusters[1]: the blocks of a one-block launch).
+struct Residency {
+  int sms, per_sm, split_per_sm, clusters[MAX_PARTS + 1];
+  size_t split_smem;
+};
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+// How a grid of `tiles` tiles, each a walk of n_k stages, is cut: P parts of
+// spp stages (the last may hold fewer), one block of a P-block cluster
+// each.  P is the largest, at most MAX_PARTS and n_k, whose tiles' clusters
+// are all resident at once (one wave: clusters of P blocks are placed
+// within a GPC, so fewer fit than blocks) and which takes `min_saved`
+// stages or more off a block's walk (below that, the cluster's barriers and
+// the parts' sum cost more than the stages save: the kernel's own figure,
+// timed at P = 1 to 8 on an H100, PERF.md); every part then holds at
+// least one stage.  P = 1 where none does.
+struct Split {
+  int parts, spp;
+};
+
+inline Split split_of(int64_t tiles, int n_k, const Residency& r, int min_saved) {
+  int want = 1;
+  for (int p = (n_k < MAX_PARTS ? n_k : MAX_PARTS); p >= 2; --p) {
+    if (tiles <= r.clusters[p] && n_k - (n_k + p - 1) / p >= min_saved) {
+      want = p;
+      break;
+    }
+  }
+  Split s;
+  s.spp = n_k > 0 ? (n_k + want - 1) / want : 0;
+  s.parts = n_k > 0 ? (n_k + s.spp - 1) / s.spp : 1;
+  return s;
+}
+
+// The Residency of `kernel` (`threads` threads, `smem` bytes of dynamic
+// shared memory) on `device`, asked of the occupancy calculator once a
+// process; the kernel's shared-memory attribute is set to split_smem, so
+// that it launches at either size.
+template <typename Kernel>
+cudaError_t residency_of(Kernel kernel, int threads, size_t smem, int device, Residency* r) {
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, Residency> known;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_pair(reinterpret_cast<const void*>(kernel), device);
+  const auto it = known.find(key);
+  if (it != known.end()) {
+    *r = it->second;
+    return cudaSuccess;
+  }
+  int sm_smem = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&r->sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
+  r->split_smem = smem > size_t(sm_smem / 2 + 1024) ? smem : size_t(sm_smem / 2 + 1024);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(r->split_smem));
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&r->per_sm, kernel, threads, smem);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&r->split_per_sm, kernel, threads, r->split_smem);
+  if (err == cudaSuccess && (r->per_sm < 1 || r->split_per_sm < 1)) err = cudaErrorInvalidConfiguration;
+  if (err != cudaSuccess) return err;
+  r->clusters[0] = 0;
+  r->clusters[1] = r->sms * r->per_sm;
+  for (int p = 2; p <= MAX_PARTS && err == cudaSuccess; ++p) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(unsigned(p));
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = r->split_smem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = p;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(&r->clusters[p], kernel, &cfg);
+  }
+  if (err == cudaSuccess) known[key] = *r;
+  return err;
+}
+
+// The parts' sums meet.  Every thread of every block of a cluster of
+// `parts` has written its U units of four partial sums to `mine` in its
+// own shared memory (unit u at mine[u * NT + thread]); block `rank` adds
+// units rank, rank + parts, ... of the same thread over the parts in part
+// order, each an fp32 add that rounds to nearest, and hands each sum to
+// store(u, sum).  No atomics: every call adds in the same order.
+template <int NT, int U, typename Store>
+__device__ __forceinline__ void sum_parts(const float4* mine, int parts, int rank, Store store) {
+  hopper::cluster_sync();  // every part's sums are written
+  for (int u = rank; u < U; u += parts) {
+    const uint32_t addr = hopper::smem_u32(mine + u * NT + threadIdx.x);
+    float4 v[MAX_PARTS];  // every part's load in flight before the first add
+#pragma unroll
+    for (int p = 0; p < MAX_PARTS; ++p)
+      if (p < parts) v[p] = hopper::ld_cluster_v4(hopper::map_rank(addr, p));
+    float4 s = v[0];
+#pragma unroll
+    for (int p = 1; p < MAX_PARTS; ++p) {
+      if (p < parts) {
+        s.x += v[p].x;
+        s.y += v[p].y;
+        s.z += v[p].z;
+        s.w += v[p].w;
+      }
+    }
+    store(u, s);
+  }
+  hopper::cluster_sync();  // no block leaves while a peer still reads its shared memory
+}
+
+// One product's launch: its tiles (n_n x n_m x E of them), stages, the
+// fewest stages a split must save, the device's Residency of its kernel
+// and its split.
+struct Plan {
+  int n_n, n_m, n_k, min_saved;
+  int64_t tiles;
+  Residency res;
+  Split split;
+};
+
+// The plan of a product out (E x M x N) = a (M x K) b (K x N) a expert on
+// tiles of bm x bn, walked bk deep a stage, for `kernel` (`threads`
+// threads, `smem` bytes of dynamic shared memory a block where one part).
+template <typename Kernel>
+cudaError_t plan_of(Kernel kernel, int threads, size_t smem, int min_saved, int bm, int bn, int bk, int E, int M, int N,
+                    int K, int device, Plan* pl) {
+  const cudaError_t err = residency_of(kernel, threads, smem, device, &pl->res);
+  if (err != cudaSuccess) return err;
+  pl->n_n = (N + bn - 1) / bn;
+  pl->n_m = (M + bm - 1) / bm;
+  pl->n_k = (K + bk - 1) / bk;
+  pl->min_saved = min_saved;
+  pl->tiles = int64_t(pl->n_n) * pl->n_m * E;
+  pl->split = split_of(pl->tiles, pl->n_k, pl->res, min_saved);
+  return cudaSuccess;
+}
+
+// A plan's launch (`threads` threads, `smem` bytes where one part,
+// r.split_smem where more), as the occupancy calculator sees it: out[0]
+// parts, [1] blocks, [2] threads, [3] dynamic shared memory a block, [4]
+// blocks an SM, [5] warps an SM, [6] clusters of `parts` blocks resident
+// at once, [7] stages, [8] stages a part, [9] SMs, [10] the fewest stages a
+// split must save, [11 + p - 1] clusters of p blocks resident at once, p =
+// 1 .. MAX_PARTS.
+inline void describe_launch(const Plan& pl, int threads, size_t smem, long long* out) {
+  const Residency& r = pl.res;
+  const bool split = pl.split.parts > 1;
+  const int per_sm = split ? r.split_per_sm : r.per_sm;
+  const long long vals[11] = {pl.split.parts, pl.tiles * pl.split.parts, threads, (long long)(split ? r.split_smem : smem),
+                              per_sm, per_sm * threads / 32, r.clusters[pl.split.parts], pl.n_k, pl.split.spp, r.sms,
+                              pl.min_saved};
+  for (int i = 0; i < 11; ++i) out[i] = vals[i];
+  for (int p = 1; p <= MAX_PARTS; ++p) out[10 + p] = r.clusters[p];
+}
+
+// ---------------------------------------------------------------------------
+// the mma route (fp32 or bf16, any strides)
+// ---------------------------------------------------------------------------
+
+namespace mma {
+
+constexpr int BM = 64;      // rows of out (M) per block
+constexpr int BN = 64;      // columns of out (N) per block
+constexpr int BK = 32;      // depth (K) per stage
+constexpr int STAGES = 3;   // a ring of stages, two issued ahead
+constexpr int NT = 128;     // four warps, each 32 x 32 of out: 2 x 4 tiles of m16n8
+constexpr int UNITS = 8;    // a thread's sums, in units of four: one m16n8 tile each
 
 // The strides of one operand, in elements: expert, rows, columns.
 struct Strides {
   int64_t e, r, c;
 };
 
-// out[e] (M x N, row-major) = A[e] (M x K) @ B[e] (K x N); grid (N tiles, M tiles, E)
-template <typename T>
-__device__ __forceinline__ void gmm_simt(const T* __restrict__ a, Strides sa, const T* __restrict__ b, Strides sb,
-                                         T* __restrict__ out, int M, int N, int K) {
-  __shared__ float As[BK][BM + 4];  // A tile, transposed: As[k][m]
-  __shared__ float Bs[BK][BN + 4];  // B tile: Bs[k][n]
-  const int e = blockIdx.z;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const T* ae = a + e * sa.e;
-  const T* be = b + e * sb.e;
-  T* oe = out + int64_t(e) * M * N;
-  const int tid = threadIdx.x;
-  const int ty = tid / (BN / TN), tx = tid % (BN / TN);
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+// One operand's tile of a stage in shared memory, in the operand's own
+// layout: KC (its contiguous axis is the depth), 64 rows (of M or N) of 32
+// depths; else 32 rows (depths) of 64.  Rows are padded so that a warp's
+// fragment reads hit 32 distinct banks.
+template <typename T, bool KC>
+struct Tile {
+  static constexpr int PITCH = KC ? (sizeof(T) == 4 ? 36 : 40) : 72;  // elements a row
+  static constexpr int IN = KC ? BK : BM;                             // elements a row holds
+  static constexpr int OUT = KC ? BM : BK;                            // rows
+  static constexpr int BYTES = OUT * PITCH * int(sizeof(T));
+  // element (mn, k): mn a row of A or a column of B
+  __device__ static int at(int mn, int k) { return KC ? mn * PITCH + k : k * PITCH + mn; }
+};
 
-  const bool a_k_fast = sa.c == 1, b_n_fast = sb.c == 1;  // each tile's loads walk its contiguous axis
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int i = 0; i < BM * BK / NT; ++i) {
-      const int idx = tid + i * NT;
-      const int mm = a_k_fast ? idx / BK : idx % BM, kk = a_k_fast ? idx % BK : idx / BM;
-      const int gm = m0 + mm, gk = k0 + kk;
-      As[kk][mm] = (gm < M && gk < K) ? to_f32(ae[gm * sa.r + gk * sa.c]) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < BK * BN / NT; ++i) {
-      const int idx = tid + i * NT;
-      const int kk = b_n_fast ? idx / BN : idx % BK, nn = b_n_fast ? idx % BN : idx / BK;
-      const int gk = k0 + kk, gn = n0 + nn;
-      Bs[kk][nn] = (gk < K && gn < N) ? to_f32(be[gk * sb.r + gn * sb.c]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[TM], bv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] += av[i] * bv[j];
-    }
-    __syncthreads();
-  }
+template <typename T, bool A_K, bool B_K>
+__host__ __device__ constexpr int stage_bytes() {
+  return Tile<T, A_K>::BYTES + Tile<T, B_K>::BYTES;
+}
 
+template <typename T, bool A_K, bool B_K>
+constexpr size_t smem_bytes() {
+  return size_t(STAGES) * stage_bytes<T, A_K, B_K>();
+}
+
+// One operand of a stage by 4-byte cp.asyncs: rows mn0.. (of MN) and depths
+// k0.. (of K) of the expert's `src`, element (mn, k) at mn * s_mn + k * s_k,
+// into `dst`.  A copy is one fp32 value or two bf16 adjacent along the
+// contiguous axis (whose stride is then 1, and every other even); what lies
+// past MN or K is zero-filled.
+template <typename T, bool KC>
+__device__ __forceinline__ void copy_async(T* dst, const T* src, int64_t s_mn, int64_t s_k, int mn0, int MN, int k0,
+                                           int K) {
+  using TL = Tile<T, KC>;
+  constexpr int V = 4 / int(sizeof(T));  // elements a copy
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn < N) store_as(&oe[int64_t(gm) * N + gn], acc[i][j]);
-    }
+  for (int i = 0; i < TL::IN * TL::OUT / V / NT; ++i) {
+    const int idx = int(threadIdx.x) + i * NT;
+    const int in = (idx % (TL::IN / V)) * V, out = idx / (TL::IN / V);  // the copies of a warp walk the contiguous axis
+    const int mn = KC ? out : in, k = KC ? in : out;
+    const int gmn = mn0 + mn, gk = k0 + k;
+    const bool row_in = KC ? gmn < MN : gk < K;
+    const int left = (KC ? K - gk : MN - gmn);  // elements of the row from this one on
+    const int n = row_in ? (left < V ? (left > 0 ? left : 0) : V) : 0;
+    hopper::cp_async_4(dst + TL::at(mn, k), n ? src + gmn * s_mn + gk * s_k : src, uint32_t(n) * sizeof(T));
   }
 }
 
-inline dim3 grid(int E, int M, int N) { return dim3((N + BN - 1) / BN, (M + BM - 1) / BM, E); }
+// The same tile's bf16 values where 4-byte copies cannot take them (an odd
+// stride or start): fetch() loads them into registers, guarded, put()
+// stores them into shared memory a stage later.
+template <bool KC>
+struct Staged {
+  using TL = Tile<__nv_bfloat16, KC>;
+  static constexpr int PER = TL::IN * TL::OUT / NT;
+  unsigned short v[PER];
 
-}  // namespace simt
+  __device__ __forceinline__ void fetch(const __nv_bfloat16* src, int64_t s_mn, int64_t s_k, int mn0, int MN, int k0,
+                                        int K) {
+    const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int idx = int(threadIdx.x) + i * NT;
+      const int in = idx % TL::IN, out = idx / TL::IN;
+      const int gmn = mn0 + (KC ? out : in), gk = k0 + (KC ? in : out);
+      v[i] = gmn < MN && gk < K ? s[gmn * s_mn + gk * s_k] : 0;
+    }
+  }
+
+  __device__ __forceinline__ void put(__nv_bfloat16* dst) const {
+    unsigned short* d = reinterpret_cast<unsigned short*>(dst);
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int idx = int(threadIdx.x) + i * NT;
+      const int in = idx % TL::IN, out = idx / TL::IN;
+      d[TL::at(KC ? out : in, KC ? in : out)] = v[i];
+    }
+  }
+};
+
+// the fp32 value at element (mn, k) of a tile
+template <bool KC>
+__device__ __forceinline__ float f32_at(const float* tile, int mn, int k) {
+  return tile[Tile<float, KC>::at(mn, k)];
+}
+
+// two bf16 at depths k and k + 1 of row or column mn, as one register (k
+// in the low half): one 4-byte read where the depth is contiguous
+template <bool KC>
+__device__ __forceinline__ uint32_t bf16_pair(const __nv_bfloat16* tile, int mn, int k) {
+  using TL = Tile<__nv_bfloat16, KC>;
+  if constexpr (KC) return *reinterpret_cast<const uint32_t*>(tile + TL::at(mn, k));
+  const uint32_t lo = *reinterpret_cast<const unsigned short*>(tile + TL::at(mn, k));
+  const uint32_t hi = *reinterpret_cast<const unsigned short*>(tile + TL::at(mn, k + 1));
+  return lo | (hi << 16);
+}
+
+// One fp32 stage on three TF32 products a term, in tf32x3's order: the
+// small products (a_lo b_hi, a_hi b_lo) of its four k8 steps first, from a
+// fresh sum, then the large ones (a_hi b_hi), each value split again from
+// the tile (hopper::split_tf32); the stage's sum is then added to `acc` on
+// the CUDA cores, rounding to nearest.  (wm, wn): the warp's corner.
+template <bool A_K, bool B_K>
+__device__ __forceinline__ void stage_tf32x3(float (&acc)[2][4][4], const float* As, const float* Bs, int wm, int wn) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  float part[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) part[mt][nt][i] = 0.f;
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {  // 0: the small products; 1: the large ones
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      uint32_t ahi[2][4], alo[2][4], bhi[4][2], blo[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float v = f32_at<A_K>(As, wm + 16 * mt + g + 8 * (i & 1), 8 * kk + q + 4 * (i >> 1));
+          if (pass == 0) {
+            hopper::split_tf32(v, ahi[mt][i], alo[mt][i]);
+          } else {
+            ahi[mt][i] = hopper::to_tf32(v);
+          }
+        }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float v = f32_at<B_K>(Bs, wn + 8 * nt + g, 8 * kk + q + 4 * i);
+          if (pass == 0) {
+            hopper::split_tf32(v, bhi[nt][i], blo[nt][i]);
+          } else {
+            bhi[nt][i] = hopper::to_tf32(v);
+          }
+        }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          if (pass == 0) {
+            hopper::mma_tf32_m16n8k8(part[mt][nt], alo[mt], bhi[nt]);
+            hopper::mma_tf32_m16n8k8(part[mt][nt], ahi[mt], blo[nt]);
+          } else {
+            hopper::mma_tf32_m16n8k8(part[mt][nt], ahi[mt], bhi[nt]);
+          }
+        }
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[mt][nt][i];  // round to nearest, on the CUDA cores
+}
+
+// One bf16 stage: two k16 steps of m16n8k16 products into the fp32 sums.
+template <bool A_K, bool B_K>
+__device__ __forceinline__ void stage_bf16(float (&acc)[2][4][4], const __nv_bfloat16* As, const __nv_bfloat16* Bs,
+                                           int wm, int wn) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    uint32_t a[2][4], b[4][2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[mt][i] = bf16_pair<A_K>(As, wm + 16 * mt + g + 8 * (i & 1), 16 * kk + 2 * q + 8 * (i >> 1));
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) b[nt][i] = bf16_pair<B_K>(Bs, wn + 8 * nt + g, 16 * kk + 2 * q + 8 * i);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) hopper::mma_bf16_m16n8k16(acc[mt][nt], a[mt], b[nt]);
+  }
+}
+
+// out[e] (M x N, row-major) = A[e] (M x K) @ B[e] (K x N), each operand
+// given by its strides (A: rows of M, columns of K; B: rows of K, columns
+// of N); A_K and B_K say which has the depth as its contiguous axis.  A
+// grid of n_n x n_m x E tiles, N tiles fastest, each a cluster of
+// `parts` = ceil(n_k / spp) blocks (one block where spp covers n_k), block
+// r of a cluster walking stages r spp .. (r + 1) spp - 1.  ASYNC: every
+// operand takes 4-byte cp.asyncs (fp32; bf16 with even strides and starts),
+// else the bf16 values are staged through registers (Staged).
+template <typename T, bool A_K, bool B_K, bool ASYNC>
+__device__ __forceinline__ void gmm_mma(const T* __restrict__ a, Strides sa, const T* __restrict__ b, Strides sb,
+                                        T* __restrict__ out, int M, int N, int K, int n_n, int n_m, int spp) {
+  using TA = Tile<T, A_K>;
+  using TB = Tile<T, B_K>;
+  constexpr int STAGE = stage_bytes<T, A_K, B_K>();
+  static_assert(ASYNC || sizeof(T) == 2, "fp32 values always take 4-byte copies");
+  static_assert(size_t(STAGES) * STAGE >= size_t(UNITS) * NT * 16, "the ring holds the parts' sums");
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  auto a_tile = [&](int s) { return reinterpret_cast<T*>(smem_raw + s * STAGE); };
+  auto b_tile = [&](int s) { return reinterpret_cast<T*>(smem_raw + s * STAGE + TA::BYTES); };
+
+  const int n_k = (K + BK - 1) / BK;
+  const int parts = spp > 0 ? (n_k + spp - 1) / spp : 1;
+  const int tile = int(blockIdx.x) / parts, rank = int(blockIdx.x) % parts;
+  const int kb0 = rank * spp;
+  const int n_s = spp > 0 ? min(spp, n_k - kb0) : 0;  // this part's stages: kb0 .. kb0 + n_s - 1
+  const int n0 = (tile % n_n) * BN, m0 = ((tile / n_n) % n_m) * BM, e = tile / (n_n * n_m);
+  const T* ae = a + e * sa.e;
+  const T* be = b + e * sb.e;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = 32 * (warp & 1), wn = 32 * (warp >> 1);
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+  auto compute = [&](int s) {
+    if constexpr (sizeof(T) == 4) {
+      stage_tf32x3<A_K, B_K>(acc, a_tile(s), b_tile(s), wm, wn);
+    } else {
+      stage_bf16<A_K, B_K>(acc, a_tile(s), b_tile(s), wm, wn);
+    }
+  };
+  if constexpr (ASYNC) {
+    auto issue = [&](int j) {  // stage j of the part into slot j % STAGES, as one commit group (empty past the part)
+      if (j < n_s) {
+        const int k0 = (kb0 + j) * BK;
+        copy_async<T, A_K>(a_tile(j % STAGES), ae, sa.r, sa.c, m0, M, k0, K);
+        copy_async<T, B_K>(b_tile(j % STAGES), be, sb.c, sb.r, n0, N, k0, K);
+      }
+      hopper::cp_async_commit();
+    };
+#pragma unroll
+    for (int j = 0; j < STAGES - 1; ++j) issue(j);
+    for (int j = 0; j < n_s; ++j) {
+      hopper::cp_async_wait<STAGES - 2>();  // this thread's copies of stage j have landed
+      __syncthreads();                      // ... and every thread's; every warp is done with stage j - 1
+      issue(j + STAGES - 1);                // into stage j - 1's slot
+      compute(j % STAGES);
+    }
+    hopper::cp_async_wait<0>();
+  } else {
+    Staged<A_K> ra;
+    Staged<B_K> rb;
+    auto fetch = [&](int j) {
+      const int k0 = (kb0 + j) * BK;
+      ra.fetch(ae, sa.r, sa.c, m0, M, k0, K);
+      rb.fetch(be, sb.c, sb.r, n0, N, k0, K);
+    };
+    auto put = [&](int j) {
+      ra.put(a_tile(j % STAGES));
+      rb.put(b_tile(j % STAGES));
+    };
+    // stages 0 and 1 in shared memory, stage 2 in registers
+#pragma unroll
+    for (int j = 0; j < STAGES - 1; ++j) {
+      if (j < n_s) {
+        fetch(j);
+        put(j);
+      }
+    }
+    if (STAGES - 1 < n_s) fetch(STAGES - 1);
+    for (int j = 0; j < n_s; ++j) {
+      __syncthreads();  // stage j is in shared memory; every warp is done with stage j - 1
+      if (j + STAGES - 1 < n_s) {
+        put(j + STAGES - 1);                           // into stage j - 1's slot
+        if (j + STAGES < n_s) fetch(j + STAGES);       // its loads in flight under this stage's products
+      }
+      compute(j % STAGES);
+    }
+  }
+
+  const int g = lane >> 2, q = lane & 3;
+  T* oe = out + int64_t(e) * M * N;
+  auto store = [&](int u, float4 v) {  // unit u: the m16n8 tile (u / 4, u % 4) of the warp
+    const int m = m0 + wm + 16 * (u >> 2) + g, n = n0 + wn + 8 * (u & 3) + 2 * q;
+    const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int mi = m + 8 * (i >> 1), ni = n + (i & 1);
+      if (mi < M && ni < N) store_as(&oe[int64_t(mi) * N + ni], vs[i]);
+    }
+  };
+  if (parts == 1) {
+#pragma unroll
+    for (int u = 0; u < UNITS; ++u)
+      store(u, make_float4(acc[u >> 2][u & 3][0], acc[u >> 2][u & 3][1], acc[u >> 2][u & 3][2], acc[u >> 2][u & 3][3]));
+    return;
+  }
+  __syncthreads();  // every warp is done with the ring: it holds the parts' sums now
+  float4* mine = reinterpret_cast<float4*>(smem_raw);
+#pragma unroll
+  for (int u = 0; u < UNITS; ++u)
+    mine[u * NT + threadIdx.x] =
+        make_float4(acc[u >> 2][u & 3][0], acc[u >> 2][u & 3][1], acc[u >> 2][u & 3][2], acc[u >> 2][u & 3][3]);
+  sum_parts<NT, UNITS>(mine, parts, rank, store);
+}
+
+// The fewest stages a split must take off a walk (split_of): an fp32 stage
+// (96 mma.sync a warp) outweighs the split's cost, a bf16 one (16) does not
+// (PERF.md: P = 1 to 8 timed at the small shapes)
+template <typename T>
+constexpr int min_saved() {
+  return sizeof(T) == 4 ? 1 : 2;
+}
+
+template <typename T, bool A_K, bool B_K, typename Kernel>
+cudaError_t plan_mma(Kernel kernel, int E, int M, int N, int K, int device, Plan* pl) {
+  return plan_of(kernel, NT, smem_bytes<T, A_K, B_K>(), min_saved<T>(), BM, BN, BK, E, M, N, K, device, pl);
+}
+
+// Launch `kernel` (a __global__ wrapper of gmm_mma<T, A_K, B_K, ..>) over
+// every tile, one block each or, where the plan cuts the walk, in
+// clusters of its parts.  Returns 0 or a CUDA error.
+template <typename T, bool A_K, bool B_K, typename Kernel>
+int launch(Kernel kernel, const T* a, Strides sa, const T* b, Strides sb, T* out, int E, int M, int N, int K, int device,
+           cudaStream_t stream) {
+  constexpr size_t SMEM = smem_bytes<T, A_K, B_K>();
+  Plan pl;
+  cudaError_t err = plan_mma<T, A_K, B_K>(kernel, E, M, N, K, device, &pl);
+  if (err != cudaSuccess) return int(err);
+  if (pl.tiles == 0) return 0;
+  if (pl.tiles * pl.split.parts > 0x7fffffff) return int(cudaErrorInvalidConfiguration);
+  const unsigned blocks = unsigned(pl.tiles * pl.split.parts);
+  if (pl.split.parts == 1) {
+    kernel<<<blocks, NT, SMEM, stream>>>(a, sa, b, sb, out, M, N, K, pl.n_n, pl.n_m, pl.split.spp);
+  } else {  // no fallback: a refused cluster launch returns its error
+    err = hopper::launch_clusters(kernel, dim3(blocks), NT, pl.res.split_smem, stream, unsigned(pl.split.parts), a, sa, b,
+                                  sb, out, M, N, K, pl.n_n, pl.n_m, pl.split.spp);
+    if (err != cudaSuccess) return int(err);
+  }
+  return int(cudaGetLastError());
+}
+
+// The launch `launch` makes by the rule, as describe_launch writes it.
+template <typename T, bool A_K, bool B_K, typename Kernel>
+int describe(Kernel kernel, int E, int M, int N, int K, int device, long long* out) {
+  Plan pl;
+  const cudaError_t err = plan_mma<T, A_K, B_K>(kernel, E, M, N, K, device, &pl);
+  if (err != cudaSuccess) return int(err);
+  describe_launch(pl, NT, smem_bytes<T, A_K, B_K>(), out);
+  return 0;
+}
+
+// Whether every operand of a bf16 product takes 4-byte copies (pairs of
+// values): each starts on 4 bytes, its depth or row axis has stride 1 and
+// every other stride is even.
+inline bool pairs_aligned(const void* a, Strides sa, bool a_k, const void* b, Strides sb, bool b_k) {
+  auto ok = [](const void* p, Strides s, bool unit_c) {
+    const int64_t unit = unit_c ? s.c : s.r, other = unit_c ? s.r : s.c;
+    return reinterpret_cast<uintptr_t>(p) % 4 == 0 && unit == 1 && other % 2 == 0 && s.e % 2 == 0;
+  };
+  // A (M x K): its depth axis is c; B (K x N): its depth axis is r
+  return ok(a, sa, a_k) && ok(b, sb, !b_k);
+}
+
+}  // namespace mma
 
 // ---------------------------------------------------------------------------
 // the wgmma route (bf16)
@@ -625,10 +1108,13 @@ __device__ __forceinline__ const float* a_at(const uint8_t* tile, int m, int k) 
 
 // out^T[e] (N x M, M contiguous) = sum_k A(m, k) B(n, k).  amap: (E, M, K)
 // when A_K, else (E, K, M); bmap: (E, N, K) when B_K, else (E, K, N).  One
-// block a tile, n_n x n_m x E of them, N tiles fastest.
-template <bool A_K, bool B_K>
+// block a tile, n_n x n_m x E of them, N tiles fastest; where SPLIT, a
+// cluster of parts = ceil(n_k / spp) blocks a tile, block r walking stages
+// r spp .. (r + 1) spp - 1, its sums then added to the others' in part
+// order (sum_parts).
+template <bool A_K, bool B_K, bool SPLIT = false>
 __device__ __forceinline__ void gmm_tf32x3(const CUtensorMap* amap, const CUtensorMap* bmap, float* __restrict__ out,
-                                           int M, int N, int K, int n_n, int n_m) {
+                                           int M, int N, int K, int n_n, int n_m, int spp = 0) {
   // aligned in the shared window itself, so the compiler keeps shared-memory
   // loads and stores (not generic ones) for every pointer derived from it
   extern __shared__ __align__(128) uint8_t smem_raw[];
@@ -639,11 +1125,18 @@ __device__ __forceinline__ void gmm_tf32x3(const CUtensorMap* amap, const CUtens
   uint64_t* full = reinterpret_cast<uint64_t*>(blo + B_BYTES);
   uint64_t* empty = full + STAGES;
 
-  const int tile = blockIdx.x;
+  const int n_k = (K + BK - 1) / BK;
+  int tile = blockIdx.x, parts = 1, rank = 0, kb0 = 0, n_s = n_k;  // this block's stages: kb0 .. kb0 + n_s - 1
+  if constexpr (SPLIT) {
+    parts = (n_k + spp - 1) / spp;
+    tile = int(blockIdx.x) / parts;
+    rank = int(blockIdx.x) % parts;
+    kb0 = rank * spp;
+    n_s = min(spp, n_k - kb0);
+  }
   const int n0 = (tile % n_n) * BN;
   const int m0 = ((tile / n_n) % n_m) * BM;
   const int e = tile / (n_n * n_m);
-  const int n_k = (K + BK - 1) / BK;
   const int t = threadIdx.x, wg = t >> 7, tw = t & 127, warp = tw >> 5, lane = t & 31;
 
   if (t == 0) {
@@ -655,8 +1148,8 @@ __device__ __forceinline__ void gmm_tf32x3(const CUtensorMap* amap, const CUtens
   }
   __syncthreads();
 
-  auto issue = [&](int kb) {  // thread 0: stage kb's B and A tiles
-    const int s = kb % STAGES;
+  auto issue = [&](int j) {  // thread 0: the B and A tiles of the block's stage j, slice kb
+    const int s = j % STAGES, kb = kb0 + j;
     uint8_t* st = ring + s * STAGE_BYTES;
     hopper::mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
     if constexpr (B_K) {
@@ -673,7 +1166,7 @@ __device__ __forceinline__ void gmm_tf32x3(const CUtensorMap* amap, const CUtens
   if (t == 0) {
     hopper::prefetch_map(amap);
     hopper::prefetch_map(bmap);
-    for (int kb = 0; kb < STAGES - 1 && kb < n_k; ++kb) issue(kb);
+    for (int j = 0; j < STAGES - 1 && j < n_s; ++j) issue(j);
   }
 
   float acc[WN / 2], part[WN / 2];  // the running sum (CUDA cores); a stage's products (tensor cores)
@@ -682,15 +1175,15 @@ __device__ __forceinline__ void gmm_tf32x3(const CUtensorMap* amap, const CUtens
   uint8_t* my_hi = bhi + wg * BW_BYTES;  // this warpgroup's rows of the split B tile: its B operand
   uint8_t* my_lo = blo + wg * BW_BYTES;
   const uint32_t hi_base = hopper::smem_u32(my_hi), lo_base = hopper::smem_u32(my_lo);
-  for (int kb = 0; kb < n_k; ++kb) {
-    // refill the stage of kb - 1 once both warpgroups have read it
-    if (t == 0 && kb + STAGES - 1 < n_k) {
-      if (kb > 0) hopper::mbar_wait(&empty[(kb - 1) % STAGES], ((kb - 1) / STAGES) & 1);
-      issue(kb + STAGES - 1);
+  for (int j = 0; j < n_s; ++j) {
+    // refill the stage of j - 1 once both warpgroups have read it
+    if (t == 0 && j + STAGES - 1 < n_s) {
+      if (j > 0) hopper::mbar_wait(&empty[(j - 1) % STAGES], ((j - 1) / STAGES) & 1);
+      issue(j + STAGES - 1);
     }
-    const int s = kb % STAGES;
+    const int s = j % STAGES;
     const uint8_t* st = ring + s * STAGE_BYTES;
-    hopper::mbar_wait(&full[s], (kb / STAGES) & 1);
+    hopper::mbar_wait(&full[s], (j / STAGES) & 1);
 
     if constexpr (B_K) {
       // this warpgroup's rows, 16-byte units, four a thread, split in place of their offsets
@@ -727,14 +1220,31 @@ __device__ __forceinline__ void gmm_tf32x3(const CUtensorMap* amap, const CUtens
     }
     // A: this thread's fragments for the four k8 steps, split in registers
     uint32_t ahi[BK / 8][4], alo[BK / 8][4];
+    if constexpr (A_K) {
+      // rows m and m + 8 of a_at<true>: both share m % 8, and the tile's
+      // rows lie on the swizzle's 1024-byte period, so each unit's swizzle
+      // is one XOR of its shared-window address.  Nothing but the XOR and
+      // the row's address is kept across the loads (sixteen swizzled
+      // offsets kept across stages spilled 32 bytes)
+      const uint32_t row = hopper::smem_u32(st + B_BYTES) + (16 * warp + (lane >> 2)) * 128 + ((lane & 3) << 2);
+      const uint32_t sw = uint32_t(lane >> 2) << 4;
 #pragma unroll
-    for (int kk = 0; kk < BK / 8; ++kk)
+      for (int kk = 0; kk < BK / 8; ++kk)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = 16 * warp + (lane >> 2) + 8 * (i & 1);
-        const int k = 8 * kk + (lane & 3) + 4 * (i >> 1);
-        hopper::split_tf32(*a_at<A_K>(st + B_BYTES, m, k), ahi[kk][i], alo[kk][i]);
-      }
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t at = (row + (i & 1) * 1024 + ((2 * kk + (i >> 1)) << 4)) ^ sw;
+          hopper::split_tf32(hopper::ld_shared_f32(at), ahi[kk][i], alo[kk][i]);
+        }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int m = 16 * warp + (lane >> 2) + 8 * (i & 1);
+          const int k = 8 * kk + (lane & 3) + 4 * (i >> 1);
+          hopper::split_tf32(*a_at<A_K>(st + B_BYTES, m, k), ahi[kk][i], alo[kk][i]);
+        }
+    }
     hopper::fence_proxy_async();           // the hi/lo tiles are read by wgmma
     hopper::named_sync(1 + wg, 128);       // ... once every thread of the warpgroup has written its part
     if (tw == 0) hopper::mbar_arrive(&empty[s]);  // and the raw stage is read
@@ -765,6 +1275,22 @@ __device__ __forceinline__ void gmm_tf32x3(const CUtensorMap* amap, const CUtens
 
   // acc holds out^T: row m, column n
   float* oe = out + int64_t(e) * M * N;
+  if constexpr (SPLIT) {
+    __syncthreads();  // both warpgroups are done with the ring: it holds the parts' sums now
+    float4* mine = reinterpret_cast<float4*>(ring);
+#pragma unroll
+    for (int u = 0; u < WN / 8; ++u) mine[u * THREADS + t] = make_float4(acc[4 * u], acc[4 * u + 1], acc[4 * u + 2], acc[4 * u + 3]);
+    sum_parts<THREADS, WN / 8>(mine, parts, rank, [&](int u, float4 v) {
+      const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int m = m0 + hopper::acc_row(tw, 4 * u + c);
+        const int n = n0 + wg * WN + hopper::acc_col(tw, 4 * u + c);
+        if (m < M && n < N) oe[int64_t(n) * M + m] = vs[c];
+      }
+    });
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < WN / 2; ++i) {
     const int m = m0 + hopper::acc_row(tw, i);
@@ -792,6 +1318,48 @@ int launch(Kernel kernel, const CUtensorMap& amap, const CUtensorMap& bmap, void
   if (tiles > 0x7fffffff) return int(cudaErrorInvalidConfiguration);
   kernel<<<unsigned(tiles), THREADS, SMEM, stream>>>(amap, bmap, static_cast<float*>(out), M, N, K, n_n, n_m);
   return int(cudaGetLastError());
+}
+
+// The fewest stages a split must take off a gradient's walk (split_of):
+// two stages saved cost more than they save (PERF.md: P = 1 to 8 timed at
+// the small shapes)
+constexpr int MIN_SAVED = 3;
+
+// A gradient's plan, from the Residency of its split kernel `split`
+template <typename Kernel>
+cudaError_t plan_grad(Kernel split, int E, int M, int N, int K, int device, Plan* pl) {
+  return plan_of(split, THREADS, SMEM, MIN_SAVED, BM, BN, BK, E, M, N, K, device, pl);
+}
+
+// Launch a gradient: `one` (gmm_tf32x3, one block a tile: the forward's
+// path, the same bits) where its plan takes one part, else `split`
+// (gmm_tf32x3<.., true>) in clusters of the plan's parts.
+template <typename One, typename Kernel>
+int launch_grad(One one, Kernel split, const CUtensorMap& amap, const CUtensorMap& bmap, void* out, int E, int M, int N,
+                int K, int device, cudaStream_t stream) {
+  Plan pl;
+  cudaError_t err = plan_grad(split, E, M, N, K, device, &pl);
+  if (err != cudaSuccess) return int(err);
+  if (pl.split.parts == 1) return launch(one, amap, bmap, out, E, M, N, K, stream);
+  if (pl.tiles * pl.split.parts > 0x7fffffff) return int(cudaErrorInvalidConfiguration);
+  // no fallback: a refused cluster launch returns its error
+  err = hopper::launch_clusters(split, dim3(unsigned(pl.tiles * pl.split.parts)), THREADS, pl.res.split_smem, stream,
+                                unsigned(pl.split.parts), amap, bmap, static_cast<float*>(out), M, N, K, pl.n_n, pl.n_m,
+                                pl.split.spp);
+  if (err != cudaSuccess) return int(err);
+  return int(cudaGetLastError());
+}
+
+// The launch `launch_grad` makes by the rule, as describe_launch writes it
+// (the residency of the split kernel, whose shared memory and threads the
+// one-block kernel shares).
+template <typename Kernel>
+int describe_grad(Kernel split, int E, int M, int N, int K, int device, long long* out) {
+  Plan pl;
+  const cudaError_t err = plan_grad(split, E, M, N, K, device, &pl);
+  if (err != cudaSuccess) return int(err);
+  describe_launch(pl, THREADS, SMEM, out);
+  return 0;
 }
 
 }  // namespace tf32x3

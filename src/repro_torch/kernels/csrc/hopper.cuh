@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels: TMA
 // tensor maps built on the host, mbarrier waits, TMA tile loads and stores
 // (bulk groups, L2 cache policies), bf16 and TF32 wgmma with fp32
-// accumulators (the tensor-core kernels); cp.async rows of
+// accumulators (the tensor-core kernels) and their warp-level mma.sync
+// forms (the GEMM's route for strides TMA cannot describe); cp.async rows of
 // any alignment into shared memory and release/acquire flags between blocks
 // (the scans); clusters of blocks that add into each other's shared memory
 // (the fp32 attention at head width 256) or read it (the selective scan's
@@ -85,6 +86,14 @@ inline int make_map_3d(CUtensorMap* map, const void* base, uint64_t outer, uint6
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// an fp32 word at shared-window address `addr`; volatile, so it stays
+// after the barrier waits before it, as a generic load would
+__device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -617,6 +626,31 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---------------------------------------------------------------------------
+// device: warp-level mma.sync (operands in registers, any shared layout)
+// ---------------------------------------------------------------------------
+
+// Fragments, with g = lane / 4 and q = lane % 4: d (16 x 8, fp32) holds
+// d[i] at row g + 8 (i / 2), column 2 q + i % 2.
+// TF32 m16n8k8: a[i] at row g + 8 (i % 2), depth q + 4 (i / 2); b[i] at
+// depth q + 4 i, column g.  d += a b.
+__device__ __forceinline__ void mma_tf32_m16n8k8(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+               "{%0, %1, %2, %3};\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// bf16 m16n8k16, each register two values adjacent in depth (the lower
+// depth in the low half): a[i] at row g + 8 (i % 2), depths 2 q + 8 (i / 2)
+// and one more; b[i] at depths 2 q + 8 i and one more, column g.  d += a b.
+__device__ __forceinline__ void mma_bf16_m16n8k16(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+               "{%0, %1, %2, %3};\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 }  // namespace hopper

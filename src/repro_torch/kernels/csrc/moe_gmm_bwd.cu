@@ -48,17 +48,36 @@
 //    operand, read from dy's raw tile with the transposed addressing the
 //    forward uses for w^T; x's raw tile has the tokens outermost, and the
 //    hi/lo split pass writes it transposed into the K-major B tiles.
-//  * `simt` (strides TMA cannot describe): the forward's CUDA-core body, given
-//    each product's strides.
+//    Where a gradient's tiles are few (E4 C16 D256 F512: dx^T is 16 tiles
+//    of 64 x 128, each a walk of 16 stages, on 132 SMs), its contraction
+//    is split over a thread-block cluster of P blocks a tile (gmm.cuh,
+//    split_of: the largest P <= 8 whose clusters are all resident at
+//    once and which takes 3 stages or more off a walk), each walking
+//    a run of stages in the one-block order, their sums then added in part
+//    order through distributed shared memory (sum_parts).  P = 1 launches
+//    the one-block kernel: at grok-1's and arctic-480b's widths the tiles
+//    fill the card alone.
+//  * `mma` (strides TMA cannot describe): the forward's mma.sync body, given
+//    each product's strides, its walk split the same way where the grid is
+//    small.
 #include "gmm.cuh"
 
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(simt::NT)
-gmm_bwd_simt(const T* __restrict__ a, simt::Strides sa, const T* __restrict__ b, simt::Strides sb,
-             T* __restrict__ out, int M, int N, int K) {
-  simt::gmm_simt<T>(a, sa, b, sb, out, M, N, K);
+// dx (C x D) = dy (C x F, K-major) @ w^T (w^T (f, d) at d F + f: K-major)
+template <typename T, bool ASYNC>
+__global__ void __launch_bounds__(mma::NT)
+gmm_bwd_dx_mma(const T* __restrict__ a, mma::Strides sa, const T* __restrict__ b, mma::Strides sb, T* __restrict__ out,
+               int M, int N, int K, int n_n, int n_m, int spp) {
+  mma::gmm_mma<T, true, true, ASYNC>(a, sa, b, sb, out, M, N, K, n_n, n_m, spp);
+}
+
+// dw (D x F) = x^T (x^T (d, c) at c D + d: M-major) @ dy (C x F, N-major)
+template <typename T, bool ASYNC>
+__global__ void __launch_bounds__(mma::NT)
+gmm_bwd_dw_mma(const T* __restrict__ a, mma::Strides sa, const T* __restrict__ b, mma::Strides sb, T* __restrict__ out,
+               int M, int N, int K, int n_n, int n_m, int spp) {
+  mma::gmm_mma<T, false, false, ASYNC>(a, sa, b, sb, out, M, N, K, n_n, n_m, spp);
 }
 
 // Ring depth and staging columns of each gradient's persistent kernel
@@ -108,34 +127,79 @@ gmm_bwd_dw_tf32x3(const __grid_constant__ CUtensorMap dymap, const __grid_consta
   tf32x3::gmm_tf32x3<false, false>(&dymap, &xmap, dw, M, N, K, n_n, n_m);
 }
 
+// the same gradients with the contraction split over a cluster of blocks
+__global__ void __launch_bounds__(tf32x3::THREADS, 2)
+gmm_bwd_dx_tf32x3_split(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUtensorMap dymap,
+                        float* __restrict__ dx, int M, int N, int K, int n_n, int n_m, int spp) {
+  tf32x3::gmm_tf32x3<true, true, true>(&wmap, &dymap, dx, M, N, K, n_n, n_m, spp);
+}
+
+__global__ void __launch_bounds__(tf32x3::THREADS, 2)
+gmm_bwd_dw_tf32x3_split(const __grid_constant__ CUtensorMap dymap, const __grid_constant__ CUtensorMap xmap,
+                        float* __restrict__ dw, int M, int N, int K, int n_n, int n_m, int spp) {
+  tf32x3::gmm_tf32x3<false, false, true>(&dymap, &xmap, dw, M, N, K, n_n, n_m, spp);
+}
+
+// The mma route's operands of each gradient: A, B and the product's (M, N, K)
 template <typename T>
-int launch_simt(const void* x, const void* w, const void* dy, void* dx, void* dw, int E, int C, int D, int F,
-                cudaStream_t stream) {
-  const T* xt = static_cast<const T*>(x);
-  const T* wt = static_cast<const T*>(w);
-  const T* dyt = static_cast<const T*>(dy);
-  const simt::Strides x_s{int64_t(C) * D, D, 1}, dy_s{int64_t(C) * F, F, 1};
-  if (dx) {  // dx (C x D) = dy (C x F) @ w^T: w^T (f, d) at d F + f
-    gmm_bwd_simt<T><<<simt::grid(E, C, D), simt::NT, 0, stream>>>(dyt, dy_s, wt, {int64_t(D) * F, 1, F},
-                                                                   static_cast<T*>(dx), C, D, F);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return int(err);
+struct MmaGrad {
+  const T *a, *b;
+  mma::Strides sa, sb;
+  int M, N, K;
+};
+
+// dx (C x D) = dy (C x F) @ w^T: w^T (f, d) at d F + f
+template <typename T>
+MmaGrad<T> dx_operands(const void* w, const void* dy, int C, int D, int F) {
+  return {static_cast<const T*>(dy), static_cast<const T*>(w), {int64_t(C) * F, F, 1}, {int64_t(D) * F, 1, F}, C, D, F};
+}
+
+// dw (D x F) = x^T (D x C): x^T (d, c) at c D + d; @ dy (C x F)
+template <typename T>
+MmaGrad<T> dw_operands(const void* x, const void* dy, int C, int D, int F) {
+  return {static_cast<const T*>(x), static_cast<const T*>(dy), {int64_t(C) * D, 1, D}, {int64_t(C) * F, F, 1}, D, F, C};
+}
+
+// Launch (or, with `out_desc`, describe) one gradient on the mma route:
+// kernel <T, true> where its operands take 4-byte copies, else <T, false>.
+template <typename T, bool A_K, bool B_K, typename Kernel>
+int run_mma(Kernel async_kernel, Kernel staged_kernel, const MmaGrad<T>& g, void* out, int E, int device, cudaStream_t s,
+            long long* out_desc) {
+  const bool aligned = sizeof(T) == 4 || mma::pairs_aligned(g.a, g.sa, A_K, g.b, g.sb, B_K);
+  Kernel kernel = aligned ? async_kernel : staged_kernel;
+  if (out_desc) return mma::describe<T, A_K, B_K>(kernel, E, g.M, g.N, g.K, device, out_desc);
+  return mma::launch<T, A_K, B_K>(kernel, g.a, g.sa, g.b, g.sb, static_cast<T*>(out), E, g.M, g.N, g.K, device, s);
+}
+
+// dx where `dx`, dw where `dw` (either may be null); with `desc`, describe
+// the launch of the one gradient asked for instead
+template <typename T>
+int launch_mma(const void* x, const void* w, const void* dy, void* dx, void* dw, int E, int C, int D, int F, int device,
+               cudaStream_t s, long long* desc = nullptr) {
+  // fp32 always takes 4-byte copies: its staged kernel is never instantiated
+  constexpr bool F32 = sizeof(T) == 4;
+  int code = 0;
+  if (dx) {
+    code = run_mma<T, true, true>(gmm_bwd_dx_mma<T, true>, gmm_bwd_dx_mma<T, F32>, dx_operands<T>(w, dy, C, D, F), dx, E,
+                                  device, s, desc);
   }
-  if (dw) {  // dw (D x F) = x^T (D x C): x^T (d, c) at c D + d; @ dy (C x F)
-    gmm_bwd_simt<T><<<simt::grid(E, D, F), simt::NT, 0, stream>>>(xt, {x_s.e, 1, D}, dyt, dy_s,
-                                                                   static_cast<T*>(dw), D, F, C);
+  if (dw && !code) {
+    code = run_mma<T, false, false>(gmm_bwd_dw_mma<T, true>, gmm_bwd_dw_mma<T, F32>, dw_operands<T>(x, dy, C, D, F), dw, E,
+                                    device, s, desc);
   }
-  return int(cudaGetLastError());
+  return code;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  route: 0 = simt (either dtype),
+// dtype: 0 = float32, 1 = bfloat16.  route: 0 = mma (either dtype),
 // 1 = wgmma (bfloat16 only), 2 = tf32x3 (float32 only), as the forward's.
-// dx or dw may be null: that gradient is not computed.  Returns
-// cudaGetLastError() after the launches (0 on success).
+// The tf32x3 and mma walks are split by their rule (gmm.cuh, split_of).
+// dx or dw may be null: that gradient is not computed.
+// Returns cudaGetLastError() after the launches (0 on success), or the
+// error of a refused cluster launch.
 int moe_gmm_bwd(const void* x, const void* w, const void* dy, void* dx, void* dw, int E, int C, int D, int F,
                 int dtype, int route, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -158,17 +222,43 @@ int moe_gmm_bwd(const void* x, const void* w, const void* dy, void* dx, void* dw
   if (route == 2 && dtype == 0) {
     if (dx) {  // dx^T (D x C) = w (D x F, K-major) dy^T (dy K-major)
       code = tf32x3::make_maps<true, true>(&amap, &bmap, w, dy, E, D, C, F);
-      if (!code) code = tf32x3::launch(gmm_bwd_dx_tf32x3, amap, bmap, dx, E, D, C, F, s);
+      if (!code) code = tf32x3::launch_grad(gmm_bwd_dx_tf32x3, gmm_bwd_dx_tf32x3_split, amap, bmap, dx, E, D, C, F, device, s);
     }
     if (dw && !code) {  // dw^T (F x D) = dy^T (dy: rows of C) x (rows of C)
       code = tf32x3::make_maps<false, false>(&amap, &bmap, dy, x, E, F, D, C);
-      if (!code) code = tf32x3::launch(gmm_bwd_dw_tf32x3, amap, bmap, dw, E, F, D, C, s);
+      if (!code) code = tf32x3::launch_grad(gmm_bwd_dw_tf32x3, gmm_bwd_dw_tf32x3_split, amap, bmap, dw, E, F, D, C, device, s);
     }
     return code;
   }
   if (route != 0) return int(cudaErrorInvalidValue);
-  if (dtype == 0) return launch_simt<float>(x, w, dy, dx, dw, E, C, D, F, s);
-  if (dtype == 1) return launch_simt<__nv_bfloat16>(x, w, dy, dx, dw, E, C, D, F, s);
+  if (dtype == 0) return launch_mma<float>(x, w, dy, dx, dw, E, C, D, F, device, s);
+  if (dtype == 1) return launch_mma<__nv_bfloat16>(x, w, dy, dx, dw, E, C, D, F, device, s);
+  return int(cudaErrorInvalidValue);
+}
+
+// The launch of one gradient (grad 0: dx, 1: dw) at (E, C, D, F, dtype) on
+// `route` (0 mma, 2 tf32x3) on `device`, by the rule, as describe_launch
+// writes it into out[19]: parts, blocks, threads, shared memory, blocks and
+// warps an SM, resident clusters of its parts, stages, stages a part, SMs,
+// the fewest stages a split must save, then resident clusters of 1 to 8
+// blocks.  x, w and dy: the
+// operands' data pointers, whose alignment picks the mma route's kernel
+// (null pointers count as aligned).  Returns 0 or a CUDA error.
+int moe_gmm_bwd_describe(const void* x, const void* w, const void* dy, int grad, int E, int C, int D, int F, int dtype,
+                         int route, int device, long long* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  if (grad != 0 && grad != 1) return int(cudaErrorInvalidValue);
+  if (route == 2 && dtype == 0) {
+    if (grad == 0) return tf32x3::describe_grad(gmm_bwd_dx_tf32x3_split, E, D, C, F, device, out);
+    return tf32x3::describe_grad(gmm_bwd_dw_tf32x3_split, E, F, D, C, device, out);
+  }
+  if (route != 0) return int(cudaErrorInvalidValue);
+  // a non-null output pointer marks the gradient to describe
+  void* dx = grad == 0 ? out : nullptr;
+  void* dw = grad == 1 ? out : nullptr;
+  if (dtype == 0) return launch_mma<float>(x, w, dy, dx, dw, E, C, D, F, device, nullptr, out);
+  if (dtype == 1) return launch_mma<__nv_bfloat16>(x, w, dy, dx, dw, E, C, D, F, device, nullptr, out);
   return int(cudaErrorInvalidValue);
 }
 

@@ -22,7 +22,7 @@ The two kernels with several routes also count by route:
 width 32 and on one TF32 product a product, ``tf32``, at 16; fp32 as three
 TF32 products a product, ``tf32x3``, up to 128 and on two-block clusters,
 ``tf32x3_cluster``, at 256) and ``moe_gmm`` (tensor-core kernels for bf16
-and, as three TF32 products, for fp32; a CUDA-core one where TMA cannot
+and, as three TF32 products, for fp32; warp-level ``mma`` where TMA cannot
 describe the strides).  ``route_launch_counts`` reads those, and
 ``backward_route_launch_counts`` the attention and GEMM backwards', each on
 its forward's route.
@@ -91,7 +91,7 @@ ROUTE_LAUNCHES = {
 
 def route_launch_counts() -> dict[str, dict[str, int]]:
     """Launches so far by kernel and route (attention: ``wgmma`` /
-    ``tf32x3`` / ``tf32`` / ``tf32x3_cluster``; GEMM: ``simt`` / ``wgmma`` /
+    ``tf32x3`` / ``tf32`` / ``tf32x3_cluster``; GEMM: ``mma`` / ``wgmma`` /
     ``tf32x3``)."""
     return {name: {r: c.value for r, c in by.items()} for name, by in ROUTE_LAUNCHES.items()}
 

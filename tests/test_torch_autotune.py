@@ -345,7 +345,7 @@ def test_launch_keys_are_the_routes():
         assert keys == want
     gmm = kreg.get_kernel("moe_gmm")
     assert gmm.launch_key({"E": 1, "C": 64, "D": 128, "F": 128}, {}, "bfloat16") == ("wgmma",)
-    assert gmm.launch_key({"E": 1, "C": 64, "D": 128, "F": 50}, {}, "float32") == ("simt",)
+    assert gmm.launch_key({"E": 1, "C": 64, "D": 128, "F": 50}, {}, "float32") == ("mma",)
 
 
 # ---------------------------------------------------------------------------

@@ -16,8 +16,9 @@ every width: bf16 on ``wgmma`` (one TF32 product a product, ``tf32``, at
 head width 16), fp32 on ``tf32x3`` (three TF32 products a term, held at the
 fp32 tolerance with TF32 off in the plain version; on two-block clusters,
 ``tf32x3_cluster``, at 256).  moe_gmm and its backward have tensor-core
-kernels (bf16 ``wgmma``, fp32 ``tf32x3``) and the CUDA cores' ``simt`` for
-the GEMMs whose strides TMA cannot describe.
+kernels (bf16 ``wgmma``, fp32 ``tf32x3``) and warp-level ``mma`` for the
+GEMMs whose strides TMA cannot describe; where a product's tiles are few,
+the ``tf32x3`` gradients and ``mma`` split its contraction over a cluster.
 """
 from __future__ import annotations
 
@@ -123,12 +124,15 @@ def test_attention_wide_heads_match_plain_version_on_the_card(card, shape):
 
 
 # bf16 GEMMs off the tile grid: C, D and F ragged (TMA clips at the edge of
-# each expert; w is read through the transpose bit), and F = 100, whose
-# 200-byte row stride TMA cannot describe, so the rule takes the simt kernel
+# each expert; w is read through the transpose bit), F = 100, whose
+# 200-byte row stride TMA cannot describe, so the rule takes the mma kernel
+# (4-byte copies), and D 95 F 49, whose rows are not even 4-byte aligned
+# (the mma kernel that stages its loads through registers)
 @pytest.mark.parametrize(
     "shape,route",
-    [({"E": 3, "C": 80, "D": 96, "F": 200}, "wgmma"), ({"E": 3, "C": 80, "D": 96, "F": 100}, "simt")],
-    ids=["ragged", "ragged_f100"],
+    [({"E": 3, "C": 80, "D": 96, "F": 200}, "wgmma"), ({"E": 3, "C": 80, "D": 96, "F": 100}, "mma"),
+     ({"E": 3, "C": 80, "D": 95, "F": 49}, "mma")],
+    ids=["ragged", "ragged_f100", "odd_d95_f49"],
 )
 def test_bf16_gemm_off_the_tile_grid_on_the_card(card, shape, route):
     kdef = kreg.get_kernel("moe_gmm")
@@ -141,17 +145,18 @@ def test_bf16_gemm_off_the_tile_grid_on_the_card(card, shape, route):
 
 # fp32 GEMMs on the tensor cores (three TF32 products a term): the tiers, C,
 # D and F off the 128 x 64 x 32 tiles (TMA clips at the edge of each
-# expert), and F = 50, whose 200-byte row stride TMA cannot describe, so the
-# rule takes the simt kernel; max-abs 2e-5 against the plain version in
-# full fp32 (TF32 off)
+# expert), and F = 50 and D 95 F 49, whose row strides TMA cannot describe,
+# so the rule takes the mma kernel (three TF32 mma.sync products a term);
+# max-abs 2e-5 against the plain version in full fp32 (TF32 off)
 _FP32_GEMMS = [
     *[(dict(getattr(kreg.get_kernel("moe_gmm"), f"{tier}_shape")), "tf32x3") for tier in ("tiny", "smoke", "full")],
     ({"E": 3, "C": 80, "D": 96, "F": 200}, "tf32x3"),
-    ({"E": 3, "C": 80, "D": 96, "F": 50}, "simt"),
+    ({"E": 3, "C": 80, "D": 96, "F": 50}, "mma"),
+    ({"E": 3, "C": 80, "D": 95, "F": 49}, "mma"),
 ]
 
 
-@pytest.mark.parametrize("shape,route", _FP32_GEMMS, ids=["tiny", "smoke", "full", "ragged", "ragged_f50"])
+@pytest.mark.parametrize("shape,route", _FP32_GEMMS, ids=["tiny", "smoke", "full", "ragged", "ragged_f50", "odd_d95_f49"])
 def test_fp32_gemm_on_its_route_matches_plain_version_on_the_card(card, shape, route):
     assert torch.backends.cuda.matmul.allow_tf32 is False and torch.get_float32_matmul_precision() == "highest"
     kdef = kreg.get_kernel("moe_gmm")
@@ -651,7 +656,8 @@ def test_rglru_backward_from_two_threads_on_two_streams(card):
 
 
 # the moe_gmm backward at chip_smoke.py's GEMM cases: on the tile grid, C, D
-# and F ragged, and F = 100 (bf16 on simt) and 50 (simt in both dtypes);
+# and F ragged, F = 100 (bf16 on mma) and 50 (mma in both dtypes), and D 95
+# F 49 (mma in both, bf16 rows not even 4-byte aligned);
 # then the persistent bf16 kernels' edges (chip_smoke.py's
 # BWD_GMM_EDGE_CASES): 240 dw tiles, more than one wave of 132 blocks, a
 # ragged last wave, and each block's walk crossing experts; a contraction
@@ -664,6 +670,7 @@ _GMM_BWD_SHAPES = [
     {"E": 3, "C": 80, "D": 96, "F": 200},
     {"E": 3, "C": 80, "D": 96, "F": 100},
     {"E": 3, "C": 80, "D": 96, "F": 50},
+    {"E": 3, "C": 80, "D": 95, "F": 49},
     {"E": 40, "C": 80, "D": 384, "F": 512},
     {"E": 4, "C": 16, "D": 256, "F": 512},
     {"E": 3, "C": 200, "D": 256, "F": 256},
@@ -706,14 +713,50 @@ def test_moe_gmm_backward_kernel_matches_plain_version(card, shape, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_moe_gmm_backward_is_deterministic(card, dtype):
-    """Two calls on the same operands give bit-equal dx and dw: no atomics
-    and no split of the contraction, every sum taken in one order (the
-    persistent bf16 kernels' walk over more tiles than one wave)."""
-    x, w, dy = _gmm_bwd_operands(card, {"E": 40, "C": 80, "D": 384, "F": 512}, dtype, seed=5)
-    first = ops.moe_gmm_bwd(x, w, dy)
-    second = ops.moe_gmm_bwd(x, w, dy)
-    torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    """Two calls on the same operands give bit-equal dx and dw: no atomics,
+    every sum taken in one order (the persistent bf16 kernels' walk over
+    more tiles than one wave; the tf32x3 gradients' parts added in part
+    order at C16, dx in 6 parts)."""
+    for shape in ({"E": 40, "C": 80, "D": 384, "F": 512}, {"E": 4, "C": 16, "D": 256, "F": 512}):
+        x, w, dy = _gmm_bwd_operands(card, shape, dtype, seed=5)
+        first = ops.moe_gmm_bwd(x, w, dy)
+        second = ops.moe_gmm_bwd(x, w, dy)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# each product's launch on the card held to the rule's properties
+# (csrc/gmm.cuh, split_of) on the card's own residency table: the small
+# shapes split, the model widths on one part
+_GMM_PLAN_SHAPES = [
+    ({"E": 4, "C": 16, "D": 256, "F": 512}, torch.float32),
+    ({"E": 4, "C": 32, "D": 64, "F": 128}, torch.float32),
+    ({"E": 3, "C": 80, "D": 96, "F": 50}, torch.float32),
+    ({"E": 3, "C": 80, "D": 95, "F": 49}, torch.bfloat16),
+    ({"E": 8, "C": 1280, "D": 6144, "F": 32768}, torch.float32),
+    ({"E": 128, "C": 80, "D": 7168, "F": 4864}, torch.float32),
+]
+
+
+@pytest.mark.parametrize("shape,dtype", _GMM_PLAN_SHAPES,
+                         ids=["c16_fp32", "grok_1_reduced_up_fp32", "ragged_f50_fp32", "odd_d95_f49_bf16", "grok_1_314b_fp32",
+                              "arctic_480b_fp32"])
+def test_moe_gmm_launch_config_follows_the_rule(card, shape, dtype):
+    from repro_torch.kernels import moe_gmm as tgmm
+
+    E, C, D, F = shape["E"], shape["C"], shape["D"], shape["F"]
+    for product in ("forward", "dx", "dw"):
+        cfg = tgmm.launch_config(product, E, C, D, F, dtype, card)
+        if cfg is None:
+            continue
+        parts, n_k, spp, res, saved = cfg["parts"], cfg["stages"], cfg["stages_per_part"], cfg["resident"], cfg["min_saved"]
+        tiles = cfg["blocks"] // parts
+        qualifies = lambda p: tiles <= res[p] and n_k - -(-n_k // p) >= saved
+        assert 1 <= parts <= tgmm.MAX_PARTS and (parts - 1) * spp < n_k <= parts * spp, cfg  # every part holds a stage
+        assert parts == 1 or qualifies(parts), cfg  # resident at once, saving enough
+        assert not any(qualifies(p) for p in range(parts + 1, min(n_k, tgmm.MAX_PARTS) + 1) if -(-n_k // p) < spp), cfg
+        if C >= 1280 or E >= 128:
+            assert parts == 1
 
 
 def test_moe_gmm_gradient_is_the_backward_kernel_on_the_card(card):

@@ -365,16 +365,16 @@ def test_build_rehashes_when_a_header_changes(monkeypatch, tmp_path):
 # (kernel, payload shape, dtype, route): bf16 at each model width and off the
 # tile grid takes the tensor cores (``wgmma``), and so do fp32 attention at
 # head widths 16 to 128 and fp32 GEMMs whose strides TMA can describe
-# (``tf32x3``: three TF32 products a term); fp32 attention at 256, a bf16
-# GEMM whose 200-byte row stride TMA cannot describe and an fp32 one whose
-# F = 50 gives the same, the CUDA cores
+# (``tf32x3``: three TF32 products a term; ``tf32x3_cluster`` at 256); a
+# bf16 GEMM whose 200-byte row stride TMA cannot describe and an fp32 one
+# whose F = 50 take warp-level ``mma``
 _ROUTES = [
     ("flash_attention", {"B": 1, "H": 32, "KV": 8, "L": 4096, "hd": 128, "causal": True, "window": None}, "bfloat16", "wgmma"),
     ("flash_attention", {"B": 1, "H": 10, "KV": 1, "L": 4096, "hd": 256, "causal": True, "window": 2048}, "bfloat16", "wgmma"),
     ("flash_attention", {"B": 1, "H": 4, "KV": 1, "L": 320, "hd": 256, "causal": True, "window": 100}, "bfloat16", "wgmma"),
     ("moe_gmm", {"E": 8, "C": 1280, "D": 6144, "F": 32768}, "bfloat16", "wgmma"),
     ("moe_gmm", {"E": 3, "C": 80, "D": 96, "F": 200}, "bfloat16", "wgmma"),
-    ("moe_gmm", {"E": 3, "C": 80, "D": 96, "F": 100}, "bfloat16", "simt"),
+    ("moe_gmm", {"E": 3, "C": 80, "D": 96, "F": 100}, "bfloat16", "mma"),
     *[(name, dict(getattr(treg.get_kernel(name), tier)), "float32", "tf32x3")
       for name in ("flash_attention", "moe_gmm") for tier in ("tiny_shape", "smoke_shape", "full_shape")],
     ("flash_attention", {"B": 1, "H": 32, "KV": 8, "L": 4096, "hd": 128, "causal": True, "window": None}, "float32", "tf32x3"),
@@ -383,8 +383,8 @@ _ROUTES = [
     ("flash_attention", {"B": 2, "H": 4, "KV": 2, "L": 128, "hd": 16, "causal": True, "window": 16}, "bfloat16", "tf32"),
     ("moe_gmm", {"E": 8, "C": 1280, "D": 6144, "F": 32768}, "float32", "tf32x3"),
     ("moe_gmm", {"E": 3, "C": 80, "D": 96, "F": 100}, "float32", "tf32x3"),
-    ("moe_gmm", {"E": 3, "C": 80, "D": 96, "F": 50}, "float32", "simt"),
-    ("moe_gmm", {"E": 3, "C": 80, "D": 50, "F": 96}, "float32", "simt"),
+    ("moe_gmm", {"E": 3, "C": 80, "D": 96, "F": 50}, "float32", "mma"),
+    ("moe_gmm", {"E": 3, "C": 80, "D": 50, "F": 96}, "float32", "mma"),
 ]
 
 
@@ -402,7 +402,7 @@ def test_route_refuses_a_head_width_the_kernels_lack(dtype):
 
 def test_route_counts_read_and_reset():
     counts = ops.route_launch_counts()
-    routes = {"flash_attention": ("wgmma", "tf32x3", "tf32", "tf32x3_cluster"), "moe_gmm": ("simt", "wgmma", "tf32x3")}
+    routes = {"flash_attention": ("wgmma", "tf32x3", "tf32", "tf32x3_cluster"), "moe_gmm": ("mma", "wgmma", "tf32x3")}
     assert counts == {name: {r: counts[name][r] for r in by} for name, by in routes.items()}
     tgmm.ROUTE_LAUNCHES["tf32x3"].bump()
     assert ops.route_launch_counts()["moe_gmm"]["tf32x3"] == counts["moe_gmm"]["tf32x3"] + 1

@@ -48,12 +48,14 @@ TOL = 2e-5  # max-abs, the reference's fp32 parity tolerance
 REL = 1e-5  # the aux, z and model losses, relative
 LEAF_TOL = 1e-4  # a gradient leaf, relative to the reference leaf's max-abs
 # the GEMM shapes chip_smoke.py holds the kernel at: on the tile grid, C, D
-# and F ragged, and F = 100 and 50 (the bf16 and fp32 simt routes)
+# and F ragged, F = 100 and 50 (the bf16 and fp32 mma routes), and D 95
+# F 49 (mma in both; bf16 rows not even 4-byte aligned)
 GMM_CASES = [
     {"E": 4, "C": 64, "D": 128, "F": 256},
     {"E": 3, "C": 80, "D": 96, "F": 200},
     {"E": 3, "C": 80, "D": 96, "F": 100},
     {"E": 3, "C": 80, "D": 96, "F": 50},
+    {"E": 3, "C": 80, "D": 95, "F": 49},
 ]
 
 
