@@ -209,7 +209,31 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      superblock), B1 x 256, card against CPU within GRAD_TOL; and 3 train
      tasks of each among the compute train tasks, every step of the moe,
      audio and vlm families with every gradient leaf nonzero.
-  8. report: the card line, one JSON line of the kernels (route, source, the
+  8. sharded: the port's sharding (``parallel/sharding.py``,
+     ``launch/mesh.py``, ``train/step.py``, ``optim/compression.py``) on a
+     one-rank NCCL world (a FileStore rendezvous in a temporary directory,
+     destroyed after; a world that NCCL cannot start fails the phase).
+     llama3-8b at full width cut to 2 layers, bf16, B2 x 2048,
+     remat="dots", 2 steps from one init and one batch stream under four
+     setups: the plain step, the sharded step under "tp" and "fsdp_tp" on the
+     (1, 1) mesh (gradients averaged by an NCCL all-reduce, AdamW on the
+     ZeRO-1 slices), and the int8 compressed step (``all_to_all_single`` and
+     ``all_gather`` over NCCL).  The sharded losses within 1e-3 relative of
+     the plain step's (``bit_equal`` says whether they are equal), the
+     compressed step's first loss equal to the plain one and its second
+     within 2e-2; each line gives the step seconds, peak memory and a step's
+     attention launches forward and backward by route (4 and 2, all
+     ``wgmma``).  remat="collectives" at the same shape (``sharded_remat``:
+     the same launches, the backward recomputing each layer's attention).
+     The flash-decode decode step (llama3-8b 2 layers, B4, a cache of 4096,
+     prompt 2048, bf16) under tp with ``flash_decode``: logits within 2e-2
+     relative of the plain decode attention's, both steps timed.  Then the
+     four examples (``repro_torch/examples``) on the card, each ending in
+     ``OK``: one ``example`` line each with its launches per kernel and route
+     (serve_lm's three reduced archs reach the attention and both scans;
+     train_lm's fp32 100M llama, 200 steps, the attention and its backward
+     on ``tf32x3``; quickstart's train task the attention).
+  9. report: the card line, one JSON line of the kernels (route, source, the
      TPU kernel each replaces, launches in phase 3 in total and by kernel
      route, in each scenario twin and in one full-size serve prefill
      (``model_launches``; the GEMM's in the grok-1 serve prefill,
@@ -217,12 +241,14 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      the roofline bound; the four backward kernels with their launches in
      the recurrentgemma-2b train run (the GEMM backward's in grok-1's bf16
      gradient pass, the selective scan's in falcon-mamba-7b's train run),
-     the attention backward's also by route), and the device line last.
+     the attention backward's also by route; a step's launches in the
+     sharded setups and each example's launches), and the device line last.
 
 Each phase prints its wall seconds.
 """
 import contextlib
 import json
+import math
 import os
 import re
 import statistics
@@ -2711,6 +2737,308 @@ def run_train_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState):
     )
 
 
+# -- the sharded phase ----------------------------------------------------------
+
+# llama3-8b at full width cut to 2 layers, bf16, B2 x 2048, remat="dots", two
+# steps from one init and one batch stream under each setup: the plain step,
+# the sharded step under "tp" and "fsdp_tp" on a one-rank NCCL world's (1, 1)
+# mesh, and the compressed step on that world.  A step launches the
+# attention twice a layer (the forward and remat's recompute) and its
+# backward once, all on wgmma.  AdamW at a peak lr of 1e-3 from the first
+# step, so that each update moves the bf16 weights by several of their
+# steps (at the default warmup the first lr is 3e-6, under half a bf16 step
+# of a weight)
+SHARDED = {"arch": "llama3-8b", "cut": {"n_layers": 2}, "batch": 2, "seq_len": 2048, "steps": 2, "remat": "dots",
+           "opt": {"warmup_steps": 1, "peak_lr": 1e-3}}
+SHARDED_SETUPS = ("unsharded", "tp", "fsdp_tp", "compressed")
+SHARDED_LAUNCHES = {"flash_attention": 4}
+SHARDED_BACKWARD = {"flash_attention_bwd": 2}
+# the compressed step against the plain one: its first loss is the plain
+# one's, its second within COMPRESSED_LOSS_TOL (relative), which must lie
+# below what the plain run's second loss reads without its first update
+# (``skipped_update_loss_rel_err``); its last update (the weights after the
+# last step less those before it) is the plain step's last update in
+# size within COMPRESSED_UPDATE_RATIO and in direction by a cosine of
+# COMPRESSED_UPDATE_COS or more (a skipped update reads a size of 0)
+# (H100 readings: 3.07e-4, a size of 0.862 and a cosine of 0.883; without
+# the first update the second loss reads 7.37e-3)
+COMPRESSED_LOSS_TOL = 6e-4
+COMPRESSED_UPDATE_RATIO = (0.7, 1.2)
+COMPRESSED_UPDATE_COS = 0.75
+# one decode step at llama3-8b width, 2 layers, B4, a cache of 4096 slots
+# (prompt 2048) in bf16, under tp with flash_decode against the plain decode
+FLASH_DECODE = {"arch": "llama3-8b", "cut": {"n_layers": 2}, "batch": 4, "prompt_len": 2048, "cache_len": 4096}
+FLASH_DECODE_TOL = 2e-2  # relative, bf16 logits
+
+
+@contextlib.contextmanager
+def one_rank_world(torch):
+    """A ``torch.distributed`` world of one rank on NCCL, its rendezvous a
+    FileStore in a temporary directory; destroyed on exit."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)  # the rank's device, before the DeviceMesh builds its communicators
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store") as d:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(d, "store"), 1), rank=0, world_size=1)
+        try:
+            yield dist
+        finally:
+            dist.destroy_process_group()
+
+
+def host_copy(torch, tree) -> list:
+    """The leaves of a parameter tree, copied to host memory (so that a kept
+    copy adds nothing to the next setup's peak device memory)."""
+    from repro_torch.models.spec import tree_leaves
+
+    return [t.detach().to("cpu", copy=True) for t in tree_leaves(tree)]
+
+
+def weights_equal(torch, dev, got: list, want: list) -> bool:
+    """Every host-copied leaf bit-equal, compared on the card a leaf at a time."""
+    return all(bool(torch.equal(a.to(dev), b.to(dev))) for a, b in zip(got, want))
+
+
+def update_agreement(torch, dev, got: tuple, want: tuple) -> tuple:
+    """(|u| / |w|, cos(u, w)) of two updates given as (after, before) pairs
+    of host-copied leaves, u = got[0] - got[1], w = want[0] - want[1], over
+    all leaves, in fp32 on the card a leaf at a time."""
+    uu = ww = uw = 0.0
+    for a1, a0, b1, b0 in zip(*got, *want):
+        u = a1.to(dev).float() - a0.to(dev).float()
+        w = b1.to(dev).float() - b0.to(dev).float()
+        uu, ww, uw = uu + float(torch.sum(u * u)), ww + float(torch.sum(w * w)), uw + float(torch.sum(u * w))
+    return math.sqrt(uu / max(ww, 1e-30)), uw / max(math.sqrt(uu * ww), 1e-30)
+
+
+def sharded_step_run(torch, ops, dev, model, setup: str, mesh, dc) -> dict:
+    """Two steps of one setup from the same init and batches: losses, step
+    seconds, peak memory, a step's launches, and the weights after the last
+    step (gathered, in host memory); the plain and the compressed runs keep
+    those before the last step too, the plain run its initial weights."""
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.optim import adamw
+    from repro_torch.optim.compression import compression_state
+    from repro_torch.parallel.sharding import STRATEGIES, param_pspec_tree
+    from repro_torch.train import step as step_lib
+
+    opt_cfg = adamw.AdamWConfig(**SHARDED["opt"])
+    strategy = STRATEGIES.get(setup, STRATEGIES["tp"])
+    sharded = setup != "unsharded"
+    gen = torch.Generator(dev).manual_seed(0)
+    if sharded:
+        params, opt = step_lib.init_train_state(model, gen, dev, strategy=strategy, mesh=mesh)
+    else:
+        params, opt = step_lib.init_train_state(model, gen, dev)
+    kept = {"params0": host_copy(torch, params)} if not sharded else {}
+    specs = param_pspec_tree(model.specs(), strategy, mesh) if sharded else None
+    gather = (lambda t: step_lib.gather_tree(t, specs, mesh)) if sharded else (lambda t: t)
+    if setup == "compressed":
+        comp = compression_state(model.specs(), 1, device=dev)
+        fn = step_lib.make_compressed_train_step(model, opt_cfg, strategy=strategy, mesh=mesh)
+    else:
+        fn = step_lib.make_train_step(model, opt_cfg, strategy=strategy if sharded else None, mesh=mesh if sharded else None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_s, per_step = [], [], []
+    for i in range(SHARDED["steps"]):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_at(dc, i).items()}
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if setup == "compressed":
+            params, opt, comp, metrics = fn(params, opt, comp, batch)
+        else:
+            params, opt, metrics = fn(params, opt, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        per_step.append((ops.launch_counts(), ops.backward_launch_counts(), ops.route_launch_counts()["flash_attention"],
+                         ops.backward_route_launch_counts()["flash_attention_bwd"]))
+        if i == SHARDED["steps"] - 2 and setup in ("unsharded", "compressed"):
+            kept["params_before_last"] = host_copy(torch, gather(params))
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    return {"losses": losses, "step_s": step_s, "peak_mem_gb": peak, "per_step": per_step, "params": host_copy(torch, gather(params)),
+            **kept}
+
+
+def run_sharded(torch, ops, dev) -> dict:
+    """The sharded phase on a one-rank NCCL world: the four setups of
+    SHARDED, remat "collectives" at the same shape, and the flash-decode
+    step.  Returns the attention's forward and backward launches a step of
+    the sharded setups."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.models.spec import tree_map
+    from repro_torch.parallel.sharding import STRATEGIES
+    from repro_torch.train import step as step_lib
+
+    cfg = get_arch(SHARDED["arch"]).replace(**SHARDED["cut"], remat=SHARDED["remat"])
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=SHARDED["seq_len"], global_batch=SHARDED["batch"])
+    want_fwd = {k: SHARDED_LAUNCHES.get(k, 0) for k in ops.LAUNCHES}
+    want_bwd = {k: SHARDED_BACKWARD.get(k, 0) for k in ops.BACKWARD_LAUNCHES}
+    n_attn, n_bwd = SHARDED_LAUNCHES["flash_attention"], SHARDED_BACKWARD["flash_attention_bwd"]
+    runs = {}
+    with one_rank_world(torch) as dist:
+        mesh = make_local_mesh(1)
+        if mesh.device_mesh is None or mesh.group("data") is None:
+            raise AssertionError("sharded: the one-rank world's mesh has no process group")
+        for setup in SHARDED_SETUPS:
+            runs[setup] = run = sharded_step_run(torch, ops, dev, Model(cfg), setup, mesh, dc)
+            torch.cuda.empty_cache()
+            for fwd, bwd, routes, bwd_routes in run["per_step"]:
+                if (fwd, bwd, routes, bwd_routes) != (want_fwd, want_bwd, all_on("wgmma", n_attn), all_on("wgmma", n_bwd)):
+                    raise AssertionError(f"sharded {setup}: launches {fwd} / {bwd} by route {routes} / {bwd_routes}, "
+                                         f"want {want_fwd} / {want_bwd} all on wgmma")
+        plain = runs["unsharded"]
+        base = plain["losses"]
+        # what the checks below read of a plain run whose first update was
+        # skipped: its second loss taken at the initial weights
+        model = Model(cfg)
+        with torch.no_grad():
+            leaves = iter(plain["params0"])
+            p0 = tree_map(lambda _: next(leaves).to(dev), model.specs())
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_at(dc, 1).items()}
+            skipped_loss = float(model.loss(p0, batch)[0])
+        del p0, batch
+        skipped_rel = abs(skipped_loss - base[1]) / abs(base[1])
+        if not COMPRESSED_LOSS_TOL < skipped_rel:
+            raise AssertionError(f"sharded: a skipped first update reads {skipped_rel}, within the compressed bound {COMPRESSED_LOSS_TOL}")
+        for setup, run in runs.items():
+            rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"], base)]
+            ok = all(math.isfinite(x) for x in run["losses"])
+            if setup == "compressed":  # int8 gradients: its second loss and last update near the plain ones
+                ratio, cos = update_agreement(torch, dev, (run["params"], run["params_before_last"]),
+                                              (plain["params"], plain["params_before_last"]))
+                lo, hi = COMPRESSED_UPDATE_RATIO
+                ok = ok and run["losses"][0] == base[0] and rel[1] <= COMPRESSED_LOSS_TOL and lo <= ratio <= hi and (
+                    cos >= COMPRESSED_UPDATE_COS)
+                weights = f"last_update_ratio={ratio} last_update_cos={cos}"
+            else:  # one rank: the plain step's arithmetic, bit for bit
+                equal = weights_equal(torch, dev, run["params"], plain["params"])
+                ok = ok and run["losses"] == base and equal
+                weights = f"params_bit_equal={equal}"
+            if not ok:
+                raise AssertionError(f"sharded {setup}: losses {run['losses']} against the plain step's {base} (relative {rel}), "
+                                     f"weights against the plain step's: {weights}")
+            fwd, bwd, routes, bwd_routes = run["per_step"][0]
+            print(
+                f"sharded setup={setup} arch={SHARDED['arch']} layers={cfg.n_layers} dtype={cfg.param_dtype} "
+                f"batch={SHARDED['batch']} seq_len={SHARDED['seq_len']} remat={cfg.remat} opt={json.dumps(SHARDED['opt'])} "
+                f"world={dist.get_world_size()} backend={dist.get_backend()} mesh={list(mesh.shape)} steps={len(run['losses'])} "
+                f"step_s={json.dumps(run['step_s'])} losses={json.dumps(run['losses'])} loss_rel_err={json.dumps(rel)} "
+                f"bit_equal={run['losses'] == base} {weights} "
+                f"skipped_update_loss_rel_err={skipped_rel} peak_mem_gb={run['peak_mem_gb']} "
+                f"attention_launches_per_step={fwd['flash_attention']} attention_routes={json.dumps(routes)} "
+                f"backward_launches_per_step={bwd['flash_attention_bwd']} backward_routes={json.dumps(bwd_routes)}",
+                flush=True,
+            )
+
+        # remat "collectives": only the post_collective outputs are saved, so
+        # the backward recomputes each layer's attention, as under "dots"
+        col = sharded_step_run(torch, ops, dev, Model(cfg.replace(remat="collectives")), "unsharded", None, dc)
+        torch.cuda.empty_cache()
+        fwd, bwd, routes, bwd_routes = col["per_step"][0]
+        equal = weights_equal(torch, dev, col["params"], plain["params"])
+        if any(p[:2] != (want_fwd, want_bwd) for p in col["per_step"]) or col["losses"] != base or not equal:
+            raise AssertionError(f"sharded remat=collectives: launches {col['per_step']}, losses {col['losses']} against "
+                                 f"{base}, weights bit-equal {equal}")
+        print(
+            f"sharded_remat policy=collectives arch={SHARDED['arch']} layers={cfg.n_layers} batch={SHARDED['batch']} "
+            f"seq_len={SHARDED['seq_len']} step_s={json.dumps(col['step_s'])} losses={json.dumps(col['losses'])} "
+            f"bit_equal={col['losses'] == base} params_bit_equal={equal} "
+            f"peak_mem_gb={col['peak_mem_gb']} dots_peak_mem_gb={plain['peak_mem_gb']} "
+            f"attention_launches_per_step={fwd['flash_attention']} attention_routes={json.dumps(routes)} "
+            f"backward_launches_per_step={bwd['flash_attention_bwd']} backward_routes={json.dumps(bwd_routes)}",
+            flush=True,
+        )
+        tp_fwd, tp_bwd = runs["tp"]["per_step"][0][:2]
+        del runs, col, plain
+
+        # the distributed flash-decode against the plain decode attention
+        fd = FLASH_DECODE
+        dcfg = get_arch(fd["arch"]).replace(**fd["cut"])
+        model = Model(dcfg)
+        params = model.init(torch.Generator(dev).manual_seed(0), dev)
+        gen = torch.Generator(dev).manual_seed(1)
+        toks = torch.randint(0, dcfg.vocab_size, (fd["batch"], fd["prompt_len"] + 1), generator=gen, device=dev, dtype=torch.int32)
+        _, cache = step_lib.make_prefill_step(model, fd["cache_len"])(params, {"tokens": toks[:, :-1]})
+        batch = {"tokens": toks[:, -1:], "pos": torch.full((fd["batch"],), fd["prompt_len"], dtype=torch.int32, device=dev)}
+        strategy = dataclasses.replace(STRATEGIES["tp"], name="tp_fd", flash_decode=True)
+        plain_decode = step_lib.make_decode_step(model)
+        flash = step_lib.make_decode_step(model, strategy=strategy, mesh=mesh)
+        want, _ = plain_decode(params, cache, batch)
+        got, _ = flash(params, cache, batch)
+        err = rel_err(got, want)
+        if not (err <= FLASH_DECODE_TOL and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"flash_decode: logits relative error {err} (<= {FLASH_DECODE_TOL})")
+        ms = {name: call_ms(torch, lambda f=f: f(params, cache, batch)) for name, f in (("flash", flash), ("plain", plain_decode))}
+        print(
+            f"flash_decode arch={fd['arch']} layers={dcfg.n_layers} dtype={dcfg.compute_dtype} batch={fd['batch']} "
+            f"cache_len={fd['cache_len']} pos={fd['prompt_len']} world={dist.get_world_size()} rel_err={err} "
+            f"step_ms={ms['flash']} plain_step_ms={ms['plain']}",
+            flush=True,
+        )
+        del params, cache
+        torch.cuda.empty_cache()
+    return {"flash_attention": tp_fwd["flash_attention"], "flash_attention_bwd": tp_bwd["flash_attention_bwd"]}
+
+
+# the port's examples on the card: (module, keyword arguments, the kernels
+# whose launches must be nonzero); serve_lm reaches the attention and both
+# scans, train_lm's fp32 100M llama the attention and its backward on tf32x3
+EXAMPLES = [
+    ("quickstart", {}, ("flash_attention",)),
+    ("facts_workflow", {}, ()),
+    ("serve_lm", {}, ("flash_attention", "selective_scan", "rglru_scan")),
+    ("train_lm", {"steps": 200}, ("flash_attention",)),
+]
+
+
+def run_examples(torch, ops, dev) -> dict:
+    """Each example's ``main`` on the card, its output ending in ``OK``:
+    its launches per kernel (forward and backward) and by route."""
+    import importlib
+    import io
+
+    out = {}
+    for name, kwargs, must in EXAMPLES:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        ops.reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.main(device=dev.type, **kwargs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lines = buf.getvalue().rstrip().splitlines()
+        fwd, bwd = ops.launch_counts(), ops.backward_launch_counts()
+        routes, bwd_routes = ops.route_launch_counts(), ops.backward_route_launch_counts()
+        missing = [k for k in must if not fwd[k]]
+        if not lines or lines[-1] != "OK" or missing:
+            raise AssertionError(f"example {name}: last line {lines[-1:]}, no launches of {missing}\n" + "\n".join(lines[-20:]))
+        if name == "train_lm":  # fp32: the attention and its backward on tf32x3, every step
+            attn, attn_bwd = routes["flash_attention"], bwd_routes["flash_attention_bwd"]
+            if not (bwd["flash_attention_bwd"] and attn["tf32x3"] == fwd["flash_attention"] and attn_bwd["tf32x3"] == bwd["flash_attention_bwd"]):
+                raise AssertionError(f"example train_lm: attention routes {attn}, backward {attn_bwd}")
+        out[name] = fwd
+        print(
+            f"example name={name} ok=true wall_s={wall} launches={json.dumps(fwd)} backward_launches={json.dumps(bwd)} "
+            f"routes={json.dumps({k: {r: n for r, n in v.items() if n} for k, v in routes.items()})} "
+            f"backward_routes={json.dumps({k: {r: n for r, n in v.items() if n} for k, v in bwd_routes.items()})} "
+            f"last_lines={json.dumps(lines[-3:])}",
+            flush=True,
+        )
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository (src/repro_torch is missing)", file=sys.stderr)
@@ -2896,7 +3224,14 @@ def main() -> int:
           f"retry_found={PROFILE_STATS['retry_found']}", flush=True)
     print(f"phase name=train wall_s={time.perf_counter() - phase_t0}", flush=True)
 
-    # -- 8. report ---------------------------------------------------------------
+    # -- 8. sharded --------------------------------------------------------------
+    phase_t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    sharded_launches = run_sharded(torch, ops, dev)
+    example_launches = run_examples(torch, ops, dev)
+    print(f"phase name=sharded wall_s={time.perf_counter() - phase_t0}", flush=True)
+
+    # -- 9. report ---------------------------------------------------------------
     report = []
     for name in sorted(kreg.KERNELS):
         route, source, replaces = KERNEL_INFO[name]
@@ -2910,6 +3245,8 @@ def main() -> int:
             "ms": row["ms"], "ms_cold": row["ms_cold"], "ms_call": row["ms_call"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "model": row["case"], "dtype": row["dtype"],
+            "sharded_launches_per_step": sharded_launches.get(name, 0),
+            "example_launches": {ex: n[name] for ex, n in example_launches.items()},
         })
         fp32_keys = ("case", "route", "max_abs_err", "rel_err", "ms", "ms_cold", "ms_call", "plain_ms", "library_ms",
                      "bound_ms", "bound_by", "bound_3x_ms", "simt_bound_ms")
@@ -2953,7 +3290,8 @@ def main() -> int:
             "name": name, "route": route, "source": source, "replaces": replaces,
             "note": "backward kernel; the reference has no Pallas backward and differentiates this function with XLA",
             **extra,
-            "launches": train_backward[name], "max_abs_err": row["max_abs_err"], "rel_err": row["rel_err"],
+            "launches": train_backward[name], "sharded_launches_per_step": sharded_launches.get(name, 0),
+            "max_abs_err": row["max_abs_err"], "rel_err": row["rel_err"],
             "ms": row["ms"], "ms_cold": row["ms_cold"], "ms_call": row["ms_call"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "model": row["case"], "dtype": row["dtype"],
         })

@@ -1,7 +1,7 @@
 """Training driver: data pipeline + train step + checkpoint/restart.
 
-Counterpart of ``repro/launch/train.py``, on one process and one device.
-Runs on a CUDA device unless the caller asks for the CPU::
+Counterpart of ``repro/launch/train.py``.  Runs on a CUDA device unless the
+caller asks for the CPU::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \\
         --steps 200 --ckpt-dir /tmp/ckpt --ckpt-every 50 --device cpu
@@ -13,11 +13,19 @@ Runs on a CUDA device unless the caller asks for the CPU::
     and writes it in the background, overlapping the next steps;
   * the prefetcher keeps batches ready on the device.
 
-The reference's ``--strategy`` (a sharding strategy over a mesh) waits for
-sharding (ROADMAP.md, "Modules to port", item 6), and so does its
-gradient compression.  Its ``--reduced`` is a ``store_true`` that defaults
-to True and cannot be turned off except by ``--full``; here
-``--reduced/--no-reduced`` (and ``--full``) do both.
+With ``--strategy`` (or in a ``torch.distributed`` world of more than one
+rank, started by the caller: NCCL on the card, gloo on the CPU) the step runs
+sharded over ``make_local_mesh(world size)``, a ("data", "model") mesh whose
+"model" axis is 1, under the named strategy or the config's default, as the
+reference's driver builds them (``src/repro/launch/train.py:50-55``): each
+rank takes its shard of every global batch, keeps its shards of the
+parameters and of AdamW's moments (``train/step.py``), and checkpoints hold
+the global state, gathered and written by rank 0.  The reference's driver
+takes no gradient compression, and neither does this one
+(``train/step.make_compressed_train_step`` is its own step).  Its
+``--reduced`` is a ``store_true`` that defaults to True and cannot be turned
+off except by ``--full``; here ``--reduced/--no-reduced`` (and ``--full``)
+do both.
 """
 from __future__ import annotations
 
@@ -26,19 +34,26 @@ import time
 from typing import Optional
 
 import torch
+import torch.distributed
 
 from repro_torch.ckpt import checkpoint as ckpt_lib
 from repro_torch.configs import get_arch
 from repro_torch.data.pipeline import DataConfig, Prefetcher
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw
+from repro_torch.parallel.sharding import STRATEGIES, default_strategy
 from repro_torch.train import step as step_lib
 
-STRATEGY_NOT_PORTED = (
-    "train(strategy_name=...): sharding strategies are not ported yet "
-    "(ROADMAP.md, 'Modules to port', item 6); the port trains on one device"
-)
+
+def strategy_for(arch, strategy_name: Optional[str] = None):
+    """The named strategy or the config's default; a moe config with fewer
+    than 16 experts does not split them (``src/repro/launch/train.py:51-53``)."""
+    strategy = STRATEGIES[strategy_name] if strategy_name else default_strategy(arch)
+    if arch.family == "moe" and arch.n_experts < 16:
+        strategy = strategy.with_overrides(experts=None)
+    return strategy
 
 
 def _device(device) -> torch.device:
@@ -73,16 +88,21 @@ def train(
     (first and final loss, params, opt) plus, per step taken here, its loss,
     grad norm, wall seconds (synchronized) and kernel launches forward and
     backward (``ops`` counts process-wide: run nothing else on the kernels
-    meanwhile), and on a CUDA device the peak memory."""
-    if strategy_name is not None:
-        raise NotImplementedError(STRATEGY_NOT_PORTED)
+    meanwhile), and on a CUDA device the peak memory.  Sharded (a strategy
+    named, or a world of several ranks), ``params`` and ``opt`` are this
+    rank's shards."""
     dev = _device(device)
     arch = get_arch(arch_name)
     if reduced:
         arch = arch.reduced()
     model = Model(arch)
+    strategy = mesh = None
+    world = torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1
+    if strategy_name is not None or world > 1:
+        mesh = make_local_mesh(world)
+        strategy = strategy_for(arch, strategy_name)
     opt_cfg = adamw.AdamWConfig(peak_lr=peak_lr, warmup_steps=max(steps // 10, 1), total_steps=steps)
-    train_step = step_lib.make_train_step(model, opt_cfg)
+    train_step = step_lib.make_train_step(model, opt_cfg, strategy=strategy, mesh=mesh)
 
     dc = DataConfig(
         vocab_size=arch.vocab_size, seq_len=seq_len, global_batch=global_batch,
@@ -100,6 +120,15 @@ def train(
             start_step, restored = ckpt_lib.restore(ckpt_dir, {"params": params, "opt": opt})
             params, opt = restored["params"], restored["opt"]
             print(f"resumed from step {start_step}")
+    if mesh is not None:  # every rank drew (or restored) the global state; keep its shards
+        shardings = step_lib.make_shardings(model, strategy, mesh, {})
+        params, opt = step_lib.shard_tree(params, shardings.params, mesh), step_lib.shard_tree(opt, shardings.opt, mesh)
+
+    def global_state():
+        if mesh is None:
+            return {"params": params, "opt": opt}
+        return {"params": step_lib.gather_tree(params, shardings.params, mesh),
+                "opt": step_lib.gather_tree(opt, shardings.opt, mesh)}
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -125,7 +154,9 @@ def train(
                 print(f"step {step_idx + 1:5d} loss {loss:.4f} "
                       f"lr {float(metrics['lr']):.2e} ({dt*1e3:.0f} ms/step)")
             if checkpointer and (step_idx + 1) % ckpt_every == 0:
-                checkpointer.save(step_idx + 1, {"params": params, "opt": opt})
+                state = global_state()  # a collective when sharded: every rank gathers
+                if not torch.distributed.is_initialized() or torch.distributed.get_rank() == 0:
+                    checkpointer.save(step_idx + 1, state)
     finally:
         prefetch.close()
         if checkpointer:

@@ -9,15 +9,18 @@ version (``kernels/ref.py``) on CPU tensors.  The models keep the reference's
 transposed into contiguous copies and the output back.
 
 ``decode_attention`` (one token against a cache) is plain PyTorch, as it is
-an XLA computation and not a Pallas kernel in the reference.  Its
-distributed flash-decode twin waits for sharding (ROADMAP.md, "Modules to
-port", item 6).
+an XLA computation and not a Pallas kernel in the reference.  Under a
+strategy with ``flash_decode`` (``parallel/sharding.py``) it takes the
+distributed flash-decode path (``attention.py:145-225``): the ranks of the
+"model" group each attend to their slice of the cache's sequence and
+combine their partial softmax states with two all-reduces.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import ops
 
@@ -78,22 +81,72 @@ def decode_attention(
     ``cache_positions`` (B, Lc): absolute position stored at each cache slot
     (ring buffers for windowed attention); defaults to arange for linear caches.
     Products in fp32, as the reference asks with ``preferred_element_type``.
+
+    When the active strategy enables flash_decode, dispatches to the
+    distributed flash-decode path (each rank of the "model" group attends to
+    its slice of the cache; the partial softmax states combine with an
+    LSE-rescaled sum - no cache gather).
     """
-    b, _, h, hd = q.shape
-    lc = k_cache.shape[1]
-    kr = repeat_kv(k_cache, h)
-    vr = repeat_kv(v_cache, h)
-    scale = 1.0 / (hd**0.5)
-    s = torch.einsum("bhd,blhd->bhl", q[:, 0].float(), kr.float()) * scale  # (B, H, Lc)
+    from repro_torch.parallel.sharding import current_mesh, flash_decode_enabled
+
+    b, lc = q.shape[0], k_cache.shape[1]
     if cache_positions is None:
         cache_positions = torch.arange(lc, device=q.device)[None, :].expand(b, lc)
+    if flash_decode_enabled():
+        return _decode_attention_distributed(q, k_cache, v_cache, pos, cache_positions, window, current_mesh())
+    s, _ = _masked_scores(q, k_cache, pos, cache_positions, window)  # (B, H, Lc)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhl,blhd->bhd", p, repeat_kv(v_cache, q.shape[2]).float())
+    return out[:, None].to(q.dtype)
+
+
+def _masked_scores(q, k, pos, cache_positions, window):
+    """The fp32 scores (B, H, Lc) of the query token q (B, 1, H, hd) against
+    the keys k (B, Lc, KV, hd), with each slot that is not attended to (past
+    ``pos``, out of the ``window``, or at position -1) at -inf's stand-in,
+    and the mask of the attended slots (B, Lc)."""
+    h, hd = q.shape[2], q.shape[3]
+    s = torch.einsum("bhd,blhd->bhl", q[:, 0].float(), repeat_kv(k, h).float()) * (1.0 / (hd**0.5))
     valid = cache_positions <= pos[:, None]
     if window is not None:
         valid &= cache_positions > (pos[:, None] - window)
     valid &= cache_positions >= 0
-    s = torch.where(valid[:, None, :], s, torch.tensor(_NEG, device=q.device))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhl,blhd->bhd", p, vr.float())
+    return torch.where(valid[:, None, :], s, torch.tensor(_NEG, device=q.device)), valid
+
+
+def _decode_attention_distributed(q, k_cache, v_cache, pos, cache_positions, window, mesh) -> torch.Tensor:
+    """Distributed flash-decode: the cache's sequence is padded to a
+    multiple of the "model" group's size (padded slots at position -1, which
+    the validity test masks) and split in even slices; this rank computes
+    the partial (m, l, acc) of its slice in fp32, and the group combines
+    them: m_g = max over ranks, l = sum of l e^(m - m_g), acc likewise.
+    Every rank of the group holds the whole cache of its batch shard and
+    returns the whole output."""
+    lc = k_cache.shape[1]
+    n_model, r = mesh.axis_size("model"), mesh.coordinate("model")
+    pad = (-lc) % n_model
+    if pad:
+        k_cache = torch.nn.functional.pad(k_cache, (0, 0, 0, 0, 0, pad))
+        v_cache = torch.nn.functional.pad(v_cache, (0, 0, 0, 0, 0, pad))
+        cache_positions = torch.nn.functional.pad(cache_positions, (0, pad), value=-1)
+    part = (lc + pad) // n_model
+    sl = slice(r * part, (r + 1) * part)
+    s, valid = _masked_scores(q, k_cache[:, sl], pos, cache_positions[:, sl], window)
+    m = torch.amax(s, dim=-1)  # (B, H)
+    p = torch.exp(s - m[..., None]) * valid[:, None, :]
+    l = torch.sum(p, dim=-1)
+    acc = torch.einsum("bhl,blhd->bhd", p, repeat_kv(v_cache[:, sl], q.shape[2]).float())
+    # combine the partial softmax states across the cache's slices
+    group = mesh.group("model")
+    m_g = m.clone()
+    if group is not None:
+        dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=group)
+    corr = torch.exp(m - m_g)
+    l_g, acc_g = l * corr, acc * corr[..., None]
+    if group is not None:
+        dist.all_reduce(l_g, group=group)
+        dist.all_reduce(acc_g, group=group)
+    out = acc_g / torch.clamp(l_g, min=1e-37)[..., None]
     return out[:, None].to(q.dtype)
 
 

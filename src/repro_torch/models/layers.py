@@ -1,12 +1,12 @@
 """Core layer primitives shared by every model family (plain PyTorch).
 
 Counterpart of ``repro/models/layers.py``, with the same fp32 upcasts.  The
-reference's ``shard_x`` annotations are dropped (one device; sharding is
-ROADMAP.md, "Modules to port", item 6), and its ``scan_layers`` becomes a
-plain loop over the layer index of the stacked leaves (``models/spec.py``:
-``layer``, ``stack_layers``), each layer one call of :func:`remat`, which
-rematerialises it by the config's policy, as ``jax.checkpoint`` does in the
-reference's scan body.
+reference's ``shard_x`` annotations are dropped: each rank computes on its
+own shard, which the steps cut (``train/step.py``).  Its ``scan_layers``
+becomes a plain loop over the layer index of the stacked leaves
+(``models/spec.py``: ``layer``, ``stack_layers``), each layer one call of
+:func:`remat`, which rematerialises it by the config's policy, as
+``jax.checkpoint`` does in the reference's scan body.
 """
 from __future__ import annotations
 
@@ -110,14 +110,44 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
+@torch.library.custom_op("repro_torch::post_collective", mutates_args=())
+def _post_collective(x: torch.Tensor) -> torch.Tensor:
+    return x.clone()  # a custom op's output may not alias its input
+
+
+@_post_collective.register_fake
+def _(x):
+    return torch.empty_like(x)
+
+
+_post_collective.register_autograd(lambda ctx, grad: grad)
+
+
+def post_collective(x: torch.Tensor, remat: str) -> torch.Tensor:
+    """Tag an activation produced right after a tensor-parallel collective
+    (``layers.py:136-141``) for the remat policy ``remat``: under
+    "collectives" with grad mode on, an identity op,
+    ``repro_torch::post_collective`` (a copy), whose output the policy
+    saves; otherwise ``x`` itself, as no other policy reads the tag."""
+    if remat != "collectives" or not torch.is_grad_enabled():
+        return x
+    return _post_collective(x)
+
+
+def _collectives_policy(ctx, op, *args, **kwargs):
+    if op is torch.ops.repro_torch.post_collective.default:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def remat_policy(name: str) -> Optional[Callable]:
     """The ``context_fn`` that ``torch.utils.checkpoint`` takes for a policy
     name, as the reference's ``remat_policy`` (``layers.py:121-137``) maps a
     name to a ``jax.checkpoint`` policy: ``"none"`` checkpoints nothing
     (None), ``"full"`` saves nothing but the inputs (the default context),
-    ``"dots"`` saves the outputs of ``mm``/``addmm``.  ``"collectives"``
-    names activations after tensor-parallel collectives, which one device
-    does not have."""
+    ``"dots"`` saves the outputs of ``mm``/``addmm``, ``"collectives"``
+    saves only the activations tagged by :func:`post_collective` (JAX's
+    ``save_only_these_names("post_collective")``)."""
     if name == "none":
         return None
     if name == "full":
@@ -125,10 +155,7 @@ def remat_policy(name: str) -> Optional[Callable]:
     if name == "dots":
         return functools.partial(_ckpt.create_selective_checkpoint_contexts, _dots_policy)
     if name == "collectives":
-        raise NotImplementedError(
-            "remat='collectives' saves the activations after tensor-parallel collectives; sharding is not "
-            "ported yet (ROADMAP.md, 'Modules to port', item 6)"
-        )
+        return functools.partial(_ckpt.create_selective_checkpoint_contexts, _collectives_policy)
     raise ValueError(name)
 
 

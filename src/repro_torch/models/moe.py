@@ -9,8 +9,10 @@ expert products (``moe.py:131-135``) run on the grouped GEMM kernel
 (``ops.moe_gmm``): the dispatched tokens are laid out (E, G * C, D), each
 expert's rows of every group together, so one launch multiplies every
 expert's rows by its weights.  On the card its gradient is the hand-written
-``moe_gmm`` backward.  The reference's ``shard_x`` annotations are dropped
-(one device).  Layers are a loop over the stacked leaves, each one call of
+``moe_gmm`` backward.  The reference's ``shard_x`` annotations are dropped:
+each rank computes on its own shard, which the steps cut (``train/step.py``;
+the expert split over "model" is tensor parallelism, ROADMAP.md item 6b).
+Layers are a loop over the stacked leaves, each one call of
 ``layers.remat``.
 """
 from __future__ import annotations

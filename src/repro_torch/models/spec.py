@@ -3,9 +3,8 @@
 Counterpart of ``repro/models/spec.py``.  Every model family declares its
 parameters as a nested dict of ``ParamSpec``.  From the same spec tree come
 the parameter count (no allocation), the initialised tensors on a device
-and the shapes of the serve path's caches.  The logical axis names are kept for
-the sharding rules (ROADMAP.md, "Modules to port", item 6); one device uses
-none of them.
+and the shapes of the serve path's caches, and through the logical axis names
+the sharding specs (``parallel/sharding.py``: ``param_pspec_tree``).
 
 Trees are nested dicts, walked in sorted key order as ``jax.tree`` walks a
 dict, so a tree of the reference's numpy leaves maps onto the port's leaf

@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import apply_rope, embed_tokens, lm_logits, remat, rms_norm, swiglu
+from repro_torch.models.layers import apply_rope, embed_tokens, lm_logits, post_collective, remat, rms_norm, swiglu
 from repro_torch.models.spec import ParamSpec, dense, layer, stack_layers, stacked, torch_dtype
 
 
@@ -67,15 +67,17 @@ def specs(cfg: ArchConfig) -> dict:
 
 
 def self_attn_block(cfg: ArchConfig, x, p, pos, *, window=None):
-    """Returns (x, (k, v)): the layer's output and its (k, v) cache."""
+    """Returns (x, (k, v)): the layer's output and its (k, v) cache.  The
+    two branch outputs are tagged ``post_collective`` where the reference
+    tags them (``transformer.py:86,88``), for remat "collectives"."""
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
     q, k, v = attn.qkv_proj(h, p["attn"])
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     a = attn.attention(q, k, v, causal=True, window=window)
-    x = x + attn.out_proj(a, p["attn"]["wo"])
+    x = x + post_collective(attn.out_proj(a, p["attn"]["wo"]), cfg.remat)
     h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    x = x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+    x = x + post_collective(swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"]), cfg.remat)
     return x, (k, v)
 
 

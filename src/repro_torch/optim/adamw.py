@@ -1,4 +1,5 @@
-"""AdamW with fp32 state over bf16 params and global-norm clipping.
+"""AdamW with fp32 state over bf16 params, global-norm clipping, and
+ZeRO-1 optimizer-state specs.
 
 Counterpart of ``repro/optim/adamw.py`` (``:19-107``), with the same
 schedule, clipping and update arithmetic: the moments m and v are fp32, the
@@ -11,8 +12,10 @@ parameters and moments into the tensors it is given, under
 size m and v alone are 26.6 GB, and a second copy of them would not fit
 beside the activations on one card.
 
-The ZeRO-1 partition specs (``zero1_pspec``, ``opt_pspec_tree``) wait for
-sharding (ROADMAP.md, "Modules to port", item 6).
+The ZeRO-1 specs (``zero1_pspec``, ``opt_pspec_tree``, ``:110-139``) shard
+m and v over "data" even where the parameter is replicated; the sharded
+train step (``train/step.py``) updates each rank's slice with
+``update_leaf``, the arithmetic ``apply_updates`` runs on whole leaves.
 """
 from __future__ import annotations
 
@@ -72,27 +75,41 @@ def apply_updates(cfg: AdamWConfig, params, grads, state):
     tensors."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
+    scale, lr, b1c, b2c = step_scalars(cfg, step, gnorm)
+
+    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]), tree_leaves(state["v"])):
+        update_leaf(cfg, p, g, m, v, scale, lr, b1c, b2c)
+    state["step"] = step
+    return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def step_scalars(cfg: AdamWConfig, step: torch.Tensor, gnorm: torch.Tensor):
+    """(clip scale, lr, b1c, b2c) of step ``step`` (counted from 1) at
+    gradient norm ``gnorm``."""
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = lr_schedule(cfg, step)
     stepf = step.to(torch.float32)
     b1c = 1 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32, device=stepf.device), stepf)
     b2c = 1 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32, device=stepf.device), stepf)
+    return scale, lr, b1c, b2c
 
-    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]), tree_leaves(state["v"])):
-        g32 = g.float() * scale
-        m.mul_(cfg.b1).add_((1 - cfg.b1) * g32)
-        v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g32))
-        # delta = mhat / (sqrt(vhat) + eps) + wd * p, built in g32's room
-        denom = torch.div(v, b2c, out=g32).sqrt_().add_(cfg.eps)
-        delta = torch.div(m, b1c).div_(denom)
-        p32 = p.float()  # p itself when p is fp32
-        delta.add_(cfg.weight_decay * p32)
-        if p32 is p:
-            p.sub_(lr * delta)
-        else:
-            p.copy_(p32.sub_(lr * delta))
-    state["step"] = step
-    return params, state, {"grad_norm": gnorm, "lr": lr}
+
+@torch.no_grad()
+def update_leaf(cfg: AdamWConfig, p, g, m, v, scale, lr, b1c, b2c) -> None:
+    """One AdamW update of one leaf (or one slice of it) in place: ``p``,
+    ``m`` and ``v`` are written, ``g`` is read."""
+    g32 = g.float() * scale
+    m.mul_(cfg.b1).add_((1 - cfg.b1) * g32)
+    v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g32))
+    # delta = mhat / (sqrt(vhat) + eps) + wd * p, built in g32's room
+    denom = torch.div(v, b2c, out=g32).sqrt_().add_(cfg.eps)
+    delta = torch.div(m, b1c).div_(denom)
+    p32 = p.float()  # p itself when p is fp32
+    delta.add_(cfg.weight_decay * p32)
+    if p32 is p:
+        p.sub_(lr * delta)
+    else:
+        p.copy_(p32.sub_(lr * delta))
 
 
 def opt_state_specs(param_specs) -> dict:
@@ -104,3 +121,39 @@ def opt_state_specs(param_specs) -> dict:
         "v": tree_map(f32, param_specs),
         "step": ParamSpec((), (), "int32", "zeros"),
     }
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1: optimizer-state sharding specs
+# ---------------------------------------------------------------------------
+
+
+def zero1_pspec(param_pspec, shape, data_size: int) -> tuple:
+    """Extend a param's spec with 'data' on its largest unsharded, divisible
+    dim (the first of equals).  This shards m/v over the data axis even when
+    the param itself is only tensor-parallel - ZeRO-1.  Falls back to the
+    param's own spec when no dim divides (tiny tensors: norm scales,
+    gates)."""
+    spec = list(param_pspec) + [None] * (len(shape) - len(param_pspec))
+    used = {a for s in spec if s for a in ((s,) if isinstance(s, str) else s)}
+    if "data" in used or not shape:
+        return tuple(spec)
+    candidates = [i for i, s in enumerate(spec) if s is None and shape[i] % data_size == 0]
+    if not candidates:
+        return tuple(spec)
+    i = max(candidates, key=lambda i: shape[i])
+    spec[i] = "data"
+    return tuple(spec)
+
+
+def opt_pspec_tree(param_specs, param_pspecs, zero1: bool, data_size: int = 1) -> dict:
+    """Specs for the optimizer state tree: m and v per ``zero1_pspec`` (or
+    the params' own without ZeRO-1), the step replicated."""
+    pspecs = iter(tree_leaves(param_pspecs))
+
+    def one(spec: ParamSpec):
+        pspec = tuple(next(pspecs))
+        return zero1_pspec(pspec, spec.shape, data_size) if zero1 else pspec
+
+    m = tree_map(one, param_specs)
+    return {"m": m, "v": tree_map(lambda x: x, m), "step": ()}

@@ -1,32 +1,279 @@
-"""Train and serve step builders: model + optimizer -> step functions.
+"""Train and serve step builders: model + sharding strategy + optimizer -> steps.
 
-Counterpart of ``repro/train/step.py`` (``:91-210``), on one device.  The
-reference's builders also take a sharding ``Strategy`` and a ``Mesh`` and
-wrap each step in its activation rules; sharding is not ported (ROADMAP.md,
-"Modules to port", item 6), so the port's take the model and, for training,
-the optimizer config only.  ``make_compressed_train_step`` (int8 gradient
-reduction over data-parallel ranks) waits for the same item.
+Counterpart of ``repro/train/step.py``.  PyTorch runs eagerly: a step
+function is a plain closure, built once and called per batch, where the
+reference's is jitted.
 
-PyTorch runs eagerly: a step function is a plain closure, built once and
-called per batch, where the reference's is jitted.
+Without a mesh a step runs on one device.  With one (``launch/mesh.py``),
+every rank of the ``torch.distributed`` world runs the same step on its
+shard, as the reference's GSPMD program does:
+
+  * a step takes the global batch; each rank computes on its shard of it
+    over the dp axes (``batch_pspecs``), and what a step returns for the
+    batch (metrics, logits) is global again;
+  * state kept between steps lives in shards: the parameters as
+    ``param_pspec_tree`` cuts them (the fsdp rules shard over "data"),
+    AdamW's m and v as ``opt_pspec_tree`` cuts them (ZeRO-1), a serve
+    step's cache as its rank's batch shard's;
+    ``shard_tree`` and ``gather_tree`` move a tree between the global and
+    the local layout;
+  * a train step gathers the parameters for the loss, averages the
+    gradients over the dp ranks (an all-reduce, or ``compressed_mean`` in
+    the compressed step), and each rank updates its slice of the moments
+    and of the parameters and gathers the parameters' shards back.
+
+The shards save memory between steps only.  During a train step every rank
+holds the whole parameters, gathered at its start, and the whole gradients,
+all-reduced whole, beside its shards: its peak is the unsharded model's
+and more.  So a model that does not fit one card unsharded does not train
+on any number of cards with these steps (grok-1, arctic, llama3-405b at
+full depth); that needs the parameters gathered a layer at a time inside
+the layer loop and the gradients reduce-scattered to the shards (ROADMAP.md,
+"Modules to port", item 6c).
+
+Only a "model" axis of 1 runs in a train or prefill step: the rules'
+tensor-parallel splits are ROADMAP.md, "Modules to port", item 6b.  The
+decode step takes any mesh: its weights are whole on every rank, and under
+a strategy with ``flash_decode`` the attention splits the cache's sequence
+over "model" (``models/attention.py``).  The serve steps take whole weights.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Any, Optional
+
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.model import Model
 from repro_torch.models.spec import tree_leaves, tree_map
 from repro_torch.optim import adamw
+from repro_torch.parallel.sharding import (
+    Strategy,
+    activation_rules,
+    default_strategy,
+    dp_axes,
+    local_shape,
+    mesh_axis_sizes,
+    param_pspec_tree,
+    resolve_axes,
+    spec_axes,
+)
+
+TP_NOT_PORTED = (
+    "{what} on a mesh whose 'model' axis is {n}: tensor parallelism is not ported yet "
+    "(ROADMAP.md, 'Modules to port', item 6b); use a 'model' axis of 1"
+)
 
 
-def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig):
+# ---------------------------------------------------------------------------
+# Sharding bundles
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class StepShardings:
+    params: Any  # spec tree
+    opt: Any
+    batch: Any
+    cache: Optional[Any] = None
+
+
+def batch_pspecs(batch_specs: dict, mesh, strategy: Optional[Strategy] = None) -> dict:
+    """tokens/labels (B, L) -> (dp, None); stub embeddings (B, T, D) likewise.
+    Respects the strategy's "batch" activation rule (serve_2dtp replicates).
+    The leaves need only a ``shape``."""
+    rules = {"batch": strategy.act_rules.get("batch", "__dp__") if strategy else "__dp__"}
+    sizes = mesh_axis_sizes(mesh)
+
+    def one(leaf):
+        axes = ("batch",) + (None,) * (len(leaf.shape) - 1)
+        return resolve_axes(axes, rules, mesh.axis_names, tuple(leaf.shape), sizes)
+
+    return tree_map(one, batch_specs)
+
+
+def act_pspec_tree(specs, strategy: Strategy, mesh):
+    """Cache/state spec tree -> specs via the *activation* rules."""
+    sizes = mesh_axis_sizes(mesh)
+    return tree_map(lambda s: resolve_axes(s.axes, strategy.act_rules, mesh.axis_names, s.shape, sizes), specs)
+
+
+def make_shardings(model: Model, strategy: Strategy, mesh, batch_specs: dict, cache_specs=None) -> StepShardings:
+    pspecs = param_pspec_tree(model.specs(), strategy, mesh)
+    opt = adamw.opt_pspec_tree(model.specs(), pspecs, strategy.zero1, mesh_axis_sizes(mesh).get("data", 1))
+    batch = batch_pspecs(batch_specs, mesh, strategy)
+    cache = act_pspec_tree(cache_specs, strategy, mesh) if cache_specs is not None else None
+    return StepShardings(pspecs, opt, batch, cache)
+
+
+# ---------------------------------------------------------------------------
+# Moving trees between the global and a rank's local layout
+# ---------------------------------------------------------------------------
+
+
+def local_slices(shape, spec, mesh) -> tuple:
+    """This rank's slice of each dim of a global tensor of ``shape`` under
+    ``spec``: block ``i`` of ``n``, with ``n`` the product of the dim's
+    axes' sizes and ``i`` the rank's coordinates over them, the first axis
+    outermost (a JAX mesh's order)."""
+    lshape = local_shape(tuple(shape), spec, mesh)
+    out = []
+    for size, entry in zip(lshape, spec):
+        idx = 0
+        for a in spec_axes(entry):
+            idx = idx * mesh.axis_size(a) + mesh.coordinate(a)
+        out.append(slice(idx * size, (idx + 1) * size))
+    return tuple(out)
+
+
+def shard(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's shard of the global tensor ``t``, a contiguous copy."""
+    return t[local_slices(t.shape, spec, mesh)].contiguous()
+
+
+def gather(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The global tensor of which ``t`` is this rank's shard under ``spec``:
+    an all_gather along each dim split over more than one rank.  A dim split
+    over two axes with more than one rank each is tensor parallelism
+    (item 6b)."""
+    for d, entry in enumerate(spec):
+        live = [a for a in spec_axes(entry) if mesh.axis_size(a) > 1]
+        if not live:
+            continue
+        if len(live) > 1:
+            raise NotImplementedError(TP_NOT_PORTED.format(what=f"a dim split over {tuple(live)}", n=mesh.axis_size("model")))
+        parts = [torch.empty_like(t) for _ in range(mesh.axis_size(live[0]))]
+        dist.all_gather(parts, t.contiguous(), group=mesh.group(live[0]))
+        t = torch.cat(parts, dim=d)
+    return t
+
+
+def shard_tree(tree, specs, mesh):
+    """Each leaf of a global tree cut to this rank's shard (``specs``: a
+    tree of the same nesting, one spec a leaf)."""
+    flat = iter(tree_leaves(specs))
+    return tree_map(lambda t: shard(t, next(flat), mesh), tree)
+
+
+def gather_tree(tree, specs, mesh):
+    """Each leaf of a local tree gathered to the global tensor (a
+    collective: every rank calls it)."""
+    flat = iter(tree_leaves(specs))
+    return tree_map(lambda t: gather(t, next(flat), mesh), tree)
+
+
+def _refuse_model_parallel(mesh, what: str) -> None:
+    n = mesh.axis_size("model")
+    if n > 1:
+        raise NotImplementedError(TP_NOT_PORTED.format(what=what, n=n))
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """A sum in place over ``group``; nothing without a group (a world of one)."""
+    if group is not None:
+        dist.all_reduce(t, group=group)
+    return t
+
+
+class _Layout:
+    """One model's train state on a mesh: each leaf's spec as a parameter
+    and as a moment, and the dp group its gradients are averaged over."""
+
+    def __init__(self, model: Model, strategy: Strategy, mesh):
+        for a in dp_axes(mesh.axis_names):
+            if a != "data" and mesh.axis_size(a) > 1:
+                raise NotImplementedError(f"a dp axis {a!r} of {mesh.axis_size(a)} ranks: local meshes are ('data', 'model')")
+        specs = model.specs()
+        pspecs = param_pspec_tree(specs, strategy, mesh)
+        self.mesh = mesh
+        self.strategy = strategy
+        self.shapes = [s.shape for s in tree_leaves(specs)]
+        self.params = tree_leaves(pspecs)
+        opt = adamw.opt_pspec_tree(specs, pspecs, strategy.zero1, mesh.axis_size("data"))
+        self.moments = tree_leaves(opt["m"])
+        self.param_tree = pspecs
+        self.dp = mesh.group("data")
+        self.n_dp = mesh.axis_size("data")
+
+    def local_batch(self, batch: dict) -> dict:
+        specs = batch_pspecs(batch, self.mesh, self.strategy)
+        return {k: shard(v, specs[k], self.mesh) for k, v in batch.items()}
+
+    def gathered_params(self, params) -> list:
+        """The global parameters, leaves in ``tree_leaves`` order, detached."""
+        return [gather(p.detach(), spec, self.mesh) for p, spec in zip(tree_leaves(params), self.params)]
+
+    def loss_and_grads(self, model: Model, params, batch: dict):
+        """(metrics of this rank's shard, gathered params, this rank's
+        gradients of its shard's loss, leaves in order)."""
+        full = self.gathered_params(params)
+        for p in full:
+            p.requires_grad_(True)
+        tree = _unflatten_like(params, full)
+        with activation_rules(self.strategy, self.mesh):
+            loss, metrics = model.loss(tree, self.local_batch(batch))
+        grads = torch.autograd.grad(loss, full, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(full, grads)]
+        return metrics, [p.detach() for p in full], grads
+
+    @torch.no_grad()
+    def update(self, opt_cfg: adamw.AdamWConfig, params, full: list, grads: list, opt_state):
+        """AdamW on every rank's slices: the global norm from the averaged
+        global gradients, each moment's slice updated with the matching
+        slice of the gradient and the parameter, and the parameter's shard
+        rebuilt from the ranks' slices (ZeRO-1)."""
+        step = opt_state["step"] + 1
+        gnorm = adamw.global_norm(_unflatten_like(params, grads))
+        scale, lr, b1c, b2c = adamw.step_scalars(opt_cfg, step, gnorm)
+        leaves = zip(tree_leaves(params), full, grads, tree_leaves(opt_state["m"]), tree_leaves(opt_state["v"]),
+                     self.shapes, self.params, self.moments)
+        for p, p_full, g, m, v, shape, pspec, mspec in leaves:
+            sl = local_slices(shape, mspec, self.mesh)
+            if pspec == mspec:
+                adamw.update_leaf(opt_cfg, p, g[sl], m, v, scale, lr, b1c, b2c)
+                continue
+            # ZeRO-1 cut the moments finer than the parameter: update this
+            # rank's slice, then gather the parameter's shard over "data"
+            piece = p_full[sl].clone()
+            adamw.update_leaf(opt_cfg, piece, g[sl], m, v, scale, lr, b1c, b2c)
+            p.copy_(gather(piece, tuple(None if pe == me else me for pe, me in zip(pspec, mspec)), self.mesh))
+        opt_state["step"] = step
+        return params, opt_state, {"grad_norm": gnorm, "lr": lr}
+
+    def mean_metrics(self, metrics: dict, sum_keys=("tokens",)) -> dict:
+        """The shards' metrics over the dp ranks: ``sum_keys`` summed, the
+        rest averaged (equal shards: the mean of the shards' means is the
+        global mean)."""
+        out = {}
+        for k, v in metrics.items():
+            t = _all_reduce(v.detach().float().clone(), self.dp)
+            out[k] = t if k in sum_keys else t / self.n_dp
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Steps
+# ---------------------------------------------------------------------------
+
+
+def _layout(model: Model, strategy: Optional[Strategy], mesh, what: str) -> _Layout:
+    _refuse_model_parallel(mesh, what)
+    return _Layout(model, strategy or default_strategy(model.cfg), mesh)
+
+
+def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig, *, strategy: Optional[Strategy] = None, mesh=None):
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
     Gradients of ``model.loss`` by autograd (on the card, through the
     kernels' backward kernels), then one AdamW step, which updates the
     params and the optimizer state in place (``optim/adamw.py``).  metrics
     holds the loss's (``ce``, ``tokens``, ``loss``) and the optimizer's
-    (``grad_norm``, ``lr``) as detached fp32 tensors."""
+    (``grad_norm``, ``lr``) as detached fp32 tensors.  With a ``mesh`` the
+    state is this rank's shards and the gradients are averaged over the dp
+    ranks (module docstring); ``strategy`` defaults to the config's."""
+    if mesh is not None:
+        return _sharded_train_step(model, opt_cfg, _layout(model, strategy, mesh, "a train step"))
 
     def train_step(params, opt_state, batch):
         leaves = tree_leaves(params)
@@ -40,6 +287,54 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig):
         return params, opt_state, {k: v.detach() for k, v in {**metrics, **opt_metrics}.items()}
 
     return train_step
+
+
+def _sharded_train_step(model: Model, opt_cfg: adamw.AdamWConfig, layout: _Layout):
+    def train_step(params, opt_state, batch):
+        metrics, full, grads = layout.loss_and_grads(model, params, batch)
+        for g in grads:  # the mean over the dp ranks, in place
+            _all_reduce(g, layout.dp).div_(layout.n_dp)
+        params, opt_state, opt_metrics = layout.update(opt_cfg, params, full, grads, opt_state)
+        return params, opt_state, {**layout.mean_metrics(metrics), **opt_metrics}
+
+    return train_step
+
+
+def make_compressed_train_step(model: Model, opt_cfg: adamw.AdamWConfig, *, strategy: Optional[Strategy] = None,
+                               mesh=None):
+    """Train step with int8 error-feedback gradient reduction over the dp
+    ranks (``step.py:109-170``): each rank's local gradients, then
+    ``compressed_mean`` a leaf in place of the all-reduce, then AdamW.
+
+    (params, opt_state, comp_state, batch) -> (params, opt_state,
+    comp_state, metrics); ``comp_state`` is ``compression_state`` of the
+    params' global shapes over the dp ranks, and carries the error feedback
+    between steps; it is updated in place, as AdamW's state is.  The metrics are averaged over the dp ranks, as the
+    reference's ``pmean`` averages them.  Without a mesh, a world of one:
+    the gradients are quantized and no collective runs."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.optim.compression import compressed_mean
+
+    layout = _layout(model, strategy, mesh if mesh is not None else Mesh(("data", "model"), (1, 1)), "a train step")
+
+    def train_step(params, opt_state, comp_state, batch):
+        metrics, full, grads = layout.loss_and_grads(model, params, batch)
+        for i, st in enumerate(_state_leaves(comp_state)):
+            grads[i], new = compressed_mean(grads[i], st, layout.dp)
+            for k, t in new.items():  # in place: two copies of the error states would not fit beside the model
+                st[k].copy_(t)
+        params, opt_state, opt_metrics = layout.update(opt_cfg, params, full, grads, opt_state)
+        return params, opt_state, comp_state, {**layout.mean_metrics(metrics, sum_keys=()), **opt_metrics}
+
+    return train_step
+
+
+def _state_leaves(comp_state) -> list:
+    """The per-parameter ``{"worker_err", "owner_err"}`` dicts of a
+    compression state tree, in the params' ``tree_leaves`` order."""
+    if "worker_err" in comp_state:
+        return [comp_state]
+    return [leaf for k in sorted(comp_state) for leaf in _state_leaves(comp_state[k])]
 
 
 def _unflatten_like(tree, leaves: list):
@@ -56,29 +351,76 @@ def metrics_struct(model: Model) -> dict:
     return {k: 0.0 for k in keys}
 
 
-def make_prefill_step(model: Model, cache_len: int):
-    """(params, batch) -> (last-token logits, cache), without gradients."""
+def make_prefill_step(model: Model, cache_len: int, *, strategy: Optional[Strategy] = None, mesh=None):
+    """(params, batch) -> (last-token logits, cache), without gradients.
+    With a mesh: whole weights on every rank, this rank's shard of the batch;
+    the logits come back global, the cache as the cache of this rank's
+    batch shard (its batch dim cut over the dp axes, the rest whole: the
+    flash-decode splits the sequence inside the attention, not in the
+    cache)."""
+    if mesh is None:
+        def prefill_step(params, batch):
+            with torch.no_grad():
+                return model.prefill(params, batch, cache_len=cache_len)
 
-    def prefill_step(params, batch):
-        with torch.no_grad():
-            return model.prefill(params, batch, cache_len=cache_len)
+        return prefill_step
 
-    return prefill_step
+    layout = _layout(model, strategy, mesh, "a prefill step")
+
+    def sharded_prefill_step(params, batch):
+        specs = batch_pspecs(batch, mesh, layout.strategy)
+        with torch.no_grad(), activation_rules(layout.strategy, mesh):
+            logits, cache = model.prefill(params, layout.local_batch(batch), cache_len=cache_len)
+        return gather(logits, specs["tokens"], mesh), cache
+
+    return sharded_prefill_step
 
 
-def make_decode_step(model: Model):
+def make_decode_step(model: Model, *, strategy: Optional[Strategy] = None, mesh=None):
     """(params, cache, batch) -> (logits, cache) for batch["tokens"] (B, 1)
-    at batch["pos"] (B,), without gradients."""
+    at batch["pos"] (B,), without gradients.  With a mesh: whole weights on
+    every rank, the cache as this rank's shard over the dp axes, the batch
+    global and cut to the shard; under ``strategy.flash_decode`` the
+    attention splits the cache's sequence over "model".  The logits come
+    back global."""
+    if mesh is None:
+        def decode_step(params, cache, batch):
+            with torch.no_grad():
+                return model.decode_step(params, cache, batch["tokens"], batch["pos"])
 
-    def decode_step(params, cache, batch):
-        with torch.no_grad():
-            return model.decode_step(params, cache, batch["tokens"], batch["pos"])
+        return decode_step
 
-    return decode_step
+    strategy = strategy or default_strategy(model.cfg)
+
+    def sharded_decode_step(params, cache, batch):
+        specs = batch_pspecs(batch, mesh, strategy)
+        local = {k: shard(v, specs[k], mesh) for k, v in batch.items()}
+        with torch.no_grad(), activation_rules(strategy, mesh):
+            logits, cache = model.decode_step(params, cache, local["tokens"], local["pos"])
+        return gather(logits, specs["tokens"], mesh), cache
+
+    return sharded_decode_step
 
 
-def init_train_state(model: Model, generator: torch.Generator, device="cuda"):
+# ---------------------------------------------------------------------------
+# State
+# ---------------------------------------------------------------------------
+
+
+def init_train_state(model: Model, generator: torch.Generator, device="cuda", *, strategy: Optional[Strategy] = None,
+                     mesh=None):
     """Parameters drawn from ``generator`` (which lives on ``device``) and a
-    zero AdamW state: (params, opt_state)."""
+    zero AdamW state: (params, opt_state).  With a mesh, every rank draws
+    the global parameters from the same seed and keeps its shard; the
+    moments are zeros of its ZeRO-1 shard's shape."""
     params = model.init(generator, device)
-    return params, adamw.init_state(params)
+    if mesh is None:
+        return params, adamw.init_state(params)
+    layout = _Layout(model, strategy or default_strategy(model.cfg), mesh)
+    moments = [torch.zeros(local_shape(shape, spec, mesh), dtype=torch.float32, device=device)
+               for shape, spec in zip(layout.shapes, layout.moments)]
+    return shard_tree(params, layout.param_tree, mesh), {
+        "m": _unflatten_like(params, moments),
+        "v": _unflatten_like(params, [torch.zeros_like(t) for t in moments]),
+        "step": torch.zeros((), dtype=torch.int32, device=device),
+    }

@@ -93,9 +93,10 @@ def _paths(tree, prefix=""):
 
 def _data(cfg, **kw) -> DataConfig:
     """The reduced config's data, its frontend stubs included (``enc_len``
-    frames for audio, ``n_img_tokens`` patches for vlm)."""
-    return DataConfig(vocab_size=cfg.vocab_size, seq_len=L, global_batch=B, enc_len=cfg.enc_len_train,
-                      d_model=cfg.d_model, n_img_tokens=cfg.n_img_tokens, family=cfg.family, **kw)
+    frames for audio, ``n_img_tokens`` patches for vlm); ``kw`` overrides
+    (``seq_len``, ``global_batch``, ``seed``)."""
+    return DataConfig(**{**dict(vocab_size=cfg.vocab_size, seq_len=L, global_batch=B, enc_len=cfg.enc_len_train,
+                                d_model=cfg.d_model, n_img_tokens=cfg.n_img_tokens, family=cfg.family), **kw})
 
 
 def _batch(cfg, seed=0) -> dict:
@@ -350,7 +351,25 @@ def test_loss_and_gradients_match_the_reference(name):
     assert max(leaves.values()) <= LEAF_TOL, sorted(leaves.items(), key=lambda kv: -kv[1])[:4]
 
 
-def compare_train_steps(name: str, n_steps: int = 3) -> dict:
+def one_rank_steps(model: Model, opt_cfg: adamw.AdamWConfig):
+    """The port's train step on one device, as a ``port_run`` of
+    ``compare_train_steps``: (params, opt, numpy batches) -> yields (params,
+    opt, metrics) after each step."""
+    fn = tstep.make_train_step(model, opt_cfg)
+
+    def run(params, opt, batches):
+        for batch in batches:
+            params, opt, metrics = fn(params, opt, {k: torch.from_numpy(v) for k, v in batch.items()})
+            yield params, opt, metrics
+
+    return run
+
+
+def compare_train_steps(name: str, n_steps: int = 3, port_run=None, **data_kw) -> dict:
+    """The reference's and the port's ``n_steps`` train steps from the
+    reference's initial state.  ``port_run(model, opt_cfg)`` builds the
+    port's run (``one_rank_steps`` by default); ``data_kw`` overrides the
+    batch (``_data``)."""
     jm, tm = _models(name)
     opt_j = jadamw.AdamWConfig(warmup_steps=1, peak_lr=1e-3)
     opt_t = adamw.AdamWConfig(warmup_steps=1, peak_lr=1e-3)
@@ -359,8 +378,8 @@ def compare_train_steps(name: str, n_steps: int = 3) -> dict:
     jparams, jopt = jstep.init_train_state(jm, jax.random.key(0))
     jparams = open_gates(jparams)
     params, opt = tspec.train_state_from_jax(_np(jparams), _np(jopt), "cpu")
-    tfn = tstep.make_train_step(tm, opt_t)
-    dc = _data(jm.cfg)
+    dc = _data(jm.cfg, **data_kw)
+    port = (port_run or one_rank_steps)(tm, opt_t)(params, opt, [batch_at(dc, i) for i in range(n_steps)])
     # AdamW's first steps move a param by ~ g / (|g| + eps): where sqrt(v-hat)
     # is within 100 eps of 0, fp32 noise in g (1e-7 of the leaf's scale) is
     # amplified by 1/eps, and one element of a llama3-8b leaf with |g| ~ 2e-9
@@ -373,7 +392,7 @@ def compare_train_steps(name: str, n_steps: int = 3) -> dict:
         batch = batch_at(dc, i)
         with reference_expm1_exact():
             jparams, jopt, jmetrics = jfn(jparams, jopt, {k: jnp.asarray(v) for k, v in batch.items()})
-        params, opt, metrics = tfn(params, opt, {k: torch.from_numpy(v) for k, v in batch.items()})
+        params, opt, metrics = next(port)
         assert sorted(metrics) == sorted(jmetrics)
         errs[f"step{i}_metrics"] = max(_rel(metrics[k], jmetrics[k]) for k in jmetrics)
         floor = (100 * opt_t.eps) ** 2 * (1 - opt_t.b2 ** (i + 1))  # sqrt(v-hat) = 100 eps
@@ -427,7 +446,8 @@ def compare_variants(name: str) -> dict:
     batch = _batch(base)
     loss0, metrics0, grads0 = _loss_grads(Model(base), params, batch)
     errs = {}
-    for label, kw in [("logit_chunk8", {"logit_chunk": 8}), ("remat_dots", {"remat": "dots"}), ("remat_full", {"remat": "full"})]:
+    for label, kw in [("logit_chunk8", {"logit_chunk": 8}), ("remat_dots", {"remat": "dots"}), ("remat_full", {"remat": "full"}),
+                      ("remat_collectives", {"remat": "collectives"})]:
         loss, metrics, grads = _loss_grads(Model(base.replace(**kw)), params, batch)
         assert sorted(metrics) == sorted(metrics0)
         errs[label] = max([_rel(loss, loss0)] + [_rel(metrics[k], metrics0[k]) for k in metrics0] + [_rel(g, g0) for g, g0 in zip(grads, grads0)])
@@ -443,25 +463,42 @@ def test_chunked_head_and_remat_policies_agree_with_the_plain_path(name):
 def test_remat_dots_saves_the_matmuls_and_recomputes_the_kernels(monkeypatch):
     """Under "dots" the backward recomputes each layer's forward but not its
     matrix products: the attention wrapper runs twice a layer (once in the
-    forward, once in the recompute), the products once; under "none" once."""
-    calls = {"attn": 0, "mm": 0}
+    forward, once in the recompute), the products once; under "none" once.
+    Under "collectives" the policy saves the two ``post_collective`` outputs
+    of each layer (``transformer.py:86,88`` in the reference) and nothing
+    else, so the attention runs twice a layer too; under the other policies
+    the tag is ``x`` itself."""
+    calls = {"attn": 0, "saved": []}
     real_attention = ops.flash_attention
+    real_policy = tlayers._collectives_policy
 
     def counted(*a, **kw):
         calls["attn"] += 1
         return real_attention(*a, **kw)
 
+    def policy(ctx, op, *a, **kw):
+        out = real_policy(ctx, op, *a, **kw)
+        if out == torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE:
+            calls["saved"].append(str(op))
+        return out
+
     monkeypatch.setattr(ops, "flash_attention", counted)
+    monkeypatch.setattr(tlayers, "_collectives_policy", policy)
     cfg = get_arch("llama3-8b").reduced()
     params = Model(cfg).init(torch.Generator().manual_seed(0), "cpu")
     batch = _batch(cfg)
-    for policy, want in (("none", 2), ("dots", 4), ("full", 4)):
+    for policy_name, want in (("none", 2), ("dots", 4), ("full", 4), ("collectives", 4)):
         calls["attn"] = 0
-        _loss_grads(Model(cfg.replace(remat=policy)), params, batch)
-        assert calls["attn"] == want, (policy, calls)
-    assert tlayers.remat_policy("none") is None
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 6"):
-        tlayers.remat_policy("collectives")
+        _loss_grads(Model(cfg.replace(remat=policy_name)), params, batch)
+        assert calls["attn"] == want, (policy_name, calls)
+    assert calls["saved"] == ["repro_torch.post_collective.default"] * 2 * cfg.n_layers, calls["saved"]
+    assert tlayers.remat_policy("none") is None and tlayers.remat_policy("collectives") is not None
+    x = torch.ones(3)
+    for policy_name in ("none", "dots", "full"):  # no other policy reads the tag: no copy
+        assert tlayers.post_collective(x, policy_name) is x
+    assert tlayers.post_collective(x, "collectives") is not x
+    with torch.no_grad():
+        assert tlayers.post_collective(x, "collectives") is x
     with pytest.raises(ValueError):
         tlayers.remat_policy("bogus")
 
@@ -595,11 +632,36 @@ def test_launch_train_takes_the_encdec_and_vlm_configs(name):
 
 
 def test_train_driver_refuses_a_strategy_and_the_card_without_one():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 6"):
-        ttrain.train("llama3-8b", steps=1, strategy_name="fsdp_tp", device="cpu")
+    """A strategy runs on a model axis of 1 (the driver's mesh) and, in a
+    world of one, takes the plain step's losses and parameters bit for bit;
+    a "model" axis above 1 is tensor parallelism, item 6b, and the step
+    refuses it.  Without a card the driver refuses device='cuda'."""
+    kw = dict(steps=2, seq_len=16, global_batch=2, log_every=0, device="cpu")
+    plain = ttrain.train("llama3-8b", **kw)
+    sharded = ttrain.train("llama3-8b", strategy_name="fsdp_tp", **kw)
+    assert sharded["losses"] == plain["losses"] and sharded["grad_norms"] == plain["grad_norms"]
+    assert all(torch.equal(a, b) for a, b in zip(tspec.tree_leaves(sharded["params"]), tspec.tree_leaves(plain["params"])))
+    from repro_torch.launch.mesh import Mesh
+
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 6b"):
+        tstep.make_train_step(Model(get_arch("llama3-8b").reduced()), adamw.AdamWConfig(),
+                              mesh=Mesh(("data", "model"), (1, 2)))
+    with pytest.raises(KeyError):
+        ttrain.train("llama3-8b", strategy_name="bogus", **kw)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ttrain.train("llama3-8b", steps=1)
+
+
+@pytest.mark.parametrize("strategy", sorted(STRATEGIES))
+def test_train_driver_runs_every_strategy_on_a_model_axis_of_one(strategy):
+    """``train(strategy_name=...)`` for every strategy the reference names,
+    on the driver's (1, 1) mesh: two finite steps with the plain step's
+    losses, no kernel launched on the CPU."""
+    kw = dict(steps=2, seq_len=16, global_batch=2, log_every=0, device="cpu")
+    out = ttrain.train("grok-1-314b", strategy_name=strategy, **kw)
+    assert out["steps"] == 2 and all(np.isfinite(out["losses"] + out["grad_norms"]))
+    assert out["losses"] == ttrain.train("grok-1-314b", **kw)["losses"]
 
 
 if __name__ == "__main__":
