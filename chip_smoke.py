@@ -233,7 +233,24 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      (serve_lm's three reduced archs reach the attention and both scans;
      train_lm's fp32 100M llama, 200 steps, the attention and its backward
      on ``tf32x3``; quickstart's train task the attention).
-  9. report: the card line, one JSON line of the kernels (route, source, the
+  9. tp: tensor parallelism (``parallel/tensor.py``) on a (1, 2) mesh of two
+     gloo ranks in processes of their own on the one card (NCCL refuses two
+     ranks on one GPU; gloo carries the collectives through host memory, so
+     the times show the path, not NVLink): first a probe of gloo's
+     all_reduce, all_gather and broadcast on CUDA tensors, then llama3-8b (2
+     layers) trained 2 steps and recurrentgemma-2b, falcon-mamba-7b (2
+     layers) and arctic-480b (1 layer) prefilled, each in bf16 and again in
+     fp32, held against this process's one-rank run of the same weights and
+     batch (``TP_*``: in fp32 the losses, every weight leaf's update and the
+     logits at tight bounds, the greedy tokens equal; in bf16 each leaf's
+     update and the logits against what a one-bf16-step nudge of the
+     weights moves them), each kernel's first call on each rank held
+     against its plain version at the rank's local shapes, the kernels'
+     launches there on their routes, a rank's seconds, peak memory and
+     collective bytes by op, and the least free memory of the card while
+     the ranks ran.  dryrun: ``python -m repro_torch.launch.dryrun`` on two
+     production cells in a subprocess (host work at data-sheet figures).
+  10. report: the card line, one JSON line of the kernels (route, source, the
      TPU kernel each replaces, launches in phase 3 in total and by kernel
      route, in each scenario twin and in one full-size serve prefill
      (``model_launches``; the GEMM's in the grok-1 serve prefill,
@@ -242,7 +259,8 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      the recurrentgemma-2b train run (the GEMM backward's in grok-1's bf16
      gradient pass, the selective scan's in falcon-mamba-7b's train run),
      the attention backward's also by route; a step's launches in the
-     sharded setups and each example's launches), and the device line last.
+     sharded setups, each example's, and rank 0's in the tp phase,
+     ``tp_launches_rank0``), and the device line last.
 
 Each phase prints its wall seconds.
 """
@@ -741,20 +759,19 @@ def selective_bwd_operands(torch, dev, B, ck, di, N, dtype: str, seed: int):
 
 
 def selective_bwd_bound(B, ck, di, N, x_bytes: int) -> dict:
-    """x, dt and dy read and dx and ddt written, B and C read and dB and dC
-    written, A read and dA written, h0 and dh_last read and dh0 written,
-    over the memory rate, against the function's ~20 fp32 operations a
-    (step, channel, state) (the states again, the reverse step, the sums)
-    at the fp32 CUDA-core rate.  Beside the bound, ``exp_floor_ms``: its
-    2 B ck di N accurate expf (each way of the walk) at one MUFU.EX2 each,
-    16 a clock on each of 132 SMs at 1.98 GHz."""
+    """The backward's bytes over the memory rate against its operations at
+    the fp32 CUDA-core rate (``roofline/count.py``, ``selective_scan_bwd``:
+    x, dt, dy, B, C, A, h0 and dh_last read, their gradients written; ~20
+    fp32 operations a (step, channel, state)).  Beside the bound,
+    ``exp_floor_ms``: its 2 B ck di N accurate expf (each way of the walk)
+    at one MUFU.EX2 each, 16 a clock on each of 132 SMs at 1.98 GHz."""
     from repro_torch.kernels.autotune import HBM_BYTES_PER_S, PEAK_OPS_PER_S
+    from repro_torch.roofline import count
 
-    elems = B * ck * di
-    nbytes = 2 * x_bytes * elems + 4 * 3 * elems + 4 * 4 * B * ck * N + 4 * 2 * di * N + 4 * 3 * B * di * N
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 20 * elems * N / PEAK_OPS_PER_S["float32"]
+    ops, nbytes = count.selective_scan_bwd(B, ck, di, N, x_bytes)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S["float32"]
     return {"bound_ms": 1e3 * max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "exp_floor_ms": 1e3 * 2 * elems * N / (132 * 16 * 1.98e9)}
+            "exp_floor_ms": 1e3 * 2 * B * ck * di * N / (132 * 16 * 1.98e9)}
 
 
 SS_BWD_PARENT_WARPS = 8  # the walk before the split in time: two 4-warp blocks an SM at falcon width
@@ -1235,6 +1252,36 @@ PATH_WRAPPERS = {
 }
 
 
+def plain_version(wrapper: str):
+    """The plain version (``kernels/ref.py``) of a PATH_WRAPPERS wrapper,
+    taking the wrapper's arguments (the GEMM's a slice of 8 experts at a
+    time: an fp32 copy of arctic's whole weight would take 17.8 GB)."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    return {
+        "flash_attention": lambda q, k, v, causal=True, window=None, **_: ref.attention_ref(q, k, v, causal=causal, window=window),
+        "selective_scan_chunk": lambda x, dt, b, c, a, h0, **_: ref.selective_scan_chunk_ref(x, dt, b, c, a, h0),
+        "rglru_scan": lambda log_a, gx, h0=None, **_: ref.rglru_ref(log_a, gx, h0),
+        "moe_gmm": lambda x, w, **_: torch.cat([ref.moe_gmm_ref(a, b) for a, b in zip(x.split(8), w.split(8))]),
+    }[wrapper]
+
+
+def check_plain(torch, got, want, where: str) -> float:
+    """A kernel output against its plain version: finite, within WIDTH_TOL
+    of its dtype relative to the largest element, and bf16 also element by
+    element (BF16_ELEMENT_TOL).  Returns the relative error; raises over."""
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{where}: kernel output is not finite")
+    err = rel_err(got, want)
+    if not err <= WIDTH_TOL[str(got.dtype).removeprefix("torch.")]:
+        raise AssertionError(f"{where}: relative error {err:.3e} against the plain version, shape {tuple(got.shape)} {got.dtype}")
+    if got.dtype == torch.bfloat16:
+        check_bf16_elements(got, want, where)
+    return err
+
+
 @contextlib.contextmanager
 def path_kernels_checked(torch, ops, label):
     """Holds every kernel launch the model path makes inside the block
@@ -1245,14 +1292,6 @@ def path_kernels_checked(torch, ops, label):
     ``ops`` are swapped for ones that call the original (the path's own
     launch, counted as ever) and then the plain version, which launches no
     kernel.  Yields {kernel: {"calls": n, "rel_err": worst}}."""
-    from repro_torch.kernels import ref
-
-    plain = {
-        "flash_attention": lambda q, k, v, causal=True, window=None, **_: ref.attention_ref(q, k, v, causal=causal, window=window),
-        "selective_scan_chunk": lambda x, dt, b, c, a, h0, **_: ref.selective_scan_chunk_ref(x, dt, b, c, a, h0),
-        "rglru_scan": lambda log_a, gx, h0=None, **_: ref.rglru_ref(log_a, gx, h0),
-        "moe_gmm": lambda x, w, **_: ref.moe_gmm_ref(x, w),
-    }
     seen = {kernel: {"calls": 0, "rel_err": 0.0} for kernel in PATH_WRAPPERS.values()}
     originals = {wrapper: getattr(ops, wrapper) for wrapper in PATH_WRAPPERS}
 
@@ -1261,17 +1300,10 @@ def path_kernels_checked(torch, ops, label):
 
         def call(*args, **kw):
             got = originals[wrapper](*args, **kw)
-            want = plain[wrapper](*args, **kw)
+            want = plain_version(wrapper)(*args, **kw)
             where = f"{label}: {kernel} call {seen[kernel]['calls']}"
             for g, w in zip(as_tuple(got), as_tuple(want)):
-                if not bool(torch.isfinite(g).all()):
-                    raise AssertionError(f"{where}: kernel output is not finite")
-                err = rel_err(g, w)
-                if not err <= WIDTH_TOL[str(g.dtype).removeprefix("torch.")]:
-                    raise AssertionError(f"{where}: relative error {err:.3e} against the plain version, shape {tuple(g.shape)} {g.dtype}")
-                if g.dtype == torch.bfloat16:
-                    check_bf16_elements(g, w, where)
-                seen[kernel]["rel_err"] = max(seen[kernel]["rel_err"], err)
+                seen[kernel]["rel_err"] = max(seen[kernel]["rel_err"], check_plain(torch, g, w, where))
             seen[kernel]["calls"] += 1
             return got
 
@@ -1895,55 +1927,46 @@ def check_grads(torch, got, want, dtype: str, label: str) -> float:
     return worst_abs, worst
 
 
-def attention_live_pairs(Lq: int, Lk: int, causal: bool, window) -> int:
-    """The (query, key) pairs the mask keeps: the work this run's shapes need."""
-    import numpy as np
-
-    qp = np.arange(Lq)
-    hi = np.minimum(Lk, qp + 1) if causal else np.full(Lq, Lk)
-    lo = np.maximum(0, qp - window + 1) if window else np.zeros(Lq, dtype=np.int64)
-    return int(np.maximum(0, hi - lo).sum())
-
-
 def attention_fwd_bound(B, H, KV, Lq, Lk, hd, causal, window, dtype: str, route) -> dict:
     """The forward's two products (S and P V) over the live pairs against
-    q, k, v read and o written once (``route_bounds``)."""
-    flops = 4 * B * H * attention_live_pairs(Lq, Lk, causal, window) * hd
+    q, k, v read and o written once (``roofline/count.py``,
+    ``attention_fwd``; ``route_bounds``)."""
+    from repro_torch.roofline import count
+
     item = 2 if dtype == "bfloat16" else 4
-    return route_bounds(flops, item * (2 * B * H * Lq * hd + 2 * B * KV * Lk * hd), dtype, route)
+    return route_bounds(*count.attention_fwd(B, H, KV, Lq, Lk, hd, causal, window, item), dtype, route)
 
 
 def attention_bwd_bound(B, H, KV, Lq, Lk, hd, causal, window, dtype: str, route) -> dict:
-    """2.5x the forward's multiply-adds over the live pairs (dV, dP, dQ, dK
-    and the S recompute are five products against the forward's two) against
-    q, k, v, o, dO read and dq, dk, dv written once (``route_bounds``; the
-    forward's LSE, 4 bytes a row against 4 hd a row of the rest, is left
-    out)."""
-    flops = 2.5 * 4 * B * H * attention_live_pairs(Lq, Lk, causal, window) * hd
+    """2.5x the forward's multiply-adds over the live pairs against q, k, v,
+    o, dO read and dq, dk, dv written once (``roofline/count.py``,
+    ``attention_bwd``; ``route_bounds``)."""
+    from repro_torch.roofline import count
+
     item = 2 if dtype == "bfloat16" else 4
-    return route_bounds(flops, item * (4 * B * H * Lq * hd + 4 * B * KV * Lk * hd), dtype, route)
+    return route_bounds(*count.attention_bwd(B, H, KV, Lq, Lk, hd, causal, window, item), dtype, route)
 
 
 def rglru_bwd_bound(B, L, dr) -> tuple:
-    """log_a, y, dy read and dlog_a, dgx written (fp32), h0 and dh_last read
-    and dh0 written, over the memory rate; its ~6 fp32 operations an element
-    are far below."""
+    """The RG-LRU backward's bytes over the memory rate; its ~6 fp32
+    operations an element are far below (``roofline/count.py``,
+    ``rglru_bwd``)."""
     from repro_torch.kernels.autotune import HBM_BYTES_PER_S, PEAK_OPS_PER_S
+    from repro_torch.roofline import count
 
-    t_bytes = 4 * (5 * B * L * dr + 3 * B * dr) / HBM_BYTES_PER_S
-    t_ops = 6 * B * L * dr / PEAK_OPS_PER_S["float32"]
+    ops, nbytes = count.rglru_bwd(B, L, dr)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S["float32"]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def gmm_bwd_bound(E, C, D, F, dtype: str, route, need_dx: bool = True, need_dw: bool = True) -> dict:
-    """The gradients asked for, each the forward's products (2 E C D F),
-    against its operands read and its output written once (``route_bounds``):
-    dx reads dy and w and writes dx; dw reads x and dy and writes dw; both
-    together read dy once."""
+    """The gradients asked for, each the forward's products, against the
+    operands read and the outputs written once (``roofline/count.py``,
+    ``gmm_bwd``; ``route_bounds``)."""
+    from repro_torch.roofline import count
+
     item = 2 if dtype == "bfloat16" else 4
-    x, w, dy = E * C * D, E * D * F, E * C * F
-    elems = dy + need_dx * (w + x) + need_dw * (x + w)
-    return route_bounds(2 * E * C * D * F * (need_dx + need_dw), item * elems, dtype, route)
+    return route_bounds(*count.gmm_bwd(E, C, D, F, item, need_dx, need_dw), dtype, route)
 
 
 def gmm_bwd_parts(torch, ops, flush, x, w, dy, out) -> dict:
@@ -3039,6 +3062,594 @@ def run_examples(torch, ops, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# tp: tensor parallelism over a (1, 2) mesh of two gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+# NCCL refuses two ranks on one GPU, so the two ranks of the (1, 2) mesh
+# ("data", "model") meet over gloo, which carries each collective of a CUDA
+# tensor through host memory: the times show the path, not what NVLink or a
+# 16-way "model" axis costs.  Each case runs in this process on one rank (no
+# mesh) and on the two ranks, from the same weights (drawn from one seed on
+# the card) and the same batch, twice: in bf16, the models' own dtype, and
+# in fp32 (the twin), where one rank and two differ only by the order of
+# fp32 sums.  The train case takes two AdamW steps at a peak lr of 1e-3 from
+# the first step; a leaf's update error is the norm of the ranks' gathered
+# leaf less one rank's, over the norm of one rank's update of that leaf.
+# - Updates: AdamW moves an element whose gradient is near 0 by about lr
+#   whatever its sign, so an update has a floor of noise in either dtype,
+#   which one rank's run again from the weights nudged by one step of their
+#   dtype here and there reads, leaf by leaf: each leaf's update error must
+#   stay within TP_NOISE_FACTOR of its dtype times its own (in bf16 a
+#   row-parallel product also sums bf16 partial results where one rank sums
+#   in fp32; in fp32 the ranks' sums in another order move every leaf's
+#   update about twice what the nudge does).  AdamW's update does not see a
+#   gradient's scale, so the gradient norms are held too.
+# - The fp32 twin: the losses and gradient norms within TP_FP32_TOL["loss"]
+#   (relative), the last token's logits within TP_FP32_TOL["logits"] of the
+#   largest, and the greedy tokens equal on every row whose top two logits
+#   lie further apart than twice that; a case with no such row fails.
+# - bf16: the losses within TP_TOL, the gradient norms and the logits within
+#   TP_NOISE_FACTOR of what the nudge moves one rank's, or TP_TOL where that
+#   is more.
+# - Both: the local shapes the kernels saw (TP_LOCAL), and each kernel's
+#   first call on each rank held against its plain version on the same
+#   operands, at the rank's local shapes (``tp_plain_check``: WIDTH_TOL and
+#   bf16 element by element for the forwards, ``check_grads`` for the
+#   attention backward).
+# The fp32 twin of arctic-480b keeps 64 of its 128 experts (TP_FP32_CUT):
+# 128 experts take 53.5 GB a layer in fp32, and a rank drawing its half
+# beside the other's would leave the card under 10 GB.
+TP_WORLD = 2
+TP_TOL = 2e-2  # bf16
+TP_FP32_TOL = {"loss": 1e-5, "logits": 1e-4}
+TP_OPT = {"warmup_steps": 1, "peak_lr": 1e-3}
+TP_NOISE_FACTOR = {"bfloat16": 2.0, "float32": 4.0}
+TP_DTYPES = ("bfloat16", "float32")
+TP_TRAIN = {"arch": "llama3-8b", "cut": {"n_layers": 2}, "batch": 2, "seq_len": 2048, "steps": 2, "remat": "dots"}
+TP_PREFILLS = [
+    {"arch": "recurrentgemma-2b", "cut": {}, "batch": 4, "seq_len": 4096},
+    {"arch": "falcon-mamba-7b", "cut": {"n_layers": 2}, "batch": 1, "seq_len": 4096},
+    {"arch": "arctic-480b", "cut": {"n_layers": 1}, "batch": 1, "seq_len": 4096},
+]
+TP_FP32_CUT = {"arctic-480b": {"n_experts": 64}}
+# what a rank's kernels see at the local shapes, by case: attention
+# (query heads, key heads), the RG-LRU's dr, the scan's di, the GEMM's experts
+TP_LOCAL = {
+    "llama3-8b": {"flash_attention": (16, 4), "flash_attention_bwd": (16, 4)},
+    "recurrentgemma-2b": {"flash_attention": (5, 1), "rglru_scan": 1280},
+    "falcon-mamba-7b": {"selective_scan": 4096},
+    "arctic-480b": {"flash_attention": (28, 4), "moe_gmm": 64},
+}
+TP_LOCAL_FP32 = {"arctic-480b": {"moe_gmm": 32}}
+TP_TIMEOUT_S = 480
+# the model path's kernels under tp, by the ``ops`` wrapper each launches from
+TP_WRAPPERS = {"flash_attention": "flash_attention", "flash_attention_bwd": "flash_attention_bwd",
+               "rglru_scan": "rglru_scan", "selective_scan": "selective_scan_chunk", "moe_gmm": "moe_gmm"}
+
+
+def _tp_shape_of(name: str, args) -> object:
+    """The local dims a kernel call shows (``TP_LOCAL``'s keys)."""
+    if name in ("flash_attention", "flash_attention_bwd"):
+        return (args[0].shape[1], args[1].shape[1])
+    if name == "rglru_scan":
+        return args[0].shape[-1]
+    if name == "selective_scan":
+        return args[0].shape[-1]
+    return args[0].shape[0]  # moe_gmm: experts
+
+
+def tp_local(arch: str, dtype: str) -> dict:
+    return {**TP_LOCAL[arch], **(TP_LOCAL_FP32.get(arch, {}) if dtype == "float32" else {})}
+
+
+def _kept(torch, t):
+    """A call's operand or output as kept for the check after the run: a
+    copy, or from 1 GiB up the tensor itself (a weight, which the run does
+    not change)."""
+    if not isinstance(t, torch.Tensor):
+        return t
+    t = t.detach()
+    return t if t.numel() * t.element_size() >= 1 << 30 else t.clone()
+
+
+@contextlib.contextmanager
+def recording_kernel_calls(torch, ops):
+    """The ``ops`` wrappers of TP_WRAPPERS, each recording the local dims of
+    its calls (``_tp_shape_of``) and keeping its first call's operands and
+    outputs (``_kept``).  Yields {kernel: {"shapes": set, "first": (args,
+    kwargs, outputs)}}."""
+    seen: dict = {}
+    real = {attr: getattr(ops, attr) for attr in TP_WRAPPERS.values()}
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            rec = seen.setdefault(name, {"shapes": set(), "first": None})
+            rec["shapes"].add(_tp_shape_of(name, args))
+            if rec["first"] is None:
+                rec["first"] = ([_kept(torch, a) for a in args], {k: _kept(torch, v) for k, v in kwargs.items()},
+                                [_kept(torch, o) for o in as_tuple(out)])
+            return out
+        return call
+
+    for name, attr in TP_WRAPPERS.items():
+        setattr(ops, attr, wrap(name, real[attr]))
+    try:
+        yield seen
+    finally:
+        for attr, fn in real.items():
+            setattr(ops, attr, fn)
+
+
+def tp_plain_check(torch, seen: dict, label: str) -> dict:
+    """Each kernel's first call in ``seen`` held against its plain version
+    on the same operands (the forwards by ``check_plain``, the attention
+    backward by ``check_grads``): {kernel: relative error}; raises over the
+    tolerance."""
+    from repro_torch.kernels import ref
+
+    errs = {}
+    for name, rec in seen.items():
+        args, kwargs, got = rec["first"]
+        where = f"{label}: {name} at local {_tp_shape_of(name, args)}"
+        if name == "flash_attention_bwd":
+            want = ref.attention_bwd_ref(*args, **kwargs)
+            errs[name] = check_grads(torch, got, want, str(args[0].dtype).removeprefix("torch."), where)[1]
+        else:
+            want = as_tuple(plain_version(TP_WRAPPERS[name])(*args, **kwargs))
+            errs[name] = max(check_plain(torch, g, w, where) for g, w in zip(got, want))
+        del want
+    return errs
+
+
+def init_shards(torch, dist, model, dev, specs, mesh):
+    """A rank's shards of the weights ``init_params`` draws from seed 0 on
+    ``dev``: each leaf drawn whole in fp32, in its order, and only the
+    rank's slice cast to its dtype, so that no rank holds the whole model;
+    the ranks draw one after the other, as an fp32 draw of arctic's largest
+    leaf alone takes 16.6 GiB."""
+    import dataclasses
+
+    from repro_torch.models.spec import _init_leaf, torch_dtype, tree_leaves, tree_map
+    from repro_torch.train import step as step_lib
+
+    def draw(s, gen, spec):
+        full = _init_leaf(dataclasses.replace(s, dtype="float32"), gen, dev)
+        part = full[step_lib.local_slices(full.shape, spec, mesh)]
+        return torch.empty(part.shape, dtype=torch_dtype(s.dtype), device=dev).copy_(part)
+
+    params = None
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            gen, flat = torch.Generator(dev).manual_seed(0), iter(tree_leaves(specs))
+            params = tree_map(lambda s: draw(s, gen, next(flat)), model.specs())
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return params
+
+
+def tp_cfg(case: dict, dtype: str = "bfloat16"):
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(case["arch"]).replace(**case["cut"])
+    if "remat" in case:
+        cfg = cfg.replace(remat=case["remat"])
+    if dtype == "float32":
+        cfg = cfg.replace(param_dtype="float32", compute_dtype="float32", **TP_FP32_CUT.get(case["arch"], {}))
+    return cfg
+
+
+def tp_batches(torch, case: dict, cfg) -> list:
+    """A case's batches (one a step; a prefill's one), on the host."""
+    from repro_torch.data.pipeline import DataConfig, batch_at
+
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=case["seq_len"], global_batch=case["batch"])
+    return [{k: torch.from_numpy(v) for k, v in batch_at(dc, i).items()} for i in range(case.get("steps", 1))]
+
+
+def gloo_cuda_probe(torch, dist, rank: int, world: int, dev) -> dict:
+    """all_reduce, all_gather and broadcast of tensors on ``dev`` on gloo:
+    "ok", or the error gloo raised."""
+    out = {}
+    x = torch.full((4,), float(rank + 1), device=dev)
+    tests = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(world)], x),
+        "broadcast": lambda: dist.broadcast(x.clone(), src=0),
+    }
+    for name, fn in tests.items():
+        try:
+            fn()
+            out[name] = "ok"
+        except Exception as e:  # reported: the phase fails on it below
+            out[name] = f"{type(e).__name__}: {e}"[:200]
+    return out
+
+
+def tp_rank_cases(torch, dist, rank: int, mesh, dev, dtype: str) -> dict:
+    """On one rank, each case in ``dtype`` on ``mesh`` under the config's
+    default strategy ("tp" for every case): losses or logits, step seconds,
+    peak memory (allocated and reserved), launches forward and backward by
+    route, the local shapes the kernels saw, the kernels against their plain
+    versions there, and the collective bytes by op."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import tensor as tp
+    from repro_torch.parallel.sharding import default_strategy, param_pspec_tree
+    from repro_torch.train import step as step_lib
+
+    def measured(fn):
+        ops.reset_launch_counts()
+        tp.COLLECTIVES.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, {"s": time.perf_counter() - t0, "launches": ops.launch_counts(), "backward": ops.backward_launch_counts(),
+                        "routes": ops.route_launch_counts(), "backward_routes": ops.backward_route_launch_counts(),
+                        "collectives": dict(tp.COLLECTIVES.bytes_by_op), "collective_calls": dict(tp.COLLECTIVES.count_by_op)}
+
+    def peaks() -> dict:
+        return {"peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "peak_reserved_gb": torch.cuda.max_memory_reserved(dev) / 1e9}
+
+    out = {}
+    cfg = tp_cfg(TP_TRAIN, dtype)
+    model, strategy = Model(cfg), default_strategy(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, opt = step_lib.init_train_state(model, torch.Generator(dev).manual_seed(0), dev, strategy=strategy, mesh=mesh)
+    fn = step_lib.make_train_step(model, adamw.AdamWConfig(**TP_OPT), strategy=strategy, mesh=mesh)
+    steps = []
+    with recording_kernel_calls(torch, ops) as seen:
+        for batch in tp_batches(torch, TP_TRAIN, cfg):
+            batch = {k: v.to(dev) for k, v in batch.items()}
+            (params, opt, metrics), row = measured(lambda: fn(params, opt, batch))
+            row.update(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]))
+            steps.append(row)
+    full = step_lib.gather_tree(params, param_pspec_tree(model.specs(), strategy, mesh), mesh)
+    out["train"] = {"strategy": strategy.name, "steps": steps, **peaks(), "shapes": {k: sorted(v["shapes"]) for k, v in seen.items()},
+                    "plain": tp_plain_check(torch, seen, f"tp train {dtype} rank {rank}"),
+                    "params": host_copy(torch, full) if rank == 0 else None}
+    del params, opt, full, fn, seen
+    torch.cuda.empty_cache()
+    for case in TP_PREFILLS:
+        cfg = tp_cfg(case, dtype)
+        model, strategy = Model(cfg), default_strategy(cfg)
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = init_shards(torch, dist, model, dev, param_pspec_tree(model.specs(), strategy, mesh), mesh)
+        prefill = step_lib.make_prefill_step(model, case["seq_len"], strategy=strategy, mesh=mesh)
+        batch = {"tokens": tp_batches(torch, case, cfg)[0]["tokens"].to(dev)}
+        with recording_kernel_calls(torch, ops) as seen:
+            (logits, _), row = measured(lambda: prefill(params, batch))
+        row.update(strategy=strategy.name, **peaks(), shapes={k: sorted(v["shapes"]) for k, v in seen.items()},
+                   plain=tp_plain_check(torch, seen, f"tp {case['arch']} {dtype} rank {rank}"),
+                   logits=logits.float().cpu() if rank == 0 else None)
+        out[case["arch"]] = row
+        del params, logits, seen
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank_run(torch, dist, rank: int, world: int, dev) -> dict:
+    """On one rank: the probe, then ``tp_rank_cases`` in each of TP_DTYPES
+    on the (1, world) mesh."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_local_mesh
+
+    out = {"probe": gloo_cuda_probe(torch, dist, rank, world, dev)}
+    if any(v != "ok" for v in out["probe"].values()):
+        return out
+    _build.load(*_build.SOURCES)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    mesh = make_local_mesh(world, world)
+    for dtype in TP_DTYPES:
+        out[dtype] = tp_rank_cases(torch, dist, rank, mesh, dev, dtype)
+    return out
+
+
+def tp_rank_main(rank: int, world: int, tmp: str) -> None:
+    """A spawned rank: a gloo world over a FileStore in ``tmp``, its results
+    saved there (``rank<r>.pt``), its traceback too where it fails."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import traceback
+
+    # two ranks and this process share the card: freed blocks of one size
+    # serve a later draw of another
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), world), rank=rank, world_size=world)
+        torch.save(tp_rank_run(torch, dist, rank, world, torch.device("cuda", 0)), os.path.join(tmp, f"rank{rank}.pt"))
+    except BaseException:
+        Path(tmp, f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_tp_world(torch, dev) -> tuple:
+    """The ranks of TP_WORLD in processes of their own: their results in
+    rank order, and the least free memory of the card while they ran
+    (``torch.cuda.mem_get_info``, read here every 50 ms).  A rank that fails
+    or a world past TP_TIMEOUT_S fails the phase, every rank stopped."""
+    import multiprocessing
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp") as tmp:
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=tp_rank_main, args=(r, TP_WORLD, tmp)) for r in range(TP_WORLD)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        min_free = torch.cuda.mem_get_info(dev)[0]
+        try:
+            while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break
+                min_free = min(min_free, torch.cuda.mem_get_info(dev)[0])
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join(30)
+        errors = "\n".join(f"rank {r}:\n{Path(tmp, f'rank{r}.err').read_text()}" for r in range(TP_WORLD)
+                           if Path(tmp, f"rank{r}.err").exists())
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            raise AssertionError(f"tp: rank exit codes {codes}\n{errors}")
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(TP_WORLD)], min_free
+
+
+def tp_one_rank(torch, dev, dtype: str) -> dict:
+    """Every tp case in ``dtype`` on this process's one rank, no mesh: the
+    train case's losses, gradient norms, step seconds, peak memory, initial
+    and final weights (host), and each prefill's logits (host), seconds and
+    peak memory; each run again from nudged weights (``nudge``): the train
+    case's gradient norms and each leaf's update error, the logits."""
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_lib
+
+    out = {}
+    cfg = tp_cfg(TP_TRAIN, dtype)
+    model = Model(cfg)
+    torch.zeros(1, device=dev)  # the allocator's state for dev exists before its peak is reset
+    for nudged in (False, True):
+        torch.cuda.reset_peak_memory_stats(dev)
+        params, opt = step_lib.init_train_state(model, torch.Generator(dev).manual_seed(0), dev)
+        if nudged:
+            nudge(torch, params, dev)
+        start = host_copy(torch, params)
+        fn = step_lib.make_train_step(model, adamw.AdamWConfig(**TP_OPT))
+        losses, norms, step_s = [], [], []
+        for batch in tp_batches(torch, TP_TRAIN, cfg):
+            batch = {k: v.to(dev) for k, v in batch.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, metrics = fn(params, opt, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+        if nudged:
+            out["train"].update(nudged_grad_norms=norms,
+                                nudged_leaf_errs=update_errs(torch, dev, host_copy(torch, params), out["train"]["params"], start))
+        else:
+            out["train"] = {"losses": losses, "grad_norms": norms, "step_s": step_s, "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                            "params": host_copy(torch, params), "start": start, "names": leaf_names(params)}
+        del params, opt, fn, start
+        torch.cuda.empty_cache()
+    for case in TP_PREFILLS:
+        cfg = tp_cfg(case, dtype)
+        model = Model(cfg)
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = model.init(torch.Generator(dev).manual_seed(0), dev)
+        prefill = step_lib.make_prefill_step(model, case["seq_len"])
+        batch = {"tokens": tp_batches(torch, case, cfg)[0]["tokens"].to(dev)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = prefill(params, batch)
+        torch.cuda.synchronize()
+        out[case["arch"]] = {"s": time.perf_counter() - t0, "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                             "logits": logits.float().cpu()}
+        nudge(torch, params, dev)
+        out[case["arch"]]["nudged_logits"] = prefill(params, batch)[0].float().cpu()
+        del params, logits
+        torch.cuda.empty_cache()
+    return out
+
+
+def nudge(torch, params, dev) -> None:
+    """Each nonzero weight one step of its dtype up, down or not (a draw
+    from seed 1), in place: the noise of one rounding, to read what it moves."""
+    from repro_torch.models.spec import tree_leaves
+
+    gen = torch.Generator(dev).manual_seed(1)
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    chunk = 1 << 26  # elements a draw: arctic's largest leaf holds 4.5e9
+    for p in tree_leaves(params):
+        words = p.view(-1).view(bits[p.dtype])
+        for i in range(0, words.numel(), chunk):
+            seg = words[i:i + chunk]
+            seg.add_(torch.randint(-1, 2, seg.shape, generator=gen, device=dev, dtype=seg.dtype) * (seg != 0))
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """The paths of a parameter tree's leaves, in ``tree_leaves``' order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}{k}/")]
+    return [prefix.rstrip("/")]
+
+
+def update_errs(torch, dev, got: list, want: list, start: list) -> list:
+    """Each leaf's update error: norm(got - want) / norm(want - start), of
+    host-copied leaves, in fp32 on the card a leaf at a time (0 where the
+    leaf did not move and ``got`` equals ``want``, inf where only ``got``
+    moved)."""
+    errs = []
+    for g, w, w0 in zip(got, want, start):
+        w = w.to(dev).float()
+        d = float((g.to(dev).float() - w).norm())
+        u = float((w - w0.to(dev).float()).norm())
+        errs.append(d / u if u else (0.0 if d == 0 else math.inf))
+    return errs
+
+
+def tp_check_train(torch, dev, dtype: str, one: dict, tr: list, card: str) -> list:
+    """The train case's ``tp`` line in ``dtype``; returns what is off (the
+    checks above TP_WORLD)."""
+    bf16 = dtype == "bfloat16"
+    losses, norms = [s["loss"] for s in tr[0]["steps"]], [s["grad_norm"] for s in tr[0]["steps"]]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, one["losses"]))
+    norm_err = max(abs(a - b) / abs(b) for a, b in zip(norms, one["grad_norms"]))
+    norm_floor = max(abs(a - b) / abs(b) for a, b in zip(one["nudged_grad_norms"], one["grad_norms"]))
+    loss_tol = TP_TOL if bf16 else TP_FP32_TOL["loss"]
+    norm_tol = max(TP_TOL, TP_NOISE_FACTOR[dtype] * norm_floor) if bf16 else TP_FP32_TOL["loss"]
+    errs = update_errs(torch, dev, tr[0]["params"], one["params"], one["start"])
+    limits = [TP_NOISE_FACTOR[dtype] * n for n in one["nudged_leaf_errs"]]
+    worst = max(range(len(errs)), key=lambda i: errs[i] / limits[i] if limits[i] else math.inf)
+    last = tr[0]["steps"][-1]
+    print(f"tp case=train dtype={dtype} arch={TP_TRAIN['arch']} layers={TP_TRAIN['cut']['n_layers']} batch={TP_TRAIN['batch']} "
+          f"seq_len={TP_TRAIN['seq_len']} mesh=1x{TP_WORLD} strategy={tr[0]['strategy']} backend=gloo "
+          f"losses={losses} one_rank_losses={one['losses']} loss_rel_err={loss_err} grad_norms={norms} "
+          f"one_rank_grad_norms={one['grad_norms']} grad_norm_rel_err={norm_err} nudged_grad_norm_rel_err={norm_floor} "
+          f"leaf_update_errs={json.dumps(dict(zip(one['names'], errs)))} "
+          f"nudged_leaf_update_errs={json.dumps(dict(zip(one['names'], one['nudged_leaf_errs'])))} "
+          f"worst_leaf={one['names'][worst]} worst_leaf_err={errs[worst]} worst_leaf_limit={limits[worst]} "
+          f"kernel_vs_plain_rel_err={json.dumps([r['plain'] for r in tr])} "
+          f"step_s={[s['s'] for s in tr[0]['steps']]} rank1_step_s={[s['s'] for s in tr[1]['steps']]} "
+          f"one_rank_step_s={one['step_s']} peak_mem_gb_rank={[r['peak_mem_gb'] for r in tr]} "
+          f"peak_reserved_gb_rank={[r['peak_reserved_gb'] for r in tr]} one_rank_peak_mem_gb={one['peak_mem_gb']} "
+          f"launches={json.dumps(last['launches'])} backward_launches={json.dumps(last['backward'])} "
+          f"routes={json.dumps(last['routes']['flash_attention'])} "
+          f"backward_routes={json.dumps(last['backward_routes']['flash_attention_bwd'])} "
+          f"local_shapes={json.dumps(tr[0]['shapes'])} collective_bytes={json.dumps(last['collectives'])} "
+          f"collective_calls={json.dumps(last['collective_calls'])} card={card}", flush=True)
+    off = tp_shapes_off(TP_TRAIN["arch"], dtype, tr)
+    if not (loss_err <= loss_tol and norm_err <= norm_tol):
+        off.append(f"tp train {dtype}: loss error {loss_err} (tolerance {loss_tol}), gradient norm error {norm_err} (tolerance {norm_tol})")
+    if not all(e <= lim for e, lim in zip(errs, limits)):
+        off.append(f"tp train {dtype}: leaf {one['names'][worst]}'s update error {errs[worst]} over its limit {limits[worst]}")
+    wgmma = last["routes"]["flash_attention"]["wgmma"]
+    if not last["launches"]["flash_attention"] or not last["backward"]["flash_attention_bwd"] or (wgmma == last["launches"]["flash_attention"]) != bf16:
+        off.append(f"tp train {dtype}: attention launches {last['launches']} by route {last['routes']}, backward {last['backward']}")
+    return off
+
+
+def tp_shapes_off(arch: str, dtype: str, rows: list) -> list:
+    return [f"tp {arch} {dtype} rank {r}: {name} at local {row['shapes'].get(name)}, want [{want}]"
+            for r, row in enumerate(rows) for name, want in tp_local(arch, dtype).items() if row["shapes"].get(name) != [want]]
+
+
+def tp_check_prefill(torch, dtype: str, case: dict, one: dict, rows: list, card: str) -> list:
+    """A prefill case's ``tp`` line in ``dtype``; returns what is off: the
+    ranks' logits against one rank's, a kernel of the case that did not
+    launch."""
+    bf16, arch = dtype == "bfloat16", case["arch"]
+    got, want = rows[0]["logits"], one["logits"]
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    floor = float((one["nudged_logits"] - want).abs().max()) / scale
+    tol = max(TP_TOL, TP_NOISE_FACTOR[dtype] * floor) if bf16 else TP_FP32_TOL["logits"]
+    greedy, greedy_one = got[:, -1].argmax(-1), want[:, -1].argmax(-1)
+    top2 = want[:, -1].topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    tied = gap <= 2 * tol * scale  # rows whose top two the allowed error could swap
+    untied_equal = bool(torch.equal(greedy[~tied], greedy_one[~tied]))
+    cfg = tp_cfg(case, dtype)
+    print(f"tp case=prefill dtype={dtype} arch={arch} layers={cfg.n_layers} experts={cfg.n_experts} batch={case['batch']} "
+          f"seq_len={case['seq_len']} mesh=1x{TP_WORLD} strategy={rows[0]['strategy']} backend=gloo logits_rel_err={err} "
+          f"logits_tol={tol} nudged_logits_rel_err={floor} greedy_equal={bool(torch.equal(greedy, greedy_one))} "
+          f"greedy_equal_untied={untied_equal} tied_rows={tied.tolist()} greedy={greedy.tolist()} one_rank_greedy={greedy_one.tolist()} "
+          f"one_rank_top2_gap={gap.tolist()} kernel_vs_plain_rel_err={json.dumps([r['plain'] for r in rows])} "
+          f"s={[r['s'] for r in rows]} one_rank_s={one['s']} "
+          f"peak_mem_gb_rank={[r['peak_mem_gb'] for r in rows]} peak_reserved_gb_rank={[r['peak_reserved_gb'] for r in rows]} "
+          f"one_rank_peak_mem_gb={one['peak_mem_gb']} "
+          f"launches={json.dumps({k: n for k, n in rows[0]['launches'].items() if n})} "
+          f"routes={json.dumps({k: {q: n for q, n in v.items() if n} for k, v in rows[0]['routes'].items()})} "
+          f"local_shapes={json.dumps(rows[0]['shapes'])} collective_bytes={json.dumps(rows[0]['collectives'])} "
+          f"collective_calls={json.dumps(rows[0]['collective_calls'])} card={card}", flush=True)
+    off = tp_shapes_off(arch, dtype, rows)
+    if not (err <= tol and untied_equal and (bf16 or not bool(tied.all()))):
+        off.append(f"tp {arch} {dtype}: logits error {err} (tolerance {tol}), greedy {greedy.tolist()} vs "
+                   f"{greedy_one.tolist()} (rows the tolerance could swap: {tied.tolist()})")
+    missing = [k for k in tp_local(arch, dtype) if k in rows[0]["launches"] and not rows[0]["launches"][k]]
+    if missing:
+        off.append(f"tp {arch} {dtype}: no launch of {missing}: {rows[0]['launches']}")
+    return off
+
+
+def run_tp(torch, ops, dev) -> dict:
+    """The tp phase: the one-rank runs here, then the two gloo ranks; one
+    ``tp`` line a case and dtype.  Returns rank 0's launches of each kernel
+    over the phase's cases in both dtypes (forward and backward; the
+    train case's last step)."""
+    card = card_line()
+    one = {dtype: tp_one_rank(torch, dev, dtype) for dtype in TP_DTYPES}
+    torch.cuda.empty_cache()
+    reserved_here = torch.cuda.memory_reserved(dev)
+    t0 = time.perf_counter()
+    ranks, min_free = run_tp_world(torch, dev)
+    world_s = time.perf_counter() - t0
+    print(f"tp probe backend=gloo device=cuda ops={json.dumps(ranks[0]['probe'])} card={card}", flush=True)
+    if any(v != "ok" for r in ranks for v in r["probe"].values()):
+        raise AssertionError(f"tp: gloo refused a collective on CUDA tensors: {[r['probe'] for r in ranks]}")
+    launches: dict = {}
+
+    def add(counts: dict) -> None:
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    off = []
+    for dtype in TP_DTYPES:
+        tr = [r[dtype]["train"] for r in ranks]
+        add(tr[0]["steps"][-1]["launches"])
+        add(tr[0]["steps"][-1]["backward"])
+        off += tp_check_train(torch, dev, dtype, one[dtype]["train"], tr, card)
+        for case in TP_PREFILLS:
+            rows = [r[dtype][case["arch"]] for r in ranks]
+            add(rows[0]["launches"])
+            off += tp_check_prefill(torch, dtype, case, one[dtype][case["arch"]], rows, card)
+    total = torch.cuda.mem_get_info(dev)[1]
+    print(f"tp world_s={world_s} ranks={TP_WORLD} backend=gloo card_total_gb={total / 1e9} card_min_free_gb={min_free / 1e9} "
+          f"reserved_here_gb={reserved_here / 1e9} note=host-memory collectives, not NVLink card={card}", flush=True)
+    if off:
+        raise AssertionError("\n".join(off))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# dryrun: the roofline of two production cells, counted on meta tensors
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELLS = [("llama3-8b", "train_4k"), ("arctic-480b", "prefill_32k")]
+
+
+def run_dryrun() -> None:
+    """``python -m repro_torch.launch.dryrun`` on each DRYRUN_CELLS cell in a
+    subprocess (host work: no device, no process group), one ``dryrun``
+    line a cell with its record's roofline row, memory and collectives, at
+    the H100's data-sheet figures."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for arch, shape in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape],
+                             cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=600)
+        if run.returncode != 0:
+            raise AssertionError(f"dryrun {arch} {shape}: exit {run.returncode}\n{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+        record = json.loads((ROOT / "artifacts" / "dryrun_torch" / f"{arch}__{shape}__16x16__default.json").read_text())
+        print(f"dryrun arch={arch} shape={shape} mesh={record['mesh']} strategy={record['strategy']} wall_s={time.perf_counter() - t0} "
+              f"memory_analysis={json.dumps(record['memory_analysis'])} collectives={json.dumps(record['raw_collectives'])} "
+              f"roofline={json.dumps(record['roofline'])} figures=data-sheet", flush=True)
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository (src/repro_torch is missing)", file=sys.stderr)
@@ -3231,7 +3842,16 @@ def main() -> int:
     example_launches = run_examples(torch, ops, dev)
     print(f"phase name=sharded wall_s={time.perf_counter() - phase_t0}", flush=True)
 
-    # -- 9. report ---------------------------------------------------------------
+    # -- 9. tp and dryrun --------------------------------------------------------
+    phase_t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    tp_launches = run_tp(torch, ops, dev)
+    print(f"phase name=tp wall_s={time.perf_counter() - phase_t0}", flush=True)
+    phase_t0 = time.perf_counter()
+    run_dryrun()
+    print(f"phase name=dryrun wall_s={time.perf_counter() - phase_t0}", flush=True)
+
+    # -- 10. report --------------------------------------------------------------
     report = []
     for name in sorted(kreg.KERNELS):
         route, source, replaces = KERNEL_INFO[name]
@@ -3247,6 +3867,7 @@ def main() -> int:
             "model": row["case"], "dtype": row["dtype"],
             "sharded_launches_per_step": sharded_launches.get(name, 0),
             "example_launches": {ex: n[name] for ex, n in example_launches.items()},
+            "tp_launches_rank0": tp_launches.get(name, 0),
         })
         fp32_keys = ("case", "route", "max_abs_err", "rel_err", "ms", "ms_cold", "ms_call", "plain_ms", "library_ms",
                      "bound_ms", "bound_by", "bound_3x_ms", "simt_bound_ms")
@@ -3291,6 +3912,7 @@ def main() -> int:
             "note": "backward kernel; the reference has no Pallas backward and differentiates this function with XLA",
             **extra,
             "launches": train_backward[name], "sharded_launches_per_step": sharded_launches.get(name, 0),
+            "tp_launches_rank0": tp_launches.get(name, 0),
             "max_abs_err": row["max_abs_err"], "rel_err": row["rel_err"],
             "ms": row["ms"], "ms_cold": row["ms_cold"], "ms_call": row["ms_call"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "model": row["case"], "dtype": row["dtype"],

@@ -1,4 +1,4 @@
-from repro_torch.configs.base import SHAPES, ArchConfig, ShapeConfig
+from repro_torch.configs.base import SHAPES, ArchConfig, ShapeConfig, token_batch_spec
 from repro_torch.configs.registry import ARCHS, all_cells, get_arch, get_shape
 
 __all__ = [
@@ -9,4 +9,5 @@ __all__ = [
     "all_cells",
     "get_arch",
     "get_shape",
+    "token_batch_spec",
 ]

@@ -4,8 +4,9 @@ Counterpart of ``repro/configs/base.py``: every assigned architecture is an
 ``ArchConfig`` (exact published numbers) in ``repro_torch/configs/<id>.py``,
 and each config knows how to produce a ``reduced()`` variant for CPU tests.
 Dtypes stay strings, as in the reference; the models turn them into torch
-dtypes.  ``token_batch_spec`` (abstract inputs for the dry-run) is not
-ported yet (ROADMAP.md, "Modules to port", item 7).
+dtypes.  ``token_batch_spec`` gives a step's inputs as ``device="meta"``
+tensors, which hold a shape and a dtype and no memory, for the dry run
+(``launch/dryrun.py``).
 
 Shapes (assigned):
     train_4k     seq_len=4096    global_batch=256   -> train_step
@@ -266,3 +267,37 @@ def _pattern_len(cfg: ArchConfig) -> int:
     if cfg.family == "vlm" and cfg.cross_attn_period:
         return cfg.cross_attn_period
     return 2
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta tensors: a shape and a dtype, no memory)
+# ---------------------------------------------------------------------------
+
+
+def token_batch_spec(cfg: ArchConfig, shape: ShapeConfig) -> dict[str, Any]:
+    """Abstract input tree for one step of the given kind, as meta tensors
+    (``src/repro/configs/base.py:276``):
+
+    train  : {tokens, labels[, enc_frames | img_embeds]}
+    prefill: {tokens[, enc_frames | img_embeds]}
+    decode : {tokens (B,1), pos (B,)} - cache/state specs come from the model.
+    """
+    import torch
+
+    B, L = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    ct = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.compute_dtype]
+    sds = lambda dims, dtype: torch.empty(dims, dtype=dtype, device="meta")
+    if shape.kind in ("train", "prefill"):
+        batch: dict[str, Any] = {"tokens": sds((B, L), i32)}
+        if shape.kind == "train":
+            batch["labels"] = sds((B, L), i32)
+        enc_len = cfg.enc_len_train if shape.kind == "train" else cfg.enc_len_serve
+        if cfg.family == "audio":
+            batch["enc_frames"] = sds((B, enc_len, cfg.d_model), ct)
+        if cfg.family == "vlm":
+            batch["img_embeds"] = sds((B, cfg.n_img_tokens, cfg.d_model), ct)
+        return batch
+    if shape.kind == "decode":
+        return {"tokens": sds((B, 1), i32), "pos": sds((B,), i32)}
+    raise ValueError(shape.kind)

@@ -15,6 +15,10 @@ signature and
   3. routes by device: a CPU tensor goes to the plain version in
      ``kernels/ref.py``; a CUDA tensor goes to the kernel, which launches
      or raises.  Nothing falls back from the card to the plain version.
+     A meta tensor (the dry run, ``launch/dryrun.py``) runs neither: the
+     wrapper returns outputs of the kernel's shapes and dtypes and adds the
+     kernel's own flops and bytes (``roofline/count.py``), forward and
+     backward, through the same autograd Functions as the card.
 
 Every kernel module counts its own launches; ``launch_counts`` reads them.
 The two kernels with several routes also count by route:
@@ -50,6 +54,7 @@ from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import selective_scan as _ss
+from repro_torch.roofline import count as _count
 
 _F32 = (torch.float32,)
 _FLOATS = (torch.float32, torch.bfloat16)
@@ -114,13 +119,37 @@ def reset_launch_counts() -> None:
             c.reset()
 
 
-def _resolve(kernel: str, shape: dict, dtype: torch.dtype, device: torch.device, defaults: dict, explicit: dict) -> dict:
-    """explicit arg > tuned cache (env-gated) > committed default."""
+def block_dividing(n: int, cap: int) -> int:
+    """The largest divisor of ``n`` that is at most ``cap``."""
+    b = min(cap, n)
+    while n % b:
+        b -= 1
+    return b
+
+
+def _resolve(
+    kernel: str, shape: dict, dtype: torch.dtype, device: torch.device, defaults: dict, explicit: dict,
+    widths: Optional[dict] = None,
+) -> dict:
+    """explicit arg > tuned cache (env-gated) > committed default.  A block
+    that was not given and does not divide its width in ``widths`` (block
+    name -> dim) falls back to the largest divisor below it: a rank's share
+    of the channels under tensor parallelism need not be a multiple of the
+    default (recurrentgemma-2b's 2560 / 2 against 512).  A given block is
+    kept, and the kernel's check refuses it where it does not divide."""
     if all(v is not None for v in explicit.values()):
         return explicit
     dtype_name = str(dtype).removeprefix("torch.")
     tuned = _autotune.tuned_config(kernel, shape, dtype_name, device.type) or {}
-    return {k: v if v is not None else tuned.get(k, defaults[k]) for k, v in explicit.items()}
+    widths = widths or {}
+    cfg = {}
+    for k, v in explicit.items():
+        if v is None:
+            v = tuned.get(k, defaults[k])
+            if k in widths:
+                v = block_dividing(widths[k], v)
+        cfg[k] = v
+    return cfg
 
 
 def _on_card(kernel: str, operands: dict, dtypes: dict, shapes: dict) -> bool:
@@ -128,8 +157,8 @@ def _on_card(kernel: str, operands: dict, dtypes: dict, shapes: dict) -> bool:
     maps an operand to the dtypes it may take; ``shapes`` to its expected
     shape (an int entry must match, None matches anything)."""
     device = next(iter(operands.values())).device
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{kernel}: operands on {device}; expected a CPU or CUDA device")
+    if device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"{kernel}: operands on {device}; expected a CPU or CUDA device (or meta, for the dry run)")
     for arg, t in operands.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{kernel}: {arg} is a {type(t).__name__}, not a tensor")
@@ -142,7 +171,7 @@ def _on_card(kernel: str, operands: dict, dtypes: dict, shapes: dict) -> bool:
             raise ValueError(f"{kernel}: {arg} has shape {tuple(t.shape)}, expected {want}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {arg} is not contiguous")
-    return device.type == "cuda"
+    return device.type in ("cuda", "meta")
 
 
 def flash_attention(
@@ -183,7 +212,12 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, keep_lse):
         lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) if keep_lse else None
-        o = _fa.flash_attention(q, k, v, causal=causal, window=window, lse=lse)
+        if q.is_meta:
+            (b, h, lq, hd), (n_kv, lk) = q.shape, k.shape[1:3]
+            _count.add_kernel("flash_attention", _count.attention_fwd(b, h, n_kv, lq, lk, hd, causal, window, q.element_size()))
+            o = torch.empty_like(q)
+        else:
+            o = _fa.flash_attention(q, k, v, causal=causal, window=window, lse=lse)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
         return o
@@ -215,6 +249,9 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window: Optional
         raise ValueError(f"flash_attention_bwd: {h} query heads do not group over {n_kv} KV heads")
     if not on_card:
         return ref.attention_bwd_ref(q, k, v, o, do, causal=causal, window=window, lse=lse)
+    if q.is_meta:
+        _count.add_kernel("flash_attention_bwd", _count.attention_bwd(b, h, n_kv, lq, lk, hd, causal, window, q.element_size()))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     return _fa.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window, lse=lse)
 
 
@@ -232,7 +269,7 @@ def selective_scan_chunk(x, dt, b, c, a, h0, *, block_d: Optional[int] = None):
     )
     cfg = _resolve(
         "selective_scan", {"B": B, "chunk": chunk, "di": di, "N": N}, x.dtype, x.device,
-        {"block_d": _ss.DEFAULT_BLOCK_D}, {"block_d": block_d},
+        {"block_d": _ss.DEFAULT_BLOCK_D}, {"block_d": block_d}, {"block_d": di},
     )
     _ss.check_blocks(di, cfg["block_d"])
     if not on_card:
@@ -251,6 +288,10 @@ class _SelectiveScanChunk(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, b, c, a, h0):
         ctx.save_for_backward(x, dt, b, c, a, h0)
+        if x.is_meta:
+            (B, chunk, di), N = x.shape, b.shape[-1]
+            _count.add_kernel("selective_scan", _count.selective_scan_fwd(B, chunk, di, N, x.element_size()))
+            return torch.empty(x.shape, dtype=torch.float32, device="meta"), torch.empty_like(h0)
         return _ss.selective_scan_chunk(x, dt, b, c, a, h0)
 
     @staticmethod
@@ -276,6 +317,9 @@ def selective_scan_chunk_bwd(x, dt, b, c, a, h0, dy, dh_last):
     )
     if not on_card:
         return ref.selective_scan_chunk_bwd_ref(x, dt, b, c, a, h0, dy, dh_last)
+    if x.is_meta:
+        _count.add_kernel("selective_scan_bwd", _count.selective_scan_bwd(B, chunk, di, N, x.element_size()))
+        return tuple(torch.empty_like(t) for t in (x, dt, b, c, a, h0))
     return _ss.selective_scan_chunk_bwd(x, dt, b, c, a, h0, dy, dh_last)
 
 
@@ -291,7 +335,7 @@ def rglru_scan(log_a, gx, h0=None, *, block_d: Optional[int] = None):
     )
     cfg = _resolve(
         "rglru_scan", {"B": B, "L": L, "dr": dr}, log_a.dtype, log_a.device,
-        {"block_d": _rg.DEFAULT_BLOCK_D}, {"block_d": block_d},
+        {"block_d": _rg.DEFAULT_BLOCK_D}, {"block_d": block_d}, {"block_d": dr},
     )
     _rg.check_blocks(dr, cfg["block_d"])
     if not on_card:
@@ -304,7 +348,11 @@ class _RGLRUScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, log_a, gx, h0):
-        y, h_last = _rg.rglru_scan(log_a, gx, h0)
+        if log_a.is_meta:
+            _count.add_kernel("rglru_scan", _count.rglru_fwd(*log_a.shape))
+            y, h_last = torch.empty_like(log_a), torch.empty_like(h0)
+        else:
+            y, h_last = _rg.rglru_scan(log_a, gx, h0)
         ctx.save_for_backward(log_a, h0, y)
         return y, h_last
 
@@ -326,6 +374,9 @@ def rglru_scan_bwd(log_a, h0, y, dy, dh_last):
     )
     if not on_card:
         return ref.rglru_bwd_ref(log_a, h0, y, dy, dh_last)
+    if log_a.is_meta:
+        _count.add_kernel("rglru_scan_bwd", _count.rglru_bwd(B, L, dr))
+        return torch.empty_like(log_a), torch.empty_like(log_a), torch.empty_like(h0)
     return _rg.rglru_scan_bwd(log_a, h0, y, dy, dh_last)
 
 
@@ -346,7 +397,7 @@ def moe_gmm(
     cfg = _resolve(
         "moe_gmm", {"E": E, "C": C, "D": D, "F": F}, x.dtype, x.device,
         {"block_c": _gmm.DEFAULT_BLOCK_C, "block_f": _gmm.DEFAULT_BLOCK_F, "block_d": _gmm.DEFAULT_BLOCK_D},
-        {"block_c": block_c, "block_f": block_f, "block_d": block_d},
+        {"block_c": block_c, "block_f": block_f, "block_d": block_d}, {"block_c": C, "block_f": F, "block_d": D},
     )
     _gmm.check_blocks(C, D, F, cfg["block_c"], cfg["block_d"], cfg["block_f"])
     if not on_card:
@@ -361,6 +412,10 @@ class _MoeGmm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
+        if x.is_meta:
+            (E, C, D), F = x.shape, w.shape[-1]
+            _count.add_kernel("moe_gmm", _count.gmm_fwd(E, C, D, F, x.element_size()))
+            return torch.empty((E, C, F), dtype=x.dtype, device="meta")
         return _gmm.moe_gmm(x, w)
 
     @staticmethod
@@ -383,4 +438,7 @@ def moe_gmm_bwd(x, w, dy, *, need_dx: bool = True, need_dw: bool = True):
     )
     if not on_card:
         return ref.moe_gmm_bwd_ref(x, w, dy, need_dx, need_dw)
+    if x.is_meta:
+        _count.add_kernel("moe_gmm_bwd", _count.gmm_bwd(E, C, D, F, x.element_size(), need_dx, need_dw))
+        return torch.empty_like(x) if need_dx else None, torch.empty_like(w) if need_dw else None
     return _gmm.moe_gmm_bwd(x, w, dy, need_dx, need_dw)

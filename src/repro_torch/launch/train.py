@@ -15,12 +15,14 @@ caller asks for the CPU::
 
 With ``--strategy`` (or in a ``torch.distributed`` world of more than one
 rank, started by the caller: NCCL on the card, gloo on the CPU) the step runs
-sharded over ``make_local_mesh(world size)``, a ("data", "model") mesh whose
-"model" axis is 1, under the named strategy or the config's default, as the
-reference's driver builds them (``src/repro/launch/train.py:50-55``): each
-rank takes its shard of every global batch, keeps its shards of the
-parameters and of AdamW's moments (``train/step.py``), and checkpoints hold
-the global state, gathered and written by rank 0.  The reference's driver
+sharded over ``make_local_mesh(world size, --model-parallel)``, a ("data",
+"model") mesh whose "model" axis is 1 unless ``--model-parallel N`` asks for
+N ("tp" and "fsdp_tp" only: tensor parallelism), under the named strategy or
+the config's default, as the reference's driver builds them
+(``src/repro/launch/train.py:50-55``): each rank takes its shard of every
+global batch, keeps its shards of the parameters and of AdamW's moments
+(``train/step.py``), and checkpoints hold the global state, gathered and
+written by rank 0.  The reference's driver
 takes no gradient compression, and neither does this one
 (``train/step.make_compressed_train_step`` is its own step).  Its
 ``--reduced`` is a ``store_true`` that defaults to True and cannot be turned
@@ -79,6 +81,7 @@ def train(
     ckpt_dir: Optional[str] = None,
     ckpt_every: int = 50,
     strategy_name: Optional[str] = None,
+    model_parallel: int = 1,
     log_every: int = 10,
     seed: int = 0,
     device="cuda",
@@ -90,7 +93,8 @@ def train(
     backward (``ops`` counts process-wide: run nothing else on the kernels
     meanwhile), and on a CUDA device the peak memory.  Sharded (a strategy
     named, or a world of several ranks), ``params`` and ``opt`` are this
-    rank's shards."""
+    rank's shards; ``model_parallel`` ranks of the world form the "model"
+    axis."""
     dev = _device(device)
     arch = get_arch(arch_name)
     if reduced:
@@ -99,7 +103,7 @@ def train(
     strategy = mesh = None
     world = torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1
     if strategy_name is not None or world > 1:
-        mesh = make_local_mesh(world)
+        mesh = make_local_mesh(world, model_parallel)
         strategy = strategy_for(arch, strategy_name)
     opt_cfg = adamw.AdamWConfig(peak_lr=peak_lr, warmup_steps=max(steps // 10, 1), total_steps=steps)
     train_step = step_lib.make_train_step(model, opt_cfg, strategy=strategy, mesh=mesh)
@@ -190,12 +194,14 @@ def main():
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--strategy", default=None)
+    ap.add_argument("--model-parallel", type=int, default=1, help="ranks of the 'model' axis (tp, fsdp_tp)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     out = train(
         args.arch, reduced=args.reduced, steps=args.steps, seq_len=args.seq_len,
         global_batch=args.global_batch, peak_lr=args.lr, ckpt_dir=args.ckpt_dir,
-        ckpt_every=args.ckpt_every, strategy_name=args.strategy, device=args.device,
+        ckpt_every=args.ckpt_every, strategy_name=args.strategy, model_parallel=args.model_parallel,
+        device=args.device,
     )
     print(f"done: loss {out['first_loss']:.4f} -> {out['final_loss']:.4f}")
 

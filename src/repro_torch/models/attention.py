@@ -14,15 +14,26 @@ strategy with ``flash_decode`` (``parallel/sharding.py``) it takes the
 distributed flash-decode path (``attention.py:145-225``): the ranks of the
 "model" group each attend to their slice of the cache's sequence and
 combine their partial softmax states with two all-reduces.
+
+Under tensor parallelism (``heads_qkv`` and ``heads_out``, the train and
+prefill steps' projections) a rank holds query heads ``[r H/m, (r+1) H/m)``
+where the rules split "heads", and the key and value heads that serve them:
+its own slice where "kv_heads" splits, else the whole K and V (computed by a
+row-parallel ``wk`` and ``wv`` where the rules spilled "model" onto their
+"embed" dim) from which it takes the heads its query heads map to.  Where
+"heads" does not split (the spill lands on "embed"), q is whole on every
+rank and ``wo`` is column-parallel on d_model, its result gathered.  The
+flash kernel runs at the local head counts.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.kernels import ops
+from repro_torch.models.layers import linears, whole
+from repro_torch.parallel import tensor as tp
 
 _NEG = -1e30
 MAX_BLOCK = 128  # the reference's default flash blocks (kernels/flash_attention.py)
@@ -137,37 +148,84 @@ def _decode_attention_distributed(q, k_cache, v_cache, pos, cache_positions, win
     l = torch.sum(p, dim=-1)
     acc = torch.einsum("bhl,blhd->bhd", p, repeat_kv(v_cache[:, sl], q.shape[2]).float())
     # combine the partial softmax states across the cache's slices
-    group = mesh.group("model")
-    m_g = m.clone()
-    if group is not None:
-        dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=group)
+    m_g = tp.all_reduce(m.clone(), mesh, "model", "max")
     corr = torch.exp(m - m_g)
-    l_g, acc_g = l * corr, acc * corr[..., None]
-    if group is not None:
-        dist.all_reduce(l_g, group=group)
-        dist.all_reduce(acc_g, group=group)
+    l_g = tp.all_reduce(l * corr, mesh, "model")
+    acc_g = tp.all_reduce(acc * corr[..., None], mesh, "model")
     out = acc_g / torch.clamp(l_g, min=1e-37)[..., None]
     return out[:, None].to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
-# Projections (shared by all attention layers)
+# Projections (every attention layer; tensor-parallel in train and prefill)
 # ---------------------------------------------------------------------------
 
 
-def proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (B,L,D) @ w (D, n, hd) -> (B, L, n, hd): the reference's
-    ``einsum("bld,dhk->blhk")``, one matrix product with no batch dims."""
-    d, n, hd = w.shape
-    return (x @ w.reshape(d, n * hd)).unflatten(-1, (n, hd))
+def _rank_kv(k: torch.Tensor, v: torch.Tensor, n_heads: int, n_kv: int):
+    """From whole k and v (B, L, KV, hd), the heads this rank's query heads
+    read: global query head h reads KV head h KV / H.  A contiguous range
+    when the rank's heads group evenly over it (the kernel maps local query
+    head j to local KV head j / (Hl / n)), else one KV head a query head.
+    The whole k and v are replicated and read here by rank-specific work,
+    so they ``enter`` first."""
+    hl = n_heads // tp.model_size()
+    first = tp.model_rank() * hl
+    idx = [(first + j) * n_kv // n_heads for j in range(hl)]
+    lo, n = idx[0], idx[-1] + 1 - idx[0]
+    k, v = tp.enter(k), tp.enter(v)
+    if hl % n == 0 and all(idx[j] == lo + j // (hl // n) for j in range(hl)):
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    sel = torch.tensor(idx, device=k.device)
+    return k.index_select(2, sel), v.index_select(2, sel)
 
 
-def qkv_proj(x: torch.Tensor, p: dict) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x (B,L,D) -> q (B,L,H,hd), k/v (B,L,KV,hd) using 3D weights."""
-    return proj(x, p["wq"]), proj(x, p["wk"]), proj(x, p["wv"])
+def _weights(cfg, p: dict, names) -> list:
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    shapes = {"wq": (("embed", "heads", None), (D, H, hd)), "wk": (("embed", "kv_heads", None), (D, KV, hd)),
+              "wv": (("embed", "kv_heads", None), (D, KV, hd))}
+    return [(p[n],) + shapes[n] for n in names]
 
 
-def out_proj(attn_out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """(B, L, H, hd) @ wo (H, hd, D) -> (B, L, D)."""
-    h, hd, d = wo.shape
-    return attn_out.flatten(-2) @ wo.reshape(h * hd, d)
+def _at_rank(cfg, q_split: bool, k, v, ks):
+    """k and v of ``linears`` as (B, L, KVl, hd), at the heads this rank's
+    query heads read."""
+    k, v = (t.unflatten(-1, (-1, cfg.hd)) for t in (k, v))
+    if q_split and ks is None:
+        k, v = _rank_kv(k, v, cfg.n_heads, cfg.n_kv_heads)
+    return k, v
+
+
+def heads_q(cfg, p: dict, h: torch.Tensor):
+    """q (B, L, Hl, hd) from ``h`` at this rank's head count, and whether
+    it is split over "model" (``heads_out`` reads it)."""
+    [(q, qs)] = linears(h, _weights(cfg, p, ("wq",)))
+    return q.unflatten(-1, (-1, cfg.hd)), qs is not None
+
+
+def heads_kv(cfg, p: dict, kv_in: torch.Tensor):
+    """k and v (B, Lk, KVl, hd) from ``kv_in`` at the heads this rank's
+    query heads read (a cross attention's, or a prefill's cross cache)."""
+    wq_split = tp.weight_split(*_weights(cfg, p, ("wq",))[0][1:])
+    (k, ks), (v, _) = linears(kv_in, _weights(cfg, p, ("wk", "wv")))
+    return _at_rank(cfg, wq_split is not None and wq_split[0] == 1, k, v, ks)  # q split on its heads
+
+
+def heads_qkv(cfg, p: dict, h: torch.Tensor, kv_in: Optional[torch.Tensor] = None):
+    """``heads_q`` of ``h`` and ``heads_kv`` of ``kv_in`` (``h`` itself for
+    self attention, its three products reading ``h`` through one move):
+    (q, k, v, whether q is split)."""
+    if kv_in is not None:
+        q, q_split = heads_q(cfg, p, h)
+        return (q,) + heads_kv(cfg, p, kv_in) + (q_split,)
+    (q, qs), (k, ks), (v, _) = linears(h, _weights(cfg, p, ("wq", "wk", "wv")))
+    k, v = _at_rank(cfg, qs is not None, k, v, ks)
+    return q.unflatten(-1, (-1, cfg.hd)), k, v, qs is not None
+
+
+def heads_out(cfg, a: torch.Tensor, wo: torch.Tensor, q_split: bool) -> torch.Tensor:
+    """(B, L, Hl, hd) @ wo -> (B, L, D), whole: row-parallel over the rank's
+    heads (reduced), or, where q was whole, column-parallel on d_model
+    (gathered) or replicated, as the rules split ``wo``."""
+    [(y, split)] = linears(a.flatten(-2), [(wo, ("heads", None, "embed"), (cfg.n_heads, cfg.hd, cfg.d_model))],
+                           k=2, x_split=q_split)
+    return whole(y, split)

@@ -9,7 +9,10 @@ non-causal self attention, the decoder's causal self attention and its
 non-causal cross attention (Lq the prompt, Lk the frames).  The decode step
 is plain PyTorch, as in the reference: self attention against the cache and
 cross attention against the encoder K/V the prefill cached.  Layers are a
-loop over the stacked leaves, each one call of ``remat``.
+loop over the stacked leaves, each one call of ``remat``.  Under tensor
+parallelism every attention (the encoder's, the decoder's self and cross
+attention, its keys and values from the whole encoder output) and every MLP
+splits as the dense family's (``models/attention.py``, ``models/layers.py``).
 """
 from __future__ import annotations
 
@@ -20,8 +23,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import apply_rope, embed_tokens, remat, rms_norm, swiglu
-from repro_torch.models.spec import ParamSpec, dense, layer, stack_layers, stacked, torch_dtype
+from repro_torch.models.layers import apply_rope, embed_tokens, mlp, remat, rms_norm
+from repro_torch.models.spec import ParamSpec, dense, layer, layers, stack_layers, stacked, torch_dtype
 from repro_torch.models.transformer import _head, _positions, attn_specs, mlp_specs, n_stacked, write_cache
 
 
@@ -64,13 +67,13 @@ def specs(cfg: ArchConfig) -> dict:
 
 def enc_block(cfg: ArchConfig, x, p, pos):
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-    q, k, v = attn.qkv_proj(h, p["attn"])
+    q, k, v, q_split = attn.heads_qkv(cfg, p["attn"], h)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     a = attn.attention(q, k, v, causal=False)
-    x = x + attn.out_proj(a, p["attn"]["wo"])
+    x = x + attn.heads_out(cfg, a, p["attn"]["wo"], q_split)
     h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    return x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+    return x + mlp(h, p["mlp"], cfg.d_ff, F.silu)
 
 
 def encode(cfg: ArchConfig, params, frames: torch.Tensor) -> torch.Tensor:
@@ -79,8 +82,8 @@ def encode(cfg: ArchConfig, params, frames: torch.Tensor) -> torch.Tensor:
     x = frames.to(torch_dtype(cfg.compute_dtype))
     pos = torch.arange(x.shape[1], device=x.device)[None, :]
     body = lambda x, p: enc_block(cfg, x, p, pos)
-    for i in range(n_stacked(params["enc_blocks"])):
-        x = remat(body, x, layer(params["enc_blocks"], i), policy=cfg.remat)
+    for p in layers(params["enc_blocks"]):
+        x = remat(body, x, p, policy=cfg.remat)
     return rms_norm(x, params["enc_ln_f"], cfg.norm_eps)
 
 
@@ -91,33 +94,31 @@ def encode(cfg: ArchConfig, params, frames: torch.Tensor) -> torch.Tensor:
 
 def _cross_attn(cfg, x, p, enc_out):
     h = rms_norm(x, p["ln_cross"], cfg.norm_eps)
-    q = attn.proj(h, p["cross"]["wq"])
-    k = attn.proj(enc_out, p["cross"]["wk"])
-    v = attn.proj(enc_out, p["cross"]["wv"])
+    q, k, v, q_split = attn.heads_qkv(cfg, p["cross"], h, enc_out)
     a = attn.attention(q, k, v, causal=False)
-    return x + attn.out_proj(a, p["cross"]["wo"])
+    return x + attn.heads_out(cfg, a, p["cross"]["wo"], q_split)
 
 
 def _cross_attn_cached(cfg, x, p, ck, cv):
     """Decode-time cross attention against the encoder K/V of the prefill."""
     h = rms_norm(x, p["ln_cross"], cfg.norm_eps)
-    q = attn.proj(h, p["cross"]["wq"])
+    q, _ = attn.heads_q(cfg, p["cross"], h)
     pos_full = torch.full((x.shape[0],), ck.shape[1] - 1, dtype=torch.int32, device=x.device)  # every frame valid
     a = attn.decode_attention(q, ck, cv, pos_full)
-    return x + attn.out_proj(a, p["cross"]["wo"])
+    return x + attn.heads_out(cfg, a, p["cross"]["wo"], False)
 
 
 def dec_block(cfg: ArchConfig, x, p, pos, enc_out):
     """Returns (x, (k, v)): the layer's output and its self-attention cache."""
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-    q, k, v = attn.qkv_proj(h, p["attn"])
+    q, k, v, q_split = attn.heads_qkv(cfg, p["attn"], h)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     a = attn.attention(q, k, v, causal=True)
-    x = x + attn.out_proj(a, p["attn"]["wo"])
+    x = x + attn.heads_out(cfg, a, p["attn"]["wo"], q_split)
     x = _cross_attn(cfg, x, p, enc_out)
     h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    x = x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+    x = x + mlp(h, p["mlp"], cfg.d_ff, F.silu)
     return x, (k, v)
 
 
@@ -127,11 +128,11 @@ def backbone(cfg: ArchConfig, params, tokens, extras=None):
     ``remat`` as an argument, so its gradient flows back to the encoder
     through the checkpoint's inputs."""
     enc_out = encode(cfg, params, extras["enc_frames"])
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype), cfg.vocab_size)
     pos = _positions(tokens)
     body = lambda x, p, enc_out: dec_block(cfg, x, p, pos, enc_out)[0]
-    for i in range(n_stacked(params["dec_blocks"])):
-        x = remat(body, x, layer(params["dec_blocks"], i), enc_out, policy=cfg.remat)
+    for p in layers(params["dec_blocks"]):
+        x = remat(body, x, p, enc_out, policy=cfg.remat)
     return x
 
 
@@ -164,7 +165,7 @@ def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len: Optional[in
     enc_out = encode(cfg, params, extras["enc_frames"])
     B, L = tokens.shape
     cache_len = cache_len or L
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype), cfg.vocab_size)
     pos = _positions(tokens)
     layers = []
     for i in range(n_stacked(params["dec_blocks"])):
@@ -172,8 +173,7 @@ def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len: Optional[in
         x, (k, v) = dec_block(cfg, x, p, pos, enc_out)
         if cache_len > L:
             k, v = (F.pad(t, (0, 0, 0, 0, 0, cache_len - L)) for t in (k, v))
-        xk = attn.proj(enc_out, p["cross"]["wk"])
-        xv = attn.proj(enc_out, p["cross"]["wv"])
+        xk, xv = attn.heads_kv(cfg, p["cross"], enc_out)
         layers.append({"k": k, "v": v, "cross_k": xk, "cross_v": xv})
     return _head(cfg, params, x[:, -1:, :]), {"layers": stack_layers(layers)}
 
@@ -188,15 +188,15 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, extras=None):
     for i in range(n_stacked(params["dec_blocks"])):
         p, lc = layer(params["dec_blocks"], i), layer(lcs, i)
         h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-        q, k_t, v_t = attn.qkv_proj(h, p["attn"])
+        q, k_t, v_t, _ = attn.heads_qkv(cfg, p["attn"], h)
         q = apply_rope(q, pos[:, None], cfg.rope_theta)
         k_t = apply_rope(k_t, pos[:, None], cfg.rope_theta)
         ck, cv = write_cache(lc["k"], lc["v"], k_t, v_t, pos)
         a = attn.decode_attention(q, ck, cv, pos)
-        x = x + attn.out_proj(a, p["attn"]["wo"])
+        x = x + attn.heads_out(cfg, a, p["attn"]["wo"], False)
         x = _cross_attn_cached(cfg, x, p, lc["cross_k"], lc["cross_v"])
         h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-        x = x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+        x = x + mlp(h, p["mlp"], cfg.d_ff, F.silu)
         ks.append(ck)
         vs.append(cv)
     new = {"k": torch.stack(ks), "v": torch.stack(vs), "cross_k": lcs["cross_k"], "cross_v": lcs["cross_v"]}

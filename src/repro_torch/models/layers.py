@@ -2,7 +2,16 @@
 
 Counterpart of ``repro/models/layers.py``, with the same fp32 upcasts.  The
 reference's ``shard_x`` annotations are dropped: each rank computes on its
-own shard, which the steps cut (``train/step.py``).  Its ``scan_layers``
+own shard, which the steps cut (``train/step.py``).  Under tensor
+parallelism a rank holds its "model" shard of each weight; ``linears``,
+``mlp``, ``embed_tokens``, ``lm_logits`` and ``vocab_cross_entropy`` read
+each weight's split from the strategy's rules (``parallel/tensor.py``,
+``weight_split``) and move the activations over "model" as GSPMD would:
+a weight split on its output dim is column-parallel (its result split), one
+split on its contraction dim row-parallel (partial sums, then ``reduce``),
+one split on neither replicated.  Norms run on replicated activations.
+Outside a tensor-parallel step no weight reads as split and each helper is
+the plain product.  Its ``scan_layers``
 becomes a plain loop over the layer index of the stacked leaves
 (``models/spec.py``: ``layer``, ``stack_layers``), each layer one call of
 :func:`remat`, which rematerialises it by the config's policy, as
@@ -11,11 +20,14 @@ becomes a plain loop over the layer index of the stacked leaves
 from __future__ import annotations
 
 import functools
+import math
 from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
+
+from repro_torch.parallel import tensor as tp
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -30,22 +42,105 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP: down( silu(x @ gate) * (x @ up) )."""
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+def linears(x: torch.Tensor, weights: list, *, k: int = 1, x_split: bool = False) -> list:
+    """``x`` (..., K) times each weight of ``weights``, a list of (w, logical
+    axes, global shape), its first ``k`` dims contracted (flattened to K)
+    and the rest flattened to the output.  Returns one (y, split) a weight:
+    ``split`` is None where y is whole on every rank, else the ``outer`` of
+    y's last dim, split over "model" (a column-parallel weight).
+
+    A row-parallel weight reads the rank's part of ``x`` (``x`` itself with
+    ``x_split``: x already holds the part its contraction split asks for)
+    and its partial sums are reduced; the column-parallel weights read ``x``
+    through one shared ``enter``."""
+    out, entered, parts = [], None, {}
+    for w, axes, shape in weights:
+        wf = w.reshape(math.prod(w.shape[:k]), -1)
+        s = tp.weight_split(axes, shape)
+        if s is None:
+            if x_split:
+                raise ValueError(f"a whole weight {tuple(shape)} ({axes}) after an input split over 'model'")
+            out.append((x @ wf, None))
+            continue
+        d, outer = s
+        if d < k:  # row-parallel: the contraction is split
+            if not x_split:
+                o = outer * math.prod(shape[:d])
+                if o not in parts:
+                    parts[o] = tp.split(x, -1, o)
+            xp = x if x_split else parts[o]
+            out.append((tp.reduce(xp @ wf), None))
+            continue
+        if x_split:
+            raise ValueError(f"a column-parallel weight {tuple(shape)} ({axes}) after an input split over 'model'")
+        if entered is None:
+            entered = tp.enter(x)
+        out.append((entered @ wf, outer * math.prod(shape[k:d])))
+    return out
 
 
-def geglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
-    return (gelu(x @ w_gate) * (x @ w_up)) @ w_down
+def whole(y: torch.Tensor, split) -> torch.Tensor:
+    """``y`` of ``linears``, its last dim gathered where it is split."""
+    return y if split is None else tp.gather(y, -1, split)
 
 
-def embed_tokens(tokens: torch.Tensor, table: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
-    return table[tokens.long()].to(compute_dtype)
+def mlp(x: torch.Tensor, p: dict, d_ff: int, act: Callable) -> torch.Tensor:
+    """down(act(x @ gate) * (x @ up)): SwiGLU with ``act`` silu, GeGLU with
+    ``gelu``.  Gate and up are column-parallel over "mlp" and down
+    row-parallel where the rules split "mlp"; the result whole."""
+    D = x.shape[-1]
+    (g, split), (u, _) = linears(x, [(p["w_gate"], ("embed", "mlp"), (D, d_ff)), (p["w_up"], ("embed", "mlp"), (D, d_ff))])
+    [(y, ys)] = linears(act(g) * u, [(p["w_down"], ("mlp", "embed"), (d_ff, D))], x_split=split is not None)
+    return whole(y, ys)
 
 
-def lm_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
-    """x (..., D) @ head (D, V) -> (..., V)."""
-    return x @ head
+def _vocab_start(n_local: int, split) -> int:
+    if split[1] != 1:
+        raise NotImplementedError(f"a vocab dim split over 'model' inside {split[1]} outer blocks")
+    return tp.model_rank() * n_local
+
+
+def embed_tokens(tokens: torch.Tensor, table: torch.Tensor, compute_dtype: torch.dtype,
+                 vocab_size: Optional[int] = None) -> torch.Tensor:
+    """The rows of ``table`` (V, D) at ``tokens``.  With the global
+    ``vocab_size`` given, a table split over "model" on its vocab dim looks
+    up only the ids in the rank's range (the rest read zeros) and the ranks'
+    rows are summed."""
+    split = tp.weight_split(("vocab", "embed_table"), (vocab_size, table.shape[1])) if vocab_size else None
+    if split is None:
+        return table[tokens.long()].to(compute_dtype)
+    n = table.shape[0]
+    ids = tokens.long() - _vocab_start(n, split)
+    inside = (ids >= 0) & (ids < n)
+    rows = table[ids.clamp(0, n - 1)] * inside[..., None].to(table.dtype)
+    return tp.reduce(rows).to(compute_dtype)
+
+
+def lm_logits(x: torch.Tensor, head: torch.Tensor, split=None) -> torch.Tensor:
+    """x (..., D) @ head (D, V) -> (..., V).  ``split`` is the head's
+    ``weight_split``: split on V the logits come out split (the rank's
+    vocab range), split on D the partial logits are reduced."""
+    if split is None:
+        return x @ head
+    if split[0] == 1:
+        return tp.enter(x) @ head
+    return tp.reduce(tp.split(x, -1, split[1]) @ head)
+
+
+def vocab_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, split) -> torch.Tensor:
+    """The mean next-token NLL of logits whose vocab dim is split over
+    "model" (``lm_logits`` of a head split on V): each row's max and sum of
+    exp reduced over the ranks, the label's logit picked on the rank that
+    owns it.  Equal to the whole-vocab logsumexp minus the label's logit,
+    and so is its gradient."""
+    logits32 = logits.float()
+    n = logits.shape[-1]
+    shift = tp.reduce(torch.amax(logits32, dim=-1), "max")
+    lse = shift + torch.log(tp.reduce(torch.sum(torch.exp(logits32 - shift[..., None]), dim=-1)))
+    ids = labels.long() - _vocab_start(n, split)
+    inside = (ids >= 0) & (ids < n)
+    picked = torch.gather(logits32, -1, ids.clamp(0, n - 1)[..., None])[..., 0] * inside
+    return torch.mean(lse - tp.reduce(picked))
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -15,7 +15,11 @@ gated cross-attention decoder, ``models/vision.py``).  Their forward and
 prefill run on the hand-written kernels where the tensors lie on a CUDA
 device, and so does the backward of attention (self and cross), of both
 scans (the selective scan's and the RG-LRU's) and of the expert GEMMs
-(``kernels/ops.py``): all six families train on the card.
+(``kernels/ops.py``): all six families train on the card.  Under tensor
+parallelism (``train/step.py``'s train and prefill steps on a "model" axis
+above 1) ``params`` are a rank's "model" shards, the loss takes the
+vocab-parallel cross entropy where the head splits the vocab, and the
+prefill's logits come back whole.
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import encdec, moe, rglru, ssm, transformer, vision
-from repro_torch.models.layers import remat
+from repro_torch.models.layers import remat, vocab_cross_entropy
+from repro_torch.models.transformer import _head
 from repro_torch.models.spec import init_params, tree_size
 
 _FAMILY = {
@@ -76,9 +81,12 @@ class Model:
         for moe ``aux_loss`` and ``z_loss`` (fp32 tensors)."""
         if self.cfg.logit_chunk and self.cfg.family in _CHUNKED_HEAD:
             return self._loss_chunked_head(params, batch)
-        out = self.mod.forward(self.cfg, params, batch["tokens"], _extras(batch))
-        logits, moe_metrics = out if isinstance(out, tuple) else (out, None)
-        ce, metrics = cross_entropy(logits, batch["labels"])
+        if self.cfg.family == "moe":
+            (logits, split), moe_metrics = moe.forward(self.cfg, params, batch["tokens"], gather=False)
+        else:
+            hidden = self.mod.backbone(self.cfg, params, batch["tokens"], _extras(batch))
+            (logits, split), moe_metrics = _head(self.cfg, params, hidden, gather=False), None
+        ce, metrics = cross_entropy(logits, batch["labels"], split)
         loss = ce
         if moe_metrics is not None:
             loss = loss + moe.aux_loss(moe_metrics)
@@ -90,8 +98,6 @@ class Model:
         """The LM head and cross entropy a sequence chunk at a time, each
         chunk under a checkpoint that recomputes it in the backward, so the
         (B, L, V) fp32 logits never exist whole (``model.py:84-121``)."""
-        from repro_torch.models.transformer import _head
-
         cfg = self.cfg
         hidden = self.mod.backbone(cfg, params, batch["tokens"], _extras(batch))
         B, L, D = hidden.shape
@@ -101,7 +107,8 @@ class Model:
         labels = batch["labels"]
 
         def chunk_nll(h_chunk, l_chunk):
-            ce, _ = cross_entropy(_head(cfg, params, h_chunk), l_chunk)
+            logits, split = _head(cfg, params, h_chunk, gather=False)
+            ce, _ = cross_entropy(logits, l_chunk, split)
             return ce * l_chunk.numel()  # a sum, renormalised below
 
         total = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -123,13 +130,19 @@ class Model:
         return self.mod.cache_specs(self.cfg, batch, cache_len)
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, split=None):
     """Mean next-token negative log-likelihood in fp32: logsumexp of each
     row minus the label's logit (the reference picks the label's logit with
     an iota mask, ``model.py:130-139``; a gather picks the same element).
+    With ``split`` (logits split over "model" on the vocab, the head's
+    ``weight_split``) the vocab-parallel form (``layers.vocab_cross_entropy``).
     Returns (loss, {"ce": loss, "tokens": the label count})."""
+    tokens = torch.tensor(float(labels.numel()), device=logits.device)
+    if split is not None:
+        loss = vocab_cross_entropy(logits, labels, split)
+        return loss, {"ce": loss, "tokens": tokens}
     logits32 = logits.float()
     lse = torch.logsumexp(logits32, dim=-1)
     picked = torch.gather(logits32, -1, labels.long()[..., None])[..., 0]
     loss = torch.mean(lse - picked)
-    return loss, {"ce": loss, "tokens": torch.tensor(float(labels.numel()), device=logits.device)}
+    return loss, {"ce": loss, "tokens": tokens}

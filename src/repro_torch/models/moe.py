@@ -10,8 +10,17 @@ expert products (``moe.py:131-135``) run on the grouped GEMM kernel
 expert's rows of every group together, so one launch multiplies every
 expert's rows by its weights.  On the card its gradient is the hand-written
 ``moe_gmm`` backward.  The reference's ``shard_x`` annotations are dropped:
-each rank computes on its own shard, which the steps cut (``train/step.py``;
-the expert split over "model" is tensor parallelism, ROADMAP.md item 6b).
+each rank computes on its own shard, which the steps cut (``train/step.py``).
+Under tensor parallelism the expert weights' split is read from the rules
+(``parallel/tensor.py``, ``weight_split``), two cases:
+
+  * "experts" over "model" (arctic): a rank holds E/m experts and runs the
+    GEMM on their slots of every token; the router and the dispatch stay
+    replicated, and the ranks' combined outputs are summed (``reduce``);
+  * "mlp" over "model" (grok-1's default, ``expert_mlp``): each expert's
+    FFN is split inside, gate and up column-parallel and down row-parallel,
+    the GEMM at F/m, its partial outputs summed before the combine.
+
 Layers are a loop over the stacked leaves, each one call of
 ``layers.remat``.
 """
@@ -25,10 +34,11 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import apply_rope, embed_tokens, remat, rms_norm, swiglu
-from repro_torch.models.spec import ParamSpec, dense, layer, stack_layers, stacked, torch_dtype
+from repro_torch.models.layers import apply_rope, embed_tokens, mlp, remat, rms_norm
+from repro_torch.models.spec import ParamSpec, dense, layer, layers, stack_layers, stacked, torch_dtype
 from repro_torch.models.transformer import _head, _positions, attn_specs, n_stacked, write_cache
 from repro_torch.models.transformer import cache_specs as dense_cache_specs
+from repro_torch.parallel import tensor as tp
 
 AUX_LOSS_WEIGHT = 0.01
 Z_LOSS_WEIGHT = 1e-3
@@ -122,24 +132,6 @@ def route(cfg: ArchConfig, logits: torch.Tensor):
     return dispatch, combine, aux, z
 
 
-def _divisor(n: int, cap: int) -> int:
-    """The largest divisor of ``n`` that is at most ``cap``."""
-    b = min(cap, n)
-    while n % b:
-        b -= 1
-    return b
-
-
-def expert_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (E, R, K) @ w (E, K, N) on the grouped GEMM kernel, with blocks that
-    divide the shapes (the kernel keeps the reference's divisibility rule and
-    picks its own tiles: arctic's contraction of 4864 takes no 512 block)."""
-    _, R, K = x.shape
-    return ops.moe_gmm(
-        x, w, block_c=_divisor(R, 128), block_d=_divisor(K, 512), block_f=_divisor(w.shape[-1], 256),
-    )
-
-
 def moe_ffn(cfg: ArchConfig, x: torch.Tensor, p: dict):
     """x (B, L, D) -> (y (B, L, D), aux_metrics dict)."""
     B, L, D = x.shape
@@ -155,14 +147,32 @@ def moe_ffn(cfg: ArchConfig, x: torch.Tensor, p: dict):
     dispatch = dispatch.to(x.dtype)
     E, C = dispatch.shape[2], dispatch.shape[3]
 
+    F_ = cfg.d_ff
+    by_expert = tp.weight_split(("experts", "embed", "mlp"), (E, D, F_))
+    if by_expert is not None and by_expert not in ((0, 1), (2, 1)):
+        raise NotImplementedError(f"expert weights (E, D, F) split over 'model' as (dim, outer) {by_expert}")
+    if by_expert == (0, 1):
+        # this rank's experts, over the slots of every token
+        El = p["w_gate"].shape[0]
+        lo = tp.model_rank() * El
+        xg, dispatch, combine = tp.enter(xg), dispatch[:, :, lo:lo + El], tp.enter(combine)[:, :, lo:lo + El]
+        E = El
     # each expert's rows of every group together: (E, G * C, D)
     xe = torch.einsum("Ggd,Ggec->eGcd", xg, dispatch).contiguous().reshape(E, G * C, D)
-    h = F.silu(expert_matmul(xe, p["w_gate"])) * expert_matmul(xe, p["w_up"])
-    ye = expert_matmul(h, p["w_down"]).reshape(E, G, C, D)
-    y = torch.einsum("eGcd,Ggec->Ggd", ye.float(), combine)
+    inner = by_expert == (2, 1)
+    if inner:  # each expert's FFN split over "model": gate and up column-, down row-parallel
+        xe = tp.enter(xe)
+    # the grouped GEMM kernel; its wrapper picks blocks that divide the shapes
+    h = F.silu(ops.moe_gmm(xe, p["w_gate"])) * ops.moe_gmm(xe, p["w_up"])
+    ye = ops.moe_gmm(h, p["w_down"])
+    if inner:
+        ye = tp.reduce(ye)
+    y = torch.einsum("eGcd,Ggec->Ggd", ye.reshape(E, G, C, D).float(), combine)
+    if by_expert == (0, 1):
+        y = tp.reduce(y)
     y = y.reshape(B, L, D).to(x.dtype)
     if "dense" in p:  # arctic: parallel dense residual MLP
-        y = y + swiglu(x, p["dense"]["w_gate"], p["dense"]["w_up"], p["dense"]["w_down"])
+        y = y + mlp(x, p["dense"], F_, F.silu)
     return y, {"aux_loss": aux, "z_loss": z}
 
 
@@ -174,11 +184,11 @@ def moe_ffn(cfg: ArchConfig, x: torch.Tensor, p: dict):
 def _attn(cfg: ArchConfig, x, p, pos):
     """The attention half of a block: (x after it, (k, v))."""
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-    q, k, v = attn.qkv_proj(h, p["attn"])
+    q, k, v, q_split = attn.heads_qkv(cfg, p["attn"], h)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     a = attn.attention(q, k, v, causal=True)
-    return x + attn.out_proj(a, p["attn"]["wo"]), (k, v)
+    return x + attn.heads_out(cfg, a, p["attn"]["wo"], q_split), (k, v)
 
 
 def moe_block(cfg: ArchConfig, x, p, pos):
@@ -187,10 +197,11 @@ def moe_block(cfg: ArchConfig, x, p, pos):
     return x + y, aux
 
 
-def forward(cfg: ArchConfig, params, tokens, extras=None):
+def forward(cfg: ArchConfig, params, tokens, extras=None, *, gather: bool = True):
     """Returns (logits, moe_metrics): the aux and z losses averaged over the
-    layers, each layer rematerialised by ``cfg.remat``."""
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    layers, each layer rematerialised by ``cfg.remat``.  With ``gather``
+    False the logits are ``_head``'s (logits, vocab split) pair."""
+    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype), cfg.vocab_size)
     pos = _positions(tokens)
 
     def body(x, p):
@@ -199,10 +210,10 @@ def forward(cfg: ArchConfig, params, tokens, extras=None):
 
     n = n_stacked(params["blocks"])
     aux_sum = z_sum = 0.0
-    for i in range(n):
-        x, aux, z = remat(body, x, layer(params["blocks"], i), policy=cfg.remat)
+    for p in layers(params["blocks"]):
+        x, aux, z = remat(body, x, p, policy=cfg.remat)
         aux_sum, z_sum = aux_sum + aux, z_sum + z
-    return _head(cfg, params, x), {"aux_loss": aux_sum / n, "z_loss": z_sum / n}
+    return _head(cfg, params, x, gather=gather), {"aux_loss": aux_sum / n, "z_loss": z_sum / n}
 
 
 def aux_loss(metrics: dict) -> torch.Tensor:
@@ -214,12 +225,12 @@ cache_specs = dense_cache_specs
 
 def _decode_block(cfg, x, p, layer_cache, pos):
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-    q, k_t, v_t = attn.qkv_proj(h, p["attn"])
+    q, k_t, v_t, _ = attn.heads_qkv(cfg, p["attn"], h)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k_t = apply_rope(k_t, pos[:, None], cfg.rope_theta)
     ck, cv = write_cache(layer_cache["k"], layer_cache["v"], k_t, v_t, pos)
     a = attn.decode_attention(q, ck, cv, pos)
-    x = x + attn.out_proj(a, p["attn"]["wo"])
+    x = x + attn.heads_out(cfg, a, p["attn"]["wo"], False)
     y, _ = moe_ffn(cfg, rms_norm(x, p["ln_mlp"], cfg.norm_eps), p["moe"])
     return x + y, {"k": ck, "v": cv}
 
@@ -229,7 +240,7 @@ def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len=None):
     Returns (last-token logits (B, 1, V), cache)."""
     B, L = tokens.shape
     cache_len = cache_len or L
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype), cfg.vocab_size)
     pos = _positions(tokens)
     ks, vs = [], []
     for i in range(n_stacked(params["blocks"])):

@@ -8,10 +8,22 @@ plain versions.  The decode step (``rglru_step``, one-token attention against
 the ring buffer) is plain PyTorch, as in the reference.  A stack that is not
 a whole number of superblocks ends in recurrent layers (``_layout``:
 recurrentgemma-2b's 26 = 8 x 3 + 2).
+
+Under tensor parallelism (the train and prefill passes) the recurrent
+channels split over "model" where the rules split "rnn": ``w_x`` and
+``w_gate`` column-parallel, the conv and ``rglru_scan`` at dr / m, ``w_out``
+row-parallel.  The gates' block-diagonal weights (nb, bd, bd) split with
+them where m divides nb.  Where it does not, the gate blocks stay whole and
+a rank's channels straddle a block boundary (dr 48 in 16 blocks of 3 on
+m = 3: rank 1 holds channels 16 to 31, blocks 5 to 10 in part), so the
+gates run on the whole activation, gathered over "model", and the rank
+takes its channels of their outputs.  (recurrentgemma-2b's 2560 channels
+form 16 blocks of 160, which any m up to 16 that divides 2560 splits on
+block boundaries.)
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
@@ -19,9 +31,12 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import apply_rope, causal_conv1d, conv1d_step, embed_tokens, gelu, geglu, remat, rms_norm
-from repro_torch.models.spec import ParamSpec, dense, layer, stack_layers, stacked, torch_dtype
+from repro_torch.models.layers import (
+    apply_rope, causal_conv1d, conv1d_step, embed_tokens, gelu, linears, mlp, remat, rms_norm, whole,
+)
+from repro_torch.models.spec import ParamSpec, dense, layer, layers, stack_layers, stacked, torch_dtype
 from repro_torch.models.transformer import _head, _positions, attn_specs, n_stacked, write_cache
+from repro_torch.parallel import tensor as tp
 
 N_GATE_BLOCKS = 16  # block-diagonal gate blocks == model-axis size
 LRU_C = 8.0
@@ -146,10 +161,25 @@ def _lru_gates(p: dict, u: torch.Tensor):
     return log_a, beta * i * u.float()
 
 
-def rglru_seq(p: dict, u: torch.Tensor, h0=None):
+def _gates_of_split(cfg: ArchConfig, p: dict, u: torch.Tensor):
+    """``_lru_gates`` of the rank's channels ``u`` (B, L, dr / m) where the
+    gate blocks are whole on every rank: the gates run on the whole
+    activation and the gate vectors, gathered over "model", and the rank
+    takes its channels of log_a and the gated input."""
+    nb = _gate_blocks(cfg)
+    bd = cfg.rnn_dim // nb
+    if tp.weight_split(("rnn", None, None), (nb, bd, bd)) is not None:
+        return _lru_gates(p, u)  # the rank holds the blocks of its channels
+    full = {k: tp.gather(p[k], -1) for k in ("b_rec_gate", "b_in_gate", "lam")}
+    log_a, gx = _lru_gates({**p, **full}, tp.gather(u, -1))
+    return tp.split(log_a, -1), tp.split(gx, -1)
+
+
+def rglru_seq(p: dict, u: torch.Tensor, h0=None, cfg: Optional[ArchConfig] = None, split=None):
     """RG-LRU over a full sequence on the ``rglru_scan`` kernel.
-    u (B, L, dr) -> (y, h_last (B, dr) f32)."""
-    log_a, gx = _lru_gates(p, u)
+    u (B, L, dr) -> (y, h_last (B, dr) f32).  With ``split`` (u holds the
+    rank's channels) the gates as ``_gates_of_split`` runs them."""
+    log_a, gx = _lru_gates(p, u) if split is None else _gates_of_split(cfg, p, u)
     y, h_last = ops.rglru_scan(log_a.contiguous(), gx.contiguous(), h0)
     return y.to(u.dtype), h_last
 
@@ -168,14 +198,16 @@ def rglru_step(p: dict, u_t: torch.Tensor, h: torch.Tensor):
 
 def rec_block(cfg: ArchConfig, x, p, h0=None):
     """Full-seq recurrent block.  Returns (x, (h_last, conv_tail))."""
+    D, dr = cfg.d_model, cfg.rnn_dim
     h_in = rms_norm(x, p["ln"], cfg.norm_eps)
-    u_pre = h_in @ p["w_x"]
-    g = gelu(h_in @ p["w_gate"])
+    (u_pre, split), (g, _) = linears(h_in, [(p[n], ("embed", "rnn"), (D, dr)) for n in ("w_x", "w_gate")])
+    g = gelu(g)
     u = causal_conv1d(u_pre, p["conv_w"], p["conv_b"])
-    y, h_last = rglru_seq(p, u, h0)
-    x = x + (y * g) @ p["w_out"]
+    y, h_last = rglru_seq(p, u, h0, cfg, split)
+    [(out, os_)] = linears(y * g, [(p["w_out"], ("rnn", "embed"), (dr, D))], x_split=split is not None)
+    x = x + whole(out, os_)
     h2 = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    x = x + geglu(h2, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+    x = x + mlp(h2, p["mlp"], cfg.d_ff, gelu)
     conv_tail = u_pre[:, -3:, :]
     return x, (h_last, conv_tail)
 
@@ -183,13 +215,13 @@ def rec_block(cfg: ArchConfig, x, p, h0=None):
 def attn_block(cfg: ArchConfig, x, p, pos):
     """Local-window MQA block.  Returns (x, (k, v))."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q, k, v = attn.qkv_proj(h, p["attn"])
+    q, k, v, q_split = attn.heads_qkv(cfg, p["attn"], h)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     a = attn.attention(q, k, v, causal=True, window=cfg.local_window)
-    x = x + attn.out_proj(a, p["attn"]["wo"])
+    x = x + attn.heads_out(cfg, a, p["attn"]["wo"], q_split)
     h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    x = x + geglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+    x = x + mlp(h, p["mlp"], cfg.d_ff, gelu)
     return x, (k, v)
 
 
@@ -202,7 +234,7 @@ def backbone(cfg: ArchConfig, params, tokens, extras=None):
     """Hidden states before the LM head; each superblock, and each tail
     layer, rematerialised by ``cfg.remat`` when gradients are taken (the
     reference's scan steps)."""
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype), cfg.vocab_size)
     pos = _positions(tokens)
 
     def super_body(x, p):
@@ -210,11 +242,11 @@ def backbone(cfg: ArchConfig, params, tokens, extras=None):
         x, _ = rec_block(cfg, x, p["rec2"])
         return attn_block(cfg, x, p["attn"], pos)[0]
 
-    for i in range(n_stacked(params["superblocks"])):
-        x = remat(super_body, x, layer(params["superblocks"], i), policy=cfg.remat)
+    for p in layers(params["superblocks"]):
+        x = remat(super_body, x, p, policy=cfg.remat)
     if "tail" in params:
-        for i in range(n_stacked(params["tail"])):
-            x = remat(lambda x, p: rec_block(cfg, x, p)[0], x, layer(params["tail"], i), policy=cfg.remat)
+        for p in layers(params["tail"]):
+            x = remat(lambda x, p: rec_block(cfg, x, p)[0], x, p, policy=cfg.remat)
     return x
 
 
@@ -279,22 +311,22 @@ def _rec_step(cfg, x, p, h, conv_state):
     y, h_new = rglru_step(p, u, h)
     x = x + ((y * g) @ p["w_out"])[:, None, :]
     h2 = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    x = x + geglu(h2, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+    x = x + mlp(h2, p["mlp"], cfg.d_ff, gelu)
     return x, h_new, conv_state
 
 
 def _attn_step(cfg, x, p, k_cache, v_cache, pos):
     W = k_cache.shape[1]
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q, k_t, v_t = attn.qkv_proj(h, p["attn"])
+    q, k_t, v_t, _ = attn.heads_qkv(cfg, p["attn"], h)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k_t = apply_rope(k_t, pos[:, None], cfg.rope_theta)
     ck, cv = write_cache(k_cache, v_cache, k_t, v_t, pos % W)
     cpos = ring_positions(pos, W)
     a = attn.decode_attention(q, ck, cv, pos, cache_positions=cpos, window=cfg.local_window)
-    x = x + attn.out_proj(a, p["attn"]["wo"])
+    x = x + attn.heads_out(cfg, a, p["attn"]["wo"], False)
     h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    x = x + geglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+    x = x + mlp(h, p["mlp"], cfg.d_ff, gelu)
     return x, ck, cv
 
 
@@ -302,7 +334,7 @@ def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len=None):
     B, L = tokens.shape
     cache_len = cache_len or L
     W = min(cfg.local_window, cache_len)
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype), cfg.vocab_size)
     pos = _positions(tokens)
     sb = []
     for i in range(n_stacked(params["superblocks"])):

@@ -70,8 +70,8 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator, device: torch.device
         return torch.zeros(spec.shape, dtype=dt, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dt, device=device)
-    if spec.init == "normal":
-        return (torch.randn(spec.shape, generator=generator, dtype=f32, device=device) * spec.scale).to(dt)
+    if spec.init == "normal":  # scaled in place: a leaf's fp32 draw is its largest temporary
+        return torch.randn(spec.shape, generator=generator, dtype=f32, device=device).mul_(spec.scale).to(dt)
     if spec.init == "ssm_a_log":
         # mamba1: A initialised to -[1..N] broadcast over d_inner; stored as log
         n = spec.shape[-1]
@@ -157,6 +157,18 @@ def stacked(n_layers: int, spec_tree):
 def layer(tree, i: int):
     """Layer ``i`` of a stacked tree (a view of each leaf)."""
     return tree_map(lambda t: t[i], tree)
+
+
+def layers(tree) -> list:
+    """Every layer of a stacked tree, from one ``unbind`` a leaf (views).
+    The gradient of a stacked leaf is then one stack of its layers'
+    gradients; taken a layer at a time by ``layer``, each layer's backward
+    writes its gradient into a zero-filled tensor of the whole stacked
+    leaf's size, and a step moves the stacked parameters' bytes once a
+    layer."""
+    per_leaf = tree_map(lambda t: t.unbind(0), tree)
+    n = len(tree_leaves(per_leaf)[0])
+    return [tree_map(lambda parts: parts[i], per_leaf) for i in range(n)]
 
 
 def stack_layers(per_layer: list):

@@ -12,6 +12,13 @@ before its backward.  The reference's two XLA lowerings of the
 chunk (``ssm_scan="assoc"`` and ``"seq"``) compute the same function, and the
 tests hold the port against both.  Decode is a single-token recurrence with
 O(1) state, plain PyTorch as in the reference.
+
+Under tensor parallelism (the train and prefill passes) the inner channels
+split over "model" where the rules split "ssm_inner": ``in_proj`` (``w_in_x``,
+``w_in_z``) column-parallel, the conv on the rank's channels, ``x_proj``
+(``w_x_dt``, ``w_x_b``, ``w_x_c``) row-parallel with dt, B and C reduced,
+``dt_proj`` column-parallel back to the rank's channels, the scan kernel at
+d_inner / m, and ``out_proj`` row-parallel.
 """
 from __future__ import annotations
 
@@ -22,9 +29,10 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import causal_conv1d, conv1d_step, embed_tokens, remat, rms_norm
-from repro_torch.models.spec import ParamSpec, dense, layer, stack_layers, stacked, torch_dtype
+from repro_torch.models.layers import causal_conv1d, conv1d_step, embed_tokens, linears, remat, rms_norm, whole
+from repro_torch.models.spec import ParamSpec, dense, layer, layers, stack_layers, stacked, torch_dtype
 from repro_torch.models.transformer import _head, n_stacked
+from repro_torch.parallel import tensor as tp
 
 
 def block_specs(cfg: ArchConfig, dt: str) -> dict:
@@ -105,18 +113,41 @@ def selective_scan_chunked(cfg: ArchConfig, p, xb, dt, bm, cm, h0=None):
     return torch.stack(ys, dim=1).reshape(B, L, di), h
 
 
+def _mixer_inputs(cfg: ArchConfig, p: dict, xb: torch.Tensor, split) -> tuple:
+    """``_ssm_inputs`` under tensor parallelism, where xb holds the rank's
+    channels (``split``, from ``in_proj``): x_proj row-parallel, dt, B and C
+    reduced, dt_proj column-parallel back to the rank's channels; B and C
+    enter the rank's scan."""
+    di, R, N = cfg.d_inner, cfg.dt_rank, cfg.ssm_state
+    xs = split is not None
+    (dt_low, _), (bm, _), (cm, _) = linears(xb, [
+        (p["w_x_dt"], ("ssm_inner", "dt_rank"), (di, R)),
+        (p["w_x_b"], ("ssm_inner", "ssm_state"), (di, N)),
+        (p["w_x_c"], ("ssm_inner", "ssm_state"), (di, N)),
+    ], x_split=xs)
+    [(dt, ds)] = linears(dt_low, [(p["w_dt"], ("dt_rank", "ssm_inner"), (R, di))])
+    if (ds is None) != (split is None):
+        raise NotImplementedError("dt_proj and in_proj split the inner channels differently")
+    dt = F.softplus(dt.float() + p["b_dt"].float())
+    bm, cm = bm.float(), cm.float()
+    if xs:
+        bm, cm = tp.enter(bm), tp.enter(cm)
+    return dt, bm, cm
+
+
 def _mixer(cfg: ArchConfig, x, p):
     """The block's full-sequence mixer.  Returns (x + out, (h_last, conv_tail))."""
+    D, di = cfg.d_model, cfg.d_inner
     h_in = rms_norm(x, p["ln"], cfg.norm_eps)
-    xb_pre = h_in @ p["w_in_x"]
-    z = h_in @ p["w_in_z"]
+    (xb_pre, split), (z, _) = linears(h_in, [(p[n], ("embed", "ssm_inner"), (D, di)) for n in ("w_in_x", "w_in_z")])
     xb = F.silu(causal_conv1d(xb_pre, p["conv_w"], p["conv_b"]))
-    dt, bm, cm = _ssm_inputs(cfg, p, xb)
+    dt, bm, cm = _mixer_inputs(cfg, p, xb, split)
     y, h_last = selective_scan_chunked(cfg, p, xb, dt, bm, cm)
     y = (y + p["d_skip"].float() * xb.float()).to(x.dtype)
     y = y * F.silu(z)
     conv_tail = xb_pre[:, -(cfg.ssm_conv - 1):, :]  # last K-1 *pre-conv* inputs
-    return x + y @ p["w_out"], (h_last, conv_tail)
+    [(out, os_)] = linears(y, [(p["w_out"], ("ssm_inner", "embed"), (di, D))], x_split=split is not None)
+    return x + whole(out, os_), (h_last, conv_tail)
 
 
 def mamba_block(cfg: ArchConfig, x, p):
@@ -127,9 +158,9 @@ def mamba_block(cfg: ArchConfig, x, p):
 def backbone(cfg: ArchConfig, params, tokens, extras=None):
     """Hidden states before the LM head; each layer rematerialised by
     ``cfg.remat`` when gradients are taken."""
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
-    for i in range(n_stacked(params["blocks"])):
-        x = remat(lambda x, p: mamba_block(cfg, x, p), x, layer(params["blocks"], i), policy=cfg.remat)
+    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype), cfg.vocab_size)
+    for p in layers(params["blocks"]):
+        x = remat(lambda x, p: mamba_block(cfg, x, p), x, p, policy=cfg.remat)
     return x
 
 
@@ -176,8 +207,9 @@ def mamba_decode_block(cfg: ArchConfig, x, p, layer_cache):
 
 
 def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len=None):
-    """Full forward, returning the recurrent state after the last token."""
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    """Full forward, returning the recurrent state after the last token
+    (under tensor parallelism, of the rank's channels)."""
+    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype), cfg.vocab_size)
     states = []
     for i in range(n_stacked(params["blocks"])):
         x, (h, conv) = _mixer(cfg, x, layer(params["blocks"], i))

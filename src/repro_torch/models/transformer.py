@@ -3,17 +3,21 @@
 Counterpart of ``repro/models/transformer.py``.  Its prefill attention runs
 on the flash kernel (``models/attention.py``); its decode step is plain
 PyTorch, as in the reference.  Layers are a loop over the stacked leaves.
+The train and prefill passes take a rank's "model" shards under tensor
+parallelism (``models/layers.py``); the decode step takes whole weights.
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import apply_rope, embed_tokens, lm_logits, post_collective, remat, rms_norm, swiglu
-from repro_torch.models.spec import ParamSpec, dense, layer, stack_layers, stacked, torch_dtype
+from repro_torch.models.layers import apply_rope, embed_tokens, lm_logits, mlp, post_collective, remat, rms_norm
+from repro_torch.models.spec import ParamSpec, dense, layer, layers, stack_layers, stacked, torch_dtype
+from repro_torch.parallel import tensor as tp
 
 
 # ---------------------------------------------------------------------------
@@ -71,13 +75,13 @@ def self_attn_block(cfg: ArchConfig, x, p, pos, *, window=None):
     two branch outputs are tagged ``post_collective`` where the reference
     tags them (``transformer.py:86,88``), for remat "collectives"."""
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-    q, k, v = attn.qkv_proj(h, p["attn"])
+    q, k, v, q_split = attn.heads_qkv(cfg, p["attn"], h)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     a = attn.attention(q, k, v, causal=True, window=window)
-    x = x + post_collective(attn.out_proj(a, p["attn"]["wo"]), cfg.remat)
+    x = x + post_collective(attn.heads_out(cfg, a, p["attn"]["wo"], q_split), cfg.remat)
     h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    x = x + post_collective(swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"]), cfg.remat)
+    x = x + post_collective(mlp(h, p["mlp"], cfg.d_ff, F.silu), cfg.remat)
     return x, (k, v)
 
 
@@ -93,15 +97,15 @@ def write_cache(cache_k, cache_v, k_t, v_t, pos):
 
 def self_attn_block_decode(cfg: ArchConfig, x, p, layer_cache, pos, *, window=None, cache_positions=None):
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-    q, k_t, v_t = attn.qkv_proj(h, p["attn"])
+    q, k_t, v_t, _ = attn.heads_qkv(cfg, p["attn"], h)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k_t = apply_rope(k_t, pos[:, None], cfg.rope_theta)
     write_pos = pos if window is None else pos % layer_cache["k"].shape[1]
     ck, cv = write_cache(layer_cache["k"], layer_cache["v"], k_t, v_t, write_pos)
     a = attn.decode_attention(q, ck, cv, pos, cache_positions=cache_positions, window=window)
-    x = x + attn.out_proj(a, p["attn"]["wo"])
+    x = x + attn.heads_out(cfg, a, p["attn"]["wo"], False)
     h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    x = x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+    x = x + mlp(h, p["mlp"], cfg.d_ff, F.silu)
     return x, {"k": ck, "v": cv}
 
 
@@ -117,12 +121,28 @@ def n_stacked(tree) -> int:
     return tree.shape[0]
 
 
-def _head(cfg: ArchConfig, params, x):
-    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+def head_split(cfg: ArchConfig, params):
+    """The LM head (D, V), untied or the embedding table's transpose, and
+    its ``weight_split`` under tensor parallelism."""
     head = params.get("lm_head")
-    if head is None:
-        head = params["embed"].T
-    return lm_logits(x, head.to(x.dtype))
+    if head is not None:
+        return head, tp.weight_split(("embed", "vocab"), (cfg.d_model, cfg.vocab_size))
+    split = tp.weight_split(("vocab", "embed_table"), (cfg.vocab_size, cfg.d_model))
+    return params["embed"].T, None if split is None else (1 - split[0], split[1])
+
+
+def _head(cfg: ArchConfig, params, x, *, gather: bool = True):
+    """Final norm and LM head.  Under tensor parallelism a head split on the
+    vocab gives the rank's vocab range of the logits, gathered whole unless
+    ``gather`` is False (the loss's vocab-parallel cross entropy): then
+    (logits, their vocab split or None)."""
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    head, split = head_split(cfg, params)
+    logits = lm_logits(x, head.to(x.dtype), split)
+    vocab_split = split is not None and split[0] == 1
+    if not gather:
+        return logits, split if vocab_split else None
+    return tp.gather(logits, -1) if vocab_split else logits
 
 
 def _positions(tokens):
@@ -132,11 +152,11 @@ def _positions(tokens):
 def backbone(cfg: ArchConfig, params, tokens, extras=None):
     """Hidden states before the LM head; each layer rematerialised by
     ``cfg.remat`` when gradients are taken."""
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype), cfg.vocab_size)
     pos = _positions(tokens)
     body = lambda x, p: self_attn_block(cfg, x, p, pos)[0]
-    for i in range(n_stacked(params["blocks"])):
-        x = remat(body, x, layer(params["blocks"], i), policy=cfg.remat)
+    for p in layers(params["blocks"]):
+        x = remat(body, x, p, policy=cfg.remat)
     return x
 
 
@@ -167,7 +187,7 @@ def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len: Optional[in
     """
     B, L = tokens.shape
     cache_len = cache_len or L
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype), cfg.vocab_size)
     pos = _positions(tokens)
     ks, vs = [], []
     for i in range(n_stacked(params["blocks"])):

@@ -11,7 +11,9 @@ the causal self attention and the non-causal cross attention of the text
 (Lq) to the image tokens (Lk).  The decode step is plain PyTorch, as in the
 reference.  The cross layer's two residuals are gated by tanh of an fp32
 scalar that starts at zero, so a fresh model's image path adds nothing
-until training opens the gates.
+until training opens the gates.  Under tensor parallelism the self and
+cross attentions and the MLPs split as the dense family's; the gates are
+replicated scalars applied to whole branch outputs.
 """
 from __future__ import annotations
 
@@ -22,8 +24,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import embed_tokens, remat, rms_norm, swiglu
-from repro_torch.models.spec import ParamSpec, dense, layer, stack_layers, stacked, torch_dtype
+from repro_torch.models.layers import embed_tokens, mlp, remat, rms_norm
+from repro_torch.models.spec import ParamSpec, dense, layer, layers, stack_layers, stacked, torch_dtype
 from repro_torch.models.transformer import (
     _head,
     _positions,
@@ -76,30 +78,29 @@ def _gated(x, gate, y, dtype):
     return (x + torch.tanh(gate) * y.float()).to(dtype)
 
 
-def _xattn_tail(cfg: ArchConfig, x, p, a):
-    """The gated attention residual of ``a`` (B, L, H, hd) and the gated MLP."""
+def _xattn_tail(cfg: ArchConfig, x, p, attn_out):
+    """The gated attention residual of ``attn_out`` (B, L, D) and the gated MLP."""
     dtype = x.dtype
-    x = _gated(x, p["gate_attn"], attn.out_proj(a, p["cross"]["wo"]), dtype)
+    x = _gated(x, p["gate_attn"], attn_out, dtype)
     h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    m = swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+    m = mlp(h, p["mlp"], cfg.d_ff, F.silu)
     return _gated(x, p["gate_mlp"], m, dtype)
 
 
 def xattn_block(cfg: ArchConfig, x, p, img: torch.Tensor):
     """Gated cross attention to the image embeddings (B, n_img, D)."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q = attn.proj(h, p["cross"]["wq"])
-    k = attn.proj(img, p["cross"]["wk"])
-    v = attn.proj(img, p["cross"]["wv"])
-    return _xattn_tail(cfg, x, p, attn.attention(q, k, v, causal=False))
+    q, k, v, q_split = attn.heads_qkv(cfg, p["cross"], h, img)
+    a = attn.attention(q, k, v, causal=False)
+    return _xattn_tail(cfg, x, p, attn.heads_out(cfg, a, p["cross"]["wo"], q_split))
 
 
 def _xattn_block_cached(cfg: ArchConfig, x, p, ck, cv):
     """Decode-time gated cross attention against the cached image K/V."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q = attn.proj(h, p["cross"]["wq"])
+    q, _ = attn.heads_q(cfg, p["cross"], h)
     pos_full = torch.full((x.shape[0],), ck.shape[1] - 1, dtype=torch.int32, device=x.device)  # every image token valid
-    return _xattn_tail(cfg, x, p, attn.decode_attention(q, ck, cv, pos_full))
+    return _xattn_tail(cfg, x, p, attn.heads_out(cfg, attn.decode_attention(q, ck, cv, pos_full), p["cross"]["wo"], False))
 
 
 def _images(cfg: ArchConfig, extras) -> torch.Tensor:
@@ -112,16 +113,16 @@ def backbone(cfg: ArchConfig, params, tokens, extras=None):
     (``vision.py:105,109``).  The image embeddings go into each superblock's
     ``remat`` as an argument."""
     img = _images(cfg, extras)
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype), cfg.vocab_size)
     pos = _positions(tokens)
 
     def super_body(x, p, img):
-        for j in range(n_stacked(p["self"])):
-            x = self_attn_block(cfg, x, layer(p["self"], j), pos)[0]
+        for q in layers(p["self"]):
+            x = self_attn_block(cfg, x, q, pos)[0]
         return xattn_block(cfg, x, p["xattn"], img)
 
-    for i in range(n_stacked(params["superblocks"])):
-        x = remat(super_body, x, layer(params["superblocks"], i), img, policy=cfg.remat)
+    for p in layers(params["superblocks"]):
+        x = remat(super_body, x, p, img, policy=cfg.remat)
     return x
 
 
@@ -157,7 +158,7 @@ def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len: Optional[in
     img = _images(cfg, extras)
     B, L = tokens.shape
     cache_len = cache_len or L
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype), cfg.vocab_size)
     pos = _positions(tokens)
     supers = []
     for i in range(n_stacked(params["superblocks"])):
@@ -170,8 +171,7 @@ def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len: Optional[in
             selfs.append({"k": k, "v": v})
         x = xattn_block(cfg, x, p["xattn"], img)
         sb = stack_layers(selfs)
-        sb["img_k"] = attn.proj(img, p["xattn"]["cross"]["wk"])
-        sb["img_v"] = attn.proj(img, p["xattn"]["cross"]["wv"])
+        sb["img_k"], sb["img_v"] = attn.heads_kv(cfg, p["xattn"]["cross"], img)
         supers.append(sb)
     return _head(cfg, params, x[:, -1:, :]), {"superblocks": stack_layers(supers)}
 

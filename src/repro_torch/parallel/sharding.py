@@ -13,12 +13,15 @@ A mesh is anything with ``axis_names`` and ``shape`` (``launch/mesh.py``).
 Mesh axes (production): single-pod ("data", "model") = (16, 16); multi-pod
 ("pod", "data", "model") = (2, 16, 16).  "pod" is an outer data-parallel
 axis.  The train and serve steps (``train/step.py``) run these specs on
-``torch.distributed`` over a mesh whose "model" axis is 1: data parallelism
-with FSDP parameter shards and ZeRO-1 optimizer shards over "data".  The
-activation rules' "model" entries name tensor-parallel splits, which no
-step runs (ROADMAP.md, "Modules to port", item 6b); the one activation
-split over "model" that runs is the distributed flash-decode's
-(``models/attention.py``).
+``torch.distributed``: data parallelism with FSDP parameter shards and
+ZeRO-1 optimizer shards over "data", and, in the train and prefill steps
+under "tp" and "fsdp_tp", tensor parallelism over "model": each rank
+computes on its "model" shard of every weight, with the moves of
+``parallel/tensor.py`` where the reference's GSPMD inserts collectives.  The
+decode step keeps whole weights; its one split over "model" is the
+distributed flash-decode's (``models/attention.py``).  The sequence-parallel
+strategies, "serve_2dtp", "fsdp" over "model" and tensor-parallel decode are
+ROADMAP.md, "Modules to port", item 6d.
 """
 from __future__ import annotations
 
@@ -219,10 +222,7 @@ def param_pspec_tree(specs, strategy: Strategy, mesh):
     """Spec tree -> spec tree (one tuple a leaf) under the given strategy."""
     from repro_torch.models.spec import tree_map
 
-    rules = dict(strategy.param_rules)
-    if strategy.fsdp_pod and "pod" in mesh.axis_names:
-        # extend the fsdp ("data") shards over ("pod","data")
-        rules = {k: (("pod", "data") if v == "data" else v) for k, v in rules.items()}
+    rules = _param_rules(strategy, mesh)
     sizes = mesh_axis_sizes(mesh)
     return tree_map(lambda s: resolve_axes(s.axes, rules, mesh.axis_names, s.shape, sizes), specs)
 
@@ -258,33 +258,58 @@ def local_shape(shape: tuple[int, ...], spec: Spec, mesh) -> tuple[int, ...]:
 class _Ctx:
     mesh = None
     flash_decode: bool = False
+    tensor_parallel: bool = False
+    param_rules: Optional[dict] = None
 
 
 _CTX = _Ctx()
 
 
+def _param_rules(strategy: Strategy, mesh) -> dict:
+    """The strategy's parameter rules on ``mesh``, with the fsdp shards
+    extended over "pod" where the strategy asks for it."""
+    rules = dict(strategy.param_rules)
+    if strategy.fsdp_pod and "pod" in mesh.axis_names:
+        rules = {k: (("pod", "data") if v == "data" else v) for k, v in rules.items()}
+    return rules
+
+
 class activation_rules:
     """Context manager installing a strategy's mesh and flash-decode switch
-    for the model code under it (``current_mesh``, ``flash_decode_enabled``).
-    The reference installs the activation rules for ``shard_x`` too; here
-    ``shard_x`` reads none (its docstring)."""
+    for the model code under it (``current_mesh``, ``flash_decode_enabled``),
+    and, with ``tensor_parallel``, its parameter rules, from which the model
+    code reads each weight's "model" split (``parallel/tensor.py``,
+    ``weight_split``).  The reference installs the activation rules for
+    ``shard_x`` too; here ``shard_x`` reads none (its docstring)."""
 
-    def __init__(self, strategy: Strategy, mesh):
+    def __init__(self, strategy: Strategy, mesh, *, tensor_parallel: bool = False):
         self.mesh = mesh
         self.flash_decode = strategy.flash_decode
+        self.tensor_parallel = tensor_parallel
+        self.param_rules = _param_rules(strategy, mesh)
 
     def __enter__(self):
         _CTX.mesh, _CTX.flash_decode = self.mesh, self.flash_decode
+        _CTX.tensor_parallel, _CTX.param_rules = self.tensor_parallel, self.param_rules
         return self
 
     def __exit__(self, *exc):
-        _CTX.mesh, _CTX.flash_decode = None, False
+        _CTX.mesh, _CTX.flash_decode, _CTX.tensor_parallel, _CTX.param_rules = None, False, False, None
         return False
 
 
 def current_mesh():
     """The mesh installed by ``activation_rules``, or None."""
     return _CTX.mesh
+
+
+def tensor_parallel_enabled() -> bool:
+    """True inside a tensor-parallel train or prefill step."""
+    return _CTX.tensor_parallel and _CTX.mesh is not None
+
+
+def current_param_rules() -> Optional[dict]:
+    return _CTX.param_rules
 
 
 def flash_decode_enabled() -> bool:
@@ -295,6 +320,6 @@ def shard_x(x, *logical_axes: Optional[str]):
     """The activation ``x`` under the current rules: ``x`` itself, inside the
     context or out.  The reference constrains the layout for GSPMD; here
     every rank runs on its own shard, which the steps cut explicitly (the
-    batch over the dp axes), and no step splits an activation over "model"
-    (tensor parallelism, item 6b)."""
+    batch over the dp axes), and the model code moves activations over
+    "model" itself (``parallel/tensor.py``)."""
     return x

@@ -12,42 +12,50 @@ shard, as the reference's GSPMD program does:
     over the dp axes (``batch_pspecs``), and what a step returns for the
     batch (metrics, logits) is global again;
   * state kept between steps lives in shards: the parameters as
-    ``param_pspec_tree`` cuts them (the fsdp rules shard over "data"),
-    AdamW's m and v as ``opt_pspec_tree`` cuts them (ZeRO-1), a serve
-    step's cache as its rank's batch shard's;
-    ``shard_tree`` and ``gather_tree`` move a tree between the global and
-    the local layout;
-  * a train step gathers the parameters for the loss, averages the
-    gradients over the dp ranks (an all-reduce, or ``compressed_mean`` in
-    the compressed step), and each rank updates its slice of the moments
-    and of the parameters and gathers the parameters' shards back.
+    ``param_pspec_tree`` cuts them (the fsdp rules shard over "data", the
+    tensor-parallel rules over "model"), AdamW's m and v as
+    ``opt_pspec_tree`` cuts them (ZeRO-1), a serve step's cache as its
+    rank's batch shard's; ``shard_tree`` and ``gather_tree`` move a tree
+    between the global and the local layout;
+  * a train step gathers the parameters over the dp axes, so each rank holds
+    its "model" shard of every leaf, computes the loss and its gradients
+    with the collectives over "model" that the weights' splits imply
+    (``parallel/tensor.py``), averages the gradients over the dp ranks (an
+    all-reduce, or ``compressed_mean`` in the compressed step), and each
+    rank updates its slice of the moments and of the parameters and gathers
+    the parameters' shards back.  The gradient norm sums the squares of each
+    "model"-split leaf over "model" once and each replicated leaf once.
 
-The shards save memory between steps only.  During a train step every rank
-holds the whole parameters, gathered at its start, and the whole gradients,
-all-reduced whole, beside its shards: its peak is the unsharded model's
-and more.  So a model that does not fit one card unsharded does not train
-on any number of cards with these steps (grok-1, arctic, llama3-405b at
-full depth); that needs the parameters gathered a layer at a time inside
-the layer loop and the gradients reduce-scattered to the shards (ROADMAP.md,
-"Modules to port", item 6c).
+The dp shards save memory between steps only.  During a train step every
+rank holds its "model" shards whole over the dp axes, gathered at its
+start, and their whole gradients, all-reduced whole, beside its shards: on a
+"model" axis of 1 its peak is the unsharded model's and more.  Gathering a
+layer at a time inside the layer loop and reduce-scattering the gradients to
+the shards is ROADMAP.md, "Modules to port", item 6c.
 
-Only a "model" axis of 1 runs in a train or prefill step: the rules'
-tensor-parallel splits are ROADMAP.md, "Modules to port", item 6b.  The
-decode step takes any mesh: its weights are whole on every rank, and under
-a strategy with ``flash_decode`` the attention splits the cache's sequence
-over "model" (``models/attention.py``).  The serve steps take whole weights.
+Tensor parallelism ("model" above 1) runs the train and prefill steps under
+"tp" and "fsdp_tp".  The other strategies on such a mesh ("fsdp",
+"tp_sp", "fsdp_tp_sp", "serve_2dtp"), the compressed step on it and a
+decode step on "model"-sharded weights raise ``NotImplementedError``
+(ROADMAP.md, "Modules to port", item 6d).  The decode step takes whole
+weights on any mesh, and under a strategy with ``flash_decode`` the
+attention splits the cache's sequence over "model" (``models/attention.py``).
+On an abstract mesh (``launch/mesh.make_production_mesh``) the steps run
+without a process group: their collectives record their bytes and return
+tensors of the right shapes (the dry run, ``launch/dryrun.py``).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.models.model import Model
 from repro_torch.models.spec import tree_leaves, tree_map
 from repro_torch.optim import adamw
+from repro_torch.parallel.tensor import all_gather, all_reduce
 from repro_torch.parallel.sharding import (
     Strategy,
     activation_rules,
@@ -60,10 +68,8 @@ from repro_torch.parallel.sharding import (
     spec_axes,
 )
 
-TP_NOT_PORTED = (
-    "{what} on a mesh whose 'model' axis is {n}: tensor parallelism is not ported yet "
-    "(ROADMAP.md, 'Modules to port', item 6b); use a 'model' axis of 1"
-)
+NOT_PORTED = "{what}: not ported yet (ROADMAP.md, 'Modules to port', item 6d)"
+TP_STRATEGIES = ("tp", "fsdp_tp")  # the strategies whose "model" splits the train and prefill steps run
 
 
 # ---------------------------------------------------------------------------
@@ -128,25 +134,39 @@ def local_slices(shape, spec, mesh) -> tuple:
 
 
 def shard(t: torch.Tensor, spec, mesh) -> torch.Tensor:
-    """This rank's shard of the global tensor ``t``, a contiguous copy."""
-    return t[local_slices(t.shape, spec, mesh)].contiguous()
+    """This rank's shard of the global tensor ``t``, a contiguous copy
+    (never a view of ``t``: the steps update shards in place)."""
+    return t[local_slices(t.shape, spec, mesh)].clone(memory_format=torch.contiguous_format)
 
 
-def gather(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+def gather(t: torch.Tensor, spec, mesh, axes=None) -> torch.Tensor:
     """The global tensor of which ``t`` is this rank's shard under ``spec``:
-    an all_gather along each dim split over more than one rank.  A dim split
-    over two axes with more than one rank each is tensor parallelism
-    (item 6b)."""
+    an all_gather along each dim split over more than one rank, over the
+    dim's axes at once.  With ``axes`` only those mesh axes are gathered: a
+    rank's "model" shard from its shard over (dp, "model") when ``axes`` are
+    the dp axes, a dim split over ("data", "model") then holding the rank's
+    "model" block of each "data" block (``parallel/tensor.py``'s layout)."""
     for d, entry in enumerate(spec):
-        live = [a for a in spec_axes(entry) if mesh.axis_size(a) > 1]
-        if not live:
-            continue
-        if len(live) > 1:
-            raise NotImplementedError(TP_NOT_PORTED.format(what=f"a dim split over {tuple(live)}", n=mesh.axis_size("model")))
-        parts = [torch.empty_like(t) for _ in range(mesh.axis_size(live[0]))]
-        dist.all_gather(parts, t.contiguous(), group=mesh.group(live[0]))
-        t = torch.cat(parts, dim=d)
+        names = spec_axes(entry)
+        if axes is not None:
+            names = tuple(a for a in names if a in axes)
+        t = all_gather(t, mesh, names, d)
     return t
+
+
+def _dp_slices(shape, spec, mesh) -> tuple:
+    """This rank's slice of each dim of a tensor in the layout ``gather(...,
+    axes=<dp axes>)`` leaves: the rank's block over each dim's axes other
+    than "model", the first outermost."""
+    out = []
+    for size, entry in zip(shape, spec):
+        n, idx = 1, 0
+        for a in spec_axes(entry):
+            if a != "model":
+                idx = idx * mesh.axis_size(a) + mesh.coordinate(a)
+                n *= mesh.axis_size(a)
+        out.append(slice(idx * (size // n), (idx + 1) * (size // n)))
+    return tuple(out)
 
 
 def shard_tree(tree, specs, mesh):
@@ -163,27 +183,24 @@ def gather_tree(tree, specs, mesh):
     return tree_map(lambda t: gather(t, next(flat), mesh), tree)
 
 
-def _refuse_model_parallel(mesh, what: str) -> None:
+def _refuse_model_parallel(mesh, strategy: Strategy, what: str, *, compressed: bool = False) -> None:
+    """Tensor parallelism runs under "tp" and "fsdp_tp" in the plain train
+    and prefill steps; anything else on a "model" axis above 1 is item 6d."""
     n = mesh.axis_size("model")
-    if n > 1:
-        raise NotImplementedError(TP_NOT_PORTED.format(what=what, n=n))
-
-
-def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    """A sum in place over ``group``; nothing without a group (a world of one)."""
-    if group is not None:
-        dist.all_reduce(t, group=group)
-    return t
+    if n > 1 and (compressed or strategy.name not in TP_STRATEGIES):
+        how = "with compressed gradients" if compressed else f"under {strategy.name!r}"
+        raise NotImplementedError(NOT_PORTED.format(what=f"{what} {how} on a 'model' axis of {n}"))
 
 
 class _Layout:
     """One model's train state on a mesh: each leaf's spec as a parameter
-    and as a moment, and the dp group its gradients are averaged over."""
+    and as a moment, and the dp axes its gradients are averaged over."""
 
     def __init__(self, model: Model, strategy: Strategy, mesh):
-        for a in dp_axes(mesh.axis_names):
-            if a != "data" and mesh.axis_size(a) > 1:
-                raise NotImplementedError(f"a dp axis {a!r} of {mesh.axis_size(a)} ranks: local meshes are ('data', 'model')")
+        if mesh.device_mesh is not None:
+            for a in dp_axes(mesh.axis_names):
+                if a != "data" and mesh.axis_size(a) > 1:
+                    raise NotImplementedError(f"a dp axis {a!r} of {mesh.axis_size(a)} ranks: local meshes are ('data', 'model')")
         specs = model.specs()
         pspecs = param_pspec_tree(specs, strategy, mesh)
         self.mesh = mesh
@@ -193,43 +210,62 @@ class _Layout:
         opt = adamw.opt_pspec_tree(specs, pspecs, strategy.zero1, mesh.axis_size("data"))
         self.moments = tree_leaves(opt["m"])
         self.param_tree = pspecs
-        self.dp = mesh.group("data")
-        self.n_dp = mesh.axis_size("data")
+        self.dp = dp_axes(mesh.axis_names)
+        self.n_dp = math.prod(mesh.axis_size(a) for a in self.dp)
+        self.split = [mesh.axis_size("model") > 1 and "model" in (a for e in spec for a in spec_axes(e))
+                      for spec in self.params]
 
     def local_batch(self, batch: dict) -> dict:
         specs = batch_pspecs(batch, self.mesh, self.strategy)
         return {k: shard(v, specs[k], self.mesh) for k, v in batch.items()}
 
-    def gathered_params(self, params) -> list:
-        """The global parameters, leaves in ``tree_leaves`` order, detached."""
-        return [gather(p.detach(), spec, self.mesh) for p, spec in zip(tree_leaves(params), self.params)]
+    def model_shards(self, params) -> list:
+        """Each parameter gathered over the dp axes: the rank's "model"
+        shard of it (the global leaf on a "model" axis of 1), leaves in
+        ``tree_leaves`` order, detached."""
+        return [gather(p.detach(), spec, self.mesh, self.dp) for p, spec in zip(tree_leaves(params), self.params)]
+
+    def rules(self):
+        return activation_rules(self.strategy, self.mesh, tensor_parallel=True)
 
     def loss_and_grads(self, model: Model, params, batch: dict):
-        """(metrics of this rank's shard, gathered params, this rank's
-        gradients of its shard's loss, leaves in order)."""
-        full = self.gathered_params(params)
+        """(metrics of this rank's shard, its "model" shards of the params,
+        this rank's gradients of its shard's loss, leaves in order)."""
+        full = self.model_shards(params)
         for p in full:
             p.requires_grad_(True)
         tree = _unflatten_like(params, full)
-        with activation_rules(self.strategy, self.mesh):
+        with self.rules():  # the backward too: its moves and the remat replays read the rules
             loss, metrics = model.loss(tree, self.local_batch(batch))
-        grads = torch.autograd.grad(loss, full, allow_unused=True)
+            grads = torch.autograd.grad(loss, full, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(full, grads)]
         return metrics, [p.detach() for p in full], grads
+
+    def grad_norm(self, params, grads: list) -> torch.Tensor:
+        """The global gradient norm: on a "model" axis of 1 ``global_norm``;
+        above it the squares of each split leaf summed over "model" once,
+        and of each replicated leaf once."""
+        if self.mesh.axis_size("model") == 1:
+            return adamw.global_norm(_unflatten_like(params, grads))
+        sq = [torch.sum(torch.square(g.float())) for g in grads]
+        split = torch.sum(torch.stack([q for q, s in zip(sq, self.split) if s] or [sq[0] * 0]))
+        whole = torch.sum(torch.stack([q for q, s in zip(sq, self.split) if not s] or [sq[0] * 0]))
+        return torch.sqrt(all_reduce(split, self.mesh, "model") + whole)
 
     @torch.no_grad()
     def update(self, opt_cfg: adamw.AdamWConfig, params, full: list, grads: list, opt_state):
         """AdamW on every rank's slices: the global norm from the averaged
-        global gradients, each moment's slice updated with the matching
-        slice of the gradient and the parameter, and the parameter's shard
-        rebuilt from the ranks' slices (ZeRO-1)."""
+        gradients, each moment's slice updated with the matching slice of
+        the gradient and the parameter, and the parameter's shard rebuilt
+        from the ranks' slices (ZeRO-1).  ``full`` and ``grads`` are the
+        rank's "model" shards, whole over the dp axes."""
         step = opt_state["step"] + 1
-        gnorm = adamw.global_norm(_unflatten_like(params, grads))
+        gnorm = self.grad_norm(params, grads)
         scale, lr, b1c, b2c = adamw.step_scalars(opt_cfg, step, gnorm)
         leaves = zip(tree_leaves(params), full, grads, tree_leaves(opt_state["m"]), tree_leaves(opt_state["v"]),
-                     self.shapes, self.params, self.moments)
-        for p, p_full, g, m, v, shape, pspec, mspec in leaves:
-            sl = local_slices(shape, mspec, self.mesh)
+                     self.params, self.moments)
+        for p, p_full, g, m, v, pspec, mspec in leaves:
+            sl = _dp_slices(p_full.shape, mspec, self.mesh)
             if pspec == mspec:
                 adamw.update_leaf(opt_cfg, p, g[sl], m, v, scale, lr, b1c, b2c)
                 continue
@@ -247,7 +283,7 @@ class _Layout:
         global mean)."""
         out = {}
         for k, v in metrics.items():
-            t = _all_reduce(v.detach().float().clone(), self.dp)
+            t = all_reduce(v.detach().float().clone(), self.mesh, self.dp)
             out[k] = t if k in sum_keys else t / self.n_dp
         return out
 
@@ -257,9 +293,10 @@ class _Layout:
 # ---------------------------------------------------------------------------
 
 
-def _layout(model: Model, strategy: Optional[Strategy], mesh, what: str) -> _Layout:
-    _refuse_model_parallel(mesh, what)
-    return _Layout(model, strategy or default_strategy(model.cfg), mesh)
+def _layout(model: Model, strategy: Optional[Strategy], mesh, what: str, *, compressed: bool = False) -> _Layout:
+    strategy = strategy or default_strategy(model.cfg)
+    _refuse_model_parallel(mesh, strategy, what, compressed=compressed)
+    return _Layout(model, strategy, mesh)
 
 
 def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig, *, strategy: Optional[Strategy] = None, mesh=None):
@@ -293,7 +330,7 @@ def _sharded_train_step(model: Model, opt_cfg: adamw.AdamWConfig, layout: _Layou
     def train_step(params, opt_state, batch):
         metrics, full, grads = layout.loss_and_grads(model, params, batch)
         for g in grads:  # the mean over the dp ranks, in place
-            _all_reduce(g, layout.dp).div_(layout.n_dp)
+            all_reduce(g, layout.mesh, layout.dp).div_(layout.n_dp)
         params, opt_state, opt_metrics = layout.update(opt_cfg, params, full, grads, opt_state)
         return params, opt_state, {**layout.mean_metrics(metrics), **opt_metrics}
 
@@ -315,12 +352,14 @@ def make_compressed_train_step(model: Model, opt_cfg: adamw.AdamWConfig, *, stra
     from repro_torch.launch.mesh import Mesh
     from repro_torch.optim.compression import compressed_mean
 
-    layout = _layout(model, strategy, mesh if mesh is not None else Mesh(("data", "model"), (1, 1)), "a train step")
+    layout = _layout(model, strategy, mesh if mesh is not None else Mesh(("data", "model"), (1, 1)), "a train step",
+                     compressed=True)
+    dp = layout.mesh.group("data")
 
     def train_step(params, opt_state, comp_state, batch):
         metrics, full, grads = layout.loss_and_grads(model, params, batch)
         for i, st in enumerate(_state_leaves(comp_state)):
-            grads[i], new = compressed_mean(grads[i], st, layout.dp)
+            grads[i], new = compressed_mean(grads[i], st, dp)
             for k, t in new.items():  # in place: two copies of the error states would not fit beside the model
                 st[k].copy_(t)
         params, opt_state, opt_metrics = layout.update(opt_cfg, params, full, grads, opt_state)
@@ -353,11 +392,11 @@ def metrics_struct(model: Model) -> dict:
 
 def make_prefill_step(model: Model, cache_len: int, *, strategy: Optional[Strategy] = None, mesh=None):
     """(params, batch) -> (last-token logits, cache), without gradients.
-    With a mesh: whole weights on every rank, this rank's shard of the batch;
-    the logits come back global, the cache as the cache of this rank's
-    batch shard (its batch dim cut over the dp axes, the rest whole: the
-    flash-decode splits the sequence inside the attention, not in the
-    cache)."""
+    With a mesh: ``params`` are this rank's shards (``param_pspec_tree``),
+    gathered over the dp axes into its "model" shards; the rank computes on
+    its shard of the batch under tensor parallelism; the logits come back
+    global, the cache as this rank computed it: its batch shard, and of the
+    heads and channels that its weights split over "model", its own."""
     if mesh is None:
         def prefill_step(params, batch):
             with torch.no_grad():
@@ -369,8 +408,10 @@ def make_prefill_step(model: Model, cache_len: int, *, strategy: Optional[Strate
 
     def sharded_prefill_step(params, batch):
         specs = batch_pspecs(batch, mesh, layout.strategy)
-        with torch.no_grad(), activation_rules(layout.strategy, mesh):
-            logits, cache = model.prefill(params, layout.local_batch(batch), cache_len=cache_len)
+        with torch.no_grad():
+            local = _unflatten_like(params, layout.model_shards(params))
+            with layout.rules():
+                logits, cache = model.prefill(local, layout.local_batch(batch), cache_len=cache_len)
         return gather(logits, specs["tokens"], mesh), cache
 
     return sharded_prefill_step
@@ -379,7 +420,7 @@ def make_prefill_step(model: Model, cache_len: int, *, strategy: Optional[Strate
 def make_decode_step(model: Model, *, strategy: Optional[Strategy] = None, mesh=None):
     """(params, cache, batch) -> (logits, cache) for batch["tokens"] (B, 1)
     at batch["pos"] (B,), without gradients.  With a mesh: whole weights on
-    every rank, the cache as this rank's shard over the dp axes, the batch
+    every rank (sharded ones raise: tensor-parallel decode is item 6d), the cache as this rank's shard over the dp axes, the batch
     global and cut to the shard; under ``strategy.flash_decode`` the
     attention splits the cache's sequence over "model".  The logits come
     back global."""
@@ -391,8 +432,11 @@ def make_decode_step(model: Model, *, strategy: Optional[Strategy] = None, mesh=
         return decode_step
 
     strategy = strategy or default_strategy(model.cfg)
+    shapes = [s.shape for s in tree_leaves(model.specs())]
 
     def sharded_decode_step(params, cache, batch):
+        if any(tuple(p.shape) != s for p, s in zip(tree_leaves(params), shapes)):
+            raise NotImplementedError(NOT_PORTED.format(what="a decode step on sharded weights (tensor-parallel decode)"))
         specs = batch_pspecs(batch, mesh, strategy)
         local = {k: shard(v, specs[k], mesh) for k, v in batch.items()}
         with torch.no_grad(), activation_rules(strategy, mesh):

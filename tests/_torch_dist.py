@@ -215,3 +215,83 @@ def driver_worker(rank: int, world: int, ckpt_dir: str) -> dict:
         dist.barrier()
     resumed = train("llama3-8b", steps=3, **kw)
     return {"losses": first["losses"], "resumed_losses": resumed["losses"], "resumed_steps": resumed["steps"]}
+
+
+def gather_model(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The global tensor of a rank's "model" shard, whole over the dp axes
+    (the layout ``train/step.py`` computes on): each dim split over "model"
+    gathered in its ``(outer, m, rest)`` layout."""
+    import math
+
+    from repro_torch.parallel import tensor as tp
+    from repro_torch.parallel.sharding import spec_axes
+
+    for d, entry in enumerate(spec):
+        names = spec_axes(entry)
+        if "model" in names and mesh.axis_size("model") > 1:
+            outer = math.prod(mesh.axis_size(a) for a in names[: names.index("model")])
+            t = tp.all_gather(t, mesh, "model", d, outer)
+    return t
+
+
+def tp_worker(rank: int, world: int, model_parallel: int, payload: str) -> dict:
+    """Each payload case on a (world / model_parallel, model_parallel) mesh
+    under its strategy: the gradients of the first batch's loss (averaged
+    over the dp ranks and gathered whole), the metrics of a train step a
+    batch, the gathered params and v after them, and the prefill's logits
+    from the initial state.  Rank 0 returns them by case, with the shards
+    whose shape is not their spec's and the collective bytes of a step."""
+    import copy
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.models.spec import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import tensor as tp
+    from repro_torch.parallel.sharding import STRATEGIES, local_shape
+    from repro_torch.train import step as step_lib
+
+    data = torch.load(payload, weights_only=False)
+    mesh = make_local_mesh(world, model_parallel)
+    out = {}
+    for key, case in data["cases"].items():
+        model = Model(get_arch(case["arch"]).reduced().replace(**case["cut"]))
+        name, overrides = case["strategy"]
+        strategy = STRATEGIES[name].with_overrides(**overrides)
+        batches = case["batches"]
+        sh = step_lib.make_shardings(model, strategy, mesh, batches[0])
+        # copies: a shard of a leaf no axis splits is the leaf itself, which the
+        # steps update in place, and the cases share the payload's state
+        params = step_lib.shard_tree(copy.deepcopy(case["params"]), sh.params, mesh)
+        opt = step_lib.shard_tree(copy.deepcopy(case["opt"]), sh.opt, mesh)
+        wrong = [(s.shape, tuple(t.shape), spec) for s, t, spec in zip(tree_leaves(model.specs()), tree_leaves(params),
+                                                                         tree_leaves(sh.params))
+                 if tuple(t.shape) != local_shape(s.shape, spec, mesh)]
+        prefill = {k: v for k, v in batches[0].items() if k != "labels"}
+        logits, _ = step_lib.make_prefill_step(model, prefill["tokens"].shape[1], strategy=strategy, mesh=mesh)(params, prefill)
+        layout = step_lib._layout(model, strategy, mesh, "a train step")
+        _, _, grads = layout.loss_and_grads(model, params, batches[0])
+        grads = [gather_model(tp.all_reduce(g, mesh, "data") / mesh.axis_size("data"), spec, mesh)
+                 for g, spec in zip(grads, layout.params)]
+        fn = step_lib.make_train_step(model, adamw.AdamWConfig(**data["opt_cfg"]), strategy=strategy, mesh=mesh)
+        steps = []
+        for batch in batches:
+            tp.COLLECTIVES.reset()
+            params, opt, metrics = fn(params, opt, batch)
+            steps.append({"metrics": {k: float(t) for k, t in metrics.items()},
+                          "v": step_lib.gather_tree(opt["v"], sh.opt["v"], mesh),
+                          "collectives": dict(tp.COLLECTIVES.bytes_by_op)})
+        full = step_lib.gather_tree(params, sh.params, mesh)
+        out[key] = {"wrong_shapes": wrong, "logits": logits, "grads": grads, "steps": steps, "params": full}
+    return out if rank == 0 else {}
+
+
+def tp_driver_worker(rank: int, world: int, model_parallel: int) -> dict:
+    """``launch/train.py``'s ``train`` in the world under "tp" with a
+    "model" axis of ``model_parallel`` (``--model-parallel``): two steps."""
+    from repro_torch.launch.train import train
+
+    out = train("llama3-8b", steps=2, seq_len=16, global_batch=4, log_every=0, device="cpu", strategy_name="tp",
+                model_parallel=model_parallel)
+    return {"losses": out["losses"], "grad_norms": out["grad_norms"]}

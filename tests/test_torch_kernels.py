@@ -22,7 +22,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import registry as jreg
-from repro_torch.kernels import _build, ops
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import moe_gmm as tgmm
 from repro_torch.kernels import registry as treg
@@ -294,8 +294,12 @@ def test_wrappers_check_operands():
         ops.flash_attention(q, k, v[:, :, :64].contiguous())
     with pytest.raises(ValueError, match="divide"):
         ops.flash_attention(q, k, v, block_q=48)
-    with pytest.raises(ValueError, match="device"):
-        ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    with pytest.raises(ValueError, match="k is on meta, the other operands on cpu"):
+        ops.flash_attention(q, k.to("meta"), v.to("meta"))
+    # all on meta: the dry run's route, the kernel's output shape and no launch
+    before = ops.launch_counts()
+    assert ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta")).shape == q.shape
+    assert ops.launch_counts() == before
     o = ops.flash_attention(q, k, v)
     with pytest.raises(ValueError, match="shape"):
         ops.flash_attention_bwd(q, k, v, o, o, lse=torch.zeros(q.shape[:2]))
@@ -309,6 +313,31 @@ def test_wrappers_check_operands():
         ops.rglru_scan(la.double(), gx, h0)
     with pytest.raises(ValueError, match="divide"):
         ops.rglru_scan(la, gx, h0, block_d=96)
+
+
+def test_a_default_block_that_does_not_divide_falls_back_to_its_largest_divisor(monkeypatch):
+    """A rank's share of the channels under tensor parallelism need not be a
+    multiple of a kernel's default block (recurrentgemma-2b's 2560 RG-LRU
+    channels on two ranks are 1280, against 512): the wrappers then take the
+    largest divisor below the default, and keep a given block as given,
+    which the divisibility check refuses."""
+    monkeypatch.delenv("HYDRA_AUTOTUNE", raising=False)
+    cpu = torch.device("cpu")
+    assert ops._resolve("rglru_scan", {"B": 1, "L": 8, "dr": 1280}, torch.float32, cpu, {"block_d": 512},
+                        {"block_d": None}, {"block_d": 1280}) == {"block_d": 320}
+    # arctic-480b's expert products: C 80, D 7168 and F 4864 (= 2^8 x 19)
+    assert ops._resolve("moe_gmm", {"E": 2, "C": 80, "D": 7168, "F": 4864}, torch.bfloat16, cpu,
+                        {"block_c": 128, "block_f": 256, "block_d": 512}, {"block_c": None, "block_f": None, "block_d": None},
+                        {"block_c": 80, "block_f": 4864, "block_d": 7168}) == {"block_c": 80, "block_f": 256, "block_d": 512}
+    assert [ops.block_dividing(n, 512) for n in (1280, 4864, 96, 7)] == [320, 304, 96, 7]
+    gen = np.random.default_rng(0)
+    la = torch.from_numpy(np.log(gen.uniform(0.5, 0.99, (1, 8, 1280))).astype(np.float32))
+    gx = torch.from_numpy(gen.normal(size=(1, 8, 1280)).astype(np.float32))
+    y, h = ops.rglru_scan(la, gx)
+    want_y, want_h = ref.rglru_ref(la, gx, torch.zeros(1, 1280))
+    assert torch.equal(y, want_y) and torch.equal(h, want_h)
+    with pytest.raises(ValueError, match="divide"):
+        ops.rglru_scan(la, gx, block_d=512)
 
 
 def test_launch_counter_is_thread_safe():

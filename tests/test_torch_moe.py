@@ -198,7 +198,7 @@ def test_expert_products_go_to_moe_gmm_with_blocks_that_divide(monkeypatch):
         g = min(cfg.moe_group_size, T)
         rows = (T // g) * moe.capacity(cfg, g)
         for K, N in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
-            tgmm.check_blocks(rows, K, N, moe._divisor(rows, 128), moe._divisor(K, 512), moe._divisor(N, 256))
+            tgmm.check_blocks(rows, K, N, ops.block_dividing(rows, 128), ops.block_dividing(K, 512), ops.block_dividing(N, 256))
     with pytest.raises(ValueError, match="must divide"):
         tgmm.check_blocks(80, 4864, 7168, 128, 512, 256)
 

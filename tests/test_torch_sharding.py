@@ -188,15 +188,32 @@ def test_meshes_and_the_context():
 
 
 def test_model_parallel_train_and_prefill_steps_are_refused():
+    """On a "model" axis above 1 the train and prefill steps run "tp" and
+    "fsdp_tp" (tests/test_torch_tensor_parallel.py); the other strategies,
+    the compressed step and a decode step on "model"-sharded weights are
+    item 6d."""
     model = Model(get_arch("llama3-8b").reduced())
     mesh = tmesh.Mesh(("data", "model"), (1, 2))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 6b"):
-        tstep.make_train_step(model, adamw.AdamWConfig(), mesh=mesh)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 6b"):
+    for name in ("tp_sp", "fsdp_tp_sp", "serve_2dtp", "fsdp"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 6d"):
+            tstep.make_train_step(model, adamw.AdamWConfig(), strategy=sh.STRATEGIES[name], mesh=mesh)
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 6d"):
+            tstep.make_prefill_step(model, 8, strategy=sh.STRATEGIES[name], mesh=mesh)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 6d"):
         tstep.make_compressed_train_step(model, adamw.AdamWConfig(), mesh=mesh)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 6b"):
-        tstep.make_prefill_step(model, 8, mesh=mesh)
-    tstep.make_decode_step(model, mesh=mesh)  # whole weights: no tensor parallelism needed
+    for name in ("tp", "fsdp_tp"):  # tensor parallelism: built
+        tstep.make_train_step(model, adamw.AdamWConfig(), strategy=sh.STRATEGIES[name], mesh=mesh)
+        tstep.make_prefill_step(model, 8, strategy=sh.STRATEGIES[name], mesh=mesh)
+    decode = tstep.make_decode_step(model, mesh=mesh)  # whole weights: runs
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    specs = sh.param_pspec_tree(model.specs(), sh.STRATEGIES["tp"], mesh)
+    sharded = tspec.tree_map(lambda t: t, params)
+    sharded["blocks"]["attn"]["wq"] = tstep.shard(params["blocks"]["attn"]["wq"], specs["blocks"]["attn"]["wq"], mesh)
+    cache = model.cache_specs(2, 8)
+    cache = tspec.init_params(cache, torch.Generator().manual_seed(0), "cpu")
+    batch = {"tokens": torch.zeros((2, 1), dtype=torch.int32), "pos": torch.zeros((2,), dtype=torch.int32)}
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 6d"):
+        decode(sharded, cache, batch)  # tensor-parallel decode
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,469 @@
+"""Tensor parallelism over "model" held against one rank and the reference, on the CPU.
+
+The port's train and prefill steps under "tp" and "fsdp_tp" on gloo meshes
+of (1, 2), (2, 2) and (1, 4) ranks (``tests/_torch_dist.py``, ``tp_worker``),
+for reduced configs of all six families, with widths that hit every split
+and spill the rules make (``test_widths_hit_every_split_and_spill``):
+
+  * a KV head count that "model" does not divide (row-parallel ``wk`` and
+    ``wv``, whole K and V, each rank's query heads mapped to their KV heads);
+  * a head count it does not divide (whole q, ``wo`` column-parallel on
+    d_model);
+  * a vocab it divides (vocab-parallel embedding, head and cross entropy,
+    untied and tied) and one it does not (a replicated table, a
+    row-parallel head);
+  * the moe experts split over "model" (arctic under the plain "tp") and
+    each expert's FFN split inside (grok-1's default override);
+  * and, on a (1, 3) mesh, the RG-LRU gate blocks straddled by a rank's
+    channels (48 channels in 16 blocks of 3: 16 channels a rank).
+
+From the same initial state and batches as the port's one-rank step: the
+gradients of the first batch's loss, every leaf within 1e-5 of its largest
+element, or within twice what one ulp of noise in the weights moves the
+one-rank gradients where that is more (``ulp_noise``: the hybrid's RG-LRU
+gate leaves move up to 1.7e-5 of their largest element when each weight is
+nudged by one ulp, and a row-parallel sum rounds differently from a whole
+one); two train steps' metrics within 1e-5 relative; the gathered
+parameters within 1e-2 of the peak learning rate wherever the AdamW update
+is well conditioned (``test_torch_sharding._ill_conditioned``), the bound
+``test_torch_train.compare_train_steps`` holds the port to against the
+reference (AdamW's update is the gradient over its own magnitude, so an
+element's gradient off by 1e-6 of its leaf's largest one moves it by 1e-3 lr
+where it is 1e-3 of that largest), with at most 5e-2 of the elements ill
+conditioned; the prefill's logits within 1e-4 of the largest.  The reference's train step on an XLA host mesh of the same
+shape, from the same state, gives the same two steps' metrics within 1e-4
+relative (``test_torch_train.compare_train_steps``' bound), checked against
+the one-rank port and the sharded one: each family on one of its meshes
+(``REF_CASES``), every shape among them, in a subprocess that runs beside
+the gloo worlds.  Each world runs its cases in one
+spawn under a timeout (``RANKS_TIMEOUT``).  The measured errors print when
+this file runs as a script:
+
+    PYTHONPATH=src python tests/test_torch_tensor_parallel.py
+"""
+from __future__ import annotations
+
+import copy
+import os
+import pickle
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.data.pipeline import DataConfig, batch_at
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models import rglru
+from repro_torch.models.model import Model
+from repro_torch.models.spec import tree_leaves
+from repro_torch.optim import adamw
+from repro_torch.parallel import sharding as sh
+from repro_torch.parallel import tensor as tp
+from repro_torch.train import step as tstep
+
+import test_torch_sharding as tsharding
+from _torch_dist import run_ranks, tp_driver_worker, tp_worker
+
+torch.set_num_threads(1)
+
+MESHES = [(1, 2), (2, 2), (1, 4)]  # ("data", "model")
+STRADDLE_MESH = (1, 3)
+STRATEGIES = ("tp", "fsdp_tp")
+# family -> (arch, reduced widths, strategy overrides)
+FAMILIES = {
+    "dense": ("llama3-8b", dict(n_heads=6, n_kv_heads=3, vocab_size=256), {}),
+    "moe_experts": ("arctic-480b", dict(vocab_size=256), {}),
+    "moe_inner": ("grok-1-314b", dict(n_heads=6, n_kv_heads=3, vocab_size=251), {"experts": None, "expert_mlp": "model"}),
+    "ssm": ("falcon-mamba-7b", dict(vocab_size=250), {}),
+    "hybrid": ("recurrentgemma-2b", dict(n_heads=4, n_kv_heads=1, vocab_size=251), {}),
+    "audio": ("seamless-m4t-medium", dict(n_heads=6, n_kv_heads=3, vocab_size=256), {}),
+    "vlm": ("llama-3.2-vision-11b", dict(n_heads=4, n_kv_heads=2, vocab_size=251), {}),
+}
+STRADDLE = ("recurrentgemma-2b", dict(rnn_width=48, n_heads=4, n_kv_heads=1, vocab_size=255), {})
+DATA = dict(seq_len=16, global_batch=4, steps=2)
+OPT = dict(warmup_steps=1, peak_lr=1e-3)
+TP_REL = 1e-5  # gradients and metrics against one rank (fp32)
+PARAMS_OVER_LR = 1e-2  # well-conditioned params against one rank, in units of the peak lr
+ILL_SHARE = 5e-2
+PREFILL_REL = 1e-4
+REF_REL = 1e-4  # metrics against the reference's host-mesh step
+RANKS_TIMEOUT = 300  # seconds, a world of ranks running every case
+
+
+def _case_id(mesh, family, strategy) -> str:
+    return f"{'x'.join(map(str, mesh))}-{family}-{strategy}"
+
+
+def _model(arch: str, cut: dict) -> Model:
+    return Model(get_arch(arch).reduced().replace(**cut))
+
+
+def _strategy(name: str, overrides: dict) -> sh.Strategy:
+    return sh.STRATEGIES[name].with_overrides(**overrides)
+
+
+_ONE_RANK: dict = {}
+
+
+def one_rank(arch: str, cut: dict) -> dict:
+    """The port's one-rank run of a config: its initial state (the vlm's
+    gates opened, as every vlm check opens them), batches, the first batch's
+    gradients, each step's metrics, v and final params, and the prefill's
+    logits."""
+    key = (arch, tuple(sorted(cut.items())))
+    if key in _ONE_RANK:
+        return _ONE_RANK[key]
+    model = _model(arch, cut)
+    cfg = model.cfg
+    params, opt = tstep.init_train_state(model, torch.Generator().manual_seed(0), "cpu")
+    if cfg.family == "vlm":
+        params["superblocks"]["xattn"]["gate_attn"].fill_(0.5)
+        params["superblocks"]["xattn"]["gate_mlp"].fill_(-0.3)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=DATA["seq_len"], global_batch=DATA["global_batch"], seed=0,
+                    enc_len=cfg.enc_len_train, d_model=cfg.d_model, n_img_tokens=cfg.n_img_tokens, family=cfg.family)
+    batches = [{k: torch.as_tensor(v) for k, v in batch_at(dc, i).items()} for i in range(DATA["steps"])]
+    out = {"params0": copy.deepcopy(params), "opt0": copy.deepcopy(opt), "batches": batches}
+    prefill = {k: v for k, v in batches[0].items() if k != "labels"}
+    out["logits"], _ = tstep.make_prefill_step(model, DATA["seq_len"])(params, prefill)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = model.loss(params, batches[0])
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    out["grads"] = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    for p in leaves:
+        p.requires_grad_(False)
+    out["ulp_noise"] = ulp_noise(model, out["params0"], batches[0], out["grads"])
+    fn = tstep.make_train_step(model, adamw.AdamWConfig(**OPT))
+    out["steps"] = []
+    for b in batches:
+        params, opt, metrics = fn(params, opt, b)
+        out["steps"].append({"metrics": {k: float(t) for k, t in metrics.items()}, "v": copy.deepcopy(opt["v"])})
+    out["params"] = params
+    _ONE_RANK[key] = out
+    return out
+
+
+def ulp_noise(model: Model, params, batch: dict, grads: list) -> float:
+    """How far the one-rank gradients move, at most over the leaves and
+    relative to each leaf's largest element, when every weight is nudged by
+    one ulp up, down or not (a fixed draw): the fp32 floor below which no
+    other order of the same sums can be held."""
+    nudged = copy.deepcopy(params)
+    gen = torch.Generator().manual_seed(1)
+    leaves = tree_leaves(nudged)
+    with torch.no_grad():
+        for t in leaves:
+            t.mul_(1 + torch.randint(-1, 2, t.shape, generator=gen).float() * 2.0 ** -23)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, _ = model.loss(nudged, batch)
+    moved = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return max(_leaf_rel(m, g) for m, g in zip(moved, grads) if m is not None)
+
+
+def _cases(families: dict) -> dict:
+    cases = {}
+    for family, (arch, cut, overrides) in families.items():
+        base = one_rank(arch, cut)
+        for sname in STRATEGIES:
+            cases[(family, sname)] = {"arch": arch, "cut": cut, "strategy": (sname, overrides),
+                                      "params": base["params0"], "opt": base["opt0"], "batches": base["batches"]}
+    return cases
+
+
+_RUNS: dict = {}
+
+
+def tp_run(mesh: tuple, tmp_path_factory) -> dict:
+    """Every family and strategy on one gloo world of ``mesh`` (one spawn)."""
+    _start_reference(tmp_path_factory)
+    if mesh not in _RUNS:
+        families = {"hybrid_straddle": STRADDLE} if mesh == STRADDLE_MESH else FAMILIES
+        tmp = tmp_path_factory.mktemp(f"tp{'x'.join(map(str, mesh))}")
+        payload = os.path.join(tmp, "payload.pt")
+        torch.save({"cases": _cases(families), "opt_cfg": OPT}, payload)
+        world = mesh[0] * mesh[1]
+        _RUNS[mesh] = run_ranks(tp_worker, world, tmp, RANKS_TIMEOUT, (mesh[1], payload))[0]
+    return _RUNS[mesh]
+
+
+def _leaf_rel(got, want) -> float:
+    return float((got.detach().float() - want.detach().float()).abs().max() / (want.detach().float().abs().max() + 1e-30))
+
+
+def compare(mesh: tuple, family: str, strategy: str, tmp_path_factory) -> dict:
+    """The sharded run's errors against the one-rank port's."""
+    arch, cut, _ = STRADDLE if family == "hybrid_straddle" else FAMILIES[family]
+    got, want = tp_run(mesh, tmp_path_factory)[(family, strategy)], one_rank(arch, cut)
+    errs = {"wrong_shapes": got["wrong_shapes"]}
+    errs["grads"] = max(_leaf_rel(g, w) for g, w in zip(got["grads"], want["grads"]))
+    errs["metrics"] = max(abs(s["metrics"][k] - w["metrics"][k]) / max(abs(w["metrics"][k]), 1e-30)
+                          for s, w in zip(got["steps"], want["steps"]) for k in w["metrics"])
+    opt_cfg = adamw.AdamWConfig(**OPT)
+    ill = [torch.zeros(t.shape, dtype=torch.bool) for t in tree_leaves(want["params"])]
+    for i, (s, w) in enumerate(zip(got["steps"], want["steps"])):
+        for mask, va, vb in zip(ill, tree_leaves(s["v"]), tree_leaves(w["v"])):
+            mask |= tsharding._ill_conditioned(va, vb, i, opt_cfg)
+    well = 0.0
+    for g, w, mask in zip(tree_leaves(got["params"]), tree_leaves(want["params"]), ill):
+        d = (g.float() - w.detach().float()).abs() / opt_cfg.peak_lr
+        well = max(well, float(d[~mask].max()) if (~mask).any() else 0.0)
+    errs["params_over_lr"] = well
+    errs["grad_bound"] = max(TP_REL, 2 * want["ulp_noise"])
+    errs["ill_share"] = sum(int(m.sum()) for m in ill) / sum(m.numel() for m in ill)
+    errs["prefill"] = _leaf_rel(got["logits"], want["logits"])
+    errs["collectives"] = got["steps"][0]["collectives"]
+    return errs
+
+
+def _check(errs: dict) -> None:
+    assert errs["wrong_shapes"] == [], errs["wrong_shapes"]
+    assert errs["grads"] <= errs["grad_bound"] and errs["metrics"] <= TP_REL, errs
+    assert errs["params_over_lr"] <= PARAMS_OVER_LR and errs["ill_share"] <= ILL_SHARE, errs
+    assert errs["prefill"] <= PREFILL_REL, errs
+    assert errs["collectives"].get("all-reduce", 0) > 0, errs  # the "model" moves ran
+
+
+# ---------------------------------------------------------------------------
+# The widths hit every split and spill
+# ---------------------------------------------------------------------------
+
+
+def _has_model(entry) -> bool:
+    return "model" in sh.spec_axes(entry)
+
+
+def splits_hit(mesh: tuple) -> set:
+    """The split and spill cases the cases' widths hit under "tp" on ``mesh``."""
+    m = Mesh(("data", "model"), mesh)
+    hit = set()
+    families = {"hybrid_straddle": STRADDLE} if mesh == STRADDLE_MESH else FAMILIES
+    for family, (arch, cut, overrides) in families.items():
+        model, st = _model(arch, cut), _strategy("tp", overrides)
+        cfg = model.cfg
+        specs = sh.param_pspec_tree(model.specs(), st, m)
+        blocks = next(specs[k] for k in ("blocks", "superblocks", "dec_blocks") if k in specs)
+        attn = blocks.get("attn") or blocks.get("self", {}).get("attn")
+        if attn is not None and "wq" not in attn:  # the hybrid's attention block
+            attn = attn["attn"]
+        if attn is not None:  # the layer axes lead: index from the end
+            wq, wk, wo = attn["wq"], attn["wk"], attn["wo"]
+            if _has_model(wq[-2]) and _has_model(wk[-3]):
+                hit.add("kv_heads_spilled")
+            if not _has_model(wq[-2]) and _has_model(wo[-1]):
+                hit.add("heads_spilled")
+        head = specs.get("lm_head")
+        if _has_model(specs["embed"][0]):
+            hit.add("vocab_split_tied" if head is None else "vocab_split")
+        elif head is not None and _has_model(head[0]):
+            hit.add("vocab_spilled")
+        if cfg.family == "moe":
+            w = blocks["moe"]["w_gate"]
+            hit.add("experts_split" if _has_model(w[-3]) else "expert_ffn_split" if _has_model(w[-1]) else "moe_whole")
+        if cfg.family == "hybrid":
+            nb = rglru._gate_blocks(cfg)
+            if cfg.rnn_dim % mesh[1] == 0 and nb % mesh[1]:
+                hit.add("rglru_gate_blocks_straddled")
+        if cfg.family == "ssm" and _has_model(blocks["w_in_x"][-1]):
+            hit.add("ssm_inner_split")
+    return hit
+
+
+def test_widths_hit_every_split_and_spill():
+    want = {"kv_heads_spilled", "vocab_spilled", "experts_split", "expert_ffn_split", "ssm_inner_split"}
+    assert want | {"vocab_split", "vocab_split_tied"} <= splits_hit((1, 2)), splits_hit((1, 2))
+    assert want | {"heads_spilled", "vocab_split"} <= splits_hit((1, 4)), splits_hit((1, 4))
+    assert {"rglru_gate_blocks_straddled", "vocab_split"} <= splits_hit(STRADDLE_MESH), splits_hit(STRADDLE_MESH)
+
+
+# ---------------------------------------------------------------------------
+# Sharded against one rank
+# ---------------------------------------------------------------------------
+
+TP_CASES = [(mesh, family, s) for mesh in MESHES for family in FAMILIES for s in STRATEGIES]
+
+
+@pytest.mark.parametrize("mesh,family,strategy", TP_CASES, ids=[_case_id(*c) for c in TP_CASES])
+def test_tensor_parallel_steps_match_one_rank(mesh, family, strategy, tmp_path_factory):
+    _check(compare(mesh, family, strategy, tmp_path_factory))
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_rglru_gate_blocks_straddled_by_a_rank_match_one_rank(strategy, tmp_path_factory):
+    """rank 1 of 3 holds channels 16-31: blocks 5 (in part) to 10 (in part)."""
+    cfg = _model(*STRADDLE[:2]).cfg
+    nb = rglru._gate_blocks(cfg)
+    per_rank, bd = cfg.rnn_dim // STRADDLE_MESH[1], cfg.rnn_dim // nb
+    assert per_rank % bd and nb % STRADDLE_MESH[1], (per_rank, bd, nb)
+    _check(compare(STRADDLE_MESH, "hybrid_straddle", strategy, tmp_path_factory))
+
+
+# ---------------------------------------------------------------------------
+# Against the reference's train step on an XLA host mesh
+# ---------------------------------------------------------------------------
+
+_REFERENCE = textwrap.dedent("""
+    import os, pickle, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4 --xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1"  # one core: the suite runs beside it
+    import jax, jax.numpy as jnp, numpy as np
+    from jax.sharding import Mesh, NamedSharding
+    from repro.configs import get_arch
+    from repro.models.model import Model
+    from repro.optim import adamw
+    from repro.parallel import sharding as sh
+    from repro.train import step as step_lib
+
+    # expm1's derivative as exp(x), as test_torch_train.reference_expm1_exact takes it
+    jnp.expm1 = lambda x: jax.lax.expm1(x, accuracy=jax.lax.AccuracyMode.HIGHEST)
+    cases = pickle.load(open(sys.argv[1], "rb"))
+    out = {}
+    for key, c in cases.items():
+        shape = tuple(c["mesh"])
+        mesh = Mesh(np.array(jax.devices()[: shape[0] * shape[1]]).reshape(shape), ("data", "model"))
+        model = Model(get_arch(c["arch"]).reduced().replace(**c["cut"]))
+        strategy = sh.STRATEGIES[c["strategy"][0]].with_overrides(**c["strategy"][1])
+        specs = {k: jax.ShapeDtypeStruct(v.shape, v.dtype) for k, v in c["batches"][0].items()}
+        shs = step_lib.make_shardings(model, strategy, mesh, specs)
+        named = lambda t: jax.tree.map(lambda ps: NamedSharding(mesh, ps), t)
+        params = jax.device_put(jax.tree.map(jnp.asarray, c["params"]), named(shs.params))
+        opt = jax.device_put(adamw.init_state(params), named(shs.opt))
+        fn = jax.jit(step_lib.make_train_step(model, strategy, mesh, adamw.AdamWConfig(**c["opt_cfg"])),
+                     in_shardings=(named(shs.params), named(shs.opt), named(shs.batch)),
+                     out_shardings=(named(shs.params), named(shs.opt), None))
+        metrics = []
+        for b in c["batches"]:
+            params, opt, m = fn(params, opt, jax.device_put({k: jnp.asarray(v) for k, v in b.items()}, named(shs.batch)))
+            metrics.append({k: float(v) for k, v in m.items()})
+        out[key] = metrics
+    pickle.dump(out, open(sys.argv[2], "wb"))
+""")
+
+# each family on one host mesh of its sharded runs' shapes, every shape used
+REF_CASES = [((1, 2), "dense"), ((2, 2), "moe_experts"), ((1, 4), "moe_inner"), ((1, 2), "ssm"), ((2, 2), "hybrid"),
+             ((1, 4), "audio"), ((2, 2), "vlm"), (STRADDLE_MESH, "hybrid_straddle")]
+
+
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    return tree.detach().numpy()
+
+
+_REF: dict = {}
+
+
+def _start_reference(tmp_path_factory) -> None:
+    """Start the reference's two train steps under "tp" on a host mesh of
+    each ``REF_CASES`` shape, one subprocess for them all, running beside
+    the gloo worlds."""
+    if "proc" in _REF:
+        return
+    cases = {}
+    for mesh, family in REF_CASES:
+        arch, cut, overrides = STRADDLE if family == "hybrid_straddle" else FAMILIES[family]
+        base = one_rank(arch, cut)
+        cases[(mesh, family)] = {"mesh": mesh, "arch": arch, "cut": cut, "strategy": ("tp", overrides),
+                                 "params": _numpy(base["params0"]), "opt_cfg": OPT,
+                                 "batches": [{k: v.numpy() for k, v in b.items()} for b in base["batches"]]}
+    tmp = tmp_path_factory.mktemp("reference")
+    src, dst = os.path.join(tmp, "cases.pkl"), os.path.join(tmp, "out.pkl")
+    with open(src, "wb") as f:
+        pickle.dump(cases, f)
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(__file__), "..", "src"), JAX_PLATFORMS="cpu")
+    _REF.update(proc=subprocess.Popen([sys.executable, "-c", _REFERENCE, src, dst], env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True), dst=dst)
+
+
+def reference_metrics(tmp_path_factory) -> dict:
+    """The reference's metrics by (mesh, family), waiting for its subprocess."""
+    _start_reference(tmp_path_factory)
+    if "out" not in _REF:
+        out, _ = _REF["proc"].communicate(timeout=600)
+        assert _REF["proc"].returncode == 0, out
+        with open(_REF["dst"], "rb") as f:
+            _REF["out"] = pickle.load(f)
+    return _REF["out"]
+
+
+@pytest.mark.parametrize("mesh,family", REF_CASES, ids=[f"{'x'.join(map(str, m))}-{f}" for m, f in REF_CASES])
+def test_one_rank_and_sharded_metrics_match_the_reference_on_a_host_mesh(mesh, family, tmp_path_factory):
+    arch, cut, _ = STRADDLE if family == "hybrid_straddle" else FAMILIES[family]
+    ref = reference_metrics(tmp_path_factory)[(mesh, family)]
+    ours = one_rank(arch, cut)["steps"]
+    sharded = tp_run(mesh, tmp_path_factory)[(family, "tp")]["steps"]
+    for r, o, s in zip(ref, ours, sharded):
+        assert sorted(r) == sorted(o["metrics"]), (sorted(r), sorted(o["metrics"]))
+        for k in r:
+            for got in (o["metrics"][k], s["metrics"][k]):
+                assert abs(got - r[k]) <= REF_REL * max(abs(r[k]), 1e-30), (k, got, r[k])
+
+
+# ---------------------------------------------------------------------------
+# The moves, the counter and the refusals
+# ---------------------------------------------------------------------------
+
+
+def test_train_driver_takes_a_model_axis(tmp_path):
+    """``launch/train.py`` with ``model_parallel=2`` (``--model-parallel 2``)
+    in a 2-rank gloo world: both ranks read the one-rank driver's losses
+    and grad norms within 1e-5."""
+    from repro_torch.launch.train import train
+
+    want = train("llama3-8b", steps=2, seq_len=16, global_batch=4, log_every=0, device="cpu")
+    for r in run_ranks(tp_driver_worker, 2, tmp_path, RANKS_TIMEOUT, (2,)):
+        for key in ("losses", "grad_norms"):
+            assert max(abs(a - b) / abs(b) for a, b in zip(r[key], want[key])) <= TP_REL, (key, r[key], want[key])
+
+
+def test_moves_on_an_abstract_mesh_record_bytes_without_a_group():
+    """On a mesh with no process group (the dry run's) the moves return the
+    right shapes and record their bytes: gather and split conjugate, reduce
+    and enter conjugate."""
+    mesh = Mesh(("data", "model"), (2, 4))
+    tp.COLLECTIVES.reset()
+    x = torch.randn(3, 8, requires_grad=True)
+    with sh.activation_rules(sh.STRATEGIES["tp"], mesh, tensor_parallel=True):
+        assert tp.model_size() == 4 and tp.model_rank() == 0
+        y = tp.gather(tp.split(x, -1), -1)
+        z = tp.reduce(tp.enter(y))
+        assert y.shape == z.shape == x.shape
+        z.sum().backward()
+        assert tp.weight_split(("embed", "heads", None), (64, 6, 16)) == (0, 1)  # 6 heads spill onto embed
+        assert tp.weight_split(("embed", "heads", None), (64, 8, 16)) == (1, 1)
+    assert x.grad.shape == x.shape
+    # split's backward gathers, gather's forward gathers: 2 x 3 x 8 x 4 bytes; reduce and enter's backward
+    assert dict(tp.COLLECTIVES.count_by_op) == {"all-gather": 2, "all-reduce": 2}
+    assert tp.COLLECTIVES.bytes_by_op["all-gather"] == 2 * 3 * 8 * 4
+    with sh.activation_rules(sh.STRATEGIES["tp"], mesh):  # not a tensor-parallel step: nothing moves
+        assert tp.model_size() == 1 and tp.weight_split(("embed", "heads", None), (64, 8, 16)) is None
+
+
+def test_rank_slices_and_outer_layouts_invert():
+    t = torch.arange(24.0).reshape(2, 12)
+    parts = [tp.rank_slice(t, 3, r, -1, outer=2) for r in range(3)]
+    assert torch.equal(parts[1], torch.tensor([[2.0, 3.0, 8.0, 9.0], [14.0, 15.0, 20.0, 21.0]]))
+    blocks = [p.unflatten(-1, (2, -1)) for p in parts]
+    assert torch.equal(torch.stack(blocks, dim=2).flatten(1, 3), t)
+
+
+if __name__ == "__main__":
+    import tempfile
+    from pathlib import Path
+
+    class _Factory:
+        def mktemp(self, name):
+            return Path(tempfile.mkdtemp(prefix=name))
+
+    fac = _Factory()
+    for mesh in MESHES + [STRADDLE_MESH]:
+        print(mesh, sorted(splits_hit(mesh)))
+    for mesh, family, s in TP_CASES + [(STRADDLE_MESH, "hybrid_straddle", s) for s in STRATEGIES]:
+        e = compare(mesh, family, s, fac)
+        print(_case_id(mesh, family, s), {k: v for k, v in e.items() if k not in ("wrong_shapes",)})
+    ref = reference_metrics(fac)
+    for mesh, family in REF_CASES:
+        print("reference", mesh, family, ref[(mesh, family)])

@@ -634,8 +634,9 @@ def test_launch_train_takes_the_encdec_and_vlm_configs(name):
 def test_train_driver_refuses_a_strategy_and_the_card_without_one():
     """A strategy runs on a model axis of 1 (the driver's mesh) and, in a
     world of one, takes the plain step's losses and parameters bit for bit;
-    a "model" axis above 1 is tensor parallelism, item 6b, and the step
-    refuses it.  Without a card the driver refuses device='cuda'."""
+    on a "model" axis above 1 a strategy other than "tp" and "fsdp_tp" is
+    item 6d, and the step refuses it.  Without a card the driver refuses
+    device='cuda'."""
     kw = dict(steps=2, seq_len=16, global_batch=2, log_every=0, device="cpu")
     plain = ttrain.train("llama3-8b", **kw)
     sharded = ttrain.train("llama3-8b", strategy_name="fsdp_tp", **kw)
@@ -643,9 +644,11 @@ def test_train_driver_refuses_a_strategy_and_the_card_without_one():
     assert all(torch.equal(a, b) for a, b in zip(tspec.tree_leaves(sharded["params"]), tspec.tree_leaves(plain["params"])))
     from repro_torch.launch.mesh import Mesh
 
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 6b"):
+    from repro_torch.parallel.sharding import STRATEGIES as TSTRATEGIES
+
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 6d"):
         tstep.make_train_step(Model(get_arch("llama3-8b").reduced()), adamw.AdamWConfig(),
-                              mesh=Mesh(("data", "model"), (1, 2)))
+                              strategy=TSTRATEGIES["tp_sp"], mesh=Mesh(("data", "model"), (1, 2)))
     with pytest.raises(KeyError):
         ttrain.train("llama3-8b", strategy_name="bogus", **kw)
     if not torch.cuda.is_available():
