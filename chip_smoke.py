@@ -95,8 +95,8 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      against the CPU (relative 1e-5) and ``project`` on the card from draws
      made on the CPU against the CPU (max-abs 1e-3 mm).
   6. model: the port's serve path (``repro_torch.models``,
-     ``launch/serve.py``) on the card.  Card against CPU (one CPU thread,
-     ``one_cpu_thread``) at full width in
+     ``launch/serve.py``) on the card.  Card against CPU (one CPU thread a
+     check, two checks' CPU sides at once, ``cpu_sides``) at full width in
      fp32 on the same weights (relative max error <= 1e-4 on the logits and
      every cache leaf): recurrentgemma-2b cut to one superblock at a prompt
      of 2176 (past its 2048 window, so the window and the ring buffer
@@ -182,7 +182,7 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      gives every gradient leaf on the card within 1e-4 of the CPU's.  The
      moe family: grok-1-314b cut to one layer in
      fp32 gives every gradient leaf on the card within 1e-4 of the CPU's
-     (B1 x 256; the host must hold the CPU side, or the line says it could
+     (B1 x 128; the host must hold the CPU side, or the line says it could
      not); and one bf16 loss and its gradients at full width, one layer,
      B1 x 4096 (no optimizer state: AdamW's would not fit one card), with
      exactly 6 GEMM and 2 attention launches (remat="dots" runs them again
@@ -206,7 +206,8 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      version, every gradient leaf nonzero); llama-3.2-vision-11b at full
      width cut to one superblock, B1 x 4096, 2 steps (10 and 5); ``train_grads`` of seamless-m4t-medium (one encoder
      and one decoder layer over 512 frames) and of llama-3.2-vision-11b (one
-     superblock), B1 x 256, card against CPU within GRAD_TOL; and 3 train
+     superblock), B1 x 256 and B1 x 128, card against CPU within GRAD_TOL;
+     and 3 train
      tasks of each among the compute train tasks, every step of the moe,
      audio and vlm families with every gradient leaf nonzero.
   8. sharded: the port's sharding (``parallel/sharding.py``,
@@ -237,19 +238,31 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      gloo ranks in processes of their own on the one card (NCCL refuses two
      ranks on one GPU; gloo carries the collectives through host memory, so
      the times show the path, not NVLink): first a probe of gloo's
-     all_reduce, all_gather and broadcast on CUDA tensors, then llama3-8b (2
-     layers) trained 2 steps and recurrentgemma-2b, falcon-mamba-7b (2
-     layers) and arctic-480b (1 layer) prefilled, each in bf16 and again in
-     fp32, held against this process's one-rank run of the same weights and
-     batch (``TP_*``: in fp32 the losses, every weight leaf's update and the
-     logits at tight bounds, the greedy tokens equal; in bf16 each leaf's
-     update and the logits against what a one-bf16-step nudge of the
-     weights moves them), each kernel's first call on each rank held
-     against its plain version at the rank's local shapes, the kernels'
-     launches there on their routes, a rank's seconds, peak memory and
-     collective bytes by op, and the least free memory of the card while
-     the ranks ran.  dryrun: ``python -m repro_torch.launch.dryrun`` on two
-     production cells in a subprocess (host work at data-sheet figures).
+     all_reduce, all_gather, broadcast and reduce_scatter on CUDA tensors,
+     then
+     llama3-8b (2 layers) trained 2 steps under "tp", "tp_sp", "fsdp_tp_sp"
+     and "fsdp", and recurrentgemma-2b (8 of 26 layers), falcon-mamba-7b
+     (2 layers, under
+     "tp" and "tp_sp") and arctic-480b (1 layer) prefilled, each in bf16 and
+     again in fp32, held against this process's one-rank run of the same
+     weights and batch (``TP_*``: in fp32 the losses, every weight leaf's
+     update and the logits at tight bounds, the greedy tokens equal; in
+     bf16 each leaf's update and the logits against what a one-bf16-step
+     nudge of the weights moves them), each kernel's first call on each
+     rank held against its plain version at the rank's local shapes, the
+     kernels' launches there on their routes, a rank's seconds, peak memory
+     and collective bytes by op, and the least free memory of the card
+     while the ranks ran.  fsdp: a layer at a time over "data" on a (2, 1)
+     mesh of two gloo ranks (``FSDP_*``): llama3-8b at 8 layers, B2 x
+     2048, bf16, two AdamW steps under "fsdp_tp" and "tp" (ZeRO-1), held
+     against one rank as the tp phase holds its train case, each rank's
+     peak memory against the port's dry run of the same step on an
+     abstract (2, 1) mesh (argument plus temp bytes; the peak at most 10%
+     over it), collective bytes and calls by op.  ``python3 chip_smoke.py
+     --fsdp-peak SRC`` runs that world alone on the tree at SRC.  dryrun:
+     ``python -m repro_torch.launch.dryrun`` on two production cells, a
+     subprocess each, started before the tp phase and running beside the
+     card's two phases (host work at data-sheet figures).
   10. report: the card line, one JSON line of the kernels (route, source, the
      TPU kernel each replaces, launches in phase 3 in total and by kernel
      route, in each scenario twin and in one full-size serve prefill
@@ -1319,20 +1332,29 @@ def path_kernels_checked(torch, ops, label):
 
 
 @contextlib.contextmanager
-def one_cpu_thread(torch):
-    """The CPU side of a card-against-CPU check runs on one thread.  With
-    eight, runs on some hosts found recurrentgemma-2b's k and v caches
-    1.1e-4 to 1.4e-4 off (relative to their largest element), all of it in
-    one band of rows, rows 272 j to 272 (j + 1) of 2176 for one j: the rows
-    one of the eight CPU threads computes.  The other rows agreed within
-    1e-5, and the card gave the same result when run again.  One thread
-    takes the thread split out of the reference."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
+def cpu_sides(torch, workers: int = 2):
+    """The CPU sides of card-against-CPU checks, ``workers`` at once beside
+    the next checks' card sides: yields ``submit(fn)``; on exit waits for
+    every side, re-raising the first failure.  Each side runs on one
+    thread: the intra-op thread count (OpenMP's and MKL's) is a thread's
+    own, and each worker sets its own to 1.  With eight, runs on some hosts
+    found recurrentgemma-2b's k and v caches 1.1e-4 to 1.4e-4 off (relative
+    to their largest element), all of it in one band of rows, rows 272 j to
+    272 (j + 1) of 2176 for one j: the rows one of the eight CPU threads
+    computes.  The other rows agreed within 1e-5, and the card gave the
+    same result when run again.  One thread takes the thread split out of
+    the reference."""
+    import concurrent.futures as cf
+
+    def one_thread(fn):
+        torch.set_num_threads(1)
+        return fn()
+
+    futures = []
+    with cf.ThreadPoolExecutor(workers) as pool:
+        yield lambda fn: futures.append(pool.submit(one_thread, fn))
+        for f in futures:
+            f.result()
 
 
 def open_gates(torch, params):
@@ -1360,14 +1382,15 @@ def frontend_extras(torch, cfg, batch: int, dev, seed: int = 1) -> dict:
     return {}
 
 
-def check_model_on_card(torch, ops, name, cut, prompt, want, attn_route, dev):
+def check_model_on_card(torch, ops, name, cut, prompt, want, attn_route, dev, submit):
     """One prefill at full width in fp32 on the card and on the CPU, on the
     same weights (vlm gates opened) and inputs (with the family's frontend
     stubs): logits and every cache leaf within MODEL_TOL, and exactly
     ``want``'s launches on the card (fp32 attention on ``attn_route``).
     ``cut`` is the layers kept, or the config fields that cut it.  The host
     must hold the weights in fp32 and half as much again, or the line says
-    it could not."""
+    it could not.  The CPU side and the comparison go to ``submit``
+    (``cpu_sides``)."""
     import numpy as np
 
     from repro_torch.configs import get_arch
@@ -1394,10 +1417,6 @@ def check_model_on_card(torch, ops, name, cut, prompt, want, attn_route, dev):
         card_s = time.perf_counter() - t0
         launches, routes = ops.launch_counts(), ops.route_launch_counts()
         params = tree_map(lambda t: t.cpu(), params)
-        t0 = time.perf_counter()
-        with one_cpu_thread(torch):
-            want_logits, want_cache = model.prefill(params, {"tokens": tokens, **extras}, cache_len=cache_len)
-        cpu_s = time.perf_counter() - t0
     full = {k: want.get(k, 0) for k in launches}
     if launches != full:
         raise AssertionError(f"model {name}: prefill launches {launches}, want {full}")
@@ -1405,18 +1424,26 @@ def check_model_on_card(torch, ops, name, cut, prompt, want, attn_route, dev):
         raise AssertionError(f"model {name}: attention launches by route {routes['flash_attention']}, want all on {attn_route}")
     if routes["moe_gmm"] != {r: full["moe_gmm"] if r == "tf32x3" else 0 for r in routes["moe_gmm"]}:
         raise AssertionError(f"model {name}: GEMM launches by route {routes['moe_gmm']}, want all on tf32x3")
-    errs = [rel_err(logits, want_logits)]
-    errs += [rel_err(g, w) for g, w in zip(tree_leaves(cache), tree_leaves(want_cache))]
-    if not bool(torch.isfinite(logits).all()) or not max(errs) <= MODEL_TOL:
-        raise AssertionError(f"model {name}: card against CPU relative errors {errs}, tolerance {MODEL_TOL:g}")
-    print(
-        f"model arch={name} layers={cfg.n_layers} cut={json.dumps(cut)} prompt={prompt} extras={json.dumps({k: list(v.shape) for k, v in extras.items()})} "
-        f"dtype=float32 logits_rel_err={errs[0]} "
-        f"cache_rel_err={max(errs[1:])} cache_leaves={len(errs) - 1} card_s={card_s} cpu_s={cpu_s} "
-        f"launches={json.dumps(launches)} attention_routes={json.dumps(routes['flash_attention'])} "
-        f"gemm_routes={json.dumps(routes['moe_gmm'])}",
-        flush=True,
-    )
+
+    def cpu_side():
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want_logits, want_cache = model.prefill(params, {"tokens": tokens, **extras}, cache_len=cache_len)
+        cpu_s = time.perf_counter() - t0
+        errs = [rel_err(logits, want_logits)]
+        errs += [rel_err(g, w) for g, w in zip(tree_leaves(cache), tree_leaves(want_cache))]
+        if not bool(torch.isfinite(logits).all()) or not max(errs) <= MODEL_TOL:
+            raise AssertionError(f"model {name}: card against CPU relative errors {errs}, tolerance {MODEL_TOL:g}")
+        print(
+            f"model arch={name} layers={cfg.n_layers} cut={json.dumps(cut)} prompt={prompt} extras={json.dumps({k: list(v.shape) for k, v in extras.items()})} "
+            f"dtype=float32 logits_rel_err={errs[0]} "
+            f"cache_rel_err={max(errs[1:])} cache_leaves={len(errs) - 1} card_s={card_s} cpu_s={cpu_s} "
+            f"launches={json.dumps(launches)} attention_routes={json.dumps(routes['flash_attention'])} "
+            f"gemm_routes={json.dumps(routes['moe_gmm'])}",
+            flush=True,
+        )
+
+    submit(cpu_side)
 
 
 def run_full_width(torch, ops, name, n_layers, prompt, want, dev):
@@ -1842,10 +1869,12 @@ SSM_TRAIN = {"arch": "falcon-mamba-7b", "cut": {"n_layers": 8}, "batch": 1, "seq
 ONE_LAYER = {"n_layers": 1}
 GRAD_CHECKS = [
     ("llama3-8b", 1, 256, {"flash_attention_bwd": 1, "selective_scan_bwd": 0, "rglru_scan_bwd": 0, "moe_gmm_bwd": 0}, ONE_LAYER),
-    ("grok-1-314b", 1, 256, {"flash_attention_bwd": 1, "selective_scan_bwd": 0, "rglru_scan_bwd": 0, "moe_gmm_bwd": 3}, ONE_LAYER),
+    # grok-1 and vision over 128 tokens: over 256 their CPU sides took 102
+    # and 32 s of one thread
+    ("grok-1-314b", 1, 128, {"flash_attention_bwd": 1, "selective_scan_bwd": 0, "rglru_scan_bwd": 0, "moe_gmm_bwd": 3}, ONE_LAYER),
     ("seamless-m4t-medium", 1, 256, {"flash_attention_bwd": 3, "selective_scan_bwd": 0, "rglru_scan_bwd": 0, "moe_gmm_bwd": 0},
      {"n_layers": 1, "n_enc_layers": 1, "enc_len_train": 512}),
-    ("llama-3.2-vision-11b", 1, 256, {"flash_attention_bwd": 5, "selective_scan_bwd": 0, "rglru_scan_bwd": 0, "moe_gmm_bwd": 0},
+    ("llama-3.2-vision-11b", 1, 128, {"flash_attention_bwd": 5, "selective_scan_bwd": 0, "rglru_scan_bwd": 0, "moe_gmm_bwd": 0},
      {"n_layers": 5}),
     # falcon-mamba-7b over 512 tokens: two chunks of 256, so the gradient of
     # the state crosses from one chunk's backward into the other's
@@ -2561,7 +2590,7 @@ def host_available_bytes() -> int:
     raise RuntimeError("no MemAvailable in /proc/meminfo")
 
 
-def check_grads_on_card(torch, ops, dev, arch, batch_size, seq_len, want_backward, cut):
+def check_grads_on_card(torch, ops, dev, arch, batch_size, seq_len, want_backward, cut, submit):
     """One loss and its gradients at full width cut to ``cut`` in fp32, on
     the card (the kernels and their backwards) and on the CPU (the plain
     versions, one thread), on the same weights (vlm gates opened) and
@@ -2570,7 +2599,8 @@ def check_grads_on_card(torch, ops, dev, arch, batch_size, seq_len, want_backwar
     ``tf32x3``, and every attention backward handed its forward's LSE.  The
     card's gradients stay on the card and cross one leaf at a time, so the
     host holds the CPU side's weights and gradients and one leaf more; where
-    it has not that much memory, the check says so and is not made."""
+    it has not that much memory, the check says so and is not made.  The
+    CPU side and the comparison go to ``submit`` (``cpu_sides``)."""
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import DataConfig, batch_at
     from repro_torch.models.model import Model
@@ -2598,8 +2628,9 @@ def check_grads_on_card(torch, ops, dev, arch, batch_size, seq_len, want_backwar
     ops.reset_launch_counts()
     lse_passed, original = [], ops.flash_attention_bwd
 
-    def recording(*args, **kw):  # what the autograd Function hands the backward wrapper
-        lse_passed.append(kw.get("lse") is not None)
+    def recording(*args, **kw):  # what the autograd Function hands the backward wrapper on the card
+        if args[0].is_cuda:  # another check's CPU side may call it meanwhile
+            lse_passed.append(kw.get("lse") is not None)
         return original(*args, **kw)
 
     ops.flash_attention_bwd = recording
@@ -2617,24 +2648,28 @@ def check_grads_on_card(torch, ops, dev, arch, batch_size, seq_len, want_backwar
             raise AssertionError(f"train_grads {arch}: fp32 backward launches by route {routes}, want {want_backward} all on tf32x3")
     if lse_passed != [True] * want_backward["flash_attention_bwd"]:
         raise AssertionError(f"train_grads {arch}: the forward's LSE handed to each attention backward: {lse_passed}")
+    if launched != want_backward:
+        raise AssertionError(f"train_grads {arch}: backward launches {launched}, want {want_backward}")
     params = tree_map(lambda t: t.detach().cpu(), params)
-    t0 = time.perf_counter()
-    with one_cpu_thread(torch):
+
+    def cpu_side():
+        t0 = time.perf_counter()
         loss_cpu, on_cpu = grads(params, "cpu")
-    cpu_s = time.perf_counter() - t0
-    errs = [float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(on_card, on_cpu)]
-    loss_err = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
-    if launched != want_backward or max(errs) > GRAD_TOL or loss_err > GRAD_TOL:
-        raise AssertionError(f"train_grads {arch}: backward launches {launched}, leaf errors {errs}, loss error {loss_err}")
-    print(
-        f"train_grads arch={arch} layers={cfg.n_layers} cut={json.dumps(cut)} dtype=float32 batch={batch_size} seq_len={seq_len} "
-        f"extras={json.dumps({k: list(v.shape) for k, v in batch.items() if k not in ('tokens', 'labels')})} leaves={len(errs)} "
-        f"worst_leaf_rel_err={max(errs)} loss_rel_err={loss_err} card_s={card_s} cpu_s={cpu_s} "
-        f"host_available_gb={have / 1e9} backward_launches={json.dumps(launched)} backward_routes={json.dumps(routes)} "
-        f"lse_from_forward={json.dumps(lse_passed)}",
-        flush=True,
-    )
-    return max(errs)
+        cpu_s = time.perf_counter() - t0
+        errs = [float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(on_card, on_cpu)]
+        loss_err = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
+        if max(errs) > GRAD_TOL or loss_err > GRAD_TOL:
+            raise AssertionError(f"train_grads {arch}: leaf errors {errs}, loss error {loss_err}")
+        print(
+            f"train_grads arch={arch} layers={cfg.n_layers} cut={json.dumps(cut)} dtype=float32 batch={batch_size} seq_len={seq_len} "
+            f"extras={json.dumps({k: list(v.shape) for k, v in batch.items() if k not in ('tokens', 'labels')})} leaves={len(errs)} "
+            f"worst_leaf_rel_err={max(errs)} loss_rel_err={loss_err} card_s={card_s} cpu_s={cpu_s} "
+            f"host_available_gb={have / 1e9} backward_launches={json.dumps(launched)} backward_routes={json.dumps(routes)} "
+            f"lse_from_forward={json.dumps(lse_passed)}",
+            flush=True,
+        )
+
+    submit(cpu_side)
 
 
 def run_moe_grad_pass(torch, ops, dev):
@@ -3107,9 +3142,16 @@ TP_OPT = {"warmup_steps": 1, "peak_lr": 1e-3}
 TP_NOISE_FACTOR = {"bfloat16": 2.0, "float32": 4.0}
 TP_DTYPES = ("bfloat16", "float32")
 TP_TRAIN = {"arch": "llama3-8b", "cut": {"n_layers": 2}, "batch": 2, "seq_len": 2048, "steps": 2, "remat": "dots"}
-TP_PREFILLS = [
-    {"arch": "recurrentgemma-2b", "cut": {}, "batch": 4, "seq_len": 4096},
+# the train case under each strategy of a "model" axis: "tp" (the config's
+# default), the sequence-parallel pair, and "fsdp" (its split dims over
+# ("data", "model"), read after the per-layer gather)
+TP_TRAIN_STRATEGIES = ("tp", "tp_sp", "fsdp_tp_sp", "fsdp")
+TP_PREFILLS = [  # under the config's default strategy, or the case's
+    # 8 of 26 layers (two superblocks and the two-layer tail): gloo's
+    # all-reduces of the 26 took 21 s a run in both dtypes
+    {"arch": "recurrentgemma-2b", "cut": {"n_layers": 8}, "batch": 4, "seq_len": 4096},
     {"arch": "falcon-mamba-7b", "cut": {"n_layers": 2}, "batch": 1, "seq_len": 4096},
+    {"arch": "falcon-mamba-7b", "cut": {"n_layers": 2}, "batch": 1, "seq_len": 4096, "strategy": "tp_sp"},
     {"arch": "arctic-480b", "cut": {"n_layers": 1}, "batch": 1, "seq_len": 4096},
 ]
 TP_FP32_CUT = {"arctic-480b": {"n_experts": 64}}
@@ -3249,14 +3291,16 @@ def tp_batches(torch, case: dict, cfg) -> list:
 
 
 def gloo_cuda_probe(torch, dist, rank: int, world: int, dev) -> dict:
-    """all_reduce, all_gather and broadcast of tensors on ``dev`` on gloo:
-    "ok", or the error gloo raised."""
+    """all_reduce, all_gather, broadcast and reduce_scatter_tensor of
+    tensors on ``dev`` on gloo: "ok", or the error gloo raised."""
     out = {}
     x = torch.full((4,), float(rank + 1), device=dev)
     tests = {
         "all_reduce": lambda: dist.all_reduce(x.clone()),
         "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(world)], x),
         "broadcast": lambda: dist.broadcast(x.clone(), src=0),
+        "reduce_scatter": lambda: (getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor)(
+            torch.empty(4 // world, device=dev), x.clone()),
     }
     for name, fn in tests.items():
         try:
@@ -3267,7 +3311,7 @@ def gloo_cuda_probe(torch, dist, rank: int, world: int, dev) -> dict:
     return out
 
 
-def tp_rank_cases(torch, dist, rank: int, mesh, dev, dtype: str) -> dict:
+def tp_rank_cases(torch, dist, rank: int, mesh, dev, dtype: str, ref_path: str) -> dict:
     """On one rank, each case in ``dtype`` on ``mesh`` under the config's
     default strategy ("tp" for every case): losses or logits, step seconds,
     peak memory (allocated and reserved), launches forward and backward by
@@ -3277,7 +3321,7 @@ def tp_rank_cases(torch, dist, rank: int, mesh, dev, dtype: str) -> dict:
     from repro_torch.models.model import Model
     from repro_torch.optim import adamw
     from repro_torch.parallel import tensor as tp
-    from repro_torch.parallel.sharding import default_strategy, param_pspec_tree
+    from repro_torch.parallel.sharding import STRATEGIES, default_strategy, param_pspec_tree
     from repro_torch.train import step as step_lib
 
     def measured(fn):
@@ -3294,28 +3338,33 @@ def tp_rank_cases(torch, dist, rank: int, mesh, dev, dtype: str) -> dict:
     def peaks() -> dict:
         return {"peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "peak_reserved_gb": torch.cuda.max_memory_reserved(dev) / 1e9}
 
-    out = {}
+    out = {"train": {}}
     cfg = tp_cfg(TP_TRAIN, dtype)
-    model, strategy = Model(cfg), default_strategy(cfg)
-    torch.cuda.reset_peak_memory_stats(dev)
-    params, opt = step_lib.init_train_state(model, torch.Generator(dev).manual_seed(0), dev, strategy=strategy, mesh=mesh)
-    fn = step_lib.make_train_step(model, adamw.AdamWConfig(**TP_OPT), strategy=strategy, mesh=mesh)
-    steps = []
-    with recording_kernel_calls(torch, ops) as seen:
-        for batch in tp_batches(torch, TP_TRAIN, cfg):
-            batch = {k: v.to(dev) for k, v in batch.items()}
-            (params, opt, metrics), row = measured(lambda: fn(params, opt, batch))
-            row.update(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]))
-            steps.append(row)
-    full = step_lib.gather_tree(params, param_pspec_tree(model.specs(), strategy, mesh), mesh)
-    out["train"] = {"strategy": strategy.name, "steps": steps, **peaks(), "shapes": {k: sorted(v["shapes"]) for k, v in seen.items()},
-                    "plain": tp_plain_check(torch, seen, f"tp train {dtype} rank {rank}"),
-                    "params": host_copy(torch, full) if rank == 0 else None}
-    del params, opt, full, fn, seen
-    torch.cuda.empty_cache()
+    model = Model(cfg)
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    for name in TP_TRAIN_STRATEGIES:
+        strategy = default_strategy(cfg) if name == "tp" else STRATEGIES[name]
+        torch.cuda.reset_peak_memory_stats(dev)
+        params, opt = step_lib.init_train_state(model, torch.Generator(dev).manual_seed(0), dev, strategy=strategy, mesh=mesh)
+        fn = step_lib.make_train_step(model, adamw.AdamWConfig(**TP_OPT), strategy=strategy, mesh=mesh)
+        steps = []
+        with recording_kernel_calls(torch, ops) as seen:
+            for batch in tp_batches(torch, TP_TRAIN, cfg):
+                batch = {k: v.to(dev) for k, v in batch.items()}
+                (params, opt, metrics), row = measured(lambda: fn(params, opt, batch))
+                row.update(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]))
+                steps.append(row)
+        sums = shard_update_sums(torch, dist, params, param_pspec_tree(model.specs(), strategy, mesh), mesh, ref, dev)
+        out["train"][name] = {"strategy": strategy.name, "steps": steps, **peaks(),
+                              "shapes": {k: sorted(v["shapes"]) for k, v in seen.items()},
+                              "plain": tp_plain_check(torch, seen, f"tp train {name} {dtype} rank {rank}"),
+                              "update_sums": sums}
+        del params, opt, fn, seen
+        torch.cuda.empty_cache()
     for case in TP_PREFILLS:
         cfg = tp_cfg(case, dtype)
-        model, strategy = Model(cfg), default_strategy(cfg)
+        model = Model(cfg)
+        strategy = STRATEGIES[case["strategy"]] if "strategy" in case else default_strategy(cfg)
         torch.cuda.reset_peak_memory_stats(dev)
         params = init_shards(torch, dist, model, dev, param_pspec_tree(model.specs(), strategy, mesh), mesh)
         prefill = step_lib.make_prefill_step(model, case["seq_len"], strategy=strategy, mesh=mesh)
@@ -3323,17 +3372,22 @@ def tp_rank_cases(torch, dist, rank: int, mesh, dev, dtype: str) -> dict:
         with recording_kernel_calls(torch, ops) as seen:
             (logits, _), row = measured(lambda: prefill(params, batch))
         row.update(strategy=strategy.name, **peaks(), shapes={k: sorted(v["shapes"]) for k, v in seen.items()},
-                   plain=tp_plain_check(torch, seen, f"tp {case['arch']} {dtype} rank {rank}"),
+                   plain=tp_plain_check(torch, seen, f"tp {tp_key(case)} {dtype} rank {rank}"),
                    logits=logits.float().cpu() if rank == 0 else None)
-        out[case["arch"]] = row
+        out[tp_key(case)] = row
         del params, logits, seen
         torch.cuda.empty_cache()
     return out
 
 
-def tp_rank_run(torch, dist, rank: int, world: int, dev) -> dict:
+def tp_key(case: dict) -> str:
+    """A prefill case's name: its arch, and its strategy where it names one."""
+    return case["arch"] + (f"/{case['strategy']}" if "strategy" in case else "")
+
+
+def tp_rank_run(torch, dist, rank: int, world: int, dev, ref_dir: str) -> dict:
     """On one rank: the probe, then ``tp_rank_cases`` in each of TP_DTYPES
-    on the (1, world) mesh."""
+    on the (1, world) mesh (one rank's train weights in ``ref_dir``)."""
     from repro_torch.kernels import _build
     from repro_torch.launch.mesh import make_local_mesh
 
@@ -3345,11 +3399,11 @@ def tp_rank_run(torch, dist, rank: int, world: int, dev) -> dict:
     torch.set_float32_matmul_precision("highest")
     mesh = make_local_mesh(world, world)
     for dtype in TP_DTYPES:
-        out[dtype] = tp_rank_cases(torch, dist, rank, mesh, dev, dtype)
+        out[dtype] = tp_rank_cases(torch, dist, rank, mesh, dev, dtype, os.path.join(ref_dir, f"train_{dtype}.pt"))
     return out
 
 
-def tp_rank_main(rank: int, world: int, tmp: str) -> None:
+def tp_rank_main(rank: int, world: int, tmp: str, ref_dir: str) -> None:
     """A spawned rank: a gloo world over a FileStore in ``tmp``, its results
     saved there (``rank<r>.pt``), its traceback too where it fails."""
     sys.path.insert(0, str(ROOT / "src"))
@@ -3364,7 +3418,7 @@ def tp_rank_main(rank: int, world: int, tmp: str) -> None:
     try:
         torch.cuda.set_device(0)
         dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), world), rank=rank, world_size=world)
-        torch.save(tp_rank_run(torch, dist, rank, world, torch.device("cuda", 0)), os.path.join(tmp, f"rank{rank}.pt"))
+        torch.save(tp_rank_run(torch, dist, rank, world, torch.device("cuda", 0), ref_dir), os.path.join(tmp, f"rank{rank}.pt"))
     except BaseException:
         Path(tmp, f"rank{rank}.err").write_text(traceback.format_exc())
         raise
@@ -3373,54 +3427,19 @@ def tp_rank_main(rank: int, world: int, tmp: str) -> None:
             dist.destroy_process_group()
 
 
-def run_tp_world(torch, dev) -> tuple:
-    """The ranks of TP_WORLD in processes of their own: their results in
-    rank order, and the least free memory of the card while they ran
-    (``torch.cuda.mem_get_info``, read here every 50 ms).  A rank that fails
-    or a world past TP_TIMEOUT_S fails the phase, every rank stopped."""
-    import multiprocessing
-    import tempfile
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp") as tmp:
-        ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=tp_rank_main, args=(r, TP_WORLD, tmp)) for r in range(TP_WORLD)]
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + TP_TIMEOUT_S
-        min_free = torch.cuda.mem_get_info(dev)[0]
-        try:
-            while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
-                if any(p.exitcode not in (None, 0) for p in procs):
-                    break
-                min_free = min(min_free, torch.cuda.mem_get_info(dev)[0])
-                time.sleep(0.05)
-        finally:
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                p.join(30)
-        errors = "\n".join(f"rank {r}:\n{Path(tmp, f'rank{r}.err').read_text()}" for r in range(TP_WORLD)
-                           if Path(tmp, f"rank{r}.err").exists())
-        codes = [p.exitcode for p in procs]
-        if any(codes):
-            raise AssertionError(f"tp: rank exit codes {codes}\n{errors}")
-        return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(TP_WORLD)], min_free
-
-
-def tp_one_rank(torch, dev, dtype: str) -> dict:
-    """Every tp case in ``dtype`` on this process's one rank, no mesh: the
-    train case's losses, gradient norms, step seconds, peak memory, initial
-    and final weights (host), and each prefill's logits (host), seconds and
-    peak memory; each run again from nudged weights (``nudge``): the train
-    case's gradient norms and each leaf's update error, the logits."""
+def tp_one_rank_train(torch, dev, case: dict, dtype: str) -> dict:
+    """A train case in ``dtype`` on this process's one rank, no mesh: its
+    losses, gradient norms, step seconds, peak memory, initial and final
+    weights (host), and again from nudged weights (``nudge``): the gradient
+    norms and each leaf's update error."""
     from repro_torch.models.model import Model
     from repro_torch.optim import adamw
     from repro_torch.train import step as step_lib
 
-    out = {}
-    cfg = tp_cfg(TP_TRAIN, dtype)
+    cfg = tp_cfg(case, dtype)
     model = Model(cfg)
     torch.zeros(1, device=dev)  # the allocator's state for dev exists before its peak is reset
+    out = {}
     for nudged in (False, True):
         torch.cuda.reset_peak_memory_stats(dev)
         params, opt = step_lib.init_train_state(model, torch.Generator(dev).manual_seed(0), dev)
@@ -3429,7 +3448,7 @@ def tp_one_rank(torch, dev, dtype: str) -> dict:
         start = host_copy(torch, params)
         fn = step_lib.make_train_step(model, adamw.AdamWConfig(**TP_OPT))
         losses, norms, step_s = [], [], []
-        for batch in tp_batches(torch, TP_TRAIN, cfg):
+        for batch in tp_batches(torch, case, cfg):
             batch = {k: v.to(dev) for k, v in batch.items()}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3439,14 +3458,26 @@ def tp_one_rank(torch, dev, dtype: str) -> dict:
             losses.append(float(metrics["loss"]))
             norms.append(float(metrics["grad_norm"]))
         if nudged:
-            out["train"].update(nudged_grad_norms=norms,
-                                nudged_leaf_errs=update_errs(torch, dev, host_copy(torch, params), out["train"]["params"], start))
+            out.update(nudged_grad_norms=norms, nudged_leaf_errs=update_errs(torch, dev, host_copy(torch, params), out["params"], start))
         else:
-            out["train"] = {"losses": losses, "grad_norms": norms, "step_s": step_s, "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-                            "params": host_copy(torch, params), "start": start, "names": leaf_names(params)}
+            out = {"losses": losses, "grad_norms": norms, "step_s": step_s, "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                   "params": host_copy(torch, params), "start": start, "names": leaf_names(params)}
         del params, opt, fn, start
         torch.cuda.empty_cache()
+    return out
+
+
+def tp_one_rank(torch, dev, dtype: str) -> dict:
+    """Every tp case in ``dtype`` on this process's one rank, no mesh: the
+    train case's (``tp_one_rank_train``), and each prefill's logits (host),
+    seconds and peak memory, and its logits again from nudged weights."""
+    from repro_torch.models.model import Model
+    from repro_torch.train import step as step_lib
+
+    out = {"train": tp_one_rank_train(torch, dev, TP_TRAIN, dtype)}
     for case in TP_PREFILLS:
+        if case["arch"] in out:  # a strategy's case: one rank has no strategy
+            continue
         cfg = tp_cfg(case, dtype)
         model = Model(cfg)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -3502,6 +3533,51 @@ def update_errs(torch, dev, got: list, want: list, start: list) -> list:
     return errs
 
 
+def shard_update_sums(torch, dist, params, specs, mesh, ref: dict, dev, chunk: int = 1 << 26) -> list:
+    """What ``update_errs`` reads, summed over the world's shards: for each
+    leaf, the squared distance of this rank's shard from the same slice of
+    one rank's final weights (``ref["params"]``, host leaves) and the
+    squared size of one rank's update there (from ``ref["start"]``), both
+    summed over the ranks (fp64 sums; a leaf whole on several ranks counts
+    once a rank in both, so their ratio is the leaf's).  A leaf is taken
+    ``chunk`` elements at a time along its first dim, so the fp32 copies
+    stay small beside the ranks' state.  Every rank calls it; no rank
+    gathers the weights."""
+    from repro_torch.models.spec import tree_leaves
+    from repro_torch.train import step as step_lib
+
+    sums = []
+    for p, spec, w, w0 in zip(tree_leaves(params), tree_leaves(specs), ref["params"], ref["start"]):
+        sl = step_lib.local_slices(tuple(w.shape), spec, mesh)
+        parts = [(p, w[sl], w0[sl])]
+        if p.dim() and p.numel() > chunk:
+            rows = max(1, chunk // (p.numel() // p.shape[0]))
+            parts = [(p[i:i + rows], w[sl][i:i + rows], w0[sl][i:i + rows]) for i in range(0, p.shape[0], rows)]
+        leaf = torch.zeros(2, dtype=torch.float64, device=dev)
+        for pc, wc, w0c in parts:
+            wc = wc.to(dev).float()
+            d = pc.float() - wc
+            leaf[0] += torch.sum(d * d, dtype=torch.float64)
+            d = wc - w0c.to(dev).float()
+            leaf[1] += torch.sum(d * d, dtype=torch.float64)
+            del wc, d
+        sums.append(leaf)
+    total = torch.stack(sums)
+    dist.all_reduce(total)
+    return total.cpu().tolist()
+
+
+def errs_of_sums(sums: list) -> list:
+    """``update_errs``' ratios from ``shard_update_sums``."""
+    return [math.sqrt(d / u) if u else (0.0 if d == 0 else math.inf) for d, u in sums]
+
+
+def save_update_ref(torch, one: dict, path) -> None:
+    """One rank's initial and final weights (host leaves) for the ranks'
+    ``shard_update_sums``."""
+    torch.save({"params": one["params"], "start": one["start"]}, path)
+
+
 def tp_check_train(torch, dev, dtype: str, one: dict, tr: list, card: str) -> list:
     """The train case's ``tp`` line in ``dtype``; returns what is off (the
     checks above TP_WORLD)."""
@@ -3512,7 +3588,7 @@ def tp_check_train(torch, dev, dtype: str, one: dict, tr: list, card: str) -> li
     norm_floor = max(abs(a - b) / abs(b) for a, b in zip(one["nudged_grad_norms"], one["grad_norms"]))
     loss_tol = TP_TOL if bf16 else TP_FP32_TOL["loss"]
     norm_tol = max(TP_TOL, TP_NOISE_FACTOR[dtype] * norm_floor) if bf16 else TP_FP32_TOL["loss"]
-    errs = update_errs(torch, dev, tr[0]["params"], one["params"], one["start"])
+    errs = errs_of_sums(tr[0]["update_sums"])
     limits = [TP_NOISE_FACTOR[dtype] * n for n in one["nudged_leaf_errs"]]
     worst = max(range(len(errs)), key=lambda i: errs[i] / limits[i] if limits[i] else math.inf)
     last = tr[0]["steps"][-1]
@@ -3534,12 +3610,15 @@ def tp_check_train(torch, dev, dtype: str, one: dict, tr: list, card: str) -> li
           f"collective_calls={json.dumps(last['collective_calls'])} card={card}", flush=True)
     off = tp_shapes_off(TP_TRAIN["arch"], dtype, tr)
     if not (loss_err <= loss_tol and norm_err <= norm_tol):
-        off.append(f"tp train {dtype}: loss error {loss_err} (tolerance {loss_tol}), gradient norm error {norm_err} (tolerance {norm_tol})")
+        off.append(f"tp train {tr[0]['strategy']} {dtype}: loss error {loss_err} (tolerance {loss_tol}), gradient norm error {norm_err} "
+                   f"(tolerance {norm_tol})")
     if not all(e <= lim for e, lim in zip(errs, limits)):
-        off.append(f"tp train {dtype}: leaf {one['names'][worst]}'s update error {errs[worst]} over its limit {limits[worst]}")
+        off.append(f"tp train {tr[0]['strategy']} {dtype}: leaf {one['names'][worst]}'s update error {errs[worst]} over its limit "
+                   f"{limits[worst]}")
     wgmma = last["routes"]["flash_attention"]["wgmma"]
     if not last["launches"]["flash_attention"] or not last["backward"]["flash_attention_bwd"] or (wgmma == last["launches"]["flash_attention"]) != bf16:
-        off.append(f"tp train {dtype}: attention launches {last['launches']} by route {last['routes']}, backward {last['backward']}")
+        off.append(f"tp train {tr[0]['strategy']} {dtype}: attention launches {last['launches']} by route {last['routes']}, "
+                   f"backward {last['backward']}")
     return off
 
 
@@ -3578,11 +3657,11 @@ def tp_check_prefill(torch, dtype: str, case: dict, one: dict, rows: list, card:
           f"collective_calls={json.dumps(rows[0]['collective_calls'])} card={card}", flush=True)
     off = tp_shapes_off(arch, dtype, rows)
     if not (err <= tol and untied_equal and (bf16 or not bool(tied.all()))):
-        off.append(f"tp {arch} {dtype}: logits error {err} (tolerance {tol}), greedy {greedy.tolist()} vs "
+        off.append(f"tp {tp_key(case)} {dtype}: logits error {err} (tolerance {tol}), greedy {greedy.tolist()} vs "
                    f"{greedy_one.tolist()} (rows the tolerance could swap: {tied.tolist()})")
     missing = [k for k in tp_local(arch, dtype) if k in rows[0]["launches"] and not rows[0]["launches"][k]]
     if missing:
-        off.append(f"tp {arch} {dtype}: no launch of {missing}: {rows[0]['launches']}")
+        off.append(f"tp {tp_key(case)} {dtype}: no launch of {missing}: {rows[0]['launches']}")
     return off
 
 
@@ -3591,13 +3670,18 @@ def run_tp(torch, ops, dev) -> dict:
     ``tp`` line a case and dtype.  Returns rank 0's launches of each kernel
     over the phase's cases in both dtypes (forward and backward; the
     train case's last step)."""
+    import tempfile
+
     card = card_line()
     one = {dtype: tp_one_rank(torch, dev, dtype) for dtype in TP_DTYPES}
     torch.cuda.empty_cache()
     reserved_here = torch.cuda.memory_reserved(dev)
-    t0 = time.perf_counter()
-    ranks, min_free = run_tp_world(torch, dev)
-    world_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_ref") as ref_dir:
+        for dtype in TP_DTYPES:
+            save_update_ref(torch, one[dtype]["train"], os.path.join(ref_dir, f"train_{dtype}.pt"))
+        t0 = time.perf_counter()
+        ranks, min_free = run_ranks_on_card(torch, dev, tp_rank_main, TP_WORLD, TP_TIMEOUT_S, (ref_dir,), "tp")
+        world_s = time.perf_counter() - t0
     print(f"tp probe backend=gloo device=cuda ops={json.dumps(ranks[0]['probe'])} card={card}", flush=True)
     if any(v != "ok" for r in ranks for v in r["probe"].values()):
         raise AssertionError(f"tp: gloo refused a collective on CUDA tensors: {[r['probe'] for r in ranks]}")
@@ -3609,12 +3693,13 @@ def run_tp(torch, ops, dev) -> dict:
 
     off = []
     for dtype in TP_DTYPES:
-        tr = [r[dtype]["train"] for r in ranks]
-        add(tr[0]["steps"][-1]["launches"])
-        add(tr[0]["steps"][-1]["backward"])
-        off += tp_check_train(torch, dev, dtype, one[dtype]["train"], tr, card)
+        for name in TP_TRAIN_STRATEGIES:
+            tr = [r[dtype]["train"][name] for r in ranks]
+            add(tr[0]["steps"][-1]["launches"])
+            add(tr[0]["steps"][-1]["backward"])
+            off += tp_check_train(torch, dev, dtype, one[dtype]["train"], tr, card)
         for case in TP_PREFILLS:
-            rows = [r[dtype][case["arch"]] for r in ranks]
+            rows = [r[dtype][tp_key(case)] for r in ranks]
             add(rows[0]["launches"])
             off += tp_check_prefill(torch, dtype, case, one[dtype][case["arch"]], rows, card)
     total = torch.cuda.mem_get_info(dev)[1]
@@ -3626,24 +3711,266 @@ def run_tp(torch, ops, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# fsdp: a layer at a time over "data", two gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+# The (2, 1) mesh: each rank takes one row of the batch, holds its shard of
+# every parameter (under "fsdp_tp" the "embed" dims cut over "data"; under
+# "tp" whole, its moments cut by ZeRO-1) and gathers one layer's at a time
+# inside the layer's remat (ROADMAP.md item 6c).  Each strategy's two bf16
+# steps are held against one rank's, as the tp phase holds its train case
+# (the losses within TP_TOL, the gradient norms and each leaf's update
+# within TP_NOISE_FACTOR of what the one-step nudge moves one rank's), and
+# each rank's peak (``max_memory_allocated`` over the steps, the state
+# resident) against the port's dry run of the same step on an abstract
+# (2, 1) mesh (``launch/dryrun``: a rank's argument bytes plus its peak
+# temp), which it may exceed by FSDP_PEAK_OVER_DRYRUN at most.
+# ``python3 chip_smoke.py --fsdp-peak SRC`` runs the two ranks alone on the
+# tree at SRC (a parent's, to compare peaks in one call) and prints one
+# ``fsdp_peak`` line a strategy.
+FSDP_CASE = {"arch": "llama3-8b", "cut": {"n_layers": 8}, "batch": 2, "seq_len": 2048, "steps": 2, "remat": "dots"}
+FSDP_STRATEGIES = ("fsdp_tp", "tp")
+FSDP_WORLD = 2
+FSDP_PEAK_OVER_DRYRUN = 0.10
+FSDP_TIMEOUT_S = 480
+
+
+def fsdp_dryrun(cfg, strategy: str) -> dict:
+    """The dry run's count of the case's train step on an abstract (2, 1)
+    mesh: a rank's argument bytes, its peak temp and its collectives."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+
+    shape = ShapeConfig("fsdp", FSDP_CASE["seq_len"], FSDP_CASE["batch"], "train")
+    fn, args, meta = dryrun.build_cell(cfg, shape, Mesh(("data", "model"), (FSDP_WORLD, 1)), strategy)
+    counts, io = dryrun.run_counted(fn, args, meta)
+    return {"argument_bytes": int(io["argument"]), "temp_bytes": int(counts.peak_temp_bytes),
+            "collective_bytes": dict(counts.collectives.bytes_by_op), "collective_calls": dict(counts.collectives.count_by_op)}
+
+
+def fsdp_rank_run(torch, dist, rank: int, dev, ref_path: str = "") -> dict:
+    """On one rank of the (2, 1) mesh, each of FSDP_STRATEGIES: two steps
+    from seed 0's weights (the peak reset once the state is built), each
+    step's loss, gradient norm, seconds and collectives, the peak, the
+    update sums against one rank's weights at ``ref_path`` where given
+    (``shard_update_sums``), and on rank 0 the dry run's count."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import tensor as tp
+    from repro_torch.parallel.sharding import STRATEGIES, param_pspec_tree
+    from repro_torch.train import step as step_lib
+
+    mesh = make_local_mesh(FSDP_WORLD)
+    cfg = tp_cfg(FSDP_CASE)
+    model = Model(cfg)
+    ref = torch.load(ref_path, mmap=True, weights_only=True) if ref_path else None
+    out = {}
+    for name in FSDP_STRATEGIES:
+        strategy = STRATEGIES[name]
+        params, opt = step_lib.init_train_state(model, torch.Generator(dev).manual_seed(0), dev, strategy=strategy, mesh=mesh)
+        fn = step_lib.make_train_step(model, adamw.AdamWConfig(**TP_OPT), strategy=strategy, mesh=mesh)
+        batches = [{k: v.to(dev) for k, v in b.items()} for b in tp_batches(torch, FSDP_CASE, cfg)]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        state_gb = torch.cuda.memory_allocated(dev) / 1e9
+        steps = []
+        for batch in batches:
+            tp.COLLECTIVES.reset()
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, metrics = fn(params, opt, batch)
+            torch.cuda.synchronize()
+            steps.append({"s": time.perf_counter() - t0, "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                          "collective_bytes": dict(tp.COLLECTIVES.bytes_by_op), "collective_calls": dict(tp.COLLECTIVES.count_by_op),
+                          "launches": ops.launch_counts(), "backward": ops.backward_launch_counts()})
+        row = {"steps": steps, "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "state_gb": state_gb}
+        if ref is not None:
+            row["update_sums"] = shard_update_sums(torch, dist, params, param_pspec_tree(model.specs(), strategy, mesh), mesh, ref, dev)
+        del params, opt, fn, batches
+        torch.cuda.empty_cache()
+        if rank == 0:
+            row["dryrun"] = fsdp_dryrun(cfg, name)
+        out[name] = row
+    return out
+
+
+def fsdp_rank_main(rank: int, world: int, tmp: str, src: str, ref_path: str = "") -> None:
+    """A spawned rank of the fsdp world, on the port at ``src``: a gloo
+    world over a FileStore in ``tmp``, its results saved there."""
+    sys.path.insert(0, src)
+    import traceback
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), world), rank=rank, world_size=world)
+        from repro_torch.kernels import _build
+
+        _build.load(*_build.SOURCES)
+        torch.save(fsdp_rank_run(torch, dist, rank, torch.device("cuda", 0), ref_path), os.path.join(tmp, f"rank{rank}.pt"))
+    except BaseException:
+        Path(tmp, f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks_on_card(torch, dev, target, world: int, timeout_s: float, args=(), label: str = "") -> tuple:
+    """``target(rank, world, tmp, *args)`` in processes of their own: their
+    results in rank order (``rank<r>.pt`` in ``tmp``), and the least free
+    memory of the card while they ran (``torch.cuda.mem_get_info``, read
+    here every 50 ms).  A rank that fails or a world past ``timeout_s``
+    fails the call, every rank stopped."""
+    import multiprocessing
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{label}") as tmp:
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=target, args=(r, world, tmp) + tuple(args)) for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout_s
+        min_free = torch.cuda.mem_get_info(dev)[0]
+        try:
+            while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break
+                min_free = min(min_free, torch.cuda.mem_get_info(dev)[0])
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join(30)
+        errors = "\n".join(f"rank {r}:\n{Path(tmp, f'rank{r}.err').read_text()}" for r in range(world)
+                           if Path(tmp, f"rank{r}.err").exists())
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            raise AssertionError(f"{label}: rank exit codes {codes}\n{errors}")
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(world)], min_free
+
+
+def fsdp_line(name: str, ranks: list, src: str, card: str) -> dict:
+    """One ``fsdp_peak`` line of a strategy's world: each rank's peak, the
+    dry run's count, the collectives of a step by op."""
+    dry = ranks[0][name]["dryrun"]
+    counted = (dry["argument_bytes"] + dry["temp_bytes"]) / 1e9
+    peaks = [r[name]["peak_mem_gb"] for r in ranks]
+    last = ranks[0][name]["steps"][-1]
+    row = {"strategy": name, "src": src, "peak_mem_gb_rank": peaks, "state_gb_rank": [r[name]["state_gb"] for r in ranks],
+           "dryrun_argument_gb": dry["argument_bytes"] / 1e9, "dryrun_temp_gb": dry["temp_bytes"] / 1e9,
+           "dryrun_count_gb": counted, "peak_over_dryrun": max(peaks) / counted - 1,
+           "losses": [s["loss"] for s in ranks[0][name]["steps"]], "grad_norms": [s["grad_norm"] for s in ranks[0][name]["steps"]],
+           "step_s": [s["s"] for s in ranks[0][name]["steps"]], "collective_bytes": last["collective_bytes"],
+           "collective_calls": last["collective_calls"], "dryrun_collective_bytes": dry["collective_bytes"],
+           "dryrun_collective_calls": dry["collective_calls"],
+           "collectives_as_dryrun": (last["collective_bytes"], last["collective_calls"]) == (dry["collective_bytes"], dry["collective_calls"]),
+           "launches": {k: n for k, n in last["launches"].items() if n}, "backward_launches": {k: n for k, n in last["backward"].items() if n}}
+    print(f"fsdp_peak arch={FSDP_CASE['arch']} layers={FSDP_CASE['cut']['n_layers']} batch={FSDP_CASE['batch']} "
+          f"seq_len={FSDP_CASE['seq_len']} mesh={FSDP_WORLD}x1 backend=gloo " + json.dumps(row) + f" card={card}", flush=True)
+    return row
+
+
+def run_fsdp_peak(src: str) -> int:
+    """``--fsdp-peak SRC``: the fsdp world alone on the port at SRC."""
+    import torch
+
+    card = card_line()
+    dev = torch.device("cuda", 0)
+    ranks, min_free = run_ranks_on_card(torch, dev, fsdp_rank_main, FSDP_WORLD, FSDP_TIMEOUT_S, (str(Path(src).resolve()),), "fsdp")
+    for name in FSDP_STRATEGIES:
+        fsdp_line(name, ranks, src, card)
+    print(f"fsdp_peak card_min_free_gb={min_free / 1e9} card={card}", flush=True)
+    return 0
+
+
+def run_fsdp(torch, dev) -> None:
+    """The fsdp phase: one rank's two steps here (and again from nudged
+    weights), then the two gloo ranks under each of FSDP_STRATEGIES; one
+    ``fsdp`` line a strategy, printed before the phase raises what is off."""
+    import tempfile
+
+    card = card_line()
+    one = tp_one_rank_train(torch, dev, FSDP_CASE, "bfloat16")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fsdp_ref") as ref_dir:
+        ref_path = os.path.join(ref_dir, "train.pt")
+        save_update_ref(torch, one, ref_path)
+        t0 = time.perf_counter()
+        ranks, min_free = run_ranks_on_card(torch, dev, fsdp_rank_main, FSDP_WORLD, FSDP_TIMEOUT_S, (str(ROOT / "src"), ref_path),
+                                            "fsdp")
+        world_s = time.perf_counter() - t0
+    off = []
+    for name in FSDP_STRATEGIES:
+        row = fsdp_line(name, ranks, "src", card)
+        losses, norms = row["losses"], row["grad_norms"]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, one["losses"]))
+        norm_err = max(abs(a - b) / abs(b) for a, b in zip(norms, one["grad_norms"]))
+        norm_floor = max(abs(a - b) / abs(b) for a, b in zip(one["nudged_grad_norms"], one["grad_norms"]))
+        norm_tol = max(TP_TOL, TP_NOISE_FACTOR["bfloat16"] * norm_floor)
+        errs = errs_of_sums(ranks[0][name]["update_sums"])
+        limits = [TP_NOISE_FACTOR["bfloat16"] * n for n in one["nudged_leaf_errs"]]
+        worst = max(range(len(errs)), key=lambda i: errs[i] / limits[i] if limits[i] else math.inf)
+        print(f"fsdp strategy={name} dtype=bfloat16 losses={losses} one_rank_losses={one['losses']} loss_rel_err={loss_err} "
+              f"grad_norm_rel_err={norm_err} nudged_grad_norm_rel_err={norm_floor} worst_leaf={one['names'][worst]} "
+              f"worst_leaf_err={errs[worst]} worst_leaf_limit={limits[worst]} one_rank_peak_mem_gb={one['peak_mem_gb']} "
+              f"one_rank_step_s={one['step_s']} card={card}", flush=True)
+        if not (loss_err <= TP_TOL and norm_err <= norm_tol):
+            off.append(f"fsdp {name}: loss error {loss_err} (tolerance {TP_TOL}), gradient norm error {norm_err} (tolerance {norm_tol})")
+        if not all(e <= lim for e, lim in zip(errs, limits)):
+            off.append(f"fsdp {name}: leaf {one['names'][worst]}'s update error {errs[worst]} over its limit {limits[worst]}")
+        if not (row["launches"].get("flash_attention") and row["backward_launches"].get("flash_attention_bwd")):
+            off.append(f"fsdp {name}: attention launches {row['launches']}, backward {row['backward_launches']}")
+        if row["peak_over_dryrun"] > FSDP_PEAK_OVER_DRYRUN:
+            off.append(f"fsdp {name}: a rank's peak {max(row['peak_mem_gb_rank'])} GB over the dry run's {row['dryrun_count_gb']} GB "
+                       f"by more than {FSDP_PEAK_OVER_DRYRUN:.0%}")
+    total = torch.cuda.mem_get_info(dev)[1]
+    print(f"fsdp world_s={world_s} ranks={FSDP_WORLD} backend=gloo card_total_gb={total / 1e9} card_min_free_gb={min_free / 1e9} "
+          f"note=host-memory collectives, not NVLink card={card}", flush=True)
+    if off:
+        raise AssertionError("\n".join(off))
+
+
+# ---------------------------------------------------------------------------
 # dryrun: the roofline of two production cells, counted on meta tensors
 # ---------------------------------------------------------------------------
 
 DRYRUN_CELLS = [("llama3-8b", "train_4k"), ("arctic-480b", "prefill_32k")]
 
 
-def run_dryrun() -> None:
-    """``python -m repro_torch.launch.dryrun`` on each DRYRUN_CELLS cell in a
-    subprocess (host work: no device, no process group), one ``dryrun``
-    line a cell with its record's roofline row, memory and collectives, at
-    the H100's data-sheet figures."""
+def start_dryrun() -> list:
+    """``python -m repro_torch.launch.dryrun`` on each DRYRUN_CELLS cell, a
+    subprocess a cell, all started at once (host work: no device, no
+    process group), to run beside the card's phases; ``finish_dryrun``
+    waits for them."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    for arch, shape in DRYRUN_CELLS:
-        t0 = time.perf_counter()
-        run = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape],
-                             cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=600)
-        if run.returncode != 0:
-            raise AssertionError(f"dryrun {arch} {shape}: exit {run.returncode}\n{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+    return [(arch, shape, time.perf_counter(),
+             subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape],
+                              cwd=str(ROOT), env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            for arch, shape in DRYRUN_CELLS]
+
+
+def finish_dryrun(runs: list) -> None:
+    """One ``dryrun`` line a cell of ``start_dryrun`` with its record's
+    roofline row, memory and collectives, at the H100's data-sheet figures
+    (``wall_s``: from its start to its end, beside the card's phases)."""
+    for arch, shape, t0, proc in runs:
+        try:
+            out, err = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        if proc.returncode != 0:
+            raise AssertionError(f"dryrun {arch} {shape}: exit {proc.returncode}\n{out[-3000:]}\n{err[-3000:]}")
         record = json.loads((ROOT / "artifacts" / "dryrun_torch" / f"{arch}__{shape}__16x16__default.json").read_text())
         print(f"dryrun arch={arch} shape={shape} mesh={record['mesh']} strategy={record['strategy']} wall_s={time.perf_counter() - t0} "
               f"memory_analysis={json.dumps(record['memory_analysis'])} collectives={json.dumps(record['raw_collectives'])} "
@@ -3659,6 +3986,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs on a GPU only", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--fsdp-peak"] and len(sys.argv) == 3:  # the fsdp world alone, on another tree
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
+        from repro_torch.kernels import _build
+
+        _build.load(*_build.SOURCES)
+        return run_fsdp_peak(sys.argv[2])
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import Hydra, ProviderSpec, Task, TaskState
     from repro_torch.kernels import _build, ops
@@ -3781,16 +4114,23 @@ def main() -> int:
     print(f"phase name=autotune_facts wall_s={time.perf_counter() - phase_t0}", flush=True)
 
     # the backward kernels' trace checks, in a fresh process: after heavy
-    # use of the card CUPTI loses traces' first kernels (ROADMAP.md fault 3.8)
+    # use of the card CUPTI loses traces' first kernels (ROADMAP.md fault 3.8);
+    # this process's cached blocks go back to the card first
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"card_memory before=trace_checks free_gb={free / 1e9} total_gb={total / 1e9} "
+          f"reserved_here_gb={torch.cuda.memory_reserved(dev) / 1e9}", flush=True)
     traced = backward_traces_fresh()
 
     # -- 6. model ----------------------------------------------------------------
     phase_t0 = time.perf_counter()
     del flush
     torch.cuda.empty_cache()
-    for name, n_layers, prompt, want, attn_route in MODEL_CHECKS:
-        check_model_on_card(torch, ops, name, n_layers, prompt, want, attn_route, dev)
-        torch.cuda.empty_cache()
+    with cpu_sides(torch) as submit:
+        for name, n_layers, prompt, want, attn_route in MODEL_CHECKS:
+            check_model_on_card(torch, ops, name, n_layers, prompt, want, attn_route, dev, submit)
+            torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
     for name, n_layers, prompt, want in MODEL_WIDTH_RUNS:
         run_full_width(torch, ops, name, n_layers, prompt, want, dev)
         torch.cuda.empty_cache()
@@ -3826,9 +4166,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_backward["moe_gmm_bwd"] = run_moe_grad_pass(torch, ops, dev)["moe_gmm_bwd"]
     torch.cuda.empty_cache()
-    for arch, batch_size, seq_len, want_backward, cut in GRAD_CHECKS:
-        check_grads_on_card(torch, ops, dev, arch, batch_size, seq_len, want_backward, cut)
-        torch.cuda.empty_cache()
+    with cpu_sides(torch) as submit:
+        for arch, batch_size, seq_len, want_backward, cut in GRAD_CHECKS:
+            check_grads_on_card(torch, ops, dev, arch, batch_size, seq_len, want_backward, cut, submit)
+            torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
     run_train_tasks(torch, ops, Hydra, ProviderSpec, Task, TaskState)
     print(f"device_profile calls={PROFILE_STATS['calls']} retried={PROFILE_STATS['retried']} "
           f"missing_from_events_but_in_kineto={PROFILE_STATS['in_kineto_only']} missing_from_both={PROFILE_STATS['in_neither']} "
@@ -3842,13 +4184,18 @@ def main() -> int:
     example_launches = run_examples(torch, ops, dev)
     print(f"phase name=sharded wall_s={time.perf_counter() - phase_t0}", flush=True)
 
-    # -- 9. tp and dryrun --------------------------------------------------------
+    # -- 9. tp, fsdp and dryrun --------------------------------------------------
+    dryruns = start_dryrun()  # host work, beside the two phases on the card
     phase_t0 = time.perf_counter()
     torch.cuda.empty_cache()
     tp_launches = run_tp(torch, ops, dev)
     print(f"phase name=tp wall_s={time.perf_counter() - phase_t0}", flush=True)
     phase_t0 = time.perf_counter()
-    run_dryrun()
+    torch.cuda.empty_cache()
+    run_fsdp(torch, dev)
+    print(f"phase name=fsdp wall_s={time.perf_counter() - phase_t0}", flush=True)
+    phase_t0 = time.perf_counter()
+    finish_dryrun(dryruns)
     print(f"phase name=dryrun wall_s={time.perf_counter() - phase_t0}", flush=True)
 
     # -- 10. report --------------------------------------------------------------

@@ -17,7 +17,7 @@ With ``--strategy`` (or in a ``torch.distributed`` world of more than one
 rank, started by the caller: NCCL on the card, gloo on the CPU) the step runs
 sharded over ``make_local_mesh(world size, --model-parallel)``, a ("data",
 "model") mesh whose "model" axis is 1 unless ``--model-parallel N`` asks for
-N ("tp" and "fsdp_tp" only: tensor parallelism), under the named strategy or
+N (tensor parallelism: every strategy but "serve_2dtp"), under the named strategy or
 the config's default, as the reference's driver builds them
 (``src/repro/launch/train.py:50-55``): each rank takes its shard of every
 global batch, keeps its shards of the parameters and of AdamW's moments

@@ -161,16 +161,21 @@ def _decode_attention_distributed(q, k_cache, v_cache, pos, cache_positions, win
 # ---------------------------------------------------------------------------
 
 
-def _rank_kv(k: torch.Tensor, v: torch.Tensor, n_heads: int, n_kv: int):
+def _rank_kv(k: torch.Tensor, v: torch.Tensor, n_heads: int, n_kv: int, outer: int = 1):
     """From whole k and v (B, L, KV, hd), the heads this rank's query heads
-    read: global query head h reads KV head h KV / H.  A contiguous range
-    when the rank's heads group evenly over it (the kernel maps local query
-    head j to local KV head j / (Hl / n)), else one KV head a query head.
-    The whole k and v are replicated and read here by rank-specific work,
-    so they ``enter`` first."""
-    hl = n_heads // tp.model_size()
-    first = tp.model_rank() * hl
-    idx = [(first + j) * n_kv // n_heads for j in range(hl)]
+    read: global query head h reads KV head h KV / H.  The rank's query
+    heads are block ``j m + r`` of ``outer m`` for each j < outer (under
+    "fsdp" "heads" splits over ("data", "model"): ``outer`` is the data
+    axis's size).  A contiguous range of KV heads when the rank's heads
+    group evenly over it (the kernel maps local query head j to local KV
+    head j / (Hl / n)), else one KV head a query head.  The whole k and v
+    are replicated and read here by rank-specific work, so they ``enter``
+    first."""
+    m, r = tp.model_size(), tp.model_rank()
+    size = n_heads // (outer * m)
+    heads = [(j * m + r) * size + t for j in range(outer) for t in range(size)]
+    idx = [h * n_kv // n_heads for h in heads]
+    hl = len(heads)
     lo, n = idx[0], idx[-1] + 1 - idx[0]
     k, v = tp.enter(k), tp.enter(v)
     if hl % n == 0 and all(idx[j] == lo + j // (hl // n) for j in range(hl)):
@@ -186,46 +191,54 @@ def _weights(cfg, p: dict, names) -> list:
     return [(p[n],) + shapes[n] for n in names]
 
 
-def _at_rank(cfg, q_split: bool, k, v, ks):
+def _at_rank(cfg, q_split, k, v, ks):
     """k and v of ``linears`` as (B, L, KVl, hd), at the heads this rank's
-    query heads read."""
+    query heads read (``q_split``: the outer of q's heads where they split
+    over "model", else None)."""
     k, v = (t.unflatten(-1, (-1, cfg.hd)) for t in (k, v))
-    if q_split and ks is None:
-        k, v = _rank_kv(k, v, cfg.n_heads, cfg.n_kv_heads)
+    if q_split is not None and ks is None:
+        k, v = _rank_kv(k, v, cfg.n_heads, cfg.n_kv_heads, q_split)
     return k, v
 
 
-def heads_q(cfg, p: dict, h: torch.Tensor):
+def heads_q(cfg, p: dict, h: torch.Tensor, *, seq: bool = False):
     """q (B, L, Hl, hd) from ``h`` at this rank's head count, and whether
-    it is split over "model" (``heads_out`` reads it)."""
-    [(q, qs)] = linears(h, _weights(cfg, p, ("wq",)))
+    it is split over "model" (``heads_out`` reads it).  ``seq``: ``h`` is
+    the rank's slice of the sequence, q covers the whole of it."""
+    [(q, qs)] = linears(h, _weights(cfg, p, ("wq",)), seq_in=seq)
     return q.unflatten(-1, (-1, cfg.hd)), qs is not None
 
 
-def heads_kv(cfg, p: dict, kv_in: torch.Tensor):
+def heads_kv(cfg, p: dict, kv_in: torch.Tensor, *, seq: bool = False):
     """k and v (B, Lk, KVl, hd) from ``kv_in`` at the heads this rank's
-    query heads read (a cross attention's, or a prefill's cross cache)."""
+    query heads read (a cross attention's, or a prefill's cross cache);
+    ``seq``: ``kv_in`` is the rank's slice of its sequence."""
     wq_split = tp.weight_split(*_weights(cfg, p, ("wq",))[0][1:])
-    (k, ks), (v, _) = linears(kv_in, _weights(cfg, p, ("wk", "wv")))
-    return _at_rank(cfg, wq_split is not None and wq_split[0] == 1, k, v, ks)  # q split on its heads
+    (k, ks), (v, _) = linears(kv_in, _weights(cfg, p, ("wk", "wv")), seq_in=seq)
+    q_heads = wq_split[1] if wq_split is not None and wq_split[0] == 1 else None  # q split on its heads
+    return _at_rank(cfg, q_heads, k, v, ks)
 
 
-def heads_qkv(cfg, p: dict, h: torch.Tensor, kv_in: Optional[torch.Tensor] = None):
+def heads_qkv(cfg, p: dict, h: torch.Tensor, kv_in: Optional[torch.Tensor] = None, *, seq: bool = False,
+              kv_seq: bool = False):
     """``heads_q`` of ``h`` and ``heads_kv`` of ``kv_in`` (``h`` itself for
     self attention, its three products reading ``h`` through one move):
-    (q, k, v, whether q is split)."""
+    (q, k, v, whether q is split).  ``seq`` and ``kv_seq``: ``h`` and
+    ``kv_in`` are the rank's slices of their sequences (the residual
+    streams of a sequence-parallel step); q, k and v cover the whole."""
     if kv_in is not None:
-        q, q_split = heads_q(cfg, p, h)
-        return (q,) + heads_kv(cfg, p, kv_in) + (q_split,)
-    (q, qs), (k, ks), (v, _) = linears(h, _weights(cfg, p, ("wq", "wk", "wv")))
-    k, v = _at_rank(cfg, qs is not None, k, v, ks)
+        q, q_split = heads_q(cfg, p, h, seq=seq)
+        return (q,) + heads_kv(cfg, p, kv_in, seq=kv_seq) + (q_split,)
+    (q, qs), (k, ks), (v, _) = linears(h, _weights(cfg, p, ("wq", "wk", "wv")), seq_in=seq)
+    k, v = _at_rank(cfg, qs, k, v, ks)
     return q.unflatten(-1, (-1, cfg.hd)), k, v, qs is not None
 
 
-def heads_out(cfg, a: torch.Tensor, wo: torch.Tensor, q_split: bool) -> torch.Tensor:
+def heads_out(cfg, a: torch.Tensor, wo: torch.Tensor, q_split: bool, *, seq: bool = False) -> torch.Tensor:
     """(B, L, Hl, hd) @ wo -> (B, L, D), whole: row-parallel over the rank's
     heads (reduced), or, where q was whole, column-parallel on d_model
-    (gathered) or replicated, as the rules split ``wo``."""
+    (gathered) or replicated, as the rules split ``wo``.  ``seq``: the
+    rank's slice of the sequence (B, L / m, D), for the residual stream."""
     [(y, split)] = linears(a.flatten(-2), [(wo, ("heads", None, "embed"), (cfg.n_heads, cfg.hd, cfg.d_model))],
-                           k=2, x_split=q_split)
+                           k=2, x_split=q_split, seq_out=seq)
     return whole(y, split)

@@ -13,6 +13,10 @@ loop over the stacked leaves, each one call of ``remat``.  Under tensor
 parallelism every attention (the encoder's, the decoder's self and cross
 attention, its keys and values from the whole encoder output) and every MLP
 splits as the dense family's (``models/attention.py``, ``models/layers.py``).
+Under sequence parallelism the encoder's and the decoder's residual streams
+each run on the rank's slice of their sequence where "model" divides its
+length, and the cross attention's keys and values read the encoder output
+through ``seq_enter``.
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import apply_rope, embed_tokens, mlp, remat, rms_norm
 from repro_torch.models.spec import ParamSpec, dense, layer, layers, stack_layers, stacked, torch_dtype
-from repro_torch.models.transformer import _head, _positions, attn_specs, mlp_specs, n_stacked, write_cache
+from repro_torch.models.transformer import _head, _positions, attn_specs, embed, head, logits, mlp_specs, n_stacked, write_cache
+from repro_torch.parallel import tensor as tp
 
 
 def enc_block_specs(cfg: ArchConfig, dt: str) -> dict:
@@ -65,26 +70,30 @@ def specs(cfg: ArchConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def enc_block(cfg: ArchConfig, x, p, pos):
-    h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-    q, k, v, q_split = attn.heads_qkv(cfg, p["attn"], h)
+def enc_block(cfg: ArchConfig, x, p, pos, seq: bool = False):
+    h = rms_norm(x, p["ln_attn"], cfg.norm_eps, seq=seq)
+    q, k, v, q_split = attn.heads_qkv(cfg, p["attn"], h, seq=seq)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     a = attn.attention(q, k, v, causal=False)
-    x = x + attn.heads_out(cfg, a, p["attn"]["wo"], q_split)
-    h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    return x + mlp(h, p["mlp"], cfg.d_ff, F.silu)
+    x = x + attn.heads_out(cfg, a, p["attn"]["wo"], q_split, seq=seq)
+    h = rms_norm(x, p["ln_mlp"], cfg.norm_eps, seq=seq)
+    return x + mlp(h, p["mlp"], cfg.d_ff, F.silu, seq=seq)
 
 
 def encode(cfg: ArchConfig, params, frames: torch.Tensor) -> torch.Tensor:
-    """frames (B, Le, D) stub embeddings -> encoder output (B, Le, D); each
-    layer rematerialised by ``cfg.remat`` when gradients are taken."""
+    """frames (B, Le, D) stub embeddings -> encoder output (B, Le, D), or
+    under sequence parallelism the rank's slice of it; each layer gathered
+    and rematerialised by ``cfg.remat`` when gradients are taken."""
+    seq = tp.seq_split(frames.shape[1])
     x = frames.to(torch_dtype(cfg.compute_dtype))
-    pos = torch.arange(x.shape[1], device=x.device)[None, :]
-    body = lambda x, p: enc_block(cfg, x, p, pos)
+    if seq:
+        x = tp.split(x, 1)
+    pos = torch.arange(frames.shape[1], device=x.device)[None, :]
+    body = lambda x, p: enc_block(cfg, x, tp.fsdp(p), pos, seq)
     for p in layers(params["enc_blocks"]):
         x = remat(body, x, p, policy=cfg.remat)
-    return rms_norm(x, params["enc_ln_f"], cfg.norm_eps)
+    return rms_norm(x, tp.fsdp(params["enc_ln_f"]), cfg.norm_eps, seq=seq)
 
 
 # ---------------------------------------------------------------------------
@@ -92,11 +101,11 @@ def encode(cfg: ArchConfig, params, frames: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _cross_attn(cfg, x, p, enc_out):
-    h = rms_norm(x, p["ln_cross"], cfg.norm_eps)
-    q, k, v, q_split = attn.heads_qkv(cfg, p["cross"], h, enc_out)
+def _cross_attn(cfg, x, p, enc_out, seq: bool = False, enc_seq: bool = False):
+    h = rms_norm(x, p["ln_cross"], cfg.norm_eps, seq=seq)
+    q, k, v, q_split = attn.heads_qkv(cfg, p["cross"], h, enc_out, seq=seq, kv_seq=enc_seq)
     a = attn.attention(q, k, v, causal=False)
-    return x + attn.heads_out(cfg, a, p["cross"]["wo"], q_split)
+    return x + attn.heads_out(cfg, a, p["cross"]["wo"], q_split, seq=seq)
 
 
 def _cross_attn_cached(cfg, x, p, ck, cv):
@@ -108,17 +117,19 @@ def _cross_attn_cached(cfg, x, p, ck, cv):
     return x + attn.heads_out(cfg, a, p["cross"]["wo"], False)
 
 
-def dec_block(cfg: ArchConfig, x, p, pos, enc_out):
-    """Returns (x, (k, v)): the layer's output and its self-attention cache."""
-    h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-    q, k, v, q_split = attn.heads_qkv(cfg, p["attn"], h)
+def dec_block(cfg: ArchConfig, x, p, pos, enc_out, seq: bool = False, enc_seq: bool = False):
+    """Returns (x, (k, v)): the layer's output and its self-attention cache.
+    ``seq`` and ``enc_seq``: x and the encoder output are the rank's slices
+    of their sequences."""
+    h = rms_norm(x, p["ln_attn"], cfg.norm_eps, seq=seq)
+    q, k, v, q_split = attn.heads_qkv(cfg, p["attn"], h, seq=seq)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     a = attn.attention(q, k, v, causal=True)
-    x = x + attn.heads_out(cfg, a, p["attn"]["wo"], q_split)
-    x = _cross_attn(cfg, x, p, enc_out)
-    h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    x = x + mlp(h, p["mlp"], cfg.d_ff, F.silu)
+    x = x + attn.heads_out(cfg, a, p["attn"]["wo"], q_split, seq=seq)
+    x = _cross_attn(cfg, x, p, enc_out, seq, enc_seq)
+    h = rms_norm(x, p["ln_mlp"], cfg.norm_eps, seq=seq)
+    x = x + mlp(h, p["mlp"], cfg.d_ff, F.silu, seq=seq)
     return x, (k, v)
 
 
@@ -128,16 +139,17 @@ def backbone(cfg: ArchConfig, params, tokens, extras=None):
     ``remat`` as an argument, so its gradient flows back to the encoder
     through the checkpoint's inputs."""
     enc_out = encode(cfg, params, extras["enc_frames"])
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype), cfg.vocab_size)
+    seq, enc_seq = tp.seq_split(tokens.shape[1]), tp.seq_split(extras["enc_frames"].shape[1])
+    x = embed(cfg, params, tokens, seq)
     pos = _positions(tokens)
-    body = lambda x, p, enc_out: dec_block(cfg, x, p, pos, enc_out)[0]
+    body = lambda x, p, enc_out: dec_block(cfg, x, tp.fsdp(p), pos, enc_out, seq, enc_seq)[0]
     for p in layers(params["dec_blocks"]):
         x = remat(body, x, p, enc_out, policy=cfg.remat)
     return x
 
 
 def forward(cfg: ArchConfig, params, tokens, extras=None):
-    return _head(cfg, params, backbone(cfg, params, tokens, extras))
+    return logits(cfg, params, backbone(cfg, params, tokens, extras), tokens.shape[1])
 
 
 # ---------------------------------------------------------------------------
@@ -165,17 +177,18 @@ def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len: Optional[in
     enc_out = encode(cfg, params, extras["enc_frames"])
     B, L = tokens.shape
     cache_len = cache_len or L
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype), cfg.vocab_size)
+    seq, enc_seq = tp.seq_split(L), tp.seq_split(extras["enc_frames"].shape[1])
+    x = embed(cfg, params, tokens, seq)
     pos = _positions(tokens)
     layers = []
     for i in range(n_stacked(params["dec_blocks"])):
-        p = layer(params["dec_blocks"], i)
-        x, (k, v) = dec_block(cfg, x, p, pos, enc_out)
+        p = tp.fsdp(layer(params["dec_blocks"], i))
+        x, (k, v) = dec_block(cfg, x, p, pos, enc_out, seq, enc_seq)
         if cache_len > L:
             k, v = (F.pad(t, (0, 0, 0, 0, 0, cache_len - L)) for t in (k, v))
-        xk, xv = attn.heads_kv(cfg, p["cross"], enc_out)
+        xk, xv = attn.heads_kv(cfg, p["cross"], enc_out, seq=enc_seq)
         layers.append({"k": k, "v": v, "cross_k": xk, "cross_v": xv})
-    return _head(cfg, params, x[:, -1:, :]), {"layers": stack_layers(layers)}
+    return head(cfg, params, x, seq=seq), {"layers": stack_layers(layers)}
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos, extras=None):

@@ -10,12 +10,19 @@ each weight's split from the strategy's rules (``parallel/tensor.py``,
 a weight split on its output dim is column-parallel (its result split), one
 split on its contraction dim row-parallel (partial sums, then ``reduce``),
 one split on neither replicated.  Norms run on replicated activations.
-Outside a tensor-parallel step no weight reads as split and each helper is
-the plain product.  Its ``scan_layers``
+Under sequence parallelism (``tp.seq_split``: the "_sp" strategies) the
+residual stream holds the rank's slice of the sequence: a block's
+column-parallel products read it through ``seq_enter`` (the whole
+sequence), its last row-parallel product leaves through ``seq_leave``, and
+a norm's scale, which then sees the rank's tokens only, has its gradient
+summed over "model" (``enter``).  Outside a tensor-parallel step no weight
+reads as split and each helper is the plain product.  Its ``scan_layers``
 becomes a plain loop over the layer index of the stacked leaves
 (``models/spec.py``: ``layer``, ``stack_layers``), each layer one call of
 :func:`remat`, which rematerialises it by the config's policy, as
-``jax.checkpoint`` does in the reference's scan body.
+``jax.checkpoint`` does in the reference's scan body; inside it the models
+gather the layer's dp shards (``tp.fsdp``), so the replay gathers them
+again and no policy saves a gathered weight.
 """
 from __future__ import annotations
 
@@ -30,7 +37,11 @@ from torch.utils import checkpoint as _ckpt
 from repro_torch.parallel import tensor as tp
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float, *, seq: bool = False) -> torch.Tensor:
+    """``seq``: ``x`` holds the rank's slice of the sequence, so the
+    scale's gradient is summed over "model"."""
+    if seq:
+        scale = tp.enter(scale)
     x32 = x.float()
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())
@@ -42,7 +53,8 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def linears(x: torch.Tensor, weights: list, *, k: int = 1, x_split: bool = False) -> list:
+def linears(x: torch.Tensor, weights: list, *, k: int = 1, x_split: bool = False, seq_in: bool = False,
+            seq_out: bool = False) -> list:
     """``x`` (..., K) times each weight of ``weights``, a list of (w, logical
     axes, global shape), its first ``k`` dims contracted (flattened to K)
     and the rest flattened to the output.  Returns one (y, split) a weight:
@@ -52,30 +64,41 @@ def linears(x: torch.Tensor, weights: list, *, k: int = 1, x_split: bool = False
     A row-parallel weight reads the rank's part of ``x`` (``x`` itself with
     ``x_split``: x already holds the part its contraction split asks for)
     and its partial sums are reduced; the column-parallel weights read ``x``
-    through one shared ``enter``."""
-    out, entered, parts = [], None, {}
+    through one shared ``enter``.
+
+    Under sequence parallelism, ``seq_in``: ``x`` (B, L / m, K) holds the
+    rank's slice of the sequence, which the column-parallel weights read
+    through one ``seq_enter`` and the others gathered (``tp.gather``: the
+    whole sequence, whose gradient is whole on every rank); ``seq_out``:
+    the results go back to the residual stream as the rank's slice of the
+    sequence, a row-parallel product's partial sums through ``seq_leave``,
+    a whole result cut (``tp.split``), each with split None."""
+    out, entered, full, parts = [], None, None, {}
     for w, axes, shape in weights:
         wf = w.reshape(math.prod(w.shape[:k]), -1)
         s = tp.weight_split(axes, shape)
-        if s is None:
-            if x_split:
-                raise ValueError(f"a whole weight {tuple(shape)} ({axes}) after an input split over 'model'")
-            out.append((x @ wf, None))
-            continue
-        d, outer = s
-        if d < k:  # row-parallel: the contraction is split
-            if not x_split:
-                o = outer * math.prod(shape[:d])
-                if o not in parts:
-                    parts[o] = tp.split(x, -1, o)
-            xp = x if x_split else parts[o]
-            out.append((tp.reduce(xp @ wf), None))
-            continue
-        if x_split:
+        if s is not None and s[0] >= k and x_split:
             raise ValueError(f"a column-parallel weight {tuple(shape)} ({axes}) after an input split over 'model'")
-        if entered is None:
-            entered = tp.enter(x)
-        out.append((entered @ wf, outer * math.prod(shape[k:d])))
+        if s is None and x_split:
+            raise ValueError(f"a whole weight {tuple(shape)} ({axes}) after an input split over 'model'")
+        if (s is None or s[0] < k) and not x_split and full is None:
+            full = tp.gather(x, 1) if seq_in else x
+        if s is None:
+            y, ys = full @ wf, None
+        elif s[0] < k:  # row-parallel: the contraction is split
+            d, outer = s
+            o = outer * math.prod(shape[:d])
+            if not x_split and o not in parts:
+                parts[o] = tp.split(full, -1, o)
+            partial = (x if x_split else parts[o]) @ wf
+            out.append((tp.seq_leave(partial) if seq_out else tp.reduce(partial), None))
+            continue
+        else:
+            d, outer = s
+            if entered is None:
+                entered = tp.seq_enter(x) if seq_in else tp.enter(x)
+            y, ys = entered @ wf, outer * math.prod(shape[k:d])
+        out.append((tp.split(whole(y, ys), 1), None) if seq_out else (y, ys))
     return out
 
 
@@ -84,47 +107,57 @@ def whole(y: torch.Tensor, split) -> torch.Tensor:
     return y if split is None else tp.gather(y, -1, split)
 
 
-def mlp(x: torch.Tensor, p: dict, d_ff: int, act: Callable) -> torch.Tensor:
+def mlp(x: torch.Tensor, p: dict, d_ff: int, act: Callable, *, seq: bool = False) -> torch.Tensor:
     """down(act(x @ gate) * (x @ up)): SwiGLU with ``act`` silu, GeGLU with
     ``gelu``.  Gate and up are column-parallel over "mlp" and down
-    row-parallel where the rules split "mlp"; the result whole."""
+    row-parallel where the rules split "mlp"; the result whole, or with
+    ``seq`` (x the rank's slice of the sequence) the rank's slice."""
     D = x.shape[-1]
-    (g, split), (u, _) = linears(x, [(p["w_gate"], ("embed", "mlp"), (D, d_ff)), (p["w_up"], ("embed", "mlp"), (D, d_ff))])
-    [(y, ys)] = linears(act(g) * u, [(p["w_down"], ("mlp", "embed"), (d_ff, D))], x_split=split is not None)
+    (g, split), (u, _) = linears(x, [(p["w_gate"], ("embed", "mlp"), (D, d_ff)), (p["w_up"], ("embed", "mlp"), (D, d_ff))],
+                                 seq_in=seq)
+    [(y, ys)] = linears(act(g) * u, [(p["w_down"], ("mlp", "embed"), (d_ff, D))], x_split=split is not None, seq_out=seq)
     return whole(y, ys)
 
 
-def _vocab_start(n_local: int, split) -> int:
-    if split[1] != 1:
-        raise NotImplementedError(f"a vocab dim split over 'model' inside {split[1]} outer blocks")
-    return tp.model_rank() * n_local
+def _vocab_local(ids: torch.Tensor, n_local: int, split) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the row of each global id in the rank's part of a vocab dim split
+    over "model" as ``split`` (dim, outer) says, clamped into it; whether the
+    rank holds it).  The rank holds block ``j m + r`` of ``outer m`` blocks
+    for each j < outer (the ``(outer, m, rest)`` layout)."""
+    m, r = tp.model_size(), tp.model_rank()
+    size = n_local // split[1]
+    block, within = ids // size, ids % size
+    inside = block % m == r
+    return ((block // m) * size + within).clamp(0, n_local - 1), inside
 
 
 def embed_tokens(tokens: torch.Tensor, table: torch.Tensor, compute_dtype: torch.dtype,
-                 vocab_size: Optional[int] = None) -> torch.Tensor:
+                 vocab_size: Optional[int] = None, *, seq: bool = False) -> torch.Tensor:
     """The rows of ``table`` (V, D) at ``tokens``.  With the global
     ``vocab_size`` given, a table split over "model" on its vocab dim looks
     up only the ids in the rank's range (the rest read zeros) and the ranks'
-    rows are summed."""
+    rows are summed.  ``seq``: the rows come back as the rank's slice of the
+    sequence (the ranks' rows through ``seq_leave``, whole rows cut)."""
     split = tp.weight_split(("vocab", "embed_table"), (vocab_size, table.shape[1])) if vocab_size else None
     if split is None:
-        return table[tokens.long()].to(compute_dtype)
-    n = table.shape[0]
-    ids = tokens.long() - _vocab_start(n, split)
-    inside = (ids >= 0) & (ids < n)
-    rows = table[ids.clamp(0, n - 1)] * inside[..., None].to(table.dtype)
-    return tp.reduce(rows).to(compute_dtype)
+        rows = table[tokens.long()].to(compute_dtype)
+        return tp.split(rows, 1) if seq else rows
+    ids, inside = _vocab_local(tokens.long(), table.shape[0], split)
+    rows = table[ids] * inside[..., None].to(table.dtype)
+    return (tp.seq_leave(rows) if seq else tp.reduce(rows)).to(compute_dtype)
 
 
-def lm_logits(x: torch.Tensor, head: torch.Tensor, split=None) -> torch.Tensor:
+def lm_logits(x: torch.Tensor, head: torch.Tensor, split=None, *, seq: bool = False) -> torch.Tensor:
     """x (..., D) @ head (D, V) -> (..., V).  ``split`` is the head's
     ``weight_split``: split on V the logits come out split (the rank's
-    vocab range), split on D the partial logits are reduced."""
+    vocab range), split on D the partial logits are reduced.  ``seq``: x
+    (B, L / m, D) holds the rank's slice of the sequence and the logits
+    cover the whole of it."""
     if split is None:
-        return x @ head
+        return (tp.gather(x, 1) if seq else x) @ head
     if split[0] == 1:
-        return tp.enter(x) @ head
-    return tp.reduce(tp.split(x, -1, split[1]) @ head)
+        return (tp.seq_enter(x) if seq else tp.enter(x)) @ head
+    return tp.reduce(tp.split(tp.gather(x, 1) if seq else x, -1, split[1]) @ head)
 
 
 def vocab_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, split) -> torch.Tensor:
@@ -134,13 +167,17 @@ def vocab_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, split) -> to
     owns it.  Equal to the whole-vocab logsumexp minus the label's logit,
     and so is its gradient."""
     logits32 = logits.float()
-    n = logits.shape[-1]
     shift = tp.reduce(torch.amax(logits32, dim=-1), "max")
     lse = shift + torch.log(tp.reduce(torch.sum(torch.exp(logits32 - shift[..., None]), dim=-1)))
-    ids = labels.long() - _vocab_start(n, split)
-    inside = (ids >= 0) & (ids < n)
-    picked = torch.gather(logits32, -1, ids.clamp(0, n - 1)[..., None])[..., 0] * inside
+    ids, inside = _vocab_local(labels.long(), logits.shape[-1], split)
+    picked = torch.gather(logits32, -1, ids[..., None])[..., 0] * inside
     return torch.mean(lse - tp.reduce(picked))
+
+
+def last_token(x: torch.Tensor, seq: bool) -> torch.Tensor:
+    """x[:, -1:] of the whole sequence: with ``seq`` (x the rank's slice)
+    each rank's last token gathered and the last rank's kept."""
+    return tp.gather(x[:, -1:], 1)[:, -1:] if seq else x[:, -1:]
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -17,8 +17,9 @@ device, and so does the backward of attention (self and cross), of both
 scans (the selective scan's and the RG-LRU's) and of the expert GEMMs
 (``kernels/ops.py``): all six families train on the card.  Under tensor
 parallelism (``train/step.py``'s train and prefill steps on a "model" axis
-above 1) ``params`` are a rank's "model" shards, the loss takes the
-vocab-parallel cross entropy where the head splits the vocab, and the
+above 1) ``params`` are a rank's shards, which the models gather over the
+dp axes a layer at a time (``parallel/tensor.py``, ``fsdp``), the loss takes
+the vocab-parallel cross entropy where the head splits the vocab, and the
 prefill's logits come back whole.
 """
 from __future__ import annotations
@@ -30,8 +31,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import encdec, moe, rglru, ssm, transformer, vision
 from repro_torch.models.layers import remat, vocab_cross_entropy
-from repro_torch.models.transformer import _head
+from repro_torch.models.transformer import _head, head_params, logits as head_logits
 from repro_torch.models.spec import init_params, tree_size
+from repro_torch.parallel import tensor as tp
 
 _FAMILY = {
     "dense": transformer,
@@ -85,7 +87,8 @@ class Model:
             (logits, split), moe_metrics = moe.forward(self.cfg, params, batch["tokens"], gather=False)
         else:
             hidden = self.mod.backbone(self.cfg, params, batch["tokens"], _extras(batch))
-            (logits, split), moe_metrics = _head(self.cfg, params, hidden, gather=False), None
+            logits, split = head_logits(self.cfg, params, hidden, batch["tokens"].shape[1], gather=False)
+            moe_metrics = None
         ce, metrics = cross_entropy(logits, batch["labels"], split)
         loss = ce
         if moe_metrics is not None:
@@ -97,24 +100,31 @@ class Model:
     def _loss_chunked_head(self, params, batch: dict):
         """The LM head and cross entropy a sequence chunk at a time, each
         chunk under a checkpoint that recomputes it in the backward, so the
-        (B, L, V) fp32 logits never exist whole (``model.py:84-121``)."""
+        (B, L, V) fp32 logits never exist whole (``model.py:84-121``).  The
+        head's leaves are gathered once, before the chunks.  Under sequence
+        parallelism the hidden states are the rank's slice of the sequence:
+        a chunk is a slice of each rank's, its logits the ranks' together
+        (the head reads them through ``seq_enter``)."""
         cfg = self.cfg
+        labels = batch["labels"]
         hidden = self.mod.backbone(cfg, params, batch["tokens"], _extras(batch))
+        seq = tp.seq_split(labels.shape[1])
+        hp = tp.fsdp(head_params(params))
         B, L, D = hidden.shape
         ck = min(cfg.logit_chunk, L)
         while L % ck:
             ck -= 1
-        labels = batch["labels"]
+        by_rank = labels.unflatten(1, (-1, L))  # (B, ranks, L): the labels of each rank's slice
 
         def chunk_nll(h_chunk, l_chunk):
-            logits, split = _head(cfg, params, h_chunk, gather=False)
+            logits, split = _head(cfg, hp, h_chunk, gather=False, seq=seq)
             ce, _ = cross_entropy(logits, l_chunk, split)
             return ce * l_chunk.numel()  # a sum, renormalised below
 
         total = torch.zeros((), dtype=torch.float32, device=hidden.device)
         for i in range(L // ck):
             sl = slice(i * ck, (i + 1) * ck)
-            total = total + remat(chunk_nll, hidden[:, sl], labels[:, sl], policy="full")
+            total = total + remat(chunk_nll, hidden[:, sl], by_rank[:, :, sl].flatten(1, 2), policy="full")
         loss = total / labels.numel()
         tokens = torch.tensor(float(labels.numel()), device=hidden.device)
         return loss, {"ce": loss, "tokens": tokens, "loss": loss}

@@ -22,7 +22,10 @@ Under tensor parallelism the expert weights' split is read from the rules
     the GEMM at F/m, its partial outputs summed before the combine.
 
 Layers are a loop over the stacked leaves, each one call of
-``layers.remat``.
+``layers.remat``.  Under sequence parallelism the routing sees the whole
+sequence: the block gathers it (``tp.gather``), and its output leaves for
+the residual stream as the rank's slice (``seq_leave`` of the experts'
+partial sums, a whole result cut).
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import apply_rope, embed_tokens, mlp, remat, rms_norm
 from repro_torch.models.spec import ParamSpec, dense, layer, layers, stack_layers, stacked, torch_dtype
-from repro_torch.models.transformer import _head, _positions, attn_specs, n_stacked, write_cache
+from repro_torch.models.transformer import _head, _positions, attn_specs, embed, head, logits, n_stacked, write_cache
 from repro_torch.models.transformer import cache_specs as dense_cache_specs
 from repro_torch.parallel import tensor as tp
 
@@ -132,8 +135,19 @@ def route(cfg: ArchConfig, logits: torch.Tensor):
     return dispatch, combine, aux, z
 
 
-def moe_ffn(cfg: ArchConfig, x: torch.Tensor, p: dict):
-    """x (B, L, D) -> (y (B, L, D), aux_metrics dict)."""
+def _rank_experts(n_local: int, outer: int) -> list:
+    """The global ids of the rank's experts: block ``j m + r`` of ``outer m``
+    for each j < outer."""
+    m, r, size = tp.model_size(), tp.model_rank(), n_local // outer
+    return [(j * m + r) * size + t for j in range(outer) for t in range(size)]
+
+
+def moe_ffn(cfg: ArchConfig, x: torch.Tensor, p: dict, *, seq: bool = False):
+    """x (B, L, D) -> (y (B, L, D), aux_metrics dict).  ``seq``: x and y are
+    the rank's slices of the sequence, the routing runs on the whole."""
+    x_in = x
+    if seq:
+        x = tp.gather(x, 1)
     B, L, D = x.shape
     T = B * L
     g = min(cfg.moe_group_size, T)
@@ -142,24 +156,30 @@ def moe_ffn(cfg: ArchConfig, x: torch.Tensor, p: dict):
     G = T // g
     xg = x.reshape(G, g, D)
 
-    logits = torch.einsum("Ggd,de->Gge", xg.float(), p["router"].float())
-    dispatch, combine, aux, z = route(cfg, logits)
+    scores = torch.einsum("Ggd,de->Gge", xg.float(), p["router"].float())
+    dispatch, combine, aux, z = route(cfg, scores)
     dispatch = dispatch.to(x.dtype)
     E, C = dispatch.shape[2], dispatch.shape[3]
 
     F_ = cfg.d_ff
     by_expert = tp.weight_split(("experts", "embed", "mlp"), (E, D, F_))
-    if by_expert is not None and by_expert not in ((0, 1), (2, 1)):
+    if by_expert is not None and by_expert[0] not in (0, 2):
         raise NotImplementedError(f"expert weights (E, D, F) split over 'model' as (dim, outer) {by_expert}")
-    if by_expert == (0, 1):
+    experts = by_expert is not None and by_expert[0] == 0
+    if experts:
         # this rank's experts, over the slots of every token
         El = p["w_gate"].shape[0]
-        lo = tp.model_rank() * El
-        xg, dispatch, combine = tp.enter(xg), dispatch[:, :, lo:lo + El], tp.enter(combine)[:, :, lo:lo + El]
+        xg, combine = tp.enter(xg), tp.enter(combine)
+        if by_expert[1] == 1:
+            lo = tp.model_rank() * El
+            dispatch, combine = dispatch[:, :, lo:lo + El], combine[:, :, lo:lo + El]
+        else:
+            sel = torch.tensor(_rank_experts(El, by_expert[1]), device=x.device)
+            dispatch, combine = dispatch.index_select(2, sel), combine.index_select(2, sel)
         E = El
     # each expert's rows of every group together: (E, G * C, D)
     xe = torch.einsum("Ggd,Ggec->eGcd", xg, dispatch).contiguous().reshape(E, G * C, D)
-    inner = by_expert == (2, 1)
+    inner = by_expert is not None and by_expert[0] == 2
     if inner:  # each expert's FFN split over "model": gate and up column-, down row-parallel
         xe = tp.enter(xe)
     # the grouped GEMM kernel; its wrapper picks blocks that divide the shapes
@@ -168,11 +188,14 @@ def moe_ffn(cfg: ArchConfig, x: torch.Tensor, p: dict):
     if inner:
         ye = tp.reduce(ye)
     y = torch.einsum("eGcd,Ggec->Ggd", ye.reshape(E, G, C, D).float(), combine)
-    if by_expert == (0, 1):
-        y = tp.reduce(y)
-    y = y.reshape(B, L, D).to(x.dtype)
+    y = y.reshape(B, L, D)
+    if experts:  # the ranks' experts' partial sums
+        y = tp.seq_leave(y) if seq else tp.reduce(y)
+    elif seq:
+        y = tp.split(y, 1)
+    y = y.to(x.dtype)
     if "dense" in p:  # arctic: parallel dense residual MLP
-        y = y + mlp(x, p["dense"], F_, F.silu)
+        y = y + mlp(x_in, p["dense"], F_, F.silu, seq=seq)
     return y, {"aux_loss": aux, "z_loss": z}
 
 
@@ -181,31 +204,32 @@ def moe_ffn(cfg: ArchConfig, x: torch.Tensor, p: dict):
 # ---------------------------------------------------------------------------
 
 
-def _attn(cfg: ArchConfig, x, p, pos):
+def _attn(cfg: ArchConfig, x, p, pos, seq: bool = False):
     """The attention half of a block: (x after it, (k, v))."""
-    h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-    q, k, v, q_split = attn.heads_qkv(cfg, p["attn"], h)
+    h = rms_norm(x, p["ln_attn"], cfg.norm_eps, seq=seq)
+    q, k, v, q_split = attn.heads_qkv(cfg, p["attn"], h, seq=seq)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     a = attn.attention(q, k, v, causal=True)
-    return x + attn.heads_out(cfg, a, p["attn"]["wo"], q_split), (k, v)
+    return x + attn.heads_out(cfg, a, p["attn"]["wo"], q_split, seq=seq), (k, v)
 
 
-def moe_block(cfg: ArchConfig, x, p, pos):
-    x, _ = _attn(cfg, x, p, pos)
-    y, aux = moe_ffn(cfg, rms_norm(x, p["ln_mlp"], cfg.norm_eps), p["moe"])
+def moe_block(cfg: ArchConfig, x, p, pos, seq: bool = False):
+    x, _ = _attn(cfg, x, p, pos, seq)
+    y, aux = moe_ffn(cfg, rms_norm(x, p["ln_mlp"], cfg.norm_eps, seq=seq), p["moe"], seq=seq)
     return x + y, aux
 
 
 def forward(cfg: ArchConfig, params, tokens, extras=None, *, gather: bool = True):
     """Returns (logits, moe_metrics): the aux and z losses averaged over the
-    layers, each layer rematerialised by ``cfg.remat``.  With ``gather``
-    False the logits are ``_head``'s (logits, vocab split) pair."""
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype), cfg.vocab_size)
+    layers, each layer gathered and rematerialised by ``cfg.remat``.  With
+    ``gather`` False the logits are ``_head``'s (logits, vocab split) pair."""
+    seq = tp.seq_split(tokens.shape[1])
+    x = embed(cfg, params, tokens, seq)
     pos = _positions(tokens)
 
     def body(x, p):
-        x, aux = moe_block(cfg, x, p, pos)
+        x, aux = moe_block(cfg, x, tp.fsdp(p), pos, seq)
         return x, aux["aux_loss"], aux["z_loss"]
 
     n = n_stacked(params["blocks"])
@@ -213,7 +237,7 @@ def forward(cfg: ArchConfig, params, tokens, extras=None, *, gather: bool = True
     for p in layers(params["blocks"]):
         x, aux, z = remat(body, x, p, policy=cfg.remat)
         aux_sum, z_sum = aux_sum + aux, z_sum + z
-    return _head(cfg, params, x, gather=gather), {"aux_loss": aux_sum / n, "z_loss": z_sum / n}
+    return logits(cfg, params, x, tokens.shape[1], gather=gather), {"aux_loss": aux_sum / n, "z_loss": z_sum / n}
 
 
 def aux_loss(metrics: dict) -> torch.Tensor:
@@ -240,19 +264,20 @@ def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len=None):
     Returns (last-token logits (B, 1, V), cache)."""
     B, L = tokens.shape
     cache_len = cache_len or L
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype), cfg.vocab_size)
+    seq = tp.seq_split(L)
+    x = embed(cfg, params, tokens, seq)
     pos = _positions(tokens)
     ks, vs = [], []
     for i in range(n_stacked(params["blocks"])):
-        p = layer(params["blocks"], i)
-        x, (k, v) = _attn(cfg, x, p, pos)
-        y, _ = moe_ffn(cfg, rms_norm(x, p["ln_mlp"], cfg.norm_eps), p["moe"])
+        p = tp.fsdp(layer(params["blocks"], i))
+        x, (k, v) = _attn(cfg, x, p, pos, seq)
+        y, _ = moe_ffn(cfg, rms_norm(x, p["ln_mlp"], cfg.norm_eps, seq=seq), p["moe"], seq=seq)
         x = x + y
         if cache_len > L:
             k, v = (F.pad(t, (0, 0, 0, 0, 0, cache_len - L)) for t in (k, v))
         ks.append(k)
         vs.append(v)
-    return _head(cfg, params, x[:, -1:, :]), {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+    return head(cfg, params, x, seq=seq), {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos, extras=None):

@@ -19,7 +19,9 @@ m = 3: rank 1 holds channels 16 to 31, blocks 5 to 10 in part), so the
 gates run on the whole activation, gathered over "model", and the rank
 takes its channels of their outputs.  (recurrentgemma-2b's 2560 channels
 form 16 blocks of 160, which any m up to 16 that divides 2560 splits on
-block boundaries.)
+block boundaries.)  Under sequence parallelism ``w_x`` and ``w_gate`` read
+the whole sequence (``seq_enter``) and ``w_out`` leaves through
+``seq_leave``: the conv and the scan see the whole sequence.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ from repro_torch.models.layers import (
     apply_rope, causal_conv1d, conv1d_step, embed_tokens, gelu, linears, mlp, remat, rms_norm, whole,
 )
 from repro_torch.models.spec import ParamSpec, dense, layer, layers, stack_layers, stacked, torch_dtype
-from repro_torch.models.transformer import _head, _positions, attn_specs, n_stacked, write_cache
+from repro_torch.models.transformer import _head, _positions, attn_specs, embed, head, logits, n_stacked, write_cache
 from repro_torch.parallel import tensor as tp
 
 N_GATE_BLOCKS = 16  # block-diagonal gate blocks == model-axis size
@@ -161,25 +163,27 @@ def _lru_gates(p: dict, u: torch.Tensor):
     return log_a, beta * i * u.float()
 
 
-def _gates_of_split(cfg: ArchConfig, p: dict, u: torch.Tensor):
+def _gates_of_split(cfg: ArchConfig, p: dict, u: torch.Tensor, outer: int = 1):
     """``_lru_gates`` of the rank's channels ``u`` (B, L, dr / m) where the
     gate blocks are whole on every rank: the gates run on the whole
-    activation and the gate vectors, gathered over "model", and the rank
-    takes its channels of log_a and the gated input."""
+    activation and the gate vectors, gathered over "model" (the channels'
+    ``outer`` blocks), and the rank takes its channels of log_a and the
+    gated input."""
     nb = _gate_blocks(cfg)
     bd = cfg.rnn_dim // nb
     if tp.weight_split(("rnn", None, None), (nb, bd, bd)) is not None:
         return _lru_gates(p, u)  # the rank holds the blocks of its channels
-    full = {k: tp.gather(p[k], -1) for k in ("b_rec_gate", "b_in_gate", "lam")}
-    log_a, gx = _lru_gates({**p, **full}, tp.gather(u, -1))
-    return tp.split(log_a, -1), tp.split(gx, -1)
+    full = {k: tp.gather(p[k], -1, outer) for k in ("b_rec_gate", "b_in_gate", "lam")}
+    log_a, gx = _lru_gates({**p, **full}, tp.gather(u, -1, outer))
+    return tp.split(log_a, -1, outer), tp.split(gx, -1, outer)
 
 
 def rglru_seq(p: dict, u: torch.Tensor, h0=None, cfg: Optional[ArchConfig] = None, split=None):
     """RG-LRU over a full sequence on the ``rglru_scan`` kernel.
     u (B, L, dr) -> (y, h_last (B, dr) f32).  With ``split`` (u holds the
-    rank's channels) the gates as ``_gates_of_split`` runs them."""
-    log_a, gx = _lru_gates(p, u) if split is None else _gates_of_split(cfg, p, u)
+    rank's channels, ``split`` their outer) the gates as ``_gates_of_split``
+    runs them."""
+    log_a, gx = _lru_gates(p, u) if split is None else _gates_of_split(cfg, p, u, split)
     y, h_last = ops.rglru_scan(log_a.contiguous(), gx.contiguous(), h0)
     return y.to(u.dtype), h_last
 
@@ -196,32 +200,33 @@ def rglru_step(p: dict, u_t: torch.Tensor, h: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def rec_block(cfg: ArchConfig, x, p, h0=None):
-    """Full-seq recurrent block.  Returns (x, (h_last, conv_tail))."""
+def rec_block(cfg: ArchConfig, x, p, h0=None, seq: bool = False):
+    """Full-seq recurrent block.  Returns (x, (h_last, conv_tail)); ``seq``:
+    x is the rank's slice of the sequence."""
     D, dr = cfg.d_model, cfg.rnn_dim
-    h_in = rms_norm(x, p["ln"], cfg.norm_eps)
-    (u_pre, split), (g, _) = linears(h_in, [(p[n], ("embed", "rnn"), (D, dr)) for n in ("w_x", "w_gate")])
+    h_in = rms_norm(x, p["ln"], cfg.norm_eps, seq=seq)
+    (u_pre, split), (g, _) = linears(h_in, [(p[n], ("embed", "rnn"), (D, dr)) for n in ("w_x", "w_gate")], seq_in=seq)
     g = gelu(g)
     u = causal_conv1d(u_pre, p["conv_w"], p["conv_b"])
     y, h_last = rglru_seq(p, u, h0, cfg, split)
-    [(out, os_)] = linears(y * g, [(p["w_out"], ("rnn", "embed"), (dr, D))], x_split=split is not None)
+    [(out, os_)] = linears(y * g, [(p["w_out"], ("rnn", "embed"), (dr, D))], x_split=split is not None, seq_out=seq)
     x = x + whole(out, os_)
-    h2 = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    x = x + mlp(h2, p["mlp"], cfg.d_ff, gelu)
+    h2 = rms_norm(x, p["ln_mlp"], cfg.norm_eps, seq=seq)
+    x = x + mlp(h2, p["mlp"], cfg.d_ff, gelu, seq=seq)
     conv_tail = u_pre[:, -3:, :]
     return x, (h_last, conv_tail)
 
 
-def attn_block(cfg: ArchConfig, x, p, pos):
+def attn_block(cfg: ArchConfig, x, p, pos, seq: bool = False):
     """Local-window MQA block.  Returns (x, (k, v))."""
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q, k, v, q_split = attn.heads_qkv(cfg, p["attn"], h)
+    h = rms_norm(x, p["ln"], cfg.norm_eps, seq=seq)
+    q, k, v, q_split = attn.heads_qkv(cfg, p["attn"], h, seq=seq)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     a = attn.attention(q, k, v, causal=True, window=cfg.local_window)
-    x = x + attn.heads_out(cfg, a, p["attn"]["wo"], q_split)
-    h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    x = x + mlp(h, p["mlp"], cfg.d_ff, gelu)
+    x = x + attn.heads_out(cfg, a, p["attn"]["wo"], q_split, seq=seq)
+    h = rms_norm(x, p["ln_mlp"], cfg.norm_eps, seq=seq)
+    x = x + mlp(h, p["mlp"], cfg.d_ff, gelu, seq=seq)
     return x, (k, v)
 
 
@@ -232,26 +237,28 @@ def attn_block(cfg: ArchConfig, x, p, pos):
 
 def backbone(cfg: ArchConfig, params, tokens, extras=None):
     """Hidden states before the LM head; each superblock, and each tail
-    layer, rematerialised by ``cfg.remat`` when gradients are taken (the
-    reference's scan steps)."""
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype), cfg.vocab_size)
+    layer, gathered and rematerialised by ``cfg.remat`` when gradients are
+    taken (the reference's scan steps)."""
+    seq = tp.seq_split(tokens.shape[1])
+    x = embed(cfg, params, tokens, seq)
     pos = _positions(tokens)
 
     def super_body(x, p):
-        x, _ = rec_block(cfg, x, p["rec1"])
-        x, _ = rec_block(cfg, x, p["rec2"])
-        return attn_block(cfg, x, p["attn"], pos)[0]
+        p = tp.fsdp(p)
+        x, _ = rec_block(cfg, x, p["rec1"], seq=seq)
+        x, _ = rec_block(cfg, x, p["rec2"], seq=seq)
+        return attn_block(cfg, x, p["attn"], pos, seq)[0]
 
     for p in layers(params["superblocks"]):
         x = remat(super_body, x, p, policy=cfg.remat)
     if "tail" in params:
         for p in layers(params["tail"]):
-            x = remat(lambda x, p: rec_block(cfg, x, p)[0], x, p, policy=cfg.remat)
+            x = remat(lambda x, p: rec_block(cfg, x, tp.fsdp(p), seq=seq)[0], x, p, policy=cfg.remat)
     return x
 
 
 def forward(cfg: ArchConfig, params, tokens, extras=None):
-    return _head(cfg, params, backbone(cfg, params, tokens, extras))
+    return logits(cfg, params, backbone(cfg, params, tokens, extras), tokens.shape[1])
 
 
 def cache_specs(cfg: ArchConfig, batch: int, cache_len: int) -> dict:
@@ -334,14 +341,15 @@ def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len=None):
     B, L = tokens.shape
     cache_len = cache_len or L
     W = min(cfg.local_window, cache_len)
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype), cfg.vocab_size)
+    seq = tp.seq_split(L)
+    x = embed(cfg, params, tokens, seq)
     pos = _positions(tokens)
     sb = []
     for i in range(n_stacked(params["superblocks"])):
-        p = layer(params["superblocks"], i)
-        x, (h1, cv1) = rec_block(cfg, x, p["rec1"])
-        x, (h2, cv2) = rec_block(cfg, x, p["rec2"])
-        x, (k, v) = attn_block(cfg, x, p["attn"], pos)
+        p = tp.fsdp(layer(params["superblocks"], i))
+        x, (h1, cv1) = rec_block(cfg, x, p["rec1"], seq=seq)
+        x, (h2, cv2) = rec_block(cfg, x, p["rec2"], seq=seq)
+        x, (k, v) = attn_block(cfg, x, p["attn"], pos, seq)
         sb.append({
             "rec1_h": h1, "rec1_conv": cv1,
             "rec2_h": h2, "rec2_conv": cv2,
@@ -351,10 +359,10 @@ def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len=None):
     if "tail" in params:
         tail = []
         for i in range(n_stacked(params["tail"])):
-            x, (h, cv) = rec_block(cfg, x, layer(params["tail"], i))
+            x, (h, cv) = rec_block(cfg, x, tp.fsdp(layer(params["tail"], i)), seq=seq)
             tail.append({"h": h, "conv": cv})
         cache["tail"] = stack_layers(tail)
-    return _head(cfg, params, x[:, -1:, :]), cache
+    return head(cfg, params, x, seq=seq), cache
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos, extras=None):

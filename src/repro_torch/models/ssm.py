@@ -18,7 +18,9 @@ split over "model" where the rules split "ssm_inner": ``in_proj`` (``w_in_x``,
 ``w_in_z``) column-parallel, the conv on the rank's channels, ``x_proj``
 (``w_x_dt``, ``w_x_b``, ``w_x_c``) row-parallel with dt, B and C reduced,
 ``dt_proj`` column-parallel back to the rank's channels, the scan kernel at
-d_inner / m, and ``out_proj`` row-parallel.
+d_inner / m, and ``out_proj`` row-parallel.  Under sequence parallelism
+``in_proj`` reads the whole sequence (``seq_enter``) and ``out_proj``
+leaves through ``seq_leave``: the conv and the scan see the whole sequence.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import causal_conv1d, conv1d_step, embed_tokens, linears, remat, rms_norm, whole
 from repro_torch.models.spec import ParamSpec, dense, layer, layers, stack_layers, stacked, torch_dtype
-from repro_torch.models.transformer import _head, n_stacked
+from repro_torch.models.transformer import _head, embed, head, logits, n_stacked
 from repro_torch.parallel import tensor as tp
 
 
@@ -135,37 +137,40 @@ def _mixer_inputs(cfg: ArchConfig, p: dict, xb: torch.Tensor, split) -> tuple:
     return dt, bm, cm
 
 
-def _mixer(cfg: ArchConfig, x, p):
-    """The block's full-sequence mixer.  Returns (x + out, (h_last, conv_tail))."""
+def _mixer(cfg: ArchConfig, x, p, seq: bool = False):
+    """The block's full-sequence mixer.  Returns (x + out, (h_last,
+    conv_tail)); ``seq``: x is the rank's slice of the sequence."""
     D, di = cfg.d_model, cfg.d_inner
-    h_in = rms_norm(x, p["ln"], cfg.norm_eps)
-    (xb_pre, split), (z, _) = linears(h_in, [(p[n], ("embed", "ssm_inner"), (D, di)) for n in ("w_in_x", "w_in_z")])
+    h_in = rms_norm(x, p["ln"], cfg.norm_eps, seq=seq)
+    (xb_pre, split), (z, _) = linears(h_in, [(p[n], ("embed", "ssm_inner"), (D, di)) for n in ("w_in_x", "w_in_z")],
+                                      seq_in=seq)
     xb = F.silu(causal_conv1d(xb_pre, p["conv_w"], p["conv_b"]))
     dt, bm, cm = _mixer_inputs(cfg, p, xb, split)
     y, h_last = selective_scan_chunked(cfg, p, xb, dt, bm, cm)
     y = (y + p["d_skip"].float() * xb.float()).to(x.dtype)
     y = y * F.silu(z)
     conv_tail = xb_pre[:, -(cfg.ssm_conv - 1):, :]  # last K-1 *pre-conv* inputs
-    [(out, os_)] = linears(y, [(p["w_out"], ("ssm_inner", "embed"), (di, D))], x_split=split is not None)
+    [(out, os_)] = linears(y, [(p["w_out"], ("ssm_inner", "embed"), (di, D))], x_split=split is not None, seq_out=seq)
     return x + whole(out, os_), (h_last, conv_tail)
 
 
-def mamba_block(cfg: ArchConfig, x, p):
+def mamba_block(cfg: ArchConfig, x, p, seq: bool = False):
     """One Mamba block (full-sequence). x (B, L, D)."""
-    return _mixer(cfg, x, p)[0]
+    return _mixer(cfg, x, p, seq)[0]
 
 
 def backbone(cfg: ArchConfig, params, tokens, extras=None):
-    """Hidden states before the LM head; each layer rematerialised by
-    ``cfg.remat`` when gradients are taken."""
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype), cfg.vocab_size)
+    """Hidden states before the LM head; each layer gathered and
+    rematerialised by ``cfg.remat`` when gradients are taken."""
+    seq = tp.seq_split(tokens.shape[1])
+    x = embed(cfg, params, tokens, seq)
     for p in layers(params["blocks"]):
-        x = remat(lambda x, p: mamba_block(cfg, x, p), x, p, policy=cfg.remat)
+        x = remat(lambda x, p: mamba_block(cfg, x, tp.fsdp(p), seq), x, p, policy=cfg.remat)
     return x
 
 
 def forward(cfg: ArchConfig, params, tokens, extras=None):
-    return _head(cfg, params, backbone(cfg, params, tokens, extras))
+    return logits(cfg, params, backbone(cfg, params, tokens, extras), tokens.shape[1])
 
 
 # ---------------------------------------------------------------------------
@@ -209,13 +214,13 @@ def mamba_decode_block(cfg: ArchConfig, x, p, layer_cache):
 def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len=None):
     """Full forward, returning the recurrent state after the last token
     (under tensor parallelism, of the rank's channels)."""
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype), cfg.vocab_size)
+    seq = tp.seq_split(tokens.shape[1])
+    x = embed(cfg, params, tokens, seq)
     states = []
     for i in range(n_stacked(params["blocks"])):
-        x, (h, conv) = _mixer(cfg, x, layer(params["blocks"], i))
+        x, (h, conv) = _mixer(cfg, x, tp.fsdp(layer(params["blocks"], i)), seq)
         states.append({"h": h, "conv": conv})
-    logits = _head(cfg, params, x[:, -1:, :])
-    return logits, {"layers": stack_layers(states)}
+    return head(cfg, params, x, seq=seq), {"layers": stack_layers(states)}
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos, extras=None):

@@ -3,8 +3,12 @@
 Counterpart of ``repro/models/transformer.py``.  Its prefill attention runs
 on the flash kernel (``models/attention.py``); its decode step is plain
 PyTorch, as in the reference.  Layers are a loop over the stacked leaves.
-The train and prefill passes take a rank's "model" shards under tensor
-parallelism (``models/layers.py``); the decode step takes whole weights.
+The train and prefill passes take a rank's shards inside a sharded step:
+each layer's gathered over the dp axes inside its ``remat`` (``tp.fsdp``),
+the embedding and the head where they are used, the "model" shards
+computed on under tensor parallelism, and under sequence parallelism the
+residual stream on the rank's slice of the sequence (``models/layers.py``);
+the decode step takes whole weights.
 """
 from __future__ import annotations
 
@@ -15,7 +19,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import apply_rope, embed_tokens, lm_logits, mlp, post_collective, remat, rms_norm
+from repro_torch.models.layers import (
+    apply_rope, embed_tokens, last_token, lm_logits, mlp, post_collective, remat, rms_norm,
+)
 from repro_torch.models.spec import ParamSpec, dense, layer, layers, stack_layers, stacked, torch_dtype
 from repro_torch.parallel import tensor as tp
 
@@ -70,18 +76,19 @@ def specs(cfg: ArchConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def self_attn_block(cfg: ArchConfig, x, p, pos, *, window=None):
+def self_attn_block(cfg: ArchConfig, x, p, pos, *, window=None, seq: bool = False):
     """Returns (x, (k, v)): the layer's output and its (k, v) cache.  The
     two branch outputs are tagged ``post_collective`` where the reference
-    tags them (``transformer.py:86,88``), for remat "collectives"."""
-    h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-    q, k, v, q_split = attn.heads_qkv(cfg, p["attn"], h)
+    tags them (``transformer.py:86,88``), for remat "collectives".  ``seq``:
+    ``x`` is the rank's slice of the sequence (``pos`` the whole's)."""
+    h = rms_norm(x, p["ln_attn"], cfg.norm_eps, seq=seq)
+    q, k, v, q_split = attn.heads_qkv(cfg, p["attn"], h, seq=seq)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     a = attn.attention(q, k, v, causal=True, window=window)
-    x = x + post_collective(attn.heads_out(cfg, a, p["attn"]["wo"], q_split), cfg.remat)
-    h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    x = x + post_collective(mlp(h, p["mlp"], cfg.d_ff, F.silu), cfg.remat)
+    x = x + post_collective(attn.heads_out(cfg, a, p["attn"]["wo"], q_split, seq=seq), cfg.remat)
+    h = rms_norm(x, p["ln_mlp"], cfg.norm_eps, seq=seq)
+    x = x + post_collective(mlp(h, p["mlp"], cfg.d_ff, F.silu, seq=seq), cfg.remat)
     return x, (k, v)
 
 
@@ -121,6 +128,12 @@ def n_stacked(tree) -> int:
     return tree.shape[0]
 
 
+def head_params(params) -> dict:
+    """The leaves the LM head reads: the final norm and the untied head, or
+    the embedding table it is tied to (for ``tp.fsdp`` to gather)."""
+    return {k: params[k] for k in ("ln_f", "lm_head" if "lm_head" in params else "embed")}
+
+
 def head_split(cfg: ArchConfig, params):
     """The LM head (D, V), untied or the embedding table's transpose, and
     its ``weight_split`` under tensor parallelism."""
@@ -131,38 +144,60 @@ def head_split(cfg: ArchConfig, params):
     return params["embed"].T, None if split is None else (1 - split[0], split[1])
 
 
-def _head(cfg: ArchConfig, params, x, *, gather: bool = True):
-    """Final norm and LM head.  Under tensor parallelism a head split on the
-    vocab gives the rank's vocab range of the logits, gathered whole unless
-    ``gather`` is False (the loss's vocab-parallel cross entropy): then
-    (logits, their vocab split or None)."""
-    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+def _head(cfg: ArchConfig, params, x, *, gather: bool = True, seq: bool = False):
+    """Final norm and LM head; ``params`` holds ``head_params``' leaves,
+    gathered.  Under tensor parallelism a head split on the vocab gives the
+    rank's vocab range of the logits, gathered whole unless ``gather`` is
+    False (the loss's vocab-parallel cross entropy): then (logits, their
+    vocab split or None).  ``seq``: ``x`` is the rank's slice of the
+    sequence, and the logits cover the whole of it."""
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps, seq=seq)
     head, split = head_split(cfg, params)
-    logits = lm_logits(x, head.to(x.dtype), split)
+    logits = lm_logits(x, head.to(x.dtype), split, seq=seq)
     vocab_split = split is not None and split[0] == 1
     if not gather:
         return logits, split if vocab_split else None
-    return tp.gather(logits, -1) if vocab_split else logits
+    return tp.gather(logits, -1, split[1]) if vocab_split else logits
+
+
+def head(cfg: ArchConfig, params, x, *, seq: bool = False):
+    """``_head`` of the last token of ``x`` (a prefill's logits), the head's
+    leaves gathered here."""
+    return _head(cfg, tp.fsdp(head_params(params)), last_token(x, seq))
 
 
 def _positions(tokens):
     return torch.arange(tokens.shape[1], device=tokens.device)[None, :]
 
 
+def embed(cfg: ArchConfig, params, tokens, seq: bool):
+    """The token embeddings (the table gathered where it is used); ``seq``:
+    the rank's slice of the sequence."""
+    return embed_tokens(tokens, tp.fsdp(params["embed"]), torch_dtype(cfg.compute_dtype), cfg.vocab_size, seq=seq)
+
+
 def backbone(cfg: ArchConfig, params, tokens, extras=None):
-    """Hidden states before the LM head; each layer rematerialised by
-    ``cfg.remat`` when gradients are taken."""
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype), cfg.vocab_size)
+    """Hidden states before the LM head (under sequence parallelism the
+    rank's slice of the sequence); each layer gathered and rematerialised
+    by ``cfg.remat`` when gradients are taken."""
+    seq = tp.seq_split(tokens.shape[1])
+    x = embed(cfg, params, tokens, seq)
     pos = _positions(tokens)
-    body = lambda x, p: self_attn_block(cfg, x, p, pos)[0]
+    body = lambda x, p: self_attn_block(cfg, x, tp.fsdp(p), pos, seq=seq)[0]
     for p in layers(params["blocks"]):
         x = remat(body, x, p, policy=cfg.remat)
     return x
 
 
+def logits(cfg: ArchConfig, params, hidden, length: int, *, gather: bool = True):
+    """``_head`` of a backbone's hidden states for a sequence of ``length``
+    (the head's leaves gathered here)."""
+    return _head(cfg, tp.fsdp(head_params(params)), hidden, gather=gather, seq=tp.seq_split(length))
+
+
 def forward(cfg: ArchConfig, params, tokens, extras=None):
     """Teacher-forced full-sequence forward -> logits (B, L, V)."""
-    return _head(cfg, params, backbone(cfg, params, tokens, extras))
+    return logits(cfg, params, backbone(cfg, params, tokens, extras), tokens.shape[1])
 
 
 def cache_specs(cfg: ArchConfig, batch: int, cache_len: int) -> dict:
@@ -187,17 +222,17 @@ def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len: Optional[in
     """
     B, L = tokens.shape
     cache_len = cache_len or L
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype), cfg.vocab_size)
+    seq = tp.seq_split(L)
+    x = embed(cfg, params, tokens, seq)
     pos = _positions(tokens)
     ks, vs = [], []
     for i in range(n_stacked(params["blocks"])):
-        x, (k, v) = self_attn_block(cfg, x, layer(params["blocks"], i), pos)
+        x, (k, v) = self_attn_block(cfg, x, tp.fsdp(layer(params["blocks"], i)), pos, seq=seq)
         if cache_len > L:
             k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, cache_len - L)) for t in (k, v))
         ks.append(k)
         vs.append(v)
-    logits = _head(cfg, params, x[:, -1:, :])
-    return logits, {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+    return head(cfg, params, x, seq=seq), {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos, extras=None):

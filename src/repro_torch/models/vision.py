@@ -13,7 +13,9 @@ reference.  The cross layer's two residuals are gated by tanh of an fp32
 scalar that starts at zero, so a fresh model's image path adds nothing
 until training opens the gates.  Under tensor parallelism the self and
 cross attentions and the MLPs split as the dense family's; the gates are
-replicated scalars applied to whole branch outputs.
+replicated scalars applied to whole branch outputs (under sequence
+parallelism to the rank's slice of the sequence, their gradients summed
+over "model").
 """
 from __future__ import annotations
 
@@ -29,6 +31,9 @@ from repro_torch.models.spec import ParamSpec, dense, layer, layers, stack_layer
 from repro_torch.models.transformer import (
     _head,
     _positions,
+    embed,
+    head,
+    logits,
     attn_specs,
     block_specs as dense_block_specs,
     mlp_specs,
@@ -36,6 +41,7 @@ from repro_torch.models.transformer import (
     self_attn_block,
     self_attn_block_decode,
 )
+from repro_torch.parallel import tensor as tp
 
 
 def xattn_block_specs(cfg: ArchConfig, dt: str) -> dict:
@@ -78,21 +84,23 @@ def _gated(x, gate, y, dtype):
     return (x + torch.tanh(gate) * y.float()).to(dtype)
 
 
-def _xattn_tail(cfg: ArchConfig, x, p, attn_out):
-    """The gated attention residual of ``attn_out`` (B, L, D) and the gated MLP."""
+def _xattn_tail(cfg: ArchConfig, x, p, attn_out, seq: bool = False):
+    """The gated attention residual of ``attn_out`` (B, L, D) and the gated
+    MLP; ``seq``: x and attn_out are the rank's slices of the sequence."""
     dtype = x.dtype
-    x = _gated(x, p["gate_attn"], attn_out, dtype)
-    h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    m = mlp(h, p["mlp"], cfg.d_ff, F.silu)
-    return _gated(x, p["gate_mlp"], m, dtype)
+    gate_attn, gate_mlp = (tp.enter(p[k]) if seq else p[k] for k in ("gate_attn", "gate_mlp"))
+    x = _gated(x, gate_attn, attn_out, dtype)
+    h = rms_norm(x, p["ln_mlp"], cfg.norm_eps, seq=seq)
+    m = mlp(h, p["mlp"], cfg.d_ff, F.silu, seq=seq)
+    return _gated(x, gate_mlp, m, dtype)
 
 
-def xattn_block(cfg: ArchConfig, x, p, img: torch.Tensor):
+def xattn_block(cfg: ArchConfig, x, p, img: torch.Tensor, seq: bool = False):
     """Gated cross attention to the image embeddings (B, n_img, D)."""
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q, k, v, q_split = attn.heads_qkv(cfg, p["cross"], h, img)
+    h = rms_norm(x, p["ln"], cfg.norm_eps, seq=seq)
+    q, k, v, q_split = attn.heads_qkv(cfg, p["cross"], h, img, seq=seq)
     a = attn.attention(q, k, v, causal=False)
-    return _xattn_tail(cfg, x, p, attn.heads_out(cfg, a, p["cross"]["wo"], q_split))
+    return _xattn_tail(cfg, x, p, attn.heads_out(cfg, a, p["cross"]["wo"], q_split, seq=seq), seq)
 
 
 def _xattn_block_cached(cfg: ArchConfig, x, p, ck, cv):
@@ -108,18 +116,20 @@ def _images(cfg: ArchConfig, extras) -> torch.Tensor:
 
 
 def backbone(cfg: ArchConfig, params, tokens, extras=None):
-    """Hidden states before the LM head: each superblock one ``remat`` by
-    ``cfg.remat``, its self layers inside it without one of their own
-    (``vision.py:105,109``).  The image embeddings go into each superblock's
-    ``remat`` as an argument."""
+    """Hidden states before the LM head: each superblock gathered and one
+    ``remat`` by ``cfg.remat``, its self layers inside it without one of
+    their own (``vision.py:105,109``).  The image embeddings go into each
+    superblock's ``remat`` as an argument."""
     img = _images(cfg, extras)
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype), cfg.vocab_size)
+    seq = tp.seq_split(tokens.shape[1])
+    x = embed(cfg, params, tokens, seq)
     pos = _positions(tokens)
 
     def super_body(x, p, img):
+        p = tp.fsdp(p)
         for q in layers(p["self"]):
-            x = self_attn_block(cfg, x, q, pos)[0]
-        return xattn_block(cfg, x, p["xattn"], img)
+            x = self_attn_block(cfg, x, q, pos, seq=seq)[0]
+        return xattn_block(cfg, x, p["xattn"], img, seq)
 
     for p in layers(params["superblocks"]):
         x = remat(super_body, x, p, img, policy=cfg.remat)
@@ -127,7 +137,7 @@ def backbone(cfg: ArchConfig, params, tokens, extras=None):
 
 
 def forward(cfg: ArchConfig, params, tokens, extras=None):
-    return _head(cfg, params, backbone(cfg, params, tokens, extras))
+    return logits(cfg, params, backbone(cfg, params, tokens, extras), tokens.shape[1])
 
 
 # ---------------------------------------------------------------------------
@@ -158,22 +168,23 @@ def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len: Optional[in
     img = _images(cfg, extras)
     B, L = tokens.shape
     cache_len = cache_len or L
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype), cfg.vocab_size)
+    seq = tp.seq_split(L)
+    x = embed(cfg, params, tokens, seq)
     pos = _positions(tokens)
     supers = []
     for i in range(n_stacked(params["superblocks"])):
-        p = layer(params["superblocks"], i)
+        p = tp.fsdp(layer(params["superblocks"], i))
         selfs = []
         for j in range(n_stacked(p["self"])):
-            x, (k, v) = self_attn_block(cfg, x, layer(p["self"], j), pos)
+            x, (k, v) = self_attn_block(cfg, x, layer(p["self"], j), pos, seq=seq)
             if cache_len > L:
                 k, v = (F.pad(t, (0, 0, 0, 0, 0, cache_len - L)) for t in (k, v))
             selfs.append({"k": k, "v": v})
-        x = xattn_block(cfg, x, p["xattn"], img)
+        x = xattn_block(cfg, x, p["xattn"], img, seq)
         sb = stack_layers(selfs)
         sb["img_k"], sb["img_v"] = attn.heads_kv(cfg, p["xattn"]["cross"], img)
         supers.append(sb)
-    return _head(cfg, params, x[:, -1:, :]), {"superblocks": stack_layers(supers)}
+    return head(cfg, params, x, seq=seq), {"superblocks": stack_layers(supers)}
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos, extras=None):

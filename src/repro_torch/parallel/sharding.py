@@ -14,14 +14,18 @@ Mesh axes (production): single-pod ("data", "model") = (16, 16); multi-pod
 ("pod", "data", "model") = (2, 16, 16).  "pod" is an outer data-parallel
 axis.  The train and serve steps (``train/step.py``) run these specs on
 ``torch.distributed``: data parallelism with FSDP parameter shards and
-ZeRO-1 optimizer shards over "data", and, in the train and prefill steps
-under "tp" and "fsdp_tp", tensor parallelism over "model": each rank
-computes on its "model" shard of every weight, with the moves of
-``parallel/tensor.py`` where the reference's GSPMD inserts collectives.  The
-decode step keeps whole weights; its one split over "model" is the
-distributed flash-decode's (``models/attention.py``).  The sequence-parallel
-strategies, "serve_2dtp", "fsdp" over "model" and tensor-parallel decode are
-ROADMAP.md, "Modules to port", item 6d.
+ZeRO-1 optimizer shards over "data", gathered a layer at a time over the dp
+axes inside the layer loop and their gradients reduce-scattered back
+(``parallel/tensor.py``, ``fsdp``), and, in the train and prefill steps
+under "tp", "fsdp_tp", "fsdp", "tp_sp" and "fsdp_tp_sp", tensor
+parallelism over "model": each rank computes on its "model" shard of every
+weight, with the moves of ``parallel/tensor.py`` where the reference's
+GSPMD inserts collectives, and under the two "_sp" strategies the residual
+stream between blocks on the rank's slice of the sequence (Megatron-LM's
+sequence parallelism).  The decode step keeps whole weights; its one split
+over "model" is the distributed flash-decode's (``models/attention.py``).
+"serve_2dtp", tensor-parallel decode and the compressed step on "model"
+are ROADMAP.md, "Modules to port", item 6d.
 """
 from __future__ import annotations
 
@@ -259,7 +263,9 @@ class _Ctx:
     mesh = None
     flash_decode: bool = False
     tensor_parallel: bool = False
+    sequence_parallel: bool = False
     param_rules: Optional[dict] = None
+    shards = None
 
 
 _CTX = _Ctx()
@@ -279,22 +285,29 @@ class activation_rules:
     for the model code under it (``current_mesh``, ``flash_decode_enabled``),
     and, with ``tensor_parallel``, its parameter rules, from which the model
     code reads each weight's "model" split (``parallel/tensor.py``,
-    ``weight_split``).  The reference installs the activation rules for
+    ``weight_split``), whether its activation rules map "seq" to "model"
+    (``sequence_parallel_enabled``), and the step's parameter shards
+    (``shards``, a ``parallel/tensor.Shards``), which ``fsdp`` gathers a
+    layer at a time.  The reference installs the activation rules for
     ``shard_x`` too; here ``shard_x`` reads none (its docstring)."""
 
-    def __init__(self, strategy: Strategy, mesh, *, tensor_parallel: bool = False):
+    def __init__(self, strategy: Strategy, mesh, *, tensor_parallel: bool = False, shards=None):
         self.mesh = mesh
         self.flash_decode = strategy.flash_decode
         self.tensor_parallel = tensor_parallel
+        self.sequence_parallel = strategy.act_rules.get("seq") == "model"
         self.param_rules = _param_rules(strategy, mesh)
+        self.shards = shards
 
     def __enter__(self):
         _CTX.mesh, _CTX.flash_decode = self.mesh, self.flash_decode
         _CTX.tensor_parallel, _CTX.param_rules = self.tensor_parallel, self.param_rules
+        _CTX.sequence_parallel, _CTX.shards = self.sequence_parallel, self.shards
         return self
 
     def __exit__(self, *exc):
         _CTX.mesh, _CTX.flash_decode, _CTX.tensor_parallel, _CTX.param_rules = None, False, False, None
+        _CTX.sequence_parallel, _CTX.shards = False, None
         return False
 
 
@@ -310,6 +323,16 @@ def tensor_parallel_enabled() -> bool:
 
 def current_param_rules() -> Optional[dict]:
     return _CTX.param_rules
+
+
+def sequence_parallel_enabled() -> bool:
+    """True inside a tensor-parallel step whose strategy maps "seq" to "model"."""
+    return tensor_parallel_enabled() and _CTX.sequence_parallel
+
+
+def current_shards():
+    """The running step's parameter shards (``parallel/tensor.Shards``), or None."""
+    return _CTX.shards
 
 
 def flash_decode_enabled() -> bool:

@@ -184,13 +184,17 @@ class _OpCounter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         outs = _tensors(out)
+        ins = _tensors((args, kwargs))
         name = func.overloadpacket.__name__
         if not func.is_view and name not in _ALLOCATIONS:
-            self.bytes += _bytes(_tensors((args, kwargs))) + _bytes(outs)
+            self.bytes += _bytes(ins) + _bytes(outs)
+        # a view or an in-place result shares an input's storage: allocated
+        # before (by the step, or the step's arguments), not here
+        shared = {t.untyped_storage()._cdata for t in ins}
         for t in outs:
             st = t.untyped_storage()
             key = st._cdata
-            if key in self._seen:
+            if key in self._seen or key in shared:
                 continue
             self._seen.add(key)
             self.live += st.nbytes()

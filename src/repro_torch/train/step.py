@@ -17,32 +17,35 @@ shard, as the reference's GSPMD program does:
     ``opt_pspec_tree`` cuts them (ZeRO-1), a serve step's cache as its
     rank's batch shard's; ``shard_tree`` and ``gather_tree`` move a tree
     between the global and the local layout;
-  * a train step gathers the parameters over the dp axes, so each rank holds
-    its "model" shard of every leaf, computes the loss and its gradients
-    with the collectives over "model" that the weights' splits imply
-    (``parallel/tensor.py``), averages the gradients over the dp ranks (an
-    all-reduce, or ``compressed_mean`` in the compressed step), and each
-    rank updates its slice of the moments and of the parameters and gathers
-    the parameters' shards back.  The gradient norm sums the squares of each
-    "model"-split leaf over "model" once and each replicated leaf once.
-
-The dp shards save memory between steps only.  During a train step every
-rank holds its "model" shards whole over the dp axes, gathered at its
-start, and their whole gradients, all-reduced whole, beside its shards: on a
-"model" axis of 1 its peak is the unsharded model's and more.  Gathering a
-layer at a time inside the layer loop and reduce-scattering the gradients to
-the shards is ROADMAP.md, "Modules to port", item 6c.
+  * a train step hands the model the rank's shards (``parallel/tensor.Shards``).
+    The model gathers each layer's over the dp axes inside the layer's
+    ``remat`` (``tp.fsdp``; the embedding and the head where they are
+    used), so a rank holds one layer's gathered weights at a time, and the
+    replay gathers them again in the backward.  Each gather's backward
+    reduce-scatters its gradient over the dp axes straight to the rank's
+    cut of the leaf's moments (ZeRO-1's, finer than the parameter's where
+    the parameter is not cut over "data") and all-reduces it over the dp
+    axes that cut none of its dims.  The step divides the gradients by the
+    dp ranks, and each rank updates its slice of the moments and of the
+    parameter, rebuilding the parameter's shard from the ranks' slices
+    where ZeRO-1 cut finer.  The gradient norm sums each leaf's squares
+    over every axis its gradient is cut on, once.  The prefill gathers a
+    layer at a time too.  The compressed step keeps each rank's whole local
+    gradients, as the reference's ``shard_map`` body does, since
+    ``compressed_mean`` reduces them itself.
 
 Tensor parallelism ("model" above 1) runs the train and prefill steps under
-"tp" and "fsdp_tp".  The other strategies on such a mesh ("fsdp",
-"tp_sp", "fsdp_tp_sp", "serve_2dtp"), the compressed step on it and a
-decode step on "model"-sharded weights raise ``NotImplementedError``
-(ROADMAP.md, "Modules to port", item 6d).  The decode step takes whole
-weights on any mesh, and under a strategy with ``flash_decode`` the
-attention splits the cache's sequence over "model" (``models/attention.py``).
-On an abstract mesh (``launch/mesh.make_production_mesh``) the steps run
-without a process group: their collectives record their bytes and return
-tensors of the right shapes (the dry run, ``launch/dryrun.py``).
+"tp", "fsdp_tp", "fsdp", "tp_sp" and "fsdp_tp_sp"; the two "_sp"
+strategies run the residual stream on the rank's slice of the sequence
+(``models/layers.py``).  "serve_2dtp" on such a mesh, the compressed step
+on it and a decode step on "model"-sharded weights raise
+``NotImplementedError`` (ROADMAP.md, "Modules to port", item 6d).  The
+decode step takes whole weights on any mesh, and under a strategy with
+``flash_decode`` the attention splits the cache's sequence over "model"
+(``models/attention.py``).  On an abstract mesh
+(``launch/mesh.make_production_mesh``) the steps run without a process
+group: their collectives record their bytes and return tensors of the
+right shapes (the dry run, ``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -55,7 +58,9 @@ import torch
 from repro_torch.models.model import Model
 from repro_torch.models.spec import tree_leaves, tree_map
 from repro_torch.optim import adamw
-from repro_torch.parallel.tensor import all_gather, all_reduce
+from repro_torch.parallel import tensor as tp
+from repro_torch.parallel.tensor import all_reduce
+from repro_torch.parallel.tensor import gather_axes as gather  # the global tensor of a rank's shard
 from repro_torch.parallel.sharding import (
     Strategy,
     activation_rules,
@@ -69,7 +74,8 @@ from repro_torch.parallel.sharding import (
 )
 
 NOT_PORTED = "{what}: not ported yet (ROADMAP.md, 'Modules to port', item 6d)"
-TP_STRATEGIES = ("tp", "fsdp_tp")  # the strategies whose "model" splits the train and prefill steps run
+# the strategies whose "model" splits the train and prefill steps run
+TP_STRATEGIES = ("tp", "fsdp_tp", "fsdp", "tp_sp", "fsdp_tp_sp")
 
 
 # ---------------------------------------------------------------------------
@@ -139,30 +145,18 @@ def shard(t: torch.Tensor, spec, mesh) -> torch.Tensor:
     return t[local_slices(t.shape, spec, mesh)].clone(memory_format=torch.contiguous_format)
 
 
-def gather(t: torch.Tensor, spec, mesh, axes=None) -> torch.Tensor:
-    """The global tensor of which ``t`` is this rank's shard under ``spec``:
-    an all_gather along each dim split over more than one rank, over the
-    dim's axes at once.  With ``axes`` only those mesh axes are gathered: a
-    rank's "model" shard from its shard over (dp, "model") when ``axes`` are
-    the dp axes, a dim split over ("data", "model") then holding the rank's
-    "model" block of each "data" block (``parallel/tensor.py``'s layout)."""
-    for d, entry in enumerate(spec):
-        names = spec_axes(entry)
-        if axes is not None:
-            names = tuple(a for a in names if a in axes)
-        t = all_gather(t, mesh, names, d)
-    return t
-
-
-def _dp_slices(shape, spec, mesh) -> tuple:
-    """This rank's slice of each dim of a tensor in the layout ``gather(...,
-    axes=<dp axes>)`` leaves: the rank's block over each dim's axes other
-    than "model", the first outermost."""
+def _dp_slices(shape, spec, mesh, cut=None) -> tuple:
+    """This rank's slice of each dim of a tensor cut over "model" (and over
+    the axes of the spec ``cut`` where given) that ``spec`` cuts over more
+    axes: the rank's block over each dim's other axes, the first
+    outermost.  The moments' slice of a gradient whole over the dp axes, or
+    (``cut`` the parameter's spec) of a parameter shard ZeRO-1 cuts finer."""
     out = []
-    for size, entry in zip(shape, spec):
+    for d, (size, entry) in enumerate(zip(shape, spec)):
+        have = ("model",) + (spec_axes(cut[d]) if cut is not None else ())
         n, idx = 1, 0
         for a in spec_axes(entry):
-            if a != "model":
+            if a not in have:
                 idx = idx * mesh.axis_size(a) + mesh.coordinate(a)
                 n *= mesh.axis_size(a)
         out.append(slice(idx * (size // n), (idx + 1) * (size // n)))
@@ -184,8 +178,8 @@ def gather_tree(tree, specs, mesh):
 
 
 def _refuse_model_parallel(mesh, strategy: Strategy, what: str, *, compressed: bool = False) -> None:
-    """Tensor parallelism runs under "tp" and "fsdp_tp" in the plain train
-    and prefill steps; anything else on a "model" axis above 1 is item 6d."""
+    """Tensor parallelism runs under TP_STRATEGIES in the plain train and
+    prefill steps; anything else on a "model" axis above 1 is item 6d."""
     n = mesh.axis_size("model")
     if n > 1 and (compressed or strategy.name not in TP_STRATEGIES):
         how = "with compressed gradients" if compressed else f"under {strategy.name!r}"
@@ -194,7 +188,8 @@ def _refuse_model_parallel(mesh, strategy: Strategy, what: str, *, compressed: b
 
 class _Layout:
     """One model's train state on a mesh: each leaf's spec as a parameter
-    and as a moment, and the dp axes its gradients are averaged over."""
+    and as a moment (and so as a gradient), and the dp axes its gradients
+    are summed over."""
 
     def __init__(self, model: Model, strategy: Strategy, mesh):
         if mesh.device_mesh is not None:
@@ -209,71 +204,69 @@ class _Layout:
         self.params = tree_leaves(pspecs)
         opt = adamw.opt_pspec_tree(specs, pspecs, strategy.zero1, mesh.axis_size("data"))
         self.moments = tree_leaves(opt["m"])
+        # stacked leaves whose moments keep the layer dim whole: updated a layer at a time
+        self.by_layer = [s.axes[:1] == ("layers",) and spec_axes(m[0]) == () for s, m in zip(tree_leaves(specs), self.moments)]
         self.param_tree = pspecs
         self.dp = dp_axes(mesh.axis_names)
         self.n_dp = math.prod(mesh.axis_size(a) for a in self.dp)
-        self.split = [mesh.axis_size("model") > 1 and "model" in (a for e in spec for a in spec_axes(e))
-                      for spec in self.params]
+        # the axes each gradient is cut on (its moment's), mesh order: a norm group
+        self.cut = [tuple(a for a in mesh.axis_names if mesh.axis_size(a) > 1 and a in {x for e in spec for x in spec_axes(e)})
+                    for spec in self.moments]
 
     def local_batch(self, batch: dict) -> dict:
         specs = batch_pspecs(batch, self.mesh, self.strategy)
         return {k: shard(v, specs[k], self.mesh) for k, v in batch.items()}
 
-    def model_shards(self, params) -> list:
-        """Each parameter gathered over the dp axes: the rank's "model"
-        shard of it (the global leaf on a "model" axis of 1), leaves in
-        ``tree_leaves`` order, detached."""
-        return [gather(p.detach(), spec, self.mesh, self.dp) for p, spec in zip(tree_leaves(params), self.params)]
+    def rules(self, shards: Optional[tp.Shards] = None):
+        return activation_rules(self.strategy, self.mesh, tensor_parallel=True, shards=shards)
 
-    def rules(self):
-        return activation_rules(self.strategy, self.mesh, tensor_parallel=True)
+    def loss_and_grads(self, model: Model, params, batch: dict, *, reduce: bool = True):
+        """(metrics of this rank's shard, gradients of its shard's loss,
+        leaves in order) with respect to the rank's shards, which the model
+        gathers a layer at a time.  The gradients come summed over the dp
+        ranks in the moments' layout, or with ``reduce`` False as this
+        rank's own, whole over the dp axes."""
+        shards = tp.Shards(self.mesh, tree_leaves(params), self.params, self.moments, reduce=reduce)
+        with self.rules(shards):  # the backward too: its moves and the remat replays read the rules
+            loss, metrics = model.loss(params, self.local_batch(batch))
+            torch.autograd.backward(loss, inputs=[shards.token])
+        return {k: v.detach() for k, v in metrics.items()}, shards.grads()
 
-    def loss_and_grads(self, model: Model, params, batch: dict):
-        """(metrics of this rank's shard, its "model" shards of the params,
-        this rank's gradients of its shard's loss, leaves in order)."""
-        full = self.model_shards(params)
-        for p in full:
-            p.requires_grad_(True)
-        tree = _unflatten_like(params, full)
-        with self.rules():  # the backward too: its moves and the remat replays read the rules
-            loss, metrics = model.loss(tree, self.local_batch(batch))
-            grads = torch.autograd.grad(loss, full, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(full, grads)]
-        return metrics, [p.detach() for p in full], grads
-
-    def grad_norm(self, params, grads: list) -> torch.Tensor:
-        """The global gradient norm: on a "model" axis of 1 ``global_norm``;
-        above it the squares of each split leaf summed over "model" once,
-        and of each replicated leaf once."""
-        if self.mesh.axis_size("model") == 1:
-            return adamw.global_norm(_unflatten_like(params, grads))
-        sq = [torch.sum(torch.square(g.float())) for g in grads]
-        split = torch.sum(torch.stack([q for q, s in zip(sq, self.split) if s] or [sq[0] * 0]))
-        whole = torch.sum(torch.stack([q for q, s in zip(sq, self.split) if not s] or [sq[0] * 0]))
-        return torch.sqrt(all_reduce(split, self.mesh, "model") + whole)
+    def grad_norm(self, grads: list) -> torch.Tensor:
+        """The global gradient norm of gradients in the moments' layout:
+        each leaf's squares summed over every axis the gradient is cut on,
+        once (on one rank ``adamw.global_norm``'s sum)."""
+        groups: dict = {}
+        for g, cut in zip(grads, self.cut):
+            groups.setdefault(cut, []).append(torch.sum(torch.square(g.float())))
+        total = [all_reduce(torch.sum(torch.stack(sq)), self.mesh, cut) for cut, sq in sorted(groups.items())]
+        return torch.sqrt(total[0] if len(total) == 1 else torch.sum(torch.stack(total)))
 
     @torch.no_grad()
-    def update(self, opt_cfg: adamw.AdamWConfig, params, full: list, grads: list, opt_state):
+    def update(self, opt_cfg: adamw.AdamWConfig, params, grads: list, opt_state):
         """AdamW on every rank's slices: the global norm from the averaged
-        gradients, each moment's slice updated with the matching slice of
-        the gradient and the parameter, and the parameter's shard rebuilt
-        from the ranks' slices (ZeRO-1).  ``full`` and ``grads`` are the
-        rank's "model" shards, whole over the dp axes."""
+        gradients (``grads``, in the moments' layout), each moment's slice
+        updated with its gradient and the matching slice of the parameter's
+        shard, and the shard rebuilt from the ranks' slices where ZeRO-1
+        cut the moments finer.  A stacked leaf is updated a layer at a time
+        (the update is elementwise: the same numbers), so its fp32
+        temporaries are one layer's."""
         step = opt_state["step"] + 1
-        gnorm = self.grad_norm(params, grads)
+        gnorm = self.grad_norm(grads)
         scale, lr, b1c, b2c = adamw.step_scalars(opt_cfg, step, gnorm)
-        leaves = zip(tree_leaves(params), full, grads, tree_leaves(opt_state["m"]), tree_leaves(opt_state["v"]),
-                     self.params, self.moments)
-        for p, p_full, g, m, v, pspec, mspec in leaves:
-            sl = _dp_slices(p_full.shape, mspec, self.mesh)
-            if pspec == mspec:
-                adamw.update_leaf(opt_cfg, p, g[sl], m, v, scale, lr, b1c, b2c)
-                continue
-            # ZeRO-1 cut the moments finer than the parameter: update this
-            # rank's slice, then gather the parameter's shard over "data"
-            piece = p_full[sl].clone()
-            adamw.update_leaf(opt_cfg, piece, g[sl], m, v, scale, lr, b1c, b2c)
-            p.copy_(gather(piece, tuple(None if pe == me else me for pe, me in zip(pspec, mspec)), self.mesh))
+        leaves = zip(tree_leaves(params), grads, tree_leaves(opt_state["m"]), tree_leaves(opt_state["v"]),
+                     self.params, self.moments, self.by_layer)
+        for p, g, m, v, pspec, mspec, by_layer in leaves:
+            parts = zip(p, g, m, v) if by_layer else [(p, g, m, v)]
+            if by_layer:
+                pspec, mspec = pspec[1:], mspec[1:]
+            for p, g, m, v in parts:
+                if pspec == mspec:
+                    adamw.update_leaf(opt_cfg, p, g, m, v, scale, lr, b1c, b2c)
+                    continue
+                piece = p[_dp_slices(p.shape, mspec, self.mesh, cut=pspec)].clone()
+                adamw.update_leaf(opt_cfg, piece, g, m, v, scale, lr, b1c, b2c)
+                p.copy_(gather(piece, tuple(None if pe == me else me for pe, me in zip(pspec, mspec)), self.mesh))
         opt_state["step"] = step
         return params, opt_state, {"grad_norm": gnorm, "lr": lr}
 
@@ -328,10 +321,10 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig, *, strategy: Optio
 
 def _sharded_train_step(model: Model, opt_cfg: adamw.AdamWConfig, layout: _Layout):
     def train_step(params, opt_state, batch):
-        metrics, full, grads = layout.loss_and_grads(model, params, batch)
-        for g in grads:  # the mean over the dp ranks, in place
-            all_reduce(g, layout.mesh, layout.dp).div_(layout.n_dp)
-        params, opt_state, opt_metrics = layout.update(opt_cfg, params, full, grads, opt_state)
+        metrics, grads = layout.loss_and_grads(model, params, batch)
+        for g in grads:  # summed over the dp ranks: their mean, in place
+            g.div_(layout.n_dp)
+        params, opt_state, opt_metrics = layout.update(opt_cfg, params, grads, opt_state)
         return params, opt_state, {**layout.mean_metrics(metrics), **opt_metrics}
 
     return train_step
@@ -348,7 +341,10 @@ def make_compressed_train_step(model: Model, opt_cfg: adamw.AdamWConfig, *, stra
     params' global shapes over the dp ranks, and carries the error feedback
     between steps; it is updated in place, as AdamW's state is.  The metrics are averaged over the dp ranks, as the
     reference's ``pmean`` averages them.  Without a mesh, a world of one:
-    the gradients are quantized and no collective runs."""
+    the gradients are quantized and no collective runs.  Each rank keeps
+    its whole local gradients (``loss_and_grads(reduce=False)``), as the
+    reference's ``shard_map`` body does: ``compressed_mean`` takes them
+    whole, and the step then updates the rank's slices of its mean."""
     from repro_torch.launch.mesh import Mesh
     from repro_torch.optim.compression import compressed_mean
 
@@ -357,12 +353,13 @@ def make_compressed_train_step(model: Model, opt_cfg: adamw.AdamWConfig, *, stra
     dp = layout.mesh.group("data")
 
     def train_step(params, opt_state, comp_state, batch):
-        metrics, full, grads = layout.loss_and_grads(model, params, batch)
+        metrics, grads = layout.loss_and_grads(model, params, batch, reduce=False)
         for i, st in enumerate(_state_leaves(comp_state)):
-            grads[i], new = compressed_mean(grads[i], st, dp)
+            mean, new = compressed_mean(grads[i], st, dp)
+            grads[i] = mean[_dp_slices(mean.shape, layout.moments[i], layout.mesh)]
             for k, t in new.items():  # in place: two copies of the error states would not fit beside the model
                 st[k].copy_(t)
-        params, opt_state, opt_metrics = layout.update(opt_cfg, params, full, grads, opt_state)
+        params, opt_state, opt_metrics = layout.update(opt_cfg, params, grads, opt_state)
         return params, opt_state, comp_state, {**layout.mean_metrics(metrics, sum_keys=()), **opt_metrics}
 
     return train_step
@@ -393,7 +390,8 @@ def metrics_struct(model: Model) -> dict:
 def make_prefill_step(model: Model, cache_len: int, *, strategy: Optional[Strategy] = None, mesh=None):
     """(params, batch) -> (last-token logits, cache), without gradients.
     With a mesh: ``params`` are this rank's shards (``param_pspec_tree``),
-    gathered over the dp axes into its "model" shards; the rank computes on
+    gathered over the dp axes into its "model" shards a layer at a time
+    (``tp.fsdp``); the rank computes on
     its shard of the batch under tensor parallelism; the logits come back
     global, the cache as this rank computed it: its batch shard, and of the
     heads and channels that its weights split over "model", its own."""
@@ -408,10 +406,9 @@ def make_prefill_step(model: Model, cache_len: int, *, strategy: Optional[Strate
 
     def sharded_prefill_step(params, batch):
         specs = batch_pspecs(batch, mesh, layout.strategy)
-        with torch.no_grad():
-            local = _unflatten_like(params, layout.model_shards(params))
-            with layout.rules():
-                logits, cache = model.prefill(local, layout.local_batch(batch), cache_len=cache_len)
+        shards = tp.Shards(mesh, tree_leaves(params), layout.params)
+        with torch.no_grad(), layout.rules(shards):
+            logits, cache = model.prefill(params, layout.local_batch(batch), cache_len=cache_len)
         return gather(logits, specs["tokens"], mesh), cache
 
     return sharded_prefill_step

@@ -160,9 +160,13 @@ def decode_worker(rank: int, world: int, payload: str, model_parallel: int) -> d
 
 def linear_loss(params, batch: dict):
     """sum(p * G) over the leaves, G the batch's ``g*`` leaves in the
-    leaves' order, one row a rank: the gradient is the rank's G exactly."""
+    leaves' order, one row a rank: the gradient is the rank's G exactly.
+    The leaves are gathered where they are used (``tp.fsdp``), as the
+    models gather theirs."""
     from repro_torch.models.spec import tree_leaves
+    from repro_torch.parallel import tensor as tp
 
+    params = tp.fsdp(params)
     gs = [batch[k] for k in sorted(batch)]
     loss = sum((p * g[0]).sum() for p, g in zip(tree_leaves(params), gs))
     return loss, {"ce": loss, "tokens": torch.tensor(float(gs[0].shape[0])), "loss": loss}
@@ -217,27 +221,11 @@ def driver_worker(rank: int, world: int, ckpt_dir: str) -> dict:
     return {"losses": first["losses"], "resumed_losses": resumed["losses"], "resumed_steps": resumed["steps"]}
 
 
-def gather_model(t: torch.Tensor, spec, mesh) -> torch.Tensor:
-    """The global tensor of a rank's "model" shard, whole over the dp axes
-    (the layout ``train/step.py`` computes on): each dim split over "model"
-    gathered in its ``(outer, m, rest)`` layout."""
-    import math
-
-    from repro_torch.parallel import tensor as tp
-    from repro_torch.parallel.sharding import spec_axes
-
-    for d, entry in enumerate(spec):
-        names = spec_axes(entry)
-        if "model" in names and mesh.axis_size("model") > 1:
-            outer = math.prod(mesh.axis_size(a) for a in names[: names.index("model")])
-            t = tp.all_gather(t, mesh, "model", d, outer)
-    return t
-
-
 def tp_worker(rank: int, world: int, model_parallel: int, payload: str) -> dict:
     """Each payload case on a (world / model_parallel, model_parallel) mesh
-    under its strategy: the gradients of the first batch's loss (averaged
-    over the dp ranks and gathered whole), the metrics of a train step a
+    under its strategy: the gradients of the first batch's loss (as the
+    first train step collects them, averaged over the dp ranks and gathered
+    whole), the metrics of a train step a
     batch, the gathered params and v after them, and the prefill's logits
     from the initial state.  Rank 0 returns them by case, with the shards
     whose shape is not their spec's and the collective bytes of a step."""
@@ -270,18 +258,28 @@ def tp_worker(rank: int, world: int, model_parallel: int, payload: str) -> dict:
                  if tuple(t.shape) != local_shape(s.shape, spec, mesh)]
         prefill = {k: v for k, v in batches[0].items() if k != "labels"}
         logits, _ = step_lib.make_prefill_step(model, prefill["tokens"].shape[1], strategy=strategy, mesh=mesh)(params, prefill)
-        layout = step_lib._layout(model, strategy, mesh, "a train step")
-        _, _, grads = layout.loss_and_grads(model, params, batches[0])
-        grads = [gather_model(tp.all_reduce(g, mesh, "data") / mesh.axis_size("data"), spec, mesh)
-                 for g, spec in zip(grads, layout.params)]
         fn = step_lib.make_train_step(model, adamw.AdamWConfig(**data["opt_cfg"]), strategy=strategy, mesh=mesh)
-        steps = []
-        for batch in batches:
-            tp.COLLECTIVES.reset()
-            params, opt, metrics = fn(params, opt, batch)
-            steps.append({"metrics": {k: float(t) for k, t in metrics.items()},
-                          "v": step_lib.gather_tree(opt["v"], sh.opt["v"], mesh),
-                          "collectives": dict(tp.COLLECTIVES.bytes_by_op)})
+        steps, first = [], []
+        collect = tp.Shards.grads
+
+        def grads_kept(shards):  # the first step's gradients, as the step collects them
+            out = collect(shards)
+            if not first:
+                first.extend(g.clone() for g in out)
+            return out
+
+        tp.Shards.grads = grads_kept
+        try:
+            for batch in batches:
+                tp.COLLECTIVES.reset()
+                params, opt, metrics = fn(params, opt, batch)
+                steps.append({"metrics": {k: float(t) for k, t in metrics.items()},
+                              "v": step_lib.gather_tree(opt["v"], sh.opt["v"], mesh),
+                              "collectives": dict(tp.COLLECTIVES.bytes_by_op)})
+        finally:
+            tp.Shards.grads = collect
+        n_dp = mesh.axis_size("data")
+        grads = [step_lib.gather(g / n_dp, spec, mesh) for g, spec in zip(first, tree_leaves(sh.opt["m"]))]
         full = step_lib.gather_tree(params, sh.params, mesh)
         out[key] = {"wrong_shapes": wrong, "logits": logits, "grads": grads, "steps": steps, "params": full}
     return out if rank == 0 else {}
@@ -295,3 +293,66 @@ def tp_driver_worker(rank: int, world: int, model_parallel: int) -> dict:
     out = train("llama3-8b", steps=2, seq_len=16, global_batch=4, log_every=0, device="cpu", strategy_name="tp",
                 model_parallel=model_parallel)
     return {"losses": out["losses"], "grad_norms": out["grad_norms"]}
+
+
+def moves_worker(rank: int, world: int, model_parallel: int) -> dict:
+    """The moves of ``parallel/tensor.py`` on a (world / model_parallel,
+    model_parallel) mesh against what they mean, from tensors every rank
+    draws for every rank: ``reduce_scatter`` over "model", over ("data",
+    "model") and in an (outer, n, rest) layout against the ranks' sum's
+    block; ``seq_enter`` and ``seq_leave``, forward and backward; and a
+    leaf split over ("data", "model") gathered by ``fsdp`` with its
+    gradient collected in the moments' layout (cut over "data" on another
+    dim).  Returns the largest error of each."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel import tensor as tp
+
+    mesh = make_local_mesh(world, model_parallel)
+    d, m = mesh.axis_size("data"), mesh.axis_size("model")
+    dc, mc = mesh.coordinate("data"), mesh.coordinate("model")
+    draw = lambda r, shape: torch.randn(shape, generator=torch.Generator().manual_seed(r), dtype=torch.float64)
+    xs = [draw(r, (3, 8 * world, 5)) for r in range(world)]
+    total = sum(xs)
+    mine = xs[rank]
+    errs = {}
+    model_ranks = [dc * m + j for j in range(m)]  # this rank's "model" group, in coordinate order
+    model_sum = sum(xs[r] for r in model_ranks)
+    errs["reduce_scatter_model"] = float((tp.reduce_scatter(mine, mesh, "model", 1) - tp.rank_slice(model_sum, m, mc, 1)).abs().max())
+    got = tp.reduce_scatter(mine, mesh, "model", 1, outer=2)
+    errs["reduce_scatter_outer"] = float((got - tp.rank_slice(model_sum, m, mc, 1, outer=2)).abs().max())
+    got = tp.reduce_scatter(mine, mesh, ("data", "model"), 1)
+    errs["reduce_scatter_both"] = float((got - tp.rank_slice(total, world, dc * m + mc, 1)).abs().max())
+    errs["all_gather_inverts"] = float((tp.all_gather(tp.rank_slice(mine, m, mc, 1), mesh, "model", 1)
+                                        - torch.cat([tp.rank_slice(xs[r], m, j, 1) for j, r in enumerate(model_ranks)], 1)
+                                        ).abs().max())
+    # sequence moves in a tensor-parallel step of "tp_sp": enter gathers, leave sums and cuts
+    with sh.activation_rules(sh.STRATEGIES["tp_sp"], mesh, tensor_parallel=True):
+        x = tp.rank_slice(mine, m, mc, 1).clone().requires_grad_(True)
+        y = tp.seq_enter(x)
+        want_y = torch.cat([tp.rank_slice(xs[r], m, j, 1) for j, r in enumerate(model_ranks)], 1)
+        errs["seq_enter"] = float((y - want_y).abs().max())
+        z = tp.seq_leave(y * (mc + 1))
+        want_z = tp.rank_slice(sum(want_y * (j + 1) for j in range(m)), m, mc, 1)
+        errs["seq_leave"] = float((z - want_z).abs().max())
+        g = draw(100 + rank, z.shape)
+        z.backward(g)
+        gs = [draw(100 + r, z.shape) for r in model_ranks]
+        # d/dx: the leave's gradient gathered, times each rank's factor, summed over the ranks and cut
+        want_gx = tp.rank_slice(sum(torch.cat(gs, 1) * (j + 1) for j in range(m)), m, mc, 1)
+        errs["seq_backward"] = float((x.grad - want_gx).abs().max())
+    # fsdp: a (8 world, 6) leaf over ("data", "model") on dim 0, its moments cut the same
+    W = draw(7, (8 * world, 6))
+    spec = (("data", "model"), None)
+    shard = W[tuple(slice(*s) for s in [((dc * m + mc) * 8, (dc * m + mc + 1) * 8), (0, 6)])].clone()
+    shards = tp.Shards(mesh, [shard], [spec], [spec])
+    with sh.activation_rules(sh.STRATEGIES["fsdp"], mesh, tensor_parallel=True, shards=shards):
+        w = tp.fsdp({"w": shard})["w"]
+        want_w = torch.cat([W[(j * m + mc) * 8:(j * m + mc + 1) * 8] for j in range(d)])
+        errs["fsdp_gather"] = float((w - want_w).abs().max())
+        G = [draw(200 + r, w.shape) for r in range(world)]
+        (w * G[rank]).sum().backward(inputs=[shards.token])
+    [grad] = shards.grads()
+    data_sum = sum(G[j * m + mc] for j in range(d))  # the gradient of this rank's "model" part, over "data"
+    errs["fsdp_grad"] = float((grad - data_sum[dc * 8:(dc + 1) * 8]).abs().max())
+    return errs

@@ -18,6 +18,9 @@
     layer dim where that dim is the largest one that "data" divides, so
     which leaves gather their update depends on the depth, and the dp
     collectives are not linear in it (in the reference too);
+  * a layer at a time: on an abstract (4, 1) mesh each depth unit adds to
+    the peak temp only its gradient's ZeRO-1 cut and its saved input, under
+    "tp" and "fsdp_tp";
   * ``main`` on one cell writing a record with the reference's keys.
 
 No process group starts and nothing runs on a device: the cells run on meta
@@ -184,6 +187,51 @@ def test_depth_units_one_and_two_extrapolate_to_the_full_depth_count(name):
     assert max(errs.values()) <= EXTRAPOLATION_REL, errs
 
 
+# ---------------------------------------------------------------------------
+# A layer at a time: the temp a depth unit adds (ROADMAP.md item 6c)
+# ---------------------------------------------------------------------------
+
+LAYERWISE_MESH = Mesh(("data", "model"), (4, 1))
+LAYERWISE_REL = 1e-2
+
+
+def temp_growth(strategy: str, units: tuple = (2, 3, 4)) -> tuple[list, dict]:
+    """The mini dense cell's peak temp at each depth in ``units`` (remat
+    "full": a layer keeps its input alone) on the abstract (4, 1) mesh, and
+    what a unit must add when a rank holds one layer's gathered weights at
+    a time and each gradient only as its ZeRO-1 cut: the unit's gradient
+    bytes over the four dp ranks plus its saved input (the rank's (B / 4,
+    L, D) activations)."""
+    import math
+
+    from repro_torch.models.model import Model
+    from repro_torch.models.spec import torch_dtype, tree_leaves
+
+    temps = []
+    for n in units:
+        arch = _mini_arch("llama3-8b").replace(remat="full", n_layers=n)
+        fn, args, meta = dryrun.build_cell(arch, MINI_SHAPE, LAYERWISE_MESH, strategy)
+        temps.append(dryrun.run_counted(fn, args, meta)[0].peak_temp_bytes)
+    cfg = _mini_arch("llama3-8b").replace(n_layers=1)
+    unit = sum(math.prod(s.shape) * torch_dtype(s.dtype).itemsize for s in tree_leaves(Model(cfg).specs()["blocks"]))
+    act = MINI_SHAPE.global_batch // 4 * MINI_SHAPE.seq_len * cfg.d_model * torch_dtype(cfg.compute_dtype).itemsize
+    return temps, {"unit_param_bytes": unit, "want": unit / 4 + act}
+
+
+@pytest.mark.parametrize("strategy", ["tp", "fsdp_tp"])
+def test_a_depth_unit_adds_its_gradient_cut_and_saved_input_alone(strategy):
+    """Each depth unit past the second adds to a rank's peak temp its
+    gradient's ZeRO-1 cut (a quarter on four dp ranks) and its saved input,
+    within 1% of the unit's parameter bytes: no gathered weight and no
+    whole gradient is held past its layer.  Gathered for the whole step,
+    as before the per-layer gather, a unit added its parameters and its
+    whole gradient under "fsdp_tp" ((1 - 1/4) of them more than here,
+    and its parameters again) and its whole gradient under "tp"."""
+    temps, want = temp_growth(strategy)
+    for a, b in zip(temps, temps[1:]):
+        assert abs((b - a) - want["want"]) <= LAYERWISE_REL * want["unit_param_bytes"], (temps, want)
+
+
 def test_main_writes_a_record_with_the_reference_keys(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(dryrun, "ARTIFACT_DIR", str(tmp_path))
     monkeypatch.setattr(sys, "argv", ["dryrun", "--arch", "seamless-m4t-medium", "--shape", "decode_32k"])
@@ -204,3 +252,5 @@ if __name__ == "__main__":
         print("mini", n, mini_port(n), "reference", mini_reference()[n])
     for n, u in sorted(EXTRAPOLATION_CASES.items()):
         print("extrapolation", n, extrapolation_errors(n, u))
+    for s in ("tp", "fsdp_tp"):
+        print("temp by depth", s, temp_growth(s))

@@ -188,20 +188,19 @@ def test_meshes_and_the_context():
 
 
 def test_model_parallel_train_and_prefill_steps_are_refused():
-    """On a "model" axis above 1 the train and prefill steps run "tp" and
-    "fsdp_tp" (tests/test_torch_tensor_parallel.py); the other strategies,
-    the compressed step and a decode step on "model"-sharded weights are
-    item 6d."""
+    """On a "model" axis above 1 the train and prefill steps run "tp",
+    "fsdp_tp", "fsdp", "tp_sp" and "fsdp_tp_sp"
+    (tests/test_torch_tensor_parallel.py); "serve_2dtp", the compressed step
+    and a decode step on "model"-sharded weights are item 6d."""
     model = Model(get_arch("llama3-8b").reduced())
     mesh = tmesh.Mesh(("data", "model"), (1, 2))
-    for name in ("tp_sp", "fsdp_tp_sp", "serve_2dtp", "fsdp"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 6d"):
-            tstep.make_train_step(model, adamw.AdamWConfig(), strategy=sh.STRATEGIES[name], mesh=mesh)
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 6d"):
-            tstep.make_prefill_step(model, 8, strategy=sh.STRATEGIES[name], mesh=mesh)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 6d"):
+        tstep.make_train_step(model, adamw.AdamWConfig(), strategy=sh.STRATEGIES["serve_2dtp"], mesh=mesh)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 6d"):
+        tstep.make_prefill_step(model, 8, strategy=sh.STRATEGIES["serve_2dtp"], mesh=mesh)
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 6d"):
         tstep.make_compressed_train_step(model, adamw.AdamWConfig(), mesh=mesh)
-    for name in ("tp", "fsdp_tp"):  # tensor parallelism: built
+    for name in ("tp", "fsdp_tp", "fsdp", "tp_sp", "fsdp_tp_sp"):  # tensor parallelism: built
         tstep.make_train_step(model, adamw.AdamWConfig(), strategy=sh.STRATEGIES[name], mesh=mesh)
         tstep.make_prefill_step(model, 8, strategy=sh.STRATEGIES[name], mesh=mesh)
     decode = tstep.make_decode_step(model, mesh=mesh)  # whole weights: runs

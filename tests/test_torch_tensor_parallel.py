@@ -1,9 +1,13 @@
-"""Tensor parallelism over "model" held against one rank and the reference, on the CPU.
+"""Tensor and sequence parallelism over "model", and the per-layer gather
+over the dp axes, held against one rank and the reference, on the CPU.
 
-The port's train and prefill steps under "tp" and "fsdp_tp" on gloo meshes
-of (1, 2), (2, 2) and (1, 4) ranks (``tests/_torch_dist.py``, ``tp_worker``),
-for reduced configs of all six families, with widths that hit every split
-and spill the rules make (``test_widths_hit_every_split_and_spill``):
+The port's train and prefill steps under "tp", "fsdp_tp", "fsdp", "tp_sp"
+and "fsdp_tp_sp" on gloo meshes of (1, 2), (2, 2) and (1, 4) ranks, and
+under "tp" and "fsdp_tp" on (2, 1) and (4, 1) ranks, where the dp shards
+alone are gathered a layer at a time and the gradients reduce-scattered
+(``tests/_torch_dist.py``, ``tp_worker``), for reduced configs of all six
+families, with widths that hit every split and spill the rules make
+(``test_widths_hit_every_split_and_spill``):
 
   * a KV head count that "model" does not divide (row-parallel ``wk`` and
     ``wv``, whole K and V, each rank's query heads mapped to their KV heads);
@@ -14,8 +18,12 @@ and spill the rules make (``test_widths_hit_every_split_and_spill``):
     row-parallel head);
   * the moe experts split over "model" (arctic under the plain "tp") and
     each expert's FFN split inside (grok-1's default override);
+  * under "fsdp" the heads, experts, vocab and channels split over
+    ("data", "model"), a rank's part in blocks on (2, 2);
   * and, on a (1, 3) mesh, the RG-LRU gate blocks straddled by a rank's
-    channels (48 channels in 16 blocks of 3: 16 channels a rank).
+    channels (48 channels in 16 blocks of 3: 16 channels a rank), and a
+    sequence of 16 that "model" does not divide, where the "_sp"
+    strategies keep "tp"'s moves.
 
 From the same initial state and batches as the port's one-rank step: the
 gradients of the first batch's loss, every leaf within 1e-5 of its largest
@@ -31,13 +39,13 @@ reference (AdamW's update is the gradient over its own magnitude, so an
 element's gradient off by 1e-6 of its leaf's largest one moves it by 1e-3 lr
 where it is 1e-3 of that largest), with at most 5e-2 of the elements ill
 conditioned; the prefill's logits within 1e-4 of the largest.  The reference's train step on an XLA host mesh of the same
-shape, from the same state, gives the same two steps' metrics within 1e-4
-relative (``test_torch_train.compare_train_steps``' bound), checked against
-the one-rank port and the sharded one: each family on one of its meshes
-(``REF_CASES``), every shape among them, in a subprocess that runs beside
-the gloo worlds.  Each world runs its cases in one
-spawn under a timeout (``RANKS_TIMEOUT``).  The measured errors print when
-this file runs as a script:
+shape and strategy, from the same state, gives the same two steps' metrics
+within 1e-4 relative (``test_torch_train.compare_train_steps``' bound),
+checked against the one-rank port and the sharded one: each family under
+each strategy on one of its meshes (``REF_CASES``), every shape among them,
+in a subprocess that runs beside the gloo worlds.  Each world runs its cases
+in one spawn under a timeout (``RANKS_TIMEOUT``).  The measured errors print
+when this file runs as a script:
 
     PYTHONPATH=src python tests/test_torch_tensor_parallel.py
 """
@@ -65,13 +73,16 @@ from repro_torch.parallel import tensor as tp
 from repro_torch.train import step as tstep
 
 import test_torch_sharding as tsharding
-from _torch_dist import run_ranks, tp_driver_worker, tp_worker
+from _torch_dist import moves_worker, run_ranks, tp_driver_worker, tp_worker
 
 torch.set_num_threads(1)
 
 MESHES = [(1, 2), (2, 2), (1, 4)]  # ("data", "model")
+DP_MESHES = [(2, 1), (4, 1)]  # the dp shards alone, a layer at a time
 STRADDLE_MESH = (1, 3)
-STRATEGIES = ("tp", "fsdp_tp")
+STRATEGIES = ("tp", "fsdp_tp", "fsdp", "tp_sp", "fsdp_tp_sp")
+DP_STRATEGIES = ("tp", "fsdp_tp")
+SP_STRATEGIES = ("tp_sp", "fsdp_tp_sp")
 # family -> (arch, reduced widths, strategy overrides)
 FAMILIES = {
     "dense": ("llama3-8b", dict(n_heads=6, n_kv_heads=3, vocab_size=256), {}),
@@ -83,6 +94,7 @@ FAMILIES = {
     "vlm": ("llama-3.2-vision-11b", dict(n_heads=4, n_kv_heads=2, vocab_size=251), {}),
 }
 STRADDLE = ("recurrentgemma-2b", dict(rnn_width=48, n_heads=4, n_kv_heads=1, vocab_size=255), {})
+REMAT_NONE = ("llama3-8b", dict(FAMILIES["dense"][1], remat="none"), {})
 DATA = dict(seq_len=16, global_batch=4, steps=2)
 OPT = dict(warmup_steps=1, peak_lr=1e-3)
 TP_REL = 1e-5  # gradients and metrics against one rank (fp32)
@@ -91,6 +103,25 @@ ILL_SHARE = 5e-2
 PREFILL_REL = 1e-4
 REF_REL = 1e-4  # metrics against the reference's host-mesh step
 RANKS_TIMEOUT = 300  # seconds, a world of ranks running every case
+
+
+def _strategies(mesh: tuple) -> tuple:
+    return DP_STRATEGIES if mesh in DP_MESHES else STRATEGIES
+
+
+def _families(mesh: tuple) -> dict:
+    """The families a world runs: on the (1, 3) mesh the straddled gate
+    blocks and the dense family at a sequence "model" does not divide; on
+    the dp meshes the dense family under remat "none" too."""
+    if mesh == STRADDLE_MESH:
+        return {"hybrid_straddle": STRADDLE, "dense_nondiv": FAMILIES["dense"]}
+    return {**FAMILIES, "dense_remat_none": REMAT_NONE} if mesh in DP_MESHES else FAMILIES
+
+
+def _family(family: str) -> tuple:
+    if family in ("hybrid_straddle", "dense_remat_none"):
+        return {"hybrid_straddle": STRADDLE, "dense_remat_none": REMAT_NONE}[family]
+    return FAMILIES[family.removesuffix("_nondiv")]
 
 
 def _case_id(mesh, family, strategy) -> str:
@@ -165,11 +196,11 @@ def ulp_noise(model: Model, params, batch: dict, grads: list) -> float:
     return max(_leaf_rel(m, g) for m, g in zip(moved, grads) if m is not None)
 
 
-def _cases(families: dict) -> dict:
+def _cases(families: dict, strategies: tuple) -> dict:
     cases = {}
     for family, (arch, cut, overrides) in families.items():
         base = one_rank(arch, cut)
-        for sname in STRATEGIES:
+        for sname in strategies:
             cases[(family, sname)] = {"arch": arch, "cut": cut, "strategy": (sname, overrides),
                                       "params": base["params0"], "opt": base["opt0"], "batches": base["batches"]}
     return cases
@@ -182,10 +213,9 @@ def tp_run(mesh: tuple, tmp_path_factory) -> dict:
     """Every family and strategy on one gloo world of ``mesh`` (one spawn)."""
     _start_reference(tmp_path_factory)
     if mesh not in _RUNS:
-        families = {"hybrid_straddle": STRADDLE} if mesh == STRADDLE_MESH else FAMILIES
         tmp = tmp_path_factory.mktemp(f"tp{'x'.join(map(str, mesh))}")
         payload = os.path.join(tmp, "payload.pt")
-        torch.save({"cases": _cases(families), "opt_cfg": OPT}, payload)
+        torch.save({"cases": _cases(_families(mesh), _strategies(mesh)), "opt_cfg": OPT}, payload)
         world = mesh[0] * mesh[1]
         _RUNS[mesh] = run_ranks(tp_worker, world, tmp, RANKS_TIMEOUT, (mesh[1], payload))[0]
     return _RUNS[mesh]
@@ -197,7 +227,7 @@ def _leaf_rel(got, want) -> float:
 
 def compare(mesh: tuple, family: str, strategy: str, tmp_path_factory) -> dict:
     """The sharded run's errors against the one-rank port's."""
-    arch, cut, _ = STRADDLE if family == "hybrid_straddle" else FAMILIES[family]
+    arch, cut, _ = _family(family)
     got, want = tp_run(mesh, tmp_path_factory)[(family, strategy)], one_rank(arch, cut)
     errs = {"wrong_shapes": got["wrong_shapes"]}
     errs["grads"] = max(_leaf_rel(g, w) for g, w in zip(got["grads"], want["grads"]))
@@ -220,12 +250,27 @@ def compare(mesh: tuple, family: str, strategy: str, tmp_path_factory) -> dict:
     return errs
 
 
-def _check(errs: dict) -> None:
+def _check(errs: dict, mesh: tuple = (1, 2), strategy: str = "tp") -> None:
     assert errs["wrong_shapes"] == [], errs["wrong_shapes"]
     assert errs["grads"] <= errs["grad_bound"] and errs["metrics"] <= TP_REL, errs
     assert errs["params_over_lr"] <= PARAMS_OVER_LR and errs["ill_share"] <= ILL_SHARE, errs
     assert errs["prefill"] <= PREFILL_REL, errs
     assert errs["collectives"].get("all-reduce", 0) > 0, errs  # the "model" moves ran
+    # reduce-scatters: the gradients' over the dp axes, the sequence's over "model"
+    # where a block's last product is row-parallel, and no other
+    scattered = errs["collectives"].get("reduce-scatter", 0) > 0
+    seq_cut = strategy in SP_STRATEGIES and mesh[1] > 1 and DATA["seq_len"] % mesh[1] == 0
+    assert scattered if mesh[0] > 1 else (scattered <= seq_cut), errs["collectives"]
+
+
+def test_sequence_parallelism_trades_all_reduces_for_reduce_scatters(tmp_path_factory):
+    """The dense family on (1, 2): under "tp_sp" the block outputs leave
+    through reduce-scatters and enter through all-gathers, and the
+    all-reduce bytes of a step fall below "tp"'s."""
+    tp_bytes = tp_run((1, 2), tmp_path_factory)[("dense", "tp")]["steps"][0]["collectives"]
+    sp_bytes = tp_run((1, 2), tmp_path_factory)[("dense", "tp_sp")]["steps"][0]["collectives"]
+    assert "reduce-scatter" not in tp_bytes and sp_bytes["reduce-scatter"] > 0, (tp_bytes, sp_bytes)
+    assert sp_bytes["all-reduce"] < tp_bytes["all-reduce"], (tp_bytes, sp_bytes)
 
 
 # ---------------------------------------------------------------------------
@@ -284,12 +329,12 @@ def test_widths_hit_every_split_and_spill():
 # Sharded against one rank
 # ---------------------------------------------------------------------------
 
-TP_CASES = [(mesh, family, s) for mesh in MESHES for family in FAMILIES for s in STRATEGIES]
+TP_CASES = [(mesh, family, s) for mesh in MESHES + DP_MESHES for family in FAMILIES for s in _strategies(mesh)]
 
 
 @pytest.mark.parametrize("mesh,family,strategy", TP_CASES, ids=[_case_id(*c) for c in TP_CASES])
 def test_tensor_parallel_steps_match_one_rank(mesh, family, strategy, tmp_path_factory):
-    _check(compare(mesh, family, strategy, tmp_path_factory))
+    _check(compare(mesh, family, strategy, tmp_path_factory), mesh, strategy)
 
 
 @pytest.mark.parametrize("strategy", STRATEGIES)
@@ -299,7 +344,29 @@ def test_rglru_gate_blocks_straddled_by_a_rank_match_one_rank(strategy, tmp_path
     nb = rglru._gate_blocks(cfg)
     per_rank, bd = cfg.rnn_dim // STRADDLE_MESH[1], cfg.rnn_dim // nb
     assert per_rank % bd and nb % STRADDLE_MESH[1], (per_rank, bd, nb)
-    _check(compare(STRADDLE_MESH, "hybrid_straddle", strategy, tmp_path_factory))
+    _check(compare(STRADDLE_MESH, "hybrid_straddle", strategy, tmp_path_factory), STRADDLE_MESH, strategy)
+
+
+REMAT_NONE_CASES = [(mesh, s) for mesh in DP_MESHES for s in DP_STRATEGIES]
+
+
+@pytest.mark.parametrize("mesh,strategy", REMAT_NONE_CASES, ids=[f"{'x'.join(map(str, m))}-{s}" for m, s in REMAT_NONE_CASES])
+def test_remat_none_keeps_the_numbers(mesh, strategy, tmp_path_factory):
+    """Under remat "none" autograd keeps each gathered weight for the
+    backward (no replay gathers it again); the steps give one rank's
+    values all the same."""
+    _check(compare(mesh, "dense_remat_none", strategy, tmp_path_factory), mesh, strategy)
+
+
+@pytest.mark.parametrize("strategy", SP_STRATEGIES)
+def test_a_sequence_model_does_not_divide_keeps_tp_moves(strategy, tmp_path_factory):
+    """A sequence of 16 on a "model" axis of 3: the residual stream stays
+    whole, every block keeps "tp"'s moves (no reduce-scatter runs: the dp
+    axis holds one rank), and the steps give one rank's values."""
+    mesh = Mesh(("data", "model"), STRADDLE_MESH)
+    with sh.activation_rules(sh.STRATEGIES[strategy], mesh, tensor_parallel=True):
+        assert not tp.seq_split(DATA["seq_len"]) and tp.seq_split(DATA["seq_len"] + 2)
+    _check(compare(STRADDLE_MESH, "dense_nondiv", strategy, tmp_path_factory), STRADDLE_MESH, strategy)
 
 
 # ---------------------------------------------------------------------------
@@ -342,9 +409,15 @@ _REFERENCE = textwrap.dedent("""
     pickle.dump(out, open(sys.argv[2], "wb"))
 """)
 
-# each family on one host mesh of its sharded runs' shapes, every shape used
-REF_CASES = [((1, 2), "dense"), ((2, 2), "moe_experts"), ((1, 4), "moe_inner"), ((1, 2), "ssm"), ((2, 2), "hybrid"),
-             ((1, 4), "audio"), ((2, 2), "vlm"), (STRADDLE_MESH, "hybrid_straddle")]
+# each family under "tp" and under each strategy this file adds ("fsdp",
+# "tp_sp", "fsdp_tp_sp"; and "tp" or "fsdp_tp" on a dp mesh) on one host
+# mesh of its sharded runs' shapes, every shape used
+REF_CASES = [((1, 2), "dense", "tp"), ((2, 2), "moe_experts", "tp"), ((1, 4), "moe_inner", "tp"), ((1, 2), "ssm", "tp"),
+             ((2, 2), "hybrid", "tp"), ((1, 4), "audio", "tp"), ((2, 2), "vlm", "tp"),
+             (STRADDLE_MESH, "hybrid_straddle", "tp")]
+REF_CASES += [(MESHES[(i + j) % len(MESHES)], family, s) for j, s in enumerate(STRATEGIES[2:])
+              for i, family in enumerate(FAMILIES)]
+REF_CASES += [(DP_MESHES[i % 2], family, DP_STRATEGIES[i // 2 % 2]) for i, family in enumerate(FAMILIES)]
 
 
 def _numpy(tree):
@@ -356,45 +429,58 @@ def _numpy(tree):
 _REF: dict = {}
 
 
+REF_PROCS = 2  # reference subprocesses, each on its share of REF_CASES
+
+
 def _start_reference(tmp_path_factory) -> None:
-    """Start the reference's two train steps under "tp" on a host mesh of
-    each ``REF_CASES`` shape, one subprocess for them all, running beside
-    the gloo worlds."""
-    if "proc" in _REF:
+    """Start the reference's two train steps under each ``REF_CASES``
+    strategy on a host mesh of its shape, in REF_PROCS subprocesses that
+    run beside the gloo worlds."""
+    if "procs" in _REF:
         return
     cases = {}
-    for mesh, family in REF_CASES:
-        arch, cut, overrides = STRADDLE if family == "hybrid_straddle" else FAMILIES[family]
+    for mesh, family, strategy in REF_CASES:
+        arch, cut, overrides = _family(family)
         base = one_rank(arch, cut)
-        cases[(mesh, family)] = {"mesh": mesh, "arch": arch, "cut": cut, "strategy": ("tp", overrides),
-                                 "params": _numpy(base["params0"]), "opt_cfg": OPT,
-                                 "batches": [{k: v.numpy() for k, v in b.items()} for b in base["batches"]]}
+        cases[(mesh, family, strategy)] = {"mesh": mesh, "arch": arch, "cut": cut, "strategy": (strategy, overrides),
+                                           "params": _numpy(base["params0"]), "opt_cfg": OPT,
+                                           "batches": [{k: v.numpy() for k, v in b.items()} for b in base["batches"]]}
     tmp = tmp_path_factory.mktemp("reference")
-    src, dst = os.path.join(tmp, "cases.pkl"), os.path.join(tmp, "out.pkl")
-    with open(src, "wb") as f:
-        pickle.dump(cases, f)
     env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(__file__), "..", "src"), JAX_PLATFORMS="cpu")
-    _REF.update(proc=subprocess.Popen([sys.executable, "-c", _REFERENCE, src, dst], env=env, stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True), dst=dst)
+    _REF.update(procs=[], dsts=[])
+    for i in range(REF_PROCS):
+        src, dst = os.path.join(tmp, f"cases{i}.pkl"), os.path.join(tmp, f"out{i}.pkl")
+        with open(src, "wb") as f:
+            pickle.dump({k: c for j, (k, c) in enumerate(cases.items()) if j % REF_PROCS == i}, f)
+        _REF["procs"].append(subprocess.Popen([sys.executable, "-c", _REFERENCE, src, dst], env=env, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT, text=True))
+        _REF["dsts"].append(dst)
 
 
 def reference_metrics(tmp_path_factory) -> dict:
-    """The reference's metrics by (mesh, family), waiting for its subprocess."""
+    """The reference's metrics by (mesh, family, strategy), waiting for its subprocesses."""
     _start_reference(tmp_path_factory)
     if "out" not in _REF:
-        out, _ = _REF["proc"].communicate(timeout=600)
-        assert _REF["proc"].returncode == 0, out
-        with open(_REF["dst"], "rb") as f:
-            _REF["out"] = pickle.load(f)
+        _REF["out"] = {}
+        for proc, dst in zip(_REF["procs"], _REF["dsts"]):
+            out, _ = proc.communicate(timeout=600)
+            assert proc.returncode == 0, out
+            with open(dst, "rb") as f:
+                _REF["out"].update(pickle.load(f))
     return _REF["out"]
 
 
-@pytest.mark.parametrize("mesh,family", REF_CASES, ids=[f"{'x'.join(map(str, m))}-{f}" for m, f in REF_CASES])
-def test_one_rank_and_sharded_metrics_match_the_reference_on_a_host_mesh(mesh, family, tmp_path_factory):
-    arch, cut, _ = STRADDLE if family == "hybrid_straddle" else FAMILIES[family]
-    ref = reference_metrics(tmp_path_factory)[(mesh, family)]
+def _ref_id(mesh, family, strategy) -> str:
+    """A reference case's name ("tp"'s without the strategy, as before the others came)."""
+    return f"{'x'.join(map(str, mesh))}-{family}" if strategy == "tp" and mesh not in DP_MESHES else _case_id(mesh, family, strategy)
+
+
+@pytest.mark.parametrize("mesh,family,strategy", REF_CASES, ids=[_ref_id(*c) for c in REF_CASES])
+def test_one_rank_and_sharded_metrics_match_the_reference_on_a_host_mesh(mesh, family, strategy, tmp_path_factory):
+    arch, cut, _ = _family(family)
+    ref = reference_metrics(tmp_path_factory)[(mesh, family, strategy)]
     ours = one_rank(arch, cut)["steps"]
-    sharded = tp_run(mesh, tmp_path_factory)[(family, "tp")]["steps"]
+    sharded = tp_run(mesh, tmp_path_factory)[(family, strategy)]["steps"]
     for r, o, s in zip(ref, ours, sharded):
         assert sorted(r) == sorted(o["metrics"]), (sorted(r), sorted(o["metrics"]))
         for k in r:
@@ -442,6 +528,55 @@ def test_moves_on_an_abstract_mesh_record_bytes_without_a_group():
         assert tp.model_size() == 1 and tp.weight_split(("embed", "heads", None), (64, 8, 16)) is None
 
 
+def test_reduce_scatter_fsdp_and_sequence_moves_record_bytes_on_an_abstract_mesh():
+    """On a mesh with no process group: ``reduce_scatter`` returns its
+    result's shape (over one axis, two, and an outer layout) and records
+    its bytes, ``all_gather`` its conjugate; ``seq_enter`` and
+    ``seq_leave`` conjugate forward and backward; ``fsdp`` gathers a leaf
+    over "data" and its backward reduce-scatters the gradient to the
+    moments' cut."""
+    mesh = Mesh(("data", "model"), (2, 4))
+    tp.COLLECTIVES.reset()
+    x = torch.randn(3, 16, 8)
+    assert tp.reduce_scatter(x, mesh, "model", 1).shape == (3, 4, 8)
+    assert tp.all_gather(tp.reduce_scatter(x, mesh, "model", 1), mesh, "model", 1).shape == x.shape
+    assert tp.reduce_scatter(x, mesh, ("data", "model"), 2).shape == (3, 16, 1)
+    assert tp.reduce_scatter(x, mesh, "model", 1, outer=2).shape == (3, 4, 8)
+    assert dict(tp.COLLECTIVES.count_by_op) == {"reduce-scatter": 4, "all-gather": 1}
+    assert tp.COLLECTIVES.bytes_by_op["reduce-scatter"] == 3 * (3 * 4 * 8 * 4) + 3 * 16 * 1 * 4  # the results' bytes
+    tp.COLLECTIVES.reset()
+    with sh.activation_rules(sh.STRATEGIES["tp_sp"], mesh, tensor_parallel=True):
+        assert tp.seq_split(16) and not tp.seq_split(6)
+        h = torch.randn(2, 4, 8, requires_grad=True)  # a rank's 4 of 16 tokens
+        whole = tp.seq_enter(h)
+        back = tp.seq_leave(whole)
+        assert whole.shape == (2, 16, 8) and back.shape == h.shape
+        back.sum().backward()
+    assert h.grad.shape == h.shape
+    nb = 2 * 16 * 8 * 4
+    assert dict(tp.COLLECTIVES.bytes_by_op) == {"all-gather": 2 * nb, "reduce-scatter": 2 * nb // 4}
+    tp.COLLECTIVES.reset()
+    shard = torch.randn(4, 6)  # a (16, 6) leaf's shard over ("data", "model")
+    spec, moments = (("data", "model"), None), (("data", "model"), None)
+    shards = tp.Shards(mesh, [shard], [spec], [moments])
+    with sh.activation_rules(sh.STRATEGIES["fsdp"], mesh, tensor_parallel=True, shards=shards):
+        assert tp.weight_split(("mlp", None), (16, 6)) == (0, 2)
+        w = tp.fsdp(shard)
+        assert w.shape == (8, 6)
+        (w * 2).sum().backward(inputs=[shards.token])
+    assert [g.shape for g in shards.grads()] == [shard.shape]
+    assert dict(tp.COLLECTIVES.bytes_by_op) == {"all-gather": 8 * 6 * 4, "reduce-scatter": 4 * 6 * 4}
+
+
+def test_moves_on_gloo_match_what_they_mean(tmp_path):
+    """``reduce_scatter``, ``seq_enter``/``seq_leave`` and ``fsdp``'s
+    gather and collect on a (2, 2) gloo world, in fp64, against the sums
+    and slices they stand for (``moves_worker``)."""
+    errs = run_ranks(moves_worker, 4, tmp_path, RANKS_TIMEOUT, (2,))
+    for r, e in enumerate(errs):
+        assert max(e.values()) <= 1e-12, (r, e)
+
+
 def test_rank_slices_and_outer_layouts_invert():
     t = torch.arange(24.0).reshape(2, 12)
     parts = [tp.rank_slice(t, 3, r, -1, outer=2) for r in range(3)]
@@ -461,9 +596,9 @@ if __name__ == "__main__":
     fac = _Factory()
     for mesh in MESHES + [STRADDLE_MESH]:
         print(mesh, sorted(splits_hit(mesh)))
-    for mesh, family, s in TP_CASES + [(STRADDLE_MESH, "hybrid_straddle", s) for s in STRATEGIES]:
+    for mesh, family, s in TP_CASES + [(STRADDLE_MESH, f, s) for f in _families(STRADDLE_MESH) for s in STRATEGIES]:
         e = compare(mesh, family, s, fac)
         print(_case_id(mesh, family, s), {k: v for k, v in e.items() if k not in ("wrong_shapes",)})
     ref = reference_metrics(fac)
-    for mesh, family in REF_CASES:
-        print("reference", mesh, family, ref[(mesh, family)])
+    for case in REF_CASES:
+        print("reference", case, ref[case])

@@ -634,9 +634,9 @@ def test_launch_train_takes_the_encdec_and_vlm_configs(name):
 def test_train_driver_refuses_a_strategy_and_the_card_without_one():
     """A strategy runs on a model axis of 1 (the driver's mesh) and, in a
     world of one, takes the plain step's losses and parameters bit for bit;
-    on a "model" axis above 1 a strategy other than "tp" and "fsdp_tp" is
-    item 6d, and the step refuses it.  Without a card the driver refuses
-    device='cuda'."""
+    on a "model" axis above 1 "serve_2dtp" is item 6d, and the step
+    refuses it, while "tp_sp" builds.  Without a card ``launch/train.py``
+    refuses device='cuda'."""
     kw = dict(steps=2, seq_len=16, global_batch=2, log_every=0, device="cpu")
     plain = ttrain.train("llama3-8b", **kw)
     sharded = ttrain.train("llama3-8b", strategy_name="fsdp_tp", **kw)
@@ -648,7 +648,9 @@ def test_train_driver_refuses_a_strategy_and_the_card_without_one():
 
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 6d"):
         tstep.make_train_step(Model(get_arch("llama3-8b").reduced()), adamw.AdamWConfig(),
-                              strategy=TSTRATEGIES["tp_sp"], mesh=Mesh(("data", "model"), (1, 2)))
+                              strategy=TSTRATEGIES["serve_2dtp"], mesh=Mesh(("data", "model"), (1, 2)))
+    tstep.make_train_step(Model(get_arch("llama3-8b").reduced()), adamw.AdamWConfig(),
+                          strategy=TSTRATEGIES["tp_sp"], mesh=Mesh(("data", "model"), (1, 2)))
     with pytest.raises(KeyError):
         ttrain.train("llama3-8b", strategy_name="bogus", **kw)
     if not torch.cuda.is_available():
