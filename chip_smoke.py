@@ -243,7 +243,10 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      llama3-8b (2 layers) trained 2 steps under "tp", "tp_sp", "fsdp_tp_sp"
      and "fsdp", and recurrentgemma-2b (8 of 26 layers), falcon-mamba-7b
      (2 layers, under
-     "tp" and "tp_sp") and arctic-480b (1 layer) prefilled, each in bf16 and
+     "tp" and "tp_sp"), arctic-480b (1 layer) and llama3-8b (2 layers, B4 x
+     2048, and with one KV head under ``flash_decode``) prefilled and then
+     decoded 4 steps on each rank's own cache (fed one rank's greedy
+     tokens), and in bf16 the compressed step on the train case, each in bf16 and
      again in fp32, held against this process's one-rank run of the same
      weights and batch (``TP_*``: in fp32 the losses, every weight leaf's
      update and the logits at tight bounds, the greedy tokens equal; in
@@ -251,8 +254,12 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      nudge of the weights moves them), each kernel's first call on each
      rank held against its plain version at the rank's local shapes, the
      kernels' launches there on their routes, a rank's seconds, peak memory
-     and collective bytes by op, and the least free memory of the card
-     while the ranks ran.  fsdp: a layer at a time over "data" on a (2, 1)
+     and collective bytes by op, a rank's decode ms a token, moe_gmm's first
+     decode call against its plain version at the rank's experts, and the
+     least free memory of the card while the ranks ran; then four gloo
+     ranks on a (2, 2) mesh under "serve_2dtp" (``SERVE2D_*``): the
+     llama3-8b case prefilled and decoded, held the same way, with no
+     parameter gathered.  fsdp: a layer at a time over "data" on a (2, 1)
      mesh of two gloo ranks (``FSDP_*``): llama3-8b at 8 layers, B2 x
      2048, bf16, two AdamW steps under "fsdp_tp" and "tp" (ZeRO-1), held
      against one rank as the tp phase holds its train case, each rank's
@@ -273,11 +280,13 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      gradient pass, the selective scan's in falcon-mamba-7b's train run),
      the attention backward's also by route; a step's launches in the
      sharded setups, each example's, and rank 0's in the tp phase,
-     ``tp_launches_rank0``), and the device line last.
+     ``tp_launches_rank0``, of which its decode steps' ``tp_decode_launches_rank0``),
+     and the device line last.
 
 Each phase prints its wall seconds.
 """
 import contextlib
+import functools
 import json
 import math
 import os
@@ -3135,6 +3144,23 @@ def run_examples(torch, ops, dev) -> dict:
 # The fp32 twin of arctic-480b keeps 64 of its 128 experts (TP_FP32_CUT):
 # 128 experts take 53.5 GB a layer in fp32, and a rank drawing its half
 # beside the other's would leave the card under 10 GB.
+# - Decode: after each prefill the ranks take TP_DECODE_STEPS decode steps
+#   on their own caches (the rank's KV heads, channels and rows, as the
+#   prefill leaves them), fed the tokens one rank's greedy decode of the
+#   same weights took, and each step's logits are held as the prefill's
+#   (fp32: TP_FP32_TOL["logits"], the greedy tokens equal on the rows that
+#   tolerance cannot swap; bf16: TP_NOISE_FACTOR of what the nudge moves
+#   one rank's decode, or TP_TOL), with moe_gmm's first decode call held
+#   against its plain version at the rank's experts.  The flash-decode case
+#   cuts llama3-8b to one KV head: with 8, "model" divides the KV heads, a
+#   rank's cache holds its own and its query heads read only them, so the
+#   sequence split has nothing to do (models/attention.py).
+# - The compressed step (bf16) takes the train case's two steps on the same
+#   mesh: its first loss is the plain "tp" step's bit for bit (the same
+#   forward), its second within TP_TOL of it.
+# "serve_2dtp" runs on a (2, 2) world of four gloo ranks on the card
+# (SERVE2D): the dense prefill case and its decode steps, held against one
+# rank as above, with no parameter gathered by any rank.
 TP_WORLD = 2
 TP_TOL = 2e-2  # bf16
 TP_FP32_TOL = {"loss": 1e-5, "logits": 1e-4}
@@ -3153,12 +3179,25 @@ TP_PREFILLS = [  # under the config's default strategy, or the case's
     {"arch": "falcon-mamba-7b", "cut": {"n_layers": 2}, "batch": 1, "seq_len": 4096},
     {"arch": "falcon-mamba-7b", "cut": {"n_layers": 2}, "batch": 1, "seq_len": 4096, "strategy": "tp_sp"},
     {"arch": "arctic-480b", "cut": {"n_layers": 1}, "batch": 1, "seq_len": 4096},
+    {"arch": "llama3-8b", "cut": {"n_layers": 2}, "batch": 4, "seq_len": 2048},
+    # the distributed flash-decode on sharded weights: one KV head, which
+    # "model" cannot divide, so each rank's cache holds it whole
+    {"arch": "llama3-8b", "cut": {"n_layers": 2, "n_kv_heads": 1}, "batch": 4, "seq_len": 2048, "flash_decode": True},
 ]
 TP_FP32_CUT = {"arctic-480b": {"n_experts": 64}}
+TP_DECODE_STEPS = 4
+# what a rank's decode launches a step, by case (moe_gmm: gate, up and down
+# a layer); the other kernels have no decode launch (decode attention is
+# plain, as in the reference)
+TP_DECODE_LAUNCHES = {"arctic-480b": {"moe_gmm": 3}}
+SERVE2D_MESH = (2, 2)
+SERVE2D_CASE = TP_PREFILLS[4]  # llama3-8b, full width, 2 layers, B4 x 2048, bf16
+SERVE2D_TIMEOUT_S = 300
 # what a rank's kernels see at the local shapes, by case: attention
 # (query heads, key heads), the RG-LRU's dr, the scan's di, the GEMM's experts
 TP_LOCAL = {
     "llama3-8b": {"flash_attention": (16, 4), "flash_attention_bwd": (16, 4)},
+    "llama3-8b/flash_decode": {"flash_attention": (16, 1)},
     "recurrentgemma-2b": {"flash_attention": (5, 1), "rglru_scan": 1280},
     "falcon-mamba-7b": {"selective_scan": 4096},
     "arctic-480b": {"flash_attention": (28, 4), "moe_gmm": 64},
@@ -3183,6 +3222,63 @@ def _tp_shape_of(name: str, args) -> object:
 
 def tp_local(arch: str, dtype: str) -> dict:
     return {**TP_LOCAL[arch], **(TP_LOCAL_FP32.get(arch, {}) if dtype == "float32" else {})}
+
+
+def tp_strategy(case: dict, cfg):
+    """A case's strategy: the case's, or the config's default, with the
+    flash-decode where the case asks for it."""
+    import dataclasses
+
+    from repro_torch.parallel.sharding import STRATEGIES, default_strategy
+
+    strategy = STRATEGIES[case["strategy"]] if "strategy" in case else default_strategy(cfg)
+    if case.get("flash_decode"):
+        strategy = dataclasses.replace(strategy, name=strategy.name + "_fd", flash_decode=True)
+    return strategy
+
+
+def one_key(case: dict) -> str:
+    """The one-rank run a case is held against: its arch and cut (a
+    strategy's case shares the config's)."""
+    return json.dumps([case["arch"], case["cut"]], sort_keys=True)
+
+
+def decode_run(torch, decode, params, cache, logits, pos: int, dev, tokens=None) -> dict:
+    """TP_DECODE_STEPS decode steps after a prefill: fed ``tokens`` (one
+    (B, 1) host tensor a step), or greedily from the prefill's ``logits``
+    and each step's.  Returns each step's logits (host, fp32), the tokens
+    fed, and each step's milliseconds."""
+    out = {"logits": [], "tokens": [], "ms": []}
+    for i in range(TP_DECODE_STEPS):
+        tok = tokens[i] if tokens is not None else logits[:, -1].argmax(-1)[:, None].int().cpu()
+        batch = {"tokens": tok.to(dev), "pos": torch.full((tok.shape[0],), pos + i, dtype=torch.int32, device=dev)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = decode(params, cache, batch)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["logits"].append(logits.float().cpu())
+        out["tokens"].append(tok)
+    return out
+
+
+def tp_measured(torch, fn):
+    """``fn()`` timed, with the launches by kernel and route, and the
+    collectives by op (bytes and calls) and the parameter bytes gathered,
+    since the counters' reset here."""
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import tensor as tp
+
+    ops.reset_launch_counts()
+    tp.COLLECTIVES.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, {"s": time.perf_counter() - t0, "launches": ops.launch_counts(), "backward": ops.backward_launch_counts(),
+                    "routes": ops.route_launch_counts(), "backward_routes": ops.backward_route_launch_counts(),
+                    "collectives": dict(tp.COLLECTIVES.bytes_by_op), "collective_calls": dict(tp.COLLECTIVES.count_by_op),
+                    "params_gathered": tp.COLLECTIVES.param_bytes}
 
 
 def _kept(torch, t):
@@ -3311,29 +3407,21 @@ def gloo_cuda_probe(torch, dist, rank: int, world: int, dev) -> dict:
     return out
 
 
-def tp_rank_cases(torch, dist, rank: int, mesh, dev, dtype: str, ref_path: str) -> dict:
+def tp_rank_cases(torch, dist, rank: int, mesh, dev, dtype: str, ref_path: str, decode_path: str) -> dict:
     """On one rank, each case in ``dtype`` on ``mesh`` under the config's
     default strategy ("tp" for every case): losses or logits, step seconds,
     peak memory (allocated and reserved), launches forward and backward by
     route, the local shapes the kernels saw, the kernels against their plain
-    versions there, and the collective bytes by op."""
+    versions there, and the collective bytes by op; in bf16 the compressed
+    step too; after each prefill its decode steps, fed the one-rank run's
+    tokens (``decode_path``)."""
     from repro_torch.kernels import ops
     from repro_torch.models.model import Model
     from repro_torch.optim import adamw
-    from repro_torch.parallel import tensor as tp
     from repro_torch.parallel.sharding import STRATEGIES, default_strategy, param_pspec_tree
     from repro_torch.train import step as step_lib
 
-    def measured(fn):
-        ops.reset_launch_counts()
-        tp.COLLECTIVES.reset()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        result = fn()
-        torch.cuda.synchronize()
-        return result, {"s": time.perf_counter() - t0, "launches": ops.launch_counts(), "backward": ops.backward_launch_counts(),
-                        "routes": ops.route_launch_counts(), "backward_routes": ops.backward_route_launch_counts(),
-                        "collectives": dict(tp.COLLECTIVES.bytes_by_op), "collective_calls": dict(tp.COLLECTIVES.count_by_op)}
+    measured = functools.partial(tp_measured, torch)
 
     def peaks() -> dict:
         return {"peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "peak_reserved_gb": torch.cuda.max_memory_reserved(dev) / 1e9}
@@ -3361,28 +3449,72 @@ def tp_rank_cases(torch, dist, rank: int, mesh, dev, dtype: str, ref_path: str) 
                               "update_sums": sums}
         del params, opt, fn, seen
         torch.cuda.empty_cache()
-    for case in TP_PREFILLS:
-        cfg = tp_cfg(case, dtype)
-        model = Model(cfg)
-        strategy = STRATEGIES[case["strategy"]] if "strategy" in case else default_strategy(cfg)
+    if dtype == "bfloat16":  # the compressed step: the train case's steps, its gradients reduced in int8
+        strategy = default_strategy(cfg)
+        params, opt = step_lib.init_train_state(model, torch.Generator(dev).manual_seed(0), dev, strategy=strategy, mesh=mesh)
+        comp = step_lib.init_compression_state(model, strategy=strategy, mesh=mesh, device=dev)
+        fn = step_lib.make_compressed_train_step(model, adamw.AdamWConfig(**TP_OPT), strategy=strategy, mesh=mesh)
         torch.cuda.reset_peak_memory_stats(dev)
-        params = init_shards(torch, dist, model, dev, param_pspec_tree(model.specs(), strategy, mesh), mesh)
-        prefill = step_lib.make_prefill_step(model, case["seq_len"], strategy=strategy, mesh=mesh)
-        batch = {"tokens": tp_batches(torch, case, cfg)[0]["tokens"].to(dev)}
-        with recording_kernel_calls(torch, ops) as seen:
-            (logits, _), row = measured(lambda: prefill(params, batch))
-        row.update(strategy=strategy.name, **peaks(), shapes={k: sorted(v["shapes"]) for k, v in seen.items()},
-                   plain=tp_plain_check(torch, seen, f"tp {tp_key(case)} {dtype} rank {rank}"),
-                   logits=logits.float().cpu() if rank == 0 else None)
-        out[tp_key(case)] = row
-        del params, logits, seen
+        steps = []
+        for batch in tp_batches(torch, TP_TRAIN, cfg):
+            batch = {k: v.to(dev) for k, v in batch.items()}
+            (params, opt, comp, metrics), row = measured(lambda: fn(params, opt, comp, batch))
+            row.update(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]))
+            steps.append(row)
+        out["compressed"] = {"strategy": strategy.name, "steps": steps, **peaks()}
+        del params, opt, comp, fn
         torch.cuda.empty_cache()
+    tokens = torch.load(decode_path, weights_only=False)
+    for case in TP_PREFILLS:
+        out[tp_key(case)] = tp_rank_prefill_decode(torch, dist, rank, mesh, dev, dtype, case, tp_strategy(case, tp_cfg(case, dtype)),
+                                                   tokens[one_key(case)])
     return out
 
 
+def tp_rank_prefill_decode(torch, dist, rank: int, mesh, dev, dtype: str, case: dict, strategy, tokens: list) -> dict:
+    """On one rank, a prefill case under ``strategy`` on ``mesh``: the
+    prefill (logits, seconds, peak, launches, collectives, local shapes,
+    the kernels against their plain versions) and ``decode_run`` on the
+    rank's cache fed ``tokens`` (each step's logits, milliseconds, the
+    decode's launches and collectives, moe_gmm's first decode call against
+    its plain version).  Logits on rank 0 only."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.parallel.sharding import param_pspec_tree
+    from repro_torch.train import step as step_lib
+
+    cfg = tp_cfg(case, dtype)
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_shards(torch, dist, model, dev, param_pspec_tree(model.specs(), strategy, mesh), mesh)
+    prefill = step_lib.make_prefill_step(model, case["seq_len"] + TP_DECODE_STEPS, strategy=strategy, mesh=mesh)
+    batch = {"tokens": tp_batches(torch, case, cfg)[0]["tokens"].to(dev)}
+    with recording_kernel_calls(torch, ops) as seen:
+        (logits, cache), row = tp_measured(torch, lambda: prefill(params, batch))
+    row.update(strategy=strategy.name, peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               peak_reserved_gb=torch.cuda.max_memory_reserved(dev) / 1e9, shapes={k: sorted(v["shapes"]) for k, v in seen.items()},
+               plain=tp_plain_check(torch, seen, f"tp {tp_key(case)} {dtype} rank {rank}"),
+               logits=logits.float().cpu() if rank == 0 else None)
+    del seen
+    decode = step_lib.make_decode_step(model, strategy=strategy, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with recording_kernel_calls(torch, ops) as seen:
+        dec, counts = tp_measured(torch, lambda: decode_run(torch, decode, params, cache, logits, case["seq_len"], dev, tokens))
+    if rank:
+        dec["logits"] = None
+    row["decode"] = {**dec, **counts, "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                     "shapes": {k: sorted(v["shapes"]) for k, v in seen.items()},
+                     "plain": tp_plain_check(torch, {k: v for k, v in seen.items() if k == "moe_gmm"},
+                                             f"tp decode {tp_key(case)} {dtype} rank {rank}")}
+    del params, logits, cache, seen
+    torch.cuda.empty_cache()
+    return row
+
+
 def tp_key(case: dict) -> str:
-    """A prefill case's name: its arch, and its strategy where it names one."""
-    return case["arch"] + (f"/{case['strategy']}" if "strategy" in case else "")
+    """A prefill case's name: its arch, and its strategy or flash-decode
+    where it names one."""
+    return case["arch"] + (f"/{case['strategy']}" if "strategy" in case else "") + ("/flash_decode" if case.get("flash_decode") else "")
 
 
 def tp_rank_run(torch, dist, rank: int, world: int, dev, ref_dir: str) -> dict:
@@ -3399,13 +3531,28 @@ def tp_rank_run(torch, dist, rank: int, world: int, dev, ref_dir: str) -> dict:
     torch.set_float32_matmul_precision("highest")
     mesh = make_local_mesh(world, world)
     for dtype in TP_DTYPES:
-        out[dtype] = tp_rank_cases(torch, dist, rank, mesh, dev, dtype, os.path.join(ref_dir, f"train_{dtype}.pt"))
+        out[dtype] = tp_rank_cases(torch, dist, rank, mesh, dev, dtype, os.path.join(ref_dir, f"train_{dtype}.pt"),
+                                   os.path.join(ref_dir, f"decode_{dtype}.pt"))
     return out
 
 
-def tp_rank_main(rank: int, world: int, tmp: str, ref_dir: str) -> None:
+def serve2d_rank_run(torch, dist, rank: int, world: int, dev, ref_dir: str) -> dict:
+    """On one rank of the SERVE2D_MESH world: SERVE2D_CASE's prefill and
+    decode steps under "serve_2dtp" in bf16 (``tp_rank_prefill_decode``)."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel.sharding import STRATEGIES
+
+    _build.load(*_build.SOURCES)
+    mesh = make_local_mesh(world, SERVE2D_MESH[1])
+    tokens = torch.load(os.path.join(ref_dir, "decode_bfloat16.pt"), weights_only=False)[one_key(SERVE2D_CASE)]
+    return tp_rank_prefill_decode(torch, dist, rank, mesh, dev, "bfloat16", SERVE2D_CASE, STRATEGIES["serve_2dtp"], tokens)
+
+
+def tp_rank_main(rank: int, world: int, tmp: str, ref_dir: str, what: str = "tp") -> None:
     """A spawned rank: a gloo world over a FileStore in ``tmp``, its results
-    saved there (``rank<r>.pt``), its traceback too where it fails."""
+    saved there (``rank<r>.pt``), its traceback too where it fails; ``what``
+    names the run ("tp": ``tp_rank_run``, "serve2d": ``serve2d_rank_run``)."""
     sys.path.insert(0, str(ROOT / "src"))
     import traceback
 
@@ -3418,7 +3565,8 @@ def tp_rank_main(rank: int, world: int, tmp: str, ref_dir: str) -> None:
     try:
         torch.cuda.set_device(0)
         dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), world), rank=rank, world_size=world)
-        torch.save(tp_rank_run(torch, dist, rank, world, torch.device("cuda", 0), ref_dir), os.path.join(tmp, f"rank{rank}.pt"))
+        run = {"tp": tp_rank_run, "serve2d": serve2d_rank_run}[what]
+        torch.save(run(torch, dist, rank, world, torch.device("cuda", 0), ref_dir), os.path.join(tmp, f"rank{rank}.pt"))
     except BaseException:
         Path(tmp, f"rank{rank}.err").write_text(traceback.format_exc())
         raise
@@ -3469,30 +3617,37 @@ def tp_one_rank_train(torch, dev, case: dict, dtype: str) -> dict:
 
 def tp_one_rank(torch, dev, dtype: str) -> dict:
     """Every tp case in ``dtype`` on this process's one rank, no mesh: the
-    train case's (``tp_one_rank_train``), and each prefill's logits (host),
-    seconds and peak memory, and its logits again from nudged weights."""
+    train case's (``tp_one_rank_train``), and by ``one_key`` each prefill's
+    logits (host), seconds and peak memory, its greedy decode steps
+    (``decode_run``), and both again from nudged weights (the decode fed
+    the same tokens)."""
     from repro_torch.models.model import Model
     from repro_torch.train import step as step_lib
 
     out = {"train": tp_one_rank_train(torch, dev, TP_TRAIN, dtype)}
     for case in TP_PREFILLS:
-        if case["arch"] in out:  # a strategy's case: one rank has no strategy
+        if one_key(case) in out:  # a strategy's case: one rank has no strategy
             continue
         cfg = tp_cfg(case, dtype)
         model = Model(cfg)
         torch.cuda.reset_peak_memory_stats(dev)
         params = model.init(torch.Generator(dev).manual_seed(0), dev)
-        prefill = step_lib.make_prefill_step(model, case["seq_len"])
+        prefill = step_lib.make_prefill_step(model, case["seq_len"] + TP_DECODE_STEPS)
+        decode = step_lib.make_decode_step(model)
         batch = {"tokens": tp_batches(torch, case, cfg)[0]["tokens"].to(dev)}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, _ = prefill(params, batch)
+        logits, cache = prefill(params, batch)
         torch.cuda.synchronize()
-        out[case["arch"]] = {"s": time.perf_counter() - t0, "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-                             "logits": logits.float().cpu()}
+        row = {"s": time.perf_counter() - t0, "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+               "logits": logits.float().cpu()}
+        row["decode"] = decode_run(torch, decode, params, cache, logits, case["seq_len"], dev)
         nudge(torch, params, dev)
-        out[case["arch"]]["nudged_logits"] = prefill(params, batch)[0].float().cpu()
-        del params, logits
+        logits, cache = prefill(params, batch)
+        row["nudged_logits"] = logits.float().cpu()
+        row["nudged_decode"] = decode_run(torch, decode, params, cache, logits, case["seq_len"], dev, row["decode"]["tokens"])["logits"]
+        out[one_key(case)] = row
+        del params, logits, cache
         torch.cuda.empty_cache()
     return out
 
@@ -3622,54 +3777,108 @@ def tp_check_train(torch, dev, dtype: str, one: dict, tr: list, card: str) -> li
     return off
 
 
-def tp_shapes_off(arch: str, dtype: str, rows: list) -> list:
+def tp_shapes_off(arch: str, dtype: str, rows: list, names=None) -> list:
+    """What is off in the local shapes the rows' kernels saw: every kernel
+    of ``tp_local``, or of ``names`` among them."""
     return [f"tp {arch} {dtype} rank {r}: {name} at local {row['shapes'].get(name)}, want [{want}]"
-            for r, row in enumerate(rows) for name, want in tp_local(arch, dtype).items() if row["shapes"].get(name) != [want]]
+            for r, row in enumerate(rows) for name, want in tp_local(arch, dtype).items()
+            if (names is None or name in names) and row["shapes"].get(name) != [want]]
 
 
-def tp_check_prefill(torch, dtype: str, case: dict, one: dict, rows: list, card: str) -> list:
-    """A prefill case's ``tp`` line in ``dtype``; returns what is off: the
-    ranks' logits against one rank's, a kernel of the case that did not
-    launch."""
-    bf16, arch = dtype == "bfloat16", case["arch"]
-    got, want = rows[0]["logits"], one["logits"]
+def local_key(case: dict) -> str:
+    return case["arch"] + ("/flash_decode" if case.get("flash_decode") else "")
+
+
+def logits_agreement(torch, got, want, nudged, bf16: bool) -> dict:
+    """``got`` against ``want`` (host logits, the last token's): the error
+    relative to the largest logit, the tolerance (bf16: TP_NOISE_FACTOR of
+    the nudge's, or TP_TOL; fp32: TP_FP32_TOL), and the greedy tokens,
+    equal on every row whose top two the tolerance cannot swap."""
     scale = float(want.abs().max())
     err = float((got - want).abs().max()) / scale
-    floor = float((one["nudged_logits"] - want).abs().max()) / scale
-    tol = max(TP_TOL, TP_NOISE_FACTOR[dtype] * floor) if bf16 else TP_FP32_TOL["logits"]
+    floor = float((nudged - want).abs().max()) / scale
+    tol = max(TP_TOL, TP_NOISE_FACTOR["bfloat16" if bf16 else "float32"] * floor) if bf16 else TP_FP32_TOL["logits"]
     greedy, greedy_one = got[:, -1].argmax(-1), want[:, -1].argmax(-1)
     top2 = want[:, -1].topk(2, dim=-1).values
     gap = top2[:, 0] - top2[:, 1]
     tied = gap <= 2 * tol * scale  # rows whose top two the allowed error could swap
-    untied_equal = bool(torch.equal(greedy[~tied], greedy_one[~tied]))
+    return {"err": err, "tol": tol, "floor": floor, "greedy": greedy.tolist(), "greedy_one": greedy_one.tolist(), "gap": gap.tolist(),
+            "tied": tied.tolist(), "greedy_equal": bool(torch.equal(greedy, greedy_one)),
+            "untied_equal": bool(torch.equal(greedy[~tied], greedy_one[~tied])), "all_tied": bool(tied.all())}
+
+
+def tp_check_decode(torch, dtype: str, case: dict, one: dict, rows: list, card: str, label: str = "tp", mesh: str = "") -> list:
+    """A prefill case's decode steps' line (``<label> case=decode``) in
+    ``dtype``; returns what is off: a step's logits against one rank's,
+    moe_gmm's launches a step where the case launches it."""
+    bf16, arch = dtype == "bfloat16", case["arch"]
+    dec = rows[0]["decode"]
+    steps = [logits_agreement(torch, g, w, n, bf16) for g, w, n in zip(dec["logits"], one["decode"]["logits"], one["nudged_decode"])]
+    want_launches = {k: n * TP_DECODE_STEPS * tp_cfg(case, dtype).n_layers for k, n in TP_DECODE_LAUNCHES.get(arch, {}).items()}
+    launches = {k: n for k, n in dec["launches"].items() if n}
+    print(f"{label} case=decode dtype={dtype} arch={arch} cut={json.dumps(case['cut'])} batch={case['batch']} "
+          f"prompt={case['seq_len']} steps={TP_DECODE_STEPS} mesh={mesh or f'1x{TP_WORLD}'} strategy={rows[0]['strategy']} "
+          f"backend=gloo logits_rel_err={[a['err'] for a in steps]} logits_tol={[a['tol'] for a in steps]} "
+          f"nudged_logits_rel_err={[a['floor'] for a in steps]} greedy_equal={[a['greedy_equal'] for a in steps]} "
+          f"greedy_equal_untied={[a['untied_equal'] for a in steps]} tied_rows={[a['tied'] for a in steps]} "
+          f"ms_per_token_rank={[r['decode']['ms'] for r in rows]} one_rank_ms_per_token={one['decode']['ms']} "
+          f"peak_mem_gb_rank={[r['decode']['peak_mem_gb'] for r in rows]} launches={json.dumps(launches)} "
+          f"want_launches={json.dumps(want_launches)} kernel_vs_plain_rel_err={json.dumps([r['decode']['plain'] for r in rows])} "
+          f"local_shapes={json.dumps(dec['shapes'])} collective_bytes={json.dumps(dec['collectives'])} "
+          f"collective_calls={json.dumps(dec['collective_calls'])} params_gathered_bytes={[r['decode']['params_gathered'] for r in rows]} "
+          f"card={card}", flush=True)
+    off = tp_shapes_off(local_key(case), dtype, [r["decode"] for r in rows], names=("moe_gmm",))
+    for i, a in enumerate(steps):
+        if not (a["err"] <= a["tol"] and a["untied_equal"] and (bf16 or not a["all_tied"])):
+            off.append(f"{label} decode {tp_key(case)} {dtype} step {i}: logits error {a['err']} (tolerance {a['tol']}), greedy "
+                       f"{a['greedy']} vs {a['greedy_one']} (rows the tolerance could swap: {a['tied']})")
+    if any({k: n for k, n in r["decode"]["launches"].items() if n} != want_launches for r in rows):
+        off.append(f"{label} decode {tp_key(case)} {dtype}: launches {[r['decode']['launches'] for r in rows]}, want {want_launches}")
+    if "moe_gmm" in want_launches and any("moe_gmm" not in r["decode"]["plain"] for r in rows):
+        off.append(f"{label} decode {tp_key(case)} {dtype}: moe_gmm's decode call not held against its plain version")
+    return off
+
+
+def tp_check_prefill(torch, dtype: str, case: dict, one: dict, rows: list, card: str, label: str = "tp", mesh: str = "") -> list:
+    """A prefill case's ``<label>`` line in ``dtype``, and its decode's
+    (``tp_check_decode``); returns what is off: the ranks' logits against
+    one rank's, a kernel of the case that did not launch."""
+    bf16, arch = dtype == "bfloat16", case["arch"]
+    a = logits_agreement(torch, rows[0]["logits"], one["logits"], one["nudged_logits"], bf16)
+    err, tol, floor, tied = a["err"], a["tol"], a["floor"], a["tied"]
+    greedy, greedy_one, untied_equal = a["greedy"], a["greedy_one"], a["untied_equal"]
     cfg = tp_cfg(case, dtype)
-    print(f"tp case=prefill dtype={dtype} arch={arch} layers={cfg.n_layers} experts={cfg.n_experts} batch={case['batch']} "
-          f"seq_len={case['seq_len']} mesh=1x{TP_WORLD} strategy={rows[0]['strategy']} backend=gloo logits_rel_err={err} "
-          f"logits_tol={tol} nudged_logits_rel_err={floor} greedy_equal={bool(torch.equal(greedy, greedy_one))} "
-          f"greedy_equal_untied={untied_equal} tied_rows={tied.tolist()} greedy={greedy.tolist()} one_rank_greedy={greedy_one.tolist()} "
-          f"one_rank_top2_gap={gap.tolist()} kernel_vs_plain_rel_err={json.dumps([r['plain'] for r in rows])} "
+    print(f"{label} case=prefill dtype={dtype} arch={arch} layers={cfg.n_layers} experts={cfg.n_experts} kv_heads={cfg.n_kv_heads} "
+          f"batch={case['batch']} seq_len={case['seq_len']} mesh={mesh or f'1x{TP_WORLD}'} strategy={rows[0]['strategy']} backend=gloo "
+          f"logits_rel_err={err} logits_tol={tol} nudged_logits_rel_err={floor} greedy_equal={a['greedy_equal']} "
+          f"greedy_equal_untied={untied_equal} tied_rows={tied} greedy={greedy} one_rank_greedy={greedy_one} "
+          f"one_rank_top2_gap={a['gap']} kernel_vs_plain_rel_err={json.dumps([r['plain'] for r in rows])} "
           f"s={[r['s'] for r in rows]} one_rank_s={one['s']} "
           f"peak_mem_gb_rank={[r['peak_mem_gb'] for r in rows]} peak_reserved_gb_rank={[r['peak_reserved_gb'] for r in rows]} "
           f"one_rank_peak_mem_gb={one['peak_mem_gb']} "
           f"launches={json.dumps({k: n for k, n in rows[0]['launches'].items() if n})} "
           f"routes={json.dumps({k: {q: n for q, n in v.items() if n} for k, v in rows[0]['routes'].items()})} "
           f"local_shapes={json.dumps(rows[0]['shapes'])} collective_bytes={json.dumps(rows[0]['collectives'])} "
-          f"collective_calls={json.dumps(rows[0]['collective_calls'])} card={card}", flush=True)
-    off = tp_shapes_off(arch, dtype, rows)
-    if not (err <= tol and untied_equal and (bf16 or not bool(tied.all()))):
-        off.append(f"tp {tp_key(case)} {dtype}: logits error {err} (tolerance {tol}), greedy {greedy.tolist()} vs "
-                   f"{greedy_one.tolist()} (rows the tolerance could swap: {tied.tolist()})")
-    missing = [k for k in tp_local(arch, dtype) if k in rows[0]["launches"] and not rows[0]["launches"][k]]
+          f"collective_calls={json.dumps(rows[0]['collective_calls'])} params_gathered_bytes={[r['params_gathered'] for r in rows]} "
+          f"card={card}", flush=True)
+    fwd = tuple(k for k in tp_local(local_key(case), dtype) if not k.endswith("_bwd"))
+    off = tp_shapes_off(local_key(case), dtype, rows, names=fwd)
+    if not (err <= tol and untied_equal and (bf16 or not a["all_tied"])):
+        off.append(f"{label} {tp_key(case)} {dtype}: logits error {err} (tolerance {tol}), greedy {greedy} vs "
+                   f"{greedy_one} (rows the tolerance could swap: {tied})")
+    missing = [k for k in fwd if k in rows[0]["launches"] and not rows[0]["launches"][k]]
     if missing:
-        off.append(f"tp {tp_key(case)} {dtype}: no launch of {missing}: {rows[0]['launches']}")
-    return off
+        off.append(f"{label} {tp_key(case)} {dtype}: no launch of {missing}: {rows[0]['launches']}")
+    return off + tp_check_decode(torch, dtype, case, one, rows, card, label, mesh)
 
 
-def run_tp(torch, ops, dev) -> dict:
-    """The tp phase: the one-rank runs here, then the two gloo ranks; one
-    ``tp`` line a case and dtype.  Returns rank 0's launches of each kernel
-    over the phase's cases in both dtypes (forward and backward; the
-    train case's last step)."""
+def run_tp(torch, ops, dev) -> tuple:
+    """The tp phase: the one-rank runs here, then the two gloo ranks, then
+    the four of "serve_2dtp"; one ``tp`` line a case and dtype, one for
+    each case's decode, the compressed step's, and the ``serve_2dtp``
+    lines.  Returns rank 0's launches of each kernel over the tp world's
+    cases in both dtypes (forward and backward; the train case's last
+    step; the decode steps), and those of its decode steps alone."""
     import tempfile
 
     card = card_line()
@@ -3679,17 +3888,29 @@ def run_tp(torch, ops, dev) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_ref") as ref_dir:
         for dtype in TP_DTYPES:
             save_update_ref(torch, one[dtype]["train"], os.path.join(ref_dir, f"train_{dtype}.pt"))
+            torch.save({k: r["decode"]["tokens"] for k, r in one[dtype].items() if k != "train"},
+                       os.path.join(ref_dir, f"decode_{dtype}.pt"))
         t0 = time.perf_counter()
         ranks, min_free = run_ranks_on_card(torch, dev, tp_rank_main, TP_WORLD, TP_TIMEOUT_S, (ref_dir,), "tp")
         world_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        world2d = SERVE2D_MESH[0] * SERVE2D_MESH[1]
+        serve2d, min_free_2d = run_ranks_on_card(torch, dev, tp_rank_main, world2d, SERVE2D_TIMEOUT_S, (ref_dir, "serve2d"),
+                                                 "serve2d")
+        serve2d_s = time.perf_counter() - t0
     print(f"tp probe backend=gloo device=cuda ops={json.dumps(ranks[0]['probe'])} card={card}", flush=True)
     if any(v != "ok" for r in ranks for v in r["probe"].values()):
         raise AssertionError(f"tp: gloo refused a collective on CUDA tensors: {[r['probe'] for r in ranks]}")
     launches: dict = {}
+    decode_launches: dict = {}
 
     def add(counts: dict) -> None:
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
+
+    def decode_launches_of(counts: dict) -> None:
+        for k, n in counts.items():
+            decode_launches[k] = decode_launches.get(k, 0) + n
 
     off = []
     for dtype in TP_DTYPES:
@@ -3701,13 +3922,42 @@ def run_tp(torch, ops, dev) -> dict:
         for case in TP_PREFILLS:
             rows = [r[dtype][tp_key(case)] for r in ranks]
             add(rows[0]["launches"])
-            off += tp_check_prefill(torch, dtype, case, one[dtype][case["arch"]], rows, card)
+            add(rows[0]["decode"]["launches"])
+            decode_launches_of(rows[0]["decode"]["launches"])
+            off += tp_check_prefill(torch, dtype, case, one[dtype][one_key(case)], rows, card)
+    off += tp_check_compressed(ranks, card)
+    off += tp_check_prefill(torch, "bfloat16", SERVE2D_CASE, one["bfloat16"][one_key(SERVE2D_CASE)], serve2d, card, "serve_2dtp",
+                            "x".join(map(str, SERVE2D_MESH)))
+    if any(r["params_gathered"] or r["decode"]["params_gathered"] for r in serve2d):
+        off.append(f"serve_2dtp: parameters gathered, prefill {[r['params_gathered'] for r in serve2d]} bytes, decode "
+                   f"{[r['decode']['params_gathered'] for r in serve2d]}")
     total = torch.cuda.mem_get_info(dev)[1]
-    print(f"tp world_s={world_s} ranks={TP_WORLD} backend=gloo card_total_gb={total / 1e9} card_min_free_gb={min_free / 1e9} "
+    print(f"tp world_s={world_s} ranks={TP_WORLD} serve2d_world_s={serve2d_s} serve2d_ranks={world2d} backend=gloo "
+          f"card_total_gb={total / 1e9} card_min_free_gb={min_free / 1e9} serve2d_card_min_free_gb={min_free_2d / 1e9} "
           f"reserved_here_gb={reserved_here / 1e9} note=host-memory collectives, not NVLink card={card}", flush=True)
     if off:
         raise AssertionError("\n".join(off))
-    return launches
+    return launches, decode_launches
+
+
+def tp_check_compressed(ranks: list, card: str) -> list:
+    """The compressed step's ``tp case=compressed`` line; returns what is
+    off: a first loss other than the plain "tp" step's, a second off it by
+    more than TP_TOL."""
+    comp, plain = ranks[0]["bfloat16"]["compressed"], ranks[0]["bfloat16"]["train"]["tp"]
+    losses, plain_losses = [s["loss"] for s in comp["steps"]], [s["loss"] for s in plain["steps"]]
+    second = abs(losses[1] - plain_losses[1]) / abs(plain_losses[1])
+    last = comp["steps"][-1]
+    print(f"tp case=compressed dtype=bfloat16 arch={TP_TRAIN['arch']} layers={TP_TRAIN['cut']['n_layers']} batch={TP_TRAIN['batch']} "
+          f"seq_len={TP_TRAIN['seq_len']} mesh=1x{TP_WORLD} strategy={comp['strategy']} backend=gloo losses={losses} "
+          f"plain_losses={plain_losses} first_loss_equal={losses[0] == plain_losses[0]} second_loss_rel_err={second} "
+          f"grad_norms={[s['grad_norm'] for s in comp['steps']]} step_s={[s['s'] for s in comp['steps']]} "
+          f"peak_mem_gb_rank={[r['bfloat16']['compressed']['peak_mem_gb'] for r in ranks]} "
+          f"collective_bytes={json.dumps(last['collectives'])} collective_calls={json.dumps(last['collective_calls'])} card={card}",
+          flush=True)
+    if losses[0] != plain_losses[0] or not second <= TP_TOL:
+        return [f"tp compressed: losses {losses} against the plain step's {plain_losses} (second within {TP_TOL})"]
+    return []
 
 
 # ---------------------------------------------------------------------------
@@ -4188,7 +4438,7 @@ def main() -> int:
     dryruns = start_dryrun()  # host work, beside the two phases on the card
     phase_t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    tp_launches = run_tp(torch, ops, dev)
+    tp_launches, tp_decode_launches = run_tp(torch, ops, dev)
     print(f"phase name=tp wall_s={time.perf_counter() - phase_t0}", flush=True)
     phase_t0 = time.perf_counter()
     torch.cuda.empty_cache()
@@ -4214,7 +4464,7 @@ def main() -> int:
             "model": row["case"], "dtype": row["dtype"],
             "sharded_launches_per_step": sharded_launches.get(name, 0),
             "example_launches": {ex: n[name] for ex, n in example_launches.items()},
-            "tp_launches_rank0": tp_launches.get(name, 0),
+            "tp_launches_rank0": tp_launches.get(name, 0), "tp_decode_launches_rank0": tp_decode_launches.get(name, 0),
         })
         fp32_keys = ("case", "route", "max_abs_err", "rel_err", "ms", "ms_cold", "ms_call", "plain_ms", "library_ms",
                      "bound_ms", "bound_by", "bound_3x_ms", "simt_bound_ms")

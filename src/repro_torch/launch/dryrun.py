@@ -10,8 +10,10 @@ parameters, AdamW state and batch as ``device="meta"`` tensors, which hold a
 shape and a dtype and no memory.  No process group starts and no device is
 touched: the collectives record their bytes (``parallel/tensor.py``), the
 kernels add their own counts (``kernels/ops.py``'s meta route), and
-``roofline/count.py`` counts the rest.  Decode cells run the decode step as
-it is, on whole weights (tensor-parallel decode is ROADMAP.md item 6d).
+``roofline/count.py`` counts the rest.  Decode cells run the decode step on
+the rank's shards of the weights and its cache as the tensor-parallel
+prefill leaves it (``train/step.shard_cache``: its rows, the KV heads its
+query heads read, its channels).
 
 Outputs per cell:
 
@@ -50,7 +52,7 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.model import Model
 from repro_torch.models.spec import tree_leaves, tree_map, torch_dtype
 from repro_torch.optim import adamw
-from repro_torch.parallel.sharding import STRATEGIES, default_strategy, local_shape, mesh_axis_sizes, resolve_axes
+from repro_torch.parallel.sharding import STRATEGIES, default_strategy, local_shape
 from repro_torch.roofline.count import count_step
 from repro_torch.roofline.model import Roofline, model_flops
 from repro_torch.train import step as step_lib
@@ -129,13 +131,12 @@ def build_cell(arch, shape_name: str, mesh, strategy_name: Optional[str] = None)
         args = (params, batch)
         io = {"argument": _nbytes(params) + local_batch, "output": None, "alias": 0}  # the outputs, counted when run
     elif shape.kind == "decode":
-        # whole weights; the cache cut over the dp axes only (train/step.make_decode_step)
-        sizes = mesh_axis_sizes(mesh)
-        rules = {"cache_batch": strategy.act_rules.get("cache_batch")}
-        cache_specs = model.cache_specs(shape.global_batch, shape.seq_len)
-        cache_sh = tree_map(lambda s: resolve_axes(s.axes, rules, mesh.axis_names, s.shape, sizes), cache_specs)
-        params = tree_map(lambda s: _meta(s.shape, torch_dtype(s.dtype)), model.specs())
-        cache = _local(cache_specs, cache_sh, mesh)
+        # the rank's shards of the weights, as the prefill takes them, and its
+        # cache as the tensor-parallel prefill leaves it (train/step.shard_cache)
+        sh = step_lib.make_shardings(model, strategy, mesh, batch)
+        params = _local(model.specs(), sh.params, mesh)
+        whole = tree_map(lambda s: _meta(s.shape, torch_dtype(s.dtype)), model.cache_specs(shape.global_batch, shape.seq_len))
+        cache = step_lib.shard_cache(model, whole, shape.global_batch, shape.seq_len, strategy=strategy, mesh=mesh)
         fn = step_lib.make_decode_step(model, strategy=strategy, mesh=mesh)
         args = (params, cache, batch)
         io = {"argument": _nbytes(params) + _nbytes(cache) + local_batch, "output": None, "alias": 0}

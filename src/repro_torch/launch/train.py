@@ -17,10 +17,11 @@ With ``--strategy`` (or in a ``torch.distributed`` world of more than one
 rank, started by the caller: NCCL on the card, gloo on the CPU) the step runs
 sharded over ``make_local_mesh(world size, --model-parallel)``, a ("data",
 "model") mesh whose "model" axis is 1 unless ``--model-parallel N`` asks for
-N (tensor parallelism: every strategy but "serve_2dtp"), under the named strategy or
+N (tensor parallelism, under every strategy; under "serve_2dtp" the "data"
+axis cuts the weights too and every rank takes the whole batch), under the named strategy or
 the config's default, as the reference's driver builds them
 (``src/repro/launch/train.py:50-55``): each rank takes its shard of every
-global batch, keeps its shards of the parameters and of AdamW's moments
+global batch (the whole batch under "serve_2dtp"), keeps its shards of the parameters and of AdamW's moments
 (``train/step.py``), and checkpoints hold the global state, gathered and
 written by rank 0.  The reference's driver
 takes no gradient compression, and neither does this one
@@ -194,7 +195,7 @@ def main():
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--strategy", default=None)
-    ap.add_argument("--model-parallel", type=int, default=1, help="ranks of the 'model' axis (tp, fsdp_tp)")
+    ap.add_argument("--model-parallel", type=int, default=1, help="ranks of the 'model' axis (every strategy)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     out = train(

@@ -9,7 +9,11 @@ version (``kernels/ref.py``) on CPU tensors.  The models keep the reference's
 transposed into contiguous copies and the output back.
 
 ``decode_attention`` (one token against a cache) is plain PyTorch, as it is
-an XLA computation and not a Pallas kernel in the reference.  Under a
+an XLA computation and not a Pallas kernel in the reference.  The decode
+blocks of every family reach it through ``cached_attention`` (and
+``decode_self_attention``, ``decode_cross_attention``): under tensor
+parallelism q holds the rank's query heads and the cache the KV heads they
+read, as the prefill leaves it (``cache_kv_heads``).  Under a
 strategy with ``flash_decode`` (``parallel/sharding.py``) it takes the
 distributed flash-decode path (``attention.py:145-225``): the ranks of the
 "model" group each attend to their slice of the cache's sequence and
@@ -32,7 +36,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import linears, whole
+from repro_torch.models.layers import apply_rope, linears, whole
 from repro_torch.parallel import tensor as tp
 
 _NEG = -1e30
@@ -85,6 +89,8 @@ def decode_attention(
     *,
     cache_positions: Optional[torch.Tensor] = None,
     window: Optional[int] = None,
+    q_outer: Optional[int] = None,
+    n_kv: Optional[int] = None,
 ) -> torch.Tensor:
     """One-token attention against a cache.
 
@@ -96,15 +102,27 @@ def decode_attention(
     When the active strategy enables flash_decode, dispatches to the
     distributed flash-decode path (each rank of the "model" group attends to
     its slice of the cache; the partial softmax states combine with an
-    LSE-rescaled sum - no cache gather).
+    LSE-rescaled sum - no cache gather).  Under tensor parallelism q holds
+    the rank's query heads (``q_outer``: their outer over "model", None
+    where q is whole) and the cache the KV heads they read; the sequence
+    split then runs where that cache holds every one of the config's
+    ``n_kv`` KV heads (the reference's case: KV heads that "model" does not
+    divide, the cache's sequence cut in their place), on q made whole over
+    "model", whose output is split back to the rank's heads.  Where the
+    rank's cache holds its own KV heads, its query heads read only them and
+    the attention runs on the rank alone.
     """
     from repro_torch.parallel.sharding import current_mesh, flash_decode_enabled
 
     b, lc = q.shape[0], k_cache.shape[1]
     if cache_positions is None:
         cache_positions = torch.arange(lc, device=q.device)[None, :].expand(b, lc)
-    if flash_decode_enabled():
-        return _decode_attention_distributed(q, k_cache, v_cache, pos, cache_positions, window, current_mesh())
+    if flash_decode_enabled() and (q_outer is None or k_cache.shape[2] == n_kv):
+        if q_outer is None:
+            return _decode_attention_distributed(q, k_cache, v_cache, pos, cache_positions, window, current_mesh())
+        whole_q = tp.gather(q, 2, q_outer)
+        out = _decode_attention_distributed(whole_q, k_cache, v_cache, pos, cache_positions, window, current_mesh())
+        return tp.split(out, 2, q_outer)
     s, _ = _masked_scores(q, k_cache, pos, cache_positions, window)  # (B, H, Lc)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhl,blhd->bhd", p, repeat_kv(v_cache, q.shape[2]).float())
@@ -156,32 +174,128 @@ def _decode_attention_distributed(q, k_cache, v_cache, pos, cache_positions, win
     return out[:, None].to(q.dtype)
 
 
+def write_cache(cache_k, cache_v, k_t, v_t, pos):
+    """Write one token's k/v into the cache at per-batch positions.  Returns
+    new caches; the inputs are left as they were, as in the reference."""
+    rows = torch.arange(cache_k.shape[0], device=cache_k.device)
+    cache_k, cache_v = cache_k.clone(), cache_v.clone()
+    cache_k[rows, pos.long()] = k_t[:, 0]
+    cache_v[rows, pos.long()] = v_t[:, 0]
+    return cache_k, cache_v
+
+
+def ring_positions(pos: torch.Tensor, window: int) -> torch.Tensor:
+    """Absolute position stored at each ring-buffer slot given current pos (B,).
+
+    Slot j holds the largest p <= pos with p % W == j (negative => empty).
+    """
+    j = torch.arange(window, device=pos.device)[None, :]
+    return pos[:, None] - torch.remainder(pos[:, None] - j, window)
+
+
+def q_heads_outer(cfg) -> Optional[int]:
+    """The outer of the rank's query heads over "model" (``_rank_kv``'s
+    blocks), or None where q is whole on every rank."""
+    s = tp.weight_split(("embed", "heads", None), (cfg.d_model, cfg.n_heads, cfg.hd))
+    return s[1] if s is not None and s[0] == 1 else None
+
+
+def cached_attention(cfg, q, k_cache, v_cache, pos, *, kv_t=None, ring: bool = False, window: Optional[int] = None):
+    """One decode token's attention against the rank's cache: q (B, 1, Hl,
+    hd) at the rank's query heads, the cache (Bc, Lc, KVl, hd) at the KV
+    heads they read (as the tensor-parallel prefill leaves it).  With
+    ``kv_t`` the token's (k, v) are written first, at ``pos`` (a ring
+    buffer's slot ``pos % Lc`` with ``ring``, its slots' positions from
+    ``ring_positions``).  Under "serve_2dtp" the step replicates the batch
+    over "data" while the cache holds the rank's rows: the token's q, k, v
+    and positions are cut to them and the output joined again
+    (``tp.batch_part``, ``tp.batch_whole``).  Returns (out (B, 1, Hl, hd),
+    k_cache, v_cache)."""
+    q, pos = tp.batch_part(q), tp.batch_part(pos)
+    cpos = None
+    if kv_t is not None:
+        k_t, v_t = (tp.batch_part(t) for t in kv_t)
+        k_cache, v_cache = write_cache(k_cache, v_cache, k_t, v_t, pos % k_cache.shape[1] if ring else pos)
+    if ring:
+        cpos = ring_positions(pos, k_cache.shape[1])
+    a = decode_attention(q, k_cache, v_cache, pos, cache_positions=cpos, window=window, q_outer=q_heads_outer(cfg),
+                         n_kv=cfg.n_kv_heads)
+    return tp.batch_whole(a), k_cache, v_cache
+
+
+def decode_self_attention(cfg, p: dict, h: torch.Tensor, k_cache, v_cache, pos, *, ring: bool = False,
+                          window: Optional[int] = None):
+    """A decode step's self attention of the normed token ``h`` (B, 1, D)
+    with its attention weights ``p``: q, k and v at the rank's heads, the
+    rotary embedding at ``pos``, ``cached_attention``, and the output
+    projection.  Returns (out (B, 1, D) whole, k_cache, v_cache)."""
+    q, k_t, v_t, q_split = heads_qkv(cfg, p, h)
+    q = apply_rope(q, pos[:, None], cfg.rope_theta)
+    k_t = apply_rope(k_t, pos[:, None], cfg.rope_theta)
+    a, k_cache, v_cache = cached_attention(cfg, q, k_cache, v_cache, pos, kv_t=(k_t, v_t), ring=ring, window=window)
+    return heads_out(cfg, a, p["wo"], q_split), k_cache, v_cache
+
+
+def decode_cross_attention(cfg, p: dict, h: torch.Tensor, k_cache, v_cache) -> torch.Tensor:
+    """A decode step's attention of the normed token ``h`` to the cross K/V
+    its prefill cached (every slot valid), with the output projection:
+    (B, 1, D) whole."""
+    q, q_split = heads_q(cfg, p, h)
+    pos_full = torch.full((h.shape[0],), k_cache.shape[1] - 1, dtype=torch.int32, device=h.device)
+    a, _, _ = cached_attention(cfg, q, k_cache, v_cache, pos_full)
+    return heads_out(cfg, a, p["wo"], q_split)
+
+
 # ---------------------------------------------------------------------------
-# Projections (every attention layer; tensor-parallel in train and prefill)
+# Projections (every attention layer; tensor-parallel in train, prefill and decode)
 # ---------------------------------------------------------------------------
+
+
+def _rank_heads(n: int, outer: int) -> list:
+    """The global ids of a rank's part of ``n`` heads split over "model":
+    block ``j m + r`` of ``outer m`` for each j < outer (under "fsdp"
+    "heads" splits over ("data", "model"): ``outer`` is the data axis's
+    size)."""
+    m, r = tp.model_size(), tp.model_rank()
+    size = n // (outer * m)
+    return [(j * m + r) * size + t for j in range(outer) for t in range(size)]
+
+
+def _kv_of_heads(n_heads: int, n_kv: int, outer: int) -> tuple[list, bool]:
+    """The KV heads a rank's query heads read (global query head h reads KV
+    head h KV / H), and whether they are a contiguous range the kernel
+    maps local query head j to as j / (Hl / n): then each once, else one
+    a query head."""
+    idx = [h * n_kv // n_heads for h in _rank_heads(n_heads, outer)]
+    hl, lo = len(idx), idx[0]
+    n = idx[-1] + 1 - lo
+    if hl % n == 0 and all(idx[j] == lo + j // (hl // n) for j in range(hl)):
+        return list(range(lo, lo + n)), True
+    return idx, False
 
 
 def _rank_kv(k: torch.Tensor, v: torch.Tensor, n_heads: int, n_kv: int, outer: int = 1):
     """From whole k and v (B, L, KV, hd), the heads this rank's query heads
-    read: global query head h reads KV head h KV / H.  The rank's query
-    heads are block ``j m + r`` of ``outer m`` for each j < outer (under
-    "fsdp" "heads" splits over ("data", "model"): ``outer`` is the data
-    axis's size).  A contiguous range of KV heads when the rank's heads
-    group evenly over it (the kernel maps local query head j to local KV
-    head j / (Hl / n)), else one KV head a query head.  The whole k and v
-    are replicated and read here by rank-specific work, so they ``enter``
-    first."""
-    m, r = tp.model_size(), tp.model_rank()
-    size = n_heads // (outer * m)
-    heads = [(j * m + r) * size + t for j in range(outer) for t in range(size)]
-    idx = [h * n_kv // n_heads for h in heads]
-    hl = len(heads)
-    lo, n = idx[0], idx[-1] + 1 - idx[0]
+    read (``_kv_of_heads``).  The whole k and v are replicated and read
+    here by rank-specific work, so they ``enter`` first."""
+    idx, contiguous = _kv_of_heads(n_heads, n_kv, outer)
     k, v = tp.enter(k), tp.enter(v)
-    if hl % n == 0 and all(idx[j] == lo + j // (hl // n) for j in range(hl)):
-        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    if contiguous:
+        return k[:, :, idx[0]:idx[-1] + 1], v[:, :, idx[0]:idx[-1] + 1]
     sel = torch.tensor(idx, device=k.device)
     return k.index_select(2, sel), v.index_select(2, sel)
+
+
+def cache_kv_heads(cfg) -> Optional[list]:
+    """The global KV heads a rank's cache holds in a tensor-parallel step
+    (those ``heads_qkv`` gives it: its own where "kv_heads" splits, else
+    those its query heads read), or None where it holds every one."""
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    ks = tp.weight_split(("embed", "kv_heads", None), (D, KV, hd))
+    if ks is not None and ks[0] == 1:
+        return _rank_heads(KV, ks[1])
+    q_outer = q_heads_outer(cfg)
+    return None if q_outer is None else _kv_of_heads(H, KV, q_outer)[0]
 
 
 def _weights(cfg, p: dict, names) -> list:

@@ -27,9 +27,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import apply_rope, embed_tokens, mlp, remat, rms_norm
+from repro_torch.models.layers import apply_rope, mlp, remat, rms_norm
 from repro_torch.models.spec import ParamSpec, dense, layer, layers, stack_layers, stacked, torch_dtype
-from repro_torch.models.transformer import _head, _positions, attn_specs, embed, head, logits, mlp_specs, n_stacked, write_cache
+from repro_torch.models.transformer import _positions, attn_specs, embed, head, logits, mlp_specs, n_stacked
 from repro_torch.parallel import tensor as tp
 
 
@@ -109,12 +109,10 @@ def _cross_attn(cfg, x, p, enc_out, seq: bool = False, enc_seq: bool = False):
 
 
 def _cross_attn_cached(cfg, x, p, ck, cv):
-    """Decode-time cross attention against the encoder K/V of the prefill."""
+    """Decode-time cross attention against the encoder K/V of the prefill
+    (the rank's heads and rows, as the prefill leaves them)."""
     h = rms_norm(x, p["ln_cross"], cfg.norm_eps)
-    q, _ = attn.heads_q(cfg, p["cross"], h)
-    pos_full = torch.full((x.shape[0],), ck.shape[1] - 1, dtype=torch.int32, device=x.device)  # every frame valid
-    a = attn.decode_attention(q, ck, cv, pos_full)
-    return x + attn.heads_out(cfg, a, p["cross"]["wo"], False)
+    return x + attn.decode_cross_attention(cfg, p["cross"], h, ck, cv)
 
 
 def dec_block(cfg: ArchConfig, x, p, pos, enc_out, seq: bool = False, enc_seq: bool = False):
@@ -194,23 +192,19 @@ def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len: Optional[in
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos, extras=None):
     """One decode step.  tokens (B, 1), pos (B,).  The self caches are
     written into copies (``write_cache``); the cross K/V pass through
-    unchanged."""
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    unchanged.  Each layer gathered where it runs (``tp.fsdp``)."""
+    x = embed(cfg, params, tokens, False)
     lcs = cache["layers"]
     ks, vs = [], []
     for i in range(n_stacked(params["dec_blocks"])):
-        p, lc = layer(params["dec_blocks"], i), layer(lcs, i)
+        p, lc = tp.fsdp(layer(params["dec_blocks"], i)), layer(lcs, i)
         h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-        q, k_t, v_t, _ = attn.heads_qkv(cfg, p["attn"], h)
-        q = apply_rope(q, pos[:, None], cfg.rope_theta)
-        k_t = apply_rope(k_t, pos[:, None], cfg.rope_theta)
-        ck, cv = write_cache(lc["k"], lc["v"], k_t, v_t, pos)
-        a = attn.decode_attention(q, ck, cv, pos)
-        x = x + attn.heads_out(cfg, a, p["attn"]["wo"], False)
+        a, ck, cv = attn.decode_self_attention(cfg, p["attn"], h, lc["k"], lc["v"], pos)
+        x = x + a
         x = _cross_attn_cached(cfg, x, p, lc["cross_k"], lc["cross_v"])
         h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
         x = x + mlp(h, p["mlp"], cfg.d_ff, F.silu)
         ks.append(ck)
         vs.append(cv)
     new = {"k": torch.stack(ks), "v": torch.stack(vs), "cross_k": lcs["cross_k"], "cross_v": lcs["cross_v"]}
-    return _head(cfg, params, x), {"layers": new}
+    return head(cfg, params, x), {"layers": new}

@@ -15,8 +15,11 @@ residual stream holds the rank's slice of the sequence: a block's
 column-parallel products read it through ``seq_enter`` (the whole
 sequence), its last row-parallel product leaves through ``seq_leave``, and
 a norm's scale, which then sees the rank's tokens only, has its gradient
-summed over "model" (``enter``).  Outside a tensor-parallel step no weight
-reads as split and each helper is the plain product.  Its ``scan_layers``
+summed over "model" (``enter``).  Under "serve_2dtp" a weight's d_model dim is cut over
+"data" too (``tp.data_split``): ``linears`` and ``lm_logits`` sum partial
+products over "data" and gather results cut over it.  Outside a
+tensor-parallel step no weight reads as split and each helper is the plain
+product.  Its ``scan_layers``
 becomes a plain loop over the layer index of the stacked leaves
 (``models/spec.py``: ``layer``, ``stack_layers``), each layer one call of
 :func:`remat`, which rematerialises it by the config's policy, as
@@ -66,6 +69,13 @@ def linears(x: torch.Tensor, weights: list, *, k: int = 1, x_split: bool = False
     and its partial sums are reduced; the column-parallel weights read ``x``
     through one shared ``enter``.
 
+    Under "serve_2dtp" (2D tensor parallelism, ``tp.data_split``) a weight
+    cut over "data" on its contraction reads the rank's "data" block of
+    ``x``, and its partial sums are reduced over "data" (with those over
+    "model" in one all-reduce where both cut the contraction); one cut over
+    "data" on its output reads ``x`` through ``enter`` over "data" and has
+    its result gathered over "data", whole.
+
     Under sequence parallelism, ``seq_in``: ``x`` (B, L / m, K) holds the
     rank's slice of the sequence, which the column-parallel weights read
     through one ``seq_enter`` and the others gathered (``tp.gather``: the
@@ -73,31 +83,51 @@ def linears(x: torch.Tensor, weights: list, *, k: int = 1, x_split: bool = False
     the results go back to the residual stream as the rank's slice of the
     sequence, a row-parallel product's partial sums through ``seq_leave``,
     a whole result cut (``tp.split``), each with split None."""
-    out, entered, full, parts = [], None, None, {}
+    out, reads = [], {}
+
+    def read(key, make):  # what the weights read of x, each move made once
+        if key not in reads:
+            reads[key] = make()
+        return reads[key]
+
     for w, axes, shape in weights:
         wf = w.reshape(math.prod(w.shape[:k]), -1)
-        s = tp.weight_split(axes, shape)
+        s, ds = tp.weight_split(axes, shape), tp.data_split(axes, shape)
         if s is not None and s[0] >= k and x_split:
             raise ValueError(f"a column-parallel weight {tuple(shape)} ({axes}) after an input split over 'model'")
         if s is None and x_split:
             raise ValueError(f"a whole weight {tuple(shape)} ({axes}) after an input split over 'model'")
-        if (s is None or s[0] < k) and not x_split and full is None:
-            full = tp.gather(x, 1) if seq_in else x
+        d_in = ds is not None and ds[0] < k
+        if d_in and (x_split or seq_in or seq_out):
+            raise ValueError(f"a weight {tuple(shape)} ({axes}) cut over 'data' on its contraction after a split input")
+        if ds is None:
+            xkey, xw = None, x
+        elif d_in:  # the contraction cut over "data": the rank's block of x
+            xkey = ("data", ds[1] * math.prod(shape[:ds[0]]))
+            xw = read(xkey, lambda: tp.split(x, -1, xkey[1], axis="data"))
+        else:  # the result cut over "data": x read whole, its gradient summed over "data"
+            xkey = ("data", "enter")
+            xw = read(xkey, lambda: tp.enter(x, axis="data"))
+        if s is None or s[0] < k:
+            full = None if x_split else read(("full", xkey), lambda: tp.gather(xw, 1) if seq_in else xw)
         if s is None:
             y, ys = full @ wf, None
         elif s[0] < k:  # row-parallel: the contraction is split
             d, outer = s
             o = outer * math.prod(shape[:d])
-            if not x_split and o not in parts:
-                parts[o] = tp.split(full, -1, o)
-            partial = (x if x_split else parts[o]) @ wf
-            out.append((tp.seq_leave(partial) if seq_out else tp.reduce(partial), None))
-            continue
+            partial = (xw if x_split else read(("part", xkey, o), lambda: tp.split(full, -1, o))) @ wf
+            if seq_out:
+                out.append((tp.seq_leave(partial), None))
+                continue
+            y, ys, d_in = tp.reduce(partial, axis=("data", "model") if d_in else "model"), None, False
         else:
             d, outer = s
-            if entered is None:
-                entered = tp.seq_enter(x) if seq_in else tp.enter(x)
+            entered = read(("enter", xkey), lambda: tp.seq_enter(xw) if seq_in else tp.enter(xw))
             y, ys = entered @ wf, outer * math.prod(shape[k:d])
+        if d_in:
+            y = tp.reduce(y, axis="data")
+        if ds is not None and ds[0] >= k:  # the result cut over "data": made whole
+            y, ys = tp.gather(whole(y, ys), -1, ds[1] * math.prod(shape[k:ds[0]]), axis="data"), None
         out.append((tp.split(whole(y, ys), 1), None) if seq_out else (y, ys))
     return out
 
@@ -147,12 +177,16 @@ def embed_tokens(tokens: torch.Tensor, table: torch.Tensor, compute_dtype: torch
     return (tp.seq_leave(rows) if seq else tp.reduce(rows)).to(compute_dtype)
 
 
-def lm_logits(x: torch.Tensor, head: torch.Tensor, split=None, *, seq: bool = False) -> torch.Tensor:
+def lm_logits(x: torch.Tensor, head: torch.Tensor, split=None, *, seq: bool = False, data_cut: bool = False) -> torch.Tensor:
     """x (..., D) @ head (D, V) -> (..., V).  ``split`` is the head's
     ``weight_split``: split on V the logits come out split (the rank's
     vocab range), split on D the partial logits are reduced.  ``seq``: x
     (B, L / m, D) holds the rank's slice of the sequence and the logits
-    cover the whole of it."""
+    cover the whole of it.  ``data_cut`` (2D tensor parallelism): the
+    head's D rows are the rank's "data" block, which x is cut to, and the
+    partial logits are reduced over "data"."""
+    if data_cut:
+        return tp.reduce(lm_logits(tp.split(x, -1, axis="data"), head, split), axis="data")
     if split is None:
         return (tp.gather(x, 1) if seq else x) @ head
     if split[0] == 1:
@@ -196,7 +230,9 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor]
 
 def conv1d_step(x_t: torch.Tensor, conv_state: torch.Tensor, w: torch.Tensor, bias=None):
     """One decode step of causal depthwise conv.
-    x_t (B, C); conv_state (B, K-1, C) holds the previous K-1 inputs."""
+    x_t (B, C); conv_state (B, K-1, C) holds the previous K-1 inputs.  Under
+    tensor parallelism C is the rank's channels: x_t, the state, ``w`` and
+    ``bias`` all hold the same ones (the conv is per channel)."""
     window = torch.cat([conv_state, x_t[:, None, :]], dim=1)  # (B, K, C)
     out = torch.einsum("bkc,ck->bc", window, w)
     if bias is not None:

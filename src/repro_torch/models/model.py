@@ -16,11 +16,12 @@ prefill run on the hand-written kernels where the tensors lie on a CUDA
 device, and so does the backward of attention (self and cross), of both
 scans (the selective scan's and the RG-LRU's) and of the expert GEMMs
 (``kernels/ops.py``): all six families train on the card.  Under tensor
-parallelism (``train/step.py``'s train and prefill steps on a "model" axis
-above 1) ``params`` are a rank's shards, which the models gather over the
-dp axes a layer at a time (``parallel/tensor.py``, ``fsdp``), the loss takes
-the vocab-parallel cross entropy where the head splits the vocab, and the
-prefill's logits come back whole.
+parallelism (``train/step.py``'s train, prefill and decode steps on a
+"model" axis above 1, or "serve_2dtp") ``params`` are a rank's shards,
+which the models gather over the dp axes a layer at a time
+(``parallel/tensor.py``, ``fsdp``), the loss takes the vocab-parallel cross
+entropy where the head splits the vocab, the prefill's and decode's logits
+come back whole, and the caches hold the rank's part.
 """
 from __future__ import annotations
 

@@ -37,9 +37,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import apply_rope, embed_tokens, mlp, remat, rms_norm
-from repro_torch.models.spec import ParamSpec, dense, layer, layers, stack_layers, stacked, torch_dtype
-from repro_torch.models.transformer import _head, _positions, attn_specs, embed, head, logits, n_stacked, write_cache
+from repro_torch.models.layers import apply_rope, mlp, remat, rms_norm
+from repro_torch.models.spec import ParamSpec, dense, layer, layers, stack_layers, stacked
+from repro_torch.models.transformer import _positions, attn_specs, embed, head, logits, n_stacked
 from repro_torch.models.transformer import cache_specs as dense_cache_specs
 from repro_torch.parallel import tensor as tp
 
@@ -156,12 +156,19 @@ def moe_ffn(cfg: ArchConfig, x: torch.Tensor, p: dict, *, seq: bool = False):
     G = T // g
     xg = x.reshape(G, g, D)
 
-    scores = torch.einsum("Ggd,de->Gge", xg.float(), p["router"].float())
-    dispatch, combine, aux, z = route(cfg, scores)
+    E, F_ = cfg.n_experts, cfg.d_ff
+    # under "serve_2dtp" the router's and the experts' d_model dims are cut
+    # over "data": each product reads the rank's "data" block of its input
+    # and sums its partial results over "data"; the down product's result is
+    # cut over "data" and gathered after the combine
+    two_d = tp.data_split(("embed", None), (D, E)) is not None
+    if two_d and tp.data_split(("experts", "embed", "mlp"), (E, D, F_)) != (1, 1):
+        raise NotImplementedError("expert weights cut over 'data' off their d_model dim")
+    scores = torch.einsum("Ggd,de->Gge", (tp.split(xg, -1, axis="data") if two_d else xg).float(), p["router"].float())
+    dispatch, combine, aux, z = route(cfg, tp.reduce(scores, axis="data") if two_d else scores)
     dispatch = dispatch.to(x.dtype)
-    E, C = dispatch.shape[2], dispatch.shape[3]
+    C = dispatch.shape[3]
 
-    F_ = cfg.d_ff
     by_expert = tp.weight_split(("experts", "embed", "mlp"), (E, D, F_))
     if by_expert is not None and by_expert[0] not in (0, 2):
         raise NotImplementedError(f"expert weights (E, D, F) split over 'model' as (dim, outer) {by_expert}")
@@ -183,16 +190,24 @@ def moe_ffn(cfg: ArchConfig, x: torch.Tensor, p: dict, *, seq: bool = False):
     if inner:  # each expert's FFN split over "model": gate and up column-, down row-parallel
         xe = tp.enter(xe)
     # the grouped GEMM kernel; its wrapper picks blocks that divide the shapes
-    h = F.silu(ops.moe_gmm(xe, p["w_gate"])) * ops.moe_gmm(xe, p["w_up"])
-    ye = ops.moe_gmm(h, p["w_down"])
+    if two_d:
+        xe = tp.split(xe, -1, axis="data")
+        h = F.silu(tp.reduce(ops.moe_gmm(xe, p["w_gate"]), axis="data")) * tp.reduce(ops.moe_gmm(xe, p["w_up"]), axis="data")
+    else:
+        h = F.silu(ops.moe_gmm(xe, p["w_gate"])) * ops.moe_gmm(xe, p["w_up"])
+    ye = ops.moe_gmm(tp.enter(h, axis="data") if two_d else h, p["w_down"])
     if inner:
         ye = tp.reduce(ye)
-    y = torch.einsum("eGcd,Ggec->Ggd", ye.reshape(E, G, C, D).float(), combine)
-    y = y.reshape(B, L, D)
+    if two_d:  # the combine reads the rank's "data" cut of d_model: its gradient summed over "data"
+        combine = tp.enter(combine, axis="data")
+    y = torch.einsum("eGcd,Ggec->Ggd", ye.reshape(E, G, C, -1).float(), combine)
+    y = y.reshape(B, L, -1)
     if experts:  # the ranks' experts' partial sums
         y = tp.seq_leave(y) if seq else tp.reduce(y)
     elif seq:
         y = tp.split(y, 1)
+    if two_d:
+        y = tp.gather(y, -1, axis="data")
     y = y.to(x.dtype)
     if "dense" in p:  # arctic: parallel dense residual MLP
         y = y + mlp(x_in, p["dense"], F_, F.silu, seq=seq)
@@ -248,13 +263,12 @@ cache_specs = dense_cache_specs
 
 
 def _decode_block(cfg, x, p, layer_cache, pos):
+    """One decode token through a moe block (x (B, 1, D) whole; the layer's
+    cache as the prefill leaves it): the experts at the rank's shard, as
+    ``moe_ffn`` splits them."""
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-    q, k_t, v_t, _ = attn.heads_qkv(cfg, p["attn"], h)
-    q = apply_rope(q, pos[:, None], cfg.rope_theta)
-    k_t = apply_rope(k_t, pos[:, None], cfg.rope_theta)
-    ck, cv = write_cache(layer_cache["k"], layer_cache["v"], k_t, v_t, pos)
-    a = attn.decode_attention(q, ck, cv, pos)
-    x = x + attn.heads_out(cfg, a, p["attn"]["wo"], False)
+    a, ck, cv = attn.decode_self_attention(cfg, p["attn"], h, layer_cache["k"], layer_cache["v"], pos)
+    x = x + a
     y, _ = moe_ffn(cfg, rms_norm(x, p["ln_mlp"], cfg.norm_eps), p["moe"])
     return x + y, {"k": ck, "v": cv}
 
@@ -281,10 +295,11 @@ def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len=None):
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos, extras=None):
-    """One decode step.  tokens (B, 1), pos (B,).  Returns (logits, cache)."""
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    """One decode step.  tokens (B, 1), pos (B,).  Returns (logits, cache);
+    each layer gathered where it runs (``tp.fsdp``)."""
+    x = embed(cfg, params, tokens, False)
     new = []
     for i in range(n_stacked(params["blocks"])):
-        x, lc = _decode_block(cfg, x, layer(params["blocks"], i), layer(cache["layers"], i), pos)
+        x, lc = _decode_block(cfg, x, tp.fsdp(layer(params["blocks"], i)), layer(cache["layers"], i), pos)
         new.append(lc)
-    return _head(cfg, params, x), {"layers": stack_layers(new)}
+    return head(cfg, params, x), {"layers": stack_layers(new)}

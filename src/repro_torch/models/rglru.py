@@ -9,7 +9,7 @@ the ring buffer) is plain PyTorch, as in the reference.  A stack that is not
 a whole number of superblocks ends in recurrent layers (``_layout``:
 recurrentgemma-2b's 26 = 8 x 3 + 2).
 
-Under tensor parallelism (the train and prefill passes) the recurrent
+Under tensor parallelism (the train, prefill and decode passes) the recurrent
 channels split over "model" where the rules split "rnn": ``w_x`` and
 ``w_gate`` column-parallel, the conv and ``rglru_scan`` at dr / m, ``w_out``
 row-parallel.  The gates' block-diagonal weights (nb, bd, bd) split with
@@ -33,11 +33,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (
-    apply_rope, causal_conv1d, conv1d_step, embed_tokens, gelu, linears, mlp, remat, rms_norm, whole,
-)
-from repro_torch.models.spec import ParamSpec, dense, layer, layers, stack_layers, stacked, torch_dtype
-from repro_torch.models.transformer import _head, _positions, attn_specs, embed, head, logits, n_stacked, write_cache
+from repro_torch.models.layers import apply_rope, causal_conv1d, conv1d_step, gelu, linears, mlp, remat, rms_norm, whole
+from repro_torch.models.spec import ParamSpec, dense, layer, layers, stack_layers, stacked
+from repro_torch.models.transformer import _positions, attn_specs, embed, head, logits, n_stacked
 from repro_torch.parallel import tensor as tp
 
 N_GATE_BLOCKS = 16  # block-diagonal gate blocks == model-axis size
@@ -188,9 +186,11 @@ def rglru_seq(p: dict, u: torch.Tensor, h0=None, cfg: Optional[ArchConfig] = Non
     return y.to(u.dtype), h_last
 
 
-def rglru_step(p: dict, u_t: torch.Tensor, h: torch.Tensor):
-    """One decode step.  u_t (B, dr); h (B, dr) f32."""
-    log_a, gx = _lru_gates(p, u_t)
+def rglru_step(p: dict, u_t: torch.Tensor, h: torch.Tensor, cfg: Optional[ArchConfig] = None, split=None):
+    """One decode step.  u_t (B, dr); h (B, dr) f32.  With ``split`` (u_t and
+    h hold the rank's channels, ``split`` their outer) the gates as
+    ``_gates_of_split`` runs them."""
+    log_a, gx = _lru_gates(p, u_t) if split is None else _gates_of_split(cfg, p, u_t, split)
     h_new = torch.exp(log_a) * h + gx
     return h_new.to(u_t.dtype), h_new
 
@@ -288,15 +288,6 @@ def cache_specs(cfg: ArchConfig, batch: int, cache_len: int) -> dict:
     return tree
 
 
-def ring_positions(pos: torch.Tensor, window: int) -> torch.Tensor:
-    """Absolute position stored at each ring-buffer slot given current pos (B,).
-
-    Slot j holds the largest p <= pos with p % W == j (negative => empty).
-    """
-    j = torch.arange(window, device=pos.device)[None, :]
-    return pos[:, None] - torch.remainder(pos[:, None] - j, window)
-
-
 def ring_from_seq(k: torch.Tensor, window: int) -> torch.Tensor:
     """(B, L, KV, hd) -> ring (B, W, KV, hd): token t at slot t % W, the
     last W tokens kept (``rglru.py:299-307``)."""
@@ -310,28 +301,32 @@ def ring_from_seq(k: torch.Tensor, window: int) -> torch.Tensor:
 
 
 def _rec_step(cfg, x, p, h, conv_state):
-    """x (B, 1, D) decode step of a recurrent block."""
+    """x (B, 1, D) decode step of a recurrent block.  Under tensor
+    parallelism as the prefill's block: ``w_x`` and ``w_gate``
+    column-parallel to the rank's channels, which ``h`` and ``conv_state``
+    hold, the gates on gathered channels where the rank's straddle their
+    blocks (``_gates_of_split``), ``w_out`` row-parallel.  Under
+    "serve_2dtp" the states hold the rank's rows of the batch: the conv
+    step and the recurrence run on them (``tp.batch_part``)."""
+    D, dr = cfg.d_model, cfg.rnn_dim
     h_in = rms_norm(x[:, 0], p["ln"], cfg.norm_eps)
-    u_pre = h_in @ p["w_x"]
-    g = gelu(h_in @ p["w_gate"])
+    (u_pre, split), (g, _) = linears(h_in, [(p[n], ("embed", "rnn"), (D, dr)) for n in ("w_x", "w_gate")])
+    u_pre, g = tp.batch_part(u_pre), tp.batch_part(gelu(g))
     u, conv_state = conv1d_step(u_pre, conv_state, p["conv_w"], p["conv_b"])
-    y, h_new = rglru_step(p, u, h)
-    x = x + ((y * g) @ p["w_out"])[:, None, :]
+    y, h_new = rglru_step(p, u, h, cfg, split)
+    [(out, os_)] = linears(tp.batch_whole(y * g), [(p["w_out"], ("rnn", "embed"), (dr, D))], x_split=split is not None)
+    x = x + whole(out, os_)[:, None, :]
     h2 = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
     x = x + mlp(h2, p["mlp"], cfg.d_ff, gelu)
     return x, h_new, conv_state
 
 
 def _attn_step(cfg, x, p, k_cache, v_cache, pos):
-    W = k_cache.shape[1]
+    """The local attention block's decode step on its ring-buffer cache
+    (the rank's KV heads under tensor parallelism)."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q, k_t, v_t, _ = attn.heads_qkv(cfg, p["attn"], h)
-    q = apply_rope(q, pos[:, None], cfg.rope_theta)
-    k_t = apply_rope(k_t, pos[:, None], cfg.rope_theta)
-    ck, cv = write_cache(k_cache, v_cache, k_t, v_t, pos % W)
-    cpos = ring_positions(pos, W)
-    a = attn.decode_attention(q, ck, cv, pos, cache_positions=cpos, window=cfg.local_window)
-    x = x + attn.heads_out(cfg, a, p["attn"]["wo"], False)
+    a, ck, cv = attn.decode_self_attention(cfg, p["attn"], h, k_cache, v_cache, pos, ring=True, window=cfg.local_window)
+    x = x + a
     h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
     x = x + mlp(h, p["mlp"], cfg.d_ff, gelu)
     return x, ck, cv
@@ -366,10 +361,12 @@ def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len=None):
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos, extras=None):
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    """One decode step; each superblock and tail layer gathered where it
+    runs (``tp.fsdp``)."""
+    x = embed(cfg, params, tokens, False)
     sb = []
     for i in range(n_stacked(params["superblocks"])):
-        p, lc = layer(params["superblocks"], i), layer(cache["superblocks"], i)
+        p, lc = tp.fsdp(layer(params["superblocks"], i)), layer(cache["superblocks"], i)
         x, h1, cv1 = _rec_step(cfg, x, p["rec1"], lc["rec1_h"], lc["rec1_conv"])
         x, h2, cv2 = _rec_step(cfg, x, p["rec2"], lc["rec2_h"], lc["rec2_conv"])
         x, ck, cvv = _attn_step(cfg, x, p["attn"], lc["k"], lc["v"], pos)
@@ -382,7 +379,7 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, extras=None):
     if "tail" in params:
         tail = []
         for i in range(n_stacked(params["tail"])):
-            x, h, cv = _rec_step(cfg, x, layer(params["tail"], i), *(layer(cache["tail"], i)[k] for k in ("h", "conv")))
+            x, h, cv = _rec_step(cfg, x, tp.fsdp(layer(params["tail"], i)), *(layer(cache["tail"], i)[k] for k in ("h", "conv")))
             tail.append({"h": h, "conv": cv})
         new_cache["tail"] = stack_layers(tail)
-    return _head(cfg, params, x), new_cache
+    return head(cfg, params, x), new_cache

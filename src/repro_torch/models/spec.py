@@ -118,6 +118,13 @@ def params_from_jax(tree, device) -> dict:
     return tree_map(one, tree)
 
 
+def cache_from_jax(cache, device) -> dict:
+    """The reference's serve cache (``Model.prefill``'s, as numpy leaves) as
+    the port's on ``device``: the same nesting, every row, head and channel
+    (``train/step.shard_cache`` cuts a rank's from it)."""
+    return params_from_jax(cache, device)
+
+
 def train_state_from_jax(params, opt_state, device) -> tuple[dict, dict]:
     """The reference's train state, ``(params, opt_state)`` as numpy trees
     (``jax.tree.map(np.asarray, ...)`` of ``train/step.init_train_state``'s

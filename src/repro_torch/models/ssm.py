@@ -13,7 +13,7 @@ chunk (``ssm_scan="assoc"`` and ``"seq"``) compute the same function, and the
 tests hold the port against both.  Decode is a single-token recurrence with
 O(1) state, plain PyTorch as in the reference.
 
-Under tensor parallelism (the train and prefill passes) the inner channels
+Under tensor parallelism (the train, prefill and decode passes) the inner channels
 split over "model" where the rules split "ssm_inner": ``in_proj`` (``w_in_x``,
 ``w_in_z``) column-parallel, the conv on the rank's channels, ``x_proj``
 (``w_x_dt``, ``w_x_b``, ``w_x_c``) row-parallel with dt, B and C reduced,
@@ -31,9 +31,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import causal_conv1d, conv1d_step, embed_tokens, linears, remat, rms_norm, whole
-from repro_torch.models.spec import ParamSpec, dense, layer, layers, stack_layers, stacked, torch_dtype
-from repro_torch.models.transformer import _head, embed, head, logits, n_stacked
+from repro_torch.models.layers import causal_conv1d, conv1d_step, linears, remat, rms_norm, whole
+from repro_torch.models.spec import ParamSpec, dense, layer, layers, stack_layers, stacked
+from repro_torch.models.transformer import embed, head, logits, n_stacked
 from repro_torch.parallel import tensor as tp
 
 
@@ -192,23 +192,30 @@ def cache_specs(cfg: ArchConfig, batch: int, cache_len: int) -> dict:
 
 
 def mamba_decode_block(cfg: ArchConfig, x, p, layer_cache):
-    """x (B, 1, D) one token."""
+    """x (B, 1, D) one token.  Under tensor parallelism as the prefill's
+    mixer: ``in_proj`` column-parallel to the rank's inner channels, which
+    the cache's ``h`` and ``conv`` hold (the prefill leaves them so), the
+    conv step and the recurrence on them, ``x_proj`` row-parallel with dt,
+    B and C reduced, ``dt_proj`` column-parallel, ``out_proj``
+    row-parallel.  Under "serve_2dtp" the recurrent state holds the rank's
+    rows of the batch: the conv step and the recurrence run on them
+    (``tp.batch_part``) and their output is joined before ``out_proj``."""
+    D, di = cfg.d_model, cfg.d_inner
     h_in = rms_norm(x[:, 0], p["ln"], cfg.norm_eps)  # (B, D)
-    xb = h_in @ p["w_in_x"]
-    z = h_in @ p["w_in_z"]
+    (xb, split), (z, _) = linears(h_in, [(p[n], ("embed", "ssm_inner"), (D, di)) for n in ("w_in_x", "w_in_z")])
+    xb, z = tp.batch_part(xb), tp.batch_part(z)
     xb, conv_state = conv1d_step(xb, layer_cache["conv"], p["conv_w"], p["conv_b"])
     xb = F.silu(xb)
-    dt = F.softplus(((xb @ p["w_x_dt"]) @ p["w_dt"]).float() + p["b_dt"].float())  # (B, di)
-    bm = (xb @ p["w_x_b"]).float()  # (B, N)
-    cm = (xb @ p["w_x_c"]).float()
+    dt, bm, cm = _mixer_inputs(cfg, p, xb, split)  # dt (B, di) fp32, bm and cm (B, N)
     a = -torch.exp(p["a_log"].float())  # (di, N)
     da = torch.exp(dt[..., None] * a)  # (B, di, N)
     db = (dt * xb.float())[..., None] * bm[:, None, :]
     h = da * layer_cache["h"] + db  # (B, di, N)
     y = torch.einsum("bdn,bn->bd", h, cm)
     y = y + p["d_skip"].float() * xb.float()
-    y = (y.to(x.dtype) * F.silu(z)) @ p["w_out"]
-    return x + y[:, None, :], {"h": h, "conv": conv_state}
+    y = tp.batch_whole(y.to(x.dtype) * F.silu(z))
+    [(out, os_)] = linears(y, [(p["w_out"], ("ssm_inner", "embed"), (di, D))], x_split=split is not None)
+    return x + whole(out, os_)[:, None, :], {"h": h, "conv": conv_state}
 
 
 def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len=None):
@@ -224,9 +231,10 @@ def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len=None):
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos, extras=None):
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    """One decode step; each layer gathered where it runs (``tp.fsdp``)."""
+    x = embed(cfg, params, tokens, False)
     new = []
     for i in range(n_stacked(params["blocks"])):
-        x, lc = mamba_decode_block(cfg, x, layer(params["blocks"], i), layer(cache["layers"], i))
+        x, lc = mamba_decode_block(cfg, x, tp.fsdp(layer(params["blocks"], i)), layer(cache["layers"], i))
         new.append(lc)
-    return _head(cfg, params, x), {"layers": stack_layers(new)}
+    return head(cfg, params, x), {"layers": stack_layers(new)}

@@ -8,7 +8,8 @@ each layer's gathered over the dp axes inside its ``remat`` (``tp.fsdp``),
 the embedding and the head where they are used, the "model" shards
 computed on under tensor parallelism, and under sequence parallelism the
 residual stream on the rank's slice of the sequence (``models/layers.py``);
-the decode step takes whole weights.
+the decode step takes the same shards and the rank's cache as the prefill
+leaves it (``attention.decode_self_attention``).
 """
 from __future__ import annotations
 
@@ -92,25 +93,15 @@ def self_attn_block(cfg: ArchConfig, x, p, pos, *, window=None, seq: bool = Fals
     return x, (k, v)
 
 
-def write_cache(cache_k, cache_v, k_t, v_t, pos):
-    """Write one token's k/v into the cache at per-batch positions.  Returns
-    new caches; the inputs are left as they were, as in the reference."""
-    rows = torch.arange(cache_k.shape[0], device=cache_k.device)
-    cache_k, cache_v = cache_k.clone(), cache_v.clone()
-    cache_k[rows, pos.long()] = k_t[:, 0]
-    cache_v[rows, pos.long()] = v_t[:, 0]
-    return cache_k, cache_v
-
-
-def self_attn_block_decode(cfg: ArchConfig, x, p, layer_cache, pos, *, window=None, cache_positions=None):
+def self_attn_block_decode(cfg: ArchConfig, x, p, layer_cache, pos, *, window=None, ring: bool = False):
+    """One decode token through a dense block: x (B, 1, D) whole; the
+    layer's cache as the prefill leaves it (the rank's rows and KV heads
+    under tensor parallelism, ``attention.cached_attention``); with ``ring``
+    the cache is a ring buffer of the last ``window`` positions."""
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-    q, k_t, v_t, _ = attn.heads_qkv(cfg, p["attn"], h)
-    q = apply_rope(q, pos[:, None], cfg.rope_theta)
-    k_t = apply_rope(k_t, pos[:, None], cfg.rope_theta)
-    write_pos = pos if window is None else pos % layer_cache["k"].shape[1]
-    ck, cv = write_cache(layer_cache["k"], layer_cache["v"], k_t, v_t, write_pos)
-    a = attn.decode_attention(q, ck, cv, pos, cache_positions=cache_positions, window=window)
-    x = x + attn.heads_out(cfg, a, p["attn"]["wo"], False)
+    a, ck, cv = attn.decode_self_attention(cfg, p["attn"], h, layer_cache["k"], layer_cache["v"], pos, ring=ring,
+                                           window=window)
+    x = x + a
     h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
     x = x + mlp(h, p["mlp"], cfg.d_ff, F.silu)
     return x, {"k": ck, "v": cv}
@@ -150,10 +141,13 @@ def _head(cfg: ArchConfig, params, x, *, gather: bool = True, seq: bool = False)
     rank's vocab range of the logits, gathered whole unless ``gather`` is
     False (the loss's vocab-parallel cross entropy): then (logits, their
     vocab split or None).  ``seq``: ``x`` is the rank's slice of the
-    sequence, and the logits cover the whole of it."""
+    sequence, and the logits cover the whole of it.  Under "serve_2dtp" an
+    untied head's d_model rows are cut over "data" (``lm_logits``'
+    ``data_cut``)."""
     x = rms_norm(x, params["ln_f"], cfg.norm_eps, seq=seq)
     head, split = head_split(cfg, params)
-    logits = lm_logits(x, head.to(x.dtype), split, seq=seq)
+    data_cut = "lm_head" in params and tp.data_split(("embed", "vocab"), (cfg.d_model, cfg.vocab_size)) is not None
+    logits = lm_logits(x, head.to(x.dtype), split, seq=seq, data_cut=data_cut)
     vocab_split = split is not None and split[0] == 1
     if not gather:
         return logits, split if vocab_split else None
@@ -236,10 +230,13 @@ def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len: Optional[in
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos, extras=None):
-    """One decode step.  tokens (B, 1), pos (B,).  Returns (logits, cache)."""
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    """One decode step.  tokens (B, 1), pos (B,).  Returns (logits, cache).
+    Inside a sharded step each layer's dp shards are gathered where it runs
+    (``tp.fsdp``; nothing under "serve_2dtp"), the embedding and the head
+    where they are used, and the "model" shards computed on."""
+    x = embed(cfg, params, tokens, False)
     new = []
     for i in range(n_stacked(params["blocks"])):
-        x, lc = self_attn_block_decode(cfg, x, layer(params["blocks"], i), layer(cache["layers"], i), pos)
+        x, lc = self_attn_block_decode(cfg, x, tp.fsdp(layer(params["blocks"], i)), layer(cache["layers"], i), pos)
         new.append(lc)
-    return _head(cfg, params, x), {"layers": stack_layers(new)}
+    return head(cfg, params, x), {"layers": stack_layers(new)}

@@ -26,10 +26,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import embed_tokens, mlp, remat, rms_norm
+from repro_torch.models.layers import mlp, remat, rms_norm
 from repro_torch.models.spec import ParamSpec, dense, layer, layers, stack_layers, stacked, torch_dtype
 from repro_torch.models.transformer import (
-    _head,
     _positions,
     embed,
     head,
@@ -104,11 +103,10 @@ def xattn_block(cfg: ArchConfig, x, p, img: torch.Tensor, seq: bool = False):
 
 
 def _xattn_block_cached(cfg: ArchConfig, x, p, ck, cv):
-    """Decode-time gated cross attention against the cached image K/V."""
+    """Decode-time gated cross attention against the cached image K/V (the
+    rank's heads and rows, as the prefill leaves them)."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q, _ = attn.heads_q(cfg, p["cross"], h)
-    pos_full = torch.full((x.shape[0],), ck.shape[1] - 1, dtype=torch.int32, device=x.device)  # every image token valid
-    return _xattn_tail(cfg, x, p, attn.heads_out(cfg, attn.decode_attention(q, ck, cv, pos_full), p["cross"]["wo"], False))
+    return _xattn_tail(cfg, x, p, attn.decode_cross_attention(cfg, p["cross"], h, ck, cv))
 
 
 def _images(cfg: ArchConfig, extras) -> torch.Tensor:
@@ -189,12 +187,13 @@ def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len: Optional[in
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos, extras=None):
     """One decode step.  tokens (B, 1), pos (B,).  The self caches are
-    written into copies; the image K/V pass through unchanged."""
-    x = embed_tokens(tokens, params["embed"], torch_dtype(cfg.compute_dtype))
+    written into copies; the image K/V pass through unchanged.  Each
+    superblock gathered where it runs (``tp.fsdp``)."""
+    x = embed(cfg, params, tokens, False)
     sbs = cache["superblocks"]
     ks, vs = [], []  # every self layer's new cache, stacked once at the end
     for i in range(n_stacked(params["superblocks"])):
-        p, lc = layer(params["superblocks"], i), layer(sbs, i)
+        p, lc = tp.fsdp(layer(params["superblocks"], i)), layer(sbs, i)
         for j in range(n_stacked(p["self"])):
             x, c = self_attn_block_decode(cfg, x, layer(p["self"], j), {"k": lc["k"][j], "v": lc["v"][j]}, pos)
             ks.append(c["k"])
@@ -203,4 +202,4 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, extras=None):
     grid = tuple(sbs["k"].shape[:2])  # (n_super, period - 1)
     out = {"k": torch.stack(ks).unflatten(0, grid), "v": torch.stack(vs).unflatten(0, grid),
            "img_k": sbs["img_k"], "img_v": sbs["img_v"]}
-    return _head(cfg, params, x), {"superblocks": out}
+    return head(cfg, params, x), {"superblocks": out}

@@ -16,16 +16,16 @@ axis.  The train and serve steps (``train/step.py``) run these specs on
 ``torch.distributed``: data parallelism with FSDP parameter shards and
 ZeRO-1 optimizer shards over "data", gathered a layer at a time over the dp
 axes inside the layer loop and their gradients reduce-scattered back
-(``parallel/tensor.py``, ``fsdp``), and, in the train and prefill steps
-under "tp", "fsdp_tp", "fsdp", "tp_sp" and "fsdp_tp_sp", tensor
-parallelism over "model": each rank computes on its "model" shard of every
+(``parallel/tensor.py``, ``fsdp``), and, under every strategy, tensor
+parallelism over "model" in the train, prefill and decode steps: each rank computes on its "model" shard of every
 weight, with the moves of ``parallel/tensor.py`` where the reference's
-GSPMD inserts collectives, and under the two "_sp" strategies the residual
+GSPMD inserts collectives, under the two "_sp" strategies the residual
 stream between blocks on the rank's slice of the sequence (Megatron-LM's
-sequence parallelism).  The decode step keeps whole weights; its one split
-over "model" is the distributed flash-decode's (``models/attention.py``).
-"serve_2dtp", tensor-parallel decode and the compressed step on "model"
-are ROADMAP.md, "Modules to port", item 6d.
+sequence parallelism), and under "serve_2dtp" (``is_two_d``) the "data"
+axis cutting the weights' d_model dims as a second tensor axis.  The
+distributed flash-decode splits the cache's sequence over "model"
+(``models/attention.py``).  The compressed step runs on any mesh
+(``optim/compression.py``).
 """
 from __future__ import annotations
 
@@ -264,6 +264,7 @@ class _Ctx:
     flash_decode: bool = False
     tensor_parallel: bool = False
     sequence_parallel: bool = False
+    two_d: bool = False
     param_rules: Optional[dict] = None
     shards = None
 
@@ -296,19 +297,29 @@ class activation_rules:
         self.flash_decode = strategy.flash_decode
         self.tensor_parallel = tensor_parallel
         self.sequence_parallel = strategy.act_rules.get("seq") == "model"
+        self.two_d = is_two_d(strategy)
         self.param_rules = _param_rules(strategy, mesh)
         self.shards = shards
 
     def __enter__(self):
         _CTX.mesh, _CTX.flash_decode = self.mesh, self.flash_decode
         _CTX.tensor_parallel, _CTX.param_rules = self.tensor_parallel, self.param_rules
-        _CTX.sequence_parallel, _CTX.shards = self.sequence_parallel, self.shards
+        _CTX.sequence_parallel, _CTX.shards, _CTX.two_d = self.sequence_parallel, self.shards, self.two_d
         return self
 
     def __exit__(self, *exc):
         _CTX.mesh, _CTX.flash_decode, _CTX.tensor_parallel, _CTX.param_rules = None, False, False, None
-        _CTX.sequence_parallel, _CTX.shards = False, None
+        _CTX.sequence_parallel, _CTX.shards, _CTX.two_d = False, None, False
         return False
+
+
+def is_two_d(strategy: Strategy) -> bool:
+    """Whether a strategy runs 2D tensor parallelism ("serve_2dtp"): its
+    activations replicated over "data" (``batch`` None) while its weights
+    are cut over "data", so "data" cuts weights as "model" does and is no
+    dp axis of the step: partial products summed over "data", results cut
+    over "data" gathered, and no weight gathered (``parallel/tensor.py``)."""
+    return strategy.act_rules.get("batch", "__dp__") is None
 
 
 def current_mesh():
@@ -317,12 +328,17 @@ def current_mesh():
 
 
 def tensor_parallel_enabled() -> bool:
-    """True inside a tensor-parallel train or prefill step."""
+    """True inside a tensor-parallel train, prefill or decode step."""
     return _CTX.tensor_parallel and _CTX.mesh is not None
 
 
 def current_param_rules() -> Optional[dict]:
     return _CTX.param_rules
+
+
+def two_d_enabled() -> bool:
+    """True inside a tensor-parallel step of a 2D strategy ("serve_2dtp")."""
+    return tensor_parallel_enabled() and _CTX.two_d
 
 
 def sequence_parallel_enabled() -> bool:

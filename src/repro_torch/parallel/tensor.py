@@ -33,7 +33,7 @@ A split dim is laid out as ``(outer, m, rest)``: the rank's part is block
 runs (under "fsdp_tp" a spilled "embed" dim is ("data", "model"), under
 "fsdp" every split dim).
 
-The train and prefill steps keep each parameter as the rank's shard over
+The train, prefill and decode steps keep each parameter as the rank's shard over
 every mesh axis.  ``fsdp`` gathers a layer's shards over the dp axes where
 the layer runs, inside the function that ``models/layers.remat``
 checkpoints, so the remat replay gathers them again and no gathered weight
@@ -42,10 +42,21 @@ gradient straight to the rank's cut of the leaf's optimizer moments and
 all-reduces it over the dp axes that cut no dim, and ``Shards`` collects it
 (ROADMAP.md item 6c).
 
+Under "serve_2dtp" (2D tensor parallelism, ``sharding.is_two_d``) the
+"data" axis cuts weights too, on their d_model dims, and is no dp axis of
+the step: ``data_split`` reads that cut, and ``reduce``, ``enter``,
+``gather`` and ``split`` take ``axis="data"``.  A product whose
+contraction "data" cuts reads the rank's "data" block of its input and
+sums its partial results over "data"; one whose result "data" cuts reads
+its input through ``enter`` over "data" and gathers the result; no
+weight is gathered (``Shards`` with no dp axes).  Its batch is whole on
+every rank while its caches hold the rank's rows: ``batch_part`` and
+``batch_whole`` move the decode's token to and from them.
+
 The moves act only inside a tensor-parallel step (``activation_rules(...,
-tensor_parallel=True)``, installed by ``train/step.py``'s train and prefill
-steps); elsewhere ``weight_split`` reads no split, ``fsdp`` returns what it
-is given and the model runs on whole weights.  On an abstract mesh
+tensor_parallel=True)``, installed by ``train/step.py``'s train, prefill
+and decode steps); elsewhere ``weight_split`` reads no split, ``fsdp``
+returns what it is given and the model runs on whole weights.  On an abstract mesh
 (``launch/mesh.make_production_mesh``: no process group) the moves do not
 communicate: they return tensors of the right shape, dtype and device and
 record the same bytes, which is how the dry run (``launch/dryrun.py``)
@@ -75,6 +86,7 @@ class CollectiveCounter:
     def reset(self) -> None:
         self.bytes_by_op: dict[str, int] = defaultdict(int)
         self.count_by_op: dict[str, int] = defaultdict(int)
+        self.param_bytes = 0  # of the all-gathers: those of parameter shards (``fsdp``)
 
     def record(self, op: str, nbytes: int) -> None:
         self.bytes_by_op[op] += int(nbytes)
@@ -208,12 +220,24 @@ def rank_slice(t: torch.Tensor, n: int, r: int, dim: int, outer: int = 1) -> tor
 # ---------------------------------------------------------------------------
 
 
-def _tp_mesh():
-    """The mesh of a tensor-parallel step whose "model" axis is above 1, or None."""
+def _tp_mesh(axis: str = "model"):
+    """The mesh of a tensor-parallel step whose ``axis`` is one of its
+    tensor axes (``_tensor_axes``) and holds more than one rank, or None."""
     from repro_torch.parallel.sharding import current_mesh, tensor_parallel_enabled
 
     mesh = current_mesh()
-    return mesh if tensor_parallel_enabled() and _ranks(mesh, "model") > 1 else None
+    if not tensor_parallel_enabled() or axis not in _tensor_axes():
+        return None
+    return mesh if _ranks(mesh, axis) > 1 else None
+
+
+def _tensor_axes() -> tuple:
+    """The mesh axes that cut weights into the parts a rank computes on:
+    "model", and "data" under "serve_2dtp" (elsewhere "data" is a dp axis,
+    whose shards ``fsdp`` gathers)."""
+    from repro_torch.parallel.sharding import two_d_enabled
+
+    return ("data", "model") if two_d_enabled() else ("model",)
 
 
 def model_size() -> int:
@@ -237,10 +261,32 @@ def weight_split(axes: tuple, shape: tuple) -> Optional[tuple[int, int]]:
     from repro_torch.parallel.sharding import current_param_rules, mesh_axis_sizes, resolve_axes, spec_axes
 
     spec = resolve_axes(tuple(axes), current_param_rules(), mesh.axis_names, tuple(shape), mesh_axis_sizes(mesh))
+    tensor = _tensor_axes()
     for d, entry in enumerate(spec):
         names = spec_axes(entry)
         if "model" in names:
-            return d, math.prod(mesh.axis_size(a) for a in names[: names.index("model")])
+            return d, math.prod(mesh.axis_size(a) for a in names[: names.index("model")] if a not in tensor)
+    return None
+
+
+def data_split(axes: tuple, shape: tuple) -> Optional[tuple[int, int]]:
+    """Under "serve_2dtp" (2D tensor parallelism), where a weight of global
+    ``shape`` and logical ``axes`` is cut over "data": (dim, outer), "data"
+    being the outermost axis of its dim (outer 1); None elsewhere.  A dim
+    cut over ("data", "model") is read as the rank's "data" block, within
+    which ``weight_split`` gives the "model" cut."""
+    mesh = _tp_mesh("data")
+    if mesh is None:
+        return None
+    from repro_torch.parallel.sharding import current_param_rules, mesh_axis_sizes, resolve_axes, spec_axes
+
+    spec = resolve_axes(tuple(axes), current_param_rules(), mesh.axis_names, tuple(shape), mesh_axis_sizes(mesh))
+    for d, entry in enumerate(spec):
+        names = spec_axes(entry)
+        if "data" in names:
+            if names.index("data"):
+                raise NotImplementedError(f"a weight dim cut over {names}: 'data' not outermost")
+            return d, 1
     return None
 
 
@@ -251,76 +297,92 @@ def weight_split(axes: tuple, shape: tuple) -> Optional[tuple[int, int]]:
 
 class _Reduce(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        return all_reduce(x.clone(), mesh, "model")
+    def forward(ctx, x, mesh, axes):
+        return all_reduce(x.clone(), mesh, axes)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
 class _Enter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce(g.clone(), ctx.mesh, "model"), None
+        return all_reduce(g.clone(), ctx.mesh, ctx.axis), None, None
 
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, dim, outer):
-        ctx.mesh, ctx.dim, ctx.outer = mesh, dim, outer
-        return all_gather(x, mesh, "model", dim, outer)
+    def forward(ctx, x, mesh, dim, outer, axis):
+        ctx.mesh, ctx.dim, ctx.outer, ctx.axis = mesh, dim, outer, axis
+        return all_gather(x, mesh, axis, dim, outer)
 
     @staticmethod
     def backward(ctx, g):
-        m = ctx.mesh
-        return rank_slice(g, m.axis_size("model"), m.coordinate("model"), ctx.dim, ctx.outer).contiguous(), None, None, None
+        m, a = ctx.mesh, ctx.axis
+        return rank_slice(g, m.axis_size(a), m.coordinate(a), ctx.dim, ctx.outer).contiguous(), None, None, None, None
 
 
 class _Split(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, dim, outer):
-        ctx.mesh, ctx.dim, ctx.outer = mesh, dim, outer
-        return rank_slice(x, mesh.axis_size("model"), mesh.coordinate("model"), dim, outer).contiguous()
+    def forward(ctx, x, mesh, dim, outer, axis):
+        ctx.mesh, ctx.dim, ctx.outer, ctx.axis = mesh, dim, outer, axis
+        return rank_slice(x, mesh.axis_size(axis), mesh.coordinate(axis), dim, outer).contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        return all_gather(g, ctx.mesh, "model", ctx.dim, ctx.outer), None, None, None
+        return all_gather(g, ctx.mesh, ctx.axis, ctx.dim, ctx.outer), None, None, None, None
 
 
-def reduce(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
-    """The sum of the ranks' partial ``x`` (``op="max"``: the largest, with
-    no gradient, for a softmax's shift)."""
-    mesh = _tp_mesh()
-    if mesh is None:
+def reduce(x: torch.Tensor, op: str = "sum", axis="model") -> torch.Tensor:
+    """The sum of the ranks' partial ``x`` over ``axis`` ("model", or under
+    "serve_2dtp" "data" or both as one collective); ``op="max"``: the
+    largest, with no gradient, for a softmax's shift."""
+    axes = tuple(a for a in ((axis,) if isinstance(axis, str) else axis) if _tp_mesh(a) is not None)
+    if not axes:
         return x
+    mesh = _tp_mesh(axes[0])
+    axes = axes[0] if len(axes) == 1 else axes
     if op == "max":
-        return all_reduce(x.detach().clone(), mesh, "model", "max")
-    return _Reduce.apply(x, mesh)
+        return all_reduce(x.detach().clone(), mesh, axes, "max")
+    return _Reduce.apply(x, mesh, axes)
 
 
-def enter(x: torch.Tensor) -> torch.Tensor:
+def enter(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
     """A replicated ``x`` read by rank-specific work: its gradient is summed
-    over the ranks."""
-    mesh = _tp_mesh()
-    return x if mesh is None else _Enter.apply(x, mesh)
+    over the ranks of ``axis``."""
+    mesh = _tp_mesh(axis)
+    return x if mesh is None else _Enter.apply(x, mesh, axis)
 
 
-def gather(x: torch.Tensor, dim: int, outer: int = 1) -> torch.Tensor:
-    """The whole of a ``dim`` split over "model"."""
-    mesh = _tp_mesh()
-    return x if mesh is None else _Gather.apply(x, mesh, dim, outer)
+def gather(x: torch.Tensor, dim: int, outer: int = 1, axis: str = "model") -> torch.Tensor:
+    """The whole of a ``dim`` split over ``axis``."""
+    mesh = _tp_mesh(axis)
+    return x if mesh is None else _Gather.apply(x, mesh, dim, outer, axis)
 
 
-def split(x: torch.Tensor, dim: int, outer: int = 1) -> torch.Tensor:
-    """The rank's part of a replicated ``dim``."""
-    mesh = _tp_mesh()
-    return x if mesh is None else _Split.apply(x, mesh, dim, outer)
+def split(x: torch.Tensor, dim: int, outer: int = 1, axis: str = "model") -> torch.Tensor:
+    """The rank's part of a replicated ``dim`` over ``axis``."""
+    mesh = _tp_mesh(axis)
+    return x if mesh is None else _Split.apply(x, mesh, dim, outer, axis)
+
+
+def batch_part(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """The rank's rows of a batch that the step replicates over "data"
+    while its caches hold the rank's rows ("serve_2dtp": tokens whole, the
+    caches cut over "data" by ``cache_batch``); ``x`` elsewhere, where the
+    step already cut the batch to the rank's rows."""
+    return split(x, dim, axis="data")
+
+
+def batch_whole(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """The inverse of ``batch_part``: the ranks' rows joined over "data"."""
+    return gather(x, dim, axis="data")
 
 
 # ---------------------------------------------------------------------------
@@ -402,11 +464,12 @@ class Shards:
     the compressed step reduces them itself.  Without ``grad_specs`` the
     gathers are forward-only (the prefill)."""
 
-    def __init__(self, mesh, leaves: list, specs: list, grad_specs: Optional[list] = None, *, reduce: bool = True):
+    def __init__(self, mesh, leaves: list, specs: list, grad_specs: Optional[list] = None, *, reduce: bool = True,
+                 dp: Optional[tuple] = None):
         from repro_torch.parallel.sharding import dp_axes
 
         self.mesh, self.reduce = mesh, reduce
-        self.dp = dp_axes(mesh.axis_names)
+        self.dp = dp_axes(mesh.axis_names) if dp is None else tuple(dp)  # () under "serve_2dtp": nothing gathered
         self.leaves = []
         for i, (t, spec) in enumerate(zip(leaves, specs)):
             if t._base is not None:
@@ -443,7 +506,9 @@ class Shards:
     def gather(self, t: torch.Tensor, s: _Shard, layer: Optional[int]) -> torch.Tensor:
         """``t``, a registered leaf (or its layer ``layer``), gathered over
         the dp axes (a view of ``t`` where no dp axis cuts it)."""
+        before = COLLECTIVES.bytes_by_op.get("all-gather", 0)
         out = gather_axes(t, s.spec if layer is None else s.spec[1:], self.mesh, self.dp)
+        COLLECTIVES.param_bytes += COLLECTIVES.bytes_by_op.get("all-gather", 0) - before
         return t.view_as(t) if out is t else out
 
     def collect(self, s: _Shard, layer: Optional[int], g: torch.Tensor) -> None:

@@ -34,15 +34,26 @@ shard, as the reference's GSPMD program does:
     gradients, as the reference's ``shard_map`` body does, since
     ``compressed_mean`` reduces them itself.
 
-Tensor parallelism ("model" above 1) runs the train and prefill steps under
-"tp", "fsdp_tp", "fsdp", "tp_sp" and "fsdp_tp_sp"; the two "_sp"
-strategies run the residual stream on the rank's slice of the sequence
-(``models/layers.py``).  "serve_2dtp" on such a mesh, the compressed step
-on it and a decode step on "model"-sharded weights raise
-``NotImplementedError`` (ROADMAP.md, "Modules to port", item 6d).  The
-decode step takes whole weights on any mesh, and under a strategy with
-``flash_decode`` the attention splits the cache's sequence over "model"
-(``models/attention.py``).  On an abstract mesh
+Tensor parallelism ("model" above 1) runs the train, prefill and decode
+steps under every strategy: "tp", "fsdp_tp", "fsdp", "tp_sp",
+"fsdp_tp_sp" and "serve_2dtp".  The two "_sp" strategies run the residual
+stream on the rank's slice of the sequence (``models/layers.py``).
+"serve_2dtp" is 2D tensor parallelism: its weights are cut over "data" on
+their d_model dims as well as over "model", its activations replicated
+over "data", so "data" is no dp axis there: no weight is gathered, a
+product whose contraction "data" cuts sums its partial results over
+"data", and a result "data" cuts is gathered (``parallel/tensor.py``); its
+batch is whole on every rank and its gradients exact, with nothing to
+average, while its caches hold the rank's rows ("cache_batch").  The
+decode step takes the rank's shards of the weights, gathered a layer at a
+time over the dp axes as the prefill gathers them, and the cache as the
+tensor-parallel prefill returns it (``shard_cache`` cuts a whole cache so);
+under a strategy with ``flash_decode`` the attention splits the cache's
+sequence over "model" where the rank's cache holds every KV head
+(``models/attention.py``).  The compressed step runs on a (d, m) mesh
+too: the rank's gradients of its "model" shards, whole over the dp axes,
+reduced by ``compressed_mean`` over its "data" group in the whole
+tensors' int8 blocks.  On an abstract mesh
 (``launch/mesh.make_production_mesh``) the steps run without a process
 group: their collectives record their bytes and return tensors of the
 right shapes (the dry run, ``launch/dryrun.py``).
@@ -50,7 +61,7 @@ right shapes (the dry run, ``launch/dryrun.py``).
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Optional
 
 import torch
@@ -66,16 +77,13 @@ from repro_torch.parallel.sharding import (
     activation_rules,
     default_strategy,
     dp_axes,
+    is_two_d,
     local_shape,
     mesh_axis_sizes,
     param_pspec_tree,
     resolve_axes,
     spec_axes,
 )
-
-NOT_PORTED = "{what}: not ported yet (ROADMAP.md, 'Modules to port', item 6d)"
-# the strategies whose "model" splits the train and prefill steps run
-TP_STRATEGIES = ("tp", "fsdp_tp", "fsdp", "tp_sp", "fsdp_tp_sp")
 
 
 # ---------------------------------------------------------------------------
@@ -177,15 +185,6 @@ def gather_tree(tree, specs, mesh):
     return tree_map(lambda t: gather(t, next(flat), mesh), tree)
 
 
-def _refuse_model_parallel(mesh, strategy: Strategy, what: str, *, compressed: bool = False) -> None:
-    """Tensor parallelism runs under TP_STRATEGIES in the plain train and
-    prefill steps; anything else on a "model" axis above 1 is item 6d."""
-    n = mesh.axis_size("model")
-    if n > 1 and (compressed or strategy.name not in TP_STRATEGIES):
-        how = "with compressed gradients" if compressed else f"under {strategy.name!r}"
-        raise NotImplementedError(NOT_PORTED.format(what=f"{what} {how} on a 'model' axis of {n}"))
-
-
 class _Layout:
     """One model's train state on a mesh: each leaf's spec as a parameter
     and as a moment (and so as a gradient), and the dp axes its gradients
@@ -207,7 +206,9 @@ class _Layout:
         # stacked leaves whose moments keep the layer dim whole: updated a layer at a time
         self.by_layer = [s.axes[:1] == ("layers",) and spec_axes(m[0]) == () for s, m in zip(tree_leaves(specs), self.moments)]
         self.param_tree = pspecs
-        self.dp = dp_axes(mesh.axis_names)
+        # the axes the batch is cut over and the gradients summed over: none
+        # under "serve_2dtp", whose "data" axis cuts weights
+        self.dp = () if is_two_d(strategy) else dp_axes(mesh.axis_names)
         self.n_dp = math.prod(mesh.axis_size(a) for a in self.dp)
         # the axes each gradient is cut on (its moment's), mesh order: a norm group
         self.cut = [tuple(a for a in mesh.axis_names if mesh.axis_size(a) > 1 and a in {x for e in spec for x in spec_axes(e)})
@@ -226,7 +227,7 @@ class _Layout:
         gathers a layer at a time.  The gradients come summed over the dp
         ranks in the moments' layout, or with ``reduce`` False as this
         rank's own, whole over the dp axes."""
-        shards = tp.Shards(self.mesh, tree_leaves(params), self.params, self.moments, reduce=reduce)
+        shards = tp.Shards(self.mesh, tree_leaves(params), self.params, self.moments, reduce=reduce, dp=self.dp)
         with self.rules(shards):  # the backward too: its moves and the remat replays read the rules
             loss, metrics = model.loss(params, self.local_batch(batch))
             torch.autograd.backward(loss, inputs=[shards.token])
@@ -286,10 +287,8 @@ class _Layout:
 # ---------------------------------------------------------------------------
 
 
-def _layout(model: Model, strategy: Optional[Strategy], mesh, what: str, *, compressed: bool = False) -> _Layout:
-    strategy = strategy or default_strategy(model.cfg)
-    _refuse_model_parallel(mesh, strategy, what, compressed=compressed)
-    return _Layout(model, strategy, mesh)
+def _layout(model: Model, strategy: Optional[Strategy], mesh) -> _Layout:
+    return _Layout(model, strategy or default_strategy(model.cfg), mesh)
 
 
 def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig, *, strategy: Optional[Strategy] = None, mesh=None):
@@ -303,7 +302,7 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig, *, strategy: Optio
     state is this rank's shards and the gradients are averaged over the dp
     ranks (module docstring); ``strategy`` defaults to the config's."""
     if mesh is not None:
-        return _sharded_train_step(model, opt_cfg, _layout(model, strategy, mesh, "a train step"))
+        return _sharded_train_step(model, opt_cfg, _layout(model, strategy, mesh))
 
     def train_step(params, opt_state, batch):
         leaves = tree_leaves(params)
@@ -337,25 +336,35 @@ def make_compressed_train_step(model: Model, opt_cfg: adamw.AdamWConfig, *, stra
     ``compressed_mean`` a leaf in place of the all-reduce, then AdamW.
 
     (params, opt_state, comp_state, batch) -> (params, opt_state,
-    comp_state, metrics); ``comp_state`` is ``compression_state`` of the
-    params' global shapes over the dp ranks, and carries the error feedback
-    between steps; it is updated in place, as AdamW's state is.  The metrics are averaged over the dp ranks, as the
+    comp_state, metrics); ``comp_state`` is ``init_compression_state``'s
+    (``compression_state`` of the params' shapes over the dp ranks), and
+    carries the error feedback between steps; it is updated in place, as
+    AdamW's state is.  The metrics are averaged over the dp ranks, as the
     reference's ``pmean`` averages them.  Without a mesh, a world of one:
     the gradients are quantized and no collective runs.  Each rank keeps
-    its whole local gradients (``loss_and_grads(reduce=False)``), as the
-    reference's ``shard_map`` body does: ``compressed_mean`` takes them
-    whole, and the step then updates the rank's slices of its mean."""
+    its whole local gradients over the dp axes (``loss_and_grads(reduce=False)``),
+    as the reference's ``shard_map`` body does: ``compressed_mean`` takes
+    them whole, and the step then updates the rank's slices of its mean.
+    The reference's ``shard_map`` makes every mesh axis manual and reduces
+    whole gradients; on a "model" axis above 1 a rank holds its "model"
+    shard of each, which ``compressed_mean`` joins over "model" to
+    quantize the whole tensor's blocks (``compression_parts``), so the
+    numbers are the reference's on any mesh, and the error states the rank
+    keeps are its shards.  The batch is cut over the dp axes whatever the
+    strategy's "batch" rule, as the reference's ``shard_map`` cuts it (under
+    "serve_2dtp" too, whose "data" axis is then a dp axis)."""
     from repro_torch.launch.mesh import Mesh
     from repro_torch.optim.compression import compressed_mean
 
-    layout = _layout(model, strategy, mesh if mesh is not None else Mesh(("data", "model"), (1, 1)), "a train step",
-                     compressed=True)
+    strategy = _dp_batch(strategy or default_strategy(model.cfg))
+    layout = _layout(model, strategy, mesh if mesh is not None else Mesh(("data", "model"), (1, 1)))
     dp = layout.mesh.group("data")
+    parts = compression_parts(model, strategy, layout.mesh)
 
     def train_step(params, opt_state, comp_state, batch):
         metrics, grads = layout.loss_and_grads(model, params, batch, reduce=False)
         for i, st in enumerate(_state_leaves(comp_state)):
-            mean, new = compressed_mean(grads[i], st, dp)
+            mean, new = compressed_mean(grads[i], st, dp, part=parts[i])
             grads[i] = mean[_dp_slices(mean.shape, layout.moments[i], layout.mesh)]
             for k, t in new.items():  # in place: two copies of the error states would not fit beside the model
                 st[k].copy_(t)
@@ -363,6 +372,45 @@ def make_compressed_train_step(model: Model, opt_cfg: adamw.AdamWConfig, *, stra
         return params, opt_state, comp_state, {**layout.mean_metrics(metrics, sum_keys=()), **opt_metrics}
 
     return train_step
+
+
+def _dp_batch(strategy: Strategy) -> Strategy:
+    """``strategy`` with its batch cut over the dp axes (a 2D strategy's
+    replicated batch cut as the compressed step's ``shard_map`` cuts it)."""
+    if not is_two_d(strategy):
+        return strategy
+    return replace(strategy, act_rules={**strategy.act_rules, "batch": "__dp__"})
+
+
+def compression_parts(model: Model, strategy: Strategy, mesh) -> list:
+    """Each parameter leaf's "model" cut in the layout the compressed step
+    reduces its gradient in (the rank's "model" shard, whole over the dp
+    axes): a ``compression.ModelPart`` (mesh, dim, outer: the dp axes
+    before "model" in the dim's entry, gathered), or None where "model"
+    cuts no dim or holds one rank."""
+    from repro_torch.optim.compression import ModelPart
+
+    out = []
+    for spec in tree_leaves(param_pspec_tree(model.specs(), _dp_batch(strategy), mesh)):
+        part = None
+        for d, entry in enumerate(spec):
+            names = spec_axes(entry)
+            if "model" in names and mesh.axis_size("model") > 1:
+                part = ModelPart(mesh, d, math.prod(mesh.axis_size(a) for a in names[: names.index("model")]))
+        out.append(part)
+    return out
+
+
+def init_compression_state(model: Model, *, strategy: Optional[Strategy] = None, mesh=None, device="cuda"):
+    """The compressed step's zero error states (``compression_state``) for
+    this rank: over the "data" ranks, of each leaf's "model" shard where
+    "model" cuts it (``compression_parts``), on ``device``."""
+    from repro_torch.optim.compression import compression_state
+
+    if mesh is None:
+        return compression_state(model.specs(), 1, device=device)
+    parts = compression_parts(model, strategy or default_strategy(model.cfg), mesh)
+    return compression_state(model.specs(), mesh.axis_size("data"), device=device, parts=parts)
 
 
 def _state_leaves(comp_state) -> list:
@@ -391,10 +439,12 @@ def make_prefill_step(model: Model, cache_len: int, *, strategy: Optional[Strate
     """(params, batch) -> (last-token logits, cache), without gradients.
     With a mesh: ``params`` are this rank's shards (``param_pspec_tree``),
     gathered over the dp axes into its "model" shards a layer at a time
-    (``tp.fsdp``); the rank computes on
-    its shard of the batch under tensor parallelism; the logits come back
-    global, the cache as this rank computed it: its batch shard, and of the
-    heads and channels that its weights split over "model", its own."""
+    (``tp.fsdp``; nothing under "serve_2dtp"); the rank computes on its
+    shard of the batch under tensor parallelism; the logits come back
+    global, the cache as ``shard_cache`` cuts a whole one: this rank's rows
+    (its batch shard; under "serve_2dtp", which computes the whole batch,
+    its rows of the cache's "data" cut), and of the heads and channels that
+    its weights split over "model", its own."""
     if mesh is None:
         def prefill_step(params, batch):
             with torch.no_grad():
@@ -402,13 +452,16 @@ def make_prefill_step(model: Model, cache_len: int, *, strategy: Optional[Strate
 
         return prefill_step
 
-    layout = _layout(model, strategy, mesh, "a prefill step")
+    layout = _layout(model, strategy, mesh)
 
     def sharded_prefill_step(params, batch):
         specs = batch_pspecs(batch, mesh, layout.strategy)
-        shards = tp.Shards(mesh, tree_leaves(params), layout.params)
+        shards = tp.Shards(mesh, tree_leaves(params), layout.params, dp=layout.dp)
         with torch.no_grad(), layout.rules(shards):
             logits, cache = model.prefill(params, layout.local_batch(batch), cache_len=cache_len)
+        if is_two_d(layout.strategy):
+            cache = shard_cache(model, cache, batch["tokens"].shape[0], cache_len, strategy=layout.strategy, mesh=mesh,
+                                rows_only=True)
         return gather(logits, specs["tokens"], mesh), cache
 
     return sharded_prefill_step
@@ -416,11 +469,15 @@ def make_prefill_step(model: Model, cache_len: int, *, strategy: Optional[Strate
 
 def make_decode_step(model: Model, *, strategy: Optional[Strategy] = None, mesh=None):
     """(params, cache, batch) -> (logits, cache) for batch["tokens"] (B, 1)
-    at batch["pos"] (B,), without gradients.  With a mesh: whole weights on
-    every rank (sharded ones raise: tensor-parallel decode is item 6d), the cache as this rank's shard over the dp axes, the batch
-    global and cut to the shard; under ``strategy.flash_decode`` the
-    attention splits the cache's sequence over "model".  The logits come
-    back global."""
+    at batch["pos"] (B,), without gradients.  With a mesh: ``params`` are
+    this rank's shards, as the prefill step takes them, gathered over the
+    dp axes a layer at a time (none under "serve_2dtp"); ``cache`` is the
+    rank's, as the prefill step returns it (``shard_cache``), never
+    gathered; the batch global and cut to the rank's shard (whole under
+    "serve_2dtp"); under tensor parallelism the rank computes on its
+    "model" shards, and under ``strategy.flash_decode`` the attention
+    splits the cache's sequence over "model" where the rank's cache holds
+    every KV head.  The logits come back global."""
     if mesh is None:
         def decode_step(params, cache, batch):
             with torch.no_grad():
@@ -428,19 +485,68 @@ def make_decode_step(model: Model, *, strategy: Optional[Strategy] = None, mesh=
 
         return decode_step
 
-    strategy = strategy or default_strategy(model.cfg)
-    shapes = [s.shape for s in tree_leaves(model.specs())]
+    layout = _layout(model, strategy, mesh)
 
     def sharded_decode_step(params, cache, batch):
-        if any(tuple(p.shape) != s for p, s in zip(tree_leaves(params), shapes)):
-            raise NotImplementedError(NOT_PORTED.format(what="a decode step on sharded weights (tensor-parallel decode)"))
-        specs = batch_pspecs(batch, mesh, strategy)
-        local = {k: shard(v, specs[k], mesh) for k, v in batch.items()}
-        with torch.no_grad(), activation_rules(strategy, mesh):
+        specs = batch_pspecs(batch, mesh, layout.strategy)
+        local = layout.local_batch(batch)
+        shards = tp.Shards(mesh, tree_leaves(params), layout.params, dp=layout.dp)
+        with torch.no_grad(), layout.rules(shards):
             logits, cache = model.decode_step(params, cache, local["tokens"], local["pos"])
         return gather(logits, specs["tokens"], mesh), cache
 
     return sharded_decode_step
+
+
+def shard_cache(model: Model, cache, batch: int, cache_len: int, *, mesh, strategy: Optional[Strategy] = None,
+                rows_only: bool = False):
+    """This rank's cache from a whole one (every row, head and channel, as
+    a one-rank prefill returns it), in the layout the tensor-parallel
+    prefill leaves and the decode step takes: the rank's rows over the dp
+    axes ("cache_batch" under the strategy's activation rules; over "data"
+    under "serve_2dtp" too), the KV heads its query heads read (its own
+    where "kv_heads" splits: ``attention.cache_kv_heads``), and its channels
+    where the weights split "ssm_inner" or "rnn" over "model".  Unlike the
+    reference's activation rules, a rank keeps every cache position: where
+    the rules spill "model" onto "cache_seq" (KV heads that "model" does
+    not divide) it keeps the KV heads its query heads read, whole over the
+    sequence.  ``rows_only``: cut the rows alone (a cache the rank computed
+    for the whole batch).  Contiguous copies; ``batch`` and ``cache_len``
+    are the whole cache's."""
+    from repro_torch.models import attention as attn
+
+    strategy = strategy or default_strategy(model.cfg)
+    cfg = model.cfg
+    specs = model.cache_specs(batch, cache_len)
+    act = act_pspec_tree(specs, strategy, mesh)
+    dp = dp_axes(mesh.axis_names)
+    cuts = {}  # a cache dim's logical axis -> (t, dim) -> the rank's part of that dim
+    if not rows_only:
+        with activation_rules(strategy, mesh, tensor_parallel=True):
+            heads = attn.cache_kv_heads(cfg) if cfg.n_kv_heads else None
+            if heads is not None:
+                cuts["kv_heads_act"] = lambda t, d, idx=torch.tensor(heads): t.index_select(d, idx.to(t.device))
+            for name, width in (("ssm_inner", cfg.d_inner if cfg.family == "ssm" else 0),
+                                ("rnn", cfg.rnn_dim if cfg.family == "hybrid" else 0)):
+                s = tp.weight_split(("embed", name), (cfg.d_model, width)) if width else None
+                if s is not None and s[0] == 1:
+                    m, r = tp.model_size(), tp.model_rank()
+                    cuts[name + "_act"] = lambda t, d, m=m, r=r, outer=s[1]: tp.rank_slice(t, m, r, d, outer)
+    flat = iter(zip(tree_leaves(specs), tree_leaves(act)))
+
+    def one(t):
+        spec, pspec = next(flat)
+        for d, (name, entry) in enumerate(zip(spec.axes, pspec)):
+            if name == "cache_batch":
+                n, idx = 1, 0
+                for a in (a for a in spec_axes(entry) if a in dp):
+                    idx, n = idx * mesh.axis_size(a) + mesh.coordinate(a), n * mesh.axis_size(a)
+                t = tp.rank_slice(t, n, idx, d)
+            elif name in cuts:
+                t = cuts[name](t, d)
+        return t.clone(memory_format=torch.contiguous_format)
+
+    return tree_map(one, cache)
 
 
 # ---------------------------------------------------------------------------

@@ -131,78 +131,101 @@ def compression_worker(rank: int, world: int, payload: str) -> dict:
 
 def decode_worker(rank: int, world: int, payload: str, model_parallel: int) -> dict:
     """One decode step of each payload case on a (world / model_parallel,
-    model_parallel) mesh, under tp with flash_decode: whole weights, the
-    cache cut to this rank's batch shard.  Returns the global logits."""
+    model_parallel) mesh, under tp with flash_decode: the rank's shards of
+    the weights, the whole cache cut to the rank's (``shard_cache``: its
+    rows, and with one KV head every head, whole over the sequence, whose
+    slice the rank attends to).  Returns the global logits."""
     import dataclasses
 
     from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models.model import Model
-    from repro_torch.models.spec import tree_map
-    from repro_torch.parallel.sharding import STRATEGIES, mesh_axis_sizes, resolve_axes
+    from repro_torch.parallel.sharding import STRATEGIES
     from repro_torch.train import step as step_lib
 
     mesh = make_local_mesh(world, model_parallel)
     strategy = dataclasses.replace(STRATEGIES["tp"], name="tp_fd", flash_decode=True)
-    sizes = mesh_axis_sizes(mesh)
-    rules = {"cache_batch": strategy.act_rules.get("cache_batch")}  # the batch dim over dp, the rest whole
     out = {}
     for case in torch.load(payload, weights_only=False):
         model = Model(get_arch(case["arch"]).reduced().replace(**case["cut"]))
-        B, Lc = case["tokens"].shape[0], case["cache_len"]
-        cache_specs = tree_map(lambda s: resolve_axes(s.axes, rules, mesh.axis_names, s.shape, sizes), model.cache_specs(B, Lc))
-        cache = step_lib.shard_tree(case["cache"], cache_specs, mesh)
+        batch = {"tokens": case["tokens"], "pos": case["pos"]}
+        params = step_lib.shard_tree(case["params"], step_lib.make_shardings(model, strategy, mesh, batch).params, mesh)
+        cache = step_lib.shard_cache(model, case["cache"], batch["tokens"].shape[0], case["cache_len"], strategy=strategy,
+                                     mesh=mesh)
         fn = step_lib.make_decode_step(model, strategy=strategy, mesh=mesh)
-        logits, _ = fn(case["params"], cache, {"tokens": case["tokens"], "pos": case["pos"]})
+        logits, _ = fn(params, cache, batch)
         out[case["arch"]] = logits
     return out
 
 
-def linear_loss(params, batch: dict):
+def linear_loss(params, batch: dict, cut=None):
     """sum(p * G) over the leaves, G the batch's ``g*`` leaves in the
     leaves' order, one row a rank: the gradient is the rank's G exactly.
     The leaves are gathered where they are used (``tp.fsdp``), as the
-    models gather theirs."""
+    models gather theirs.  ``cut``: which leaves a "model" axis cuts (the
+    batch's G then holds the rank's part of theirs), whose partial sums
+    are summed over "model"."""
     from repro_torch.models.spec import tree_leaves
     from repro_torch.parallel import tensor as tp
 
     params = tp.fsdp(params)
     gs = [batch[k] for k in sorted(batch)]
-    loss = sum((p * g[0]).sum() for p, g in zip(tree_leaves(params), gs))
+    cut = cut or [False] * len(gs)
+    terms = [(p * g[0]).sum() for p, g in zip(tree_leaves(params), gs)]
+    loss = sum(t for t, c in zip(terms, cut) if not c) + tp.reduce(sum((t for t, c in zip(terms, cut) if c), torch.zeros(())))
     return loss, {"ce": loss, "tokens": torch.tensor(float(gs[0].shape[0])), "loss": loss}
 
 
-def compressed_train_worker(rank: int, world: int, payload: str, name: str, strategy_name: str, loss: str) -> dict:
-    """``make_compressed_train_step`` over a (world, 1) mesh from the
-    payload's global state and zero error states, one step a batch, with the
-    model's loss or (``loss="linear"``) ``linear_loss``.  Returns each
-    step's metrics, gathered v and this rank's error states, and the final
-    gathered params and m."""
+def compressed_train_worker(rank: int, world: int, payload: str, name: str, strategy_name: str, loss: str,
+                            model_parallel: int = 1) -> dict:
+    """``make_compressed_train_step`` over a (world / model_parallel,
+    model_parallel) mesh from the payload's global state and zero error
+    states (``init_compression_state``), one step a batch, with the model's
+    loss or (``loss="linear"``) ``linear_loss``.  Returns each step's
+    metrics, gathered v and this rank's error states made whole over
+    "model" (the whole gradient's, as the reference's device keeps them),
+    and the final gathered params and m."""
     import copy
 
     from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models.model import Model
     from repro_torch.optim import adamw
-    from repro_torch.optim.compression import compression_state
+    from repro_torch.optim.compression import _n_blocks
+    from repro_torch.parallel import tensor as tp
     from repro_torch.parallel.sharding import STRATEGIES
     from repro_torch.train import step as step_lib
 
     data = torch.load(payload, weights_only=False)
     model = Model(get_arch(name).reduced())
-    if loss == "linear":
-        model.loss = linear_loss
-    mesh = make_local_mesh(world)
+    mesh = make_local_mesh(world, model_parallel)
     strategy = STRATEGIES[strategy_name]
     sh = step_lib.make_shardings(model, strategy, mesh, data["batches"][0])
     params, opt = step_lib.shard_tree(data["params"], sh.params, mesh), step_lib.shard_tree(data["opt"], sh.opt, mesh)
-    comp = compression_state(data["params"], world)
+    comp = step_lib.init_compression_state(model, strategy=strategy, mesh=mesh, device="cpu")
+    parts = step_lib.compression_parts(model, strategy, mesh)
+    n_dp = mesh.axis_size("data")
+    batches = data["batches"]
+    if loss == "linear":  # each rank's G of a leaf "model" cuts: its part, as the leaf's
+        model.loss = lambda params, batch: linear_loss(params, batch, [p is not None for p in parts])
+        batches = [{k: g if part is None else tp.rank_slice(g, part.n, mesh.coordinate("model"), part.dim + 1, part.outer).clone()
+                    for (k, g), part in zip(sorted(b.items()), parts)} for b in batches]
+
+    def whole(comp):
+        comp = copy.deepcopy(comp)
+        for st, part in zip(step_lib._state_leaves(comp), parts):
+            if part is not None:
+                st["worker_err"] = part.whole(st["worker_err"])
+                owned = _n_blocks(st["worker_err"].numel(), n_dp) // n_dp  # the whole tensor's blocks a "data" rank owns
+                st["owner_err"] = part.whole(st["owner_err"], dim=0)[:owned]
+        return comp
+
     fn = step_lib.make_compressed_train_step(model, adamw.AdamWConfig(**data["opt_cfg"]), strategy=strategy, mesh=mesh)
     steps = []
-    for batch in data["batches"]:
+    for batch in batches:
         params, opt, comp, metrics = fn(params, opt, comp, batch)
         steps.append({"metrics": {k: t.clone() for k, t in metrics.items()}, "v": step_lib.gather_tree(opt["v"], sh.opt["v"], mesh),
-                      "comp": copy.deepcopy(comp)})
+                      "comp": whole(comp)})
     return {"steps": steps, "step": int(opt["step"]), "params": step_lib.gather_tree(params, sh.params, mesh),
             "m": step_lib.gather_tree(opt["m"], sh.opt["m"], mesh)}
 
@@ -221,14 +244,30 @@ def driver_worker(rank: int, world: int, ckpt_dir: str) -> dict:
     return {"losses": first["losses"], "resumed_losses": resumed["losses"], "resumed_steps": resumed["steps"]}
 
 
+def greedy_decode(decode, params, cache, logits: torch.Tensor, pos: int, steps: int) -> list:
+    """``steps`` decode steps from a prefill's last logits, each feeding its
+    greedy token back: one (tokens (B, 1), logits) a step."""
+    out = []
+    for i in range(steps):
+        tokens = logits[:, -1].argmax(-1)[:, None].int()
+        logits, cache = decode(params, cache, {"tokens": tokens, "pos": torch.full((tokens.shape[0],), pos + i, dtype=torch.int32)})
+        out.append((tokens, logits))
+    return out
+
+
 def tp_worker(rank: int, world: int, model_parallel: int, payload: str) -> dict:
     """Each payload case on a (world / model_parallel, model_parallel) mesh
     under its strategy: the gradients of the first batch's loss (as the
     first train step collects them, averaged over the dp ranks and gathered
     whole), the metrics of a train step a
-    batch, the gathered params and v after them, and the prefill's logits
-    from the initial state.  Rank 0 returns them by case, with the shards
-    whose shape is not their spec's and the collective bytes of a step."""
+    batch, the gathered params and v after them, the prefill's logits from
+    the initial state, its cache's largest error against ``shard_cache`` of
+    the one-rank prefill's (``cache1``), and where the case asks
+    (``decode``) ``decode_steps`` greedy decode steps on the rank's own
+    cache with their collective bytes and the bytes of the parameters they
+    gathered.  Rank 0 returns them by case,
+    with the shards whose shape is not their spec's and the collective
+    bytes of a step."""
     import copy
 
     from repro_torch.configs import get_arch
@@ -237,7 +276,7 @@ def tp_worker(rank: int, world: int, model_parallel: int, payload: str) -> dict:
     from repro_torch.models.spec import tree_leaves
     from repro_torch.optim import adamw
     from repro_torch.parallel import tensor as tp
-    from repro_torch.parallel.sharding import STRATEGIES, local_shape
+    from repro_torch.parallel.sharding import STRATEGIES, is_two_d, local_shape
     from repro_torch.train import step as step_lib
 
     data = torch.load(payload, weights_only=False)
@@ -257,7 +296,18 @@ def tp_worker(rank: int, world: int, model_parallel: int, payload: str) -> dict:
                                                                          tree_leaves(sh.params))
                  if tuple(t.shape) != local_shape(s.shape, spec, mesh)]
         prefill = {k: v for k, v in batches[0].items() if k != "labels"}
-        logits, _ = step_lib.make_prefill_step(model, prefill["tokens"].shape[1], strategy=strategy, mesh=mesh)(params, prefill)
+        B, L = prefill["tokens"].shape
+        cache_len = L + data["decode_steps"]
+        logits, cache = step_lib.make_prefill_step(model, cache_len, strategy=strategy, mesh=mesh)(params, prefill)
+        want = step_lib.shard_cache(model, case["cache1"], B, cache_len, strategy=strategy, mesh=mesh)
+        cache_err = max(float((a - b).abs().max() / (b.abs().max() + 1e-30)) for a, b in zip(tree_leaves(cache), tree_leaves(want)))
+        cache_shapes = [(tuple(a.shape), tuple(b.shape)) for a, b in zip(tree_leaves(cache), tree_leaves(want)) if a.shape != b.shape]
+        decode = decode_bytes = None
+        if case["decode"]:
+            tp.COLLECTIVES.reset()
+            decode = greedy_decode(step_lib.make_decode_step(model, strategy=strategy, mesh=mesh), params, cache, logits, L,
+                                   data["decode_steps"])
+            decode_bytes = {"by_op": dict(tp.COLLECTIVES.bytes_by_op), "params": tp.COLLECTIVES.param_bytes}
         fn = step_lib.make_train_step(model, adamw.AdamWConfig(**data["opt_cfg"]), strategy=strategy, mesh=mesh)
         steps, first = [], []
         collect = tp.Shards.grads
@@ -275,24 +325,29 @@ def tp_worker(rank: int, world: int, model_parallel: int, payload: str) -> dict:
                 params, opt, metrics = fn(params, opt, batch)
                 steps.append({"metrics": {k: float(t) for k, t in metrics.items()},
                               "v": step_lib.gather_tree(opt["v"], sh.opt["v"], mesh),
-                              "collectives": dict(tp.COLLECTIVES.bytes_by_op)})
+                              "collectives": dict(tp.COLLECTIVES.bytes_by_op), "params_gathered": tp.COLLECTIVES.param_bytes})
         finally:
             tp.Shards.grads = collect
-        n_dp = mesh.axis_size("data")
+        n_dp = 1 if is_two_d(strategy) else mesh.axis_size("data")  # "serve_2dtp": whole batch, exact gradients
         grads = [step_lib.gather(g / n_dp, spec, mesh) for g, spec in zip(first, tree_leaves(sh.opt["m"]))]
         full = step_lib.gather_tree(params, sh.params, mesh)
-        out[key] = {"wrong_shapes": wrong, "logits": logits, "grads": grads, "steps": steps, "params": full}
+        out[key] = {"wrong_shapes": wrong, "logits": logits, "grads": grads, "steps": steps, "params": full,
+                    "cache_err": cache_err, "cache_shapes": cache_shapes, "decode": decode, "decode_bytes": decode_bytes}
     return out if rank == 0 else {}
 
 
-def tp_driver_worker(rank: int, world: int, model_parallel: int) -> dict:
-    """``launch/train.py``'s ``train`` in the world under "tp" with a
-    "model" axis of ``model_parallel`` (``--model-parallel``): two steps."""
+def tp_driver_worker(rank: int, world: int, model_parallel: int, strategies=("tp",)) -> dict:
+    """``launch/train.py``'s ``train`` in the world under each of
+    ``strategies`` with a "model" axis of ``model_parallel``
+    (``--strategy``, ``--model-parallel``): two steps each, by strategy."""
     from repro_torch.launch.train import train
 
-    out = train("llama3-8b", steps=2, seq_len=16, global_batch=4, log_every=0, device="cpu", strategy_name="tp",
-                model_parallel=model_parallel)
-    return {"losses": out["losses"], "grad_norms": out["grad_norms"]}
+    out = {}
+    for name in strategies:
+        run = train("llama3-8b", steps=2, seq_len=16, global_batch=4, log_every=0, device="cpu", strategy_name=name,
+                    model_parallel=model_parallel)
+        out[name] = {"losses": run["losses"], "grad_norms": run["grad_norms"]}
+    return out
 
 
 def moves_worker(rank: int, world: int, model_parallel: int) -> dict:
@@ -356,3 +411,34 @@ def moves_worker(rank: int, world: int, model_parallel: int) -> dict:
     data_sum = sum(G[j * m + mc] for j in range(d))  # the gradient of this rank's "model" part, over "data"
     errs["fsdp_grad"] = float((grad - data_sum[dc * 8:(dc + 1) * 8]).abs().max())
     return errs
+
+
+def reference_decode_worker(rank: int, world: int, model_parallel: int, payload: str) -> dict:
+    """One decode step of each payload case on a (world / model_parallel,
+    model_parallel) mesh under its strategy, from the whole weights cut to
+    the rank's shards and the reference's whole prefill cache cut to the
+    rank's (``shard_cache``): the global logits by case, on rank 0."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.parallel.sharding import STRATEGIES
+    from repro_torch.train import step as step_lib
+
+    mesh = make_local_mesh(world, model_parallel)
+    out = {}
+    for key, case in torch.load(payload, weights_only=False).items():
+        model = Model(get_arch(case["arch"]).reduced().replace(**case["cut"]))
+        name, overrides = case["strategy"]
+        strategy = STRATEGIES[name].with_overrides(**overrides)
+        batch = case["batch"]
+        sh = step_lib.make_shardings(model, strategy, mesh, batch)
+        params = step_lib.shard_tree(case["params"], sh.params, mesh)
+        B = batch["tokens"].shape[0]
+        cache = step_lib.shard_cache(model, case["cache"], B, case["cache_len"], strategy=strategy, mesh=mesh)
+        out[key], _ = step_lib.make_decode_step(model, strategy=strategy, mesh=mesh)(params, cache, batch)
+    return out if rank == 0 else {}
+
+
+def mesh22_worker(rank: int, world: int, payload: str) -> dict:
+    """``moves_worker`` and ``reference_decode_worker`` in one (2, 2) world."""
+    return {"moves": moves_worker(rank, world, 2), "decode": reference_decode_worker(rank, world, 2, payload)}

@@ -11,7 +11,9 @@
     ``argument_size_in_bytes`` and ``output_size_in_bytes`` equal to the
     reference's ``memory_analysis()`` of its compiled train step on 8 host
     devices (a subprocess), flops and collective bytes above 0, every
-    kernel of the family counted forward and backward;
+    kernel of the family counted forward and backward; and a decode cell
+    (llama3-8b, 4 KV heads) whose arguments, the rank's shards of the
+    weights and its cache, are the reference's decode step's;
   * depth units 1 and 2 extrapolating to the count of the full-depth run
     within 1e-6 relative, for every family, on an abstract (1, 4) mesh:
     with a "data" axis ZeRO-1 shards a stacked leaf's moments over its
@@ -51,6 +53,12 @@ MINI_ARCHS = ("llama3-8b", "falcon-mamba-7b", "grok-1-314b")
 MINI_WIDTHS = dict(d_model=128, d_ff=256, n_heads=8, head_dim=16, vocab_size=512)  # test_dryrun_mini.py's
 MINI_SHAPE = ShapeConfig("mini", 32, 8, "train")
 MINI_MESH = Mesh(("data", "model"), (2, 4))
+# a decode cell whose KV heads "model" divides: the rank's cache is then the
+# reference's cut of it (where "model" does not divide them, the reference
+# cuts the cache's sequence and the port keeps the KV heads its query heads
+# read, whole over the sequence: ROADMAP.md section 3)
+MINI_DECODE = ("llama3-8b", {"n_kv_heads": 4})
+MINI_DECODE_SHAPE = ShapeConfig("mini_decode", 32, 8, "decode")
 EXTRAPOLATION_REL = 1e-6
 EXTRAPOLATION_MESH = Mesh(("data", "model"), (1, 4))
 KERNELS_BY_FAMILY = {"dense": ("flash_attention",), "ssm": ("selective_scan",), "moe": ("flash_attention", "moe_gmm"),
@@ -123,8 +131,23 @@ _REFERENCE_MINI = textwrap.dedent("""
         mem = jfn.lower(params, opt, batch_specs).compile().memory_analysis()
         out[arch_name] = {f: int(getattr(mem, f)) for f in
                           ("argument_size_in_bytes", "output_size_in_bytes", "alias_size_in_bytes", "temp_size_in_bytes")}
+    # the decode cell: the dry run's in-shardings (launch/dryrun.py:89-104)
+    from repro.configs import ShapeConfig, token_batch_spec
+    from repro.parallel.sharding import mesh_axis_sizes, resolve_axes
+    arch = get_arch(%(decode_arch)r).reduced().replace(**%(widths)r, **%(decode_cut)r)
+    model, strategy, (B, L) = Model(arch), STRATEGIES["tp"], %(decode_shape)r
+    batch_specs = token_batch_spec(arch, ShapeConfig("mini_decode", L, B, "decode"))
+    sh = step_lib.make_shardings(model, strategy, mesh, batch_specs, model.cache_specs(B, L))
+    logits_ps = resolve_axes(("batch", None, "vocab_act"), strategy.act_rules, mesh.axis_names, (B, 1, arch.vocab_size),
+                             mesh_axis_sizes(mesh))
+    jfn = jax.jit(step_lib.make_decode_step(model, strategy, mesh),
+                  in_shardings=(named(sh.params), named(sh.cache), named(sh.batch)),
+                  out_shardings=(NamedSharding(mesh, logits_ps), named(sh.cache)), donate_argnums=(1,))
+    mem = jfn.lower(model.abstract_params(), model.abstract_cache(B, L), batch_specs).compile().memory_analysis()
+    out["decode"] = {"argument_size_in_bytes": int(mem.argument_size_in_bytes)}
     print("MINI_MEMORY " + json.dumps(out))
-""") % {"archs": MINI_ARCHS, "widths": MINI_WIDTHS}
+""") % {"archs": MINI_ARCHS, "widths": MINI_WIDTHS, "decode_arch": MINI_DECODE[0], "decode_cut": MINI_DECODE[1],
+       "decode_shape": (MINI_DECODE_SHAPE.global_batch, MINI_DECODE_SHAPE.seq_len)}
 
 
 def _mini_arch(name: str):
@@ -161,6 +184,20 @@ def test_mini_dry_run_memory_matches_the_reference(name):
     family = _mini_arch(name).family
     for k in KERNELS_BY_FAMILY[family]:
         assert got["kernels"][k]["calls"] > 0 and got["kernels"][k + "_bwd"]["calls"] > 0, (k, got["kernels"])
+
+
+def test_mini_dry_run_decode_cell_arguments_match_the_reference():
+    """The decode cell on the (2, 4) mesh under "tp": the rank's shards of
+    the weights, its cache and the batch are the bytes of the reference's
+    compiled decode step's arguments; the step all-reduces (row-parallel
+    products), gathers no parameter, and the logits come out global."""
+    from repro_torch.parallel import tensor as tp
+
+    arch = _mini_arch(MINI_DECODE[0]).replace(**MINI_DECODE[1])
+    fn, args, meta = dryrun.build_cell(arch, MINI_DECODE_SHAPE, MINI_MESH, "tp")
+    counts, io = dryrun.run_counted(fn, args, meta)
+    assert io["argument"] == mini_reference()["decode"]["argument_size_in_bytes"], (io, mini_reference()["decode"])
+    assert counts.collectives.bytes_by_op["all-reduce"] > 0 and tp.COLLECTIVES.param_bytes == 0, counts.collectives.row()
 
 
 # ---------------------------------------------------------------------------

@@ -187,32 +187,54 @@ def test_meshes_and_the_context():
     assert not sh.flash_decode_enabled() and sh.current_mesh() is None
 
 
-def test_model_parallel_train_and_prefill_steps_are_refused():
-    """On a "model" axis above 1 the train and prefill steps run "tp",
-    "fsdp_tp", "fsdp", "tp_sp" and "fsdp_tp_sp"
-    (tests/test_torch_tensor_parallel.py); "serve_2dtp", the compressed step
-    and a decode step on "model"-sharded weights are item 6d."""
-    model = Model(get_arch("llama3-8b").reduced())
+def test_model_parallel_steps_build_and_run_on_a_1x2_mesh():
+    """On a "model" axis of 2 every step builds and runs
+    (tests/test_torch_tensor_parallel.py holds their numbers on gloo):
+    "serve_2dtp"'s train, prefill and decode steps, the decode step on
+    "model"-sharded weights under "tp", and the compressed step, each on an
+    abstract (1, 2) mesh (no process group: the collectives record their
+    bytes and return tensors of the right shapes) on rank 0's shards as
+    meta tensors.  The logits come out global, the decode step's cache in
+    the prefill's layout (``shard_cache``), the compressed step's error
+    states at the rank's "model" shards, and a parameter is gathered by no
+    step of "serve_2dtp"."""
+    from repro_torch.configs import ShapeConfig, token_batch_spec
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel import tensor as tp
+
     mesh = tmesh.Mesh(("data", "model"), (1, 2))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 6d"):
-        tstep.make_train_step(model, adamw.AdamWConfig(), strategy=sh.STRATEGIES["serve_2dtp"], mesh=mesh)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 6d"):
-        tstep.make_prefill_step(model, 8, strategy=sh.STRATEGIES["serve_2dtp"], mesh=mesh)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 6d"):
-        tstep.make_compressed_train_step(model, adamw.AdamWConfig(), mesh=mesh)
-    for name in ("tp", "fsdp_tp", "fsdp", "tp_sp", "fsdp_tp_sp"):  # tensor parallelism: built
-        tstep.make_train_step(model, adamw.AdamWConfig(), strategy=sh.STRATEGIES[name], mesh=mesh)
-        tstep.make_prefill_step(model, 8, strategy=sh.STRATEGIES[name], mesh=mesh)
-    decode = tstep.make_decode_step(model, mesh=mesh)  # whole weights: runs
-    params = model.init(torch.Generator().manual_seed(0), "cpu")
-    specs = sh.param_pspec_tree(model.specs(), sh.STRATEGIES["tp"], mesh)
-    sharded = tspec.tree_map(lambda t: t, params)
-    sharded["blocks"]["attn"]["wq"] = tstep.shard(params["blocks"]["attn"]["wq"], specs["blocks"]["attn"]["wq"], mesh)
-    cache = model.cache_specs(2, 8)
-    cache = tspec.init_params(cache, torch.Generator().manual_seed(0), "cpu")
-    batch = {"tokens": torch.zeros((2, 1), dtype=torch.int32), "pos": torch.zeros((2,), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 6d"):
-        decode(sharded, cache, batch)  # tensor-parallel decode
+    arch = get_arch("llama3-8b").reduced()
+    model = Model(arch)
+    B, V = 2, arch.vocab_size
+    for strategy in ("serve_2dtp", "tp"):
+        for kind in ("train", "prefill", "decode"):
+            fn, args, _ = dryrun.build_cell(arch, ShapeConfig("mini", 8, B, kind), mesh, strategy)
+            tp.COLLECTIVES.reset()
+            with torch.no_grad() if kind != "train" else torch.enable_grad():
+                out = fn(*args)
+            assert tp.COLLECTIVES.bytes_by_op["all-reduce"] > 0, (strategy, kind)
+            if strategy == "serve_2dtp":
+                assert tp.COLLECTIVES.param_bytes == 0, (kind, tp.COLLECTIVES.param_bytes)
+            if kind == "train":
+                assert sorted(out[2]) == sorted(list(tstep.metrics_struct(model)) + ["grad_norm", "lr"])
+                continue
+            logits, cache = out
+            assert tuple(logits.shape) == (B, 1, V), (strategy, kind, logits.shape)
+            if kind == "decode":
+                assert [t.shape for t in tree_leaves(cache)] == [t.shape for t in tree_leaves(args[1])]
+    strategy = sh.STRATEGIES["fsdp_tp"]
+    batch = token_batch_spec(arch, ShapeConfig("mini", 8, B, "train"))
+    shs = tstep.make_shardings(model, strategy, mesh, batch)
+    params = dryrun._local(model.specs(), shs.params, mesh)
+    opt_specs = adamw.opt_state_specs(model.specs())
+    opt = {"m": dryrun._local(opt_specs["m"], shs.opt["m"], mesh), "v": dryrun._local(opt_specs["v"], shs.opt["v"], mesh),
+           "step": torch.zeros((), dtype=torch.int32, device="meta")}
+    comp = tstep.init_compression_state(model, strategy=strategy, mesh=mesh, device="meta")
+    fn = tstep.make_compressed_train_step(model, adamw.AdamWConfig(), strategy=strategy, mesh=mesh)
+    _, _, comp, metrics = fn(params, opt, comp, batch)
+    assert sorted(metrics) == sorted(list(tstep.metrics_struct(model)) + ["grad_norm", "lr"])
+    for st, p in zip(tstep._state_leaves(comp), tree_leaves(params)):
+        assert st["worker_err"].shape == p.shape, (st["worker_err"].shape, p.shape)  # "fsdp_tp" on (1, 2): the "model" shards
 
 
 # ---------------------------------------------------------------------------
@@ -429,16 +451,19 @@ def test_compressed_train_step_in_a_world_of_one():
     assert max(ttrain._rel(a, b) for a, b in zip(tree_leaves(opt["m"]), tree_leaves(o1["m"]))) < 1e-2
 
 
-# the compressed step on a 2-rank gloo world against the reference's on 2
-# host devices: llama3-8b reduced, 3 steps, under "fsdp_tp" (the port's
-# parameters and moments both in shards over "data"), with two losses:
+# the compressed step on a (2, 2) gloo world against the reference's on a
+# (2, 2) mesh of host devices: llama3-8b reduced, 3 steps, under "fsdp_tp"
+# (the port's parameters and moments both in shards over "data", its
+# parameters and error states cut over "model" too; the reference's
+# shard_map quantizes whole gradients, and so does the port's
+# compressed_mean, joining a rank's "model" parts first), with two losses:
 #   * "model", the model's own: its gradients differ from the reference's in
 #     the last bits, and the int8 rounding turns a few such differences into
 #     a whole step of the quantizer, which the error feedback carries on;
 #   * "linear", sum(p * G) with a drawn G a rank and step: its gradient is G
 #     in both frameworks bit for bit, so what follows the gradients
 #     (compressed_mean, the ZeRO-1 update, the metrics' mean) is held tight
-COMP_STEP = {"arch": "llama3-8b", "world": 2, "strategy": "fsdp_tp", "steps": 3}
+COMP_STEP = {"arch": "llama3-8b", "data": 2, "model": 2, "strategy": "fsdp_tp", "steps": 3}
 COMP_STEP_LOSSES = ("model", "linear")
 # an error state's tolerance on the scale of the values it rounds: the
 # gradient leaves' (LEAF_TOL of test_torch_train) where the gradients are the
@@ -469,7 +494,7 @@ _REFERENCE_COMPRESSED_STEP = textwrap.dedent("""
 
 
     batches = pickle.load(open(sys.argv[1], "rb"))
-    mesh = compat_make_mesh(({world}, 1), ("data", "model"))
+    mesh = compat_make_mesh(({data}, {model}), ("data", "model"))
     opt_cfg = adamw.AdamWConfig(warmup_steps=1, peak_lr=1e-3)
     host = lambda t: jax.tree.map(np.asarray, t)
     # the out spec says replicated, but each device keeps its own error state
@@ -480,7 +505,7 @@ _REFERENCE_COMPRESSED_STEP = textwrap.dedent("""
         model = cls(get_arch("{arch}").reduced())
         fn = jax.jit(step_lib.make_compressed_train_step(model, STRATEGIES["{strategy}"], mesh, opt_cfg))
         params, opt = step_lib.init_train_state(model, jax.random.key(0))
-        comp = C.compression_state(params, {world})
+        comp = C.compression_state(params, {data})
         run = out[loss] = {{"params0": host(params), "opt0": host(opt), "steps": []}}
         for b in batches[loss]:
             params, opt, comp, metrics = fn(params, opt, comp, {{k: jnp.asarray(v) for k, v in b.items()}})
@@ -499,7 +524,7 @@ def _compressed_batches(cfg) -> dict:
     rng = np.random.default_rng(1)
     shapes = [s.shape for s in tree_leaves(Model(arch).specs())]
     linear = [
-        {f"g{i:03d}": (rng.normal(size=(cfg["world"],) + shape) * 10.0 ** rng.uniform(-3, 0)).astype(np.float32)
+        {f"g{i:03d}": (rng.normal(size=(cfg["data"],) + shape) * 10.0 ** rng.uniform(-3, 0)).astype(np.float32)
          for i, shape in enumerate(shapes)}
         for _ in range(cfg["steps"])
     ]
@@ -507,8 +532,9 @@ def _compressed_batches(cfg) -> dict:
 
 
 def compare_compressed_train(tmp_path) -> dict:
-    """The reference's ``make_compressed_train_step`` on 2 host devices and
-    the port's on 2 gloo ranks, from the reference's initial state, three
+    """The reference's ``make_compressed_train_step`` on a (2, 2) mesh of
+    host devices and the port's on a (2, 2) gloo world, from the reference's
+    initial state, three
     steps on the same batches, per loss: each step's metrics, the gathered
     params, m and v after the last (``compare_train_steps``' measures), and
     every rank's error states after every step against its device's
@@ -518,7 +544,7 @@ def compare_compressed_train(tmp_path) -> dict:
     batches = _compressed_batches(cfg)
     with open(os.path.join(tmp_path, "batches.pkl"), "wb") as f:
         pickle.dump(batches, f)
-    run_reference(_REFERENCE_COMPRESSED_STEP.format(**cfg), os.path.join(tmp_path, "batches.pkl"), os.path.join(tmp_path, "ref.pkl"))
+    run_reference(_REFERENCE_COMPRESSED_STEP.format(world=cfg["data"] * cfg["model"], **cfg), os.path.join(tmp_path, "batches.pkl"), os.path.join(tmp_path, "ref.pkl"))
     with open(os.path.join(tmp_path, "ref.pkl"), "rb") as f:
         refs = pickle.load(f)
     opt_cfg = adamw.AdamWConfig(warmup_steps=1, peak_lr=1e-3)
@@ -529,8 +555,8 @@ def compare_compressed_train(tmp_path) -> dict:
         payload = os.path.join(tmp_path, f"compressed_{loss}.pt")
         torch.save({"params": params, "opt": opt, "batches": [{k: torch.from_numpy(v) for k, v in b.items()} for b in batches[loss]],
                     "opt_cfg": dataclasses.asdict(opt_cfg)}, payload)
-        ranks = run_ranks(compressed_train_worker, cfg["world"], tmp_path, RANKS_TIMEOUT,
-                          (payload, cfg["arch"], cfg["strategy"], loss))
+        ranks = run_ranks(compressed_train_worker, cfg["data"] * cfg["model"], tmp_path, RANKS_TIMEOUT,
+                          (payload, cfg["arch"], cfg["strategy"], loss, cfg["model"]))
         r0, errs = ranks[0], out.setdefault(loss, {})
         ill = [torch.zeros(t.shape, dtype=torch.bool) for t in tree_leaves(params)]
         for i, (st, jst) in enumerate(zip(r0["steps"], ref["steps"])):

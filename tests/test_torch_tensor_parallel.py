@@ -38,7 +38,15 @@ is well conditioned (``test_torch_sharding._ill_conditioned``), the bound
 reference (AdamW's update is the gradient over its own magnitude, so an
 element's gradient off by 1e-6 of its leaf's largest one moves it by 1e-3 lr
 where it is 1e-3 of that largest), with at most 5e-2 of the elements ill
-conditioned; the prefill's logits within 1e-4 of the largest.  The reference's train step on an XLA host mesh of the same
+conditioned; the prefill's logits within 1e-4 of the largest, and its
+cache within 1e-4 of ``shard_cache`` of one rank's; under "tp" and
+"serve_2dtp" on every world (and "fsdp_tp" and "fsdp" on (2, 2)) three
+greedy decode steps on each rank's own cache, the logits within 1e-4 and
+the tokens equal ("serve_2dtp", 2D tensor parallelism, runs the dense and
+moe families on (2, 2) and the dense on (2, 1)).  The decode step from the
+reference's own prefill cache (``cache_from_jax``, cut by ``shard_cache``)
+on the (2, 2) world gives the reference's host-mesh decode's logits within
+1e-4, one case a family and "serve_2dtp".  The reference's train step on an XLA host mesh of the same
 shape and strategy, from the same state, gives the same two steps' metrics
 within 1e-4 relative (``test_torch_train.compare_train_steps``' bound),
 checked against the one-rank port and the sharded one: each family under
@@ -66,14 +74,14 @@ from repro_torch.data.pipeline import DataConfig, batch_at
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import rglru
 from repro_torch.models.model import Model
-from repro_torch.models.spec import tree_leaves
+from repro_torch.models.spec import cache_from_jax, tree_leaves
 from repro_torch.optim import adamw
 from repro_torch.parallel import sharding as sh
 from repro_torch.parallel import tensor as tp
 from repro_torch.train import step as tstep
 
 import test_torch_sharding as tsharding
-from _torch_dist import moves_worker, run_ranks, tp_driver_worker, tp_worker
+from _torch_dist import greedy_decode, mesh22_worker, run_ranks, tp_driver_worker, tp_worker
 
 torch.set_num_threads(1)
 
@@ -100,13 +108,19 @@ OPT = dict(warmup_steps=1, peak_lr=1e-3)
 TP_REL = 1e-5  # gradients and metrics against one rank (fp32)
 PARAMS_OVER_LR = 1e-2  # well-conditioned params against one rank, in units of the peak lr
 ILL_SHARE = 5e-2
-PREFILL_REL = 1e-4
+PREFILL_REL = 1e-4  # prefill and decode logits, and the prefill's cache, against one rank
+DECODE_STEPS = 3  # greedy decode steps on each rank's own cache after the prefill
 REF_REL = 1e-4  # metrics against the reference's host-mesh step
 RANKS_TIMEOUT = 300  # seconds, a world of ranks running every case
 
 
 def _strategies(mesh: tuple) -> tuple:
     return DP_STRATEGIES if mesh in DP_MESHES else STRATEGIES
+
+
+# "serve_2dtp" (2D tensor parallelism: "data" cuts weights too) for these
+# families on these worlds
+SERVE_2DTP = {(2, 2): ("dense", "moe_experts"), (2, 1): ("dense",)}
 
 
 def _families(mesh: tuple) -> dict:
@@ -158,7 +172,9 @@ def one_rank(arch: str, cut: dict) -> dict:
     batches = [{k: torch.as_tensor(v) for k, v in batch_at(dc, i).items()} for i in range(DATA["steps"])]
     out = {"params0": copy.deepcopy(params), "opt0": copy.deepcopy(opt), "batches": batches}
     prefill = {k: v for k, v in batches[0].items() if k != "labels"}
-    out["logits"], _ = tstep.make_prefill_step(model, DATA["seq_len"])(params, prefill)
+    out["logits"], out["cache"] = tstep.make_prefill_step(model, DATA["seq_len"] + DECODE_STEPS)(params, prefill)
+    out["decode"] = greedy_decode(tstep.make_decode_step(model), params, out["cache"], out["logits"], DATA["seq_len"],
+                                  DECODE_STEPS)
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
@@ -196,13 +212,21 @@ def ulp_noise(model: Model, params, batch: dict, grads: list) -> float:
     return max(_leaf_rel(m, g) for m, g in zip(moved, grads) if m is not None)
 
 
-def _cases(families: dict, strategies: tuple) -> dict:
+def _decodes(mesh: tuple, strategy: str) -> bool:
+    """Whether a world's case also decodes: every family under "tp" and
+    "serve_2dtp" on every world, and under "fsdp_tp" and "fsdp" (the dp
+    gather a layer at a time; the rank's query heads in blocks) on (2, 2)."""
+    return strategy in ("tp", "serve_2dtp") or (mesh == (2, 2) and strategy in ("fsdp_tp", "fsdp"))
+
+
+def _cases(families: dict, strategies: tuple, mesh: tuple) -> dict:
     cases = {}
     for family, (arch, cut, overrides) in families.items():
         base = one_rank(arch, cut)
         for sname in strategies:
-            cases[(family, sname)] = {"arch": arch, "cut": cut, "strategy": (sname, overrides),
-                                      "params": base["params0"], "opt": base["opt0"], "batches": base["batches"]}
+            cases[(family, sname)] = {"arch": arch, "cut": cut, "strategy": (sname, overrides), "params": base["params0"],
+                                      "opt": base["opt0"], "batches": base["batches"], "cache1": base["cache"],
+                                      "decode": _decodes(mesh, sname)}
     return cases
 
 
@@ -215,7 +239,9 @@ def tp_run(mesh: tuple, tmp_path_factory) -> dict:
     if mesh not in _RUNS:
         tmp = tmp_path_factory.mktemp(f"tp{'x'.join(map(str, mesh))}")
         payload = os.path.join(tmp, "payload.pt")
-        torch.save({"cases": _cases(_families(mesh), _strategies(mesh)), "opt_cfg": OPT}, payload)
+        cases = _cases(_families(mesh), _strategies(mesh), mesh)
+        cases.update(_cases({f: FAMILIES[f] for f in SERVE_2DTP.get(mesh, ())}, ("serve_2dtp",), mesh))
+        torch.save({"cases": cases, "opt_cfg": OPT, "decode_steps": DECODE_STEPS}, payload)
         world = mesh[0] * mesh[1]
         _RUNS[mesh] = run_ranks(tp_worker, world, tmp, RANKS_TIMEOUT, (mesh[1], payload))[0]
     return _RUNS[mesh]
@@ -246,7 +272,13 @@ def compare(mesh: tuple, family: str, strategy: str, tmp_path_factory) -> dict:
     errs["grad_bound"] = max(TP_REL, 2 * want["ulp_noise"])
     errs["ill_share"] = sum(int(m.sum()) for m in ill) / sum(m.numel() for m in ill)
     errs["prefill"] = _leaf_rel(got["logits"], want["logits"])
+    errs["cache"], errs["cache_shapes"] = got["cache_err"], got["cache_shapes"]
+    if got["decode"] is not None:
+        errs["decode"] = max(_leaf_rel(g, w) for (_, g), (_, w) in zip(got["decode"], want["decode"]))
+        errs["decode_tokens_equal"] = all(torch.equal(g, w) for (g, _), (w, _) in zip(got["decode"], want["decode"]))
     errs["collectives"] = got["steps"][0]["collectives"]
+    errs["params_gathered"] = {"train": got["steps"][0]["params_gathered"],
+                               "decode": got["decode_bytes"]["params"] if got["decode"] is not None else 0}
     return errs
 
 
@@ -255,12 +287,19 @@ def _check(errs: dict, mesh: tuple = (1, 2), strategy: str = "tp") -> None:
     assert errs["grads"] <= errs["grad_bound"] and errs["metrics"] <= TP_REL, errs
     assert errs["params_over_lr"] <= PARAMS_OVER_LR and errs["ill_share"] <= ILL_SHARE, errs
     assert errs["prefill"] <= PREFILL_REL, errs
+    assert errs["cache"] <= PREFILL_REL and errs["cache_shapes"] == [], errs
+    if _decodes(mesh, strategy):
+        assert errs["decode"] <= PREFILL_REL and errs["decode_tokens_equal"], errs
     assert errs["collectives"].get("all-reduce", 0) > 0, errs  # the "model" moves ran
     # reduce-scatters: the gradients' over the dp axes, the sequence's over "model"
-    # where a block's last product is row-parallel, and no other
+    # where a block's last product is row-parallel, and no other ("serve_2dtp"
+    # has no dp axis: its "data" axis cuts weights, whose gradients are exact)
     scattered = errs["collectives"].get("reduce-scatter", 0) > 0
     seq_cut = strategy in SP_STRATEGIES and mesh[1] > 1 and DATA["seq_len"] % mesh[1] == 0
-    assert scattered if mesh[0] > 1 else (scattered <= seq_cut), errs["collectives"]
+    dp_ranks = 1 if strategy == "serve_2dtp" else mesh[0]
+    assert scattered if dp_ranks > 1 else (scattered <= seq_cut), errs["collectives"]
+    if strategy == "serve_2dtp":  # no weight gathered, in the train step nor in decode
+        assert errs["params_gathered"] == {"train": 0, "decode": 0}, errs["params_gathered"]
 
 
 def test_sequence_parallelism_trades_all_reduces_for_reduce_scatters(tmp_path_factory):
@@ -330,6 +369,7 @@ def test_widths_hit_every_split_and_spill():
 # ---------------------------------------------------------------------------
 
 TP_CASES = [(mesh, family, s) for mesh in MESHES + DP_MESHES for family in FAMILIES for s in _strategies(mesh)]
+TP_CASES += [(mesh, family, "serve_2dtp") for mesh, families in SERVE_2DTP.items() for family in families]
 
 
 @pytest.mark.parametrize("mesh,family,strategy", TP_CASES, ids=[_case_id(*c) for c in TP_CASES])
@@ -387,6 +427,7 @@ _REFERENCE = textwrap.dedent("""
     # expm1's derivative as exp(x), as test_torch_train.reference_expm1_exact takes it
     jnp.expm1 = lambda x: jax.lax.expm1(x, accuracy=jax.lax.AccuracyMode.HIGHEST)
     cases = pickle.load(open(sys.argv[1], "rb"))
+    decode_cases = {k: cases.pop(k) for k in [k for k in cases if k[0] == "decode"]}
     out = {}
     for key, c in cases.items():
         shape = tuple(c["mesh"])
@@ -406,6 +447,30 @@ _REFERENCE = textwrap.dedent("""
             params, opt, m = fn(params, opt, jax.device_put({k: jnp.asarray(v) for k, v in b.items()}, named(shs.batch)))
             metrics.append({k: float(v) for k, v in m.items()})
         out[key] = metrics
+    for key, c in decode_cases.items():
+        # the reference's prefill step and then its decode step on the host
+        # mesh, with the dry run's in-shardings (launch/dryrun.py:74-104)
+        shape = tuple(c["mesh"])
+        mesh = Mesh(np.array(jax.devices()[: shape[0] * shape[1]]).reshape(shape), ("data", "model"))
+        model = Model(get_arch(c["arch"]).reduced().replace(**c["cut"]))
+        strategy = sh.STRATEGIES[c["strategy"][0]].with_overrides(**c["strategy"][1])
+        params = jax.tree.map(jnp.asarray, c["params"])
+        prefill = {k: jnp.asarray(v) for k, v in c["prefill"].items()}
+        B, L = prefill["tokens"].shape
+        named = lambda t: jax.tree.map(lambda ps: NamedSharding(mesh, ps), t)
+        shp = step_lib.make_shardings(model, strategy, mesh, prefill, model.cache_specs(B, L + 1))
+        pf = jax.jit(step_lib.make_prefill_step(model, strategy, mesh, cache_len=L + 1),
+                     in_shardings=(named(shp.params), named(shp.batch)))
+        logits0, cache = pf(jax.device_put(params, named(shp.params)), jax.device_put(prefill, named(shp.batch)))
+        cache = jax.tree.map(lambda a: jnp.asarray(np.asarray(a)), cache)
+        batch = {"tokens": jnp.argmax(logits0[:, -1], -1)[:, None].astype(jnp.int32), "pos": jnp.full((B,), L, jnp.int32)}
+        shs = step_lib.make_shardings(model, strategy, mesh, batch, model.cache_specs(B, L + 1))
+        fn = jax.jit(step_lib.make_decode_step(model, strategy, mesh),
+                     in_shardings=(named(shs.params), named(shs.cache), named(shs.batch)))
+        logits, _ = fn(jax.device_put(params, named(shs.params)), jax.device_put(cache, named(shs.cache)),
+                       jax.device_put(batch, named(shs.batch)))
+        out[key] = {"cache": jax.tree.map(np.asarray, cache), "batch": jax.tree.map(np.asarray, batch),
+                    "logits": np.asarray(logits), "cache_len": L + 1, "prefill_logits": np.asarray(logits0)}
     pickle.dump(out, open(sys.argv[2], "wb"))
 """)
 
@@ -418,6 +483,12 @@ REF_CASES = [((1, 2), "dense", "tp"), ((2, 2), "moe_experts", "tp"), ((1, 4), "m
 REF_CASES += [(MESHES[(i + j) % len(MESHES)], family, s) for j, s in enumerate(STRATEGIES[2:])
               for i, family in enumerate(FAMILIES)]
 REF_CASES += [(DP_MESHES[i % 2], family, DP_STRATEGIES[i // 2 % 2]) for i, family in enumerate(FAMILIES)]
+REF_CASES += [(mesh, family, "serve_2dtp") for mesh, families in SERVE_2DTP.items() for family in families]
+
+
+# the decode step against the reference's on a host mesh of the same shape,
+# from the reference's own prefill cache: one case a family, and "serve_2dtp"
+REF_DECODE_CASES = [((2, 2), family, "tp") for family in FAMILIES] + [((2, 2), "dense", "serve_2dtp")]
 
 
 def _numpy(tree):
@@ -445,6 +516,12 @@ def _start_reference(tmp_path_factory) -> None:
         cases[(mesh, family, strategy)] = {"mesh": mesh, "arch": arch, "cut": cut, "strategy": (strategy, overrides),
                                            "params": _numpy(base["params0"]), "opt_cfg": OPT,
                                            "batches": [{k: v.numpy() for k, v in b.items()} for b in base["batches"]]}
+    for mesh, family, strategy in REF_DECODE_CASES:
+        arch, cut, overrides = _family(family)
+        base = one_rank(arch, cut)
+        cases[("decode", mesh, family, strategy)] = {
+            "mesh": mesh, "arch": arch, "cut": cut, "strategy": (strategy, overrides), "params": _numpy(base["params0"]),
+            "prefill": {k: v.numpy() for k, v in base["batches"][0].items() if k != "labels"}}
     tmp = tmp_path_factory.mktemp("reference")
     env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(__file__), "..", "src"), JAX_PLATFORMS="cpu")
     _REF.update(procs=[], dsts=[])
@@ -488,6 +565,76 @@ def test_one_rank_and_sharded_metrics_match_the_reference_on_a_host_mesh(mesh, f
                 assert abs(got - r[k]) <= REF_REL * max(abs(r[k]), 1e-30), (k, got, r[k])
 
 
+_MESH22: dict = {}
+
+
+def mesh22_run(tmp_path_factory) -> dict:
+    """The (2, 2) world of ``mesh22_worker``: the moves against what they
+    mean, and the decode step of each ``REF_DECODE_CASES`` case from the
+    reference's prefill cache (one spawn, after the reference has run)."""
+    if not _MESH22:
+        ref = reference_metrics(tmp_path_factory)
+        tmp = tmp_path_factory.mktemp("mesh22")
+        payload = os.path.join(tmp, "decode.pt")
+        cases = {}
+        for mesh, family, strategy in REF_DECODE_CASES:
+            arch, cut, overrides = _family(family)
+            r = ref[("decode", mesh, family, strategy)]
+            cases[(family, strategy)] = {"arch": arch, "cut": cut, "strategy": (strategy, overrides),
+                                         "params": one_rank(arch, cut)["params0"], "cache_len": r["cache_len"],
+                                         "cache": cache_from_jax(r["cache"], "cpu"),
+                                         "batch": {k: torch.from_numpy(v) for k, v in r["batch"].items()}}
+        torch.save(cases, payload)
+        _MESH22["ranks"] = run_ranks(mesh22_worker, 4, tmp, RANKS_TIMEOUT, (payload,))
+    return _MESH22
+
+
+@pytest.mark.parametrize("mesh,family,strategy", REF_DECODE_CASES, ids=[_case_id(*c) for c in REF_DECODE_CASES])
+def test_prefill_matches_the_reference_prefill_step_on_a_host_mesh(mesh, family, strategy, tmp_path_factory):
+    """The port's prefill step on the gloo world of ``mesh`` (``tp_run``):
+    its last-token logits within 1e-4 of the reference's prefill step's on
+    a host mesh of the same shape, from the same weights and prompt."""
+    want = reference_metrics(tmp_path_factory)[("decode", mesh, family, strategy)]["prefill_logits"]
+    assert _leaf_rel(tp_run(mesh, tmp_path_factory)[(family, strategy)]["logits"], torch.from_numpy(want)) <= PREFILL_REL
+
+
+@pytest.mark.parametrize("mesh,family,strategy", REF_DECODE_CASES, ids=[_case_id(*c) for c in REF_DECODE_CASES])
+def test_decode_from_the_reference_cache_matches_the_reference_on_a_host_mesh(mesh, family, strategy, tmp_path_factory):
+    """The reference's prefill cache (``cache_from_jax``) cut to each rank's
+    (``shard_cache``) and one decode step on the (2, 2) gloo world: the
+    logits within 1e-4 of the reference's decode step on a (2, 2) host
+    mesh from the same cache, weights and token."""
+    want = reference_metrics(tmp_path_factory)[("decode", mesh, family, strategy)]["logits"]
+    got = mesh22_run(tmp_path_factory)["ranks"][0]["decode"][(family, strategy)]
+    assert _leaf_rel(got, torch.from_numpy(want)) <= PREFILL_REL
+
+
+def test_serve_2dtp_decode_moves_partial_sums_and_gathers_no_parameter(tmp_path_factory):
+    """The dense family's decode steps on (2, 2) under "serve_2dtp": the
+    bytes a rank all-reduces and all-gathers, from the shapes (B rows of
+    one token, fp32), and no parameter gathered, where "fsdp_tp" on the
+    same mesh gathers each layer's weights over "data".  A step
+    all-reduces the embedding's rows over "model" (vocab-parallel), a
+    layer's q over "data" (its d_model cut), its k and v over ("data",
+    "model") (3 KV heads: "model" spilled onto d_model), ``wo``'s and
+    ``w_down``'s partial (D / d) sums over "model", ``w_gate``'s and
+    ``w_up``'s over "data", and the head's vocab part over "data"; it
+    all-gathers the attention's rows over "data" (the cache holds the
+    rank's), ``wo``'s and ``w_down``'s results over "data", and the
+    logits' vocab over "model"."""
+    run = tp_run((2, 2), tmp_path_factory)
+    got, fsdp_tp = run[("dense", "serve_2dtp")]["decode_bytes"], run[("dense", "fsdp_tp")]["decode_bytes"]
+    cfg = _model(*FAMILIES["dense"][:2]).cfg
+    d, m = 2, 2
+    D, hd, F, V, H, KV, n = cfg.d_model, cfg.hd, cfg.d_ff, cfg.vocab_size, cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
+    assert H % m == 0 and KV % m and V % m == 0 and D % (d * m) == 0
+    row = DATA["global_batch"] * 4  # B rows of fp32
+    all_reduce = row * (D + n * (H // m * hd + 2 * KV * hd + 2 * D // d + 2 * F // m) + V // m)
+    all_gather = row * (n * (H // m * hd + 2 * D) + V)
+    assert got["by_op"] == {"all-reduce": DECODE_STEPS * all_reduce, "all-gather": DECODE_STEPS * all_gather}, got
+    assert got["params"] == 0 and fsdp_tp["params"] > 0, (got, fsdp_tp)
+
+
 # ---------------------------------------------------------------------------
 # The moves, the counter and the refusals
 # ---------------------------------------------------------------------------
@@ -495,14 +642,15 @@ def test_one_rank_and_sharded_metrics_match_the_reference_on_a_host_mesh(mesh, f
 
 def test_train_driver_takes_a_model_axis(tmp_path):
     """``launch/train.py`` with ``model_parallel=2`` (``--model-parallel 2``)
-    in a 2-rank gloo world: both ranks read the one-rank driver's losses
-    and grad norms within 1e-5."""
+    in a 2-rank gloo world, under "tp" and under "serve_2dtp": both ranks
+    read the one-rank driver's losses and grad norms within 1e-5."""
     from repro_torch.launch.train import train
 
     want = train("llama3-8b", steps=2, seq_len=16, global_batch=4, log_every=0, device="cpu")
-    for r in run_ranks(tp_driver_worker, 2, tmp_path, RANKS_TIMEOUT, (2,)):
-        for key in ("losses", "grad_norms"):
-            assert max(abs(a - b) / abs(b) for a, b in zip(r[key], want[key])) <= TP_REL, (key, r[key], want[key])
+    for r in run_ranks(tp_driver_worker, 2, tmp_path, RANKS_TIMEOUT, (2, ("tp", "serve_2dtp"))):
+        for name, got in r.items():
+            for key in ("losses", "grad_norms"):
+                assert max(abs(a - b) / abs(b) for a, b in zip(got[key], want[key])) <= TP_REL, (name, key, got[key], want[key])
 
 
 def test_moves_on_an_abstract_mesh_record_bytes_without_a_group():
@@ -568,11 +716,11 @@ def test_reduce_scatter_fsdp_and_sequence_moves_record_bytes_on_an_abstract_mesh
     assert dict(tp.COLLECTIVES.bytes_by_op) == {"all-gather": 8 * 6 * 4, "reduce-scatter": 4 * 6 * 4}
 
 
-def test_moves_on_gloo_match_what_they_mean(tmp_path):
+def test_moves_on_gloo_match_what_they_mean(tmp_path_factory):
     """``reduce_scatter``, ``seq_enter``/``seq_leave`` and ``fsdp``'s
     gather and collect on a (2, 2) gloo world, in fp64, against the sums
     and slices they stand for (``moves_worker``)."""
-    errs = run_ranks(moves_worker, 4, tmp_path, RANKS_TIMEOUT, (2,))
+    errs = [r["moves"] for r in mesh22_run(tmp_path_factory)["ranks"]]
     for r, e in enumerate(errs):
         assert max(e.values()) <= 1e-12, (r, e)
 

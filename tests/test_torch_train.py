@@ -631,26 +631,27 @@ def test_launch_train_takes_the_encdec_and_vlm_configs(name):
     assert ("xattn" in out["params"].get("superblocks", {})) == (name == "llama-3.2-vision-11b")
 
 
-def test_train_driver_refuses_a_strategy_and_the_card_without_one():
+def test_train_driver_takes_a_strategy_and_refuses_the_card_without_one():
     """A strategy runs on a model axis of 1 (the driver's mesh) and, in a
     world of one, takes the plain step's losses and parameters bit for bit;
-    on a "model" axis above 1 "serve_2dtp" is item 6d, and the step
-    refuses it, while "tp_sp" builds.  Without a card ``launch/train.py``
-    refuses device='cuda'."""
+    on a "model" axis of 2 the step of "serve_2dtp" and of "tp_sp" builds
+    and runs (an abstract (1, 2) mesh, rank 0's shards as meta tensors; the
+    numbers are held on gloo in tests/test_torch_tensor_parallel.py).
+    Without a card ``launch/train.py`` refuses device='cuda'."""
     kw = dict(steps=2, seq_len=16, global_batch=2, log_every=0, device="cpu")
     plain = ttrain.train("llama3-8b", **kw)
     sharded = ttrain.train("llama3-8b", strategy_name="fsdp_tp", **kw)
     assert sharded["losses"] == plain["losses"] and sharded["grad_norms"] == plain["grad_norms"]
     assert all(torch.equal(a, b) for a, b in zip(tspec.tree_leaves(sharded["params"]), tspec.tree_leaves(plain["params"])))
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import Mesh
 
-    from repro_torch.parallel.sharding import STRATEGIES as TSTRATEGIES
-
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 6d"):
-        tstep.make_train_step(Model(get_arch("llama3-8b").reduced()), adamw.AdamWConfig(),
-                              strategy=TSTRATEGIES["serve_2dtp"], mesh=Mesh(("data", "model"), (1, 2)))
-    tstep.make_train_step(Model(get_arch("llama3-8b").reduced()), adamw.AdamWConfig(),
-                          strategy=TSTRATEGIES["tp_sp"], mesh=Mesh(("data", "model"), (1, 2)))
+    for name in ("serve_2dtp", "tp_sp"):
+        fn, args, _ = dryrun.build_cell(get_arch("llama3-8b").reduced(), ShapeConfig("mini", 16, 2, "train"),
+                                        Mesh(("data", "model"), (1, 2)), name)
+        _, _, metrics = fn(*args)
+        assert sorted(metrics) == ["ce", "grad_norm", "loss", "lr", "tokens"], (name, sorted(metrics))
     with pytest.raises(KeyError):
         ttrain.train("llama3-8b", strategy_name="bogus", **kw)
     if not torch.cuda.is_available():
