@@ -7,7 +7,8 @@ Run from the root of a checkout.  It needs one CUDA device and the CUDA
 toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
 
   1. set-up: the card's name and power limit; the CUDA kernels built from
-     ``src/repro_torch/kernels/csrc`` into ``build/repro_torch``, with the
+     ``src/repro_torch/kernels/csrc`` into ``build/repro_torch`` (each
+     source's build seconds on the ``build`` line), with the
      ``ptxas`` lines (registers, spills) of the tensor-core kernels and the
      two scans' backwards; TF32 off for fp32 matrix products and convolutions
      (``allow_tf32`` False, float32 matmul precision "highest", asserted again
@@ -58,7 +59,14 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      the forward's ragged shapes and at the edges of the walk's split of a
      chunk in time over a thread-block cluster; every call counted, two
      calls bit-equal, the parts its launch took on each line, and two
-     chunks chained equal to one of twice the length.  Set-up prints the
+     chunks chained equal to one of twice the length.  The ``knob`` step
+     (``check_knobs``) runs every compiled fp32 variant of each kernel that
+     its block config picks (``tile`` in each launcher module: the scans'
+     channels a block, the ``tf32x3`` attention's k rows a streamed tile,
+     the ``tf32x3`` GEMM's C columns a block and stages) at its full tier
+     and at the exp14 demo shapes, each against its plain version at 2e-5
+     and the scans' bit for bit against the default variant, with its
+     device ms: one ``knob`` line a variant.  Set-up prints the
      walk's ``ptxas`` registers, spills and static shared memory and an
      ``occupancy`` line at falcon width (parts, blocks, dynamic shared
      memory, blocks and warps an SM), failing under 16 warps an SM; and
@@ -89,7 +97,12 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      payloads).
   5. autotune and FACTS: a wall-timed sweep of each kernel at its full tier
      on the card, whose winner a kernel task must then resolve to under
-     ``HYDRA_AUTOTUNE=1``; 64 FACTS workflows of 150000 samples through
+     ``HYDRA_AUTOTUNE=1``, timing one candidate a launch key (the
+     pruner's survivors, then a config of each variant they miss:
+     ``timed``, every launch key of the space and at least two); one
+     ``exp14`` line a demo shape of the reference's kernel benchmark (every
+     variant's ms, the wall tuner's winner, tuned / default device ms, a
+     record and no gate); 64 FACTS workflows of 150000 samples through
      ``WorkflowManager`` on ``Hydra(device="cuda")``, every one done with
      finite, ordered quantiles; and for four instances ``fit`` on the card
      against the CPU (relative 1e-5) and ``project`` on the card from draws
@@ -115,7 +128,8 @@ toolkit (``nvcc``), and exits non-zero on any failure.  Phases:
      layers, every kernel launch is held against its plain version on the
      operands the path gave it (``path_kernels_checked``: relative <= 1e-4
      for fp32 outputs, <= 2e-2 and element by element for bf16).  It prints prefill seconds, decode ms a token, tokens/s, peak
-     memory and the kernels' share of a prefill (from a ``torch.profiler``
+     memory (of the serve, and of its decode steps beside what they began
+     with: a decode step writes its cache in place) and the kernels' share of a prefill (from a ``torch.profiler``
      trace of one more prefill, and from the two kernels timed alone at the
      serve's shapes).  Last, three ``kind="compute", step_kind="prefill"``
      tasks, one a family, through ``Hydra(device="cuda")``: all DONE, with
@@ -1184,9 +1198,98 @@ def run_scenarios(ops, device="cuda"):
     return {tag: counts[tag][0] for tag in counts}
 
 
+# the exp14 demo problems of the reference's kernel benchmark
+# (benchmarks/kernels_bench.py: DEMO_SHAPES), copied: small batch, full width
+EXP14_SHAPES = [
+    ("rglru_scan", {"B": 1, "L": 64, "dr": 1024}),
+    ("selective_scan", {"B": 1, "chunk": 32, "di": 1024, "N": 8}),
+]
+SCANS = ("rglru_scan", "selective_scan")
+TIMED_AT_LEAST = 2  # launches the wall sweep must time at each kernel's full tier
+
+
+def variant_configs(kdef, shape: dict) -> dict:
+    """The fp32 variants a shape's sweep space reaches: launch key -> the
+    space's first config with that key."""
+    out = {}
+    for c in kdef.space(shape):
+        out.setdefault(kdef.launch_key(shape, c, "float32"), c)
+    return out
+
+
+def check_knobs(torch, kreg, ops, dev) -> dict:
+    """Every compiled fp32 variant of each kernel, at its full tier and at
+    the exp14 demo shapes, once against its plain version (TIER_TOL, max-abs)
+    and against the default config's variant; a scan variant must give the
+    default's bits (a variant changes which channels a block holds, and one
+    segment of the RG-LRU scan walks no look-back).  One ``knob`` line a
+    variant with its device ms.  Returns {kernel: {shape label: {key: ms}}}."""
+    out: dict = {}
+    card = card_line()
+    cases = [(name, "full", dict(kreg.get_kernel(name).full_shape)) for name in sorted(kreg.KERNELS)]
+    cases += [(name, "exp14", dict(shape)) for name, shape in EXP14_SHAPES]
+    for name, label, shape in cases:
+        kdef = kreg.get_kernel(name)
+        args = kdef.make_args(shape, "float32", 0, dev)
+        want = as_tuple(kdef.ref(shape, args))
+        default = kdef.defaults(shape)
+        default_key = kdef.launch_key(shape, default, "float32")
+        base = as_tuple(kdef.call(shape, args, default))
+        variants = variant_configs(kdef, shape)
+        variants.setdefault(default_key, default)
+        for key, cfg in sorted(variants.items(), key=lambda kv: kv[0][1:]):
+            before = ops.launch_counts()[name]
+            got = as_tuple(kdef.call(shape, args, cfg))
+            torch.cuda.synchronize()
+            if ops.launch_counts()[name] - before != 1:
+                raise AssertionError(f"knob {name} {label} {key}: {ops.launch_counts()[name] - before} launches, want 1")
+            err = kreg.max_abs_err(got, want)
+            bit_equal = all(torch.equal(a, b) for a, b in zip(got, base))
+            ms = median_ms(torch, lambda c=cfg: kdef.call(shape, args, c))
+            out.setdefault(name, {}).setdefault(label, {})[str(list(key))] = ms
+            print(f"knob kernel={name} shape={label} dims={json.dumps(shape)} key={json.dumps(list(key))} "
+                  f"config={kreg.config_sig(cfg)} default={key == default_key} ms={ms} max_abs_err={err} "
+                  f"bit_equal_default={bit_equal} card={card}", flush=True)
+            if not (err <= TIER_TOL and all(bool(torch.isfinite(g).all()) for g in got)):
+                raise AssertionError(f"knob {name} {label} {key}: error {err} against the plain version (<= {TIER_TOL})")
+            if name in SCANS and not bit_equal:
+                raise AssertionError(f"knob {name} {label} {key}: not the default variant's bits")
+        if name in SCANS and label == "exp14" and len(out[name][label]) < 3:
+            raise AssertionError(f"knob {name} exp14: {len(out[name][label])} variants, want at least 3")
+    return out
+
+
+def run_exp14(torch, kreg, dev) -> None:
+    """The reference's exp14 on the card, as a record (no gate): the wall
+    tuner on each demo shape, then the tuned and the default configs'
+    device ms (median_ms) and their ratio, beside every variant's."""
+    from repro_torch.kernels.autotune import Autotuner
+
+    for name, shape in EXP14_SHAPES:
+        kdef = kreg.get_kernel(name)
+        r = Autotuner(timer="wall", device=dev, reps=5, warmup=2).tune(name, shape, "float32")
+        args = kdef.make_args(shape, "float32", 0, dev)
+        keys_ms = {str(list(k)): median_ms(torch, lambda c=c: kdef.call(shape, args, c))
+                   for k, c in sorted(variant_configs(kdef, shape).items(), key=lambda kv: kv[0][1:])}
+        default = kdef.defaults(shape)
+        tuned_ms = median_ms(torch, lambda: kdef.call(shape, args, r.config))
+        default_ms = median_ms(torch, lambda: kdef.call(shape, args, default))
+        print(f"exp14 kernel={name} dims={json.dumps(shape)} keys_ms={json.dumps(keys_ms)} "
+              f"tuned={kreg.config_sig(r.config)} tuned_key={json.dumps(list(kdef.launch_key(shape, r.config, 'float32')))} "
+              f"default={kreg.config_sig(default)} default_key={json.dumps(list(kdef.launch_key(shape, default, 'float32')))} "
+              f"tuned_ms={tuned_ms} default_ms={default_ms} tuned_speedup={default_ms / tuned_ms} "
+              f"fastest_key={min(keys_ms, key=keys_ms.get)} swept={r.swept} timed={r.timed} exhaustive={r.exhaustive} "
+              f"card={card_line()}",
+              flush=True)
+
+
 def run_autotune(torch, kreg, dev):
     """A wall-timed sweep of each kernel at its full tier on the card; a
-    kernel task under HYDRA_AUTOTUNE=1 must resolve to the winner."""
+    kernel task under HYDRA_AUTOTUNE=1 must resolve to the winner.  The
+    sweep times one candidate a launch key: the pruner's survivors, and
+    for each variant they miss its best-modeled config (the scans' frontier
+    keeps one survivor).  ``timed`` must equal the launch keys of the whole
+    space, the default's among them, and be at least TIMED_AT_LEAST."""
     from repro_torch.core.managers.compute import KERNEL_RUNTIME
     from repro_torch.core.task import Task
     from repro_torch.kernels.autotune import Autotuner, set_autotuner, unset_autotuner
@@ -1196,18 +1299,26 @@ def run_autotune(torch, kreg, dev):
     os.environ["HYDRA_AUTOTUNE"] = "1"
     try:
         for name in sorted(kreg.KERNELS):
-            shape = dict(kreg.get_kernel(name).full_shape)
+            kdef = kreg.get_kernel(name)
+            shape = dict(kdef.full_shape)
             r = tuner.tune(name, shape, "float32")
             if not r.key.startswith(f"tune:{name}:{dev.type}:"):
                 raise AssertionError(f"autotune {name}: key {r.key}")
             got = KERNEL_RUNTIME.run(Task(kind="kernel", payload={"kernel": name, "shape": shape}), dev)["config"]
             if got != kreg.config_sig(r.config):
                 raise AssertionError(f"autotune {name}: a kernel task resolved {got}, the tuner chose {kreg.config_sig(r.config)}")
+            keys = sorted({kdef.launch_key(shape, c, "float32") for c in kdef.space(shape)})
+            timed = r.timed
             print(
                 f"autotune kernel={name} config={kreg.config_sig(r.config)} best_ms={r.best_s * 1e3} "
-                f"swept={r.swept} exhaustive={r.exhaustive} timed={len(set(r.timings.values()))}",
+                f"swept={r.swept} exhaustive={r.exhaustive} timed={timed} keys={json.dumps([list(k) for k in keys])} "
+                f"winner_key={json.dumps(list(kdef.launch_key(shape, r.config, 'float32')))} "
+                f"default_key={json.dumps(list(kdef.launch_key(shape, kdef.defaults(shape), 'float32')))}",
                 flush=True,
             )
+            if timed != len(keys) or timed < TIMED_AT_LEAST:
+                raise AssertionError(f"autotune {name}: {timed} launches timed for the space's {len(keys)} launch keys "
+                                     f"(at least {TIMED_AT_LEAST})")
     finally:
         os.environ.pop("HYDRA_AUTOTUNE", None)
         unset_autotuner(tuner)
@@ -1616,6 +1727,7 @@ def run_serve(torch, ops, dev):
         f"serve arch={SERVE['arch']} reduced=False dtype=bfloat16 batch={B} prompt_len={L} gen={SERVE['gen']} "
         f"prefill_s={out['prefill_s']} decode_ms_per_token={out['decode_s_per_token'] * 1e3} "
         f"tokens_per_s={out['tokens_per_s']} peak_mem_gb={out['peak_mem_bytes'] / 1e9} "
+        f"decode_start_gb={out['decode_start_mem_bytes'] / 1e9} decode_peak_gb={out['decode_peak_mem_bytes'] / 1e9} "
         f"prefill_launches={json.dumps(out['prefill_launches'])} routes={json.dumps(routes)} "
         f"path_checked={json.dumps(checked)}",
         flush=True,
@@ -1681,6 +1793,7 @@ def run_moe_serve(torch, ops, dev):
         f"serve arch={MOE_SERVE['arch']} layers={MOE_SERVE['layers']} reduced=False dtype=bfloat16 batch={B} prompt_len={L} "
         f"gen={gen} prefill_s={out['prefill_s']} decode_ms_per_token={out['decode_s_per_token'] * 1e3} "
         f"tokens_per_s={out['tokens_per_s']} peak_mem_gb={out['peak_mem_bytes'] / 1e9} "
+        f"decode_start_gb={out['decode_start_mem_bytes'] / 1e9} decode_peak_gb={out['decode_peak_mem_bytes'] / 1e9} "
         f"prefill_launches={json.dumps(out['prefill_launches'])} decode_launches={json.dumps(out['decode_launches'])} "
         f"routes={json.dumps(routes)}",
         flush=True,
@@ -1743,6 +1856,7 @@ def run_family_serve(torch, ops, dev, spec):
         f"extras={json.dumps({k: list(v.shape) for k, v in batch.items() if k != 'tokens'})} "
         f"prefill_s={out['prefill_s']} decode_ms_per_token={out['decode_s_per_token'] * 1e3} "
         f"tokens_per_s={out['tokens_per_s']} peak_mem_gb={out['peak_mem_bytes'] / 1e9} "
+        f"decode_start_gb={out['decode_start_mem_bytes'] / 1e9} decode_peak_gb={out['decode_peak_mem_bytes'] / 1e9} "
         f"prefill_launches={json.dumps(out['prefill_launches'])} decode_launches={json.dumps(out['decode_launches'])} "
         f"routes={json.dumps(routes)} path_checked={json.dumps(checked)}",
         flush=True,
@@ -3040,8 +3154,11 @@ def run_sharded(torch, ops, dev) -> dict:
         strategy = dataclasses.replace(STRATEGIES["tp"], name="tp_fd", flash_decode=True)
         plain_decode = step_lib.make_decode_step(model)
         flash = step_lib.make_decode_step(model, strategy=strategy, mesh=mesh)
-        want, _ = plain_decode(params, cache, batch)
-        got, _ = flash(params, cache, batch)
+        # a decode step writes its token into the cache it is given: each runs
+        # on a copy of the prefill's (the timed calls below rewrite the same
+        # token at the same position, which leaves the cache as it was)
+        want, _ = plain_decode(params, tree_map(torch.clone, cache), batch)
+        got, _ = flash(params, tree_map(torch.clone, cache), batch)
         err = rel_err(got, want)
         if not (err <= FLASH_DECODE_TOL and bool(torch.isfinite(got).all())):
             raise AssertionError(f"flash_decode: logits relative error {err} (<= {FLASH_DECODE_TOL})")
@@ -4262,7 +4379,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}", flush=True)
     t0 = time.perf_counter()
     _build.load(*_build.SOURCES)
-    print(f"build sources={list(_build.SOURCES)} dir={_build.BUILD_DIR.relative_to(ROOT)} seconds={time.perf_counter() - t0}", flush=True)
+    print(f"build sources={list(_build.SOURCES)} dir={_build.BUILD_DIR.relative_to(ROOT)} seconds={time.perf_counter() - t0} "
+          f"per_source={json.dumps(_build.BUILD_SECONDS)}", flush=True)
     # registers and spills (nvcc -Xptxas -v) of the tensor-core attention and
     # GEMM kernels (the persistent GEMM backward's among them) and of the
     # two scans' backwards, and the dynamic shared memory of the attention
@@ -4324,6 +4442,7 @@ def main() -> int:
         )
     check_concurrent(torch, kreg, ops, dev)
     ss_bwd_rows = check_selective_scan_bwd(torch, ops, dev, flush)
+    check_knobs(torch, kreg, ops, dev)
     widths, gemm_rows, attn_fp32, seen = {}, {}, {}, set()
     for name, model, shape, dtype in MODEL_WIDTHS:
         label = f"{model}_fp32" if (name, model) in seen else model  # a GEMM width's second dtype
@@ -4360,6 +4479,7 @@ def main() -> int:
     # -- 5. autotune and FACTS ---------------------------------------------------
     phase_t0 = time.perf_counter()
     run_autotune(torch, kreg, dev)
+    run_exp14(torch, kreg, dev)
     run_facts(torch, Hydra, ProviderSpec, dev)
     print(f"phase name=autotune_facts wall_s={time.perf_counter() - phase_t0}", flush=True)
 

@@ -22,6 +22,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -41,6 +42,7 @@ _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FUNCS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 BUILD_LOGS: dict[str, str] = {}  # source -> the compiler's output, for sources built by this process
+BUILD_SECONDS: dict[str, float] = {}  # source -> seconds its nvcc ran, for sources built by this process
 
 
 class LaunchCounter:
@@ -94,10 +96,11 @@ def library_path(name: str) -> Path:
 
 def load(*names: str) -> list[ctypes.CDLL]:
     """Build the named sources where their library is missing, one ``nvcc``
-    per source, all started together, then load them."""
+    per source, all started together, then load them.  Each build's
+    seconds, from the start to its own end, go to BUILD_SECONDS."""
     with _LOCK:
         todo = [n for n in names if n not in _LIBS]
-        procs = []
+        procs, t0, logs = [], time.perf_counter(), {}
         for name in todo:
             out = library_path(name)
             if out.exists():
@@ -107,9 +110,19 @@ def load(*names: str) -> list[ctypes.CDLL]:
             cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             procs.append((name, out, tmp, proc))
+
+        def wait(name, proc):  # a thread a build: each pipe drained as it fills, each end timed
+            logs[name] = proc.communicate()[0]
+            BUILD_SECONDS[name] = time.perf_counter() - t0
+
+        waiters = [threading.Thread(target=wait, args=(name, proc)) for name, _, _, proc in procs]
+        for w in waiters:
+            w.start()
+        for w in waiters:
+            w.join()
         errors = []
         for name, out, tmp, proc in procs:
-            log, _ = proc.communicate()
+            log = logs[name]
             if proc.returncode != 0:
                 errors.append(f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n{log}")
             else:

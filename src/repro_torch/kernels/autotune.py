@@ -3,7 +3,8 @@
 Counterpart of ``repro/kernels/autotune.py``.  Sweeps the block configs of
 every registered kernel per (device, problem shape), prunes the sweep with a
 roofline cost model before any candidate runs, times the survivors (warm-up
-+ min-of-N), and caches each winner as a *replicated dataset* in the
++ min-of-N; on the wall timer also one config of each launch they miss),
+and caches each winner as a *replicated dataset* in the
 broker's staging registry -- so tuned configs flow through data-gravity
 placement and survive site death exactly like any other artifact.
 
@@ -34,13 +35,23 @@ byte-identical payloads.  A cache hit returns the stored result without
 re-timing and without emitting ``kernel.tune``.
 
 Timers: ``timer="wall"`` (default) runs the candidates on the tuner's device:
-CUDA events on a CUDA device, ``perf_counter`` around the call on the CPU
-(where the wrappers run the plain versions).  The hand kernels keep only the
-reference's block divisibility rule and pick their own tiles, so configs that
-share a ``KernelDef.launch_key`` are one launch: the sweep times one
-candidate per key and gives its time to every config sharing it, and ties
-keep the canonical-order first.  ``timer="model"`` scores by the expression
-above, fully deterministic.
+CUDA events around the device's work on a CUDA device (a spin kernel keeps
+the card busy while the host enqueues the call), ``perf_counter`` around
+the call on the CPU
+(where the wrappers run the plain versions).  A hand kernel's fp32 route
+launches the variant its launcher's ``tile`` maps a config to, and
+``KernelDef.launch_key`` is that route and variant, so configs that share a
+key are one launch: the sweep times one candidate per key and gives its
+time to every config sharing it, and ties keep the canonical-order first.
+The model prices the reference's tiling, not the variant a config launches,
+so dominance says nothing across variants: the wall sweep also times, for
+each launch key of the space that no survivor has, that key's best-modeled
+config (:meth:`Autotuner.variants`).  So every launch of the route is timed
+-- the scans' frontier keeps one survivor, the widest block whose
+reference tiles fit, and the card chooses between all four channel
+widths.  ``swept`` still counts the frontier, ``timed`` the launches run.
+``timer="model"`` scores the frontier by the expression above, fully
+deterministic.
 
 ``ops.py`` and the kernel-task runtime consult the process-global tuner
 (:func:`tuned_config`) only when ``HYDRA_AUTOTUNE=1``; with the gate off they
@@ -93,10 +104,11 @@ class TuneResult:
     key: str
     config: dict
     exhaustive: int  # full sweep-space size
-    swept: int  # survivors scored
+    swept: int  # the pruner's survivors scored
     pruned: int  # exhaustive - swept
     best_s: float  # winner's min-of-N (or modeled) seconds
     timings: dict = field(default_factory=dict)  # config sig -> seconds
+    timed: int = 0  # distinct launches the wall timer ran (0 under the model)
     cached: bool = False  # True on cache hits (no re-timing happened)
 
     @property
@@ -130,6 +142,7 @@ class Autotuner:
         self.smem_budget = smem_budget
         self.device = torch.device(device)
         self._results: dict = {}  # cache key -> TuneResult
+        self._cycles_per_s: Optional[float] = None  # torch.cuda._sleep's rate on the card, once measured
         self._payloads: dict = {}  # cache key -> bytes
         self._lock = threading.RLock()
         # legacy accumulators (HYDRA_EVENTS_CHECK ground truth, mirrored by
@@ -176,9 +189,47 @@ class Autotuner:
         survivors = [cfg for cfg, c in fits if not dominated(c)]
         return survivors, exhaustive
 
+    def variants(self, kernel: str, shape: dict, dtype: str, survivors: list) -> list:
+        """For each launch key of the space that no survivor has, the
+        config of that key with the least modeled time (the canonical first
+        on ties), in the order the space first reaches each key.  The
+        launcher's ``tile`` fits a variant to the block whatever the config,
+        so the reference's tile budget does not bar these."""
+        kdef = kreg.get_kernel(kernel)
+        have = {kdef.launch_key(shape, c, dtype) for c in survivors}
+        best: dict = {}  # launch key -> (config, modeled seconds)
+        for cfg in kdef.space(shape):
+            lk = kdef.launch_key(shape, cfg, dtype)
+            if lk in have:
+                continue
+            t = self.model_time_s(kdef.tile_cost(shape, cfg, dtype), dtype)
+            if lk not in best or t < best[lk][1]:
+                best[lk] = (cfg, t)
+        return [cfg for cfg, _ in best.values()]
+
     # -- timing --------------------------------------------------------
+    def _spin_cycles(self, seconds: float) -> int:
+        """Cycles of ``torch.cuda._sleep`` that keep the card busy
+        ``seconds``, from the card's rate measured once a tuner."""
+        if self._cycles_per_s is None:
+            n = 10_000_000
+            torch.cuda._sleep(1000)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            torch.cuda._sleep(n)
+            end.record()
+            end.synchronize()
+            self._cycles_per_s = n / (start.elapsed_time(end) * 1e-3)
+        return int(seconds * self._cycles_per_s)
+
     def _time_wall(self, thunk: Callable[[], object]) -> float:
-        """Min of ``reps`` single-call seconds after ``warmup`` calls."""
+        """Min of ``reps`` single-call seconds after ``warmup`` calls.  On a
+        CUDA device the events time the device's work: a spin kernel
+        (``torch.cuda._sleep``, twice a call's host time and 50 us more)
+        queued before the start event keeps the card busy while the host
+        runs the call's Python and enqueues its kernels.  Without it a
+        kernel of a few microseconds is timed by that host path, which the
+        variants of a route share, and the sweep picks by noise."""
         on_card = self.device.type == "cuda"
 
         def sync():
@@ -188,11 +239,18 @@ class Autotuner:
         for _ in range(self.warmup):
             thunk()
         sync()
+        spin = 0
+        if on_card:
+            t0 = time.perf_counter()
+            thunk()
+            spin = self._spin_cycles(2 * (time.perf_counter() - t0) + 50e-6)
+            sync()
         best = float("inf")
         for _ in range(self.reps):
             if on_card:
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(spin)
                 start.record()
                 thunk()
                 end.record()
@@ -231,9 +289,12 @@ class Autotuner:
             args = None
             if self.timer == "wall":
                 args = kdef.make_args(shape, dtype, self.seed, self.device)
+            candidates = survivors
+            if self.timer == "wall":
+                candidates = survivors + self.variants(kernel, shape, dtype, survivors)
             best_cfg, best_s, timings = None, float("inf"), {}
             by_launch: dict = {}  # launch key -> seconds
-            for cfg in survivors:
+            for cfg in candidates:
                 if self.timer == "wall":
                     lk = kdef.launch_key(shape, cfg, dtype)
                     if lk not in by_launch:
@@ -256,6 +317,7 @@ class Autotuner:
                 pruned=exhaustive - len(survivors),
                 best_s=best_s,
                 timings=timings,
+                timed=len(by_launch),
             )
             payload = self._payload_bytes(result, shape, dtype)
             self._results[key] = result

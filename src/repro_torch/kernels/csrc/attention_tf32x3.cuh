@@ -19,14 +19,15 @@
 // Layout.  A block is one warpgroup (128 threads) that owns 64 rows: the
 // wgmma's m64.  Its own operand rows stay in shared memory for the whole
 // block ("resident", A of the first products); it streams tiles of BN rows
-// (BN = 16 or 32) of the other side through a ring of raw stages filled by
+// (BN = 16, 32 or 64) of the other side through a ring of raw stages filled by
 // cp.async, so the next tile's load runs under this tile's products.  Each
 // raw tile (fp32 or bf16 rows) is split into TF32 tiles that wgmma reads:
 //  * as is (head-wide rows, K-major over the head): the B operand of a
 //    score-like product S = A B^T;
-//  * transposed (one 128-byte row a head column, K-major over the BN
-//    streamed rows): the B operand of a product P X whose depth is the
-//    streamed rows (P V, dS K, P^T dO, dS^T Q).  TF32 wgmma has no transpose
+//  * transposed (one 128-byte row a head column, K-major over 32 of the
+//    streamed rows; a tile of 64 rows is two such tiles, one after the
+//    other): the B operand of a product P X whose depth is the streamed
+//    rows (P V, dS K, P^T dO, dS^T Q).  TF32 wgmma has no transpose
 //    bit, so a B operand must be K-major in shared memory; writing the tile
 //    transposed in the split pass, which touches every value anyway, costs
 //    scalar stores instead of a second pass.  (The other way, O^T = V^T P^T
@@ -177,11 +178,11 @@ __device__ __forceinline__ void split_raw(const uint8_t* stage, uint8_t* a_hi, u
           if constexpr (X3) *reinterpret_cast<uint4*>(a_lo + off) = lo;
         }
         if constexpr (TRANS) {
-          const int p = trans_pos(r);
+          const int p = trans_pos(r & 31), tile0 = (r >> 5) * trans_bytes<W>();  // rows 32 .. 63: the second tile
           const uint32_t h[4] = {hi.x, hi.y, hi.z, hi.w}, l[4] = {lo.x, lo.y, lo.z, lo.w};
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int off = trans_off(4 * fu + e, p);
+            const int off = tile0 + trans_off(4 * fu + e, p);
             *reinterpret_cast<uint32_t*>(t_hi + off) = h[e];
             if constexpr (X3) *reinterpret_cast<uint32_t*>(t_lo + off) = l[e];
           }

@@ -393,18 +393,26 @@ namespace tf32x3 {
 
 using namespace attn3;
 
-constexpr int BN = 32;  // k rows a streamed tile
+// The k rows a streamed tile, BN, is the knob the reference's block_k sets on
+// the tf32x3 route (kernels/flash_attention.py: tile; its Python mirror of
+// FwdCfg's shared memory is smem_bytes): 16, 32 or 64, one instance each a
+// head width where it fits a block (not 64 at 128).  32 is every other
+// route's, and the tf32x3 default.  A tile of 64 rows takes its P V product
+// in two 32-deep stages, each in a fresh accumulator, as every product here
+// keeps its depth stages to 32 (attention_tf32x3.cuh).
 
 // T the operands' type (fp32: three TF32 products; bf16: one), HD the head
-// width, SPLIT the blocks of a cluster that share a q tile's head columns
-template <typename T, int HD, int SPLIT>
+// width, SPLIT the blocks of a cluster that share a q tile's head columns,
+// BN the k rows a streamed tile
+template <typename T, int HD, int SPLIT, int BN>
 struct FwdCfg {
   static constexpr int W = HD / SPLIT;        // the block's head columns
   static constexpr bool X3 = sizeof(T) == 4;  // three TF32 products a product
   static constexpr int NT = X3 ? 2 : 1;       // TF32 tiles an operand: hi and lo, or hi
+  static constexpr int KP = BN < 32 ? BN : 32;  // the depth of one P V stage
   static constexpr int Q_T = asis_bytes<kRows, W>();  // one resident Q tile (hi or lo)
   static constexpr int K_T = asis_bytes<BN, W>();
-  static constexpr int V_T = trans_bytes<W>();
+  static constexpr int V_T = trans_bytes<W>() * (BN / KP);  // a transposed tile a stage
   static constexpr int RAW = raw_bytes<T, BN, W>();   // one raw K or V tile
   static constexpr int XCH = kRows * BN * 4;  // the peer's partial S of a tile
   static constexpr size_t SMEM = 1024 + NT * size_t(Q_T + K_T + V_T) + 2 * 2 * size_t(RAW) + (SPLIT > 1 ? pair_xch_bytes(XCH) : 0);
@@ -415,7 +423,7 @@ struct FwdCfg {
 
 // Scale, mask and exponentiate one S tile in place (S becomes P); update the
 // row max m and the partial row sums l; corr rescales O
-template <bool MASK>
+template <bool MASK, int BN>
 __device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], float (&m)[2], float (&l)[2], float (&corr)[2], int t,
                                              int q0, int kt, int Lq, int Lk, float scale, int causal, int has_window,
                                              int window) {
@@ -458,12 +466,12 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], float (&m)[2], 
 // a cluster take the same q tile, each its half of the head's columns, and
 // add their partial S through a PairXch; both then hold the same m and l,
 // and the first writes LSE2 and (m, l).
-template <typename T, int HD, int SPLIT>
+template <typename T, int HD, int SPLIT, int BN>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_tf32x3(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, float* __restrict__ o_part, float2* __restrict__ ml_part, int H, int KV,
                  int Lq, int Lk, float scale, int causal, int has_window, int window) {
-  using C = FwdCfg<T, HD, SPLIT>;
+  using C = FwdCfg<T, HD, SPLIT, BN>;
   constexpr int W = C::W;
   constexpr bool X3 = C::X3;
   extern __shared__ __align__(128) uint8_t smem_raw[];
@@ -537,13 +545,19 @@ flash_fwd_tf32x3(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                            (has_window && q0 + kRows - 1 - kt >= window);
     float corr[2];
     if (need_mask)
-      softmax_tile<true>(s, m, l, corr, t, q0, kt, Lq, Lk, scale, causal, has_window, window);
+      softmax_tile<true, BN>(s, m, l, corr, t, q0, kt, Lq, Lk, scale, causal, has_window, window);
     else
-      softmax_tile<false>(s, m, l, corr, t, q0, kt, Lq, Lk, scale, causal, has_window, window);
-    float part[W / 2];
-    product_px<W, BN, X3>(part, s, av_hi, av_lo);
+      softmax_tile<false, BN>(s, m, l, corr, t, q0, kt, Lq, Lk, scale, causal, has_window, window);
+    constexpr int KP = C::KP, TR = trans_bytes<W>();
 #pragma unroll
-    for (int i = 0; i < W / 2; ++i) oacc[i] = fmaf(oacc[i], corr[(i >> 1) & 1], part[i]);
+    for (int c = 0; c < BN / KP; ++c) {  // one stage of KP k rows at a time: P's columns c KP ..
+      float p[KP / 2], part[W / 2];
+#pragma unroll
+      for (int i = 0; i < KP / 2; ++i) p[i] = s[c * (KP / 2) + i];
+      product_px<W, KP, X3>(part, p, av_hi + c * TR, av_lo + c * TR);
+#pragma unroll
+      for (int i = 0; i < W / 2; ++i) oacc[i] = c == 0 ? fmaf(oacc[i], corr[(i >> 1) & 1], part[i]) : oacc[i] + part[i];
+    }
   }
   if constexpr (SPLIT > 1) pair.finish();
 
@@ -614,11 +628,11 @@ flash_fwd_tf32x3_combine(const float4* __restrict__ o_part, const float2* __rest
   }
 }
 
-template <typename T, int HD, int SPLIT>
+template <typename T, int HD, int SPLIT, int BN = 32>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, float* scratch, int B, int H, int KV,
            int Lq, int Lk, int causal, int has_window, int window, int parts, cudaStream_t stream) {
-  using C = FwdCfg<T, HD, SPLIT>;
-  auto kernel = flash_fwd_tf32x3<T, HD, SPLIT>;
+  using C = FwdCfg<T, HD, SPLIT, BN>;
+  auto kernel = flash_fwd_tf32x3<T, HD, SPLIT, BN>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::SMEM));
   if (err != cudaSuccess) return int(err);
   const dim3 grid(SPLIT * ((Lq + kRows - 1) / kRows), B * H, parts);
@@ -645,18 +659,37 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, flo
   return int(cudaGetLastError());
 }
 
-// route 2 (`tf32x3`): fp32 at hd 16 to 128; route 4 (`tf32x3_cluster`): fp32
-// at hd 256, two blocks a q tile; route 3 (`tf32`): bf16 at hd 16, one part
+// route 2 (`tf32x3`) at hd HD: the variant of k_rows (BN) a streamed tile
+template <int HD>
+int launch_tf32x3(const void* q, const void* k, const void* v, void* o, float* lse, float* scratch, int B, int H, int KV,
+                  int Lq, int Lk, int causal, int has_window, int window, int parts, int k_rows, cudaStream_t stream) {
+  switch (k_rows) {
+    case 16: return launch<float, HD, 1, 16>(q, k, v, o, lse, scratch, B, H, KV, Lq, Lk, causal, has_window, window, parts, stream);
+    case 32: return launch<float, HD, 1, 32>(q, k, v, o, lse, scratch, B, H, KV, Lq, Lk, causal, has_window, window, parts, stream);
+    case 64:
+      if constexpr (HD > 64)  // past a block's shared memory
+        return int(cudaErrorInvalidValue);
+      else
+        return launch<float, HD, 1, 64>(q, k, v, o, lse, scratch, B, H, KV, Lq, Lk, causal, has_window, window, parts, stream);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// route 2 (`tf32x3`): fp32 at hd 16 to 128, q_rows 64 and k_rows 16, 32 or
+// 64 (not 64 at hd 128); route 4 (`tf32x3_cluster`): fp32 at hd 256, two
+// blocks a q tile; route 3 (`tf32`): bf16 at hd 16, one part
 int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, float* scratch, int B, int H, int KV,
-             int Lq, int Lk, int hd, int causal, int has_window, int window, int parts, int route, cudaStream_t stream) {
+             int Lq, int Lk, int hd, int causal, int has_window, int window, int parts, int q_rows, int k_rows, int route,
+             cudaStream_t stream) {
   if (parts < 1 || parts > 64 || (parts > 1 && scratch == nullptr) || int64_t(B) * H > 65535)
     return int(cudaErrorInvalidValue);
   if (route == 2) {
+    if (q_rows != kRows) return int(cudaErrorInvalidValue);
     switch (hd) {
-      case 16: return launch<float, 16, 1>(q, k, v, o, lse, scratch, B, H, KV, Lq, Lk, causal, has_window, window, parts, stream);
-      case 32: return launch<float, 32, 1>(q, k, v, o, lse, scratch, B, H, KV, Lq, Lk, causal, has_window, window, parts, stream);
-      case 64: return launch<float, 64, 1>(q, k, v, o, lse, scratch, B, H, KV, Lq, Lk, causal, has_window, window, parts, stream);
-      case 128: return launch<float, 128, 1>(q, k, v, o, lse, scratch, B, H, KV, Lq, Lk, causal, has_window, window, parts, stream);
+      case 16: return launch_tf32x3<16>(q, k, v, o, lse, scratch, B, H, KV, Lq, Lk, causal, has_window, window, parts, k_rows, stream);
+      case 32: return launch_tf32x3<32>(q, k, v, o, lse, scratch, B, H, KV, Lq, Lk, causal, has_window, window, parts, k_rows, stream);
+      case 64: return launch_tf32x3<64>(q, k, v, o, lse, scratch, B, H, KV, Lq, Lk, causal, has_window, window, parts, k_rows, stream);
+      case 128: return launch_tf32x3<128>(q, k, v, o, lse, scratch, B, H, KV, Lq, Lk, causal, has_window, window, parts, k_rows, stream);
       default: return int(cudaErrorInvalidValue);
     }
   }
@@ -679,11 +712,13 @@ extern "C" {
 // mask.  lse: null, or B*H*Lq fp32 for each row's log-sum-exp in base 2.
 // parts (tf32x3 and tf32x3_cluster only, else 1): blocks a q tile's k tiles
 // are split across; with parts > 1, scratch is fp32 of parts*B*H*Lq*(hd +
-// 2), else unused.  Returns cudaGetLastError() after the launch (0 on
+// 2), else unused.  q_rows, k_rows (tf32x3 only, else unread): the variant,
+// the q rows a block (64) and the k rows a streamed tile (16, 32 or 64; not
+// 64 at hd 128).  Returns cudaGetLastError() after the launch (0 on
 // success).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse, void* scratch, int B,
                         int H, int KV, int Lq, int Lk, int hd, int causal, int has_window, int window, int parts,
-                        int dtype, int route, int device, void* stream) {
+                        int q_rows, int k_rows, int dtype, int route, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -692,7 +727,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, vo
     return dispatch_wgmma(q, k, v, o, lse2, B, H, KV, Lq, Lk, hd, causal, has_window, window, s);
   if (((route == 2 || route == 4) && dtype == 0) || (route == 3 && dtype == 1))
     return tf32x3::dispatch(q, k, v, o, lse2, static_cast<float*>(scratch), B, H, KV, Lq, Lk, hd, causal, has_window,
-                            window, parts, route, s);
+                            window, parts, q_rows, k_rows, route, s);
   return int(cudaErrorInvalidValue);
 }
 

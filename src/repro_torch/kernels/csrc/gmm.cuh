@@ -1081,19 +1081,33 @@ int launch_persistent(Kernel kernel, const CUtensorMap& amap, const CUtensorMap&
 namespace tf32x3 {
 
 constexpr int BM = 64;                  // rows of out^T (M) per block: the wgmma's m64
-constexpr int BN = 128;                 // columns of out^T (N) per block
 constexpr int WGS = 2;                  // warpgroups, each owning BN / WGS of the columns
-constexpr int WN = BN / WGS;            // a warpgroup's columns: its wgmma's N
 constexpr int BK = 32;                  // depth (K) per stage: one 128-byte swizzle row of fp32
-constexpr int STAGES = 3;
 constexpr int CHUNK = BK * 32 * 4;      // 32 columns of a tile whose rows are depths: 32 rows of 128 bytes
-constexpr int B_BYTES = BN * BK * 4;    // B tile: 128 rows (N) of 128 bytes (K-major), or 4 chunks
-constexpr int BW_BYTES = B_BYTES / WGS; // a warpgroup's rows of it
 constexpr int A_BYTES = BM * BK * 4;    // A tile: 64 rows (M) of 128 bytes (K-major), or 2 chunks
-constexpr int STAGE_BYTES = B_BYTES + A_BYTES;
 constexpr int THREADS = 128 * WGS;
-constexpr size_t SMEM = 1024 + size_t(STAGES) * STAGE_BYTES + 2 * B_BYTES + 128;
-static_assert(STAGE_BYTES % 1024 == 0 && BW_BYTES % 1024 == 0, "tiles on the swizzle's 1024-byte period");
+
+// The tile: BN columns of out^T (N) per block and a ring of STAGES stages.
+// The forward's BN (the C columns a block) and STAGES are the knobs the
+// reference's block_c and block_d set (kernels/moe_gmm.py: tile; its Python
+// mirror of SMEM is smem_bytes): BN 64 or 128, STAGES 2 or 3, one instance
+// each.  The gradients keep the default, BN 128 and 3 stages.
+template <int BN_ = 128, int STAGES_ = 3>
+struct Tile {
+  static constexpr int BN = BN_;
+  static constexpr int STAGES = STAGES_;
+  static constexpr int WN = BN / WGS;            // a warpgroup's columns: its wgmma's N
+  static constexpr int B_BYTES = BN * BK * 4;    // B tile: BN rows (N) of 128 bytes (K-major), or BN / 32 chunks
+  static constexpr int BW_BYTES = B_BYTES / WGS; // a warpgroup's rows of it
+  static constexpr int STAGE_BYTES = B_BYTES + A_BYTES;
+  static constexpr size_t SMEM = 1024 + size_t(STAGES) * STAGE_BYTES + 2 * B_BYTES + 128;
+  static_assert(STAGE_BYTES % 1024 == 0 && BW_BYTES % 1024 == 0, "tiles on the swizzle's 1024-byte period");
+  static_assert(SMEM <= 232448, "shared memory of one block");
+};
+using Default = Tile<>;
+constexpr int BN = Default::BN;
+constexpr int STAGES = Default::STAGES;
+constexpr size_t SMEM = Default::SMEM;
 
 // byte offset of the 16-byte unit u of row r in a 128-byte-swizzled tile
 __device__ __forceinline__ int swz(int r, int u) { return r * 128 + ((u ^ (r & 7)) << 4); }
@@ -1111,10 +1125,12 @@ __device__ __forceinline__ const float* a_at(const uint8_t* tile, int m, int k) 
 // block a tile, n_n x n_m x E of them, N tiles fastest; where SPLIT, a
 // cluster of parts = ceil(n_k / spp) blocks a tile, block r walking stages
 // r spp .. (r + 1) spp - 1, its sums then added to the others' in part
-// order (sum_parts).
-template <bool A_K, bool B_K, bool SPLIT = false>
+// order (sum_parts).  TL: the tile (BN and STAGES).
+template <bool A_K, bool B_K, bool SPLIT = false, typename TL = Default>
 __device__ __forceinline__ void gmm_tf32x3(const CUtensorMap* amap, const CUtensorMap* bmap, float* __restrict__ out,
                                            int M, int N, int K, int n_n, int n_m, int spp = 0) {
+  constexpr int BN = TL::BN, STAGES = TL::STAGES, WN = TL::WN;
+  constexpr int B_BYTES = TL::B_BYTES, BW_BYTES = TL::BW_BYTES, STAGE_BYTES = TL::STAGE_BYTES;
   // aligned in the shared window itself, so the compiler keeps shared-memory
   // loads and stores (not generic ones) for every pointer derived from it
   extern __shared__ __align__(128) uint8_t smem_raw[];
@@ -1200,13 +1216,13 @@ __device__ __forceinline__ void gmm_tf32x3(const CUtensorMap* amap, const CUtens
         *reinterpret_cast<uint4*>(my_lo + off) = lo;
       }
     } else {
-      // this warpgroup's 64 columns, transposed: lane k reads 4 columns of
+      // this warpgroup's WN columns, transposed: lane k reads 4 columns of
       // its depth row and writes them to 4 rows of the K-major tiles
 #pragma unroll
       for (int i = 0; i < BW_BYTES / 16 / 128; ++i) {
         const int u = warp + 4 * i;  // 16-byte unit of the warpgroup's columns: columns 4u .. 4u + 3
-        const int n = 4 * u;          // its first column, within the warpgroup's 64
-        const float4 v = *reinterpret_cast<const float4*>(st + (2 * wg + (n >> 5)) * CHUNK + swz(lane, u & 7));
+        const int n = 4 * u;          // its first column, within the warpgroup's WN
+        const float4 v = *reinterpret_cast<const float4*>(st + ((wg * WN + n) >> 5) * CHUNK + swz(lane, u & 7));
         const float vs[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -1299,24 +1315,25 @@ __device__ __forceinline__ void gmm_tf32x3(const CUtensorMap* amap, const CUtens
   }
 }
 
-// The tensor maps of A and B for gmm_tf32x3<A_K, B_K>.  Returns 0 or a CUDA error.
-template <bool A_K, bool B_K>
+// The tensor maps of A and B for gmm_tf32x3<A_K, B_K> with BN columns a
+// block.  Returns 0 or a CUDA error.
+template <bool A_K, bool B_K, int BN = Default::BN>
 int make_maps(CUtensorMap* amap, CUtensorMap* bmap, const void* a, const void* b, int E, int M, int N, int K) {
   int err = A_K ? hopper::make_map_3d(amap, a, E, M, K, BM, BK, 128, true) : hopper::make_map_3d(amap, a, E, K, M, BK, 32, 128, true);
   if (!err) err = B_K ? hopper::make_map_3d(bmap, b, E, N, K, BN, BK, 128, true) : hopper::make_map_3d(bmap, b, E, K, N, BK, 32, 128, true);
   return err;
 }
 
-// Launch `kernel` (a __global__ wrapper of gmm_tf32x3) over every tile.
-template <typename Kernel>
+// Launch `kernel` (a __global__ wrapper of gmm_tf32x3 on the tile TL) over every tile.
+template <typename TL = Default, typename Kernel>
 int launch(Kernel kernel, const CUtensorMap& amap, const CUtensorMap& bmap, void* out, int E, int M, int N, int K,
            cudaStream_t stream) {
-  cudaError_t cerr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM));
+  cudaError_t cerr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(TL::SMEM));
   if (cerr != cudaSuccess) return int(cerr);
-  const int n_n = (N + BN - 1) / BN, n_m = (M + BM - 1) / BM;
+  const int n_n = (N + TL::BN - 1) / TL::BN, n_m = (M + BM - 1) / BM;
   const int64_t tiles = int64_t(n_n) * n_m * E;
   if (tiles > 0x7fffffff) return int(cudaErrorInvalidConfiguration);
-  kernel<<<unsigned(tiles), THREADS, SMEM, stream>>>(amap, bmap, static_cast<float*>(out), M, N, K, n_n, n_m);
+  kernel<<<unsigned(tiles), THREADS, TL::SMEM, stream>>>(amap, bmap, static_cast<float*>(out), M, N, K, n_n, n_m);
   return int(cudaGetLastError());
 }
 

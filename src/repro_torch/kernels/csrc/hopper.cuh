@@ -592,6 +592,7 @@ struct WgmmaTF32SS;
   };
 HOPPER_TF32_SS(16, HOPPER_R8, HOPPER_D8(0), "8", "9", "10")
 HOPPER_TF32_SS(32, HOPPER_R16, HOPPER_D16, "16", "17", "18")
+HOPPER_TF32_SS(64, HOPPER_R32, HOPPER_D32, "32", "33", "34")
 #undef HOPPER_TF32_SS
 
 #undef HOPPER_D8

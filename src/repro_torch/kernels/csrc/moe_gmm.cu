@@ -19,7 +19,9 @@
 //    transpose bit;
 //  * `tf32x3` (fp32 operands whose strides TMA can describe): y^T = w^T x^T
 //    on three TF32 products a term, w^T the register A operand loaded from
-//    w's raw tile, x the K-major B operand;
+//    w's raw tile, x the K-major B operand; the variant (the C columns a
+//    block, 64 or 128, and the ring's stages, 2 or 3) is the one the
+//    reference's block_c and block_d pick (kernels/moe_gmm.py: tile);
 //  * `mma` (the rest: any strides): warp-level mma.sync products fed by
 //    cp.async, x K-major and w N-major, each read by its own addressing.
 #include "gmm.cuh"
@@ -40,10 +42,19 @@ gmm_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
   tc::gmm_wgmma<false, true>(&xmap, &wmap, y, M, N, K, n_m, n_n);
 }
 
+template <typename TL>
 __global__ void __launch_bounds__(tf32x3::THREADS, 2)
 gmm_tf32x3(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUtensorMap xmap,
            float* __restrict__ y, int M, int N, int K, int n_n, int n_m) {
-  tf32x3::gmm_tf32x3<false, true>(&wmap, &xmap, y, M, N, K, n_n, n_m);
+  tf32x3::gmm_tf32x3<false, true, false, TL>(&wmap, &xmap, y, M, N, K, n_n, n_m);
+}
+
+// y^T (F x C) = w^T (F x D, rows of D) x^T (x K-major) on the tile TL
+template <typename TL>
+int launch_tf32x3(const void* x, const void* w, void* y, int E, int C, int D, int F, cudaStream_t s) {
+  CUtensorMap amap, bmap;
+  const int code = tf32x3::make_maps<false, true, TL::BN>(&amap, &bmap, w, x, E, F, C, D);
+  return code ? code : tf32x3::launch<TL>(gmm_tf32x3<TL>, amap, bmap, y, E, F, C, D, s);
 }
 
 // x's and w's strides: x (e, c, d) at e C D + c D + d; w (e, d, f) at e D F + d F + f
@@ -69,11 +80,12 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  route: 0 = mma (either dtype),
 // 1 = wgmma (bfloat16 only), 2 = tf32x3 (float32 only).  The mma route
-// splits its walk by its rule (gmm.cuh, split_of).  Returns
-// cudaGetLastError() after the launch (0 on success), or the error of a
-// refused cluster launch.
+// splits its walk by its rule (gmm.cuh, split_of).  bn, stages (tf32x3
+// only, else unread): the variant, the C columns a block (64 or 128) and
+// the ring's stages (2 or 3).  Returns cudaGetLastError() after the launch
+// (0 on success), or the error of a refused cluster launch.
 int moe_gmm_fwd(const void* x, const void* w, void* y, int E, int C, int D, int F, int dtype,
-                int route, int device, void* stream) {
+                int route, int bn, int stages, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -82,9 +94,13 @@ int moe_gmm_fwd(const void* x, const void* w, void* y, int E, int C, int D, int 
     int code = tc::make_maps<false, true>(&amap, &bmap, x, w, E, C, F, D);
     return code ? code : tc::launch(gmm_wgmma, amap, bmap, y, E, C, F, D, s);
   }
-  if (route == 2 && dtype == 0) {  // y^T (F x C) = w^T (F x D, rows of D) x^T (x K-major)
-    int code = tf32x3::make_maps<false, true>(&amap, &bmap, w, x, E, F, C, D);
-    return code ? code : tf32x3::launch(gmm_tf32x3, amap, bmap, y, E, F, C, D, s);
+  if (route == 2 && dtype == 0) {
+    using tf32x3::Tile;
+    if (bn == 64 && stages == 2) return launch_tf32x3<Tile<64, 2>>(x, w, y, E, C, D, F, s);
+    if (bn == 64 && stages == 3) return launch_tf32x3<Tile<64, 3>>(x, w, y, E, C, D, F, s);
+    if (bn == 128 && stages == 2) return launch_tf32x3<Tile<128, 2>>(x, w, y, E, C, D, F, s);
+    if (bn == 128 && stages == 3) return launch_tf32x3<Tile<128, 3>>(x, w, y, E, C, D, F, s);
+    return int(cudaErrorInvalidValue);
   }
   if (route != 0) return int(cudaErrorInvalidValue);
   if (dtype == 0) return launch_mma<float>(x, w, y, E, C, D, F, device, s);

@@ -15,25 +15,26 @@
 // tens of KB in flight where the card needs megabytes.
 //
 // What the design does about it: time is cut too, and then cut again.
-//  * one block per (segment of T = 256 steps, block of DC = 32 channels,
-//    batch row): B * dr/32 * L/256 = 2560 blocks at the model width, three
-//    resident on each SM.  Its W = 8 warps each take a part of 32 steps of
-//    the segment, a lane per channel, so no warp walks more than 32 steps;
+//  * one block per (segment of T = 256 steps, block of DC channels, batch
+//    row): with DC = 32, B * dr/32 * L/256 = 2560 blocks at the model
+//    width, three resident on each SM.  Its W = 8 groups of DC threads each
+//    take a part of 32 steps of the segment, a thread per channel, so no
+//    thread walks more than 32 steps.  With DC = 32 a group is a warp;
 //  * the block's (T x DC) tiles of log_a and gx arrive by cp.async, a stage
 //    (one mbarrier) per part, all issued at once, so each block keeps its
-//    64 KB in flight from its first instruction and a warp starts as soon
-//    as its own part has landed;
-//  * pass 1: each warp walks its part from a zero state, computing
+//    tiles (64 KB at DC = 32) in flight from its first instruction and a
+//    group starts as soon as its own part has landed;
+//  * pass 1: each group walks its part from a zero state, computing
 //    a_t = exp(log_a_t) (libdevice's accurate expf, as torch.exp) into
 //    shared memory in place of log_a, and the part's summary: the product A
-//    of its a's and its end state H.  Warp 0 composes the parts into the
+//    of its a's and its end state H.  Group 0 composes the parts into the
 //    segment's summary and publishes it with flag 1;
-//  * decoupled look-back (warp 0): the block walks back over the segments
+//  * decoupled look-back (group 0): the block walks back over the segments
 //    before it, composing their summaries (h -> A h + H) until it meets one
 //    whose true end state is published (flag 2) or the start of the
 //    sequence (h0), which gives its incoming state h_in.  It publishes its
 //    own end state A h_in + H with flag 2, and each part's starting state;
-//  * pass 2: every warp walks its part again from shared memory starting at
+//  * pass 2: every group walks its part again from shared memory starting at
 //    its true state, so the step-to-step chain is one FMA (a_t is already
 //    there), and writes y; the part holding the sequence's last step writes
 //    h_last.  log_a and gx are read once and y written once: the bound's
@@ -41,13 +42,23 @@
 // Segments are ordered by an atomic ticket taken when a block starts, not
 // by blockIdx: a block only ever waits on a lower ticket, which a block
 // that has already started holds, so the look-back cannot deadlock.  The
-// values are published before their flag (the warp's stores, __syncwarp,
-// then one thread's release store, as CUTLASS's semaphore does with a block
-// barrier); the flag is read with acquire and the values past L1.  Flags,
-// summaries and the ticket live in a per-call scratch (zeroed here on the
-// stream), so concurrent calls share nothing.
+// values are published before their flag (the group's stores, a barrier of
+// the group, then one thread's release store, as CUTLASS's semaphore does
+// with a block barrier); the flag is read with acquire and the values past
+// L1.  Flags, summaries and the ticket live in a per-call scratch (zeroed
+// here on the stream), so concurrent calls share nothing.  Where a block
+// finds a segment before it with its summary but not yet its end state, it
+// composes that summary and walks on: the rounding of its incoming state
+// then depends on that timing, so a sequence of several segments can differ
+// from run to run in the last bits; one segment (L <= 256) cannot.
 //
-// Development runs chose the sizes: one warp walking a 64-step segment
+// The channels a block, DC, is the knob the reference's block_d sets
+// (kernels/rglru_scan.py: tile, whose Python mirror of the shared memory
+// below is smem_bytes): 8, 16, 32 or 64, one instance each.  A variant
+// changes which channels a block holds, not any channel's arithmetic: at
+// one segment every variant gives the same bits.
+//
+// Development runs chose the other sizes: one warp walking a 64-step segment
 // (10240 blocks) reached about half the byte bound, held back by the
 // latency of its phases run in order, not by the exponentials or the
 // look-back's polling; warps sharing a longer segment shorten every warp's
@@ -64,31 +75,47 @@
 
 namespace {
 
-constexpr int DC = 32;                // channels per block: a thread each in every warp
 constexpr int T = 256;                // steps per segment
-constexpr int W = 8;                  // warps per block, each walking T / W of the steps
-constexpr int STAGE = T / W;          // steps per cp.async stage: a warp's part
-constexpr int NT = W * DC;
-constexpr int PITCH = DC * 4 + 16;    // bytes of one shared row: DC floats + the chunk head
-constexpr int SMEM = 2 * T * PITCH;  // the tiles of log_a and gx
+constexpr int W = 8;                  // groups of DC threads per block, each walking T / W of the steps
+constexpr int STAGE = T / W;          // steps per cp.async stage: a group's part
 constexpr int FLAG_AGG = 1, FLAG_INCL = 2;
-static_assert(DC == 32 && T % W == 0, "a warp's lane per channel; whole parts");
+static_assert(T % W == 0, "whole parts");
+
+template <int DC>
+struct Cfg {
+  static constexpr int NT = W * DC;
+  static constexpr int PITCH = DC * 4 + 16;  // bytes of one shared row: DC floats + the chunk head
+  static constexpr int SMEM = 2 * T * PITCH;  // the tiles of log_a and gx
+  static_assert(DC == 8 || DC == 16 || DC == 32 || DC == 64, "a group is part of a warp, a warp, or two");
+};
+
+// a barrier of group 0 (threads 0 .. DC - 1): lanes of warp 0, or, at 64,
+// warps 0 and 1 on a named barrier
+template <int DC>
+__device__ __forceinline__ void group0_sync() {
+  if constexpr (DC == 64)
+    hopper::named_sync(1, 64);
+  else
+    __syncwarp(DC == 32 ? 0xffffffffu : (1u << DC) - 1u);
+}
 
 // scratch: int flags[n_blocks + 1] (the last is the ticket counter), padded
 // to 16 bytes, then float vals[n_blocks][3][DC]: A, H and the end state
 int64_t flag_bytes(int64_t n_blocks) { return ((n_blocks + 1) * 4 + 15) / 16 * 16; }
 
-__global__ void __launch_bounds__(NT)
+template <int DC>
+__global__ void __launch_bounds__(Cfg<DC>::NT)
 rglru_kernel(const float* __restrict__ log_a, const float* __restrict__ gx, const float* __restrict__ h0,
              float* __restrict__ y, float* __restrict__ h_last, int L, int dr, int nbd, int nd, int nseg,
              int* __restrict__ flags, float* __restrict__ vals) {
+  constexpr int NT = Cfg<DC>::NT, PITCH = Cfg<DC>::PITCH;
   extern __shared__ __align__(16) char tiles[];
   char* la_s = tiles;               // log_a, then a = exp(log_a) in place
   char* gx_s = tiles + T * PITCH;
   __shared__ uint64_t bar[W];
-  __shared__ float part_a[W][DC], part_h[W][DC];  // each warp's summary, then its starting state
+  __shared__ float part_a[W][DC], part_h[W][DC];  // each group's summary, then its starting state
   __shared__ int ticket;
-  const int tid = threadIdx.x, warp = tid / DC, lane = tid % DC;
+  const int tid = threadIdx.x, warp = tid / DC, lane = tid % DC;  // warp: the thread's group
   if (tid == 0) {
     ticket = atomicAdd(&flags[nbd * nseg], 1);
     for (int s = 0; s < W; ++s) hopper::mbar_init(&bar[s], NT);
@@ -156,7 +183,7 @@ rglru_kernel(const float* __restrict__ log_a, const float* __restrict__ gx, cons
       __stcg(mine, A);
       __stcg(mine + DC, H);
     }
-    __syncwarp();
+    group0_sync<DC>();
     if (lane == 0) hopper::st_release(&flags[tk], FLAG_AGG);
 
     // look-back: compose the summaries before this segment into h -> Ac h + Hc
@@ -182,7 +209,7 @@ rglru_kernel(const float* __restrict__ log_a, const float* __restrict__ gx, cons
       }
       __stcg(mine + 2 * DC, fmaf(A, h, H));
     }
-    __syncwarp();
+    group0_sync<DC>();
     if (lane == 0) hopper::st_release(&flags[tk], FLAG_INCL);
     // each part's starting state, from h_in through the parts before it
 #pragma unroll
@@ -207,47 +234,61 @@ rglru_kernel(const float* __restrict__ log_a, const float* __restrict__ gx, cons
   }
 }
 
-int64_t n_blocks(int B, int L, int dr) {
-  return int64_t(B) * ((dr + DC - 1) / DC) * ((L + T - 1) / T);
+int64_t n_blocks(int B, int L, int dr, int dc) {
+  return int64_t(B) * ((dr + dc - 1) / dc) * ((L + T - 1) / T);
+}
+
+template <int DC>
+int launch(const void* log_a, const void* gx, const void* h0, void* y, void* h_last, void* scratch, int B, int L,
+           int dr, cudaStream_t s) {
+  constexpr int NT = Cfg<DC>::NT, SMEM = Cfg<DC>::SMEM;
+  const int64_t n = n_blocks(B, L, dr, DC);
+  if (n > 0x7ffffffe) return int(cudaErrorInvalidConfiguration);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, size_t(flag_bytes(n)), s);
+  if (err != cudaSuccess) return int(err);
+  const int nd = (dr + DC - 1) / DC;
+  int* flags = static_cast<int*>(scratch);
+  float* vals = reinterpret_cast<float*>(static_cast<char*>(scratch) + flag_bytes(n));
+  if (SMEM > 48 * 1024) {
+    err = cudaFuncSetAttribute(rglru_kernel<DC>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return int(err);
+  }
+  rglru_kernel<DC><<<unsigned(n), NT, SMEM, s>>>(static_cast<const float*>(log_a), static_cast<const float*>(gx),
+                                              static_cast<const float*>(h0), static_cast<float*>(y),
+                                              static_cast<float*>(h_last), L, dr, B * nd, nd, (L + T - 1) / T,
+                                              flags, vals);
+  return int(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of the per-call scratch `rglru_scan_fwd` takes.
-long long rglru_scan_scratch_bytes(int B, int L, int dr) {
-  const int64_t n = n_blocks(B, L, dr);
-  return flag_bytes(n) + n * 3 * DC * 4;
+// Bytes of the per-call scratch `rglru_scan_fwd` takes with `dc` channels a block.
+long long rglru_scan_scratch_bytes(int B, int L, int dr, int dc) {
+  const int64_t n = n_blocks(B, L, dr, dc);
+  return flag_bytes(n) + n * 3 * dc * 4;
 }
 
 // log_a, gx (B,L,dr), h0 (B,dr) fp32 in; y (B,L,dr), h_last (B,dr) fp32
 // out; every operand on a 16-byte boundary; scratch of
-// rglru_scan_scratch_bytes(B, L, dr) bytes, on a 16-byte boundary.
-// Returns cudaGetLastError() after the launch (0 on success).
+// rglru_scan_scratch_bytes(B, L, dr, dc) bytes, on a 16-byte boundary.  dc:
+// the channels a block, 8, 16, 32 or 64 (the variant).  Returns
+// cudaGetLastError() after the launch (0 on success).
 int rglru_scan_fwd(const void* log_a, const void* gx, const void* h0, void* y, void* h_last, void* scratch,
-                   int B, int L, int dr, int device, void* stream) {
+                   int B, int L, int dr, int dc, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dc != 8 && dc != 16 && dc != 32 && dc != 64) return int(cudaErrorInvalidValue);
   if (B == 0 || dr == 0) return 0;
   if (L == 0) return int(cudaMemcpyAsync(h_last, h0, size_t(B) * dr * 4, cudaMemcpyDeviceToDevice, s));
-  const int64_t n = n_blocks(B, L, dr);
-  if (n > 0x7ffffffe) return int(cudaErrorInvalidConfiguration);
-  err = cudaMemsetAsync(scratch, 0, size_t(flag_bytes(n)), s);
-  if (err != cudaSuccess) return int(err);
-  const int nd = (dr + DC - 1) / DC;
-  int* flags = static_cast<int*>(scratch);
-  float* vals = reinterpret_cast<float*>(static_cast<char*>(scratch) + flag_bytes(n));
-  if (SMEM > 48 * 1024) {
-    err = cudaFuncSetAttribute(rglru_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (err != cudaSuccess) return int(err);
+  switch (dc) {
+    case 8: return launch<8>(log_a, gx, h0, y, h_last, scratch, B, L, dr, s);
+    case 16: return launch<16>(log_a, gx, h0, y, h_last, scratch, B, L, dr, s);
+    case 32: return launch<32>(log_a, gx, h0, y, h_last, scratch, B, L, dr, s);
+    default: return launch<64>(log_a, gx, h0, y, h_last, scratch, B, L, dr, s);
   }
-  rglru_kernel<<<unsigned(n), NT, SMEM, s>>>(static_cast<const float*>(log_a), static_cast<const float*>(gx),
-                                          static_cast<const float*>(h0), static_cast<float*>(y),
-                                          static_cast<float*>(h_last), L, dr, B * nd, nd, (L + T - 1) / T,
-                                          flags, vals);
-  return int(cudaGetLastError());
 }
 
 const char* rglru_scan_error_string(int code) {

@@ -27,7 +27,12 @@
 //    of two of at least 4), and y_t = sum_n h_t[n] C_t[n] is reduced across
 //    those threads by warp shuffles.  The 131,072 recurrences at the model
 //    width fill the card, so the chunk stays one walk inside the block;
-//  * a block takes DC = 32 channels of one batch row.  The tiles of dt and
+//  * a block takes DC channels of one batch row (32 by default; the knob the
+//    reference's block_d sets for fp32 x, 8, 16, 32 or 64, one instance
+//    each: kernels/selective_scan.py: tile, whose Python mirror of Smem
+//    below is smem_bytes; a variant changes which channels a block holds,
+//    not any channel's arithmetic, so every variant gives the same bits).
+//    The tiles of dt and
 //    x for its channels, and the rows of B and C (shared by every channel
 //    of the block, loaded once per tile), arrive by cp.async in a ring of
 //    NSTAGE stages of STAGE steps, one mbarrier each.  B and C land element
@@ -54,7 +59,6 @@
 
 namespace {
 
-constexpr int DC = 32;      // channels per block
 constexpr int SPT = 4;      // states per thread: one float4 of B and of C
 constexpr int STAGE = 64;   // steps per tile
 constexpr int NSTAGE = 2;   // tiles in flight
@@ -65,11 +69,15 @@ static_assert(SPT == 4 && STAGE % GROUP == 0, "float4 states; whole groups in a 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// Shared-memory layout of one instance (NP = N padded, TX = x's type)
-template <typename TX, int NP>
+// Shared-memory layout of one instance (NP = N padded, TX = x's type, DC
+// channels a block)
+template <typename TX, int NP, int DC>
 struct Smem {
   static constexpr int TPC = NP / SPT;                  // threads per channel
   static constexpr int THREADS = DC * TPC;
+  static_assert(THREADS <= 512, "a block's threads (kernels/selective_scan.py: MAX_THREADS)");
+  // the lanes of a warp that exist: a block of 8 channels of 8 states has 16
+  static constexpr unsigned LANES = THREADS >= 32 ? 0xffffffffu : (1u << THREADS) - 1u;
   static constexpr int DT_PITCH = DC * 4 + 16;          // a row of DC floats + the chunk head
   static constexpr int X_PITCH = (DC * int(sizeof(TX)) + 31) / 16 * 16;
   static constexpr int BC_ROW = NP * 4;                 // a row of B (or C), zeros from N to NP
@@ -89,7 +97,8 @@ struct Smem {
 // set), adds its partner's sums of those, and sends the other half; then
 // it adds plain pairs.  Returns the first step whose sum the thread holds
 // in v[0], v[1], ...  Fewer shuffles than a butterfly over every step.
-template <int M, int CNT>
+// LANES: the warp's lanes that exist (a block of fewer than 32 threads).
+template <int M, int CNT, unsigned LANES>
 struct Halve {
   __device__ __forceinline__ static int run(float* v, int q) {
     if constexpr (M == 0) {
@@ -101,22 +110,22 @@ struct Halve {
       for (int i = 0; i < H; ++i) {
         const float send = upper ? v[i] : v[i + H];
         const float keep = upper ? v[i + H] : v[i];
-        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+        v[i] = keep + __shfl_xor_sync(LANES, send, M);
       }
-      return (upper ? H : 0) + Halve<M / 2, H>::run(v, q);
+      return (upper ? H : 0) + Halve<M / 2, H, LANES>::run(v, q);
     } else {
-      v[0] += __shfl_xor_sync(0xffffffffu, v[0], M);
-      return Halve<M / 2, 1>::run(v, q);
+      v[0] += __shfl_xor_sync(LANES, v[0], M);
+      return Halve<M / 2, 1, LANES>::run(v, q);
     }
   }
 };
 
-template <typename TX, int NP>
-__global__ void __launch_bounds__(Smem<TX, NP>::THREADS)
+template <typename TX, int NP, int DC>
+__global__ void __launch_bounds__(Smem<TX, NP, DC>::THREADS)
 scan_kernel(const TX* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ bm,
             const float* __restrict__ cm, const float* __restrict__ am, const float* __restrict__ h0,
             float* __restrict__ y, float* __restrict__ h_last, int chunk, int di, int N) {
-  using S = Smem<TX, NP>;
+  using S = Smem<TX, NP, DC>;
   constexpr int TPC = S::TPC, NT = S::THREADS;
   extern __shared__ __align__(16) char smem[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem + S::BARS);
@@ -225,7 +234,7 @@ scan_kernel(const TX* __restrict__ x, const float* __restrict__ dt, const float*
       }
       // y of the group's steps, summed over the channel's TPC threads
       constexpr int HELD = GROUP / TPC > 1 ? GROUP / TPC : 1;  // steps a thread ends with
-      const int first = Halve<TPC / 2, GROUP>::run(acc, q);
+      const int first = Halve<TPC / 2, GROUP, S::LANES>::run(acc, q);
       if ((q & (TPC / (GROUP / HELD) - 1)) == 0) {
 #pragma unroll
         for (int r = 0; r < HELD; ++r)
@@ -251,11 +260,11 @@ scan_kernel(const TX* __restrict__ x, const float* __restrict__ dt, const float*
   }
 }
 
-template <typename TX, int NP>
+template <typename TX, int NP, int DC>
 int launch(const void* x, const void* dt, const void* bm, const void* cm, const void* am, const void* h0,
            void* y, void* h_last, int B, int chunk, int di, int N, cudaStream_t s) {
-  using S = Smem<TX, NP>;
-  auto kernel = scan_kernel<TX, NP>;
+  using S = Smem<TX, NP, DC>;
+  auto kernel = scan_kernel<TX, NP, DC>;
   if (S::BYTES > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
     if (err != cudaSuccess) return int(err);
@@ -268,14 +277,15 @@ int launch(const void* x, const void* dt, const void* bm, const void* cm, const 
   return int(cudaGetLastError());
 }
 
-template <typename TX>
+template <typename TX, int DC>
 int launch_n(const void* x, const void* dt, const void* bm, const void* cm, const void* am, const void* h0,
              void* y, void* h_last, int B, int chunk, int di, int N, cudaStream_t s) {
-  if (N <= 4) return launch<TX, 4>(x, dt, bm, cm, am, h0, y, h_last, B, chunk, di, N, s);
-  if (N <= 8) return launch<TX, 8>(x, dt, bm, cm, am, h0, y, h_last, B, chunk, di, N, s);
-  if (N <= 16) return launch<TX, 16>(x, dt, bm, cm, am, h0, y, h_last, B, chunk, di, N, s);
-  if (N <= 32) return launch<TX, 32>(x, dt, bm, cm, am, h0, y, h_last, B, chunk, di, N, s);
-  return launch<TX, 64>(x, dt, bm, cm, am, h0, y, h_last, B, chunk, di, N, s);
+  if (N <= 4) return launch<TX, 4, DC>(x, dt, bm, cm, am, h0, y, h_last, B, chunk, di, N, s);
+  if (N <= 8) return launch<TX, 8, DC>(x, dt, bm, cm, am, h0, y, h_last, B, chunk, di, N, s);
+  if (N <= 16) return launch<TX, 16, DC>(x, dt, bm, cm, am, h0, y, h_last, B, chunk, di, N, s);
+  if (N <= 32) return launch<TX, 32, DC>(x, dt, bm, cm, am, h0, y, h_last, B, chunk, di, N, s);
+  if constexpr (DC <= 32) return launch<TX, 64, DC>(x, dt, bm, cm, am, h0, y, h_last, B, chunk, di, N, s);
+  return int(cudaErrorInvalidValue);  // 64 channels of 64 states: past the threads a block takes
 }
 
 }  // namespace
@@ -285,9 +295,11 @@ extern "C" {
 // x (B,chunk,di) fp32 (x_dtype 0) or bf16 (1); dt (B,chunk,di), b and c
 // (B,chunk,N), a (di,N), h0 (B,di,N) fp32; y (B,chunk,di) and h_last
 // (B,di,N) fp32 out; every operand on a 16-byte boundary; 1 <= N <= 64.
-// Returns cudaGetLastError() after the launch (0 on success).
+// dc: the channels a block (the variant): 8, 16, 32 or 64 for fp32 x (64
+// only where N <= 32), 32 for bf16 x.  Returns cudaGetLastError() after the
+// launch (0 on success).
 int selective_scan_fwd(const void* x, const void* dt, const void* b, const void* c, const void* a, const void* h0,
-                       void* y, void* h_last, int B, int chunk, int di, int N, int x_dtype, int device,
+                       void* y, void* h_last, int B, int chunk, int di, int N, int x_dtype, int dc, int device,
                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
@@ -295,8 +307,17 @@ int selective_scan_fwd(const void* x, const void* dt, const void* b, const void*
   if (B == 0 || di == 0) return 0;
   if (B > 65535) return int(cudaErrorInvalidConfiguration);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0) return launch_n<float>(x, dt, b, c, a, h0, y, h_last, B, chunk, di, N, s);
-  return launch_n<__nv_bfloat16>(x, dt, b, c, a, h0, y, h_last, B, chunk, di, N, s);
+  if (x_dtype == 1) {
+    if (dc != 32) return int(cudaErrorInvalidValue);
+    return launch_n<__nv_bfloat16, 32>(x, dt, b, c, a, h0, y, h_last, B, chunk, di, N, s);
+  }
+  switch (dc) {
+    case 8: return launch_n<float, 8>(x, dt, b, c, a, h0, y, h_last, B, chunk, di, N, s);
+    case 16: return launch_n<float, 16>(x, dt, b, c, a, h0, y, h_last, B, chunk, di, N, s);
+    case 32: return launch_n<float, 32>(x, dt, b, c, a, h0, y, h_last, B, chunk, di, N, s);
+    case 64: return launch_n<float, 64>(x, dt, b, c, a, h0, y, h_last, B, chunk, di, N, s);
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 const char* selective_scan_error_string(int code) {

@@ -18,9 +18,11 @@ LSE (``flash_attention(..., lse=...)``); it has no Pallas counterpart and
 counts its launches apart, in ``BWD_LAUNCHES`` and by route in
 ``BWD_ROUTE_LAUNCHES``: it is not a registry kernel.
 
-The block sizes keep their TPU meaning in one respect only: the same
-divisibility rule holds (``min(block, L)`` must divide ``L``), so a shape the
-reference rejects is rejected here too.  The CUDA kernel picks its own tiles.
+The block sizes keep the reference's divisibility rule (``min(block, L)``
+must divide ``L``), so a shape the reference rejects is rejected here too.
+On the ``tf32x3`` route ``block_k`` also picks the variant launched: the k
+rows of a streamed tile (:func:`tile`), which the launch and the registry's
+launch key both read.  The other routes keep one launch each.
 """
 from __future__ import annotations
 
@@ -59,7 +61,11 @@ ROUTE_LAUNCHES = {r: _build.LaunchCounter() for r in ROUTES}
 BWD_LAUNCHES = _build.LaunchCounter()
 BWD_ROUTE_LAUNCHES = {r: _build.LaunchCounter() for r in ROUTES}
 Q_BLOCK_ROWS = 64  # q rows a block of the TF32 forwards
-K_TILE_ROWS = 32  # k rows a streamed tile of the TF32 forwards
+K_TILE_ROWS = 32  # k rows a streamed tile of the TF32 forwards, and of the tf32x3 default variant
+# the k rows a streamed tile of the compiled tf32x3 variants (csrc/flash_attention.cu:
+# tf32x3::BN, one instance each a head width where it fits SMEM_BUDGET)
+TF32X3_K_ROWS = (16, 32, 64)
+SMEM_BUDGET = 232448  # the most shared memory one block may opt in to on sm_90
 # the fewest k tiles a split of the tf32x3 forward must take off its longest
 # q tile: at the registry's tiny tier 2 parts saved 2 and ran 7% slower than
 # none (the merge's launch), at smoke 4 parts saved 6 and ran 1.5x faster
@@ -71,7 +77,7 @@ STATS_PAD_ROWS = 128  # their row statistics are padded to a multiple of these q
 # (wgmma), or a dK and a dV block (the TF32 routes)
 KV_ROLES = {"wgmma": 1, "tf32x3": 2, "tf32x3_cluster": 2, "tf32": 2}
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
 _BWD_LSE_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 # every backward entry point (BWD_ENTRIES) takes the same arguments
 _BWD_TC_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
@@ -96,6 +102,41 @@ def route(dtype: torch.dtype, shape: dict) -> str:
         f"flash_attention kernel: head width {hd} ({dtype}) not in any route's widths "
         f"{ROUTE_DIMS.get(dtype, ROUTE_DIMS)}"
     )
+
+
+def smem_bytes(hd: int, k_rows: int, dtype=torch.float32, split: int = 1) -> int:
+    """Dynamic shared memory one block of the TF32 forward takes at head
+    width ``hd`` with ``k_rows`` a streamed tile, as csrc/flash_attention.cu
+    lays it out (tf32x3::FwdCfg): 1024 bytes of alignment, the resident Q
+    tile, the split K tile and the transposed V tiles (hi and lo for fp32,
+    one 32-deep tile each 32 k rows), two raw stages of K and V, and with
+    ``split`` blocks a cluster the pair's exchange."""
+    w = hd // split
+    row = max(32, w)  # floats of a head-wide tile row: whole 128-byte chunks
+    isz, tiles = (4, 2) if dtype == torch.float32 else (2, 1)
+    q_t, k_t = Q_BLOCK_ROWS * row * 4, k_rows * row * 4
+    v_t = w * 128 * -(-k_rows // 32)
+    raw = k_rows * w * isz
+    xch = 2 * Q_BLOCK_ROWS * k_rows * 4 + 16 if split > 1 else 0
+    return 1024 + tiles * (q_t + k_t + v_t) + 2 * 2 * raw + xch
+
+
+def tile(shape: dict, config: dict, dtype=torch.float32) -> tuple:
+    """The variant a launch at ``shape`` (a payload dict with ``hd``) with
+    the reference's block ``config`` and operands of ``dtype`` takes: on the
+    ``tf32x3`` route (q rows a block, k rows a streamed tile), block_k / 4
+    rounded down to a power of two and held to 16 to 64, then halved while
+    the block's shared memory (:func:`smem_bytes`) would pass SMEM_BUDGET
+    (64 at head width 128); the default 128 takes 32, and a larger block
+    never a smaller one.  q rows stay 64, one warpgroup.  The
+    other routes have one variant: ()."""
+    if route(dtype, shape) != "tf32x3":
+        return ()
+    k_rows = min(TF32X3_K_ROWS[-1], max(TF32X3_K_ROWS[0], config["block_k"] // 4))
+    k_rows = 1 << (k_rows.bit_length() - 1)
+    while smem_bytes(shape["hd"], k_rows) > SMEM_BUDGET:
+        k_rows //= 2
+    return (Q_BLOCK_ROWS, k_rows)
 
 
 def bwd_route(dtype: torch.dtype, hd: int) -> str:
@@ -179,9 +220,11 @@ def flash_attention(
     causal: bool = True,
     window: Optional[int] = None,
     lse: Optional[torch.Tensor] = None,
+    config: Optional[dict] = None,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel on contiguous CUDA tensors of one dtype.  An
-    fp32 tensor ``lse`` of (B, H, Lq) also receives each query row's
+    """Launch the CUDA kernel on contiguous CUDA tensors of one dtype, the
+    variant of the block ``config`` (default the reference's; :func:`tile`).
+    An fp32 tensor ``lse`` of (B, H, Lq) also receives each query row's
     log-sum-exp in base 2, as the backward reads it."""
     b, h, lq, hd = q.shape
     n_kv, lk = k.shape[1], k.shape[2]
@@ -192,6 +235,7 @@ def flash_attention(
     if lse is not None:
         _check_lse(lse, q)
     out = torch.empty_like(q)
+    rows = tile({"hd": hd}, config or {"block_q": DEFAULT_BLOCK_Q, "block_k": DEFAULT_BLOCK_K}, q.dtype) or (0, 0)
     parts, scratch = 1, None
     if path in ("tf32x3", "tf32x3_cluster"):
         parts = fwd_parts(b, h, lq, lk, causal, window, _cluster_sms(path, q.device))
@@ -201,7 +245,7 @@ def flash_attention(
     code = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr() if lse is not None else None,
         scratch.data_ptr() if scratch is not None else None,
-        b, h, n_kv, lq, lk, hd, int(causal), int(window is not None), int(window or 0), parts,
+        b, h, n_kv, lq, lk, hd, int(causal), int(window is not None), int(window or 0), parts, *rows,
         DTYPES[q.dtype], ROUTES[path], q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check("flash_attention", code)

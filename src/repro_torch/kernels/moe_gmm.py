@@ -12,8 +12,12 @@ contraction over a thread-block cluster by a rule that lives in
 ``csrc/gmm.cuh`` (``split_of``): :func:`launch_config` asks the card what
 it launches.
 
-The block sizes keep only the reference's divisibility rule; the CUDA
-kernels pick their own tiles and handle ragged edges.
+The block sizes keep the reference's divisibility rule, and on the
+``tf32x3`` forward ``block_c`` and ``block_d`` pick the variant launched:
+:func:`tile` maps them onto the C columns a block and the ring's stages,
+and the launch and the registry's launch key both read that one function.
+The other routes, and the backward, keep one launch each.  Every kernel
+handles ragged edges.
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ ROUTE_LAUNCHES = {r: _build.LaunchCounter() for r in ROUTES}
 BWD_LAUNCHES = _build.LaunchCounter()  # one a backward call, which runs one kernel a gradient asked for
 BWD_ROUTE_LAUNCHES = {r: _build.LaunchCounter() for r in ROUTES}
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
@@ -57,6 +61,29 @@ def route(dtype: torch.dtype, shape: dict) -> str:
 MAX_PARTS = 8  # a split's parts, at most (csrc/gmm.cuh, MAX_PARTS)
 
 
+def tile(shape: dict, config: dict, dtype=torch.float32) -> tuple:
+    """The variant a launch at ``shape`` ({"E", "C", "D", "F"}) with the
+    reference's block ``config`` and operands of ``dtype`` takes, one of the
+    compiled instances of csrc/gmm.cuh's tf32x3::Tile: on the ``tf32x3``
+    route (C columns a block, stages), 64 columns where block_c
+    is 64 or less, else 128 (a wider block spills the accumulators of its
+    two warpgroups), and 2 stages where block_d is 256 or less, else 3, so
+    the default (128, 512) takes (128, 3) and a larger block never a smaller
+    tile.  The other routes have one variant: ()."""
+    if route(dtype, shape) != "tf32x3":
+        return ()
+    return (64 if config["block_c"] <= 64 else 128, 2 if config["block_d"] <= 256 else 3)
+
+
+def smem_bytes(columns: int, stages: int) -> int:
+    """Dynamic shared memory one block of the tf32x3 variant takes, as
+    csrc/gmm.cuh's tf32x3::Tile lays it out: 1024 bytes of alignment, the
+    ring of raw stages (a B tile of ``columns`` rows and an A tile of 64,
+    32 fp32 deep), the split hi and lo B tiles, and the barriers."""
+    b = columns * 32 * 4
+    return 1024 + stages * (b + 64 * 32 * 4) + 2 * b + 128
+
+
 def check_blocks(C: int, D: int, F: int, block_c: int, block_d: int, block_f: int) -> None:
     """The reference's divisibility rule (``moe_gmm.py:53-56``)."""
     bc, bd, bf = min(block_c, C), min(block_d, D), min(block_f, F)
@@ -64,8 +91,10 @@ def check_blocks(C: int, D: int, F: int, block_c: int, block_d: int, block_f: in
         raise ValueError(f"moe_gmm: blocks (c={bc}, d={bd}, f={bf}) must divide (C, D, F) = ({C}, {D}, {F})")
 
 
-def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel: x (E,C,D) @ w (E,D,F) -> (E,C,F) in x.dtype."""
+def moe_gmm(x: torch.Tensor, w: torch.Tensor, config=None) -> torch.Tensor:
+    """Launch the CUDA kernel: x (E,C,D) @ w (E,D,F) -> (E,C,F) in x.dtype,
+    the variant of the block ``config`` (default the reference's;
+    :func:`tile`)."""
     E, C, D = x.shape
     F = w.shape[-1]
     if x.device.type != "cuda":
@@ -73,11 +102,13 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     path = route(x.dtype, {"D": D, "F": F})
     if path != "mma":
         _build.check_aligned("moe_gmm", x, w)
+    config = config or {"block_c": DEFAULT_BLOCK_C, "block_f": DEFAULT_BLOCK_F, "block_d": DEFAULT_BLOCK_D}
+    variant = tile({"E": E, "C": C, "D": D, "F": F}, config, x.dtype) or (0, 0)
     y = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     fn = _build.function("moe_gmm", "moe_gmm_fwd", _ARGTYPES)
     code = fn(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), E, C, D, F,
-        DTYPES[x.dtype], ROUTES[path], x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+        DTYPES[x.dtype], ROUTES[path], *variant, x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check("moe_gmm", code)
     LAUNCHES.bump()

@@ -9,9 +9,11 @@ signature and
   2. resolves the block config as the reference does: explicit caller
      argument > the autotuned cache for the operands' device type
      (``HYDRA_AUTOTUNE=1`` only, kernels/autotune.py) > the kernel's
-     committed default.  The kernels keep only the blocks' divisibility
-     rule and pick their own tiles, so the config decides what is checked
-     and what a kernel task reports, not the launch;
+     committed default.  The config is checked by the reference's
+     divisibility rule and handed to the launcher, whose ``tile`` maps it
+     onto the variant launched on the fp32 routes (the scans' channels a
+     block, the ``tf32x3`` attention's k rows a tile, the ``tf32x3`` GEMM's
+     C columns a block and stages); the other routes have one variant;
   3. routes by device: a CPU tensor goes to the plain version in
      ``kernels/ref.py``; a CUDA tensor goes to the kernel, which launches
      or raises.  Nothing falls back from the card to the plain version.
@@ -202,22 +204,23 @@ def flash_attention(
     # the forward keeps each row's LSE where a gradient will be taken: the
     # backward reads it
     keep_lse = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    return _FlashAttention.apply(q, k, v, causal, window, keep_lse)
+    return _FlashAttention.apply(q, k, v, causal, window, keep_lse, cfg)
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The forward kernel, with the backward kernel as its gradient; with
-    ``keep_lse`` the forward also writes the rows' LSE for the backward."""
+    """The forward kernel (the variant of the block ``config``), with the
+    backward kernel as its gradient; with ``keep_lse`` the forward also
+    writes the rows' LSE for the backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, keep_lse):
+    def forward(ctx, q, k, v, causal, window, keep_lse, config=None):
         lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) if keep_lse else None
         if q.is_meta:
             (b, h, lq, hd), (n_kv, lk) = q.shape, k.shape[1:3]
             _count.add_kernel("flash_attention", _count.attention_fwd(b, h, n_kv, lq, lk, hd, causal, window, q.element_size()))
             o = torch.empty_like(q)
         else:
-            o = _fa.flash_attention(q, k, v, causal=causal, window=window, lse=lse)
+            o = _fa.flash_attention(q, k, v, causal=causal, window=window, lse=lse, config=config)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
         return o
@@ -226,7 +229,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(), causal=ctx.causal, window=ctx.window, lse=lse)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window: Optional[int] = None, lse=None):
@@ -274,7 +277,7 @@ def selective_scan_chunk(x, dt, b, c, a, h0, *, block_d: Optional[int] = None):
     _ss.check_blocks(di, cfg["block_d"])
     if not on_card:
         return ref.selective_scan_chunk_ref(x, dt, b, c, a, h0)
-    return _SelectiveScanChunk.apply(x, dt, b, c, a, h0)
+    return _SelectiveScanChunk.apply(x, dt, b, c, a, h0, cfg)
 
 
 class _SelectiveScanChunk(torch.autograd.Function):
@@ -286,18 +289,18 @@ class _SelectiveScanChunk(torch.autograd.Function):
     gradient in as zeros."""
 
     @staticmethod
-    def forward(ctx, x, dt, b, c, a, h0):
+    def forward(ctx, x, dt, b, c, a, h0, config=None):
         ctx.save_for_backward(x, dt, b, c, a, h0)
         if x.is_meta:
             (B, chunk, di), N = x.shape, b.shape[-1]
             _count.add_kernel("selective_scan", _count.selective_scan_fwd(B, chunk, di, N, x.element_size()))
             return torch.empty(x.shape, dtype=torch.float32, device="meta"), torch.empty_like(h0)
-        return _ss.selective_scan_chunk(x, dt, b, c, a, h0)
+        return _ss.selective_scan_chunk(x, dt, b, c, a, h0, config=config)
 
     @staticmethod
     def backward(ctx, dy, dh_last):
         x, dt, b, c, a, h0 = ctx.saved_tensors
-        return selective_scan_chunk_bwd(x, dt, b, c, a, h0, dy.contiguous(), dh_last.contiguous())
+        return *selective_scan_chunk_bwd(x, dt, b, c, a, h0, dy.contiguous(), dh_last.contiguous()), None
 
 
 def selective_scan_chunk_bwd(x, dt, b, c, a, h0, dy, dh_last):
@@ -340,26 +343,27 @@ def rglru_scan(log_a, gx, h0=None, *, block_d: Optional[int] = None):
     _rg.check_blocks(dr, cfg["block_d"])
     if not on_card:
         return ref.rglru_ref(log_a, gx, h0)
-    return _RGLRUScan.apply(log_a, gx, h0)
+    return _RGLRUScan.apply(log_a, gx, h0, cfg)
 
 
 class _RGLRUScan(torch.autograd.Function):
-    """The forward scan, with the reverse-time scan kernel as its gradient."""
+    """The forward scan (the variant of the block ``config``), with the
+    reverse-time scan kernel as its gradient."""
 
     @staticmethod
-    def forward(ctx, log_a, gx, h0):
+    def forward(ctx, log_a, gx, h0, config=None):
         if log_a.is_meta:
             _count.add_kernel("rglru_scan", _count.rglru_fwd(*log_a.shape))
             y, h_last = torch.empty_like(log_a), torch.empty_like(h0)
         else:
-            y, h_last = _rg.rglru_scan(log_a, gx, h0)
+            y, h_last = _rg.rglru_scan(log_a, gx, h0, config=config)
         ctx.save_for_backward(log_a, h0, y)
         return y, h_last
 
     @staticmethod
     def backward(ctx, dy, dh_last):
         log_a, h0, y = ctx.saved_tensors
-        return rglru_scan_bwd(log_a, h0, y, dy.contiguous(), dh_last.contiguous())
+        return *rglru_scan_bwd(log_a, h0, y, dy.contiguous(), dh_last.contiguous()), None
 
 
 def rglru_scan_bwd(log_a, h0, y, dy, dh_last):
@@ -402,27 +406,28 @@ def moe_gmm(
     _gmm.check_blocks(C, D, F, cfg["block_c"], cfg["block_d"], cfg["block_f"])
     if not on_card:
         return ref.moe_gmm_ref(x, w)
-    return _MoeGmm.apply(x, w)
+    return _MoeGmm.apply(x, w, cfg)
 
 
 class _MoeGmm(torch.autograd.Function):
-    """The forward kernel, with the backward kernel as its gradient: each
-    of dx and dw only where autograd asks for it."""
+    """The forward kernel (the variant of the block ``config``), with the
+    backward kernel as its gradient: each of dx and dw only where autograd
+    asks for it."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, config=None):
         ctx.save_for_backward(x, w)
         if x.is_meta:
             (E, C, D), F = x.shape, w.shape[-1]
             _count.add_kernel("moe_gmm", _count.gmm_fwd(E, C, D, F, x.element_size()))
             return torch.empty((E, C, F), dtype=x.dtype, device="meta")
-        return _gmm.moe_gmm(x, w)
+        return _gmm.moe_gmm(x, w, config=config)
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        need_dx, need_dw = ctx.needs_input_grad
-        return moe_gmm_bwd(x, w, dy.contiguous(), need_dx=need_dx, need_dw=need_dw)
+        need_dx, need_dw = ctx.needs_input_grad[:2]
+        return *moe_gmm_bwd(x, w, dy.contiguous(), need_dx=need_dx, need_dw=need_dw), None
 
 
 def moe_gmm_bwd(x, w, dy, *, need_dx: bool = True, need_dw: bool = True):

@@ -18,7 +18,9 @@ bundles what the rest of the system needs to treat a kernel as brokered work:
                 plus the shared memory one block would stage for its tiles,
                 which the autotuner prices against Hopper's per-block limit
   launch_key    what a launch actually depends on for a (shape, config,
-                dtype): the wall-timed sweep times one config per key
+                dtype): its route and the variant the config picks, the
+                launcher module's ``tile`` (the one function the launch
+                reads too); the wall-timed sweep times one config per key
 
 ``from_jax_args`` carries the reference's operands across, so both packages
 compute on the same numbers in the tests.
@@ -27,8 +29,11 @@ The tile arithmetic mirrors the reference's BlockSpec tiling exactly: traffic
 counts one tile fetch per launched grid cell, FLOPs only the live cells, so
 larger attention blocks trade masked FLOPs for fewer cells and less
 re-fetched K/V -- the three-way frontier kernels/autotune.py prunes on.  The
-hand kernels keep only the blocks' divisibility rule and pick their own
-tiles, so today every config of a kernel shares one launch key: its route.
+hand kernels' fp32 routes compile a few tile variants and each launch takes
+the one its config maps to (``tile`` in each launcher module): the scans'
+channels a block, the ``tf32x3`` attention's k rows a streamed tile, the
+``tf32x3`` GEMM's C columns a block and stages.  Configs that map to one
+variant share a launch key; the other routes have one variant each.
 """
 from __future__ import annotations
 
@@ -232,7 +237,8 @@ def _fa_tile_cost(shape: dict, config: dict, dtype: str) -> TileCost:
 
 
 def _fa_launch_key(shape: dict, config: dict, dtype: str) -> tuple:
-    return (_fa.route(_dtype(dtype), shape),)
+    bq, bk, _, _ = _fa_blocks(shape, config)  # the blocks _fa_call launches with
+    return (_fa.route(_dtype(dtype), shape),) + _fa.tile(shape, {"block_q": bq, "block_k": bk}, _dtype(dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -297,9 +303,9 @@ def _ss_tile_cost(shape: dict, config: dict, dtype: str) -> TileCost:
     return TileCost(flops, float(cells * per_cell), cells, float(smem))
 
 
-def _one_route(shape: dict, config: dict, dtype: str) -> tuple:
-    """The scans have one kernel each, and it picks its own tiles."""
-    return ("cuda",)
+def _ss_launch_key(shape: dict, config: dict, dtype: str) -> tuple:
+    """The scan has one route; its variant is ``selective_scan.tile``'s."""
+    return ("cuda",) + _ss.tile(shape, config, _dtype(dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -338,6 +344,11 @@ def _rg_cost(shape: dict, dtype: str) -> Cost:
 
 def _rg_space(shape: dict) -> list:
     return [{"block_d": bd} for bd in _divisors(shape["dr"])]
+
+
+def _rg_launch_key(shape: dict, config: dict, dtype: str) -> tuple:
+    """The scan has one route; its variant is ``rglru_scan.tile``'s."""
+    return ("cuda",) + _rg.tile(shape, config, _dtype(dtype))
 
 
 def _rg_tile_cost(shape: dict, config: dict, dtype: str) -> TileCost:
@@ -417,7 +428,7 @@ def _gmm_tile_cost(shape: dict, config: dict, dtype: str) -> TileCost:
 
 
 def _gmm_launch_key(shape: dict, config: dict, dtype: str) -> tuple:
-    return (_gmm.route(_dtype(dtype), shape),)
+    return (_gmm.route(_dtype(dtype), shape),) + _gmm.tile(shape, config, _dtype(dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -454,7 +465,7 @@ KERNELS: dict = {
             cost=_ss_cost,
             space=_ss_space,
             tile_cost=_ss_tile_cost,
-            launch_key=_one_route,
+            launch_key=_ss_launch_key,
             tiny_shape={"B": 1, "chunk": 32, "di": 128, "N": 8},
             smoke_shape={"B": 2, "chunk": 64, "di": 256, "N": 16},
             full_shape={"B": 2, "chunk": 128, "di": 1024, "N": 16},
@@ -470,7 +481,7 @@ KERNELS: dict = {
             cost=_rg_cost,
             space=_rg_space,
             tile_cost=_rg_tile_cost,
-            launch_key=_one_route,
+            launch_key=_rg_launch_key,
             tiny_shape={"B": 1, "L": 64, "dr": 128},
             smoke_shape={"B": 2, "L": 128, "dr": 512},
             full_shape={"B": 2, "L": 256, "dr": 1024},

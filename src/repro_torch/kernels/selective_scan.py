@@ -7,8 +7,10 @@ and what bounds it are described at the top of the CUDA source: threads over
 (channel, state), time tiles fed by cp.async into a ring of stages.  This
 module allocates the outputs, launches on the current stream and counts the
 launches; ``kernels/ops.py`` checks the operands and sends CPU tensors to
-the plain version instead.  ``block_d`` keeps only the reference's
-divisibility rule; the kernel picks its own tiles and handles ragged edges.
+the plain version instead.  The reference's ``block_d`` picks the variant
+launched for fp32 x: :func:`tile` maps it onto the channels a block of the
+compiled variants, and both the launch and the registry's launch key read
+that one function.  Every variant handles ragged edges.
 The backward (the chunk split in time over a thread-block cluster: each
 part walked forward once, the parts' chains folded through distributed
 shared memory, each part's segments recomputed and walked in reverse; then
@@ -28,12 +30,17 @@ from repro_torch.kernels import _build
 DEFAULT_BLOCK_D = 512
 MAX_N = 64  # the widest state the kernel holds (csrc/selective_scan.cu: MAX_N)
 X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the channels a block of the compiled variants (csrc/selective_scan.cu: DC,
+# one instance each for fp32 x); the default block_d 512 and bf16 x take 32
+CHANNELS = (8, 16, 32, 64)
+MAX_THREADS = 512  # a block's threads, DC x N padded / 4, at most: past it 64 channels take 32
+STAGE, NSTAGE = 64, 2  # steps a tile, tiles in flight (csrc/selective_scan.cu)
 
 LAUNCHES = _build.LaunchCounter()
 
 BWD_LAUNCHES = _build.LaunchCounter()
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
@@ -44,6 +51,38 @@ def check_blocks(di: int, block_d: int) -> None:
         raise ValueError(f"selective_scan_chunk: block_d {bd} must divide di {di}")
 
 
+def _padded(N: int) -> int:
+    """N padded to a power of two of at least 4, as the kernel holds the states."""
+    return max(4, 1 << (N - 1).bit_length())
+
+
+def tile(shape: dict, config: dict, dtype=torch.float32) -> tuple:
+    """The variant a launch at ``shape`` ({"B", "chunk", "di", "N"}) with the
+    reference's block ``config`` and x of ``dtype`` takes: (channels a
+    block,).  For fp32 x, block_d / 16 rounded down to a power of two and
+    held to the compiled 8 to 64 (the default 512 takes 32; a larger block
+    never a smaller tile), and to 32 where 64 channels would pass
+    MAX_THREADS threads (N above 32); bf16 x keeps 32.  The block is taken
+    as given, as in ``rglru_scan.tile``."""
+    if dtype != torch.float32:
+        return (32,)
+    dc = min(CHANNELS[-1], max(CHANNELS[0], config["block_d"] // 16))
+    dc = 1 << (dc.bit_length() - 1)
+    while dc * _padded(shape["N"]) // 4 > MAX_THREADS:
+        dc //= 2
+    return (dc,)
+
+
+def smem_bytes(dc: int, N: int, x_dtype=torch.float32) -> int:
+    """Dynamic shared memory one block of the variant takes, as
+    csrc/selective_scan.cu's Smem lays it out: NSTAGE stages of dt and x
+    rows (DC values and a chunk head) and of B and C rows of N padded
+    floats, y staged in two tiles, the stages' mbarriers."""
+    isz, npad = x_dtype.itemsize, _padded(N)
+    stage = STAGE * ((dc * 4 + 16) + (dc * isz + 31) // 16 * 16 + 2 * npad * 4)
+    return NSTAGE * stage + 2 * STAGE * dc * 4 + NSTAGE * 8
+
+
 def _check(kernel: str, x, N: int) -> None:
     if not 1 <= N <= MAX_N:
         raise ValueError(f"{kernel} kernel: state width N = {N} is outside 1 to {MAX_N}, its limit")
@@ -51,19 +90,21 @@ def _check(kernel: str, x, N: int) -> None:
         raise ValueError(f"{kernel} kernel: operands must be on a CUDA device, not {x.device}")
 
 
-def selective_scan_chunk(x, dt, b, c, a, h0):
-    """Launch the CUDA kernel on contiguous CUDA tensors.  Returns
-    (y (B, chunk, di) fp32, h_last (B, di, N) fp32)."""
+def selective_scan_chunk(x, dt, b, c, a, h0, config=None):
+    """Launch the CUDA kernel on contiguous CUDA tensors, the variant of the
+    block ``config`` (default ``{"block_d": DEFAULT_BLOCK_D}``; :func:`tile`).
+    Returns (y (B, chunk, di) fp32, h_last (B, di, N) fp32)."""
     B, chunk, di = x.shape
     N = b.shape[-1]
     _check("selective_scan", x, N)
+    (dc,) = tile({"B": B, "chunk": chunk, "di": di, "N": N}, config or {"block_d": DEFAULT_BLOCK_D}, x.dtype)
     _build.check_aligned("selective_scan", x, dt, b, c, a, h0)
     y = torch.empty((B, chunk, di), dtype=torch.float32, device=x.device)
     h_last = torch.empty((B, di, N), dtype=torch.float32, device=x.device)
     fn = _build.function("selective_scan", "selective_scan_fwd", _ARGTYPES)
     code = fn(
         x.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(), a.data_ptr(), h0.data_ptr(),
-        y.data_ptr(), h_last.data_ptr(), B, chunk, di, N, X_DTYPES[x.dtype],
+        y.data_ptr(), h_last.data_ptr(), B, chunk, di, N, X_DTYPES[x.dtype], dc,
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check("selective_scan", code)

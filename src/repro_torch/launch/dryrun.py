@@ -22,7 +22,7 @@ Outputs per cell:
     bytes of a rank's shards in and out (the outputs with the 8-byte tuple
     entry a leaf that XLA counts there), ``alias_size_in_bytes`` those of
     the outputs written in place over the inputs (the params and AdamW
-    state), and ``temp_size_in_bytes`` the peak of the bytes the step
+    state; the cache a decode step writes its token into and returns), and ``temp_size_in_bytes`` the peak of the bytes the step
     allocated and still held;
   * flops, bytes and collective bytes a rank, counted at depth units 1 and 2
     and extrapolated to the full depth as the reference extrapolates, and at
@@ -160,7 +160,11 @@ def run_counted(fn, args, meta: dict):
         out = fn(*args)
     io = dict(meta["io_bytes"])
     if io["output"] is None:  # prefill and decode: logits and cache as returned
-        io["output"] = _out_bytes(_flat(out))
+        leaves = _flat(out)
+        io["output"] = _out_bytes(leaves)
+        if meta["kind"] == "decode":  # the cache leaves the step wrote in place and returned
+            given = {id(t) for t in tree_leaves(args[1])}
+            io["alias"] = sum(t.numel() * t.element_size() for t in leaves if id(t) in given)
     return c.counts, io
 
 

@@ -63,7 +63,9 @@ def serve(
     drawn from ``seed``.  Returns the reference's dict, plus the kernel
     launches of the prefill and of the decode steps (``ops.launch_counts``
     is process-wide: run nothing else on the kernels meanwhile), whether
-    every logit was finite and, on a CUDA device, the peak memory."""
+    every logit was finite and, on a CUDA device, the peak memory: of the
+    whole serve, and of the decode steps alone beside what was allocated
+    when they began."""
     dev = _device(device)
     arch = get_arch(arch_name)
     if reduced:
@@ -105,6 +107,10 @@ def serve(
 
         toks = sample(logits)[:, None]
         generated = [toks]
+        peak = decode_start = None
+        if dev.type == "cuda":  # the prefill's peak, then the decode steps' own
+            peak, decode_start = torch.cuda.max_memory_allocated(dev), torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
         before = ops.launch_counts()
         t0 = time.perf_counter()
         for i in range(gen - 1):
@@ -125,7 +131,9 @@ def serve(
         "prefill_launches": prefill_launches,
         "decode_launches": decode_launches,
         "logits_finite": finite,
-        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
+        "peak_mem_bytes": max(peak, torch.cuda.max_memory_allocated(dev)) if dev.type == "cuda" else None,
+        "decode_start_mem_bytes": decode_start,
+        "decode_peak_mem_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
         "device": str(dev),
     }
 

@@ -43,14 +43,6 @@ _NEG = -1e30
 MAX_BLOCK = 128  # the reference's default flash blocks (kernels/flash_attention.py)
 
 
-def repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """(B, L, KV, hd) -> (B, L, H, hd)."""
-    n_kv = k.shape[2]
-    if n_kv == n_heads:
-        return k
-    return torch.repeat_interleave(k, n_heads // n_kv, dim=2)
-
-
 def block_for(length: int) -> int:
     """The largest divisor of ``length`` that is at most 128, as the
     reference's chunk fallback picks one (``attention.py:48-50``), so any
@@ -125,22 +117,34 @@ def decode_attention(
         return tp.split(out, 2, q_outer)
     s, _ = _masked_scores(q, k_cache, pos, cache_positions, window)  # (B, H, Lc)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhl,blhd->bhd", p, repeat_kv(v_cache, q.shape[2]).float())
-    return out[:, None].to(q.dtype)
+    return _grouped_pv(p, v_cache)[:, None].to(q.dtype)
 
 
 def _masked_scores(q, k, pos, cache_positions, window):
     """The fp32 scores (B, H, Lc) of the query token q (B, 1, H, hd) against
     the keys k (B, Lc, KV, hd), with each slot that is not attended to (past
     ``pos``, out of the ``window``, or at position -1) at -inf's stand-in,
-    and the mask of the attended slots (B, Lc)."""
-    h, hd = q.shape[2], q.shape[3]
-    s = torch.einsum("bhd,blhd->bhl", q[:, 0].float(), repeat_kv(k, h).float()) * (1.0 / (hd**0.5))
+    and the mask of the attended slots (B, Lc).  The query heads are grouped
+    by the KV head they read (head h reads KV head h // (H / KV)), so the
+    cache is cast to fp32 once and never repeated to the query heads."""
+    b, _, h, hd = q.shape
+    n_kv, lc = k.shape[2], k.shape[1]
+    qg = q[:, 0].float().unflatten(1, (n_kv, h // n_kv))  # (B, KV, G, hd)
+    s = torch.einsum("bkgd,blkd->bkgl", qg, k.float()).reshape(b, h, lc) * (1.0 / (hd**0.5))
     valid = cache_positions <= pos[:, None]
     if window is not None:
         valid &= cache_positions > (pos[:, None] - window)
     valid &= cache_positions >= 0
     return torch.where(valid[:, None, :], s, torch.tensor(_NEG, device=q.device)), valid
+
+
+def _grouped_pv(p, v):
+    """sum over the slots of p (B, H, Lc) times the values v (B, Lc, KV, hd),
+    each query head on the KV head it reads, in fp32: (B, H, hd)."""
+    b, h, lc = p.shape
+    n_kv = v.shape[2]
+    out = torch.einsum("bkgl,blkd->bkgd", p.unflatten(1, (n_kv, h // n_kv)), v.float())
+    return out.flatten(1, 2)
 
 
 def _decode_attention_distributed(q, k_cache, v_cache, pos, cache_positions, window, mesh) -> torch.Tensor:
@@ -164,7 +168,7 @@ def _decode_attention_distributed(q, k_cache, v_cache, pos, cache_positions, win
     m = torch.amax(s, dim=-1)  # (B, H)
     p = torch.exp(s - m[..., None]) * valid[:, None, :]
     l = torch.sum(p, dim=-1)
-    acc = torch.einsum("bhl,blhd->bhd", p, repeat_kv(v_cache[:, sl], q.shape[2]).float())
+    acc = _grouped_pv(p, v_cache[:, sl])
     # combine the partial softmax states across the cache's slices
     m_g = tp.all_reduce(m.clone(), mesh, "model", "max")
     corr = torch.exp(m - m_g)
@@ -175,10 +179,12 @@ def _decode_attention_distributed(q, k_cache, v_cache, pos, cache_positions, win
 
 
 def write_cache(cache_k, cache_v, k_t, v_t, pos):
-    """Write one token's k/v into the cache at per-batch positions.  Returns
-    new caches; the inputs are left as they were, as in the reference."""
+    """Write one token's k/v into the caches at per-batch positions, in
+    place, and return the same caches.  A decode step consumes its cache, as
+    the reference's jitted step does by donating it
+    (``launch/dryrun.py:104``): a caller that reads a cache after a step, or
+    decodes twice from it, copies it first."""
     rows = torch.arange(cache_k.shape[0], device=cache_k.device)
-    cache_k, cache_v = cache_k.clone(), cache_v.clone()
     cache_k[rows, pos.long()] = k_t[:, 0]
     cache_v[rows, pos.long()] = v_t[:, 0]
     return cache_k, cache_v
@@ -209,8 +215,8 @@ def cached_attention(cfg, q, k_cache, v_cache, pos, *, kv_t=None, ring: bool = F
     ``ring_positions``).  Under "serve_2dtp" the step replicates the batch
     over "data" while the cache holds the rank's rows: the token's q, k, v
     and positions are cut to them and the output joined again
-    (``tp.batch_part``, ``tp.batch_whole``).  Returns (out (B, 1, Hl, hd),
-    k_cache, v_cache)."""
+    (``tp.batch_part``, ``tp.batch_whole``).  Returns out (B, 1, Hl, hd);
+    the token is written into the caches in place."""
     q, pos = tp.batch_part(q), tp.batch_part(pos)
     cpos = None
     if kv_t is not None:
@@ -220,20 +226,21 @@ def cached_attention(cfg, q, k_cache, v_cache, pos, *, kv_t=None, ring: bool = F
         cpos = ring_positions(pos, k_cache.shape[1])
     a = decode_attention(q, k_cache, v_cache, pos, cache_positions=cpos, window=window, q_outer=q_heads_outer(cfg),
                          n_kv=cfg.n_kv_heads)
-    return tp.batch_whole(a), k_cache, v_cache
+    return tp.batch_whole(a)
 
 
 def decode_self_attention(cfg, p: dict, h: torch.Tensor, k_cache, v_cache, pos, *, ring: bool = False,
                           window: Optional[int] = None):
     """A decode step's self attention of the normed token ``h`` (B, 1, D)
     with its attention weights ``p``: q, k and v at the rank's heads, the
-    rotary embedding at ``pos``, ``cached_attention``, and the output
-    projection.  Returns (out (B, 1, D) whole, k_cache, v_cache)."""
+    rotary embedding at ``pos``, ``cached_attention`` (which writes the
+    token's k and v into the caches in place), and the output projection.
+    Returns out (B, 1, D) whole."""
     q, k_t, v_t, q_split = heads_qkv(cfg, p, h)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k_t = apply_rope(k_t, pos[:, None], cfg.rope_theta)
-    a, k_cache, v_cache = cached_attention(cfg, q, k_cache, v_cache, pos, kv_t=(k_t, v_t), ring=ring, window=window)
-    return heads_out(cfg, a, p["wo"], q_split), k_cache, v_cache
+    a = cached_attention(cfg, q, k_cache, v_cache, pos, kv_t=(k_t, v_t), ring=ring, window=window)
+    return heads_out(cfg, a, p["wo"], q_split)
 
 
 def decode_cross_attention(cfg, p: dict, h: torch.Tensor, k_cache, v_cache) -> torch.Tensor:
@@ -242,7 +249,7 @@ def decode_cross_attention(cfg, p: dict, h: torch.Tensor, k_cache, v_cache) -> t
     (B, 1, D) whole."""
     q, q_split = heads_q(cfg, p, h)
     pos_full = torch.full((h.shape[0],), k_cache.shape[1] - 1, dtype=torch.int32, device=h.device)
-    a, _, _ = cached_attention(cfg, q, k_cache, v_cache, pos_full)
+    a = cached_attention(cfg, q, k_cache, v_cache, pos_full)
     return heads_out(cfg, a, p["wo"], q_split)
 
 

@@ -190,21 +190,18 @@ def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len: Optional[in
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos, extras=None):
-    """One decode step.  tokens (B, 1), pos (B,).  The self caches are
-    written into copies (``write_cache``); the cross K/V pass through
-    unchanged.  Each layer gathered where it runs (``tp.fsdp``)."""
+    """One decode step.  tokens (B, 1), pos (B,).  The token is written into
+    the self caches in place (``write_cache``), and the cache returned is
+    ``cache``; the cross K/V pass through unchanged.  Each layer gathered
+    where it runs (``tp.fsdp``)."""
     x = embed(cfg, params, tokens, False)
     lcs = cache["layers"]
-    ks, vs = [], []
     for i in range(n_stacked(params["dec_blocks"])):
         p, lc = tp.fsdp(layer(params["dec_blocks"], i)), layer(lcs, i)
         h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-        a, ck, cv = attn.decode_self_attention(cfg, p["attn"], h, lc["k"], lc["v"], pos)
+        a = attn.decode_self_attention(cfg, p["attn"], h, lc["k"], lc["v"], pos)
         x = x + a
         x = _cross_attn_cached(cfg, x, p, lc["cross_k"], lc["cross_v"])
         h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
         x = x + mlp(h, p["mlp"], cfg.d_ff, F.silu)
-        ks.append(ck)
-        vs.append(cv)
-    new = {"k": torch.stack(ks), "v": torch.stack(vs), "cross_k": lcs["cross_k"], "cross_v": lcs["cross_v"]}
-    return head(cfg, params, x), {"layers": new}
+    return head(cfg, params, x), {"layers": lcs}

@@ -7,7 +7,7 @@ Counterpart of ``repro/models/model.py``::
     loss, metrics = model.loss(params, batch)
     logits = model.logits(params, batch)
     logits, cache = model.prefill(params, batch)
-    logits, cache = model.decode_step(params, cache, tokens, pos)
+    logits, cache = model.decode_step(params, cache, tokens, pos)  # writes into ``cache``
 
 All six families are ported, for training and serving: dense, moe, ssm,
 hybrid, audio (the encoder-decoder, ``models/encdec.py``) and vlm (the

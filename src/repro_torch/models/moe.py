@@ -38,7 +38,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import apply_rope, mlp, remat, rms_norm
-from repro_torch.models.spec import ParamSpec, dense, layer, layers, stack_layers, stacked
+from repro_torch.models.spec import ParamSpec, dense, layer, layers, stacked
 from repro_torch.models.transformer import _positions, attn_specs, embed, head, logits, n_stacked
 from repro_torch.models.transformer import cache_specs as dense_cache_specs
 from repro_torch.parallel import tensor as tp
@@ -265,12 +265,13 @@ cache_specs = dense_cache_specs
 def _decode_block(cfg, x, p, layer_cache, pos):
     """One decode token through a moe block (x (B, 1, D) whole; the layer's
     cache as the prefill leaves it): the experts at the rank's shard, as
-    ``moe_ffn`` splits them."""
+    ``moe_ffn`` splits them.  The token's k and v are written into the
+    cache in place."""
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-    a, ck, cv = attn.decode_self_attention(cfg, p["attn"], h, layer_cache["k"], layer_cache["v"], pos)
+    a = attn.decode_self_attention(cfg, p["attn"], h, layer_cache["k"], layer_cache["v"], pos)
     x = x + a
     y, _ = moe_ffn(cfg, rms_norm(x, p["ln_mlp"], cfg.norm_eps), p["moe"])
-    return x + y, {"k": ck, "v": cv}
+    return x + y
 
 
 def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len=None):
@@ -295,11 +296,10 @@ def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len=None):
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos, extras=None):
-    """One decode step.  tokens (B, 1), pos (B,).  Returns (logits, cache);
+    """One decode step.  tokens (B, 1), pos (B,).  Returns (logits, cache),
+    the token written into ``cache`` in place (``attention.write_cache``);
     each layer gathered where it runs (``tp.fsdp``)."""
     x = embed(cfg, params, tokens, False)
-    new = []
     for i in range(n_stacked(params["blocks"])):
-        x, lc = _decode_block(cfg, x, tp.fsdp(layer(params["blocks"], i)), layer(cache["layers"], i), pos)
-        new.append(lc)
-    return head(cfg, params, x), {"layers": stack_layers(new)}
+        x = _decode_block(cfg, x, tp.fsdp(layer(params["blocks"], i)), layer(cache["layers"], i), pos)
+    return head(cfg, params, x), {"layers": cache["layers"]}

@@ -323,13 +323,12 @@ def _rec_step(cfg, x, p, h, conv_state):
 
 def _attn_step(cfg, x, p, k_cache, v_cache, pos):
     """The local attention block's decode step on its ring-buffer cache
-    (the rank's KV heads under tensor parallelism)."""
+    (the rank's KV heads under tensor parallelism), written in place."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    a, ck, cv = attn.decode_self_attention(cfg, p["attn"], h, k_cache, v_cache, pos, ring=True, window=cfg.local_window)
+    a = attn.decode_self_attention(cfg, p["attn"], h, k_cache, v_cache, pos, ring=True, window=cfg.local_window)
     x = x + a
     h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    x = x + mlp(h, p["mlp"], cfg.d_ff, gelu)
-    return x, ck, cv
+    return x + mlp(h, p["mlp"], cfg.d_ff, gelu)
 
 
 def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len=None):
@@ -362,20 +361,18 @@ def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len=None):
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos, extras=None):
     """One decode step; each superblock and tail layer gathered where it
-    runs (``tp.fsdp``)."""
+    runs (``tp.fsdp``).  The token's k and v are written into the ring
+    buffers of ``cache`` in place, which the returned cache holds
+    (``attention.write_cache``); the recurrent states are new tensors."""
     x = embed(cfg, params, tokens, False)
     sb = []
     for i in range(n_stacked(params["superblocks"])):
         p, lc = tp.fsdp(layer(params["superblocks"], i)), layer(cache["superblocks"], i)
         x, h1, cv1 = _rec_step(cfg, x, p["rec1"], lc["rec1_h"], lc["rec1_conv"])
         x, h2, cv2 = _rec_step(cfg, x, p["rec2"], lc["rec2_h"], lc["rec2_conv"])
-        x, ck, cvv = _attn_step(cfg, x, p["attn"], lc["k"], lc["v"], pos)
-        sb.append({
-            "rec1_h": h1, "rec1_conv": cv1,
-            "rec2_h": h2, "rec2_conv": cv2,
-            "k": ck, "v": cvv,
-        })
-    new_cache = {"superblocks": stack_layers(sb)}
+        x = _attn_step(cfg, x, p["attn"], lc["k"], lc["v"], pos)
+        sb.append({"rec1_h": h1, "rec1_conv": cv1, "rec2_h": h2, "rec2_conv": cv2})
+    new_cache = {"superblocks": {**stack_layers(sb), "k": cache["superblocks"]["k"], "v": cache["superblocks"]["v"]}}
     if "tail" in params:
         tail = []
         for i in range(n_stacked(params["tail"])):

@@ -23,7 +23,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     apply_rope, embed_tokens, last_token, lm_logits, mlp, post_collective, remat, rms_norm,
 )
-from repro_torch.models.spec import ParamSpec, dense, layer, layers, stack_layers, stacked, torch_dtype
+from repro_torch.models.spec import ParamSpec, dense, layer, layers, stacked, torch_dtype
 from repro_torch.parallel import tensor as tp
 
 
@@ -96,15 +96,14 @@ def self_attn_block(cfg: ArchConfig, x, p, pos, *, window=None, seq: bool = Fals
 def self_attn_block_decode(cfg: ArchConfig, x, p, layer_cache, pos, *, window=None, ring: bool = False):
     """One decode token through a dense block: x (B, 1, D) whole; the
     layer's cache as the prefill leaves it (the rank's rows and KV heads
-    under tensor parallelism, ``attention.cached_attention``); with ``ring``
-    the cache is a ring buffer of the last ``window`` positions."""
+    under tensor parallelism, ``attention.cached_attention``), which takes
+    the token's k and v in place; with ``ring`` the cache is a ring buffer
+    of the last ``window`` positions."""
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-    a, ck, cv = attn.decode_self_attention(cfg, p["attn"], h, layer_cache["k"], layer_cache["v"], pos, ring=ring,
-                                           window=window)
-    x = x + a
+    x = x + attn.decode_self_attention(cfg, p["attn"], h, layer_cache["k"], layer_cache["v"], pos, ring=ring,
+                                       window=window)
     h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    x = x + mlp(h, p["mlp"], cfg.d_ff, F.silu)
-    return x, {"k": ck, "v": cv}
+    return x + mlp(h, p["mlp"], cfg.d_ff, F.silu)
 
 
 # ---------------------------------------------------------------------------
@@ -230,13 +229,13 @@ def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len: Optional[in
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos, extras=None):
-    """One decode step.  tokens (B, 1), pos (B,).  Returns (logits, cache).
-    Inside a sharded step each layer's dp shards are gathered where it runs
-    (``tp.fsdp``; nothing under "serve_2dtp"), the embedding and the head
-    where they are used, and the "model" shards computed on."""
+    """One decode step.  tokens (B, 1), pos (B,).  Returns (logits, cache):
+    the token is written into ``cache`` in place, which is returned
+    (``attention.write_cache``).  Inside a sharded step each layer's dp
+    shards are gathered where it runs (``tp.fsdp``; nothing under
+    "serve_2dtp"), the embedding and the head where they are used, and the
+    "model" shards computed on."""
     x = embed(cfg, params, tokens, False)
-    new = []
     for i in range(n_stacked(params["blocks"])):
-        x, lc = self_attn_block_decode(cfg, x, tp.fsdp(layer(params["blocks"], i)), layer(cache["layers"], i), pos)
-        new.append(lc)
-    return head(cfg, params, x), {"layers": stack_layers(new)}
+        x = self_attn_block_decode(cfg, x, tp.fsdp(layer(params["blocks"], i)), layer(cache["layers"], i), pos)
+    return head(cfg, params, x), {"layers": cache["layers"]}

@@ -186,20 +186,15 @@ def prefill(cfg: ArchConfig, params, tokens, extras=None, cache_len: Optional[in
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos, extras=None):
-    """One decode step.  tokens (B, 1), pos (B,).  The self caches are
-    written into copies; the image K/V pass through unchanged.  Each
+    """One decode step.  tokens (B, 1), pos (B,).  The token is written into
+    the self caches in place (``attention.write_cache``), and the cache
+    returned is ``cache``; the image K/V pass through unchanged.  Each
     superblock gathered where it runs (``tp.fsdp``)."""
     x = embed(cfg, params, tokens, False)
     sbs = cache["superblocks"]
-    ks, vs = [], []  # every self layer's new cache, stacked once at the end
     for i in range(n_stacked(params["superblocks"])):
         p, lc = tp.fsdp(layer(params["superblocks"], i)), layer(sbs, i)
         for j in range(n_stacked(p["self"])):
-            x, c = self_attn_block_decode(cfg, x, layer(p["self"], j), {"k": lc["k"][j], "v": lc["v"][j]}, pos)
-            ks.append(c["k"])
-            vs.append(c["v"])
+            x = self_attn_block_decode(cfg, x, layer(p["self"], j), {"k": lc["k"][j], "v": lc["v"][j]}, pos)
         x = _xattn_block_cached(cfg, x, p["xattn"], lc["img_k"], lc["img_v"])
-    grid = tuple(sbs["k"].shape[:2])  # (n_super, period - 1)
-    out = {"k": torch.stack(ks).unflatten(0, grid), "v": torch.stack(vs).unflatten(0, grid),
-           "img_k": sbs["img_k"], "img_v": sbs["img_v"]}
-    return head(cfg, params, x), {"superblocks": out}
+    return head(cfg, params, x), {"superblocks": sbs}

@@ -477,7 +477,10 @@ def make_decode_step(model: Model, *, strategy: Optional[Strategy] = None, mesh=
     "serve_2dtp"); under tensor parallelism the rank computes on its
     "model" shards, and under ``strategy.flash_decode`` the attention
     splits the cache's sequence over "model" where the rank's cache holds
-    every KV head.  The logits come back global."""
+    every KV head.  The logits come back global.  The step writes its
+    token into ``cache`` in place and returns it (``attention.write_cache``),
+    as the reference's jitted step donates its cache: decoding twice from
+    one cache takes a copy."""
     if mesh is None:
         def decode_step(params, cache, batch):
             with torch.no_grad():

@@ -246,7 +246,12 @@ def driver_worker(rank: int, world: int, ckpt_dir: str) -> dict:
 
 def greedy_decode(decode, params, cache, logits: torch.Tensor, pos: int, steps: int) -> list:
     """``steps`` decode steps from a prefill's last logits, each feeding its
-    greedy token back: one (tokens (B, 1), logits) a step."""
+    greedy token back: one (tokens (B, 1), logits) a step.  A decode step
+    writes its cache in place, so the steps run on a copy of ``cache``,
+    which the caller keeps as the prefill left it."""
+    from repro_torch.models.spec import tree_map
+
+    cache = tree_map(torch.clone, cache)
     out = []
     for i in range(steps):
         tokens = logits[:, -1].argmax(-1)[:, None].int()

@@ -7,7 +7,8 @@ per block against the H100's 227 KB and scores with the card's peaks -- so
 the pruned frontier and the model-timer winner are held equal only with the
 budgets and constants set to the reference's.  The behavioural tests are the
 reference's (tests/test_autotune.py), run on the port; the wall timer's
-dedupe by launch key is the port's own.
+dedupe by launch key, and the launch keys (each kernel's route and the
+variant its launcher's ``tile`` maps a config to), are the port's own.
 """
 from __future__ import annotations
 
@@ -23,8 +24,12 @@ from repro_torch.core import Hydra, ProviderSpec, Task
 from repro_torch.core.events import EventBus
 from repro_torch.core.staging import SHARED_SITE, DatasetRegistry
 from repro_torch.kernels import autotune as tat
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import moe_gmm as tgmm
 from repro_torch.kernels import ops
 from repro_torch.kernels import registry as kreg
+from repro_torch.kernels import rglru_scan as trg
+from repro_torch.kernels import selective_scan as tss
 from repro_torch.kernels.autotune import (
     Autotuner,
     autotune_enabled,
@@ -310,42 +315,203 @@ def _counting(monkeypatch, name, launch_key=None):
     return calls
 
 
+def _fake_clock(monkeypatch):
+    """perf_counter as a counter: every timed call takes one second, so
+    every candidate ties and the canonical first wins."""
+    ticks = iter(range(1 << 30))
+    monkeypatch.setattr(tat.time, "perf_counter", lambda: float(next(ticks)))
+
+
 def test_wall_timer_times_one_candidate_per_launch_key(monkeypatch):
-    """Every config of the port's flash_attention shares one launch (its
-    route), so the sweep runs one candidate, warm-up plus reps, and the
-    canonical first survivor wins the tie."""
+    """The flash_attention smoke tier's survivors map to three tf32x3
+    variants (k rows 16, 32 and 64 a streamed tile): the sweep runs the
+    canonical first config of each launch key, warm-up plus reps, and gives
+    its time to every config sharing the key."""
     name, shape = "flash_attention", _shape("flash_attention", "smoke")
+    kdef = kreg.get_kernel(name)
     calls = _counting(monkeypatch, name)
+    _fake_clock(monkeypatch)
     tuner = Autotuner(timer="wall", device="cpu", reps=2, warmup=1)
     survivors, _ = tuner.prune(name, shape)
-    assert len(survivors) > 1
+    first = {}
+    for c in survivors:
+        first.setdefault(kdef.launch_key(shape, c, "float32"), kreg.config_sig(c))
+    assert len(survivors) > len(first) > 1
+    assert tuner.variants(name, shape, "float32", survivors) == []  # the frontier reaches every variant
     result = tuner.tune(name, shape)
-    assert len(calls) == 3 and set(calls) == {kreg.config_sig(survivors[0])}
+    assert sorted(calls) == sorted(3 * list(first.values()))
+    assert result.timed == len(first)
     assert result.config == survivors[0]
     assert set(result.timings) == {kreg.config_sig(c) for c in survivors}
-    assert len(set(result.timings.values())) == 1
+    for c in survivors:
+        assert result.timings[kreg.config_sig(c)] == result.timings[first[kdef.launch_key(shape, c, "float32")]]
 
 
 def test_wall_timer_times_each_distinct_launch_key(monkeypatch):
+    """With a launch a config, the survivors are timed and so is every
+    other config of the space, each the one config of its launch key (the
+    model, which prices the reference's tiling, rules out no launch)."""
     name, shape = "flash_attention", _shape("flash_attention", "smoke")
     calls = _counting(monkeypatch, name, launch_key=lambda s, c, d: (kreg.config_sig(c),))
     tuner = Autotuner(timer="wall", device="cpu", reps=2, warmup=1)
     survivors, _ = tuner.prune(name, shape)
+    space = kreg.get_kernel(name).space(shape)
     result = tuner.tune(name, shape)
-    assert len(calls) == 3 * len(survivors)
-    assert result.config in survivors
+    assert len(calls) == 3 * len(space) and result.timed == len(space)
+    assert result.swept == len(survivors) < len(space)
+    assert set(result.timings) == {kreg.config_sig(c) for c in space}
     assert result.best_s == min(result.timings.values())
 
 
-def test_launch_keys_are_the_routes():
-    for name, kdef in kreg.KERNELS.items():
-        shape = dict(kdef.smoke_shape)
-        keys = {kdef.launch_key(shape, c, "float32") for c in kdef.space(shape)}
-        want = {"flash_attention": {("tf32x3",)}, "moe_gmm": {("tf32x3",)}}.get(name, {("cuda",)})
-        assert keys == want
-    gmm = kreg.get_kernel("moe_gmm")
-    assert gmm.launch_key({"E": 1, "C": 64, "D": 128, "F": 128}, {}, "bfloat16") == ("wgmma",)
-    assert gmm.launch_key({"E": 1, "C": 64, "D": 128, "F": 50}, {}, "float32") == ("mma",)
+@pytest.mark.parametrize("name", sorted(kreg.KERNELS))
+def test_wall_sweep_times_every_launch_of_the_full_tier(monkeypatch, name):
+    """At each kernel's full tier the wall sweep runs every fp32 variant
+    the space reaches, at least two, one candidate each: the frontier's,
+    then for each variant it misses that variant's best-modeled config."""
+    kdef = kreg.get_kernel(name)
+    shape = _shape(name, "full")
+    keys = {kdef.launch_key(shape, c, "float32") for c in kdef.space(shape)}
+    calls = _counting(monkeypatch, name)
+    _fake_clock(monkeypatch)
+    tuner = Autotuner(timer="wall", device="cpu", reps=1, warmup=0)
+    survivors, _ = tuner.prune(name, shape)
+    added = tuner.variants(name, shape, "float32", survivors)
+    assert {kdef.launch_key(shape, c, "float32") for c in survivors + added} == keys
+    result = tuner.tune(name, shape)
+    assert result.timed == len(keys) == len(calls) >= 2 and len(set(calls)) == len(keys)
+    assert result.swept == len(survivors)
+    for c in added:  # no config of its launch key is modeled faster
+        same = [o for o in kdef.space(shape) if kdef.launch_key(shape, o, "float32") == kdef.launch_key(shape, c, "float32")]
+        assert all(tuner.model_time_s(kdef.tile_cost(shape, o, "float32")) >= tuner.model_time_s(kdef.tile_cost(shape, c, "float32"))
+                   for o in same)
+
+
+# the launcher module whose ``tile`` each kernel's launch key reads
+TILES = {"flash_attention": tfa, "selective_scan": tss, "rglru_scan": trg, "moe_gmm": tgmm}
+# the tiles the kernels were compiled with before they took a config
+# (csrc/rglru_scan.cu DC 32; csrc/selective_scan.cu DC 32;
+# csrc/flash_attention.cu kRows 64 and BN 32; csrc/gmm.cuh tf32x3 BN 128, STAGES 3)
+TODAYS_TILES = {"rglru_scan": (32,), "selective_scan": (32,), "flash_attention": (64, 32), "moe_gmm": (128, 3)}
+ROUTES = {"flash_attention": "tf32x3", "moe_gmm": "tf32x3", "selective_scan": "cuda", "rglru_scan": "cuda"}
+
+
+@pytest.mark.parametrize("name", sorted(kreg.KERNELS))
+def test_launch_keys_are_the_route_and_the_tile(name):
+    """A launch key is the route and the variant the launcher's ``tile``
+    maps the config to (attention's blocks clamped to L first, as the
+    registry's call hands them to ``ops``).  The routes without a knob keep
+    one key: the bf16 GEMM and attention on ``wgmma``, the GEMM's ``mma``,
+    fp32 attention at hd 256 on ``tf32x3_cluster``."""
+    kdef = kreg.get_kernel(name)
+    for tier in TIERS:
+        shape = _shape(name, tier)
+        for c in kdef.space(shape):
+            seen = c
+            if name == "flash_attention":
+                seen = {k: min(v, shape["L"]) for k, v in c.items()}
+            want = (ROUTES[name],) + TILES[name].tile(shape, seen, torch.float32)
+            assert kdef.launch_key(shape, c, "float32") == want, (tier, c)
+    if name == "moe_gmm":
+        assert kdef.launch_key({"E": 1, "C": 64, "D": 128, "F": 128}, kdef.defaults({}), "bfloat16") == ("wgmma",)
+        assert kdef.launch_key({"E": 1, "C": 64, "D": 128, "F": 50}, kdef.defaults({}), "float32") == ("mma",)
+    if name == "flash_attention":
+        shape = {**_shape(name, "smoke"), "hd": 256}
+        assert {kdef.launch_key(shape, c, "float32") for c in kdef.space(shape)} == {("tf32x3_cluster",)}
+        assert {kdef.launch_key(_shape(name, "smoke"), c, "bfloat16") for c in kdef.space(shape)} == {("wgmma",)}
+
+
+@pytest.mark.parametrize("name", sorted(kreg.KERNELS))
+def test_the_default_config_launches_todays_tile(name):
+    kdef = kreg.get_kernel(name)
+    for tier in TIERS:
+        shape = _shape(name, tier)
+        assert TILES[name].tile(shape, kdef.defaults(shape), torch.float32) == TODAYS_TILES[name], tier
+        assert kdef.launch_key(shape, kdef.defaults(shape), "float32") == (ROUTES[name],) + TODAYS_TILES[name]
+
+
+# the exp14 demo problems (benchmarks/kernels_bench.py: DEMO_SHAPES)
+EXP14 = [("rglru_scan", {"B": 1, "L": 64, "dr": 1024}), ("selective_scan", {"B": 1, "chunk": 32, "di": 1024, "N": 8})]
+
+
+@pytest.mark.parametrize("name,shape", EXP14)
+def test_exp14_shapes_sweep_distinct_launches(monkeypatch, name, shape):
+    """At the exp14 demo shapes each scan's space maps to at least three
+    variants (four: 8, 16, 32 and 64 channels a block).  The pruner keeps
+    one survivor there, the widest block whose reference tiles fit (the
+    reference's frontier collapses on the scans), whose variant is not the
+    default's; the wall timer runs it and one candidate of each other
+    variant, so the default's variant is timed too, and the pruner's cut
+    (``swept``) stays the reference's."""
+    kdef = kreg.get_kernel(name)
+    space = kdef.space(shape)
+    keys = {kdef.launch_key(shape, c, "float32") for c in space}
+    assert len(keys) >= 3
+    tuner = Autotuner(timer="wall", device="cpu", reps=2, warmup=1)
+    (survivor,), _ = tuner.prune(name, shape)
+    assert kdef.launch_key(shape, survivor, "float32") != kdef.launch_key(shape, kdef.defaults(shape), "float32")
+    calls = _counting(monkeypatch, name)
+    _fake_clock(monkeypatch)
+    result = tuner.tune(name, shape)
+    assert len(calls) == 3 * len(keys) and len(set(calls)) == len(keys) == result.timed
+    assert kreg.config_sig(kdef.defaults(shape)) in result.timings
+    assert {kdef.launch_key(shape, c, "float32") for c in space if kreg.config_sig(c) in result.timings} == keys
+    assert result.swept == 1 and result.sweep_cut >= 2.0
+    assert result.config == survivor  # every launch ties on the fake clock: the frontier's first wins
+
+
+def _producible(name: str) -> set:
+    """Every (shape, tile) the mapping gives at the registry's tiers and
+    the exp14 shapes, in both dtypes, and at every head width and state
+    width a route is built for."""
+    kdef = kreg.get_kernel(name)
+    shapes = [_shape(name, t) for t in TIERS] + [s for n, s in EXP14 if n == name]
+    if name == "flash_attention":
+        shapes += [{**s, "hd": hd} for s in list(shapes) for hd in tfa.ROUTE_DIMS[torch.float32]["tf32x3"]]
+    if name == "selective_scan":
+        shapes += [{**s, "N": n} for s in list(shapes) for n in (1, 4, 8, 16, 32, 33, 64)]
+    out = set()
+    for shape in shapes:
+        for c in kdef.space(shape) + [kdef.defaults(shape)]:
+            for dtype in (torch.float32, torch.bfloat16):
+                out.add((tuple(sorted(shape.items(), key=str)), TILES[name].tile(shape, c, dtype), dtype))
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(kreg.KERNELS))
+def test_every_tile_the_mapping_gives_fits_a_block(name):
+    """Each variant the mapping can produce fits 227 KB of shared memory by
+    the arithmetic the CUDA source lays out (each launcher module's
+    ``smem_bytes``, named in the source's comment), and the scan's blocks
+    hold at most 512 threads.  A block the route cannot hold maps to the
+    nearest one it can: attention at head width 128 takes 32 k rows for 64."""
+    for shape, t, dtype in _producible(name):
+        shape = dict(shape)
+        if not t:
+            continue
+        if name == "rglru_scan":
+            need = trg.smem_bytes(*t)
+        elif name == "selective_scan":
+            need = tss.smem_bytes(t[0], shape["N"], dtype)
+            assert t[0] * max(4, 1 << (shape["N"] - 1).bit_length()) // 4 <= tss.MAX_THREADS
+        elif name == "flash_attention":
+            need = tfa.smem_bytes(shape["hd"], t[1], dtype)
+        else:
+            need = tgmm.smem_bytes(*t)
+        assert need <= tat.SMEM_BUDGET_BYTES, (shape, t, need)
+    assert tfa.tile({"hd": 128}, {"block_q": 128, "block_k": 512}) == (64, 32)
+    assert tfa.smem_bytes(128, 64) > tat.SMEM_BUDGET_BYTES >= tfa.smem_bytes(64, 64)
+    assert tss.tile({"N": 64}, {"block_d": 1024}) == (32,) and tss.tile({"N": 32}, {"block_d": 1024}) == (64,)
+
+
+@pytest.mark.parametrize("name", sorted(kreg.KERNELS))
+def test_larger_blocks_never_map_to_smaller_tiles(name):
+    kdef = kreg.get_kernel(name)
+    shape = _shape(name, "full")
+    for a in kdef.space(shape):
+        for b in kdef.space(shape):
+            if all(b[k] >= a[k] for k in a):
+                ta, tb = (TILES[name].tile(shape, c, torch.float32) for c in (a, b))
+                assert all(y >= x for x, y in zip(ta, tb)), (a, b, ta, tb)
 
 
 # ---------------------------------------------------------------------------

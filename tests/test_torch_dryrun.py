@@ -144,7 +144,10 @@ _REFERENCE_MINI = textwrap.dedent("""
                   in_shardings=(named(sh.params), named(sh.cache), named(sh.batch)),
                   out_shardings=(NamedSharding(mesh, logits_ps), named(sh.cache)), donate_argnums=(1,))
     mem = jfn.lower(model.abstract_params(), model.abstract_cache(B, L), batch_specs).compile().memory_analysis()
-    out["decode"] = {"argument_size_in_bytes": int(mem.argument_size_in_bytes)}
+    out["decode"] = {f: int(getattr(mem, f)) for f in ("argument_size_in_bytes", "output_size_in_bytes", "alias_size_in_bytes")}
+    # the logits leave the reference's step as the rank's shard
+    shard = NamedSharding(mesh, logits_ps).shard_shape((B, 1, arch.vocab_size))
+    out["decode"]["logits_shard_bytes"] = int(4 * shard[0] * shard[1] * shard[2])
     print("MINI_MEMORY " + json.dumps(out))
 """) % {"archs": MINI_ARCHS, "widths": MINI_WIDTHS, "decode_arch": MINI_DECODE[0], "decode_cut": MINI_DECODE[1],
        "decode_shape": (MINI_DECODE_SHAPE.global_batch, MINI_DECODE_SHAPE.seq_len)}
@@ -198,6 +201,23 @@ def test_mini_dry_run_decode_cell_arguments_match_the_reference():
     counts, io = dryrun.run_counted(fn, args, meta)
     assert io["argument"] == mini_reference()["decode"]["argument_size_in_bytes"], (io, mini_reference()["decode"])
     assert counts.collectives.bytes_by_op["all-reduce"] > 0 and tp.COLLECTIVES.param_bytes == 0, counts.collectives.row()
+
+
+def test_mini_dry_run_decode_cell_writes_its_cache_in_place_as_the_reference_donates_it():
+    """The reference's decode step donates its cache (``donate_argnums=(1,)``)
+    and XLA writes the new cache over it; the port's step writes the token
+    into the cache it is given and returns that cache.  The output bytes
+    (logits and cache) and the aliased bytes (the cache) are the
+    reference's, as the train cells' are, but for the logits: the port's
+    step returns them global (a difference by design, ROADMAP §3), the
+    reference's as the rank's shard."""
+    arch = _mini_arch(MINI_DECODE[0]).replace(**MINI_DECODE[1])
+    fn, args, meta = dryrun.build_cell(arch, MINI_DECODE_SHAPE, MINI_MESH, "tp")
+    counts, io = dryrun.run_counted(fn, args, meta)
+    got, want = dryrun._mem_fields(counts, io), mini_reference()["decode"]
+    logits_bytes = 4 * MINI_DECODE_SHAPE.global_batch * arch.vocab_size
+    assert got["output_size_in_bytes"] - logits_bytes == want["output_size_in_bytes"] - want["logits_shard_bytes"], (got, want)
+    assert got["alias_size_in_bytes"] == want["alias_size_in_bytes"] == dryrun._nbytes(args[1]) > 0, (got, want)
 
 
 # ---------------------------------------------------------------------------

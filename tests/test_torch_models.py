@@ -154,6 +154,49 @@ def test_forward_prefill_and_decode_match_the_reference(name):
     assert ops.launch_counts() == before  # CPU tensors: the plain versions ran
 
 
+def _copying_write_cache(cache_k, cache_v, k_t, v_t, pos):
+    """The decode step's cache write before it wrote in place: new caches,
+    the arguments left as they were."""
+    rows = torch.arange(cache_k.shape[0])
+    cache_k, cache_v = cache_k.clone(), cache_v.clone()
+    cache_k[rows, pos.long()] = k_t[:, 0]
+    cache_v[rows, pos.long()] = v_t[:, 0]
+    return cache_k, cache_v
+
+
+@pytest.mark.parametrize("name,key", [("llama3-8b", "layers"), ("recurrentgemma-2b", "superblocks"),
+                                      ("seamless-m4t-medium", "layers")])
+def test_decode_step_writes_the_cache_it_is_given(monkeypatch, name, key):
+    """A decode step writes its token into the cache it is given, as the
+    reference's jitted step writes into the cache it donates, and returns
+    that cache: the same storage, holding what the copying write gave, and
+    logits equal to the copying path's, bit for bit (a linear cache, a ring
+    buffer past its window, an encoder-decoder's self cache)."""
+    from repro_torch.models import attention as tattn
+
+    cfg = get_arch(name).reduced()
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    L = 20 if cfg.family == "hybrid" else 12  # past the reduced local window of 16
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (B, L + 2)).astype(np.int32))
+    extras = {k: torch.from_numpy(v) for k, v in frontend_extras(cfg, B).items()}
+    with torch.no_grad():
+        _, cache = model.prefill(params, {"tokens": toks[:, :L], **extras}, cache_len=L + 2)
+        for i in range(2):
+            tok, pos = toks[:, L + i:L + i + 1], torch.full((B,), L + i, dtype=torch.int32)
+            kept = tspec.tree_map(torch.clone, cache)
+            with monkeypatch.context() as m:
+                m.setattr(tattn, "write_cache", _copying_write_cache)
+                want, _ = model.decode_step(params, kept, tok, pos)
+            assert all(torch.equal(a, b) for a, b in zip(tspec.tree_leaves(kept), tspec.tree_leaves(cache)))
+            ptrs = {k: cache[key][k].data_ptr() for k in ("k", "v")}
+            logits, new = model.decode_step(params, cache, tok, pos)
+            assert torch.equal(logits, want)
+            assert {k: new[key][k].data_ptr() for k in ("k", "v")} == ptrs
+            assert not torch.equal(new[key]["k"], kept[key]["k"])
+            cache = new
+
+
 @pytest.mark.parametrize("prompt", [16, 20, 37])
 def test_hybrid_past_its_window_matches_the_reference(prompt):
     """Prompts as long as the reduced local window (16) and longer: the

@@ -376,7 +376,7 @@ def test_moe_gmm_function_wires_the_backward_on_cpu_tensors(monkeypatch):
         asked.append((need_dx, need_dw))
         return plain_bwd(x, w, dy, need_dx, need_dw)
 
-    monkeypatch.setattr(tgmm, "moe_gmm", ref.moe_gmm_ref)
+    monkeypatch.setattr(tgmm, "moe_gmm", lambda x, w, config=None: ref.moe_gmm_ref(x, w))
     monkeypatch.setattr(ref, "moe_gmm_bwd_ref", backward)
     g = torch.Generator().manual_seed(0)
     x, w = torch.randn(3, 20, 16, generator=g), torch.randn(3, 16, 24, generator=g)

@@ -682,7 +682,8 @@ def compare_flash_decode(tmp_path) -> dict:
         toks = torch.from_numpy(np.asarray(ref[name]["tokens"]))
         _, cache = tstep.make_prefill_step(model, DECODE_L + 1)(params, {"tokens": toks[:, :DECODE_L]})
         batch = {"tokens": toks[:, DECODE_L:], "pos": torch.full((DECODE_B,), DECODE_L, dtype=torch.int32)}
-        want[name] = tstep.make_decode_step(model)(params, cache, batch)[0]
+        # a decode step writes its cache in place: the ranks decode from the prefill's
+        want[name] = tstep.make_decode_step(model)(params, tspec.tree_map(torch.clone, cache), batch)[0]
         cases.append({"arch": name, "cut": cut, "params": params, "cache": cache, "cache_len": DECODE_L + 1, **batch})
     payload = os.path.join(tmp_path, "decode.pt")
     torch.save(cases, payload)

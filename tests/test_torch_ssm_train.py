@@ -286,7 +286,7 @@ def routed_as_on_card(monkeypatch):
     real = ops._on_card
     monkeypatch.setattr(ops, "_on_card", lambda *args: real(*args) or True)
 
-    def forward(*args):
+    def forward(*args, config=None):
         tss.LAUNCHES.bump()
         return ref.selective_scan_chunk_ref(*args)
 

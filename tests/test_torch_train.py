@@ -238,7 +238,7 @@ def test_attention_function_wires_the_backward_on_cpu_tensors(monkeypatch):
     will be taken."""
     seen = {"forward": [], "backward": []}
 
-    def forward(q, k, v, causal, window, lse=None):  # the launcher: fills lse, returns o
+    def forward(q, k, v, causal, window, lse=None, config=None):  # the launcher: fills lse, returns o
         seen["forward"].append(lse)
         if lse is not None:
             lse.copy_(ref.attention_lse_ref(q, k, causal=causal, window=window))
@@ -287,7 +287,7 @@ def test_attention_function_wires_the_backward_on_cpu_tensors(monkeypatch):
 
 
 def test_rglru_function_wires_the_backward_on_cpu_tensors(monkeypatch):
-    monkeypatch.setattr(trg, "rglru_scan", lambda log_a, gx, h0: ref.rglru_ref(log_a, gx, h0))
+    monkeypatch.setattr(trg, "rglru_scan", lambda log_a, gx, h0, config=None: ref.rglru_ref(log_a, gx, h0))
     g = torch.Generator().manual_seed(1)
     log_a = (-torch.rand(2, 19, 8, generator=g)).requires_grad_()
     gx, h0 = torch.randn(2, 19, 8, generator=g).requires_grad_(), torch.randn(2, 8, generator=g).requires_grad_()
